@@ -1,0 +1,105 @@
+"""Batch inference for the short-term model: arrays in, PNG masks out.
+
+Counterpart of :mod:`emip_tpu.infer` for the short model: frame pairs are
+batched through one device forward (:func:`predict_arrays`); decoding and
+the variable-shape post-processing (bilinear resize to native size,
+sigmoid, min-max, PNG) run on host threads. PIL is imported lazily.
+"""
+
+from __future__ import annotations
+
+import functools
+import os
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+from emip_tpu_torch.data import load_frame, scan_pairs
+
+__all__ = ["predict_arrays", "predict_pairs", "postprocess_to_png"]
+
+
+@torch.inference_mode()
+def predict_arrays(model, img1: torch.Tensor, img2: torch.Tensor):
+    """NCHW frame batches on the model's device -> (mask logits
+    [B, 1, H, W], forward flow [B, 2, H, W])."""
+    mask, flow_fw, _ = model(img1, img2)
+    return mask, flow_fw[-1]
+
+
+@functools.lru_cache(maxsize=64)
+def _linear_weights(in_size: int, out_size: int) -> np.ndarray:
+    """[out, in] 1-D bilinear weights, align_corners=False (torch rule)."""
+    w = np.zeros((out_size, in_size), dtype=np.float32)
+    if in_size == 1:
+        w[:, 0] = 1.0
+        return w
+    src = (np.arange(out_size, dtype=np.float64) + 0.5) * (in_size / out_size)
+    src = np.clip(src - 0.5, 0.0, in_size - 1)
+    lo = np.floor(src).astype(np.int64)
+    hi = np.minimum(lo + 1, in_size - 1)
+    frac = (src - lo).astype(np.float32)
+    rows = np.arange(out_size)
+    np.add.at(w, (rows, lo), 1.0 - frac)
+    np.add.at(w, (rows, hi), frac)
+    return w
+
+
+def postprocess_to_png(logits_hw: np.ndarray, orig_hw, path: str) -> None:
+    """logits [h, w] -> bilinear resize -> sigmoid -> min-max -> PNG."""
+    from PIL import Image
+
+    wh = _linear_weights(logits_hw.shape[0], int(orig_hw[0]))
+    ww = _linear_weights(logits_hw.shape[1], int(orig_hw[1]))
+    up = np.einsum("ph,hw->pw", wh, logits_hw.astype(np.float32))
+    up = np.einsum("qw,pw->pq", ww, up)
+    pred = 1.0 / (1.0 + np.exp(-up))
+    pred = (pred - pred.min()) / (pred.max() - pred.min() + 1e-8)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    Image.fromarray(pred * 255).convert("L").save(path)
+
+
+def _batched(items, n):
+    for i in range(0, len(items), n):
+        yield items[i:i + n]
+
+
+def predict_pairs(model, images_root: str, save_path: str, size: int = 352,
+                  dataset_type: str = "MoCA", batch_size: int = 8,
+                  device: torch.device | str = "cpu",
+                  return_flow: bool = False):
+    """Run the short model over every frame pair; save per-video PNGs.
+
+    The last batch is padded to ``batch_size`` by repeating its last pair.
+    With ``return_flow``, returns [(video, frame_name, flow [H, W, 2])].
+    """
+    items = scan_pairs(images_root, dataset_type)
+    results = []
+    with ThreadPoolExecutor(8) as pool:
+        for chunk in _batched(items, batch_size):
+            n = len(chunk)
+            frames = list(pool.map(
+                lambda it: (load_frame(it.image1, size),
+                            load_frame(it.image2, size)), chunk))
+            img1 = np.stack([f[0][0] for f in frames])
+            img2 = np.stack([f[1][0] for f in frames])
+            if n < batch_size:
+                pad = batch_size - n
+                img1 = np.concatenate([img1, img1[-1:].repeat(pad, 0)])
+                img2 = np.concatenate([img2, img2[-1:].repeat(pad, 0)])
+            t1 = torch.from_numpy(img1.transpose(0, 3, 1, 2)).to(device)
+            t2 = torch.from_numpy(img2.transpose(0, 3, 1, 2)).to(device)
+            masks, flows = predict_arrays(model, t1, t2)
+            masks = masks[:n, 0].float().cpu().numpy()
+            jobs = [pool.submit(postprocess_to_png, logits, f[0][1],
+                                os.path.join(save_path, it.video,
+                                             it.frame_name + ".png"))
+                    for it, logits, f in zip(chunk, masks, frames)]
+            if return_flow:
+                fl = flows[:n].permute(0, 2, 3, 1).float().cpu().numpy()
+                results.extend((it.video, it.frame_name, f)
+                               for it, f in zip(chunk, fl))
+            for j in jobs:
+                j.result()
+    return results
