@@ -2,8 +2,10 @@
 
 Each public function takes the JAX package's layout, runs its plain
 PyTorch version on CPU tensors and its CUDA kernel on CUDA tensors, and
-counts its kernel launches in :data:`LAUNCHES`. The kernels are built from
-``emip_tpu_torch/csrc`` at first use (:func:`library`).
+counts its kernel launches in :data:`LAUNCHES`. Kernels A-D are
+``torch.autograd.Function``s whose CUDA backward is a kernel too; E is
+forward only. The kernels are built from ``emip_tpu_torch/csrc`` at first
+use (:func:`library`).
 """
 
 from emip_tpu_torch.kernels._build import KernelBuildError, library
@@ -16,6 +18,7 @@ from emip_tpu_torch.kernels.flow_attention import (
     fused_flow_attention,
     fused_flow_attention_reference,
 )
+from emip_tpu_torch.kernels.splat import splat_density, splat_density_reference
 from emip_tpu_torch.kernels.sr_attention import (
     fused_sr_attention,
     fused_sr_attention_reference,
@@ -38,4 +41,6 @@ __all__ = [
     "fused_window_attention_block_reference",
     "library",
     "reset_launches",
+    "splat_density",
+    "splat_density_reference",
 ]

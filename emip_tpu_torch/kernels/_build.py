@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 The sources in ``emip_tpu_torch/csrc/*.cu`` are compiled at first use by
-``nvcc`` into one shared library with a plain C interface, which is loaded
-with ``ctypes``. The library goes to ``build/emip_tpu_torch/<hash>/`` under
+``nvcc``, one process per source, all started together, and linked into
+one shared library with a plain C interface, which is loaded with
+``ctypes``. The library goes to ``build/emip_tpu_torch/<hash>/`` under
 the repository root, keyed by a hash of the sources and the flags, so an
 edited source is rebuilt and an unchanged one is not. Nothing here runs
 when the module is imported.
@@ -26,17 +27,24 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "emip_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 # argument types of each C entry point (pointers, then ints/floats, stream)
 _SIGNATURES = {
     "emip_sr_attention": [_P] * 12 + [_I] * 5 + [_P],
-    "emip_window_block": [_P] * 19 + [_I] + [_P] * 6 + [_I] * 4 + [_F, _P],
+    "emip_sr_attention_bwd": [_P] * 21 + [_L] + [_I] * 5 + [_P],
+    "emip_window_block": [_P] * 19 + [_I] + [_P] * 11 + [_I] * 4 + [_F, _P],
+    "emip_window_block_bwd": ([_P] * 16 + [_I] + [_P] * 30 + [_L]
+                              + [_I] * 4 + [_F, _P]),
     "emip_flow_attention": [_P] * 4 + [_I] * 4 + [_P],
+    "emip_flow_attention_bwd": [_P] * 9 + [_L] + [_I] * 4 + [_P],
     "emip_convex_upsample": [_P] * 3 + [_I] * 4 + [_P],
+    "emip_convex_upsample_bwd": [_P] * 6 + [_I] * 4 + [_P],
+    "emip_splat_density": [_P] * 2 + [_I] * 3 + [_P],
 }
 
 
@@ -79,23 +87,35 @@ def _digest() -> str:
 
 def _compile(nvcc: str, out: Path) -> None:
     out.parent.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    # build to a temporary name, then rename: a concurrent loader never
-    # sees a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *cu]
-    try:
+    # build in a temporary directory, then rename: a concurrent loader
+    # never sees a half-written library
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        procs = []
+        for src in sorted(CSRC.glob("*.cu")):
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o",
+                   os.path.join(tmp, src.stem + ".o")]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed = []
+        for cmd, proc in procs:
+            log = proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append("nvcc failed (exit %d): %s\n%s" % (
+                    proc.returncode, " ".join(cmd), log[-4000:]))
+        if failed:
+            raise KernelBuildError("\n".join(failed))
+        lib = os.path.join(tmp, out.name)
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", lib,
+               *(os.path.join(tmp, p.stem + ".o")
+                 for p in sorted(CSRC.glob("*.cu")))]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise KernelBuildError(
-                "nvcc failed (exit %d): %s\n%s" % (
+                "nvcc link failed (exit %d): %s\n%s" % (
                     proc.returncode, " ".join(cmd),
                     proc.stderr[-4000:] or proc.stdout[-4000:]))
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        os.replace(lib, out)
 
 
 def library() -> ctypes.CDLL:

@@ -11,7 +11,10 @@ motion collector (``injector1``) injects it into frame 1's features; a
 
 The module tree and ``state_dict`` keys are the reference's, including
 the modules it checkpoints but never runs (``dr2_new``, ``dr3_new``,
-``downscaling1``, ``upscaling3/4``).
+``downscaling1``, ``upscaling3/4``). In train mode (``model.train()``) the
+PVT backbone takes stochastic depth from the ``generator`` passed to
+:meth:`EMIPShort.forward`, BatchNorm uses batch statistics, and the flow
+engine also returns its pre-propagation flow.
 """
 
 from __future__ import annotations
@@ -59,8 +62,8 @@ class _SegBackbone(nn.Module):
         super().__init__()
         self.feat_net = _FeatNet(pvt)
 
-    def forward(self, x):
-        return self.feat_net.pvtv2_en(x)
+    def forward(self, x, generator=None):
+        return self.feat_net.pvtv2_en(x, generator)
 
 
 class EMIPShort(nn.Module):
@@ -101,10 +104,10 @@ class EMIPShort(nn.Module):
             self.upscaling3 = nn.Sequential(
                 nn.ConvTranspose2d(320, 128, 2, stride=2), LayerNorm2d(128))
 
-    def encode_frame(self, image: torch.Tensor) -> dict:
+    def encode_frame(self, image: torch.Tensor, generator=None) -> dict:
         """Everything that depends on one frame: backbone stages /8, /16,
         /32, CNN flow features and the camouflage-feeder injection."""
-        stages = self.backbone(image)
+        stages = self.backbone(image, generator)
         fea = (stages[-3], stages[-2], stages[-1])
         gm = self.GMFlow.encode(image)[0]
         return dict(fea=fea, inj=self.injector(gm, fea[0]))
@@ -116,7 +119,8 @@ class EMIPShort(nn.Module):
     def pair_from_encodings(self, enc1: dict, enc2: dict) -> dict:
         """Flow engine, correlation embedding and the motion-collector
         decode of frame 1."""
-        flow_fw, flow_bw, corr = self.GMFlow([enc1["inj"]], [enc2["inj"]])
+        flow_fw, flow_bw, corr = self.GMFlow([enc1["inj"]], [enc2["inj"]],
+                                             training=self.training)
         corr_emb = self.conv_corr_embed(corr)
         fea8, fea16, fea32 = enc1["fea"]
         fea_new = self.injector1(fea8, corr_emb)
@@ -126,12 +130,12 @@ class EMIPShort(nn.Module):
                     corr_emb=corr_emb, fea_1=enc1["fea"], fea_2=enc2["fea"],
                     fea_new=fea_new)
 
-    def forward_full(self, image1: torch.Tensor,
-                     image2: torch.Tensor) -> dict:
+    def forward_full(self, image1: torch.Tensor, image2: torch.Tensor,
+                     generator=None) -> dict:
         """Full two-stream forward on NCHW frames; dict of intermediates."""
-        return self.pair_from_encodings(self.encode_frame(image1),
-                                        self.encode_frame(image2))
+        return self.pair_from_encodings(self.encode_frame(image1, generator),
+                                        self.encode_frame(image2, generator))
 
-    def forward(self, image1, image2):
-        out = self.forward_full(image1, image2)
+    def forward(self, image1, image2, generator=None):
+        out = self.forward_full(image1, image2, generator)
         return out["mask"], out["flow_fw"], out["flow_bw"]

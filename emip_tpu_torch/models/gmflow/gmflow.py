@@ -4,7 +4,10 @@ Takes already extracted (and prompt-injected) NCHW feature lists, as the
 reference's modified GMFlow does; the CNN encoder is owned here but
 called by the enclosing two-stream model. Returns
 (flow_fw_list, flow_bw_list, corr) with NCHW flows [B, 2, H, W] and the
-raw correlation volume [B, H, W, HW].
+raw correlation volume [B, H, W, HW]. With ``training`` the lists hold the
+bilinearly upsampled pre-propagation flow before the final one, as in the
+JAX package; the flow entering propagation is detached in both modes, so
+kernel C's propagation backward yields dq and dk only.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from emip_tpu_torch.models.gmflow.transformer import (
     FeatureTransformer,
 )
 from emip_tpu_torch.ops.position import sine_position_embedding
+from emip_tpu_torch.ops.upsample import upsample_flow_bilinear
 from emip_tpu_torch.ops.window import window_merge, window_split
 
 __all__ = ["GMFlowConfig", "GMFlow"]
@@ -84,7 +88,7 @@ class GMFlow(nn.Module):
         concat = torch.cat([flow, feature], dim=-1).permute(0, 3, 1, 2)
         return self.upsampler(concat).permute(0, 2, 3, 1).contiguous()
 
-    def forward(self, feature0_list, feature1_list):
+    def forward(self, feature0_list, feature1_list, training: bool = False):
         cfg = self.config
         splits = cfg.attn_splits_list[0]
         # channel-last inside the flow engine, as in the JAX code
@@ -95,14 +99,19 @@ class GMFlow(nn.Module):
         feature0, feature1 = self.transformer(feature0, feature1, splits)
         flow, corr = global_correlation_softmax(feature0, feature1,
                                                 cfg.pred_bidir_flow)
+        preds = []
+        if training:  # intermediate supervision before propagation
+            preds.append(upsample_flow_bilinear(flow, cfg.upsample_factor))
         if cfg.pred_bidir_flow:
             feature0 = torch.cat([feature0, feature1], dim=0)
-        flow = self.feature_flow_attn(feature0, flow)
+        flow = self.feature_flow_attn(feature0, flow.detach())
         mask = self._upsample_mask(flow, feature0)
-        up = convex_upsample(flow.contiguous(), mask, cfg.upsample_factor)
-        up = up.permute(0, 3, 1, 2)
-        if cfg.pred_bidir_flow:
-            fw, bw = up.chunk(2, dim=0)
-        else:
-            fw, bw = up, None
-        return [fw], [bw], corr
+        preds.append(convex_upsample(flow.contiguous(), mask,
+                                     cfg.upsample_factor))
+        fws, bws = [], []
+        for up in preds:
+            up = up.permute(0, 3, 1, 2)
+            fw, bw = up.chunk(2, dim=0) if cfg.pred_bidir_flow else (up, None)
+            fws.append(fw)
+            bws.append(bw)
+        return fws, bws, corr

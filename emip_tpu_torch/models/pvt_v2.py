@@ -9,7 +9,10 @@ What the JAX package does for the TPU is not carried over: no ``nn.scan``
 over stacked block params (a plain loop over blocks), no remat, and exact
 GELU in the MixFFN (the JAX named variants default to a polynomial fit).
 Everything from ``q`` onward in the attention runs in kernel A
-(:func:`emip_tpu_torch.kernels.fused_sr_attention`).
+(:func:`emip_tpu_torch.kernels.fused_sr_attention`), forward and backward.
+In train mode each block's two residual branches take stochastic depth at
+a rate ramping linearly to ``drop_path_rate`` over all blocks; its random
+bits come from the ``torch.Generator`` handed to :meth:`PVTv2.forward`.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import torch.nn.functional as F
 from emip_tpu_torch.kernels import fused_sr_attention
 
 __all__ = ["PVTv2Config", "PVT_V2_VARIANTS", "PVTv2", "PVTBlock",
-           "SRAttention", "MixFFN", "OverlapPatchEmbed"]
+           "SRAttention", "MixFFN", "OverlapPatchEmbed", "drop_path"]
 
 _LN_EPS = 1e-6
 
@@ -36,6 +39,7 @@ class PVTv2Config:
     depths: tuple[int, ...] = (3, 6, 40, 3)
     sr_ratios: tuple[int, ...] = (8, 4, 2, 1)
     qkv_bias: bool = True
+    drop_path_rate: float = 0.1
 
 
 PVT_V2_VARIANTS = {
@@ -113,8 +117,21 @@ class MixFFN(nn.Module):
         return self.fc2(F.gelu(self.dwconv(self.fc1(x), h, w)))
 
 
+def drop_path(x: torch.Tensor, rate: float,
+              generator: torch.Generator | None = None) -> torch.Tensor:
+    """Per-sample stochastic depth, scaled by 1/keep (timm convention, as
+    the JAX package's ``_drop_path``)."""
+    if rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    device = generator.device if generator is not None else x.device
+    u = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1), generator=generator,
+                   device=device)
+    return x * (torch.floor(keep + u).to(x.device, x.dtype) / keep)
+
+
 class PVTBlock(nn.Module):
-    """Pre-norm SR-attention + MixFFN block (inference: no drop path)."""
+    """Pre-norm SR-attention + MixFFN block with stochastic depth."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: int,
                  sr_ratio: int, qkv_bias: bool = True):
@@ -124,9 +141,14 @@ class PVTBlock(nn.Module):
         self.norm2 = nn.LayerNorm(dim, eps=_LN_EPS)
         self.mlp = MixFFN(dim, int(dim * mlp_ratio))
 
-    def forward(self, x, h, w):
-        x = x + self.attn(self.norm1(x), h, w)
-        return x + self.mlp(self.norm2(x), h, w)
+    def forward(self, x, h, w, drop_rate: float = 0.0,
+                generator: torch.Generator | None = None):
+        if not self.training:
+            drop_rate = 0.0
+        x = x + drop_path(self.attn(self.norm1(x), h, w), drop_rate,
+                          generator)
+        return x + drop_path(self.mlp(self.norm2(x), h, w), drop_rate,
+                             generator)
 
 
 class OverlapPatchEmbed(nn.Module):
@@ -165,12 +187,20 @@ class PVTv2(nn.Module):
                     nn.LayerNorm(cfg.embed_dims[i], eps=_LN_EPS))
             in_chans = cfg.embed_dims[i]
 
-    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None
+                ) -> tuple[torch.Tensor, ...]:
+        cfg = self.config
+        n_blocks = sum(cfg.depths)
+        rates = [cfg.drop_path_rate * j / max(n_blocks - 1, 1)
+                 for j in range(n_blocks)]  # np.linspace(0, rate, n)
         outs = []
-        for i in range(len(self.config.depths)):
+        cur = 0
+        for i in range(len(cfg.depths)):
             x, h, w = getattr(self, f"patch_embed{i + 1}")(x)
             for blk in getattr(self, f"block{i + 1}"):
-                x = blk(x, h, w)
+                x = blk(x, h, w, rates[cur], generator)
+                cur += 1
             x = getattr(self, f"norm{i + 1}")(x)
             x = x.transpose(1, 2).reshape(x.shape[0], -1, h, w)
             outs.append(x)

@@ -10,8 +10,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["resize_bilinear", "normalize_imagenet", "IMAGENET_MEAN",
-           "IMAGENET_STD"]
+__all__ = ["resize_bilinear", "resize_area", "resize_nearest",
+           "normalize_imagenet", "IMAGENET_MEAN", "IMAGENET_STD"]
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -24,6 +24,20 @@ def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int],
         return x
     return F.interpolate(x, size=tuple(out_hw), mode="bilinear",
                          align_corners=align_corners)
+
+
+def resize_area(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """Area (adaptive-average) resize of an NCHW tensor."""
+    if tuple(x.shape[-2:]) == tuple(out_hw):
+        return x
+    return F.interpolate(x, size=tuple(out_hw), mode="area")
+
+
+def resize_nearest(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """Nearest-neighbour resize of an NCHW tensor (source floor(i*in/out))."""
+    if tuple(x.shape[-2:]) == tuple(out_hw):
+        return x
+    return F.interpolate(x, size=tuple(out_hw), mode="nearest")
 
 
 def normalize_imagenet(x: torch.Tensor) -> torch.Tensor:

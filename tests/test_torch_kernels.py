@@ -1,4 +1,4 @@
-"""Kernels A-D of the PyTorch port against the JAX package's Pallas kernels.
+"""Kernels A-E of the PyTorch port against the JAX package's Pallas kernels.
 
 On the CPU each port wrapper runs its plain PyTorch version; the JAX
 functions run their Pallas kernels in interpret mode (as in
@@ -6,10 +6,12 @@ tests/test_pallas_kernels.py) and, where the JAX package has one, their
 XLA reference. Inputs come from numpy seeds; everything is fp32.
 Tolerance: 1e-4 absolute and relative unless stated. Both sides compute
 the same fp32 formula with sums in another order, and the JAX window
-kernel evaluates erf by a rational fit (|err| <= 1.5e-7).
+kernel evaluates erf by a rational fit (|err| <= 1.5e-7). The backward
+of A-D is held against ``jax.vjp`` in tests/test_torch_train.py.
 
-The ``cuda`` tests hold each CUDA kernel against its plain version at the
-slice's production shapes; they skip where no GPU is present.
+The ``cuda`` tests hold each CUDA kernel, forward and backward, against
+its plain version at the slice's production shapes; they skip where no
+GPU is present.
 """
 
 import jax.numpy as jnp
@@ -134,6 +136,42 @@ def test_convex_upsample_matches_pallas_and_xla(k):
         got, np.asarray(_xla_reference(flow, mask, k)), **TOL)
 
 
+# ------------------------------------------------------------ kernel E
+
+
+def _splat_coords(case):
+    rng = np.random.default_rng(60)
+    n, h, w = 2, 8, 12
+    yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    grid = np.stack([xx, yy], -1)[None].astype(np.float32)
+    if case == "random":
+        return grid + (rng.standard_normal((n, h, w, 2)) * 3).astype(
+            np.float32)
+    if case == "integer":  # corners of weight exactly 0 and 1
+        return grid + rng.integers(-3, 4, (n, h, w, 2)).astype(np.float32)
+    # negative, on and past every edge
+    vals = np.array([-1.5, -1.0, -0.5, 0.0, 0.25, w - 1.0, w - 0.5, w,
+                     w + 0.7, h - 1.0, h - 0.5, h], np.float32)
+    return rng.choice(vals, (n, h, w, 2)).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["random", "integer", "edges"])
+def test_splat_density_matches_pallas_and_xla(case):
+    from emip_tpu.ops.pallas.splat import _xla_reference, splat_density_pallas
+
+    coords = _splat_coords(case)
+    before = dict(K.LAUNCHES)
+    got = K.splat_density(_t(coords)).numpy()
+    assert K.LAUNCHES == before  # the plain version launches nothing
+    np.testing.assert_array_equal(got, K.splat_density_reference(
+        _t(coords)).numpy())
+    # a sum of at most ~9 products of hat weights per pixel
+    np.testing.assert_allclose(
+        got, np.asarray(splat_density_pallas(coords)), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(
+        got, np.asarray(_xla_reference(coords)), rtol=0, atol=1e-5)
+
+
 # ------------------------------------------------------ wrapper rules
 
 
@@ -163,7 +201,7 @@ def test_build_key_covers_every_source():
     """The build directory is keyed by all .cu/.cuh sources and flags."""
     names = {p.name for p in _build._sources()}
     assert {"primitives.cuh", "sr_attention.cu", "window_attention.cu",
-            "flow_attention.cu", "convex_upsample.cu"} <= names
+            "flow_attention.cu", "convex_upsample.cu", "splat.cu"} <= names
     assert len(_build._digest()) == 16
 
 
@@ -180,6 +218,14 @@ def _gpu_cases():
                       (r(2, n, c), r(2, m, c), r(c, c) / c**0.5, r(c),
                        r(2 * c, c) / c**0.5, r(2 * c), r(c, c) / c**0.5,
                        r(c), heads)))
+    c, f = 128, 1024
+    sp = dict(wq=r(c, c) / c**0.5, wk=r(c, c) / c**0.5, wv=r(c, c) / c**0.5,
+              wm=r(c, c) / c**0.5, s1=1 + 0.1 * r(c), b1=0.1 * r(c))
+    cp = dict(sp, w0=r(f, 2 * c) / (2 * c)**0.5, w2=r(c, f) / f**0.5,
+              s2=1 + 0.1 * r(c), b2=0.1 * r(c))
+    cases.append(("window_attention_block", K.fused_window_attention_block,
+                  K.fused_window_attention_block_reference,
+                  (r(2, 4, 484, c), r(2, 4, 484, c), sp, cp)))
     cases.append(("flow_attention", K.fused_flow_attention,
                   K.fused_flow_attention_reference,
                   (r(2, 1936, 128), r(2, 1936, 128), r(2, 1936, 2))))
@@ -189,15 +235,52 @@ def _gpu_cases():
     return cases
 
 
+def _on_card(a, grad):
+    if torch.is_tensor(a):
+        return a.cuda().requires_grad_(grad)
+    if isinstance(a, dict):
+        return {k: _on_card(v, grad) for k, v in a.items()}
+    return a
+
+
+def _leaves(args):
+    for a in args:
+        if torch.is_tensor(a):
+            yield a
+        elif isinstance(a, dict):
+            yield from a.values()
+
+
 @pytest.mark.cuda
 def test_cuda_kernels_match_plain_versions():
+    """Every CUDA kernel, forward and backward, against its plain version;
+    an output that depends on a tensor requiring grad carries a grad_fn."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
     for name, fn, ref, args in _gpu_cases():
-        dev = [a.cuda() if torch.is_tensor(a) else a for a in args]
+        dev = [_on_card(a, True) for a in args]
+        before = dict(K.LAUNCHES)
         got = fn(*dev)
+        assert got.requires_grad and got.grad_fn is not None, name
+        cot = torch.randn_like(got)
+        wrt = list(_leaves(dev))
+        g_got = torch.autograd.grad(got, wrt, cot)
         torch.cuda.synchronize()
+        assert K.LAUNCHES[name] == before[name] + 1, name
+        assert K.LAUNCHES[name + "_bwd"] == before[name + "_bwd"] + 1, name
         want = ref(*dev)
+        g_want = torch.autograd.grad(want, wrt, cot)
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4,
                                    msg=name)
+        for a, b in zip(g_got, g_want):
+            # weight grads sum over ~10^4 rows: scale-relative tolerance
+            err = (a - b).abs().max().item()
+            assert err <= 1e-4 * max(b.abs().max().item(), 1.0), name
+    coords = torch.rand(2, 352, 352, 2, generator=torch.Generator()
+                        .manual_seed(1)).cuda() * 360 - 4
+    got = K.splat_density(coords)
+    torch.cuda.synchronize()
+    # atomics add in a varying order: last-bit differences only
+    torch.testing.assert_close(got, K.splat_density_reference(coords),
+                               rtol=0, atol=1e-5)

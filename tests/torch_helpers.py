@@ -21,7 +21,7 @@ FDIM = 64  # = pvt_v2_b0's /8 width
 CHANNEL = 8
 
 
-def jax_tiny_short():
+def jax_tiny_short(drop_path_rate: float = 0.1):
     """(JAX EMIPShort, its config) at b0 widths, reduced depth and size,
     exact GELU (a plain PVTv2Config) and the fused Pallas attention."""
     from emip_tpu.models.backbones import register_backbone
@@ -30,24 +30,28 @@ def jax_tiny_short():
     from emip_tpu.models.pvt_v2 import PVTv2, PVTv2Config
 
     b0 = PVTv2Config((32, 64, 160, 256), (1, 2, 5, 8), (8, 8, 4, 4), DEPTHS,
-                     (8, 4, 2, 1), remat=False, fused_attn="always")
-    register_backbone("pvt_v2_b0_port_parity",
-                      lambda dtype: PVTv2(config=b0, dtype=dtype),
+                     (8, 4, 2, 1), drop_path_rate=drop_path_rate,
+                     remat=False, fused_attn="always")
+    # one registry name per rate: the registry is global to the process
+    name = f"pvt_v2_b0_port_parity_dp{drop_path_rate}"
+    register_backbone(name, lambda dtype: PVTv2(config=b0, dtype=dtype),
                       b0.embed_dims)
     cfg = EMIPShortConfig(
-        backbone_name="pvt_v2_b0_port_parity", channel=CHANNEL,
+        backbone_name=name, channel=CHANNEL,
         inp_size=SIZE,
         gmflow=GMFlowConfig(feature_channels=FDIM,
                             num_transformer_layers=NUM_LAYERS))
     return EMIPShort(config=cfg), cfg
 
 
-def torch_tiny_short(include_dead_modules: bool = True):
+def torch_tiny_short(include_dead_modules: bool = True,
+                     drop_path_rate: float = 0.1):
     from emip_tpu_torch.models.emip_short import EMIPShort, EMIPShortConfig
     from emip_tpu_torch.models.gmflow import GMFlowConfig
     from emip_tpu_torch.models.pvt_v2 import PVT_V2_VARIANTS
 
-    b0 = dataclasses.replace(PVT_V2_VARIANTS["pvt_v2_b0"], depths=DEPTHS)
+    b0 = dataclasses.replace(PVT_V2_VARIANTS["pvt_v2_b0"], depths=DEPTHS,
+                             drop_path_rate=drop_path_rate)
     cfg = EMIPShortConfig(
         backbone_name=b0, channel=CHANNEL, inp_size=SIZE,
         gmflow=GMFlowConfig(feature_channels=FDIM,

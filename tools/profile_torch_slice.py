@@ -1,20 +1,24 @@
 #!/usr/bin/env python3
-"""Per-layer time of the PyTorch port's short inference slice on one GPU.
+"""Per-layer time of the PyTorch port's short slice on one GPU.
 
-    python3 tools/profile_torch_slice.py [--batch 8] [--timed 5] [--trace F]
+    python3 tools/profile_torch_slice.py [--train] [--batch 8] [--timed 5]
+                                         [--trace F]
 
 Runs the full pvt_v2_b5 EMIPShort at 352^2, fp32 (TF32 off), on seeded
-random weights and seeded frames, as ``chip_smoke.py``'s slice phase does,
-and prints:
+random weights and seeded frames, as ``chip_smoke.py``'s slice phase (or,
+with ``--train``, its train phase) does, and prints:
 
 - the card's ``nvidia-smi`` name and power limit;
-- the median ms per batch of ``predict_arrays`` over ``--timed`` batches
-  after two warm-ups (CUDA events);
+- the median ms per batch of ``predict_arrays`` (``--train``: per train
+  step, split into forward + losses, backward and optimizer) over
+  ``--timed`` batches after two warm-ups (CUDA events, no hooks);
 - per top-level module, the ms per batch between CUDA events recorded by
-  forward pre/post hooks, and its share of the median;
-- from one ``torch.profiler`` run, the device self-time of the 30 largest
-  kernels, their sum, and the device's idle share: one minus that sum over
-  the unprofiled median batch time (one stream, so kernels do not overlap).
+  forward pre/post hooks (``--train``: and by backward pre/post hooks),
+  and its share of the median of those hooked batches;
+- from one ``torch.profiler`` run without hooks, the device self-time of
+  the 30 largest kernels, their sum, and the device's idle share: one
+  minus that sum over the median without hooks (one stream, so kernels
+  do not overlap).
 
 ``--trace`` writes the profiler's Chrome trace to that file. Imports no JAX.
 """
@@ -31,10 +35,17 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def module_table(model) -> dict:
+def module_table(model, backward: bool = False) -> dict:
+    """Layer name -> the modules whose calls (or backwards) it sums. The
+    backbone returns a list, which a backward hook cannot see, so in the
+    backward its 52 blocks are timed instead (patch embeds and stage norms
+    fall under "rest")."""
     gm = model.GMFlow
-    return {
-        "pvt backbone": model.backbone,
+    pvt = model.backbone.feat_net.pvtv2_en
+    blocks = [blk for i in range(len(pvt.config.depths))
+              for blk in getattr(pvt, f"block{i + 1}")]
+    table = {
+        "pvt backbone": blocks if backward else model.backbone,
         "flow cnn encoder": gm.backbone,
         "injector (feeder)": model.injector,
         "flow transformer": gm.transformer,
@@ -45,14 +56,18 @@ def module_table(model) -> dict:
         "dr1": model.dr1, "dr2": model.dr2, "dr3": model.dr3,
         "decoder": model.decoder,
     }
+    return {k: v if isinstance(v, list) else [v] for k, v in table.items()}
 
 
-def attach_event_hooks(modules: dict) -> dict:
-    """Record a CUDA event pair around every call of each module."""
+def attach_event_hooks(modules: dict, backward: bool = False,
+                       handles: list | None = None) -> dict:
+    """Record a CUDA event pair around every call of each module (with
+    ``backward``, around every backward through it instead); the hook
+    handles are appended to ``handles``."""
     import torch
 
     pairs = {name: [] for name in modules}
-    for name, mod in modules.items():
+    for name, mod in ((n, m) for n, ms in modules.items() for m in ms):
         def pre(_mod, _inp, name=name):
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
@@ -63,9 +78,24 @@ def attach_event_hooks(modules: dict) -> dict:
             ev.record()
             pairs[name][-1][1] = ev
 
-        mod.register_forward_pre_hook(pre)
-        mod.register_forward_hook(post)
+        if backward:
+            hs = (mod.register_full_backward_pre_hook(pre),
+                  mod.register_full_backward_hook(post))
+        else:
+            hs = (mod.register_forward_pre_hook(pre),
+                  mod.register_forward_hook(post))
+        if handles is not None:
+            handles.extend(hs)
     return pairs
+
+
+def layer_rows(pairs: dict, runs: int, median: float, tag: str) -> float:
+    per_layer = {name: sum(s.elapsed_time(e) for s, e in p if e is not None)
+                 / runs for name, p in pairs.items()}
+    for name, ms in sorted(per_layer.items(), key=lambda kv: -kv[1]):
+        print(f"layer {tag}{name:24s} {ms:9.3f} ms/batch "
+              f"{100 * ms / median:6.2f}%")
+    return sum(per_layer.values())
 
 
 def main() -> int:
@@ -75,6 +105,8 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--timed", type=int, default=5)
     ap.add_argument("--trace", default=None)
+    ap.add_argument("--train", action="store_true",
+                    help="profile the train step instead of inference")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_slice: needs an NVIDIA GPU", file=sys.stderr)
@@ -99,41 +131,91 @@ def main() -> int:
     a, b = (torch.from_numpy(cs.seeded_frames(rng, args.batch, cs.SIZE))
             .to(dev) for _ in range(2))
 
-    pairs = attach_event_hooks(module_table(model))
+    if args.train:
+        from emip_tpu_torch.train.short import short_losses
+        from emip_tpu_torch.train.state import build_optimizer
+
+        opt = build_optimizer(model)
+        gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+        batch = cs.seeded_batch(rng, args.batch, cs.SIZE, dev)
+        model.train()
+
+        def run(split=None):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
+            loss = short_losses(model, batch, gen)["loss"]
+            ev[1].record()
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            ev[2].record()
+            opt.step()
+            ev[3].record()
+            if split is not None:
+                split.append(ev)
+    else:
+        def run(split=None):
+            predict_arrays(model, a, b)
+
+    def timed(splits=None) -> tuple[float, list]:
+        totals = []
+        for _ in range(args.timed):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            run(splits)
+            end.record()
+            torch.cuda.synchronize()
+            totals.append(start.elapsed_time(end))
+        return statistics.median(totals), totals
+
     for _ in range(2):
-        predict_arrays(model, a, b)
+        run()
     torch.cuda.synchronize()
-    for p in pairs.values():
-        p.clear()
-    totals = []
-    for _ in range(args.timed):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        predict_arrays(model, a, b)
-        end.record()
-        torch.cuda.synchronize()
-        totals.append(start.elapsed_time(end))
-    median = statistics.median(totals)
-    print(f"slice b5 {cs.SIZE}^2 bs={args.batch} fp32: median {median:.3f} "
-          f"ms/batch over {args.timed} batches {totals}")
-    per_layer = {name: sum(s.elapsed_time(e) for s, e in p) / args.timed
-                 for name, p in pairs.items()}
-    for name, ms in sorted(per_layer.items(), key=lambda kv: -kv[1]):
-        print(f"layer {name:24s} {ms:9.3f} ms/batch {100 * ms / median:6.2f}%")
-    rest = median - sum(per_layer.values())
+    # the median without hooks: the hooks' host work (and, in the
+    # backward, their autograd nodes) slow the step down
+    splits = []
+    median, totals = timed(splits)
+    what = "train step" if args.train else "slice"
+    print(f"{what} b5 {cs.SIZE}^2 bs={args.batch} fp32: median {median:.3f} "
+          f"ms/batch over {args.timed} batches {totals} (no hooks)")
+    if args.train:
+        for i, part in enumerate(("forward + losses", "backward",
+                                  "optimizer")):
+            ms = statistics.median(e[i].elapsed_time(e[i + 1])
+                                   for e in splits)
+            print(f"phase {part:18s} {ms:9.3f} ms/step "
+                  f"{100 * ms / median:6.2f}%")
+
+    handles = []
+    pairs = attach_event_hooks(module_table(model), handles=handles)
+    if args.train:
+        bwd_pairs = attach_event_hooks(module_table(model, backward=True),
+                                       backward=True, handles=handles)
+    hooked_median, _ = timed()
+    print(f"with hooks: median {hooked_median:.3f} ms/batch; layer shares "
+          f"are of that median")
+    hooked = layer_rows(pairs, args.timed, hooked_median,
+                        "fwd " if args.train else "")
+    if args.train:
+        hooked += layer_rows(bwd_pairs, args.timed, hooked_median, "bwd ")
+    rest = hooked_median - hooked
     print(f"layer {'rest (outside hooks)':24s} {rest:9.3f} ms/batch "
-          f"{100 * rest / median:6.2f}%")
+          f"{100 * rest / hooked_median:6.2f}%")
+    for h in handles:
+        h.remove()
 
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        predict_arrays(model, a, b)
+        run()
         torch.cuda.synchronize()
     by_name, spans = {}, []
     for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
+        # record_function ranges (e.g. Optimizer.step) are mirrored onto
+        # the device timeline as annotations; they are not kernels
+        if (ev.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(ev, "is_user_annotation", False)):
             continue
         start, end = ev.time_range.start, ev.time_range.end
         spans.append((start, end))
