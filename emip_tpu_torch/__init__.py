@@ -1,4 +1,5 @@
-"""PyTorch + CUDA port of the EMIP short-term inference path.
+"""PyTorch + CUDA port of EMIP: the short-term and the long-term model,
+inference and training.
 
 A second package beside :mod:`emip_tpu` (the JAX reference, which stays
 as it is). Plain tensor code is PyTorch; every Pallas TPU kernel on the

@@ -2,9 +2,10 @@
 
 Reads the same keys as :func:`emip_tpu.utils.config.load_config` (which
 imports the flax models and so cannot be used here) into the port's own
-dataclasses. Keys that only steer the JAX package (``parallel``,
-``compute_dtype``, ``memory_size``) are read and ignored: the port trains
-on one card in fp32.
+dataclasses, ``memory_size`` and ``val_dataset_cad`` of the long-term
+model included. Keys that only steer the JAX package (``parallel``,
+``compute_dtype``, ``long_frames_per_dispatch``) are read and ignored: the
+port trains on one card in fp32, one frame per step.
 """
 
 from __future__ import annotations
@@ -43,11 +44,14 @@ class Config:
     clip: float = 0.5
     seed: int = 123
     save_path: str = "./snapshots/emip_tpu_torch/"
+    memory_size: int = 5  # slots of the long-term model's rolling memory
+    val_dataset_cad: DatasetConfig | None = None
     raw: dict | None = None
 
 
-def _dataset(d: dict | None) -> DatasetConfig:
-    d = d or {}
+def _dataset(d: dict | None) -> DatasetConfig | None:
+    if d is None:
+        return None
     return DatasetConfig(
         image_path=d.get("image_path", ""),
         gt_path=d.get("gt_path", d.get("image_path", "")),
@@ -88,8 +92,10 @@ def load_config(path: str) -> Config:
         raw = yaml.safe_load(f)
     opt = raw.get("optimizer", {}) or {}
     cfg = Config(
-        train_dataset=_dataset(raw.get("train_dataset")),
-        val_dataset=_dataset(raw.get("val_dataset")),
+        train_dataset=_dataset(raw.get("train_dataset") or {}),
+        val_dataset=_dataset(raw.get("val_dataset") or {}),
+        val_dataset_cad=_dataset(raw.get("val_dataset_cad")),
+        memory_size=int(raw.get("memory_size", 5)),
         model=_model(raw.get("model", {})),
         lr=float(opt.get("lr", 1.0e-5)),
         weight_decay=float(opt.get("weight_decay", 1.0e-7)),

@@ -1,7 +1,8 @@
 """JAX package variables -> the port's ``state_dict``.
 
 Inverse of :func:`emip_tpu.convert.torch_import.convert_emip_short_state`
-(which maps the reference's torch keys to flax variables): the same key
+and ``convert_emip_long_state`` (which map the reference's torch keys to
+flax variables): the same key
 space, the layout rules undone, and the depth-stacked PVT ``stage{i}``
 params un-stacked into ``block{i}.{j}``. Input is the ``params`` and
 ``batch_stats`` trees as nested dicts of arrays; nothing here imports
@@ -13,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["state_dict_from_flax"]
+__all__ = ["state_dict_from_flax", "state_dict_from_flax_long"]
 
 
 def _conv(k) -> np.ndarray:
@@ -177,6 +178,18 @@ def _injector_into(o: _Out, name: str):
         o.conv(f"{d}.ffn.{conv}", f"{name}/ffn/{conv}")
 
 
+def _as_tensors(sd: dict) -> dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+
+
+def _decoder_into(o: _Out, dst: str, src: str):
+    for name in ("conv_upsample1", "conv_upsample2", "conv_upsample3",
+                 "conv_upsample4", "conv_upsample5", "conv_concat2",
+                 "conv_concat3", "conv4"):
+        o.convbr(f"{dst}.{name}", f"{src}/{name}")
+    o.conv(f"{dst}.conv5", f"{src}/conv5")
+
+
 def state_dict_from_flax(variables: dict, depths=(3, 6, 40, 3),
                          num_layers: int = 6) -> dict[str, torch.Tensor]:
     """JAX ``EMIPShort`` variables -> :class:`EMIPShort` ``state_dict``.
@@ -194,11 +207,7 @@ def state_dict_from_flax(variables: dict, depths=(3, 6, 40, 3),
     o.conv("conv_corr.3", "conv_corr_1")
     for dr in ("dr1", "dr2", "dr3"):
         o.dimred(dr, dr)
-    for name in ("conv_upsample1", "conv_upsample2", "conv_upsample3",
-                 "conv_upsample4", "conv_upsample5", "conv_concat2",
-                 "conv_concat3", "conv4"):
-        o.convbr(f"decoder.{name}", f"decoder/{name}")
-    o.conv("decoder.conv5", "decoder/conv5")
+    _decoder_into(o, "decoder", "decoder")
     if o.has("dr2_new"):
         o.conv("dr2_new", "dr2_new")
         o.conv("dr3_new.0", "dr3_new_conv0")
@@ -212,4 +221,36 @@ def state_dict_from_flax(variables: dict, depths=(3, 6, 40, 3),
         o.conv("upscaling4.3", "upscaling4_conv1", transpose=True)
         o.conv("upscaling3.0", "upscaling3_conv", transpose=True)
         o.ln("upscaling3.1", "upscaling3_ln")
-    return {k: torch.from_numpy(np.array(v)) for k, v in o.sd.items()}
+    return _as_tensors(o.sd)
+
+
+def state_dict_from_flax_long(variables: dict, depths=(3, 6, 40, 3),
+                              num_layers: int = 6
+                              ) -> dict[str, torch.Tensor]:
+    """JAX ``EMIPLong`` variables -> :class:`EMIPLong` ``state_dict``.
+
+    Inverse of ``convert_emip_long_state``: the frozen short-term net under
+    ``short_term.`` (through :func:`state_dict_from_flax`), the LTM's
+    key / value heads and prompt fusion, and the long head (``long_dr``,
+    ``injector1``, ``dr1``, ``decoder``).
+    """
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    short = state_dict_from_flax(
+        dict(params=params["short_term"],
+             batch_stats=stats.get("short_term", {})), depths, num_layers)
+    sd = {f"short_term.{k}": v for k, v in short.items()}
+    o = _Out(params, stats)
+    o.conv("LTM.KV_M_r4.Key", "ltm/kv_memory/key")
+    o.conv("LTM.KV_M_r4.Value", "ltm/kv_memory/value")
+    o.conv("LTM.KV_Q_r4.Key", "ltm/kv_query/key")
+    o.conv("LTM.KV_Q_r4.Value", "ltm/kv_query/value")
+    o.conv("LTM.fusion.conv1_fusion.0", "ltm/fuse/expand")
+    o.bn("LTM.fusion.conv1_fusion.1", "ltm/fuse/bn")
+    o.conv("LTM.fusion.conv1_fusion.3", "ltm/fuse/project")
+    o.dimred("long_dr", "long_dr")
+    _injector_into(o, "injector1")
+    o.dimred("dr1", "dr1")
+    _decoder_into(o, "decoder", "decoder")
+    sd.update(_as_tensors(o.sd))
+    return sd

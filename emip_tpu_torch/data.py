@@ -1,4 +1,5 @@
-"""Frame-pair listing, loading, augmentation and synthetic data (no jax).
+"""Frame-pair and whole-clip listing, loading, augmentation and synthetic
+data (no jax).
 
 Same directory rules as :mod:`emip_tpu.data.manifest` (which cannot be
 imported without jax, because its package imports the JAX pipeline):
@@ -30,8 +31,9 @@ import numpy as np
 
 from emip_tpu_torch.ops.image import IMAGENET_MEAN, IMAGENET_STD
 
-__all__ = ["PairItem", "frames_subdir", "scan_pairs", "load_frame",
-           "PairTrainLoader", "PairEvalLoader", "make_synthetic_video_root"]
+__all__ = ["PairItem", "ClipItem", "frames_subdir", "scan_pairs",
+           "scan_clips", "load_frame", "PairTrainLoader", "PairEvalLoader",
+           "ClipLoader", "make_synthetic_video_root"]
 
 _IMG_EXT = (".jpg", ".png")
 _GT_EXT = (".png", ".tif")
@@ -48,6 +50,14 @@ class PairItem:
     video: str
     frame_name: str
     gt: str | None = None
+
+
+@dataclasses.dataclass(frozen=True)
+class ClipItem:
+    video: str
+    frames: tuple[str, ...]
+    gts: tuple[str, ...]
+    frame_names: tuple[str, ...]
 
 
 def frames_subdir(dataset_type: str) -> str:
@@ -90,6 +100,27 @@ def scan_pairs(images_root: str, dataset_type: str = "MoCA",
                 raise ValueError(f"frame/GT mismatch: {a} vs {gt}")
             items.append(PairItem(a, b, video, _stem(a), gt))
     return items
+
+
+def scan_clips(images_root: str, gts_root: str | None = None,
+               dataset_type: str = "MoCA",
+               require_gt: bool = True) -> list[ClipItem]:
+    """Whole-video clips (long-term training and inference): every video
+    with at least two frames, with all of its GTs when ``require_gt``."""
+    sub = frames_subdir(dataset_type)
+    clips = []
+    for video in sorted(os.listdir(images_root)):
+        frames = _list(os.path.join(images_root, video, sub), _IMG_EXT)
+        if len(frames) < 2:
+            continue
+        gts = ()
+        if require_gt:
+            if gts_root is None:
+                raise ValueError("scan_clips: require_gt needs gts_root")
+            gts = tuple(_list(os.path.join(gts_root, video, "GT"), _GT_EXT))
+        clips.append(ClipItem(video, tuple(frames), gts,
+                              tuple(_stem(f) for f in frames)))
+    return clips
 
 
 def _open(path: str, mode: str):
@@ -257,6 +288,52 @@ class PairEvalLoader:
     def __iter__(self):
         with ThreadPoolExecutor(_WORKERS) as pool:
             yield from pool.map(self._load_one, self.items)
+
+
+class ClipLoader:
+    """Whole-video loader of the long-term model: one element per video,
+    a dict with ``video``, ``frames`` [T, S, S, 3] (normalized),
+    ``frame_names``, ``orig_hw`` (frame 0's native size) and, with GT, ``masks`` [T, S, S, 1] at the model's
+    resolution and ``gts``, the native-resolution GTs (0..255). No
+    augmentation; ``shuffle`` orders the videos by (seed, epoch), as the
+    JAX loader does."""
+
+    def __init__(self, images_root: str, gts_root: str | None = None,
+                 size: int = 352, dataset_type: str = "MoCA",
+                 with_gt: bool = True, shuffle: bool = False,
+                 seed: int = 123):
+        self.clips = scan_clips(images_root, gts_root, dataset_type,
+                                require_gt=with_gt)
+        self.size = size
+        self.with_gt = with_gt
+        self.shuffle = shuffle
+        self.seed = seed
+        self.epoch = 0
+
+    def __len__(self):
+        return len(self.clips)
+
+    def load_clip(self, clip: ClipItem) -> dict:
+        with ThreadPoolExecutor(_WORKERS) as pool:
+            loaded = list(pool.map(lambda p: load_frame(p, self.size),
+                                   clip.frames))
+        rec = dict(video=clip.video,
+                   frames=np.stack([arr for arr, _ in loaded]),
+                   frame_names=clip.frame_names, orig_hw=loaded[0][1])
+        if self.with_gt and clip.gts:
+            gts = [_open(p, "L") for p in clip.gts]
+            rec["masks"] = np.stack([_to_mask_array(g, self.size)
+                                     for g in gts])
+            rec["gts"] = [np.asarray(g, np.float32) for g in gts]
+        return rec
+
+    def __iter__(self):
+        self.epoch += 1
+        order = list(range(len(self.clips)))
+        if self.shuffle:
+            random.Random(f"{self.seed}:{self.epoch}").shuffle(order)
+        for i in order:
+            yield self.load_clip(self.clips[i])
 
 
 # ------------------------------------------------------------ synthetic

@@ -1,9 +1,12 @@
-"""Batch inference for the short-term model: arrays in, PNG masks out.
+"""Batch inference: arrays or image folders in, PNG masks out.
 
-Counterpart of :mod:`emip_tpu.infer` for the short model: frame pairs are
-batched through one device forward (:func:`predict_arrays`); decoding and
-the variable-shape post-processing (bilinear resize to native size,
-sigmoid, min-max, PNG) run on host threads. PIL is imported lazily.
+Counterpart of :mod:`emip_tpu.infer`. Short model: frame pairs are
+batched through one device forward (:func:`predict_arrays`). Long model:
+whole videos stream frame by frame with the memory carried
+(:func:`predict_clips_long`). Decoding and the variable-shape
+post-processing (bilinear resize to native size, sigmoid, min-max, PNG)
+run on host threads. PIL is imported lazily. The folder entry points run
+on the GPU unless the caller names another device.
 """
 
 from __future__ import annotations
@@ -15,9 +18,11 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from emip_tpu_torch.data import load_frame, scan_pairs
+from emip_tpu_torch.data import ClipLoader, load_frame, scan_pairs
+from emip_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 
-__all__ = ["predict_arrays", "predict_pairs", "postprocess_to_png"]
+__all__ = ["predict_arrays", "predict_pairs", "predict_clips_long",
+           "postprocess_to_png"]
 
 
 @torch.inference_mode()
@@ -67,13 +72,16 @@ def _batched(items, n):
 
 def predict_pairs(model, images_root: str, save_path: str, size: int = 352,
                   dataset_type: str = "MoCA", batch_size: int = 8,
-                  device: torch.device | str = "cpu",
+                  device: torch.device | str = DEFAULT_DEVICE,
                   return_flow: bool = False):
     """Run the short model over every frame pair; save per-video PNGs.
 
-    The last batch is padded to ``batch_size`` by repeating its last pair.
-    With ``return_flow``, returns [(video, frame_name, flow [H, W, 2])].
+    ``model`` must lie on ``device`` (default: the GPU; raises without
+    one). The last batch is padded to ``batch_size`` by repeating its last
+    pair. With ``return_flow``, returns [(video, frame_name, flow
+    [H, W, 2])].
     """
+    device = resolve_device(device)
     items = scan_pairs(images_root, dataset_type)
     results = []
     with ThreadPoolExecutor(8) as pool:
@@ -103,3 +111,36 @@ def predict_pairs(model, images_root: str, save_path: str, size: int = 352,
             for j in jobs:
                 j.result()
     return results
+
+
+@torch.inference_mode()
+def predict_clips_long(model, images_root: str, save_path: str,
+                       size: int = 352, dataset_type: str = "MoCA",
+                       device: torch.device | str = DEFAULT_DEVICE) -> int:
+    """Long-model streaming inference over whole videos; per-video PNGs.
+
+    Protocol of the reference (test_long.py:29-37): frame 0 pairs with
+    frame 1 and takes the short-term mask; later frames take the
+    memory-prompted long head with the rolling buffer carried across
+    steps (:meth:`EMIPLong.scan_video`, which encodes each frame once).
+    ``model`` (an eval-mode ``EMIPLong``) must lie on ``device`` (default:
+    the GPU; raises without one). Returns the number of frames predicted.
+    """
+    device = resolve_device(device)
+    loader = ClipLoader(images_root, None, size=size,
+                        dataset_type=dataset_type, with_gt=False)
+    n = 0
+    with ThreadPoolExecutor(8) as pool:
+        for clip in loader:
+            frames = torch.from_numpy(
+                clip["frames"].transpose(0, 3, 1, 2)).to(device)
+            logits = model.scan_video(frames[None])[0, :, 0]
+            logits = logits.float().cpu().numpy()
+            jobs = [pool.submit(postprocess_to_png, lg, clip["orig_hw"],
+                                os.path.join(save_path, clip["video"],
+                                             name + ".png"))
+                    for lg, name in zip(logits, clip["frame_names"])]
+            for j in jobs:
+                j.result()
+            n += len(frames)
+    return n

@@ -2,8 +2,8 @@
 
 Each public function takes the JAX package's layout, runs its plain
 PyTorch version on CPU tensors and its CUDA kernel on CUDA tensors, and
-counts its kernel launches in :data:`LAUNCHES`. Kernels A-D are
-``torch.autograd.Function``s whose CUDA backward is a kernel too; E is
+counts its kernel launches in :data:`LAUNCHES`. Kernels A-D and F
+are ``torch.autograd.Function``s whose CUDA backward is a kernel too; E is
 forward only. The kernels are built from ``emip_tpu_torch/csrc`` at first
 use (:func:`library`).
 """
@@ -17,6 +17,10 @@ from emip_tpu_torch.kernels.convex_upsample import (
 from emip_tpu_torch.kernels.flow_attention import (
     fused_flow_attention,
     fused_flow_attention_reference,
+)
+from emip_tpu_torch.kernels.memory_attention import (
+    masked_memory_attention,
+    masked_memory_attention_reference,
 )
 from emip_tpu_torch.kernels.splat import splat_density, splat_density_reference
 from emip_tpu_torch.kernels.sr_attention import (
@@ -40,6 +44,8 @@ __all__ = [
     "fused_window_attention_block",
     "fused_window_attention_block_reference",
     "library",
+    "masked_memory_attention",
+    "masked_memory_attention_reference",
     "reset_launches",
     "splat_density",
     "splat_density_reference",

@@ -45,6 +45,8 @@ _SIGNATURES = {
     "emip_convex_upsample": [_P] * 3 + [_I] * 4 + [_P],
     "emip_convex_upsample_bwd": [_P] * 6 + [_I] * 4 + [_P],
     "emip_splat_density": [_P] * 2 + [_I] * 3 + [_P],
+    "emip_memory_attention": [_P] * 7 + [_L] + [_I] * 4 + [_P],
+    "emip_memory_attention_bwd": [_P] * 11 + [_L] + [_I] * 4 + [_P],
 }
 
 

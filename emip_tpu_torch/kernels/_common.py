@@ -17,6 +17,8 @@ LAUNCHES = {
     "convex_upsample": 0,
     "convex_upsample_bwd": 0,
     "splat_density": 0,
+    "memory_attention": 0,
+    "memory_attention_bwd": 0,
 }
 
 # floats of split-K / column-sum / attention-partial workspace a backward

@@ -116,16 +116,20 @@ class EMIPShort(nn.Module):
         """[B, H, W, HW] correlation -> [B, fdim, H, W] embedding."""
         return self.conv_corr(corr.permute(0, 3, 1, 2))
 
-    def pair_from_encodings(self, enc1: dict, enc2: dict) -> dict:
-        """Flow engine, correlation embedding and the motion-collector
-        decode of frame 1."""
+    def pair_from_encodings(self, enc1: dict, enc2: dict,
+                            with_decode: bool = True) -> dict:
+        """Flow engine, correlation embedding and (unless ``with_decode``
+        is off, as the long model's streaming step asks) the
+        motion-collector decode of frame 1."""
         flow_fw, flow_bw, corr = self.GMFlow([enc1["inj"]], [enc2["inj"]],
                                              training=self.training)
         corr_emb = self.conv_corr_embed(corr)
-        fea8, fea16, fea32 = enc1["fea"]
-        fea_new = self.injector1(fea8, corr_emb)
-        mask = self.decoder(self.dr3(fea32), self.dr2(fea16),
-                            self.dr1(fea_new))
+        mask = fea_new = None
+        if with_decode:
+            fea8, fea16, fea32 = enc1["fea"]
+            fea_new = self.injector1(fea8, corr_emb)
+            mask = self.decoder(self.dr3(fea32), self.dr2(fea16),
+                                self.dr1(fea_new))
         return dict(mask=mask, flow_fw=flow_fw, flow_bw=flow_bw, corr=corr,
                     corr_emb=corr_emb, fea_1=enc1["fea"], fea_2=enc2["fea"],
                     fea_new=fea_new)

@@ -1,13 +1,15 @@
 """Short-term two-stream training on the port.
 
     python -m emip_tpu_torch.train --config configs/emip.yaml \
-        [--resume] [--save_path DIR] [--max_steps_per_epoch N]
+        [--resume] [--save_path DIR] [--max_steps_per_epoch N] \
+        [--device cuda]
 
 Mirrors the repository's ``train.py`` for the JAX package (its
 ``--multi_host`` flag has no counterpart: the port trains on one card).
 The repository holds no checkpoint, so the model starts from seeded
-random weights (``seed`` in the config). Runs on the GPU when one is
-present, else on the CPU.
+random weights (``seed`` in the config). Runs on the GPU (``--device``,
+default ``cuda``; without a GPU it raises), on the CPU only with
+``--device cpu``.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ __all__ = ["parse_args", "main"]
 
 
 def parse_args(argv=None):
+    from emip_tpu_torch.device import add_device_flag
+
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--config", default="configs/emip.yaml")
     p.add_argument("--resume", action="store_true",
@@ -28,6 +32,7 @@ def parse_args(argv=None):
                    help="override config save_path")
     p.add_argument("--max_steps_per_epoch", type=int, default=None,
                    help="debug: cap steps per epoch")
+    add_device_flag(p)
     return p.parse_args(argv)
 
 
@@ -41,7 +46,8 @@ def main(argv=None):
     if args.save_path:
         cfg.save_path = args.save_path
     _, summary = train_short(cfg, resume=args.resume,
-                             max_steps_per_epoch=args.max_steps_per_epoch)
+                             max_steps_per_epoch=args.max_steps_per_epoch,
+                             device=args.device)
     print(f">>> training done: {summary}")
     return summary
 

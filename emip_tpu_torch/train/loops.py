@@ -4,8 +4,8 @@ Counterpart of :mod:`emip_tpu.train.loops` (reference ``train.py``):
 per-epoch cosine LR (stepped before the epoch), per-step loss logging,
 validation computing wFm / Sm / MAE over the val split at native GT
 resolution, best-by-MAE checkpointing, ``torch.save`` checkpoints with
-optimizer state and resume, and a save on interrupt. Runs on the GPU when
-one is present, else on the CPU through the plain versions.
+optimizer state and resume, and a save on interrupt. Runs on the GPU
+unless the caller names another device; without a GPU the default raises.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ import torch
 
 from emip_tpu_torch.config import Config, snapshot_config
 from emip_tpu_torch.data import PairEvalLoader, PairTrainLoader
+from emip_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from emip_tpu_torch.infer import _linear_weights
 from emip_tpu_torch.losses.seg import hybrid_e_loss
 from emip_tpu_torch.metrics import frame_scores
@@ -32,8 +33,8 @@ from emip_tpu_torch.train.state import (
     set_learning_rate,
 )
 
-__all__ = ["save_checkpoint", "load_checkpoint", "validate_short",
-           "train_short"]
+__all__ = ["save_checkpoint", "load_checkpoint", "score_logits",
+           "validate_short", "train_short"]
 
 log = logging.getLogger("emip_tpu_torch")
 
@@ -65,12 +66,21 @@ def _to_device(x: np.ndarray, device) -> torch.Tensor:
                             ).to(device)
 
 
+def score_logits(logits_hw: np.ndarray, gt: np.ndarray) -> dict:
+    """wFm / Sm / MAE of one frame: the logits resized (bilinear,
+    align_corners=False) to the native GT size, passed through a sigmoid
+    and min-max normalised, as in the reference (train.py:131-137)."""
+    up = _linear_weights(logits_hw.shape[0], gt.shape[0]) @ logits_hw @ \
+        _linear_weights(logits_hw.shape[1], gt.shape[1]).T
+    pred = 1.0 / (1.0 + np.exp(-up))
+    pred = (pred - pred.min()) / (pred.max() - pred.min() + 1e-8)
+    return frame_scores(pred * 255.0, gt)
+
+
 def validate_short(model, cfg: Config, device) -> dict:
     """wFm / Sm / MAE / val-loss over the validation split.
 
-    Logits are resized (bilinear, align_corners=False) to the native GT
-    size, passed through a sigmoid and min-max normalised per frame, as in
-    the reference (train.py:131-137); the metrics are those of
+    Each frame is scored by :func:`score_logits`; the metrics are those of
     :mod:`emip_tpu_torch.metrics`.
     """
     vd = cfg.val_dataset
@@ -94,12 +104,7 @@ def validate_short(model, cfg: Config, device) -> dict:
             val_loss += float(hybrid_e_loss(logits[i:i + 1], gts[i:i + 1]))
         n += k
         for rec, lg in zip(chunk, logits[:, 0].numpy()):
-            gt = rec["gt"]
-            up = _linear_weights(lg.shape[0], gt.shape[0]) @ lg @ \
-                _linear_weights(lg.shape[1], gt.shape[1]).T
-            pred = 1.0 / (1.0 + np.exp(-up))
-            pred = (pred - pred.min()) / (pred.max() - pred.min() + 1e-8)
-            scores.append(frame_scores(pred * 255.0, gt))
+            scores.append(score_logits(lg, rec["gt"]))
 
     for rec in loader:
         chunk.append(rec)
@@ -114,13 +119,14 @@ def validate_short(model, cfg: Config, device) -> dict:
 
 
 def train_short(cfg: Config, resume: bool = False,
-                max_steps_per_epoch: int | None = None
+                max_steps_per_epoch: int | None = None,
+                device: torch.device | str = DEFAULT_DEVICE
                 ) -> tuple[EMIPShort, dict]:
     """Train for epochs ``start..cfg.epoch - 1`` (the reference's
-    ``range(1, epoch)``) on the GPU when one is present, else on the CPU;
-    returns the model and a summary. The model starts from seeded random
-    weights (no checkpoint is in the repository)."""
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    ``range(1, epoch)``) on ``device`` (default: the GPU; raises without
+    one); returns the model and a summary. The model starts from seeded
+    random weights (no checkpoint is in the repository)."""
+    device = resolve_device(device)
     snapshot_config(cfg, cfg.save_path)
     scalars = open(os.path.join(cfg.save_path, "scalars.jsonl"), "a")
     model = seeded_init_(EMIPShort(cfg.model), cfg.seed).to(device)

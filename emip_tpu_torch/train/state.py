@@ -1,4 +1,5 @@
-"""Optimizer, learning-rate schedule and the GMFlow freeze rule.
+"""Optimizer, learning-rate schedule and the freeze rules (GMFlow for
+short-term training, the whole short-term net for long-term training).
 
 Counterpart of :mod:`emip_tpu.train.state`. The JAX package partitions
 the parameter tree and differentiates only the trainable part; here the
@@ -21,13 +22,21 @@ from typing import Callable
 
 import torch
 
-__all__ = ["freeze_gmflow", "ClampAdamW", "build_optimizer",
+__all__ = ["freeze_gmflow", "freeze_short_term", "ClampAdamW",
+           "build_optimizer", "build_long_optimizer",
            "cosine_epoch_lr", "set_learning_rate"]
 
 
 def freeze_gmflow(model: torch.nn.Module) -> torch.nn.Module:
     """Short-term training freezes the whole GMFlow subtree."""
     model.GMFlow.requires_grad_(False)
+    return model
+
+
+def freeze_short_term(model: torch.nn.Module) -> torch.nn.Module:
+    """Long-term training freezes the whole short-term net (the JAX
+    package's ``SHORT_TERM_FREEZE``)."""
+    model.short_term.requires_grad_(False)
     return model
 
 
@@ -53,6 +62,16 @@ def build_optimizer(model: torch.nn.Module, learning_rate: float = 1e-5,
                     clip_value: float = 0.5) -> ClampAdamW:
     """Freeze GMFlow, then clamp + AdamW over the trainable parameters."""
     freeze_gmflow(model)
+    return ClampAdamW([p for p in model.parameters() if p.requires_grad],
+                      learning_rate, weight_decay, clip_value)
+
+
+def build_long_optimizer(model: torch.nn.Module, learning_rate: float = 1e-5,
+                         weight_decay: float = 1e-7,
+                         clip_value: float = 0.5) -> ClampAdamW:
+    """Freeze the short-term net, then clamp + AdamW over the long heads
+    (LTM, ``long_dr``, ``injector1``, ``dr1``, ``decoder``)."""
+    freeze_short_term(model)
     return ClampAdamW([p for p in model.parameters() if p.requires_grad],
                       learning_rate, weight_decay, clip_value)
 

@@ -201,7 +201,8 @@ def test_build_key_covers_every_source():
     """The build directory is keyed by all .cu/.cuh sources and flags."""
     names = {p.name for p in _build._sources()}
     assert {"primitives.cuh", "sr_attention.cu", "window_attention.cu",
-            "flow_attention.cu", "convex_upsample.cu", "splat.cu"} <= names
+            "flow_attention.cu", "convex_upsample.cu", "splat.cu",
+            "memory_attention.cu"} <= names
     assert len(_build._digest()) == 16
 
 
@@ -277,6 +278,29 @@ def test_cuda_kernels_match_plain_versions():
             # weight grads sum over ~10^4 rows: scale-relative tolerance
             err = (a - b).abs().max().item()
             assert err <= 1e-4 * max(b.abs().max().item(), 1.0), name
+    # kernel F: two written slots of three, ragged tiles (M = 100), and
+    # the streaming shape; the bias takes no gradient
+    for b, m, slots in ((2, 100, 3), (1, 1936, 5)):
+        g = torch.Generator().manual_seed(2)
+        q, k, v = (torch.randn(b, n, 128, generator=g).cuda()
+                   .requires_grad_(True) for n in (m, slots * m, slots * m))
+        bias = torch.zeros(b, slots, m)
+        bias[:, 0] = -1e9
+        bias = bias.reshape(b, slots * m).cuda()
+        before = dict(K.LAUNCHES)
+        got = K.masked_memory_attention(q, k, v, bias)
+        assert got.grad_fn is not None
+        cot = torch.randn_like(got)
+        g_got = torch.autograd.grad(got, (q, k, v), cot)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["memory_attention"] == before["memory_attention"] + 1
+        assert (K.LAUNCHES["memory_attention_bwd"]
+                == before["memory_attention_bwd"] + 1)
+        want = K.masked_memory_attention_reference(q, k, v, bias)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+        for a, w in zip(g_got, torch.autograd.grad(want, (q, k, v), cot)):
+            assert (a - w).abs().max().item() <= 1e-4 * max(
+                w.abs().max().item(), 1.0)
     coords = torch.rand(2, 352, 352, 2, generator=torch.Generator()
                         .manual_seed(1)).cuda() * 360 - 4
     got = K.splat_density(coords)

@@ -82,6 +82,9 @@ def test_port_imports_no_jax():
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'emip_tpu'))\n"
         "assert len(mods) >= 20, mods\n"
+        "new = {'device', 'kernels.memory_attention', 'models.ltm', "
+        "'models.emip_long', 'train.long', 'test_long', 'train_long'}\n"
+        "assert {'emip_tpu_torch.' + m for m in new} <= set(mods), mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
     )
@@ -176,7 +179,8 @@ def test_predict_pairs_writes_native_size_pngs(tmp_path, pair_models):
             Image.fromarray(rng.integers(0, 255, (30, 40, 3), np.uint8)).save(
                 d / f"{i:05d}.jpg")
     flows = predict_pairs(port, str(tmp_path / "data"), str(tmp_path / "out"),
-                          size=th.SIZE, batch_size=2, return_flow=True)
+                          size=th.SIZE, batch_size=2, return_flow=True,
+                          device="cpu")
     pngs = sorted(p.relative_to(tmp_path / "out").as_posix()
                   for p in (tmp_path / "out").rglob("*.png"))
     assert pngs == ["v1/00000.png", "v1/00001.png", "v1/00002.png",
@@ -195,6 +199,9 @@ def test_cli_parses_test_py_flags():
                        "--save_path", "/tmp/p", "--batch_size", "4"])
     assert args.data == ["MoCA_test=/d/MoCA", "CAD=/d/CAD"]
     assert (args.save_path, args.batch_size) == ("/tmp/p", 4)
+    # the one flag the port adds: the device, whose default is the card
+    assert args.device == "cuda"
+    assert parse_args(["--data", "a=b", "--device", "cpu"]).device == "cpu"
 
 
 def test_backbone_factory():

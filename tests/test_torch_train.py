@@ -631,7 +631,8 @@ def test_train_entry_point_trains_checkpoints_and_resumes(tmp_path):
     cfg = tmp_path / "tiny.yaml"
     save = str(tmp_path / "run")
     _write_tiny_yaml(cfg, root, save, epoch=2)
-    summary = main(["--config", str(cfg), "--max_steps_per_epoch", "2"])
+    summary = main(["--config", str(cfg), "--max_steps_per_epoch", "2",
+                    "--device", "cpu"])
     assert summary["steps"] == 2 and summary["best_epoch"] == 1
     assert np.isfinite(summary["best_mae"])
     ckpt = torch.load(os.path.join(save, "ckpt", "ckpt.pt"))
@@ -643,7 +644,7 @@ def test_train_entry_point_trains_checkpoints_and_resumes(tmp_path):
 
     _write_tiny_yaml(cfg, root, save, epoch=3)
     summary = main(["--config", str(cfg), "--resume",
-                    "--max_steps_per_epoch", "1"])
+                    "--max_steps_per_epoch", "1", "--device", "cpu"])
     assert summary["steps"] == 1 and summary["best_epoch"] == 2
     ckpt = torch.load(os.path.join(save, "ckpt", "ckpt.pt"))
     assert ckpt["epoch"] == 2
@@ -657,8 +658,11 @@ def test_train_cli_flags_mirror_root_train_py():
     with open(os.path.join(REPO, "train.py")) as f:
         root_flags = set(re.findall(r'add_argument\(\s*"(--\w+)"', f.read()))
     port = parse_args([])
-    # --multi_host initialises jax.distributed; the port trains on one card
-    assert {f"--{k}" for k in vars(port)} == root_flags - {"--multi_host"}
+    # --multi_host initialises jax.distributed; the port trains on one card.
+    # --device is the one flag the port adds: it defaults to the card
+    assert {f"--{k}" for k in vars(port)} == (
+        root_flags - {"--multi_host"} | {"--device"})
+    assert port.device == "cuda"
     args = parse_args(["--config", "c.yaml", "--resume", "--save_path", "s",
                        "--max_steps_per_epoch", "2"])
     assert (args.config, args.resume, args.save_path,

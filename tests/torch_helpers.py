@@ -60,6 +60,26 @@ def torch_tiny_short(include_dead_modules: bool = True,
     return EMIPShort(cfg).eval()
 
 
+MEMORY_SIZE = 3  # slots of the tiny long model's ring
+
+
+def jax_tiny_long(drop_path_rate: float = 0.0):
+    """JAX EMIPLong around :func:`jax_tiny_short`'s configuration, with a
+    3-slot memory."""
+    from emip_tpu.models.emip_long import EMIPLong
+
+    _, cfg = jax_tiny_short(drop_path_rate)
+    return EMIPLong(config=cfg, memory_size=MEMORY_SIZE)
+
+
+def torch_tiny_long(drop_path_rate: float = 0.0):
+    """The port's EMIPLong at the same configuration."""
+    from emip_tpu_torch.models.emip_long import EMIPLong
+
+    cfg = torch_tiny_short(True, drop_path_rate).config
+    return EMIPLong(cfg, memory_size=MEMORY_SIZE).eval()
+
+
 def random_variables(module, *args, seed: int = 0, **kwargs) -> dict:
     """Seeded numpy values for every variable of a flax ``module``.
 

@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
-"""Per-layer time of the PyTorch port's short slice on one GPU.
+"""Per-layer time of the PyTorch port's short and long slices on one GPU.
 
-    python3 tools/profile_torch_slice.py [--train] [--batch 8] [--timed 5]
-                                         [--trace F]
+    python3 tools/profile_torch_slice.py [--long] [--train] [--batch 8]
+                                         [--timed 5] [--trace F]
 
 Runs the full pvt_v2_b5 EMIPShort at 352^2, fp32 (TF32 off), on seeded
 random weights and seeded frames, as ``chip_smoke.py``'s slice phase (or,
-with ``--train``, its train phase) does, and prints:
+with ``--train``, its train phase) does. With ``--long`` it runs the full
+EMIPLong instead: one streaming ``step_cached`` per batch on a full
+5-slot memory with ``--batch`` clips side by side (``--train``: one
+per-frame long train step). It prints:
 
 - the card's ``nvidia-smi`` name and power limit;
 - the median ms per batch of ``predict_arrays`` (``--train``: per train
@@ -59,6 +62,21 @@ def module_table(model, backward: bool = False) -> dict:
     return {k: v if isinstance(v, list) else [v] for k, v in table.items()}
 
 
+def long_module_table(model, backward: bool = False) -> dict:
+    """The long model's layers: the frozen short-term net's (forward only:
+    it takes no gradient) and the long heads."""
+    table = {} if backward else {
+        f"short {k}": v for k, v in module_table(model.short_term).items()
+        if k not in ("injector1 (collector)", "dr1", "decoder")}
+    heads = {
+        "ltm fusion": model.LTM.fusion, "ltm kv memory": model.LTM.KV_M_r4,
+        "ltm kv query": model.LTM.KV_Q_r4, "long_dr": model.long_dr,
+        "long injector1": model.injector1, "long dr1": model.dr1,
+        "long decoder": model.decoder}
+    table.update({k: [v] for k, v in heads.items()})
+    return table
+
+
 def attach_event_hooks(modules: dict, backward: bool = False,
                        handles: list | None = None) -> dict:
     """Record a CUDA event pair around every call of each module (with
@@ -107,6 +125,9 @@ def main() -> int:
     ap.add_argument("--trace", default=None)
     ap.add_argument("--train", action="store_true",
                     help="profile the train step instead of inference")
+    ap.add_argument("--long", action="store_true",
+                    help="profile the long-term model (one streaming step "
+                         "per batch of clips) instead of the short one")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_slice: needs an NVIDIA GPU", file=sys.stderr)
@@ -123,15 +144,58 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     K.library()
     dev = torch.device("cuda:0")
-    model = EMIPShort(EMIPShortConfig(backbone_name="pvt_v2_b5",
-                                      inp_size=cs.SIZE))
+    cfg = EMIPShortConfig(backbone_name="pvt_v2_b5", inp_size=cs.SIZE)
+    if args.long:
+        from emip_tpu_torch.models.emip_long import EMIPLong
+
+        model = EMIPLong(cfg, memory_size=5)
+    else:
+        model = EMIPShort(cfg)
     seeded_init_(model, cs.SEED)
     model = model.to(dev).eval()
+    table = long_module_table if args.long else module_table
     rng = np.random.default_rng(cs.SEED + 1)
     a, b = (torch.from_numpy(cs.seeded_frames(rng, args.batch, cs.SIZE))
             .to(dev) for _ in range(2))
 
-    if args.train:
+    if args.long:
+        from emip_tpu_torch.losses.seg import hybrid_e_loss
+        from emip_tpu_torch.train.state import build_long_optimizer
+
+        # a full ring and the previous frame's encoding, reused by every
+        # timed step
+        video = cs.seeded_clip(rng, args.batch, 6, cs.SIZE, dev)
+        with torch.inference_mode():
+            state = model.init_memory(args.batch)
+            enc = model.encode_frame(video[:, 0])
+            for t in range(1, 6):
+                _, enc, state = model.step_cached(enc, video[:, t], state)
+        state = type(state)(*(x.clone() for x in state))
+        enc = dict(fea=tuple(x.clone() for x in enc["fea"]),
+                   inj=enc["inj"].clone())
+        gt = cs.seeded_batch(rng, args.batch, cs.SIZE, dev)["gt"]
+        if args.train:
+            opt = build_long_optimizer(model)
+            model.train()
+
+            def run(split=None):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+                ev[0].record()
+                mask, _, _ = model.step_cached(enc, a, state)
+                loss = hybrid_e_loss(mask, gt)
+                ev[1].record()
+                opt.zero_grad(set_to_none=True)
+                loss.backward()
+                ev[2].record()
+                opt.step()
+                ev[3].record()
+                if split is not None:
+                    split.append(ev)
+        else:
+            def run(split=None):
+                with torch.inference_mode():
+                    model.step_cached(enc, a, state)
+    elif args.train:
         from emip_tpu_torch.train.short import short_losses
         from emip_tpu_torch.train.state import build_optimizer
 
@@ -176,6 +240,8 @@ def main() -> int:
     splits = []
     median, totals = timed(splits)
     what = "train step" if args.train else "slice"
+    if args.long:
+        what = "long " + ("train step" if args.train else "streaming step")
     print(f"{what} b5 {cs.SIZE}^2 bs={args.batch} fp32: median {median:.3f} "
           f"ms/batch over {args.timed} batches {totals} (no hooks)")
     if args.train:
@@ -187,9 +253,9 @@ def main() -> int:
                   f"{100 * ms / median:6.2f}%")
 
     handles = []
-    pairs = attach_event_hooks(module_table(model), handles=handles)
+    pairs = attach_event_hooks(table(model), handles=handles)
     if args.train:
-        bwd_pairs = attach_event_hooks(module_table(model, backward=True),
+        bwd_pairs = attach_event_hooks(table(model, backward=True),
                                        backward=True, handles=handles)
     hooked_median, _ = timed()
     print(f"with hooks: median {hooked_median:.3f} ms/batch; layer shares "
