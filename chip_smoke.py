@@ -11,21 +11,29 @@ needs one card and no arguments, and it imports nothing of JAX. In order:
 2. builds the CUDA kernels from ``emip_tpu_torch/csrc`` (one nvcc per
    source, in parallel) and prints the build time;
 3. turns TF32 off for matmuls and cuDNN convolutions (fp32 comparisons);
-4. kernel phase: each forward kernel A-D and F against its plain PyTorch
+4. kernel phase: each forward kernel A-D and F-J against its plain PyTorch
    version on the same seeded CUDA tensors, at the production shapes of
    the 352^2 path (A at all four PVT stages, B with and without the shift
    mask, at batch 8; F at 1 and 4 clips with 1, 3 and 5 written slots,
-   with every slot empty at a small size, and at the 512^2 shape), with
-   the tolerance stated, and CUDA-event times of the kernel, the plain
-   version and, where one PyTorch call computes the same function
-   (``scaled_dot_product_attention`` for C and F), that call;
-5. backward phase: each backward kernel A-D and F against
+   with every slot empty at a small size, and at the 512^2 shape; J at the
+   four MixFFN stages; I at [8, 1936, 1936]) and of the 512^2 path (A with
+   256 reduced keys, C at L = 4096, D at 64 x 64, I at [4, 4096, 4096], G
+   with and without the residual and H at windows of 1024 tokens, with and
+   without the mask, at 1 and 4 clips, and once at 484 tokens), with the
+   tolerance stated, and CUDA-event times of the kernel, the plain version
+   and, where one PyTorch call computes the same function
+   (``scaled_dot_product_attention`` for C and F), that call. G and H have
+   no such call; for I (``softmax`` then ``matmul``) and J (``conv2d``
+   then ``gelu``) it would take two, so they have none either;
+5. backward phase: each backward kernel A-D and F-J against
    torch.autograd.grad of the plain version on the same seeded cotangent,
-   at the train steps' shapes (B also with its weight grads, C also with
-   dv, F with all three grads and with dq alone), with the tolerance
-   stated and CUDA-event times of the backward alone; kernel E against
-   its plain scatter_add_ version (density atol and the fraction of
-   occlusion-mask bits that flip);
+   at the train steps' shapes (B, G and H with input grads alone and with
+   their weight grads, C also with dv, F with all three grads and with dq
+   alone, I with dcorr alone and with dvalues, J with gu, tap and bias
+   grads), with the tolerance stated and CUDA-event times of the backward
+   alone; kernel E against its plain scatter_add_ version (density atol
+   and the fraction of occlusion-mask bits that flip); the cost of the
+   transpose that read-corr matching hands kernel I;
 6. slice phase: the full pvt_v2_b5 EMIPShort at 352^2 on seeded random
    weights runs ``predict_arrays`` on batches of 8 seeded frame pairs; the
    kernel launch counts of that run must equal what the model structure
@@ -40,39 +48,52 @@ needs one card and no arguments, and it imports nothing of JAX. In order:
    C 3, D 1; E 2); GMFlow must stay bit-identical, every trainable leaf
    with a grad must move, the losses must be finite; median ms/step,
    pairs/s and peak memory are printed;
-8. entry-point phase: ``python -m emip_tpu_torch.train`` (in process) on a
+8. kernel-switch phases, each beside the default configuration on the same
+   weights and inputs, in turns: read-corr matching
+   (``global_match_qk_fused=False``: I 2 per forward and C 1, I backward 2
+   per train step) and the fused MixFFN (``fused_ffn="always"``: J 104 per
+   forward; ``ffn_dwconv="bwd_fused"``: J backward 61 per train step);
+   mask, flow and train losses must equal the default's within the slice
+   and loss tolerances; frames/s and ms/step of both are printed;
+9. entry-point phase: ``python -m emip_tpu_torch.train`` (in process) on a
    synthetic dataset the port writes, b5 at 352^2, batch 8, one epoch of 2
    steps, validation and a checkpoint;
-9. long inference phase: the full EMIPLong (b5, 352^2, 5 memory slots) on
-   seeded weights streams seeded clips through ``step_cached``, one clip
-   at a time and four side by side; launch counts against the structure
-   (A 52 per encoded frame, B 6, C 3, D 1 per pair, F 1 per read);
-   frames/s with the ring full and peak memory; one 3-frame clip's short
-   mask, long masks and memory against the CPU plain versions;
-10. long train phase: one frame's loss and head grads, card against CPU,
+10. long inference phase: the full EMIPLong (b5, 352^2, 5 memory slots) on
+    seeded weights streams seeded clips through ``step_cached``, one clip
+    at a time and four side by side; launch counts against the structure
+    (A 52 per encoded frame, B 6, C 3, D 1 per pair, F 1 per read);
+    frames/s with the ring full and peak memory; one 3-frame clip's short
+    mask, long masks and memory against the CPU plain versions;
+11. long train phase: one frame's loss and head grads, card against CPU,
     on the seeded weights; then 1 + 5 per-frame train steps at 4 clips and
     at 1: F forward and backward once per step and no backward launch of
     A-D; every ``short_term`` tensor and buffer bit-identical afterwards,
     every trainable leaf moved, finite losses; ms/frame and peak memory;
-11. long entry points: ``python -m emip_tpu_torch.train_long`` and
+12. long entry points: ``python -m emip_tpu_torch.train_long`` and
     ``python -m emip_tpu_torch.test_long`` (in process) on a synthetic
-    root: 4 per-frame steps, validation, checkpoints, 12 PNGs.
+    root: 4 per-frame steps, validation, checkpoints, 12 PNGs;
+13. 512^2 phases, where a swin window holds 1024 tokens and the flow
+    transformer runs kernels G and H in place of B: 1 + 2 short train steps
+    at batch 2 (G and H forward and backward 6 each per step, none of B;
+    the checks of phase 7), then the long inference phase at 512^2 (G 6,
+    H 6, B 0 per step; card against CPU as in phase 10).
 
-It prints one JSON line with the eleven kernels' numbers (per kernel:
-launches in its train phase, the largest max_abs_err of its cases, and
-``ms`` / ``plain_ms`` / ``library_ms`` / ``bound_ms`` summed over its
-cases, one call each; ``bound_ms`` is the larger of the case's operations
-over the card's fp32 peak and its bytes over the memory rate, ``bound_by``
-says which), and as its last line ``{"ok": true, "device": {...}}``. Any
-failure raises and the exit code is non-zero, with no result line. Details
-also go to ``chiprun_out/chip_smoke.json``. ``--kernels NAME`` is a
-development aid: the kernel phases alone, for the kernels whose name
-contains NAME.
+It prints one JSON line with the nineteen kernels' numbers (per kernel:
+launches in the phase that is its main path, the largest max_abs_err of
+its cases, and ``ms`` / ``plain_ms`` / ``library_ms`` / ``bound_ms`` summed
+over its cases, one call each; ``bound_ms`` is the larger of the case's
+operations over the card's fp32 peak and its bytes over the memory rate,
+``bound_by`` says which), and as its last line ``{"ok": true, "device":
+{...}}``. Any failure raises and the exit code is non-zero, with no result
+line. Details also go to ``chiprun_out/chip_smoke.json``. ``--kernels
+NAMES`` is a development aid: the kernel phases alone, for the kernels
+whose name contains one of the comma-separated NAMES.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 import functools
 import json
 import os
@@ -87,6 +108,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 BATCH = 8            # frame pairs per batch
 SIZE = 352
+SIZE_512 = 512       # the second published size: windows of 1024 tokens
+TRAIN_BATCH_512 = 2
+TIMED_STEPS_512 = 2
+VARIANT_TIMED = 3    # timed batches / steps of a kernel-switch variant
 TIMED_BATCHES = 5
 TIMED_STEPS = 5
 KERNEL_REPS = 10
@@ -97,8 +122,15 @@ SEED = 0
 KERNEL_TOL = {
     "sr_attention": dict(rtol=1e-3, atol=1e-3),
     "window_attention_block": dict(rtol=1e-3, atol=2e-3),
+    "window_attention_layer": dict(rtol=1e-3, atol=2e-3),
+    "window_attention_ffn_layer": dict(rtol=1e-3, atol=2e-3),
     "flow_attention": dict(rtol=1e-3, atol=2e-3),
     "convex_upsample": dict(rtol=1e-4, atol=1e-3),
+    # outputs are pixel coordinates up to 63; the kernel's exp is the fast
+    # intrinsic (relative error ~1e-6 of each weight)
+    "softmax_expectation": dict(rtol=1e-4, atol=1e-3),
+    # nine products per output against cuDNN's order of the same sum
+    "dwconv_gelu": dict(rtol=1e-4, atol=1e-5),
     # outputs are softmax-weighted means of unit normals (|out| ~ 0.1-1)
     "memory_attention": dict(rtol=1e-3, atol=2e-5),
 }
@@ -136,6 +168,12 @@ SPLAT_FLIP_MAX = 1e-4
 # kernel A at the four PVT stages of pvt_v2_b5 at 352^2: N, M, C, heads
 SR_STAGES = ((7744, 121, 64, 1), (1936, 121, 128, 2), (484, 121, 320, 5),
              (121, 121, 512, 8))
+# the same at 512^2 (M = 256 reduced keys)
+SR_STAGES_512 = ((16384, 256, 64, 1), (4096, 256, 128, 2),
+                 (1024, 256, 320, 5), (256, 256, 512, 8))
+BATCH_512 = 4        # clips streamed side by side at 512^2
+# kernel J at the four MixFFN stages of pvt_v2_b5 at 352^2: side, hidden
+FFN_STAGES = ((88, 256), (44, 512), (22, 1280), (11, 2048))
 FWD_KERNELS = ("sr_attention", "window_attention_block", "flow_attention",
                "convex_upsample")
 WIN_SELF = ("wq", "wk", "wv", "wm", "s1", "b1")
@@ -150,6 +188,15 @@ KERNEL_INFO = {
                        "emip_tpu/ops/pallas/corr_softmax.py:204"),
     "convex_upsample": ("emip_tpu_torch/csrc/convex_upsample.cu",
                         "emip_tpu/ops/pallas/convex_upsample.py:85"),
+    "window_attention_layer": ("emip_tpu_torch/csrc/window_attention.cu",
+                               "emip_tpu/ops/pallas/window_attention.py:231"),
+    "window_attention_ffn_layer": (
+        "emip_tpu_torch/csrc/window_attention.cu",
+        "emip_tpu/ops/pallas/window_attention.py:812"),
+    "softmax_expectation": ("emip_tpu_torch/csrc/softmax_expectation.cu",
+                            "emip_tpu/ops/pallas/corr_softmax.py:86"),
+    "dwconv_gelu": ("emip_tpu_torch/csrc/dwconv_gelu.cu",
+                    "emip_tpu/ops/pallas/mixffn.py:167"),
     "sr_attention_bwd": ("emip_tpu_torch/csrc/sr_attention.cu",
                          "emip_tpu/ops/pallas/sr_attention.py:236"),
     "window_attention_block_bwd": (
@@ -165,6 +212,16 @@ KERNEL_INFO = {
                          "emip_tpu/ops/pallas/memory_attention.py:78"),
     "memory_attention_bwd": ("emip_tpu_torch/csrc/memory_attention.cu",
                              "emip_tpu/ops/pallas/memory_attention.py:159"),
+    "window_attention_layer_bwd": (
+        "emip_tpu_torch/csrc/window_attention.cu",
+        "emip_tpu/ops/pallas/window_attention.py:389"),
+    "window_attention_ffn_layer_bwd": (
+        "emip_tpu_torch/csrc/window_attention.cu",
+        "emip_tpu/ops/pallas/window_attention.py:835"),
+    "softmax_expectation_bwd": ("emip_tpu_torch/csrc/softmax_expectation.cu",
+                                "emip_tpu/ops/pallas/corr_softmax.py:142"),
+    "dwconv_gelu_bwd": ("emip_tpu_torch/csrc/dwconv_gelu.cu",
+                        "emip_tpu/ops/pallas/mixffn.py:181"),
 }
 
 # the card's published peaks (NVIDIA H100 SXM data sheet): fp32 outside the
@@ -239,6 +296,28 @@ def record(results: dict, name: str, label: str, err: float, ms: float,
         bound_by="operations" if ops_ms >= bytes_ms else "bytes", **extra))
 
 
+def wanted(only: str, name: str) -> bool:
+    """Whether kernel ``name`` is among the comma-separated substrings of
+    ``only`` (every kernel when ``only`` is empty)."""
+    return any(part in name for part in only.split(","))
+
+
+def transpose_cost(batch: int, device, reps: int) -> dict:
+    """ms of the contiguous transpose of the stored correlation that the
+    read-corr matching hands kernel I for the backward flow (the kernel
+    reads rows only), at the 352^2 and 512^2 shapes."""
+    import torch
+
+    out = {}
+    for b, n in ((batch, 1936), (BATCH_512, 4096)):
+        corr = torch.randn(b, n, n, device=device)
+        out[f"[{b},{n},{n}]"] = cuda_ms(
+            lambda: corr.transpose(1, 2).contiguous(), reps)
+    log("read-corr matching: contiguous transpose of corr "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in out.items()))
+    return out
+
+
 def fmt_ms(ms: float | None) -> str:
     return "none" if ms is None else f"{ms:.4f}"
 
@@ -274,6 +353,19 @@ def forward_work(name: str, args, out) -> tuple[float, float]:
         f = w0.shape[0]
         layer = 4 * 2 * rows * c * c + 4 * rows * tok * c
         ops = 2 * layer + 2 * rows * 2 * c * f + 2 * rows * f * c
+    elif name in ("window_attention_layer", "window_attention_ffn_layer"):
+        x, p = args[0], args[2]
+        rows, tok, c = x.numel() // x.shape[-1], x.shape[-2], x.shape[-1]
+        ops = 4 * 2 * rows * c * c + 4 * rows * tok * c
+        if name == "window_attention_ffn_layer":
+            w0 = p["w0"] if isinstance(p, dict) else args[2 + 6]
+            ops += 2 * rows * w0.shape[0] * (2 * c + c)
+    elif name == "softmax_expectation":
+        # per corr element: max, exp, sum and two multiply-adds
+        ops = args[0].numel() * 8
+    elif name == "dwconv_gelu":
+        # per element: nine multiply-adds, bias, erf and the GELU product
+        ops = args[0].numel() * 28
     elif name == "flow_attention":
         b, l, c = args[0].shape
         ops = 2 * b * l * l * (c + args[2].shape[-1])
@@ -389,6 +481,56 @@ def kernel_cases(batch: int, device):
     cases += [("memory_attention", label, K.masked_memory_attention,
                K.masked_memory_attention_reference, args)
               for label, args in memory_cases(r, MEMORY_FWD_CASES)]
+
+    # ---- the 512^2 shapes of A, C and D, and kernels G-J
+    for n, m, c, heads in SR_STAGES_512:
+        cases.append(("sr_attention",
+                      f"512^2 N={n} M={m} C={c} heads={heads}",
+                      K.fused_sr_attention, K.fused_sr_attention_reference,
+                      sr_args(r, BATCH_512, n, m, c, heads)))
+    L = 4096
+    cases.append(("flow_attention", f"[{2 * BATCH_512},{L},128] v=[...,2]",
+                  K.fused_flow_attention, K.fused_flow_attention_reference,
+                  (r(2 * BATCH_512, L, 128), r(2 * BATCH_512, L, 128),
+                   r(2 * BATCH_512, L, 2, scale=10.0))))
+    cases.append(("convex_upsample", f"flow [{2 * BATCH_512},64,64,2] x8",
+                  K.convex_upsample, K.convex_upsample_reference,
+                  (r(2 * BATCH_512, 64, 64, 2, scale=3.0),
+                   r(2 * BATCH_512, 64, 64, 576), 8)))
+    # G and H at the 512^2 window (T = 1024: 1 and 4 clips, both flow
+    # directions on the batch axis) and once at the 352^2 window (T = 484)
+    c, k2 = 128, 4
+    for b2, side in ((2, 64), (2 * BATCH_512, 64), (2 * batch, 44)):
+        tok = (side // 2) ** 2
+        x, t = r(b2, k2, tok, c), r(b2, k2, tok, c)
+        sp, cp = window_params(r, c)
+        mask = shifted_window_mask(side, side, 2, device=device)
+        for label, msk in (("unshifted", None), ("shifted mask", mask)):
+            if tok == 484 and msk is None:
+                continue
+            shape = f"[{b2},{k2},{tok},{c}] {label}"
+            cases.append(("window_attention_layer", shape + " + x",
+                          K.fused_window_attention_layer,
+                          K.fused_window_attention_layer_reference,
+                          (x, t, sp, msk, True)))
+            if b2 == 2:
+                cases.append(("window_attention_layer", shape + " message",
+                              K.fused_window_attention_layer,
+                              K.fused_window_attention_layer_reference,
+                              (x, t, sp, msk, False)))
+            cases.append(("window_attention_ffn_layer", shape,
+                          K.fused_window_attention_ffn_layer,
+                          K.fused_window_attention_ffn_layer_reference,
+                          (x, t, cp, msk)))
+    for b, n in ((batch, 1936), (BATCH_512, 4096)):
+        cases.append(("softmax_expectation", f"corr [{b},{n},{n}]",
+                      K.softmax_expectation, K.softmax_expectation_reference,
+                      (r(b, n, n, scale=3.0), r(n, 2, scale=20.0))))
+    for side, f in FFN_STAGES:
+        cases.append(("dwconv_gelu", f"u [{batch},{side * side},{f}]",
+                      K.fused_dwconv_gelu, K.fused_dwconv_gelu_reference,
+                      (r(batch, side * side, f), r(3, 3, f, scale=0.3),
+                       r(f, scale=0.1), side, side)))
     return cases
 
 
@@ -420,7 +562,7 @@ def kernel_phase(batch: int, device, reps: int, only: str = "") -> dict:
 
     results = {}
     for name, label, fn, ref, args in kernel_cases(batch, device):
-        if only not in name:
+        if not wanted(only, name):
             continue
         got = fn(*args)
         torch.cuda.synchronize()
@@ -534,6 +676,58 @@ def backward_cases(batch: int, device):
             cases.append(("memory_attention_bwd", f"{label} {what}",
                           K.masked_memory_attention,
                           K.masked_memory_attention_reference, args, which))
+
+    # ---- G and H at the 512^2 train step's window (batch 2 pairs, both
+    # directions) and at T = 484; I; J
+    def layer_fns(kernel, plain, keys, **kw):
+        return (lambda x, t, *p: kernel(x, t, dict(zip(keys, p)), **kw),
+                lambda x, t, *p: plain(x, t, dict(zip(keys, p)), **kw))
+
+    for b2, side in ((4, 64), (2 * batch, 44)):
+        tok = (side // 2) ** 2
+        x, t = r(b2, k2, tok, c), r(b2, k2, tok, c)
+        sp, cp = window_params(r, c)
+        mask = shifted_window_mask(side, side, 2, device=device)
+        sflat, cflat = [sp[k] for k in WIN_SELF], [cp[k] for k in WIN_CROSS]
+        for label, msk in (("unshifted", None), ("shifted mask", mask)):
+            if tok == 484 and msk is None:
+                continue
+            for wgrads in (False, True):
+                what = "x t + weight" if wgrads else "x t"
+                shape = f"[{b2},{k2},{tok},{c}] {label}, {what} grads"
+                for res in ((True, False) if tok == 1024 and wgrads
+                            else (True,)):
+                    fn, ref = layer_fns(
+                        K.fused_window_attention_layer,
+                        K.fused_window_attention_layer_reference, WIN_SELF,
+                        mask=msk, add_residual=res)
+                    cases.append((
+                        "window_attention_layer_bwd",
+                        shape + (" (+ x)" if res else " (message)"), fn, ref,
+                        (x, t, *sflat),
+                        tuple(range(2 + len(sflat))) if wgrads else (0, 1)))
+                fn, ref = layer_fns(
+                    K.fused_window_attention_ffn_layer,
+                    K.fused_window_attention_ffn_layer_reference, WIN_CROSS,
+                    mask=msk)
+                cases.append((
+                    "window_attention_ffn_layer_bwd", shape, fn, ref,
+                    (x, t, *cflat),
+                    tuple(range(2 + len(cflat))) if wgrads else (0, 1)))
+    for b, n in ((batch, 1936), (2, 4096)):
+        for which, what in (((0,), "dcorr"), ((0, 1), "dcorr dvalues")):
+            cases.append(("softmax_expectation_bwd",
+                          f"corr [{b},{n},{n}] {what}",
+                          K.softmax_expectation,
+                          K.softmax_expectation_reference,
+                          (r(b, n, n, scale=3.0), r(n, 2, scale=20.0)),
+                          which))
+    for side, f in FFN_STAGES:
+        cases.append(("dwconv_gelu_bwd",
+                      f"u [{batch},{side * side},{f}] gu taps bias",
+                      K.fused_dwconv_gelu, K.fused_dwconv_gelu_reference,
+                      (r(batch, side * side, f), r(3, 3, f, scale=0.3),
+                       r(f, scale=0.1), side, side), (0, 1, 2)))
     return cases
 
 
@@ -563,7 +757,7 @@ def backward_phase(batch: int, device, reps: int, only: str = "") -> dict:
 
     results = {}
     for name, label, fn, ref, args, which in backward_cases(batch, device):
-        if only not in name:
+        if not wanted(only, name):
             continue
         gen = torch.Generator(device=device).manual_seed(SEED + 3)
 
@@ -597,7 +791,7 @@ def backward_phase(batch: int, device, reps: int, only: str = "") -> dict:
         record(results, name, label, err, ms, plain_ms,
                backward_work(name, args, which, out_k), lib_ms, max_rel=rel)
         del out_k, out_p, got, want, rerun_k, rerun_p
-    if only in "splat_density":
+    if wanted(only, "splat_density"):
         splat_case(results, batch, device, reps)
     return results
 
@@ -644,25 +838,45 @@ def splat_case(results: dict, batch: int, device, reps: int) -> None:
 
 def expected_launches(model, train: bool = False) -> dict:
     """Kernel launches per forward (``train``: per train step) implied by
-    the model's structure."""
+    the model's structure and its configuration's kernel switches."""
     from emip_tpu_torch import kernels as K
 
     pvt = model.backbone.feat_net.pvtv2_en
     depths = pvt.config.depths
+    gm = model.GMFlow.config
+    layers = len(model.GMFlow.transformer.layers)
+    tok = (model.config.inp_size // 8 // gm.attn_splits_list[0]) ** 2
+    whole_block = tok <= gm.fused_block_max_t
+    directions = 2 if gm.pred_bidir_flow else 1
     n = {k: 0 for k in K.LAUNCHES}
     n.update(sr_attention=2 * sum(depths),  # every PVT block, both frames
-             window_attention_block=len(model.GMFlow.transformer.layers),
-             flow_attention=3 if model.GMFlow.config.pred_bidir_flow else 2,
-             convex_upsample=1)
+             window_attention_block=layers if whole_block else 0,
+             window_attention_layer=0 if whole_block else layers,
+             window_attention_ffn_layer=0 if whole_block else layers,
+             # matching per direction (kernel C, or I on the stored
+             # correlation) and one propagation
+             flow_attention=1 + (directions if gm.global_match_qk_fused
+                                 else 0),
+             softmax_expectation=(0 if gm.global_match_qk_fused
+                                  else directions),
+             convex_upsample=1,
+             dwconv_gelu=(2 * sum(depths) if pvt.config.fused_ffn == "always"
+                          else 0))
     if train:
         # backward: every block of frame 1; of frame 2 only the stages up
         # to /8, whose output feeds the camouflage feeder (its /16 and /32
         # features do not reach the loss)
-        n.update(sr_attention_bwd=sum(depths) + depths[0] + depths[1],
-                 window_attention_block_bwd=n["window_attention_block"],
-                 flow_attention_bwd=n["flow_attention"],
+        blocks_bwd = sum(depths) + depths[0] + depths[1]
+        ffn_kernel_bwd = (pvt.config.fused_ffn == "always"
+                          or pvt.config.ffn_dwconv == "bwd_fused")
+        n.update(sr_attention_bwd=blocks_bwd,
                  convex_upsample_bwd=1,
-                 splat_density=2)  # occlusion masks of both directions
+                 dwconv_gelu_bwd=blocks_bwd if ffn_kernel_bwd else 0,
+                 splat_density=2,  # occlusion masks of both directions
+                 **{k + "_bwd": n[k] for k in (
+                     "window_attention_block", "window_attention_layer",
+                     "window_attention_ffn_layer", "flow_attention",
+                     "softmax_expectation")})
     return n
 
 
@@ -767,10 +981,24 @@ def seeded_batch(rng, batch: int, size: int, device) -> dict:
         gt=torch.from_numpy(gt).to(device))
 
 
-def train_phase(model, batch: int, size: int, device, timed: int) -> dict:
+# what the default short train step launches: A-D forward and backward, E
+TRAIN_KERNELS = ("sr_attention", "sr_attention_bwd", "window_attention_block",
+                 "window_attention_block_bwd", "flow_attention",
+                 "flow_attention_bwd", "convex_upsample",
+                 "convex_upsample_bwd", "splat_density")
+# at 512^2 the windows hold 1024 tokens: G and H in place of B
+TRAIN_KERNELS_512 = tuple(
+    k for k in TRAIN_KERNELS if "window" not in k) + (
+    "window_attention_layer", "window_attention_layer_bwd",
+    "window_attention_ffn_layer", "window_attention_ffn_layer_bwd")
+
+
+def train_phase(model, batch: int, size: int, device, timed: int,
+                must_run=TRAIN_KERNELS) -> dict:
     """Train steps of the full model: 1 warm-up, then ``timed`` steps
     timed with CUDA events; kernel launch counts per step against the
-    structure; GMFlow untouched; every trainable leaf with a grad moved."""
+    structure (and none of ``must_run`` idle); GMFlow untouched; every
+    trainable leaf with a grad moved."""
     import torch
 
     from emip_tpu_torch import kernels as K
@@ -806,11 +1034,10 @@ def train_phase(model, batch: int, size: int, device, timed: int) -> dict:
     launches = dict(K.LAUNCHES)
     want = {k: v * steps for k, v in expected_launches(model, True).items()}
     log(f"train launches {launches} (expected {want})")
-    # every kernel but the long model's memory read runs in this step
-    ran = [v for k, v in launches.items()
-           if not k.startswith("memory_attention")]
-    if launches != want or min(ran) == 0:
-        raise AssertionError(f"train launch counts {launches} != {want}")
+    idle = [k for k in must_run if launches[k] == 0]
+    if launches != want or idle:
+        raise AssertionError(f"train launch counts {launches} != {want}; "
+                             f"not launched: {idle}")
 
     for i, m in enumerate(losses):
         log(f"train step {i}: " + " ".join(f"{k}={v:.6f}"
@@ -841,6 +1068,142 @@ def train_phase(model, batch: int, size: int, device, timed: int) -> dict:
                 leaves_with_grad=with_grad)
 
 
+def variant_phase(label: str, model, infer_cfg, train_cfg, batch: int,
+                  size: int, device, timed: int, must_run) -> dict:
+    """The short model under another kernel configuration, beside the
+    default one (``model``) on the same weights and inputs.
+
+    Inference with ``infer_cfg``: ``predict_arrays`` on seeded batches, in
+    turns default, variant, variant, default; launch counts of the variant
+    per forward against its structure; mask and flow of the first batch
+    equal to the default's within the slice tolerance. Then train steps
+    with ``train_cfg``, each model from the same weights with its own
+    optimizer and the same seeded drop-path bits: launch counts per step,
+    the first step's losses equal to the default's within the loss
+    tolerance, every step's finite. ``must_run`` names the kernels the two
+    variant runs must have launched between them. Times are medians of
+    CUDA-event timed batches / steps."""
+    import torch
+
+    from emip_tpu_torch import kernels as K
+    from emip_tpu_torch.infer import predict_arrays
+    from emip_tpu_torch.models.emip_short import EMIPShort
+    from emip_tpu_torch.train.short import short_train_step
+    from emip_tpu_torch.train.state import build_optimizer
+
+    def twin(cfg):
+        m = EMIPShort(cfg)
+        m.load_state_dict(model.state_dict(), strict=True)  # the same keys
+        return m.to(device)
+
+    def timed_run(fn, n):
+        """(results, ms of each call after the first)."""
+        outs, times = [], []
+        for i in range(n):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            outs.append(fn(i))
+            end.record()
+            torch.cuda.synchronize()
+            if i > 0:
+                times.append(start.elapsed_time(end))
+        return outs, times
+
+    rng = np.random.default_rng(SEED + 11)
+    n = 1 + timed
+    frames = [(torch.from_numpy(seeded_frames(rng, batch, size)).to(device),
+               torch.from_numpy(seeded_frames(rng, batch, size)).to(device))
+              for _ in range(n)]
+    variant = twin(infer_cfg).eval()
+    model.eval()
+    runs = {}
+    launched = {}
+    for who in ("default", "variant", "variant", "default"):
+        m = model if who == "default" else variant
+        K.reset_launches()
+        outs, times = timed_run(lambda i: predict_arrays(m, *frames[i]), n)
+        runs.setdefault(who, dict(out=outs[0], times=[]))["times"] += times
+        if who == "variant":
+            want = {k: v * n for k, v in expected_launches(variant).items()}
+            if dict(K.LAUNCHES) != want:
+                raise AssertionError(f"{label}: launch counts "
+                                     f"{dict(K.LAUNCHES)} != {want}")
+            launched = dict(K.LAUNCHES)
+    cmp = {}
+    for name, got, ref in zip(("mask", "flow_fw"), runs["variant"]["out"],
+                              runs["default"]["out"]):
+        tol = SLICE_TOL[name]
+        err = (got - ref).abs().max().item()
+        rel = err / max(ref.abs().max().item(), 1e-30)
+        ok = (bool(torch.isfinite(got).all())
+              and torch.allclose(got, ref, **tol) and rel <= SLICE_REL_MAX)
+        cmp[name] = dict(max_abs_err=err, rel_to_max=rel, ok=ok)
+        log(f"{label} {name} vs default configuration: max_abs_err={err:.3e} "
+            f"tol={tol}; max|err|/max|ref|={rel:.3e} (limit {SLICE_REL_MAX}) "
+            f"{'ok' if ok else 'MISMATCH'}")
+    ms = {who: statistics.median(r["times"]) for who, r in runs.items()}
+    per_fwd = {k: v // n for k, v in launched.items() if v}
+    log(f"{label} inference b5 {size}^2 bs={batch}: launches per forward "
+        f"{per_fwd}; median {ms['variant']:.3f} ms/batch -> "
+        f"{batch / ms['variant'] * 1e3:.3f} frames/s (default configuration "
+        f"in the same turns: {ms['default']:.3f} ms/batch -> "
+        f"{batch / ms['default'] * 1e3:.3f} frames/s)")
+    if not all(c["ok"] for c in cmp.values()):
+        raise AssertionError(f"{label}: outputs differ from the default "
+                             f"configuration's: {cmp}")
+    out = dict(infer=dict(launches=launched, ms=ms, compare=cmp,
+                          frames_per_s={k: batch / v * 1e3
+                                        for k, v in ms.items()}))
+    del variant, runs
+
+    # ---- train steps, each model from the same weights
+    rng = np.random.default_rng(SEED + 12)
+    batches = [seeded_batch(rng, batch, size, device) for _ in range(n)]
+    res = {}
+    for who, cfg in (("default", model.config), ("variant", train_cfg)):
+        m = twin(cfg)
+        opt = build_optimizer(m)
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        K.reset_launches()
+        metrics, times = timed_run(
+            lambda i: short_train_step(m, opt, batches[i], gen), n)
+        want = {k: v * n for k, v in expected_launches(m, True).items()}
+        if dict(K.LAUNCHES) != want:
+            raise AssertionError(f"{label} train ({who}): launch counts "
+                                 f"{dict(K.LAUNCHES)} != {want}")
+        res[who] = dict(launches=dict(K.LAUNCHES),
+                        ms=statistics.median(times),
+                        losses=[{k: float(v) for k, v in mt.items()}
+                                for mt in metrics])
+        del m, opt
+        torch.cuda.empty_cache()
+    # the first step starts from the same weights; after it the two runs'
+    # weights differ in their last bits (kernel E's atomics) and the flow
+    # loss, piecewise constant in the warp, moves in its 3rd-4th digit
+    a, b = res["variant"]["losses"][0], res["default"]["losses"][0]
+    bad = [(k, a[k], b[k]) for k in a
+           if not abs(a[k] - b[k]) <= TRAIN_LOSS_RTOL * abs(b[k])]
+    bad += [(i, m) for i, m in enumerate(res["variant"]["losses"])
+            if not all(np.isfinite(v) for v in m.values())]
+    per_step = {k: v // n for k, v in res["variant"]["launches"].items()
+                if v and k.endswith("_bwd")}
+    log(f"{label} train b5 {size}^2 bs={batch}: backward launches per step "
+        f"{per_step}; median {res['variant']['ms']:.3f} ms/step (default "
+        f"configuration: {res['default']['ms']:.3f}); first step's losses "
+        f"within rel {TRAIN_LOSS_RTOL} of the default's, all {n} steps "
+        f"finite: {'ok' if not bad else 'MISMATCH'}")
+    if bad:
+        raise AssertionError(f"{label}: train losses differ from the "
+                             f"default configuration's: {bad[:4]}")
+    idle = [k for k in must_run
+            if launched[k] + res["variant"]["launches"][k] == 0]
+    if idle:
+        raise AssertionError(f"{label}: never launched: {idle}")
+    out["train"] = res
+    return out
+
+
 def _seg_grads(model, batch) -> tuple[dict, dict]:
     """Loss values and d(seg loss)/d(trainable leaves) of one train-mode
     forward (no optimizer step)."""
@@ -864,8 +1227,6 @@ def train_compare_phase(model, size: int, device) -> dict:
     frozen) by the scale-floored relative max of
     tests/test_grad_parity.py. Drop path is off (the two devices'
     generators differ)."""
-    import dataclasses
-
     import torch
 
     from emip_tpu_torch.train.state import freeze_gmflow
@@ -964,17 +1325,14 @@ LONG_TIMED = 5
 def long_expected(model, frames_encoded: int, pairs: int, reads: int,
                   backward_reads: int = 0) -> dict:
     """Kernel launches of the long model's frozen short-term net and its
-    memory read: A per encoded frame, B / C / D per frame pair, F per read
-    (and F's backward per train step); never a backward of A-D."""
-    from emip_tpu_torch import kernels as K
-
+    memory read: A (and J) per encoded frame, B or G + H, C, I and D per
+    frame pair, F per read (and F's backward per train step); never a
+    backward of the short-term net's kernels."""
     per = expected_launches(model.short_term)
-    n = {k: 0 for k in K.LAUNCHES}
-    n.update(sr_attention=per["sr_attention"] // 2 * frames_encoded,
-             window_attention_block=per["window_attention_block"] * pairs,
-             flow_attention=per["flow_attention"] * pairs,
-             convex_upsample=per["convex_upsample"] * pairs,
-             memory_attention=reads, memory_attention_bwd=backward_reads)
+    per_frame = ("sr_attention", "dwconv_gelu")  # counted for two frames
+    n = {k: v // 2 * frames_encoded if k in per_frame else v * pairs
+         for k, v in per.items()}
+    n.update(memory_attention=reads, memory_attention_bwd=backward_reads)
     return n
 
 
@@ -1285,10 +1643,10 @@ def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernels", default=None, metavar="NAME",
+    ap.add_argument("--kernels", default=None, metavar="NAMES",
                     help="development aid: only the kernel phases, and of "
-                         "them only the kernels whose name contains NAME; "
-                         "prints no result line")
+                         "them only the kernels whose name contains one of "
+                         "the comma-separated NAMES; prints no result line")
     opts = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1319,22 +1677,32 @@ def main(argv=None) -> int:
         return 0
     kernels = kernel_phase(BATCH, device, KERNEL_REPS)
     kernels.update(backward_phase(BATCH, device, KERNEL_REPS))
+    transpose_ms = transpose_cost(BATCH, device, KERNEL_REPS)
 
-    model = EMIPShort(EMIPShortConfig(backbone_name="pvt_v2_b5",
-                                      inp_size=SIZE))
+    cfg = EMIPShortConfig(backbone_name="pvt_v2_b5", inp_size=SIZE)
+    model = EMIPShort(cfg)
     seeded_init_(model, SEED)
     model = model.to(device).eval()
     slice_res = slice_phase(model, BATCH, SIZE, device, TIMED_BATCHES)
     compare_res = train_compare_phase(model, SIZE, device)
     train_res = train_phase(model, BATCH, SIZE, device, TIMED_STEPS)
+    read_corr_cfg = dataclasses.replace(cfg, gmflow=dataclasses.replace(
+        cfg.gmflow, global_match_qk_fused=False))
+    read_corr = variant_phase(
+        "read-corr matching", model, read_corr_cfg, read_corr_cfg, BATCH,
+        SIZE, device, VARIANT_TIMED,
+        ("softmax_expectation", "softmax_expectation_bwd"))
+    fused_ffn = variant_phase(
+        "fused MixFFN", model, dataclasses.replace(cfg, fused_ffn="always"),
+        dataclasses.replace(cfg, ffn_dwconv="bwd_fused"), BATCH, SIZE,
+        device, VARIANT_TIMED, ("dwconv_gelu", "dwconv_gelu_bwd"))
     del model
     torch.cuda.empty_cache()
     entry_res = entry_phase(BATCH, SIZE)
 
     from emip_tpu_torch.models.emip_long import EMIPLong
 
-    long_model = EMIPLong(EMIPShortConfig(backbone_name="pvt_v2_b5",
-                                          inp_size=SIZE), memory_size=5)
+    long_model = EMIPLong(cfg, memory_size=5)
     seeded_init_(long_model, SEED)
     long_model = long_model.to(device).eval()
     long_infer = long_infer_phase(long_model, SIZE, device, LONG_TIMED)
@@ -1344,11 +1712,36 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     long_entry = long_entry_phase(SIZE)
 
-    # launches on the main paths: the short train step's, and for the
-    # memory read the long train steps' (each counted from 0 just before
-    # its run)
-    launches = {name: train_res["launches"][name]
-                or long_train["clips4"]["launches"][name]
+    # 512^2: windows of 1024 tokens, so kernels G and H in place of B
+    cfg512 = dataclasses.replace(cfg, inp_size=SIZE_512)
+    model512 = EMIPShort(cfg512)
+    seeded_init_(model512, SEED)
+    model512 = model512.to(device)
+    train512 = train_phase(model512, TRAIN_BATCH_512, SIZE_512, device,
+                           TIMED_STEPS_512, TRAIN_KERNELS_512)
+    del model512
+    torch.cuda.empty_cache()
+    long512 = EMIPLong(cfg512, memory_size=5)
+    seeded_init_(long512, SEED)
+    long512 = long512.to(device).eval()
+    long_infer512 = long_infer_phase(long512, SIZE_512, device, LONG_TIMED)
+    for clips in LONG_CLIPS:
+        got = long_infer512[f"clips{clips}"]["launches"]
+        if (got["window_attention_block"] or not got["window_attention_layer"]
+                or not got["window_attention_ffn_layer"]):
+            raise AssertionError(f"512^2 streaming did not run G and H: {got}")
+    del long512
+    torch.cuda.empty_cache()
+
+    # launches on the main paths, each counted from 0 just before its run:
+    # the short train step's; for the memory read the long train steps';
+    # for G and H the 512^2 train steps'; for I and J the read-corr and
+    # fused-MixFFN runs'
+    runs = (train_res["launches"], long_train["clips4"]["launches"],
+            train512["launches"], read_corr["train"]["variant"]["launches"],
+            fused_ffn["infer"]["launches"],
+            fused_ffn["train"]["variant"]["launches"])
+    launches = {name: next((r[name] for r in runs if r[name]), 0)
                 for name in KERNEL_INFO}
     idle = [name for name, n in launches.items() if n == 0]
     if idle:
@@ -1368,7 +1761,10 @@ def main(argv=None) -> int:
                        train=train_res, train_compare=compare_res,
                        entry=entry_res, long_infer=long_infer,
                        long_train_compare=long_compare,
-                       long_train=long_train, long_entry=long_entry),
+                       long_train=long_train, long_entry=long_entry,
+                       read_corr=read_corr, fused_ffn=fused_ffn,
+                       read_corr_transpose_ms=transpose_ms,
+                       train_512=train512, long_infer_512=long_infer512),
                   f, indent=1, default=str)
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {

@@ -75,9 +75,13 @@ def _model(d: dict) -> EMIPShortConfig:
         corr_radius_list=tuple(gm.get("corr_radius_list", [-1])),
         prop_radius_list=tuple(gm.get("prop_radius_list", [-1])),
         pred_bidir_flow=bool(gm.get("pred_bidir_flow", True)),
+        global_match_qk_fused=bool(gm.get("global_match_qk_fused", True)),
+        fused_block_max_t=int(gm.get("fused_block_max_t", 784)),
     )
     return EMIPShortConfig(
         backbone_name=str(args.get("backbone_name", "pvt_v2_b5")),
+        fused_ffn=args.get("fused_ffn"),
+        ffn_dwconv=args.get("ffn_dwconv"),
         channel=int(args.get("channel", 32)),
         inp_size=int(args.get("inp_size", 352)),
         gmflow=gmflow,

@@ -2,7 +2,7 @@
 
 Each public function takes the JAX package's layout, runs its plain
 PyTorch version on CPU tensors and its CUDA kernel on CUDA tensors, and
-counts its kernel launches in :data:`LAUNCHES`. Kernels A-D and F
+counts its kernel launches in :data:`LAUNCHES`. Kernels A-D and F-J
 are ``torch.autograd.Function``s whose CUDA backward is a kernel too; E is
 forward only. The kernels are built from ``emip_tpu_torch/csrc`` at first
 use (:func:`library`).
@@ -14,6 +14,10 @@ from emip_tpu_torch.kernels.convex_upsample import (
     convex_upsample,
     convex_upsample_reference,
 )
+from emip_tpu_torch.kernels.dwconv_gelu import (
+    fused_dwconv_gelu,
+    fused_dwconv_gelu_reference,
+)
 from emip_tpu_torch.kernels.flow_attention import (
     fused_flow_attention,
     fused_flow_attention_reference,
@@ -21,6 +25,10 @@ from emip_tpu_torch.kernels.flow_attention import (
 from emip_tpu_torch.kernels.memory_attention import (
     masked_memory_attention,
     masked_memory_attention_reference,
+)
+from emip_tpu_torch.kernels.softmax_expectation import (
+    softmax_expectation,
+    softmax_expectation_reference,
 )
 from emip_tpu_torch.kernels.splat import splat_density, splat_density_reference
 from emip_tpu_torch.kernels.sr_attention import (
@@ -30,6 +38,10 @@ from emip_tpu_torch.kernels.sr_attention import (
 from emip_tpu_torch.kernels.window_attention import (
     fused_window_attention_block,
     fused_window_attention_block_reference,
+    fused_window_attention_ffn_layer,
+    fused_window_attention_ffn_layer_reference,
+    fused_window_attention_layer,
+    fused_window_attention_layer_reference,
 )
 
 __all__ = [
@@ -37,16 +49,24 @@ __all__ = [
     "LAUNCHES",
     "convex_upsample",
     "convex_upsample_reference",
+    "fused_dwconv_gelu",
+    "fused_dwconv_gelu_reference",
     "fused_flow_attention",
     "fused_flow_attention_reference",
     "fused_sr_attention",
     "fused_sr_attention_reference",
     "fused_window_attention_block",
     "fused_window_attention_block_reference",
+    "fused_window_attention_ffn_layer",
+    "fused_window_attention_ffn_layer_reference",
+    "fused_window_attention_layer",
+    "fused_window_attention_layer_reference",
     "library",
     "masked_memory_attention",
     "masked_memory_attention_reference",
     "reset_launches",
+    "softmax_expectation",
+    "softmax_expectation_reference",
     "splat_density",
     "splat_density_reference",
 ]

@@ -40,6 +40,13 @@ _SIGNATURES = {
     "emip_window_block": [_P] * 19 + [_I] + [_P] * 11 + [_I] * 4 + [_F, _P],
     "emip_window_block_bwd": ([_P] * 16 + [_I] + [_P] * 30 + [_L]
                               + [_I] * 4 + [_F, _P]),
+    "emip_window_layer": [_P] * 9 + [_I] + [_P] * 4 + [_I] * 4 + [_F, _P],
+    "emip_window_layer_bwd": ([_P] * 8 + [_I] + [_P] * 13 + [_L] + [_I] * 4
+                              + [_F, _P]),
+    "emip_window_ffn_layer": ([_P] * 13 + [_I] + [_P] * 8 + [_I] * 4
+                              + [_F, _P]),
+    "emip_window_ffn_layer_bwd": ([_P] * 11 + [_I] + [_P] * 21 + [_L]
+                                  + [_I] * 4 + [_F, _P]),
     "emip_flow_attention": [_P] * 4 + [_I] * 4 + [_P],
     "emip_flow_attention_bwd": [_P] * 9 + [_L] + [_I] * 4 + [_P],
     "emip_convex_upsample": [_P] * 3 + [_I] * 4 + [_P],
@@ -47,6 +54,10 @@ _SIGNATURES = {
     "emip_splat_density": [_P] * 2 + [_I] * 3 + [_P],
     "emip_memory_attention": [_P] * 7 + [_L] + [_I] * 4 + [_P],
     "emip_memory_attention_bwd": [_P] * 11 + [_L] + [_I] * 4 + [_P],
+    "emip_softmax_expectation": [_P] * 3 + [_L, _I, _P],
+    "emip_softmax_expectation_bwd": [_P] * 6 + [_L, _L, _I, _P],
+    "emip_dwconv_gelu": [_P] * 4 + [_I] * 4 + [_P],
+    "emip_dwconv_gelu_bwd": [_P] * 8 + [_L] + [_I] * 4 + [_P],
 }
 
 

@@ -12,6 +12,10 @@ LAUNCHES = {
     "sr_attention_bwd": 0,
     "window_attention_block": 0,
     "window_attention_block_bwd": 0,
+    "window_attention_layer": 0,
+    "window_attention_layer_bwd": 0,
+    "window_attention_ffn_layer": 0,
+    "window_attention_ffn_layer_bwd": 0,
     "flow_attention": 0,
     "flow_attention_bwd": 0,
     "convex_upsample": 0,
@@ -19,6 +23,10 @@ LAUNCHES = {
     "splat_density": 0,
     "memory_attention": 0,
     "memory_attention_bwd": 0,
+    "softmax_expectation": 0,
+    "softmax_expectation_bwd": 0,
+    "dwconv_gelu": 0,
+    "dwconv_gelu_bwd": 0,
 }
 
 # floats of split-K / column-sum / attention-partial workspace a backward

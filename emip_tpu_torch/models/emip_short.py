@@ -47,6 +47,11 @@ class EMIPShortConfig:
     inp_size: int = 352
     gmflow: GMFlowConfig = GMFlowConfig()
     include_dead_modules: bool = True
+    # MixFFN kernel switches of the backbone's :class:`PVTv2Config`
+    # (``fused_ffn``: "never" | "always"; ``ffn_dwconv``: "conv" |
+    # "bwd_fused"); None leaves what the backbone's configuration says
+    fused_ffn: str | None = None
+    ffn_dwconv: str | None = None
 
 
 class _FeatNet(nn.Module):
@@ -71,7 +76,8 @@ class EMIPShort(nn.Module):
         super().__init__()
         cfg = config
         self.config = cfg
-        pvt, ch = create_backbone(cfg.backbone_name)
+        pvt, ch = create_backbone(cfg.backbone_name, fused_ffn=cfg.fused_ffn,
+                                  ffn_dwconv=cfg.ffn_dwconv)
         self.backbone = _SegBackbone(pvt)
         fdim = cfg.gmflow.feature_channels
         if ch[1] != fdim:
@@ -107,6 +113,11 @@ class EMIPShort(nn.Module):
     def encode_frame(self, image: torch.Tensor, generator=None) -> dict:
         """Everything that depends on one frame: backbone stages /8, /16,
         /32, CNN flow features and the camouflage-feeder injection."""
+        size = self.config.inp_size
+        if tuple(image.shape[-2:]) != (size, size):
+            # conv_corr's input width is (inp_size / 8)^2
+            raise ValueError(f"frames are {tuple(image.shape[-2:])}, the "
+                             f"model was built for inp_size {size}")
         stages = self.backbone(image, generator)
         fea = (stages[-3], stages[-2], stages[-1])
         gm = self.GMFlow.encode(image)[0]

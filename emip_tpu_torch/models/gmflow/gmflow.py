@@ -44,6 +44,12 @@ class GMFlowConfig:
     corr_radius_list: tuple[int, ...] = (-1,)
     prop_radius_list: tuple[int, ...] = (-1,)
     pred_bidir_flow: bool = True
+    # global matching: True recomputes q k^T inside kernel C (flash
+    # matching); False reads the stored correlation through kernel I
+    global_match_qk_fused: bool = True
+    # windows of more tokens than this run as two layer kernels (G, H)
+    # instead of the whole-block kernel B
+    fused_block_max_t: int = 784
 
 
 def _add_position(feature0, feature1, attn_splits: int, channels: int):
@@ -73,7 +79,8 @@ class GMFlow(nn.Module):
         c = cfg.feature_channels
         self.backbone = CNNEncoder(output_dim=c)
         self.transformer = FeatureTransformer(
-            cfg.num_transformer_layers, c, cfg.ffn_dim_expansion)
+            cfg.num_transformer_layers, c, cfg.ffn_dim_expansion,
+            cfg.fused_block_max_t)
         self.feature_flow_attn = FeatureFlowAttention(c)
         self.upsampler = nn.Sequential(
             nn.Conv2d(2 + c, 256, 3, padding=1), nn.ReLU(inplace=True),
@@ -97,8 +104,9 @@ class GMFlow(nn.Module):
         feature0, feature1 = _add_position(feature0, feature1, splits,
                                            cfg.feature_channels)
         feature0, feature1 = self.transformer(feature0, feature1, splits)
-        flow, corr = global_correlation_softmax(feature0, feature1,
-                                                cfg.pred_bidir_flow)
+        flow, corr = global_correlation_softmax(
+            feature0, feature1, cfg.pred_bidir_flow,
+            cfg.global_match_qk_fused)
         preds = []
         if training:  # intermediate supervision before propagation
             preds.append(upsample_flow_bilinear(flow, cfg.upsample_factor))

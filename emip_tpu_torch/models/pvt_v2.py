@@ -10,6 +10,11 @@ over stacked block params (a plain loop over blocks), no remat, and exact
 GELU in the MixFFN (the JAX named variants default to a polynomial fit).
 Everything from ``q`` onward in the attention runs in kernel A
 (:func:`emip_tpu_torch.kernels.fused_sr_attention`), forward and backward.
+The MixFFN's depthwise conv + bias + GELU is the library's by default;
+``PVTv2Config.fused_ffn = "always"`` runs it as kernel J
+(:func:`emip_tpu_torch.kernels.fused_dwconv_gelu`) forward and backward,
+``ffn_dwconv = "bwd_fused"`` keeps the library's forward and takes J's
+backward (the JAX package's two switches, with its defaults).
 In train mode each block's two residual branches take stochastic depth at
 a rate ramping linearly to ``drop_path_rate`` over all blocks; its random
 bits come from the ``torch.Generator`` handed to :meth:`PVTv2.forward`.
@@ -23,7 +28,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from emip_tpu_torch.kernels import fused_sr_attention
+from emip_tpu_torch.kernels import fused_dwconv_gelu, fused_sr_attention
 
 __all__ = ["PVTv2Config", "PVT_V2_VARIANTS", "PVTv2", "PVTBlock",
            "SRAttention", "MixFFN", "OverlapPatchEmbed", "drop_path"]
@@ -40,6 +45,19 @@ class PVTv2Config:
     sr_ratios: tuple[int, ...] = (8, 4, 2, 1)
     qkv_bias: bool = True
     drop_path_rate: float = 0.1
+    # MixFFN dwconv + GELU as kernel J: "never" | "always"
+    fused_ffn: str = "never"
+    # "conv": the library's conv and GELU, forward and backward;
+    # "bwd_fused": the library's forward, kernel J's backward
+    ffn_dwconv: str = "conv"
+
+    def __post_init__(self):
+        if self.fused_ffn not in ("never", "always"):
+            raise ValueError(f"fused_ffn must be 'never' or 'always', got "
+                             f"{self.fused_ffn!r}")
+        if self.ffn_dwconv not in ("conv", "bwd_fused"):
+            raise ValueError(f"ffn_dwconv must be 'conv' or 'bwd_fused', "
+                             f"got {self.ffn_dwconv!r}")
 
 
 PVT_V2_VARIANTS = {
@@ -105,16 +123,34 @@ class _DWConv(nn.Module):
 
 
 class MixFFN(nn.Module):
-    """Linear -> 3x3 depthwise conv -> exact GELU -> Linear."""
+    """Linear -> 3x3 depthwise conv -> exact GELU -> Linear.
 
-    def __init__(self, dim: int, hidden: int):
+    ``use_fused="always"`` runs conv + bias + GELU as kernel J;
+    ``dwconv_impl="bwd_fused"`` runs the library's forward and J's
+    backward. The parameters and their keys are the same either way.
+    """
+
+    def __init__(self, dim: int, hidden: int, use_fused: str = "never",
+                 dwconv_impl: str = "conv"):
         super().__init__()
+        self.use_fused = use_fused
+        self.dwconv_impl = dwconv_impl
         self.fc1 = nn.Linear(dim, hidden)
         self.dwconv = _DWConv(hidden)
         self.fc2 = nn.Linear(hidden, dim)
 
     def forward(self, x, h, w):
-        return self.fc2(F.gelu(self.dwconv(self.fc1(x), h, w)))
+        y = self.fc1(x)
+        if self.use_fused == "always" or self.dwconv_impl == "bwd_fused":
+            conv = self.dwconv.dwconv
+            # [F, 1, 3, 3] -> the kernel's [3, 3, F]
+            taps = conv.weight[:, 0].permute(1, 2, 0).contiguous()
+            y = fused_dwconv_gelu(
+                y.contiguous(), taps, conv.bias, h, w,
+                library_forward=self.use_fused != "always")
+        else:
+            y = F.gelu(self.dwconv(y, h, w))
+        return self.fc2(y)
 
 
 def drop_path(x: torch.Tensor, rate: float,
@@ -134,12 +170,13 @@ class PVTBlock(nn.Module):
     """Pre-norm SR-attention + MixFFN block with stochastic depth."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: int,
-                 sr_ratio: int, qkv_bias: bool = True):
+                 sr_ratio: int, qkv_bias: bool = True,
+                 fused_ffn: str = "never", ffn_dwconv: str = "conv"):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=_LN_EPS)
         self.attn = SRAttention(dim, num_heads, sr_ratio, qkv_bias)
         self.norm2 = nn.LayerNorm(dim, eps=_LN_EPS)
-        self.mlp = MixFFN(dim, int(dim * mlp_ratio))
+        self.mlp = MixFFN(dim, int(dim * mlp_ratio), fused_ffn, ffn_dwconv)
 
     def forward(self, x, h, w, drop_rate: float = 0.0,
                 generator: torch.Generator | None = None):
@@ -181,7 +218,8 @@ class PVTv2(nn.Module):
                 cfg.embed_dims[i]))
             setattr(self, f"block{i + 1}", nn.ModuleList(
                 PVTBlock(cfg.embed_dims[i], cfg.num_heads[i],
-                         cfg.mlp_ratios[i], cfg.sr_ratios[i], cfg.qkv_bias)
+                         cfg.mlp_ratios[i], cfg.sr_ratios[i], cfg.qkv_bias,
+                         cfg.fused_ffn, cfg.ffn_dwconv)
                 for _ in range(cfg.depths[i])))
             setattr(self, f"norm{i + 1}",
                     nn.LayerNorm(cfg.embed_dims[i], eps=_LN_EPS))

@@ -77,7 +77,22 @@ def _shifted_window_mask_np(h: int, w: int, num_splits: int) -> np.ndarray:
     return np.where(diff != 0, -100.0, 0.0).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=16)
+def _shifted_window_mask_on(h: int, w: int, num_splits: int,
+                            device: torch.device) -> torch.Tensor:
+    # a plain tensor even when first asked for under inference_mode: a later
+    # train step saves it for its backward
+    with torch.inference_mode(False):
+        mask = torch.from_numpy(_shifted_window_mask_np(h, w, num_splits))
+        return mask.to(device)
+
+
 def shifted_window_mask(h: int, w: int, num_splits: int,
                         device=None) -> torch.Tensor:
-    """Additive mask [K*K, T, T] for shifted windows (-100 across regions)."""
-    return torch.from_numpy(_shifted_window_mask_np(h, w, num_splits)).to(device)
+    """Additive mask [K*K, T, T] for shifted windows (-100 across regions).
+
+    The tensor is made once per shape and device and shared by every caller
+    (16 MiB at T = 1024; copying it from the host for each shifted layer
+    stalls the launch path): read it, do not write to it."""
+    return _shifted_window_mask_on(h, w, num_splits,
+                                   torch.device(device or "cpu"))

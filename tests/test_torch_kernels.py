@@ -1,4 +1,5 @@
-"""Kernels A-E of the PyTorch port against the JAX package's Pallas kernels.
+"""Kernels A-E of the PyTorch port against the JAX package's Pallas kernels
+(G-J: tests/test_torch_layers.py; F: tests/test_torch_long.py).
 
 On the CPU each port wrapper runs its plain PyTorch version; the JAX
 functions run their Pallas kernels in interpret mode (as in
@@ -202,7 +203,8 @@ def test_build_key_covers_every_source():
     names = {p.name for p in _build._sources()}
     assert {"primitives.cuh", "sr_attention.cu", "window_attention.cu",
             "flow_attention.cu", "convex_upsample.cu", "splat.cu",
-            "memory_attention.cu"} <= names
+            "memory_attention.cu", "softmax_expectation.cu",
+            "dwconv_gelu.cu"} <= names
     assert len(_build._digest()) == 16
 
 
@@ -227,6 +229,23 @@ def _gpu_cases():
     cases.append(("window_attention_block", K.fused_window_attention_block,
                   K.fused_window_attention_block_reference,
                   (r(2, 4, 484, c), r(2, 4, 484, c), sp, cp)))
+    # G and H at a ragged window (T = 484) and at whole tiles (T = 1024)
+    for tok in (484, 1024):
+        cases.append(("window_attention_layer",
+                      K.fused_window_attention_layer,
+                      K.fused_window_attention_layer_reference,
+                      (r(2, 4, tok, c), r(2, 4, tok, c), sp)))
+        cases.append(("window_attention_ffn_layer",
+                      K.fused_window_attention_ffn_layer,
+                      K.fused_window_attention_ffn_layer_reference,
+                      (r(2, 4, tok, c), r(2, 4, tok, c), cp)))
+    cases.append(("softmax_expectation", K.softmax_expectation,
+                  K.softmax_expectation_reference,
+                  (3 * r(2, 1936, 1936), 5 * r(1936, 2))))
+    cases.append(("dwconv_gelu", K.fused_dwconv_gelu,
+                  K.fused_dwconv_gelu_reference,
+                  (r(2, 22 * 22, 1280), 0.3 * r(3, 3, 1280), 0.1 * r(1280),
+                   22, 22)))
     cases.append(("flow_attention", K.fused_flow_attention,
                   K.fused_flow_attention_reference,
                   (r(2, 1936, 128), r(2, 1936, 128), r(2, 1936, 2))))

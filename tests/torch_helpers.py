@@ -21,7 +21,7 @@ FDIM = 64  # = pvt_v2_b0's /8 width
 CHANNEL = 8
 
 
-def jax_tiny_short(drop_path_rate: float = 0.1):
+def jax_tiny_short(drop_path_rate: float = 0.1, size: int = SIZE):
     """(JAX EMIPShort, its config) at b0 widths, reduced depth and size,
     exact GELU (a plain PVTv2Config) and the fused Pallas attention."""
     from emip_tpu.models.backbones import register_backbone
@@ -38,14 +38,17 @@ def jax_tiny_short(drop_path_rate: float = 0.1):
                       b0.embed_dims)
     cfg = EMIPShortConfig(
         backbone_name=name, channel=CHANNEL,
-        inp_size=SIZE,
+        inp_size=size,
         gmflow=GMFlowConfig(feature_channels=FDIM,
                             num_transformer_layers=NUM_LAYERS))
     return EMIPShort(config=cfg), cfg
 
 
 def torch_tiny_short(include_dead_modules: bool = True,
-                     drop_path_rate: float = 0.1):
+                     drop_path_rate: float = 0.1, size: int = SIZE,
+                     **gmflow):
+    """The port's EMIPShort at the same configuration; ``gmflow`` sets
+    further :class:`GMFlowConfig` fields (the kernel switches)."""
     from emip_tpu_torch.models.emip_short import EMIPShort, EMIPShortConfig
     from emip_tpu_torch.models.gmflow import GMFlowConfig
     from emip_tpu_torch.models.pvt_v2 import PVT_V2_VARIANTS
@@ -53,9 +56,9 @@ def torch_tiny_short(include_dead_modules: bool = True,
     b0 = dataclasses.replace(PVT_V2_VARIANTS["pvt_v2_b0"], depths=DEPTHS,
                              drop_path_rate=drop_path_rate)
     cfg = EMIPShortConfig(
-        backbone_name=b0, channel=CHANNEL, inp_size=SIZE,
+        backbone_name=b0, channel=CHANNEL, inp_size=size,
         gmflow=GMFlowConfig(feature_channels=FDIM,
-                            num_transformer_layers=NUM_LAYERS),
+                            num_transformer_layers=NUM_LAYERS, **gmflow),
         include_dead_modules=include_dead_modules)
     return EMIPShort(cfg).eval()
 
@@ -63,20 +66,20 @@ def torch_tiny_short(include_dead_modules: bool = True,
 MEMORY_SIZE = 3  # slots of the tiny long model's ring
 
 
-def jax_tiny_long(drop_path_rate: float = 0.0):
+def jax_tiny_long(drop_path_rate: float = 0.0, size: int = SIZE):
     """JAX EMIPLong around :func:`jax_tiny_short`'s configuration, with a
     3-slot memory."""
     from emip_tpu.models.emip_long import EMIPLong
 
-    _, cfg = jax_tiny_short(drop_path_rate)
+    _, cfg = jax_tiny_short(drop_path_rate, size)
     return EMIPLong(config=cfg, memory_size=MEMORY_SIZE)
 
 
-def torch_tiny_long(drop_path_rate: float = 0.0):
+def torch_tiny_long(drop_path_rate: float = 0.0, size: int = SIZE, **gmflow):
     """The port's EMIPLong at the same configuration."""
     from emip_tpu_torch.models.emip_long import EMIPLong
 
-    cfg = torch_tiny_short(True, drop_path_rate).config
+    cfg = torch_tiny_short(True, drop_path_rate, size, **gmflow).config
     return EMIPLong(cfg, memory_size=MEMORY_SIZE).eval()
 
 

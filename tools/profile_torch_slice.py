@@ -2,9 +2,10 @@
 """Per-layer time of the PyTorch port's short and long slices on one GPU.
 
     python3 tools/profile_torch_slice.py [--long] [--train] [--batch 8]
-                                         [--timed 5] [--trace F]
+                                         [--size 352] [--timed 5] [--trace F]
 
-Runs the full pvt_v2_b5 EMIPShort at 352^2, fp32 (TF32 off), on seeded
+Runs the full pvt_v2_b5 EMIPShort at 352^2 (``--size 512``: at 512^2, where
+the flow transformer runs kernels G and H), fp32 (TF32 off), on seeded
 random weights and seeded frames, as ``chip_smoke.py``'s slice phase (or,
 with ``--train``, its train phase) does. With ``--long`` it runs the full
 EMIPLong instead: one streaming ``step_cached`` per batch on a full
@@ -122,6 +123,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--timed", type=int, default=5)
+    ap.add_argument("--size", type=int, default=352,
+                    help="input size: 352, or 512 (windows of 1024 tokens: "
+                         "kernels G and H in place of B)")
     ap.add_argument("--trace", default=None)
     ap.add_argument("--train", action="store_true",
                     help="profile the train step instead of inference")
@@ -144,7 +148,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     K.library()
     dev = torch.device("cuda:0")
-    cfg = EMIPShortConfig(backbone_name="pvt_v2_b5", inp_size=cs.SIZE)
+    cfg = EMIPShortConfig(backbone_name="pvt_v2_b5", inp_size=args.size)
     if args.long:
         from emip_tpu_torch.models.emip_long import EMIPLong
 
@@ -155,7 +159,7 @@ def main() -> int:
     model = model.to(dev).eval()
     table = long_module_table if args.long else module_table
     rng = np.random.default_rng(cs.SEED + 1)
-    a, b = (torch.from_numpy(cs.seeded_frames(rng, args.batch, cs.SIZE))
+    a, b = (torch.from_numpy(cs.seeded_frames(rng, args.batch, args.size))
             .to(dev) for _ in range(2))
 
     if args.long:
@@ -164,7 +168,7 @@ def main() -> int:
 
         # a full ring and the previous frame's encoding, reused by every
         # timed step
-        video = cs.seeded_clip(rng, args.batch, 6, cs.SIZE, dev)
+        video = cs.seeded_clip(rng, args.batch, 6, args.size, dev)
         with torch.inference_mode():
             state = model.init_memory(args.batch)
             enc = model.encode_frame(video[:, 0])
@@ -173,7 +177,7 @@ def main() -> int:
         state = type(state)(*(x.clone() for x in state))
         enc = dict(fea=tuple(x.clone() for x in enc["fea"]),
                    inj=enc["inj"].clone())
-        gt = cs.seeded_batch(rng, args.batch, cs.SIZE, dev)["gt"]
+        gt = cs.seeded_batch(rng, args.batch, args.size, dev)["gt"]
         if args.train:
             opt = build_long_optimizer(model)
             model.train()
@@ -201,7 +205,7 @@ def main() -> int:
 
         opt = build_optimizer(model)
         gen = torch.Generator(device=dev).manual_seed(cs.SEED)
-        batch = cs.seeded_batch(rng, args.batch, cs.SIZE, dev)
+        batch = cs.seeded_batch(rng, args.batch, args.size, dev)
         model.train()
 
         def run(split=None):
@@ -242,7 +246,7 @@ def main() -> int:
     what = "train step" if args.train else "slice"
     if args.long:
         what = "long " + ("train step" if args.train else "streaming step")
-    print(f"{what} b5 {cs.SIZE}^2 bs={args.batch} fp32: median {median:.3f} "
+    print(f"{what} b5 {args.size}^2 bs={args.batch} fp32: median {median:.3f} "
           f"ms/batch over {args.timed} batches {totals} (no hooks)")
     if args.train:
         for i, part in enumerate(("forward + losses", "backward",
