@@ -31,9 +31,13 @@ needs one card and no arguments, and it imports nothing of JAX. In order:
    their weight grads, C also with dv, F with all three grads and with dq
    alone, I with dcorr alone and with dvalues, J with gu, tap and bias
    grads), with the tolerance stated and CUDA-event times of the backward
-   alone; kernel E against its plain scatter_add_ version (density atol
-   and the fraction of occlusion-mask bits that flip); the cost of the
-   transpose that read-corr matching hands kernel I;
+   alone; C and F also at the 512^2 train steps' shapes ([4, 4096, 128];
+   [1, 4096, 128] x [1, 20480, 128]) and at a small ragged one each (F's
+   with every slot empty), and for both a second call on the same inputs
+   must give the same bits; kernel E against its plain scatter_add_ version
+   (density atol and the fraction of occlusion-mask bits that flip); the
+   cost of the transpose that read-corr matching hands kernel I and of the
+   row statistics kernel C's forward keeps for its backward;
 6. slice phase: the full pvt_v2_b5 EMIPShort at 352^2 on seeded random
    weights runs ``predict_arrays`` on batches of 8 seeded frame pairs; the
    kernel launch counts of that run must equal what the model structure
@@ -83,7 +87,11 @@ launches in the phase that is its main path, the largest max_abs_err of
 its cases, and ``ms`` / ``plain_ms`` / ``library_ms`` / ``bound_ms`` summed
 over its cases, one call each; ``bound_ms`` is the larger of the case's
 operations over the card's fp32 peak and its bytes over the memory rate,
-``bound_by`` says which), and as its last line ``{"ok": true, "device":
+``bound_by`` says which; C's and F's backward run their products on the
+tensor cores as 3xTF32, so their ``bound_ms`` takes the operations over a
+third of the TF32 peak (``bound_rate: "tf32x3"``), below which no time may
+lie, and the CUDA cores' figure stands beside it as ``fp32_bound_ms``),
+and as its last line ``{"ok": true, "device":
 {...}}``. Any failure raises and the exit code is non-zero, with no result
 line. Details also go to ``chiprun_out/chip_smoke.json``. ``--kernels
 NAMES`` is a development aid: the kernel phases alone, for the kernels
@@ -228,6 +236,13 @@ KERNEL_INFO = {
 # tensor cores, and device memory
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# dense TF32 on the tensor cores; a 3xTF32 product spends three of them
+PEAK_TF32_FLOPS = 495e12
+# the backward kernels that run their products on the tensor cores as 3xTF32:
+# their bound counts the operations at a third of the TF32 peak, and no time
+# may lie below it; the CUDA cores' fp32 figure, the bound of the other rows
+# and of these two before their redesign, stands beside it
+TENSOR_CORE_KERNELS = ("flow_attention_bwd", "memory_attention_bwd")
 
 
 def log(msg: str) -> None:
@@ -274,12 +289,21 @@ def record(results: dict, name: str, label: str, err: float, ms: float,
     """Add one case to its kernel's entry: the largest max_abs_err, and
     ms / plain_ms / library_ms / bound_ms summed over the cases. ``work``
     is the case's (operations, bytes): the bound is the larger of
-    operations over the fp32 peak and bytes over the memory rate."""
+    operations over the peak rate (fp32, or 3xTF32 for the tensor-core
+    kernels) and bytes over the memory rate."""
     entry = results.setdefault(name, dict(
         max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=None, bound_ms=0.0,
         ops_ms=0.0, bytes_ms=0.0, cases=[]))
     ops_ms = work[0] / PEAK_FP32_FLOPS * 1e3
     bytes_ms = work[1] / PEAK_BYTES_PER_S * 1e3
+    if name in TENSOR_CORE_KERNELS:
+        fp32_ms = max(ops_ms, bytes_ms)
+        ops_ms = work[0] / (PEAK_TF32_FLOPS / 3) * 1e3
+        if ms < max(ops_ms, bytes_ms):
+            raise AssertionError(f"{name} ({label}): {ms} ms is below the "
+                                 f"bound {max(ops_ms, bytes_ms)} ms")
+        entry["fp32_bound_ms"] = entry.get("fp32_bound_ms", 0.0) + fp32_ms
+        extra = dict(extra, fp32_bound_ms=fp32_ms, bound_rate="tf32x3")
     entry["max_abs_err"] = max(entry["max_abs_err"], err)
     entry["ms"] += ms
     entry["plain_ms"] += plain_ms
@@ -315,6 +339,27 @@ def transpose_cost(batch: int, device, reps: int) -> dict:
             lambda: corr.transpose(1, 2).contiguous(), reps)
     log("read-corr matching: contiguous transpose of corr "
         + ", ".join(f"{k} {v:.4f} ms" for k, v in out.items()))
+    return out
+
+
+def stats_cost(batch: int, device, reps: int) -> dict:
+    """ms of kernel C's forward without and with the row statistics it
+    keeps for its backward (inputs that require a gradient), in turns, at
+    the 352^2 and 512^2 shapes."""
+    from emip_tpu_torch import kernels as K
+
+    r = seeded_randn(SEED + 13, device)
+    out = {}
+    for b, n in ((2 * batch, 1936), (2 * BATCH_512, 4096)):
+        q, k, v = r(b, n, 128), r(b, n, 128), r(b, n, 2, scale=10.0)
+        qg = q.clone().requires_grad_(True)
+        kept, bare = alternate_ms(lambda: K.fused_flow_attention(qg, k, v),
+                                  lambda: K.fused_flow_attention(q, k, v),
+                                  reps)
+        out[f"[{b},{n},128]"] = dict(ms=bare, with_stats_ms=kept)
+    log("flow_attention forward without / with kept row statistics: "
+        + ", ".join(f"{k} {v['ms']:.4f} / {v['with_stats_ms']:.4f} ms"
+                    for k, v in out.items()))
     return out
 
 
@@ -540,6 +585,7 @@ MEMORY_FWD_CASES = ((1, 1936, 5, 1), (1, 1936, 5, 3), (1, 1936, 5, 5),
                     (2, 100, 3, 0),       # every slot empty: mean of values
                     (1, 4096, 5, 5))      # the 512^2 shape
 MEMORY_BWD_CASES = ((1, 1936, 5, 2), (4, 1936, 5, 5), (4, 1936, 5, 1))
+MEMORY_BWD_CASES_MORE = ((1, 4096, 5, 5), (2, 100, 3, 0))
 
 
 def memory_cases(r, shapes):
@@ -619,13 +665,14 @@ def library_ms(name: str, args, reps: int, which=None) -> float | None:
 
 
 def backward_cases(batch: int, device):
-    """(kernel, label, kernel fn, plain fn, args, indices of the args that
-    take a gradient) at the shapes of the 352^2 train step."""
+    """The cases (kernel, label, kernel fn, plain fn, args, indices of the
+    args that take a gradient) at the shapes of the 352^2 train step and a
+    few more, and the indices of C's and F's cases at 352^2."""
     from emip_tpu_torch import kernels as K
     from emip_tpu_torch.ops.window import shifted_window_mask
 
     r = seeded_randn(SEED + 2, device)
-    cases = []
+    cases, at_352 = [], set()
     for n, m, c, heads in SR_STAGES:
         cases.append(("sr_attention_bwd", f"N={n} M={m} C={c} heads={heads}",
                       K.fused_sr_attention, K.fused_sr_attention_reference,
@@ -662,6 +709,17 @@ def backward_cases(batch: int, device):
     for b, label, which in ((batch, "matching", (0, 1)),
                             (2 * batch, "propagation", (0, 1)),
                             (2 * batch, "propagation with dv", (0, 1, 2))):
+        at_352.add(len(cases))
+        cases.append(("flow_attention_bwd", f"[{b},{L},128] v=[...,2] {label}",
+                      K.fused_flow_attention,
+                      K.fused_flow_attention_reference,
+                      (r(b, L, 128), r(b, L, 128), r(b, L, 2, scale=10.0)),
+                      which))
+    # the 512^2 train step's shape (batch 2, both directions) and a small
+    # ragged one (1000 = 15 tiles of 64 + 40)
+    for b, L, label, which in ((2 * TRAIN_BATCH_512, 4096, "512^2 matching",
+                                (0, 1)), (2, 1000, "ragged dq dk dv",
+                                          (0, 1, 2))):
         cases.append(("flow_attention_bwd", f"[{b},{L},128] v=[...,2] {label}",
                       K.fused_flow_attention,
                       K.fused_flow_attention_reference,
@@ -673,9 +731,16 @@ def backward_cases(batch: int, device):
                    r(2 * batch, 44, 44, 576), 8), (0, 1)))
     for label, args in memory_cases(r, MEMORY_BWD_CASES):
         for which, what in (((0, 1, 2), "dq dk dv"), ((0,), "dq")):
+            at_352.add(len(cases))
             cases.append(("memory_attention_bwd", f"{label} {what}",
                           K.masked_memory_attention,
                           K.masked_memory_attention_reference, args, which))
+    # the 512^2 long train step's shape, and a ragged one with every slot
+    # empty (row max -1e9, uniform weights)
+    for label, args in memory_cases(r, MEMORY_BWD_CASES_MORE):
+        cases.append(("memory_attention_bwd", f"{label} dq dk dv",
+                      K.masked_memory_attention,
+                      K.masked_memory_attention_reference, args, (0, 1, 2)))
 
     # ---- G and H at the 512^2 train step's window (batch 2 pairs, both
     # directions) and at T = 484; I; J
@@ -728,7 +793,7 @@ def backward_cases(batch: int, device):
                       K.fused_dwconv_gelu, K.fused_dwconv_gelu_reference,
                       (r(batch, side * side, f), r(3, 3, f, scale=0.3),
                        r(f, scale=0.1), side, side), (0, 1, 2)))
-    return cases
+    return cases, at_352
 
 
 def _grads(fn, args, which, cot):
@@ -756,7 +821,8 @@ def backward_phase(batch: int, device, reps: int, only: str = "") -> dict:
     import torch
 
     results = {}
-    for name, label, fn, ref, args, which in backward_cases(batch, device):
+    cases, at_352 = backward_cases(batch, device)
+    for i, (name, label, fn, ref, args, which) in enumerate(cases):
         if not wanted(only, name):
             continue
         gen = torch.Generator(device=device).manual_seed(SEED + 3)
@@ -779,6 +845,14 @@ def backward_phase(batch: int, device, reps: int, only: str = "") -> dict:
             rel = max(rel, e / max(w.abs().max().item(), 1e-30))
         finite = all(bool(torch.isfinite(g).all()) for g in got)
         ok = finite and rel <= BWD_REL_TOL
+        if name in TENSOR_CORE_KERNELS:
+            # no atomics: a second call on the same inputs gives the same bits
+            again = rerun_k()
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{name} ({label}): two calls on the "
+                                     f"same inputs differ")
+            del again
         ms, plain_ms = alternate_ms(rerun_k, rerun_p, reps)
         lib_ms = library_ms(name, args, reps, which)
         log(f"kernel {name:28s} {label:44s} max_abs_err={err:.3e} "
@@ -789,8 +863,20 @@ def backward_phase(batch: int, device, reps: int, only: str = "") -> dict:
             raise AssertionError(f"{name} ({label}) disagrees with the plain "
                                  f"backward: max_rel={rel}")
         record(results, name, label, err, ms, plain_ms,
-               backward_work(name, args, which, out_k), lib_ms, max_rel=rel)
+               backward_work(name, args, which, out_k), lib_ms, max_rel=rel,
+               at_352=i in at_352)
         del out_k, out_p, got, want, rerun_k, rerun_p
+    for name in TENSOR_CORE_KERNELS:
+        # the 352^2 cases apart from the 512^2 and ragged ones
+        main = [c for c in results.get(name, {}).get("cases", ())
+                if c["at_352"]]
+        if main:
+            tot = {k: sum(c[k] or 0.0 for c in main) for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "fp32_bound_ms")}
+            results[name]["main_cases"] = tot
+            log(f"kernel {name}: its {len(main)} cases at 352^2 sum to "
+                + " ".join(f"{k}={v:.4f}" for k, v in tot.items())
+                + " (bound_ms: 3xTF32 operations; fp32_bound_ms: fp32)")
     if wanted(only, "splat_density"):
         splat_case(results, batch, device, reps)
     return results
@@ -1674,10 +1760,13 @@ def main(argv=None) -> int:
     if opts.kernels is not None:
         kernel_phase(BATCH, device, KERNEL_REPS, opts.kernels)
         backward_phase(BATCH, device, KERNEL_REPS, opts.kernels)
+        if wanted(opts.kernels, "flow_attention"):
+            stats_cost(BATCH, device, KERNEL_REPS)
         return 0
     kernels = kernel_phase(BATCH, device, KERNEL_REPS)
     kernels.update(backward_phase(BATCH, device, KERNEL_REPS))
     transpose_ms = transpose_cost(BATCH, device, KERNEL_REPS)
+    stats_ms = stats_cost(BATCH, device, KERNEL_REPS)
 
     cfg = EMIPShortConfig(backbone_name="pvt_v2_b5", inp_size=SIZE)
     model = EMIPShort(cfg)
@@ -1753,7 +1842,10 @@ def main(argv=None) -> int:
              ms=kernels[name]["ms"], plain_ms=kernels[name]["plain_ms"],
              bound_ms=kernels[name]["bound_ms"],
              bound_by=kernels[name]["bound_by"],
-             library_ms=kernels[name]["library_ms"])
+             library_ms=kernels[name]["library_ms"],
+             **({"fp32_bound_ms": kernels[name]["fp32_bound_ms"],
+                 "bound_rate": "tf32x3"}
+                if name in TENSOR_CORE_KERNELS else {}))
         for name in KERNEL_INFO]}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
@@ -1764,6 +1856,7 @@ def main(argv=None) -> int:
                        long_train=long_train, long_entry=long_entry,
                        read_corr=read_corr, fused_ffn=fused_ffn,
                        read_corr_transpose_ms=transpose_ms,
+                       flow_attention_stats_ms=stats_ms,
                        train_512=train512, long_infer_512=long_infer512),
                   f, indent=1, default=str)
     log(json.dumps(line))

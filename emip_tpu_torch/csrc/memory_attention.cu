@@ -9,10 +9,10 @@
 // on those of an empty one; out [B, M, C]. C = 128. At 352^2 inputs M = 1936
 // and N = 9680, at 512^2 M = 4096 and N = 20480.
 //
-// What bounds it on the card: the two products, 4 * M * N * C FLOP per
-// batch row (9.6 GFLOP at 352^2), in fp32 on the CUDA cores; the operands
-// are ~12 MB. The TPU kernel keeps all N keys and a [tile, N] block of
-// scores in VMEM; here neither fits in shared memory, so one block of 256
+// Forward. What bounds it on the card: the two products, 4 * M * N * C FLOP
+// per batch row (9.6 GFLOP at 352^2), in fp32 on the CUDA cores; the
+// operands are ~12 MB. The TPU kernel keeps all N keys and a [tile, N] block
+// of scores in VMEM; here neither fits in shared memory, so one block of 256
 // threads owns 64 query rows and streams the keys and values in tiles of
 // 64 with an online max and sum (the bias is added before the running
 // max). Each thread holds a 4 x 4 patch of the score tile and a 4 x 8
@@ -23,16 +23,34 @@
 // All-masked tiles are not skipped: with every slot empty all scores are
 // equal and the result is the plain mean of the values, as on the TPU.
 //
-// Backward: the TPU kernel accumulates dk and dv over a sequential grid of
-// query tiles. Blocks run in no order here, so a query-tiled pass writes
-// dq (keys split across blocks when there are few query tiles, partials
-// summed in order) and a key-tiled pass streams the query tiles and writes
-// dk and dv; both recompute P = exp(S - m) / l from the row max m and sum l
-// the forward kept (kept apart, not as m + log l: with every slot empty m is
-// -1e9, where fp32 has no room for log l). No atomics: every run gives the
-// same bits.
+// Backward. What bounds it: five M x N x C products per batch row when all
+// three grads are asked for (the scores, dO v^T, dS k, dS^T q, P^T dO),
+// 24 GFLOP at 352^2; at the fp32 rate of the CUDA cores that is the bound
+// the records state. The first version ran them there out of 64 x 64 tiles
+// with 4 x 4 register patches, a shared load for every two to three
+// multiply-adds and no overlap of loads with arithmetic. This one
+// (attention_bwd_tc of mma_tf32.cuh) runs all five on the tensor cores as
+// 3xTF32 (fp32-grade: the long train step's grad check leaves no room for a
+// single TF32 product): 8 warps own 128 rows of one side, kept in shared
+// memory with their dO or v rows (132 KiB), and stream the other side in
+// tiles of 32 rows through two cp.async stages (66 KiB), one block on an
+// SM. The TPU kernel accumulates dk and dv over a sequential grid of query
+// tiles. Blocks run in no order here, so a query-tiled pass writes dq (keys
+// split across blocks when there are few query tiles, partials summed in
+// order) and a key-tiled pass streams the queries and writes dk and dv; both
+// recompute P = exp(S - m) / l from the row max m and sum l the forward kept
+// (kept apart, not as m + log l: with every slot empty m is -1e9, where
+// fp32 has no room for log l), so the scores and dO v^T are computed twice.
+// dq alone runs the first pass only. No atomics: every run gives the same
+// bits.
 
-#include "primitives.cuh"
+#include "mma_tf32.cuh"
+
+// the backward's tiling: warps, fragments of 16 resident rows per warp,
+// streamed rows per stage
+constexpr int kMemBwdWarps = 8;
+constexpr int kMemBwdMt = 1;
+constexpr int kMemBwdStr = 32;
 
 namespace emip {
 namespace {
@@ -251,302 +269,6 @@ __global__ void memory_attention_merge_kernel(
   }
 }
 
-// delta[row] = sum_c g[row, c] * out[row, c]; one warp per row.
-__global__ void memory_attention_delta_kernel(const float* __restrict__ g,
-                                              const float* __restrict__ out,
-                                              long long rows,
-                                              float* __restrict__ delta) {
-  const long long row =
-      (long long)blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
-  if (row >= rows) return;
-  const int lane = threadIdx.x % 32;
-  float s = 0.f;
-  for (int c = lane; c < kMemD; c += 32)
-    s = fmaf(g[row * kMemD + c], out[row * kMemD + c], s);
-  s = warp_sum(s);
-  if (lane == 0) delta[row] = s;
-}
-
-// P and dS = P (dO v^T - delta) of one [64 query, 64 key] tile: thread
-// (ty, tx) owns rows ty + 16 i and keys tx + 16 j. Entries whose row or key
-// lies past the end are 0.
-__device__ __forceinline__ void mem_tile_p_ds(
-    const float* Qt, const float* Gt, const float* Kt, const float* Vt,
-    const float* bias_s, const float* max_s, const float* linv_s,
-    const float* delta_s, int tx, int ty, float scale, float (&p)[4][4],
-    float (&ds)[4][4]) {
-  float s[4][4], dp[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 2
-  for (int d = 0; d < kMemD; ++d) {
-    float a[4], g[4], c[4], w[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      a[i] = Qt[d * kMemLdT + ty + 16 * i];
-      g[i] = Gt[d * kMemLdT + ty + 16 * i];
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      c[j] = Kt[d * kMemLdT + tx + 16 * j];
-      w[j] = Vt[d * kMemLdT + tx + 16 * j];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(a[i], c[j], s[i][j]);
-        dp[i][j] = fmaf(g[i], w[j], dp[i][j]);
-      }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    // max_s is +inf on a row past M and bias_s -inf on a key past N
-    const float mx = max_s[ty + 16 * i], li = linv_s[ty + 16 * i];
-    const float dl = delta_s[ty + 16 * i];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      p[i][j] = __expf(s[i][j] * scale + bias_s[tx + 16 * j] - mx) * li;
-      ds[i][j] = p[i][j] * (dp[i][j] - dl);
-    }
-  }
-}
-
-constexpr size_t kMemDqBytes =
-    sizeof(float) * (4 * kMemTileT + kMemTileS + 4 * kMemBK);
-constexpr size_t kMemDkvBytes =
-    sizeof(float) * (4 * kMemTileT + 2 * kMemTileS + 4 * kMemBK);
-
-// Query-tiled pass, grid (query tiles, key splits, B):
-// dq = scale * sum_j dS_ij k_j over this split's keys, written to dq with
-// one split and to part[split] otherwise.
-__global__ void __launch_bounds__(kMemThreads)
-memory_attention_dq_kernel(const float* __restrict__ q,
-                           const float* __restrict__ k,
-                           const float* __restrict__ v,
-                           const float* __restrict__ bias,
-                           const float* __restrict__ g,
-                           const float* __restrict__ stats,
-                           const float* __restrict__ delta,
-                           float* __restrict__ dq, float* __restrict__ part,
-                           int B, int M, int N, float scale,
-                           int tiles_per_split) {
-  extern __shared__ float smem[];
-  float* Qt = smem;
-  float* Gt = Qt + kMemTileT;
-  float* Kt = Gt + kMemTileT;
-  float* Vt = Kt + kMemTileT;
-  float* Ds = Vt + kMemTileT;        // [BQ][BK+16]
-  float* bias_s = Ds + kMemTileS;
-  float* max_s = bias_s + kMemBK;
-  float* linv_s = max_s + kMemBK;
-  float* delta_s = linv_s + kMemBK;
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int n0 = blockIdx.x * kMemBQ;
-  const int split = blockIdx.y, splits = gridDim.y;
-  const int b = blockIdx.z;
-  q += (long long)b * M * kMemD;
-  g += (long long)b * M * kMemD;
-  k += (long long)b * N * kMemD;
-  v += (long long)b * N * kMemD;
-  bias += (long long)b * N;
-
-  mem_load_t(Qt, q, n0, M, tid);
-  mem_load_t(Gt, g, n0, M, tid);
-  if (tid < kMemBQ) {
-    const int n = n0 + tid;
-    const long long row = (long long)b * M + n;
-    max_s[tid] = n < M ? stats[row] : INFINITY;
-    linv_s[tid] = n < M ? 1.0f / stats[(long long)B * M + row] : 0.f;
-    delta_s[tid] = n < M ? delta[row] : 0.f;
-  }
-
-  float acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
-
-  const int key_tiles = (N + kMemBK - 1) / kMemBK;
-  const int t_end = min(key_tiles, (split + 1) * tiles_per_split);
-  for (int t = split * tiles_per_split; t < t_end; ++t) {
-    const int m0 = t * kMemBK;
-    __syncthreads();
-    mem_load_t(Kt, k, m0, N, tid);
-    mem_load_t(Vt, v, m0, N, tid);
-    if (tid < kMemBK)
-      bias_s[tid] = m0 + tid < N ? bias[m0 + tid] : -INFINITY;
-    __syncthreads();
-
-    float p[4][4], ds[4][4];
-    mem_tile_p_ds(Qt, Gt, Kt, Vt, bias_s, max_s, linv_s, delta_s, tx, ty, scale,
-                  p, ds);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        Ds[(ty + 16 * i) * kMemLdS + tx + 16 * j] = ds[i][j];
-    __syncthreads();
-
-#pragma unroll 4
-    for (int j = 0; j < kMemBK; ++j) {
-      float dv_[4], kk[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dv_[i] = Ds[(ty + 16 * i) * kMemLdS + j];
-#pragma unroll
-      for (int c = 0; c < 8; ++c) kk[c] = Kt[(tx + 16 * c) * kMemLdT + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) acc[i][c] = fmaf(dv_[i], kk[c], acc[i][c]);
-    }
-  }
-
-  float* dst = splits == 1
-                   ? dq + (long long)b * M * kMemD
-                   : part + ((long long)split * B + b) * M * kMemD;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int n = n0 + ty + 16 * i;
-    if (n >= M) continue;
-#pragma unroll
-    for (int c = 0; c < 8; ++c)
-      dst[(long long)n * kMemD + tx + 16 * c] = acc[i][c] * scale;
-  }
-}
-
-// dst[i] = sum over splits of part[z][i], z in order.
-__global__ void memory_attention_sum_kernel(const float* __restrict__ part,
-                                            int splits, long long n,
-                                            float* __restrict__ dst) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  float s = 0.f;
-  for (int z = 0; z < splits; ++z) s += part[z * n + idx];
-  dst[idx] = s;
-}
-
-// Key-tiled pass, grid (key tiles, 1, B): streams every query tile;
-//   dv_j = sum_i P_ij dO_i,   dk_j = scale * sum_i dS_ij q_i.
-// dk or dv may be null (not computed).
-__global__ void __launch_bounds__(kMemThreads)
-memory_attention_dkdv_kernel(const float* __restrict__ q,
-                             const float* __restrict__ k,
-                             const float* __restrict__ v,
-                             const float* __restrict__ bias,
-                             const float* __restrict__ g,
-                             const float* __restrict__ stats,
-                             const float* __restrict__ delta,
-                             float* __restrict__ dk, float* __restrict__ dv,
-                             int B, int M, int N, float scale) {
-  extern __shared__ float smem[];
-  float* Qt = smem;
-  float* Gt = Qt + kMemTileT;
-  float* Kt = Gt + kMemTileT;
-  float* Vt = Kt + kMemTileT;
-  float* Ps = Vt + kMemTileT;        // [BQ][BK+16]
-  float* Ds = Ps + kMemTileS;        // [BQ][BK+16]
-  float* bias_s = Ds + kMemTileS;
-  float* max_s = bias_s + kMemBK;
-  float* linv_s = max_s + kMemBK;
-  float* delta_s = linv_s + kMemBK;
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.x * kMemBK;
-  const int b = blockIdx.z;
-  q += (long long)b * M * kMemD;
-  g += (long long)b * M * kMemD;
-  k += (long long)b * N * kMemD;
-  v += (long long)b * N * kMemD;
-  stats += (long long)b * M;
-  delta += (long long)b * M;
-
-  mem_load_t(Kt, k, m0, N, tid);
-  mem_load_t(Vt, v, m0, N, tid);
-  if (tid < kMemBK)
-    bias_s[tid] = m0 + tid < N ? bias[(long long)b * N + m0 + tid] : -INFINITY;
-
-  // key ty + 16 i, column tx + 16 c
-  float acc_k[4][8], acc_v[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
-
-  for (int n0 = 0; n0 < M; n0 += kMemBQ) {
-    __syncthreads();
-    mem_load_t(Qt, q, n0, M, tid);
-    mem_load_t(Gt, g, n0, M, tid);
-    if (tid < kMemBQ) {
-      const int n = n0 + tid;
-      max_s[tid] = n < M ? stats[n] : INFINITY;
-      linv_s[tid] = n < M ? 1.0f / stats[(long long)B * M + n] : 0.f;
-      delta_s[tid] = n < M ? delta[n] : 0.f;
-    }
-    __syncthreads();
-
-    float p[4][4], ds[4][4];
-    mem_tile_p_ds(Qt, Gt, Kt, Vt, bias_s, max_s, linv_s, delta_s, tx, ty, scale,
-                  p, ds);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        Ps[(ty + 16 * i) * kMemLdS + tx + 16 * j] = p[i][j];
-        Ds[(ty + 16 * i) * kMemLdS + tx + 16 * j] = ds[i][j];
-      }
-    __syncthreads();
-
-    if (dv) {
-#pragma unroll 4
-      for (int r = 0; r < kMemBQ; ++r) {
-        float pp[4], gg[8];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) pp[i] = Ps[r * kMemLdS + ty + 16 * i];
-#pragma unroll
-        for (int c = 0; c < 8; ++c) gg[c] = Gt[(tx + 16 * c) * kMemLdT + r];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int c = 0; c < 8; ++c)
-            acc_v[i][c] = fmaf(pp[i], gg[c], acc_v[i][c]);
-      }
-    }
-    if (dk) {
-#pragma unroll 4
-      for (int r = 0; r < kMemBQ; ++r) {
-        float dd[4], qq[8];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) dd[i] = Ds[r * kMemLdS + ty + 16 * i];
-#pragma unroll
-        for (int c = 0; c < 8; ++c) qq[c] = Qt[(tx + 16 * c) * kMemLdT + r];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int c = 0; c < 8; ++c)
-            acc_k[i][c] = fmaf(dd[i], qq[c], acc_k[i][c]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= N) continue;
-    const long long row = ((long long)b * N + m) * kMemD;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      if (dk) dk[row + tx + 16 * c] = acc_k[i][c] * scale;
-      if (dv) dv[row + tx + 16 * c] = acc_v[i][c];
-    }
-  }
-}
-
 // Key splits of a query-tiled pass: as many as fill the card in one wave,
 // and no more than the workspace holds (per_split floats each).
 inline int mem_key_splits(int q_tiles, int B, int key_tiles,
@@ -598,7 +320,8 @@ extern "C" int emip_memory_attention(const float* q, const float* k,
 }
 
 // g: [B, M, C] gradient of out; out and stats are the forward's. dq, dk, dv
-// may each be null (not computed); the bias gets no gradient.
+// may each be null (not computed); the bias gets no gradient. ws: scratch
+// for delta and the partials of a split pass.
 extern "C" int emip_memory_attention_bwd(
     const float* q, const float* k, const float* v, const float* bias,
     const float* out, const float* stats, const float* g, float* dq, float* dk,
@@ -607,44 +330,14 @@ extern "C" int emip_memory_attention_bwd(
   using namespace emip;
   if (C != kMemD) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float scale = 1.0f / sqrtf((float)C);
-  const int q_tiles = ceil_div(M, kMemBQ), key_tiles = ceil_div(N, kMemBK);
-  const long long rows = (long long)B * M;
-  Workspace w{ws, ws_floats};
-  float* delta = w.take(rows);
-  if (!delta) return (int)cudaErrorInvalidValue;
-  memory_attention_delta_kernel<<<ceil_div(rows, 8), 256, 0, s>>>(g, out, rows,
-                                                                  delta);
-  cudaError_t err = cudaGetLastError();
+  const long long qsb = (long long)M * C, ksb = (long long)N * C;
+  cudaError_t err =
+      attention_bwd_tc<kMemD, kMemD, kMemBwdWarps, kMemBwdMt, kMemBwdStr>(
+      AttnOperand{q, qsb, C}, AttnOperand{k, ksb, C}, AttnOperand{v, ksb, C},
+      AttnOperand{out, qsb, C}, AttnOperand{g, qsb, C}, bias, stats,
+      stats + (long long)B * M, AttnGrad{dq, qsb, C}, AttnGrad{dk, ksb, C},
+      AttnGrad{dv, ksb, C}, B, M, N, 1.0f / sqrtf((float)C),
+      Workspace{ws, ws_floats}, s);
   if (err != cudaSuccess) return (int)err;
-
-  if (dq) {
-    int splits = mem_key_splits(q_tiles, B, key_tiles, rows * kMemD, w.n);
-    const int per = ceil_div(key_tiles, splits);
-    splits = ceil_div(key_tiles, per);
-    float* part = splits > 1 ? w.take((long long)splits * rows * kMemD)
-                             : nullptr;
-    err = cudaFuncSetAttribute(memory_attention_dq_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)kMemDqBytes);
-    if (err != cudaSuccess) return (int)err;
-    memory_attention_dq_kernel<<<dim3(q_tiles, splits, B), kMemThreads,
-                                 kMemDqBytes, s>>>(
-        q, k, v, bias, g, stats, delta, dq, part, B, M, N, scale, per);
-    if (splits > 1)
-      memory_attention_sum_kernel<<<ceil_div(rows * kMemD, 256), 256, 0, s>>>(
-          part, splits, rows * kMemD, dq);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  if (dk || dv) {
-    err = cudaFuncSetAttribute(memory_attention_dkdv_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)kMemDkvBytes);
-    if (err != cudaSuccess) return (int)err;
-    memory_attention_dkdv_kernel<<<dim3(key_tiles, 1, B), kMemThreads,
-                                   kMemDkvBytes, s>>>(
-        q, k, v, bias, g, stats, delta, dk, dv, B, M, N, scale);
-  }
   return (int)cudaGetLastError();
 }

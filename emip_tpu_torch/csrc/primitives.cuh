@@ -30,8 +30,10 @@
 //                   queries are split across blocks and the partial dk, dv
 //                   are summed in an ordered third pass.
 //
-// Everything is fp32 on the CUDA cores: this is the simple, correct first
-// version. Tensor cores (wgmma), TMA and bf16 are later work.
+// Everything in this header is fp32 on the CUDA cores: the simple, correct
+// first version. The backward of the flow-valued attention and of the
+// memory read has left it for the tensor cores (mma_tf32.cuh: 3xTF32
+// products, cp.async staging); wgmma, TMA and bf16 are later work.
 
 #pragma once
 
@@ -445,7 +447,9 @@ inline cudaError_t layernorm_bwd(const float* x, int ldx, const float* dy,
 //   O = O e^{m-m'} + P V_tile                   [BQ, DV] in registers
 // Element (b, h, n, d) of q is q[b*q_sb + n*q_sn + h*D + d]; v and out
 // use h*DV. The additive mask, if given, is [mask_nw, N, M] and batch b
-// reads window b % mask_nw (the [B, K*K, T, C] window layout).
+// reads window b % mask_nw (the [B, K*K, T, C] window layout). stats, if
+// not null, gets each row's running max and sum ([2, B, H, N]: max, then
+// sum), kept apart for a backward that recomputes P = exp(S - max) / sum.
 
 constexpr int kAttnBQ = 32;
 constexpr int kAttnBK = 32;
@@ -461,14 +465,14 @@ struct AttnSmem {
       sizeof(float) * (kQ + kK + kV + kS + 2 * kAttnBQ);
 };
 
-template <int D, int DV>
-__global__ void __launch_bounds__(kAttnThreads)
-attention_kernel(const float* __restrict__ q, long long q_sb, int q_sn,
-                 const float* __restrict__ k, long long k_sb, int k_sn,
-                 const float* __restrict__ v, long long v_sb, int v_sn,
-                 float* __restrict__ out, long long o_sb, int o_sn,
-                 const float* __restrict__ mask, int mask_nw, int N, int M,
-                 float scale) {
+template <int D, int DV, bool kStats>
+__device__ __forceinline__ void attention_body(
+    const float* __restrict__ q, long long q_sb, int q_sn,
+    const float* __restrict__ k, long long k_sb, int k_sn,
+    const float* __restrict__ v, long long v_sb, int v_sn,
+    float* __restrict__ out, long long o_sb, int o_sn,
+    const float* __restrict__ mask, int mask_nw, int N, int M, float scale,
+    float* __restrict__ stats) {
   extern __shared__ float smem[];
   using L = AttnSmem<D, DV>;
   float* Qs = smem;                 // [BQ][D+1]
@@ -576,7 +580,15 @@ attention_kernel(const float* __restrict__ q, long long q_sb, int q_sn,
     }
   }
 
-  if (tid < kAttnBQ) lsum[tid] = l_run;
+  if (tid < kAttnBQ) {
+    lsum[tid] = l_run;
+    if (kStats && n0 + tid < N) {
+      const long long rows = (long long)gridDim.z * gridDim.y * N;
+      const long long row = ((long long)b * gridDim.y + h) * N + n0 + tid;
+      stats[row] = m_run;
+      stats[rows + row] = l_run;
+    }
+  }
   __syncthreads();
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
@@ -590,18 +602,61 @@ attention_kernel(const float* __restrict__ q, long long q_sb, int q_sn,
 }
 
 template <int D, int DV>
+__global__ void __launch_bounds__(kAttnThreads)
+attention_kernel(const float* __restrict__ q, long long q_sb, int q_sn,
+                 const float* __restrict__ k, long long k_sb, int k_sn,
+                 const float* __restrict__ v, long long v_sb, int v_sn,
+                 float* __restrict__ out, long long o_sb, int o_sn,
+                 const float* __restrict__ mask, int mask_nw, int N, int M,
+                 float scale) {
+  attention_body<D, DV, false>(q, q_sb, q_sn, k, k_sb, k_sn, v, v_sb, v_sn,
+                               out, o_sb, o_sn, mask, mask_nw, N, M, scale,
+                               nullptr);
+}
+
+// The same with the row statistics written: a kernel of its own, so that
+// the one without them keeps its code and its time. Left to itself the
+// compiler gives this one 48 registers where the other has 64 and then
+// keeps two shared loads in flight where the other keeps ten (19% slower);
+// a minimum of 4 resident blocks tells it that registers are not scarce
+// (it then takes 96, and the time is the other kernel's).
+template <int D, int DV>
+__global__ void __launch_bounds__(kAttnThreads, 4)
+attention_stats_kernel(const float* __restrict__ q, long long q_sb, int q_sn,
+                       const float* __restrict__ k, long long k_sb, int k_sn,
+                       const float* __restrict__ v, long long v_sb, int v_sn,
+                       float* __restrict__ out, long long o_sb, int o_sn,
+                       const float* __restrict__ mask, int mask_nw, int N,
+                       int M, float scale, float* __restrict__ stats) {
+  attention_body<D, DV, true>(q, q_sb, q_sn, k, k_sb, k_sn, v, v_sb, v_sn,
+                              out, o_sb, o_sn, mask, mask_nw, N, M, scale,
+                              stats);
+}
+
+template <int D, int DV>
 cudaError_t attention_launch(const float* q, long long q_sb, int q_sn,
                              const float* k, long long k_sb, int k_sn,
                              const float* v, long long v_sb, int v_sn,
                              float* out, long long o_sb, int o_sn,
                              const float* mask, int mask_nw, int B, int H,
-                             int N, int M, float scale, cudaStream_t stream) {
+                             int N, int M, float scale, cudaStream_t stream,
+                             float* stats) {
   const size_t bytes = AttnSmem<D, DV>::kBytes;
+  dim3 grid((N + kAttnBQ - 1) / kAttnBQ, H, B);
+  if (stats) {
+    cudaError_t err = cudaFuncSetAttribute(
+        attention_stats_kernel<D, DV>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return err;
+    attention_stats_kernel<D, DV><<<grid, kAttnThreads, bytes, stream>>>(
+        q, q_sb, q_sn, k, k_sb, k_sn, v, v_sb, v_sn, out, o_sb, o_sn, mask,
+        mask_nw, N, M, scale, stats);
+    return cudaGetLastError();
+  }
   cudaError_t err = cudaFuncSetAttribute(
       attention_kernel<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (err != cudaSuccess) return err;
-  dim3 grid((N + kAttnBQ - 1) / kAttnBQ, H, B);
   attention_kernel<D, DV><<<grid, kAttnThreads, bytes, stream>>>(
       q, q_sb, q_sn, k, k_sb, k_sn, v, v_sb, v_sn, out, o_sb, o_sn, mask,
       mask_nw, N, M, scale);
@@ -610,18 +665,20 @@ cudaError_t attention_launch(const float* q, long long q_sb, int q_sn,
 
 // Runtime dispatch on the head widths of the pvt_v2_b5 path: D == DV == 64
 // (every PVT stage), D == DV == 128 (the GMFlow windows), and DV == 2 for
-// the flow-valued attention over 128-d features.
+// the flow-valued attention over 128-d features (forward only: its backward
+// is attention_bwd_tc of mma_tf32.cuh).
 inline cudaError_t attention(int D, int DV, const float* q, long long q_sb,
                              int q_sn, const float* k, long long k_sb,
                              int k_sn, const float* v, long long v_sb,
                              int v_sn, float* out, long long o_sb, int o_sn,
                              const float* mask, int mask_nw, int B, int H,
-                             int N, int M, float scale, cudaStream_t stream) {
+                             int N, int M, float scale, cudaStream_t stream,
+                             float* stats = nullptr) {
 #define EMIP_ATTN_CASE(d, dv)                                                \
   if (D == d && DV == dv)                                                    \
     return attention_launch<d, dv>(q, q_sb, q_sn, k, k_sb, k_sn, v, v_sb,    \
                                    v_sn, out, o_sb, o_sn, mask, mask_nw, B,  \
-                                   H, N, M, scale, stream);
+                                   H, N, M, scale, stream, stats);
   EMIP_ATTN_CASE(64, 64)
   EMIP_ATTN_CASE(128, 128)
   EMIP_ATTN_CASE(128, 2)
@@ -1058,7 +1115,6 @@ inline cudaError_t attention_bwd(int D, int DV, AttnOperand q, AttnOperand k,
                                         stream);
   EMIP_ATTN_BWD_CASE(64, 64)
   EMIP_ATTN_BWD_CASE(128, 128)
-  EMIP_ATTN_BWD_CASE(128, 2)
 #undef EMIP_ATTN_BWD_CASE
   return cudaErrorInvalidValue;
 }

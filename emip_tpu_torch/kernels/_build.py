@@ -47,8 +47,8 @@ _SIGNATURES = {
                               + [_F, _P]),
     "emip_window_ffn_layer_bwd": ([_P] * 11 + [_I] + [_P] * 21 + [_L]
                                   + [_I] * 4 + [_F, _P]),
-    "emip_flow_attention": [_P] * 4 + [_I] * 4 + [_P],
-    "emip_flow_attention_bwd": [_P] * 9 + [_L] + [_I] * 4 + [_P],
+    "emip_flow_attention": [_P] * 5 + [_I] * 4 + [_P],
+    "emip_flow_attention_bwd": [_P] * 10 + [_L] + [_I] * 4 + [_P],
     "emip_convex_upsample": [_P] * 3 + [_I] * 4 + [_P],
     "emip_convex_upsample_bwd": [_P] * 6 + [_I] * 4 + [_P],
     "emip_splat_density": [_P] * 2 + [_I] * 3 + [_P],

@@ -5,6 +5,8 @@ Port of :func:`emip_tpu.ops.pallas.corr_softmax.fused_flow_attention`; the
 CUDA source is ``csrc/flow_attention.cu``. :func:`fused_flow_attention` is
 one ``torch.autograd.Function``: CPU tensors take the plain version (and
 its autograd backward), CUDA tensors the forward and backward kernels.
+When a gradient is wanted the forward kernel also writes each row's max
+and sum of the scores, which the backward kernel reads.
 """
 
 from __future__ import annotations
@@ -53,13 +55,16 @@ class _FlowAttention(torch.autograd.Function):
         b, l, c = q.shape
         out = torch.empty((b, l, _VALUE_WIDTH), device=q.device,
                           dtype=q.dtype)
+        # row max and row sum of the scores, read by the backward
+        stats = (torch.empty((2, b, l), device=q.device, dtype=q.dtype)
+                 if keep else None)
         rc = library().emip_flow_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, l,
-            c, _VALUE_WIDTH, cm.stream_handle(q.device))
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            cm.ptr(stats), b, l, c, _VALUE_WIDTH, cm.stream_handle(q.device))
         cm.raise_on_error(_NAME, rc)
         cm.LAUNCHES["flow_attention"] += 1
         if keep:
-            ctx.save_for_backward(q, k, v, out)
+            ctx.save_for_backward(q, k, v, out, stats)
         return out
 
     @staticmethod
@@ -68,15 +73,22 @@ class _FlowAttention(torch.autograd.Function):
         if ctx.cpu:
             return (*cm.plain_vjp(fused_flow_attention_reference,
                                   ctx.saved_tensors, needs, g), None)
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, stats = ctx.saved_tensors
         g = g.contiguous()
         b, l, c = q.shape
         dq, dk, dv = (cm.empty_if(nd, t) for nd, t in zip(needs, (q, k, v)))
-        ws = cm.workspace(q.device, 2 * b * l)
+        # delta, and room for a pass to split its streamed side two ways
+        # (partial dq, or partial dk and dv) where it has too few blocks
+        if needs[1] or needs[2]:
+            partials = 2 * b * l * (c + _VALUE_WIDTH)
+        else:
+            partials = 2 * b * l * c
+        ws = cm.workspace(q.device, b * l + partials)
         rc = library().emip_flow_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            g.data_ptr(), cm.ptr(dq), cm.ptr(dk), cm.ptr(dv), ws.data_ptr(),
-            ws.numel(), b, l, c, _VALUE_WIDTH, cm.stream_handle(q.device))
+            stats.data_ptr(), g.data_ptr(), cm.ptr(dq), cm.ptr(dk),
+            cm.ptr(dv), ws.data_ptr(), ws.numel(), b, l, c, _VALUE_WIDTH,
+            cm.stream_handle(q.device))
         cm.raise_on_error(_NAME + " backward", rc)
         cm.LAUNCHES["flow_attention_bwd"] += 1
         return dq, dk, dv, None

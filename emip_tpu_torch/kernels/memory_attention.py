@@ -82,7 +82,10 @@ class _MemoryAttention(torch.autograd.Function):
         b, m, c = q.shape
         n = k.shape[1]
         dq, dk, dv = (cm.empty_if(nd, t) for nd, t in zip(needs, (q, k, v)))
-        ws = cm.workspace(q.device, b * m)
+        # delta, and room for the key-tiled pass to split its queries three
+        # ways (partial dk and dv) where that evens out its last wave
+        ws = cm.workspace(q.device, b * m + (6 * b * n * c
+                                             if needs[1] or needs[2] else 0))
         rc = library().emip_memory_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             out.data_ptr(), stats.data_ptr(), g.data_ptr(), cm.ptr(dq),

@@ -8,13 +8,20 @@ XLA reference. Inputs come from numpy seeds; everything is fp32.
 Tolerance: 1e-4 absolute and relative unless stated. Both sides compute
 the same fp32 formula with sums in another order, and the JAX window
 kernel evaluates erf by a rational fit (|err| <= 1.5e-7). The backward
-of A-D is held against ``jax.vjp`` in tests/test_torch_train.py.
+of A-D is held against ``jax.vjp`` in tests/test_torch_train.py. The
+tensor-core backward of C cannot run here: its TF32 arithmetic and its
+tiled algorithm, stated in plain PyTorch in emip_tpu_torch/kernels/tf32.py,
+are held against fp64, torch.autograd.grad and ``jax.vjp`` (F's in
+tests/test_torch_long.py).
 
 The ``cuda`` tests hold each CUDA kernel, forward and backward, against
 its plain version at the slice's production shapes; they skip where no
 GPU is present.
 """
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -117,6 +124,89 @@ def test_flow_attention_matches_pallas_and_xla(b, l, c):
     np.testing.assert_allclose(got, xla, **TOL)
 
 
+# ------------------------------- kernel C backward: arithmetic, algorithm
+
+
+def test_tf32_round_is_cvt_rna():
+    """10 mantissa bits kept, nearest, ties away from zero, either sign."""
+    from emip_tpu_torch.kernels.tf32 import tf32_round
+
+    x = torch.tensor([1 + 2.0**-11, 1 + 2.0**-11 + 2.0**-20, 1 + 2.0**-12,
+                      -1 - 2.0**-11, 1 + 2.0**-10, 0.0, 3.0e-39])
+    want = torch.tensor([1 + 2.0**-10, 1 + 2.0**-10, 1.0, -1 - 2.0**-10,
+                         1 + 2.0**-10, 0.0, 3.0e-39])
+    got = tf32_round(x)
+    assert torch.equal(got[:6], want[:6])
+    assert (got.view(torch.int32) & 0x1FFF).eq(0).all()
+    r = torch.from_numpy(np.random.default_rng(0).standard_normal(4096)
+                         .astype(np.float32))
+    assert ((tf32_round(r) - r).abs() <= r.abs() * 2.0**-11).all()
+
+
+@pytest.mark.parametrize("scale", [1.0, 2.0])
+@pytest.mark.parametrize("m,k,n", [(64, 128, 64), (64, 192, 128)],
+                         ids=["scores", "grads"])
+def test_three_tf32_products_are_fp32_grade(scale, m, k, n):
+    """The kernels' product at the tile shapes of the scores (K = C = 128)
+    and of a grad summed over three streamed tiles (K = 192), with
+    operands at the scales the card check uses: against fp64 the
+    three-term product errs by <= 2e-6 of max|ref| (per product 2^-21
+    from the dropped lo.lo term and the rounding of lo, then the fp32 sum
+    over K: measured 3.4e-7 to 5.0e-7, the plain fp32 product 3.0e-7 to
+    4.6e-7), while one TF32 product errs by > 1e-4 (2^-11 per operand:
+    measured 2.5e-4 to 3.0e-4)."""
+    from emip_tpu_torch.kernels.tf32 import matmul_3xtf32, matmul_tf32
+
+    rng = np.random.default_rng(k + int(scale))
+    a = _t((rng.standard_normal((m, k)) * scale).astype(np.float32))
+    b = _t(rng.standard_normal((k, n)).astype(np.float32))
+    ref = a.double() @ b.double()
+    err = lambda x: ((x.double() - ref).abs().max() / ref.abs().max()  # noqa
+                     ).item()
+    assert err(matmul_3xtf32(a, b)) <= 2e-6
+    assert err(matmul_tf32(a, b)) > 1e-4
+
+
+@pytest.mark.parametrize("product", ["fp32", "3xtf32"])
+@pytest.mark.parametrize("l,splits", [(100, 1), (192, 1), (192, 2)])
+def test_flow_attention_bwd_tiled_walk(l, splits, product):
+    """The algorithm of the CUDA backward (statistics from the forward,
+    query-tiled dq, key-tiled dk / dv on transposed tiles of 64, a ragged
+    last tile at L = 100, the streamed side in two chunks) against
+    torch.autograd.grad of the plain version and against the JAX VJP
+    (Pallas in interpret mode). relmax <= 1e-5: the same fp32 formula
+    summed tile by tile, with fp32 or three-term TF32 products (measured
+    <= 2e-6)."""
+    from emip_tpu.ops.pallas import fused_flow_attention
+    from emip_tpu_torch.kernels import tf32
+
+    rng = np.random.default_rng(70 + l)
+    b, c = 2, 128
+    q = rng.standard_normal((b, l, c)).astype(np.float32)
+    k = rng.standard_normal((b, l, c)).astype(np.float32)
+    v = (rng.standard_normal((b, l, 2)) * 10).astype(np.float32)
+    cot = rng.standard_normal((b, l, 2)).astype(np.float32)
+    _, vjp = jax.vjp(fused_flow_attention, q, k, v)
+    want_jax = vjp(jnp.asarray(cot))
+    leaves = [_t(a).requires_grad_(True) for a in (q, k, v)]
+    out = K.fused_flow_attention_reference(*leaves)
+    want = torch.autograd.grad(out, leaves, _t(cot))
+    row_max, row_sum = tf32.attention_row_stats(_t(q), _t(k))
+    walk = functools.partial(
+        tf32.attention_bwd_tiled, _t(q), _t(k), _t(v), None, out.detach(),
+        row_max, row_sum, _t(cot), splits=splits,
+        matmul=tf32.matmul_3xtf32 if product == "3xtf32" else torch.matmul)
+    got = walk()
+    for name, a, w, wj in zip("qkv", got, want, want_jax):
+        scale = w.abs().max().item()
+        assert (a - w).abs().max().item() <= 1e-5 * scale, name
+        assert np.abs(a.numpy() - np.asarray(wj)).max() <= 1e-5 * scale, name
+    # only the grads asked for
+    dq, dk, dv = walk(which=(0, 1))
+    assert dv is None
+    assert torch.equal(dq, got[0]) and torch.equal(dk, got[1])
+
+
 # ------------------------------------------------------------ kernel D
 
 
@@ -201,7 +291,7 @@ def test_loader_raises_without_nvcc(monkeypatch, tmp_path):
 def test_build_key_covers_every_source():
     """The build directory is keyed by all .cu/.cuh sources and flags."""
     names = {p.name for p in _build._sources()}
-    assert {"primitives.cuh", "sr_attention.cu", "window_attention.cu",
+    assert {"primitives.cuh", "mma_tf32.cuh", "sr_attention.cu", "window_attention.cu",
             "flow_attention.cu", "convex_upsample.cu", "splat.cu",
             "memory_attention.cu", "softmax_expectation.cu",
             "dwconv_gelu.cu"} <= names
@@ -246,9 +336,12 @@ def _gpu_cases():
                   K.fused_dwconv_gelu_reference,
                   (r(2, 22 * 22, 1280), 0.3 * r(3, 3, 1280), 0.1 * r(1280),
                    22, 22)))
-    cases.append(("flow_attention", K.fused_flow_attention,
-                  K.fused_flow_attention_reference,
-                  (r(2, 1936, 128), r(2, 1936, 128), r(2, 1936, 2))))
+    # kernel C at the 352^2 and 512^2 token counts and at a ragged one
+    # (1000 = 15 tiles of 64 + 40)
+    for l in (1936, 4096, 1000):
+        cases.append(("flow_attention", K.fused_flow_attention,
+                      K.fused_flow_attention_reference,
+                      (r(2, l, 128), r(2, l, 128), r(2, l, 2))))
     cases.append(("convex_upsample", K.convex_upsample,
                   K.convex_upsample_reference,
                   (r(2, 44, 44, 2), r(2, 44, 44, 576), 8)))
@@ -285,10 +378,15 @@ def test_cuda_kernels_match_plain_versions():
         assert got.requires_grad and got.grad_fn is not None, name
         cot = torch.randn_like(got)
         wrt = list(_leaves(dev))
-        g_got = torch.autograd.grad(got, wrt, cot)
+        g_got = torch.autograd.grad(got, wrt, cot, retain_graph=True)
         torch.cuda.synchronize()
         assert K.LAUNCHES[name] == before[name] + 1, name
         assert K.LAUNCHES[name + "_bwd"] == before[name + "_bwd"] + 1, name
+        if name == "flow_attention":
+            # no atomics: a second backward gives the same bits
+            for a, b in zip(g_got, torch.autograd.grad(got, wrt, cot)):
+                assert torch.equal(a, b), name
+            assert K.LAUNCHES[name + "_bwd"] == before[name + "_bwd"] + 2
         want = ref(*dev)
         g_want = torch.autograd.grad(want, wrt, cot)
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4,
@@ -297,24 +395,28 @@ def test_cuda_kernels_match_plain_versions():
             # weight grads sum over ~10^4 rows: scale-relative tolerance
             err = (a - b).abs().max().item()
             assert err <= 1e-4 * max(b.abs().max().item(), 1.0), name
-    # kernel F: two written slots of three, ragged tiles (M = 100), and
-    # the streaming shape; the bias takes no gradient
-    for b, m, slots in ((2, 100, 3), (1, 1936, 5)):
+    # kernel F: two written slots of three and every slot empty at ragged
+    # tiles (M = 100), the streaming shape and the 512^2 one; the bias
+    # takes no gradient
+    for b, m, slots, empty in ((2, 100, 3, 1), (2, 100, 3, 3), (1, 1936, 5, 1),
+                               (1, 4096, 5, 0)):
         g = torch.Generator().manual_seed(2)
         q, k, v = (torch.randn(b, n, 128, generator=g).cuda()
                    .requires_grad_(True) for n in (m, slots * m, slots * m))
         bias = torch.zeros(b, slots, m)
-        bias[:, 0] = -1e9
+        bias[:, :empty] = -1e9
         bias = bias.reshape(b, slots * m).cuda()
         before = dict(K.LAUNCHES)
         got = K.masked_memory_attention(q, k, v, bias)
         assert got.grad_fn is not None
         cot = torch.randn_like(got)
-        g_got = torch.autograd.grad(got, (q, k, v), cot)
+        g_got = torch.autograd.grad(got, (q, k, v), cot, retain_graph=True)
+        for a, w in zip(g_got, torch.autograd.grad(got, (q, k, v), cot)):
+            assert torch.equal(a, w)  # no atomics: the same bits
         torch.cuda.synchronize()
         assert K.LAUNCHES["memory_attention"] == before["memory_attention"] + 1
         assert (K.LAUNCHES["memory_attention_bwd"]
-                == before["memory_attention_bwd"] + 1)
+                == before["memory_attention_bwd"] + 2)  # and the repeat
         want = K.masked_memory_attention_reference(q, k, v, bias)
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
         for a, w in zip(g_got, torch.autograd.grad(want, (q, k, v), cot)):
