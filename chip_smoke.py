@@ -19,12 +19,15 @@ needs one card and no arguments, and it imports nothing of JAX. In order:
    four MixFFN stages; I at [8, 1936, 1936]) and of the 512^2 path (A with
    256 reduced keys, C at L = 4096, D at 64 x 64, I at [4, 4096, 4096], G
    with and without the residual and H at windows of 1024 tokens, with and
-   without the mask, at 1 and 4 clips, and once at 484 tokens), with the
-   tolerance stated, and CUDA-event times of the kernel, the plain version
-   and, where one PyTorch call computes the same function
+   without the mask, at 1 and 4 clips, and once at 484 tokens; C also at a
+   ragged token count at channel widths 128 and 64, from inputs of their
+   own and kept out of C's summed row), with the tolerance stated, and
+   CUDA-event times of the kernel, the plain version and, where one
+   PyTorch call computes the same function
    (``scaled_dot_product_attention`` for C and F), that call. G and H have
    no such call; for I (``softmax`` then ``matmul``) and J (``conv2d``
-   then ``gelu``) it would take two, so they have none either;
+   then ``gelu``) it would take two, so they have none either. C's and F's
+   forward must give the same bits on a second call;
 5. backward phase: each backward kernel A-D and F-J against
    torch.autograd.grad of the plain version on the same seeded cotangent,
    at the train steps' shapes (B, G and H with input grads alone and with
@@ -38,13 +41,19 @@ needs one card and no arguments, and it imports nothing of JAX. In order:
    (density atol and the fraction of occlusion-mask bits that flip); the
    cost of the transpose that read-corr matching hands kernel I and of the
    row statistics kernel C's forward keeps for its backward;
-6. slice phase: the full pvt_v2_b5 EMIPShort at 352^2 on seeded random
+6. tiny phase: the configuration of the CPU tests (pvt_v2_b0 at 64^2,
+   64-d flow features: A at head width 32, B, C and F at width 64) on
+   seeded weights: a short forward, one pair's seg-loss grads, one short
+   train step and a 3-frame clip and one frame's head grads of the long
+   model, each against the CPU's plain versions with the slice's
+   tolerances, and launch counts that show A-D (and F) ran;
+7. slice phase: the full pvt_v2_b5 EMIPShort at 352^2 on seeded random
    weights runs ``predict_arrays`` on batches of 8 seeded frame pairs; the
    kernel launch counts of that run must equal what the model structure
    implies; one pair's mask logits and forward flow are compared with the
    same weights run on the CPU through the plain versions; frames/s
    (median of CUDA-event timed batches) and peak memory are printed;
-7. train phase: first one pair, the seeded weights on the card and on the
+8. train phase: first one pair, the seeded weights on the card and on the
    CPU: loss values and the seg-loss grads of every trainable leaf. Then
    the same model takes 1 + 5 train steps at batch 8 (drop path 0.1 from a
    seeded generator, GMFlow frozen, clamp + AdamW); the launch counts per
@@ -52,45 +61,46 @@ needs one card and no arguments, and it imports nothing of JAX. In order:
    C 3, D 1; E 2); GMFlow must stay bit-identical, every trainable leaf
    with a grad must move, the losses must be finite; median ms/step,
    pairs/s and peak memory are printed;
-8. kernel-switch phases, each beside the default configuration on the same
+9. kernel-switch phases, each beside the default configuration on the same
    weights and inputs, in turns: read-corr matching
    (``global_match_qk_fused=False``: I 2 per forward and C 1, I backward 2
    per train step) and the fused MixFFN (``fused_ffn="always"``: J 104 per
    forward; ``ffn_dwconv="bwd_fused"``: J backward 61 per train step);
    mask, flow and train losses must equal the default's within the slice
    and loss tolerances; frames/s and ms/step of both are printed;
-9. entry-point phase: ``python -m emip_tpu_torch.train`` (in process) on a
-   synthetic dataset the port writes, b5 at 352^2, batch 8, one epoch of 2
-   steps, validation and a checkpoint;
-10. long inference phase: the full EMIPLong (b5, 352^2, 5 memory slots) on
+10. entry-point phase: ``python -m emip_tpu_torch.train`` (in process) on
+    a synthetic dataset the port writes, b5 at 352^2, batch 8, one epoch
+    of 2 steps, validation and a checkpoint;
+11. long inference phase: the full EMIPLong (b5, 352^2, 5 memory slots) on
     seeded weights streams seeded clips through ``step_cached``, one clip
     at a time and four side by side; launch counts against the structure
     (A 52 per encoded frame, B 6, C 3, D 1 per pair, F 1 per read);
     frames/s with the ring full and peak memory; one 3-frame clip's short
     mask, long masks and memory against the CPU plain versions;
-11. long train phase: one frame's loss and head grads, card against CPU,
+12. long train phase: one frame's loss and head grads, card against CPU,
     on the seeded weights; then 1 + 5 per-frame train steps at 4 clips and
     at 1: F forward and backward once per step and no backward launch of
     A-D; every ``short_term`` tensor and buffer bit-identical afterwards,
     every trainable leaf moved, finite losses; ms/frame and peak memory;
-12. long entry points: ``python -m emip_tpu_torch.train_long`` and
+13. long entry points: ``python -m emip_tpu_torch.train_long`` and
     ``python -m emip_tpu_torch.test_long`` (in process) on a synthetic
     root: 4 per-frame steps, validation, checkpoints, 12 PNGs;
-13. 512^2 phases, where a swin window holds 1024 tokens and the flow
+14. 512^2 phases, where a swin window holds 1024 tokens and the flow
     transformer runs kernels G and H in place of B: 1 + 2 short train steps
     at batch 2 (G and H forward and backward 6 each per step, none of B;
-    the checks of phase 7), then the long inference phase at 512^2 (G 6,
-    H 6, B 0 per step; card against CPU as in phase 10).
+    the checks of phase 8), then the long inference phase at 512^2 (G 6,
+    H 6, B 0 per step; card against CPU as in phase 11).
 
 It prints one JSON line with the nineteen kernels' numbers (per kernel:
 launches in the phase that is its main path, the largest max_abs_err of
 its cases, and ``ms`` / ``plain_ms`` / ``library_ms`` / ``bound_ms`` summed
 over its cases, one call each; ``bound_ms`` is the larger of the case's
 operations over the card's fp32 peak and its bytes over the memory rate,
-``bound_by`` says which; C's and F's backward run their products on the
-tensor cores as 3xTF32, so their ``bound_ms`` takes the operations over a
-third of the TF32 peak (``bound_rate: "tf32x3"``), below which no time may
-lie, and the CUDA cores' figure stands beside it as ``fp32_bound_ms``),
+``bound_by`` says which; C and F, forward and backward, run their products
+on the tensor cores as 3xTF32, so their ``bound_ms`` takes the operations
+over a third of the TF32 peak (``bound_rate: "tf32x3"``), below which no
+time may lie, and the CUDA cores' figure stands beside it as
+``fp32_bound_ms``),
 and as its last line ``{"ok": true, "device":
 {...}}``. Any failure raises and the exit code is non-zero, with no result
 line. Details also go to ``chiprun_out/chip_smoke.json``. ``--kernels
@@ -238,11 +248,13 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 # dense TF32 on the tensor cores; a 3xTF32 product spends three of them
 PEAK_TF32_FLOPS = 495e12
-# the backward kernels that run their products on the tensor cores as 3xTF32:
-# their bound counts the operations at a third of the TF32 peak, and no time
-# may lie below it; the CUDA cores' fp32 figure, the bound of the other rows
-# and of these two before their redesign, stands beside it
-TENSOR_CORE_KERNELS = ("flow_attention_bwd", "memory_attention_bwd")
+# the kernels that run their products on the tensor cores as 3xTF32 (C and
+# F, forward and backward): their bound counts the operations at a third of
+# the TF32 peak, and no time may lie below it; the CUDA cores' fp32 figure,
+# the bound of the other rows and of these before their redesign, stands
+# beside it. Neither uses atomics: a second call must give the same bits
+TENSOR_CORE_KERNELS = ("flow_attention", "flow_attention_bwd",
+                       "memory_attention", "memory_attention_bwd")
 
 
 def log(msg: str) -> None:
@@ -285,12 +297,15 @@ def alternate_ms(kernel, plain, reps: int) -> tuple[float, float]:
 
 def record(results: dict, name: str, label: str, err: float, ms: float,
            plain_ms: float, work: tuple[float, float],
-           library_ms: float | None = None, **extra) -> None:
+           library_ms: float | None = None, summed: bool = True,
+           **extra) -> None:
     """Add one case to its kernel's entry: the largest max_abs_err, and
-    ms / plain_ms / library_ms / bound_ms summed over the cases. ``work``
-    is the case's (operations, bytes): the bound is the larger of
-    operations over the peak rate (fp32, or 3xTF32 for the tensor-core
-    kernels) and bytes over the memory rate."""
+    ms / plain_ms / library_ms / bound_ms summed over the cases (a case
+    with ``summed`` false is listed in ``cases`` and counts in
+    max_abs_err, but adds nothing to the sums). ``work`` is the case's
+    (operations, bytes): the bound is the larger of operations over the
+    peak rate (fp32, or 3xTF32 for the tensor-core kernels) and bytes over
+    the memory rate."""
     entry = results.setdefault(name, dict(
         max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=None, bound_ms=0.0,
         ops_ms=0.0, bytes_ms=0.0, cases=[]))
@@ -302,9 +317,18 @@ def record(results: dict, name: str, label: str, err: float, ms: float,
         if ms < max(ops_ms, bytes_ms):
             raise AssertionError(f"{name} ({label}): {ms} ms is below the "
                                  f"bound {max(ops_ms, bytes_ms)} ms")
-        entry["fp32_bound_ms"] = entry.get("fp32_bound_ms", 0.0) + fp32_ms
+        entry.setdefault("fp32_bound_ms", 0.0)
         extra = dict(extra, fp32_bound_ms=fp32_ms, bound_rate="tf32x3")
     entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    entry["cases"].append(dict(
+        case=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        library_ms=library_ms, bound_ms=max(ops_ms, bytes_ms),
+        bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+        **({} if summed else dict(summed=False)), **extra))
+    if not summed:
+        return
+    if name in TENSOR_CORE_KERNELS:
+        entry["fp32_bound_ms"] += fp32_ms
     entry["ms"] += ms
     entry["plain_ms"] += plain_ms
     entry["bound_ms"] += max(ops_ms, bytes_ms)
@@ -314,10 +338,6 @@ def record(results: dict, name: str, label: str, err: float, ms: float,
                          else "bytes")
     if library_ms is not None:
         entry["library_ms"] = (entry["library_ms"] or 0.0) + library_ms
-    entry["cases"].append(dict(
-        case=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        library_ms=library_ms, bound_ms=max(ops_ms, bytes_ms),
-        bound_by="operations" if ops_ms >= bytes_ms else "bytes", **extra))
 
 
 def wanted(only: str, name: str) -> bool:
@@ -579,6 +599,21 @@ def kernel_cases(batch: int, device):
     return cases
 
 
+def check_cases(device):
+    """Cases held and timed like kernel_cases' but kept out of their
+    kernel's summed row (listed in its ``cases`` only), from a generator of
+    their own so that kernel_cases' inputs stay as they were: C at a ragged
+    token count (1000 = 31 key tiles of 32 + 8), at channel width 128 and
+    at pvt_v2_b0's 64."""
+    from emip_tpu_torch import kernels as K
+
+    r = seeded_randn(SEED + 15, device)
+    return [("flow_attention", f"[2,1000,{c}] v=[...,2] ragged",
+             K.fused_flow_attention, K.fused_flow_attention_reference,
+             (r(2, 1000, c), r(2, 1000, c), r(2, 1000, 2, scale=10.0)))
+            for c in (128, 64)]
+
+
 # kernel F: (clips, query pixels, slots, written slots)
 MEMORY_FWD_CASES = ((1, 1936, 5, 1), (1, 1936, 5, 3), (1, 1936, 5, 5),
                     (4, 1936, 5, 1), (4, 1936, 5, 3), (4, 1936, 5, 5),
@@ -607,7 +642,9 @@ def kernel_phase(batch: int, device, reps: int, only: str = "") -> dict:
     import torch
 
     results = {}
-    for name, label, fn, ref, args in kernel_cases(batch, device):
+    cases = [(True, *case) for case in kernel_cases(batch, device)]
+    cases += [(False, *case) for case in check_cases(device)]
+    for summed, name, label, fn, ref, args in cases:
         if not wanted(only, name):
             continue
         got = fn(*args)
@@ -617,6 +654,9 @@ def kernel_phase(batch: int, device, reps: int, only: str = "") -> dict:
         tol = KERNEL_TOL[name]
         ok = bool(torch.isfinite(got).all()) and torch.allclose(
             got, want, **tol)
+        if name in TENSOR_CORE_KERNELS and not torch.equal(fn(*args), got):
+            raise AssertionError(f"{name} ({label}): two calls on the same "
+                                 f"inputs differ")
         ms, plain_ms = alternate_ms(lambda: fn(*args), lambda: ref(*args),
                                     reps)
         lib_ms = library_ms(name, args, reps)
@@ -627,7 +667,7 @@ def kernel_phase(batch: int, device, reps: int, only: str = "") -> dict:
             raise AssertionError(f"{name} ({label}) disagrees with its plain "
                                  f"version: max_abs_err={err}, tol={tol}")
         record(results, name, label, err, ms, plain_ms,
-               forward_work(name, args, got), lib_ms)
+               forward_work(name, args, got), lib_ms, summed=summed)
         del got, want
     return results
 
@@ -1307,7 +1347,8 @@ def _seg_grads(model, batch) -> tuple[dict, dict]:
              if g is not None})
 
 
-def train_compare_phase(model, size: int, device) -> dict:
+def train_compare_phase(model, size: int, device,
+                        label: str = "train") -> dict:
     """One pair, the seeded weights, card kernels vs CPU plain versions:
     loss values, and the seg-loss grads of every trainable leaf (GMFlow
     frozen) by the scale-floored relative max of
@@ -1335,7 +1376,7 @@ def train_compare_phase(model, size: int, device) -> dict:
     bad = []
     for k in ("loss_pred", "loss_flow"):
         rel = abs(loss_c[k] - loss_p[k]) / max(abs(loss_p[k]), 1e-30)
-        log(f"train {k} card {loss_c[k]:.7f} vs CPU {loss_p[k]:.7f}: "
+        log(f"{label} {k} card {loss_c[k]:.7f} vs CPU {loss_p[k]:.7f}: "
             f"rel {rel:.3e} (tol {TRAIN_LOSS_RTOL})")
         if not rel <= TRAIN_LOSS_RTOL:
             bad.append(k)
@@ -1346,7 +1387,7 @@ def train_compare_phase(model, size: int, device) -> dict:
     rels = {n: (grads_c[n] - grads_p[n]).abs().max().item()
             / max(grads_p[n].abs().max().item(), floor) for n in grads_p}
     worst = sorted(rels.items(), key=lambda kv: -kv[1])[:5]
-    log(f"train seg-loss grads card vs CPU over {len(rels)} leaves: worst "
+    log(f"{label} seg-loss grads card vs CPU over {len(rels)} leaves: worst "
         f"relmax {worst[0][1]:.3e} (tol {SEG_GRAD_RTOL}); top: "
         + ", ".join(f"{n}={r:.2e}" for n, r in worst)
         + f"; CPU side took {cpu_s:.1f} s")
@@ -1498,36 +1539,55 @@ def long_infer_phase(model, size: int, device, timed: int) -> dict:
     t0 = time.perf_counter()
     video = seeded_clip(np.random.default_rng(SEED + 8), 1, 3, size, device)
     cpu_model = copy.deepcopy(model).cpu()
+    got, ref = long_clip(model, video), long_clip(cpu_model, video.cpu())
+    out["compare"] = held_to_cpu("long", got, ref)
+    log(f"CPU reference clip took {time.perf_counter() - t0:.1f} s")
+    return out
 
-    def run(m, v):
-        with torch.inference_mode():
-            enc_prev, enc = m.encode_frame(v[:, 0]), m.encode_frame(v[:, 1])
-            mask0 = m.short_term.pair_from_encodings(enc_prev, enc)["mask"]
-            mask1, state = m.step_encoded(enc_prev, enc, m.init_memory(1))
-            mask2, _, state = m.step_cached(enc, v[:, 2], state)
-        return dict(mask0=mask0, mask_long1=mask1, mask_long2=mask2,
-                    memory_keys=state.keys[:, -2:],
-                    memory_values=state.values[:, -2:])
 
-    got, ref = run(model, video), run(cpu_model, video.cpu())
+def long_clip(model, video) -> dict:
+    """Frames 0-2 of ``video`` [1, 3, ...] through the long model: frame 0's
+    short mask from the pair (f0, f1), the long masks of frames 1 and 2,
+    and the memory's last two slots after them (3 frames encoded, 3 pairs,
+    2 memory reads)."""
+    import torch
+
+    with torch.inference_mode():
+        enc_prev = model.encode_frame(video[:, 0])
+        enc = model.encode_frame(video[:, 1])
+        mask0 = model.short_term.pair_from_encodings(enc_prev, enc)["mask"]
+        mask1, state = model.step_encoded(enc_prev, enc,
+                                          model.init_memory(1))
+        mask2, _, state = model.step_cached(enc, video[:, 2], state)
+    return dict(mask0=mask0, mask_long1=mask1, mask_long2=mask2,
+                memory_keys=state.keys[:, -2:],
+                memory_values=state.values[:, -2:])
+
+
+def held_to_cpu(label: str, got: dict, ref: dict, tols=None) -> dict:
+    """Each output of the card (``got``) against the CPU's plain versions
+    (``ref``) by the slice tolerance (``tols[name]``, else the mask's) and
+    max|err| <= SLICE_REL_MAX * max|ref|; raises on a mismatch."""
+    import torch
+
     cmp = {}
     for name in got:
         g, r = got[name].cpu(), ref[name]
-        tol = SLICE_TOL["mask"]
+        tol = (tols or {}).get(name, SLICE_TOL["mask"])
         err, ref_max = (g - r).abs().max().item(), r.abs().max().item()
         rel = err / ref_max if ref_max > 0 else float("inf")
-        ok = torch.allclose(g, r, **tol) and rel <= SLICE_REL_MAX
+        ok = (bool(torch.isfinite(g).all()) and torch.allclose(g, r, **tol)
+              and rel <= SLICE_REL_MAX)
         cmp[name] = dict(max_abs_err=err, ref_max_abs=ref_max, rel_to_max=rel,
                          tol=tol, rel_max=SLICE_REL_MAX, ok=ok)
-        log(f"long {name} card vs CPU plain: max_abs_err={err:.3e} (|ref| max "
-            f"{ref_max:.3e}) tol={tol}; max|err|/max|ref|={rel:.3e} (limit "
-            f"{SLICE_REL_MAX}) {'ok' if ok else 'MISMATCH'}")
-    log(f"CPU reference clip took {time.perf_counter() - t0:.1f} s")
+        log(f"{label} {name} card vs CPU plain: max_abs_err={err:.3e} (|ref| "
+            f"max {ref_max:.3e}) tol={tol}; max|err|/max|ref|={rel:.3e} "
+            f"(limit {SLICE_REL_MAX}) {'ok' if ok else 'MISMATCH'}")
     bad = [k for k, v in cmp.items() if not v["ok"]]
     if bad:
-        raise AssertionError(f"card disagrees with the CPU reference: {bad}")
-    out["compare"] = cmp
-    return out
+        raise AssertionError(f"{label}: card disagrees with the CPU "
+                             f"reference: {bad}")
+    return cmp
 
 
 def _long_frame(model, batch: dict):
@@ -1551,7 +1611,8 @@ def _long_frame(model, batch: dict):
     return float(loss.detach()), {n: g.cpu() for n, g in zip(names, grads)}
 
 
-def long_train_compare_phase(model, size: int, device) -> dict:
+def long_train_compare_phase(model, size: int, device,
+                             label: str = "long train") -> dict:
     """One frame, the seeded weights, card kernels vs CPU plain versions:
     the loss and the grads of every trainable leaf of the long heads
     (through kernel F's backward), by the scale-floored relative max."""
@@ -1569,14 +1630,14 @@ def long_train_compare_phase(model, size: int, device) -> dict:
                                   {k: v.cpu() for k, v in batch.items()})
     cpu_s = time.perf_counter() - t0
     rel = abs(loss_c - loss_p) / max(abs(loss_p), 1e-30)
-    log(f"long train loss card {loss_c:.7f} vs CPU {loss_p:.7f}: rel "
+    log(f"{label} loss card {loss_c:.7f} vs CPU {loss_p:.7f}: rel "
         f"{rel:.3e} (tol {TRAIN_LOSS_RTOL})")
     scale = max(g.abs().max().item() for g in grads_p.values())
     rels = {n: (grads_c[n] - grads_p[n]).abs().max().item()
             / max(grads_p[n].abs().max().item(), 1e-6 * scale)
             for n in grads_p}
     worst = sorted(rels.items(), key=lambda kv: -kv[1])[:5]
-    log(f"long train head grads card vs CPU over {len(rels)} leaves: worst "
+    log(f"{label} head grads card vs CPU over {len(rels)} leaves: worst "
         f"relmax {worst[0][1]:.3e} (tol {SEG_GRAD_RTOL}); top: "
         + ", ".join(f"{n}={r:.2e}" for n, r in worst)
         + f"; CPU side took {cpu_s:.1f} s")
@@ -1720,6 +1781,107 @@ def long_entry_phase(size: int) -> dict:
                 predict_seconds=t2 - t1, frames=frames)
 
 
+# ------------------------------------------------- tiny configuration
+
+TINY_SIZE = 64
+TINY_BATCH = 2
+
+
+def tiny_phase(device) -> dict:
+    """The configuration of the CPU tests' YAML on the card: pvt_v2_b0 at
+    64^2 with 64-d flow features and 2 flow transformer blocks, so kernel
+    A at head width 32 and B, C and F at channel width 64, on seeded
+    weights. A short forward (launch counts against the structure; mask
+    and flow against the CPU's plain versions), the seg-loss grads of one
+    pair against the CPU's, one short train step (launch counts: A-D
+    forward and backward, E), then the long model: a 3-frame clip (F's
+    forward on every read) and one frame's head grads (F's backward),
+    each against the CPU's."""
+    import torch
+    import yaml
+
+    from emip_tpu_torch import kernels as K
+    from emip_tpu_torch.config import load_config
+    from emip_tpu_torch.infer import predict_arrays
+    from emip_tpu_torch.models.emip_long import EMIPLong
+    from emip_tpu_torch.models.emip_short import EMIPShort
+    from emip_tpu_torch.models.init import seeded_init_
+    from emip_tpu_torch.train.short import short_train_step
+    from emip_tpu_torch.train.state import build_optimizer
+
+    work = os.path.join(ROOT, "build", "chip_smoke_tiny")
+    os.makedirs(work, exist_ok=True)
+    path = os.path.join(work, "tiny.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(dict(model=dict(args=dict(
+            inp_size=TINY_SIZE, channel=8, backbone_name="pvt_v2_b0",
+            include_dead_modules=False,
+            GMFlow=dict(feature_channels=64, num_transformer_layers=2))),
+            memory_size=5, compute_dtype="float32", seed=SEED), f)
+    cfg = load_config(path)
+    model = seeded_init_(EMIPShort(cfg.model), SEED).to(device).eval()
+    rng = np.random.default_rng(SEED + 14)
+    a, b = (torch.from_numpy(seeded_frames(rng, TINY_BATCH, TINY_SIZE)
+                             ).to(device) for _ in range(2))
+    out = {}
+
+    K.reset_launches()
+    mask, flow = predict_arrays(model, a, b)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    want = expected_launches(model)
+    log(f"tiny b0 {TINY_SIZE}^2 forward launches {launches} (expected "
+        f"{want})")
+    if launches != want or min(launches[k] for k in FWD_KERNELS) == 0:
+        raise AssertionError(f"tiny launch counts {launches} != {want}")
+    cpu = copy.deepcopy(model).cpu()
+    ref_mask, ref_flow = predict_arrays(cpu, a.cpu(), b.cpu())
+    out["forward"] = dict(launches=launches, compare=held_to_cpu(
+        "tiny", dict(mask=mask, flow_fw=flow),
+        dict(mask=ref_mask, flow_fw=ref_flow), SLICE_TOL))
+    del cpu
+
+    out["train_compare"] = train_compare_phase(model, TINY_SIZE, device,
+                                               "tiny train")
+    opt = build_optimizer(model)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    batch = seeded_batch(rng, TINY_BATCH, TINY_SIZE, device)
+    K.reset_launches()
+    metrics = short_train_step(model, opt, batch, gen)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    want = expected_launches(model, True)
+    losses = {k: float(v) for k, v in metrics.items()}
+    log(f"tiny train step launches {launches} (expected {want}); losses "
+        + " ".join(f"{k}={v:.6f}" for k, v in losses.items()))
+    idle = [k for k in TRAIN_KERNELS if launches[k] == 0]
+    if launches != want or idle or not all(
+            np.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"tiny train step: launches {launches} != "
+                             f"{want}, not launched {idle}, losses {losses}")
+    out["train"] = dict(launches=launches, losses=losses)
+    del model, opt
+
+    long_model = seeded_init_(EMIPLong(cfg.model, cfg.memory_size), SEED)
+    long_model = long_model.to(device).eval()
+    video = seeded_clip(rng, 1, 3, TINY_SIZE, device)
+    K.reset_launches()
+    got = long_clip(long_model, video)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    want = long_expected(long_model, 3, 3, 2)
+    log(f"tiny long clip launches {launches} (expected {want})")
+    if launches != want or 0 in (launches[k] for k in FWD_KERNELS + (
+            "memory_attention",)):
+        raise AssertionError(f"tiny long launch counts {launches} != {want}")
+    ref = long_clip(copy.deepcopy(long_model).cpu(), video.cpu())
+    out["long"] = dict(launches=launches,
+                       compare=held_to_cpu("tiny long", got, ref))
+    out["long_train_compare"] = long_train_compare_phase(
+        long_model, TINY_SIZE, device, "tiny long train")
+    return out
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -1767,6 +1929,8 @@ def main(argv=None) -> int:
     kernels.update(backward_phase(BATCH, device, KERNEL_REPS))
     transpose_ms = transpose_cost(BATCH, device, KERNEL_REPS)
     stats_ms = stats_cost(BATCH, device, KERNEL_REPS)
+    tiny = tiny_phase(device)
+    torch.cuda.empty_cache()
 
     cfg = EMIPShortConfig(backbone_name="pvt_v2_b5", inp_size=SIZE)
     model = EMIPShort(cfg)
@@ -1856,7 +2020,7 @@ def main(argv=None) -> int:
                        long_train=long_train, long_entry=long_entry,
                        read_corr=read_corr, fused_ffn=fused_ffn,
                        read_corr_transpose_ms=transpose_ms,
-                       flow_attention_stats_ms=stats_ms,
+                       flow_attention_stats_ms=stats_ms, tiny=tiny,
                        train_512=train512, long_infer_512=long_infer512),
                   f, indent=1, default=str)
     log(json.dumps(line))

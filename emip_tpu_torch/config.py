@@ -2,21 +2,28 @@
 
 Reads the same keys as :func:`emip_tpu.utils.config.load_config` (which
 imports the flax models and so cannot be used here) into the port's own
-dataclasses, ``memory_size`` and ``val_dataset_cad`` of the long-term
-model included. Keys that only steer the JAX package (``parallel``,
-``compute_dtype``, ``long_frames_per_dispatch``) are read and ignored: the
-port trains on one card in fp32, one frame per step.
+dataclasses, ``memory_size``, ``val_dataset_cad`` and the ``load`` block
+of checkpoints included. Keys that only steer the JAX package
+(``compute_dtype``, ``optimizer.name``, ``parallel``,
+``long_frames_per_dispatch``) change nothing here: the port trains on one
+card in fp32 with AdamW, one frame per step. Each of them that asks for
+something else, as a missing ``compute_dtype`` does (the JAX package then
+computes in bfloat16), is named in one warning line.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import os
 
 from emip_tpu_torch.models.emip_short import EMIPShortConfig
 from emip_tpu_torch.models.gmflow import GMFlowConfig
 
-__all__ = ["DatasetConfig", "Config", "load_config", "snapshot_config"]
+__all__ = ["DatasetConfig", "LoadConfig", "Config", "load_config",
+           "snapshot_config"]
+
+log = logging.getLogger("emip_tpu_torch")
 
 
 @dataclasses.dataclass
@@ -30,10 +37,22 @@ class DatasetConfig:
 
 
 @dataclasses.dataclass
+class LoadConfig:
+    """torch checkpoints loaded at model build when the file exists
+    (:func:`emip_tpu_torch.convert.load_configured_weights`)."""
+
+    path: str | None = None       # a full EMIP short snapshot
+    flow_path: str | None = None  # an upstream GMFlow checkpoint
+    long_path: str | None = None  # a full EMIP long snapshot
+    type: str | None = None
+
+
+@dataclasses.dataclass
 class Config:
     train_dataset: DatasetConfig
     val_dataset: DatasetConfig
     model: EMIPShortConfig
+    load: LoadConfig = dataclasses.field(default_factory=LoadConfig)
     lr: float = 1.0e-5
     weight_decay: float = 1.0e-7
     lr_min: float = 1.0e-6
@@ -50,7 +69,7 @@ class Config:
 
 
 def _dataset(d: dict | None) -> DatasetConfig | None:
-    if d is None:
+    if not d:
         return None
     return DatasetConfig(
         image_path=d.get("image_path", ""),
@@ -89,16 +108,41 @@ def _model(d: dict) -> EMIPShortConfig:
     )
 
 
+def _warn_ignored(raw: dict, opt: dict) -> None:
+    """One warning line per key of the JAX package's that asks for other
+    than what the port does (fp32, AdamW, one card, a frame per step).
+    A missing ``compute_dtype`` is the JAX package's default, bfloat16."""
+    par = raw.get("parallel") or {}
+    dtype = raw.get("compute_dtype", "bfloat16")
+    name = str(opt.get("name", "adamw"))
+    frames = int(raw.get("long_frames_per_dispatch", 1))
+    for key, value, other in (
+            ("compute_dtype", dtype, dtype != "float32"),
+            ("optimizer.name", name, name.lower() != "adamw"),
+            ("parallel", par, int(par.get("model_parallel", 1)) != 1
+             or bool(par.get("fsdp")) or bool(par.get("sequence_parallel"))),
+            ("long_frames_per_dispatch", frames, frames != 1)):
+        if other:
+            log.warning("config key %s=%r is ignored: the port runs fp32, "
+                        "AdamW, one card, one frame per dispatch", key, value)
+
+
 def load_config(path: str) -> Config:
     import yaml
 
     with open(path) as f:
         raw = yaml.safe_load(f)
     opt = raw.get("optimizer", {}) or {}
+    load = raw.get("load", {}) or {}
+    _warn_ignored(raw, opt)
     cfg = Config(
-        train_dataset=_dataset(raw.get("train_dataset") or {}),
-        val_dataset=_dataset(raw.get("val_dataset") or {}),
+        train_dataset=_dataset(raw.get("train_dataset")) or DatasetConfig(),
+        val_dataset=_dataset(raw.get("val_dataset")) or DatasetConfig(),
         val_dataset_cad=_dataset(raw.get("val_dataset_cad")),
+        load=LoadConfig(path=load.get("path"),
+                        flow_path=load.get("flow_path"),
+                        long_path=load.get("long_path"),
+                        type=load.get("type")),
         memory_size=int(raw.get("memory_size", 5)),
         model=_model(raw.get("model", {})),
         lr=float(opt.get("lr", 1.0e-5)),

@@ -1,20 +1,108 @@
-"""JAX package variables -> the port's ``state_dict``.
+"""Weights into the port's models.
 
-Inverse of :func:`emip_tpu.convert.torch_import.convert_emip_short_state`
-and ``convert_emip_long_state`` (which map the reference's torch keys to
-flax variables): the same key
-space, the layout rules undone, and the depth-stacked PVT ``stage{i}``
-params un-stacked into ``block{i}.{j}``. Input is the ``params`` and
-``batch_stats`` trees as nested dicts of arrays; nothing here imports
-jax or flax.
+JAX package variables -> the port's ``state_dict``: the inverse of
+:func:`emip_tpu.convert.torch_import.convert_emip_short_state` and
+``convert_emip_long_state`` (which map the reference's torch keys to
+flax variables): the same key space, the layout rules undone, and the
+depth-stacked PVT ``stage{i}`` params un-stacked into ``block{i}.{j}``.
+Input is the ``params`` and ``batch_stats`` trees as nested dicts of
+arrays; nothing here imports jax or flax.
+
+torch checkpoints of the reference (the YAML's ``load`` block) -> the
+port's models: :func:`load_torch_weights`, the counterpart of
+``maybe_load_reference_weights`` and ``maybe_load_reference_weights_long``.
+The port keeps the reference's key space, so a snapshot loads as it is
+once the reference's own load-time remaps are applied
+(:func:`normalize_reference_keys`), with the keys the model lacks left out
+and a key of another shape an error.
 """
 
 from __future__ import annotations
 
+import logging
+import os
+
 import numpy as np
 import torch
 
-__all__ = ["state_dict_from_flax", "state_dict_from_flax_long"]
+__all__ = ["state_dict_from_flax", "state_dict_from_flax_long",
+           "normalize_reference_keys", "load_torch_weights",
+           "load_configured_weights", "SHORT_LOAD", "LONG_LOAD"]
+
+log = logging.getLogger("emip_tpu_torch")
+
+# fields of the config's ``load`` block: (wrapping key, prefix of the keys
+# in the model, whether the reference's load-time remaps apply). ``path``
+# and ``long_path`` are full snapshots of the reference's short and long
+# models; ``flow_path`` is an upstream GMFlow checkpoint, whose weights sit
+# under the short model's GMFlow.
+_LOAD_FIELDS = {"path": ("state_dict", "", True),
+                "flow_path": ("model", "GMFlow.", False),
+                "long_path": ("state_dict", "", True)}
+SHORT_LOAD = ("path", "flow_path")
+LONG_LOAD = ("long_path",)
+
+
+def normalize_reference_keys(sd: dict) -> dict:
+    """The reference's load-time key remaps (its ``train.py``): the
+    ``module.`` of a DataParallel snapshot dropped, and the legacy
+    ``backbone.pvtv2_en`` moved under ``backbone.feat_net``."""
+    out = {}
+    for k, v in sd.items():
+        if k.startswith("module."):
+            k = k[len("module."):]
+        if "backbone.pvtv2_en" in k and "feat_net" not in k:
+            k = k.replace("backbone.pvtv2_en", "backbone.feat_net.pvtv2_en")
+        out[k] = v
+    return out
+
+
+def load_torch_weights(model: torch.nn.Module, path: str | None,
+                       unwrap: str = "state_dict", prefix: str = "",
+                       remap: bool = True) -> None:
+    """Load the torch checkpoint at ``path`` into ``model``.
+
+    Nothing happens when ``path`` is null or not a file. Otherwise the
+    checkpoint is read on the CPU, its ``unwrap`` entry taken where it has
+    one, its keys remapped by :func:`normalize_reference_keys` (with
+    ``remap``) and put under ``prefix``, and the tensors whose key the
+    model has loaded (``strict=False``); a tensor of another shape than the
+    model's raises ``ValueError``. One log line gives the count loaded and,
+    with a few names each, the keys the model lacks (left out) and the
+    model's keys under ``prefix`` that the file lacks.
+    """
+    if not path or not os.path.isfile(path):
+        return
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(ckpt, dict) and isinstance(ckpt.get(unwrap), dict):
+        ckpt = ckpt[unwrap]
+    if remap:
+        ckpt = normalize_reference_keys(ckpt)
+    own = model.state_dict()
+    loaded, unexpected = {}, []
+    for key, value in ckpt.items():
+        key = prefix + key
+        if key not in own:
+            unexpected.append(key)
+        elif tuple(own[key].shape) != tuple(value.shape):
+            raise ValueError(f"{path}: shape mismatch at {key}: "
+                             f"{tuple(own[key].shape)} vs {tuple(value.shape)}")
+        else:
+            loaded[key] = value
+    missing = [k for k in own if k.startswith(prefix) and k not in loaded]
+    model.load_state_dict(loaded, strict=False)
+    log.info("loaded %d tensors from %s; %d unexpected left out %s; "
+             "%d missing %s", len(loaded), path, len(unexpected),
+             unexpected[:4], len(missing), missing[:4])
+
+
+def load_configured_weights(model: torch.nn.Module, load, fields) -> None:
+    """The checkpoints that ``load`` (the config's ``load`` block) names
+    in ``fields`` (:data:`SHORT_LOAD` for ``EMIPShort``,
+    :data:`LONG_LOAD` for ``EMIPLong``) into ``model``, in that order."""
+    for field in fields:
+        unwrap, prefix, remap = _LOAD_FIELDS[field]
+        load_torch_weights(model, getattr(load, field), unwrap, prefix, remap)
 
 
 def _conv(k) -> np.ndarray:

@@ -2,19 +2,30 @@
 // backward.
 //
 // Replaces emip_tpu/ops/pallas/corr_softmax.py:fused_flow_attention
-// (_flow_attention_kernel, _flow_attention_bwd_kernel). q, k [B, L, C];
-// v [B, L, 2]; out [B, L, 2]. It serves global matching in both directions
+// (_flow_attention_kernel, _flow_attention_bwd_kernel). q, k [B, L, C]
+// with C = 128 (pvt_v2_b5's GMFlow) or 64 (pvt_v2_b0's); v [B, L, 2]; out
+// [B, L, 2]. It serves global matching in both directions
 // (v = the pixel grid) and flow propagation (v = the flow).
 //
 // Forward. What bounds it on the card: the q k^T product, about
-// 2 * L^2 * C FLOP per batch row (0.96 GFLOP at L = 1936, C = 128), in fp32
-// on the CUDA cores. The [L, L] scores are never stored: one block per 32
-// query rows streams all L keys through shared memory in tiles of 32 with an
-// online max and sum, and accumulates the 2-wide output in registers, as the
-// TPU kernel kept a row tile of scores in VMEM. When a gradient will be
-// taken it also writes each row's max and sum (stats [2, B, L]; 2 * B * L
-// floats more), so the backward need not stream the keys once more to
-// rebuild them.
+// 2 * L^2 * C operations per batch row (0.96 GFLOP at L = 1936, C = 128);
+// the 2-wide P v adds 1/64 of that. The first version ran it on the CUDA
+// cores out of generic 32 x 32 tiles with scalar shared loads (6.4x its fp32
+// bound, 1.32x the library's fused attention), and the copy that kept the
+// statistics needed a launch bound of its own to get its registers back.
+// This one (attention_fwd_tc of mma_tf32.cuh) runs q k^T on the tensor cores
+// as 3xTF32; P v and the row sums stay on the CUDA cores. A block owns 256
+// query rows (8 warps of two 16-row fragments, so that a streamed fragment
+// is loaded and split once for two mma), streams the keys in tiles of 32
+// through two cp.async stages, keeps the online max and sum on the score
+// fragments in registers and masks the keys past L (1936 is no multiple of
+// 32) to -inf; one block on an SM. The [L, L] scores are never stored,
+// as the TPU kernel kept a row tile of them in VMEM. When a gradient will be
+// taken the same kernel, instantiated with KEEP, also writes each row's max
+// and sum (stats [2, B, L]), so the backward need not stream the keys once
+// more to rebuild them. At [16, 1936] and [8, 4096] 128 blocks fill the
+// card's 132 places; at [8, 1936] (the train step's matching) the keys are
+// split in two and the partials merged in order.
 //
 // Backward. What bounds it: three L x L x C products per batch row that no
 // grad can do without (the scores, dS k for dq, dS^T q for dk), 1.9 GFLOP
@@ -41,24 +52,42 @@
 
 #include "mma_tf32.cuh"
 
-// the backward's tiling: warps, fragments of 16 resident rows per warp,
-// streamed rows per stage
+// the tilings: warps, fragments of 16 resident rows per warp, streamed rows
+// per stage
+constexpr int kFlowFwdWarps = 8;
+constexpr int kFlowFwdMt = 2;
+constexpr int kFlowFwdStr = 32;
 constexpr int kFlowBwdWarps = 4;
 constexpr int kFlowBwdMt = 2;
 constexpr int kFlowBwdStr = 32;
 
 // stats [2, B, L] (row max, row sum) may be null (no gradient will be
-// taken).
+// taken). ws: scratch for the key-split partials. C = 128 (pvt_v2_b5's
+// GMFlow) or 64 (b0's); DV = 2.
 extern "C" int emip_flow_attention(const float* q, const float* k,
                                    const float* v, float* out, float* stats,
-                                   int B, int L, int C, int DV,
-                                   void* stream) {
+                                   float* ws, long long ws_floats, int B,
+                                   int L, int C, int DV, void* stream) {
   using namespace emip;
+  if (DV != 2) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = attention(
-      C, DV, q, (long long)L * C, C, k, (long long)L * C, C, v,
-      (long long)L * DV, DV, out, (long long)L * DV, DV, nullptr, 1, B, 1, L,
-      L, 1.0f / sqrtf((float)C), s, stats);
+  const long long qsb = (long long)L * C, vsb = (long long)L * DV;
+  float* row_sum = stats ? stats + (long long)B * L : nullptr;
+  const Workspace w{ws, ws_floats};
+  const float scale = 1.0f / sqrtf((float)C);
+  cudaError_t err;
+  if (C == 128)
+    err = attention_fwd_tc<128, 2, kFlowFwdWarps, kFlowFwdMt, kFlowFwdStr>(
+        AttnOperand{q, qsb, C}, AttnOperand{k, qsb, C},
+        AttnOperand{v, vsb, DV}, nullptr, out, stats, row_sum, B, L, L,
+        scale, w, s);
+  else if (C == 64)
+    err = attention_fwd_tc<64, 2, kFlowFwdWarps, kFlowFwdMt, kFlowFwdStr>(
+        AttnOperand{q, qsb, C}, AttnOperand{k, qsb, C},
+        AttnOperand{v, vsb, DV}, nullptr, out, stats, row_sum, B, L, L,
+        scale, w, s);
+  else
+    return (int)cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -73,16 +102,26 @@ extern "C" int emip_flow_attention_bwd(const float* q, const float* k,
                                        float* ws, long long ws_floats, int B,
                                        int L, int C, int DV, void* stream) {
   using namespace emip;
-  if (C != 128 || DV != 2) return (int)cudaErrorInvalidValue;
+  if (DV != 2) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long qsb = (long long)L * C, vsb = (long long)L * DV;
-  cudaError_t err =
-      attention_bwd_tc<128, 2, kFlowBwdWarps, kFlowBwdMt, kFlowBwdStr>(
-      AttnOperand{q, qsb, C}, AttnOperand{k, qsb, C}, AttnOperand{v, vsb, DV},
-      AttnOperand{out, vsb, DV}, AttnOperand{g, vsb, DV}, nullptr, stats,
-      stats + (long long)B * L, AttnGrad{dq, qsb, C}, AttnGrad{dk, qsb, C},
-      AttnGrad{dv, vsb, DV}, B, L, L, 1.0f / sqrtf((float)C),
-      Workspace{ws, ws_floats}, s);
+  const AttnOperand qo{q, qsb, C}, ko{k, qsb, C}, vo{v, vsb, DV};
+  const AttnOperand oo{out, vsb, DV}, go{g, vsb, DV};
+  const AttnGrad dqg{dq, qsb, C}, dkg{dk, qsb, C}, dvg{dv, vsb, DV};
+  const float* row_sum = stats + (long long)B * L;
+  const Workspace w{ws, ws_floats};
+  const float scale = 1.0f / sqrtf((float)C);
+  cudaError_t err;
+  if (C == 128)
+    err = attention_bwd_tc<128, 2, kFlowBwdWarps, kFlowBwdMt, kFlowBwdStr>(
+        qo, ko, vo, oo, go, nullptr, stats, row_sum, dqg, dkg, dvg, B, L, L,
+        scale, w, s);
+  else if (C == 64)
+    err = attention_bwd_tc<64, 2, kFlowBwdWarps, kFlowBwdMt, kFlowBwdStr>(
+        qo, ko, vo, oo, go, nullptr, stats, row_sum, dqg, dkg, dvg, B, L, L,
+        scale, w, s);
+  else
+    return (int)cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -6,22 +6,32 @@
 // (_fwd_kernel, _bwd_kernel). q [B, M, C] is the query frame's key map,
 // k and v [B, N, C] the ring of memory keys and values flattened slot-major
 // (N = slots * M), bias [B, N] is 0 on the keys of a written slot and -1e9
-// on those of an empty one; out [B, M, C]. C = 128. At 352^2 inputs M = 1936
-// and N = 9680, at 512^2 M = 4096 and N = 20480.
+// on those of an empty one; out [B, M, C]. C is GMFlow's feature width, at
+// which EMIPLong builds its memory: 128 (pvt_v2_b5's configuration) or 64
+// (b0's). At 352^2 inputs M = 1936 and N = 9680, at 512^2 M = 4096 and
+// N = 20480.
 //
-// Forward. What bounds it on the card: the two products, 4 * M * N * C FLOP
-// per batch row (9.6 GFLOP at 352^2), in fp32 on the CUDA cores; the
-// operands are ~12 MB. The TPU kernel keeps all N keys and a [tile, N] block
-// of scores in VMEM; here neither fits in shared memory, so one block of 256
-// threads owns 64 query rows and streams the keys and values in tiles of
-// 64 with an online max and sum (the bias is added before the running
-// max). Each thread holds a 4 x 4 patch of the score tile and a 4 x 8
-// patch of the output in registers; q and k tiles sit in shared memory
-// transposed ([C][64 + 1]) so that both products read them without bank
-// conflicts. With few query tiles (B = 1) the keys are split across blocks
-// and an ordered pass merges the partial outputs by their max and sum.
-// All-masked tiles are not skipped: with every slot empty all scores are
-// equal and the result is the plain mean of the values, as on the TPU.
+// Forward. What bounds it on the card: the two products, 4 * M * N * C
+// operations per batch row (9.6 GFLOP at 352^2); the operands are ~12 MB.
+// The TPU kernel keeps all N keys and a [tile, N] block of scores in VMEM;
+// here neither fits in shared memory. The first version ran both products
+// on the CUDA cores out of 64 x 64 tiles with 4 x 4 register patches,
+// transposed k and q into shared memory by scalar loads with no overlap of
+// loads and arithmetic, and sent P through shared memory (three barriers per
+// tile): 4.7x its fp32 bound, 1.34x the library's fused attention. This one
+// (attention_fwd_tc of mma_tf32.cuh) runs both on the tensor cores as
+// 3xTF32: 8 warps of two 16-row fragments own 256 query rows, kept in shared
+// memory (132 KiB), so that each streamed fragment is loaded and split once
+// for two mma; the keys and values stream in tiles of 32 through two
+// cp.async stages (66 KiB), one block on an SM. The online max and sum run
+// on the score fragments in registers, P stays there as the A operand of
+// P v, and the bias (0 or -1e9 per key) is staged beside each tile and added
+// before the running max. Keys past N are masked to -inf. With few query
+// tiles (1 clip: 8 blocks; 4 clips: 32; 512^2: 16) the keys are split across
+// blocks so that the last wave is full, and an ordered pass merges the
+// partial outputs by their max and sum. All-masked tiles are
+// not skipped: with every slot empty all scores are equal and the result is
+// the plain mean of the values, as on the TPU.
 //
 // Backward. What bounds it: five M x N x C products per batch row when all
 // three grads are asked for (the scores, dO v^T, dS k, dS^T q, P^T dO),
@@ -46,242 +56,14 @@
 
 #include "mma_tf32.cuh"
 
-// the backward's tiling: warps, fragments of 16 resident rows per warp,
-// streamed rows per stage
+// the tilings: warps, fragments of 16 resident rows per warp, streamed rows
+// per stage
+constexpr int kMemFwdWarps = 8;
+constexpr int kMemFwdMt = 2;
+constexpr int kMemFwdStr = 32;
 constexpr int kMemBwdWarps = 8;
 constexpr int kMemBwdMt = 1;
 constexpr int kMemBwdStr = 32;
-
-namespace emip {
-namespace {
-
-constexpr int kMemD = 128;       // key and value width
-constexpr int kMemBQ = 64;       // query rows per tile
-constexpr int kMemBK = 64;       // keys per tile
-constexpr int kMemThreads = 256; // 16 x 16
-constexpr int kMemLdT = kMemBQ + 1;   // leading dim of a transposed tile
-constexpr int kMemLdS = kMemBK + 16;  // leading dim of a score tile
-constexpr int kMemTileT = kMemD * kMemLdT;
-constexpr int kMemTileS = kMemBQ * kMemLdS;
-
-// dst[d][r] = src[(r0 + r), d] for a 64-row tile, zero past rows_total.
-__device__ __forceinline__ void mem_load_t(float* dst, const float* src,
-                                           int r0, int rows_total, int tid) {
-  for (int i = tid; i < kMemBQ * kMemD; i += kMemThreads) {
-    const int r = i / kMemD, d = i % kMemD;
-    const int n = r0 + r;
-    dst[d * kMemLdT + r] = n < rows_total ? src[(long long)n * kMemD + d] : 0.f;
-  }
-}
-
-// dst[r][d] = src[(r0 + r), d], zero past rows_total.
-__device__ __forceinline__ void mem_load_rows(float* dst, const float* src,
-                                              int r0, int rows_total,
-                                              int tid) {
-  for (int i = tid; i < kMemBK * kMemD; i += kMemThreads) {
-    const int n = r0 + i / kMemD;
-    dst[i] = n < rows_total ? src[(long long)n * kMemD + i % kMemD] : 0.f;
-  }
-}
-
-// Max / sum over the 16 threads (one half-warp) that share a score row.
-__device__ __forceinline__ float row16_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float row16_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-constexpr size_t kMemFwdBytes =
-    sizeof(float) * (2 * kMemTileT + kMemBK * kMemD + kMemTileS + kMemBK);
-
-// grid (query tiles, key splits, B). Split z of a batch row handles the key
-// tiles [z * tiles_per_split, ...); with one split the block writes out and
-// stats (if not null; [2, B, M]: row max, then row sum), else its normalised
-// partial and that partial's max and sum ([2, B, splits, M]).
-__global__ void __launch_bounds__(kMemThreads)
-memory_attention_fwd_kernel(const float* __restrict__ q,
-                            const float* __restrict__ k,
-                            const float* __restrict__ v,
-                            const float* __restrict__ bias,
-                            float* __restrict__ out, float* __restrict__ stats,
-                            float* __restrict__ part_o,
-                            float* __restrict__ part_stats, int M, int N,
-                            float scale, int tiles_per_split) {
-  extern __shared__ float smem[];
-  float* Qt = smem;                    // [D][BQ+1]
-  float* Kt = Qt + kMemTileT;          // [D][BK+1]
-  float* Vs = Kt + kMemTileT;          // [BK][D]
-  float* Ps = Vs + kMemBK * kMemD;     // [BQ][BK+16]
-  float* bias_s = Ps + kMemTileS;      // [BK]
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int n0 = blockIdx.x * kMemBQ;
-  const int split = blockIdx.y, splits = gridDim.y;
-  const int b = blockIdx.z;
-  q += (long long)b * M * kMemD;
-  k += (long long)b * N * kMemD;
-  v += (long long)b * N * kMemD;
-  bias += (long long)b * N;
-
-  mem_load_t(Qt, q, n0, M, tid);
-
-  float acc[4][8];
-  float m_run[4], l_run[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_run[i] = -INFINITY;
-    l_run[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
-  }
-
-  const int key_tiles = (N + kMemBK - 1) / kMemBK;
-  const int t_end = min(key_tiles, (split + 1) * tiles_per_split);
-  for (int t = split * tiles_per_split; t < t_end; ++t) {
-    const int m0 = t * kMemBK;
-    __syncthreads();  // previous tile fully consumed
-    mem_load_t(Kt, k, m0, N, tid);
-    mem_load_rows(Vs, v, m0, N, tid);
-    if (tid < kMemBK)
-      bias_s[tid] = m0 + tid < N ? bias[m0 + tid] : -INFINITY;
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < kMemD; ++d) {
-      float a[4], c[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Qt[d * kMemLdT + ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) c[j] = Kt[d * kMemLdT + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], c[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        // a key past N has bias -inf and so weight 0
-        s[i][j] = s[i][j] * scale + bias_s[tx + 16 * j];
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m_run[i], row16_max(mx));
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = __expf(s[i][j] - m_new);
-        Ps[(ty + 16 * i) * kMemLdS + tx + 16 * j] = p;
-        sum += p;
-      }
-      const float alpha = __expf(m_run[i] - m_new);
-      l_run[i] = l_run[i] * alpha + row16_sum(sum);
-      m_run[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int j = 0; j < kMemBK; ++j) {
-      float p[4], vv[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = Ps[(ty + 16 * i) * kMemLdS + j];
-#pragma unroll
-      for (int c = 0; c < 8; ++c) vv[c] = Vs[j * kMemD + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) acc[i][c] = fmaf(p[i], vv[c], acc[i][c]);
-    }
-  }
-
-  const long long B = gridDim.z;
-  float* o_dst;
-  float* m_dst;  // row max; the row sum lies `rows` floats further
-  long long rows;
-  if (splits == 1) {
-    o_dst = out + (long long)b * M * kMemD;
-    m_dst = stats ? stats + (long long)b * M : nullptr;
-    rows = B * M;
-  } else {
-    const long long slot = (long long)b * splits + split;
-    o_dst = part_o + slot * M * kMemD;
-    m_dst = part_stats + slot * M;
-    rows = B * splits * M;
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int n = n0 + ty + 16 * i;
-    if (n >= M) continue;
-    const float inv = 1.0f / l_run[i];
-#pragma unroll
-    for (int c = 0; c < 8; ++c)
-      o_dst[(long long)n * kMemD + tx + 16 * c] = acc[i][c] * inv;
-    if (m_dst && tx == 0) {
-      m_dst[n] = m_run[i];
-      m_dst[rows + n] = l_run[i];
-    }
-  }
-}
-
-// out = sum_z w_z part_o[z] / sum_z w_z with w_z = l_z exp(m_z - max m), the
-// splits taken in order; stats (if not null) gets max m and sum_z w_z.
-__global__ void memory_attention_merge_kernel(
-    const float* __restrict__ part_o, const float* __restrict__ part_stats,
-    int splits, int B, int M, float* __restrict__ out,
-    float* __restrict__ stats) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long rows = (long long)B * M;
-  if (idx >= rows * kMemD) return;
-  const int d = (int)(idx % kMemD);
-  const long long bm = idx / kMemD;
-  const int n = (int)(bm % M), b = (int)(bm / M);
-  const float* pm = part_stats + (long long)b * splits * M + n;
-  const float* pl = pm + rows * splits;
-  const float* po = part_o + ((long long)b * splits * M + n) * kMemD + d;
-  float mx = -INFINITY;
-  for (int z = 0; z < splits; ++z) mx = fmaxf(mx, pm[(long long)z * M]);
-  float wsum = 0.f, o = 0.f;
-  for (int z = 0; z < splits; ++z) {
-    const float w = pl[(long long)z * M] * __expf(pm[(long long)z * M] - mx);
-    wsum += w;
-    o = fmaf(w, po[(long long)z * M * kMemD], o);
-  }
-  out[idx] = o / wsum;
-  if (stats && d == 0) {
-    stats[bm] = mx;
-    stats[rows + bm] = wsum;
-  }
-}
-
-// Key splits of a query-tiled pass: as many as fill the card in one wave,
-// and no more than the workspace holds (per_split floats each).
-inline int mem_key_splits(int q_tiles, int B, int key_tiles,
-                          long long per_split, long long ws_floats) {
-  const long long blocks = (long long)q_tiles * B;
-  long long splits = blocks < kSmCount ? kSmCount / blocks : 1;
-  splits = min(splits, (long long)key_tiles);
-  if (splits > 1) splits = min(splits, ws_floats / per_split);
-  return (int)max(splits, 1LL);
-}
-
-}  // namespace
-}  // namespace emip
 
 // stats [2, B, M] (row max, row sum) may be null (no gradient will be
 // taken). ws: scratch for the key-split partials.
@@ -291,31 +73,22 @@ extern "C" int emip_memory_attention(const float* q, const float* k,
                                      long long ws_floats, int B, int M, int N,
                                      int C, void* stream) {
   using namespace emip;
-  if (C != kMemD) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long qsb = (long long)M * C, ksb = (long long)N * C;
+  const AttnOperand qo{q, qsb, C}, ko{k, ksb, C}, vo{v, ksb, C};
+  float* row_sum = stats ? stats + (long long)B * M : nullptr;
+  const Workspace w{ws, ws_floats};
   const float scale = 1.0f / sqrtf((float)C);
-  const int q_tiles = ceil_div(M, kMemBQ), key_tiles = ceil_div(N, kMemBK);
-  const long long rows = (long long)B * M;
-  int splits =
-      mem_key_splits(q_tiles, B, key_tiles, rows * (kMemD + 2), ws_floats);
-  const int per = ceil_div(key_tiles, splits);
-  splits = ceil_div(key_tiles, per);  // no split without a tile
-  float* part_o = nullptr;
-  float* part_stats = nullptr;
-  if (splits > 1) {
-    part_o = ws;
-    part_stats = ws + (long long)splits * rows * kMemD;
-  }
-  cudaError_t err = cudaFuncSetAttribute(
-      memory_attention_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kMemFwdBytes);
+  cudaError_t err;
+  if (C == 128)
+    err = attention_fwd_tc<128, 128, kMemFwdWarps, kMemFwdMt, kMemFwdStr>(
+        qo, ko, vo, bias, out, stats, row_sum, B, M, N, scale, w, s);
+  else if (C == 64)
+    err = attention_fwd_tc<64, 64, kMemFwdWarps, kMemFwdMt, kMemFwdStr>(
+        qo, ko, vo, bias, out, stats, row_sum, B, M, N, scale, w, s);
+  else
+    return (int)cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;
-  memory_attention_fwd_kernel<<<dim3(q_tiles, splits, B), kMemThreads,
-                                kMemFwdBytes, s>>>(
-      q, k, v, bias, out, stats, part_o, part_stats, M, N, scale, per);
-  if (splits > 1)
-    memory_attention_merge_kernel<<<ceil_div(rows * kMemD, 256), 256, 0, s>>>(
-        part_o, part_stats, splits, B, M, out, stats);
   return (int)cudaGetLastError();
 }
 
@@ -328,16 +101,25 @@ extern "C" int emip_memory_attention_bwd(
     float* dv, float* ws, long long ws_floats, int B, int M, int N, int C,
     void* stream) {
   using namespace emip;
-  if (C != kMemD) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long qsb = (long long)M * C, ksb = (long long)N * C;
-  cudaError_t err =
-      attention_bwd_tc<kMemD, kMemD, kMemBwdWarps, kMemBwdMt, kMemBwdStr>(
-      AttnOperand{q, qsb, C}, AttnOperand{k, ksb, C}, AttnOperand{v, ksb, C},
-      AttnOperand{out, qsb, C}, AttnOperand{g, qsb, C}, bias, stats,
-      stats + (long long)B * M, AttnGrad{dq, qsb, C}, AttnGrad{dk, ksb, C},
-      AttnGrad{dv, ksb, C}, B, M, N, 1.0f / sqrtf((float)C),
-      Workspace{ws, ws_floats}, s);
+  const AttnOperand qo{q, qsb, C}, ko{k, ksb, C}, vo{v, ksb, C};
+  const AttnOperand oo{out, qsb, C}, go{g, qsb, C};
+  const AttnGrad dqg{dq, qsb, C}, dkg{dk, ksb, C}, dvg{dv, ksb, C};
+  const float* row_sum = stats + (long long)B * M;
+  const Workspace w{ws, ws_floats};
+  const float scale = 1.0f / sqrtf((float)C);
+  cudaError_t err;
+  if (C == 128)
+    err = attention_bwd_tc<128, 128, kMemBwdWarps, kMemBwdMt, kMemBwdStr>(
+        qo, ko, vo, oo, go, bias, stats, row_sum, dqg, dkg, dvg, B, M, N,
+        scale, w, s);
+  else if (C == 64)
+    err = attention_bwd_tc<64, 64, kMemBwdWarps, kMemBwdMt, kMemBwdStr>(
+        qo, ko, vo, oo, go, bias, stats, row_sum, dqg, dkg, dvg, B, M, N,
+        scale, w, s);
+  else
+    return (int)cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

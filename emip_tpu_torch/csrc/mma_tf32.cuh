@@ -1,8 +1,9 @@
-// Tensor-core tile core of the port's attention backward kernels: fp32-grade
-// products as three TF32 products ("3xTF32"), tiles staged through shared
-// memory with asynchronous copies, and the flash-style backward built on
-// both. flow_attention.cu (kernel C, value width 2) and memory_attention.cu
-// (kernel F, value width 128, additive key bias) instantiate it.
+// Tensor-core tile core of the port's flash-style attention kernels: fp32-
+// grade products as three TF32 products ("3xTF32"), tiles staged through
+// shared memory with asynchronous copies, and the attention forward and
+// backward built on both. flow_attention.cu (kernel C, value width 2, key
+// width 128 or 64) and memory_attention.cu (kernel F, value and key width
+// 128 or 64, additive key bias) instantiate them.
 //
 //   tf32_split       x = hi + lo with hi = tf32(x) (rounded as cvt.rna does)
 //                    and lo = tf32(x - hi) (truncated by the tensor core): hi
@@ -29,13 +30,35 @@
 //                    shared tile with 16-byte cp.async, neighbouring
 //                    threads on neighbouring addresses; rows past the end
 //                    are zero-filled by the copy itself.
-//   attention_bwd_tc dq, dk, dv of out = softmax(q k^T scale + bias) v from
-//                    the row max and row sum the forward kept. Two passes,
-//                    each a grid of blocks that own WARPS x MT x 16 rows of
-//                    one side (kept in shared memory) and stream the other
-//                    side in tiles of STR rows through a ring of two stages,
-//                    the next tile arriving while the current one is
-//                    multiplied, with one barrier per tile:
+//   attention_fwd_tc out = softmax(q k^T scale + bias) v, and where a
+//                    gradient will be taken each row's max and sum, kept
+//                    apart (with every key masked the max is -1e9, where
+//                    fp32 has no room for max + log sum). What bounds it:
+//                    the q k^T product (and with DV = D the P v product),
+//                    2 Nq Nk D operations each per batch row. A block owns
+//                    WARPS x MT x 16 query rows, kept in shared memory, and
+//                    streams k and v in tiles of STR rows through a ring of
+//                    two cp.async stages with one barrier per tile. The
+//                    scores stay in the accumulator fragments: the online
+//                    max and sum run on them in registers (a row lives in
+//                    the four lanes of a quad, so its max is two shuffles;
+//                    the sum is kept per lane and added up once at the
+//                    end), the output accumulators are rescaled by
+//                    exp(m_old - m_new), and P = exp(S scale + bias - m_new)
+//                    overwrites S in place, which is the A operand of
+//                    warp_gemm_ak for O += P v. With DV = 2 that product
+//                    is two FMAs per score on the CUDA cores. Keys past the
+//                    end of a ragged last tile are masked to -inf; masked
+//                    tiles are not skipped (with every key at bias -1e9 the
+//                    result is the plain mean of v). Where the blocks leave
+//                    the card idle, or its last wave mostly empty, the keys
+//                    are split across blocks; a further launch merges the
+//                    normalised partials in order by their max and sum.
+//   attention_bwd_tc dq, dk, dv of the same from the row max and row sum the
+//                    forward kept. Two passes, each a grid of blocks that
+//                    own WARPS x MT x 16 rows of one side (kept in shared
+//                    memory) and stream the other side through the same
+//                    ring of stages:
 //                      query-tiled:  S = q k^T, dP = dO v^T,
 //                                    dS = P (dP - delta), dq += dS k
 //                      key-tiled:    S^T = k q^T, dP^T = v dO^T,
@@ -45,15 +68,17 @@
 //                    pass whose blocks leave the card idle, or its last
 //                    wave mostly empty, splits its streamed side across
 //                    blocks; the partials are summed in order by a further
-//                    launch. No atomics and
-//                    no [queries, keys] array in device memory. With
-//                    DV = 2 the products with v and dO run on the CUDA
-//                    cores (two terms each). Any grad may be left out.
+//                    launch. No atomics and no [queries, keys] array in
+//                    device memory. With DV = 2 the products with v and dO
+//                    run on the CUDA cores (two terms each). Any grad may be
+//                    left out.
 //
-// The widths are template parameters: D = 128 with DV = 2 or 128 are
-// instantiated today; D = DV = 128 also fits the window attention of
-// kernels B, G, H and D = DV = 64 kernel A's (their masks and heads are
-// not handled here yet).
+// No kernel here uses atomics: a second call gives the same bits. The widths
+// are template parameters; instantiated today: D = DV = 128 or 64 (kernel
+// F) and D = 128 or 64 with DV = 2 (kernel C); 128 is pvt_v2_b5's GMFlow
+// feature width, 64 b0's. D = DV = 128 also fits the window
+// attention of kernels B, G, H and D = DV = 64 or 32 kernel A's (their
+// masks and heads are not handled here yet).
 
 #pragma once
 
@@ -249,19 +274,20 @@ __device__ __forceinline__ void load_vector_async(float* dst, const float* src,
   }
 }
 
-// ------------------------------------------------ attention backward
+// -------------------------------------------------- shared-memory plan
 
 constexpr int kTcStages = 2;
 
-// Shared-memory plan of one pass: the resident side's tiles, then the ring
-// of stages, each the streamed side's tiles and its per-row vectors. A warp
-// owns MT fragments of 16 resident rows.
-template <int D, int DV, int WARPS, int MT, int STR>
-struct TcBwd {
+// Shared-memory plan of one pass: the resident side's tiles (with RES_V its
+// value-width rows too), then the ring of stages, each the streamed side's
+// tiles and VECS per-row vectors. A warp owns MT fragments of 16 resident
+// rows.
+template <int D, int DV, int WARPS, int MT, int STR, bool RES_V, int VECS>
+struct TcPlan {
   static_assert(D % 8 == 0 && STR % 8 == 0, "fragment sizes");
   static_assert(DV == 2 || DV == D, "value width: 2, or the key width");
-  static constexpr bool kWide = DV != 2;  // dO v^T and P^T dO on tensor cores
-  static constexpr int kProducts = kWide ? 2 : 1;  // per score tile
+  static constexpr bool kWide = DV != 2;  // products with v on tensor cores
+  static constexpr int kProducts = kWide ? 2 : 1;  // per backward score tile
   static constexpr int kWarpRows = 16 * MT;
   static constexpr int kRes = kWarpRows * WARPS;
   static constexpr int kThreads = 32 * WARPS;
@@ -269,10 +295,10 @@ struct TcBwd {
   static constexpr int kLd = D + 4;
   static constexpr int kLdV = DV + 4;
   static constexpr int kResTile = kRes * kLd;
-  static constexpr int kResTileV = kWide ? kRes * kLdV : 0;
+  static constexpr int kResTileV = RES_V && kWide ? kRes * kLdV : 0;
   static constexpr int kStrTile = STR * kLd;
   static constexpr int kStrTileV = kWide ? STR * kLdV : STR * DV;
-  static constexpr int kStage = kStrTile + kStrTileV + 4 * STR;
+  static constexpr int kStage = kStrTile + kStrTileV + VECS * STR;
   static constexpr size_t kBytes =
       sizeof(float) * (kResTile + kResTileV + kTcStages * kStage);
   // blocks that share an SM: what its 227 KiB of shared memory hold (1 KiB
@@ -284,6 +310,345 @@ struct TcBwd {
       kSmemFit < kRegFit ? (kSmemFit < 1 ? 1 : kSmemFit)
                          : (kRegFit < 1 ? 1 : kRegFit);
 };
+
+// the forward: resident queries; a stage holds k, v and the bias
+template <int D, int DV, int WARPS, int MT, int STR>
+using TcFwd = TcPlan<D, DV, WARPS, MT, STR, false, 1>;
+// the backward's passes: resident q and dO (or k and v); a stage holds the
+// other side's two tiles and up to four per-row vectors
+template <int D, int DV, int WARPS, int MT, int STR>
+using TcBwd = TcPlan<D, DV, WARPS, MT, STR, true, 4>;
+
+// Splits of a pass's streamed side. With `blocks` blocks on `slots` places
+// and s splits a pass takes ceil(blocks * s / slots) / s of one block's
+// time: more splits fill an idle card and even out the last wave. Take the
+// smallest s within 5% of the least, no more than 16, than there are tiles,
+// or than the workspace holds (per_split floats each); then even the tiles
+// out so that no split is empty.
+inline int tc_splits(long long blocks, int slots, int tiles,
+                     long long per_split, long long ws_floats, int* per) {
+  const long long most = max(1LL, min(min(16LL, (long long)tiles),
+                                       ws_floats / per_split));
+  int best = 1;
+  double best_time = (double)ceil_div(blocks, slots);
+  for (int s = 2; s <= most; ++s) {
+    const double time = (double)ceil_div(blocks * s, slots) / s;
+    if (time < 0.95 * best_time) {
+      best = s;
+      best_time = time;
+    }
+  }
+  *per = ceil_div(tiles, best);
+  return ceil_div(tiles, *per);
+}
+
+// ------------------------------------------------- attention forward
+
+// Row n of batch row b of an operand lies at p[b * sb + n * sn]; out is
+// [B, Nq, DV] and row_max / row_sum [B, Nq] (null: not kept); bias is
+// [B, Nk] or null. part_o [splits, B, Nq, DV] and part_stats [2, splits, B,
+// Nq] (max, then sum) hold the partials of a split pass.
+struct TcFwdArgs {
+  AttnOperand q, k, v;
+  const float* bias;
+  float* out;
+  float* row_max;
+  float* row_sum;
+  float* part_o;
+  float* part_stats;
+  int B, Nq, Nk;
+  float scale;
+  int tiles_per_split;
+};
+
+// Grid (query tiles, key splits, B). Split z of a batch row takes the key
+// tiles [z * tiles_per_split, ...). With one split a block writes out and,
+// with KEEP, the row statistics; otherwise its normalised partial output
+// and that partial's max and sum.
+template <int D, int DV, int WARPS, int MT, int STR, bool KEEP>
+__global__ void
+__launch_bounds__(32 * WARPS, (TcFwd<D, DV, WARPS, MT, STR>::kBlocksPerSm))
+attention_fwd_tc_kernel(TcFwdArgs a) {
+  using L = TcFwd<D, DV, WARPS, MT, STR>;
+  extern __shared__ __align__(16) float tc_smem[];
+  float* Qs = tc_smem;            // [kRes][D + 4]
+  float* stages = Qs + L::kResTile;
+  // a stage: K [STR][D + 4]; V [STR][DV + 4] or [STR][2]; bias [STR]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int q0 = blockIdx.x * L::kRes;
+  const int row0 = q0 + warp * L::kWarpRows;  // this warp's first query
+  const int split = blockIdx.y, splits = gridDim.y, b = blockIdx.z;
+  const float* qp = a.q.p + b * a.q.sb;
+  const float* kp = a.k.p + b * a.k.sb;
+  const float* vp = a.v.p + b * a.v.sb;
+  const float* bias = a.bias ? a.bias + (long long)b * a.Nk : nullptr;
+
+  load_tile_async<D, L::kThreads>(Qs, qp, a.q.sn, q0, a.Nq, L::kRes, tid);
+
+  auto fill = [&](int tile, int s) {
+    float* st = stages + s * L::kStage;
+    const int k0 = tile * STR;
+    load_tile_async<D, L::kThreads>(st, kp, a.k.sn, k0, a.Nk, STR, tid);
+    if constexpr (L::kWide)
+      load_tile_async<DV, L::kThreads>(st + L::kStrTile, vp, a.v.sn, k0, a.Nk,
+                                       STR, tid);
+    else
+      load_vector_async<8, L::kThreads>(st + L::kStrTile, vp, k0, a.Nk, STR,
+                                        tid);
+    if (bias)
+      load_vector_async<4, L::kThreads>(st + L::kStrTile + L::kStrTileV, bias,
+                                        k0, a.Nk, STR, tid);
+    cp_async_commit();
+  };
+
+  // this thread's rows g and g + 8 of each of the warp's fragments: the
+  // running max (the same in the four lanes of a row) and this lane's part
+  // of the running sum; the output accumulators, with DV = 2 acc[m][0][2h +
+  // c] holding this lane's part of column c of row h
+  constexpr int kAccN = L::kWide ? DV / 8 : 1;
+  float mrow[MT][2], lrow[MT][2], acc[MT][kAccN][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mrow[m][h] = -INFINITY;
+      lrow[m][h] = 0.f;
+    }
+#pragma unroll
+    for (int n = 0; n < kAccN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
+  }
+
+  const int tiles = (a.Nk + STR - 1) / STR;
+  const int t_beg = split * a.tiles_per_split;
+  const int t_end = min(tiles, t_beg + a.tiles_per_split);
+  if (t_beg < t_end) fill(t_beg, 0);
+  for (int tile = t_beg; tile < t_end; ++tile) {
+    const int s = (tile - t_beg) % kTcStages;
+    // this tile has landed, and every warp is done with the one before,
+    // whose stage the next tile's copy may now overwrite
+    cp_async_wait<0>();
+    __syncthreads();
+    if (tile + 1 < t_end) fill(tile + 1, (s + 1) % kTcStages);
+    const float* Ks = stages + s * L::kStage;
+    const float* Vs = Ks + L::kStrTile;
+    const float* bias_s = Vs + L::kStrTileV;
+    const int k0 = tile * STR;
+
+    float prod[1][MT][L::kNT][4];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int j = 0; j < L::kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) prod[0][m][j][e] = 0.f;
+    const float* const res[2] = {Qs + warp * L::kWarpRows * L::kLd,
+                                 Qs + warp * L::kWarpRows * L::kLd};
+    const float* const str[2] = {Ks, Ks};
+    warp_gemm_nt<1, D, MT, L::kNT, L::kLd>(res, str, g, t, prod);
+    float(&sc)[MT][L::kNT][4] = prod[0];
+
+    // scaled, biased scores; keys past the end of the tile at -inf
+    float mnew[MT][2];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) mnew[m][h] = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < L::kNT; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = 8 * j + 2 * t + c;
+        const bool ok = k0 + col < a.Nk;
+        const float bs = bias ? bias_s[col] : 0.f;
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int e = 2 * h + c;
+            const float x = ok ? sc[m][j][e] * a.scale + bs : -INFINITY;
+            sc[m][j][e] = x;
+            mnew[m][h] = fmaxf(mnew[m][h], x);
+          }
+      }
+    // the row max over the quad, the rescale of what came before
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float mx = mnew[m][h];
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        mx = fmaxf(mx, mrow[m][h]);
+        const float alpha = __expf(mrow[m][h] - mx);  // 0 on the first tile
+        mrow[m][h] = mnew[m][h] = mx;
+        lrow[m][h] *= alpha;
+#pragma unroll
+        for (int n = 0; n < kAccN; ++n) {
+          acc[m][n][2 * h] *= alpha;
+          acc[m][n][2 * h + 1] *= alpha;
+        }
+      }
+    // P in place of S; with DV = 2 also O += P v here
+#pragma unroll
+    for (int j = 0; j < L::kNT; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = 8 * j + 2 * t + c;
+        float v0 = 0.f, v1 = 0.f;
+        if constexpr (!L::kWide) {
+          v0 = Vs[2 * col];
+          v1 = Vs[2 * col + 1];
+        }
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int e = 2 * h + c;
+            const float p = __expf(sc[m][j][e] - mnew[m][h]);
+            sc[m][j][e] = p;
+            lrow[m][h] += p;
+            if constexpr (!L::kWide) {
+              acc[m][0][2 * h] = fmaf(p, v0, acc[m][0][2 * h]);
+              acc[m][0][2 * h + 1] = fmaf(p, v1, acc[m][0][2 * h + 1]);
+            }
+          }
+      }
+    if constexpr (L::kWide)
+      warp_gemm_ak<DV, MT, L::kNT, L::kLdV>(sc, Vs, g, t, acc);
+  }
+
+  // the four lanes of a row hold parts of its sum (and, with DV = 2, of its
+  // two outputs)
+  const bool whole = splits == 1;
+  const long long rows = (long long)a.B * a.Nq;
+  float* o_dst = whole ? a.out + (long long)b * a.Nq * DV
+                       : a.part_o + ((long long)split * a.B + b) * a.Nq * DV;
+  float* m_dst = whole ? (KEEP ? a.row_max + (long long)b * a.Nq : nullptr)
+                       : a.part_stats + ((long long)split * a.B + b) * a.Nq;
+  float* l_dst = whole ? (KEEP ? a.row_sum + (long long)b * a.Nq : nullptr)
+                       : m_dst + splits * rows;
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float l = lrow[m][h];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      if constexpr (!L::kWide) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float& o = acc[m][0][2 * h + c];
+          o += __shfl_xor_sync(0xffffffffu, o, 1);
+          o += __shfl_xor_sync(0xffffffffu, o, 2);
+        }
+      }
+      const int n = row0 + 16 * m + g + 8 * h;
+      if (n >= a.Nq) continue;
+      const float inv = 1.0f / l;
+      if constexpr (L::kWide) {
+#pragma unroll
+        for (int c = 0; c < DV / 8; ++c)
+          *reinterpret_cast<float2*>(o_dst + (long long)n * DV + 8 * c +
+                                     2 * t) =
+              make_float2(acc[m][c][2 * h] * inv, acc[m][c][2 * h + 1] * inv);
+      } else if (t == 0) {
+        *reinterpret_cast<float2*>(o_dst + (long long)n * 2) =
+            make_float2(acc[m][0][2 * h] * inv, acc[m][0][2 * h + 1] * inv);
+      }
+      if (m_dst && t == 0) {
+        m_dst[n] = mrow[m][h];
+        l_dst[n] = l;
+      }
+    }
+}
+
+// out = sum_z w_z part_o[z] / sum_z w_z with w_z = l_z exp(m_z - max m), the
+// splits taken in order; row_max / row_sum (if not null) get max m and
+// sum_z w_z. rows = B * Nq.
+template <int W>
+__global__ void attention_merge_kernel(const float* __restrict__ part_o,
+                                       const float* __restrict__ part_stats,
+                                       int splits, long long rows,
+                                       float* __restrict__ out,
+                                       float* __restrict__ row_max,
+                                       float* __restrict__ row_sum) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= rows * W) return;
+  const long long r = idx / W;
+  const float* pm = part_stats + r;
+  const float* pl = pm + splits * rows;
+  const float* po = part_o + idx;
+  float mx = -INFINITY;
+  for (int z = 0; z < splits; ++z) mx = fmaxf(mx, pm[z * rows]);
+  float wsum = 0.f, o = 0.f;
+  for (int z = 0; z < splits; ++z) {
+    const float w = pl[z * rows] * __expf(pm[z * rows] - mx);
+    wsum += w;
+    o = fmaf(w, po[z * rows * W], o);
+  }
+  out[idx] = o / wsum;
+  if (row_max && idx % W == 0) {
+    row_max[r] = mx;
+    row_sum[r] = wsum;
+  }
+}
+
+template <int D, int DV, int WARPS, int MT, int STR, bool KEEP>
+cudaError_t attention_fwd_tc_launch(const TcFwdArgs& a, dim3 grid,
+                                    cudaStream_t stream) {
+  using L = TcFwd<D, DV, WARPS, MT, STR>;
+  cudaError_t err = cudaFuncSetAttribute(
+      attention_fwd_tc_kernel<D, DV, WARPS, MT, STR, KEEP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
+  if (err != cudaSuccess) return err;
+  attention_fwd_tc_kernel<D, DV, WARPS, MT, STR, KEEP>
+      <<<grid, L::kThreads, L::kBytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// out [B, Nq, DV] = softmax(q k^T scale + bias) v; q: [B, Nq, .], k, v:
+// [B, Nk, .], bias [B, Nk] or null. row_max and row_sum [B, Nq] are written
+// when row_max is not null (a gradient will be taken). ws: room for the
+// partials of a split pass (fewer splits when it is short).
+template <int D, int DV, int WARPS, int MT, int STR>
+cudaError_t attention_fwd_tc(AttnOperand q, AttnOperand k, AttnOperand v,
+                             const float* bias, float* out, float* row_max,
+                             float* row_sum, int B, int Nq, int Nk,
+                             float scale, Workspace ws, cudaStream_t stream) {
+  using L = TcFwd<D, DV, WARPS, MT, STR>;
+  TcFwdArgs a;
+  a.q = q; a.k = k; a.v = v;
+  a.bias = bias;
+  a.out = out; a.row_max = row_max; a.row_sum = row_sum;
+  a.part_o = a.part_stats = nullptr;
+  a.B = B; a.Nq = Nq; a.Nk = Nk;
+  a.scale = scale;
+  const long long rows = (long long)B * Nq;
+  const int res_tiles = ceil_div(Nq, L::kRes);
+  const int splits =
+      tc_splits((long long)res_tiles * B, kSmCount * L::kBlocksPerSm,
+                ceil_div(Nk, STR), rows * (DV + 2), ws.n, &a.tiles_per_split);
+  if (splits > 1) {
+    a.part_o = ws.p;
+    a.part_stats = ws.p + splits * rows * DV;
+  }
+  const dim3 grid(res_tiles, splits, B);
+  cudaError_t err =
+      row_max ? attention_fwd_tc_launch<D, DV, WARPS, MT, STR, true>(a, grid,
+                                                                     stream)
+              : attention_fwd_tc_launch<D, DV, WARPS, MT, STR, false>(
+                    a, grid, stream);
+  if (err != cudaSuccess || splits == 1) return err;
+  attention_merge_kernel<DV><<<ceil_div(rows * DV, 256), 256, 0, stream>>>(
+      a.part_o, a.part_stats, splits, rows, out, row_max, row_sum);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------ attention backward
 
 // Row n of batch row b of an operand lies at p[b * sb + n * sn]. row_max,
 // row_sum (the forward's) and delta = rowsum(dO o out) are [B, Nq]; bias is
@@ -670,29 +1035,6 @@ attention_bwd_tc_dkv_kernel(TcBwdArgs a) {
               make_float2(dvp[m][h][0], dvp[m][h][1]);
       }
   }
-}
-
-// Splits of a pass's streamed side. With `blocks` blocks on `slots` places
-// and s splits a pass takes ceil(blocks * s / slots) / s of one block's
-// time: more splits fill an idle card and even out the last wave. Take the
-// smallest s within 5% of the least, no more than 16, than there are tiles,
-// or than the workspace holds (per_split floats each); then even the tiles
-// out so that no split is empty.
-inline int tc_splits(long long blocks, int slots, int tiles,
-                     long long per_split, long long ws_floats, int* per) {
-  const long long most = max(1LL, min(min(16LL, (long long)tiles),
-                                       ws_floats / per_split));
-  int best = 1;
-  double best_time = (double)ceil_div(blocks, slots);
-  for (int s = 2; s <= most; ++s) {
-    const double time = (double)ceil_div(blocks * s, slots) / s;
-    if (time < 0.95 * best_time) {
-      best = s;
-      best_time = time;
-    }
-  }
-  *per = ceil_div(tiles, best);
-  return ceil_div(tiles, *per);
 }
 
 // dq, dk, dv (each may be null) of softmax(q k^T scale + bias) v. o is the

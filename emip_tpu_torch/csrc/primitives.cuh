@@ -31,9 +31,11 @@
 //                   are summed in an ordered third pass.
 //
 // Everything in this header is fp32 on the CUDA cores: the simple, correct
-// first version. The backward of the flow-valued attention and of the
-// memory read has left it for the tensor cores (mma_tf32.cuh: 3xTF32
-// products, cp.async staging); wgmma, TMA and bf16 are later work.
+// first version, which kernels A, B, G and H still run (their attention at
+// head widths 32, 64 and 128). The flow-valued attention (kernel C) and the
+// memory read (kernel F) have left it, forward and backward, for the tensor
+// cores (mma_tf32.cuh: 3xTF32 products, cp.async staging); wgmma, TMA and
+// bf16 are later work.
 
 #pragma once
 
@@ -447,9 +449,7 @@ inline cudaError_t layernorm_bwd(const float* x, int ldx, const float* dy,
 //   O = O e^{m-m'} + P V_tile                   [BQ, DV] in registers
 // Element (b, h, n, d) of q is q[b*q_sb + n*q_sn + h*D + d]; v and out
 // use h*DV. The additive mask, if given, is [mask_nw, N, M] and batch b
-// reads window b % mask_nw (the [B, K*K, T, C] window layout). stats, if
-// not null, gets each row's running max and sum ([2, B, H, N]: max, then
-// sum), kept apart for a backward that recomputes P = exp(S - max) / sum.
+// reads window b % mask_nw (the [B, K*K, T, C] window layout).
 
 constexpr int kAttnBQ = 32;
 constexpr int kAttnBK = 32;
@@ -465,14 +465,14 @@ struct AttnSmem {
       sizeof(float) * (kQ + kK + kV + kS + 2 * kAttnBQ);
 };
 
-template <int D, int DV, bool kStats>
-__device__ __forceinline__ void attention_body(
+template <int D, int DV>
+__global__ void __launch_bounds__(kAttnThreads)
+attention_kernel(
     const float* __restrict__ q, long long q_sb, int q_sn,
     const float* __restrict__ k, long long k_sb, int k_sn,
     const float* __restrict__ v, long long v_sb, int v_sn,
     float* __restrict__ out, long long o_sb, int o_sn,
-    const float* __restrict__ mask, int mask_nw, int N, int M, float scale,
-    float* __restrict__ stats) {
+    const float* __restrict__ mask, int mask_nw, int N, int M, float scale) {
   extern __shared__ float smem[];
   using L = AttnSmem<D, DV>;
   float* Qs = smem;                 // [BQ][D+1]
@@ -580,15 +580,7 @@ __device__ __forceinline__ void attention_body(
     }
   }
 
-  if (tid < kAttnBQ) {
-    lsum[tid] = l_run;
-    if (kStats && n0 + tid < N) {
-      const long long rows = (long long)gridDim.z * gridDim.y * N;
-      const long long row = ((long long)b * gridDim.y + h) * N + n0 + tid;
-      stats[row] = m_run;
-      stats[rows + row] = l_run;
-    }
-  }
+  if (tid < kAttnBQ) lsum[tid] = l_run;
   __syncthreads();
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
@@ -602,57 +594,14 @@ __device__ __forceinline__ void attention_body(
 }
 
 template <int D, int DV>
-__global__ void __launch_bounds__(kAttnThreads)
-attention_kernel(const float* __restrict__ q, long long q_sb, int q_sn,
-                 const float* __restrict__ k, long long k_sb, int k_sn,
-                 const float* __restrict__ v, long long v_sb, int v_sn,
-                 float* __restrict__ out, long long o_sb, int o_sn,
-                 const float* __restrict__ mask, int mask_nw, int N, int M,
-                 float scale) {
-  attention_body<D, DV, false>(q, q_sb, q_sn, k, k_sb, k_sn, v, v_sb, v_sn,
-                               out, o_sb, o_sn, mask, mask_nw, N, M, scale,
-                               nullptr);
-}
-
-// The same with the row statistics written: a kernel of its own, so that
-// the one without them keeps its code and its time. Left to itself the
-// compiler gives this one 48 registers where the other has 64 and then
-// keeps two shared loads in flight where the other keeps ten (19% slower);
-// a minimum of 4 resident blocks tells it that registers are not scarce
-// (it then takes 96, and the time is the other kernel's).
-template <int D, int DV>
-__global__ void __launch_bounds__(kAttnThreads, 4)
-attention_stats_kernel(const float* __restrict__ q, long long q_sb, int q_sn,
-                       const float* __restrict__ k, long long k_sb, int k_sn,
-                       const float* __restrict__ v, long long v_sb, int v_sn,
-                       float* __restrict__ out, long long o_sb, int o_sn,
-                       const float* __restrict__ mask, int mask_nw, int N,
-                       int M, float scale, float* __restrict__ stats) {
-  attention_body<D, DV, true>(q, q_sb, q_sn, k, k_sb, k_sn, v, v_sb, v_sn,
-                              out, o_sb, o_sn, mask, mask_nw, N, M, scale,
-                              stats);
-}
-
-template <int D, int DV>
 cudaError_t attention_launch(const float* q, long long q_sb, int q_sn,
                              const float* k, long long k_sb, int k_sn,
                              const float* v, long long v_sb, int v_sn,
                              float* out, long long o_sb, int o_sn,
                              const float* mask, int mask_nw, int B, int H,
-                             int N, int M, float scale, cudaStream_t stream,
-                             float* stats) {
+                             int N, int M, float scale, cudaStream_t stream) {
   const size_t bytes = AttnSmem<D, DV>::kBytes;
   dim3 grid((N + kAttnBQ - 1) / kAttnBQ, H, B);
-  if (stats) {
-    cudaError_t err = cudaFuncSetAttribute(
-        attention_stats_kernel<D, DV>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return err;
-    attention_stats_kernel<D, DV><<<grid, kAttnThreads, bytes, stream>>>(
-        q, q_sb, q_sn, k, k_sb, k_sn, v, v_sb, v_sn, out, o_sb, o_sn, mask,
-        mask_nw, N, M, scale, stats);
-    return cudaGetLastError();
-  }
   cudaError_t err = cudaFuncSetAttribute(
       attention_kernel<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
@@ -663,25 +612,24 @@ cudaError_t attention_launch(const float* q, long long q_sb, int q_sn,
   return cudaGetLastError();
 }
 
-// Runtime dispatch on the head widths of the pvt_v2_b5 path: D == DV == 64
-// (every PVT stage), D == DV == 128 (the GMFlow windows), and DV == 2 for
-// the flow-valued attention over 128-d features (forward only: its backward
-// is attention_bwd_tc of mma_tf32.cuh).
+// Runtime dispatch on the head widths of kernels A (every PVT stage: 64 in
+// pvt_v2_b5, 32 in b0) and B, G, H (the GMFlow windows: 128 in b5's
+// configuration, 64 in b0's), with D == DV. The flow-valued attention has
+// its own kernels (attention_fwd_tc / attention_bwd_tc of mma_tf32.cuh).
 inline cudaError_t attention(int D, int DV, const float* q, long long q_sb,
                              int q_sn, const float* k, long long k_sb,
                              int k_sn, const float* v, long long v_sb,
                              int v_sn, float* out, long long o_sb, int o_sn,
                              const float* mask, int mask_nw, int B, int H,
-                             int N, int M, float scale, cudaStream_t stream,
-                             float* stats = nullptr) {
+                             int N, int M, float scale, cudaStream_t stream) {
 #define EMIP_ATTN_CASE(d, dv)                                                \
   if (D == d && DV == dv)                                                    \
     return attention_launch<d, dv>(q, q_sb, q_sn, k, k_sb, k_sn, v, v_sb,    \
                                    v_sn, out, o_sb, o_sn, mask, mask_nw, B,  \
-                                   H, N, M, scale, stream, stats);
+                                   H, N, M, scale, stream);
+  EMIP_ATTN_CASE(32, 32)
   EMIP_ATTN_CASE(64, 64)
   EMIP_ATTN_CASE(128, 128)
-  EMIP_ATTN_CASE(128, 2)
 #undef EMIP_ATTN_CASE
   return cudaErrorInvalidValue;
 }
@@ -1113,6 +1061,7 @@ inline cudaError_t attention_bwd(int D, int DV, AttnOperand q, AttnOperand k,
     return attention_bwd_launch<d, dv_>(q, k, v, o, go, dq, dk, dv, mask,   \
                                         mask_nw, B, H, N, M, scale, ws,     \
                                         stream);
+  EMIP_ATTN_BWD_CASE(32, 32)
   EMIP_ATTN_BWD_CASE(64, 64)
   EMIP_ATTN_BWD_CASE(128, 128)
 #undef EMIP_ATTN_BWD_CASE

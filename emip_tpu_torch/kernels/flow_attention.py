@@ -6,7 +6,8 @@ CUDA source is ``csrc/flow_attention.cu``. :func:`fused_flow_attention` is
 one ``torch.autograd.Function``: CPU tensors take the plain version (and
 its autograd backward), CUDA tensors the forward and backward kernels.
 When a gradient is wanted the forward kernel also writes each row's max
-and sum of the scores, which the backward kernel reads.
+and sum of the scores, which the backward kernel reads. Channel widths 128
+(pvt_v2_b5's GMFlow features) and 64 (b0's) are instantiated.
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ from emip_tpu_torch.kernels._build import library
 __all__ = ["fused_flow_attention", "fused_flow_attention_reference"]
 
 _NAME = "fused_flow_attention"
-_WIDTHS = (128,)  # GMFlow width = pvt_v2_b5's /8 width
+# GMFlow feature width = the backbone's /8 width: 128 in pvt_v2_b5, 64 in b0
+_WIDTHS = (64, 128)
 _VALUE_WIDTH = 2
 
 
@@ -58,9 +60,12 @@ class _FlowAttention(torch.autograd.Function):
         # row max and row sum of the scores, read by the backward
         stats = (torch.empty((2, b, l), device=q.device, dtype=q.dtype)
                  if keep else None)
+        # room for the partials where the keys are split across blocks
+        ws = cm.workspace(q.device, 0)
         rc = library().emip_flow_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            cm.ptr(stats), b, l, c, _VALUE_WIDTH, cm.stream_handle(q.device))
+            cm.ptr(stats), ws.data_ptr(), ws.numel(), b, l, c, _VALUE_WIDTH,
+            cm.stream_handle(q.device))
         cm.raise_on_error(_NAME, rc)
         cm.LAUNCHES["flow_attention"] += 1
         if keep:

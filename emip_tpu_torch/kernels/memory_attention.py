@@ -6,7 +6,8 @@ the CUDA source is ``csrc/memory_attention.cu``.
 :func:`masked_memory_attention` is one ``torch.autograd.Function``: CPU
 tensors take the plain version (and its autograd backward), CUDA tensors
 the forward and backward kernels. The bias is a constant mask and gets no
-gradient.
+gradient. Widths 128 (pvt_v2_b5's configuration) and 64 (b0's) are
+instantiated: ``EMIPLong`` builds its memory at GMFlow's feature width.
 """
 
 from __future__ import annotations
@@ -19,7 +20,9 @@ from emip_tpu_torch.kernels._build import library
 __all__ = ["masked_memory_attention", "masked_memory_attention_reference"]
 
 _NAME = "masked_memory_attention"
-_WIDTHS = (128,)  # the memory's key / value width = GMFlow's feature width
+# the memory's key / value width = GMFlow's feature width (EMIPLong builds
+# its LTM at that width): 128 in pvt_v2_b5's configuration, 64 in b0's
+_WIDTHS = (64, 128)
 
 
 def masked_memory_attention_reference(q, k, v, bias) -> torch.Tensor:
@@ -59,7 +62,10 @@ class _MemoryAttention(torch.autograd.Function):
         # row max and row sum of the scores, read by the backward
         stats = (torch.empty((2, b, m), device=q.device, dtype=q.dtype)
                  if keep else None)
-        ws = cm.workspace(q.device, 0)
+        # room for the partials of two key splits beyond the shared
+        # scratch, so that 4 clips at 512^2 (64 blocks of 256 query rows)
+        # can split their keys and fill the card
+        ws = cm.workspace(q.device, 2 * b * m * (c + 2))
         rc = library().emip_memory_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             out.data_ptr(), cm.ptr(stats), ws.data_ptr(), ws.numel(), b, m,

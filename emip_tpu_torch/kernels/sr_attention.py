@@ -18,7 +18,8 @@ from emip_tpu_torch.kernels._build import library
 __all__ = ["fused_sr_attention", "fused_sr_attention_reference"]
 
 _NAME = "fused_sr_attention"
-_HEAD_DIMS = (64,)  # pvt_v2_b5: 64-d heads at every stage
+# head width at every PVT stage: 64 in pvt_v2_b5 (and b1-b4), 32 in b0
+_HEAD_DIMS = (32, 64)
 
 
 def fused_sr_attention_reference(x, kv_in, wq, bq, wkv, bkv, wp, bp,

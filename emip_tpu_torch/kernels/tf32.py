@@ -1,15 +1,19 @@
 """Plain PyTorch statement of what ``csrc/mma_tf32.cuh`` computes.
 
-The CUDA kernels of the attention backward (kernels C and F) cannot run
-without a card, so their arithmetic and their algorithm are written out
-here in plain tensor code that the CPU tests hold against fp64 and against
-``torch.autograd.grad`` of the plain versions:
+The CUDA kernels of the attention forward and backward (kernels C and F)
+cannot run without a card, so their arithmetic and their algorithm are
+written out here in plain tensor code that the CPU tests hold against
+fp64, the plain versions and ``torch.autograd.grad`` of them:
 
 * :func:`tf32_round` rounds fp32 to TF32 as ``cvt.rna.tf32.f32`` does and
   :func:`tf32_truncate` cuts it as the tensor core does to an operand's
   low bits; :func:`matmul_tf32` is one tensor-core product of rounded
   operands and :func:`matmul_3xtf32` the three-term product the kernels
   use.
+* :func:`attention_fwd_tiled` walks ``attention_fwd_tc`` tile by tile
+  (streamed key tiles, the online max and sum, ragged last tiles, the
+  keys split in chunks whose partials are merged in order by their max
+  and sum);
 * :func:`attention_row_stats` gives the row max and row sum a forward
   keeps, and :func:`attention_bwd_tiled` walks the two passes of
   ``attention_bwd_tc`` tile by tile (query-tiled dq; key-tiled dk and dv
@@ -24,7 +28,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["tf32_round", "tf32_truncate", "matmul_tf32", "matmul_3xtf32",
-           "attention_row_stats", "attention_bwd_tiled"]
+           "attention_fwd_tiled", "attention_row_stats",
+           "attention_bwd_tiled"]
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -71,6 +76,60 @@ def _chunks(n_tiles: int, splits: int):
     """Tile ranges of ``splits`` even chunks, none empty."""
     per = -(-n_tiles // max(1, min(splits, n_tiles)))
     return [(t, min(n_tiles, t + per)) for t in range(0, n_tiles, per)]
+
+
+def attention_fwd_tiled(q, k, v, bias=None, stream_rows=32, splits=1,
+                        matmul=torch.matmul, keep_stats=False):
+    """``softmax(q k^T / sqrt(C) + bias) v`` computed as
+    ``attention_fwd_tc`` does; with ``keep_stats`` also the row max and row
+    sum ([B, Nq] each) it keeps for the backward.
+
+    q: [B, Nq, C]; k, v: [B, Nk, .]; bias [B, Nk] or None. Query rows are
+    independent, so the kernel's resident query tiles change no bit and
+    every row is walked at once. The keys stream in tiles of
+    ``stream_rows`` (the last one ragged) with a running max m and sum l:
+    per tile m' = max(m, rowmax S), l = l e^(m - m') + rowsum e^(S - m'),
+    O = O e^(m - m') + e^(S - m') v. With ``splits`` > 1 the key tiles
+    are cut in chunks, each chunk's output normalised by its own sum, and
+    the chunks merged in order with weights l_z e^(m_z - max m).
+    ``matmul`` is the product of q k^T and, with a value as wide as the
+    keys, of P v (:func:`matmul_3xtf32` to follow the kernel's
+    arithmetic); a 2-wide value's P v runs in fp32, as on the CUDA cores.
+    """
+    b, nq, c = q.shape
+    nk = k.shape[1]
+    scale = 1.0 / c**0.5
+    if bias is None:
+        bias = q.new_zeros(b, nk)
+    pv = matmul if v.shape[-1] == c else torch.matmul
+    tiles = -(-nk // stream_rows)
+    parts = []
+    for t0, t1 in _chunks(tiles, splits):
+        m = q.new_full((b, nq), float("-inf"))
+        l = q.new_zeros(b, nq)
+        acc = q.new_zeros(b, nq, v.shape[-1])
+        for tile in range(t0, t1):
+            keys = slice(tile * stream_rows,
+                         min(nk, (tile + 1) * stream_rows))
+            s = (matmul(q, k[:, keys].transpose(-1, -2)) * scale
+                 + bias[:, None, keys])
+            m_new = torch.maximum(m, s.max(-1).values)
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + pv(p, v[:, keys])
+            m = m_new
+        parts.append((acc / l[..., None], m, l))
+    if len(parts) == 1:
+        out, m, l = parts[0]
+    else:
+        m = torch.stack([p[1] for p in parts]).max(0).values
+        w = [pl * torch.exp(pm - m) for _, pm, pl in parts]
+        l = sum(w[1:], w[0])
+        out = sum((wz[..., None] * pz for wz, (pz, _, _) in
+                   zip(w[1:], parts[1:])), w[0][..., None] * parts[0][0])
+        out = out / l[..., None]
+    return (out, m, l) if keep_stats else out
 
 
 def attention_bwd_tiled(q, k, v, bias, out, row_max, row_sum, g,

@@ -40,7 +40,8 @@ _NAME = "fused_window_attention_block"
 _LAYER = "fused_window_attention_layer"
 _FFN_LAYER = "fused_window_attention_ffn_layer"
 EPS = 1e-6  # flax LayerNorm epsilon, as in the JAX kernel
-_WIDTHS = (128,)  # GMFlow width = pvt_v2_b5's /8 width
+# GMFlow feature width = the backbone's /8 width: 128 in pvt_v2_b5, 64 in b0
+_WIDTHS = (64, 128)
 _SELF_KEYS = ("wq", "wk", "wv", "wm", "s1", "b1")
 _CROSS_KEYS = _SELF_KEYS + ("w0", "w2", "s2", "b2")
 # the parameters the backward kernels read (biases of LayerNorms are not)

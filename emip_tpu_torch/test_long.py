@@ -9,8 +9,9 @@ Mirrors the repository's ``test_long.py`` for the JAX package: frame 0
 takes the short-term prediction (paired with frame 1); frames 1..T-1 take
 the memory-prompted long head with the rolling key / value buffer carried
 across steps. ``--ckpt`` is a checkpoint directory written by
-``python -m emip_tpu_torch.train_long``; without it the model runs on
-seeded random weights (the repository holds no checkpoint). Without
+``python -m emip_tpu_torch.train_long``; without it the model runs on the
+config's ``load.long_path`` snapshot where that file exists, else on
+seeded random weights (``seed``). Without
 ``--data`` the config's validation split is predicted. Runs on the GPU
 (``--device``, default ``cuda``; without a GPU it raises), on the CPU only
 with ``--device cpu``.
@@ -47,6 +48,7 @@ def main(argv=None):
 
     args = parse_args(argv)
     cfg = load_config(args.config)
+    # seeded weights, then load.long_path where it exists
     model, _ = build_long_model(cfg, device=args.device)
     if args.ckpt:
         state = torch.load(os.path.join(args.ckpt, CKPT_NAME),

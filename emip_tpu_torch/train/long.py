@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from emip_tpu_torch.config import Config, DatasetConfig, snapshot_config
+from emip_tpu_torch.convert import LONG_LOAD, load_configured_weights
 from emip_tpu_torch.data import ClipLoader, frames_subdir
 from emip_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from emip_tpu_torch.losses.seg import hybrid_e_loss
@@ -55,14 +56,16 @@ def build_long_model(cfg: Config, short_state_dict: dict | None = None,
     """(EMIPLong on ``device``, its optimizer) with the short-term net
     frozen.
 
-    The model starts from seeded random weights (``cfg.seed``);
+    The model starts from seeded random weights (``cfg.seed``), then
+    takes the config's ``load.long_path`` snapshot where the file exists;
     ``short_state_dict``, the ``state_dict`` of a trained ``EMIPShort``,
-    is loaded under ``short_term.`` (the reference's ``'short_term.' + k``
-    remap, train_long.py:391-402): keys the target has, as in the JAX
-    package.
+    is loaded over it under ``short_term.`` (the reference's
+    ``'short_term.' + k`` remap, train_long.py:391-402): keys the target
+    has, as in the JAX package.
     """
     device = resolve_device(device)
     model = seeded_init_(EMIPLong(cfg.model, cfg.memory_size), cfg.seed)
+    load_configured_weights(model, cfg.load, LONG_LOAD)
     if short_state_dict is not None:
         own = model.short_term.state_dict()
         model.short_term.load_state_dict(

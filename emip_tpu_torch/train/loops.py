@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from emip_tpu_torch.config import Config, snapshot_config
+from emip_tpu_torch.convert import SHORT_LOAD, load_configured_weights
 from emip_tpu_torch.data import PairEvalLoader, PairTrainLoader
 from emip_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from emip_tpu_torch.infer import _linear_weights
@@ -125,11 +126,14 @@ def train_short(cfg: Config, resume: bool = False,
     """Train for epochs ``start..cfg.epoch - 1`` (the reference's
     ``range(1, epoch)``) on ``device`` (default: the GPU; raises without
     one); returns the model and a summary. The model starts from seeded
-    random weights (no checkpoint is in the repository)."""
+    random weights, then takes the checkpoints the config's ``load`` block
+    names (``path``, ``flow_path``) where the files exist."""
     device = resolve_device(device)
     snapshot_config(cfg, cfg.save_path)
     scalars = open(os.path.join(cfg.save_path, "scalars.jsonl"), "a")
-    model = seeded_init_(EMIPShort(cfg.model), cfg.seed).to(device)
+    model = seeded_init_(EMIPShort(cfg.model), cfg.seed)
+    load_configured_weights(model, cfg.load, SHORT_LOAD)
+    model = model.to(device)
     opt = build_optimizer(model, cfg.lr, cfg.weight_decay, cfg.clip)
     ckpt_dir = os.path.join(cfg.save_path, "ckpt")
     best_dir = os.path.join(cfg.save_path, "ckpt_best")

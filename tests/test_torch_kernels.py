@@ -9,9 +9,10 @@ Tolerance: 1e-4 absolute and relative unless stated. Both sides compute
 the same fp32 formula with sums in another order, and the JAX window
 kernel evaluates erf by a rational fit (|err| <= 1.5e-7). The backward
 of A-D is held against ``jax.vjp`` in tests/test_torch_train.py. The
-tensor-core backward of C cannot run here: its TF32 arithmetic and its
-tiled algorithm, stated in plain PyTorch in emip_tpu_torch/kernels/tf32.py,
-are held against fp64, torch.autograd.grad and ``jax.vjp`` (F's in
+tensor-core forward and backward of C cannot run here: their TF32
+arithmetic and their tiled algorithm, stated in plain PyTorch in
+emip_tpu_torch/kernels/tf32.py, are held against fp64, the plain version,
+torch.autograd.grad, the Pallas kernel and ``jax.vjp`` (F's in
 tests/test_torch_long.py).
 
 The ``cuda`` tests hold each CUDA kernel, forward and backward, against
@@ -207,6 +208,51 @@ def test_flow_attention_bwd_tiled_walk(l, splits, product):
     assert torch.equal(dq, got[0]) and torch.equal(dk, got[1])
 
 
+@pytest.mark.parametrize("product", ["fp32", "3xtf32"])
+@pytest.mark.parametrize("l,c,splits", [(100, 128, 1), (192, 128, 1),
+                                        (192, 128, 3), (100, 64, 2)])
+def test_flow_attention_fwd_tiled_walk(l, c, splits, product):
+    """The algorithm of the CUDA forward (streamed key tiles of 32 with
+    the online max and sum, a ragged last tile at L = 100, the keys split in chunks merged in order; channel
+    widths 128 and pvt_v2_b0's 64) against the plain version and the JAX
+    Pallas kernel in interpret mode: within 4e-6 of max|ref| (the same
+    fp32 formula summed tile by tile; measured <= 1.8e-6, where the plain
+    version and the JAX kernel differ from each other by up to 6e-7). Its
+    row max and row sum equal attention_row_stats' to fp32 rounding, and
+    fed to the tiled backward they give the grads of
+    torch.autograd.grad."""
+    from emip_tpu.ops.pallas import fused_flow_attention
+    from emip_tpu_torch.kernels import tf32
+
+    rng = np.random.default_rng(90 + l + c)
+    b = 2
+    q = rng.standard_normal((b, l, c)).astype(np.float32)
+    k = rng.standard_normal((b, l, c)).astype(np.float32)
+    v = (rng.standard_normal((b, l, 2)) * 10).astype(np.float32)
+    cot = rng.standard_normal((b, l, 2)).astype(np.float32)
+    want_jax = np.asarray(fused_flow_attention(q, k, v))
+    want = K.fused_flow_attention_reference(_t(q), _t(k), _t(v))
+    got, row_max, row_sum = tf32.attention_fwd_tiled(
+        _t(q), _t(k), _t(v), splits=splits, keep_stats=True,
+        matmul=tf32.matmul_3xtf32 if product == "3xtf32" else torch.matmul)
+    scale = want.abs().max().item()
+    assert (got - want).abs().max().item() <= 4e-6 * scale
+    assert np.abs(got.numpy() - want_jax).max() <= 4e-6 * scale
+    assert torch.equal(got, tf32.attention_fwd_tiled(
+        _t(q), _t(k), _t(v), splits=splits,
+        matmul=tf32.matmul_3xtf32 if product == "3xtf32" else torch.matmul))
+    ref_max, ref_sum = tf32.attention_row_stats(_t(q), _t(k))
+    torch.testing.assert_close(row_max, ref_max, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(row_sum, ref_sum, rtol=1e-5, atol=0)
+    leaves = [_t(a).requires_grad_(True) for a in (q, k, v)]
+    grads = torch.autograd.grad(K.fused_flow_attention_reference(*leaves),
+                                leaves, _t(cot))
+    walk = tf32.attention_bwd_tiled(_t(q), _t(k), _t(v), None, got, row_max,
+                                    row_sum, _t(cot))
+    for name, a, w in zip("qkv", walk, grads):
+        assert (a - w).abs().max().item() <= 1e-5 * w.abs().max().item(), name
+
+
 # ------------------------------------------------------------ kernel D
 
 
@@ -336,12 +382,14 @@ def _gpu_cases():
                   K.fused_dwconv_gelu_reference,
                   (r(2, 22 * 22, 1280), 0.3 * r(3, 3, 1280), 0.1 * r(1280),
                    22, 22)))
-    # kernel C at the 352^2 and 512^2 token counts and at a ragged one
-    # (1000 = 15 tiles of 64 + 40)
-    for l in (1936, 4096, 1000):
+    # kernel C at the forward shapes of chip_smoke.py: the 352^2 and 512^2
+    # propagation, and a ragged token count (1000 = 31 key tiles of 32 + 8)
+    # at both channel widths (pvt_v2_b5's 128, b0's 64)
+    for b, l, c in ((16, 1936, 128), (8, 4096, 128), (2, 1000, 128),
+                    (2, 1000, 64)):
         cases.append(("flow_attention", K.fused_flow_attention,
                       K.fused_flow_attention_reference,
-                      (r(2, l, 128), r(2, l, 128), r(2, l, 2))))
+                      (r(b, l, c), r(b, l, c), r(b, l, 2))))
     cases.append(("convex_upsample", K.convex_upsample,
                   K.convex_upsample_reference,
                   (r(2, 44, 44, 2), r(2, 44, 44, 576), 8)))
@@ -383,9 +431,11 @@ def test_cuda_kernels_match_plain_versions():
         assert K.LAUNCHES[name] == before[name] + 1, name
         assert K.LAUNCHES[name + "_bwd"] == before[name + "_bwd"] + 1, name
         if name == "flow_attention":
-            # no atomics: a second backward gives the same bits
+            # no atomics: a second forward and backward give the same bits
+            assert torch.equal(fn(*dev), got), name
             for a, b in zip(g_got, torch.autograd.grad(got, wrt, cot)):
                 assert torch.equal(a, b), name
+            assert K.LAUNCHES[name] == before[name] + 2
             assert K.LAUNCHES[name + "_bwd"] == before[name + "_bwd"] + 2
         want = ref(*dev)
         g_want = torch.autograd.grad(want, wrt, cot)
@@ -396,12 +446,13 @@ def test_cuda_kernels_match_plain_versions():
             err = (a - b).abs().max().item()
             assert err <= 1e-4 * max(b.abs().max().item(), 1.0), name
     # kernel F: two written slots of three and every slot empty at ragged
-    # tiles (M = 100), the streaming shape and the 512^2 one; the bias
-    # takes no gradient
-    for b, m, slots, empty in ((2, 100, 3, 1), (2, 100, 3, 3), (1, 1936, 5, 1),
-                               (1, 4096, 5, 0)):
+    # tiles (M = 100), the 1- and 4-clip streaming shapes, the 512^2 one,
+    # and pvt_v2_b0's width 64; the bias takes no gradient
+    for b, m, slots, empty, c in ((2, 100, 3, 1, 128), (2, 100, 3, 3, 128),
+                                  (1, 1936, 5, 1, 128), (4, 1936, 5, 0, 128),
+                                  (1, 4096, 5, 0, 128), (2, 100, 3, 1, 64)):
         g = torch.Generator().manual_seed(2)
-        q, k, v = (torch.randn(b, n, 128, generator=g).cuda()
+        q, k, v = (torch.randn(b, n, c, generator=g).cuda()
                    .requires_grad_(True) for n in (m, slots * m, slots * m))
         bias = torch.zeros(b, slots, m)
         bias[:, :empty] = -1e9
@@ -409,12 +460,13 @@ def test_cuda_kernels_match_plain_versions():
         before = dict(K.LAUNCHES)
         got = K.masked_memory_attention(q, k, v, bias)
         assert got.grad_fn is not None
+        assert torch.equal(K.masked_memory_attention(q, k, v, bias), got)
         cot = torch.randn_like(got)
         g_got = torch.autograd.grad(got, (q, k, v), cot, retain_graph=True)
         for a, w in zip(g_got, torch.autograd.grad(got, (q, k, v), cot)):
             assert torch.equal(a, w)  # no atomics: the same bits
         torch.cuda.synchronize()
-        assert K.LAUNCHES["memory_attention"] == before["memory_attention"] + 1
+        assert K.LAUNCHES["memory_attention"] == before["memory_attention"] + 2
         assert (K.LAUNCHES["memory_attention_bwd"]
                 == before["memory_attention_bwd"] + 2)  # and the repeat
         want = K.masked_memory_attention_reference(q, k, v, bias)

@@ -133,6 +133,57 @@ def test_memory_attention_bwd_tiled_walk(valid, splits, product):
     assert dk is None and dv is None and torch.equal(dq, got[0])
 
 
+@pytest.mark.parametrize("product", ["fp32", "3xtf32"])
+@pytest.mark.parametrize("valid,c,splits", [((0, 0), 128, 1), ((1, 1), 128, 1),
+                                            ((3, 3), 128, 1), ((0, 2), 128, 4),
+                                            ((1, 3), 64, 2)])
+def test_memory_attention_fwd_tiled_walk(valid, c, splits, product):
+    """The algorithm of the CUDA forward of the memory read (key tiles of
+    32 with the bias added before the running max, ragged last tiles at
+    M = 100, N = 300, the keys split in chunks merged in order; width 128 and pvt_v2_b0's 64) with no, one and every
+    slot written, against the plain version and the JAX Pallas kernel in
+    interpret mode: within 4e-6 of max|ref| (measured <= 2.0e-6, where the
+    plain version and the JAX kernel differ from each other by up to
+    1.9e-6: sums of ~300 terms in fp32, in other orders). With every
+    slot empty the row max is -1e9 and the result the plain mean of the
+    values. The kept row max and sum equal attention_row_stats' to fp32
+    rounding and give the tiled backward the grads of
+    torch.autograd.grad."""
+    from emip_tpu.ops.pallas.memory_attention import masked_memory_attention
+    from emip_tpu_torch.kernels import tf32
+
+    b, m, slots = 2, 100, 3
+    q, k, v, bias, _ = _read_inputs(b, m, slots, c, valid, 700 + sum(valid))
+    cot = np.random.default_rng(4).standard_normal((b, m, c)).astype(
+        np.float32)
+    want_jax = np.asarray(masked_memory_attention(q, k, v, bias))
+    want = K.masked_memory_attention_reference(_t(q), _t(k), _t(v),
+                                               _t(bias))
+    matmul = tf32.matmul_3xtf32 if product == "3xtf32" else torch.matmul
+    got, row_max, row_sum = tf32.attention_fwd_tiled(
+        _t(q), _t(k), _t(v), _t(bias), splits=splits, matmul=matmul,
+        keep_stats=True)
+    assert _relmax(got, want) <= 4e-6
+    assert _relmax(got, want_jax) <= 4e-6
+    if 0 in valid:
+        i = valid.index(0)
+        assert float(row_max[i].max()) == -1e9
+        torch.testing.assert_close(
+            got[i], _t(v)[i].mean(0).expand(m, c), rtol=0, atol=1e-6)
+    ref_max, ref_sum = tf32.attention_row_stats(_t(q), _t(k), _t(bias))
+    torch.testing.assert_close(row_max, ref_max, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(row_sum, ref_sum, rtol=1e-5, atol=0)
+    leaves = [_t(a, True) for a in (q, k, v)]
+    grads = torch.autograd.grad(
+        K.masked_memory_attention_reference(*leaves, _t(bias)), leaves,
+        _t(cot))
+    walk = tf32.attention_bwd_tiled(_t(q), _t(k), _t(v), _t(bias), got,
+                                    row_max, row_sum, _t(cot), res_rows=128,
+                                    stream_rows=32)
+    for name, a, w in zip("qkv", walk, grads):
+        assert _relmax(a, w) <= 1e-5, name
+
+
 @pytest.mark.parametrize("impl", ["xla", "fused"])
 def test_memory_read_and_vjp_match_jax(impl):
     """``memory_read`` on the token-major ring against the JAX package's
