@@ -11,6 +11,10 @@ needs one card and no arguments, and it imports nothing of JAX. In order:
 2. builds the CUDA kernels from ``emip_tpu_torch/csrc`` (one nvcc per
    source, in parallel) and prints the build time;
 3. turns TF32 off for matmuls and cuDNN convolutions (fp32 comparisons);
+   then the 3xTF32 GEMM of kernels A, B, G and H alone at every shape the
+   352^2 train step gives it in B and A, and at two ragged shapes, against
+   the fp64 product and beside ``torch.matmul`` (one log line each; a
+   second call must give the same bits);
 4. kernel phase: each forward kernel A-D and F-J against its plain PyTorch
    version on the same seeded CUDA tensors, at the production shapes of
    the 352^2 path (A at all four PVT stages, B with and without the shift
@@ -36,8 +40,9 @@ needs one card and no arguments, and it imports nothing of JAX. In order:
    grads), with the tolerance stated and CUDA-event times of the backward
    alone; C and F also at the 512^2 train steps' shapes ([4, 4096, 128];
    [1, 4096, 128] x [1, 20480, 128]) and at a small ragged one each (F's
-   with every slot empty), and for both a second call on the same inputs
-   must give the same bits; kernel E against its plain scatter_add_ version
+   with every slot empty); for C, F and the tensor-core backward of A, B,
+   G and H a second call on the same inputs must give the same bits;
+   kernel E against its plain scatter_add_ version
    (density atol and the fraction of occlusion-mask bits that flip); the
    cost of the transpose that read-corr matching hands kernel I and of the
    row statistics kernel C's forward keeps for its backward;
@@ -95,12 +100,14 @@ It prints one JSON line with the nineteen kernels' numbers (per kernel:
 launches in the phase that is its main path, the largest max_abs_err of
 its cases, and ``ms`` / ``plain_ms`` / ``library_ms`` / ``bound_ms`` summed
 over its cases, one call each; ``bound_ms`` is the larger of the case's
-operations over the card's fp32 peak and its bytes over the memory rate,
-``bound_by`` says which; C and F, forward and backward, run their products
-on the tensor cores as 3xTF32, so their ``bound_ms`` takes the operations
-over a third of the TF32 peak (``bound_rate: "tf32x3"``), below which no
-time may lie, and the CUDA cores' figure stands beside it as
-``fp32_bound_ms``),
+operations over the card's peak for them and its bytes over the memory
+rate, ``bound_by`` says which, and no case may take less. Products on the
+CUDA cores count at the fp32 peak; C and F, forward and backward, and the
+backward of A, B, G and H run all theirs on the tensor cores as 3xTF32, at
+a third of the TF32 peak (``bound_rate: "tf32x3"``); the forwards of A, B,
+G and H run their GEMMs there and their attention on the CUDA cores, and
+their bound sums the two (``bound_rate: "mixed"``); such rows carry the
+CUDA cores' figure for all their operations as ``fp32_bound_ms``),
 and as its last line ``{"ok": true, "device":
 {...}}``. Any failure raises and the exit code is non-zero, with no result
 line. Details also go to ``chiprun_out/chip_smoke.json``. ``--kernels
@@ -248,13 +255,29 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 # dense TF32 on the tensor cores; a 3xTF32 product spends three of them
 PEAK_TF32_FLOPS = 495e12
-# the kernels that run their products on the tensor cores as 3xTF32 (C and
-# F, forward and backward): their bound counts the operations at a third of
-# the TF32 peak, and no time may lie below it; the CUDA cores' fp32 figure,
+# the kernels that run all their products on the tensor cores as 3xTF32 (C
+# and F forward and backward; A, B, G and H backward): their bound counts
+# the operations at a third of the TF32 peak; the CUDA cores' fp32 figure,
 # the bound of the other rows and of these before their redesign, stands
-# beside it. Neither uses atomics: a second call must give the same bits
+# beside it. None uses atomics: a second call must give the same bits
 TENSOR_CORE_KERNELS = ("flow_attention", "flow_attention_bwd",
-                       "memory_attention", "memory_attention_bwd")
+                       "memory_attention", "memory_attention_bwd",
+                       "sr_attention_bwd", "window_attention_block_bwd",
+                       "window_attention_layer_bwd",
+                       "window_attention_ffn_layer_bwd")
+# the forwards whose GEMMs run on the tensor cores (3xTF32) and whose
+# attention runs on the CUDA cores (fp32): their bound sums the two
+# products' times at the two rates (bound_rate "mixed")
+MIXED_KERNELS = ("sr_attention", "window_attention_block",
+                 "window_attention_layer", "window_attention_ffn_layer")
+# the 3xTF32 GEMM alone against the fp64 product: max|err| / max|ref| (fp32
+# rounding of sums over up to 61,952 rows)
+GEMM_REL_TOL = 1e-5
+
+
+def bound_rate(name: str) -> str:
+    return ("tf32x3" if name in TENSOR_CORE_KERNELS
+            else "mixed" if name in MIXED_KERNELS else "fp32")
 
 
 def log(msg: str) -> None:
@@ -296,42 +319,48 @@ def alternate_ms(kernel, plain, reps: int) -> tuple[float, float]:
 
 
 def record(results: dict, name: str, label: str, err: float, ms: float,
-           plain_ms: float, work: tuple[float, float],
+           plain_ms: float, work: tuple[float, float, float],
            library_ms: float | None = None, summed: bool = True,
            **extra) -> None:
     """Add one case to its kernel's entry: the largest max_abs_err, and
     ms / plain_ms / library_ms / bound_ms summed over the cases (a case
     with ``summed`` false is listed in ``cases`` and counts in
     max_abs_err, but adds nothing to the sums). ``work`` is the case's
-    (operations, bytes): the bound is the larger of operations over the
-    peak rate (fp32, or 3xTF32 for the tensor-core kernels) and bytes over
-    the memory rate."""
+    (operations on the tensor cores, operations on the CUDA cores, bytes):
+    the bound is the larger of the operations' time (3xTF32 products at a
+    third of the TF32 peak, the others at the fp32 peak) and the bytes'
+    time at the memory rate. No case may take less than its bound. Rows
+    whose products are not all fp32 also carry ``bound_rate`` and the
+    CUDA cores' figure for all their operations, ``fp32_bound_ms``."""
+    tc_ops, cc_ops, nbytes = work
+    rate = bound_rate(name)
     entry = results.setdefault(name, dict(
         max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=None, bound_ms=0.0,
         ops_ms=0.0, bytes_ms=0.0, cases=[]))
-    ops_ms = work[0] / PEAK_FP32_FLOPS * 1e3
-    bytes_ms = work[1] / PEAK_BYTES_PER_S * 1e3
-    if name in TENSOR_CORE_KERNELS:
-        fp32_ms = max(ops_ms, bytes_ms)
-        ops_ms = work[0] / (PEAK_TF32_FLOPS / 3) * 1e3
-        if ms < max(ops_ms, bytes_ms):
-            raise AssertionError(f"{name} ({label}): {ms} ms is below the "
-                                 f"bound {max(ops_ms, bytes_ms)} ms")
+    ops_ms = (tc_ops / (PEAK_TF32_FLOPS / 3) + cc_ops / PEAK_FP32_FLOPS) * 1e3
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    bound = max(ops_ms, bytes_ms)
+    if ms < bound:
+        raise AssertionError(f"{name} ({label}): {ms} ms is below the bound "
+                             f"{bound} ms")
+    fp32_ms = max((tc_ops + cc_ops) / PEAK_FP32_FLOPS * 1e3, bytes_ms)
+    if rate != "fp32":
         entry.setdefault("fp32_bound_ms", 0.0)
-        extra = dict(extra, fp32_bound_ms=fp32_ms, bound_rate="tf32x3")
+        entry["bound_rate"] = rate
+        extra = dict(extra, fp32_bound_ms=fp32_ms, bound_rate=rate)
     entry["max_abs_err"] = max(entry["max_abs_err"], err)
     entry["cases"].append(dict(
         case=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        library_ms=library_ms, bound_ms=max(ops_ms, bytes_ms),
+        library_ms=library_ms, bound_ms=bound,
         bound_by="operations" if ops_ms >= bytes_ms else "bytes",
         **({} if summed else dict(summed=False)), **extra))
     if not summed:
         return
-    if name in TENSOR_CORE_KERNELS:
+    if rate != "fp32":
         entry["fp32_bound_ms"] += fp32_ms
     entry["ms"] += ms
     entry["plain_ms"] += plain_ms
-    entry["bound_ms"] += max(ops_ms, bytes_ms)
+    entry["bound_ms"] += bound
     entry["ops_ms"] += ops_ms
     entry["bytes_ms"] += bytes_ms
     entry["bound_by"] = ("operations" if entry["ops_ms"] >= entry["bytes_ms"]
@@ -400,31 +429,43 @@ def numel(*tensors) -> int:
     return n
 
 
-def forward_work(name: str, args, out) -> tuple[float, float]:
-    """(operations, bytes) one forward call of a kernel must do: the
-    products' multiply-adds counted as 2, every input read and the output
-    written once in fp32."""
-    nbytes = 4.0 * (numel(*args) + out.numel())
+def _window_dims(name: str, args):
+    """(rows, tokens per window, C, F or 0, layers) of a B, G or H call;
+    args as the kernel cases pass them (dicts) or the backward cases
+    (flat parameters)."""
+    x = args[0]
+    rows, tok, c = x.numel() // x.shape[-1], x.shape[-2], x.shape[-1]
+    if name == "window_attention_block":
+        w0 = (args[3]["w0"] if isinstance(args[3], dict)
+              else args[2 + len(WIN_SELF) + WIN_CROSS.index("w0")])
+        return rows, tok, c, w0.shape[0], 2
+    if name == "window_attention_ffn_layer":
+        w0 = args[2]["w0"] if isinstance(args[2], dict) else args[2 + 6]
+        return rows, tok, c, w0.shape[0], 1
+    return rows, tok, c, 0, 1
+
+
+def forward_products(name: str, args) -> tuple[float, float]:
+    """(GEMM operations, attention operations) of one forward call of A, B,
+    G or H, multiply-adds counted as 2."""
     if name == "sr_attention":
         x, kv = args[0], args[1]
         (b, n, c), m = x.shape, kv.shape[1]
-        ops = 2 * b * n * c * c * 2 + 2 * b * m * c * 2 * c + 4 * b * n * m * c
-    elif name == "window_attention_block":
-        x = args[0]
-        rows, tok, c = x.numel() // x.shape[-1], x.shape[-2], x.shape[-1]
-        # the cross layer's dict, or (backward cases) the flat parameters
-        w0 = (args[3]["w0"] if isinstance(args[3], dict)
-              else args[2 + len(WIN_SELF) + WIN_CROSS.index("w0")])
-        f = w0.shape[0]
-        layer = 4 * 2 * rows * c * c + 4 * rows * tok * c
-        ops = 2 * layer + 2 * rows * 2 * c * f + 2 * rows * f * c
-    elif name in ("window_attention_layer", "window_attention_ffn_layer"):
-        x, p = args[0], args[2]
-        rows, tok, c = x.numel() // x.shape[-1], x.shape[-2], x.shape[-1]
-        ops = 4 * 2 * rows * c * c + 4 * rows * tok * c
-        if name == "window_attention_ffn_layer":
-            w0 = p["w0"] if isinstance(p, dict) else args[2 + 6]
-            ops += 2 * rows * w0.shape[0] * (2 * c + c)
+        return (2 * b * n * c * c * 2 + 2 * b * m * c * 2 * c,
+                4 * b * n * m * c)
+    rows, tok, c, f, layers = _window_dims(name, args)
+    gemm = layers * 4 * 2 * rows * c * c + 2 * rows * f * (2 * c + c)
+    return gemm, layers * 4 * rows * tok * c
+
+
+def forward_work(name: str, args, out) -> tuple[float, float, float]:
+    """(tensor-core operations, CUDA-core operations, bytes) one forward
+    call of a kernel must do: the products' multiply-adds counted as 2,
+    every input read and the output written once in fp32."""
+    nbytes = 4.0 * (numel(*args) + out.numel())
+    tc = 0
+    if name in MIXED_KERNELS:
+        tc, ops = forward_products(name, args)
     elif name == "softmax_expectation":
         # per corr element: max, exp, sum and two multiply-adds
         ops = args[0].numel() * 8
@@ -433,10 +474,10 @@ def forward_work(name: str, args, out) -> tuple[float, float]:
         ops = args[0].numel() * 28
     elif name == "flow_attention":
         b, l, c = args[0].shape
-        ops = 2 * b * l * l * (c + args[2].shape[-1])
+        tc, ops = 2 * b * l * l * (c + args[2].shape[-1]), 0
     elif name == "memory_attention":
         (b, m, c), n = args[0].shape, args[1].shape[1]
-        ops = 4 * b * m * n * c
+        tc, ops = 4 * b * m * n * c, 0
     elif name == "convex_upsample":
         # per fine pixel: softmax over 9 taps and two 9-term sums
         ops = out.numel() // 2 * (9 * 4 + 9 * 2 * 2)
@@ -444,31 +485,95 @@ def forward_work(name: str, args, out) -> tuple[float, float]:
         ops = args[0].numel() // 2 * 16  # four bilinear corners per pixel
     else:
         raise KeyError(name)
-    return float(ops), nbytes
+    return float(tc), float(ops), nbytes
 
 
-def backward_work(name: str, args, which, out) -> tuple[float, float]:
-    """(operations, bytes) of a backward call. The attention kernels C and
-    F are counted product by product: the scores and dO v^T, which every
-    grad needs (the probabilities are no input, so they are recomputed),
-    and one product per grad asked for. Elsewhere each forward product has
-    two gradient products. Inputs and the cotangent are read once, the
-    grads asked for written once."""
+def _message_bwd_ops(rows: int, tok: int, c: int, want_q: bool,
+                     want_kv: bool, wq: bool, wk: bool, wv: bool,
+                     wm: bool, gxq: bool, gt: bool) -> float:
+    """Products of one attention layer's backward as window_attention.cu's
+    message_bwd computes them: each weight grad only when asked; the
+    attention's scores and dO v^T once, and one product per grad it
+    computes (dq for the q side, dk and dv for the k / v side)."""
+    lin = 2.0 * rows * c * c
+    att = 2.0 * rows * tok * c
+    ops = lin * (wq + wk + wv + wm)
+    if not (want_q or want_kv):
+        return ops
+    ops += lin  # gm Wm
+    ops += att * (2 + want_q + 2 * want_kv)
+    return ops + lin * (gxq + 2 * gt)
+
+
+def backward_work(name: str, args, which, out) -> tuple[float, float, float]:
+    """(tensor-core operations, CUDA-core operations, bytes) of a backward
+    call. Attention is counted product by product as its kernels compute
+    it: the scores and dO v^T, which every grad needs (the probabilities
+    are no input, so they are recomputed), and one product per grad
+    computed. A linear layer costs one input-grad product where its input's
+    grad is needed and one weight-grad product only where that grad is
+    asked for. Inputs and the cotangent are read once, the grads asked for
+    written once. Every backward kernel but D's, E's, I's and J's runs all
+    its products on the tensor cores."""
     base = name.removesuffix("_bwd")
-    ops, _ = forward_work(base, args, out)
-    if base == "memory_attention":
-        ops = ops / 2 * (2 + len(which))
-    elif base == "flow_attention":
-        (b, l, c), dv = args[0].shape, args[2].shape[-1]
-        big, small = 2.0 * b * l * l * c, 2.0 * b * l * l * dv
-        ops = (big + small + big * sum(i in which for i in (0, 1))
-               + small * (2 in which))
-    else:
-        ops = 2.0 * ops
     flat = list(args)
     nbytes = 4.0 * (numel(*args) + out.numel()
                     + numel(*(flat[i] for i in which)))
-    return float(ops), nbytes
+    w = set(which)
+    if base == "memory_attention":
+        (b, m, c), n = args[0].shape, args[1].shape[1]
+        return 2.0 * b * m * n * c * (2 + len(which)), 0.0, nbytes
+    if base == "flow_attention":
+        (b, l, c), dv = args[0].shape, args[2].shape[-1]
+        big, small = 2.0 * b * l * l * c, 2.0 * b * l * l * dv
+        return (big + small + big * sum(i in w for i in (0, 1))
+                + small * (2 in w)), 0.0, nbytes
+    if base == "sr_attention":
+        x, kv = args[0], args[1]
+        (b, n, c), m = x.shape, kv.shape[1]
+        want_q, want_kv = bool(w & {0, 2, 3}), bool(w & {1, 4, 5})
+        q_lin, kv_lin = 2.0 * b * n * c * c, 2.0 * b * m * 2 * c * c
+        att = 2.0 * b * n * m * c
+        ops = q_lin * (6 in w)  # Wp grad
+        if want_q or want_kv:
+            ops += q_lin  # g Wp
+            ops += att * (2 + want_q + 2 * want_kv)
+            ops += q_lin * ((2 in w) + (0 in w))
+            ops += kv_lin * ((4 in w) + (1 in w))
+        return ops, 0.0, nbytes
+    if base in ("window_attention_layer", "window_attention_ffn_layer",
+                "window_attention_block"):
+        rows, tok, c, f, _ = _window_dims(base, args)
+        gx, gt = 0 in w, 1 in w
+        if base == "window_attention_layer":
+            p = {k: 2 + i in w for i, k in enumerate(WIN_SELF)}
+            return _message_bwd_ops(
+                rows, tok, c, gx or p["wq"], gt or p["wk"] or p["wv"],
+                p["wq"], p["wk"], p["wv"], p["wm"], gx, gt), 0.0, nbytes
+        off = 2 + (len(WIN_SELF) if base == "window_attention_block" else 0)
+        cp = {k: off + i in w for i, k in enumerate(WIN_CROSS)}
+        # the FFN: gh = gz W2 (GELU' fused), g_cat = gh W0 in two halves
+        ffn = 2.0 * rows * c * f
+        # (B forms the grad of x1 = the FFN's x whatever is asked)
+        ops = ffn * (cp["w2"] + 2 * cp["w0"] + 2
+                     + (gx or base == "window_attention_block"))
+        if base == "window_attention_ffn_layer":
+            return ops + _message_bwd_ops(
+                rows, tok, c, gx or cp["wq"], gt or cp["wk"] or cp["wv"],
+                cp["wq"], cp["wk"], cp["wv"], cp["wm"], gx, gt), 0.0, nbytes
+        # B: the cross layer (q from x1, whose grad is always formed), then
+        # the self layer (q, k and v from x)
+        sp = {k: 2 + i in w for i, k in enumerate(WIN_SELF)}
+        ops += _message_bwd_ops(rows, tok, c, True,
+                                gt or cp["wk"] or cp["wv"], cp["wq"],
+                                cp["wk"], cp["wv"], cp["wm"], True, gt)
+        ops += _message_bwd_ops(rows, tok, c, gx or sp["wq"],
+                                gx or sp["wk"] or sp["wv"], sp["wq"],
+                                sp["wk"], sp["wv"], sp["wm"], gx, gx)
+        return ops, 0.0, nbytes
+    # D, E, I, J: two gradient products per forward product
+    tc, cc, _ = forward_work(base, args, out)
+    return 0.0, 2.0 * (tc + cc), nbytes
 
 
 # ------------------------------------------------------------ kernels
@@ -920,6 +1025,85 @@ def backward_phase(batch: int, device, reps: int, only: str = "") -> dict:
     if wanted(only, "splat_density"):
         splat_case(results, batch, device, reps)
     return results
+
+
+def gemm_shapes(batch: int) -> list:
+    """(label, M, K, N, form) of every GEMM kernels B and A run on the 352^2
+    train step, and two ragged checks. form: "x W^T" (a row-major, b a
+    Linear weight read transposed), "dy W" (both row-major; "dy W0" reads
+    half of W0's columns), "dY^T X" (a read transposed, K split: a weight
+    gradient over all rows)."""
+    rows, c, f = 2 * batch * 4 * 484, 128, 1024
+    shapes = [("B q k v m", rows, c, c, "x W^T"),
+              ("B cat W0^T", rows, 2 * c, f, "x W^T"),
+              ("B u W2^T", rows, f, c, "x W^T"),
+              ("B gm Wm", rows, c, c, "dy W"),
+              ("B gz W2", rows, c, f, "dy W"),
+              ("B gh W0", rows, f, c, "dy W0"),
+              ("B dWq", c, rows, c, "dY^T X"),
+              ("B dW2", c, rows, f, "dY^T X"),
+              ("B dW0", f, rows, 2 * c, "dY^T X")]
+    for n, m, c, _ in SR_STAGES:
+        bn, bm = batch * n, batch * m
+        shapes += [(f"A N={n} q proj", bn, c, c, "x W^T"),
+                   (f"A N={n} kv", bm, c, 2 * c, "x W^T"),
+                   (f"A N={n} g Wp", bn, c, c, "dy W"),
+                   (f"A N={n} gkv Wkv", bm, 2 * c, c, "dy W"),
+                   (f"A N={n} dWq", c, bn, c, "dY^T X"),
+                   (f"A N={n} dWkv", 2 * c, bm, c, "dY^T X")]
+    # rows of 90 floats (4-byte copies) and ragged M, N, K tiles
+    shapes += [("check ragged", 1000, 90, 70, "x W^T"),
+               ("check ragged dW", 70, 999, 90, "dY^T X")]
+    return shapes
+
+
+def gemm_phase(batch: int, device, reps: int) -> dict:
+    """The 3xTF32 GEMM alone at each shape kernels B and A give it: the
+    error of it and of ``torch.matmul`` (fp32, TF32 off) against the fp64
+    product, their times in turns, and the bound at the 3xTF32 rate. One
+    log line per shape; not part of the result line."""
+    import torch
+
+    from emip_tpu_torch.kernels.gemm import gemm
+
+    r = seeded_randn(SEED + 21, device)
+    out = {}
+    for label, m, k, n, form in gemm_shapes(batch):
+        if form == "x W^T":
+            a, b = r(m, k), r(n, k).T
+        elif form == "dy W":
+            a, b = r(m, k), r(k, n)
+        elif form == "dy W0":
+            a, b = r(m, k), r(k, 2 * n)[:, :n]
+        else:
+            a, b = r(k, m).T, r(k, n)
+        split = form == "dY^T X"
+        got = gemm(a, b, split_k=split)
+        ref = a.double() @ b.double()
+        scale = ref.abs().max().item()
+        err = (got.double() - ref).abs().max().item() / scale
+        mm_err = ((a @ b).double() - ref).abs().max().item() / scale
+        if not torch.equal(gemm(a, b, split_k=split), got):
+            raise AssertionError(f"gemm ({label}): two calls differ")
+        del ref
+        ms, mm_ms = alternate_ms(lambda: gemm(a, b, split_k=split),
+                                 lambda: a @ b, reps)
+        ops = 2.0 * m * n * k
+        bound = max(ops / (PEAK_TF32_FLOPS / 3),
+                    4.0 * (m * k + k * n + m * n) / PEAK_BYTES_PER_S) * 1e3
+        ok = err <= GEMM_REL_TOL and ms >= bound
+        log(f"gemm {label:20s} {form:7s} [{m},{k}]x[{k},{n}] "
+            f"rel_err={err:.2e} (matmul {mm_err:.2e}, tol {GEMM_REL_TOL}) "
+            f"ms={ms:.4f} matmul_ms={mm_ms:.4f} bound_ms={bound:.4f} "
+            f"{ops / ms / 1e9:.1f} TFLOP/s {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            raise AssertionError(f"gemm ({label}): rel_err={err}, "
+                                 f"ms={ms} against bound {bound}")
+        out[label] = dict(m=m, k=k, n=n, form=form, rel_err=err,
+                          matmul_rel_err=mm_err, ms=ms, matmul_ms=mm_ms,
+                          bound_ms=bound)
+        del a, b, got
+    return out
 
 
 def splat_case(results: dict, batch: int, device, reps: int) -> None:
@@ -1920,11 +2104,14 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     if opts.kernels is not None:
+        if wanted(opts.kernels, "gemm"):
+            gemm_phase(BATCH, device, KERNEL_REPS)
         kernel_phase(BATCH, device, KERNEL_REPS, opts.kernels)
         backward_phase(BATCH, device, KERNEL_REPS, opts.kernels)
         if wanted(opts.kernels, "flow_attention"):
             stats_cost(BATCH, device, KERNEL_REPS)
         return 0
+    gemm_res = gemm_phase(BATCH, device, KERNEL_REPS)
     kernels = kernel_phase(BATCH, device, KERNEL_REPS)
     kernels.update(backward_phase(BATCH, device, KERNEL_REPS))
     transpose_ms = transpose_cost(BATCH, device, KERNEL_REPS)
@@ -2008,12 +2195,13 @@ def main(argv=None) -> int:
              bound_by=kernels[name]["bound_by"],
              library_ms=kernels[name]["library_ms"],
              **({"fp32_bound_ms": kernels[name]["fp32_bound_ms"],
-                 "bound_rate": "tf32x3"}
-                if name in TENSOR_CORE_KERNELS else {}))
+                 "bound_rate": kernels[name]["bound_rate"]}
+                if "bound_rate" in kernels[name] else {}))
         for name in KERNEL_INFO]}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump(dict(card=card, kernels=kernels, slice=slice_res,
+        json.dump(dict(card=card, gemm=gemm_res, kernels=kernels,
+                       slice=slice_res,
                        train=train_res, train_compare=compare_res,
                        entry=entry_res, long_infer=long_infer,
                        long_train_compare=long_compare,

@@ -114,12 +114,12 @@ extern "C" int emip_flow_attention_bwd(const float* q, const float* k,
   cudaError_t err;
   if (C == 128)
     err = attention_bwd_tc<128, 2, kFlowBwdWarps, kFlowBwdMt, kFlowBwdStr>(
-        qo, ko, vo, oo, go, nullptr, stats, row_sum, dqg, dkg, dvg, B, L, L,
-        scale, w, s);
+        qo, ko, vo, oo, go, nullptr, nullptr, 1, stats, row_sum, dqg, dkg,
+        dvg, B, 1, L, L, scale, w, s);
   else if (C == 64)
     err = attention_bwd_tc<64, 2, kFlowBwdWarps, kFlowBwdMt, kFlowBwdStr>(
-        qo, ko, vo, oo, go, nullptr, stats, row_sum, dqg, dkg, dvg, B, L, L,
-        scale, w, s);
+        qo, ko, vo, oo, go, nullptr, nullptr, 1, stats, row_sum, dqg, dkg,
+        dvg, B, 1, L, L, scale, w, s);
   else
     return (int)cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;

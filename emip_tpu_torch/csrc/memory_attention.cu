@@ -112,12 +112,12 @@ extern "C" int emip_memory_attention_bwd(
   cudaError_t err;
   if (C == 128)
     err = attention_bwd_tc<128, 128, kMemBwdWarps, kMemBwdMt, kMemBwdStr>(
-        qo, ko, vo, oo, go, bias, stats, row_sum, dqg, dkg, dvg, B, M, N,
-        scale, w, s);
+        qo, ko, vo, oo, go, bias, nullptr, 1, stats, row_sum, dqg, dkg, dvg,
+        B, 1, M, N, scale, w, s);
   else if (C == 64)
     err = attention_bwd_tc<64, 64, kMemBwdWarps, kMemBwdMt, kMemBwdStr>(
-        qo, ko, vo, oo, go, bias, stats, row_sum, dqg, dkg, dvg, B, M, N,
-        scale, w, s);
+        qo, ko, vo, oo, go, bias, nullptr, 1, stats, row_sum, dqg, dkg, dvg,
+        B, 1, M, N, scale, w, s);
   else
     return (int)cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;

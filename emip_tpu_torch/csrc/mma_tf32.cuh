@@ -1,9 +1,13 @@
-// Tensor-core tile core of the port's flash-style attention kernels: fp32-
-// grade products as three TF32 products ("3xTF32"), tiles staged through
-// shared memory with asynchronous copies, and the attention forward and
-// backward built on both. flow_attention.cu (kernel C, value width 2, key
-// width 128 or 64) and memory_attention.cu (kernel F, value and key width
-// 128 or 64, additive key bias) instantiate them.
+// Tensor-core tile core of the port's kernels: fp32-grade products as three
+// TF32 products ("3xTF32"), tiles staged through shared memory with
+// asynchronous copies, and the flash-style attention forward and backward
+// built on both. flow_attention.cu (kernel C, value width 2, key width 128
+// or 64) and memory_attention.cu (kernel F, value and key width 128 or 64,
+// additive key bias) instantiate the forward and the backward;
+// window_attention.cu (kernels B, G, H: width 128 or 64, the shifted-window
+// mask) and sr_attention.cu (kernel A: heads of width 64 or 32) the
+// backward. The GEMM of kernels A, B, G and H (gemm_tf32.cuh) is built on
+// the same 3xTF32 products and copies.
 //
 //   tf32_split       x = hi + lo with hi = tf32(x) (rounded as cvt.rna does)
 //                    and lo = tf32(x - hi) (truncated by the tensor core): hi
@@ -54,9 +58,20 @@
 //                    the card idle, or its last wave mostly empty, the keys
 //                    are split across blocks; a further launch merges the
 //                    normalised partials in order by their max and sum.
-//   attention_bwd_tc dq, dk, dv of the same from the row max and row sum the
-//                    forward kept. Two passes, each a grid of blocks that
-//                    own WARPS x MT x 16 rows of one side (kept in shared
+//   attention_bwd_tc dq, dk, dv of softmax(q k^T scale + bias + mask) v
+//                    from the row max and row sum the forward kept. Batch
+//                    row z = b H + h is head h of batch b, read at column
+//                    h x width of [B, N, H x width] operands (kernel A's
+//                    q and [k | v] buffers); the additive mask [mask_nw, Nq,
+//                    Nk] (the shifted-window mask of kernels B, G, H: 3.7
+//                    MiB at T = 484, 16 MiB at T = 1024, so it sits in L2)
+//                    is read from global memory into registers at the top
+//                    of each streamed tile, before the tile's products, and
+//                    added to the score fragments (transposed in the
+//                    key-tiled pass); staging it in shared memory beside k
+//                    and v would not fit the 128-wide tiling (203 KiB
+//                    already). Two passes, each a grid of blocks that own
+//                    WARPS x MT x 16 rows of one side (kept in shared
 //                    memory) and stream the other side through the same
 //                    ring of stages:
 //                      query-tiled:  S = q k^T, dP = dO v^T,
@@ -69,16 +84,18 @@
 //                    wave mostly empty, splits its streamed side across
 //                    blocks; the partials are summed in order by a further
 //                    launch. No atomics and no [queries, keys] array in
-//                    device memory. With DV = 2 the products with v and dO
-//                    run on the CUDA cores (two terms each). Any grad may be
-//                    left out.
+//                    device memory. Columns at or past Nk are masked
+//                    explicitly (a zero-filled key row scores 0, not
+//                    -inf). With DV = 2 the products with v and dO run on
+//                    the CUDA cores (two terms each). Any grad may be left
+//                    out.
 //
 // No kernel here uses atomics: a second call gives the same bits. The widths
-// are template parameters; instantiated today: D = DV = 128 or 64 (kernel
-// F) and D = 128 or 64 with DV = 2 (kernel C); 128 is pvt_v2_b5's GMFlow
-// feature width, 64 b0's. D = DV = 128 also fits the window
-// attention of kernels B, G, H and D = DV = 64 or 32 kernel A's (their
-// masks and heads are not handled here yet).
+// are template parameters; instantiated: the forward at D = DV = 128 or 64
+// (kernel F) and D = 128 or 64 with DV = 2 (kernel C); the backward at
+// those and at D = DV = 64 or 32 with heads (kernel A), D = DV = 128 or 64
+// with the mask (kernels B, G, H). 128 is pvt_v2_b5's GMFlow feature width,
+// 64 b0's; 64 and 32 are the two backbones' PVT head widths.
 
 #pragma once
 
@@ -90,6 +107,19 @@ namespace emip {
 namespace {
 
 constexpr int kTcKUnroll = 2;  // k-steps of a product unrolled together
+
+// Row n of batch row b (and, with heads, head h) of an operand lies at
+// p[b * sb + n * sn + h * width], width being the operand's head width.
+struct AttnOperand {
+  const float* p;
+  long long sb;
+  int sn;
+};
+struct AttnGrad {
+  float* p;  // null: not wanted
+  long long sb;
+  int sn;
+};
 
 // ------------------------------------------------------------ 3xTF32
 
@@ -650,38 +680,61 @@ cudaError_t attention_fwd_tc(AttnOperand q, AttnOperand k, AttnOperand v,
 
 // ------------------------------------------------ attention backward
 
-// Row n of batch row b of an operand lies at p[b * sb + n * sn]. row_max,
-// row_sum (the forward's) and delta = rowsum(dO o out) are [B, Nq]; bias is
-// [B, Nk] or null. part_a / part_b: partials of a split pass.
+// Batch row z = b * H + h is head h of batch b: its row n of q, k (and dq,
+// dk) lies at p[b * sb + n * sn + h * D], of v, dO (and dv) at ... + h * DV.
+// row_max, row_sum (the forward's) and delta = rowsum(dO o out) are [B * H,
+// Nq]; bias is [B, Nk] or null; mask is [mask_nw, Nq, Nk] or null, batch b
+// reading mask[b % mask_nw]. part_a / part_b: partials of a split pass.
 struct TcBwdArgs {
   AttnOperand q, k, v, go;
   const float* bias;
+  const float* mask;
+  int mask_nw;
   const float* row_max;
   const float* row_sum;
   const float* delta;
   AttnGrad dq, dk, dv;
   float* part_a;
   float* part_b;
-  int B, Nq, Nk;
+  int B, H, Nq, Nk;
   float scale;
   int tiles_per_split;
 };
 
-// delta[b, n] = sum_c x[b, n, c] * y[b, n, c]; one warp per row.
+// delta[b * H + h, n] = sum_c x[b, n, h * W + c] * y[b, n, h * W + c]; one
+// warp per row.
 template <int W>
-__global__ void rowdot_kernel(AttnOperand x, AttnOperand y, int B, int rows,
-                              float* __restrict__ out) {
+__global__ void rowdot_kernel(AttnOperand x, AttnOperand y, int BH, int H,
+                              int rows, float* __restrict__ out) {
   const long long r =
       (long long)blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
-  if (r >= (long long)B * rows) return;
+  if (r >= (long long)BH * rows) return;
   const int lane = threadIdx.x % 32;
-  const int b = (int)(r / rows), n = (int)(r % rows);
-  const float* xr = x.p + b * x.sb + (long long)n * x.sn;
-  const float* yr = y.p + b * y.sb + (long long)n * y.sn;
+  const int z = (int)(r / rows), n = (int)(r % rows);
+  const int b = z / H, h = z % H;
+  const float* xr = x.p + b * x.sb + (long long)n * x.sn + (long long)h * W;
+  const float* yr = y.p + b * y.sb + (long long)n * y.sn + (long long)h * W;
   float s = 0.f;
   for (int c = lane; c < W; c += 32) s = fmaf(xr[c], yr[c], s);
   s = warp_sum(s);
   if (lane == 0) out[r] = s;
+}
+
+// dst(b, n, h * width + col) = sum over the splits of part[split][b * H +
+// h][n][col], the splits in order.
+__global__ void split_reduce_kernel(const float* __restrict__ part,
+                                    int splits, int BH, int H, int rows,
+                                    int width, AttnGrad dst) {
+  const long long per = (long long)BH * rows * width;
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= per) return;
+  float s = 0.f;
+  for (int z = 0; z < splits; ++z) s += part[z * per + idx];
+  const int col = (int)(idx % width);
+  const long long zn = idx / width;
+  const int n = (int)(zn % rows), z = (int)(zn / rows);
+  const int b = z / H, h = z % H;
+  dst.p[b * dst.sb + (long long)n * dst.sn + (long long)h * width + col] = s;
 }
 
 // acc[m][c][2h], acc[m][c][2h + 1] hold columns 8c + 2t, 8c + 2t + 1 of row
@@ -706,7 +759,7 @@ __device__ __forceinline__ void store_fragments(
 // Query-tiled pass, grid (query tiles, key splits, B): dq = scale * sum over
 // this split's keys of dS k, written to dq with one split and to
 // part_a[split] otherwise.
-template <int D, int DV, int WARPS, int MT, int STR>
+template <int D, int DV, int WARPS, int MT, int STR, bool MASKED>
 __global__ void
 __launch_bounds__(32 * WARPS, (TcBwd<D, DV, WARPS, MT, STR>::kBlocksPerSm))
 attention_bwd_tc_dq_kernel(TcBwdArgs a) {
@@ -721,12 +774,16 @@ attention_bwd_tc_dq_kernel(TcBwdArgs a) {
   const int g = lane / 4, t = lane % 4;
   const int q0 = blockIdx.x * L::kRes;
   const int row0 = q0 + warp * L::kWarpRows;  // this warp's first query
-  const int split = blockIdx.y, splits = gridDim.y, b = blockIdx.z;
-  const float* qp = a.q.p + b * a.q.sb;
-  const float* kp = a.k.p + b * a.k.sb;
-  const float* vp = a.v.p + b * a.v.sb;
-  const float* gp = a.go.p + b * a.go.sb;
+  const int split = blockIdx.y, splits = gridDim.y, z = blockIdx.z;
+  const int b = z / a.H, h = z % a.H;
+  const float* qp = a.q.p + b * a.q.sb + (long long)h * D;
+  const float* kp = a.k.p + b * a.k.sb + (long long)h * D;
+  const float* vp = a.v.p + b * a.v.sb + (long long)h * DV;
+  const float* gp = a.go.p + b * a.go.sb + (long long)h * DV;
   const float* bias = a.bias ? a.bias + (long long)b * a.Nk : nullptr;
+  const float* mask =
+      MASKED && a.mask ? a.mask + (long long)(b % a.mask_nw) * a.Nq * a.Nk
+                       : nullptr;
 
   load_tile_async<D, L::kThreads>(Qs, qp, a.q.sn, q0, a.Nq, L::kRes, tid);
   if constexpr (L::kWide)
@@ -748,22 +805,26 @@ attention_bwd_tc_dq_kernel(TcBwdArgs a) {
     cp_async_commit();
   };
 
-  // this thread's rows: g and g + 8 of each of the warp's fragments
+  // this thread's rows: g and g + 8 of each of the warp's fragments (and,
+  // with a mask, where each row's mask begins; null past Nq)
   float rmax[MT][2], rinv[MT][2], rdel[MT][2], gr[MT][2][2];
+  const float* mrow[MASKED ? MT : 1][2];
 #pragma unroll
   for (int m = 0; m < MT; ++m)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int n = row0 + 16 * m + g + 8 * h;
+    for (int hf = 0; hf < 2; ++hf) {
+      const int n = row0 + 16 * m + g + 8 * hf;
       const bool ok = n < a.Nq;
-      const long long row = (long long)b * a.Nq + n;
-      rmax[m][h] = ok ? a.row_max[row] : 0.f;
-      rinv[m][h] = ok ? 1.0f / a.row_sum[row] : 0.f;
-      rdel[m][h] = ok ? a.delta[row] : 0.f;
-      gr[m][h][0] = gr[m][h][1] = 0.f;
+      const long long row = (long long)z * a.Nq + n;
+      rmax[m][hf] = ok ? a.row_max[row] : 0.f;
+      rinv[m][hf] = ok ? 1.0f / a.row_sum[row] : 0.f;
+      rdel[m][hf] = ok ? a.delta[row] : 0.f;
+      if constexpr (MASKED)
+        mrow[m][hf] = mask && ok ? mask + (long long)n * a.Nk : nullptr;
+      gr[m][hf][0] = gr[m][hf][1] = 0.f;
       if (!L::kWide && ok) {
-        gr[m][h][0] = gp[(long long)n * a.go.sn];
-        gr[m][h][1] = gp[(long long)n * a.go.sn + 1];
+        gr[m][hf][0] = gp[(long long)n * a.go.sn];
+        gr[m][hf][1] = gp[(long long)n * a.go.sn + 1];
       }
     }
 
@@ -791,6 +852,25 @@ attention_bwd_tc_dq_kernel(TcBwdArgs a) {
     const float* Vs = Ks + L::kStrTile;
     const float* bias_s = Vs + L::kStrTileV;
     const int k0 = tile * STR;
+    // this tile's mask values, read from global memory (L2) before the
+    // products so that the loads overlap them
+    float mv[MASKED ? MT : 1][MASKED ? L::kNT : 1][4];
+    if constexpr (MASKED) {
+      if (mask) {
+#pragma unroll
+        for (int j = 0; j < L::kNT; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int key = k0 + 8 * j + 2 * t + c;
+#pragma unroll
+            for (int m = 0; m < MT; ++m)
+#pragma unroll
+              for (int hf = 0; hf < 2; ++hf)
+                mv[m][j][2 * hf + c] =
+                    mrow[m][hf] && key < a.Nk ? mrow[m][hf][key] : 0.f;
+          }
+      }
+    }
 
     // scores, and with wide values dO v^T beside them
     float prod[L::kProducts][MT][L::kNT][4];
@@ -823,34 +903,37 @@ attention_bwd_tc_dq_kernel(TcBwdArgs a) {
 #pragma unroll
         for (int m = 0; m < MT; ++m)
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int e = 2 * h + c;
-            const float x = sc[m][j][e] * a.scale + bs;
+          for (int hf = 0; hf < 2; ++hf) {
+            const int e = 2 * hf + c;
+            float x = sc[m][j][e] * a.scale + bs;
+            if constexpr (MASKED)
+              if (mask) x += mv[m][j][e];
             const float p =
-                ok ? __expf(x - rmax[m][h]) * rinv[m][h] : 0.f;
+                ok ? __expf(x - rmax[m][hf]) * rinv[m][hf] : 0.f;
             const float d = L::kWide
                                 ? dp[m][j][e]
-                                : fmaf(gr[m][h][0], v0, gr[m][h][1] * v1);
-            sc[m][j][e] = p * (d - rdel[m][h]);
+                                : fmaf(gr[m][hf][0], v0, gr[m][hf][1] * v1);
+            sc[m][j][e] = p * (d - rdel[m][hf]);
           }
       }
     warp_gemm_ak<D, MT, L::kNT, L::kLd>(sc, Ks, g, t, acc);
   }
 
   if (splits == 1)
-    store_fragments<D, MT>(acc, a.dq.p + b * a.dq.sb, a.dq.sn, row0, a.Nq, g,
-                           t, a.scale);
+    store_fragments<D, MT>(acc,
+                           a.dq.p + b * a.dq.sb + (long long)h * D, a.dq.sn,
+                           row0, a.Nq, g, t, a.scale);
   else
     store_fragments<D, MT>(
-        acc, a.part_a + ((long long)split * a.B + b) * a.Nq * D, D, row0,
-        a.Nq, g, t, a.scale);
+        acc, a.part_a + ((long long)split * a.B * a.H + z) * a.Nq * D, D,
+        row0, a.Nq, g, t, a.scale);
 }
 
 // Key-tiled pass, grid (key tiles, query splits, B): over this split's
 // queries dv = sum P^T dO and dk = scale * sum dS^T q, written to dk / dv
 // with one split and to part_a / part_b[split] otherwise. dk or dv may be
 // null (not computed).
-template <int D, int DV, int WARPS, int MT, int STR>
+template <int D, int DV, int WARPS, int MT, int STR, bool MASKED>
 __global__ void
 __launch_bounds__(32 * WARPS, (TcBwd<D, DV, WARPS, MT, STR>::kBlocksPerSm))
 attention_bwd_tc_dkv_kernel(TcBwdArgs a) {
@@ -866,14 +949,19 @@ attention_bwd_tc_dkv_kernel(TcBwdArgs a) {
   const int g = lane / 4, t = lane % 4;
   const int k0 = blockIdx.x * L::kRes;
   const int row0 = k0 + warp * L::kWarpRows;  // this warp's first key
-  const int split = blockIdx.y, splits = gridDim.y, b = blockIdx.z;
-  const float* qp = a.q.p + b * a.q.sb;
-  const float* kp = a.k.p + b * a.k.sb;
-  const float* vp = a.v.p + b * a.v.sb;
-  const float* gp = a.go.p + b * a.go.sb;
-  const float* row_max = a.row_max + (long long)b * a.Nq;
-  const float* row_sum = a.row_sum + (long long)b * a.Nq;
-  const float* delta = a.delta + (long long)b * a.Nq;
+  const int split = blockIdx.y, splits = gridDim.y, z = blockIdx.z;
+  const int b = z / a.H, h = z % a.H;
+  const float* qp = a.q.p + b * a.q.sb + (long long)h * D;
+  const float* kp = a.k.p + b * a.k.sb + (long long)h * D;
+  const float* vp = a.v.p + b * a.v.sb + (long long)h * DV;
+  const float* gp = a.go.p + b * a.go.sb + (long long)h * DV;
+  const float* row_max = a.row_max + (long long)z * a.Nq;
+  const float* row_sum = a.row_sum + (long long)z * a.Nq;
+  const float* delta = a.delta + (long long)z * a.Nq;
+  // the mask is read transposed: column n of key row j at mask[n * Nk + j]
+  const float* mask =
+      MASKED && a.mask ? a.mask + (long long)(b % a.mask_nw) * a.Nq * a.Nk
+                       : nullptr;
   const bool want_k = a.dk.p != nullptr, want_v = a.dv.p != nullptr;
 
   load_tile_async<D, L::kThreads>(Ks, kp, a.k.sn, k0, a.Nk, L::kRes, tid);
@@ -903,14 +991,14 @@ attention_bwd_tc_dkv_kernel(TcBwdArgs a) {
 #pragma unroll
   for (int m = 0; m < MT; ++m)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int key = row0 + 16 * m + g + 8 * h;
+    for (int hf = 0; hf < 2; ++hf) {
+      const int key = row0 + 16 * m + g + 8 * hf;
       const bool ok = key < a.Nk;
-      rbias[m][h] = a.bias && ok ? a.bias[(long long)b * a.Nk + key] : 0.f;
-      vr[m][h][0] = vr[m][h][1] = dvp[m][h][0] = dvp[m][h][1] = 0.f;
+      rbias[m][hf] = a.bias && ok ? a.bias[(long long)b * a.Nk + key] : 0.f;
+      vr[m][hf][0] = vr[m][hf][1] = dvp[m][hf][0] = dvp[m][hf][1] = 0.f;
       if (!L::kWide && ok) {
-        vr[m][h][0] = vp[(long long)key * a.v.sn];
-        vr[m][h][1] = vp[(long long)key * a.v.sn + 1];
+        vr[m][hf][0] = vp[(long long)key * a.v.sn];
+        vr[m][hf][1] = vp[(long long)key * a.v.sn + 1];
       }
     }
 
@@ -944,6 +1032,27 @@ attention_bwd_tc_dkv_kernel(TcBwdArgs a) {
     const float* sum_s = max_s + STR;
     const float* del_s = sum_s + STR;
     const int n0 = tile * STR;
+    // this tile's mask values (transposed), read before the products
+    float mv[MASKED ? MT : 1][MASKED ? L::kNT : 1][4];
+    if constexpr (MASKED) {
+      if (mask) {
+#pragma unroll
+        for (int j = 0; j < L::kNT; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int n = n0 + 8 * j + 2 * t + c;
+            const float* mcol = mask + (long long)n * a.Nk;
+#pragma unroll
+            for (int m = 0; m < MT; ++m)
+#pragma unroll
+              for (int hf = 0; hf < 2; ++hf) {
+                const int key = row0 + 16 * m + g + 8 * hf;
+                mv[m][j][2 * hf + c] =
+                    n < a.Nq && key < a.Nk ? mcol[key] : 0.f;
+              }
+          }
+      }
+    }
 
     // transposed tiles: rows are this warp's keys, columns the queries
     float prod[2][MT][L::kNT][4];
@@ -977,18 +1086,20 @@ attention_bwd_tc_dkv_kernel(TcBwdArgs a) {
 #pragma unroll
         for (int m = 0; m < MT; ++m)
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int e = 2 * h + c;
-            const float x = pt[m][j][e] * a.scale + rbias[m][h];
+          for (int hf = 0; hf < 2; ++hf) {
+            const int e = 2 * hf + c;
+            float x = pt[m][j][e] * a.scale + rbias[m][hf];
+            if constexpr (MASKED)
+              if (mask) x += mv[m][j][e];
             const float p = ok ? __expf(x - mx) * inv : 0.f;
             const float d = L::kWide
                                 ? ds[m][j][e]
-                                : fmaf(vr[m][h][0], g0, vr[m][h][1] * g1);
+                                : fmaf(vr[m][hf][0], g0, vr[m][hf][1] * g1);
             pt[m][j][e] = p;
             ds[m][j][e] = p * (d - dl);
             if (!L::kWide) {
-              dvp[m][h][0] = fmaf(p, g0, dvp[m][h][0]);
-              dvp[m][h][1] = fmaf(p, g1, dvp[m][h][1]);
+              dvp[m][hf][0] = fmaf(p, g0, dvp[m][hf][0]);
+              dvp[m][hf][1] = fmaf(p, g1, dvp[m][hf][1]);
             }
           }
       }
@@ -1002,12 +1113,12 @@ attention_bwd_tc_dkv_kernel(TcBwdArgs a) {
   float* dst_v;
   long long sn_k, sn_v;
   if (splits == 1) {
-    dst_k = want_k ? a.dk.p + b * a.dk.sb : nullptr;
-    dst_v = want_v ? a.dv.p + b * a.dv.sb : nullptr;
+    dst_k = want_k ? a.dk.p + b * a.dk.sb + (long long)h * D : nullptr;
+    dst_v = want_v ? a.dv.p + b * a.dv.sb + (long long)h * DV : nullptr;
     sn_k = a.dk.sn;
     sn_v = a.dv.sn;
   } else {
-    const long long slot = (long long)split * a.B + b;
+    const long long slot = (long long)split * a.B * a.H + z;
     dst_k = want_k ? a.part_a + slot * a.Nk * D : nullptr;
     dst_v = want_v ? a.part_b + slot * a.Nk * DV : nullptr;
     sn_k = D;
@@ -1023,92 +1134,96 @@ attention_bwd_tc_dkv_kernel(TcBwdArgs a) {
 #pragma unroll
     for (int m = 0; m < MT; ++m)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
+      for (int hf = 0; hf < 2; ++hf) {
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
-          dvp[m][h][c] += __shfl_xor_sync(0xffffffffu, dvp[m][h][c], 1);
-          dvp[m][h][c] += __shfl_xor_sync(0xffffffffu, dvp[m][h][c], 2);
+          dvp[m][hf][c] += __shfl_xor_sync(0xffffffffu, dvp[m][hf][c], 1);
+          dvp[m][hf][c] += __shfl_xor_sync(0xffffffffu, dvp[m][hf][c], 2);
         }
-        const int key = row0 + 16 * m + g + 8 * h;
+        const int key = row0 + 16 * m + g + 8 * hf;
         if (t == 0 && key < a.Nk)
           *reinterpret_cast<float2*>(dst_v + key * sn_v) =
-              make_float2(dvp[m][h][0], dvp[m][h][1]);
+              make_float2(dvp[m][hf][0], dvp[m][hf][1]);
       }
   }
 }
 
-// dq, dk, dv (each may be null) of softmax(q k^T scale + bias) v. o is the
-// forward's output, go its gradient, row_max / row_sum [B, Nq] its row
-// statistics. q, go, dq: [B, Nq, .]; k, v, dk, dv: [B, Nk, .].
-template <int D, int DV, int WARPS, int MT, int STR>
+// dq, dk, dv (each may be null) of softmax(q k^T scale + bias + mask) v
+// per head. o is the forward's output, go its gradient, row_max / row_sum
+// [B * H, Nq] its row statistics. q, go, dq: [B, Nq, H * .]; k, v, dk, dv:
+// [B, Nk, H * .]; bias [B, Nk] or null; mask [mask_nw, Nq, Nk] or null,
+// read only by the MASKED instantiations (the others take no mask: its
+// registers would make C's tiling spill).
+template <int D, int DV, int WARPS, int MT, int STR, bool MASKED = false>
 cudaError_t attention_bwd_tc(AttnOperand q, AttnOperand k, AttnOperand v,
                              AttnOperand o, AttnOperand go, const float* bias,
+                             const float* mask, int mask_nw,
                              const float* row_max, const float* row_sum,
                              AttnGrad dq, AttnGrad dk, AttnGrad dv, int B,
-                             int Nq, int Nk, float scale, Workspace ws,
+                             int H, int Nq, int Nk, float scale, Workspace ws,
                              cudaStream_t stream) {
   using L = TcBwd<D, DV, WARPS, MT, STR>;
-  const long long rows = (long long)B * Nq;
+  if (mask && !MASKED) return cudaErrorInvalidValue;
+  const int BH = B * H;
+  const long long rows = (long long)BH * Nq;
   float* delta = ws.take(rows);
   if (!delta) return cudaErrorInvalidValue;
   rowdot_kernel<DV>
-      <<<ceil_div(rows, 8), 256, 0, stream>>>(go, o, B, Nq, delta);
+      <<<ceil_div(rows, 8), 256, 0, stream>>>(go, o, BH, H, Nq, delta);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   TcBwdArgs a;
   a.q = q; a.k = k; a.v = v; a.go = go;
   a.bias = bias;
+  a.mask = mask; a.mask_nw = mask_nw;
   a.row_max = row_max; a.row_sum = row_sum; a.delta = delta;
   a.dq = dq; a.dk = dk; a.dv = dv;
   a.part_a = a.part_b = nullptr;
-  a.B = B; a.Nq = Nq; a.Nk = Nk;
+  a.B = B; a.H = H; a.Nq = Nq; a.Nk = Nk;
   a.scale = scale;
   const int slots = kSmCount * L::kBlocksPerSm;
 
   if (dq.p) {
     const int res_tiles = ceil_div(Nq, L::kRes);
     const int splits =
-        tc_splits((long long)res_tiles * B, slots, ceil_div(Nk, STR),
+        tc_splits((long long)res_tiles * BH, slots, ceil_div(Nk, STR),
                   rows * D, ws.n, &a.tiles_per_split);
     if (splits > 1) a.part_a = ws.p;  // free again after the sum below
     err = cudaFuncSetAttribute(
-        attention_bwd_tc_dq_kernel<D, DV, WARPS, MT, STR>,
+        attention_bwd_tc_dq_kernel<D, DV, WARPS, MT, STR, MASKED>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
     if (err != cudaSuccess) return err;
-    attention_bwd_tc_dq_kernel<D, DV, WARPS, MT, STR>
-        <<<dim3(res_tiles, splits, B), L::kThreads, L::kBytes, stream>>>(a);
+    attention_bwd_tc_dq_kernel<D, DV, WARPS, MT, STR, MASKED>
+        <<<dim3(res_tiles, splits, BH), L::kThreads, L::kBytes, stream>>>(a);
     if (splits > 1)
-      attention_split_reduce_kernel<<<ceil_div(rows * D, 256), 256, 0,
-                                      stream>>>(a.part_a, splits, B, Nq, D,
-                                                dq);
+      split_reduce_kernel<<<ceil_div(rows * D, 256), 256, 0, stream>>>(
+          a.part_a, splits, BH, H, Nq, D, dq);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   if (dk.p || dv.p) {
     const int res_tiles = ceil_div(Nk, L::kRes);
-    const long long keys = (long long)B * Nk;
+    const long long keys = (long long)BH * Nk;
     const int splits =
-        tc_splits((long long)res_tiles * B, slots, ceil_div(Nq, STR),
+        tc_splits((long long)res_tiles * BH, slots, ceil_div(Nq, STR),
                   keys * (D + DV), ws.n, &a.tiles_per_split);
     if (splits > 1) {
       a.part_a = ws.p;
       a.part_b = ws.p + splits * keys * D;
     }
     err = cudaFuncSetAttribute(
-        attention_bwd_tc_dkv_kernel<D, DV, WARPS, MT, STR>,
+        attention_bwd_tc_dkv_kernel<D, DV, WARPS, MT, STR, MASKED>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
     if (err != cudaSuccess) return err;
-    attention_bwd_tc_dkv_kernel<D, DV, WARPS, MT, STR>
-        <<<dim3(res_tiles, splits, B), L::kThreads, L::kBytes, stream>>>(a);
+    attention_bwd_tc_dkv_kernel<D, DV, WARPS, MT, STR, MASKED>
+        <<<dim3(res_tiles, splits, BH), L::kThreads, L::kBytes, stream>>>(a);
     if (splits > 1 && dk.p)
-      attention_split_reduce_kernel<<<ceil_div(keys * D, 256), 256, 0,
-                                      stream>>>(a.part_a, splits, B, Nk, D,
-                                                dk);
+      split_reduce_kernel<<<ceil_div(keys * D, 256), 256, 0, stream>>>(
+          a.part_a, splits, BH, H, Nk, D, dk);
     if (splits > 1 && dv.p)
-      attention_split_reduce_kernel<<<ceil_div(keys * DV, 256), 256, 0,
-                                      stream>>>(a.part_b, splits, B, Nk, DV,
-                                                dv);
+      split_reduce_kernel<<<ceil_div(keys * DV, 256), 256, 0, stream>>>(
+          a.part_b, splits, BH, H, Nk, DV, dv);
     err = cudaGetLastError();
   }
   return err;

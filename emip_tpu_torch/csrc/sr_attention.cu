@@ -7,36 +7,52 @@
 //   o_h = softmax(q_h k_h^T / sqrt(ch)) v_h for every head h (ch = C/heads)
 //   out = concat_h(o_h) Wp^T + bp        [N, C]
 //
-// What bounds it on the card: the q / proj products and the attention are
-// all fp32 FMAs on the CUDA cores (no tensor cores yet), so it is bound by
-// arithmetic, not bytes. At 352^2 every stage has M = 121 keys, so the
-// attention is short: each block streams the 121 keys of one (image, head)
+// What bounds it on the card: arithmetic, not bytes. The q / kv / proj
+// products run as the shared 3xTF32 GEMM on the tensor cores
+// (gemm_tf32.cuh), over all B*N (or B*M) rows at once. The attention
+// forward runs on the CUDA cores (primitives.cuh): at 352^2 every stage
+// has M = 121 keys, so each block streams the 121 keys of one (image, head)
 // through shared memory in four tiles, keeping the softmax online and the
 // [N, M] probabilities out of device memory, as the TPU kernel kept them
-// in VMEM. The sr conv + LayerNorm that produce kv_in stay in PyTorch,
-// as they stayed in XLA. The TPU kernel's one-image-per-grid-step layout
-// is replaced by four launches of the shared building blocks (three tiled
-// GEMMs and one attention), each filling the card with many blocks.
+// in VMEM; where a gradient will be taken it also keeps each row's max and
+// sum (stats [2, B, heads, N]). The sr conv + LayerNorm that produce kv_in
+// stay in PyTorch, as they stayed in XLA. The TPU kernel's
+// one-image-per-grid-step layout is replaced by four launches (three GEMMs
+// and one attention), each filling the card with many blocks.
 //
 // Backward: the TPU kernel walks a sequential grid and carries the weight
 // grads and g_kv_in across its steps. Hopper blocks run in no order, so the
 // weight grads become split-K GEMMs over all B*N (or B*M) rows summed in an
 // ordered second pass, the bias grads ordered column sums, and gx / g_kv_in
-// GEMMs with the weights. The forward keeps q, [k | v] and o (what the
-// backward reads); the attention backward recomputes P from them. At
-// stage 1 there are only B * heads = 8 (image, head) pairs of N = 7744
-// queries over 121 keys, so the key-tiled pass splits the queries across
-// blocks and sums the partial dk, dv in a second, ordered pass.
+// GEMMs with the weights. The attention backward is attention_bwd_tc of
+// mma_tf32.cuh (3xTF32 on the tensor cores) with one batch row per (image,
+// head): it reads q and [k | v] in place at the head's columns and
+// recomputes P from the row statistics the forward kept. Its tiling is 4
+// warps of two 16-row fragments (128 resident rows, so the M = 121 keys of
+// an image's head fit one key tile), streamed tiles of 32, two blocks on an
+// SM. At stage 1 there are only B * heads = 8 (image, head) pairs of N =
+// 7744 queries over 121 keys, so the key-tiled pass splits the queries 16
+// ways (128 blocks) and sums the partial dk, dv in an ordered pass. Grads
+// that are not asked for are not computed: dq only for gx, Wq or bq, dk and
+// dv only for g_kv_in, Wkv or bkv.
 
-#include "primitives.cuh"
+#include "gemm_tf32.cuh"
 
+// the tiling of the attention backward: warps, fragments of 16 resident
+// rows per warp, streamed rows per stage
+constexpr int kSrBwdWarps = 4;
+constexpr int kSrBwdMt = 2;
+constexpr int kSrBwdStr = 32;
+
+// stats [2, B, heads, N] (row max, row sum) may be null (no gradient will
+// be taken).
 extern "C" int emip_sr_attention(const float* x, const float* kv_in,
                                  const float* wq, const float* bq,
                                  const float* wkv, const float* bkv,
                                  const float* wp, const float* bp,
                                  float* q_buf, float* kv_buf, float* o_buf,
-                                 float* out, int B, int N, int M, int C,
-                                 int heads, void* stream) {
+                                 float* stats, float* out, int B, int N,
+                                 int M, int C, int heads, void* stream) {
   using namespace emip;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int ch = C / heads;
@@ -48,29 +64,32 @@ extern "C" int emip_sr_attention(const float* x, const float* kv_in,
   err = attention(ch, ch, q_buf, (long long)N * C, C, kv_buf,
                   (long long)M * 2 * C, 2 * C, kv_buf + C,
                   (long long)M * 2 * C, 2 * C, o_buf, (long long)N * C, C,
-                  nullptr, 1, B, heads, N, M, 1.0f / sqrtf((float)ch), s);
+                  nullptr, 1, B, heads, N, M, 1.0f / sqrtf((float)ch), stats,
+                  s);
   if (err != cudaSuccess) return (int)err;
   if ((err = linear(o_buf, C, wp, bp, out, C, B * N, C, C, false, s)))
     return err;
   return (int)cudaGetLastError();
 }
 
-// g: [B, N, C] gradient of out. q_buf, kv_buf, o_buf: the forward's saved
-// intermediates. Grads whose pointer is null are not computed. go, gq
-// [B, N, C] and gkv [B, M, 2C] are scratch; ws is the split-K / attention
-// workspace.
+// g: [B, N, C] gradient of out. q_buf, kv_buf, o_buf, stats: the forward's
+// saved intermediates and row statistics. Grads whose pointer is null are
+// not computed. go, gq [B, N, C] and gkv [B, M, 2C] are scratch; ws is the
+// split-K / attention workspace.
 extern "C" int emip_sr_attention_bwd(
     const float* x, const float* kv_in, const float* wq, const float* wkv,
     const float* wp, const float* q_buf, const float* kv_buf,
-    const float* o_buf, const float* g, float* gx, float* gkv_in, float* gwq,
-    float* gbq, float* gwkv, float* gbkv, float* gwp, float* gbp, float* go,
-    float* gq, float* gkv, float* ws, long long ws_floats, int B, int N,
-    int M, int C, int heads, void* stream) {
+    const float* o_buf, const float* stats, const float* g, float* gx,
+    float* gkv_in, float* gwq, float* gbq, float* gwkv, float* gbkv,
+    float* gwp, float* gbp, float* go, float* gq, float* gkv, float* ws,
+    long long ws_floats, int B, int N, int M, int C, int heads,
+    void* stream) {
   using namespace emip;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Workspace w{ws, ws_floats};
   const int ch = C / heads;
   const int rq = B * N, rk = B * M;
+  const bool want_q = gx || gwq || gbq, want_kv = gkv_in || gwkv || gbkv;
   cudaError_t err;
 #define EMIP_TRY(call) \
   if ((err = (call)) != cudaSuccess) return (int)err;
@@ -78,16 +97,29 @@ extern "C" int emip_sr_attention_bwd(
   // out = o Wp^T + bp
   EMIP_TRY(weight_grad(g, C, o_buf, C, gwp, C, C, rq, w, s));
   EMIP_TRY(colsum(g, C, rq, C, gbp, w, s));
+  if (!want_q && !want_kv) return (int)cudaGetLastError();
   EMIP_TRY(input_grad(g, C, wp, C, C, go, C, rq, false, s));
 
-  // o = attention(q, k, v)
+  // o = attention(q, k, v), one batch row per (image, head)
   const long long qsb = (long long)N * C, ksb = (long long)M * 2 * C;
-  EMIP_TRY(attention_bwd(
-      ch, ch, AttnOperand{q_buf, qsb, C}, AttnOperand{kv_buf, ksb, 2 * C},
-      AttnOperand{kv_buf + C, ksb, 2 * C}, AttnOperand{o_buf, qsb, C},
-      AttnOperand{go, qsb, C}, AttnGrad{gq, qsb, C},
-      AttnGrad{gkv, ksb, 2 * C}, AttnGrad{gkv + C, ksb, 2 * C}, nullptr, 1,
-      B, heads, N, M, 1.0f / sqrtf((float)ch), w, s));
+  const AttnOperand qo{q_buf, qsb, C}, ko{kv_buf, ksb, 2 * C},
+      vo{kv_buf + C, ksb, 2 * C}, oo{o_buf, qsb, C}, goo{go, qsb, C};
+  const AttnGrad dq{want_q ? gq : nullptr, qsb, C},
+      dk{want_kv ? gkv : nullptr, ksb, 2 * C},
+      dv{want_kv ? gkv + C : nullptr, ksb, 2 * C};
+  const float* row_sum = stats + (long long)B * heads * N;
+  const float scale = 1.0f / sqrtf((float)ch);
+  if (ch == 64)
+    err = attention_bwd_tc<64, 64, kSrBwdWarps, kSrBwdMt, kSrBwdStr>(
+        qo, ko, vo, oo, goo, nullptr, nullptr, 1, stats, row_sum, dq, dk, dv,
+        B, heads, N, M, scale, w, s);
+  else if (ch == 32)
+    err = attention_bwd_tc<32, 32, kSrBwdWarps, kSrBwdMt, kSrBwdStr>(
+        qo, ko, vo, oo, goo, nullptr, nullptr, 1, stats, row_sum, dq, dk, dv,
+        B, heads, N, M, scale, w, s);
+  else
+    err = cudaErrorInvalidValue;
+  if (err != cudaSuccess) return (int)err;
 
   // q = x Wq^T + bq; [k | v] = kv_in Wkv^T + bkv
   EMIP_TRY(weight_grad(gq, C, x, C, gwq, C, C, rq, w, s));

@@ -16,10 +16,11 @@
 //   B    x1 = G(x, x) with the self layer's weights, out = H(x1, t)
 // The [K*K, T, T] shift mask (or none) applies to every attention.
 //
-// What bounds them on the card: fp32 arithmetic. The projections and the
-// FFN (256 -> 1024 -> 128) are ~85% of B's FLOPs and run as the shared
-// tiled GEMM over all B*K*K*T rows at once; the attention runs as the
-// shared flash-style kernel, one block per 32 query rows of one window,
+// What bounds them on the card: arithmetic. The projections and the FFN
+// (256 -> 1024 -> 128) are ~85% of B's FLOPs and run as the shared 3xTF32
+// GEMM on the tensor cores (gemm_tf32.cuh) over all B*K*K*T rows at once;
+// the attention forward runs as the shared flash-style kernel on the CUDA
+// cores (primitives.cuh), one block per 32 query rows of one window,
 // streaming the window's keys through shared memory in tiles of 32. That
 // kernel takes any T: at T = 484 the last key tile is masked by -inf and
 // the last query tile is bounds-checked, T = 1024 is a whole number of
@@ -35,18 +36,34 @@
 //
 // Backward: the TPU kernels recompute the whole layer per window. Here a
 // forward that will be differentiated keeps every intermediate (q/k/v,
-// attention output and pre-LN message of each layer, the concat, the FFN
-// pre-activation h and u = gelu(h), and z = u W2^T; about 0.43 GB for B at
-// R = 30,976 rows), so the backward recomputes only the attention
-// probabilities. Order: LN2 -> W2 -> GELU' (fused into the W2 grad GEMM)
-// -> the split W0 -> message (LN1 -> Wm -> attention backward, k and v
-// from t giving gt) -> for B the residual and the self layer's message.
-// The weight grads are split-K GEMMs and ordered column sums, each only
-// when its pointer is set (GMFlow is frozen on the train path, so only gx
-// and gt are asked for). The inference forward passes one buffer where the
+// attention output, its row max and sum and the pre-LN message of each
+// layer, the concat, the FFN pre-activation h and u = gelu(h), and z = u
+// W2^T; about 0.43 GB for B at R = 30,976 rows), so the backward recomputes
+// only the attention probabilities. Order: LN2 -> W2 -> GELU' (fused into
+// the W2 grad GEMM) -> the split W0 -> message (LN1 -> Wm -> attention
+// backward, k and v from t giving gt) -> for B the residual and the self
+// layer's message.
+// Products that read one input run over the weights stacked in the
+// workspace: gt = [gk | gv] [Wk; Wv], and in B's self layer, where x gives
+// q, k and v, gx += [gq | gk | gv] [Wq; Wk; Wv] (their weight grads
+// likewise). The attention backward is attention_bwd_tc of
+// mma_tf32.cuh (3xTF32 on the tensor cores; 8 warps own 128 rows of one
+// window, the other side streams in tiles of 32; the shifted-window mask is
+// read per tile from L2 into the score fragments): at T = 484 and 64
+// windows each pass is 256 blocks, at T = 1024 and 16 windows 128. The
+// weight grads are split-K GEMMs and ordered column sums, each only when
+// its pointer is set (GMFlow is frozen on the train path, so only gx and gt
+// are asked for); dk and dv are computed only where gt or the k / v weight
+// grads are wanted. The inference forward passes one buffer where the
 // backward would need two.
 
-#include "primitives.cuh"
+#include "gemm_tf32.cuh"
+
+// the tiling of the attention backward: warps, fragments of 16 resident
+// rows per warp, streamed rows per stage
+constexpr int kWinBwdWarps = 8;
+constexpr int kWinBwdMt = 1;
+constexpr int kWinBwdStr = 32;
 
 namespace emip {
 namespace {
@@ -71,10 +88,11 @@ struct LayerGrads {  // each null: not wanted
 };
 
 // m = softmax(xq Wq (t Wk)^T / sqrt(C) + mask) t Wv Wm, the message before
-// its LayerNorm. xq [R, C] with leading dimension ldxq; qkv [R, 3C].
+// its LayerNorm. xq [R, C] with leading dimension ldxq; qkv [R, 3C]; stats
+// [2, windows, T] (the attention's row max and sum) or null.
 cudaError_t message_fwd(const float* xq, int ldxq, const float* t,
                         LayerWeights w, Windows d, float* qkv, float* o,
-                        float* m, cudaStream_t s) {
+                        float* m, float* stats, cudaStream_t s) {
   const int R = d.rows(), C = d.C, C3 = 3 * C;
   const long long wsb = (long long)d.T * C3;  // window stride inside qkv
   cudaError_t err;
@@ -83,42 +101,102 @@ cudaError_t message_fwd(const float* xq, int ldxq, const float* t,
   EMIP_TRY(linear(t, C, w.wv, nullptr, qkv + 2 * C, C3, R, C, C, false, s));
   EMIP_TRY(attention(C, C, qkv, wsb, C3, qkv + C, wsb, C3, qkv + 2 * C, wsb,
                      C3, o, (long long)d.T * C, C, d.mask, d.mask_nw,
-                     d.windows, 1, d.T, d.T, 1.0f / sqrtf((float)C), s));
+                     d.windows, 1, d.T, d.T, 1.0f / sqrtf((float)C), stats,
+                     s));
   return linear(o, C, w.wm, nullptr, m, C, R, C, C, false, s);
 }
 
-// Backward of msg = LN1(m) with m from message_fwd. gmsg [R, C] (leading
-// dimension ldg) is the gradient of msg. Writes the weight grads that are
-// set, gxq (+)= gq Wq if gxq is set, and gt (+)= gk Wk + gv Wv if gt is
-// set. gm, go [R, C] and gqkv [R, 3C] are scratch.
+// Backward of msg = LN1(m) with m from message_fwd (stats its attention's
+// row statistics). gmsg [R, C] (leading dimension ldg) is the gradient of
+// msg. Writes the weight grads that are set, gxq (+)= gq Wq if gxq is set,
+// and gt (+)= gk Wk + gv Wv if gt is set (gt may be gxq, then accumulated
+// onto it). gm, go [R, C] and gqkv [R, 3C] are scratch; the stacked weights
+// and weight grads come from ws.
 cudaError_t message_bwd(const float* xq, int ldxq, const float* t,
                         LayerWeights w, const float* s1, Windows d,
                         const float* qkv, const float* o, const float* m,
-                        const float* gmsg, int ldg, LayerGrads g, float* gxq,
-                        bool accumulate_xq, float* gt, bool accumulate_t,
-                        float* gm, float* go, float* gqkv, float eps,
-                        Workspace ws, cudaStream_t s) {
+                        const float* stats, const float* gmsg, int ldg,
+                        LayerGrads g, float* gxq, bool accumulate_xq,
+                        float* gt, bool accumulate_t, float* gm, float* go,
+                        float* gqkv, float eps, Workspace ws,
+                        cudaStream_t s) {
   const int R = d.rows(), C = d.C, C3 = 3 * C, C2 = 2 * C;
   const long long sb3 = (long long)d.T * C3, sb1 = (long long)d.T * C;
+  const bool want_q = gxq || g.gwq, want_kv = gt || g.gwk || g.gwv;
   cudaError_t err;
   EMIP_TRY(layernorm_bwd(m, C, gmsg, ldg, s1, gm, C, false, g.gs1, g.gb1, R,
                          C, eps, ws, s));
   EMIP_TRY(weight_grad(gm, C, o, C, g.gwm, C, C, R, ws, s));
+  if (!want_q && !want_kv) return cudaSuccess;
   EMIP_TRY(input_grad(gm, C, w.wm, C, C, go, C, R, false, s));
-  EMIP_TRY(attention_bwd(
-      C, C, AttnOperand{qkv, sb3, C3}, AttnOperand{qkv + C, sb3, C3},
-      AttnOperand{qkv + C2, sb3, C3}, AttnOperand{o, sb1, C},
-      AttnOperand{go, sb1, C}, AttnGrad{gqkv, sb3, C3},
-      AttnGrad{gqkv + C, sb3, C3}, AttnGrad{gqkv + C2, sb3, C3}, d.mask,
-      d.mask_nw, d.windows, 1, d.T, d.T, 1.0f / sqrtf((float)C), ws, s));
-  EMIP_TRY(weight_grad(gqkv, C3, xq, ldxq, g.gwq, C, C, R, ws, s));
-  EMIP_TRY(weight_grad(gqkv + C, C3, t, C, g.gwk, C, C, R, ws, s));
-  EMIP_TRY(weight_grad(gqkv + C2, C3, t, C, g.gwv, C, C, R, ws, s));
+  const AttnOperand q{qkv, sb3, C3}, k{qkv + C, sb3, C3},
+      v{qkv + C2, sb3, C3}, oo{o, sb1, C}, goo{go, sb1, C};
+  const AttnGrad dq{want_q ? gqkv : nullptr, sb3, C3},
+      dk{want_kv ? gqkv + C : nullptr, sb3, C3},
+      dv{want_kv ? gqkv + C2 : nullptr, sb3, C3};
+  const float* row_sum = stats + (long long)R;
+  const float scale = 1.0f / sqrtf((float)C);
+  if (C == 128)
+    err = attention_bwd_tc<128, 128, kWinBwdWarps, kWinBwdMt, kWinBwdStr,
+                           true>(
+        q, k, v, oo, goo, nullptr, d.mask, d.mask_nw, stats, row_sum, dq, dk,
+        dv, d.windows, 1, d.T, d.T, scale, ws, s);
+  else if (C == 64)
+    err = attention_bwd_tc<64, 64, kWinBwdWarps, kWinBwdMt, kWinBwdStr,
+                           true>(
+        q, k, v, oo, goo, nullptr, d.mask, d.mask_nw, stats, row_sum, dq, dk,
+        dv, d.windows, 1, d.T, d.T, scale, ws, s);
+  else
+    err = cudaErrorInvalidValue;
+  if (err != cudaSuccess) return err;
+  // q, k and v are one [R, 3C] block of gqkv: the products that share an
+  // input run over the weights stacked in the workspace ([Wk; Wv], and in
+  // the self layer of B, where q, k and v all come from xq = t and gxq is
+  // gt, [Wq; Wk; Wv])
+  const bool self = xq == t && ldxq == C && gxq == gt && gt && accumulate_t;
+  auto stacked = [&](const float* const* wt, int n) -> const float* {
+    float* st = ws.take((long long)n * C * C);
+    for (int i = 0; st && i < n; ++i)
+      if (cudaMemcpyAsync(st + (long long)i * C * C, wt[i],
+                          (long long)C * C * sizeof(float),
+                          cudaMemcpyDeviceToDevice, s) != cudaSuccess)
+        return nullptr;
+    return st;
+  };
+  // weight grads: [dWk; dWv] (self: [dWq; dWk; dWv]) as one product into
+  // the workspace, copied out
+  float* const wgrads[3] = {g.gwq, g.gwk, g.gwv};
+  const bool stack_kv = g.gwk && g.gwv;
+  const int first = self && stack_kv && g.gwq ? 0 : 1;
+  if (stack_kv) {
+    float* dw = ws.take((long long)(3 - first) * C * C);
+    if (!dw) return cudaErrorInvalidValue;
+    EMIP_TRY(weight_grad(gqkv + first * C, C3, t, C, dw, (3 - first) * C, C,
+                         R, ws, s));
+    for (int i = first; i < 3; ++i)
+      EMIP_TRY(cudaMemcpyAsync(wgrads[i], dw + (long long)(i - first) * C * C,
+                               (long long)C * C * sizeof(float),
+                               cudaMemcpyDeviceToDevice, s));
+  } else {
+    EMIP_TRY(weight_grad(gqkv + C, C3, t, C, g.gwk, C, C, R, ws, s));
+    EMIP_TRY(weight_grad(gqkv + C2, C3, t, C, g.gwv, C, C, R, ws, s));
+  }
+  if (first == 1)
+    EMIP_TRY(weight_grad(gqkv, C3, xq, ldxq, g.gwq, C, C, R, ws, s));
+  // input grads
+  if (self) {
+    const float* const wqkv[3] = {w.wq, w.wk, w.wv};
+    const float* st = stacked(wqkv, 3);
+    if (!st) return cudaErrorInvalidValue;
+    return input_grad(gqkv, C3, st, C3, C, gxq, C, R, accumulate_xq, s);
+  }
   if (gxq)
     EMIP_TRY(input_grad(gqkv, C3, w.wq, C, C, gxq, C, R, accumulate_xq, s));
   if (gt) {
-    EMIP_TRY(input_grad(gqkv + C, C3, w.wk, C, C, gt, C, R, accumulate_t, s));
-    EMIP_TRY(input_grad(gqkv + C2, C3, w.wv, C, C, gt, C, R, true, s));
+    const float* const wkv[2] = {w.wk, w.wv};
+    const float* st = stacked(wkv, 2);
+    if (!st) return cudaErrorInvalidValue;
+    EMIP_TRY(input_grad(gqkv + C, C3, st, C2, C, gt, C, R, accumulate_t, s));
   }
   return cudaSuccess;
 }
@@ -179,19 +257,20 @@ cudaError_t ffn_bwd(const float* cat, const float* h, const float* u,
 
 // ------------------------------------------------------------ kernel G
 
-// out = LN1(message(x, t)) (+ x). The backward reads qkv, o and m.
+// out = LN1(message(x, t)) (+ x). The backward reads qkv, o, m and stats
+// ([2, windows, T], null when no gradient will be taken).
 extern "C" int emip_window_layer(
     const float* x, const float* t, const float* wq, const float* wk,
     const float* wv, const float* wm, const float* s1, const float* b1,
     const float* mask, int mask_nw, float* qkv, float* o, float* m,
-    float* out, int windows, int T, int C, int add_residual, float eps,
-    void* stream) {
+    float* stats, float* out, int windows, int T, int C, int add_residual,
+    float eps, void* stream) {
   using namespace emip;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Windows d{windows, T, C, mask, mask_nw};
   cudaError_t err;
   EMIP_TRY(message_fwd(x, C, t, LayerWeights{wq, wk, wv, wm}, d, qkv, o, m,
-                       s));
+                       stats, s));
   layernorm(m, C, add_residual ? x : nullptr, C, s1, b1, out, C, d.rows(), C,
             eps, s);
   return (int)cudaGetLastError();
@@ -204,9 +283,10 @@ extern "C" int emip_window_layer_bwd(
     const float* x, const float* t, const float* wq, const float* wk,
     const float* wv, const float* wm, const float* s1, const float* mask,
     int mask_nw, const float* qkv, const float* o, const float* m,
-    const float* g, float* gx, float* gt, float* gwq, float* gwk, float* gwv,
-    float* gwm, float* gs1, float* gb1, float* ws, long long ws_floats,
-    int windows, int T, int C, int add_residual, float eps, void* stream) {
+    const float* stats, const float* g, float* gx, float* gt, float* gwq,
+    float* gwk, float* gwv, float* gwm, float* gs1, float* gb1, float* ws,
+    long long ws_floats, int windows, int T, int C, int add_residual,
+    float eps, void* stream) {
   using namespace emip;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Windows d{windows, T, C, mask, mask_nw};
@@ -221,7 +301,8 @@ extern "C" int emip_window_layer_bwd(
     EMIP_TRY(cudaMemcpyAsync(gx, g, rc * sizeof(float),
                              cudaMemcpyDeviceToDevice, s));
   EMIP_TRY(message_bwd(x, C, t, LayerWeights{wq, wk, wv, wm}, s1, d, qkv, o,
-                       m, g, C, LayerGrads{gwq, gwk, gwv, gwm, gs1, gb1}, gx,
+                       m, stats, g, C,
+                       LayerGrads{gwq, gwk, gwv, gwm, gs1, gb1}, gx,
                        add_residual != 0, gt, false, gm, go, gqkv, eps, all,
                        s));
   return (int)cudaGetLastError();
@@ -230,14 +311,14 @@ extern "C" int emip_window_layer_bwd(
 // ------------------------------------------------------------ kernel H
 
 // out = x + LN2(gelu([x, msg] W0^T) W2^T), msg = LN1(message(x, t)).
-// Inference passes one buffer for m and z and no h.
+// Inference passes one buffer for m and z, and no h or stats.
 extern "C" int emip_window_ffn_layer(
     const float* x, const float* t, const float* wq, const float* wk,
     const float* wv, const float* wm, const float* s1, const float* b1,
     const float* w0, const float* w2, const float* s2, const float* b2,
     const float* mask, int mask_nw, float* qkv, float* o, float* m,
-    float* cat, float* h, float* u, float* z, float* out, int windows, int T,
-    int C, int F, float eps, void* stream) {
+    float* stats, float* cat, float* h, float* u, float* z, float* out,
+    int windows, int T, int C, int F, float eps, void* stream) {
   using namespace emip;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Windows d{windows, T, C, mask, mask_nw};
@@ -247,23 +328,24 @@ extern "C" int emip_window_ffn_layer(
                              C * sizeof(float), R, cudaMemcpyDeviceToDevice,
                              s));
   EMIP_TRY(message_fwd(x, C, t, LayerWeights{wq, wk, wv, wm}, d, qkv, o, m,
-                       s));
+                       stats, s));
   layernorm(m, C, nullptr, 0, s1, b1, cat + C, C2, R, C, eps, s);
   EMIP_TRY(ffn_fwd(cat, w0, w2, s2, b2, h, u, z, out, R, C, F, eps, s));
   return (int)cudaGetLastError();
 }
 
-// Backward of the forward above (run with separate m and z, and h). ws
+// Backward of the forward above (run with separate m and z, h and stats). ws
 // holds the [R, 7C + F] activation-grad scratch and the transient
 // workspace behind it.
 extern "C" int emip_window_ffn_layer_bwd(
     const float* x, const float* t, const float* wq, const float* wk,
     const float* wv, const float* wm, const float* s1, const float* w0,
     const float* w2, const float* s2, const float* mask, int mask_nw,
-    const float* qkv, const float* o, const float* m, const float* cat,
-    const float* h, const float* u, const float* z, const float* g,
-    float* gx, float* gt, float* gwq, float* gwk, float* gwv, float* gwm,
-    float* gs1, float* gb1, float* gw0, float* gw2, float* gs2, float* gb2,
+    const float* qkv, const float* o, const float* m, const float* stats,
+    const float* cat, const float* h, const float* u, const float* z,
+    const float* g, float* gx, float* gt, float* gwq, float* gwk,
+    float* gwv, float* gwm, float* gs1, float* gb1, float* gw0, float* gw2,
+    float* gs2, float* gb2,
     float* ws, long long ws_floats, int windows, int T, int C, int F,
     float eps, void* stream) {
   using namespace emip;
@@ -284,16 +366,18 @@ extern "C" int emip_window_ffn_layer_bwd(
   EMIP_TRY(ffn_bwd(cat, h, u, z, g, w0, w2, s2, gw0, gw2, gs2, gb2, gz, gh,
                    gx, gmsg, R, C, F, eps, all, s));
   EMIP_TRY(message_bwd(x, C, t, LayerWeights{wq, wk, wv, wm}, s1, d, qkv, o,
-                       m, gmsg, C, LayerGrads{gwq, gwk, gwv, gwm, gs1, gb1},
-                       gx, true, gt, false, gm, go, gqkv, eps, all, s));
+                       m, stats, gmsg, C,
+                       LayerGrads{gwq, gwk, gwv, gwm, gs1, gb1}, gx, true, gt,
+                       false, gm, go, gqkv, eps, all, s));
   return (int)cudaGetLastError();
 }
 
 // ------------------------------------------------------------ kernel B
 
 // Forward. Inference passes one buffer for both layers' qkv / o / m and z
-// (and no h); a forward that keeps what the backward reads passes separate
-// buffers and h.
+// (and no h or stats); a forward that keeps what the backward reads passes
+// separate buffers, h and each layer's attention statistics [2, windows,
+// T].
 extern "C" int emip_window_block(
     const float* x, const float* t,
     const float* wq1, const float* wk1, const float* wv1, const float* wm1,
@@ -303,8 +387,8 @@ extern "C" int emip_window_block(
     const float* w0, const float* w2, const float* sb, const float* bb,
     const float* mask, int mask_nw,
     float* qkv1, float* qkv2, float* o1, float* o2, float* m1, float* m2,
-    float* cat, float* h, float* u, float* z, float* out,
-    int windows, int T, int C, int F, float eps, void* stream) {
+    float* stats1, float* stats2, float* cat, float* h, float* u, float* z,
+    float* out, int windows, int T, int C, int F, float eps, void* stream) {
   using namespace emip;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Windows d{windows, T, C, mask, mask_nw};
@@ -312,20 +396,20 @@ extern "C" int emip_window_block(
   cudaError_t err;
   // self-attention layer: x1 = x + LN1s(message(x, x)) -> cat[:, :C]
   EMIP_TRY(message_fwd(x, C, x, LayerWeights{wq1, wk1, wv1, wm1}, d, qkv1, o1,
-                       m1, s));
+                       m1, stats1, s));
   layernorm(m1, C, x, C, s1, b1, cat, C2, R, C, eps, s);
   // cross-attention message: msg = LN1c(message(x1, t)) -> cat[:, C:]
   EMIP_TRY(message_fwd(cat, C2, t, LayerWeights{wq2, wk2, wv2, wm2}, d, qkv2,
-                       o2, m2, s));
+                       o2, m2, stats2, s));
   layernorm(m2, C, nullptr, 0, sa, ba, cat + C, C2, R, C, eps, s);
   EMIP_TRY(ffn_fwd(cat, w0, w2, sb, bb, h, u, z, out, R, C, F, eps, s));
   return (int)cudaGetLastError();
 }
 
-// Backward of the forward above (run with separate buffers and h). g is the
-// [R, C] gradient of out; gx and gt are written; each weight grad only when
-// its pointer is set. ws holds the [R, 8C + F] activation-grad scratch and
-// the split-K / column-sum / attention workspace behind it.
+// Backward of the forward above (run with separate buffers, h and stats). g
+// is the [R, C] gradient of out; gx and gt are written; each weight grad
+// only when its pointer is set. ws holds the [R, 8C + F] activation-grad
+// scratch and the split-K / column-sum / attention workspace behind it.
 extern "C" int emip_window_block_bwd(
     const float* x, const float* t,
     const float* wq1, const float* wk1, const float* wv1, const float* wm1,
@@ -335,8 +419,9 @@ extern "C" int emip_window_block_bwd(
     const float* w0, const float* w2, const float* sb,
     const float* mask, int mask_nw,
     const float* qkv1, const float* qkv2, const float* o1, const float* o2,
-    const float* m1, const float* m2, const float* cat, const float* h,
-    const float* u, const float* z, const float* g,
+    const float* m1, const float* m2, const float* stats1,
+    const float* stats2, const float* cat, const float* h, const float* u,
+    const float* z, const float* g,
     float* gx, float* gt,
     float* gwq1, float* gwk1, float* gwv1, float* gwm1, float* gs1,
     float* gb1,
@@ -366,7 +451,7 @@ extern "C" int emip_window_block_bwd(
                    gx1, gmsg, R, C, F, eps, all, s));
   // msg = LN1c(message(x1, t)): q from x1, k and v from t
   EMIP_TRY(message_bwd(cat, C2, t, LayerWeights{wq2, wk2, wv2, wm2}, sa, d,
-                       qkv2, o2, m2, gmsg, C,
+                       qkv2, o2, m2, stats2, gmsg, C,
                        LayerGrads{gwq2, gwk2, gwv2, gwm2, gsa, gba}, gx1,
                        true, gt, false, gm, go, gqkv, eps, all, s));
   // x1 = x + LN1s(message(x, x)): q, k and v from x
@@ -374,7 +459,7 @@ extern "C" int emip_window_block_bwd(
     EMIP_TRY(cudaMemcpyAsync(gx, gx1, rc * sizeof(float),
                              cudaMemcpyDeviceToDevice, s));
   EMIP_TRY(message_bwd(x, C, x, LayerWeights{wq1, wk1, wv1, wm1}, s1, d, qkv1,
-                       o1, m1, gx1, C,
+                       o1, m1, stats1, gx1, C,
                        LayerGrads{gwq1, gwk1, gwv1, gwm1, gs1, gb1}, gx, true,
                        gx, true, gm, go, gqkv, eps, all, s));
   return (int)cudaGetLastError();

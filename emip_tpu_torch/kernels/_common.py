@@ -27,6 +27,8 @@ LAUNCHES = {
     "softmax_expectation_bwd": 0,
     "dwconv_gelu": 0,
     "dwconv_gelu_bwd": 0,
+    # the GEMM core of A, B, G and H called alone (kernels/gemm.py: checks)
+    "gemm": 0,
 }
 
 # floats of split-K / column-sum / attention-partial workspace a backward

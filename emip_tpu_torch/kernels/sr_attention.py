@@ -4,7 +4,9 @@ Port of :func:`emip_tpu.ops.pallas.sr_attention.fused_sr_attention`; the
 CUDA source is ``csrc/sr_attention.cu``. Weights are in torch
 ``nn.Linear`` layout ([out, in]). :func:`fused_sr_attention` is one
 ``torch.autograd.Function``: CPU tensors take the plain version (and its
-autograd backward), CUDA tensors the forward and backward kernels.
+autograd backward), CUDA tensors the forward and backward kernels. When a
+gradient is wanted the forward kernel also writes each attention row's max
+and sum, which the backward kernel (on the tensor cores) reads.
 """
 
 from __future__ import annotations
@@ -72,17 +74,21 @@ class _SRAttention(torch.autograd.Function):
         q_buf = torch.empty_like(x)
         kv_buf = torch.empty((b, m, 2 * c), device=x.device, dtype=x.dtype)
         o_buf = torch.empty_like(x)
+        # each attention row's max and sum, read by the backward
+        stats = (torch.empty((2, b, num_heads, n), device=x.device,
+                             dtype=x.dtype) if keep else None)
         out = torch.empty_like(x)
         rc = library().emip_sr_attention(
             x.data_ptr(), kv_in.data_ptr(), wq.data_ptr(), bq.data_ptr(),
             wkv.data_ptr(), bkv.data_ptr(), wp.data_ptr(), bp.data_ptr(),
             q_buf.data_ptr(), kv_buf.data_ptr(), o_buf.data_ptr(),
-            out.data_ptr(), b, n, m, c, num_heads,
+            cm.ptr(stats), out.data_ptr(), b, n, m, c, num_heads,
             cm.stream_handle(x.device))
         cm.raise_on_error(_NAME, rc)
         cm.LAUNCHES["sr_attention"] += 1
         if keep:  # what the backward kernel reads
-            ctx.save_for_backward(x, kv_in, wq, wkv, wp, q_buf, kv_buf, o_buf)
+            ctx.save_for_backward(x, kv_in, wq, wkv, wp, q_buf, kv_buf, o_buf,
+                                  stats)
         return out
 
     @staticmethod
@@ -92,7 +98,7 @@ class _SRAttention(torch.autograd.Function):
             grads = cm.plain_vjp(fused_sr_attention_reference,
                                  ctx.saved_tensors, needs, g, ctx.num_heads)
             return (*grads, None, None)
-        x, kv_in, wq, wkv, wp, q_buf, kv_buf, o_buf = ctx.saved_tensors
+        x, kv_in, wq, wkv, wp, q_buf, kv_buf, o_buf, stats = ctx.saved_tensors
         g = g.contiguous()
         b, n, c = x.shape
         m = kv_in.shape[1]
@@ -102,11 +108,15 @@ class _SRAttention(torch.autograd.Function):
                  else None for nd, s in zip(needs, shapes)]
         go, gq = torch.empty_like(x), torch.empty_like(x)
         gkv = torch.empty_like(kv_buf)
-        ws = cm.workspace(x.device, 2 * b * ctx.num_heads * n)
+        # delta, and room for the attention's key-tiled pass to split the
+        # queries 16 ways (partial dk and dv) where it has few blocks
+        ws = cm.workspace(x.device,
+                          b * ctx.num_heads * n + 16 * b * m * 2 * c)
         rc = library().emip_sr_attention_bwd(
             x.data_ptr(), kv_in.data_ptr(), wq.data_ptr(), wkv.data_ptr(),
             wp.data_ptr(), q_buf.data_ptr(), kv_buf.data_ptr(),
-            o_buf.data_ptr(), g.data_ptr(), *(cm.ptr(t) for t in grads),
+            o_buf.data_ptr(), stats.data_ptr(), g.data_ptr(),
+            *(cm.ptr(t) for t in grads),
             go.data_ptr(), gq.data_ptr(), gkv.data_ptr(), ws.data_ptr(),
             ws.numel(), b, n, m, c, ctx.num_heads,
             cm.stream_handle(x.device))

@@ -1,15 +1,21 @@
-"""Plain PyTorch statement of what ``csrc/mma_tf32.cuh`` computes.
+"""Plain PyTorch statement of what ``csrc/mma_tf32.cuh`` and
+``csrc/gemm_tf32.cuh`` compute.
 
-The CUDA kernels of the attention forward and backward (kernels C and F)
-cannot run without a card, so their arithmetic and their algorithm are
-written out here in plain tensor code that the CPU tests hold against
-fp64, the plain versions and ``torch.autograd.grad`` of them:
+The CUDA kernels on the tensor cores (the attention forward of kernels C
+and F, the attention backward of kernels A, B, C, F, G and H, and the GEMM
+of A, B, G and H) cannot run without a card, so their arithmetic and their
+algorithm are written out here in plain tensor code that the CPU tests
+hold against fp64, the plain versions, ``torch.autograd.grad`` of them
+and the JAX package's Pallas kernels:
 
 * :func:`tf32_round` rounds fp32 to TF32 as ``cvt.rna.tf32.f32`` does and
   :func:`tf32_truncate` cuts it as the tensor core does to an operand's
   low bits; :func:`matmul_tf32` is one tensor-core product of rounded
   operands and :func:`matmul_3xtf32` the three-term product the kernels
   use.
+* :func:`gemm_tiled` walks the GEMM: K in tiles of 32, the split-K
+  partials summed in order, then the epilogue (bias, exact GELU or its
+  derivative).
 * :func:`attention_fwd_tiled` walks ``attention_fwd_tc`` tile by tile
   (streamed key tiles, the online max and sum, ragged last tiles, the
   keys split in chunks whose partials are merged in order by their max
@@ -18,7 +24,8 @@ fp64, the plain versions and ``torch.autograd.grad`` of them:
   keeps, and :func:`attention_bwd_tiled` walks the two passes of
   ``attention_bwd_tc`` tile by tile (query-tiled dq; key-tiled dk and dv
   on transposed score tiles; ragged last tiles; the streamed side split in
-  chunks whose partials are summed in order).
+  chunks whose partials are summed in order), per head and with an
+  additive score mask where the kernels of A, B, G and H have them.
 
 Nothing here runs on a model's path.
 """
@@ -28,7 +35,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["tf32_round", "tf32_truncate", "matmul_tf32", "matmul_3xtf32",
-           "attention_fwd_tiled", "attention_row_stats",
+           "gemm_tiled", "attention_fwd_tiled", "attention_row_stats",
            "attention_bwd_tiled"]
 
 
@@ -62,14 +69,80 @@ def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
 
 
-def attention_row_stats(q, k, bias=None):
-    """(row max, row sum of exp(score - max)), each [B, Nq], of the scores
-    q k^T / sqrt(C) (+ bias [B, Nk] per key): what a forward keeps."""
-    scores = q @ k.transpose(-1, -2) / q.shape[-1]**0.5
-    if bias is not None:
-        scores = scores + bias[:, None, :]
+def _split_heads(x, heads: int):
+    """[B, N, H * W] -> [B * H, N, W]: batch row z = b * H + h is head h of
+    batch b, read at columns h * W, as the kernels read it."""
+    b, n, c = x.shape
+    return (x.reshape(b, n, heads, c // heads).transpose(1, 2)
+            .reshape(b * heads, n, c // heads))
+
+
+def _merge_heads(x, heads: int):
+    """Inverse of :func:`_split_heads`."""
+    z, n, w = x.shape
+    return (x.reshape(z // heads, heads, n, w).transpose(1, 2)
+            .reshape(z // heads, n, heads * w))
+
+
+def _score_terms(b: int, heads: int, nq: int, nk: int, bias, mask, like):
+    """Per batch row z = b * H + h: the key bias [B * H, Nk] (from [B, Nk])
+    and the score mask [B * H, Nq, Nk] (window b reads mask[b % nw])."""
+    if bias is None:
+        bias = like.new_zeros(b, nk)
+    bias = bias.repeat_interleave(heads, 0)
+    if mask is None:
+        return bias, like.new_zeros(1, 1, 1).expand(b * heads, nq, nk)
+    windows = torch.arange(b, device=mask.device) % mask.shape[0]
+    return bias, mask[windows].repeat_interleave(heads, 0)
+
+
+def attention_row_stats(q, k, bias=None, heads: int = 1, mask=None):
+    """(row max, row sum of exp(score - max)), each [B * H, Nq], of the
+    scores q_h k_h^T / sqrt(W) (+ bias [B, Nk] per key, + mask [nw, Nq, Nk]
+    with batch b reading mask[b % nw]) of every head h of width W: what a
+    forward keeps."""
+    b, nq, _ = q.shape
+    bias, mask = _score_terms(b, heads, nq, k.shape[1], bias, mask, q)
+    qh, kh = _split_heads(q, heads), _split_heads(k, heads)
+    scores = (qh @ kh.transpose(-1, -2) / qh.shape[-1]**0.5
+              + bias[:, None, :] + mask)
     row_max = scores.max(-1).values
     return row_max, torch.exp(scores - row_max[..., None]).sum(-1)
+
+
+def gemm_tiled(a, b, bias=None, tile_k: int = 32, splits: int = 1,
+               matmul=torch.matmul, epilogue: str | None = None, aux=None):
+    """``a @ b (+ bias)`` computed as ``gemm_tc_kernel`` does; returns the
+    product, or with ``epilogue="gelu"`` the pair (gelu(y), y), and with
+    ``epilogue="gelu_grad"`` y * gelu'(aux).
+
+    K is walked in tiles of ``tile_k``, each tile's product added to an
+    fp32 accumulator; with ``splits`` > 1 the tiles are cut in chunks (a
+    weight gradient's split-K), each chunk summed on its own and the
+    partials added in order, the bias left out (the kernels give a split
+    product none). ``matmul`` is each tile's product
+    (:func:`matmul_3xtf32` to follow the kernel's arithmetic). The order of
+    the sums inside one tile is the tensor core's and is not stated.
+    """
+    k = a.shape[1]
+    tiles = -(-k // tile_k)
+    parts = []
+    for t0, t1 in _chunks(tiles, splits):
+        acc = a.new_zeros(a.shape[0], b.shape[1])
+        for tile in range(t0, t1):
+            ks = slice(tile * tile_k, min(k, (tile + 1) * tile_k))
+            acc = acc + matmul(a[:, ks], b[ks])
+        parts.append(acc)
+    out = sum(parts[1:], parts[0])
+    if bias is not None:
+        out = out + bias
+    if epilogue == "gelu":
+        return torch.nn.functional.gelu(out), out
+    if epilogue == "gelu_grad":
+        phi = torch.exp(-0.5 * aux * aux) * 0.3989422804014327
+        return out * (0.5 * (1.0 + torch.erf(aux * 0.7071067811865476))
+                      + aux * phi)
+    return out
 
 
 def _chunks(n_tiles: int, splits: int):
@@ -134,23 +207,27 @@ def attention_fwd_tiled(q, k, v, bias=None, stream_rows=32, splits=1,
 
 def attention_bwd_tiled(q, k, v, bias, out, row_max, row_sum, g,
                         which=(0, 1, 2), res_rows=64, stream_rows=64,
-                        splits=1, matmul=torch.matmul):
-    """(dq, dk, dv) of ``softmax(q k^T / sqrt(C) + bias) v`` for the
-    cotangent ``g``, computed as ``attention_bwd_tc`` does; a grad whose
-    index is not in ``which`` is None.
+                        splits=1, matmul=torch.matmul, heads: int = 1,
+                        mask=None):
+    """(dq, dk, dv) of ``softmax(q k^T / sqrt(W) + bias + mask) v`` per
+    head for the cotangent ``g``, computed as ``attention_bwd_tc`` does; a
+    grad whose index is not in ``which`` is None.
 
-    q, g, out: [B, Nq, .]; k, v: [B, Nk, .]; bias [B, Nk] or None; row_max,
-    row_sum [B, Nq] from the forward. A block owns ``res_rows`` rows of one
-    side and streams the other in tiles of ``stream_rows``; with ``splits``
-    > 1 the streamed tiles are cut in chunks whose partial sums are added
-    in order. ``matmul`` is the product used for every tile
-    (:func:`matmul_3xtf32` to follow the kernels' arithmetic).
+    q, g, out: [B, Nq, H * .]; k, v: [B, Nk, H * .], head h at columns h *
+    width (W = q's width / H); bias [B, Nk] or None; mask [nw, Nq, Nk] or
+    None (batch b reads mask[b % nw]); row_max, row_sum [B * H, Nq] from
+    the forward. Batch row z = b * H + h is head h of batch b. A block
+    owns ``res_rows`` rows of one side and streams the other in tiles of
+    ``stream_rows``; with ``splits`` > 1 the streamed tiles are cut in
+    chunks whose partial sums are added in order. ``matmul`` is the product
+    used for every tile (:func:`matmul_3xtf32` to follow the kernels'
+    arithmetic).
     """
-    b, nq, c = q.shape
+    b, nq, _ = q.shape
     nk = k.shape[1]
-    scale = 1.0 / c**0.5
-    if bias is None:
-        bias = q.new_zeros(b, nk)
+    bias, mask = _score_terms(b, heads, nq, nk, bias, mask, q)
+    q, k, v, out, g = (_split_heads(x, heads) for x in (q, k, v, out, g))
+    scale = 1.0 / q.shape[-1]**0.5
     delta = (g * out).sum(-1)
     t = lambda x: x.transpose(-1, -2)  # noqa: E731
 
@@ -169,11 +246,13 @@ def attention_bwd_tiled(q, k, v, bias, out, row_max, row_sum, g,
                     keys = slice(tile * stream_rows,
                                  min(nk, (tile + 1) * stream_rows))
                     kt, vt = k[:, keys], v[:, keys]
-                    s = matmul(qt, t(kt)) * scale + bias[:, None, keys]
+                    s = (matmul(qt, t(kt)) * scale + bias[:, None, keys]
+                         + mask[:, rows, keys])
                     p = torch.exp(s - mx) * inv
                     ds = p * (matmul(gt, t(vt)) - dl)
                     acc = acc + matmul(ds, kt)
                 dq[:, rows] += acc * scale
+        dq = _merge_heads(dq, heads)
     if 1 in which or 2 in which:
         dk, dv = torch.zeros_like(k), torch.zeros_like(v)
         tiles = -(-nq // stream_rows)
@@ -187,7 +266,8 @@ def attention_bwd_tiled(q, k, v, bias, out, row_max, row_sum, g,
                                  min(nq, (tile + 1) * stream_rows))
                     qt, gt = q[:, rows], g[:, rows]
                     # transposed tiles: rows are keys, columns queries
-                    st = matmul(kt, t(qt)) * scale + bias[:, keys, None]
+                    st = (matmul(kt, t(qt)) * scale + bias[:, keys, None]
+                          + t(mask[:, rows, keys]))
                     pt = (torch.exp(st - row_max[:, None, rows])
                           / row_sum[:, None, rows])
                     dst = pt * (matmul(vt, t(gt)) - delta[:, None, rows])
@@ -195,6 +275,6 @@ def attention_bwd_tiled(q, k, v, bias, out, row_max, row_sum, g,
                     acc_k = acc_k + matmul(dst, qt)
                 dk[:, keys] += acc_k * scale
                 dv[:, keys] += acc_v
-        dk = dk if 1 in which else None
-        dv = dv if 2 in which else None
+        dk = _merge_heads(dk, heads) if 1 in which else None
+        dv = _merge_heads(dv, heads) if 2 in which else None
     return dq, dk, dv

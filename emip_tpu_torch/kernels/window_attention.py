@@ -18,7 +18,9 @@ layer's ``params`` holds wq, wk, wv, wm [C, C] and the LayerNorm s1, b1
 two halves), w2 [C, F] and s2, b2 [C]. Each public function is one
 ``torch.autograd.Function``: CPU tensors take the plain version (and its
 autograd backward), CUDA tensors the forward and backward kernels, which
-compute only the grads that are asked for.
+compute only the grads that are asked for. When a gradient is wanted the
+forward kernel also writes each attention row's max and sum, which the
+backward kernel (on the tensor cores) reads.
 """
 
 from __future__ import annotations
@@ -134,6 +136,14 @@ def _buffers(x, widths):
             for w in widths]
 
 
+def _stats(x, keep):
+    """[2, windows, T] row max and row sum of a layer's attention, kept when
+    a gradient will be taken (the backward reads them), else None."""
+    b, k2, tok, _ = x.shape
+    return (torch.empty((2, b * k2, tok), device=x.device, dtype=x.dtype)
+            if keep else None)
+
+
 def _param_grads(needs, shapes, like):
     return [torch.empty(s, device=like.device, dtype=like.dtype) if nd
             else None for nd, s in zip(needs, shapes)]
@@ -156,18 +166,19 @@ class _WindowLayer(torch.autograd.Function):
         _check_layer(_LAYER, x, t, p, mask)
         b, k2, tok, c = x.shape
         qkv, o, m = _buffers(x, (3 * c, c, c))
+        stats = _stats(x, keep)
         out = torch.empty_like(x)
         rc = library().emip_window_layer(
             x.data_ptr(), t.data_ptr(), *(w.data_ptr() for w in params),
             cm.ptr(mask), k2, qkv.data_ptr(), o.data_ptr(), m.data_ptr(),
-            out.data_ptr(), b * k2, tok, c, int(add_residual), EPS,
-            cm.stream_handle(x.device))
+            cm.ptr(stats), out.data_ptr(), b * k2, tok, c,
+            int(add_residual), EPS, cm.stream_handle(x.device))
         cm.raise_on_error(_LAYER, rc)
         cm.LAUNCHES["window_attention_layer"] += 1
         if keep:
             ctx.save_for_backward(x, t, mask,
                                   *(params[i] for i in _LAYER_BWD_READS),
-                                  qkv, o, m)
+                                  qkv, o, m, stats)
         return out
 
     @staticmethod
@@ -222,19 +233,20 @@ class _WindowFFNLayer(torch.autograd.Function):
             h, z = _buffers(x, (f, c))
         else:
             h, z = None, m
+        stats = _stats(x, keep)
         out = torch.empty_like(x)
         rc = library().emip_window_ffn_layer(
             x.data_ptr(), t.data_ptr(), *(w.data_ptr() for w in params),
             cm.ptr(mask), k2, qkv.data_ptr(), o.data_ptr(), m.data_ptr(),
-            cat.data_ptr(), cm.ptr(h), u.data_ptr(), z.data_ptr(),
-            out.data_ptr(), b * k2, tok, c, f, EPS,
+            cm.ptr(stats), cat.data_ptr(), cm.ptr(h), u.data_ptr(),
+            z.data_ptr(), out.data_ptr(), b * k2, tok, c, f, EPS,
             cm.stream_handle(x.device))
         cm.raise_on_error(_FFN_LAYER, rc)
         cm.LAUNCHES["window_attention_ffn_layer"] += 1
         if keep:
             ctx.save_for_backward(
                 x, t, mask, *(params[i] for i in _FFN_LAYER_BWD_READS), qkv,
-                o, m, cat, h, u, z)
+                o, m, stats, cat, h, u, z)
         return out
 
     @staticmethod
@@ -256,7 +268,7 @@ class _WindowFFNLayer(torch.autograd.Function):
         weights, saved = rest[:n], rest[n:]
         g = g.contiguous()
         b, k2, tok, c = x.shape
-        f = saved[4].shape[1]
+        f = saved[5].shape[1]  # h
         pgrads = _param_grads(
             needs_p, [(c, c)] * 4 + [(c,)] * 2 + [(f, 2 * c), (c, f), (c,),
                                                   (c,)], x)
@@ -291,21 +303,23 @@ class _WindowBlock(torch.autograd.Function):
         else:  # one buffer per kind, reused by both layers
             qkv1, o1, m1 = _buffers(x, (3 * c, c, c))
             qkv2, o2, m2, z, h = qkv1, o1, m1, m1, None
+        stats1, stats2 = _stats(x, keep), _stats(x, keep)
         cat, u = _buffers(x, (2 * c, f))
         out = torch.empty_like(x)
         rc = library().emip_window_block(
             x.data_ptr(), t.data_ptr(), *(p.data_ptr() for p in params),
             cm.ptr(mask), k2, qkv1.data_ptr(), qkv2.data_ptr(),
             o1.data_ptr(), o2.data_ptr(), m1.data_ptr(), m2.data_ptr(),
-            cat.data_ptr(), cm.ptr(h), u.data_ptr(), z.data_ptr(),
-            out.data_ptr(), b * k2, tok, c, f, EPS,
-            cm.stream_handle(x.device))
+            cm.ptr(stats1), cm.ptr(stats2), cat.data_ptr(), cm.ptr(h),
+            u.data_ptr(), z.data_ptr(), out.data_ptr(), b * k2, tok, c, f,
+            EPS, cm.stream_handle(x.device))
         cm.raise_on_error(_NAME, rc)
         cm.LAUNCHES["window_attention_block"] += 1
         if keep:
             ctx.save_for_backward(x, t, mask,
                                   *(params[i] for i in _BWD_READS), qkv1,
-                                  qkv2, o1, o2, m1, m2, cat, h, u, z)
+                                  qkv2, o1, o2, m1, m2, stats1, stats2, cat,
+                                  h, u, z)
         return out
 
     @staticmethod
@@ -321,7 +335,7 @@ class _WindowBlock(torch.autograd.Function):
         weights, saved = rest[:len(_BWD_READS)], rest[len(_BWD_READS):]
         g = g.contiguous()
         b, k2, tok, c = x.shape
-        f = saved[7].shape[1]
+        f = saved[9].shape[1]  # h
         rows = b * k2 * tok
         layer = [(c, c)] * 4 + [(c,)] * 2
         pgrads = _param_grads(

@@ -347,25 +347,54 @@ def test_build_key_covers_every_source():
 # ------------------------------------------------ on the card (skips here)
 
 
+def _with_mask(fn, mask):
+    """fn with the window mask as its last argument, moved to the device
+    of x (the mask takes no gradient)."""
+    return lambda x, *a: fn(x, *a, mask.to(x.device))
+
+
+def _window_weights(r, c, f):
+    sp = dict(wq=r(c, c) / c**0.5, wk=r(c, c) / c**0.5, wv=r(c, c) / c**0.5,
+              wm=r(c, c) / c**0.5, s1=1 + 0.1 * r(c), b1=0.1 * r(c))
+    cp = dict(sp, w0=r(f, 2 * c) / (2 * c)**0.5, w2=r(c, f) / f**0.5,
+              s2=1 + 0.1 * r(c), b2=0.1 * r(c))
+    return sp, cp
+
+
 def _gpu_cases():
+    from emip_tpu_torch.ops.window import shifted_window_mask
+
     g = torch.Generator().manual_seed(0)
     r = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
     cases = []
-    for n, m, c, heads in [(7744, 121, 64, 1), (484, 121, 320, 5)]:
+    # kernel A at head widths 64 (heads 1 and 5) and 32 (pvt_v2_b0's)
+    for n, m, c, heads in [(7744, 121, 64, 1), (484, 121, 320, 5),
+                           (1936, 121, 64, 2)]:
         cases.append(("sr_attention", K.fused_sr_attention,
                       K.fused_sr_attention_reference,
                       (r(2, n, c), r(2, m, c), r(c, c) / c**0.5, r(c),
                        r(2 * c, c) / c**0.5, r(2 * c), r(c, c) / c**0.5,
                        r(c), heads)))
     c, f = 128, 1024
-    sp = dict(wq=r(c, c) / c**0.5, wk=r(c, c) / c**0.5, wv=r(c, c) / c**0.5,
-              wm=r(c, c) / c**0.5, s1=1 + 0.1 * r(c), b1=0.1 * r(c))
-    cp = dict(sp, w0=r(f, 2 * c) / (2 * c)**0.5, w2=r(c, f) / f**0.5,
-              s2=1 + 0.1 * r(c), b2=0.1 * r(c))
+    sp, cp = _window_weights(r, c, f)
+    mask44 = shifted_window_mask(44, 44, 2)
     cases.append(("window_attention_block", K.fused_window_attention_block,
                   K.fused_window_attention_block_reference,
                   (r(2, 4, 484, c), r(2, 4, 484, c), sp, cp)))
-    # G and H at a ragged window (T = 484) and at whole tiles (T = 1024)
+    # B with the shifted-window mask, at width 128 and at b0's 64
+    cases.append(("window_attention_block",
+                  _with_mask(K.fused_window_attention_block, mask44),
+                  _with_mask(K.fused_window_attention_block_reference,
+                             mask44),
+                  (r(2, 4, 484, c), r(2, 4, 484, c), sp, cp)))
+    sp64, cp64 = _window_weights(r, 64, 256)
+    cases.append(("window_attention_block",
+                  _with_mask(K.fused_window_attention_block, mask44),
+                  _with_mask(K.fused_window_attention_block_reference,
+                             mask44),
+                  (r(2, 4, 484, 64), r(2, 4, 484, 64), sp64, cp64)))
+    # G and H at a ragged window (T = 484) and at whole tiles (T = 1024),
+    # the latter with the mask too
     for tok in (484, 1024):
         cases.append(("window_attention_layer",
                       K.fused_window_attention_layer,
@@ -375,6 +404,17 @@ def _gpu_cases():
                       K.fused_window_attention_ffn_layer,
                       K.fused_window_attention_ffn_layer_reference,
                       (r(2, 4, tok, c), r(2, 4, tok, c), cp)))
+    mask64 = shifted_window_mask(64, 64, 2)
+    cases.append(("window_attention_layer",
+                  _with_mask(K.fused_window_attention_layer, mask64),
+                  _with_mask(K.fused_window_attention_layer_reference,
+                             mask64),
+                  (r(2, 4, 1024, c), r(2, 4, 1024, c), sp)))
+    cases.append(("window_attention_ffn_layer",
+                  _with_mask(K.fused_window_attention_ffn_layer, mask64),
+                  _with_mask(K.fused_window_attention_ffn_layer_reference,
+                             mask64),
+                  (r(2, 4, 1024, c), r(2, 4, 1024, c), cp)))
     cases.append(("softmax_expectation", K.softmax_expectation,
                   K.softmax_expectation_reference,
                   (3 * r(2, 1936, 1936), 5 * r(1936, 2))))
@@ -430,7 +470,9 @@ def test_cuda_kernels_match_plain_versions():
         torch.cuda.synchronize()
         assert K.LAUNCHES[name] == before[name] + 1, name
         assert K.LAUNCHES[name + "_bwd"] == before[name + "_bwd"] + 1, name
-        if name == "flow_attention":
+        if name in ("flow_attention", "sr_attention",
+                    "window_attention_block", "window_attention_layer",
+                    "window_attention_ffn_layer"):
             # no atomics: a second forward and backward give the same bits
             assert torch.equal(fn(*dev), got), name
             for a, b in zip(g_got, torch.autograd.grad(got, wrt, cot)):
@@ -474,6 +516,23 @@ def test_cuda_kernels_match_plain_versions():
         for a, w in zip(g_got, torch.autograd.grad(want, (q, k, v), cot)):
             assert (a - w).abs().max().item() <= 1e-4 * max(
                 w.abs().max().item(), 1.0)
+    # the 3xTF32 GEMM of A, B, G and H alone: a Linear weight read
+    # transposed, row-major operands, a weight gradient split over K, and
+    # rows of 90 floats (4-byte copies), against the fp64 product
+    from emip_tpu_torch.kernels.gemm import gemm
+
+    g = torch.Generator().manual_seed(3)
+    r = lambda *s: torch.randn(*s, generator=g).cuda()  # noqa: E731
+    for a, b, split in ((r(3872, 128), r(1024, 128).T, False),
+                        (r(3872, 1024), r(1024, 128), False),
+                        (r(3872, 128).T, r(3872, 320), True),
+                        (r(1000, 90), r(70, 90).T, False),
+                        (r(999, 70).T, r(999, 90), True)):
+        got = gemm(a, b, split_k=split)
+        want = a.double() @ b.double()
+        assert torch.equal(gemm(a, b, split_k=split), got)
+        assert ((got - want).abs().max() <= 1e-5 * want.abs().max()), (
+            a.shape, b.shape)
     coords = torch.rand(2, 352, 352, 2, generator=torch.Generator()
                         .manual_seed(1)).cuda() * 360 - 4
     got = K.splat_density(coords)
