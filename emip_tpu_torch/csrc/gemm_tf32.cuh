@@ -277,10 +277,11 @@ cudaError_t gemm_launch(const GemmArgs& g, int splits, cudaStream_t stream) {
                                            : g.M % 4 == 0 && g.sak % 4 == 0);
   const bool vec_b = aligned16(g.B) && (BK ? g.K % 4 == 0 && g.sbn % 4 == 0
                                            : g.N % 4 == 0 && g.sbk % 4 == 0);
-  cudaError_t err = cudaFuncSetAttribute(
+  // set once per instantiation, not per launch (one card per process)
+  static const cudaError_t attr = cudaFuncSetAttribute(
       gemm_tc_kernel<AK, BK, kEpi>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P::kBytes);
-  if (err != cudaSuccess) return err;
+  if (attr != cudaSuccess) return attr;
   const dim3 grid(ceil_div(g.N, kGemmBN), ceil_div(g.M, kGemmBM), splits);
   gemm_tc_kernel<AK, BK, kEpi>
       <<<grid, kGemmThreads, P::kBytes, stream>>>(g, vec_a, vec_b);

@@ -69,8 +69,11 @@
 //                    of each streamed tile, before the tile's products, and
 //                    added to the score fragments (transposed in the
 //                    key-tiled pass); staging it in shared memory beside k
-//                    and v would not fit the 128-wide tiling (203 KiB
-//                    already). Two passes, each a grid of blocks that own
+//                    and v would not fit the 128-wide tiling (199 KiB
+//                    already, 235 KiB with two mask stages of [128, 36]); at
+//                    width 64 it would fit (103 + 36 KiB, one block per SM
+//                    either way, held there by registers) and has not been
+//                    measured against the L2 read. Two passes, each a grid of blocks that own
 //                    WARPS x MT x 16 rows of one side (kept in shared
 //                    memory) and stream the other side through the same
 //                    ring of stages:
@@ -631,10 +634,11 @@ template <int D, int DV, int WARPS, int MT, int STR, bool KEEP>
 cudaError_t attention_fwd_tc_launch(const TcFwdArgs& a, dim3 grid,
                                     cudaStream_t stream) {
   using L = TcFwd<D, DV, WARPS, MT, STR>;
-  cudaError_t err = cudaFuncSetAttribute(
+  // set once per instantiation, not per launch (one card per process)
+  static const cudaError_t attr = cudaFuncSetAttribute(
       attention_fwd_tc_kernel<D, DV, WARPS, MT, STR, KEEP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
-  if (err != cudaSuccess) return err;
+  if (attr != cudaSuccess) return attr;
   attention_fwd_tc_kernel<D, DV, WARPS, MT, STR, KEEP>
       <<<grid, L::kThreads, L::kBytes, stream>>>(a);
   return cudaGetLastError();
@@ -1190,10 +1194,11 @@ cudaError_t attention_bwd_tc(AttnOperand q, AttnOperand k, AttnOperand v,
         tc_splits((long long)res_tiles * BH, slots, ceil_div(Nk, STR),
                   rows * D, ws.n, &a.tiles_per_split);
     if (splits > 1) a.part_a = ws.p;  // free again after the sum below
-    err = cudaFuncSetAttribute(
+    // set once per instantiation, not per launch (one card per process)
+    static const cudaError_t attr = cudaFuncSetAttribute(
         attention_bwd_tc_dq_kernel<D, DV, WARPS, MT, STR, MASKED>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
-    if (err != cudaSuccess) return err;
+    if (attr != cudaSuccess) return attr;
     attention_bwd_tc_dq_kernel<D, DV, WARPS, MT, STR, MASKED>
         <<<dim3(res_tiles, splits, BH), L::kThreads, L::kBytes, stream>>>(a);
     if (splits > 1)
@@ -1212,10 +1217,10 @@ cudaError_t attention_bwd_tc(AttnOperand q, AttnOperand k, AttnOperand v,
       a.part_a = ws.p;
       a.part_b = ws.p + splits * keys * D;
     }
-    err = cudaFuncSetAttribute(
+    static const cudaError_t attr = cudaFuncSetAttribute(
         attention_bwd_tc_dkv_kernel<D, DV, WARPS, MT, STR, MASKED>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
-    if (err != cudaSuccess) return err;
+    if (attr != cudaSuccess) return attr;
     attention_bwd_tc_dkv_kernel<D, DV, WARPS, MT, STR, MASKED>
         <<<dim3(res_tiles, splits, BH), L::kThreads, L::kBytes, stream>>>(a);
     if (splits > 1 && dk.p)

@@ -397,10 +397,11 @@ cudaError_t attention_launch(const float* q, long long q_sb, int q_sn,
                              cudaStream_t stream) {
   const size_t bytes = AttnSmem<D, DV>::kBytes;
   dim3 grid((N + kAttnBQ - 1) / kAttnBQ, H, B);
-  cudaError_t err = cudaFuncSetAttribute(
+  // set once per instantiation, not per launch (one card per process)
+  static const cudaError_t attr = cudaFuncSetAttribute(
       attention_kernel<D, DV, KEEP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
+  if (attr != cudaSuccess) return attr;
   attention_kernel<D, DV, KEEP><<<grid, kAttnThreads, bytes, stream>>>(
       q, q_sb, q_sn, k, k_sb, k_sn, v, v_sb, v_sn, out, o_sb, o_sn, mask,
       mask_nw, N, M, scale, stats,

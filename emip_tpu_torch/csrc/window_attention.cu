@@ -43,10 +43,10 @@
 // the W2 grad GEMM) -> the split W0 -> message (LN1 -> Wm -> attention
 // backward, k and v from t giving gt) -> for B the residual and the self
 // layer's message.
-// Products that read one input run over the weights stacked in the
-// workspace: gt = [gk | gv] [Wk; Wv], and in B's self layer, where x gives
-// q, k and v, gx += [gq | gk | gv] [Wq; Wk; Wv] (their weight grads
-// likewise). The attention backward is attention_bwd_tc of
+// Input grads that read one gradient block run over the weights stacked in
+// the workspace: gt = [gk | gv] [Wk; Wv], and in B's self layer, where x
+// gives q, k and v, gx += [gq | gk | gv] [Wq; Wk; Wv]; each weight grad is
+// a product of its own. The attention backward is attention_bwd_tc of
 // mma_tf32.cuh (3xTF32 on the tensor cores; 8 warps own 128 rows of one
 // window, the other side streams in tiles of 32; the shifted-window mask is
 // read per tile from L2 into the score fragments): at T = 484 and 64
@@ -109,20 +109,22 @@ cudaError_t message_fwd(const float* xq, int ldxq, const float* t,
 // Backward of msg = LN1(m) with m from message_fwd (stats its attention's
 // row statistics). gmsg [R, C] (leading dimension ldg) is the gradient of
 // msg. Writes the weight grads that are set, gxq (+)= gq Wq if gxq is set,
-// and gt (+)= gk Wk + gv Wv if gt is set (gt may be gxq, then accumulated
-// onto it). gm, go [R, C] and gqkv [R, 3C] are scratch; the stacked weights
-// and weight grads come from ws.
+// and gt (+)= gk Wk + gv Wv if gt is set. In B's self layer (self_layer:
+// xq is t, and q, k and v all come from it) gxq is null and gt (+)= gq Wq
+// + gk Wk + gv Wv. gm, go [R, C] and gqkv [R, 3C] are scratch; the
+// stacked weights come from ws.
 cudaError_t message_bwd(const float* xq, int ldxq, const float* t,
                         LayerWeights w, const float* s1, Windows d,
                         const float* qkv, const float* o, const float* m,
                         const float* stats, const float* gmsg, int ldg,
                         LayerGrads g, float* gxq, bool accumulate_xq,
-                        float* gt, bool accumulate_t, float* gm, float* go,
-                        float* gqkv, float eps, Workspace ws,
-                        cudaStream_t s) {
+                        float* gt, bool accumulate_t, bool self_layer,
+                        float* gm, float* go, float* gqkv, float eps,
+                        Workspace ws, cudaStream_t s) {
   const int R = d.rows(), C = d.C, C3 = 3 * C, C2 = 2 * C;
   const long long sb3 = (long long)d.T * C3, sb1 = (long long)d.T * C;
-  const bool want_q = gxq || g.gwq, want_kv = gt || g.gwk || g.gwv;
+  const bool want_q = gxq || g.gwq || (self_layer && gt),
+             want_kv = gt || g.gwk || g.gwv;
   cudaError_t err;
   EMIP_TRY(layernorm_bwd(m, C, gmsg, ldg, s1, gm, C, false, g.gs1, g.gb1, R,
                          C, eps, ws, s));
@@ -149,11 +151,12 @@ cudaError_t message_bwd(const float* xq, int ldxq, const float* t,
   else
     err = cudaErrorInvalidValue;
   if (err != cudaSuccess) return err;
-  // q, k and v are one [R, 3C] block of gqkv: the products that share an
-  // input run over the weights stacked in the workspace ([Wk; Wv], and in
-  // the self layer of B, where q, k and v all come from xq = t and gxq is
-  // gt, [Wq; Wk; Wv])
-  const bool self = xq == t && ldxq == C && gxq == gt && gt && accumulate_t;
+  EMIP_TRY(weight_grad(gqkv, C3, xq, ldxq, g.gwq, C, C, R, ws, s));
+  EMIP_TRY(weight_grad(gqkv + C, C3, t, C, g.gwk, C, C, R, ws, s));
+  EMIP_TRY(weight_grad(gqkv + C2, C3, t, C, g.gwv, C, C, R, ws, s));
+  // q, k and v are one [R, 3C] block of gqkv: the input grads that share an
+  // input run as one product over the weights stacked in the workspace
+  // ([Wk; Wv], in the self layer [Wq; Wk; Wv])
   auto stacked = [&](const float* const* wt, int n) -> const float* {
     float* st = ws.take((long long)n * C * C);
     for (int i = 0; st && i < n; ++i)
@@ -163,40 +166,15 @@ cudaError_t message_bwd(const float* xq, int ldxq, const float* t,
         return nullptr;
     return st;
   };
-  // weight grads: [dWk; dWv] (self: [dWq; dWk; dWv]) as one product into
-  // the workspace, copied out
-  float* const wgrads[3] = {g.gwq, g.gwk, g.gwv};
-  const bool stack_kv = g.gwk && g.gwv;
-  const int first = self && stack_kv && g.gwq ? 0 : 1;
-  if (stack_kv) {
-    float* dw = ws.take((long long)(3 - first) * C * C);
-    if (!dw) return cudaErrorInvalidValue;
-    EMIP_TRY(weight_grad(gqkv + first * C, C3, t, C, dw, (3 - first) * C, C,
-                         R, ws, s));
-    for (int i = first; i < 3; ++i)
-      EMIP_TRY(cudaMemcpyAsync(wgrads[i], dw + (long long)(i - first) * C * C,
-                               (long long)C * C * sizeof(float),
-                               cudaMemcpyDeviceToDevice, s));
-  } else {
-    EMIP_TRY(weight_grad(gqkv + C, C3, t, C, g.gwk, C, C, R, ws, s));
-    EMIP_TRY(weight_grad(gqkv + C2, C3, t, C, g.gwv, C, C, R, ws, s));
-  }
-  if (first == 1)
-    EMIP_TRY(weight_grad(gqkv, C3, xq, ldxq, g.gwq, C, C, R, ws, s));
-  // input grads
-  if (self) {
-    const float* const wqkv[3] = {w.wq, w.wk, w.wv};
-    const float* st = stacked(wqkv, 3);
-    if (!st) return cudaErrorInvalidValue;
-    return input_grad(gqkv, C3, st, C3, C, gxq, C, R, accumulate_xq, s);
-  }
   if (gxq)
     EMIP_TRY(input_grad(gqkv, C3, w.wq, C, C, gxq, C, R, accumulate_xq, s));
   if (gt) {
-    const float* const wkv[2] = {w.wk, w.wv};
-    const float* st = stacked(wkv, 2);
+    const float* const wqkv[3] = {w.wq, w.wk, w.wv};
+    const int first = self_layer ? 0 : 1;
+    const float* st = stacked(wqkv + first, 3 - first);
     if (!st) return cudaErrorInvalidValue;
-    EMIP_TRY(input_grad(gqkv + C, C3, st, C2, C, gt, C, R, accumulate_t, s));
+    EMIP_TRY(input_grad(gqkv + first * C, C3, st, (3 - first) * C, C, gt, C,
+                        R, accumulate_t, s));
   }
   return cudaSuccess;
 }
@@ -303,8 +281,8 @@ extern "C" int emip_window_layer_bwd(
   EMIP_TRY(message_bwd(x, C, t, LayerWeights{wq, wk, wv, wm}, s1, d, qkv, o,
                        m, stats, g, C,
                        LayerGrads{gwq, gwk, gwv, gwm, gs1, gb1}, gx,
-                       add_residual != 0, gt, false, gm, go, gqkv, eps, all,
-                       s));
+                       add_residual != 0, gt, false, false, gm, go, gqkv,
+                       eps, all, s));
   return (int)cudaGetLastError();
 }
 
@@ -368,7 +346,7 @@ extern "C" int emip_window_ffn_layer_bwd(
   EMIP_TRY(message_bwd(x, C, t, LayerWeights{wq, wk, wv, wm}, s1, d, qkv, o,
                        m, stats, gmsg, C,
                        LayerGrads{gwq, gwk, gwv, gwm, gs1, gb1}, gx, true, gt,
-                       false, gm, go, gqkv, eps, all, s));
+                       false, false, gm, go, gqkv, eps, all, s));
   return (int)cudaGetLastError();
 }
 
@@ -453,15 +431,15 @@ extern "C" int emip_window_block_bwd(
   EMIP_TRY(message_bwd(cat, C2, t, LayerWeights{wq2, wk2, wv2, wm2}, sa, d,
                        qkv2, o2, m2, stats2, gmsg, C,
                        LayerGrads{gwq2, gwk2, gwv2, gwm2, gsa, gba}, gx1,
-                       true, gt, false, gm, go, gqkv, eps, all, s));
+                       true, gt, false, false, gm, go, gqkv, eps, all, s));
   // x1 = x + LN1s(message(x, x)): q, k and v from x
   if (gx)
     EMIP_TRY(cudaMemcpyAsync(gx, gx1, rc * sizeof(float),
                              cudaMemcpyDeviceToDevice, s));
   EMIP_TRY(message_bwd(x, C, x, LayerWeights{wq1, wk1, wv1, wm1}, s1, d, qkv1,
                        o1, m1, stats1, gx1, C,
-                       LayerGrads{gwq1, gwk1, gwv1, gwm1, gs1, gb1}, gx, true,
-                       gx, true, gm, go, gqkv, eps, all, s));
+                       LayerGrads{gwq1, gwk1, gwv1, gwm1, gs1, gb1}, nullptr,
+                       false, gx, true, true, gm, go, gqkv, eps, all, s));
   return (int)cudaGetLastError();
 }
 #undef EMIP_TRY

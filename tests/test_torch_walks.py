@@ -186,8 +186,8 @@ def _ln_bwd(x, dy, gamma):
 class _BlockWalk:
     """emip_window_block and emip_window_block_bwd of window_attention.cu,
     on [R, C] rows of windows of T tokens: GEMMs through gemm_tiled (K in
-    32, weight grads split in 3; gt and the self layer's input grads each
-    one product over stacked weights), the
+    32, weight grads split in 3, one product each; gt and the self
+    layer's input grads each one product over stacked weights), the
     attention backward through attention_bwd_tiled with the mask (16
     resident rows, streamed tiles of 16: T = 36 ragged)."""
 
@@ -216,7 +216,6 @@ class _BlockWalk:
     def message_bwd(self, xq, t, p, fw, gmsg, self_layer=False):
         """(gq Wq, gk Wk + gv Wv, weight grads); in the self layer (q, k
         and v all from xq = t) the sum of both as one product."""
-        c = xq.shape[-1]
         gm, gs1, gb1 = _ln_bwd(fw["m"], gmsg, p["s1"])
         go = self.gemm(gm, p["wm"])
         dq, dk, dv = tf32.attention_bwd_tiled(
@@ -224,17 +223,16 @@ class _BlockWalk:
             self.win(fw["o"]), *fw["stats"], self.win(go), res_rows=16,
             stream_rows=16, matmul=self.mm, mask=self.mask)
         dq, dk, dv = (d.reshape(-1, d.shape[-1]) for d in (dq, dk, dv))
-        grads = dict(wm=self.wgrad(gm.T, fw["o"]), s1=gs1, b1=gb1)
-        # products that read one input run over the stacked weights
+        grads = dict(wm=self.wgrad(gm.T, fw["o"]), s1=gs1, b1=gb1,
+                     wq=self.wgrad(dq.T, xq), wk=self.wgrad(dk.T, t),
+                     wv=self.wgrad(dv.T, t))
+        # input grads that read one gradient block run over the stacked
+        # weights
         if self_layer:
             dqkv = torch.cat([dq, dk, dv], -1)
-            dw = self.wgrad(dqkv.T, t)
-            grads.update(wq=dw[:c], wk=dw[c:2 * c], wv=dw[2 * c:])
             w = torch.cat([p["wq"], p["wk"], p["wv"]])
             return None, self.gemm(dqkv, w), grads
         dkv = torch.cat([dk, dv], -1)
-        dw = self.wgrad(dkv.T, t)
-        grads.update(wq=self.wgrad(dq.T, xq), wk=dw[:c], wv=dw[c:])
         return (self.gemm(dq, p["wq"]),
                 self.gemm(dkv, torch.cat([p["wk"], p["wv"]])), grads)
 
