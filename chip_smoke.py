@@ -14,7 +14,15 @@ needs one card and no arguments, and it imports nothing of JAX. In order:
    then the 3xTF32 GEMM of kernels A, B, G and H alone at every shape the
    352^2 train step gives it in B and A, and at two ragged shapes, against
    the fp64 product and beside ``torch.matmul`` (one log line each; a
-   second call must give the same bits);
+   second call must give the same bits); and the tensor-core forward
+   attention of A, B, G and H alone (``kernels/attention.py``) at the
+   shapes those kernels give it (A's four PVT stages at 352^2 and at 512^2,
+   B's 64 windows of 484 tokens without and with the shift mask, G's and
+   H's windows of 1024 tokens at 1 and 4 clips, and pvt_v2_b0's widths, A
+   at 32 and B at 64), against the fp64 product and beside
+   ``scaled_dot_product_attention`` (the mask as its ``attn_mask``), one
+   ``attention`` log line each and a line with their sums (a second call
+   must give the same bits);
 4. kernel phase: each forward kernel A-D and F-J against its plain PyTorch
    version on the same seeded CUDA tensors, at the production shapes of
    the 352^2 path (A at all four PVT stages, B with and without the shift
@@ -28,10 +36,12 @@ needs one card and no arguments, and it imports nothing of JAX. In order:
    own and kept out of C's summed row), with the tolerance stated, and
    CUDA-event times of the kernel, the plain version and, where one
    PyTorch call computes the same function
-   (``scaled_dot_product_attention`` for C and F), that call. G and H have
-   no such call; for I (``softmax`` then ``matmul``) and J (``conv2d``
-   then ``gelu``) it would take two, so they have none either. C's and F's
-   forward must give the same bits on a second call;
+   (``scaled_dot_product_attention`` for C and F), that call. A, B, G and
+   H have no such call (the ``attention`` lines of phase 3 time their
+   attention beside one); for I (``softmax`` then ``matmul``) and J
+   (``conv2d`` then ``gelu``) it would take two, so they have none either.
+   The forwards of A, B, C, F, G and H must give the same bits on a second
+   call;
 5. backward phase: each backward kernel A-D and F-J against
    torch.autograd.grad of the plain version on the same seeded cotangent,
    at the train steps' shapes (B, G and H with input grads alone and with
@@ -102,17 +112,16 @@ its cases, and ``ms`` / ``plain_ms`` / ``library_ms`` / ``bound_ms`` summed
 over its cases, one call each; ``bound_ms`` is the larger of the case's
 operations over the card's peak for them and its bytes over the memory
 rate, ``bound_by`` says which, and no case may take less. Products on the
-CUDA cores count at the fp32 peak; C and F, forward and backward, and the
-backward of A, B, G and H run all theirs on the tensor cores as 3xTF32, at
-a third of the TF32 peak (``bound_rate: "tf32x3"``); the forwards of A, B,
-G and H run their GEMMs there and their attention on the CUDA cores, and
-their bound sums the two (``bound_rate: "mixed"``); such rows carry the
-CUDA cores' figure for all their operations as ``fp32_bound_ms``),
+CUDA cores count at the fp32 peak; A, B, C, F, G and H, forward and
+backward, run all theirs on the tensor cores as 3xTF32, at a third of the
+TF32 peak (``bound_rate: "tf32x3"``), and their rows carry the CUDA cores'
+figure for all their operations as ``fp32_bound_ms``),
 and as its last line ``{"ok": true, "device":
 {...}}``. Any failure raises and the exit code is non-zero, with no result
 line. Details also go to ``chiprun_out/chip_smoke.json``. ``--kernels
 NAMES`` is a development aid: the kernel phases alone, for the kernels
-whose name contains one of the comma-separated NAMES.
+whose name contains one of the comma-separated NAMES (``gemm`` adds the
+GEMM lines of phase 3, ``attention_fwd`` its attention lines).
 """
 
 from __future__ import annotations
@@ -255,29 +264,29 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 # dense TF32 on the tensor cores; a 3xTF32 product spends three of them
 PEAK_TF32_FLOPS = 495e12
-# the kernels that run all their products on the tensor cores as 3xTF32 (C
-# and F forward and backward; A, B, G and H backward): their bound counts
-# the operations at a third of the TF32 peak; the CUDA cores' fp32 figure,
-# the bound of the other rows and of these before their redesign, stands
-# beside it. None uses atomics: a second call must give the same bits
-TENSOR_CORE_KERNELS = ("flow_attention", "flow_attention_bwd",
-                       "memory_attention", "memory_attention_bwd",
-                       "sr_attention_bwd", "window_attention_block_bwd",
-                       "window_attention_layer_bwd",
-                       "window_attention_ffn_layer_bwd")
-# the forwards whose GEMMs run on the tensor cores (3xTF32) and whose
-# attention runs on the CUDA cores (fp32): their bound sums the two
-# products' times at the two rates (bound_rate "mixed")
-MIXED_KERNELS = ("sr_attention", "window_attention_block",
-                 "window_attention_layer", "window_attention_ffn_layer")
+# the kernels that run all their products on the tensor cores as 3xTF32 (A,
+# B, C, F, G and H, forward and backward): their bound counts the
+# operations at a third of the TF32 peak; the CUDA cores' fp32 figure, the
+# bound of the other rows and of these before their redesign, stands beside
+# it. None uses atomics: a second call must give the same bits
+TENSOR_CORE_KERNELS = ("sr_attention", "sr_attention_bwd",
+                       "window_attention_block", "window_attention_block_bwd",
+                       "window_attention_layer", "window_attention_layer_bwd",
+                       "window_attention_ffn_layer",
+                       "window_attention_ffn_layer_bwd",
+                       "flow_attention", "flow_attention_bwd",
+                       "memory_attention", "memory_attention_bwd")
 # the 3xTF32 GEMM alone against the fp64 product: max|err| / max|ref| (fp32
 # rounding of sums over up to 61,952 rows)
 GEMM_REL_TOL = 1e-5
+# the tensor-core attention of A, B, G and H alone against the fp64
+# product: max|err| / max|ref| (3xTF32 products, fp32 sums over up to 1024
+# keys, the fast exp intrinsic)
+ATTN_REL_TOL = 1e-5
 
 
 def bound_rate(name: str) -> str:
-    return ("tf32x3" if name in TENSOR_CORE_KERNELS
-            else "mixed" if name in MIXED_KERNELS else "fp32")
+    return "tf32x3" if name in TENSOR_CORE_KERNELS else "fp32"
 
 
 def log(msg: str) -> None:
@@ -445,17 +454,17 @@ def _window_dims(name: str, args):
     return rows, tok, c, 0, 1
 
 
-def forward_products(name: str, args) -> tuple[float, float]:
-    """(GEMM operations, attention operations) of one forward call of A, B,
-    G or H, multiply-adds counted as 2."""
+def forward_products(name: str, args) -> float:
+    """Operations of one forward call of A, B, G or H (its GEMMs and its
+    attention), multiply-adds counted as 2."""
     if name == "sr_attention":
         x, kv = args[0], args[1]
         (b, n, c), m = x.shape, kv.shape[1]
-        return (2 * b * n * c * c * 2 + 2 * b * m * c * 2 * c,
-                4 * b * n * m * c)
+        return (2 * b * n * c * c * 2 + 2 * b * m * c * 2 * c
+                + 4 * b * n * m * c)
     rows, tok, c, f, layers = _window_dims(name, args)
     gemm = layers * 4 * 2 * rows * c * c + 2 * rows * f * (2 * c + c)
-    return gemm, layers * 4 * rows * tok * c
+    return gemm + layers * 4 * rows * tok * c
 
 
 def forward_work(name: str, args, out) -> tuple[float, float, float]:
@@ -464,8 +473,9 @@ def forward_work(name: str, args, out) -> tuple[float, float, float]:
     every input read and the output written once in fp32."""
     nbytes = 4.0 * (numel(*args) + out.numel())
     tc = 0
-    if name in MIXED_KERNELS:
-        tc, ops = forward_products(name, args)
+    if name in ("sr_attention", "window_attention_block",
+                "window_attention_layer", "window_attention_ffn_layer"):
+        tc, ops = forward_products(name, args), 0
     elif name == "softmax_expectation":
         # per corr element: max, exp, sum and two multiply-adds
         ops = args[0].numel() * 8
@@ -1103,6 +1113,109 @@ def gemm_phase(batch: int, device, reps: int) -> dict:
                           matmul_rel_err=mm_err, ms=ms, matmul_ms=mm_ms,
                           bound_ms=bound)
         del a, b, got
+    return out
+
+
+def attention_shapes(batch: int) -> list:
+    """(label, B, Nq, Nk, C, heads, windows, masked) of the forward
+    attention inside A, B, G and H: A's four PVT stages at 352^2 and at
+    512^2, B's windows at 352^2, G's and H's at 512^2 (1 and 4 clips, both
+    flow directions), and pvt_v2_b0's widths (A 32, B 64)."""
+    shapes = [(f"A N={n} M={m} C={c} heads={h}", batch, n, m, c, h, False,
+               False) for n, m, c, h in SR_STAGES]
+    shapes += [(f"A 512^2 N={n} M={m} C={c} heads={h}", BATCH_512, n, m, c,
+                h, False, False) for n, m, c, h in SR_STAGES_512]
+    windows = 2 * batch * 4
+    shapes += [(f"B [{windows},484,128]", windows, 484, 484, 128, 1, True,
+                False),
+               (f"B [{windows},484,128] mask", windows, 484, 484, 128, 1,
+                True, True)]
+    shapes += [(f"G H [{w},1024,128] mask", w, 1024, 1024, 128, 1, True,
+                True) for w in (2 * 4, 2 * BATCH_512 * 4)]
+    shapes += [("b0 A N=7744 M=121 C=32 heads=1", batch, 7744, 121, 32, 1,
+                False, False),
+               ("b0 A N=121 M=121 C=256 heads=8", batch, 121, 121, 256, 8,
+                False, False),
+               (f"b0 B [{windows},484,64] mask", windows, 484, 484, 64, 1,
+                True, True)]
+    return shapes
+
+
+def attention_phase(batch: int, device, reps: int) -> dict:
+    """The tensor-core forward attention of A, B, G and H alone at each
+    shape of :func:`attention_shapes`: its error and that of
+    ``scaled_dot_product_attention`` (fp32, the mask as its ``attn_mask``)
+    against the fp64 product, their times in turns, and the bound at the
+    3xTF32 rate. One log line per shape and one with the sums; not part of
+    the result line."""
+    import torch
+    import torch.nn.functional as F
+
+    from emip_tpu_torch.kernels.attention import attention
+    from emip_tpu_torch.ops.window import shifted_window_mask
+
+    r = seeded_randn(SEED + 23, device)
+    out, sums = {}, dict(ms=0.0, sdpa_ms=0.0, bound_ms=0.0)
+    for label, b, nq, nk, c, heads, windows, masked in attention_shapes(
+            batch):
+        ch = c // heads
+        q = r(b, nq, c)
+        if windows:
+            k, v = r(b, nk, c), r(b, nk, c)
+        else:  # kernel A reads the two halves of its [k | v] buffer
+            kv = r(b, nk, 2 * c)
+            k, v = kv[..., :c], kv[..., c:]
+        mask = None
+        if masked:
+            side = 2 * int(round(nq ** 0.5))
+            mask = shifted_window_mask(side, side, 2, device=device)
+        got = attention(q, k, v, heads, mask, windows)
+        if not torch.equal(attention(q, k, v, heads, mask, windows), got):
+            raise AssertionError(f"attention ({label}): two calls differ")
+        def heads_of(x):
+            return x.reshape(b, -1, heads, ch).transpose(1, 2)
+
+        bias = (None if mask is None else
+                mask[torch.arange(b, device=device) % mask.shape[0]][:, None])
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                heads_of(q), heads_of(k), heads_of(v), attn_mask=bias)
+
+        s = heads_of(q).double() @ heads_of(k).double().transpose(-1, -2)
+        s = s / ch ** 0.5 + (0.0 if bias is None else bias.double())
+        ref = (torch.softmax(s, -1) @ heads_of(v).double()).transpose(
+            1, 2).reshape(b, nq, c)
+        del s
+        scale = ref.abs().max().item()
+        err = (got.double() - ref).abs().max().item() / scale
+        lib = sdpa().transpose(1, 2).reshape(b, nq, c)
+        lib_err = (lib.double() - ref).abs().max().item() / scale
+        del ref, lib
+        ms, sdpa_ms = alternate_ms(
+            lambda: attention(q, k, v, heads, mask, windows), sdpa, reps)
+        ops = 4.0 * b * nq * nk * c
+        nbytes = 4.0 * (3 * b * nq * c + (0 if mask is None
+                                         else mask.numel()))
+        bound = max(ops / (PEAK_TF32_FLOPS / 3),
+                    nbytes / PEAK_BYTES_PER_S) * 1e3
+        ok = err <= ATTN_REL_TOL and ms >= bound
+        log(f"attention {label:32s} rel_err={err:.2e} (sdpa {lib_err:.2e}, "
+            f"tol {ATTN_REL_TOL}) ms={ms:.4f} sdpa_ms={sdpa_ms:.4f} "
+            f"bound_ms={bound:.4f} {ops / ms / 1e9:.1f} TFLOP/s "
+            f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            raise AssertionError(f"attention ({label}): rel_err={err}, "
+                                 f"ms={ms} against bound {bound}")
+        out[label] = dict(rel_err=err, sdpa_rel_err=lib_err, ms=ms,
+                          sdpa_ms=sdpa_ms, bound_ms=bound)
+        sums["ms"] += ms
+        sums["sdpa_ms"] += sdpa_ms
+        sums["bound_ms"] += bound
+        del q, k, v, got
+    log(f"attention: its {len(out)} shapes sum to ms={sums['ms']:.4f} "
+        f"sdpa_ms={sums['sdpa_ms']:.4f} bound_ms={sums['bound_ms']:.4f}")
+    out["sum"] = sums
     return out
 
 
@@ -2106,12 +2219,15 @@ def main(argv=None) -> int:
     if opts.kernels is not None:
         if wanted(opts.kernels, "gemm"):
             gemm_phase(BATCH, device, KERNEL_REPS)
+        if wanted(opts.kernels, "attention_fwd"):
+            attention_phase(BATCH, device, KERNEL_REPS)
         kernel_phase(BATCH, device, KERNEL_REPS, opts.kernels)
         backward_phase(BATCH, device, KERNEL_REPS, opts.kernels)
         if wanted(opts.kernels, "flow_attention"):
             stats_cost(BATCH, device, KERNEL_REPS)
         return 0
     gemm_res = gemm_phase(BATCH, device, KERNEL_REPS)
+    attention_res = attention_phase(BATCH, device, KERNEL_REPS)
     kernels = kernel_phase(BATCH, device, KERNEL_REPS)
     kernels.update(backward_phase(BATCH, device, KERNEL_REPS))
     transpose_ms = transpose_cost(BATCH, device, KERNEL_REPS)
@@ -2200,7 +2316,8 @@ def main(argv=None) -> int:
         for name in KERNEL_INFO]}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump(dict(card=card, gemm=gemm_res, kernels=kernels,
+        json.dump(dict(card=card, gemm=gemm_res, attention=attention_res,
+                       kernels=kernels,
                        slice=slice_res,
                        train=train_res, train_compare=compare_res,
                        entry=entry_res, long_infer=long_infer,

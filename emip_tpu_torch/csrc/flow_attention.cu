@@ -79,13 +79,13 @@ extern "C" int emip_flow_attention(const float* q, const float* k,
   if (C == 128)
     err = attention_fwd_tc<128, 2, kFlowFwdWarps, kFlowFwdMt, kFlowFwdStr>(
         AttnOperand{q, qsb, C}, AttnOperand{k, qsb, C},
-        AttnOperand{v, vsb, DV}, nullptr, out, stats, row_sum, B, L, L,
-        scale, w, s);
+        AttnOperand{v, vsb, DV}, nullptr, nullptr, 1,
+        AttnGrad{out, vsb, DV}, stats, row_sum, B, 1, L, L, scale, w, s);
   else if (C == 64)
     err = attention_fwd_tc<64, 2, kFlowFwdWarps, kFlowFwdMt, kFlowFwdStr>(
         AttnOperand{q, qsb, C}, AttnOperand{k, qsb, C},
-        AttnOperand{v, vsb, DV}, nullptr, out, stats, row_sum, B, L, L,
-        scale, w, s);
+        AttnOperand{v, vsb, DV}, nullptr, nullptr, 1,
+        AttnGrad{out, vsb, DV}, stats, row_sum, B, 1, L, L, scale, w, s);
   else
     return (int)cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;

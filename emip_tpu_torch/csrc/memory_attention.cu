@@ -76,16 +76,19 @@ extern "C" int emip_memory_attention(const float* q, const float* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long qsb = (long long)M * C, ksb = (long long)N * C;
   const AttnOperand qo{q, qsb, C}, ko{k, ksb, C}, vo{v, ksb, C};
+  const AttnGrad oo{out, qsb, C};
   float* row_sum = stats ? stats + (long long)B * M : nullptr;
   const Workspace w{ws, ws_floats};
   const float scale = 1.0f / sqrtf((float)C);
   cudaError_t err;
   if (C == 128)
     err = attention_fwd_tc<128, 128, kMemFwdWarps, kMemFwdMt, kMemFwdStr>(
-        qo, ko, vo, bias, out, stats, row_sum, B, M, N, scale, w, s);
+        qo, ko, vo, bias, nullptr, 1, oo, stats, row_sum, B, 1, M, N, scale,
+        w, s);
   else if (C == 64)
     err = attention_fwd_tc<64, 64, kMemFwdWarps, kMemFwdMt, kMemFwdStr>(
-        qo, ko, vo, bias, out, stats, row_sum, B, M, N, scale, w, s);
+        qo, ko, vo, bias, nullptr, 1, oo, stats, row_sum, B, 1, M, N, scale,
+        w, s);
   else
     return (int)cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;

@@ -1,13 +1,14 @@
 // Tensor-core tile core of the port's kernels: fp32-grade products as three
 // TF32 products ("3xTF32"), tiles staged through shared memory with
 // asynchronous copies, and the flash-style attention forward and backward
-// built on both. flow_attention.cu (kernel C, value width 2, key width 128
-// or 64) and memory_attention.cu (kernel F, value and key width 128 or 64,
-// additive key bias) instantiate the forward and the backward;
-// window_attention.cu (kernels B, G, H: width 128 or 64, the shifted-window
-// mask) and sr_attention.cu (kernel A: heads of width 64 or 32) the
-// backward. The GEMM of kernels A, B, G and H (gemm_tf32.cuh) is built on
-// the same 3xTF32 products and copies.
+// built on both. Every attention of the port runs here, forward and
+// backward: flow_attention.cu (kernel C, value width 2, key width 128 or
+// 64), memory_attention.cu (kernel F, value and key width 128 or 64,
+// additive key bias), window_attention.cu (kernels B, G, H: width 128 or
+// 64, the shifted-window mask) and sr_attention.cu (kernel A: heads of
+// width 64 or 32); the forwards of A, B, G and H through attention_fwd.cuh.
+// The GEMM of kernels A, B, G and H (gemm_tf32.cuh) is built on the same
+// 3xTF32 products and copies.
 //
 //   tf32_split       x = hi + lo with hi = tf32(x) (rounded as cvt.rna does)
 //                    and lo = tf32(x - hi) (truncated by the tensor core): hi
@@ -34,49 +35,48 @@
 //                    shared tile with 16-byte cp.async, neighbouring
 //                    threads on neighbouring addresses; rows past the end
 //                    are zero-filled by the copy itself.
-//   attention_fwd_tc out = softmax(q k^T scale + bias) v, and where a
+//   attention_fwd_tc out = softmax(q k^T scale + bias + mask) v, and where a
 //                    gradient will be taken each row's max and sum, kept
 //                    apart (with every key masked the max is -1e9, where
-//                    fp32 has no room for max + log sum). What bounds it:
-//                    the q k^T product (and with DV = D the P v product),
-//                    2 Nq Nk D operations each per batch row. A block owns
-//                    WARPS x MT x 16 query rows, kept in shared memory, and
-//                    streams k and v in tiles of STR rows through a ring of
-//                    two cp.async stages with one barrier per tile. The
-//                    scores stay in the accumulator fragments: the online
-//                    max and sum run on them in registers (a row lives in
-//                    the four lanes of a quad, so its max is two shuffles;
-//                    the sum is kept per lane and added up once at the
-//                    end), the output accumulators are rescaled by
-//                    exp(m_old - m_new), and P = exp(S scale + bias - m_new)
-//                    overwrites S in place, which is the A operand of
+//                    fp32 has no room for max + log sum). Batch row z = b H
+//                    + h is head h of batch b, read at column h x width of
+//                    [B, N, H x width] operands and written there (kernel
+//                    A's q and [k | v] buffers; HEADS instantiations only).
+//                    What bounds it: the q k^T product (and with DV = D the
+//                    P v product), 2 Nq Nk D operations each per batch row.
+//                    A block owns WARPS x MT x 16 query rows, kept in shared
+//                    memory, and streams k and v in tiles of STR rows
+//                    through a ring of two cp.async stages with one barrier
+//                    per tile. The scores stay in the accumulator fragments:
+//                    the online max and sum run on them in registers (a row
+//                    lives in the four lanes of a quad, so its max is two
+//                    shuffles; the sum is kept per lane and added up once at
+//                    the end), the output accumulators are rescaled by
+//                    exp(m_old - m_new), and P = exp(S scale + bias + mask -
+//                    m_new) overwrites S in place, which is the A operand of
 //                    warp_gemm_ak for O += P v. With DV = 2 that product
-//                    is two FMAs per score on the CUDA cores. Keys past the
-//                    end of a ragged last tile are masked to -inf; masked
-//                    tiles are not skipped (with every key at bias -1e9 the
-//                    result is the plain mean of v). Where the blocks leave
-//                    the card idle, or its last wave mostly empty, the keys
-//                    are split across blocks; a further launch merges the
+//                    is two FMAs per score on the CUDA cores. The additive
+//                    mask [mask_nw, Nq, Nk] (the shifted-window mask of
+//                    kernels B, G, H: 3.7 MiB at T = 484, 16 MiB at T =
+//                    1024, so it sits in L2) is read where it is added, a
+//                    column pair at a time (kMaskL2), or staged in shared
+//                    memory beside k and v (kMaskStaged). Keys past the end
+//                    of a ragged last tile are masked to -inf; masked tiles
+//                    are not skipped (with every key at bias -1e9 the result
+//                    is the plain mean of v). Where the blocks leave the
+//                    card idle, or its last wave mostly empty, the keys are
+//                    split across blocks; a further launch merges the
 //                    normalised partials in order by their max and sum.
 //   attention_bwd_tc dq, dk, dv of softmax(q k^T scale + bias + mask) v
-//                    from the row max and row sum the forward kept. Batch
-//                    row z = b H + h is head h of batch b, read at column
-//                    h x width of [B, N, H x width] operands (kernel A's
-//                    q and [k | v] buffers); the additive mask [mask_nw, Nq,
-//                    Nk] (the shifted-window mask of kernels B, G, H: 3.7
-//                    MiB at T = 484, 16 MiB at T = 1024, so it sits in L2)
-//                    is read from global memory into registers at the top
-//                    of each streamed tile, before the tile's products, and
-//                    added to the score fragments (transposed in the
-//                    key-tiled pass); staging it in shared memory beside k
-//                    and v would not fit the 128-wide tiling (199 KiB
-//                    already, 235 KiB with two mask stages of [128, 36]); at
-//                    width 64 it would fit (103 + 36 KiB, one block per SM
-//                    either way, held there by registers) and has not been
-//                    measured against the L2 read. Two passes, each a grid of blocks that own
-//                    WARPS x MT x 16 rows of one side (kept in shared
-//                    memory) and stream the other side through the same
-//                    ring of stages:
+//                    from the row max and row sum the forward kept, with
+//                    heads and the mask as in the forward; the mask is read
+//                    into registers at the top of each streamed tile, before
+//                    the tile's products (from L2, or from the tile staged
+//                    beside the streamed side's), and added to the score
+//                    fragments (transposed in the key-tiled pass). Two
+//                    passes, each a grid of blocks that own WARPS x MT x 16
+//                    rows of one side (kept in shared memory) and stream the
+//                    other side through the same ring of stages:
 //                      query-tiled:  S = q k^T, dP = dO v^T,
 //                                    dS = P (dP - delta), dq += dS k
 //                      key-tiled:    S^T = k q^T, dP^T = v dO^T,
@@ -94,11 +94,13 @@
 //                    out.
 //
 // No kernel here uses atomics: a second call gives the same bits. The widths
-// are template parameters; instantiated: the forward at D = DV = 128 or 64
-// (kernel F) and D = 128 or 64 with DV = 2 (kernel C); the backward at
-// those and at D = DV = 64 or 32 with heads (kernel A), D = DV = 128 or 64
-// with the mask (kernels B, G, H). 128 is pvt_v2_b5's GMFlow feature width,
-// 64 b0's; 64 and 32 are the two backbones' PVT head widths.
+// are template parameters; instantiated, forward and backward: D = DV = 128
+// or 64 with a key bias (kernel F), D = 128 or 64 with DV = 2 (kernel C),
+// D = DV = 64 or 32 with heads (kernel A), D = DV = 128 or 64 with the mask
+// (kernels B, G, H). 128 is pvt_v2_b5's GMFlow feature width, 64 b0's; 64
+// and 32 are the two backbones' PVT head widths. C's and F's instantiations
+// take no mask, and their forwards no heads, at compile time: either would
+// cost their tilings registers.
 
 #pragma once
 
@@ -311,11 +313,19 @@ __device__ __forceinline__ void load_vector_async(float* dst, const float* src,
 
 constexpr int kTcStages = 2;
 
+// Where a score mask [mask_nw, Nq, Nk] is read: not at all (kernels C and
+// F); from global memory (it sits in L2) into registers before each
+// streamed tile's products; from global memory where it is added (the
+// forward only); or staged in shared memory beside the tile's k and v by
+// the same asynchronous copies.
+enum MaskRead { kMaskNone = 0, kMaskL2 = 1, kMaskL2AtUse = 3, kMaskStaged = 2 };
+
 // Shared-memory plan of one pass: the resident side's tiles (with RES_V its
 // value-width rows too), then the ring of stages, each the streamed side's
-// tiles and VECS per-row vectors. A warp owns MT fragments of 16 resident
-// rows.
-template <int D, int DV, int WARPS, int MT, int STR, bool RES_V, int VECS>
+// tiles, VECS per-row vectors and EXTRA floats of a staged mask tile. A
+// warp owns MT fragments of 16 resident rows.
+template <int D, int DV, int WARPS, int MT, int STR, bool RES_V, int VECS,
+          int EXTRA>
 struct TcPlan {
   static_assert(D % 8 == 0 && STR % 8 == 0, "fragment sizes");
   static_assert(DV == 2 || DV == D, "value width: 2, or the key width");
@@ -331,7 +341,8 @@ struct TcPlan {
   static constexpr int kResTileV = RES_V && kWide ? kRes * kLdV : 0;
   static constexpr int kStrTile = STR * kLd;
   static constexpr int kStrTileV = kWide ? STR * kLdV : STR * DV;
-  static constexpr int kStage = kStrTile + kStrTileV + VECS * STR;
+  static constexpr int kMaskOff = kStrTile + kStrTileV + VECS * STR;
+  static constexpr int kStage = kMaskOff + EXTRA;
   static constexpr size_t kBytes =
       sizeof(float) * (kResTile + kResTileV + kTcStages * kStage);
   // blocks that share an SM: what its 227 KiB of shared memory hold (1 KiB
@@ -344,13 +355,135 @@ struct TcPlan {
                          : (kRegFit < 1 ? 1 : kRegFit);
 };
 
-// the forward: resident queries; a stage holds k, v and the bias
-template <int D, int DV, int WARPS, int MT, int STR>
-using TcFwd = TcPlan<D, DV, WARPS, MT, STR, false, 1>;
+// Leading dimensions of a staged mask tile: [resident rows][STR + 8] where
+// the resident side is the queries (the forward, the query-tiled pass),
+// [STR][resident rows + 4] where it is the keys (the key-tiled pass reads
+// the mask transposed). Both put the fragment reads on 32 banks.
+template <int STR>
+constexpr int kMaskLdRows = STR + 8;
+template <int RES>
+constexpr int kMaskLdCols = RES + 4;
+
+constexpr int tc_mask_floats(int mask, int res, int str, bool both) {
+  return mask != kMaskStaged ? 0
+         : !both             ? res * (str + 8)
+         : res * (str + 8) > str * (res + 4) ? res * (str + 8)
+                                             : str * (res + 4);
+}
+
+// the forward: resident queries; a stage holds k, v, the bias and, staged,
+// the mask's [resident rows, STR] tile
+template <int D, int DV, int WARPS, int MT, int STR, int MASK = kMaskNone>
+using TcFwd = TcPlan<D, DV, WARPS, MT, STR, false, 1,
+                     tc_mask_floats(MASK, 16 * MT * WARPS, STR, false)>;
 // the backward's passes: resident q and dO (or k and v); a stage holds the
-// other side's two tiles and up to four per-row vectors
-template <int D, int DV, int WARPS, int MT, int STR>
-using TcBwd = TcPlan<D, DV, WARPS, MT, STR, true, 4>;
+// other side's two tiles, up to four per-row vectors and, staged, the
+// mask's tile of either pass
+template <int D, int DV, int WARPS, int MT, int STR, int MASK = kMaskNone>
+using TcBwd = TcPlan<D, DV, WARPS, MT, STR, true, 4,
+                     tc_mask_floats(MASK, 16 * MT * WARPS, STR, true)>;
+
+// ------------------------------------------------------- score masks
+
+// dst[r][c] = src[(r0 + r) * sn + c0 + c] for r < ROWS, c < COLS (dst rows
+// LD floats apart) in 16-byte copies; zeros where the row is at or past
+// rows_total or the column at or past cols_total (a multiple of 4).
+template <int ROWS, int COLS, int LD, int THREADS>
+__device__ __forceinline__ void load_mask_async(float* dst, const float* src,
+                                                int sn, int r0,
+                                                int rows_total, int c0,
+                                                int cols_total, int tid) {
+  constexpr int kChunks = COLS / 4;
+  for (int i = tid; i < ROWS * kChunks; i += THREADS) {
+    const int r = i / kChunks, c = (i % kChunks) * 4;
+    const bool ok = r0 + r < rows_total && c0 + c < cols_total;
+    cp_async<16>(dst + r * LD + c,
+                 ok ? src + (long long)(r0 + r) * sn + c0 + c : src, ok);
+  }
+}
+
+// This thread's mask values of a score tile from global memory: rows row +
+// 16 m + 8 h (row = the warp's first resident row + g), columns col0 + 8 j
+// + 2 t + c, at mask[row * Nk + col] (TRANSPOSED: the rows are keys and
+// the columns queries, at mask[col * Nk + row]). Indices past the end are
+// clamped: their scores are masked or never stored.
+template <int MT, int NT, bool TRANSPOSED>
+__device__ __forceinline__ void mask_from_l2(const float* __restrict__ mask,
+                                             int Nq, int Nk, int row,
+                                             int col0, int t,
+                                             float (&mv)[MT][NT][4]) {
+  const int rows = TRANSPOSED ? Nk : Nq, cols = TRANSPOSED ? Nq : Nk;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int col = min(col0 + 8 * j + 2 * t + c, cols - 1);
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = min(row + 16 * m + 8 * h, rows - 1);
+          mv[m][j][2 * h + c] =
+              __ldg(TRANSPOSED ? mask + (long long)col * Nk + r
+                               : mask + (long long)r * Nk + col);
+        }
+    }
+}
+
+// The same from a staged tile: ms points at this thread's first row (g)
+// of the warp's rows of a [rows][LD] tile, read two columns at a time
+// (LD = 8 mod 32 puts a half-warp's 8-byte reads on 32 banks), or
+// TRANSPOSED at its first key column of a [STR][LD] tile (LD = 4 mod 32).
+template <int MT, int NT, int LD, bool TRANSPOSED>
+__device__ __forceinline__ void mask_from_smem(const float* ms, int t,
+                                               float (&mv)[MT][NT][4]) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if constexpr (TRANSPOSED) {
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            mv[m][j][2 * h + c] =
+                ms[(8 * j + 2 * t + c) * LD + 16 * m + 8 * h];
+        } else {
+          const float2 p = *reinterpret_cast<const float2*>(
+              ms + (16 * m + 8 * h) * LD + 8 * j + 2 * t);
+          mv[m][j][2 * h] = p.x;
+          mv[m][j][2 * h + 1] = p.y;
+        }
+      }
+}
+
+// The forward's mask values at columns jcol and jcol + 1 of a streamed tile
+// (key k0 + jcol, jcol = 8 j + 2 t) of this thread's rows 16 m + 8 h past
+// row (the warp's first + g): from L2, indices past the end clamped, or
+// from the staged tile ms (at the thread's first row) in one 8-byte read.
+template <int MT, int MASK, int LD>
+__device__ __forceinline__ void mask_pair(const float* __restrict__ mask,
+                                          const float* ms, int Nq, int Nk,
+                                          int row, int k0, int jcol,
+                                          float (&mk)[MT][2][2]) {
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if constexpr (MASK == kMaskStaged) {
+        const float2 p = *reinterpret_cast<const float2*>(
+            ms + (16 * m + 8 * h) * LD + jcol);
+        mk[m][h][0] = p.x;
+        mk[m][h][1] = p.y;
+      } else {
+        const float* mr = mask + (long long)min(row + 16 * m + 8 * h,
+                                                Nq - 1) * Nk;
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          mk[m][h][c] = __ldg(mr + min(k0 + jcol + c, Nk - 1));
+      }
+    }
+}
 
 // Splits of a pass's streamed side. With `blocks` blocks on `slots` places
 // and s splits a pass takes ceil(blocks * s / slots) / s of one block's
@@ -377,46 +510,59 @@ inline int tc_splits(long long blocks, int slots, int tiles,
 
 // ------------------------------------------------- attention forward
 
-// Row n of batch row b of an operand lies at p[b * sb + n * sn]; out is
-// [B, Nq, DV] and row_max / row_sum [B, Nq] (null: not kept); bias is
-// [B, Nk] or null. part_o [splits, B, Nq, DV] and part_stats [2, splits, B,
-// Nq] (max, then sum) hold the partials of a split pass.
+// Batch row z = b * H + h is head h of batch b: its row n of q and k lies
+// at p[b * sb + n * sn + h * D], of v and out at ... + h * DV. row_max /
+// row_sum are [B * H, Nq] (null: not kept); bias is [B, Nk] or null; mask
+// is [mask_nw, Nq, Nk] or null, batch b reading mask[b % mask_nw].
+// part_o [splits, B * H, Nq, DV] and part_stats [2, splits, B * H, Nq]
+// (max, then sum) hold the partials of a split pass.
 struct TcFwdArgs {
   AttnOperand q, k, v;
   const float* bias;
-  float* out;
+  const float* mask;
+  int mask_nw;
+  AttnGrad out;
   float* row_max;
   float* row_sum;
   float* part_o;
   float* part_stats;
-  int B, Nq, Nk;
+  int B, H, Nq, Nk;
   float scale;
   int tiles_per_split;
 };
 
-// Grid (query tiles, key splits, B). Split z of a batch row takes the key
-// tiles [z * tiles_per_split, ...). With one split a block writes out and,
-// with KEEP, the row statistics; otherwise its normalised partial output
-// and that partial's max and sum.
-template <int D, int DV, int WARPS, int MT, int STR, bool KEEP>
+// Grid (query tiles, key splits, B * H). Split s of a batch row takes the
+// key tiles [s * tiles_per_split, ...). With one split a block writes out
+// and, with KEEP, the row statistics; otherwise its normalised partial
+// output and that partial's max and sum. Without HEADS, H is 1 and out is
+// a dense [B, Nq, DV] (its strides are not read).
+template <int D, int DV, int WARPS, int MT, int STR, int MASK, bool HEADS,
+          bool KEEP>
 __global__ void
-__launch_bounds__(32 * WARPS, (TcFwd<D, DV, WARPS, MT, STR>::kBlocksPerSm))
+__launch_bounds__(32 * WARPS, (TcFwd<D, DV, WARPS, MT, STR, MASK>::kBlocksPerSm))
 attention_fwd_tc_kernel(TcFwdArgs a) {
-  using L = TcFwd<D, DV, WARPS, MT, STR>;
+  using L = TcFwd<D, DV, WARPS, MT, STR, MASK>;
+  constexpr int kMaskLd = kMaskLdRows<STR>;
   extern __shared__ __align__(16) float tc_smem[];
   float* Qs = tc_smem;            // [kRes][D + 4]
   float* stages = Qs + L::kResTile;
-  // a stage: K [STR][D + 4]; V [STR][DV + 4] or [STR][2]; bias [STR]
+  // a stage: K [STR][D + 4]; V [STR][DV + 4] or [STR][2]; bias [STR];
+  // staged, the mask [kRes][STR + 8]
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
   const int q0 = blockIdx.x * L::kRes;
   const int row0 = q0 + warp * L::kWarpRows;  // this warp's first query
-  const int split = blockIdx.y, splits = gridDim.y, b = blockIdx.z;
-  const float* qp = a.q.p + b * a.q.sb;
-  const float* kp = a.k.p + b * a.k.sb;
-  const float* vp = a.v.p + b * a.v.sb;
+  const int split = blockIdx.y, splits = gridDim.y, z = blockIdx.z;
+  const int b = HEADS ? z / a.H : z, h = HEADS ? z % a.H : 0;
+  const float* qp = a.q.p + b * a.q.sb + (long long)h * D;
+  const float* kp = a.k.p + b * a.k.sb + (long long)h * D;
+  const float* vp = a.v.p + b * a.v.sb + (long long)h * DV;
   const float* bias = a.bias ? a.bias + (long long)b * a.Nk : nullptr;
+  const float* mask =
+      MASK != kMaskNone && a.mask
+          ? a.mask + (long long)(b % a.mask_nw) * a.Nq * a.Nk
+          : nullptr;
 
   load_tile_async<D, L::kThreads>(Qs, qp, a.q.sn, q0, a.Nq, L::kRes, tid);
 
@@ -433,6 +579,10 @@ attention_fwd_tc_kernel(TcFwdArgs a) {
     if (bias)
       load_vector_async<4, L::kThreads>(st + L::kStrTile + L::kStrTileV, bias,
                                         k0, a.Nk, STR, tid);
+    if constexpr (MASK == kMaskStaged)
+      if (mask)
+        load_mask_async<L::kRes, STR, kMaskLd, L::kThreads>(
+            st + L::kMaskOff, mask, a.Nk, q0, a.Nq, k0, a.Nk, tid);
     cp_async_commit();
   };
 
@@ -445,9 +595,9 @@ attention_fwd_tc_kernel(TcFwdArgs a) {
 #pragma unroll
   for (int m = 0; m < MT; ++m) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mrow[m][h] = -INFINITY;
-      lrow[m][h] = 0.f;
+    for (int hf = 0; hf < 2; ++hf) {
+      mrow[m][hf] = -INFINITY;
+      lrow[m][hf] = 0.f;
     }
 #pragma unroll
     for (int n = 0; n < kAccN; ++n)
@@ -469,7 +619,16 @@ attention_fwd_tc_kernel(TcFwdArgs a) {
     const float* Ks = stages + s * L::kStage;
     const float* Vs = Ks + L::kStrTile;
     const float* bias_s = Vs + L::kStrTileV;
+    const float* mask_s =
+        Ks + L::kMaskOff + (warp * L::kWarpRows + g) * kMaskLd;
     const int k0 = tile * STR;
+    // from L2, this tile's mask values, read before the products so that
+    // the loads overlap them
+    float mv[MASK == kMaskL2 ? MT : 1][MASK == kMaskL2 ? L::kNT : 1][4];
+    if constexpr (MASK == kMaskL2)
+      if (mask)
+        mask_from_l2<MT, L::kNT, false>(mask, a.Nq, a.Nk, row0 + g, k0, t,
+                                        mv);
 
     float prod[1][MT][L::kNT][4];
 #pragma unroll
@@ -484,14 +643,29 @@ attention_fwd_tc_kernel(TcFwdArgs a) {
     warp_gemm_nt<1, D, MT, L::kNT, L::kLd>(res, str, g, t, prod);
     float(&sc)[MT][L::kNT][4] = prod[0];
 
-    // scaled, biased scores; keys past the end of the tile at -inf
+    // scaled, biased (masked) scores; keys past the end of the tile at -inf
     float mnew[MT][2];
 #pragma unroll
     for (int m = 0; m < MT; ++m)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) mnew[m][h] = -INFINITY;
+      for (int hf = 0; hf < 2; ++hf) mnew[m][hf] = -INFINITY;
 #pragma unroll
-    for (int j = 0; j < L::kNT; ++j)
+    for (int j = 0; j < L::kNT; ++j) {
+      // the mask at this column pair, read where it is added: read before
+      // the products (as the backward does) it would hold 32 registers
+      // that the 128-wide tiling does not have
+      float mk[MASK ? MT : 1][2][2];
+      if constexpr (MASK == kMaskL2)
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+            for (int c = 0; c < 2; ++c) mk[m][hf][c] = mv[m][j][2 * hf + c];
+      if constexpr (MASK == kMaskL2AtUse || MASK == kMaskStaged)
+        if (mask)
+          mask_pair<MT, MASK, kMaskLd>(mask, mask_s, a.Nq, a.Nk, row0 + g,
+                                       k0, 8 * j + 2 * t, mk);
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
         const int col = 8 * j + 2 * t + c;
@@ -500,29 +674,33 @@ attention_fwd_tc_kernel(TcFwdArgs a) {
 #pragma unroll
         for (int m = 0; m < MT; ++m)
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int e = 2 * h + c;
-            const float x = ok ? sc[m][j][e] * a.scale + bs : -INFINITY;
+          for (int hf = 0; hf < 2; ++hf) {
+            const int e = 2 * hf + c;
+            float x = sc[m][j][e] * a.scale + bs;
+            if constexpr (MASK != kMaskNone)
+              if (mask) x += mk[m][hf][c];
+            x = ok ? x : -INFINITY;
             sc[m][j][e] = x;
-            mnew[m][h] = fmaxf(mnew[m][h], x);
+            mnew[m][hf] = fmaxf(mnew[m][hf], x);
           }
       }
+    }
     // the row max over the quad, the rescale of what came before
 #pragma unroll
     for (int m = 0; m < MT; ++m)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float mx = mnew[m][h];
+      for (int hf = 0; hf < 2; ++hf) {
+        float mx = mnew[m][hf];
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        mx = fmaxf(mx, mrow[m][h]);
-        const float alpha = __expf(mrow[m][h] - mx);  // 0 on the first tile
-        mrow[m][h] = mnew[m][h] = mx;
-        lrow[m][h] *= alpha;
+        mx = fmaxf(mx, mrow[m][hf]);
+        const float alpha = __expf(mrow[m][hf] - mx);  // 0 on the first tile
+        mrow[m][hf] = mnew[m][hf] = mx;
+        lrow[m][hf] *= alpha;
 #pragma unroll
         for (int n = 0; n < kAccN; ++n) {
-          acc[m][n][2 * h] *= alpha;
-          acc[m][n][2 * h + 1] *= alpha;
+          acc[m][n][2 * hf] *= alpha;
+          acc[m][n][2 * hf + 1] *= alpha;
         }
       }
     // P in place of S; with DV = 2 also O += P v here
@@ -539,14 +717,14 @@ attention_fwd_tc_kernel(TcFwdArgs a) {
 #pragma unroll
         for (int m = 0; m < MT; ++m)
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int e = 2 * h + c;
-            const float p = __expf(sc[m][j][e] - mnew[m][h]);
+          for (int hf = 0; hf < 2; ++hf) {
+            const int e = 2 * hf + c;
+            const float p = __expf(sc[m][j][e] - mnew[m][hf]);
             sc[m][j][e] = p;
-            lrow[m][h] += p;
+            lrow[m][hf] += p;
             if constexpr (!L::kWide) {
-              acc[m][0][2 * h] = fmaf(p, v0, acc[m][0][2 * h]);
-              acc[m][0][2 * h + 1] = fmaf(p, v1, acc[m][0][2 * h + 1]);
+              acc[m][0][2 * hf] = fmaf(p, v0, acc[m][0][2 * hf]);
+              acc[m][0][2 * hf + 1] = fmaf(p, v1, acc[m][0][2 * hf + 1]);
             }
           }
       }
@@ -557,128 +735,155 @@ attention_fwd_tc_kernel(TcFwdArgs a) {
   // the four lanes of a row hold parts of its sum (and, with DV = 2, of its
   // two outputs)
   const bool whole = splits == 1;
-  const long long rows = (long long)a.B * a.Nq;
-  float* o_dst = whole ? a.out + (long long)b * a.Nq * DV
-                       : a.part_o + ((long long)split * a.B + b) * a.Nq * DV;
-  float* m_dst = whole ? (KEEP ? a.row_max + (long long)b * a.Nq : nullptr)
-                       : a.part_stats + ((long long)split * a.B + b) * a.Nq;
-  float* l_dst = whole ? (KEEP ? a.row_sum + (long long)b * a.Nq : nullptr)
+  const long long rows = (long long)gridDim.z * a.Nq;
+  float* o_dst;
+  long long o_sn = DV;
+  if (!whole) {
+    o_dst = a.part_o + ((long long)split * gridDim.z + z) * a.Nq * DV;
+  } else if constexpr (HEADS) {
+    o_dst = a.out.p + b * a.out.sb + (long long)h * DV;
+    o_sn = a.out.sn;
+  } else {
+    o_dst = a.out.p + (long long)b * a.Nq * DV;
+  }
+  float* m_dst = whole ? (KEEP ? a.row_max + (long long)z * a.Nq : nullptr)
+                       : a.part_stats + ((long long)split * gridDim.z + z) *
+                                            a.Nq;
+  float* l_dst = whole ? (KEEP ? a.row_sum + (long long)z * a.Nq : nullptr)
                        : m_dst + splits * rows;
 #pragma unroll
   for (int m = 0; m < MT; ++m)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float l = lrow[m][h];
+    for (int hf = 0; hf < 2; ++hf) {
+      float l = lrow[m][hf];
       l += __shfl_xor_sync(0xffffffffu, l, 1);
       l += __shfl_xor_sync(0xffffffffu, l, 2);
       if constexpr (!L::kWide) {
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
-          float& o = acc[m][0][2 * h + c];
+          float& o = acc[m][0][2 * hf + c];
           o += __shfl_xor_sync(0xffffffffu, o, 1);
           o += __shfl_xor_sync(0xffffffffu, o, 2);
         }
       }
-      const int n = row0 + 16 * m + g + 8 * h;
+      const int n = row0 + 16 * m + g + 8 * hf;
       if (n >= a.Nq) continue;
       const float inv = 1.0f / l;
       if constexpr (L::kWide) {
 #pragma unroll
         for (int c = 0; c < DV / 8; ++c)
-          *reinterpret_cast<float2*>(o_dst + (long long)n * DV + 8 * c +
-                                     2 * t) =
-              make_float2(acc[m][c][2 * h] * inv, acc[m][c][2 * h + 1] * inv);
+          *reinterpret_cast<float2*>(o_dst + n * o_sn + 8 * c + 2 * t) =
+              make_float2(acc[m][c][2 * hf] * inv,
+                          acc[m][c][2 * hf + 1] * inv);
       } else if (t == 0) {
-        *reinterpret_cast<float2*>(o_dst + (long long)n * 2) =
-            make_float2(acc[m][0][2 * h] * inv, acc[m][0][2 * h + 1] * inv);
+        *reinterpret_cast<float2*>(o_dst + n * o_sn) =
+            make_float2(acc[m][0][2 * hf] * inv, acc[m][0][2 * hf + 1] * inv);
       }
       if (m_dst && t == 0) {
-        m_dst[n] = mrow[m][h];
+        m_dst[n] = mrow[m][hf];
         l_dst[n] = l;
       }
     }
 }
 
-// out = sum_z w_z part_o[z] / sum_z w_z with w_z = l_z exp(m_z - max m), the
-// splits taken in order; row_max / row_sum (if not null) get max m and
-// sum_z w_z. rows = B * Nq.
+// Row r = z * Nq + n of the merged output (z = b * H + h), written at
+// out.p[b * sb + n * sn + h * W + col]: sum_s w_s part_o[s] / sum_s w_s with
+// w_s = l_s exp(m_s - max m), the splits taken in order; row_max / row_sum
+// (if not null) [B * H, Nq] get max m and sum_s w_s.
 template <int W>
 __global__ void attention_merge_kernel(const float* __restrict__ part_o,
                                        const float* __restrict__ part_stats,
-                                       int splits, long long rows,
-                                       float* __restrict__ out,
+                                       int splits, int H, int Nq,
+                                       long long rows, AttnGrad out,
                                        float* __restrict__ row_max,
                                        float* __restrict__ row_sum) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= rows * W) return;
   const long long r = idx / W;
+  const int col = (int)(idx % W);
   const float* pm = part_stats + r;
   const float* pl = pm + splits * rows;
   const float* po = part_o + idx;
   float mx = -INFINITY;
-  for (int z = 0; z < splits; ++z) mx = fmaxf(mx, pm[z * rows]);
+  for (int s = 0; s < splits; ++s) mx = fmaxf(mx, pm[s * rows]);
   float wsum = 0.f, o = 0.f;
-  for (int z = 0; z < splits; ++z) {
-    const float w = pl[z * rows] * __expf(pm[z * rows] - mx);
+  for (int s = 0; s < splits; ++s) {
+    const float w = pl[s * rows] * __expf(pm[s * rows] - mx);
     wsum += w;
-    o = fmaf(w, po[z * rows * W], o);
+    o = fmaf(w, po[s * rows * W], o);
   }
-  out[idx] = o / wsum;
-  if (row_max && idx % W == 0) {
+  const int z = (int)(r / Nq), n = (int)(r % Nq);
+  out.p[(z / H) * out.sb + (long long)n * out.sn + (long long)(z % H) * W +
+        col] = o / wsum;
+  if (row_max && col == 0) {
     row_max[r] = mx;
     row_sum[r] = wsum;
   }
 }
 
-template <int D, int DV, int WARPS, int MT, int STR, bool KEEP>
+template <int D, int DV, int WARPS, int MT, int STR, int MASK, bool HEADS,
+          bool KEEP>
 cudaError_t attention_fwd_tc_launch(const TcFwdArgs& a, dim3 grid,
                                     cudaStream_t stream) {
-  using L = TcFwd<D, DV, WARPS, MT, STR>;
+  using L = TcFwd<D, DV, WARPS, MT, STR, MASK>;
   // set once per instantiation, not per launch (one card per process)
   static const cudaError_t attr = cudaFuncSetAttribute(
-      attention_fwd_tc_kernel<D, DV, WARPS, MT, STR, KEEP>,
+      attention_fwd_tc_kernel<D, DV, WARPS, MT, STR, MASK, HEADS, KEEP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
   if (attr != cudaSuccess) return attr;
-  attention_fwd_tc_kernel<D, DV, WARPS, MT, STR, KEEP>
+  attention_fwd_tc_kernel<D, DV, WARPS, MT, STR, MASK, HEADS, KEEP>
       <<<grid, L::kThreads, L::kBytes, stream>>>(a);
   return cudaGetLastError();
 }
 
-// out [B, Nq, DV] = softmax(q k^T scale + bias) v; q: [B, Nq, .], k, v:
-// [B, Nk, .], bias [B, Nk] or null. row_max and row_sum [B, Nq] are written
-// when row_max is not null (a gradient will be taken). ws: room for the
-// partials of a split pass (fewer splits when it is short).
-template <int D, int DV, int WARPS, int MT, int STR>
+// out = softmax(q k^T scale + bias + mask) v per head. q, out: [B, Nq, H *
+// .]; k, v: [B, Nk, H * .] (head h at columns h * D of q and k, h * DV of v
+// and out), read only by the HEADS instantiations (kernel A's; the others
+// take H = 1 and a dense out: C's and F's registers stay as they were);
+// bias [B, Nk] or null; mask [mask_nw, Nq, Nk] or null, read only by
+// instantiations with a MASK mode (staged, Nk must be a multiple of 4).
+// row_max and row_sum [B * H, Nq] are written when row_max is not null (a
+// gradient will be taken). ws: room for the partials of a split pass (fewer
+// splits when it is short).
+template <int D, int DV, int WARPS, int MT, int STR, int MASK = kMaskNone,
+          bool HEADS = false>
 cudaError_t attention_fwd_tc(AttnOperand q, AttnOperand k, AttnOperand v,
-                             const float* bias, float* out, float* row_max,
-                             float* row_sum, int B, int Nq, int Nk,
+                             const float* bias, const float* mask,
+                             int mask_nw, AttnGrad out, float* row_max,
+                             float* row_sum, int B, int H, int Nq, int Nk,
                              float scale, Workspace ws, cudaStream_t stream) {
-  using L = TcFwd<D, DV, WARPS, MT, STR>;
+  using L = TcFwd<D, DV, WARPS, MT, STR, MASK>;
+  if ((mask && (MASK == kMaskNone || (MASK == kMaskStaged && Nk % 4))) ||
+      (!HEADS && (H != 1 || out.sn != DV || out.sb != (long long)Nq * DV)))
+    return cudaErrorInvalidValue;
   TcFwdArgs a;
   a.q = q; a.k = k; a.v = v;
   a.bias = bias;
+  a.mask = mask; a.mask_nw = mask_nw;
   a.out = out; a.row_max = row_max; a.row_sum = row_sum;
   a.part_o = a.part_stats = nullptr;
-  a.B = B; a.Nq = Nq; a.Nk = Nk;
+  a.B = B; a.H = H; a.Nq = Nq; a.Nk = Nk;
   a.scale = scale;
-  const long long rows = (long long)B * Nq;
+  const int BH = B * H;
+  const long long rows = (long long)BH * Nq;
   const int res_tiles = ceil_div(Nq, L::kRes);
   const int splits =
-      tc_splits((long long)res_tiles * B, kSmCount * L::kBlocksPerSm,
+      tc_splits((long long)res_tiles * BH, kSmCount * L::kBlocksPerSm,
                 ceil_div(Nk, STR), rows * (DV + 2), ws.n, &a.tiles_per_split);
   if (splits > 1) {
     a.part_o = ws.p;
     a.part_stats = ws.p + splits * rows * DV;
   }
-  const dim3 grid(res_tiles, splits, B);
+  const dim3 grid(res_tiles, splits, BH);
   cudaError_t err =
-      row_max ? attention_fwd_tc_launch<D, DV, WARPS, MT, STR, true>(a, grid,
-                                                                     stream)
-              : attention_fwd_tc_launch<D, DV, WARPS, MT, STR, false>(
-                    a, grid, stream);
+      row_max
+          ? attention_fwd_tc_launch<D, DV, WARPS, MT, STR, MASK, HEADS, true>(
+                a, grid, stream)
+          : attention_fwd_tc_launch<D, DV, WARPS, MT, STR, MASK, HEADS,
+                                    false>(a, grid, stream);
   if (err != cudaSuccess || splits == 1) return err;
   attention_merge_kernel<DV><<<ceil_div(rows * DV, 256), 256, 0, stream>>>(
-      a.part_o, a.part_stats, splits, rows, out, row_max, row_sum);
+      a.part_o, a.part_stats, splits, H, Nq, rows, out, row_max, row_sum);
   return cudaGetLastError();
 }
 
@@ -763,16 +968,18 @@ __device__ __forceinline__ void store_fragments(
 // Query-tiled pass, grid (query tiles, key splits, B): dq = scale * sum over
 // this split's keys of dS k, written to dq with one split and to
 // part_a[split] otherwise.
-template <int D, int DV, int WARPS, int MT, int STR, bool MASKED>
+template <int D, int DV, int WARPS, int MT, int STR, int MASK>
 __global__ void
-__launch_bounds__(32 * WARPS, (TcBwd<D, DV, WARPS, MT, STR>::kBlocksPerSm))
+__launch_bounds__(32 * WARPS, (TcBwd<D, DV, WARPS, MT, STR, MASK>::kBlocksPerSm))
 attention_bwd_tc_dq_kernel(TcBwdArgs a) {
-  using L = TcBwd<D, DV, WARPS, MT, STR>;
+  using L = TcBwd<D, DV, WARPS, MT, STR, MASK>;
+  constexpr int kMaskLd = kMaskLdRows<STR>;
   extern __shared__ __align__(16) float tc_smem[];
   float* Qs = tc_smem;              // [kRes][D + 4]
   float* Gs = Qs + L::kResTile;     // [kRes][DV + 4] (wide only)
   float* stages = Gs + L::kResTileV;
-  // a stage: K [STR][D + 4]; V [STR][DV + 4] or [STR][2]; bias [STR]
+  // a stage: K [STR][D + 4]; V [STR][DV + 4] or [STR][2]; bias [STR];
+  // staged, the mask [kRes][STR + 8]
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
@@ -786,8 +993,9 @@ attention_bwd_tc_dq_kernel(TcBwdArgs a) {
   const float* gp = a.go.p + b * a.go.sb + (long long)h * DV;
   const float* bias = a.bias ? a.bias + (long long)b * a.Nk : nullptr;
   const float* mask =
-      MASKED && a.mask ? a.mask + (long long)(b % a.mask_nw) * a.Nq * a.Nk
-                       : nullptr;
+      MASK != kMaskNone && a.mask
+          ? a.mask + (long long)(b % a.mask_nw) * a.Nq * a.Nk
+          : nullptr;
 
   load_tile_async<D, L::kThreads>(Qs, qp, a.q.sn, q0, a.Nq, L::kRes, tid);
   if constexpr (L::kWide)
@@ -806,13 +1014,15 @@ attention_bwd_tc_dq_kernel(TcBwdArgs a) {
     if (bias)
       load_vector_async<4, L::kThreads>(st + L::kStrTile + L::kStrTileV, bias,
                                         k0, a.Nk, STR, tid);
+    if constexpr (MASK == kMaskStaged)
+      if (mask)
+        load_mask_async<L::kRes, STR, kMaskLd, L::kThreads>(
+            st + L::kMaskOff, mask, a.Nk, q0, a.Nq, k0, a.Nk, tid);
     cp_async_commit();
   };
 
-  // this thread's rows: g and g + 8 of each of the warp's fragments (and,
-  // with a mask, where each row's mask begins; null past Nq)
+  // this thread's rows: g and g + 8 of each of the warp's fragments
   float rmax[MT][2], rinv[MT][2], rdel[MT][2], gr[MT][2][2];
-  const float* mrow[MASKED ? MT : 1][2];
 #pragma unroll
   for (int m = 0; m < MT; ++m)
 #pragma unroll
@@ -823,8 +1033,6 @@ attention_bwd_tc_dq_kernel(TcBwdArgs a) {
       rmax[m][hf] = ok ? a.row_max[row] : 0.f;
       rinv[m][hf] = ok ? 1.0f / a.row_sum[row] : 0.f;
       rdel[m][hf] = ok ? a.delta[row] : 0.f;
-      if constexpr (MASKED)
-        mrow[m][hf] = mask && ok ? mask + (long long)n * a.Nk : nullptr;
       gr[m][hf][0] = gr[m][hf][1] = 0.f;
       if (!L::kWide && ok) {
         gr[m][hf][0] = gp[(long long)n * a.go.sn];
@@ -855,26 +1063,18 @@ attention_bwd_tc_dq_kernel(TcBwdArgs a) {
     const float* Ks = stages + s * L::kStage;
     const float* Vs = Ks + L::kStrTile;
     const float* bias_s = Vs + L::kStrTileV;
+    const float* mask_s =
+        Ks + L::kMaskOff + (warp * L::kWarpRows + g) * kMaskLd;
     const int k0 = tile * STR;
-    // this tile's mask values, read from global memory (L2) before the
-    // products so that the loads overlap them
-    float mv[MASKED ? MT : 1][MASKED ? L::kNT : 1][4];
-    if constexpr (MASKED) {
-      if (mask) {
-#pragma unroll
-        for (int j = 0; j < L::kNT; ++j)
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const int key = k0 + 8 * j + 2 * t + c;
-#pragma unroll
-            for (int m = 0; m < MT; ++m)
-#pragma unroll
-              for (int hf = 0; hf < 2; ++hf)
-                mv[m][j][2 * hf + c] =
-                    mrow[m][hf] && key < a.Nk ? mrow[m][hf][key] : 0.f;
-          }
-      }
-    }
+    // this tile's mask values, read before the products so that the loads
+    // overlap them
+    float mv[MASK ? MT : 1][MASK ? L::kNT : 1][4];
+    if constexpr (MASK == kMaskL2)
+      if (mask)
+        mask_from_l2<MT, L::kNT, false>(mask, a.Nq, a.Nk, row0 + g, k0, t,
+                                        mv);
+    if constexpr (MASK == kMaskStaged)
+      if (mask) mask_from_smem<MT, L::kNT, kMaskLd, false>(mask_s, t, mv);
 
     // scores, and with wide values dO v^T beside them
     float prod[L::kProducts][MT][L::kNT][4];
@@ -910,7 +1110,7 @@ attention_bwd_tc_dq_kernel(TcBwdArgs a) {
           for (int hf = 0; hf < 2; ++hf) {
             const int e = 2 * hf + c;
             float x = sc[m][j][e] * a.scale + bs;
-            if constexpr (MASKED)
+            if constexpr (MASK != kMaskNone)
               if (mask) x += mv[m][j][e];
             const float p =
                 ok ? __expf(x - rmax[m][hf]) * rinv[m][hf] : 0.f;
@@ -937,17 +1137,19 @@ attention_bwd_tc_dq_kernel(TcBwdArgs a) {
 // queries dv = sum P^T dO and dk = scale * sum dS^T q, written to dk / dv
 // with one split and to part_a / part_b[split] otherwise. dk or dv may be
 // null (not computed).
-template <int D, int DV, int WARPS, int MT, int STR, bool MASKED>
+template <int D, int DV, int WARPS, int MT, int STR, int MASK>
 __global__ void
-__launch_bounds__(32 * WARPS, (TcBwd<D, DV, WARPS, MT, STR>::kBlocksPerSm))
+__launch_bounds__(32 * WARPS, (TcBwd<D, DV, WARPS, MT, STR, MASK>::kBlocksPerSm))
 attention_bwd_tc_dkv_kernel(TcBwdArgs a) {
-  using L = TcBwd<D, DV, WARPS, MT, STR>;
+  using L = TcBwd<D, DV, WARPS, MT, STR, MASK>;
+  constexpr int kMaskLd = kMaskLdCols<L::kRes>;
   extern __shared__ __align__(16) float tc_smem[];
   float* Ks = tc_smem;              // [kRes][D + 4]
   float* Vs = Ks + L::kResTile;     // [kRes][DV + 4] (wide only)
   float* stages = Vs + L::kResTileV;
   // a stage: Q [STR][D + 4]; dO [STR][DV + 4] or [STR][2]; row max, row
-  // sum, delta [STR] each
+  // sum, delta [STR] each; staged, the mask's [STR][kRes + 4] tile (query
+  // rows, this block's key columns)
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
@@ -964,8 +1166,9 @@ attention_bwd_tc_dkv_kernel(TcBwdArgs a) {
   const float* delta = a.delta + (long long)z * a.Nq;
   // the mask is read transposed: column n of key row j at mask[n * Nk + j]
   const float* mask =
-      MASKED && a.mask ? a.mask + (long long)(b % a.mask_nw) * a.Nq * a.Nk
-                       : nullptr;
+      MASK != kMaskNone && a.mask
+          ? a.mask + (long long)(b % a.mask_nw) * a.Nq * a.Nk
+          : nullptr;
   const bool want_k = a.dk.p != nullptr, want_v = a.dv.p != nullptr;
 
   load_tile_async<D, L::kThreads>(Ks, kp, a.k.sn, k0, a.Nk, L::kRes, tid);
@@ -987,6 +1190,10 @@ attention_bwd_tc_dkv_kernel(TcBwdArgs a) {
     load_vector_async<4, L::kThreads>(vec + STR, row_sum, n0, a.Nq, STR, tid);
     load_vector_async<4, L::kThreads>(vec + 2 * STR, delta, n0, a.Nq, STR,
                                       tid);
+    if constexpr (MASK == kMaskStaged)
+      if (mask)
+        load_mask_async<STR, L::kRes, kMaskLd, L::kThreads>(
+            st + L::kMaskOff, mask, a.Nk, n0, a.Nq, k0, a.Nk, tid);
     cp_async_commit();
   };
 
@@ -1035,28 +1242,15 @@ attention_bwd_tc_dkv_kernel(TcBwdArgs a) {
     const float* max_s = Gs + L::kStrTileV;
     const float* sum_s = max_s + STR;
     const float* del_s = sum_s + STR;
+    const float* mask_s = Qs + L::kMaskOff + warp * L::kWarpRows + g;
     const int n0 = tile * STR;
     // this tile's mask values (transposed), read before the products
-    float mv[MASKED ? MT : 1][MASKED ? L::kNT : 1][4];
-    if constexpr (MASKED) {
-      if (mask) {
-#pragma unroll
-        for (int j = 0; j < L::kNT; ++j)
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const int n = n0 + 8 * j + 2 * t + c;
-            const float* mcol = mask + (long long)n * a.Nk;
-#pragma unroll
-            for (int m = 0; m < MT; ++m)
-#pragma unroll
-              for (int hf = 0; hf < 2; ++hf) {
-                const int key = row0 + 16 * m + g + 8 * hf;
-                mv[m][j][2 * hf + c] =
-                    n < a.Nq && key < a.Nk ? mcol[key] : 0.f;
-              }
-          }
-      }
-    }
+    float mv[MASK ? MT : 1][MASK ? L::kNT : 1][4];
+    if constexpr (MASK == kMaskL2)
+      if (mask)
+        mask_from_l2<MT, L::kNT, true>(mask, a.Nq, a.Nk, row0 + g, n0, t, mv);
+    if constexpr (MASK == kMaskStaged)
+      if (mask) mask_from_smem<MT, L::kNT, kMaskLd, true>(mask_s, t, mv);
 
     // transposed tiles: rows are this warp's keys, columns the queries
     float prod[2][MT][L::kNT][4];
@@ -1093,7 +1287,7 @@ attention_bwd_tc_dkv_kernel(TcBwdArgs a) {
           for (int hf = 0; hf < 2; ++hf) {
             const int e = 2 * hf + c;
             float x = pt[m][j][e] * a.scale + rbias[m][hf];
-            if constexpr (MASKED)
+            if constexpr (MASK != kMaskNone)
               if (mask) x += mv[m][j][e];
             const float p = ok ? __expf(x - mx) * inv : 0.f;
             const float d = L::kWide
@@ -1156,9 +1350,8 @@ attention_bwd_tc_dkv_kernel(TcBwdArgs a) {
 // per head. o is the forward's output, go its gradient, row_max / row_sum
 // [B * H, Nq] its row statistics. q, go, dq: [B, Nq, H * .]; k, v, dk, dv:
 // [B, Nk, H * .]; bias [B, Nk] or null; mask [mask_nw, Nq, Nk] or null,
-// read only by the MASKED instantiations (the others take no mask: its
-// registers would make C's tiling spill).
-template <int D, int DV, int WARPS, int MT, int STR, bool MASKED = false>
+// read only by instantiations with a MASK mode (as in the forward).
+template <int D, int DV, int WARPS, int MT, int STR, int MASK = kMaskNone>
 cudaError_t attention_bwd_tc(AttnOperand q, AttnOperand k, AttnOperand v,
                              AttnOperand o, AttnOperand go, const float* bias,
                              const float* mask, int mask_nw,
@@ -1166,8 +1359,10 @@ cudaError_t attention_bwd_tc(AttnOperand q, AttnOperand k, AttnOperand v,
                              AttnGrad dq, AttnGrad dk, AttnGrad dv, int B,
                              int H, int Nq, int Nk, float scale, Workspace ws,
                              cudaStream_t stream) {
-  using L = TcBwd<D, DV, WARPS, MT, STR>;
-  if (mask && !MASKED) return cudaErrorInvalidValue;
+  using L = TcBwd<D, DV, WARPS, MT, STR, MASK>;
+  static_assert(MASK != kMaskL2AtUse, "the backward reads ahead");
+  if (mask && (MASK == kMaskNone || (MASK == kMaskStaged && Nk % 4)))
+    return cudaErrorInvalidValue;
   const int BH = B * H;
   const long long rows = (long long)BH * Nq;
   float* delta = ws.take(rows);
@@ -1196,10 +1391,10 @@ cudaError_t attention_bwd_tc(AttnOperand q, AttnOperand k, AttnOperand v,
     if (splits > 1) a.part_a = ws.p;  // free again after the sum below
     // set once per instantiation, not per launch (one card per process)
     static const cudaError_t attr = cudaFuncSetAttribute(
-        attention_bwd_tc_dq_kernel<D, DV, WARPS, MT, STR, MASKED>,
+        attention_bwd_tc_dq_kernel<D, DV, WARPS, MT, STR, MASK>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
     if (attr != cudaSuccess) return attr;
-    attention_bwd_tc_dq_kernel<D, DV, WARPS, MT, STR, MASKED>
+    attention_bwd_tc_dq_kernel<D, DV, WARPS, MT, STR, MASK>
         <<<dim3(res_tiles, splits, BH), L::kThreads, L::kBytes, stream>>>(a);
     if (splits > 1)
       split_reduce_kernel<<<ceil_div(rows * D, 256), 256, 0, stream>>>(
@@ -1218,10 +1413,10 @@ cudaError_t attention_bwd_tc(AttnOperand q, AttnOperand k, AttnOperand v,
       a.part_b = ws.p + splits * keys * D;
     }
     static const cudaError_t attr = cudaFuncSetAttribute(
-        attention_bwd_tc_dkv_kernel<D, DV, WARPS, MT, STR, MASKED>,
+        attention_bwd_tc_dkv_kernel<D, DV, WARPS, MT, STR, MASK>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
     if (attr != cudaSuccess) return attr;
-    attention_bwd_tc_dkv_kernel<D, DV, WARPS, MT, STR, MASKED>
+    attention_bwd_tc_dkv_kernel<D, DV, WARPS, MT, STR, MASK>
         <<<dim3(res_tiles, splits, BH), L::kThreads, L::kBytes, stream>>>(a);
     if (splits > 1 && dk.p)
       split_reduce_kernel<<<ceil_div(keys * D, 256), 256, 0, stream>>>(

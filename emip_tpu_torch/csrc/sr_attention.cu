@@ -10,15 +10,19 @@
 // What bounds it on the card: arithmetic, not bytes. The q / kv / proj
 // products run as the shared 3xTF32 GEMM on the tensor cores
 // (gemm_tf32.cuh), over all B*N (or B*M) rows at once. The attention
-// forward runs on the CUDA cores (primitives.cuh): at 352^2 every stage
-// has M = 121 keys, so each block streams the 121 keys of one (image, head)
-// through shared memory in four tiles, keeping the softmax online and the
-// [N, M] probabilities out of device memory, as the TPU kernel kept them
-// in VMEM; where a gradient will be taken it also keeps each row's max and
-// sum (stats [2, B, heads, N]). The sr conv + LayerNorm that produce kv_in
-// stay in PyTorch, as they stayed in XLA. The TPU kernel's
+// forward is attention_fwd_tc of mma_tf32.cuh (3xTF32 on the tensor cores;
+// tiling and dispatch in attention_fwd.cuh) with one batch row per (image,
+// head), reading q and the two halves of [k | v] in place at the head's
+// columns and writing o at them: at 352^2 every stage has M = 121 keys,
+// streamed in four tiles of 32 (the last ragged) with the softmax kept
+// online and the [N, M] probabilities out of device memory, as the TPU
+// kernel kept them in VMEM; where a gradient will be taken it also keeps
+// each row's max and sum (stats [2, B * heads, N]). At stage 4 (64 image-
+// head rows of 121 queries, 64 blocks) the keys are split across blocks and
+// merged in order (ws holds the partials). The sr conv + LayerNorm that
+// produce kv_in stay in PyTorch, as they stayed in XLA. The TPU kernel's
 // one-image-per-grid-step layout is replaced by four launches (three GEMMs
-// and one attention), each filling the card with many blocks.
+// and one attention, five with a merge), each filling the card with blocks.
 //
 // Backward: the TPU kernel walks a sequential grid and carries the weight
 // grads and g_kv_in across its steps. Hopper blocks run in no order, so the
@@ -36,6 +40,7 @@
 // that are not asked for are not computed: dq only for gx, Wq or bq, dk and
 // dv only for g_kv_in, Wkv or bkv.
 
+#include "attention_fwd.cuh"
 #include "gemm_tf32.cuh"
 
 // the tiling of the attention backward: warps, fragments of 16 resident
@@ -45,14 +50,15 @@ constexpr int kSrBwdMt = 2;
 constexpr int kSrBwdStr = 32;
 
 // stats [2, B, heads, N] (row max, row sum) may be null (no gradient will
-// be taken).
+// be taken). ws: scratch for the attention's key-split partials.
 extern "C" int emip_sr_attention(const float* x, const float* kv_in,
                                  const float* wq, const float* bq,
                                  const float* wkv, const float* bkv,
                                  const float* wp, const float* bp,
                                  float* q_buf, float* kv_buf, float* o_buf,
-                                 float* stats, float* out, int B, int N,
-                                 int M, int C, int heads, void* stream) {
+                                 float* stats, float* out, float* ws,
+                                 long long ws_floats, int B, int N, int M,
+                                 int C, int heads, void* stream) {
   using namespace emip;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int ch = C / heads;
@@ -61,11 +67,12 @@ extern "C" int emip_sr_attention(const float* x, const float* kv_in,
   if ((err = linear(kv_in, C, wkv, bkv, kv_buf, 2 * C, B * M, 2 * C, C, false,
                     s)))
     return err;
-  err = attention(ch, ch, q_buf, (long long)N * C, C, kv_buf,
-                  (long long)M * 2 * C, 2 * C, kv_buf + C,
-                  (long long)M * 2 * C, 2 * C, o_buf, (long long)N * C, C,
-                  nullptr, 1, B, heads, N, M, 1.0f / sqrtf((float)ch), stats,
-                  s);
+  const long long qsb = (long long)N * C, ksb = (long long)M * 2 * C;
+  err = sr_attention_fwd(AttnOperand{q_buf, qsb, C},
+                         AttnOperand{kv_buf, ksb, 2 * C},
+                         AttnOperand{kv_buf + C, ksb, 2 * C},
+                         AttnGrad{o_buf, qsb, C}, stats, B, heads, N, M, ch,
+                         Workspace{ws, ws_floats}, s);
   if (err != cudaSuccess) return (int)err;
   if ((err = linear(o_buf, C, wp, bp, out, C, B * N, C, C, false, s)))
     return err;

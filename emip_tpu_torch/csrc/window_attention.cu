@@ -19,17 +19,20 @@
 // What bounds them on the card: arithmetic. The projections and the FFN
 // (256 -> 1024 -> 128) are ~85% of B's FLOPs and run as the shared 3xTF32
 // GEMM on the tensor cores (gemm_tf32.cuh) over all B*K*K*T rows at once;
-// the attention forward runs as the shared flash-style kernel on the CUDA
-// cores (primitives.cuh), one block per 32 query rows of one window,
-// streaming the window's keys through shared memory in tiles of 32. That
-// kernel takes any T: at T = 484 the last key tile is masked by -inf and
-// the last query tile is bounds-checked, T = 1024 is a whole number of
-// tiles; the mask (16 MiB at T = 1024) is read once, tile by tile. So the
-// TPU's split into a whole-window form and a row-tiled form with the
-// window's k / v in VMEM scratch has no counterpart: one q-tiled family
-// serves every T. B is 12 launches, G 6 and H 9, instead of one grid cell
-// per window; the TPU kernels fused them to save per-cell sequencing
-// overhead, which does not exist in this form. x (B: x1) and msg are
+// the attention forward is attention_fwd_tc of mma_tf32.cuh (3xTF32 on the
+// tensor cores; tiling and dispatch in attention_fwd.cuh): a block owns 256
+// query rows of one window and streams the window's keys and values in
+// tiles of 32, the shift mask read from L2 into the score fragments before
+// each tile's products. It takes any T: at T = 484 the last key tile is
+// masked by -inf and the last query tile is bounds-checked, T = 1024 is a
+// whole number of tiles. So the TPU's split into a whole-window form and a
+// row-tiled form with the window's k / v in VMEM scratch has no
+// counterpart: one q-tiled family serves every T (at T = 484 and 64
+// windows 128 blocks; at T = 1024 and 8 windows the keys are split four
+// ways and the partials merged in order, which the forward's workspace
+// holds). B is 12 launches, G 6 and H 9 (a split adds a merge each),
+// instead of one grid cell per window; the TPU kernels fused them to save
+// per-cell sequencing overhead, which does not exist in this form. x (B: x1) and msg are
 // written side by side into one [R, 2C] buffer, so [x, msg] W0 is one GEMM
 // against the reference's one [F, 2C] weight (the TPU kernel takes W0 in
 // two halves).
@@ -57,6 +60,7 @@
 // grads are wanted. The inference forward passes one buffer where the
 // backward would need two.
 
+#include "attention_fwd.cuh"
 #include "gemm_tf32.cuh"
 
 // the tiling of the attention backward: warps, fragments of 16 resident
@@ -89,20 +93,22 @@ struct LayerGrads {  // each null: not wanted
 
 // m = softmax(xq Wq (t Wk)^T / sqrt(C) + mask) t Wv Wm, the message before
 // its LayerNorm. xq [R, C] with leading dimension ldxq; qkv [R, 3C]; stats
-// [2, windows, T] (the attention's row max and sum) or null.
+// [2, windows, T] (the attention's row max and sum) or null; ws holds the
+// attention's key-split partials.
 cudaError_t message_fwd(const float* xq, int ldxq, const float* t,
                         LayerWeights w, Windows d, float* qkv, float* o,
-                        float* m, float* stats, cudaStream_t s) {
+                        float* m, float* stats, Workspace ws,
+                        cudaStream_t s) {
   const int R = d.rows(), C = d.C, C3 = 3 * C;
   const long long wsb = (long long)d.T * C3;  // window stride inside qkv
   cudaError_t err;
   EMIP_TRY(linear(xq, ldxq, w.wq, nullptr, qkv, C3, R, C, C, false, s));
   EMIP_TRY(linear(t, C, w.wk, nullptr, qkv + C, C3, R, C, C, false, s));
   EMIP_TRY(linear(t, C, w.wv, nullptr, qkv + 2 * C, C3, R, C, C, false, s));
-  EMIP_TRY(attention(C, C, qkv, wsb, C3, qkv + C, wsb, C3, qkv + 2 * C, wsb,
-                     C3, o, (long long)d.T * C, C, d.mask, d.mask_nw,
-                     d.windows, 1, d.T, d.T, 1.0f / sqrtf((float)C), stats,
-                     s));
+  EMIP_TRY(window_attention_fwd(
+      AttnOperand{qkv, wsb, C3}, AttnOperand{qkv + C, wsb, C3},
+      AttnOperand{qkv + 2 * C, wsb, C3}, d.mask, d.mask_nw,
+      AttnGrad{o, (long long)d.T * C, C}, stats, d.windows, d.T, C, ws, s));
   return linear(o, C, w.wm, nullptr, m, C, R, C, C, false, s);
 }
 
@@ -140,12 +146,12 @@ cudaError_t message_bwd(const float* xq, int ldxq, const float* t,
   const float scale = 1.0f / sqrtf((float)C);
   if (C == 128)
     err = attention_bwd_tc<128, 128, kWinBwdWarps, kWinBwdMt, kWinBwdStr,
-                           true>(
+                           kWinBwdMask128>(
         q, k, v, oo, goo, nullptr, d.mask, d.mask_nw, stats, row_sum, dq, dk,
         dv, d.windows, 1, d.T, d.T, scale, ws, s);
   else if (C == 64)
     err = attention_bwd_tc<64, 64, kWinBwdWarps, kWinBwdMt, kWinBwdStr,
-                           true>(
+                           kWinBwdMask64>(
         q, k, v, oo, goo, nullptr, d.mask, d.mask_nw, stats, row_sum, dq, dk,
         dv, d.windows, 1, d.T, d.T, scale, ws, s);
   else
@@ -236,19 +242,20 @@ cudaError_t ffn_bwd(const float* cat, const float* h, const float* u,
 // ------------------------------------------------------------ kernel G
 
 // out = LN1(message(x, t)) (+ x). The backward reads qkv, o, m and stats
-// ([2, windows, T], null when no gradient will be taken).
+// ([2, windows, T], null when no gradient will be taken). ws: scratch for
+// the attention's key-split partials (here and in H's and B's forward).
 extern "C" int emip_window_layer(
     const float* x, const float* t, const float* wq, const float* wk,
     const float* wv, const float* wm, const float* s1, const float* b1,
     const float* mask, int mask_nw, float* qkv, float* o, float* m,
-    float* stats, float* out, int windows, int T, int C, int add_residual,
-    float eps, void* stream) {
+    float* stats, float* out, float* ws, long long ws_floats, int windows,
+    int T, int C, int add_residual, float eps, void* stream) {
   using namespace emip;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Windows d{windows, T, C, mask, mask_nw};
   cudaError_t err;
   EMIP_TRY(message_fwd(x, C, t, LayerWeights{wq, wk, wv, wm}, d, qkv, o, m,
-                       stats, s));
+                       stats, Workspace{ws, ws_floats}, s));
   layernorm(m, C, add_residual ? x : nullptr, C, s1, b1, out, C, d.rows(), C,
             eps, s);
   return (int)cudaGetLastError();
@@ -296,7 +303,8 @@ extern "C" int emip_window_ffn_layer(
     const float* w0, const float* w2, const float* s2, const float* b2,
     const float* mask, int mask_nw, float* qkv, float* o, float* m,
     float* stats, float* cat, float* h, float* u, float* z, float* out,
-    int windows, int T, int C, int F, float eps, void* stream) {
+    float* ws, long long ws_floats, int windows, int T, int C, int F,
+    float eps, void* stream) {
   using namespace emip;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Windows d{windows, T, C, mask, mask_nw};
@@ -306,7 +314,7 @@ extern "C" int emip_window_ffn_layer(
                              C * sizeof(float), R, cudaMemcpyDeviceToDevice,
                              s));
   EMIP_TRY(message_fwd(x, C, t, LayerWeights{wq, wk, wv, wm}, d, qkv, o, m,
-                       stats, s));
+                       stats, Workspace{ws, ws_floats}, s));
   layernorm(m, C, nullptr, 0, s1, b1, cat + C, C2, R, C, eps, s);
   EMIP_TRY(ffn_fwd(cat, w0, w2, s2, b2, h, u, z, out, R, C, F, eps, s));
   return (int)cudaGetLastError();
@@ -366,19 +374,21 @@ extern "C" int emip_window_block(
     const float* mask, int mask_nw,
     float* qkv1, float* qkv2, float* o1, float* o2, float* m1, float* m2,
     float* stats1, float* stats2, float* cat, float* h, float* u, float* z,
-    float* out, int windows, int T, int C, int F, float eps, void* stream) {
+    float* out, float* ws, long long ws_floats, int windows, int T, int C,
+    int F, float eps, void* stream) {
   using namespace emip;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Windows d{windows, T, C, mask, mask_nw};
+  const Workspace w{ws, ws_floats};
   const int R = d.rows(), C2 = 2 * C;
   cudaError_t err;
   // self-attention layer: x1 = x + LN1s(message(x, x)) -> cat[:, :C]
   EMIP_TRY(message_fwd(x, C, x, LayerWeights{wq1, wk1, wv1, wm1}, d, qkv1, o1,
-                       m1, stats1, s));
+                       m1, stats1, w, s));
   layernorm(m1, C, x, C, s1, b1, cat, C2, R, C, eps, s);
   // cross-attention message: msg = LN1c(message(x1, t)) -> cat[:, C:]
   EMIP_TRY(message_fwd(cat, C2, t, LayerWeights{wq2, wk2, wv2, wm2}, d, qkv2,
-                       o2, m2, stats2, s));
+                       o2, m2, stats2, w, s));
   layernorm(m2, C, nullptr, 0, sa, ba, cat + C, C2, R, C, eps, s);
   EMIP_TRY(ffn_fwd(cat, w0, w2, sb, bb, h, u, z, out, R, C, F, eps, s));
   return (int)cudaGetLastError();

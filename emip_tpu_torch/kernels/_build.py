@@ -35,18 +35,22 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 # argument types of each C entry point (pointers, then ints/floats, stream)
 _SIGNATURES = {
-    "emip_sr_attention": [_P] * 13 + [_I] * 5 + [_P],
+    "emip_sr_attention": [_P] * 14 + [_L] + [_I] * 5 + [_P],
     "emip_sr_attention_bwd": [_P] * 22 + [_L] + [_I] * 5 + [_P],
-    "emip_window_block": [_P] * 19 + [_I] + [_P] * 13 + [_I] * 4 + [_F, _P],
+    "emip_window_block": ([_P] * 19 + [_I] + [_P] * 14 + [_L] + [_I] * 4
+                          + [_F, _P]),
     "emip_window_block_bwd": ([_P] * 16 + [_I] + [_P] * 32 + [_L]
                               + [_I] * 4 + [_F, _P]),
-    "emip_window_layer": [_P] * 9 + [_I] + [_P] * 5 + [_I] * 4 + [_F, _P],
+    "emip_window_layer": ([_P] * 9 + [_I] + [_P] * 6 + [_L] + [_I] * 4
+                          + [_F, _P]),
     "emip_window_layer_bwd": ([_P] * 8 + [_I] + [_P] * 14 + [_L] + [_I] * 4
                               + [_F, _P]),
-    "emip_window_ffn_layer": ([_P] * 13 + [_I] + [_P] * 9 + [_I] * 4
+    "emip_window_ffn_layer": ([_P] * 13 + [_I] + [_P] * 10 + [_L] + [_I] * 4
                               + [_F, _P]),
     "emip_window_ffn_layer_bwd": ([_P] * 11 + [_I] + [_P] * 22 + [_L]
                                   + [_I] * 4 + [_F, _P]),
+    "emip_attention_fwd": ([_P, _L, _I] * 3 + [_P, _I, _P, _L, _I, _P, _P, _L]
+                           + [_I] * 6 + [_P]),
     "emip_gemm": ([_P, _L, _L, _P, _L, _L, _P, _P, _L] + [_I] * 4
                   + [_P, _L, _P]),
     "emip_flow_attention": [_P] * 6 + [_L] + [_I] * 4 + [_P],

@@ -27,8 +27,10 @@ LAUNCHES = {
     "softmax_expectation_bwd": 0,
     "dwconv_gelu": 0,
     "dwconv_gelu_bwd": 0,
-    # the GEMM core of A, B, G and H called alone (kernels/gemm.py: checks)
+    # the GEMM core and the forward attention of A, B, G and H called alone
+    # (kernels/gemm.py, kernels/attention.py: checks)
     "gemm": 0,
+    "attention": 0,
 }
 
 # floats of split-K / column-sum / attention-partial workspace a backward
@@ -102,6 +104,20 @@ def workspace(device: torch.device, floats: int) -> torch.Tensor:
     """fp32 scratch of ``floats`` plus :data:`WORKSPACE_FLOATS`."""
     return torch.empty(floats + WORKSPACE_FLOATS, device=device,
                        dtype=torch.float32)
+
+
+# key splits an attention forward's workspace makes room for: tc_splits
+# splits the keys where the blocks leave the card idle (kernel A's last
+# PVT stage; G and H at one clip of 512^2 take four)
+ATTENTION_SPLITS = 4
+
+
+def attention_workspace(device: torch.device, rows: int,
+                        width: int) -> torch.Tensor:
+    """Scratch for the key-split partials of an attention forward over
+    ``rows`` query rows (all batch rows and heads) of value width
+    ``width``: per split each row's output and its max and sum."""
+    return workspace(device, ATTENTION_SPLITS * rows * (width + 2))
 
 
 def plain_vjp(fn, inputs, needs, grad_out, *args) -> list:

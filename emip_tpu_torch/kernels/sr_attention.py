@@ -4,9 +4,10 @@ Port of :func:`emip_tpu.ops.pallas.sr_attention.fused_sr_attention`; the
 CUDA source is ``csrc/sr_attention.cu``. Weights are in torch
 ``nn.Linear`` layout ([out, in]). :func:`fused_sr_attention` is one
 ``torch.autograd.Function``: CPU tensors take the plain version (and its
-autograd backward), CUDA tensors the forward and backward kernels. When a
-gradient is wanted the forward kernel also writes each attention row's max
-and sum, which the backward kernel (on the tensor cores) reads.
+autograd backward), CUDA tensors the forward and backward kernels (every
+product on the tensor cores). When a gradient is wanted the forward kernel
+also writes each attention row's max and sum, which the backward kernel
+reads.
 """
 
 from __future__ import annotations
@@ -78,12 +79,14 @@ class _SRAttention(torch.autograd.Function):
         stats = (torch.empty((2, b, num_heads, n), device=x.device,
                              dtype=x.dtype) if keep else None)
         out = torch.empty_like(x)
+        ws = cm.attention_workspace(x.device, b * n * num_heads,
+                                    c // num_heads)
         rc = library().emip_sr_attention(
             x.data_ptr(), kv_in.data_ptr(), wq.data_ptr(), bq.data_ptr(),
             wkv.data_ptr(), bkv.data_ptr(), wp.data_ptr(), bp.data_ptr(),
             q_buf.data_ptr(), kv_buf.data_ptr(), o_buf.data_ptr(),
-            cm.ptr(stats), out.data_ptr(), b, n, m, c, num_heads,
-            cm.stream_handle(x.device))
+            cm.ptr(stats), out.data_ptr(), ws.data_ptr(), ws.numel(), b, n,
+            m, c, num_heads, cm.stream_handle(x.device))
         cm.raise_on_error(_NAME, rc)
         cm.LAUNCHES["sr_attention"] += 1
         if keep:  # what the backward kernel reads

@@ -1,9 +1,8 @@
 """Plain PyTorch statement of what ``csrc/mma_tf32.cuh`` and
 ``csrc/gemm_tf32.cuh`` compute.
 
-The CUDA kernels on the tensor cores (the attention forward of kernels C
-and F, the attention backward of kernels A, B, C, F, G and H, and the GEMM
-of A, B, G and H) cannot run without a card, so their arithmetic and their
+The CUDA kernels on the tensor cores (the attention forward and backward
+of kernels A, B, C, F, G and H, and the GEMM of A, B, G and H) cannot run without a card, so their arithmetic and their
 algorithm are written out here in plain tensor code that the CPU tests
 hold against fp64, the plain versions, ``torch.autograd.grad`` of them
 and the JAX package's Pallas kernels:
@@ -19,7 +18,8 @@ and the JAX package's Pallas kernels:
 * :func:`attention_fwd_tiled` walks ``attention_fwd_tc`` tile by tile
   (streamed key tiles, the online max and sum, ragged last tiles, the
   keys split in chunks whose partials are merged in order by their max
-  and sum);
+  and sum), per head and with an additive score mask where the kernels of
+  A, B, G and H have them;
 * :func:`attention_row_stats` gives the row max and row sum a forward
   keeps, and :func:`attention_bwd_tiled` walks the two passes of
   ``attention_bwd_tc`` tile by tile (query-tiled dq; key-tiled dk and dv
@@ -152,40 +152,44 @@ def _chunks(n_tiles: int, splits: int):
 
 
 def attention_fwd_tiled(q, k, v, bias=None, stream_rows=32, splits=1,
-                        matmul=torch.matmul, keep_stats=False):
-    """``softmax(q k^T / sqrt(C) + bias) v`` computed as
+                        matmul=torch.matmul, keep_stats=False,
+                        heads: int = 1, mask=None):
+    """``softmax(q k^T / sqrt(W) + bias + mask) v`` per head computed as
     ``attention_fwd_tc`` does; with ``keep_stats`` also the row max and row
-    sum ([B, Nq] each) it keeps for the backward.
+    sum ([B * H, Nq] each) it keeps for the backward.
 
-    q: [B, Nq, C]; k, v: [B, Nk, .]; bias [B, Nk] or None. Query rows are
-    independent, so the kernel's resident query tiles change no bit and
-    every row is walked at once. The keys stream in tiles of
-    ``stream_rows`` (the last one ragged) with a running max m and sum l:
-    per tile m' = max(m, rowmax S), l = l e^(m - m') + rowsum e^(S - m'),
-    O = O e^(m - m') + e^(S - m') v. With ``splits`` > 1 the key tiles
-    are cut in chunks, each chunk's output normalised by its own sum, and
-    the chunks merged in order with weights l_z e^(m_z - max m).
-    ``matmul`` is the product of q k^T and, with a value as wide as the
-    keys, of P v (:func:`matmul_3xtf32` to follow the kernel's
-    arithmetic); a 2-wide value's P v runs in fp32, as on the CUDA cores.
+    q: [B, Nq, H * W]; k, v: [B, Nk, H * .], head h at columns h * width
+    (batch row z = b * H + h, as the kernel reads it); bias [B, Nk] or
+    None; mask [nw, Nq, Nk] or None (batch b reads mask[b % nw]). Query
+    rows are independent, so the kernel's resident query tiles change no
+    bit and every row is walked at once. The keys stream in tiles of
+    ``stream_rows`` (the last one ragged, its missing keys at -inf) with a
+    running max m and sum l: per tile m' = max(m, rowmax S), l = l e^(m -
+    m') + rowsum e^(S - m'), O = O e^(m - m') + e^(S - m') v. With
+    ``splits`` > 1 the key tiles are cut in chunks, each chunk's output
+    normalised by its own sum, and the chunks merged in order with weights
+    l_z e^(m_z - max m). ``matmul`` is the product of q k^T and, with a
+    value as wide as the keys, of P v (:func:`matmul_3xtf32` to follow the
+    kernel's arithmetic); a 2-wide value's P v runs in fp32, as on the CUDA
+    cores.
     """
-    b, nq, c = q.shape
+    b, nq, _ = q.shape
     nk = k.shape[1]
-    scale = 1.0 / c**0.5
-    if bias is None:
-        bias = q.new_zeros(b, nk)
-    pv = matmul if v.shape[-1] == c else torch.matmul
+    bias, mask = _score_terms(b, heads, nq, nk, bias, mask, q)
+    q, k, v = (_split_heads(x, heads) for x in (q, k, v))
+    scale = 1.0 / q.shape[-1]**0.5
+    pv = matmul if v.shape[-1] == q.shape[-1] else torch.matmul
     tiles = -(-nk // stream_rows)
     parts = []
     for t0, t1 in _chunks(tiles, splits):
-        m = q.new_full((b, nq), float("-inf"))
-        l = q.new_zeros(b, nq)
-        acc = q.new_zeros(b, nq, v.shape[-1])
+        m = q.new_full(q.shape[:2], float("-inf"))
+        l = q.new_zeros(q.shape[:2])
+        acc = q.new_zeros(*q.shape[:2], v.shape[-1])
         for tile in range(t0, t1):
             keys = slice(tile * stream_rows,
                          min(nk, (tile + 1) * stream_rows))
             s = (matmul(q, k[:, keys].transpose(-1, -2)) * scale
-                 + bias[:, None, keys])
+                 + bias[:, None, keys] + mask[:, :, keys])
             m_new = torch.maximum(m, s.max(-1).values)
             alpha = torch.exp(m - m_new)
             p = torch.exp(s - m_new[..., None])
@@ -202,6 +206,7 @@ def attention_fwd_tiled(q, k, v, bias=None, stream_rows=32, splits=1,
         out = sum((wz[..., None] * pz for wz, (pz, _, _) in
                    zip(w[1:], parts[1:])), w[0][..., None] * parts[0][0])
         out = out / l[..., None]
+    out = _merge_heads(out, heads)
     return (out, m, l) if keep_stats else out
 
 

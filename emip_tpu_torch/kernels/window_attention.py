@@ -18,9 +18,9 @@ layer's ``params`` holds wq, wk, wv, wm [C, C] and the LayerNorm s1, b1
 two halves), w2 [C, F] and s2, b2 [C]. Each public function is one
 ``torch.autograd.Function``: CPU tensors take the plain version (and its
 autograd backward), CUDA tensors the forward and backward kernels, which
-compute only the grads that are asked for. When a gradient is wanted the
-forward kernel also writes each attention row's max and sum, which the
-backward kernel (on the tensor cores) reads.
+compute only the grads that are asked for (every product on the tensor
+cores). When a gradient is wanted the forward kernel also writes each
+attention row's max and sum, which the backward kernel reads.
 """
 
 from __future__ import annotations
@@ -144,6 +144,12 @@ def _stats(x, keep):
             if keep else None)
 
 
+def _fwd_workspace(x):
+    """Scratch for the key-split partials of a forward's attention."""
+    return cm.attention_workspace(x.device, x.numel() // x.shape[-1],
+                                  x.shape[-1])
+
+
 def _param_grads(needs, shapes, like):
     return [torch.empty(s, device=like.device, dtype=like.dtype) if nd
             else None for nd, s in zip(needs, shapes)]
@@ -168,11 +174,13 @@ class _WindowLayer(torch.autograd.Function):
         qkv, o, m = _buffers(x, (3 * c, c, c))
         stats = _stats(x, keep)
         out = torch.empty_like(x)
+        ws = _fwd_workspace(x)
         rc = library().emip_window_layer(
             x.data_ptr(), t.data_ptr(), *(w.data_ptr() for w in params),
             cm.ptr(mask), k2, qkv.data_ptr(), o.data_ptr(), m.data_ptr(),
-            cm.ptr(stats), out.data_ptr(), b * k2, tok, c,
-            int(add_residual), EPS, cm.stream_handle(x.device))
+            cm.ptr(stats), out.data_ptr(), ws.data_ptr(), ws.numel(),
+            b * k2, tok, c, int(add_residual), EPS,
+            cm.stream_handle(x.device))
         cm.raise_on_error(_LAYER, rc)
         cm.LAUNCHES["window_attention_layer"] += 1
         if keep:
@@ -235,12 +243,13 @@ class _WindowFFNLayer(torch.autograd.Function):
             h, z = None, m
         stats = _stats(x, keep)
         out = torch.empty_like(x)
+        ws = _fwd_workspace(x)
         rc = library().emip_window_ffn_layer(
             x.data_ptr(), t.data_ptr(), *(w.data_ptr() for w in params),
             cm.ptr(mask), k2, qkv.data_ptr(), o.data_ptr(), m.data_ptr(),
             cm.ptr(stats), cat.data_ptr(), cm.ptr(h), u.data_ptr(),
-            z.data_ptr(), out.data_ptr(), b * k2, tok, c, f, EPS,
-            cm.stream_handle(x.device))
+            z.data_ptr(), out.data_ptr(), ws.data_ptr(), ws.numel(), b * k2,
+            tok, c, f, EPS, cm.stream_handle(x.device))
         cm.raise_on_error(_FFN_LAYER, rc)
         cm.LAUNCHES["window_attention_ffn_layer"] += 1
         if keep:
@@ -306,13 +315,14 @@ class _WindowBlock(torch.autograd.Function):
         stats1, stats2 = _stats(x, keep), _stats(x, keep)
         cat, u = _buffers(x, (2 * c, f))
         out = torch.empty_like(x)
+        ws = _fwd_workspace(x)
         rc = library().emip_window_block(
             x.data_ptr(), t.data_ptr(), *(p.data_ptr() for p in params),
             cm.ptr(mask), k2, qkv1.data_ptr(), qkv2.data_ptr(),
             o1.data_ptr(), o2.data_ptr(), m1.data_ptr(), m2.data_ptr(),
             cm.ptr(stats1), cm.ptr(stats2), cat.data_ptr(), cm.ptr(h),
-            u.data_ptr(), z.data_ptr(), out.data_ptr(), b * k2, tok, c, f,
-            EPS, cm.stream_handle(x.device))
+            u.data_ptr(), z.data_ptr(), out.data_ptr(), ws.data_ptr(),
+            ws.numel(), b * k2, tok, c, f, EPS, cm.stream_handle(x.device))
         cm.raise_on_error(_NAME, rc)
         cm.LAUNCHES["window_attention_block"] += 1
         if keep:

@@ -337,7 +337,8 @@ def test_loader_raises_without_nvcc(monkeypatch, tmp_path):
 def test_build_key_covers_every_source():
     """The build directory is keyed by all .cu/.cuh sources and flags."""
     names = {p.name for p in _build._sources()}
-    assert {"primitives.cuh", "mma_tf32.cuh", "sr_attention.cu", "window_attention.cu",
+    assert {"primitives.cuh", "mma_tf32.cuh", "attention_fwd.cuh",
+            "attention.cu", "sr_attention.cu", "window_attention.cu",
             "flow_attention.cu", "convex_upsample.cu", "splat.cu",
             "memory_attention.cu", "softmax_expectation.cu",
             "dwconv_gelu.cu"} <= names
@@ -533,6 +534,42 @@ def test_cuda_kernels_match_plain_versions():
         assert torch.equal(gemm(a, b, split_k=split), got)
         assert ((got - want).abs().max() <= 1e-5 * want.abs().max()), (
             a.shape, b.shape)
+    # the tensor-core forward attention of A, B, G and H alone: A's heads
+    # (widths 64 and 32) and the windows (128 and 64; T = 484 ragged, 1024
+    # whole tiles) with and without the shift mask, k and v read in place
+    # from one [k | v] buffer; keys split where the blocks are few (A's
+    # last stage, 8 windows of 1024 tokens): against the fp64 product, and
+    # its kept row statistics against the plain version's
+    from emip_tpu_torch.kernels.attention import (
+        attention,
+        attention_reference,
+    )
+    from emip_tpu_torch.ops.window import shifted_window_mask
+
+    masks = {s: shifted_window_mask(s, s, 2, device="cuda") for s in (44, 64)}
+    for b, nq, nk, c, heads, side in ((2, 7744, 121, 64, 1, 0),
+                                      (2, 121, 121, 256, 8, 0),
+                                      (2, 1936, 121, 64, 2, 0),
+                                      (2, 121, 121, 64, 2, 0),
+                                      (8, 484, 484, 128, 1, None),
+                                      (8, 484, 484, 128, 1, 44),
+                                      (8, 484, 484, 64, 1, 44),
+                                      (8, 1024, 1024, 128, 1, 64)):
+        windows = side != 0
+        mask = masks[side] if side else None
+        q, kv = r(b, nq, c), r(b, nk, 2 * c)
+        k, v = kv[..., :c], kv[..., c:]
+        before = K.LAUNCHES["attention"]
+        got, stats = attention(q, k, v, heads, mask, windows, keep_stats=True)
+        assert torch.equal(attention(q, k, v, heads, mask, windows), got)
+        assert K.LAUNCHES["attention"] == before + 2
+        want, want_stats = attention_reference(
+            q.double(), k.double(), v.double(), heads,
+            None if mask is None else mask.double(), keep_stats=True)
+        assert ((got - want).abs().max() <= 1e-5 * want.abs().max()), (
+            b, nq, c, heads, side)
+        torch.testing.assert_close(stats.double(), want_stats, rtol=1e-5,
+                                   atol=1e-5)
     coords = torch.rand(2, 352, 352, 2, generator=torch.Generator()
                         .manual_seed(1)).cuda() * 360 - 4
     got = K.splat_density(coords)

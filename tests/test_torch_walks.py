@@ -1,19 +1,22 @@
-"""The tensor-core GEMM and attention backward of kernels A and B, walked on
-the CPU.
+"""The tensor-core GEMM and attention, forward and backward, of kernels A
+and B, walked on the CPU.
 
 ``csrc/gemm_tf32.cuh`` (the 3xTF32 GEMM of kernels A, B, G, H) and
-``attention_bwd_tc`` of ``csrc/mma_tf32.cuh`` (with heads for A and the
-shifted-window mask for B) cannot run without a card. Their arithmetic and
-algorithm are stated in plain PyTorch in ``emip_tpu_torch/kernels/tf32.py``
-(:func:`gemm_tiled`, :func:`attention_bwd_tiled`). Here the whole backward
-of ``csrc/sr_attention.cu`` and of ``csrc/window_attention.cu``'s block is
-composed from those walks in the kernels' order (split-K weight gradients,
-input gradients, LayerNorm and GELU backward, the attention backward from
-the row statistics the forward keeps), with fp32 products and with the
-kernels' three-term TF32 products, and held against
-``torch.autograd.grad`` of the plain versions and against ``jax.vjp`` of
-the JAX entries (Pallas in interpret mode). Tolerance: 1e-5 of max|ref|
-per gradient, as the existing walk tests of kernels C and F
+``attention_fwd_tc`` / ``attention_bwd_tc`` of ``csrc/mma_tf32.cuh`` (with
+heads for A and the shifted-window mask for B) cannot run without a card.
+Their arithmetic and algorithm are stated in plain PyTorch in
+``emip_tpu_torch/kernels/tf32.py`` (:func:`gemm_tiled`,
+:func:`attention_fwd_tiled`, :func:`attention_bwd_tiled`). Here the whole
+forward and the whole backward of ``csrc/sr_attention.cu`` and of
+``csrc/window_attention.cu``'s block are composed from those walks in the
+kernels' order (the projections, the attention forward with its keys split
+in chunks and the row statistics it keeps, LayerNorm and the FFN; split-K
+weight gradients, input gradients, LayerNorm and GELU backward, the
+attention backward from the kept statistics), with fp32 products and with
+the kernels' three-term TF32 products, and held against the plain versions
+(and ``torch.autograd.grad`` of them) and against the JAX entries (Pallas
+in interpret mode, ``jax.vjp`` for the grads). Tolerance: 1e-5 of max|ref|
+per output or gradient, as the existing walk tests of kernels C and F
 (tests/test_torch_kernels.py, tests/test_torch_long.py); the plain version
 and the JAX kernel differ from each other by up to 2e-6.
 """
@@ -105,7 +108,60 @@ def test_gemm_wrapper_takes_the_plain_version_on_the_cpu():
         gemm(torch.empty((2, 2), device="meta"), torch.empty((2, 2)))
 
 
+@pytest.mark.parametrize("heads,windows", [(2, False), (1, True)])
+def test_attention_wrapper_takes_the_plain_version_on_the_cpu(heads,
+                                                              windows):
+    """kernels/attention.py: CPU tensors (k and v as views of one [k | v]
+    buffer, with heads; or windows with the shift mask) take the plain
+    version and launch nothing; it is the tiled walk's function within
+    1e-5 of max|ref|, and its kept statistics [2, B * H, Nq] are
+    attention_row_stats'."""
+    from emip_tpu.ops.window import shifted_window_mask
+
+    from emip_tpu_torch.kernels.attention import (
+        attention,
+        attention_reference,
+    )
+
+    rng = np.random.default_rng(11 + heads)
+    b, n, c = 8, 36, 64
+    q = _t(rng.standard_normal((b, n, c)).astype(np.float32))
+    kv = _t(rng.standard_normal((b, n, 2 * c)).astype(np.float32))
+    k, v = kv[..., :c], kv[..., c:]
+    mask = _t(np.asarray(shifted_window_mask(12, 12, 2))) if windows else None
+    before = dict(K.LAUNCHES)
+    out, stats = attention(q, k, v, heads, mask, windows, keep_stats=True)
+    assert K.LAUNCHES == before
+    assert torch.equal(out, attention_reference(q, k, v, heads, mask))
+    _close(out, tf32.attention_fwd_tiled(q, k, v, splits=2, heads=heads,
+                                         mask=mask), "out")
+    row_max, row_sum = tf32.attention_row_stats(q, k, heads=heads, mask=mask)
+    torch.testing.assert_close(stats[0], row_max, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(stats[1], row_sum, rtol=1e-5, atol=0)
+    with pytest.raises(ValueError, match="CPU or all on one CUDA"):
+        attention(torch.empty((2, 4, 32), device="meta"), q, q)
+
+
 # ------------------------------------------------------------ kernel A
+
+
+def _sr_fwd_walk(x, kv_in, wq, bq, wkv, bkv, wp, bp, heads, mm, splits=2):
+    """fused_sr_attention as emip_sr_attention computes it: (out, q, k, v,
+    o, row max, row sum). GEMMs K in tiles of 32; the attention per head
+    (q and the halves of [k | v] read at the head's columns) with keys
+    streamed in tiles of 8 (M = 9 and 25 ragged) and split in ``splits``
+    chunks merged in order, keeping each row's max and sum."""
+    b, n, c = x.shape
+    m = kv_in.shape[1]
+    gemm = functools.partial(tf32.gemm_tiled, matmul=mm)
+    q = gemm(x.reshape(-1, c), wq.T, bq).reshape(b, n, c)
+    kv = gemm(kv_in.reshape(-1, c), wkv.T, bkv).reshape(b, m, 2 * c)
+    k, v = kv[..., :c], kv[..., c:]
+    o, row_max, row_sum = tf32.attention_fwd_tiled(
+        q, k, v, stream_rows=8, splits=splits, matmul=mm, keep_stats=True,
+        heads=heads)
+    out = gemm(o.reshape(-1, c), wp.T, bp).reshape(b, n, c)
+    return out, q, k, v, o, row_max, row_sum
 
 
 def _sr_walk(x, kv_in, wq, bq, wkv, bkv, wp, bp, heads, g, mm):
@@ -114,19 +170,11 @@ def _sr_walk(x, kv_in, wq, bq, wkv, bkv, wp, bp, heads, g, mm):
     Tiles: GEMMs K in 32, weight grads split in 3; attention 16 resident
     rows, streamed tiles of 8 (M = 9 and 25 ragged)."""
     b, n, c = x.shape
-    m = kv_in.shape[1]
     gemm = functools.partial(tf32.gemm_tiled, matmul=mm)
     wgrad = functools.partial(gemm, splits=3)
     x2, kv2, g2 = x.reshape(-1, c), kv_in.reshape(-1, c), g.reshape(-1, c)
-    q = gemm(x2, wq.T, bq).reshape(b, n, c)
-    kv = gemm(kv2, wkv.T, bkv).reshape(b, m, 2 * c)
-    k, v = kv[..., :c], kv[..., c:]
-    # the forward's attention (CUDA cores, fp32) and the statistics it keeps
-    ch = c // heads
-    split = lambda t: t.reshape(b, -1, heads, ch).transpose(1, 2)  # noqa
-    p = torch.softmax(split(q) @ split(k).transpose(-1, -2) / ch**0.5, -1)
-    o = (p @ split(v)).transpose(1, 2).reshape(b, n, c)
-    row_max, row_sum = tf32.attention_row_stats(q, k, heads=heads)
+    _, q, k, v, o, row_max, row_sum = _sr_fwd_walk(
+        x, kv_in, wq, bq, wkv, bkv, wp, bp, heads, mm)
     o2 = o.reshape(-1, c)
     gwp, gbp = wgrad(g2.T, o2), g2.sum(0)
     go = gemm(g2, wp).reshape(b, n, c)
@@ -138,6 +186,35 @@ def _sr_walk(x, kv_in, wq, bq, wkv, bkv, wp, bp, heads, g, mm):
     return (gemm(gq2, wq).reshape(x.shape),
             gemm(gkv2, wkv).reshape(kv_in.shape), wgrad(gq2.T, x2),
             gq2.sum(0), wgrad(gkv2.T, kv2), gkv2.sum(0), gwp, gbp)
+
+
+@pytest.mark.parametrize("product", ["fp32", "3xtf32"])
+@pytest.mark.parametrize("n,m,c,heads", [(36, 9, 32, 1), (64, 25, 64, 2),
+                                         (36, 9, 64, 1), (64, 25, 128, 2)])
+def test_sr_attention_fwd_walk(n, m, c, heads, product):
+    """Kernel A's forward walk (head widths 32 and 64, one and two heads,
+    read at their columns of the q and [k | v] buffers; M ragged against
+    the key tiles of 8, the keys split in two chunks) against the plain
+    version and the Pallas forward in interpret mode: 1e-5 of max|ref|.
+    The kept row statistics are attention_row_stats' (what the backward
+    reads), to fp32 rounding."""
+    from emip_tpu.ops.pallas.sr_attention import fused_sr_attention
+
+    rng = np.random.default_rng(300 + n + c + heads)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    jargs = (f(2, n, c), f(2, m, c), f(c, c) / c**0.5, f(c) * 0.1,
+             f(c, 2 * c) / c**0.5, f(2 * c) * 0.1, f(c, c) / c**0.5,
+             f(c) * 0.1)
+    want_jax = np.asarray(fused_sr_attention(*jargs, heads))
+    targs = [_t(a.T if a.ndim == 2 else a) for a in jargs]
+    want = K.fused_sr_attention_reference(*targs, heads)
+    out, q, k, _, _, row_max, row_sum = _sr_fwd_walk(*targs, heads,
+                                                     _product(product))
+    _close(out, want, "out")
+    _close(out, want_jax, "out (jax)")
+    ref_max, ref_sum = tf32.attention_row_stats(q, k, heads=heads)
+    torch.testing.assert_close(row_max, ref_max, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(row_sum, ref_sum, rtol=1e-5, atol=0)
 
 
 @pytest.mark.parametrize("product", ["fp32", "3xtf32"])
@@ -188,8 +265,11 @@ class _BlockWalk:
     on [R, C] rows of windows of T tokens: GEMMs through gemm_tiled (K in
     32, weight grads split in 3, one product each; gt and the self
     layer's input grads each one product over stacked weights), the
-    attention backward through attention_bwd_tiled with the mask (16
-    resident rows, streamed tiles of 16: T = 36 ragged)."""
+    attention forward through attention_fwd_tiled with the mask (keys in
+    tiles of 16, T = 36 ragged, split in two chunks merged in order; the
+    row statistics it keeps), the attention backward through
+    attention_bwd_tiled with the mask (16 resident rows, streamed tiles of
+    16)."""
 
     def __init__(self, windows, tok, mask, mm):
         self.windows, self.tok, self.mask, self.mm = windows, tok, mask, mm
@@ -203,15 +283,26 @@ class _BlockWalk:
         c = xq.shape[-1]
         q, k, v = (self.gemm(a, p[w].T) for a, w in ((xq, "wq"), (t, "wk"),
                                                       (t, "wv")))
-        s = self.win(q) @ self.win(k).transpose(-1, -2) / c**0.5
-        if self.mask is not None:
-            nw = self.mask.shape[0]
-            s = s + self.mask[torch.arange(self.windows) % nw]
-        o = (torch.softmax(s, -1) @ self.win(v)).reshape(-1, c)
-        stats = tf32.attention_row_stats(self.win(q), self.win(k),
-                                         mask=self.mask)
+        o, row_max, row_sum = tf32.attention_fwd_tiled(
+            self.win(q), self.win(k), self.win(v), stream_rows=16, splits=2,
+            matmul=self.mm, keep_stats=True, mask=self.mask)
+        o = o.reshape(-1, c)
         return dict(q=q, k=k, v=v, o=o, m=self.gemm(o, p["wm"].T),
-                    stats=stats)
+                    stats=(row_max, row_sum))
+
+    def forward(self, x, t, sp, cp):
+        """(out, the self layer's message_fwd, the cross layer's, and x1,
+        cat, h, u, z) for x, t [R, C]."""
+        c = x.shape[-1]
+        ln = lambda a, s, b: F.layer_norm(a, (c,), s, b, EPS)  # noqa: E731
+        f1 = self.message_fwd(x, x, sp)
+        x1 = x + ln(f1["m"], sp["s1"], sp["b1"])
+        f2 = self.message_fwd(x1, t, cp)
+        cat = torch.cat([x1, ln(f2["m"], cp["s1"], cp["b1"])], -1)
+        u, h = self.gemm(cat, cp["w0"].T, epilogue="gelu")
+        z = self.gemm(u, cp["w2"].T)
+        out = x1 + ln(z, cp["s2"], cp["b2"])
+        return out, f1, f2, dict(x1=x1, cat=cat, h=h, u=u, z=z)
 
     def message_bwd(self, xq, t, p, fw, gmsg, self_layer=False):
         """(gq Wq, gk Wk + gv Wv, weight grads); in the self layer (q, k
@@ -239,13 +330,8 @@ class _BlockWalk:
     def grads(self, x, t, sp, cp, g):
         """(gx, gt, self grads, cross grads) for the cotangent g [R, C]."""
         c = x.shape[-1]
-        ln = lambda a, s, b: F.layer_norm(a, (c,), s, b, EPS)  # noqa: E731
-        f1 = self.message_fwd(x, x, sp)
-        x1 = x + ln(f1["m"], sp["s1"], sp["b1"])
-        f2 = self.message_fwd(x1, t, cp)
-        cat = torch.cat([x1, ln(f2["m"], cp["s1"], cp["b1"])], -1)
-        u, h = self.gemm(cat, cp["w0"].T, epilogue="gelu")
-        z = self.gemm(u, cp["w2"].T)
+        _, f1, f2, act = self.forward(x, t, sp, cp)
+        x1, cat, h, u, z = (act[k] for k in ("x1", "cat", "h", "u", "z"))
         # out = x1 + LN2(z)
         gz, gs2, gb2 = _ln_bwd(z, g, cp["s2"])
         gh = self.gemm(gz, cp["w2"], epilogue="gelu_grad", aux=h)
@@ -274,6 +360,47 @@ def _window_params(rng, c, f):
     cp["s1"], cp["b1"] = ln()
     cp["s2"], cp["b2"] = ln()
     return sp, cp
+
+
+@pytest.mark.parametrize("product", ["fp32", "3xtf32"])
+@pytest.mark.parametrize("shifted", [False, True])
+def test_window_block_fwd_walk(shifted, product):
+    """Kernel B's forward walk at windows of T = 36 tokens (ragged against
+    the key tiles of 16, the keys split in two chunks), unshifted and with
+    the shifted-window mask, against the plain version and the Pallas
+    forward in interpret mode: 1e-5 of max|ref|. Each layer's kept row
+    statistics are attention_row_stats' with the mask (what the backward
+    reads), to fp32 rounding."""
+    from emip_tpu.ops.pallas.window_attention import (
+        fused_window_attention_block,
+    )
+    from emip_tpu.ops.window import shifted_window_mask
+
+    rng = np.random.default_rng(57 + shifted)
+    b, k2, tok, c, f = 2, 4, 36, 32, 64
+    x = rng.standard_normal((b, k2, tok, c)).astype(np.float32)
+    t = rng.standard_normal((b, k2, tok, c)).astype(np.float32)
+    sp, cp = _window_params(rng, c, f)
+    mask = np.asarray(shifted_window_mask(12, 12, 2)) if shifted else None
+    want_jax = np.asarray(fused_window_attention_block(
+        x, t, sp, cp, None if mask is None else jnp.asarray(mask)))
+    tsp = {k: _t(v.T if v.ndim == 2 else v) for k, v in sp.items()}
+    tcp = {k: _t(v.T if v.ndim == 2 else v) for k, v in cp.items()}
+    tmask = None if mask is None else _t(mask)
+    want = K.fused_window_attention_block_reference(_t(x), _t(t), tsp, tcp,
+                                                    tmask)
+    walk = _BlockWalk(b * k2, tok, tmask, _product(product))
+    flat = lambda a: _t(a).reshape(-1, c)  # noqa: E731
+    out, f1, f2, act = walk.forward(flat(x), flat(t), tsp, tcp)
+    _close(out, want.reshape(-1, c), "out")
+    _close(out, want_jax.reshape(-1, c), "out (jax)")
+    for fw in (f1, f2):
+        ref_max, ref_sum = tf32.attention_row_stats(
+            walk.win(fw["q"]), walk.win(fw["k"]), mask=tmask)
+        torch.testing.assert_close(fw["stats"][0], ref_max, rtol=1e-6,
+                                   atol=1e-6)
+        torch.testing.assert_close(fw["stats"][1], ref_sum, rtol=1e-5,
+                                   atol=0)
 
 
 @pytest.mark.parametrize("product", ["fp32", "3xtf32"])
