@@ -5,20 +5,30 @@
 // their entry points; attention.cu exposes it alone, for the checks.
 //
 // Tilings: warps, fragments of 16 resident rows per warp, streamed rows per
-// stage. Both start from kernel F's forward: 8 warps of two fragments own
-// 256 query rows, so that every streamed fragment of k and v is loaded and
+// stage. Both are kernel F's forward's: 8 warps of two fragments own 256
+// query rows, so that every streamed fragment of k and v is loaded and
 // split into its TF32 halves once for two mma; keys stream in tiles of 32
-// through two cp.async stages (203 KiB at width 128, one block an SM).
-// Where the blocks leave the card idle (A's last stage: 64 image-head rows
-// of 121 queries at 352^2; G and H at one clip of 512^2), tc_splits splits
-// the keys and a further launch merges the partials in order.
+// through two cp.async stages (198 KiB at width 128, one block an SM).
+// Measured against it (tools/bench_attention_variants.py, PERF.md): 8 warps
+// of one fragment, 1.11-1.23x the time of the windows' attention; keys in
+// tiles of 16, 1.02-1.12x; 4 warps for A, within the spread of its
+// launch-bound shapes. Where the blocks leave the card idle (A's last
+// stage: 64 image-head rows of 121 queries at 352^2; G and H at one clip of
+// 512^2), tc_splits splits the keys and a further launch merges the
+// partials in order.
 //
-// The mask is read from L2 into the score fragments before each key tile's
-// products at both widths: staged in shared memory beside k and v it does
-// not fit the 128-wide tiling (203 KiB, and two mask stages of [256, 32]
-// floats add 64 KiB against the SM's 227), and at width 64, where it fits,
-// it was no faster (PERF.md, the mask read). The backward
-// (window_attention.cu) reads it as the forward does.
+// The shift mask (a window call without it skips its reads): at width 64 it
+// is staged in shared memory beside k and v (two [256, 40] stages, 182 KiB
+// in all) and read where it is added; from L2 the same forward took
+// 1.08-1.24x as long (1.08-1.13 with the tile's mask read ahead of the
+// products, 1.22-1.24 read where it is added). At width 128 staging does
+// not fit (198 KiB, and two mask stages add 80 KiB against the SM's 227)
+// and the tile's mask read ahead of the products takes 32 registers that
+// the tiling does not have (80 bytes spilled, 1.04-1.05x), so it is read
+// from L2 where it is added, a column pair at a time (52 bytes spilled).
+// The backward (window_attention.cu) reads it from L2 ahead of each tile's
+// products: at width 64, where staging fits there too, staging was no
+// faster (1.00-1.01x).
 
 #pragma once
 
@@ -30,12 +40,9 @@ constexpr int kSrFwdStr = 32;
 constexpr int kWinFwdWarps = 8;
 constexpr int kWinFwdMt = 2;
 constexpr int kWinFwdStr = 32;
-// where the window kernels read the shift mask, forward and backward, at
-// widths 128 and 64
-constexpr int kWinFwdMask128 = emip::kMaskL2AtUse;
-constexpr int kWinFwdMask64 = emip::kMaskL2AtUse;
-constexpr int kWinBwdMask128 = emip::kMaskL2;
-constexpr int kWinBwdMask64 = emip::kMaskL2;
+// where the window forward reads the shift mask at widths 128 and 64
+constexpr int kWinFwdMask128 = emip::kMaskL2;
+constexpr int kWinFwdMask64 = emip::kMaskStaged;
 
 namespace emip {
 namespace {
@@ -76,13 +83,13 @@ inline cudaError_t window_attention_fwd(AttnOperand q, AttnOperand k,
   if (C == 128)
     return attention_fwd_tc<128, 128, kWinFwdWarps, kWinFwdMt, kWinFwdStr,
                             kWinFwdMask128>(q, k, v, nullptr, mask, mask_nw,
-                                         out, stats, row_sum, windows, 1, T,
-                                         T, scale, ws, s);
+                                            out, stats, row_sum, windows, 1,
+                                            T, T, scale, ws, s);
   if (C == 64)
     return attention_fwd_tc<64, 64, kWinFwdWarps, kWinFwdMt, kWinFwdStr,
-                            kWinFwdMask64>(q, k, v, nullptr, mask, mask_nw, out,
-                                        stats, row_sum, windows, 1, T, T,
-                                        scale, ws, s);
+                            kWinFwdMask64>(q, k, v, nullptr, mask, mask_nw,
+                                           out, stats, row_sum, windows, 1, T,
+                                           T, scale, ws, s);
   return cudaErrorInvalidValue;
 }
 

@@ -314,11 +314,11 @@ __device__ __forceinline__ void load_vector_async(float* dst, const float* src,
 constexpr int kTcStages = 2;
 
 // Where a score mask [mask_nw, Nq, Nk] is read: not at all (kernels C and
-// F); from global memory (it sits in L2) into registers before each
-// streamed tile's products; from global memory where it is added (the
-// forward only); or staged in shared memory beside the tile's k and v by
-// the same asynchronous copies.
-enum MaskRead { kMaskNone = 0, kMaskL2 = 1, kMaskL2AtUse = 3, kMaskStaged = 2 };
+// F); from global memory, where it sits in L2 (the forward reads it where
+// it is added to the scores, the backward into registers before each
+// streamed tile's products); or, in the forward, staged in shared memory
+// beside the tile's k and v by the same asynchronous copies.
+enum MaskRead { kMaskNone = 0, kMaskL2 = 1, kMaskStaged = 2 };
 
 // Shared-memory plan of one pass: the resident side's tiles (with RES_V its
 // value-width rows too), then the ring of stages, each the streamed side's
@@ -355,56 +355,55 @@ struct TcPlan {
                          : (kRegFit < 1 ? 1 : kRegFit);
 };
 
-// Leading dimensions of a staged mask tile: [resident rows][STR + 8] where
-// the resident side is the queries (the forward, the query-tiled pass),
-// [STR][resident rows + 4] where it is the keys (the key-tiled pass reads
-// the mask transposed). Both put the fragment reads on 32 banks.
+// A staged mask tile is [resident query rows][STR + 8]: a half-warp's
+// 8-byte reads of two neighbouring columns then fall on 32 banks.
 template <int STR>
-constexpr int kMaskLdRows = STR + 8;
-template <int RES>
-constexpr int kMaskLdCols = RES + 4;
-
-constexpr int tc_mask_floats(int mask, int res, int str, bool both) {
-  return mask != kMaskStaged ? 0
-         : !both             ? res * (str + 8)
-         : res * (str + 8) > str * (res + 4) ? res * (str + 8)
-                                             : str * (res + 4);
-}
+constexpr int kMaskLd = STR + 8;
 
 // the forward: resident queries; a stage holds k, v, the bias and, staged,
 // the mask's [resident rows, STR] tile
 template <int D, int DV, int WARPS, int MT, int STR, int MASK = kMaskNone>
-using TcFwd = TcPlan<D, DV, WARPS, MT, STR, false, 1,
-                     tc_mask_floats(MASK, 16 * MT * WARPS, STR, false)>;
+using TcFwd =
+    TcPlan<D, DV, WARPS, MT, STR, false, 1,
+           MASK == kMaskStaged ? 16 * MT * WARPS * kMaskLd<STR> : 0>;
 // the backward's passes: resident q and dO (or k and v); a stage holds the
-// other side's two tiles, up to four per-row vectors and, staged, the
-// mask's tile of either pass
-template <int D, int DV, int WARPS, int MT, int STR, int MASK = kMaskNone>
-using TcBwd = TcPlan<D, DV, WARPS, MT, STR, true, 4,
-                     tc_mask_floats(MASK, 16 * MT * WARPS, STR, true)>;
+// other side's two tiles and up to four per-row vectors
+template <int D, int DV, int WARPS, int MT, int STR>
+using TcBwd = TcPlan<D, DV, WARPS, MT, STR, true, 4, 0>;
 
 // ------------------------------------------------------- score masks
 
 // dst[r][c] = src[(r0 + r) * sn + c0 + c] for r < ROWS, c < COLS (dst rows
-// LD floats apart) in 16-byte copies; zeros where the row is at or past
-// rows_total or the column at or past cols_total (a multiple of 4).
+// LD floats apart), zeros where the row is at or past rows_total or the
+// column at or past cols_total: 16-byte copies where every row is 16-byte
+// aligned (sn and cols_total multiples of 4, as at T = 484 and 1024), else
+// 4-byte ones.
 template <int ROWS, int COLS, int LD, int THREADS>
 __device__ __forceinline__ void load_mask_async(float* dst, const float* src,
                                                 int sn, int r0,
                                                 int rows_total, int c0,
                                                 int cols_total, int tid) {
-  constexpr int kChunks = COLS / 4;
-  for (int i = tid; i < ROWS * kChunks; i += THREADS) {
-    const int r = i / kChunks, c = (i % kChunks) * 4;
-    const bool ok = r0 + r < rows_total && c0 + c < cols_total;
-    cp_async<16>(dst + r * LD + c,
-                 ok ? src + (long long)(r0 + r) * sn + c0 + c : src, ok);
+  if (sn % 4 == 0 && cols_total % 4 == 0) {
+    constexpr int kChunks = COLS / 4;
+    for (int i = tid; i < ROWS * kChunks; i += THREADS) {
+      const int r = i / kChunks, c = (i % kChunks) * 4;
+      const bool ok = r0 + r < rows_total && c0 + c < cols_total;
+      cp_async<16>(dst + r * LD + c,
+                   ok ? src + (long long)(r0 + r) * sn + c0 + c : src, ok);
+    }
+  } else {
+    for (int i = tid; i < ROWS * COLS; i += THREADS) {
+      const int r = i / COLS, c = i % COLS;
+      const bool ok = r0 + r < rows_total && c0 + c < cols_total;
+      cp_async<4>(dst + r * LD + c,
+                  ok ? src + (long long)(r0 + r) * sn + c0 + c : src, ok);
+    }
   }
 }
 
-// This thread's mask values of a score tile from global memory: rows row +
-// 16 m + 8 h (row = the warp's first resident row + g), columns col0 + 8 j
-// + 2 t + c, at mask[row * Nk + col] (TRANSPOSED: the rows are keys and
+// The backward's mask values of a score tile, from global memory: rows row
+// + 16 m + 8 h (row = the warp's first resident row + g), columns col0 + 8
+// j + 2 t + c, at mask[row * Nk + col] (TRANSPOSED: the rows are keys and
 // the columns queries, at mask[col * Nk + row]). Indices past the end are
 // clamped: their scores are masked or never stored.
 template <int MT, int NT, bool TRANSPOSED>
@@ -428,33 +427,6 @@ __device__ __forceinline__ void mask_from_l2(const float* __restrict__ mask,
                                : mask + (long long)r * Nk + col);
         }
     }
-}
-
-// The same from a staged tile: ms points at this thread's first row (g)
-// of the warp's rows of a [rows][LD] tile, read two columns at a time
-// (LD = 8 mod 32 puts a half-warp's 8-byte reads on 32 banks), or
-// TRANSPOSED at its first key column of a [STR][LD] tile (LD = 4 mod 32).
-template <int MT, int NT, int LD, bool TRANSPOSED>
-__device__ __forceinline__ void mask_from_smem(const float* ms, int t,
-                                               float (&mv)[MT][NT][4]) {
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int m = 0; m < MT; ++m)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        if constexpr (TRANSPOSED) {
-#pragma unroll
-          for (int c = 0; c < 2; ++c)
-            mv[m][j][2 * h + c] =
-                ms[(8 * j + 2 * t + c) * LD + 16 * m + 8 * h];
-        } else {
-          const float2 p = *reinterpret_cast<const float2*>(
-              ms + (16 * m + 8 * h) * LD + 8 * j + 2 * t);
-          mv[m][j][2 * h] = p.x;
-          mv[m][j][2 * h + 1] = p.y;
-        }
-      }
 }
 
 // The forward's mask values at columns jcol and jcol + 1 of a streamed tile
@@ -485,26 +457,28 @@ __device__ __forceinline__ void mask_pair(const float* __restrict__ mask,
     }
 }
 
-// Splits of a pass's streamed side. With `blocks` blocks on `slots` places
-// and s splits a pass takes ceil(blocks * s / slots) / s of one block's
-// time: more splits fill an idle card and even out the last wave. Take the
-// smallest s within 5% of the least, no more than 16, than there are tiles,
-// or than the workspace holds (per_split floats each); then even the tiles
-// out so that no split is empty.
+// Splits of a pass's streamed side. With `blocks` blocks on `slots` places,
+// s splits of per = ceil(tiles / s) tiles each (ceil(tiles / per) of them
+// once the tiles are evened out, so that no split is empty) take
+// ceil(blocks * splits / slots) waves of per tiles: more splits fill an
+// idle card and even out the last wave. Take the fewest within 5% of the
+// least time, no more than 16, than there are tiles, or than the workspace
+// holds (per_split floats each).
 inline int tc_splits(long long blocks, int slots, int tiles,
                      long long per_split, long long ws_floats, int* per) {
   const long long most = max(1LL, min(min(16LL, (long long)tiles),
                                        ws_floats / per_split));
-  int best = 1;
-  double best_time = (double)ceil_div(blocks, slots);
+  *per = tiles;
+  long long best_time = ceil_div(blocks, slots) * (long long)tiles;
   for (int s = 2; s <= most; ++s) {
-    const double time = (double)ceil_div(blocks * s, slots) / s;
+    const int p = ceil_div(tiles, s);
+    const long long time =
+        ceil_div(blocks * ceil_div(tiles, p), slots) * (long long)p;
     if (time < 0.95 * best_time) {
-      best = s;
+      *per = p;
       best_time = time;
     }
   }
-  *per = ceil_div(tiles, best);
   return ceil_div(tiles, *per);
 }
 
@@ -526,7 +500,7 @@ struct TcFwdArgs {
   float* row_sum;
   float* part_o;
   float* part_stats;
-  int B, H, Nq, Nk;
+  int H, Nq, Nk;
   float scale;
   int tiles_per_split;
 };
@@ -542,7 +516,6 @@ __global__ void
 __launch_bounds__(32 * WARPS, (TcFwd<D, DV, WARPS, MT, STR, MASK>::kBlocksPerSm))
 attention_fwd_tc_kernel(TcFwdArgs a) {
   using L = TcFwd<D, DV, WARPS, MT, STR, MASK>;
-  constexpr int kMaskLd = kMaskLdRows<STR>;
   extern __shared__ __align__(16) float tc_smem[];
   float* Qs = tc_smem;            // [kRes][D + 4]
   float* stages = Qs + L::kResTile;
@@ -581,7 +554,7 @@ attention_fwd_tc_kernel(TcFwdArgs a) {
                                         k0, a.Nk, STR, tid);
     if constexpr (MASK == kMaskStaged)
       if (mask)
-        load_mask_async<L::kRes, STR, kMaskLd, L::kThreads>(
+        load_mask_async<L::kRes, STR, kMaskLd<STR>, L::kThreads>(
             st + L::kMaskOff, mask, a.Nk, q0, a.Nq, k0, a.Nk, tid);
     cp_async_commit();
   };
@@ -620,15 +593,8 @@ attention_fwd_tc_kernel(TcFwdArgs a) {
     const float* Vs = Ks + L::kStrTile;
     const float* bias_s = Vs + L::kStrTileV;
     const float* mask_s =
-        Ks + L::kMaskOff + (warp * L::kWarpRows + g) * kMaskLd;
+        Ks + L::kMaskOff + (warp * L::kWarpRows + g) * kMaskLd<STR>;
     const int k0 = tile * STR;
-    // from L2, this tile's mask values, read before the products so that
-    // the loads overlap them
-    float mv[MASK == kMaskL2 ? MT : 1][MASK == kMaskL2 ? L::kNT : 1][4];
-    if constexpr (MASK == kMaskL2)
-      if (mask)
-        mask_from_l2<MT, L::kNT, false>(mask, a.Nq, a.Nk, row0 + g, k0, t,
-                                        mv);
 
     float prod[1][MT][L::kNT][4];
 #pragma unroll
@@ -655,17 +621,10 @@ attention_fwd_tc_kernel(TcFwdArgs a) {
       // the products (as the backward does) it would hold 32 registers
       // that the 128-wide tiling does not have
       float mk[MASK ? MT : 1][2][2];
-      if constexpr (MASK == kMaskL2)
-#pragma unroll
-        for (int m = 0; m < MT; ++m)
-#pragma unroll
-          for (int hf = 0; hf < 2; ++hf)
-#pragma unroll
-            for (int c = 0; c < 2; ++c) mk[m][hf][c] = mv[m][j][2 * hf + c];
-      if constexpr (MASK == kMaskL2AtUse || MASK == kMaskStaged)
+      if constexpr (MASK != kMaskNone)
         if (mask)
-          mask_pair<MT, MASK, kMaskLd>(mask, mask_s, a.Nq, a.Nk, row0 + g,
-                                       k0, 8 * j + 2 * t, mk);
+          mask_pair<MT, MASK, kMaskLd<STR>>(mask, mask_s, a.Nq, a.Nk,
+                                            row0 + g, k0, 8 * j + 2 * t, mk);
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
         const int col = 8 * j + 2 * t + c;
@@ -841,7 +800,7 @@ cudaError_t attention_fwd_tc_launch(const TcFwdArgs& a, dim3 grid,
 // and out), read only by the HEADS instantiations (kernel A's; the others
 // take H = 1 and a dense out: C's and F's registers stay as they were);
 // bias [B, Nk] or null; mask [mask_nw, Nq, Nk] or null, read only by
-// instantiations with a MASK mode (staged, Nk must be a multiple of 4).
+// instantiations with a MASK mode.
 // row_max and row_sum [B * H, Nq] are written when row_max is not null (a
 // gradient will be taken). ws: room for the partials of a split pass (fewer
 // splits when it is short).
@@ -853,7 +812,7 @@ cudaError_t attention_fwd_tc(AttnOperand q, AttnOperand k, AttnOperand v,
                              float* row_sum, int B, int H, int Nq, int Nk,
                              float scale, Workspace ws, cudaStream_t stream) {
   using L = TcFwd<D, DV, WARPS, MT, STR, MASK>;
-  if ((mask && (MASK == kMaskNone || (MASK == kMaskStaged && Nk % 4))) ||
+  if ((mask && MASK == kMaskNone) ||
       (!HEADS && (H != 1 || out.sn != DV || out.sb != (long long)Nq * DV)))
     return cudaErrorInvalidValue;
   TcFwdArgs a;
@@ -862,7 +821,7 @@ cudaError_t attention_fwd_tc(AttnOperand q, AttnOperand k, AttnOperand v,
   a.mask = mask; a.mask_nw = mask_nw;
   a.out = out; a.row_max = row_max; a.row_sum = row_sum;
   a.part_o = a.part_stats = nullptr;
-  a.B = B; a.H = H; a.Nq = Nq; a.Nk = Nk;
+  a.H = H; a.Nq = Nq; a.Nk = Nk;
   a.scale = scale;
   const int BH = B * H;
   const long long rows = (long long)BH * Nq;
@@ -968,18 +927,16 @@ __device__ __forceinline__ void store_fragments(
 // Query-tiled pass, grid (query tiles, key splits, B): dq = scale * sum over
 // this split's keys of dS k, written to dq with one split and to
 // part_a[split] otherwise.
-template <int D, int DV, int WARPS, int MT, int STR, int MASK>
+template <int D, int DV, int WARPS, int MT, int STR, bool MASKED>
 __global__ void
-__launch_bounds__(32 * WARPS, (TcBwd<D, DV, WARPS, MT, STR, MASK>::kBlocksPerSm))
+__launch_bounds__(32 * WARPS, (TcBwd<D, DV, WARPS, MT, STR>::kBlocksPerSm))
 attention_bwd_tc_dq_kernel(TcBwdArgs a) {
-  using L = TcBwd<D, DV, WARPS, MT, STR, MASK>;
-  constexpr int kMaskLd = kMaskLdRows<STR>;
+  using L = TcBwd<D, DV, WARPS, MT, STR>;
   extern __shared__ __align__(16) float tc_smem[];
   float* Qs = tc_smem;              // [kRes][D + 4]
   float* Gs = Qs + L::kResTile;     // [kRes][DV + 4] (wide only)
   float* stages = Gs + L::kResTileV;
-  // a stage: K [STR][D + 4]; V [STR][DV + 4] or [STR][2]; bias [STR];
-  // staged, the mask [kRes][STR + 8]
+  // a stage: K [STR][D + 4]; V [STR][DV + 4] or [STR][2]; bias [STR]
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
@@ -993,9 +950,8 @@ attention_bwd_tc_dq_kernel(TcBwdArgs a) {
   const float* gp = a.go.p + b * a.go.sb + (long long)h * DV;
   const float* bias = a.bias ? a.bias + (long long)b * a.Nk : nullptr;
   const float* mask =
-      MASK != kMaskNone && a.mask
-          ? a.mask + (long long)(b % a.mask_nw) * a.Nq * a.Nk
-          : nullptr;
+      MASKED && a.mask ? a.mask + (long long)(b % a.mask_nw) * a.Nq * a.Nk
+                       : nullptr;
 
   load_tile_async<D, L::kThreads>(Qs, qp, a.q.sn, q0, a.Nq, L::kRes, tid);
   if constexpr (L::kWide)
@@ -1014,10 +970,6 @@ attention_bwd_tc_dq_kernel(TcBwdArgs a) {
     if (bias)
       load_vector_async<4, L::kThreads>(st + L::kStrTile + L::kStrTileV, bias,
                                         k0, a.Nk, STR, tid);
-    if constexpr (MASK == kMaskStaged)
-      if (mask)
-        load_mask_async<L::kRes, STR, kMaskLd, L::kThreads>(
-            st + L::kMaskOff, mask, a.Nk, q0, a.Nq, k0, a.Nk, tid);
     cp_async_commit();
   };
 
@@ -1063,18 +1015,14 @@ attention_bwd_tc_dq_kernel(TcBwdArgs a) {
     const float* Ks = stages + s * L::kStage;
     const float* Vs = Ks + L::kStrTile;
     const float* bias_s = Vs + L::kStrTileV;
-    const float* mask_s =
-        Ks + L::kMaskOff + (warp * L::kWarpRows + g) * kMaskLd;
     const int k0 = tile * STR;
-    // this tile's mask values, read before the products so that the loads
-    // overlap them
-    float mv[MASK ? MT : 1][MASK ? L::kNT : 1][4];
-    if constexpr (MASK == kMaskL2)
+    // from L2, this tile's mask values, read before the products so that
+    // the loads overlap them
+    float mv[MASKED ? MT : 1][MASKED ? L::kNT : 1][4];
+    if constexpr (MASKED)
       if (mask)
         mask_from_l2<MT, L::kNT, false>(mask, a.Nq, a.Nk, row0 + g, k0, t,
                                         mv);
-    if constexpr (MASK == kMaskStaged)
-      if (mask) mask_from_smem<MT, L::kNT, kMaskLd, false>(mask_s, t, mv);
 
     // scores, and with wide values dO v^T beside them
     float prod[L::kProducts][MT][L::kNT][4];
@@ -1110,7 +1058,7 @@ attention_bwd_tc_dq_kernel(TcBwdArgs a) {
           for (int hf = 0; hf < 2; ++hf) {
             const int e = 2 * hf + c;
             float x = sc[m][j][e] * a.scale + bs;
-            if constexpr (MASK != kMaskNone)
+            if constexpr (MASKED)
               if (mask) x += mv[m][j][e];
             const float p =
                 ok ? __expf(x - rmax[m][hf]) * rinv[m][hf] : 0.f;
@@ -1137,19 +1085,17 @@ attention_bwd_tc_dq_kernel(TcBwdArgs a) {
 // queries dv = sum P^T dO and dk = scale * sum dS^T q, written to dk / dv
 // with one split and to part_a / part_b[split] otherwise. dk or dv may be
 // null (not computed).
-template <int D, int DV, int WARPS, int MT, int STR, int MASK>
+template <int D, int DV, int WARPS, int MT, int STR, bool MASKED>
 __global__ void
-__launch_bounds__(32 * WARPS, (TcBwd<D, DV, WARPS, MT, STR, MASK>::kBlocksPerSm))
+__launch_bounds__(32 * WARPS, (TcBwd<D, DV, WARPS, MT, STR>::kBlocksPerSm))
 attention_bwd_tc_dkv_kernel(TcBwdArgs a) {
-  using L = TcBwd<D, DV, WARPS, MT, STR, MASK>;
-  constexpr int kMaskLd = kMaskLdCols<L::kRes>;
+  using L = TcBwd<D, DV, WARPS, MT, STR>;
   extern __shared__ __align__(16) float tc_smem[];
   float* Ks = tc_smem;              // [kRes][D + 4]
   float* Vs = Ks + L::kResTile;     // [kRes][DV + 4] (wide only)
   float* stages = Vs + L::kResTileV;
   // a stage: Q [STR][D + 4]; dO [STR][DV + 4] or [STR][2]; row max, row
-  // sum, delta [STR] each; staged, the mask's [STR][kRes + 4] tile (query
-  // rows, this block's key columns)
+  // sum, delta [STR] each
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
@@ -1166,9 +1112,8 @@ attention_bwd_tc_dkv_kernel(TcBwdArgs a) {
   const float* delta = a.delta + (long long)z * a.Nq;
   // the mask is read transposed: column n of key row j at mask[n * Nk + j]
   const float* mask =
-      MASK != kMaskNone && a.mask
-          ? a.mask + (long long)(b % a.mask_nw) * a.Nq * a.Nk
-          : nullptr;
+      MASKED && a.mask ? a.mask + (long long)(b % a.mask_nw) * a.Nq * a.Nk
+                       : nullptr;
   const bool want_k = a.dk.p != nullptr, want_v = a.dv.p != nullptr;
 
   load_tile_async<D, L::kThreads>(Ks, kp, a.k.sn, k0, a.Nk, L::kRes, tid);
@@ -1190,10 +1135,6 @@ attention_bwd_tc_dkv_kernel(TcBwdArgs a) {
     load_vector_async<4, L::kThreads>(vec + STR, row_sum, n0, a.Nq, STR, tid);
     load_vector_async<4, L::kThreads>(vec + 2 * STR, delta, n0, a.Nq, STR,
                                       tid);
-    if constexpr (MASK == kMaskStaged)
-      if (mask)
-        load_mask_async<STR, L::kRes, kMaskLd, L::kThreads>(
-            st + L::kMaskOff, mask, a.Nk, n0, a.Nq, k0, a.Nk, tid);
     cp_async_commit();
   };
 
@@ -1242,15 +1183,13 @@ attention_bwd_tc_dkv_kernel(TcBwdArgs a) {
     const float* max_s = Gs + L::kStrTileV;
     const float* sum_s = max_s + STR;
     const float* del_s = sum_s + STR;
-    const float* mask_s = Qs + L::kMaskOff + warp * L::kWarpRows + g;
     const int n0 = tile * STR;
-    // this tile's mask values (transposed), read before the products
-    float mv[MASK ? MT : 1][MASK ? L::kNT : 1][4];
-    if constexpr (MASK == kMaskL2)
+    // from L2, this tile's mask values (transposed), read before the
+    // products
+    float mv[MASKED ? MT : 1][MASKED ? L::kNT : 1][4];
+    if constexpr (MASKED)
       if (mask)
         mask_from_l2<MT, L::kNT, true>(mask, a.Nq, a.Nk, row0 + g, n0, t, mv);
-    if constexpr (MASK == kMaskStaged)
-      if (mask) mask_from_smem<MT, L::kNT, kMaskLd, true>(mask_s, t, mv);
 
     // transposed tiles: rows are this warp's keys, columns the queries
     float prod[2][MT][L::kNT][4];
@@ -1287,7 +1226,7 @@ attention_bwd_tc_dkv_kernel(TcBwdArgs a) {
           for (int hf = 0; hf < 2; ++hf) {
             const int e = 2 * hf + c;
             float x = pt[m][j][e] * a.scale + rbias[m][hf];
-            if constexpr (MASK != kMaskNone)
+            if constexpr (MASKED)
               if (mask) x += mv[m][j][e];
             const float p = ok ? __expf(x - mx) * inv : 0.f;
             const float d = L::kWide
@@ -1350,8 +1289,9 @@ attention_bwd_tc_dkv_kernel(TcBwdArgs a) {
 // per head. o is the forward's output, go its gradient, row_max / row_sum
 // [B * H, Nq] its row statistics. q, go, dq: [B, Nq, H * .]; k, v, dk, dv:
 // [B, Nk, H * .]; bias [B, Nk] or null; mask [mask_nw, Nq, Nk] or null,
-// read only by instantiations with a MASK mode (as in the forward).
-template <int D, int DV, int WARPS, int MT, int STR, int MASK = kMaskNone>
+// read only by the MASKED instantiations (the others take no mask: its
+// registers would make C's tiling spill).
+template <int D, int DV, int WARPS, int MT, int STR, bool MASKED = false>
 cudaError_t attention_bwd_tc(AttnOperand q, AttnOperand k, AttnOperand v,
                              AttnOperand o, AttnOperand go, const float* bias,
                              const float* mask, int mask_nw,
@@ -1359,10 +1299,8 @@ cudaError_t attention_bwd_tc(AttnOperand q, AttnOperand k, AttnOperand v,
                              AttnGrad dq, AttnGrad dk, AttnGrad dv, int B,
                              int H, int Nq, int Nk, float scale, Workspace ws,
                              cudaStream_t stream) {
-  using L = TcBwd<D, DV, WARPS, MT, STR, MASK>;
-  static_assert(MASK != kMaskL2AtUse, "the backward reads ahead");
-  if (mask && (MASK == kMaskNone || (MASK == kMaskStaged && Nk % 4)))
-    return cudaErrorInvalidValue;
+  using L = TcBwd<D, DV, WARPS, MT, STR>;
+  if (mask && !MASKED) return cudaErrorInvalidValue;
   const int BH = B * H;
   const long long rows = (long long)BH * Nq;
   float* delta = ws.take(rows);
@@ -1391,10 +1329,10 @@ cudaError_t attention_bwd_tc(AttnOperand q, AttnOperand k, AttnOperand v,
     if (splits > 1) a.part_a = ws.p;  // free again after the sum below
     // set once per instantiation, not per launch (one card per process)
     static const cudaError_t attr = cudaFuncSetAttribute(
-        attention_bwd_tc_dq_kernel<D, DV, WARPS, MT, STR, MASK>,
+        attention_bwd_tc_dq_kernel<D, DV, WARPS, MT, STR, MASKED>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
     if (attr != cudaSuccess) return attr;
-    attention_bwd_tc_dq_kernel<D, DV, WARPS, MT, STR, MASK>
+    attention_bwd_tc_dq_kernel<D, DV, WARPS, MT, STR, MASKED>
         <<<dim3(res_tiles, splits, BH), L::kThreads, L::kBytes, stream>>>(a);
     if (splits > 1)
       split_reduce_kernel<<<ceil_div(rows * D, 256), 256, 0, stream>>>(
@@ -1413,10 +1351,10 @@ cudaError_t attention_bwd_tc(AttnOperand q, AttnOperand k, AttnOperand v,
       a.part_b = ws.p + splits * keys * D;
     }
     static const cudaError_t attr = cudaFuncSetAttribute(
-        attention_bwd_tc_dkv_kernel<D, DV, WARPS, MT, STR, MASK>,
+        attention_bwd_tc_dkv_kernel<D, DV, WARPS, MT, STR, MASKED>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
     if (attr != cudaSuccess) return attr;
-    attention_bwd_tc_dkv_kernel<D, DV, WARPS, MT, STR, MASK>
+    attention_bwd_tc_dkv_kernel<D, DV, WARPS, MT, STR, MASKED>
         <<<dim3(res_tiles, splits, BH), L::kThreads, L::kBytes, stream>>>(a);
     if (splits > 1 && dk.p)
       split_reduce_kernel<<<ceil_div(keys * D, 256), 256, 0, stream>>>(

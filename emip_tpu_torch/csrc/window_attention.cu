@@ -20,22 +20,21 @@
 // (256 -> 1024 -> 128) are ~85% of B's FLOPs and run as the shared 3xTF32
 // GEMM on the tensor cores (gemm_tf32.cuh) over all B*K*K*T rows at once;
 // the attention forward is attention_fwd_tc of mma_tf32.cuh (3xTF32 on the
-// tensor cores; tiling and dispatch in attention_fwd.cuh): a block owns 256
-// query rows of one window and streams the window's keys and values in
-// tiles of 32, the shift mask read from L2 into the score fragments before
-// each tile's products. It takes any T: at T = 484 the last key tile is
-// masked by -inf and the last query tile is bounds-checked, T = 1024 is a
-// whole number of tiles. So the TPU's split into a whole-window form and a
-// row-tiled form with the window's k / v in VMEM scratch has no
-// counterpart: one q-tiled family serves every T (at T = 484 and 64
-// windows 128 blocks; at T = 1024 and 8 windows the keys are split four
-// ways and the partials merged in order, which the forward's workspace
-// holds). B is 12 launches, G 6 and H 9 (a split adds a merge each),
+// tensor cores; tiling, dispatch and where the shift mask is read in
+// attention_fwd.cuh): a block owns 256 query rows of one window and streams
+// the window's keys and values in tiles of 32. It takes any T: at T = 484
+// the last key tile is masked by -inf and the last query tile is
+// bounds-checked, T = 1024 is a whole number of tiles. So the TPU's split
+// into a whole-window form and a row-tiled form with the window's k / v in
+// VMEM scratch has no counterpart: one q-tiled family serves every T (at T
+// = 484 and 64 windows 128 blocks; at T = 1024 and 8 windows the keys are
+// split four ways and the partials merged in order, in the forward's
+// workspace). B is 12 launches, G 6 and H 9 (a split adds a merge each),
 // instead of one grid cell per window; the TPU kernels fused them to save
-// per-cell sequencing overhead, which does not exist in this form. x (B: x1) and msg are
-// written side by side into one [R, 2C] buffer, so [x, msg] W0 is one GEMM
-// against the reference's one [F, 2C] weight (the TPU kernel takes W0 in
-// two halves).
+// per-cell sequencing overhead, which does not exist in this form. x (B:
+// x1) and msg are written side by side into one [R, 2C] buffer, so [x, msg]
+// W0 is one GEMM against the reference's one [F, 2C] weight (the TPU
+// kernel takes W0 in two halves).
 //
 // Backward: the TPU kernels recompute the whole layer per window. Here a
 // forward that will be differentiated keeps every intermediate (q/k/v,
@@ -146,12 +145,12 @@ cudaError_t message_bwd(const float* xq, int ldxq, const float* t,
   const float scale = 1.0f / sqrtf((float)C);
   if (C == 128)
     err = attention_bwd_tc<128, 128, kWinBwdWarps, kWinBwdMt, kWinBwdStr,
-                           kWinBwdMask128>(
+                           true>(
         q, k, v, oo, goo, nullptr, d.mask, d.mask_nw, stats, row_sum, dq, dk,
         dv, d.windows, 1, d.T, d.T, scale, ws, s);
   else if (C == 64)
     err = attention_bwd_tc<64, 64, kWinBwdWarps, kWinBwdMt, kWinBwdStr,
-                           kWinBwdMask64>(
+                           true>(
         q, k, v, oo, goo, nullptr, d.mask, d.mask_nw, stats, row_sum, dq, dk,
         dv, d.windows, 1, d.T, d.T, scale, ws, s);
   else

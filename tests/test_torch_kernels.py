@@ -536,17 +536,19 @@ def test_cuda_kernels_match_plain_versions():
             a.shape, b.shape)
     # the tensor-core forward attention of A, B, G and H alone: A's heads
     # (widths 64 and 32) and the windows (128 and 64; T = 484 ragged, 1024
-    # whole tiles) with and without the shift mask, k and v read in place
-    # from one [k | v] buffer; keys split where the blocks are few (A's
-    # last stage, 8 windows of 1024 tokens): against the fp64 product, and
-    # its kept row statistics against the plain version's
+    # whole tiles, 441 whose mask rows are not 16-byte aligned) with and
+    # without the shift mask, k and v read in place from one [k | v]
+    # buffer; keys split where the blocks are few (A's last stage, 8
+    # windows of 1024 tokens): against the fp64 product, and its kept row
+    # statistics against the plain version's
     from emip_tpu_torch.kernels.attention import (
         attention,
         attention_reference,
     )
     from emip_tpu_torch.ops.window import shifted_window_mask
 
-    masks = {s: shifted_window_mask(s, s, 2, device="cuda") for s in (44, 64)}
+    masks = {s: shifted_window_mask(s, s, 2, device="cuda")
+             for s in (42, 44, 64)}
     for b, nq, nk, c, heads, side in ((2, 7744, 121, 64, 1, 0),
                                       (2, 121, 121, 256, 8, 0),
                                       (2, 1936, 121, 64, 2, 0),
@@ -554,6 +556,8 @@ def test_cuda_kernels_match_plain_versions():
                                       (8, 484, 484, 128, 1, None),
                                       (8, 484, 484, 128, 1, 44),
                                       (8, 484, 484, 64, 1, 44),
+                                      (8, 441, 441, 64, 1, 42),
+                                      (8, 441, 441, 128, 1, 42),
                                       (8, 1024, 1024, 128, 1, 64)):
         windows = side != 0
         mask = masks[side] if side else None

@@ -6,7 +6,7 @@ as they stand, in one process on one GPU.
         [--set ...] [--cases mask64,sr,win128] [--reps 20]
 
 Each ``--set`` is one variant: the ``constexpr`` constants it names (in
-``emip_tpu_torch/csrc/*.cu*``, e.g. ``kWinMask64=emip::kMaskStaged`` or
+``emip_tpu_torch/csrc/*.cu*``, e.g. ``kWinFwdMask64=emip::kMaskL2`` or
 ``kSrFwdWarps=4``) are given the new values in a copy of the sources,
 which is built beside the unchanged ones (``build/emip_tpu_torch/<hash>``,
 as ``kernels/_build.py`` builds them). Every case is then run on the
