@@ -25,7 +25,7 @@
 // not fit (198 KiB, and two mask stages add 80 KiB against the SM's 227)
 // and the tile's mask read ahead of the products takes 32 registers that
 // the tiling does not have (80 bytes spilled, 1.04-1.05x), so it is read
-// from L2 where it is added, a column pair at a time (52 bytes spilled).
+// from L2 where it is added, a column pair at a time (251 registers).
 // The backward (window_attention.cu) reads it from L2 ahead of each tile's
 // products: at width 64, where staging fits there too, staging was no
 // faster (1.00-1.01x).
