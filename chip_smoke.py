@@ -1195,8 +1195,9 @@ def attention_phase(batch: int, device, reps: int) -> dict:
         ms, sdpa_ms = alternate_ms(
             lambda: attention(q, k, v, heads, mask, windows), sdpa, reps)
         ops = 4.0 * b * nq * nk * c
-        nbytes = 4.0 * (3 * b * nq * c + (0 if mask is None
-                                         else mask.numel()))
+        # q and out, k and v, the mask: each read or written once
+        nbytes = 4.0 * (2 * b * nq * c + 2 * b * nk * c
+                        + (0 if mask is None else mask.numel()))
         bound = max(ops / (PEAK_TF32_FLOPS / 3),
                     nbytes / PEAK_BYTES_PER_S) * 1e3
         ok = err <= ATTN_REL_TOL and ms >= bound

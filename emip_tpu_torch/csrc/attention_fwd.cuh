@@ -1,97 +1,33 @@
 // The forward attention of kernels A (PVT heads of width 64 or 32) and B,
 // G, H (GMFlow windows of width 128 or 64, with the shifted-window mask):
-// attention_fwd_tc of mma_tf32.cuh, 3xTF32 on the tensor cores, at the
-// tilings below. sr_attention.cu and window_attention.cu run it inside
-// their entry points; attention.cu exposes it alone, for the checks.
-//
-// Tilings: warps, fragments of 16 resident rows per warp, streamed rows per
-// stage. Both are kernel F's forward's: 8 warps of two fragments own 256
-// query rows, so that every streamed fragment of k and v is loaded and
-// split into its TF32 halves once for two mma; keys stream in tiles of 32
-// through two cp.async stages (198 KiB at width 128, one block an SM).
-// Measured against it (tools/bench_attention_variants.py, PERF.md): 8 warps
-// of one fragment, 1.11-1.23x the time of the windows' attention; keys in
-// tiles of 16, 1.02-1.12x; 4 warps for A, within the spread of its
-// launch-bound shapes. Where the blocks leave the card idle (A's last
-// stage: 64 image-head rows of 121 queries at 352^2; G and H at one clip of
-// 512^2), tc_splits splits the keys and a further launch merges the
-// partials in order.
-//
-// The shift mask (a window call without it skips its reads): at width 64 it
-// is staged in shared memory beside k and v (two [256, 40] stages, 182 KiB
-// in all) and read where it is added; from L2 the same forward took
-// 1.08-1.24x as long (1.08-1.13 with the tile's mask read ahead of the
-// products, 1.22-1.24 read where it is added). At width 128 staging does
-// not fit (198 KiB, and two mask stages add 80 KiB against the SM's 227)
-// and the tile's mask read ahead of the products takes 32 registers that
-// the tiling does not have (80 bytes spilled, 1.04-1.05x), so it is read
-// from L2 where it is added, a column pair at a time (251 registers).
-// The backward (window_attention.cu) reads it from L2 ahead of each tile's
-// products: at width 64, where staging fits there too, staging was no
-// faster (1.00-1.01x).
+// attention_fwd_tc of mma_tf32.cuh, 3xTF32 on the tensor cores. Defined
+// once, with its tilings, in attention.cu; sr_attention.cu and
+// window_attention.cu call it inside their entry points, and
+// kernels/attention.py calls it alone, for the checks.
 
 #pragma once
 
-#include "mma_tf32.cuh"
+// out = softmax(q_h k_h^T / sqrt(D) (+ mask)) v_h per head h of width D.
+// q, out: [B, Nq, H * D]; k, v: [B, Nk, H * D]; each addressed by its batch
+// and row strides (the last stride 1), so that A's q buffer and the two
+// halves of its [k | v] buffer are read in place and o is written at the
+// head's columns. windows != 0 takes the window kernels' instantiation (D
+// 128 or 64, H 1, Nq == Nk, mask [mask_nw, Nq, Nk] or null with batch row
+// b reading mask[b % mask_nw]), otherwise kernel A's (D 64 or 32, no
+// mask). stats [2, B * H, Nq] (row max, then row sum) or null (no gradient
+// will be taken). ws: ws_floats of scratch for the key-split partials, as
+// many as emip_attention_fwd_workspace asks (fewer splits when it is
+// short). Returns a cudaError_t.
+extern "C" int emip_attention_fwd(const float* q, long long q_sb, int q_sn,
+                                  const float* k, long long k_sb, int k_sn,
+                                  const float* v, long long v_sb, int v_sn,
+                                  const float* mask, int mask_nw, float* out,
+                                  long long o_sb, int o_sn, float* stats,
+                                  float* ws, long long ws_floats, int B,
+                                  int H, int Nq, int Nk, int D, int windows,
+                                  void* stream);
 
-constexpr int kSrFwdWarps = 8;
-constexpr int kSrFwdMt = 2;
-constexpr int kSrFwdStr = 32;
-constexpr int kWinFwdWarps = 8;
-constexpr int kWinFwdMt = 2;
-constexpr int kWinFwdStr = 32;
-// where the window forward reads the shift mask at widths 128 and 64
-constexpr int kWinFwdMask128 = emip::kMaskL2;
-constexpr int kWinFwdMask64 = emip::kMaskStaged;
-
-namespace emip {
-namespace {
-
-// o_h = softmax(q_h k_h^T / sqrt(ch)) v_h for every head h of width ch (64
-// or 32): q, out [B, N, H * ch]; k, v [B, M, H * ch] (A's q buffer and the
-// two halves of its [k | v] buffer, read in place). stats [2, B * H, N]
-// (row max, then row sum) or null (no gradient will be taken).
-inline cudaError_t sr_attention_fwd(AttnOperand q, AttnOperand k,
-                                    AttnOperand v, AttnGrad out,
-                                    float* stats, int B, int H, int N, int M,
-                                    int ch, Workspace ws, cudaStream_t s) {
-  float* row_sum = stats ? stats + (long long)B * H * N : nullptr;
-  const float scale = 1.0f / sqrtf((float)ch);
-  if (ch == 64)
-    return attention_fwd_tc<64, 64, kSrFwdWarps, kSrFwdMt, kSrFwdStr,
-                            kMaskNone, true>(
-        q, k, v, nullptr, nullptr, 1, out, stats, row_sum, B, H, N, M, scale,
-        ws, s);
-  if (ch == 32)
-    return attention_fwd_tc<32, 32, kSrFwdWarps, kSrFwdMt, kSrFwdStr,
-                            kMaskNone, true>(
-        q, k, v, nullptr, nullptr, 1, out, stats, row_sum, B, H, N, M, scale,
-        ws, s);
-  return cudaErrorInvalidValue;
-}
-
-// softmax(q k^T / sqrt(C) + mask) v per window of T tokens and width C (128
-// or 64): q, k, v, out [windows, T, .]; mask [mask_nw, T, T] or null, window
-// i reading mask[i % mask_nw]. stats as above ([2, windows, T]) or null.
-inline cudaError_t window_attention_fwd(AttnOperand q, AttnOperand k,
-                                        AttnOperand v, const float* mask,
-                                        int mask_nw, AttnGrad out,
-                                        float* stats, int windows, int T,
-                                        int C, Workspace ws, cudaStream_t s) {
-  float* row_sum = stats ? stats + (long long)windows * T : nullptr;
-  const float scale = 1.0f / sqrtf((float)C);
-  if (C == 128)
-    return attention_fwd_tc<128, 128, kWinFwdWarps, kWinFwdMt, kWinFwdStr,
-                            kWinFwdMask128>(q, k, v, nullptr, mask, mask_nw,
-                                            out, stats, row_sum, windows, 1,
-                                            T, T, scale, ws, s);
-  if (C == 64)
-    return attention_fwd_tc<64, 64, kWinFwdWarps, kWinFwdMt, kWinFwdStr,
-                            kWinFwdMask64>(q, k, v, nullptr, mask, mask_nw,
-                                           out, stats, row_sum, windows, 1, T,
-                                           T, scale, ws, s);
-  return cudaErrorInvalidValue;
-}
-
-}  // namespace
-}  // namespace emip
+// Floats of ws that emip_attention_fwd splits its keys into at this shape:
+// 0 where it takes one split, -1 for a width it does not serve.
+extern "C" long long emip_attention_fwd_workspace(int B, int H, int Nq,
+                                                  int Nk, int D, int windows);

@@ -6,7 +6,7 @@
 // 64), memory_attention.cu (kernel F, value and key width 128 or 64,
 // additive key bias), window_attention.cu (kernels B, G, H: width 128 or
 // 64, the shifted-window mask) and sr_attention.cu (kernel A: heads of
-// width 64 or 32); the forwards of A, B, G and H through attention_fwd.cuh.
+// width 64 or 32); the forwards of A, B, G and H through attention.cu.
 // The GEMM of kernels A, B, G and H (gemm_tf32.cuh) is built on the same
 // 3xTF32 products and copies.
 //
@@ -58,9 +58,8 @@
 //                    is two FMAs per score on the CUDA cores. The additive
 //                    mask [mask_nw, Nq, Nk] (the shifted-window mask of
 //                    kernels B, G, H: 3.7 MiB at T = 484, 16 MiB at T =
-//                    1024, so it sits in L2) is read where it is added, a
-//                    column pair at a time (kMaskL2), or staged in shared
-//                    memory beside k and v (kMaskStaged). Keys past the end
+//                    1024, so it sits in L2) is read from there where it
+//                    is added, a column pair at a time. Keys past the end
 //                    of a ragged last tile are masked to -inf; masked tiles
 //                    are not skipped (with every key at bias -1e9 the result
 //                    is the plain mean of v). Where the blocks leave the
@@ -70,10 +69,9 @@
 //   attention_bwd_tc dq, dk, dv of softmax(q k^T scale + bias + mask) v
 //                    from the row max and row sum the forward kept, with
 //                    heads and the mask as in the forward; the mask is read
-//                    into registers at the top of each streamed tile, before
-//                    the tile's products (from L2, or from the tile staged
-//                    beside the streamed side's), and added to the score
-//                    fragments (transposed in the key-tiled pass). Two
+//                    from L2 into registers at the top of each streamed
+//                    tile, before the tile's products, and added to the
+//                    score fragments (transposed in the key-tiled pass). Two
 //                    passes, each a grid of blocks that own WARPS x MT x 16
 //                    rows of one side (kept in shared memory) and stream the
 //                    other side through the same ring of stages:
@@ -313,19 +311,11 @@ __device__ __forceinline__ void load_vector_async(float* dst, const float* src,
 
 constexpr int kTcStages = 2;
 
-// Where a score mask [mask_nw, Nq, Nk] is read: not at all (kernels C and
-// F); from global memory, where it sits in L2 (the forward reads it where
-// it is added to the scores, the backward into registers before each
-// streamed tile's products); or, in the forward, staged in shared memory
-// beside the tile's k and v by the same asynchronous copies.
-enum MaskRead { kMaskNone = 0, kMaskL2 = 1, kMaskStaged = 2 };
-
 // Shared-memory plan of one pass: the resident side's tiles (with RES_V its
 // value-width rows too), then the ring of stages, each the streamed side's
-// tiles, VECS per-row vectors and EXTRA floats of a staged mask tile. A
-// warp owns MT fragments of 16 resident rows.
-template <int D, int DV, int WARPS, int MT, int STR, bool RES_V, int VECS,
-          int EXTRA>
+// tiles and VECS per-row vectors. A warp owns MT fragments of 16 resident
+// rows.
+template <int D, int DV, int WARPS, int MT, int STR, bool RES_V, int VECS>
 struct TcPlan {
   static_assert(D % 8 == 0 && STR % 8 == 0, "fragment sizes");
   static_assert(DV == 2 || DV == D, "value width: 2, or the key width");
@@ -341,8 +331,7 @@ struct TcPlan {
   static constexpr int kResTileV = RES_V && kWide ? kRes * kLdV : 0;
   static constexpr int kStrTile = STR * kLd;
   static constexpr int kStrTileV = kWide ? STR * kLdV : STR * DV;
-  static constexpr int kMaskOff = kStrTile + kStrTileV + VECS * STR;
-  static constexpr int kStage = kMaskOff + EXTRA;
+  static constexpr int kStage = kStrTile + kStrTileV + VECS * STR;
   static constexpr size_t kBytes =
       sizeof(float) * (kResTile + kResTileV + kTcStages * kStage);
   // blocks that share an SM: what its 227 KiB of shared memory hold (1 KiB
@@ -355,51 +344,15 @@ struct TcPlan {
                          : (kRegFit < 1 ? 1 : kRegFit);
 };
 
-// A staged mask tile is [resident query rows][STR + 8]: a half-warp's
-// 8-byte reads of two neighbouring columns then fall on 32 banks.
-template <int STR>
-constexpr int kMaskLd = STR + 8;
-
-// the forward: resident queries; a stage holds k, v, the bias and, staged,
-// the mask's [resident rows, STR] tile
-template <int D, int DV, int WARPS, int MT, int STR, int MASK = kMaskNone>
-using TcFwd =
-    TcPlan<D, DV, WARPS, MT, STR, false, 1,
-           MASK == kMaskStaged ? 16 * MT * WARPS * kMaskLd<STR> : 0>;
+// the forward: resident queries; a stage holds k, v and the bias
+template <int D, int DV, int WARPS, int MT, int STR>
+using TcFwd = TcPlan<D, DV, WARPS, MT, STR, false, 1>;
 // the backward's passes: resident q and dO (or k and v); a stage holds the
 // other side's two tiles and up to four per-row vectors
 template <int D, int DV, int WARPS, int MT, int STR>
-using TcBwd = TcPlan<D, DV, WARPS, MT, STR, true, 4, 0>;
+using TcBwd = TcPlan<D, DV, WARPS, MT, STR, true, 4>;
 
 // ------------------------------------------------------- score masks
-
-// dst[r][c] = src[(r0 + r) * sn + c0 + c] for r < ROWS, c < COLS (dst rows
-// LD floats apart), zeros where the row is at or past rows_total or the
-// column at or past cols_total: 16-byte copies where every row is 16-byte
-// aligned (sn and cols_total multiples of 4, as at T = 484 and 1024), else
-// 4-byte ones.
-template <int ROWS, int COLS, int LD, int THREADS>
-__device__ __forceinline__ void load_mask_async(float* dst, const float* src,
-                                                int sn, int r0,
-                                                int rows_total, int c0,
-                                                int cols_total, int tid) {
-  if (sn % 4 == 0 && cols_total % 4 == 0) {
-    constexpr int kChunks = COLS / 4;
-    for (int i = tid; i < ROWS * kChunks; i += THREADS) {
-      const int r = i / kChunks, c = (i % kChunks) * 4;
-      const bool ok = r0 + r < rows_total && c0 + c < cols_total;
-      cp_async<16>(dst + r * LD + c,
-                   ok ? src + (long long)(r0 + r) * sn + c0 + c : src, ok);
-    }
-  } else {
-    for (int i = tid; i < ROWS * COLS; i += THREADS) {
-      const int r = i / COLS, c = i % COLS;
-      const bool ok = r0 + r < rows_total && c0 + c < cols_total;
-      cp_async<4>(dst + r * LD + c,
-                  ok ? src + (long long)(r0 + r) * sn + c0 + c : src, ok);
-    }
-  }
-}
 
 // The backward's mask values of a score tile, from global memory: rows row
 // + 16 m + 8 h (row = the warp's first resident row + g), columns col0 + 8
@@ -429,31 +382,22 @@ __device__ __forceinline__ void mask_from_l2(const float* __restrict__ mask,
     }
 }
 
-// The forward's mask values at columns jcol and jcol + 1 of a streamed tile
-// (key k0 + jcol, jcol = 8 j + 2 t) of this thread's rows 16 m + 8 h past
-// row (the warp's first + g): from L2, indices past the end clamped, or
-// from the staged tile ms (at the thread's first row) in one 8-byte read.
-template <int MT, int MASK, int LD>
+// The forward's mask values, from L2, at keys k0 + jcol and k0 + jcol + 1
+// (jcol = 8 j + 2 t) of this thread's rows 16 m + 8 h past row (the warp's
+// first + g); indices past the end are clamped.
+template <int MT>
 __device__ __forceinline__ void mask_pair(const float* __restrict__ mask,
-                                          const float* ms, int Nq, int Nk,
-                                          int row, int k0, int jcol,
-                                          float (&mk)[MT][2][2]) {
+                                          int Nq, int Nk, int row, int k0,
+                                          int jcol, float (&mk)[MT][2][2]) {
 #pragma unroll
   for (int m = 0; m < MT; ++m)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      if constexpr (MASK == kMaskStaged) {
-        const float2 p = *reinterpret_cast<const float2*>(
-            ms + (16 * m + 8 * h) * LD + jcol);
-        mk[m][h][0] = p.x;
-        mk[m][h][1] = p.y;
-      } else {
-        const float* mr = mask + (long long)min(row + 16 * m + 8 * h,
-                                                Nq - 1) * Nk;
+      const float* mr =
+          mask + (long long)min(row + 16 * m + 8 * h, Nq - 1) * Nk;
 #pragma unroll
-        for (int c = 0; c < 2; ++c)
-          mk[m][h][c] = __ldg(mr + min(k0 + jcol + c, Nk - 1));
-      }
+      for (int c = 0; c < 2; ++c)
+        mk[m][h][c] = __ldg(mr + min(k0 + jcol + c, Nk - 1));
     }
 }
 
@@ -510,17 +454,16 @@ struct TcFwdArgs {
 // and, with KEEP, the row statistics; otherwise its normalised partial
 // output and that partial's max and sum. Without HEADS, H is 1 and out is
 // a dense [B, Nq, DV] (its strides are not read).
-template <int D, int DV, int WARPS, int MT, int STR, int MASK, bool HEADS,
+template <int D, int DV, int WARPS, int MT, int STR, bool MASKED, bool HEADS,
           bool KEEP>
 __global__ void
-__launch_bounds__(32 * WARPS, (TcFwd<D, DV, WARPS, MT, STR, MASK>::kBlocksPerSm))
+__launch_bounds__(32 * WARPS, (TcFwd<D, DV, WARPS, MT, STR>::kBlocksPerSm))
 attention_fwd_tc_kernel(TcFwdArgs a) {
-  using L = TcFwd<D, DV, WARPS, MT, STR, MASK>;
+  using L = TcFwd<D, DV, WARPS, MT, STR>;
   extern __shared__ __align__(16) float tc_smem[];
   float* Qs = tc_smem;            // [kRes][D + 4]
   float* stages = Qs + L::kResTile;
-  // a stage: K [STR][D + 4]; V [STR][DV + 4] or [STR][2]; bias [STR];
-  // staged, the mask [kRes][STR + 8]
+  // a stage: K [STR][D + 4]; V [STR][DV + 4] or [STR][2]; bias [STR]
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
@@ -533,7 +476,7 @@ attention_fwd_tc_kernel(TcFwdArgs a) {
   const float* vp = a.v.p + b * a.v.sb + (long long)h * DV;
   const float* bias = a.bias ? a.bias + (long long)b * a.Nk : nullptr;
   const float* mask =
-      MASK != kMaskNone && a.mask
+      MASKED && a.mask
           ? a.mask + (long long)(b % a.mask_nw) * a.Nq * a.Nk
           : nullptr;
 
@@ -552,10 +495,6 @@ attention_fwd_tc_kernel(TcFwdArgs a) {
     if (bias)
       load_vector_async<4, L::kThreads>(st + L::kStrTile + L::kStrTileV, bias,
                                         k0, a.Nk, STR, tid);
-    if constexpr (MASK == kMaskStaged)
-      if (mask)
-        load_mask_async<L::kRes, STR, kMaskLd<STR>, L::kThreads>(
-            st + L::kMaskOff, mask, a.Nk, q0, a.Nq, k0, a.Nk, tid);
     cp_async_commit();
   };
 
@@ -592,8 +531,6 @@ attention_fwd_tc_kernel(TcFwdArgs a) {
     const float* Ks = stages + s * L::kStage;
     const float* Vs = Ks + L::kStrTile;
     const float* bias_s = Vs + L::kStrTileV;
-    const float* mask_s =
-        Ks + L::kMaskOff + (warp * L::kWarpRows + g) * kMaskLd<STR>;
     const int k0 = tile * STR;
 
     float prod[1][MT][L::kNT][4];
@@ -620,11 +557,10 @@ attention_fwd_tc_kernel(TcFwdArgs a) {
       // the mask at this column pair, read where it is added: read before
       // the products (as the backward does) it would hold 32 registers
       // that the 128-wide tiling does not have
-      float mk[MASK ? MT : 1][2][2];
-      if constexpr (MASK != kMaskNone)
-        if (mask)
-          mask_pair<MT, MASK, kMaskLd<STR>>(mask, mask_s, a.Nq, a.Nk,
-                                            row0 + g, k0, 8 * j + 2 * t, mk);
+      float mk[MASKED ? MT : 1][2][2];
+      if constexpr (MASKED)
+        if (mask) mask_pair<MT>(mask, a.Nq, a.Nk, row0 + g, k0, 8 * j + 2 * t,
+                                mk);
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
         const int col = 8 * j + 2 * t + c;
@@ -636,7 +572,7 @@ attention_fwd_tc_kernel(TcFwdArgs a) {
           for (int hf = 0; hf < 2; ++hf) {
             const int e = 2 * hf + c;
             float x = sc[m][j][e] * a.scale + bs;
-            if constexpr (MASK != kMaskNone)
+            if constexpr (MASKED)
               if (mask) x += mk[m][hf][c];
             x = ok ? x : -INFINITY;
             sc[m][j][e] = x;
@@ -780,39 +716,56 @@ __global__ void attention_merge_kernel(const float* __restrict__ part_o,
   }
 }
 
-template <int D, int DV, int WARPS, int MT, int STR, int MASK, bool HEADS,
+template <int D, int DV, int WARPS, int MT, int STR, bool MASKED, bool HEADS,
           bool KEEP>
 cudaError_t attention_fwd_tc_launch(const TcFwdArgs& a, dim3 grid,
                                     cudaStream_t stream) {
-  using L = TcFwd<D, DV, WARPS, MT, STR, MASK>;
+  using L = TcFwd<D, DV, WARPS, MT, STR>;
   // set once per instantiation, not per launch (one card per process)
   static const cudaError_t attr = cudaFuncSetAttribute(
-      attention_fwd_tc_kernel<D, DV, WARPS, MT, STR, MASK, HEADS, KEEP>,
+      attention_fwd_tc_kernel<D, DV, WARPS, MT, STR, MASKED, HEADS, KEEP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
   if (attr != cudaSuccess) return attr;
-  attention_fwd_tc_kernel<D, DV, WARPS, MT, STR, MASK, HEADS, KEEP>
+  attention_fwd_tc_kernel<D, DV, WARPS, MT, STR, MASKED, HEADS, KEEP>
       <<<grid, L::kThreads, L::kBytes, stream>>>(a);
   return cudaGetLastError();
+}
+
+// The key splits of a forward over BH batch rows (tiles_per_split in *per)
+// and the floats of workspace their partials take (0 with one split), given
+// ws_floats of it.
+template <int D, int DV, int WARPS, int MT, int STR>
+int attention_fwd_tc_splits(int BH, int Nq, int Nk, long long ws_floats,
+                            int* per, long long* floats) {
+  using L = TcFwd<D, DV, WARPS, MT, STR>;
+  const long long rows = (long long)BH * Nq;
+  const int splits =
+      tc_splits((long long)ceil_div(Nq, L::kRes) * BH,
+                kSmCount * L::kBlocksPerSm, ceil_div(Nk, STR),
+                rows * (DV + 2), ws_floats, per);
+  *floats = splits > 1 ? splits * rows * (DV + 2) : 0;
+  return splits;
 }
 
 // out = softmax(q k^T scale + bias + mask) v per head. q, out: [B, Nq, H *
 // .]; k, v: [B, Nk, H * .] (head h at columns h * D of q and k, h * DV of v
 // and out), read only by the HEADS instantiations (kernel A's; the others
 // take H = 1 and a dense out: C's and F's registers stay as they were);
-// bias [B, Nk] or null; mask [mask_nw, Nq, Nk] or null, read only by
-// instantiations with a MASK mode.
+// bias [B, Nk] or null; mask [mask_nw, Nq, Nk] or null, read only by the
+// MASKED instantiations (the others take no mask: its registers would cost
+// C's and F's tilings).
 // row_max and row_sum [B * H, Nq] are written when row_max is not null (a
 // gradient will be taken). ws: room for the partials of a split pass (fewer
-// splits when it is short).
-template <int D, int DV, int WARPS, int MT, int STR, int MASK = kMaskNone,
+// splits when it is short; attention_fwd_tc_splits says how much it takes).
+template <int D, int DV, int WARPS, int MT, int STR, bool MASKED = false,
           bool HEADS = false>
 cudaError_t attention_fwd_tc(AttnOperand q, AttnOperand k, AttnOperand v,
                              const float* bias, const float* mask,
                              int mask_nw, AttnGrad out, float* row_max,
                              float* row_sum, int B, int H, int Nq, int Nk,
                              float scale, Workspace ws, cudaStream_t stream) {
-  using L = TcFwd<D, DV, WARPS, MT, STR, MASK>;
-  if ((mask && MASK == kMaskNone) ||
+  using L = TcFwd<D, DV, WARPS, MT, STR>;
+  if ((mask && !MASKED) ||
       (!HEADS && (H != 1 || out.sn != DV || out.sb != (long long)Nq * DV)))
     return cudaErrorInvalidValue;
   TcFwdArgs a;
@@ -825,20 +778,19 @@ cudaError_t attention_fwd_tc(AttnOperand q, AttnOperand k, AttnOperand v,
   a.scale = scale;
   const int BH = B * H;
   const long long rows = (long long)BH * Nq;
-  const int res_tiles = ceil_div(Nq, L::kRes);
-  const int splits =
-      tc_splits((long long)res_tiles * BH, kSmCount * L::kBlocksPerSm,
-                ceil_div(Nk, STR), rows * (DV + 2), ws.n, &a.tiles_per_split);
+  long long part_floats;
+  const int splits = attention_fwd_tc_splits<D, DV, WARPS, MT, STR>(
+      BH, Nq, Nk, ws.n, &a.tiles_per_split, &part_floats);
   if (splits > 1) {
     a.part_o = ws.p;
     a.part_stats = ws.p + splits * rows * DV;
   }
-  const dim3 grid(res_tiles, splits, BH);
+  const dim3 grid(ceil_div(Nq, L::kRes), splits, BH);
   cudaError_t err =
       row_max
-          ? attention_fwd_tc_launch<D, DV, WARPS, MT, STR, MASK, HEADS, true>(
-                a, grid, stream)
-          : attention_fwd_tc_launch<D, DV, WARPS, MT, STR, MASK, HEADS,
+          ? attention_fwd_tc_launch<D, DV, WARPS, MT, STR, MASKED, HEADS,
+                                    true>(a, grid, stream)
+          : attention_fwd_tc_launch<D, DV, WARPS, MT, STR, MASKED, HEADS,
                                     false>(a, grid, stream);
   if (err != cudaSuccess || splits == 1) return err;
   attention_merge_kernel<DV><<<ceil_div(rows * DV, 256), 256, 0, stream>>>(

@@ -11,9 +11,9 @@
 // products run as the shared 3xTF32 GEMM on the tensor cores
 // (gemm_tf32.cuh), over all B*N (or B*M) rows at once. The attention
 // forward is attention_fwd_tc of mma_tf32.cuh (3xTF32 on the tensor cores;
-// tiling and dispatch in attention_fwd.cuh) with one batch row per (image,
-// head), reading q and the two halves of [k | v] in place at the head's
-// columns and writing o at them: at 352^2 every stage has M = 121 keys,
+// its tilings in attention.cu) with one batch row per (image, head),
+// reading q and the two halves of [k | v] in place at the head's columns
+// and writing o at them: at 352^2 every stage has M = 121 keys,
 // streamed in four tiles of 32 (the last ragged) with the softmax kept
 // online and the [N, M] probabilities out of device memory, as the TPU
 // kernel kept them in VMEM; where a gradient will be taken it also keeps
@@ -68,12 +68,11 @@ extern "C" int emip_sr_attention(const float* x, const float* kv_in,
                     s)))
     return err;
   const long long qsb = (long long)N * C, ksb = (long long)M * 2 * C;
-  err = sr_attention_fwd(AttnOperand{q_buf, qsb, C},
-                         AttnOperand{kv_buf, ksb, 2 * C},
-                         AttnOperand{kv_buf + C, ksb, 2 * C},
-                         AttnGrad{o_buf, qsb, C}, stats, B, heads, N, M, ch,
-                         Workspace{ws, ws_floats}, s);
-  if (err != cudaSuccess) return (int)err;
+  if (int rc = emip_attention_fwd(q_buf, qsb, C, kv_buf, ksb, 2 * C,
+                                  kv_buf + C, ksb, 2 * C, nullptr, 1, o_buf,
+                                  qsb, C, stats, ws, ws_floats, B, heads, N,
+                                  M, ch, 0, stream))
+    return rc;
   if ((err = linear(o_buf, C, wp, bp, out, C, B * N, C, C, false, s)))
     return err;
   return (int)cudaGetLastError();

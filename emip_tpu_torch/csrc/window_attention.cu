@@ -20,8 +20,8 @@
 // (256 -> 1024 -> 128) are ~85% of B's FLOPs and run as the shared 3xTF32
 // GEMM on the tensor cores (gemm_tf32.cuh) over all B*K*K*T rows at once;
 // the attention forward is attention_fwd_tc of mma_tf32.cuh (3xTF32 on the
-// tensor cores; tiling, dispatch and where the shift mask is read in
-// attention_fwd.cuh): a block owns 256 query rows of one window and streams
+// tensor cores; its tilings and where the shift mask is read in
+// attention.cu): a block owns 256 query rows of one window and streams
 // the window's keys and values in tiles of 32. It takes any T: at T = 484
 // the last key tile is masked by -inf and the last query tile is
 // bounds-checked, T = 1024 is a whole number of tiles. So the TPU's split
@@ -104,10 +104,10 @@ cudaError_t message_fwd(const float* xq, int ldxq, const float* t,
   EMIP_TRY(linear(xq, ldxq, w.wq, nullptr, qkv, C3, R, C, C, false, s));
   EMIP_TRY(linear(t, C, w.wk, nullptr, qkv + C, C3, R, C, C, false, s));
   EMIP_TRY(linear(t, C, w.wv, nullptr, qkv + 2 * C, C3, R, C, C, false, s));
-  EMIP_TRY(window_attention_fwd(
-      AttnOperand{qkv, wsb, C3}, AttnOperand{qkv + C, wsb, C3},
-      AttnOperand{qkv + 2 * C, wsb, C3}, d.mask, d.mask_nw,
-      AttnGrad{o, (long long)d.T * C, C}, stats, d.windows, d.T, C, ws, s));
+  EMIP_TRY((cudaError_t)emip_attention_fwd(
+      qkv, wsb, C3, qkv + C, wsb, C3, qkv + 2 * C, wsb, C3, d.mask, d.mask_nw,
+      o, (long long)d.T * C, C, stats, ws.p, ws.n, d.windows, 1, d.T, d.T, C,
+      1, s));
   return linear(o, C, w.wm, nullptr, m, C, R, C, C, false, s);
 }
 

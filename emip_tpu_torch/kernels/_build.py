@@ -34,6 +34,7 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 # argument types of each C entry point (pointers, then ints/floats, stream)
+# and the result types of those that return other than a cudaError_t
 _SIGNATURES = {
     "emip_sr_attention": [_P] * 14 + [_L] + [_I] * 5 + [_P],
     "emip_sr_attention_bwd": [_P] * 22 + [_L] + [_I] * 5 + [_P],
@@ -51,6 +52,7 @@ _SIGNATURES = {
                                   + [_I] * 4 + [_F, _P]),
     "emip_attention_fwd": ([_P, _L, _I] * 3 + [_P, _I, _P, _L, _I, _P, _P, _L]
                            + [_I] * 6 + [_P]),
+    "emip_attention_fwd_workspace": [_I] * 6,
     "emip_gemm": ([_P, _L, _L, _P, _L, _L, _P, _P, _L] + [_I] * 4
                   + [_P, _L, _P]),
     "emip_flow_attention": [_P] * 6 + [_L] + [_I] * 4 + [_P],
@@ -65,6 +67,7 @@ _SIGNATURES = {
     "emip_dwconv_gelu": [_P] * 4 + [_I] * 4 + [_P],
     "emip_dwconv_gelu_bwd": [_P] * 8 + [_L] + [_I] * 4 + [_P],
 }
+_RESTYPES = {"emip_attention_fwd_workspace": _L}
 
 
 class KernelBuildError(RuntimeError):
@@ -162,7 +165,7 @@ def library() -> ctypes.CDLL:
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = _RESTYPES.get(name, _I)
         _build_seconds = time.perf_counter() - t0
         _lib = lib
         return lib

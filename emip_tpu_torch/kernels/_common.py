@@ -90,6 +90,11 @@ def ptr(t: torch.Tensor | None) -> int:
     return 0 if t is None else t.data_ptr()
 
 
+def numel(t: torch.Tensor | None) -> int:
+    """Elements of ``t``, or 0 for None."""
+    return 0 if t is None else t.numel()
+
+
 def grad_wanted(*tensors) -> bool:
     """Whether a forward must keep what its backward reads."""
     return torch.is_grad_enabled() and any(
@@ -104,20 +109,6 @@ def workspace(device: torch.device, floats: int) -> torch.Tensor:
     """fp32 scratch of ``floats`` plus :data:`WORKSPACE_FLOATS`."""
     return torch.empty(floats + WORKSPACE_FLOATS, device=device,
                        dtype=torch.float32)
-
-
-# key splits an attention forward's workspace makes room for: tc_splits
-# splits the keys where the blocks leave the card idle (kernel A's last
-# PVT stage; G and H at one clip of 512^2 take four)
-ATTENTION_SPLITS = 4
-
-
-def attention_workspace(device: torch.device, rows: int,
-                        width: int) -> torch.Tensor:
-    """Scratch for the key-split partials of an attention forward over
-    ``rows`` query rows (all batch rows and heads) of value width
-    ``width``: per split each row's output and its max and sum."""
-    return workspace(device, ATTENTION_SPLITS * rows * (width + 2))
 
 
 def plain_vjp(fn, inputs, needs, grad_out, *args) -> list:

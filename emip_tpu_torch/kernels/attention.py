@@ -3,8 +3,7 @@
 On the model's paths the attention runs inside the entry points of
 ``csrc/sr_attention.cu`` (A) and ``csrc/window_attention.cu`` (B, G, H);
 :func:`attention` exposes the same device code (``attention_fwd_tc`` of
-``csrc/mma_tf32.cuh`` at the tilings of ``csrc/attention_fwd.cuh``, through
-``csrc/attention.cu``) so that ``chip_smoke.py`` and the ``cuda`` tests can
+``csrc/mma_tf32.cuh`` at the tilings of ``csrc/attention.cu``) so that ``chip_smoke.py`` and the ``cuda`` tests can
 hold it against the fp64 product and time it beside
 ``scaled_dot_product_attention`` at the shapes those kernels give it. CPU
 tensors take the plain version.
@@ -12,12 +11,14 @@ tensors take the plain version.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from emip_tpu_torch.kernels import _common as cm
 from emip_tpu_torch.kernels._build import library
 
-__all__ = ["attention", "attention_reference"]
+__all__ = ["attention", "attention_reference", "forward_workspace"]
 
 _NAME = "attention"
 _WIDTHS = {False: (32, 64), True: (64, 128)}  # A's heads; the windows'
@@ -75,6 +76,28 @@ def _check(q, k, v, heads, mask, windows) -> None:
             raise ValueError(f"{_NAME}: mask must be [nw, {nq}, {nk}]")
 
 
+def forward_workspace(device: torch.device, b: int, heads: int, nq: int,
+                      nk: int, width: int,
+                      windows: bool) -> torch.Tensor | None:
+    """Scratch for the key-split partials of the forward attention over
+    ``b`` batch rows of ``heads`` heads of ``width`` (A's instantiation, or
+    with ``windows`` that of B, G and H): as much as its key splits take at
+    this shape, or None where it takes one split."""
+    floats = _workspace_floats(b, heads, nq, nk, width, windows)
+    return (torch.empty(floats, device=device, dtype=torch.float32)
+            if floats else None)
+
+
+@functools.lru_cache(maxsize=None)
+def _workspace_floats(b, heads, nq, nk, width, windows) -> int:
+    floats = library().emip_attention_fwd_workspace(b, heads, nq, nk, width,
+                                                    int(windows))
+    if floats < 0:
+        raise ValueError(f"{_NAME}: no instantiation for width {width} "
+                         f"(windows={windows})")
+    return floats
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               heads: int = 1, mask: torch.Tensor | None = None,
               windows: bool = False, keep_stats: bool = False):
@@ -98,12 +121,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     stats = (torch.empty((2, b * heads, nq), device=q.device,
                          dtype=q.dtype) if keep_stats else None)
-    ws = cm.attention_workspace(q.device, b * heads * nq, c // heads)
+    ws = forward_workspace(q.device, b, heads, nq, nk, c // heads, windows)
     rc = library().emip_attention_fwd(
         q.data_ptr(), q.stride(0), q.stride(1), k.data_ptr(), k.stride(0),
         k.stride(1), v.data_ptr(), v.stride(0), v.stride(1), cm.ptr(mask),
         1 if mask is None else mask.shape[0], out.data_ptr(), nq * c, c,
-        cm.ptr(stats), ws.data_ptr(), ws.numel(), b, heads, nq, nk,
+        cm.ptr(stats), cm.ptr(ws), cm.numel(ws), b, heads, nq, nk,
         c // heads, int(windows), cm.stream_handle(q.device))
     cm.raise_on_error(_NAME, rc)
     cm.LAUNCHES["attention"] += 1

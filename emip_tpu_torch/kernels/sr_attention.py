@@ -17,6 +17,7 @@ import torch.nn.functional as F
 
 from emip_tpu_torch.kernels import _common as cm
 from emip_tpu_torch.kernels._build import library
+from emip_tpu_torch.kernels.attention import forward_workspace
 
 __all__ = ["fused_sr_attention", "fused_sr_attention_reference"]
 
@@ -79,14 +80,14 @@ class _SRAttention(torch.autograd.Function):
         stats = (torch.empty((2, b, num_heads, n), device=x.device,
                              dtype=x.dtype) if keep else None)
         out = torch.empty_like(x)
-        ws = cm.attention_workspace(x.device, b * n * num_heads,
-                                    c // num_heads)
+        ws = forward_workspace(x.device, b, num_heads, n, m, c // num_heads,
+                               False)
         rc = library().emip_sr_attention(
             x.data_ptr(), kv_in.data_ptr(), wq.data_ptr(), bq.data_ptr(),
             wkv.data_ptr(), bkv.data_ptr(), wp.data_ptr(), bp.data_ptr(),
             q_buf.data_ptr(), kv_buf.data_ptr(), o_buf.data_ptr(),
-            cm.ptr(stats), out.data_ptr(), ws.data_ptr(), ws.numel(), b, n,
-            m, c, num_heads, cm.stream_handle(x.device))
+            cm.ptr(stats), out.data_ptr(), cm.ptr(ws), cm.numel(ws), b, n, m,
+            c, num_heads, cm.stream_handle(x.device))
         cm.raise_on_error(_NAME, rc)
         cm.LAUNCHES["sr_attention"] += 1
         if keep:  # what the backward kernel reads

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 
 from emip_tpu_torch.kernels import _common as cm
 from emip_tpu_torch.kernels._build import library
+from emip_tpu_torch.kernels.attention import forward_workspace
 
 __all__ = ["fused_window_attention_block",
            "fused_window_attention_block_reference",
@@ -145,9 +146,10 @@ def _stats(x, keep):
 
 
 def _fwd_workspace(x):
-    """Scratch for the key-split partials of a forward's attention."""
-    return cm.attention_workspace(x.device, x.numel() // x.shape[-1],
-                                  x.shape[-1])
+    """Scratch for the key-split partials of a forward's attention (None
+    where it takes one split)."""
+    b, k2, tok, c = x.shape
+    return forward_workspace(x.device, b * k2, 1, tok, tok, c, True)
 
 
 def _param_grads(needs, shapes, like):
@@ -178,7 +180,7 @@ class _WindowLayer(torch.autograd.Function):
         rc = library().emip_window_layer(
             x.data_ptr(), t.data_ptr(), *(w.data_ptr() for w in params),
             cm.ptr(mask), k2, qkv.data_ptr(), o.data_ptr(), m.data_ptr(),
-            cm.ptr(stats), out.data_ptr(), ws.data_ptr(), ws.numel(),
+            cm.ptr(stats), out.data_ptr(), cm.ptr(ws), cm.numel(ws),
             b * k2, tok, c, int(add_residual), EPS,
             cm.stream_handle(x.device))
         cm.raise_on_error(_LAYER, rc)
@@ -248,7 +250,7 @@ class _WindowFFNLayer(torch.autograd.Function):
             x.data_ptr(), t.data_ptr(), *(w.data_ptr() for w in params),
             cm.ptr(mask), k2, qkv.data_ptr(), o.data_ptr(), m.data_ptr(),
             cm.ptr(stats), cat.data_ptr(), cm.ptr(h), u.data_ptr(),
-            z.data_ptr(), out.data_ptr(), ws.data_ptr(), ws.numel(), b * k2,
+            z.data_ptr(), out.data_ptr(), cm.ptr(ws), cm.numel(ws), b * k2,
             tok, c, f, EPS, cm.stream_handle(x.device))
         cm.raise_on_error(_FFN_LAYER, rc)
         cm.LAUNCHES["window_attention_ffn_layer"] += 1
@@ -321,8 +323,8 @@ class _WindowBlock(torch.autograd.Function):
             cm.ptr(mask), k2, qkv1.data_ptr(), qkv2.data_ptr(),
             o1.data_ptr(), o2.data_ptr(), m1.data_ptr(), m2.data_ptr(),
             cm.ptr(stats1), cm.ptr(stats2), cat.data_ptr(), cm.ptr(h),
-            u.data_ptr(), z.data_ptr(), out.data_ptr(), ws.data_ptr(),
-            ws.numel(), b * k2, tok, c, f, EPS, cm.stream_handle(x.device))
+            u.data_ptr(), z.data_ptr(), out.data_ptr(), cm.ptr(ws),
+            cm.numel(ws), b * k2, tok, c, f, EPS, cm.stream_handle(x.device))
         cm.raise_on_error(_NAME, rc)
         cm.LAUNCHES["window_attention_block"] += 1
         if keep:

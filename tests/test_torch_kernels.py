@@ -536,11 +536,11 @@ def test_cuda_kernels_match_plain_versions():
             a.shape, b.shape)
     # the tensor-core forward attention of A, B, G and H alone: A's heads
     # (widths 64 and 32) and the windows (128 and 64; T = 484 ragged, 1024
-    # whole tiles, 441 whose mask rows are not 16-byte aligned) with and
-    # without the shift mask, k and v read in place from one [k | v]
-    # buffer; keys split where the blocks are few (A's last stage, 8
-    # windows of 1024 tokens): against the fp64 product, and its kept row
-    # statistics against the plain version's
+    # whole tiles, 441 an odd count of tokens) with and without the shift
+    # mask, k and v read in place from one [k | v] buffer; keys split
+    # where the blocks are few (A's last stage, 8 windows of 1024 tokens):
+    # against the fp64 product, and its kept row statistics against the
+    # plain version's
     from emip_tpu_torch.kernels.attention import (
         attention,
         attention_reference,
