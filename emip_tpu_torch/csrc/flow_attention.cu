@@ -2,10 +2,11 @@
 // backward.
 //
 // Replaces emip_tpu/ops/pallas/corr_softmax.py:fused_flow_attention
-// (_flow_attention_kernel, _flow_attention_bwd_kernel). q, k [B, L, C]
-// with C = 128 (pvt_v2_b5's GMFlow) or 64 (pvt_v2_b0's); v [B, L, 2]; out
-// [B, L, 2]. It serves global matching in both directions
-// (v = the pixel grid) and flow propagation (v = the flow).
+// (the Pallas kernels of _flow_attention_fwd_impl and _flow_attention_bwd,
+// corr_softmax.py:182 and :236). q, k [B, L, C] with C = 128 (pvt_v2_b5's
+// GMFlow) or 64 (pvt_v2_b0's); v [B, L, 2]; out [B, L, 2]. It serves
+// global matching in both directions (v = the pixel grid) and flow
+// propagation (v = the flow).
 //
 // Forward. What bounds it on the card: the q k^T product, about
 // 2 * L^2 * C operations per batch row (0.96 GFLOP at L = 1936, C = 128);
