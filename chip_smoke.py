@@ -32,16 +32,17 @@ needs one card and no arguments, and it imports nothing of JAX. In order:
    256 reduced keys, C at L = 4096, D at 64 x 64, I at [4, 4096, 4096], G
    with and without the residual and H at windows of 1024 tokens, with and
    without the mask, at 1 and 4 clips, and once at 484 tokens; C also at a
-   ragged token count at channel widths 128 and 64, from inputs of their
-   own and kept out of C's summed row), with the tolerance stated, and
+   ragged token count at channel widths 128 and 64, and J at 512^2 stage 1
+   and on a 7 x 13 map, from inputs of their own and kept out of their
+   kernel's summed row), with the tolerance stated, and
    CUDA-event times of the kernel, the plain version and, where one
    PyTorch call computes the same function
    (``scaled_dot_product_attention`` for C and F), that call. A, B, G and
    H have no such call (the ``attention`` lines of phase 3 time their
    attention beside one); for I (``softmax`` then ``matmul``) and J
    (``conv2d`` then ``gelu``) it would take two, so they have none either.
-   The forwards of A, B, C, F, G and H must give the same bits on a second
-   call;
+   The forwards of A, B, C, F, G, H and J must give the same bits on a
+   second call;
 5. backward phase: each backward kernel A-D and F-J against
    torch.autograd.grad of the plain version on the same seeded cotangent,
    at the train steps' shapes (B, G and H with input grads alone and with
@@ -50,8 +51,9 @@ needs one card and no arguments, and it imports nothing of JAX. In order:
    grads), with the tolerance stated and CUDA-event times of the backward
    alone; C and F also at the 512^2 train steps' shapes ([4, 4096, 128];
    [1, 4096, 128] x [1, 20480, 128]) and at a small ragged one each (F's
-   with every slot empty); for C, F and the tensor-core backward of A, B,
-   G and H a second call on the same inputs must give the same bits;
+   with every slot empty), J at its two checks of phase 4 (kept out of its
+   summed row); for C, F, J and the tensor-core backward of A, B, G and H
+   a second call on the same inputs must give the same bits;
    kernel E against its plain scatter_add_ version
    (density atol and the fraction of occlusion-mask bits that flip); the
    cost of the transpose that read-corr matching hands kernel I and of the
@@ -208,6 +210,9 @@ SR_STAGES_512 = ((16384, 256, 64, 1), (4096, 256, 128, 2),
 BATCH_512 = 4        # clips streamed side by side at 512^2
 # kernel J at the four MixFFN stages of pvt_v2_b5 at 352^2: side, hidden
 FFN_STAGES = ((88, 256), (44, 512), (22, 1280), (11, 2048))
+# J's checks kept out of its summed rows: 512^2 stage 1, and a map that is
+# not square and whose sides are no multiple of a tile: (batch, h, w, F)
+FFN_CHECKS = ((2, 128, 128, 256), (2, 7, 13, 256))
 FWD_KERNELS = ("sr_attention", "window_attention_block", "flow_attention",
                "convex_upsample")
 WIN_SELF = ("wq", "wk", "wv", "wm", "s1", "b1")
@@ -276,6 +281,14 @@ TENSOR_CORE_KERNELS = ("sr_attention", "sr_attention_bwd",
                        "window_attention_ffn_layer_bwd",
                        "flow_attention", "flow_attention_bwd",
                        "memory_attention", "memory_attention_bwd")
+# kernels whose cases also read the device's busy time per call
+# (``device_ms``): J, whose calls at the smaller stages take the device less
+# time than the host's launch path, which the CUDA-event time then reads
+DEVICE_TIMED = ("dwconv_gelu", "dwconv_gelu_bwd")
+# kernels held to the same bits on a second call on the same inputs: the
+# tensor-core ones and J, whose backward adds its per-block partials in a
+# fixed order
+BIT_EQUAL_KERNELS = TENSOR_CORE_KERNELS + ("dwconv_gelu", "dwconv_gelu_bwd")
 # the 3xTF32 GEMM alone against the fp64 product: max|err| / max|ref| (fp32
 # rounding of sums over up to 61,952 rows)
 GEMM_REL_TOL = 1e-5
@@ -315,6 +328,60 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Milliseconds per call that the device is busy: the union of the
+    intervals of the CUDA kernels and copies ``torch.profiler`` records over
+    ``reps`` calls, after one warm-up. Host time between launches does not
+    count, so a call shorter than the host's launch path reads its own
+    time here and the host's in ``cuda_ms``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = sorted((ev.time_range.start, ev.time_range.end)
+                   for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(ev, "is_user_annotation", False))
+    if not spans:
+        raise AssertionError("torch.profiler recorded no device time")
+    busy, reach = 0.0, -float("inf")  # us
+    for start, end in spans:
+        busy += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+    return busy / 1e3 / reps
+
+
+def device_times(name: str, kernel, plain, reps: int) -> dict:
+    """device_ms and plain_device_ms of a case of a ``DEVICE_TIMED``
+    kernel, else nothing."""
+    if name not in DEVICE_TIMED:
+        return {}
+    return dict(device_ms=device_ms(kernel, reps),
+                plain_device_ms=device_ms(plain, reps))
+
+
+def device_sums(results: dict) -> None:
+    """The device times of each ``DEVICE_TIMED`` row summed over its summed
+    cases, beside its ms, plain_ms and bound_ms."""
+    for name in DEVICE_TIMED:
+        entry = results.get(name)
+        if not entry:
+            continue
+        main = [c for c in entry["cases"] if c.get("summed", True)]
+        for k in ("device_ms", "plain_device_ms"):
+            entry[k] = sum(c[k] for c in main)
+        log(f"kernel {name}: its {len(main)} summed cases: "
+            + " ".join(f"{k}={entry[k]:.4f}" for k in (
+                "ms", "plain_ms", "device_ms", "plain_device_ms",
+                "bound_ms")))
 
 
 def alternate_ms(kernel, plain, reps: int) -> tuple[float, float]:
@@ -709,8 +776,7 @@ def kernel_cases(batch: int, device):
     for side, f in FFN_STAGES:
         cases.append(("dwconv_gelu", f"u [{batch},{side * side},{f}]",
                       K.fused_dwconv_gelu, K.fused_dwconv_gelu_reference,
-                      (r(batch, side * side, f), r(3, 3, f, scale=0.3),
-                       r(f, scale=0.1), side, side)))
+                      ffn_args(r, batch, side, side, f)))
     return cases
 
 
@@ -719,14 +785,23 @@ def check_cases(device):
     kernel's summed row (listed in its ``cases`` only), from a generator of
     their own so that kernel_cases' inputs stay as they were: C at a ragged
     token count (1000 = 31 key tiles of 32 + 8), at channel width 128 and
-    at pvt_v2_b0's 64."""
+    at pvt_v2_b0's 64; J at ``FFN_CHECKS``."""
     from emip_tpu_torch import kernels as K
 
     r = seeded_randn(SEED + 15, device)
-    return [("flow_attention", f"[2,1000,{c}] v=[...,2] ragged",
-             K.fused_flow_attention, K.fused_flow_attention_reference,
-             (r(2, 1000, c), r(2, 1000, c), r(2, 1000, 2, scale=10.0)))
-            for c in (128, 64)]
+    cases = [("flow_attention", f"[2,1000,{c}] v=[...,2] ragged",
+              K.fused_flow_attention, K.fused_flow_attention_reference,
+              (r(2, 1000, c), r(2, 1000, c), r(2, 1000, 2, scale=10.0)))
+             for c in (128, 64)]
+    cases += [("dwconv_gelu", f"u [{b},{h * w},{f}] {h}x{w}",
+               K.fused_dwconv_gelu, K.fused_dwconv_gelu_reference,
+               ffn_args(r, b, h, w, f)) for b, h, w, f in FFN_CHECKS]
+    return cases
+
+
+def ffn_args(r, b: int, h: int, w: int, f: int) -> tuple:
+    """Kernel J's arguments: u, taps, bias, h, w."""
+    return (r(b, h * w, f), r(3, 3, f, scale=0.3), r(f, scale=0.1), h, w)
 
 
 # kernel F: (clips, query pixels, slots, written slots)
@@ -769,21 +844,25 @@ def kernel_phase(batch: int, device, reps: int, only: str = "") -> dict:
         tol = KERNEL_TOL[name]
         ok = bool(torch.isfinite(got).all()) and torch.allclose(
             got, want, **tol)
-        if name in TENSOR_CORE_KERNELS and not torch.equal(fn(*args), got):
+        if name in BIT_EQUAL_KERNELS and not torch.equal(fn(*args), got):
             raise AssertionError(f"{name} ({label}): two calls on the same "
                                  f"inputs differ")
         ms, plain_ms = alternate_ms(lambda: fn(*args), lambda: ref(*args),
                                     reps)
         lib_ms = library_ms(name, args, reps)
+        dev = device_times(name, lambda: fn(*args), lambda: ref(*args), reps)
         log(f"kernel {name:24s} {label:32s} max_abs_err={err:.3e} "
             f"tol={tol} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"library_ms={fmt_ms(lib_ms)} {'ok' if ok else 'MISMATCH'}")
+            f"library_ms={fmt_ms(lib_ms)} "
+            + "".join(f"{k}={v:.4f} " for k, v in dev.items())
+            + ("ok" if ok else "MISMATCH"))
         if not ok:
             raise AssertionError(f"{name} ({label}) disagrees with its plain "
                                  f"version: max_abs_err={err}, tol={tol}")
         record(results, name, label, err, ms, plain_ms,
-               forward_work(name, args, got), lib_ms, summed=summed)
+               forward_work(name, args, got), lib_ms, summed=summed, **dev)
         del got, want
+    device_sums(results)
     return results
 
 
@@ -822,7 +901,9 @@ def library_ms(name: str, args, reps: int, which=None) -> float | None:
 def backward_cases(batch: int, device):
     """The cases (kernel, label, kernel fn, plain fn, args, indices of the
     args that take a gradient) at the shapes of the 352^2 train step and a
-    few more, and the indices of C's and F's cases at 352^2."""
+    few more, the indices of C's and F's cases at 352^2, and the indices of
+    the checks kept out of their kernel's summed row (J at
+    ``FFN_CHECKS``, from a generator of their own)."""
     from emip_tpu_torch import kernels as K
     from emip_tpu_torch.ops.window import shifted_window_mask
 
@@ -946,9 +1027,16 @@ def backward_cases(batch: int, device):
         cases.append(("dwconv_gelu_bwd",
                       f"u [{batch},{side * side},{f}] gu taps bias",
                       K.fused_dwconv_gelu, K.fused_dwconv_gelu_reference,
-                      (r(batch, side * side, f), r(3, 3, f, scale=0.3),
-                       r(f, scale=0.1), side, side), (0, 1, 2)))
-    return cases, at_352
+                      ffn_args(r, batch, side, side, f), (0, 1, 2)))
+    r = seeded_randn(SEED + 16, device)
+    checks = set()
+    for b, h, w, f in FFN_CHECKS:
+        checks.add(len(cases))
+        cases.append(("dwconv_gelu_bwd",
+                      f"u [{b},{h * w},{f}] {h}x{w} gu taps bias",
+                      K.fused_dwconv_gelu, K.fused_dwconv_gelu_reference,
+                      ffn_args(r, b, h, w, f), (0, 1, 2)))
+    return cases, at_352, checks
 
 
 def _grads(fn, args, which, cot):
@@ -976,7 +1064,7 @@ def backward_phase(batch: int, device, reps: int, only: str = "") -> dict:
     import torch
 
     results = {}
-    cases, at_352 = backward_cases(batch, device)
+    cases, at_352, checks = backward_cases(batch, device)
     for i, (name, label, fn, ref, args, which) in enumerate(cases):
         if not wanted(only, name):
             continue
@@ -1000,7 +1088,7 @@ def backward_phase(batch: int, device, reps: int, only: str = "") -> dict:
             rel = max(rel, e / max(w.abs().max().item(), 1e-30))
         finite = all(bool(torch.isfinite(g).all()) for g in got)
         ok = finite and rel <= BWD_REL_TOL
-        if name in TENSOR_CORE_KERNELS:
+        if name in BIT_EQUAL_KERNELS:
             # no atomics: a second call on the same inputs gives the same bits
             again = rerun_k()
             torch.cuda.synchronize()
@@ -1010,16 +1098,19 @@ def backward_phase(batch: int, device, reps: int, only: str = "") -> dict:
             del again
         ms, plain_ms = alternate_ms(rerun_k, rerun_p, reps)
         lib_ms = library_ms(name, args, reps, which)
+        dev = device_times(name, rerun_k, rerun_p, reps)
         log(f"kernel {name:28s} {label:44s} max_abs_err={err:.3e} "
             f"max_rel={rel:.3e} (tol {BWD_REL_TOL}) ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} library_ms={fmt_ms(lib_ms)} "
-            f"{'ok' if ok else 'MISMATCH'}")
+            + "".join(f"{k}={v:.4f} " for k, v in dev.items())
+            + ("ok" if ok else "MISMATCH"))
         if not ok:
             raise AssertionError(f"{name} ({label}) disagrees with the plain "
                                  f"backward: max_rel={rel}")
         record(results, name, label, err, ms, plain_ms,
-               backward_work(name, args, which, out_k), lib_ms, max_rel=rel,
-               at_352=i in at_352)
+               backward_work(name, args, which, out_k), lib_ms,
+               summed=i not in checks, max_rel=rel, at_352=i in at_352,
+               **dev)
         del out_k, out_p, got, want, rerun_k, rerun_p
     for name in TENSOR_CORE_KERNELS:
         # the 352^2 cases apart from the 512^2 and ragged ones
@@ -1032,6 +1123,7 @@ def backward_phase(batch: int, device, reps: int, only: str = "") -> dict:
             log(f"kernel {name}: its {len(main)} cases at 352^2 sum to "
                 + " ".join(f"{k}={v:.4f}" for k, v in tot.items())
                 + " (bound_ms: 3xTF32 operations; fp32_bound_ms: fp32)")
+    device_sums(results)
     if wanted(only, "splat_density"):
         splat_case(results, batch, device, reps)
     return results

@@ -1,151 +1,409 @@
 // Kernel J: gelu_exact(dwconv3x3(u) + b) of the PVTv2 MixFFN on channel-last
 // tokens, forward and backward.
 //
-// Replaces emip_tpu/ops/pallas/mixffn.py: fused_dwconv_gelu (_fwd_kernel)
-// and the backward it shares with dwconv_gelu_bwd_fused (_bwd_kernel). u
-// [B, H*W, F] is the fc1 output, wdw [3, 3, F] the depthwise taps, bdw [F];
-// out has u's shape. Zero padding at the image border.
+// Replaces emip_tpu/ops/pallas/mixffn.py: fused_dwconv_gelu (_fwd_kernel,
+// pallas_call at :170) and the backward it shares with
+// dwconv_gelu_bwd_fused (_bwd_kernel, pallas_call at :185). u [B, H*W, F] is
+// the fc1 output, wdw [3, 3, F] the depthwise taps, bdw [F]; out has u's
+// shape. Zero padding at the image border. The TPU kernel works on the flat
+// token axis, where a column shift wraps around the row end and is masked
+// off; here every thread knows its (row, column) and the border is a bounds
+// check.
 //
 // What bounds it on the card: bytes. The forward reads the hidden once and
-// writes it once (63 MB each way at [8, 7744, 256], stage 1 of pvt_v2_b5
-// at 352^2) for 9 multiply-adds and one erf per element. One
-// thread per (pixel, channel), channels fastest, so a warp reads 32
-// neighbouring channels of each of the 9 neighbouring pixels (the 8
-// re-reads hit the cache) and the 9 taps of its channels. The TPU kernel
-// works on the flat token axis, where a column shift wraps around the row
-// end and has to be masked off; here the pixel's (y, x) is computed and the
-// border is a bounds check.
+// writes it once (63 MB each way at [8, 7744, 256], stage 1 of pvt_v2_b5 at
+// 352^2) for 9 multiply-adds and one erf per element; the backward reads u
+// and g and writes gu (three passes). Both kernels are stencils on the CUDA
+// cores, and both are laid out so that each element comes from device
+// memory about once:
 //
-// Backward: gd = g * gelu'(d) with the pre-activation d recomputed from u
-// (it is never stored), gu = the transposed taps applied to gd, and the tap
-// and bias grads are sums over every pixel of u(shifted) * gd and gd. The
-// TPU kernel does all of it per image in VMEM and accumulates the tap grads
-// over a sequential grid. Here gd goes through the workspace once (gu
-// needs gd at the 9 neighbours, each of which would otherwise recompute 9
-// taps), then one pass writes gu and one pass sums the 10 per-channel
-// columns over a run of pixels per block into ordered partials that a last
-// pass adds: no atomics. Each of gu and the two parameter grads is skipped
-// when its pointer is null.
+// - A warp is one image column of 32 channel vectors (16-byte float4 loads,
+//   512 contiguous bytes a row; an F that is not a multiple of 4, or a
+//   pointer not 16-byte aligned, takes the scalar instantiation of the same
+//   code). A block is a tile of up to 8 (forward) or 10 (backward) columns
+//   by a strip of up to 16 rows (the forward cuts small maps into shorter
+//   strips, so that its grid holds enough threads); the strips and tiles
+//   are evened out over the image, so ragged maps (any H and W, one row,
+//   one column) waste little. Image, strip, column and channel come from
+//   the block index once, in 32-bit integers; only the image's base offset
+//   is 64-bit.
+// - Each thread keeps its channels' 9 taps and bias in registers and walks
+//   down its column one input row at a time, with the next row's loads in
+//   flight while it computes. The neighbour columns' loads are the
+//   neighbouring warps' rows and hit L1 or L2.
+// - Forward: a row feeds three output rows (through tap rows 2, 1, 0), so
+//   three running sums stand for the 3 x 3 window; the finished row goes
+//   out through gelu_exact (one erf per output).
+// - Backward, one fused pass: the thread holds the 3 x 3 window of u around
+//   its pixel, recomputes the pre-activation and gd = g * gelu'(pre) on the
+//   tile plus a one-pixel halo (the two outer warps of the block are the
+//   halo columns; the strip's walk starts one row early and ends one row
+//   late), adds u(p + d) * gd(p) to its nine tap sums and gd to its bias
+//   sum on the tile's own pixels, and passes gd through shared memory (a
+//   double-buffered row, one barrier a row) to the warps beside it, which
+//   apply the transposed taps as three running sums of gu rows. gd never
+//   goes to device memory. Blocks are persistent, one per SM, each walking
+//   its channel group's tiles in a fixed order; the tap and bias sums stay
+//   in registers over all of a block's tiles, are added over its warps in
+//   order through shared memory and written as one partial [blocks, 10, F];
+//   a last pass adds the partials in order. No atomics: a second call gives
+//   the same bits. Each of gu and the two parameter grads is skipped when
+//   its pointer is null.
+
+#include <stdint.h>
 
 #include "primitives.cuh"
 
 namespace emip {
 namespace {
 
-constexpr int kDwThreads = 256;
-constexpr int kDwMaxChunks = 256;  // pixel runs of the tap-grad partials
+constexpr int kLanes = 32;      // channel vectors of a warp
+constexpr int kFwdCols = 8;     // most columns of a forward block
+constexpr int kBwdCols = 10;    // most output columns of a backward tile
+constexpr int kStripRows = 16;  // most rows of a strip
+constexpr int kBwdThreads = kLanes * (kBwdCols + 2);
+// threads the forward grid should hold: about eight blocks for each SM, so
+// that small maps are cut into shorter strips (a thread's walk is a chain
+// of row loads, each waiting on the last)
+constexpr int kFwdThreadsWanted = 8 * kSmCount * kLanes * kFwdCols;
 
-struct Image {
-  int B, H, W, F;
-  __host__ __device__ long long pixels() const {
-    return (long long)B * H * W;
-  }
+// V consecutive channels of one pixel
+template <int V>
+struct alignas(4 * V) Pack {
+  float v[V];
 };
 
-// Sum over the 3x3 neighbourhood of pixel (y, x) of image img (a [H, W, F]
-// base pointer) at channel f: src(y + sy*dy, x + sx*dx) * wdw[dy, dx, f].
-// sign = +1: the convolution; sign = -1: its transpose (gu from gd).
-template <int kSign>
-__device__ __forceinline__ float taps(const float* __restrict__ img,
-                                      const float* __restrict__ wdw, int y,
-                                      int x, int f, Image d) {
-  float acc = 0.f;
+template <int V>
+__device__ __forceinline__ Pack<V> zeros() {
+  Pack<V> r;
 #pragma unroll
-  for (int dy = -1; dy <= 1; ++dy) {
-    const int yy = y + kSign * dy;
-    if (yy < 0 || yy >= d.H) continue;
-#pragma unroll
-    for (int dx = -1; dx <= 1; ++dx) {
-      const int xx = x + kSign * dx;
-      if (xx < 0 || xx >= d.W) continue;
-      acc = fmaf(img[((long long)yy * d.W + xx) * d.F + f],
-                 wdw[((dy + 1) * 3 + dx + 1) * d.F + f], acc);
+  for (int j = 0; j < V; ++j) r.v[j] = 0.f;
+  return r;
+}
+
+template <int V>
+__device__ __forceinline__ Pack<V> load(const float* p, bool ok) {
+  Pack<V> r = zeros<V>();
+  if (ok) {
+    if constexpr (V == 4) {
+      const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+      r.v[0] = t.x, r.v[1] = t.y, r.v[2] = t.z, r.v[3] = t.w;
+    } else {
+      r.v[0] = __ldg(p);
     }
   }
-  return acc;
+  return r;
 }
 
-// kMode 0: out = gelu(conv(u) + b); 1: out = g * gelu'(conv(u) + b);
-// 2: out = conv^T(u) (u is gd, no bias).
-template <int kMode>
-__global__ void __launch_bounds__(kDwThreads)
-dwconv_kernel(const float* __restrict__ u, const float* __restrict__ wdw,
-              const float* __restrict__ bdw, const float* __restrict__ g,
-              float* __restrict__ out, Image d) {
-  const long long idx = (long long)blockIdx.x * kDwThreads + threadIdx.x;
-  if (idx >= d.pixels() * d.F) return;
-  const int f = (int)(idx % d.F);
-  const long long pix = idx / d.F;
-  const int x = (int)(pix % d.W), y = (int)((pix / d.W) % d.H);
-  const float* img = u + (pix / ((long long)d.W * d.H)) * d.H * d.W * d.F;
-  if (kMode == 2) {
-    out[idx] = taps<-1>(img, wdw, y, x, f, d);
-    return;
+template <int V>
+__device__ __forceinline__ void store(float* p, const Pack<V>& a) {
+  if constexpr (V == 4)
+    *reinterpret_cast<float4*>(p) =
+        make_float4(a.v[0], a.v[1], a.v[2], a.v[3]);
+  else
+    *p = a.v[0];
+}
+
+// acc += a * b
+template <int V>
+__device__ __forceinline__ void fma_to(Pack<V>& acc, const Pack<V>& a,
+                                       const Pack<V>& b) {
+#pragma unroll
+  for (int j = 0; j < V; ++j) acc.v[j] = fmaf(a.v[j], b.v[j], acc.v[j]);
+}
+
+// acc += w[0] * a + w[1] * b + w[2] * c
+template <int V>
+__device__ __forceinline__ void tap_row(Pack<V>& acc, const Pack<V>* w,
+                                        const Pack<V>& a, const Pack<V>& b,
+                                        const Pack<V>& c) {
+  fma_to(acc, w[0], a);
+  fma_to(acc, w[1], b);
+  fma_to(acc, w[2], c);
+}
+
+// How the images are cut: groups of kLanes channel vectors, column tiles and
+// row strips.
+struct Tiling {
+  int B, H, W, F;
+  int groups;  // channel groups
+  int cols, col_tiles;
+  int rows, strips;
+  __host__ __device__ int tiles() const { return B * strips * col_tiles; }
+};
+
+inline Tiling tiling(int B, int H, int W, int F, int V, int max_cols) {
+  Tiling t{B, H, W, F};
+  t.groups = ceil_div(F / V, kLanes);
+  t.col_tiles = ceil_div(W, max_cols);
+  t.cols = ceil_div(W, t.col_tiles);
+  t.strips = ceil_div(H, kStripRows);
+  t.rows = ceil_div(H, t.strips);
+  return t;
+}
+
+inline Tiling fwd_tiling(int B, int H, int W, int F, int V) {
+  Tiling t = tiling(B, H, W, F, V, kFwdCols);
+  const long long per_strip =
+      (long long)B * t.groups * t.col_tiles * t.cols * kLanes;
+  const int want =
+      (int)min((long long)H, (kFwdThreadsWanted + per_strip - 1) / per_strip);
+  if (want > t.strips) {
+    t.rows = ceil_div(H, want);
+    t.strips = ceil_div(H, t.rows);
   }
-  const float pre = taps<1>(img, wdw, y, x, f, d) + bdw[f];
-  out[idx] = kMode == 0 ? gelu_exact(pre) : g[idx] * gelu_grad(pre);
+  return t;
 }
 
-// part[chunk][k][f], k < 9: sum over the chunk's pixels of u(y + dy, x + dx,
-// f) * gd(y, x, f) for tap k = (dy + 1) * 3 + dx + 1; k = 9: sum of gd.
-__global__ void __launch_bounds__(256)
-dwconv_param_partial_kernel(const float* __restrict__ u,
-                            const float* __restrict__ gd, Image d,
-                            long long pixels_per_chunk,
-                            float* __restrict__ part) {
-  __shared__ float red[8][10][33];
-  const int f = blockIdx.x * 32 + threadIdx.x;
-  const long long p0 = (long long)blockIdx.y * pixels_per_chunk;
-  const long long p1 = min(d.pixels(), p0 + pixels_per_chunk);
-  float acc[10];
+// Persistent backward blocks of one channel group: about one block an SM
+// over all groups, the group's tiles evened out over them.
+inline int bwd_blocks_per_group(const Tiling& t) {
+  const int want = max(1, kSmCount / t.groups);
+  return ceil_div(t.tiles(), ceil_div(t.tiles(), want));
+}
+
+inline bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+template <int V>
+__global__ void __launch_bounds__(kLanes* kFwdCols)
+dwconv_gelu_fwd_kernel(const float* __restrict__ u,
+                       const float* __restrict__ wdw,
+                       const float* __restrict__ bdw, float* __restrict__ out,
+                       Tiling t) {
+  const int lane = threadIdx.x % kLanes;
+  const int group = blockIdx.x / t.col_tiles;
+  const int x = (blockIdx.x - group * t.col_tiles) * t.cols +
+                (int)threadIdx.x / kLanes;
+  const int c = (group * kLanes + lane) * V;  // first channel
+  if (c >= t.F || x >= t.W) return;
+  const int y0 = blockIdx.y * t.rows, y1 = min(t.H, y0 + t.rows);
+  const long long image = (long long)blockIdx.z * t.H * t.W * t.F;
+  const float* src = u + image + c;
+  float* dst = out + image + c;
+  Pack<V> w[9];
 #pragma unroll
-  for (int k = 0; k < 10; ++k) acc[k] = 0.f;
-  if (f < d.F) {
-    for (long long pix = p0 + threadIdx.y; pix < p1; pix += 8) {
-      const int x = (int)(pix % d.W), y = (int)((pix / d.W) % d.H);
-      const float* img = u + (pix / ((long long)d.W * d.H)) * d.H * d.W * d.F;
-      const float gv = gd[pix * d.F + f];
-      acc[9] += gv;
+  for (int k = 0; k < 9; ++k) w[k] = load<V>(wdw + k * t.F + c, true);
+  const Pack<V> bias = load<V>(bdw + c, true);
+  const bool left = x > 0, right = x + 1 < t.W;
+  // input row r's three columns, loaded one row ahead (zeros off the image)
+  Pack<V> nl, nm, nr;
+  auto fetch = [&](int r) {
+    const bool ok = r >= 0 && r < t.H;
+    const float* p = src + (r * t.W + x) * t.F;
+    nl = load<V>(p - t.F, ok && left);
+    nm = load<V>(p, ok);
+    nr = load<V>(p + t.F, ok && right);
+  };
+  // running sums of output rows r - 1, r and r + 1
+  Pack<V> a0 = zeros<V>(), a1 = zeros<V>(), a2 = zeros<V>();
+  fetch(y0 - 1);
+#pragma unroll 3
+  for (int r = y0 - 1; r <= y1; ++r) {
+    const Pack<V> l = nl, m = nm, rt = nr;
+    if (r < y1) fetch(r + 1);
+    tap_row(a2, w, l, m, rt);
+    tap_row(a1, w + 3, l, m, rt);
+    tap_row(a0, w + 6, l, m, rt);
+    if (r - 1 >= y0) {
+      Pack<V> y;
 #pragma unroll
-      for (int dy = -1; dy <= 1; ++dy) {
-        const int yy = y + dy;
-        if (yy < 0 || yy >= d.H) continue;
+      for (int j = 0; j < V; ++j) y.v[j] = gelu_exact(a0.v[j] + bias.v[j]);
+      store(dst + ((r - 1) * t.W + x) * t.F, y);
+    }
+    a0 = a1;
+    a1 = a2;
+    a2 = zeros<V>();
+  }
+}
+
+// One block: the tiles p, p + blocks, ... of channel group blockIdx.x /
+// blocks; warp i is column (tile's first) + i - 1 (warps 0 and cols + 1 are
+// the halo). part[p][k][F]: tap k's sum (k < 9) and the bias sum (k = 9)
+// over the block's tiles.
+template <int V>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+dwconv_gelu_bwd_kernel(const float* __restrict__ u,
+                       const float* __restrict__ wdw,
+                       const float* __restrict__ bdw,
+                       const float* __restrict__ g, float* __restrict__ gu,
+                       float* __restrict__ part, Tiling t, int blocks) {
+  // gd of the current row, one Pack per (warp, lane), double-buffered
+  __shared__ Pack<V> row_gd[2][kBwdCols + 2][kLanes];
+  const int lane = threadIdx.x % kLanes, wi = threadIdx.x / kLanes;
+  const int group = blockIdx.x / blocks, p = blockIdx.x - group * blocks;
+  const int c = (group * kLanes + lane) * V;
+  const bool chan = c < t.F;
+  const bool inner = wi >= 1 && wi <= t.cols;
+  Pack<V> w[9];
 #pragma unroll
-        for (int dx = -1; dx <= 1; ++dx) {
-          const int xx = x + dx;
-          if (xx < 0 || xx >= d.W) continue;
-          acc[(dy + 1) * 3 + dx + 1] = fmaf(
-              img[((long long)yy * d.W + xx) * d.F + f], gv,
-              acc[(dy + 1) * 3 + dx + 1]);
+  for (int k = 0; k < 9; ++k) w[k] = load<V>(wdw + k * t.F + c, chan);
+  const Pack<V> bias = load<V>(bdw + c, chan);
+  Pack<V> acc[10];
+#pragma unroll
+  for (int k = 0; k < 10; ++k) acc[k] = zeros<V>();
+  const bool want_params = part != nullptr;
+  int buf = 0;
+  for (int tile = p; tile < t.tiles(); tile += blocks) {
+    const int ct = tile % t.col_tiles;
+    const int s = (tile / t.col_tiles) % t.strips;
+    const int b = tile / (t.col_tiles * t.strips);
+    const int x = ct * t.cols + wi - 1;
+    const int y0 = s * t.rows, y1 = min(t.H, y0 + t.rows);
+    const bool xin = chan && x >= 0 && x < t.W;
+    const bool mine = inner && xin;  // an output pixel column of this tile
+    const bool left = xin && x > 0, right = xin && x + 1 < t.W;
+    const long long image = (long long)b * t.H * t.W * t.F;
+    const float* su = u + image + c;
+    const float* sg = g + image + c;
+    // win[3 * i + j] = u(r - 1 + i, x - 1 + j) at step r
+    Pack<V> win[9], nl, nm, nr, gn;
+    auto fetch = [&](int r) {
+      const bool ok = r >= 0 && r < t.H;
+      const float* q = su + (r * t.W + x) * t.F;
+      nl = load<V>(q - t.F, ok && left);
+      nm = load<V>(q, ok && xin);
+      nr = load<V>(q + t.F, ok && right);
+    };
+    auto fetch_g = [&](int r) {
+      gn = load<V>(sg + (r * t.W + x) * t.F, r >= 0 && r < t.H && xin);
+    };
+    fetch(y0 - 2);
+    win[3] = nl, win[4] = nm, win[5] = nr;
+    fetch(y0 - 1);
+    win[6] = nl, win[7] = nm, win[8] = nr;
+    fetch(y0);
+    fetch_g(y0 - 1);
+    // running sums of gu rows r - 1, r and r + 1
+    Pack<V> g0 = zeros<V>(), g1 = zeros<V>(), g2 = zeros<V>();
+    // (unrolled, the window's and the sums' shifts are renamings)
+#pragma unroll 4
+    for (int r = y0 - 1; r <= y1; ++r) {
+#pragma unroll
+      for (int k = 0; k < 6; ++k) win[k] = win[k + 3];
+      win[6] = nl, win[7] = nm, win[8] = nr;
+      const Pack<V> gv = gn;
+      if (r < y1) {
+        fetch(r + 2);
+        fetch_g(r + 1);
+      }
+      Pack<V> gd = zeros<V>();
+      if (xin && r >= 0 && r < t.H) {
+        Pack<V> pre = bias;
+#pragma unroll
+        for (int k = 0; k < 9; ++k) fma_to(pre, w[k], win[k]);
+#pragma unroll
+        for (int j = 0; j < V; ++j) gd.v[j] = gv.v[j] * gelu_grad(pre.v[j]);
+      }
+      if (want_params && mine && r >= y0 && r < y1) {
+#pragma unroll
+        for (int k = 0; k < 9; ++k) fma_to(acc[k], win[k], gd);
+#pragma unroll
+        for (int j = 0; j < V; ++j) acc[9].v[j] += gd.v[j];
+      }
+      if (gu) {
+        row_gd[buf][wi][lane] = gd;
+        __syncthreads();
+        if (inner) {
+          const Pack<V> gl = row_gd[buf][wi - 1][lane];
+          const Pack<V> gr = row_gd[buf][wi + 1][lane];
+          // gd(r, x + 1 - j) meets tap column j
+          tap_row(g0, w, gr, gd, gl);
+          tap_row(g1, w + 3, gr, gd, gl);
+          tap_row(g2, w + 6, gr, gd, gl);
+          if (mine && r - 1 >= y0)
+            store(gu + image + c + ((r - 1) * t.W + x) * t.F, g0);
         }
+        g0 = g1;
+        g1 = g2;
+        g2 = zeros<V>();
+        buf ^= 1;
       }
     }
   }
+  if (!want_params) return;
+  // the block's sums over its warps, in order, one column k at a time
+  for (int k = 0; k < 10; ++k) {
+    __syncthreads();
+    row_gd[0][wi][lane] = acc[k];
+    __syncthreads();
+    if (wi == 0 && chan) {
+      Pack<V> sum = zeros<V>();
+      for (int i = 1; i <= t.cols; ++i) {
+        const Pack<V> v = row_gd[0][i][lane];
 #pragma unroll
-  for (int k = 0; k < 10; ++k) red[threadIdx.y][k][threadIdx.x] = acc[k];
-  __syncthreads();
-  if (f < d.F)
-    for (int k = threadIdx.y; k < 10; k += 8) {
-      float t = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) t += red[j][k][threadIdx.x];
-      part[((long long)blockIdx.y * 10 + k) * d.F + f] = t;
+        for (int j = 0; j < V; ++j) sum.v[j] += v.v[j];
+      }
+      store(part + ((long long)p * 10 + k) * t.F + c, sum);
     }
+  }
 }
 
-// gwdw[k, f] (k < 9) and gbdw[f] (k = 9) = sum over chunks, in order.
-__global__ void dwconv_param_final_kernel(const float* __restrict__ part,
-                                          int chunks, int F, float* gwdw,
-                                          float* gbdw) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= 10 * F) return;
+// gwdw[k, f] (k < 9) and gbdw[f] (k = 9) = sum over the blocks' partials:
+// thread row i adds partials i, i + 8, ... in order, then row 0 adds the 8
+// runs in order.
+__global__ void __launch_bounds__(256)
+dwconv_param_final_kernel(const float* __restrict__ part, int blocks, int F,
+                          float* gwdw, float* gbdw) {
+  __shared__ float red[8][kLanes];
+  const int idx = blockIdx.x * kLanes + threadIdx.x;
   float t = 0.f;
-  for (int j = 0; j < chunks; ++j) t += part[(long long)j * 10 * F + idx];
+  if (idx < 10 * F)
+    for (int j = threadIdx.y; j < blocks; j += 8)
+      t += part[(long long)j * 10 * F + idx];
+  red[threadIdx.y][threadIdx.x] = t;
+  __syncthreads();
+  if (threadIdx.y != 0 || idx >= 10 * F) return;
+  t = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) t += red[i][threadIdx.x];
   if (idx < 9 * F) {
     if (gwdw) gwdw[idx] = t;
   } else if (gbdw) {
     gbdw[idx - 9 * F] = t;
   }
+}
+
+// an image's elements must have 32-bit offsets
+inline bool fits(int H, int W, int F) {
+  return (long long)H * W * F < (1LL << 31);
+}
+
+template <int V>
+void fwd_launch(const float* u, const float* wdw, const float* bdw,
+                float* out, int B, int H, int W, int F, cudaStream_t s) {
+  const Tiling t = fwd_tiling(B, H, W, F, V);
+  dwconv_gelu_fwd_kernel<V>
+      <<<dim3(t.groups * t.col_tiles, t.strips, B), kLanes * t.cols, 0, s>>>(
+          u, wdw, bdw, out, t);
+}
+
+template <int V>
+long long bwd_partial_floats(int B, int H, int W, int F) {
+  const Tiling t = tiling(B, H, W, F, V, kBwdCols);
+  return (long long)bwd_blocks_per_group(t) * 10 * F;
+}
+
+template <int V>
+cudaError_t bwd_launch(const float* u, const float* wdw, const float* bdw,
+                       const float* g, float* gu, float* gwdw, float* gbdw,
+                       float* ws, long long ws_floats, int B, int H, int W,
+                       int F, cudaStream_t s) {
+  const Tiling t = tiling(B, H, W, F, V, kBwdCols);
+  const int blocks = bwd_blocks_per_group(t);
+  float* part = nullptr;
+  if (gwdw || gbdw) {
+    if (!ws || ws_floats < (long long)blocks * 10 * F)
+      return cudaErrorInvalidValue;
+    part = ws;
+  }
+  dwconv_gelu_bwd_kernel<V><<<t.groups * blocks, kLanes * (t.cols + 2), 0,
+                              s>>>(u, wdw, bdw, g, gu, part, t, blocks);
+  if (part)
+    dwconv_param_final_kernel<<<ceil_div(10LL * F, kLanes), dim3(kLanes, 8),
+                                0, s>>>(part, blocks, F, gwdw, gbdw);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -155,43 +413,41 @@ extern "C" int emip_dwconv_gelu(const float* u, const float* wdw,
                                 const float* bdw, float* out, int B, int H,
                                 int W, int F, void* stream) {
   using namespace emip;
+  if (!fits(H, W, F)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Image d{B, H, W, F};
-  dwconv_kernel<0><<<ceil_div(d.pixels() * F, kDwThreads), kDwThreads, 0,
-                     s>>>(u, wdw, bdw, nullptr, out, d);
+  if (F % 4 == 0 && aligned16(u) && aligned16(wdw) && aligned16(bdw) &&
+      aligned16(out))
+    fwd_launch<4>(u, wdw, bdw, out, B, H, W, F, s);
+  else
+    fwd_launch<1>(u, wdw, bdw, out, B, H, W, F, s);
   return (int)cudaGetLastError();
 }
 
+// Floats of the tap-grad partials emip_dwconv_gelu_bwd takes when a
+// parameter grad is asked for, at the larger of its two vector widths.
+extern "C" long long emip_dwconv_gelu_bwd_workspace(int B, int H, int W,
+                                                    int F) {
+  using namespace emip;
+  const long long scalar = bwd_partial_floats<1>(B, H, W, F);
+  return F % 4 ? scalar : max(scalar, bwd_partial_floats<4>(B, H, W, F));
+}
+
 // g: gradient of out. gu [B, H*W, F], gwdw [3, 3, F] and gbdw [F] may each
-// be null. ws: B*H*W*F floats for gd, then kDwMaxChunks * 10 * F of
-// partials when a parameter grad is asked for.
+// be null. ws: emip_dwconv_gelu_bwd_workspace floats when a parameter grad
+// is asked for, else unused.
 extern "C" int emip_dwconv_gelu_bwd(const float* u, const float* wdw,
                                     const float* bdw, const float* g,
                                     float* gu, float* gwdw, float* gbdw,
                                     float* ws, long long ws_floats, int B,
                                     int H, int W, int F, void* stream) {
   using namespace emip;
+  if (!fits(H, W, F)) return (int)cudaErrorInvalidValue;
+  if (!gu && !gwdw && !gbdw) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Image d{B, H, W, F};
-  const long long total = d.pixels() * F;
-  Workspace w{ws, ws_floats};
-  float* gd = w.take(total);
-  if (!gd) return (int)cudaErrorInvalidValue;
-  const int blocks = ceil_div(total, kDwThreads);
-  dwconv_kernel<1><<<blocks, kDwThreads, 0, s>>>(u, wdw, bdw, g, gd, d);
-  if (gu)
-    dwconv_kernel<2><<<blocks, kDwThreads, 0, s>>>(gd, wdw, nullptr, nullptr,
-                                                   gu, d);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || (!gwdw && !gbdw)) return (int)err;
-  int chunks = min(kDwMaxChunks, max(1, ceil_div(d.pixels(), 64)));
-  const long long per = (d.pixels() + chunks - 1) / chunks;
-  chunks = ceil_div(d.pixels(), per);
-  float* part = w.take((long long)chunks * 10 * F);
-  if (!part) return (int)cudaErrorInvalidValue;
-  dwconv_param_partial_kernel<<<dim3(ceil_div(F, 32), chunks), dim3(32, 8), 0,
-                                s>>>(u, gd, d, per, part);
-  dwconv_param_final_kernel<<<ceil_div(10 * F, 256), 256, 0, s>>>(
-      part, chunks, F, gwdw, gbdw);
-  return (int)cudaGetLastError();
+  const bool vec = F % 4 == 0 && aligned16(u) && aligned16(wdw) &&
+                   aligned16(bdw) && aligned16(g) && aligned16(gu);
+  return (int)(vec ? bwd_launch<4>(u, wdw, bdw, g, gu, gwdw, gbdw, ws,
+                                   ws_floats, B, H, W, F, s)
+                   : bwd_launch<1>(u, wdw, bdw, g, gu, gwdw, gbdw, ws,
+                                   ws_floats, B, H, W, F, s));
 }

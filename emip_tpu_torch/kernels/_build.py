@@ -66,8 +66,10 @@ _SIGNATURES = {
     "emip_softmax_expectation_bwd": [_P] * 6 + [_L, _L, _I, _P],
     "emip_dwconv_gelu": [_P] * 4 + [_I] * 4 + [_P],
     "emip_dwconv_gelu_bwd": [_P] * 8 + [_L] + [_I] * 4 + [_P],
+    "emip_dwconv_gelu_bwd_workspace": [_I] * 4,
 }
-_RESTYPES = {"emip_attention_fwd_workspace": _L}
+_RESTYPES = {"emip_attention_fwd_workspace": _L,
+             "emip_dwconv_gelu_bwd_workspace": _L}
 
 
 class KernelBuildError(RuntimeError):

@@ -10,9 +10,21 @@ autograd backward), CUDA tensors the forward and backward kernels. With
 ``library_forward`` the CUDA forward is the library's grouped convolution
 and GELU and only the backward is the kernel, as ``dwconv_gelu_bwd_fused``
 keeps XLA's forward.
+
+The CUDA kernels cannot run without a card, so their algorithm is also
+written out here in plain tensor code that the CPU tests hold against the
+plain version, its autograd backward and the Pallas kernels:
+:func:`fused_dwconv_gelu_strips` walks the forward (strips of rows, each
+input row added into three running output rows) and
+:func:`dwconv_gelu_bwd_tiled` the backward (tiles walked per block in the
+kernel's order, gd recomputed on each tile and its one-pixel halo, the
+per-block tap and bias partials added in order). Neither runs on a model's
+path.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -20,12 +32,10 @@ import torch.nn.functional as F
 from emip_tpu_torch.kernels import _common as cm
 from emip_tpu_torch.kernels._build import library
 
-__all__ = ["fused_dwconv_gelu", "fused_dwconv_gelu_reference"]
+__all__ = ["fused_dwconv_gelu", "fused_dwconv_gelu_reference",
+           "fused_dwconv_gelu_strips", "dwconv_gelu_bwd_tiled"]
 
 _NAME = "fused_dwconv_gelu"
-# kDwMaxChunks of csrc/dwconv_gelu.cu: pixel runs of the tap-grad partials,
-# 10 columns (9 taps and the bias) per channel each
-_PARTIAL_FLOATS_PER_CHANNEL = 256 * 10
 
 
 def fused_dwconv_gelu_reference(u, wdw, bdw, h: int, w: int) -> torch.Tensor:
@@ -36,6 +46,96 @@ def fused_dwconv_gelu_reference(u, wdw, bdw, h: int, w: int) -> torch.Tensor:
     return F.gelu(y).flatten(2).transpose(1, 2)
 
 
+def _gelu_grad(x: torch.Tensor) -> torch.Tensor:
+    """d/dx of the exact GELU."""
+    phi = torch.exp(-0.5 * x * x) * 0.3989422804014327
+    return 0.5 * (1.0 + torch.erf(x * 0.7071067811865476)) + x * phi
+
+
+def _cols3(row: torch.Tensor, w: int):
+    """The left, centre and right neighbours of every column of ``row``
+    [..., W, F], zero off the image."""
+    p = F.pad(row, (0, 0, 1, 1))
+    return p[..., :w, :], p[..., 1:w + 1, :], p[..., 2:, :]
+
+
+def fused_dwconv_gelu_strips(u, wdw, bdw, h: int, w: int,
+                             rows: int) -> torch.Tensor:
+    """The forward kernel's walk: each strip of ``rows`` output rows walks
+    input rows y0 - 1 .. y1, each row added into the running sums of output
+    rows r + 1, r and r - 1 through tap rows 0, 1 and 2; output row r - 1
+    is then whole and goes out through the GELU."""
+    b, _, f = u.shape
+    img = u.reshape(b, h, w, f)
+    out = torch.empty_like(img)
+    zero = img.new_zeros(b, w, f)
+    for y0 in range(0, h, rows):
+        y1 = min(h, y0 + rows)
+        sums = [zero, zero, zero]  # output rows r - 1, r, r + 1
+        for r in range(y0 - 1, y1 + 1):
+            nb = _cols3(img[:, r], w) if 0 <= r < h else (zero,) * 3
+            for i, k in ((2, 0), (1, 1), (0, 2)):
+                sums[i] = sums[i] + sum(t * wdw[k, j]
+                                        for j, t in enumerate(nb))
+            if r - 1 >= y0:
+                out[:, r - 1] = F.gelu(sums[0] + bdw)
+            sums = [sums[1], sums[2], zero]
+    return out.reshape(b, h * w, f)
+
+
+def dwconv_gelu_bwd_tiled(u, wdw, bdw, g, h: int, w: int, rows: int,
+                          cols: int, blocks: int):
+    """The backward kernel's walk -> (gu, gwdw, gbdw).
+
+    The images are cut into tiles of ``rows`` x ``cols`` pixels, numbered
+    image-major, then strip, then column tile; block p of ``blocks`` walks
+    tiles p, p + blocks, ... in order. On each tile it recomputes the
+    pre-activation and gd = g * gelu'(pre) on the tile and its one-pixel
+    halo (u read with a two-pixel halo, zero off the image), writes gu on
+    the tile by the transposed taps, and adds sum u(p + d) * gd(p) (taps)
+    and sum gd(p) (bias) over the tile's pixels into its own partial; a
+    last pass adds partials i, i + 8, ... in order for each i < 8, then
+    those 8 sums in order.
+    """
+    b, _, f = u.shape
+    up = F.pad(u.reshape(b, h, w, f), (0, 0, 2, 2, 2, 2))
+    gp = F.pad(g.reshape(b, h, w, f), (0, 0, 1, 1, 1, 1))
+    gu = torch.empty(b, h, w, f, dtype=u.dtype)
+    strips, col_tiles = -(-h // rows), -(-w // cols)
+    tiles = [(i, s, c) for i in range(b) for s in range(strips)
+             for c in range(col_tiles)]
+    taps = [(dy, dx) for dy in range(3) for dx in range(3)]
+    part = u.new_zeros(blocks, 10, f)
+    for p in range(blocks):
+        for i, s, c in tiles[p::blocks]:
+            y0, x0 = s * rows, c * cols
+            nr, nc = min(h, y0 + rows) - y0, min(w, x0 + cols) - x0
+            # u at rows y0 - 2 .. y1 + 1 and columns x0 - 2 .. x1 + 1
+            ut = up[i, y0:y0 + nr + 4, x0:x0 + nc + 4]
+            pre = bdw + sum(ut[dy:dy + nr + 2, dx:dx + nc + 2] * wdw[dy, dx]
+                            for dy, dx in taps)
+            gd = gp[i, y0:y0 + nr + 2, x0:x0 + nc + 2] * _gelu_grad(pre)
+            gu[i, y0:y0 + nr, x0:x0 + nc] = sum(
+                gd[2 - dy:2 - dy + nr, 2 - dx:2 - dx + nc] * wdw[dy, dx]
+                for dy, dx in taps)
+            own = gd[1:-1, 1:-1]
+            for k, (dy, dx) in enumerate(taps):
+                part[p, k] += (ut[1 + dy:1 + dy + nr, 1 + dx:1 + dx + nc]
+                               * own).sum((0, 1))
+            part[p, 9] += own.sum((0, 1))
+    # the last pass: partials i, i + 8, ... in order, then the 8 runs
+    runs = [sum(part[i::8], torch.zeros_like(part[0])) for i in range(8)]
+    total = sum(runs[1:], runs[0])
+    return gu.reshape(b, h * w, f), total[:9].reshape(3, 3, f), total[9]
+
+
+@functools.lru_cache(maxsize=None)
+def _partial_floats(b: int, h: int, w: int, f: int) -> int:
+    """Floats of the backward's per-block tap and bias partials, as the
+    kernel plans them at this shape."""
+    return library().emip_dwconv_gelu_bwd_workspace(b, h, w, f)
+
+
 def _check(u, wdw, bdw, h, w) -> None:
     cm.check_kernel_args(_NAME, u=u, wdw=wdw, bdw=bdw)
     if u.dim() != 3:
@@ -43,6 +143,9 @@ def _check(u, wdw, bdw, h, w) -> None:
     b, hw, f = u.shape
     if hw != h * w or min(b, h, w, f) < 1:
         raise ValueError(f"{_NAME}: u has {hw} tokens, expected {h} x {w}")
+    if hw * f >= 2**31:
+        raise ValueError(f"{_NAME}: an image of {hw} x {f} elements needs "
+                         f"64-bit offsets")
     cm.check_shape(_NAME, "wdw", wdw, (3, 3, f))
     cm.check_shape(_NAME, "bdw", bdw, (f,))
 
@@ -79,15 +182,17 @@ class _DWConvGelu(torch.autograd.Function):
                 (u, wdw, bdw), needs, g)
             return (*grads, None, None, None, None)
         g = g.contiguous()
-        f = u.shape[2]
+        b, _, f = u.shape
         gu, gwdw, gbdw = (cm.empty_if(nd, t)
                           for nd, t in zip(needs, (u, wdw, bdw)))
-        ws = cm.workspace(u.device,
-                          u.numel() + _PARTIAL_FLOATS_PER_CHANNEL * f)
+        ws = None
+        if gwdw is not None or gbdw is not None:
+            ws = torch.empty(_partial_floats(b, h, w, f), device=u.device,
+                             dtype=torch.float32)
         rc = library().emip_dwconv_gelu_bwd(
             u.data_ptr(), wdw.data_ptr(), bdw.data_ptr(), g.data_ptr(),
-            cm.ptr(gu), cm.ptr(gwdw), cm.ptr(gbdw), ws.data_ptr(),
-            ws.numel(), u.shape[0], h, w, f, cm.stream_handle(u.device))
+            cm.ptr(gu), cm.ptr(gwdw), cm.ptr(gbdw), cm.ptr(ws),
+            cm.numel(ws), b, h, w, f, cm.stream_handle(u.device))
         cm.raise_on_error(_NAME + " backward", rc)
         cm.LAUNCHES["dwconv_gelu_bwd"] += 1
         return gu, gwdw, gbdw, None, None, None, None

@@ -434,6 +434,12 @@ def _gpu_cases():
     cases.append(("convex_upsample", K.convex_upsample,
                   K.convex_upsample_reference,
                   (r(2, 44, 44, 2), r(2, 44, 44, 576), 8)))
+    # kernel J also at stage 1 of 512^2, on a non-square map and at a hidden
+    # width that is no multiple of 4 (the scalar instantiation)
+    for b, h, w, f in ((2, 128, 128, 256), (2, 7, 13, 256), (2, 11, 11, 18)):
+        cases.append(("dwconv_gelu", K.fused_dwconv_gelu,
+                      K.fused_dwconv_gelu_reference,
+                      (r(b, h * w, f), 0.3 * r(3, 3, f), 0.1 * r(f), h, w)))
     return cases
 
 
@@ -473,7 +479,7 @@ def test_cuda_kernels_match_plain_versions():
         assert K.LAUNCHES[name + "_bwd"] == before[name + "_bwd"] + 1, name
         if name in ("flow_attention", "sr_attention",
                     "window_attention_block", "window_attention_layer",
-                    "window_attention_ffn_layer"):
+                    "window_attention_ffn_layer", "dwconv_gelu"):
             # no atomics: a second forward and backward give the same bits
             assert torch.equal(fn(*dev), got), name
             for a, b in zip(g_got, torch.autograd.grad(got, wrt, cot)):
