@@ -52,10 +52,15 @@ needs one card and no arguments, and it imports nothing of JAX. In order:
    alone; C and F also at the 512^2 train steps' shapes ([4, 4096, 128];
    [1, 4096, 128] x [1, 20480, 128]) and at a small ragged one each (F's
    with every slot empty), J at its two checks of phase 4 (kept out of its
-   summed row); for C, F, J and the tensor-core backward of A, B, G and H
-   a second call on the same inputs must give the same bits;
-   kernel E against its plain scatter_add_ version
-   (density atol and the fraction of occlusion-mask bits that flip); the
+   summed row), I at ragged N and past its register tile (kept out of its
+   summed row); for C, F, I, J and the tensor-core backward of A, B, G and
+   H a second call on the same inputs must give the same bits;
+   kernel E against its plain scatter_add_ version (density atol and the
+   fraction of occlusion-mask bits that flip), the same bits on a second
+   call, a grad_fn and its gradient against autograd of the plain version,
+   at the train step's shape and, kept out of its summed row, on a
+   coherent field, on uniform-random targets and at 512^2; D, E, I and J
+   also read their device time per call (``device_ms``); the
    cost of the transpose that read-corr matching hands kernel I and of the
    row statistics kernel C's forward keeps for its backward;
 6. tiny phase: the configuration of the CPU tests (pvt_v2_b0 at 64^2,
@@ -196,10 +201,23 @@ SEG_GRAD_RTOL = 8e-2
 # largest max|err| / max|plain| over a case's grads (fp32 sums in another
 # order; weight grads sum over ~10^5 rows)
 BWD_REL_TOL = 1e-3
-# kernel E: atomics add in a varying order (last-bit differences of a
-# density of order 1), and the 0.2 occlusion threshold may flip a few bits
+# kernel E: its fixed-point sum against the plain version's fp32
+# scatter_add_ (last-bit differences of a density of order 1), and the 0.2
+# occlusion threshold may flip a few bits
 SPLAT_ATOL = 1e-5
 SPLAT_FLIP_MAX = 1e-4
+# kernel E's coordinate fields: (batch, size, kind, summed). The first is
+# the summed row's (the train step's shape: pixel grid + seeded noise of 4
+# px); the others are checks kept out of its sum: a coherent field (a
+# shift of (2.5, -1.25) px and a 2 degree rotation about the centre, the
+# corners' targets off the image), targets uniform over the image and a
+# margin, and the 512^2 shape
+SPLAT_CASES = ((BATCH, SIZE, "noise", True), (BATCH, SIZE, "coherent", False),
+               (2, SIZE, "uniform", False), (2, SIZE_512, "noise", False))
+# kernel I's backward checks kept out of its summed row: N no multiple of
+# 4 (single-float loads), and past the register tile of 4096 floats (the
+# streaming instantiation): (batch, N)
+SOFTMAX_BWD_CHECKS = ((2, 91), (2, 1001), (2, 4100))
 
 # kernel A at the four PVT stages of pvt_v2_b5 at 352^2: N, M, C, heads
 SR_STAGES = ((7744, 121, 64, 1), (1936, 121, 128, 2), (484, 121, 320, 5),
@@ -282,13 +300,18 @@ TENSOR_CORE_KERNELS = ("sr_attention", "sr_attention_bwd",
                        "flow_attention", "flow_attention_bwd",
                        "memory_attention", "memory_attention_bwd")
 # kernels whose cases also read the device's busy time per call
-# (``device_ms``): J, whose calls at the smaller stages take the device less
-# time than the host's launch path, which the CUDA-event time then reads
-DEVICE_TIMED = ("dwconv_gelu", "dwconv_gelu_bwd")
+# (``device_ms``): the CUDA-core kernels D, E, I and J, whose calls take the
+# device about as long as, or less than, the host's launch path, which the
+# CUDA-event time then reads
+DEVICE_TIMED = ("convex_upsample", "convex_upsample_bwd", "splat_density",
+                "softmax_expectation", "softmax_expectation_bwd",
+                "dwconv_gelu", "dwconv_gelu_bwd")
 # kernels held to the same bits on a second call on the same inputs: the
-# tensor-core ones and J, whose backward adds its per-block partials in a
-# fixed order
-BIT_EQUAL_KERNELS = TENSOR_CORE_KERNELS + ("dwconv_gelu", "dwconv_gelu_bwd")
+# tensor-core ones, J and I's backward, which add their per-block partials
+# in a fixed order, and E, whose sum is in integers
+BIT_EQUAL_KERNELS = TENSOR_CORE_KERNELS + (
+    "dwconv_gelu", "dwconv_gelu_bwd", "softmax_expectation_bwd",
+    "splat_density")
 # the 3xTF32 GEMM alone against the fp64 product: max|err| / max|ref| (fp32
 # rounding of sums over up to 61,952 rows)
 GEMM_REL_TOL = 1e-5
@@ -330,12 +353,13 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int) -> float:
+def device_ms(fn, reps: int, split: dict | None = None) -> float:
     """Milliseconds per call that the device is busy: the union of the
     intervals of the CUDA kernels and copies ``torch.profiler`` records over
     ``reps`` calls, after one warm-up. Host time between launches does not
     count, so a call shorter than the host's launch path reads its own
-    time here and the host's in ``cuda_ms``."""
+    time here and the host's in ``cuda_ms``. ``split``, where given, gets
+    each kernel's (or memset's) own milliseconds per call by name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -346,12 +370,17 @@ def device_ms(fn, reps: int) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    spans = sorted((ev.time_range.start, ev.time_range.end)
-                   for ev in prof.events()
-                   if ev.device_type == torch.autograd.DeviceType.CUDA
-                   and not getattr(ev, "is_user_annotation", False))
-    if not spans:
+    events = [ev for ev in prof.events()
+              if ev.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(ev, "is_user_annotation", False)]
+    if not events:
         raise AssertionError("torch.profiler recorded no device time")
+    if split is not None:
+        for ev in events:
+            name = _kernel_name(ev.name)
+            split[name] = split.get(name, 0.0) + (
+                ev.time_range.end - ev.time_range.start) / 1e3 / reps
+    spans = sorted((ev.time_range.start, ev.time_range.end) for ev in events)
     busy, reach = 0.0, -float("inf")  # us
     for start, end in spans:
         busy += max(0.0, end - max(start, reach))
@@ -359,13 +388,35 @@ def device_ms(fn, reps: int) -> float:
     return busy / 1e3 / reps
 
 
+def _kernel_name(name: str) -> str:
+    """A profiler kernel name without its namespaces, return type and
+    arguments: "void ns::(anonymous namespace)::k<4, 2>(float*)" -> "k<4,
+    2>"."""
+    base = name.replace("(anonymous namespace)", "").split("(")[0]
+    head, sep, tmpl = base.partition("<")
+    return head.split("::")[-1].split()[-1] + sep + tmpl
+
+
 def device_times(name: str, kernel, plain, reps: int) -> dict:
     """device_ms and plain_device_ms of a case of a ``DEVICE_TIMED``
-    kernel, else nothing."""
+    kernel, and ``device_split_ms``: the kernel side's device time by the
+    name of each kernel it launches; else nothing."""
     if name not in DEVICE_TIMED:
         return {}
-    return dict(device_ms=device_ms(kernel, reps),
-                plain_device_ms=device_ms(plain, reps))
+    split = {}
+    return dict(device_ms=device_ms(kernel, reps, split),
+                plain_device_ms=device_ms(plain, reps),
+                device_split_ms=split)
+
+
+def fmt_dev(dev: dict) -> str:
+    """The device times of a case for its log line."""
+    out = "".join(f"{k}={v:.4f} " for k, v in dev.items()
+                  if isinstance(v, float))
+    if dev.get("device_split_ms"):
+        out += "split[" + " ".join(
+            f"{k}={v:.4f}" for k, v in dev["device_split_ms"].items()) + "] "
+    return out
 
 
 def device_sums(results: dict) -> None:
@@ -854,7 +905,7 @@ def kernel_phase(batch: int, device, reps: int, only: str = "") -> dict:
         log(f"kernel {name:24s} {label:32s} max_abs_err={err:.3e} "
             f"tol={tol} ms={ms:.4f} plain_ms={plain_ms:.4f} "
             f"library_ms={fmt_ms(lib_ms)} "
-            + "".join(f"{k}={v:.4f} " for k, v in dev.items())
+            + fmt_dev(dev)
             + ("ok" if ok else "MISMATCH"))
         if not ok:
             raise AssertionError(f"{name} ({label}) disagrees with its plain "
@@ -1036,6 +1087,12 @@ def backward_cases(batch: int, device):
                       f"u [{b},{h * w},{f}] {h}x{w} gu taps bias",
                       K.fused_dwconv_gelu, K.fused_dwconv_gelu_reference,
                       ffn_args(r, b, h, w, f), (0, 1, 2)))
+    for b, n in SOFTMAX_BWD_CHECKS:
+        checks.add(len(cases))
+        cases.append(("softmax_expectation_bwd",
+                      f"corr [{b},{n},{n}] dcorr dvalues",
+                      K.softmax_expectation, K.softmax_expectation_reference,
+                      (r(b, n, n, scale=3.0), r(n, 2, scale=20.0)), (0, 1)))
     return cases, at_352, checks
 
 
@@ -1102,7 +1159,7 @@ def backward_phase(batch: int, device, reps: int, only: str = "") -> dict:
         log(f"kernel {name:28s} {label:44s} max_abs_err={err:.3e} "
             f"max_rel={rel:.3e} (tol {BWD_REL_TOL}) ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} library_ms={fmt_ms(lib_ms)} "
-            + "".join(f"{k}={v:.4f} " for k, v in dev.items())
+            + fmt_dev(dev)
             + ("ok" if ok else "MISMATCH"))
         if not ok:
             raise AssertionError(f"{name} ({label}) disagrees with the plain "
@@ -1123,9 +1180,9 @@ def backward_phase(batch: int, device, reps: int, only: str = "") -> dict:
             log(f"kernel {name}: its {len(main)} cases at 352^2 sum to "
                 + " ".join(f"{k}={v:.4f}" for k, v in tot.items())
                 + " (bound_ms: 3xTF32 operations; fp32_bound_ms: fp32)")
-    device_sums(results)
     if wanted(only, "splat_density"):
-        splat_case(results, batch, device, reps)
+        splat_cases(results, device, reps)
+    device_sums(results)
     return results
 
 
@@ -1312,41 +1369,91 @@ def attention_phase(batch: int, device, reps: int) -> dict:
     return out
 
 
-def splat_case(results: dict, batch: int, device, reps: int) -> None:
-    """Kernel E against its plain scatter_add_ version on one [B, 352,
-    352, 2] coordinate field (pixel grid + seeded flow, as the occlusion
-    mask builds it): density max_abs_err, and the fraction of occlusion
-    bits (density clipped to [0, 1] < 0.2) that flip."""
+def splat_coords(batch: int, size: int, kind: str, rng):
+    """[batch, size, size, 2] (x, y) targets of kernel E: the pixel grid
+    plus seeded noise of 4 px ("noise", as the occlusion mask builds its
+    input from a flow), a coherent field ("coherent"), or targets uniform
+    over the image and a 4 px margin ("uniform")."""
+    import torch
+
+    from emip_tpu_torch.ops.geometry import coords_grid
+
+    grid = coords_grid(size, size)[None]
+    if kind == "noise":
+        return grid + torch.from_numpy(
+            (rng.standard_normal((batch, size, size, 2)) * 4).astype(
+                np.float32))
+    if kind == "uniform":
+        return torch.from_numpy(rng.uniform(
+            -4.0, size + 4.0, (batch, size, size, 2)).astype(np.float32))
+    c, th = (size - 1) / 2, np.deg2rad(2.0)
+    gx, gy = grid[..., 0] - c, grid[..., 1] - c
+    x = c + np.cos(th) * gx - np.sin(th) * gy + 2.5
+    y = c + np.sin(th) * gx + np.cos(th) * gy - 1.25
+    return torch.stack((x, y), -1).expand(batch, -1, -1, -1).contiguous()
+
+
+def splat_cases(results: dict, device, reps: int) -> None:
+    """Kernel E against its plain scatter_add_ version at ``SPLAT_CASES``:
+    density max_abs_err, the fraction of occlusion bits (density clipped to
+    [0, 1] < 0.2) that flip, the same bits on a second call, a grad_fn on
+    the output when coords requires a grad, and the gradient against
+    autograd of the plain version (max|err| / max|plain|). Every case is
+    logged and recorded before a failure of any is raised."""
     import torch
 
     from emip_tpu_torch import kernels as K
-    from emip_tpu_torch.ops.geometry import coords_grid
 
-    rng = np.random.default_rng(SEED + 4)
-    flow = torch.from_numpy(
-        (rng.standard_normal((batch, SIZE, SIZE, 2)) * 4).astype(np.float32))
-    coords = (coords_grid(SIZE, SIZE)[None] + flow).to(device)
-    got = K.splat_density(coords)
-    want = K.splat_density_reference(coords)
-    torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
     occ = lambda d: torch.clamp(d, 0.0, 1.0) < 0.2  # noqa: E731
-    flips = (occ(got) != occ(want)).float().mean().item()
-    ok = (bool(torch.isfinite(got).all()) and err <= SPLAT_ATOL
-          and flips <= SPLAT_FLIP_MAX)
-    ms, plain_ms = alternate_ms(lambda: K.splat_density(coords),
-                                lambda: K.splat_density_reference(coords),
-                                reps)
-    label = f"coords [{batch},{SIZE},{SIZE},2]"
-    log(f"kernel {'splat_density':28s} {label:44s} max_abs_err={err:.3e} "
-        f"(atol {SPLAT_ATOL}) mask flips={flips:.3e} (limit "
-        f"{SPLAT_FLIP_MAX}) ms={ms:.4f} plain_ms={plain_ms:.4f} "
-        f"{'ok' if ok else 'MISMATCH'}")
-    if not ok:
+    failed = []
+    for i, (batch, size, kind, summed) in enumerate(SPLAT_CASES):
+        # the summed case keeps the inputs it has always had
+        rng = np.random.default_rng(SEED + 4 if i == 0 else SEED + 17 + i)
+        coords = splat_coords(batch, size, kind, rng).to(device)
+        got = K.splat_density(coords)
+        want = K.splat_density_reference(coords)
+        same = torch.equal(K.splat_density(coords), got)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        flips = (occ(got) != occ(want)).float().mean().item()
+        leaf = coords.clone().requires_grad_(True)
+        out = K.splat_density(leaf)
+        has_fn = out.grad_fn is not None
+        cot = torch.randn(out.shape, device=device, generator=torch.Generator(
+            device=device).manual_seed(SEED + 5))
+        g_k = torch.autograd.grad(out, leaf, cot)[0] if has_fn else None
+        g_p = torch.autograd.grad(K.splat_density_reference(leaf), leaf,
+                                  cot)[0]
+        rel = (float("inf") if g_k is None else
+               (g_k - g_p).abs().max().item()
+               / max(g_p.abs().max().item(), 1e-30))
+        del leaf, out, g_k, g_p
+        ms, plain_ms = alternate_ms(lambda: K.splat_density(coords),
+                                    lambda: K.splat_density_reference(coords),
+                                    reps)
+        dev = device_times("splat_density", lambda: K.splat_density(coords),
+                           lambda: K.splat_density_reference(coords), reps)
+        ok = (bool(torch.isfinite(got).all()) and err <= SPLAT_ATOL
+              and flips <= SPLAT_FLIP_MAX and same and has_fn
+              and rel <= BWD_REL_TOL)
+        label = f"coords [{batch},{size},{size},2] {kind}"
+        log(f"kernel {'splat_density':28s} {label:44s} max_abs_err={err:.3e} "
+            f"(atol {SPLAT_ATOL}) mask flips={flips:.3e} (limit "
+            f"{SPLAT_FLIP_MAX}) second call {'same' if same else 'DIFFERS'} "
+            f"grad_fn={has_fn} grad max_rel={rel:.3e} (tol {BWD_REL_TOL}) "
+            f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            + fmt_dev(dev)
+            + ("ok" if ok else "MISMATCH"))
+        if not ok:
+            failed.append(label)
+        record(results, "splat_density", label, err, ms, plain_ms,
+               forward_work("splat_density", (coords,), got), summed=summed,
+               mask_flips=flips, bit_equal=same, grad_max_rel=rel, **dev)
+        del coords, got, want
+    if failed:
         raise AssertionError(f"splat_density disagrees with its plain "
-                             f"version: err={err}, flips={flips}")
-    record(results, "splat_density", label, err, ms, plain_ms,
-           forward_work("splat_density", (coords,), got), mask_flips=flips)
+                             f"version, differs on a second call or has no "
+                             f"gradient at: {failed}")
 
 
 # --------------------------------------------------------------- slice

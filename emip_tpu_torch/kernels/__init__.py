@@ -2,10 +2,10 @@
 
 Each public function takes the JAX package's layout, runs its plain
 PyTorch version on CPU tensors and its CUDA kernel on CUDA tensors, and
-counts its kernel launches in :data:`LAUNCHES`. Kernels A-D and F-J
-are ``torch.autograd.Function``s whose CUDA backward is a kernel too; E is
-forward only. The kernels are built from ``emip_tpu_torch/csrc`` at first
-use (:func:`library`).
+counts its kernel launches in :data:`LAUNCHES`. Every kernel is a
+``torch.autograd.Function``: the CUDA backward of A-D and F-J is a kernel
+too, E's is torch ops (a gather), as the JAX package's is XLA. The kernels
+are built from ``emip_tpu_torch/csrc`` at first use (:func:`library`).
 """
 
 from emip_tpu_torch.kernels._build import KernelBuildError, library

@@ -59,17 +59,21 @@ _SIGNATURES = {
     "emip_flow_attention_bwd": [_P] * 10 + [_L] + [_I] * 4 + [_P],
     "emip_convex_upsample": [_P] * 3 + [_I] * 4 + [_P],
     "emip_convex_upsample_bwd": [_P] * 6 + [_I] * 4 + [_P],
-    "emip_splat_density": [_P] * 2 + [_I] * 3 + [_P],
+    "emip_splat_density": [_P] * 3 + [_L] + [_I] * 3 + [_P],
+    "emip_splat_density_workspace": [_I] * 3,
     "emip_memory_attention": [_P] * 7 + [_L] + [_I] * 4 + [_P],
     "emip_memory_attention_bwd": [_P] * 11 + [_L] + [_I] * 4 + [_P],
     "emip_softmax_expectation": [_P] * 3 + [_L, _I, _P],
     "emip_softmax_expectation_bwd": [_P] * 6 + [_L, _L, _I, _P],
+    "emip_softmax_expectation_bwd_workspace": [_L, _I],
     "emip_dwconv_gelu": [_P] * 4 + [_I] * 4 + [_P],
     "emip_dwconv_gelu_bwd": [_P] * 8 + [_L] + [_I] * 4 + [_P],
     "emip_dwconv_gelu_bwd_workspace": [_I] * 4,
 }
 _RESTYPES = {"emip_attention_fwd_workspace": _L,
-             "emip_dwconv_gelu_bwd_workspace": _L}
+             "emip_dwconv_gelu_bwd_workspace": _L,
+             "emip_splat_density_workspace": _L,
+             "emip_softmax_expectation_bwd_workspace": _L}
 
 
 class KernelBuildError(RuntimeError):

@@ -584,6 +584,53 @@ def test_cuda_kernels_match_plain_versions():
                         .manual_seed(1)).cuda() * 360 - 4
     got = K.splat_density(coords)
     torch.cuda.synchronize()
-    # atomics add in a varying order: last-bit differences only
+    # the kernel's fixed-point sum against the plain version's fp32 sum:
+    # last-bit differences only
     torch.testing.assert_close(got, K.splat_density_reference(coords),
                                rtol=0, atol=1e-5)
+    # E: the same bits on a second call (its sum is in integers), a grad_fn
+    # and the gradient of the plain version, here and on a coherent field (a
+    # shift of (2.5, -1.25) px and a 2 degree rotation about the centre,
+    # the corners' targets off the image)
+    from emip_tpu_torch.ops.geometry import coords_grid
+
+    assert torch.equal(K.splat_density(coords), got)
+    grid = coords_grid(352, 352)[None] - 175.5
+    cos, sin = np.cos(np.deg2rad(2.0)), np.sin(np.deg2rad(2.0))
+    coherent = torch.stack((175.5 + cos * grid[..., 0] - sin * grid[..., 1]
+                            + 2.5,
+                            175.5 + sin * grid[..., 0] + cos * grid[..., 1]
+                            - 1.25), -1).expand(2, -1, -1, -1).contiguous()
+    g = torch.Generator().manual_seed(4)
+    for field in (coords, coherent.cuda()):
+        leaf = field.clone().requires_grad_(True)
+        got = K.splat_density(leaf)
+        assert got.grad_fn is not None
+        want = K.splat_density_reference(leaf)
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+        assert torch.equal(K.splat_density(field), got.detach())
+        cot = torch.randn(got.shape, generator=g).cuda()
+        a = torch.autograd.grad(got, leaf, cot)[0]
+        b = torch.autograd.grad(want, leaf, cot)[0]
+        assert (a - b).abs().max().item() <= 1e-4 * max(
+            b.abs().max().item(), 1.0)
+    # I's backward at an N that is no multiple of 4 (single-float loads)
+    # and past the register tile of 4096 floats (the streaming
+    # instantiation, its dvalues partial in shared memory and, past 28928,
+    # in the workspace): the same bits on a second call
+    for m, n in ((1001, 1001), (4100, 4100), (3, 30000)):
+        corr = (3 * torch.randn(2, m, n, generator=g)).cuda()
+        vals = (20 * torch.randn(n, 2, generator=g)).cuda()
+        leaves = (corr.requires_grad_(True), vals.requires_grad_(True))
+        before = K.LAUNCHES["softmax_expectation_bwd"]
+        out = K.softmax_expectation(*leaves)
+        cot = torch.randn(out.shape, generator=g).cuda()
+        got = torch.autograd.grad(out, leaves, cot, retain_graph=True)
+        for a, b in zip(got, torch.autograd.grad(out, leaves, cot)):
+            assert torch.equal(a, b), n
+        assert K.LAUNCHES["softmax_expectation_bwd"] == before + 2
+        want = torch.autograd.grad(
+            K.softmax_expectation_reference(*leaves), leaves, cot)
+        for a, b in zip(got, want):
+            assert (a - b).abs().max().item() <= 1e-4 * max(
+                b.abs().max().item(), 1.0), n

@@ -3,6 +3,7 @@
 
     python3 tools/profile_torch_slice.py [--long] [--train] [--batch 8]
                                          [--size 352] [--timed 5] [--trace F]
+                                         [--kernels NAMES]
 
 Runs the full pvt_v2_b5 EMIPShort at 352^2 (``--size 512``: at 512^2, where
 the flow transformer runs kernels G and H), fp32 (TF32 off), on seeded
@@ -20,9 +21,10 @@ per-frame long train step). It prints:
   forward pre/post hooks (``--train``: and by backward pre/post hooks),
   and its share of the median of those hooked batches;
 - from one ``torch.profiler`` run without hooks, the device self-time of
-  the 30 largest kernels, their sum, and the device's idle share: one
-  minus that sum over the median without hooks (one stream, so kernels
-  do not overlap).
+  the 30 largest kernels (and of those whose name contains one of
+  ``--kernels NAMES``), their sum, and the device's idle share: one minus
+  that sum over the median without hooks (one stream, so kernels do not
+  overlap).
 
 ``--trace`` writes the profiler's Chrome trace to that file. Imports no JAX.
 """
@@ -127,6 +129,10 @@ def main() -> int:
                     help="input size: 352, or 512 (windows of 1024 tokens: "
                          "kernels G and H in place of B)")
     ap.add_argument("--trace", default=None)
+    ap.add_argument("--kernels", default="", metavar="NAMES",
+                    help="also print every kernel whose name contains one "
+                         "of the comma-separated NAMES, beyond the 30 "
+                         "largest")
     ap.add_argument("--train", action="store_true",
                     help="profile the train step instead of inference")
     ap.add_argument("--long", action="store_true",
@@ -302,8 +308,9 @@ def main() -> int:
     print(f"device busy {busy:.3f} ms in one profiled batch; idle share "
           f"{max(0.0, 1.0 - busy / median):.4f} of the median batch time")
     rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-    for key, (ms, count) in rows[:30]:
-        print(f"kernel {ms:9.3f} ms x{count:5d} {key[:100]}")
+    for i, (key, (ms, count)) in enumerate(rows):
+        if i < 30 or (args.kernels and cs.wanted(args.kernels, key)):
+            print(f"kernel {ms:9.3f} ms x{count:5d} {key[:100]}")
     if args.trace:
         prof.export_chrome_trace(args.trace)
     return 0
