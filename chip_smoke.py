@@ -92,26 +92,41 @@ needs one card and no arguments, and it imports nothing of JAX. In order:
    and loss tolerances; frames/s and ms/step of both are printed;
 10. entry-point phase: ``python -m emip_tpu_torch.train`` (in process) on
     a synthetic dataset the port writes, b5 at 352^2, batch 8, one epoch
-    of 2 steps, validation and a checkpoint;
-11. long inference phase: the full EMIPLong (b5, 352^2, 5 memory slots) on
+    of 2 steps, validation and a checkpoint. Before this and every later
+    entry point's call both TF32 switches are turned on (cuDNN's is on by
+    torch's default), and after it they must read off: each entry point
+    turns them off through ``device.resolve_device``, not this script;
+11. static phase: ``SegNetwork`` (static-image pretraining: pvt_v2_b5,
+    352^2, channel 32) on seeded weights; one image's hybrid-E loss and
+    every leaf's grad, card against CPU; then 1 + 3 ``static_train_step``s
+    at batch 8: A forward and backward 52 each per step and no other
+    launch, finite losses, every leaf moved, ms/step and peak memory;
+12. entry chain on phase 10's root and checkpoint: ``python -m
+    emip_tpu_torch.test`` (a PNG per pair), ``... eval_offline`` (17
+    metrics finite in [0, 1], 8 of 10 GT frames a video scored, S-measure,
+    wFm and MAE equal to the training loop's ``frame_scores`` means to
+    1e-12, the GT against itself perfect), ``... test_of`` (a JPG per
+    pair) and ``... train_static`` (one epoch of 2 steps at batch 8 on 16
+    synthetic images, checkpoint and log);
+13. long inference phase: the full EMIPLong (b5, 352^2, 5 memory slots) on
     seeded weights streams seeded clips through ``step_cached``, one clip
     at a time and four side by side; launch counts against the structure
     (A 52 per encoded frame, B 6, C 3, D 1 per pair, F 1 per read);
     frames/s with the ring full and peak memory; one 3-frame clip's short
     mask, long masks and memory against the CPU plain versions;
-12. long train phase: one frame's loss and head grads, card against CPU,
+14. long train phase: one frame's loss and head grads, card against CPU,
     on the seeded weights; then 1 + 5 per-frame train steps at 4 clips and
     at 1: F forward and backward once per step and no backward launch of
     A-D; every ``short_term`` tensor and buffer bit-identical afterwards,
     every trainable leaf moved, finite losses; ms/frame and peak memory;
-13. long entry points: ``python -m emip_tpu_torch.train_long`` and
+15. long entry points: ``python -m emip_tpu_torch.train_long`` and
     ``python -m emip_tpu_torch.test_long`` (in process) on a synthetic
     root: 4 per-frame steps, validation, checkpoints, 12 PNGs;
-14. 512^2 phases, where a swin window holds 1024 tokens and the flow
+16. 512^2 phases, where a swin window holds 1024 tokens and the flow
     transformer runs kernels G and H in place of B: 1 + 2 short train steps
     at batch 2 (G and H forward and backward 6 each per step, none of B;
     the checks of phase 8), then the long inference phase at 512^2 (G 6,
-    H 6, B 0 per step; card against CPU as in phase 11).
+    H 6, B 0 per step; card against CPU as in phase 13).
 
 It prints one JSON line with the nineteen kernels' numbers (per kernel:
 launches in the phase that is its main path, the largest max_abs_err of
@@ -365,15 +380,22 @@ def device_ms(fn, reps: int, split: dict | None = None) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [ev for ev in prof.events()
-              if ev.device_type == torch.autograd.DeviceType.CUDA
-              and not getattr(ev, "is_user_annotation", False)]
-    if not events:
+    # a profiling session now and then comes back without its device
+    # events (once in 35 sessions of a run on torch 2.11): such a session is
+    # taken again, at most twice, and the third empty one fails
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [ev for ev in prof.events()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(ev, "is_user_annotation", False)]
+        if events:
+            break
+        log("device_ms: torch.profiler recorded no device event; again")
+    else:
         raise AssertionError("torch.profiler recorded no device time")
     if split is not None:
         for ev in events:
@@ -1827,6 +1849,18 @@ def variant_phase(label: str, model, infer_cfg, train_cfg, batch: int,
     return out
 
 
+def grad_relmax(grads_c: dict, grads_p: dict) -> tuple[dict, list]:
+    """Per leaf, max|card - CPU| / max|CPU|, the denominator floored at
+    1e-6 of the largest CPU grad (tests/test_grad_parity.py); and the five
+    worst leaves."""
+    if set(grads_c) != set(grads_p):
+        raise AssertionError("card and CPU grads cover different leaves")
+    floor = 1e-6 * max(g.abs().max().item() for g in grads_p.values())
+    rels = {n: (grads_c[n] - grads_p[n]).abs().max().item()
+            / max(grads_p[n].abs().max().item(), floor) for n in grads_p}
+    return rels, sorted(rels.items(), key=lambda kv: -kv[1])[:5]
+
+
 def _seg_grads(model, batch) -> tuple[dict, dict]:
     """Loss values and d(seg loss)/d(trainable leaves) of one train-mode
     forward (no optimizer step)."""
@@ -1877,13 +1911,7 @@ def train_compare_phase(model, size: int, device,
             f"rel {rel:.3e} (tol {TRAIN_LOSS_RTOL})")
         if not rel <= TRAIN_LOSS_RTOL:
             bad.append(k)
-    if set(grads_c) != set(grads_p):
-        raise AssertionError("card and CPU grads cover different leaves")
-    scale = max(g.abs().max().item() for g in grads_p.values())
-    floor = 1e-6 * scale
-    rels = {n: (grads_c[n] - grads_p[n]).abs().max().item()
-            / max(grads_p[n].abs().max().item(), floor) for n in grads_p}
-    worst = sorted(rels.items(), key=lambda kv: -kv[1])[:5]
+    rels, worst = grad_relmax(grads_c, grads_p)
     log(f"{label} seg-loss grads card vs CPU over {len(rels)} leaves: worst "
         f"relmax {worst[0][1]:.3e} (tol {SEG_GRAD_RTOL}); top: "
         + ", ".join(f"{n}={r:.2e}" for n, r in worst)
@@ -1896,17 +1924,41 @@ def train_compare_phase(model, size: int, device,
                 worst=worst, cpu_seconds=cpu_s)
 
 
+def tf32_on() -> None:
+    """Both TF32 switches on before an entry point runs: cuDNN's is on by
+    torch's default, the matmul one is turned on too so that the check
+    covers it. The entry point must turn both off itself
+    (``emip_tpu_torch.device.resolve_device``); :func:`tf32_checked_off`
+    holds it to that."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+
+
+def tf32_checked_off(label: str) -> None:
+    import torch
+
+    on = (torch.backends.cudnn.allow_tf32,
+          torch.backends.cuda.matmul.allow_tf32)
+    log(f"{label}: TF32 switches after the call (cudnn, matmul) = {on}")
+    if any(on):
+        raise AssertionError(f"{label} ran with TF32 on: {on}")
+
+
 def entry_phase(batch: int, size: int) -> dict:
     """``python -m emip_tpu_torch.train`` (in process) on a synthetic root
     that the port writes: b5 at 352^2, 1 epoch of 2 steps, validation
-    over the root's pairs, a checkpoint written."""
+    over the root's pairs, a checkpoint written. TF32 is on before the
+    call and must be off after it."""
     import yaml
 
     from emip_tpu_torch.data import make_synthetic_video_root
     from emip_tpu_torch.train.__main__ import main as train_main
 
     work = os.path.join(ROOT, "build", "chip_smoke_train")
-    root = make_synthetic_video_root(os.path.join(work, "data"),
+    # under a dataset's name, so that the offline evaluator finds its GT
+    root = make_synthetic_video_root(os.path.join(work, "data", "MoCA_test"),
                                      num_videos=2, frames_per_video=10,
                                      seed=SEED)
     cfg = dict(
@@ -1923,10 +1975,12 @@ def entry_phase(batch: int, size: int) -> dict:
     cfg_path = os.path.join(work, "train.yaml")
     with open(cfg_path, "w") as f:
         yaml.safe_dump(cfg, f)
+    tf32_on()
     t0 = time.perf_counter()
     summary = train_main(["--config", cfg_path, "--max_steps_per_epoch",
                           "2"])
     dt = time.perf_counter() - t0
+    tf32_checked_off("entry python -m emip_tpu_torch.train")
     ckpt = os.path.join(work, "run", "ckpt", "ckpt.pt")
     ok = (summary["steps"] == 2 and os.path.exists(ckpt)
           and np.isfinite(summary["best_mae"]))
@@ -1936,7 +1990,295 @@ def entry_phase(batch: int, size: int) -> dict:
         f"{'ok' if ok else 'FAILED'}")
     if not ok:
         raise AssertionError(f"train entry point failed: {summary}")
-    return dict(summary=summary, seconds=dt)
+    return dict(summary=summary, seconds=dt, work=work, root=root,
+                config=cfg_path, ckpt=os.path.dirname(ckpt))
+
+
+# ------------------------------------------- static pretrain + entry chain
+
+STATIC_TIMED = 3  # timed static train steps after one warm-up
+
+
+def static_expected(model) -> dict:
+    """Kernel launches per static train step implied by SegNetwork's
+    structure: A forward and backward once per PVT block of the one frame
+    (every stage reaches the loss, through dr1-dr3 or the stages after
+    it), J where the backbone's configuration asks for it, nothing else."""
+    from emip_tpu_torch import kernels as K
+
+    cfg = model.backbone.feat_net.pvtv2_en.config
+    blocks = sum(cfg.depths)
+    n = {k: 0 for k in K.LAUNCHES}
+    n.update(sr_attention=blocks, sr_attention_bwd=blocks,
+             dwconv_gelu=blocks if cfg.fused_ffn == "always" else 0,
+             dwconv_gelu_bwd=(blocks if cfg.fused_ffn == "always"
+                              or cfg.ffn_dwconv == "bwd_fused" else 0))
+    return n
+
+
+def _static_grads(model, batch) -> tuple[float, dict]:
+    import torch
+
+    from emip_tpu_torch.losses.seg import hybrid_e_loss
+
+    model.train()
+    loss = hybrid_e_loss(model(batch["image"]), batch["gt"])
+    names = [n for n, _ in model.named_parameters()]
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    return float(loss.detach()), {n: g.detach().cpu()
+                                  for n, g in zip(names, grads)}
+
+
+def static_phase(batch: int, size: int, device, timed: int) -> dict:
+    """Static-image pretraining's model (``SegNetwork``: pvt_v2_b5,
+    channel 32) at full width and depth on seeded weights. One image, drop
+    path off: the hybrid-E loss and every leaf's grad, card against the
+    CPU's plain versions, as :func:`train_compare_phase` holds them. Then
+    1 + ``timed`` train steps (``static_train_step``: drop path 0.1 from a
+    seeded generator, clamp 0.5 + AdamW) at ``batch``: launch counts per
+    step against :func:`static_expected`, finite losses, every leaf moved,
+    median ms/step and peak memory."""
+    import torch
+
+    from emip_tpu_torch import kernels as K
+    from emip_tpu_torch.models.emip_short import SegNetwork
+    from emip_tpu_torch.models.init import seeded_init_
+    from emip_tpu_torch.train.state import ClampAdamW
+    from emip_tpu_torch.train.static import static_train_step
+
+    model = seeded_init_(SegNetwork("pvt_v2_b5", 32), SEED).to(device)
+    pvt = model.backbone.feat_net.pvtv2_en
+    pvt_cfg = pvt.config
+    pvt.config = dataclasses.replace(pvt_cfg, drop_path_rate=0.0)
+    rng = np.random.default_rng(SEED + 8)
+    one = seeded_batch(rng, 1, size, device)
+    one = dict(image=one["image1"], gt=one["gt"])
+    t0 = time.perf_counter()
+    cpu_model = copy.deepcopy(model).cpu()
+    loss_c, grads_c = _static_grads(model, one)
+    loss_p, grads_p = _static_grads(cpu_model, {k: v.cpu()
+                                                for k, v in one.items()})
+    cpu_s = time.perf_counter() - t0
+    pvt.config = pvt_cfg
+    del cpu_model
+    rel = abs(loss_c - loss_p) / max(abs(loss_p), 1e-30)
+    rels, worst = grad_relmax(grads_c, grads_p)
+    log(f"static loss card {loss_c:.7f} vs CPU {loss_p:.7f}: rel {rel:.3e} "
+        f"(tol {TRAIN_LOSS_RTOL}); grads over {len(rels)} leaves: worst "
+        f"relmax {worst[0][1]:.3e} (tol {SEG_GRAD_RTOL}); top: "
+        + ", ".join(f"{n}={r:.2e}" for n, r in worst)
+        + f"; CPU side took {cpu_s:.1f} s")
+    bad = [n for n, r in rels.items() if not r <= SEG_GRAD_RTOL]
+    if not rel <= TRAIN_LOSS_RTOL or bad:
+        raise AssertionError(f"static card disagrees with the CPU: loss rel "
+                             f"{rel:.3e}, leaves {bad[:8]}")
+
+    opt = ClampAdamW(model.parameters(), 1e-5, 1e-7, 0.5)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    batches = []
+    for _ in range(1 + timed):
+        b = seeded_batch(rng, batch, size, device)
+        batches.append(dict(image=b["image1"], gt=b["gt"]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    K.reset_launches()
+    times, losses = [], []
+    for i, b in enumerate(batches):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = static_train_step(model, opt, b, gen)
+        end.record()
+        torch.cuda.synchronize()
+        if i > 0:
+            times.append(start.elapsed_time(end))
+        losses.append(float(loss))
+    launches = dict(K.LAUNCHES)
+    want = {k: v * len(batches) for k, v in static_expected(model).items()}
+    log(f"static train launches {launches} (expected {want})")
+    if launches != want:
+        raise AssertionError(f"static launch counts {launches} != {want}")
+    still = [n for n, p in model.named_parameters()
+             if torch.equal(p.detach(), before[n])]
+    if still or not all(np.isfinite(losses)):
+        raise AssertionError(f"static steps: losses {losses}, leaves that "
+                             f"did not move {still[:8]}")
+    median_ms = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated(device)
+    per_step = {k: v // len(batches) for k, v in launches.items() if v}
+    log(f"static train b5 {size}^2 bs={batch} fp32: losses "
+        + " ".join(f"{v:.6f}" for v in losses)
+        + f"; median {median_ms:.3f} ms/step over {len(times)} steps -> "
+        f"{batch / (median_ms / 1e3):.3f} images/s; peak memory "
+        f"{peak / 2**30:.3f} GiB; launches per step {per_step}; "
+        f"{len(before)} leaves all moved")
+    del opt, model
+    return dict(loss_card=loss_c, loss_cpu=loss_p, loss_rel=rel,
+                leaves=len(rels), worst=worst, cpu_seconds=cpu_s,
+                launches=launches, expected=want, median_ms=median_ms,
+                step_ms=times, peak_bytes=peak, losses=losses)
+
+
+def _count_files(path: str, ext: str) -> int:
+    return sum(f.endswith(ext) for _, _, fs in os.walk(path) for f in fs)
+
+
+def entry_chain_phase(entry: dict, batch: int, size: int) -> dict:
+    """train -> test -> evaluate, the flow images and the static trainer,
+    each through its ``python -m`` entry point (in process), with TF32 on
+    before each call that runs a model and checked off after it (the
+    evaluator runs none: host numpy). On :func:`entry_phase`'s
+    root and checkpoint: ``emip_tpu_torch.test`` writes a PNG per pair;
+    ``emip_tpu_torch.eval_offline`` scores them (all 17 metrics finite and
+    in [0, 1]; ``frames - 2`` GT frames a video, MoCA's rule; S-measure,
+    wFm and MAE equal to the means of ``metrics.frame_scores`` on the same
+    files to 1e-12) and the GT against itself (S-measure 1, MAE 0, and
+    Dice and IoU 1 at their best threshold); ``emip_tpu_torch.test_of``
+    writes a JPG per pair. Then ``emip_tpu_torch.train_static`` takes one
+    epoch of 2 steps on a 16-image synthetic COD10K-style root at b5,
+    ``size``, ``batch``, writing a checkpoint and its log."""
+    import contextlib
+    import io
+    import re
+    import shutil
+
+    import yaml
+    from PIL import Image
+
+    from emip_tpu_torch.data import make_synthetic_static_root
+    from emip_tpu_torch.eval_offline import (
+        _METRIC_MODULES,
+        frame_exclusion,
+    )
+    from emip_tpu_torch.eval_offline import main as eval_main
+    from emip_tpu_torch.metrics import frame_scores
+    from emip_tpu_torch.test import main as test_main
+    from emip_tpu_torch.test_of import main as test_of_main
+    from emip_tpu_torch.train_static import main as static_main
+
+    work, root, cfg = entry["work"], entry["root"], entry["config"]
+    name = os.path.basename(os.path.normpath(root))
+    videos = sorted(os.listdir(root))
+    frames = {v: len(os.listdir(os.path.join(root, v, "GT"))) for v in videos}
+    pairs = sum(n - 1 for n in frames.values())
+    out, secs = {}, {}
+
+    def timed(label, fn, *args, runs_a_model=True):
+        if runs_a_model:
+            tf32_on()
+        t0 = time.perf_counter()
+        res = fn(*args)
+        secs[label] = time.perf_counter() - t0
+        if runs_a_model:
+            tf32_checked_off(f"entry python -m emip_tpu_torch.{label}")
+        return res
+
+    pred = os.path.join(work, "pred")
+    timed("test", test_main, ["--config", cfg, "--ckpt", entry["ckpt"],
+                              "--save_path", pred, "--data",
+                              f"{name}={root}"])
+    out["pngs"] = _count_files(os.path.join(pred, name), ".png")
+    metrics = list(_METRIC_MODULES)
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        scores = timed("eval_offline", eval_main, [
+            "--gt_root", os.path.dirname(root.rstrip(os.sep)), "--pred_root",
+            pred, "--data", name, "--metrics", *metrics, "--out",
+            os.path.join(work, "eval")], runs_a_model=False)[name]
+    printed = text.getvalue()
+    log(printed.rstrip())
+    scored = dict(re.findall(r"sequence (\S+): done \((\d+) frames\)",
+                             printed))
+    # the means of the training loop's per-frame scores over the same files
+    per_video = []
+    for v in videos:
+        gts = frame_exclusion(sorted(os.listdir(os.path.join(root, v, "GT"))),
+                              name)
+        per_video.append(np.mean([list(frame_scores(
+            np.asarray(Image.open(os.path.join(pred, name, v, g)).convert(
+                "L"), np.float64),
+            np.asarray(Image.open(os.path.join(root, v, "GT", g)).convert(
+                "L"), np.float64)).values()) for g in gts], axis=0))
+    wfm, sm, mae = np.mean(per_video, axis=0)
+    diffs = {"Smeasure": abs(scores["Smeasure"] - sm),
+             "wFmeasure": abs(scores["wFmeasure"] - wfm),
+             "MAE": abs(scores["MAE"] - mae)}
+    # the GT as its own prediction
+    self_pred = os.path.join(work, "gt_as_pred", name)
+    for v in videos:
+        shutil.copytree(os.path.join(root, v, "GT"),
+                        os.path.join(self_pred, v), dirs_exist_ok=True)
+    with contextlib.redirect_stdout(io.StringIO()):
+        self_scores = eval_main([
+            "--gt_root", os.path.dirname(root.rstrip(os.sep)), "--pred_root",
+            os.path.dirname(self_pred), "--data", name, "--metrics",
+            "Smeasure", "MAE", "meanDice", "maxDice", "meanIoU", "maxIoU",
+            "--out", os.path.join(work, "eval_self")])[name]
+    viz = os.path.join(work, "flow_viz")
+    out["jpgs"] = timed("test_of", test_of_main, [
+        "--config", cfg, "--ckpt", entry["ckpt"], "--data_root", root,
+        "--save_path", viz])
+    on_disk = _count_files(viz, ".jpg")
+
+    static_work = os.path.join(ROOT, "build", "chip_smoke_static")
+    static_root = make_synthetic_static_root(
+        os.path.join(static_work, "data"), num_images=2 * batch, seed=SEED)
+    static_cfg = os.path.join(static_work, "static.yaml")
+    with open(static_cfg, "w") as f:
+        yaml.safe_dump(dict(
+            train_dataset=dict(image_path=static_root, inp_size=size,
+                               batch_size=batch),
+            model=dict(args=dict(inp_size=size, backbone_name="pvt_v2_b5",
+                                 channel=32)),
+            optimizer=dict(lr=1.0e-5, weight_decay=1.0e-7), clip=0.5,
+            compute_dtype="float32", seed=SEED, epoch=2,
+            save_path=os.path.join(static_work, "run")), f)
+    static = timed("train_static", static_main, [
+        "--config", static_cfg, "--data_root", static_root,
+        "--max_steps_per_epoch", "2"])
+    static_dir = os.path.join(static_work, "run", "static")
+    static_ok = (static["steps"] == 2 and np.isfinite(static["last_loss"])
+                 and os.path.isfile(os.path.join(static_dir, "ckpt",
+                                                 "ckpt.pt"))
+                 and os.path.isfile(os.path.join(static_dir,
+                                                 "train_static_log.log")))
+
+    bad = []
+    if out["pngs"] != pairs:
+        bad.append(f"{out['pngs']} PNGs for {pairs} pairs")
+    if not all(np.isfinite(x) and 0.0 <= x <= 1.0 for x in scores.values()):
+        bad.append(f"scores {scores}")
+    if scored != {v: str(frames[v] - 2) for v in videos}:
+        bad.append(f"frames scored {scored}, GT frames {frames}")
+    if max(diffs.values()) > 1e-12:
+        bad.append(f"evaluator against frame_scores {diffs}")
+    if not (abs(self_scores["Smeasure"] - 1) < 1e-9
+            and self_scores["MAE"] == 0.0 and self_scores["maxDice"] == 1.0
+            and self_scores["maxIoU"] == 1.0):
+        bad.append(f"GT against itself {self_scores}")
+    if not out["jpgs"] == on_disk == pairs:
+        bad.append(f"{out['jpgs']} flow images ({on_disk} on disk) for "
+                   f"{pairs} pairs")
+    if not static_ok:
+        bad.append(f"static trainer {static}")
+    log(f"entry chain python -m emip_tpu_torch.test: {out['pngs']} PNGs "
+        f"({secs['test']:.1f} s); eval_offline over {len(metrics)} metrics "
+        f"({secs['eval_offline']:.1f} s): "
+        + ", ".join(f"{k} {v:.6f}" for k, v in scores.items())
+        + f"; frames scored {scored}; |evaluator - frame_scores| "
+        + ", ".join(f"{k} {v:.1e}" for k, v in diffs.items())
+        + "; GT against itself " + ", ".join(
+            f"{k} {v:.6f}" for k, v in self_scores.items())
+        + f"; test_of: {out['jpgs']} JPGs ({secs['test_of']:.1f} s); "
+        f"train_static: {static['steps']} steps, loss "
+        f"{static['last_loss']:.6f}, checkpoint and log "
+        f"{'written' if static_ok else 'MISSING'} "
+        f"({secs['train_static']:.1f} s) {'FAILED' if bad else 'ok'}")
+    if bad:
+        raise AssertionError(f"entry chain failed: {bad}")
+    return dict(scores=scores, self_scores=self_scores, frames=scored,
+                frame_scores_diff=diffs, seconds=secs, static=static, **out)
 
 
 # ----------------------------------------------------------- long model
@@ -2129,11 +2471,7 @@ def long_train_compare_phase(model, size: int, device,
     rel = abs(loss_c - loss_p) / max(abs(loss_p), 1e-30)
     log(f"{label} loss card {loss_c:.7f} vs CPU {loss_p:.7f}: rel "
         f"{rel:.3e} (tol {TRAIN_LOSS_RTOL})")
-    scale = max(g.abs().max().item() for g in grads_p.values())
-    rels = {n: (grads_c[n] - grads_p[n]).abs().max().item()
-            / max(grads_p[n].abs().max().item(), 1e-6 * scale)
-            for n in grads_p}
-    worst = sorted(rels.items(), key=lambda kv: -kv[1])[:5]
+    rels, worst = grad_relmax(grads_c, grads_p)
     log(f"{label} head grads card vs CPU over {len(rels)} leaves: worst "
         f"relmax {worst[0][1]:.3e} (tol {SEG_GRAD_RTOL}); top: "
         + ", ".join(f"{n}={r:.2e}" for n, r in worst)
@@ -2230,7 +2568,7 @@ def long_entry_phase(size: int) -> dict:
     process) on a synthetic root that the port writes: b5 at 352^2, one
     epoch over 2 videos x 3 frames (4 per-frame steps), validation,
     checkpoints; then streaming prediction of both videos from the
-    checkpoint."""
+    checkpoint. TF32 is on before each call and must be off after it."""
     import yaml
 
     from emip_tpu_torch.data import make_synthetic_video_root
@@ -2253,16 +2591,20 @@ def long_entry_phase(size: int) -> dict:
     cfg_path = os.path.join(work, "long.yaml")
     with open(cfg_path, "w") as f:
         yaml.safe_dump(cfg, f)
+    tf32_on()
     t0 = time.perf_counter()
     summary = train_long_main(["--config", cfg_path,
                                "--max_frames_per_video", "3"])
     t1 = time.perf_counter()
+    tf32_checked_off("entry python -m emip_tpu_torch.train_long")
     ckpt = os.path.join(work, "run", "ckpt_long")
     pred = os.path.join(work, "pred")
+    tf32_on()
     frames = test_long_main(["--config", cfg_path, "--ckpt", ckpt,
                              "--save_path", pred, "--data",
                              f"MoCA_test={root}"])
     t2 = time.perf_counter()
+    tf32_checked_off("entry python -m emip_tpu_torch.test_long")
     pngs = sum(f.endswith(".png") for _, _, fs in os.walk(pred) for f in fs)
     ok = (summary["steps"] == 4 and 0.0 <= summary["best_sm"] <= 1.0
           and os.path.exists(os.path.join(ckpt, "ckpt.pt"))
@@ -2455,6 +2797,10 @@ def main(argv=None) -> int:
     del model
     torch.cuda.empty_cache()
     entry_res = entry_phase(BATCH, SIZE)
+    static_res = static_phase(BATCH, SIZE, device, STATIC_TIMED)
+    torch.cuda.empty_cache()
+    chain_res = entry_chain_phase(entry_res, BATCH, SIZE)
+    torch.cuda.empty_cache()
 
     from emip_tpu_torch.models.emip_long import EMIPLong
 
@@ -2520,7 +2866,8 @@ def main(argv=None) -> int:
                        kernels=kernels,
                        slice=slice_res,
                        train=train_res, train_compare=compare_res,
-                       entry=entry_res, long_infer=long_infer,
+                       entry=entry_res, static=static_res,
+                       entry_chain=chain_res, long_infer=long_infer,
                        long_train_compare=long_compare,
                        long_train=long_train, long_entry=long_entry,
                        read_corr=read_corr, fused_ffn=fused_ffn,

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 __all__ = ["state_dict_from_flax", "state_dict_from_flax_long",
+           "state_dict_from_flax_seg",
            "normalize_reference_keys", "load_torch_weights",
            "load_configured_weights", "SHORT_LOAD", "LONG_LOAD"]
 
@@ -309,6 +310,24 @@ def state_dict_from_flax(variables: dict, depths=(3, 6, 40, 3),
         o.conv("upscaling4.3", "upscaling4_conv1", transpose=True)
         o.conv("upscaling3.0", "upscaling3_conv", transpose=True)
         o.ln("upscaling3.1", "upscaling3_ln")
+    return _as_tensors(o.sd)
+
+
+def state_dict_from_flax_seg(variables: dict, depths=(3, 6, 40, 3)
+                             ) -> dict[str, torch.Tensor]:
+    """JAX ``SegNetwork`` variables -> :class:`SegNetwork` ``state_dict``.
+
+    The flax module names its backbone itself (``PVTv2_0``): the one
+    top-level entry that is not ``dr1``-``dr3`` or ``decoder``.
+    """
+    params = variables["params"]
+    o = _Out(params, variables.get("batch_stats", {}))
+    heads = ("dr1", "dr2", "dr3", "decoder")
+    (backbone,) = [k for k in params if k not in heads]
+    _pvt_into(o, backbone, depths)
+    for dr in heads[:3]:
+        o.dimred(dr, dr)
+    _decoder_into(o, "decoder", "decoder")
     return _as_tensors(o.sd)
 
 

@@ -1,5 +1,5 @@
-"""Frame-pair and whole-clip listing, loading, augmentation and synthetic
-data (no jax).
+"""Frame-pair, whole-clip and static-image listing, loading, augmentation,
+precomputed-flow files and synthetic data (no jax).
 
 Same directory rules as :mod:`emip_tpu.data.manifest` (which cannot be
 imported without jax, because its package imports the JAX pipeline):
@@ -14,8 +14,11 @@ pseudo-labeled MoCA. Preprocessing matches the JAX loader: PIL bilinear
 resize to the square input size, [0, 1] scaling, ImageNet normalization;
 GT resized the same way without normalization. The training
 augmentations are those of :mod:`emip_tpu.data.augment` (joint rotation,
-colour jitter, salt-and-pepper GT noise), seeded per item. Arrays are
-NHWC numpy, as the JAX loaders yield them. PIL is imported lazily.
+horizontal / vertical flips and centre crop, colour jitter,
+salt-and-pepper GT noise), seeded per item. Static-image pretraining reads
+a flat COD10K-style tree (``<root>/Imgs/*.jpg`` + ``<root>/GT/*.png``,
+:class:`StaticImageLoader`). Arrays are NHWC numpy, as the JAX loaders
+yield them. PIL is imported lazily.
 """
 
 from __future__ import annotations
@@ -33,7 +36,9 @@ from emip_tpu_torch.ops.image import IMAGENET_MEAN, IMAGENET_STD
 
 __all__ = ["PairItem", "ClipItem", "frames_subdir", "scan_pairs",
            "scan_clips", "load_frame", "PairTrainLoader", "PairEvalLoader",
-           "ClipLoader", "make_synthetic_video_root"]
+           "ClipLoader", "StaticImageLoader", "read_flo", "write_flo",
+           "PairFlowLoader", "make_synthetic_video_root",
+           "make_synthetic_static_root"]
 
 _IMG_EXT = (".jpg", ".png")
 _GT_EXT = (".png", ".tif")
@@ -188,23 +193,69 @@ def _salt_pepper(rng: random.Random, mask, ratio: float = 0.0015):
     return Image.fromarray(arr)
 
 
+def _joint_hflip(rng: random.Random, images):
+    from PIL import Image
+
+    if rng.randint(0, 1) == 1:
+        images = [im.transpose(Image.FLIP_LEFT_RIGHT) for im in images]
+    return images
+
+
+def _joint_vflip(rng: random.Random, images):
+    from PIL import Image
+
+    if rng.randint(0, 1) == 1:
+        images = [im.transpose(Image.FLIP_TOP_BOTTOM) for im in images]
+    return images
+
+
+def _joint_random_crop(rng: random.Random, images, border: int = 30):
+    """One centred crop of all images, each side up to ``border`` pixels
+    shorter (the reference's flip-augmented dataset, dataset_aug.py)."""
+    w, h = images[0].size
+    cw = rng.randint(w - border, w - 1) if w > border else w
+    ch = rng.randint(h - border, h - 1) if h > border else h
+    region = ((w - cw) >> 1, (h - ch) >> 1, (w + cw) >> 1, (h + ch) >> 1)
+    return [im.crop(region) for im in images]
+
+
+def _epoch_batches(n_items: int, batch_size: int, seed: int, epoch: int,
+                   drop_remainder: bool = True) -> list[list[int]]:
+    """The epoch's shuffled item order cut into batches (a short last one
+    dropped unless ``drop_remainder`` is off), as the JAX loaders do."""
+    order = list(range(n_items))
+    random.Random(f"{seed}:{epoch}").shuffle(order)
+    batches = [order[i:i + batch_size]
+               for i in range(0, len(order), batch_size)]
+    return [b for b in batches
+            if len(b) == batch_size or not drop_remainder]
+
+
+def _item_rngs(seed: int, epoch: int, bi: int, n: int) -> list:
+    """One ``random.Random`` per item of batch ``bi``."""
+    return [random.Random(f"{seed}:{epoch}:{bi}:{j}") for j in range(n)]
+
+
 class PairTrainLoader:
     """Shuffled, augmented, batched frame-pair loader with prefetch.
 
     Yields dicts of NHWC numpy arrays: ``image1``, ``image2`` [B, S, S, 3]
     and ``gt`` [B, S, S, 1]; the last short batch is dropped. Shuffling and
     augmentation are seeded by (seed, epoch, batch, item), as in the JAX
-    loader.
+    loader. ``flip_augment`` adds the joint horizontal and vertical flips
+    of the reference's flip-augmented dataset after the rotation.
     """
 
     def __init__(self, images_root: str, gts_root: str, batch_size: int,
                  size: int = 352, dataset_type: str = "MoCA",
-                 seed: int = 123, augment: bool = True):
+                 seed: int = 123, augment: bool = True,
+                 flip_augment: bool = False):
         self.items = scan_pairs(images_root, dataset_type, gts_root)
         self.batch_size = batch_size
         self.size = size
         self.seed = seed
         self.augment = augment
+        self.flip_augment = flip_augment
         self.epoch = 0
 
     def __len__(self):
@@ -215,6 +266,9 @@ class PairTrainLoader:
         gt = _open(item.gt, "L")
         if self.augment:
             img1, img2, gt = _joint_rotation(rng, [img1, img2, gt])
+            if self.flip_augment:
+                img1, img2, gt = _joint_hflip(rng, [img1, img2, gt])
+                img1, img2, gt = _joint_vflip(rng, [img1, img2, gt])
             img1 = _color_jitter(rng, img1)
             img2 = _color_jitter(rng, img2)
             gt = _salt_pepper(rng, gt)
@@ -224,11 +278,8 @@ class PairTrainLoader:
 
     def __iter__(self):
         self.epoch += 1
-        order = list(range(len(self.items)))
-        random.Random(f"{self.seed}:{self.epoch}").shuffle(order)
-        batches = [order[i:i + self.batch_size]
-                   for i in range(0, len(order), self.batch_size)]
-        batches = [b for b in batches if len(b) == self.batch_size]
+        batches = _epoch_batches(len(self.items), self.batch_size, self.seed,
+                                 self.epoch)
         out: queue.Queue = queue.Queue(maxsize=_PREFETCH)
         done = object()
         stop = threading.Event()
@@ -238,8 +289,7 @@ class PairTrainLoader:
                 for bi, idxs in enumerate(batches):
                     if stop.is_set():
                         break
-                    rngs = [random.Random(f"{self.seed}:{self.epoch}:{bi}:{j}")
-                            for j in range(len(idxs))]
+                    rngs = _item_rngs(self.seed, self.epoch, bi, len(idxs))
                     res = list(pool.map(
                         lambda a: self._load_one(self.items[a[0]], a[1]),
                         zip(idxs, rngs)))
@@ -336,6 +386,143 @@ class ClipLoader:
             yield self.load_clip(self.clips[i])
 
 
+class StaticImageLoader:
+    """Flat image / GT loader of static-image pretraining.
+
+    COD10K-style tree: ``<root>/Imgs/*.jpg`` (or ``Image/``, ``Images/``)
+    and ``<root>/GT/<stem>.png``; an image without its GT is left out.
+    Yields dicts of NHWC numpy arrays, ``image`` [B, S, S, 3] (normalized)
+    and ``gt`` [B, S, S, 1] in [0, 1]. Shuffling and augmentation (joint
+    rotation, joint horizontal flip, colour jitter, GT salt-and-pepper)
+    are seeded by (seed, epoch, batch, item), so the batches are those of
+    :class:`emip_tpu.data.pipeline.StaticImageLoader` bit for bit. With
+    ``drop_remainder`` off, the last short batch is kept. ``shard`` (the
+    JAX loader's per-process slice) waits for the port's multi-card
+    training: only ``None`` is accepted.
+    """
+
+    def __init__(self, root: str, batch_size: int, size: int = 352,
+                 seed: int = 123, augment: bool = True,
+                 drop_remainder: bool = True, shard=None):
+        if shard is not None:
+            raise NotImplementedError("the port trains on one card: "
+                                      "shard must be None")
+        img_dir = next((os.path.join(root, c) for c in
+                        ("Imgs", "Image", "Images")
+                        if os.path.isdir(os.path.join(root, c))), None)
+        if img_dir is None:
+            raise FileNotFoundError(f"no Imgs/, Image/ or Images/ under "
+                                    f"{root}")
+        self.items = []
+        for img in _list(img_dir, _IMG_EXT):
+            gt = os.path.join(root, "GT", _stem(img) + ".png")
+            if os.path.isfile(gt):
+                self.items.append((img, gt))
+        self.batch_size = batch_size
+        self.size = size
+        self.seed = seed
+        self.augment = augment
+        self.drop_remainder = drop_remainder
+        self.epoch = 0
+
+    def __len__(self):
+        n, rest = divmod(len(self.items), self.batch_size)
+        return n + int(bool(rest) and not self.drop_remainder)
+
+    def _load_one(self, idx: int, rng: random.Random):
+        img_path, gt_path = self.items[idx]
+        img, gt = _open(img_path, "RGB"), _open(gt_path, "L")
+        if self.augment:
+            img, gt = _joint_rotation(rng, [img, gt])
+            img, gt = _joint_hflip(rng, [img, gt])
+            img = _color_jitter(rng, img)
+            gt = _salt_pepper(rng, gt)
+        return _to_norm_array(img, self.size), _to_mask_array(gt, self.size)
+
+    def __iter__(self):
+        self.epoch += 1
+        batches = _epoch_batches(len(self.items), self.batch_size, self.seed,
+                                 self.epoch, self.drop_remainder)
+        with ThreadPoolExecutor(_WORKERS) as pool:
+            for bi, idxs in enumerate(batches):
+                rngs = _item_rngs(self.seed, self.epoch, bi, len(idxs))
+                res = list(pool.map(lambda a: self._load_one(*a),
+                                    zip(idxs, rngs)))
+                yield dict(image=np.stack([r[0] for r in res]),
+                           gt=np.stack([r[1] for r in res]))
+
+
+# ------------------------------------------------- precomputed flow files
+
+_FLO_MAGIC = 202021.25
+
+
+def read_flo(path: str) -> np.ndarray:
+    """Middlebury ``.flo`` -> [H, W, 2] float32 (x, y)."""
+    with open(path, "rb") as f:
+        magic = np.fromfile(f, np.float32, 1)[0]
+        if magic != np.float32(_FLO_MAGIC):
+            raise ValueError(f"{path}: bad .flo magic {magic}")
+        w = int(np.fromfile(f, np.int32, 1)[0])
+        h = int(np.fromfile(f, np.int32, 1)[0])
+        data = np.fromfile(f, np.float32, 2 * w * h)
+    return data.reshape(h, w, 2)
+
+
+def write_flo(path: str, flow: np.ndarray) -> None:
+    """[H, W, 2] flow -> Middlebury ``.flo`` (float32)."""
+    h, w, c = flow.shape
+    if c != 2:
+        raise ValueError(f"flow has {c} channels, not 2")
+    with open(path, "wb") as f:
+        np.float32(_FLO_MAGIC).tofile(f)
+        np.int32(w).tofile(f)
+        np.int32(h).tofile(f)
+        flow.astype(np.float32).tofile(f)
+
+
+class PairFlowLoader:
+    """Frame pairs with their precomputed flow, in order (counterpart of
+    :class:`emip_tpu.data.flow_files.PairFlowLoader`, the reference's
+    ``dataset/dataset_flow_jpg.py``).
+
+    The flow of a pair is ``<video>/Flow/<frame>.flo`` (``flow``, [H, W, 2]
+    float32) or a colour-wheel ``.jpg`` / ``.png`` (``flow_rgb``, uint8
+    RGB); a pair without one yields neither key.
+    """
+
+    def __init__(self, images_root: str, gts_root: str, size: int = 352,
+                 dataset_type: str = "MoCA"):
+        self.items = scan_pairs(images_root, dataset_type, gts_root)
+        self.size = size
+
+    @staticmethod
+    def _flow_path(item: PairItem) -> str | None:
+        flow_dir = os.path.join(os.path.dirname(os.path.dirname(item.image1)),
+                                "Flow")
+        for ext in (".flo", ".jpg", ".png"):
+            p = os.path.join(flow_dir, item.frame_name + ext)
+            if os.path.isfile(p):
+                return p
+        return None
+
+    def __len__(self):
+        return len(self.items)
+
+    def __iter__(self):
+        for item in self.items:
+            rec = dict(image1=load_frame(item.image1, self.size)[0],
+                       image2=load_frame(item.image2, self.size)[0],
+                       gt=_to_mask_array(_open(item.gt, "L"), self.size),
+                       video=item.video, frame_name=item.frame_name)
+            fp = self._flow_path(item)
+            if fp is not None and fp.endswith(".flo"):
+                rec["flow"] = read_flo(fp)
+            elif fp is not None:
+                rec["flow_rgb"] = np.asarray(_open(fp, "RGB"), np.uint8)
+            yield rec
+
+
 # ------------------------------------------------------------ synthetic
 
 
@@ -373,3 +560,32 @@ def make_synthetic_video_root(root: str, num_videos: int = 2,
             cy = int(np.clip(cy + dy, r, h - r - 1))
             cx = int(np.clip(cx + dx, r, w - r - 1))
     return root if root.endswith(os.sep) else root + os.sep
+
+
+def make_synthetic_static_root(root: str, num_images: int = 8,
+                               size: tuple[int, int] = (96, 128),
+                               seed: int = 0) -> str:
+    """A COD10K-style flat ``Imgs/`` + ``GT/`` tree of random backgrounds,
+    each with one bright blob. Counterpart of
+    :func:`emip_tpu.data.synthetic.make_synthetic_static_root` (the same
+    files for the same seed); returns ``root``."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    h, w = size
+    img_dir = os.path.join(root, "Imgs")
+    gt_dir = os.path.join(root, "GT")
+    os.makedirs(img_dir, exist_ok=True)
+    os.makedirs(gt_dir, exist_ok=True)
+    yy, xx = np.mgrid[0:h, 0:w]
+    for i in range(num_images):
+        bg = rng.integers(0, 255, (h, w, 3), np.uint8)
+        cy, cx, r = rng.integers(15, h - 15), rng.integers(15, w - 15), 10
+        blob = ((yy - cy) ** 2 + (xx - cx) ** 2) <= r * r
+        frame = bg.copy()
+        frame[blob] = (230, 230, 230)
+        Image.fromarray(frame).save(os.path.join(img_dir, f"im_{i:04d}.jpg"),
+                                    quality=95)
+        Image.fromarray((blob * 255).astype(np.uint8)).save(
+            os.path.join(gt_dir, f"im_{i:04d}.png"))
+    return root

@@ -11,7 +11,6 @@ on the GPU unless the caller names another device.
 
 from __future__ import annotations
 
-import functools
 import os
 from concurrent.futures import ThreadPoolExecutor
 
@@ -20,6 +19,7 @@ import torch
 
 from emip_tpu_torch.data import ClipLoader, load_frame, scan_pairs
 from emip_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from emip_tpu_torch.ops.image import linear_weights_np
 
 __all__ = ["predict_arrays", "predict_pairs", "predict_clips_long",
            "postprocess_to_png"]
@@ -33,30 +33,12 @@ def predict_arrays(model, img1: torch.Tensor, img2: torch.Tensor):
     return mask, flow_fw[-1]
 
 
-@functools.lru_cache(maxsize=64)
-def _linear_weights(in_size: int, out_size: int) -> np.ndarray:
-    """[out, in] 1-D bilinear weights, align_corners=False (torch rule)."""
-    w = np.zeros((out_size, in_size), dtype=np.float32)
-    if in_size == 1:
-        w[:, 0] = 1.0
-        return w
-    src = (np.arange(out_size, dtype=np.float64) + 0.5) * (in_size / out_size)
-    src = np.clip(src - 0.5, 0.0, in_size - 1)
-    lo = np.floor(src).astype(np.int64)
-    hi = np.minimum(lo + 1, in_size - 1)
-    frac = (src - lo).astype(np.float32)
-    rows = np.arange(out_size)
-    np.add.at(w, (rows, lo), 1.0 - frac)
-    np.add.at(w, (rows, hi), frac)
-    return w
-
-
 def postprocess_to_png(logits_hw: np.ndarray, orig_hw, path: str) -> None:
     """logits [h, w] -> bilinear resize -> sigmoid -> min-max -> PNG."""
     from PIL import Image
 
-    wh = _linear_weights(logits_hw.shape[0], int(orig_hw[0]))
-    ww = _linear_weights(logits_hw.shape[1], int(orig_hw[1]))
+    wh = linear_weights_np(logits_hw.shape[0], int(orig_hw[0]))
+    ww = linear_weights_np(logits_hw.shape[1], int(orig_hw[1]))
     up = np.einsum("ph,hw->pw", wh, logits_hw.astype(np.float32))
     up = np.einsum("qw,pw->pq", ww, up)
     pred = 1.0 / (1.0 + np.exp(-up))

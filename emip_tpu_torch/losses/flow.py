@@ -24,7 +24,8 @@ import torch.nn.functional as F
 from emip_tpu_torch.ops.image import resize_area, resize_nearest
 from emip_tpu_torch.ops.warp import flow_warp_loss, occlusion_mask_backward
 
-__all__ = ["UnsupFlowLossConfig", "unsup_flow_loss", "ssim_distance"]
+__all__ = ["UnsupFlowLossConfig", "unsup_flow_loss",
+           "unsup_flow_loss_decay", "ssim_distance"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,3 +108,17 @@ def unsup_flow_loss(flows: Sequence[tuple[torch.Tensor, torch.Tensor]],
     warp_loss = sum(warp_losses)
     mean_abs = torch.mean(torch.cat([flows[0][0], flows[0][1]], dim=-1).abs())
     return warp_loss, warp_loss, mean_abs
+
+
+def unsup_flow_loss_decay(flows: Sequence[tuple[torch.Tensor, torch.Tensor]],
+                          im1: torch.Tensor, im2: torch.Tensor,
+                          gamma: float = 0.8,
+                          cfg: UnsupFlowLossConfig = UnsupFlowLossConfig()):
+    """RAFT-style variant: prediction i of n weighs gamma^(n-1-i), so later
+    predictions weigh more (the reference's unused ``unFlowLoss_decay``,
+    loss/loss_flow.py:144-276). Returns what :func:`unsup_flow_loss`
+    does."""
+    n = len(flows)
+    decayed = dataclasses.replace(cfg, w_scales=tuple(
+        gamma ** (n - 1 - i) * s for i, s in zip(range(n), cfg.w_scales)))
+    return unsup_flow_loss(flows, im1, im2, decayed)

@@ -13,8 +13,10 @@ import torch.nn.functional as F
 
 from emip_tpu_torch.ops.image import resize_bilinear
 
-__all__ = ["ConvBR", "DimensionalReduction", "NeighborConnectionDecoder",
-           "LayerNorm2d"]
+__all__ = ["ConvBR", "BasicConv2d", "DimensionalReduction",
+           "NeighborConnectionDecoder", "LayerNorm2d", "pixel_shuffle",
+           "pixel_unshuffle", "PixelShuffleDownsample",
+           "PixelShuffleUpsample"]
 
 
 class ConvBR(nn.Module):
@@ -29,6 +31,25 @@ class ConvBR(nn.Module):
 
     def forward(self, x):
         return F.relu(self.bn(self.conv(x)))
+
+
+class BasicConv2d(nn.Module):
+    """Conv (no bias) + BatchNorm, then ReLU with ``with_relu``: the
+    reference's two same-named blocks (create_backbone.py:7-19 without the
+    ReLU, model.py:137-150 with it)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
+                 stride: int = 1, padding: int = 0, dilation: int = 1,
+                 with_relu: bool = False):
+        super().__init__()
+        self.conv = nn.Conv2d(in_ch, out_ch, kernel_size, stride=stride,
+                              padding=padding, dilation=dilation, bias=False)
+        self.bn = nn.BatchNorm2d(out_ch, eps=1e-5)
+        self.with_relu = with_relu
+
+    def forward(self, x):
+        x = self.bn(self.conv(x))
+        return F.relu(x) if self.with_relu else x
 
 
 class DimensionalReduction(nn.Module):
@@ -95,3 +116,38 @@ class LayerNorm2d(nn.Module):
         var = (x - mu).pow(2).mean(1, keepdim=True)
         x = (x - mu) / torch.sqrt(var + self.eps)
         return x * self.weight[:, None, None] + self.bias[:, None, None]
+
+
+def pixel_shuffle(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """NCHW [B, C*r^2, H, W] -> [B, C, H*r, W*r] (``nn.PixelShuffle``)."""
+    return F.pixel_shuffle(x, factor)
+
+
+def pixel_unshuffle(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """NCHW [B, C, H*r, W*r] -> [B, C*r^2, H, W] (``nn.PixelUnshuffle``)."""
+    return F.pixel_unshuffle(x, factor)
+
+
+class PixelShuffleDownsample(nn.Module):
+    """3x3 conv (C -> C/2, no bias) then pixel-unshuffle by 2: half the
+    size, twice the channels. An alternate the reference defines and never
+    builds (model.py:14-22)."""
+
+    def __init__(self, n_feat: int):
+        super().__init__()
+        self.conv = nn.Conv2d(n_feat, n_feat // 2, 3, padding=1, bias=False)
+
+    def forward(self, x):
+        return pixel_unshuffle(self.conv(x), 2)
+
+
+class PixelShuffleUpsample(nn.Module):
+    """3x3 conv (C -> 2C, no bias) then pixel-shuffle by 2: twice the
+    size, half the channels (model.py:24-31, never built there either)."""
+
+    def __init__(self, n_feat: int):
+        super().__init__()
+        self.conv = nn.Conv2d(n_feat, 2 * n_feat, 3, padding=1, bias=False)
+
+    def forward(self, x):
+        return pixel_shuffle(self.conv(x), 2)

@@ -15,6 +15,9 @@ the modules it checkpoints but never runs (``dr2_new``, ``dr3_new``,
 PVT backbone takes stochastic depth from the ``generator`` passed to
 :meth:`EMIPShort.forward`, BatchNorm uses batch statistics, and the flow
 engine also returns its pre-propagation flow.
+
+:class:`SegNetwork` is the segmentation stream alone (backbone, three
+dimensional reductions, NCD), the model of static-image pretraining.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ from emip_tpu_torch.models.gmflow import GMFlow, GMFlowConfig
 from emip_tpu_torch.models.prompt import Injector
 from emip_tpu_torch.models.pvt_v2 import PVTv2Config
 
-__all__ = ["EMIPShortConfig", "EMIPShort"]
+__all__ = ["EMIPShortConfig", "EMIPShort", "SegNetwork"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,3 +157,40 @@ class EMIPShort(nn.Module):
     def forward(self, image1, image2, generator=None):
         out = self.forward_full(image1, image2, generator)
         return out["mask"], out["flow_fw"], out["flow_bw"]
+
+
+class SegNetwork(nn.Module):
+    """Static-image segmentation network: PVTv2 backbone, one
+    ``DimensionalReduction`` per stage at /8, /16, /32 (``dr1``, ``dr2``,
+    ``dr3``) and the NCD (``decoder``), giving logits [B, 1, H, W] at the
+    input size.
+
+    Counterpart of :class:`emip_tpu.models.emip_short.SegNetwork`, the
+    model of the reference's COD10K pretraining (its ``Network``,
+    create_backbone.py:183-196), with the JAX package's two deliberate
+    fixes: the decoder is fed through the reductions (the reference wires
+    the raw 128 / 320 / 512-channel features into a 32-channel decoder,
+    which cannot run), and ``Decoder.forward``'s extra x8 upsample (2816²
+    outputs at 352²) is dropped. The keys are :class:`EMIPShort`'s
+    (``backbone.feat_net.pvtv2_en``, ``dr1``-``dr3``, ``decoder``), so a
+    pretrained checkpoint loads into the two-stream model through the
+    config's ``load.path``. In train mode drop path draws from the
+    ``generator`` passed to :meth:`forward`.
+    """
+
+    def __init__(self, backbone_name: str | PVTv2Config = "pvt_v2_b5",
+                 channel: int = 32, fused_ffn: str | None = None,
+                 ffn_dwconv: str | None = None):
+        super().__init__()
+        pvt, ch = create_backbone(backbone_name, fused_ffn=fused_ffn,
+                                  ffn_dwconv=ffn_dwconv)
+        self.backbone = _SegBackbone(pvt)
+        self.dr1 = DimensionalReduction(ch[-3], channel)
+        self.dr2 = DimensionalReduction(ch[-2], channel)
+        self.dr3 = DimensionalReduction(ch[-1], channel)
+        self.decoder = NeighborConnectionDecoder(channel)
+
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        stages = self.backbone(x, generator)
+        return self.decoder(self.dr3(stages[-1]), self.dr2(stages[-2]),
+                            self.dr1(stages[-3]))

@@ -13,7 +13,7 @@ from emip_tpu_torch.kernels import splat_density
 from emip_tpu_torch.ops.geometry import bilinear_sample, coords_grid
 
 __all__ = ["flow_warp_loss", "forward_splat_density",
-           "occlusion_mask_backward"]
+           "occlusion_mask_backward", "occlusion_mask_bidirection"]
 
 
 def flow_warp_loss(x: torch.Tensor, flow12: torch.Tensor,
@@ -43,3 +43,17 @@ def occlusion_mask_backward(flow21: torch.Tensor,
     grid = coords_grid(h, w, device=flow21.device, dtype=flow21.dtype)[None]
     density = forward_splat_density(grid + flow21.detach())
     return (torch.clamp(density, 0.0, 1.0) < th).float()[..., None]
+
+
+def occlusion_mask_bidirection(flow12: torch.Tensor, flow21: torch.Tensor,
+                               scale: float = 0.01,
+                               bias: float = 0.5) -> torch.Tensor:
+    """Forward-backward consistency occlusion mask, float [N, H, W, 1]:
+    occluded where |flow12 + warped flow21|^2 > scale * (|flow12|^2 +
+    |warped flow21|^2) + bias (reference loss/warp_utils.py:96-103)."""
+    flow21_warped = flow_warp_loss(flow21, flow12, pad="zeros")
+    diff = flow12 + flow21_warped
+    mag = ((flow12 * flow12).sum(-1, keepdim=True)
+           + (flow21_warped * flow21_warped).sum(-1, keepdim=True))
+    occ = (diff * diff).sum(-1, keepdim=True) > scale * mag + bias
+    return occ.float()

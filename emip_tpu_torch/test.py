@@ -23,7 +23,7 @@ from __future__ import annotations
 import argparse
 import os
 
-__all__ = ["parse_args", "main"]
+__all__ = ["parse_args", "load_short_model", "main"]
 
 
 def parse_args(argv=None):
@@ -42,29 +42,35 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def main(argv=None):
+def load_short_model(cfg, ckpt, device):
+    """The eval-mode ``EMIPShort`` of ``cfg`` on ``device``: seeded
+    weights, then the config's ``load`` block, then ``<ckpt>/ckpt.pt``
+    when ``ckpt`` names a directory."""
     import torch
 
-    from emip_tpu_torch.config import load_config
     from emip_tpu_torch.convert import SHORT_LOAD, load_configured_weights
-    from emip_tpu_torch.device import resolve_device
-    from emip_tpu_torch.infer import predict_pairs
     from emip_tpu_torch.models.emip_short import EMIPShort
     from emip_tpu_torch.models.init import seeded_init_
     from emip_tpu_torch.train.loops import CKPT_NAME
 
+    model = seeded_init_(EMIPShort(cfg.model), cfg.seed)
+    load_configured_weights(model, cfg.load, SHORT_LOAD)
+    if ckpt:
+        state = torch.load(os.path.join(ckpt, CKPT_NAME), map_location="cpu")
+        model.load_state_dict(state["model"])
+        print(f">>> restored checkpoint epoch {state['epoch']} from {ckpt}")
+    return model.to(device).eval()
+
+
+def main(argv=None):
+    from emip_tpu_torch.config import load_config
+    from emip_tpu_torch.device import resolve_device
+    from emip_tpu_torch.infer import predict_pairs
+
     args = parse_args(argv)
     device = resolve_device(args.device)
     cfg = load_config(args.config)
-    model = seeded_init_(EMIPShort(cfg.model), cfg.seed)
-    load_configured_weights(model, cfg.load, SHORT_LOAD)
-    if args.ckpt:
-        state = torch.load(os.path.join(args.ckpt, CKPT_NAME),
-                           map_location="cpu")
-        model.load_state_dict(state["model"])
-        print(f">>> restored checkpoint epoch {state['epoch']} from "
-              f"{args.ckpt}")
-    model = model.to(device).eval()
+    model = load_short_model(cfg, args.ckpt, device)
 
     datasets = {}
     if args.data:

@@ -42,17 +42,19 @@ def main(argv=None):
     import torch
 
     from emip_tpu_torch.config import load_config
+    from emip_tpu_torch.device import resolve_device
     from emip_tpu_torch.infer import predict_clips_long
     from emip_tpu_torch.train.long import build_long_model
     from emip_tpu_torch.train.loops import CKPT_NAME
 
     args = parse_args(argv)
+    device = resolve_device(args.device)
     cfg = load_config(args.config)
     # seeded weights, then load.long_path where it exists
-    model, _ = build_long_model(cfg, device=args.device)
+    model, _ = build_long_model(cfg, device=device)
     if args.ckpt:
         state = torch.load(os.path.join(args.ckpt, CKPT_NAME),
-                           map_location=args.device)
+                           map_location=device)
         model.load_state_dict(state["model"])
         print(f">>> restored long checkpoint epoch {state['epoch']}")
     model.eval()
@@ -69,12 +71,12 @@ def main(argv=None):
     for name, root in datasets.items():
         out = os.path.join(args.save_path, name)
         print(f">>> long inference {name} from {root} -> {out} on "
-              f"{args.device}")
+              f"{device}")
         frames += predict_clips_long(
             model, root, out, size=cfg.val_dataset.inp_size,
             dataset_type=(name if "CAD" in name
                           else cfg.val_dataset.dataset_type),
-            device=args.device)
+            device=device)
     return frames
 
 

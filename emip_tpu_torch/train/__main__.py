@@ -7,7 +7,9 @@
 Mirrors the repository's ``train.py`` for the JAX package (its
 ``--multi_host`` flag has no counterpart: the port trains on one card).
 The repository holds no checkpoint, so the model starts from seeded
-random weights (``seed`` in the config). Runs on the GPU (``--device``,
+random weights (``seed`` in the config). The log goes to
+``<save_path>/train_log.log`` and the scalars to ``scalars.jsonl``. Runs
+on the GPU (``--device``,
 default ``cuda``; without a GPU it raises), on the CPU only with
 ``--device cpu``.
 """
@@ -38,16 +40,18 @@ def parse_args(argv=None):
 
 def main(argv=None):
     from emip_tpu_torch.config import load_config
+    from emip_tpu_torch.device import resolve_device
     from emip_tpu_torch.train.loops import train_short
 
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     args = parse_args(argv)
+    device = resolve_device(args.device)
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     cfg = load_config(args.config)
     if args.save_path:
         cfg.save_path = args.save_path
     _, summary = train_short(cfg, resume=args.resume,
                              max_steps_per_epoch=args.max_steps_per_epoch,
-                             device=args.device)
+                             device=device)
     print(f">>> training done: {summary}")
     return summary
 

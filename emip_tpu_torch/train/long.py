@@ -19,7 +19,6 @@ has no counterpart: PyTorch runs eagerly, and the config's
 
 from __future__ import annotations
 
-import json
 import logging
 import os
 import time
@@ -44,6 +43,7 @@ from emip_tpu_torch.train.state import (
     cosine_epoch_lr,
     set_learning_rate,
 )
+from emip_tpu_torch.utils.logging import ScalarLogger, setup_logging
 
 __all__ = ["build_long_model", "long_train_step", "validate_long",
            "train_long"]
@@ -164,8 +164,9 @@ def train_long(cfg: Config, short_state_dict: dict | None = None,
     ``ckpt_long`` and the best-by-S-measure one under ``ckpt_long_best``.
     Returns the model and a summary."""
     device = resolve_device(device)
+    setup_logging(cfg.save_path, "train_long_log.log")
     snapshot_config(cfg, cfg.save_path)
-    scalars = open(os.path.join(cfg.save_path, "scalars.jsonl"), "a")
+    scalars = ScalarLogger(cfg.save_path)
     model, opt = build_long_model(cfg, short_state_dict, device)
     td = cfg.train_dataset
     loader = ClipLoader(td.image_path, td.gt_path, size=td.inp_size,
@@ -175,14 +176,9 @@ def train_long(cfg: Config, short_state_dict: dict | None = None,
     ckpt_dir = os.path.join(cfg.save_path, "ckpt_long")
     best_dir = os.path.join(cfg.save_path, "ckpt_long_best")
 
-    def record(**kv):
-        scalars.write(json.dumps(kv) + "\n")
-        scalars.flush()
-
     best_sm, best_epoch, steps = -1.0, 0, 0
     for epoch in range(1, cfg.epoch):
-        lr = lr_fn(epoch)
-        set_learning_rate(opt, lr)
+        set_learning_rate(opt, lr_fn(epoch))
         t0 = time.perf_counter()
         for frames, masks in _clip_groups(loader, clips_per_step,
                                           max_videos_per_epoch,
@@ -194,22 +190,21 @@ def train_long(cfg: Config, short_state_dict: dict | None = None,
                     model, opt, enc, _to_device(frames[:, t], device),
                     _to_device(masks[:, t], device), mem)
                 steps += 1
-            record(epoch=epoch, step=steps, lr=lr,
-                   loss_long=float(metrics["loss"]))
-        record(epoch=epoch, epoch_s=time.perf_counter() - t0)
+            scalars.scalar("loss/long", float(metrics["loss"]), steps)
+        scalars.scalar("time/epoch_s", time.perf_counter() - t0, epoch)
 
         if cfg.epoch_save and epoch % cfg.epoch_save == 0:
             save_checkpoint(ckpt_dir, model, opt, epoch)
         if cfg.epoch_val and epoch % cfg.epoch_val == 0:
             val = validate_long(model, cfg, device)
-            record(epoch=epoch, **{f"val_long_{k}": v
-                                   for k, v in val.items()})
+            scalars.scalars({f"val_long/{k}": v for k, v in val.items()},
+                            epoch)
             log.info("[Val-long] epoch %d %s", epoch, val)
             if cfg.val_dataset_cad is not None:
                 cad = validate_long(model, cfg, device,
                                     dataset=cfg.val_dataset_cad)
-                record(epoch=epoch, **{f"val_long_cad_{k}": v
-                                       for k, v in cad.items()})
+                scalars.scalars({f"val_long_cad/{k}": v
+                                 for k, v in cad.items()}, epoch)
                 log.info("[Val-long-CAD] epoch %d %s", epoch, cad)
             if val.get("Sm", float("-inf")) > best_sm:
                 best_sm, best_epoch = val["Sm"], epoch

@@ -10,7 +10,6 @@ unless the caller names another device; without a GPU the default raises.
 
 from __future__ import annotations
 
-import json
 import logging
 import os
 import time
@@ -22,17 +21,18 @@ from emip_tpu_torch.config import Config, snapshot_config
 from emip_tpu_torch.convert import SHORT_LOAD, load_configured_weights
 from emip_tpu_torch.data import PairEvalLoader, PairTrainLoader
 from emip_tpu_torch.device import DEFAULT_DEVICE, resolve_device
-from emip_tpu_torch.infer import _linear_weights
 from emip_tpu_torch.losses.seg import hybrid_e_loss
 from emip_tpu_torch.metrics import frame_scores
 from emip_tpu_torch.models.emip_short import EMIPShort
 from emip_tpu_torch.models.init import seeded_init_
+from emip_tpu_torch.ops.image import linear_weights_np
 from emip_tpu_torch.train.short import short_eval_step, short_train_step
 from emip_tpu_torch.train.state import (
     build_optimizer,
     cosine_epoch_lr,
     set_learning_rate,
 )
+from emip_tpu_torch.utils.logging import ScalarLogger, setup_logging
 
 __all__ = ["save_checkpoint", "load_checkpoint", "score_logits",
            "validate_short", "train_short"]
@@ -71,8 +71,8 @@ def score_logits(logits_hw: np.ndarray, gt: np.ndarray) -> dict:
     """wFm / Sm / MAE of one frame: the logits resized (bilinear,
     align_corners=False) to the native GT size, passed through a sigmoid
     and min-max normalised, as in the reference (train.py:131-137)."""
-    up = _linear_weights(logits_hw.shape[0], gt.shape[0]) @ logits_hw @ \
-        _linear_weights(logits_hw.shape[1], gt.shape[1]).T
+    up = linear_weights_np(logits_hw.shape[0], gt.shape[0]) @ logits_hw @ \
+        linear_weights_np(logits_hw.shape[1], gt.shape[1]).T
     pred = 1.0 / (1.0 + np.exp(-up))
     pred = (pred - pred.min()) / (pred.max() - pred.min() + 1e-8)
     return frame_scores(pred * 255.0, gt)
@@ -129,8 +129,9 @@ def train_short(cfg: Config, resume: bool = False,
     random weights, then takes the checkpoints the config's ``load`` block
     names (``path``, ``flow_path``) where the files exist."""
     device = resolve_device(device)
+    setup_logging(cfg.save_path)
     snapshot_config(cfg, cfg.save_path)
-    scalars = open(os.path.join(cfg.save_path, "scalars.jsonl"), "a")
+    scalars = ScalarLogger(cfg.save_path)
     model = seeded_init_(EMIPShort(cfg.model), cfg.seed)
     load_configured_weights(model, cfg.load, SHORT_LOAD)
     model = model.to(device)
@@ -150,14 +151,11 @@ def train_short(cfg: Config, resume: bool = False,
     gen_device = device if device.type == "cuda" else "cpu"
     generator = torch.Generator(device=gen_device).manual_seed(cfg.seed)
 
-    def record(**kv):
-        scalars.write(json.dumps(kv) + "\n")
-        scalars.flush()
-
     best_mae, best_epoch, steps, last = float("inf"), 0, 0, {}
     for epoch in range(start_epoch, cfg.epoch):
         lr = lr_fn(epoch)
         set_learning_rate(opt, lr)
+        scalars.scalar("learning_rate", lr, epoch)
         t0, epoch_loss, epoch_steps = time.perf_counter(), None, 0
         try:
             for i, batch in enumerate(loader, start=1):
@@ -176,23 +174,28 @@ def train_short(cfg: Config, resume: bool = False,
                     log.info("[Train] epoch %d step %d loss %.4f pred %.4f "
                              "flow %.4f", epoch, i, last["loss"],
                              last["loss_pred"], last["loss_flow"])
-                    record(epoch=epoch, step=steps, lr=lr, **last)
+                    scalars.scalars({f"loss/{k}": v for k, v in last.items()},
+                                    steps)
         except KeyboardInterrupt:
             save_checkpoint(ckpt_dir, model, opt, epoch)
             raise
         dt = time.perf_counter() - t0
+        scalars.scalar("time/epoch_s", dt, epoch)
         if epoch_steps:
-            record(epoch=epoch, epoch_mean_loss=float(epoch_loss) / epoch_steps,
-                   epoch_s=dt, steps_per_s=epoch_steps / dt)
+            scalars.scalar("time/steps_per_s", epoch_steps / dt, epoch)
+            scalars.scalar("loss/epoch_mean",
+                           float(epoch_loss) / epoch_steps, epoch)
         if cfg.epoch_save and epoch % cfg.epoch_save == 0:
             save_checkpoint(ckpt_dir, model, opt, epoch)
         if cfg.epoch_val and epoch % cfg.epoch_val == 0:
             val = validate_short(model, cfg, device)
-            record(epoch=epoch, **{f"val_{k}": v for k, v in val.items()})
+            scalars.scalars({f"val/{k}": v for k, v in val.items()}, epoch)
             log.info("[Val] epoch %d %s", epoch, val)
             if val["MAE"] < best_mae:
                 best_mae, best_epoch = val["MAE"], epoch
                 save_checkpoint(best_dir, model, opt, epoch)
+                log.info("[Val] new best (MAE %.5f) at epoch %d", best_mae,
+                         epoch)
     scalars.close()
     return model, dict(best_mae=best_mae, best_epoch=best_epoch, steps=steps,
                        last=last)

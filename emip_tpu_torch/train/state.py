@@ -24,7 +24,7 @@ import torch
 
 __all__ = ["freeze_gmflow", "freeze_short_term", "ClampAdamW",
            "build_optimizer", "build_long_optimizer",
-           "cosine_epoch_lr", "set_learning_rate"]
+           "cosine_epoch_lr", "adp_lr", "set_learning_rate"]
 
 
 def freeze_gmflow(model: torch.nn.Module) -> torch.nn.Module:
@@ -87,6 +87,13 @@ def cosine_epoch_lr(base_lr: float = 1e-5, eta_min: float = 1e-6,
             1 + math.cos(math.pi * epoch / t_max)) / 2
 
     return lr
+
+
+def adp_lr(batch_size: int, base_batch: int = 36,
+           base_lr: float = 1e-4) -> float:
+    """Square-root batch-size scaling of the LR (the reference's unused
+    ``adp_lr``, train.py:221-226)."""
+    return base_lr * (batch_size / base_batch) ** 0.5
 
 
 def set_learning_rate(opt: torch.optim.Optimizer, lr: float) -> None:

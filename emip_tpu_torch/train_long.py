@@ -10,7 +10,8 @@ short-term net is loaded under the frozen ``short_term`` subtree
 ``python -m emip_tpu_torch.train``; without it the seeded random weights
 stay, since the repository holds no checkpoint) and the LTM and long
 decoder heads train frame by frame over whole videos with a rolling,
-detached memory. Runs on the GPU (``--device``, default ``cuda``; without
+detached memory. The log goes to ``<save_path>/train_long_log.log``.
+Runs on the GPU (``--device``, default ``cuda``; without
 a GPU it raises), on the CPU only with ``--device cpu``.
 """
 
@@ -45,11 +46,13 @@ def main(argv=None):
     import torch
 
     from emip_tpu_torch.config import load_config
+    from emip_tpu_torch.device import resolve_device
     from emip_tpu_torch.train.long import train_long
     from emip_tpu_torch.train.loops import CKPT_NAME
 
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     args = parse_args(argv)
+    device = resolve_device(args.device)
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     cfg = load_config(args.config)
     if args.save_path:
         cfg.save_path = args.save_path
@@ -60,7 +63,7 @@ def main(argv=None):
         short = state["model"]
         print(f">>> loaded short-term checkpoint epoch {state['epoch']}")
     _, summary = train_long(cfg, short, args.max_videos_per_epoch,
-                            args.max_frames_per_video, device=args.device)
+                            args.max_frames_per_video, device=device)
     print(f">>> long training done: {summary}")
     return summary
 

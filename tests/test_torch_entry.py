@@ -22,24 +22,6 @@ from emip_tpu_torch import kernels as K
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _tiny_yaml(path, root, save, **extra):
-    """The tiny configuration of tests/test_torch_train.py as a YAML."""
-    ds = dict(image_path=root, gt_path=root, inp_size=th.SIZE, batch_size=2)
-    cfg = dict(
-        train_dataset=ds, val_dataset=dict(ds, batch_size=1),
-        model=dict(args=dict(
-            inp_size=th.SIZE, channel=th.CHANNEL, backbone_name="pvt_v2_b0",
-            include_dead_modules=False,
-            GMFlow=dict(feature_channels=th.FDIM,
-                        num_transformer_layers=th.NUM_LAYERS))),
-        optimizer=dict(lr=1e-4, weight_decay=1e-7), compute_dtype="float32",
-        seed=5, epoch=2, epoch_val=1, epoch_save=1, save_path=save)
-    cfg.update(extra)
-    with open(path, "w") as f:
-        yaml.safe_dump(cfg, f)
-    return str(path)
-
-
 @pytest.fixture(scope="module")
 def synthetic_root(tmp_path_factory):
     from emip_tpu_torch.data import make_synthetic_video_root
@@ -71,7 +53,7 @@ def test_test_entry_point_predicts_from_a_trained_checkpoint(
     from emip_tpu_torch.train.__main__ import main as train_main
 
     save = str(tmp_path / "run")
-    cfg = _tiny_yaml(tmp_path / "tiny.yaml", synthetic_root, save)
+    cfg = th.tiny_yaml(tmp_path / "tiny.yaml", synthetic_root, save)
     train_main(["--config", cfg, "--max_steps_per_epoch", "2",
                 "--device", "cpu"])
     ckpt = os.path.join(save, "ckpt")
@@ -101,6 +83,119 @@ def test_test_cli_flags_mirror_root_test_py():
     assert {f"--{k}" for k in vars(args)} == root_flags | {"--device"}
     assert (args.config, args.ckpt, args.data, args.device) == (
         "configs/emip.yaml", None, None, "cuda")
+
+
+# ------------------------------------------ F6: TF32 off on the card
+
+
+@pytest.fixture
+def tf32_on():
+    """Both TF32 switches on for the test, restored afterwards."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    yield
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def _tf32():
+    return (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+
+
+def test_resolve_device_turns_tf32_off_for_the_card(tf32_on, monkeypatch):
+    """``resolve_device("cuda")`` turns TF32 off for cuDNN's convolutions
+    and for matmuls; the CPU, and a GPU asked for without one, leave the
+    switches as they were."""
+    from emip_tpu_torch.device import resolve_device
+
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert _tf32() == (True, True)
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda")
+    assert _tf32() == (True, True)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device("cuda:0") == torch.device("cuda:0")
+    assert _tf32() == (False, False)
+    assert torch.backends.cudnn.conv.fp32_precision != "tf32"
+
+
+class _Resolved(Exception):
+    pass
+
+
+# every entry point that runs a model: (module, function, arguments)
+_ENTRY_POINTS = [
+    ("emip_tpu_torch.test", "main", (["--device", "cpu"],)),
+    ("emip_tpu_torch.train.__main__", "main", (["--device", "cpu"],)),
+    ("emip_tpu_torch.test_long", "main", (["--device", "cpu"],)),
+    ("emip_tpu_torch.train_long", "main",
+     (["--short_ckpt", "ckpt", "--device", "cpu"],)),
+    ("emip_tpu_torch.test_of", "main", (["--device", "cpu"],)),
+    ("emip_tpu_torch.train_static", "main",
+     (["--data_root", "root", "--device", "cpu"],)),
+    ("emip_tpu_torch.train.loops", "train_short", (None,)),
+    ("emip_tpu_torch.train.long", "train_long", (None,)),
+    ("emip_tpu_torch.train.long", "build_long_model", (None,)),
+    ("emip_tpu_torch.train.static", "train_static", (None, "root", "out")),
+    ("emip_tpu_torch.infer", "predict_pairs", (None, "root", "out")),
+    ("emip_tpu_torch.infer", "predict_clips_long", (None, "root", "out")),
+]
+
+
+@pytest.mark.parametrize("module,name,args", _ENTRY_POINTS,
+                         ids=[f"{m}.{n}" for m, n, _ in _ENTRY_POINTS])
+def test_entry_points_resolve_the_device_before_any_tensor(
+        monkeypatch, module, name, args):
+    """A spy in place of ``resolve_device`` is the first call of each
+    entry point into torch: no tensor (and no model) is built before the
+    device, and with it the precision, is set."""
+    import importlib
+
+    from torch.overrides import TorchFunctionMode
+
+    import emip_tpu_torch.device as dev
+
+    # every module that binds resolve_device when it is imported is
+    # imported before the spy goes in, so that none keeps the spy
+    for m, _, _ in _ENTRY_POINTS:
+        importlib.import_module(m)
+    mod = importlib.import_module(module)
+    calls = []
+
+    class Record(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            calls.append(getattr(func, "__name__", repr(func)))
+            return func(*args, **(kwargs or {}))
+
+    def spy(device=dev.DEFAULT_DEVICE):
+        calls.append("resolve_device")
+        raise _Resolved(device)
+
+    monkeypatch.setattr(dev, "resolve_device", spy)
+    if hasattr(mod, "resolve_device"):
+        monkeypatch.setattr(mod, "resolve_device", spy)
+    with Record(), pytest.raises(_Resolved):
+        getattr(mod, name)(*args)
+    assert calls == ["resolve_device"]
+
+
+@pytest.mark.parametrize("module,argv", [
+    ("test_of", ["--data_root", "root"]),
+    ("train_static", ["--data_root", "root"])])
+def test_new_entry_points_raise_without_a_gpu(tmp_path, module, argv):
+    """No fallback: without ``--device cpu`` and without a GPU they raise
+    and write nothing."""
+    import importlib
+
+    out = tmp_path / "out"
+    mod = importlib.import_module(f"emip_tpu_torch.{module}")
+    with pytest.raises(RuntimeError, match="no fallback"):
+        mod.main(argv + ["--config", "configs/emip.yaml", "--save_path",
+                         str(out)])
+    assert not out.exists()
 
 
 # ---------------------------------------------------- F2: the load block
@@ -269,8 +364,8 @@ def test_entry_points_read_the_load_block(tmp_path, synthetic_root,
                         or real(model, path, *a))
     load = dict(path=str(tmp_path / "s.pth"), flow_path=str(tmp_path / "f"),
                 long_path=str(tmp_path / "l.pth"))
-    cfg = _tiny_yaml(tmp_path / "tiny.yaml", synthetic_root,
-                     str(tmp_path / "run"), load=load, epoch=1)
+    cfg = th.tiny_yaml(tmp_path / "tiny.yaml", synthetic_root,
+                       str(tmp_path / "run"), load=load, epoch=1)
     train_short(load_config(cfg), device="cpu")
     test_main(["--config", cfg, "--data", f"a={synthetic_root}",
                "--save_path", str(tmp_path / "p"), "--device", "cpu"])
@@ -293,8 +388,8 @@ def test_empty_dataset_block_is_none_as_in_jax(tmp_path):
     from emip_tpu_torch.config import DatasetConfig, load_config
 
     for empty in ({}, None):
-        cfg = _tiny_yaml(tmp_path / "c.yaml", "/d", "/s",
-                         val_dataset_cad=empty)
+        cfg = th.tiny_yaml(tmp_path / "c.yaml", "/d", "/s",
+                           val_dataset_cad=empty)
         assert load_config(cfg).val_dataset_cad is None
         assert jax_load_config(cfg).val_dataset_cad is None
     with open(tmp_path / "e.yaml", "w") as f:
@@ -326,7 +421,7 @@ def test_ignored_keys_warn_once_each(tmp_path, caplog, keys, warned):
 
     opt = dict(lr=1e-4, weight_decay=1e-7, **keys.pop("optimizer", {}))
     path = tmp_path / "c.yaml"
-    _tiny_yaml(path, "/d", "/s", **keys)
+    th.tiny_yaml(path, "/d", "/s", **keys)
     raw = yaml.safe_load(open(path))
     raw["optimizer"] = opt
     raw = {k: v for k, v in raw.items() if v is not None}

@@ -129,3 +129,25 @@ def nchw(x: np.ndarray) -> torch.Tensor:
 
 def nhwc(t: torch.Tensor) -> np.ndarray:
     return t.detach().permute(0, 2, 3, 1).numpy()
+
+
+def tiny_yaml(path, root, save, **extra) -> str:
+    """The tiny configuration as the entry points' YAML (train and val on
+    the dataset root ``root``, checkpoints under ``save``); ``extra``
+    replaces or adds top-level keys. Returns the file's path."""
+    import yaml
+
+    ds = dict(image_path=root, gt_path=root, inp_size=SIZE, batch_size=2)
+    cfg = dict(
+        train_dataset=ds, val_dataset=dict(ds, batch_size=1),
+        model=dict(args=dict(
+            inp_size=SIZE, channel=CHANNEL, backbone_name="pvt_v2_b0",
+            include_dead_modules=False,
+            GMFlow=dict(feature_channels=FDIM,
+                        num_transformer_layers=NUM_LAYERS))),
+        optimizer=dict(lr=1e-4, weight_decay=1e-7), compute_dtype="float32",
+        seed=5, epoch=2, epoch_val=1, epoch_save=1, save_path=save)
+    cfg.update(extra)
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return str(path)
