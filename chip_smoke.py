@@ -74,7 +74,25 @@ needs one card and no arguments, and it imports nothing of JAX. In order:
    kernel launch counts of that run must equal what the model structure
    implies; one pair's mask logits and forward flow are compared with the
    same weights run on the CPU through the plain versions; frames/s
-   (median of CUDA-event timed batches) and peak memory are printed;
+   (median of CUDA-event timed batches) and peak memory are printed. Then
+   the bf16 band of short inference: the bf16 forwards of A-D at the same
+   shapes (bf16 tokens and weights for A, bf16 windows with fp32
+   parameters for B, bf16 q and k with fp32 values for C, bf16 logits for
+   D) against their plain bf16 versions (max|err| <= 1e-2 of max|ref|)
+   and against an fp64 evaluation on the same bf16-rounded inputs (no
+   larger than 1.5x the plain version's own error there, errors under 1e-5
+   of max|ref| counting as 1e-5), bit-equal on a second call, timed beside
+   the plain version and ``scaled_dot_product_attention`` in bf16 (for
+   A's and B's attention as ``sdpa_ms``), with their bound (bf16 products
+   at 989 TFLOP/s, B's fp32 cross layer and FFN at a third of the TF32
+   peak, bytes at their storage sizes); the bf16 GEMM alone at A's and B's
+   bf16 shapes beside ``torch.matmul`` in bf16; and the same b5 model and
+   frames as ``EMIPShort(cfg, dtype=bfloat16)`` through
+   ``predict_arrays``: launches of the four bf16 forwards only (A 104, B
+   6, C 3, D 1 a batch), peak memory beside the fp32 one, frames/s of
+   bf16 and fp32 timed in turns (fp32, bf16, bf16, fp32), and one pair
+   card bf16 against CPU plain bf16 within twice the card's
+   bf16-vs-fp32 gap on that pair (a gap above zero);
 8. train phase: first one pair, the seeded weights on the card and on the
    CPU: loss values and the seg-loss grads of every trainable leaf. Then
    the same model takes 1 + 5 train steps at batch 8 (drop path 0.1 from a
@@ -107,7 +125,11 @@ needs one card and no arguments, and it imports nothing of JAX. In order:
     wFm and MAE equal to the training loop's ``frame_scores`` means to
     1e-12, the GT against itself perfect), ``... test_of`` (a JPG per
     pair) and ``... train_static`` (one epoch of 2 steps at batch 8 on 16
-    synthetic images, checkpoint and log);
+    synthetic images, checkpoint and log); then ``... test`` once more
+    with the YAML saying ``compute_dtype: bfloat16``: a PNG per pair,
+    launches of the bf16 forwards of A-D and none of their fp32 ones
+    (TF32 and cuBLAS's bf16 reduced-precision reduction are turned on
+    before every entry point's call, and must read off after it);
 13. long inference phase: the full EMIPLong (b5, 352^2, 5 memory slots) on
     seeded weights streams seeded clips through ``step_cached``, one clip
     at a time and four side by side; launch counts against the structure
@@ -128,7 +150,8 @@ needs one card and no arguments, and it imports nothing of JAX. In order:
     the checks of phase 8), then the long inference phase at 512^2 (G 6,
     H 6, B 0 per step; card against CPU as in phase 13).
 
-It prints one JSON line with the nineteen kernels' numbers (per kernel:
+It prints one JSON line with twenty-three rows, the nineteen kernels' and
+the bf16 forwards of A-D (with their worst ``fp64_ratio``; per kernel:
 launches in the phase that is its main path, the largest max_abs_err of
 its cases, and ``ms`` / ``plain_ms`` / ``library_ms`` / ``bound_ms`` summed
 over its cases, one call each; ``bound_ms`` is the larger of the case's
@@ -302,6 +325,8 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 # dense TF32 on the tensor cores; a 3xTF32 product spends three of them
 PEAK_TF32_FLOPS = 495e12
+# dense bf16 on the tensor cores (the bf16 band's products)
+PEAK_BF16_FLOPS = 989e12
 # the kernels that run all their products on the tensor cores as 3xTF32 (A,
 # B, C, F, G and H, forward and backward): their bound counts the
 # operations at a third of the TF32 peak; the CUDA cores' fp32 figure, the
@@ -320,7 +345,7 @@ TENSOR_CORE_KERNELS = ("sr_attention", "sr_attention_bwd",
 # CUDA-event time then reads
 DEVICE_TIMED = ("convex_upsample", "convex_upsample_bwd", "splat_density",
                 "softmax_expectation", "softmax_expectation_bwd",
-                "dwconv_gelu", "dwconv_gelu_bwd")
+                "dwconv_gelu", "dwconv_gelu_bwd", "convex_upsample_bf16")
 # kernels held to the same bits on a second call on the same inputs: the
 # tensor-core ones, J and I's backward, which add their per-block partials
 # in a fixed order, and E, whose sum is in integers
@@ -336,7 +361,27 @@ GEMM_REL_TOL = 1e-5
 ATTN_REL_TOL = 1e-5
 
 
+# the bf16 band of short inference: the bf16 forwards of A-D (their own
+# launch counters), each held to its plain bf16 version on the card and,
+# against an fp64 evaluation of the same function on the same
+# bf16-rounded inputs and weights, to no more than BF16_FP64_RATIO times
+# the plain version's own error there; an error below BF16_FP64_FLOOR of
+# max|ref| (the fp32 grade of the GEMM and attention checks above) counts
+# as that floor, so that C and D, whose arithmetic after the bf16 inputs is
+# fp32 on both sides, compare their bf16 rounding and not fp32 noise. All
+# four are called twice and held bit-equal.
+BF16_KERNEL_INFO = {
+    name + "_bf16": KERNEL_INFO[name] for name in FWD_KERNELS}
+BF16_KERNEL_REL = 1e-2
+BF16_FP64_RATIO = 1.5
+BF16_FP64_FLOOR = 1e-5
+
+
 def bound_rate(name: str) -> str:
+    if name == "window_attention_block_bf16":
+        return "bf16+tf32x3"  # a bf16 self layer, then the fp32 cross + FFN
+    if name.endswith("_bf16"):
+        return "fp32" if name == "convex_upsample_bf16" else "bf16"
     return "tf32x3" if name in TENSOR_CORE_KERNELS else "fp32"
 
 
@@ -480,19 +525,24 @@ def record(results: dict, name: str, label: str, err: float, ms: float,
     third of the TF32 peak, the others at the fp32 peak) and the bytes'
     time at the memory rate. No case may take less than its bound. Rows
     whose products are not all fp32 also carry ``bound_rate`` and the
-    CUDA cores' figure for all their operations, ``fp32_bound_ms``."""
-    tc_ops, cc_ops, nbytes = work
+    CUDA cores' figure for all their operations, ``fp32_bound_ms``. A
+    fourth element of ``work``, where given, is the bf16 tensor-core
+    operations, at the bf16 peak."""
+    tc_ops, cc_ops, nbytes, *more = work
+    bf16_ops = more[0] if more else 0.0
     rate = bound_rate(name)
     entry = results.setdefault(name, dict(
         max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=None, bound_ms=0.0,
         ops_ms=0.0, bytes_ms=0.0, cases=[]))
-    ops_ms = (tc_ops / (PEAK_TF32_FLOPS / 3) + cc_ops / PEAK_FP32_FLOPS) * 1e3
+    ops_ms = (tc_ops / (PEAK_TF32_FLOPS / 3) + bf16_ops / PEAK_BF16_FLOPS
+              + cc_ops / PEAK_FP32_FLOPS) * 1e3
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     bound = max(ops_ms, bytes_ms)
     if ms < bound:
         raise AssertionError(f"{name} ({label}): {ms} ms is below the bound "
                              f"{bound} ms")
-    fp32_ms = max((tc_ops + cc_ops) / PEAK_FP32_FLOPS * 1e3, bytes_ms)
+    fp32_ms = max((tc_ops + cc_ops + bf16_ops) / PEAK_FP32_FLOPS * 1e3,
+                  bytes_ms)
     if rate != "fp32":
         entry.setdefault("fp32_bound_ms", 0.0)
         entry["bound_rate"] = rate
@@ -1547,6 +1597,7 @@ def slice_phase(model, batch: int, size: int, device, timed: int) -> dict:
               for _ in range(n_batches)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
+    resident = torch.cuda.memory_allocated(device)
 
     K.reset_launches()
     times, outputs = [], []
@@ -1579,7 +1630,8 @@ def slice_phase(model, batch: int, size: int, device, timed: int) -> dict:
     peak = torch.cuda.max_memory_allocated(device)
     log(f"slice b5 {size}^2 bs={batch} fp32: median {median_ms:.3f} ms/batch "
         f"over {len(times)} batches -> {fps:.3f} frames/s; peak memory "
-        f"{peak / 2**30:.3f} GiB")
+        f"{peak / 2**30:.3f} GiB ({(peak - resident) / 2**30:.3f} GiB above "
+        f"what was allocated before the run)")
 
     # the same weights on the CPU, through the plain versions, one pair
     t0 = time.perf_counter()
@@ -1610,7 +1662,425 @@ def slice_phase(model, batch: int, size: int, device, timed: int) -> dict:
         raise AssertionError(f"card disagrees with the CPU reference: {bad}")
     return dict(launches=launches, expected=want, median_ms=median_ms,
                 batch_ms=times, frames_per_s=fps, peak_bytes=peak,
-                compare=cmp)
+                working_bytes=peak - resident, compare=cmp)
+
+
+# ----------------------------------------------------------- bf16 band
+
+
+def nbytes(*tensors) -> int:
+    """Bytes of the tensors among the arguments at their storage sizes
+    (dicts are searched)."""
+    import torch
+
+    n = 0
+    for t in tensors:
+        if isinstance(t, dict):
+            n += nbytes(*t.values())
+        elif torch.is_tensor(t):
+            n += t.numel() * t.element_size()
+    return n
+
+
+def bf16_kernel_cases(batch: int, device):
+    """(kernel, label, kernel fn, plain fn, args) of the bf16 forwards of
+    A-D at the 352^2 shapes of bf16 inference: A at the four PVT stages
+    (bf16 tokens and weights, fp32 biases), B on [2B, 4, 484, 128] bf16
+    windows without and with the shift mask (fp32 parameters), C on bf16 q,
+    k [2B, 1936, 128] with fp32 values, D on bf16 logits."""
+    import torch
+
+    from emip_tpu_torch import kernels as K
+    from emip_tpu_torch.ops.window import shifted_window_mask
+
+    r = seeded_randn(SEED + 31, device)
+    bf = torch.bfloat16
+    cases = []
+    for n, m, c, heads in SR_STAGES:
+        x, kv, wq, bq, wkv, bkv, wp, bp, _ = sr_args(r, batch, n, m, c, heads)
+        cases.append(("sr_attention_bf16", f"N={n} M={m} C={c} heads={heads}",
+                      K.fused_sr_attention, K.fused_sr_attention_reference,
+                      (x.to(bf), kv.to(bf), wq.to(bf), bq, wkv.to(bf), bkv,
+                       wp.to(bf), bp, heads)))
+    c, tok, k2 = 128, 484, 4
+    x, t = r(2 * batch, k2, tok, c).to(bf), r(2 * batch, k2, tok, c).to(bf)
+    sp, cp = window_params(r, c)
+    mask = shifted_window_mask(44, 44, 2, device=device)
+    for label, msk in (("unshifted", None), ("shifted mask", mask)):
+        cases.append(("window_attention_block_bf16",
+                      f"[{2 * batch},{k2},{tok},{c}] {label}",
+                      K.fused_window_attention_block,
+                      K.fused_window_attention_block_reference,
+                      (x, t, sp, cp, msk)))
+    L = 1936
+    cases.append(("flow_attention_bf16", f"[{2 * batch},{L},128] v=[...,2]",
+                  K.fused_flow_attention, K.fused_flow_attention_reference,
+                  (r(2 * batch, L, 128).to(bf), r(2 * batch, L, 128).to(bf),
+                   r(2 * batch, L, 2, scale=10.0))))
+    cases.append(("convex_upsample_bf16", f"flow [{2 * batch},44,44,2] x8",
+                  K.convex_upsample, K.convex_upsample_reference,
+                  (r(2 * batch, 44, 44, 2, scale=3.0),
+                   r(2 * batch, 44, 44, 576).to(bf), 8)))
+    return cases
+
+
+def bf16_fp64(name: str, args):
+    """The function of a bf16 case evaluated in fp64 on the same
+    bf16-rounded inputs and weights (B's self-layer weights rounded as the
+    kernel rounds them, its cross layer's fp32 ones as they are), with no
+    rounding after the inputs."""
+    import torch
+
+    from emip_tpu_torch import kernels as K
+
+    def d(a):
+        return a.double() if torch.is_tensor(a) else a
+
+    if name == "window_attention_block_bf16":
+        x, t, sp, cp, mask = args
+        sp64 = {k: (v.to(torch.bfloat16) if k in ("wq", "wk", "wv", "wm")
+                    else v).double() for k, v in sp.items()}
+        return K.fused_window_attention_block_reference(
+            d(x), d(t), sp64, {k: d(v) for k, v in cp.items()}, d(mask))
+    fn = {"sr_attention_bf16": K.fused_sr_attention_reference,
+          "flow_attention_bf16": K.fused_flow_attention_reference,
+          "convex_upsample_bf16": K.convex_upsample_reference}[name]
+    return fn(*(d(a) for a in args))
+
+
+def bf16_work(name: str, args, out) -> tuple:
+    """(3xTF32 operations, CUDA-core operations, bytes at their storage
+    sizes, bf16 tensor-core operations) of one bf16 forward call."""
+    size = float(nbytes(*args) + nbytes(out))
+    if name == "sr_attention_bf16":
+        return 0.0, 0.0, size, forward_products("sr_attention", args)
+    if name == "window_attention_block_bf16":
+        rows, tok, c, f, _ = _window_dims("window_attention_block", args)
+        layer = 4 * 2 * rows * c * c + 4 * rows * tok * c
+        return float(layer + 2 * rows * f * 3 * c), 0.0, size, float(layer)
+    if name == "flow_attention_bf16":
+        b, l, c = args[0].shape
+        return 0.0, float(4 * b * l * l), size, float(2 * b * l * l * c)
+    return (0.0, float(out.numel() // 2 * (9 * 4 + 9 * 2 * 2)), size, 0.0)
+
+
+def bf16_library_ms(name: str, args, reps: int) -> tuple:
+    """(library_ms, sdpa_ms): ``scaled_dot_product_attention`` in bf16 on
+    C's inputs (its values cast to bf16) computes C's function; for A and B
+    it computes only their attention (sdpa_ms, on bf16 tensors of the
+    shapes of their q, k, v), and no one call computes the rest. A
+    yardstick only: the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    try:
+        if name == "flow_attention_bf16":
+            q, k, v = args
+            v = v.to(torch.bfloat16)
+            return cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v),
+                           reps), None
+        if name == "sr_attention_bf16":
+            x, kv, heads = args[0], args[1], args[-1]
+            (b, n, c), m = x.shape, kv.shape[1]
+            q = x.reshape(b, n, heads, c // heads).transpose(1, 2)
+            k = kv.reshape(b, m, heads, c // heads).transpose(1, 2)
+            return None, cuda_ms(
+                lambda: F.scaled_dot_product_attention(q, k, k), reps)
+        if name == "window_attention_block_bf16":
+            x, mask = args[0], args[4]
+            b, k2, tok, c = x.shape
+            q = x.reshape(b, k2, tok, c)
+            attn_mask = None if mask is None else mask.to(x.dtype)
+            return None, cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, q, q, attn_mask=attn_mask), reps)
+    except RuntimeError as e:  # no backend takes these shapes
+        log(f"library call for {name} refused: {str(e).splitlines()[0]}")
+    return None, None
+
+
+def bf16_kernel_phase(batch: int, device, reps: int) -> dict:
+    """The bf16 forwards of A-D against their plain bf16 versions on the
+    card and against fp64 (see BF16_FP64_RATIO), held bit-equal on a second
+    call, timed beside the plain version and the library, with their bound
+    (bf16 products at the bf16 peak, B's fp32 cross layer and FFN at the
+    3xTF32 rate, bytes at their storage sizes)."""
+    import torch
+
+    results = {}
+    with torch.no_grad():
+        for name, label, fn, ref, args in bf16_kernel_cases(batch, device):
+            got = fn(*args)
+            torch.cuda.synchronize()
+            want = ref(*args)
+            ref64 = bf16_fp64(name, args)
+            if got.dtype != want.dtype:
+                raise AssertionError(f"{name}: {got.dtype} != {want.dtype}")
+            err = (got.float() - want.float()).abs().max().item()
+            rel = err / want.float().abs().max().item()
+            scale = ref64.abs().max().item()
+            e_k = (got.double() - ref64).abs().max().item() / scale
+            e_p = (want.double() - ref64).abs().max().item() / scale
+            ratio = max(e_k, BF16_FP64_FLOOR) / max(e_p, BF16_FP64_FLOOR)
+            del ref64
+            if not torch.equal(fn(*args), got):
+                raise AssertionError(f"{name} ({label}): two calls on the "
+                                     f"same inputs differ")
+            ms, plain_ms = alternate_ms(lambda: fn(*args),
+                                        lambda: ref(*args), reps)
+            lib_ms, sdpa_ms = bf16_library_ms(name, args, reps)
+            dev = device_times(name, lambda: fn(*args), lambda: ref(*args),
+                               reps)
+            ok = (bool(torch.isfinite(got).all()) and rel <= BF16_KERNEL_REL
+                  and ratio <= BF16_FP64_RATIO)
+            log(f"kernel {name:28s} {label:28s} max_abs_err={err:.3e} "
+                f"rel={rel:.2e} (tol {BF16_KERNEL_REL}) fp64 err kernel "
+                f"{e_k:.2e} plain {e_p:.2e} ratio {ratio:.3f} (limit "
+                f"{BF16_FP64_RATIO}, floor {BF16_FP64_FLOOR}) ms={ms:.4f} "
+                f"plain_ms={plain_ms:.4f} library_ms={fmt_ms(lib_ms)} "
+                f"sdpa_ms={fmt_ms(sdpa_ms)} " + fmt_dev(dev)
+                + ("ok" if ok else "MISMATCH"))
+            if not ok:
+                raise AssertionError(f"{name} ({label}): rel={rel}, fp64 "
+                                     f"ratio={ratio}")
+            record(results, name, label, err, ms, plain_ms,
+                   bf16_work(name, args, got), lib_ms, rel_err=rel,
+                   fp64_err=e_k, plain_fp64_err=e_p, fp64_ratio=ratio,
+                   **({} if sdpa_ms is None else dict(sdpa_ms=sdpa_ms)),
+                   **dev)
+            del got, want
+    for entry in results.values():
+        entry["fp64_ratio"] = max(c["fp64_ratio"] for c in entry["cases"])
+        sdpa = [c["sdpa_ms"] for c in entry["cases"] if "sdpa_ms" in c]
+        if sdpa:
+            entry["sdpa_ms"] = sum(sdpa)
+    device_sums(results)
+    return results
+
+
+def bf16_gemm_phase(batch: int, device, reps: int) -> dict:
+    """The bf16 GEMM alone at each ``x W^T`` shape bf16 inference gives it
+    (A's projections, B's self-layer q, k, v and merge) and a ragged check:
+    against the plain bf16 version, against fp64 (BF16_FP64_RATIO), bit
+    equality, its time beside the plain version and ``torch.matmul`` in
+    bf16 (reduced-precision reduction off), and its bound at the bf16
+    peak. One log line per shape; not part of the result line."""
+    import torch
+
+    from emip_tpu_torch import kernels as K
+    from emip_tpu_torch.kernels.gemm import gemm, gemm_reference
+
+    r = seeded_randn(SEED + 33, device)
+    bf = torch.bfloat16
+    shapes = [s for s in gemm_shapes(batch) if s[4] == "x W^T" and (
+        s[0].startswith("A ") or s[0] == "B q k v m")]
+    shapes.append(("check ragged", 1000, 88, 70, "x W^T"))
+    out = {}
+    with torch.no_grad():
+        for label, m, k, n, _ in shapes:
+            a = r(m, k).to(bf)
+            b = r(n, k, scale=k**-0.5).to(bf).t()
+            bias = r(n, scale=0.1)
+            before = K.LAUNCHES["gemm_bf16"]
+            got = gemm(a, b, bias)
+            want = gemm_reference(a, b, bias)
+            ref64 = a.double() @ b.double() + bias.double()
+            scale = ref64.abs().max().item()
+            rel = ((got.float() - want.float()).abs().max().item()
+                   / want.float().abs().max().item())
+            e_k = (got.double() - ref64).abs().max().item() / scale
+            e_p = (want.double() - ref64).abs().max().item() / scale
+            ratio = max(e_k, BF16_FP64_FLOOR) / max(e_p, BF16_FP64_FLOOR)
+            del ref64
+            if not torch.equal(gemm(a, b, bias), got):
+                raise AssertionError(f"gemm_bf16 ({label}): two calls differ")
+            if K.LAUNCHES["gemm_bf16"] != before + 2:
+                raise AssertionError(f"gemm_bf16 ({label}) did not launch")
+            ms, plain_ms = alternate_ms(lambda: gemm(a, b, bias),
+                                        lambda: gemm_reference(a, b, bias),
+                                        reps)
+            mm_ms = cuda_ms(lambda: torch.matmul(a, b), reps)
+            ops = 2.0 * m * n * k
+            bound = max(ops / PEAK_BF16_FLOPS,
+                        (2.0 * (m * k + k * n + m * n) + 4.0 * n)
+                        / PEAK_BYTES_PER_S) * 1e3
+            ok = (rel <= BF16_KERNEL_REL and ratio <= BF16_FP64_RATIO
+                  and ms >= bound)
+            log(f"gemm_bf16 {label:20s} [{m},{k}]x[{k},{n}] rel={rel:.2e} "
+                f"fp64 err kernel {e_k:.2e} plain {e_p:.2e} ratio "
+                f"{ratio:.3f} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                f"matmul_ms={mm_ms:.4f} bound_ms={bound:.4f} "
+                f"{ops / ms / 1e9:.1f} TFLOP/s {'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                raise AssertionError(f"gemm_bf16 ({label}): rel={rel}, "
+                                     f"ratio={ratio}, ms={ms} < {bound}?")
+            out[label] = dict(m=m, k=k, n=n, rel_err=rel, fp64_err=e_k,
+                              plain_fp64_err=e_p, fp64_ratio=ratio, ms=ms,
+                              plain_ms=plain_ms, matmul_ms=mm_ms,
+                              bound_ms=bound)
+            del a, b, got, want
+    return out
+
+
+def expected_launches_bf16(model) -> dict:
+    """Launches per bf16 forward: the bf16 instantiations of A-D where the
+    fp32 model launches A-D, and nothing else."""
+    per32 = expected_launches(model)
+    n = {k: 0 for k in per32}
+    for name in FWD_KERNELS:
+        n[name + "_bf16"] = per32[name]
+    return n
+
+
+def bf16_slice_phase(model, batch: int, size: int, device, timed: int,
+                     fp32: dict) -> tuple:
+    """The same b5 model and seeded frames as the fp32 slice phase, in
+    bf16 (``EMIPShort(cfg, dtype=bfloat16)`` on the same weights) through
+    ``predict_arrays``: launch counts over 1 + ``timed`` batches (the four
+    bf16 forwards, no fp32 kernel) and peak memory, beside the fp32 phase's;
+    frames/s of bf16 and fp32 timed in turns (fp32, bf16, bf16, fp32,
+    ``timed`` batches each; the medians of each model's batches); then one
+    pair through the plain bf16 versions on the CPU against the card, and
+    the card's bf16 against its fp32 on that pair. The gate: card bf16 vs
+    CPU bf16 within twice the bf16-vs-fp32 gap, which is above zero.
+    Returns (result, the bf16 model)."""
+    import torch
+
+    from emip_tpu_torch import kernels as K
+    from emip_tpu_torch.infer import predict_arrays
+    from emip_tpu_torch.models.emip_short import EMIPShort
+
+    model16 = EMIPShort(model.config, dtype=torch.bfloat16)
+    model16.load_state_dict(model.state_dict())
+    model16 = model16.to(device).eval()
+    rng = np.random.default_rng(SEED + 1)  # the fp32 slice's frames
+    n_batches = 1 + timed
+    frames = [(torch.from_numpy(seeded_frames(rng, batch, size)).to(device),
+               torch.from_numpy(seeded_frames(rng, batch, size)).to(device))
+              for _ in range(n_batches)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    # both models' fp32 parameters are resident; what the run adds (the
+    # bf16 weight copies, made at the first batch, and the activations) is
+    # the peak above this
+    resident = torch.cuda.memory_allocated(device)
+    K.reset_launches()
+    outputs = [predict_arrays(model16, a, b) for a, b in frames]
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(device)
+    work = peak - resident
+    want = {k: v * n_batches
+            for k, v in expected_launches_bf16(model16).items()}
+    log(f"bf16 slice launches {launches} (expected {want})")
+    if launches != want:
+        raise AssertionError(f"bf16 launch counts {launches} != {want}")
+    for mask, flow in outputs:
+        if (tuple(mask.shape) != (batch, 1, size, size)
+                or tuple(flow.shape) != (batch, 2, size, size)
+                or mask.dtype != torch.float32 or flow.dtype != torch.float32
+                or not (torch.isfinite(mask).all()
+                        and torch.isfinite(flow).all())):
+            raise AssertionError("bf16 outputs: shape, dtype or finiteness")
+
+    def batch_times(m) -> list:
+        out = []
+        for a, b in frames[1:]:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            predict_arrays(m, a, b)
+            end.record()
+            torch.cuda.synchronize()
+            out.append(start.elapsed_time(end))
+        return out
+
+    t32 = batch_times(model)
+    t16 = batch_times(model16) + batch_times(model16)
+    t32 += batch_times(model)
+    ms16, ms32 = statistics.median(t16), statistics.median(t32)
+    fps, fps32 = batch / (ms16 / 1e3), batch / (ms32 / 1e3)
+    log(f"slice b5 {size}^2 bs={batch} bf16: median {ms16:.3f} ms/batch -> "
+        f"{fps:.3f} frames/s; fp32 in the same turns {ms32:.3f} ms/batch -> "
+        f"{fps32:.3f} frames/s (x{fps / fps32:.3f}); peak memory "
+        f"{peak / 2**30:.3f} GiB, {work / 2**30:.3f} GiB above what was "
+        f"allocated before the run (the fp32 slice: peak "
+        f"{fp32['peak_bytes'] / 2**30:.3f} GiB, "
+        f"{fp32['working_bytes'] / 2**30:.3f} above)")
+
+    # one pair: the card's bf16 against the CPU's plain bf16 versions, and
+    # against the card's fp32 on the same pair
+    t0 = time.perf_counter()
+    a, b = frames[0]
+    card16 = outputs[0]
+    card32 = predict_arrays(model, a[:1], b[:1])
+    cpu16 = predict_arrays(copy.deepcopy(model16).cpu(), a[:1].cpu(),
+                           b[:1].cpu())
+    cmp = {}
+    for i, name in enumerate(("mask", "flow_fw")):
+        got = card16[i][:1].cpu()
+        err = (got - cpu16[i]).abs().max().item()
+        gap = (got - card32[i].cpu()).abs().max().item()
+        ok = gap > 0 and err <= 2 * gap
+        cmp[name] = dict(card_vs_cpu_bf16=err, bf16_vs_fp32_gap=gap,
+                         limit=2 * gap, ok=ok,
+                         ref_max_abs=cpu16[i].abs().max().item())
+        log(f"bf16 slice {name}: card bf16 vs CPU plain bf16 max_abs_err="
+            f"{err:.3e}; card bf16 vs card fp32 gap {gap:.3e} (limit 2 x gap "
+            f"= {2 * gap:.3e}, |ref| max {cmp[name]['ref_max_abs']:.3e}) "
+            f"{'ok' if ok else 'MISMATCH'}")
+    log(f"bf16 CPU reference pair took {time.perf_counter() - t0:.1f} s")
+    bad = [k for k, v in cmp.items() if not v["ok"]]
+    if bad:
+        raise AssertionError(f"bf16 card disagrees with the CPU: {bad}")
+    return dict(launches=launches, expected=want, median_ms=ms16,
+                batch_ms=t16, frames_per_s=fps, fp32_median_ms=ms32,
+                fp32_batch_ms=t32, fp32_frames_per_s=fps32, peak_bytes=peak,
+                working_bytes=work, fp32_peak_bytes=fp32["peak_bytes"],
+                fp32_working_bytes=fp32["working_bytes"], compare=cmp), model16
+
+
+def bf16_entry_phase(entry: dict, size: int) -> dict:
+    """``python -m emip_tpu_torch.test`` (in process) with the train
+    phase's YAML saying ``compute_dtype: bfloat16``, on its synthetic root
+    and checkpoint at b5 ``size``: TF32 and the bf16 reduced-precision
+    reduction on before the call and checked off after it, the bf16
+    forwards of A-D launched and none of their fp32 ones, a PNG per
+    pair."""
+    import yaml
+
+    from emip_tpu_torch import kernels as K
+    from emip_tpu_torch.test import main as test_main
+
+    work, root = entry["work"], entry["root"]
+    with open(entry["config"]) as f:
+        raw = yaml.safe_load(f)
+    raw["compute_dtype"] = "bfloat16"
+    cfg = os.path.join(work, "test_bf16.yaml")
+    with open(cfg, "w") as f:
+        yaml.safe_dump(raw, f)
+    name = os.path.basename(os.path.normpath(root))
+    pairs = sum(len(os.listdir(os.path.join(root, v, "GT"))) - 1
+                for v in os.listdir(root))
+    pred = os.path.join(work, "pred_bf16")
+    K.reset_launches()
+    tf32_on()
+    t0 = time.perf_counter()
+    test_main(["--config", cfg, "--ckpt", entry["ckpt"], "--save_path", pred,
+               "--data", f"{name}={root}"])
+    dt = time.perf_counter() - t0
+    tf32_checked_off("entry python -m emip_tpu_torch.test (bf16)")
+    launches = {k: v for k, v in K.LAUNCHES.items() if v}
+    pngs = _count_files(os.path.join(pred, name), ".png")
+    ok = (pngs == pairs
+          and all(K.LAUNCHES[k + "_bf16"] > 0 for k in FWD_KERNELS)
+          and not any(K.LAUNCHES[k] for k in FWD_KERNELS))
+    log(f"entry python -m emip_tpu_torch.test compute_dtype=bfloat16 b5 "
+        f"{size}^2: {pngs} PNGs for {pairs} pairs, launches {launches}, "
+        f"{dt:.1f} s {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError(f"bf16 test entry point: {pngs} PNGs, "
+                             f"launches {launches}")
+    return dict(pngs=pngs, pairs=pairs, launches=launches, seconds=dt)
 
 
 # --------------------------------------------------------------- train
@@ -1925,25 +2395,30 @@ def train_compare_phase(model, size: int, device,
 
 
 def tf32_on() -> None:
-    """Both TF32 switches on before an entry point runs: cuDNN's is on by
-    torch's default, the matmul one is turned on too so that the check
-    covers it. The entry point must turn both off itself
-    (``emip_tpu_torch.device.resolve_device``); :func:`tf32_checked_off`
-    holds it to that."""
+    """Both TF32 switches and cuBLAS's reduced-precision reduction of bf16
+    products on before an entry point runs: cuDNN's TF32 and the bf16
+    reduction are on by torch's default, the matmul TF32 one is turned on
+    too so that the check covers it. The entry point must turn all three off
+    itself (``emip_tpu_torch.device.resolve_device``);
+    :func:`tf32_checked_off` holds it to that."""
     import torch
 
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
 
 
 def tf32_checked_off(label: str) -> None:
     import torch
 
-    on = (torch.backends.cudnn.allow_tf32,
-          torch.backends.cuda.matmul.allow_tf32)
-    log(f"{label}: TF32 switches after the call (cudnn, matmul) = {on}")
+    matmul = torch.backends.cuda.matmul
+    on = (torch.backends.cudnn.allow_tf32, matmul.allow_tf32,
+          matmul.allow_bf16_reduced_precision_reduction)
+    log(f"{label}: TF32 switches and bf16 reduced-precision reduction "
+        f"after the call (cudnn, matmul, bf16) = {on}")
     if any(on):
-        raise AssertionError(f"{label} ran with TF32 on: {on}")
+        raise AssertionError(f"{label} ran with TF32 or the bf16 "
+                             f"reduced-precision reduction on: {on}")
 
 
 def entry_phase(batch: int, size: int) -> dict:
@@ -2757,8 +3232,13 @@ def main(argv=None) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     if opts.kernels is not None:
+        if wanted(opts.kernels, "bf16"):
+            bf16_kernel_phase(BATCH, device, KERNEL_REPS)
+            bf16_gemm_phase(BATCH, device, KERNEL_REPS)
+            return 0
         if wanted(opts.kernels, "gemm"):
             gemm_phase(BATCH, device, KERNEL_REPS)
         if wanted(opts.kernels, "attention_fwd"):
@@ -2782,6 +3262,13 @@ def main(argv=None) -> int:
     seeded_init_(model, SEED)
     model = model.to(device).eval()
     slice_res = slice_phase(model, BATCH, SIZE, device, TIMED_BATCHES)
+    # the bf16 band of short inference
+    bf16_kernels = bf16_kernel_phase(BATCH, device, KERNEL_REPS)
+    bf16_gemm = bf16_gemm_phase(BATCH, device, KERNEL_REPS)
+    bf16_slice, model16 = bf16_slice_phase(model, BATCH, SIZE, device,
+                                           TIMED_BATCHES, slice_res)
+    del model16
+    torch.cuda.empty_cache()
     compare_res = train_compare_phase(model, SIZE, device)
     train_res = train_phase(model, BATCH, SIZE, device, TIMED_STEPS)
     read_corr_cfg = dataclasses.replace(cfg, gmflow=dataclasses.replace(
@@ -2800,6 +3287,7 @@ def main(argv=None) -> int:
     static_res = static_phase(BATCH, SIZE, device, STATIC_TIMED)
     torch.cuda.empty_cache()
     chain_res = entry_chain_phase(entry_res, BATCH, SIZE)
+    bf16_entry = bf16_entry_phase(entry_res, SIZE)
     torch.cuda.empty_cache()
 
     from emip_tpu_torch.models.emip_long import EMIPLong
@@ -2845,12 +3333,17 @@ def main(argv=None) -> int:
             fused_ffn["train"]["variant"]["launches"])
     launches = {name: next((r[name] for r in runs if r[name]), 0)
                 for name in KERNEL_INFO}
+    # the bf16 forwards: the bf16 slice's run
+    launches.update({name: bf16_slice["launches"][name]
+                     for name in BF16_KERNEL_INFO})
+    kernels.update(bf16_kernels)
+    info = dict(KERNEL_INFO, **BF16_KERNEL_INFO)
     idle = [name for name, n in launches.items() if n == 0]
     if idle:
         raise AssertionError(f"kernels no main path launched: {idle}")
     line = {"kernels": [
-        dict(name=name, route="cuda", source=KERNEL_INFO[name][0],
-             replaces=KERNEL_INFO[name][1], launches=launches[name],
+        dict(name=name, route="cuda", source=info[name][0],
+             replaces=info[name][1], launches=launches[name],
              max_abs_err=kernels[name]["max_abs_err"],
              ms=kernels[name]["ms"], plain_ms=kernels[name]["plain_ms"],
              bound_ms=kernels[name]["bound_ms"],
@@ -2858,8 +3351,11 @@ def main(argv=None) -> int:
              library_ms=kernels[name]["library_ms"],
              **({"fp32_bound_ms": kernels[name]["fp32_bound_ms"],
                  "bound_rate": kernels[name]["bound_rate"]}
-                if "bound_rate" in kernels[name] else {}))
-        for name in KERNEL_INFO]}
+                if "bound_rate" in kernels[name] else {}),
+             **{k: kernels[name][k] for k in ("fp64_ratio", "sdpa_ms",
+                                              "device_ms")
+                if k in kernels[name]})
+        for name in info]}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, gemm=gemm_res, attention=attention_res,
@@ -2873,7 +3369,9 @@ def main(argv=None) -> int:
                        read_corr=read_corr, fused_ffn=fused_ffn,
                        read_corr_transpose_ms=transpose_ms,
                        flow_attention_stats_ms=stats_ms, tiny=tiny,
-                       train_512=train512, long_infer_512=long_infer512),
+                       train_512=train512, long_infer_512=long_infer512,
+                       bf16_gemm=bf16_gemm, bf16_slice=bf16_slice,
+                       bf16_entry=bf16_entry),
                   f, indent=1, default=str)
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {

@@ -3,12 +3,16 @@
 Reads the same keys as :func:`emip_tpu.utils.config.load_config` (which
 imports the flax models and so cannot be used here) into the port's own
 dataclasses, ``memory_size``, ``val_dataset_cad`` and the ``load`` block
-of checkpoints included. Keys that only steer the JAX package
-(``compute_dtype``, ``optimizer.name``, ``parallel``,
+of checkpoints included. ``compute_dtype`` ("bfloat16", the JAX package's
+default when the key is missing, or "float32"; anything else raises) is
+honoured by the short inference entry points, ``test`` and ``test_of``,
+which build their model in it. The trainers (``train``, ``train_long``,
+``train_static``) and ``test_long`` run fp32 whatever it says. Keys that
+only steer the JAX package (``optimizer.name``, ``parallel``,
 ``long_frames_per_dispatch``) change nothing here: the port trains on one
-card in fp32 with AdamW, one frame per step. Each of them that asks for
-something else, as a missing ``compute_dtype`` does (the JAX package then
-computes in bfloat16), is named in one warning line.
+card with AdamW, one frame per step. Each key that asks for something the
+entry point does not do, ``compute_dtype`` other than float32 for the
+fp32 entry points included, is named in one warning line.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import dataclasses
 import logging
 import os
 
+from emip_tpu_torch.dtypes import dtype_named
 from emip_tpu_torch.models.emip_short import EMIPShortConfig
 from emip_tpu_torch.models.gmflow import GMFlowConfig
 
@@ -65,6 +70,9 @@ class Config:
     save_path: str = "./snapshots/emip_tpu_torch/"
     memory_size: int = 5  # slots of the long-term model's rolling memory
     val_dataset_cad: DatasetConfig | None = None
+    # the short inference entry points' model dtype ("bfloat16" or
+    # "float32"); the trainers and test_long run fp32
+    compute_dtype: str = "bfloat16"
     raw: dict | None = None
 
 
@@ -108,33 +116,42 @@ def _model(d: dict) -> EMIPShortConfig:
     )
 
 
-def _warn_ignored(raw: dict, opt: dict) -> None:
+def _warn_ignored(raw: dict, opt: dict, honours_dtype: bool) -> None:
     """One warning line per key of the JAX package's that asks for other
-    than what the port does (fp32, AdamW, one card, a frame per step).
-    A missing ``compute_dtype`` is the JAX package's default, bfloat16."""
+    than what the entry point does: ``compute_dtype`` other than float32
+    where it runs fp32 (``honours_dtype`` false: the trainers and
+    ``test_long``; a missing key is the JAX package's default, bfloat16),
+    and AdamW, one card, a frame per step everywhere."""
     par = raw.get("parallel") or {}
     dtype = raw.get("compute_dtype", "bfloat16")
     name = str(opt.get("name", "adamw"))
     frames = int(raw.get("long_frames_per_dispatch", 1))
     for key, value, other in (
-            ("compute_dtype", dtype, dtype != "float32"),
+            ("compute_dtype", dtype,
+             not honours_dtype and dtype != "float32"),
             ("optimizer.name", name, name.lower() != "adamw"),
             ("parallel", par, int(par.get("model_parallel", 1)) != 1
              or bool(par.get("fsdp")) or bool(par.get("sequence_parallel"))),
             ("long_frames_per_dispatch", frames, frames != 1)):
         if other:
-            log.warning("config key %s=%r is ignored: the port runs fp32, "
+            log.warning("config key %s=%r is ignored: train, train_long, "
+                        "train_static and test_long run fp32 (test and "
+                        "test_of honour compute_dtype), and the port runs "
                         "AdamW, one card, one frame per dispatch", key, value)
 
 
-def load_config(path: str) -> Config:
+def load_config(path: str, honours_dtype: bool = False) -> Config:
+    """The YAML at ``path``. ``honours_dtype``: the caller builds its model
+    in ``compute_dtype`` (the short inference entry points); otherwise a
+    ``compute_dtype`` other than float32 is warned of as ignored."""
     import yaml
 
     with open(path) as f:
         raw = yaml.safe_load(f)
     opt = raw.get("optimizer", {}) or {}
     load = raw.get("load", {}) or {}
-    _warn_ignored(raw, opt)
+    dtype_named(str(raw.get("compute_dtype", "bfloat16")))  # raises if bad
+    _warn_ignored(raw, opt, honours_dtype)
     cfg = Config(
         train_dataset=_dataset(raw.get("train_dataset")) or DatasetConfig(),
         val_dataset=_dataset(raw.get("val_dataset")) or DatasetConfig(),
@@ -155,6 +172,7 @@ def load_config(path: str) -> Config:
         clip=float(raw.get("clip", 0.5)),
         seed=int(raw.get("seed", 123)),
         save_path=str(raw.get("save_path", "./snapshots/emip_tpu_torch/")),
+        compute_dtype=str(raw.get("compute_dtype", "bfloat16")),
         raw=raw,
     )
     if cfg.model.inp_size % 32 != 0:

@@ -1,0 +1,192 @@
+// bf16 building blocks of the port's bf16 forward kernels (the bf16 band of
+// short inference: kernels A, B, C and D forward):
+//
+//   mma_bf16         mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32:
+//                    bf16 operands, fp32 accumulators. Lane (g = lane / 4,
+//                    t = lane % 4) holds a0 (row g, k 2t..2t+1), a1 (row
+//                    g + 8, k 2t..), a2 (row g, k 2t+8..), a3 (row g + 8, k
+//                    2t+8..); b0 (k 2t..2t+1, n g), b1 (k 2t+8.., n g);
+//                    c0, c1 (row g, n 2t, 2t+1), c2, c3 (row g + 8, ...).
+//   ldmatrix_x4      four 8 x 8 bf16 matrices from shared memory, one row
+//                    address per lane (lanes 8i..8i+7 address matrix i);
+//                    lane l receives row l / 4, columns 2(l % 4), +1 of
+//                    each: a fragment of a row-major A, or of a B whose n
+//                    rows hold k contiguous (a torch weight [N, K], k rows
+//                    [keys, D]). The .trans form gives the transpose: a B
+//                    fragment of v rows [keys, DV] (k = keys).
+//   pack_bf16        two fp32 values rounded to bf16 (nearest even) in one
+//                    register, the lower index in the lower half: P of an
+//                    attention, from its accumulator fragments, as the A
+//                    operand of P v.
+//   layernorm_self_bf16, layernorm_out_bf16
+//                    the two LayerNorms of kernel B's bf16 block that round
+//                    where the JAX kernel rounds (see window_attention.cu).
+//   bf16_to_f32      an elementwise upcast (B's cross layer reads t in
+//                    fp32, as the JAX kernel upcasts it).
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+#include "mma_tf32.cuh"
+
+namespace emip {
+namespace {
+
+// (kernel signatures below spell __nv_bfloat16: nvcc's host stubs do not
+// resolve an alias declared in an unnamed namespace)
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const bf16* p) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// 16 bytes (or BYTES) from device to shared memory; zeros when !valid (src
+// must still be an address of the tensor).
+template <int BYTES>
+__device__ __forceinline__ void cp_async_raw(void* dst, const void* src,
+                                             bool valid) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  const int n = valid ? BYTES : 0;
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
+                 "l"(src), "r"(n));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;" ::"r"(d),
+                 "l"(src), "n"(BYTES), "r"(n));
+}
+
+inline bool aligned16_ptr(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// ------------------------------------------------------------ LayerNorms
+
+// out[r, c] = bf16(res[r, c] + bf16(LN(x[r]) gamma + beta)), stored as
+// fp32: B's self layer, x1 = x + msg.astype(bf16) in bf16, handed to the
+// fp32 cross layer. One warp per row.
+__global__ void __launch_bounds__(32 * kLnRowsPerBlock)
+layernorm_self_bf16_kernel(const float* __restrict__ x,
+                           const __nv_bfloat16* __restrict__ res,
+                           const float* __restrict__ gamma,
+                           const float* __restrict__ beta,
+                           float* __restrict__ out, int ldo, int rows, int C,
+                           float eps) {
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * kLnRowsPerBlock + threadIdx.x / 32;
+  if (row >= rows) return;
+  const float* xr = x + (long long)row * C;
+  float s = 0.f;
+  for (int c = lane; c < C; c += 32) s += xr[c];
+  const float mu = warp_sum(s) / C;
+  float v = 0.f;
+  for (int c = lane; c < C; c += 32) {
+    const float d = xr[c] - mu;
+    v += d * d;
+  }
+  const float inv = rsqrtf(warp_sum(v) / C + eps);
+  const bf16* rr = res + (long long)row * C;
+  float* orow = out + (long long)row * ldo;
+  for (int c = lane; c < C; c += 32) {
+    const float msg = round_bf16((xr[c] - mu) * inv * gamma[c] + beta[c]);
+    orow[c] = round_bf16(__bfloat162float(rr[c]) + msg);
+  }
+}
+
+// out[r, c] = bf16(res[r, c] + LN(x[r]) gamma + beta), res fp32 (leading
+// dimension ldr): B's output, rounded once at the end as the JAX kernel
+// rounds it.
+__global__ void __launch_bounds__(32 * kLnRowsPerBlock)
+layernorm_out_bf16_kernel(const float* __restrict__ x,
+                          const float* __restrict__ res, int ldr,
+                          const float* __restrict__ gamma,
+                          const float* __restrict__ beta,
+                          __nv_bfloat16* __restrict__ out, int rows, int C,
+                          float eps) {
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * kLnRowsPerBlock + threadIdx.x / 32;
+  if (row >= rows) return;
+  const float* xr = x + (long long)row * C;
+  float s = 0.f;
+  for (int c = lane; c < C; c += 32) s += xr[c];
+  const float mu = warp_sum(s) / C;
+  float v = 0.f;
+  for (int c = lane; c < C; c += 32) {
+    const float d = xr[c] - mu;
+    v += d * d;
+  }
+  const float inv = rsqrtf(warp_sum(v) / C + eps);
+  const float* rr = res + (long long)row * ldr;
+  bf16* orow = out + (long long)row * C;
+  for (int c = lane; c < C; c += 32)
+    orow[c] = __float2bfloat16_rn(rr[c] +
+                                  ((xr[c] - mu) * inv * gamma[c] + beta[c]));
+}
+
+inline cudaError_t layernorm_self_bf16(const float* x, const bf16* res,
+                                       const float* gamma, const float* beta,
+                                       float* out, int ldo, int rows, int C,
+                                       float eps, cudaStream_t stream) {
+  const int blocks = ceil_div(rows, kLnRowsPerBlock);
+  layernorm_self_bf16_kernel<<<blocks, 32 * kLnRowsPerBlock, 0, stream>>>(
+      x, res, gamma, beta, out, ldo, rows, C, eps);
+  return cudaGetLastError();
+}
+
+inline cudaError_t layernorm_out_bf16(const float* x, const float* res,
+                                      int ldr, const float* gamma,
+                                      const float* beta, bf16* out, int rows,
+                                      int C, float eps, cudaStream_t stream) {
+  const int blocks = ceil_div(rows, kLnRowsPerBlock);
+  layernorm_out_bf16_kernel<<<blocks, 32 * kLnRowsPerBlock, 0, stream>>>(
+      x, res, ldr, gamma, beta, out, rows, C, eps);
+  return cudaGetLastError();
+}
+
+__global__ void bf16_to_f32_kernel(const __nv_bfloat16* __restrict__ in,
+                                   float* __restrict__ out, long long n) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = __bfloat162float(in[i]);
+}
+
+inline cudaError_t bf16_to_f32(const bf16* in, float* out, long long n,
+                               cudaStream_t stream) {
+  if (n == 0) return cudaSuccess;
+  bf16_to_f32_kernel<<<ceil_div(n, 256), 256, 0, stream>>>(in, out, n);
+  return cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace emip

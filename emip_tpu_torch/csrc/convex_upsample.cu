@@ -1,4 +1,5 @@
-// Kernel D: RAFT convex x K flow upsampling, forward and backward.
+// Kernel D: RAFT convex x K flow upsampling, forward and backward; the
+// forward also with bf16 mask logits (the bf16 band of short inference).
 //
 // Replaces emip_tpu/ops/pallas/convex_upsample.py:convex_upsample_pallas
 // (_kernel, _bwd_kernel). flow [B, h, w, 2], mask logits [B, h, w, 9*K*K]
@@ -25,13 +26,23 @@
 // (border clamps as _neighbors_3x3), so every sum has a fixed order and
 // no atomics are needed.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// TM: the logits' storage type, fp32 or (the bf16 band) bf16; the logits
+// are read in it and everything after the load is fp32, as the JAX kernel
+// upcasts its logits slices.
+template <typename TM>
 __global__ void convex_upsample_kernel(const float* __restrict__ flow,
-                                       const float* __restrict__ mask,
+                                       const TM* __restrict__ mask,
                                        float* __restrict__ out, int B, int h,
                                        int w, int K) {
   const long long total = (long long)B * h * K * w * K;
@@ -43,13 +54,13 @@ __global__ void convex_upsample_kernel(const float* __restrict__ flow,
   const int b = (int)(idx / ((long long)W * H));
   const int hy = Y / K, ky = Y % K, wx = X / K, kx = X % K;
   const int KK = K * K;
-  const float* lg =
+  const TM* lg =
       mask + (((long long)b * h + hy) * w + wx) * 9 * KK + ky * K + kx;
   float l[9];
   float mx = -INFINITY;
 #pragma unroll
   for (int n = 0; n < 9; ++n) {
-    l[n] = lg[n * KK];
+    l[n] = to_f32(lg[n * KK]);
     mx = fmaxf(mx, l[n]);
   }
   float sum = 0.f, ox = 0.f, oy = 0.f;
@@ -187,6 +198,20 @@ extern "C" int emip_convex_upsample(const float* flow, const float* mask,
   convex_upsample_kernel<<<blocks, threads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
       flow, mask, out, B, h, w, K);
+  return (int)cudaGetLastError();
+}
+
+// The bf16 band: mask logits [B, h, w, 9*K*K] bf16, read as bf16 and
+// computed in fp32; flow and out fp32 as above.
+extern "C" int emip_convex_upsample_bf16(const float* flow, const void* mask,
+                                         float* out, int B, int h, int w,
+                                         int K, void* stream) {
+  const long long total = (long long)B * h * K * w * K;
+  const int threads = 256;
+  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
+  convex_upsample_kernel<<<blocks, threads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      flow, static_cast<const __nv_bfloat16*>(mask), out, B, h, w, K);
   return (int)cudaGetLastError();
 }
 

@@ -51,6 +51,7 @@
 // run unsplit. On the train path v is the pixel grid or the detached flow,
 // so dv is not asked for.
 
+#include "attention_bf16.cuh"
 #include "mma_tf32.cuh"
 
 // the tilings: warps, fragments of 16 resident rows per warp, streamed rows
@@ -91,6 +92,19 @@ extern "C" int emip_flow_attention(const float* q, const float* k,
     return (int)cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// The bf16 forward (the bf16 band of short inference): q, k [B, L, C] bf16,
+// v [B, L, 2] fp32, out [B, L, 2] fp32, as the JAX kernel takes them in a
+// bf16 model (q k^T from bf16 operands into fp32, P and P v in fp32). The
+// bf16 attention of attention_bf16.cu; no statistics: there is no bf16
+// backward yet.
+extern "C" int emip_flow_attention_bf16(const void* q, const void* k,
+                                        const float* v, float* out, int B,
+                                        int L, int C, void* stream) {
+  const long long qsb = (long long)L * C, vsb = (long long)L * 2;
+  return emip_attention_fwd_bf16(q, qsb, C, k, qsb, C, v, vsb, 2, nullptr, 1,
+                                 out, vsb, 2, B, 1, L, L, C, 2, 0, stream);
 }
 
 // g: [B, L, DV] gradient of out; out and stats are the forward's. dq, dk,

@@ -3,6 +3,7 @@
 // B, G and H give it (kernels/gemm.py). No model path calls it: there the
 // GEMM runs inside those kernels' entry points.
 
+#include "gemm_bf16.cuh"
 #include "gemm_tf32.cuh"
 
 // C [M, N] (row stride ldc) = A . B (+ bias [N]), A(m, k) at A[m * sam + k
@@ -25,6 +26,22 @@ extern "C" int emip_gemm(const float* A, long long sam, long long sak,
   } else {
     err = gemm(g, kEpiNone, s);
   }
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The bf16 GEMM of gemm_bf16.cuh alone (kernels A and B in the bf16 band):
+// C [M, N] (row stride ldc) = A [M, K] (row stride lda) . W^T (+ bias [N],
+// fp32) for W [N, K] (row stride ldw), A and W bf16, C bf16 (out_bf16) or
+// fp32.
+extern "C" int emip_gemm_bf16(const void* A, long long lda, const void* W,
+                              long long ldw, const float* bias, void* C,
+                              long long ldc, int M, int N, int K,
+                              int out_bf16, void* stream) {
+  using namespace emip;
+  cudaError_t err = linear_bf16(
+      static_cast<const bf16*>(A), lda, static_cast<const bf16*>(W), ldw,
+      bias, C, ldc, M, N, K, out_bf16 != 0, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -40,7 +40,9 @@
 // that are not asked for are not computed: dq only for gx, Wq or bq, dk and
 // dv only for g_kv_in, Wkv or bkv.
 
+#include "attention_bf16.cuh"
 #include "attention_fwd.cuh"
+#include "gemm_bf16.cuh"
 #include "gemm_tf32.cuh"
 
 // the tiling of the attention backward: warps, fragments of 16 resident
@@ -74,6 +76,46 @@ extern "C" int emip_sr_attention(const float* x, const float* kv_in,
                                   M, ch, 0, stream))
     return rc;
   if ((err = linear(o_buf, C, wp, bp, out, C, B * N, C, C, false, s)))
+    return err;
+  return (int)cudaGetLastError();
+}
+
+// The bf16 forward (the bf16 band of short inference), as the JAX kernel
+// computes it with a bf16 storage dtype: x, kv_in and the three weights
+// bf16, the biases fp32. q = bf16(x Wq^T + bq) and [k | v] = bf16(kv_in
+// Wkv^T + bkv) (fp32 sums, the bias added before the one rounding), o the
+// bf16 attention of attention_bf16.cu per head (fp32 scores and softmax, P
+// rounded to bf16 for P v), out = bf16(o Wp^T + bp). Four launches, as the
+// fp32 forward; no statistics are kept: there is no bf16 backward yet.
+extern "C" int emip_sr_attention_bf16(const void* x, const void* kv_in,
+                                      const void* wq, const float* bq,
+                                      const void* wkv, const float* bkv,
+                                      const void* wp, const float* bp,
+                                      void* q_buf, void* kv_buf, void* o_buf,
+                                      void* out, int B, int N, int M, int C,
+                                      int heads, void* stream) {
+  using namespace emip;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int ch = C / heads;
+  const bf16 *xb = static_cast<const bf16*>(x),
+             *kvb = static_cast<const bf16*>(kv_in);
+  bf16* kvbuf = static_cast<bf16*>(kv_buf);
+  cudaError_t err;
+  if ((err = linear_bf16(xb, C, static_cast<const bf16*>(wq), C, bq, q_buf, C,
+                         B * N, C, C, true, s)))
+    return err;
+  if ((err = linear_bf16(kvb, C, static_cast<const bf16*>(wkv), C, bkv,
+                         kv_buf, 2 * C, B * M, 2 * C, C, true, s)))
+    return err;
+  const long long qsb = (long long)N * C, ksb = (long long)M * 2 * C;
+  if (int rc = emip_attention_fwd_bf16(q_buf, qsb, C, kvbuf, ksb, 2 * C,
+                                       kvbuf + C, ksb, 2 * C, nullptr, 1,
+                                       o_buf, qsb, C, B, heads, N, M, ch, ch,
+                                       0, stream))
+    return rc;
+  if ((err = linear_bf16(static_cast<const bf16*>(o_buf), C,
+                         static_cast<const bf16*>(wp), C, bp, out, C, B * N,
+                         C, C, true, s)))
     return err;
   return (int)cudaGetLastError();
 }

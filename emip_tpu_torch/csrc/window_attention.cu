@@ -59,7 +59,9 @@
 // grads are wanted. The inference forward passes one buffer where the
 // backward would need two.
 
+#include "attention_bf16.cuh"
 #include "attention_fwd.cuh"
+#include "gemm_bf16.cuh"
 #include "gemm_tf32.cuh"
 
 // the tiling of the attention backward: warps, fragments of 16 resident
@@ -390,6 +392,63 @@ extern "C" int emip_window_block(
                        o2, m2, stats2, w, s));
   layernorm(m2, C, nullptr, 0, sa, ba, cat + C, C2, R, C, eps, s);
   EMIP_TRY(ffn_fwd(cat, w0, w2, sb, bb, h, u, z, out, R, C, F, eps, s));
+  return (int)cudaGetLastError();
+}
+
+// The bf16 forward (the bf16 band of short inference), as the JAX kernel
+// (_block_kernel) computes it with a bf16 storage dtype: a mixed block.
+// x, t [R, C] and out are bf16; the self layer's weights wq1..wm1 are
+// bf16 (the JAX kernel casts them at use), every other parameter fp32.
+//   self layer, in bf16: q, k, v = bf16(x W) (the bf16 GEMM, fp32 sums),
+//     o = the bf16 attention (fp32 softmax, P rounded for P v), m = o Wm1
+//     in fp32, x1 = bf16(x + bf16(LN1s(m))), kept in fp32 in cat[:, :C];
+//   cross layer + FFN, in fp32 (the JAX kernel upcasts x1 and t): t is
+//     upcast into t32, then the 3xTF32 message_fwd and the FFN of the fp32
+//     entry points on fp32 weights; out = bf16(x1 + LN2c(z)), rounded once.
+// Buffers: qkv1 [R, 3C] and o1 [R, C] bf16; m, t32, o2, z [R, C], qkv2 [R,
+// 3C], cat [R, 2C] and u [R, F] fp32. No statistics are kept: there is no
+// bf16 backward yet.
+extern "C" int emip_window_block_bf16(
+    const void* x, const void* t,
+    const void* wq1, const void* wk1, const void* wv1, const void* wm1,
+    const float* s1, const float* b1,
+    const float* wq2, const float* wk2, const float* wv2, const float* wm2,
+    const float* sa, const float* ba,
+    const float* w0, const float* w2, const float* sb, const float* bb,
+    const float* mask, int mask_nw, void* qkv1, void* o1, float* m,
+    float* t32, float* qkv2, float* o2, float* cat, float* u, float* z,
+    void* out, float* ws, long long ws_floats, int windows, int T, int C,
+    int F, float eps, void* stream) {
+  using namespace emip;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Windows d{windows, T, C, mask, mask_nw};
+  const int R = d.rows(), C2 = 2 * C, C3 = 3 * C;
+  const bf16* xb = static_cast<const bf16*>(x);
+  bf16* qkv = static_cast<bf16*>(qkv1);
+  const bf16* const w1[3] = {static_cast<const bf16*>(wq1),
+                             static_cast<const bf16*>(wk1),
+                             static_cast<const bf16*>(wv1)};
+  cudaError_t err;
+  for (int i = 0; i < 3; ++i)
+    EMIP_TRY(linear_bf16(xb, C, w1[i], C, nullptr, qkv + i * C, C3, R, C, C,
+                         true, s));
+  const long long wsb = (long long)T * C3;
+  EMIP_TRY((cudaError_t)emip_attention_fwd_bf16(
+      qkv, wsb, C3, qkv + C, wsb, C3, qkv + C2, wsb, C3, mask, mask_nw, o1,
+      (long long)T * C, C, windows, 1, T, T, C, C, 1, stream));
+  EMIP_TRY(linear_bf16(static_cast<const bf16*>(o1), C,
+                       static_cast<const bf16*>(wm1), C, nullptr, m, C, R, C,
+                       C, false, s));
+  EMIP_TRY(layernorm_self_bf16(m, xb, s1, b1, cat, C2, R, C, eps, s));
+  EMIP_TRY(bf16_to_f32(static_cast<const bf16*>(t), t32, (long long)R * C,
+                       s));
+  EMIP_TRY(message_fwd(cat, C2, t32, LayerWeights{wq2, wk2, wv2, wm2}, d,
+                       qkv2, o2, m, nullptr, Workspace{ws, ws_floats}, s));
+  layernorm(m, C, nullptr, 0, sa, ba, cat + C, C2, R, C, eps, s);
+  EMIP_TRY(linear(cat, C2, w0, nullptr, u, F, R, F, C2, true, s));
+  EMIP_TRY(linear(u, F, w2, nullptr, z, C, R, C, F, false, s));
+  EMIP_TRY(layernorm_out_bf16(z, cat, C2, sb, bb, static_cast<bf16*>(out), R,
+                              C, eps, s));
   return (int)cudaGetLastError();
 }
 

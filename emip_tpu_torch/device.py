@@ -21,15 +21,19 @@ def resolve_device(device: torch.device | str = DEFAULT_DEVICE
     ``torch.cuda.is_available()`` is false.
 
     For a GPU it also turns TF32 off for cuDNN's convolutions and for
-    matmuls, process-wide, before it returns. The port computes in fp32
-    (its kernels run their products as 3xTF32, within 1e-5 of fp64), and
-    ``config.py`` warns that it does; torch's default lets cuDNN run every
-    convolution in TF32 (``torch.backends.cudnn.allow_tf32`` is True),
-    which would take the patch embeds, the flow encoder, the injectors,
-    ``conv_corr`` and the decoder off that band. Every entry point that
-    runs a model on the card comes through here first. Only the legacy
-    ``allow_tf32`` switches are set: torch refuses to read them back once
-    they are mixed with the newer ``fp32_precision`` ones.
+    matmuls, process-wide, before it returns. The port's fp32 band
+    computes in fp32 (its kernels run their products as 3xTF32, within
+    1e-5 of fp64); torch's default lets cuDNN run every convolution in TF32
+    (``torch.backends.cudnn.allow_tf32`` is True), which would take the
+    patch embeds, the flow encoder, the injectors, ``conv_corr`` and the
+    decoder off that band. It turns off cuBLAS's reduced-precision
+    reduction of bf16 products too
+    (``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``,
+    True by torch's default): the bf16 band's library matmuls (the PVT
+    MixFFN's linears) then sum in fp32, as XLA does. Every entry point
+    that runs a model on the card comes through here first. Only the
+    legacy ``allow_tf32`` switches are set: torch refuses to read them
+    back once they are mixed with the newer ``fp32_precision`` ones.
     """
     device = torch.device(device)
     if device.type == "cuda":
@@ -40,6 +44,8 @@ def resolve_device(device: torch.device | str = DEFAULT_DEVICE
                 "to the CPU (pass device='cpu' / --device cpu to run there)")
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = (
+            False)
     return device
 
 

@@ -1,0 +1,106 @@
+"""The compute dtype of a model: fp32 or the bf16 band of short inference.
+
+The JAX package's models take a ``dtype`` (``compute_dtype`` of the YAML,
+bfloat16 by default) under flax's rule: parameters stay fp32, and each
+layer casts its input and its weights to ``dtype`` where it uses them,
+except the normalisations, whose statistics (and every ``BatchNorm``)
+stay fp32. The port follows the same rule. :func:`set_compute_dtype`
+gives a module tree its dtype and each module reads it with
+:func:`compute_dtype`; the layers below (drop-in subclasses of torch's,
+with the same parameters and ``state_dict`` keys, and in fp32 the same
+computation) cast their input and weights where flax casts them. Weights
+are cast with :func:`cast`, which keeps one bf16 copy per weight for calls
+without autograd, so inference on the card does not launch one cast per
+weight per call. Rounding fp32 to bf16 is deterministic: the copy holds
+the numbers flax's cast at use would give, and the fp32 parameters stay
+what the state dict holds.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+__all__ = ["COMPUTE_DTYPES", "dtype_named", "cast", "set_compute_dtype",
+           "compute_dtype", "Linear", "Conv2d", "LayerNorm", "BatchNorm2d"]
+
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def dtype_named(name: str) -> torch.dtype:
+    """``compute_dtype`` of a YAML -> torch dtype; raises on other names."""
+    if name not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be one of "
+                         f"{sorted(COMPUTE_DTYPES)}, got {name!r}")
+    return COMPUTE_DTYPES[name]
+
+
+def cast(p: torch.Tensor | None, dtype: torch.dtype) -> torch.Tensor | None:
+    """``p`` in ``dtype``. Without autograd the cast is made once and kept
+    beside ``p`` until ``p`` changes (in place, or by moving), so repeated
+    inference calls reuse it; with autograd it is made at every call."""
+    if p is None or p.dtype == dtype:
+        return p
+    if torch.is_grad_enabled():
+        return p.to(dtype)
+    key = (dtype, p.device, p.data_ptr(), p._version)
+    kept = getattr(p, "_emip_cast", None)
+    if kept is not None and kept[0] == key:
+        return kept[1]
+    out = p.detach().to(dtype)
+    p._emip_cast = (key, out)
+    return out
+
+
+def set_compute_dtype(module: torch.nn.Module, dtype: torch.dtype) -> None:
+    """Give ``module`` and every submodule the compute dtype ``dtype``."""
+    for m in module.modules():
+        m.compute_dtype = dtype
+
+
+def compute_dtype(module: torch.nn.Module) -> torch.dtype:
+    """The compute dtype of ``module`` (fp32 unless it was given one)."""
+    return getattr(module, "compute_dtype", torch.float32)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` in its module's compute dtype (flax's ``Dense``):
+    input, weight and bias cast to it."""
+
+    def forward(self, x):
+        dt = compute_dtype(self)
+        if dt == torch.float32:
+            return super().forward(x)
+        return F.linear(x.to(dt), cast(self.weight, dt), cast(self.bias, dt))
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` in its module's compute dtype (flax's ``Conv``):
+    input, weight and bias cast to it."""
+
+    def forward(self, x):
+        dt = compute_dtype(self)
+        if dt == torch.float32:
+            return super().forward(x)
+        return self._conv_forward(x.to(dt), cast(self.weight, dt),
+                                  cast(self.bias, dt))
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` with fp32 statistics and parameters, returned in the
+    input's dtype (flax's ``LayerNorm`` with a bf16 ``dtype``)."""
+
+    def forward(self, x):
+        if x.dtype == torch.float32:
+            return super().forward(x)
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
+                            self.bias, self.eps).to(x.dtype)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` that computes and returns fp32 whatever its input
+    (flax's ``BatchNorm(dtype=float32)`` in the JAX package's bf16 model)."""
+
+    def forward(self, x):
+        return super().forward(x.float())

@@ -28,9 +28,11 @@ __all__ = ["predict_arrays", "predict_pairs", "predict_clips_long",
 @torch.inference_mode()
 def predict_arrays(model, img1: torch.Tensor, img2: torch.Tensor):
     """NCHW frame batches on the model's device -> (mask logits
-    [B, 1, H, W], forward flow [B, 2, H, W])."""
+    [B, 1, H, W], forward flow [B, 2, H, W]), both fp32 whatever the
+    model's compute dtype (as the JAX package's ``predict_arrays`` hands
+    the host fp32)."""
     mask, flow_fw, _ = model(img1, img2)
-    return mask, flow_fw[-1]
+    return mask.float(), flow_fw[-1].float()
 
 
 def postprocess_to_png(logits_hw: np.ndarray, orig_hw, path: str) -> None:

@@ -31,6 +31,13 @@ LAUNCHES = {
     # (kernels/gemm.py, kernels/attention.py: checks)
     "gemm": 0,
     "attention": 0,
+    # the bf16 band of short inference: the bf16 forwards of A-D and the
+    # bf16 GEMM alone
+    "sr_attention_bf16": 0,
+    "window_attention_block_bf16": 0,
+    "flow_attention_bf16": 0,
+    "convex_upsample_bf16": 0,
+    "gemm_bf16": 0,
 }
 
 # floats of split-K / column-sum / attention-partial workspace a backward
@@ -60,13 +67,32 @@ def on_cpu(name: str, *tensors: torch.Tensor) -> bool:
     return False
 
 
-def check_kernel_args(name: str, **tensors: torch.Tensor) -> None:
-    """Every tensor the kernel reads or writes: fp32 and contiguous."""
+def check_kernel_args(name: str, dtype: torch.dtype = torch.float32,
+                      **tensors: torch.Tensor) -> None:
+    """Every tensor the kernel reads or writes: ``dtype`` and contiguous.
+
+    A bf16 tensor where the kernel has only its fp32 instantiation is named
+    as such: the bf16 band has A-D forward only, so far.
+    """
     for arg, t in tensors.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: {arg} must be float32, got {t.dtype}")
+        if t.dtype != dtype:
+            if t.dtype == torch.bfloat16:
+                raise TypeError(f"{name}: {arg} is bfloat16, and {name} has "
+                                f"no bfloat16 instantiation (only its "
+                                f"{dtype} one)")
+            raise TypeError(f"{name}: {arg} must be {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
+
+
+def no_bf16_grad(name: str, *tensors) -> None:
+    """A bf16 forward keeps nothing for a backward: there is no bf16
+    backward kernel yet. Raises when a gradient is asked for."""
+    if grad_wanted(*tensors):
+        raise NotImplementedError(
+            f"{name}: no bfloat16 backward (it belongs to the bf16 train "
+            f"step's slice); run the bf16 forward without autograd, or in "
+            f"float32")
 
 
 def check_shape(name: str, arg: str, t: torch.Tensor, shape) -> None:

@@ -4,6 +4,9 @@ Port of :func:`emip_tpu.ops.pallas.convex_upsample.convex_upsample_pallas`;
 the CUDA source is ``csrc/convex_upsample.cu``. :func:`convex_upsample` is
 one ``torch.autograd.Function``: CPU tensors take the plain version (and
 its autograd backward), CUDA tensors the forward and backward kernels.
+In the bf16 band the mask logits are bf16 (flow fp32): the forward kernel
+reads them as bf16 and computes in fp32 (``emip_convex_upsample_bf16``),
+writing fp32; it takes no gradient.
 """
 
 from __future__ import annotations
@@ -20,7 +23,10 @@ _NAME = "convex_upsample"
 
 
 def convex_upsample_reference(flow, mask_logits, k: int = 8) -> torch.Tensor:
-    """Plain PyTorch version of :func:`convex_upsample`."""
+    """Plain PyTorch version of :func:`convex_upsample` (bf16 logits are
+    upcast, everything after is fp32)."""
+    if mask_logits.dtype == torch.bfloat16:
+        mask_logits = mask_logits.float()
     b, h, w, _ = flow.shape
     pad = F.pad(flow * k, (0, 0, 1, 1, 1, 1))
     nb = torch.stack([pad[:, dy:dy + h, dx:dx + w, :]
@@ -28,6 +34,15 @@ def convex_upsample_reference(flow, mask_logits, k: int = 8) -> torch.Tensor:
     weights = torch.softmax(mask_logits.reshape(b, h, w, 9, k, k), dim=3)
     up = torch.einsum("bhwnkl,bhwnc->bhwklc", weights, nb)
     return up.permute(0, 1, 3, 2, 4, 5).reshape(b, h * k, w * k, 2)
+
+
+def _check_shapes(flow, mask_logits, k) -> None:
+    if flow.dim() != 4 or flow.shape[-1] != 2:
+        raise ValueError(f"{_NAME}: flow must be [B, h, w, 2]")
+    if not 1 <= k <= 32:
+        raise ValueError(f"{_NAME}: factor {k} not in [1, 32]")
+    b, h, w, _ = flow.shape
+    cm.check_shape(_NAME, "mask_logits", mask_logits, (b, h, w, 9 * k * k))
 
 
 class _ConvexUpsample(torch.autograd.Function):
@@ -40,12 +55,8 @@ class _ConvexUpsample(torch.autograd.Function):
         if ctx.cpu:
             return convex_upsample_reference(flow, mask_logits, k)
         cm.check_kernel_args(_NAME, flow=flow, mask_logits=mask_logits)
-        if flow.dim() != 4 or flow.shape[-1] != 2:
-            raise ValueError(f"{_NAME}: flow must be [B, h, w, 2]")
-        if not 1 <= k <= 32:
-            raise ValueError(f"{_NAME}: factor {k} not in [1, 32]")
+        _check_shapes(flow, mask_logits, k)
         b, h, w, _ = flow.shape
-        cm.check_shape(_NAME, "mask_logits", mask_logits, (b, h, w, 9 * k * k))
         out = torch.empty((b, h * k, w * k, 2), device=flow.device,
                           dtype=flow.dtype)
         rc = library().emip_convex_upsample(
@@ -79,13 +90,34 @@ class _ConvexUpsample(torch.autograd.Function):
                 None, None)
 
 
+def _forward_bf16(flow, mask_logits, k):
+    cm.no_bf16_grad(_NAME, flow, mask_logits)
+    if cm.on_cpu(_NAME, flow, mask_logits):
+        return convex_upsample_reference(flow, mask_logits, k)
+    cm.check_kernel_args(_NAME, flow=flow)
+    cm.check_kernel_args(_NAME, torch.bfloat16, mask_logits=mask_logits)
+    _check_shapes(flow, mask_logits, k)
+    b, h, w, _ = flow.shape
+    out = torch.empty((b, h * k, w * k, 2), device=flow.device,
+                      dtype=torch.float32)
+    rc = library().emip_convex_upsample_bf16(
+        flow.data_ptr(), mask_logits.data_ptr(), out.data_ptr(), b, h, w, k,
+        cm.stream_handle(flow.device))
+    cm.raise_on_error(_NAME + " (bf16)", rc)
+    cm.LAUNCHES["convex_upsample_bf16"] += 1
+    return out
+
+
 def convex_upsample(flow: torch.Tensor, mask_logits: torch.Tensor,
                     k: int = 8) -> torch.Tensor:
     """Convex-combination flow upsample by ``k``.
 
     flow: [B, h, w, 2]; mask_logits: [B, h, w, 9*k*k] with channels ordered
     (neighbour, sub_row, sub_col). Returns [B, h*k, w*k, 2] (fp32).
-    Differentiable in flow and mask_logits.
+    Differentiable in flow and mask_logits. bf16 mask logits take the bf16
+    forward, which takes no gradient.
     """
+    if mask_logits.dtype == torch.bfloat16:
+        return _forward_bf16(flow, mask_logits, k)
     return _ConvexUpsample.apply(flow, mask_logits, k,
                                  cm.grad_wanted(flow, mask_logits))

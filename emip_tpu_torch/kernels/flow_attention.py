@@ -8,6 +8,12 @@ its autograd backward), CUDA tensors the forward and backward kernels.
 When a gradient is wanted the forward kernel also writes each row's max
 and sum of the scores, which the backward kernel reads. Channel widths 128
 (pvt_v2_b5's GMFlow features) and 64 (b0's) are instantiated.
+
+In the bf16 band q and k are bf16 and v fp32, as the JAX kernel takes
+them in a bf16 model: ``emip_flow_attention_bf16`` (the bf16 attention of
+``csrc/attention_bf16.cu``: q k^T from bf16 operands into fp32, P and the
+2-wide P v in fp32) writes fp32. It keeps nothing for a backward; asking
+for a gradient raises.
 """
 
 from __future__ import annotations
@@ -26,14 +32,18 @@ _VALUE_WIDTH = 2
 
 
 def fused_flow_attention_reference(q, k, v) -> torch.Tensor:
-    """Plain PyTorch version of :func:`fused_flow_attention`."""
+    """Plain PyTorch version of :func:`fused_flow_attention` (bf16 q and
+    k: their exact products summed in fp32, everything after in fp32)."""
+    if q.dtype == torch.bfloat16:
+        q, k, v = q.float(), k.float(), v.float()
     c = q.shape[-1]
     scores = q @ k.transpose(-1, -2) / c**0.5
     return torch.softmax(scores, dim=-1) @ v
 
 
-def _check(q, k, v) -> None:
-    cm.check_kernel_args(_NAME, q=q, k=k, v=v)
+def _check(q, k, v, dtype=torch.float32) -> None:
+    cm.check_kernel_args(_NAME, dtype, q=q, k=k)
+    cm.check_kernel_args(_NAME, v=v)
     if q.dim() != 3:
         raise ValueError(f"{_NAME}: q must be [B, L, C]")
     b, l, c = q.shape
@@ -99,11 +109,30 @@ class _FlowAttention(torch.autograd.Function):
         return dq, dk, dv, None
 
 
+def _forward_bf16(q, k, v) -> torch.Tensor:
+    cm.no_bf16_grad(_NAME, q, k, v)
+    if cm.on_cpu(_NAME, q, k, v):
+        return fused_flow_attention_reference(q, k, v)
+    _check(q, k, v, torch.bfloat16)
+    b, l, c = q.shape
+    out = torch.empty((b, l, _VALUE_WIDTH), device=q.device,
+                      dtype=torch.float32)
+    rc = library().emip_flow_attention_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, l, c,
+        cm.stream_handle(q.device))
+    cm.raise_on_error(_NAME + " (bf16)", rc)
+    cm.LAUNCHES["flow_attention_bf16"] += 1
+    return out
+
+
 def fused_flow_attention(q: torch.Tensor, k: torch.Tensor,
                          v: torch.Tensor) -> torch.Tensor:
     """q, k: [B, L, C]; v: [B, L, 2]. Returns [B, L, 2] (fp32).
 
     Differentiable in q, k and v; the backward computes only the grads that
-    are asked for.
+    are asked for. bf16 q and k (fp32 v) take the bf16 forward, which takes
+    no gradient.
     """
+    if q.dtype == torch.bfloat16:
+        return _forward_bf16(q, k, v)
     return _FlowAttention.apply(q, k, v, cm.grad_wanted(q, k, v))

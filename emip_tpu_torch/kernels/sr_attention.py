@@ -8,6 +8,13 @@ autograd backward), CUDA tensors the forward and backward kernels (every
 product on the tensor cores). When a gradient is wanted the forward kernel
 also writes each attention row's max and sum, which the backward kernel
 reads.
+
+In the bf16 band (bf16 ``x``, ``kv_in`` and weights, fp32 biases) the
+forward is ``emip_sr_attention_bf16`` (the bf16 GEMM of
+``csrc/gemm_bf16.cuh`` and the bf16 attention of
+``csrc/attention_bf16.cu``), rounding where the JAX kernel rounds with a
+bf16 storage dtype; it keeps nothing for a backward, and asking for a
+gradient raises (the bf16 backward is a later slice's).
 """
 
 from __future__ import annotations
@@ -28,7 +35,10 @@ _HEAD_DIMS = (32, 64)
 
 def fused_sr_attention_reference(x, kv_in, wq, bq, wkv, bkv, wp, bp,
                                  num_heads: int) -> torch.Tensor:
-    """Plain PyTorch version of :func:`fused_sr_attention`."""
+    """Plain PyTorch version of :func:`fused_sr_attention` (with bf16 ``x``
+    that of its bf16 forward)."""
+    if x.dtype == torch.bfloat16:
+        return _reference_bf16(x, kv_in, wq, bq, wkv, bkv, wp, bp, num_heads)
     b, n, c = x.shape
     m = kv_in.shape[1]
     ch = c // num_heads
@@ -41,8 +51,36 @@ def fused_sr_attention_reference(x, kv_in, wq, bq, wkv, bkv, wp, bp,
     return F.linear(o, wp, bp)
 
 
-def _check(args: dict, num_heads: int) -> None:
-    cm.check_kernel_args(_NAME, **args)
+def _reference_bf16(x, kv_in, wq, bq, wkv, bkv, wp, bp, num_heads):
+    """The JAX kernel's rounding points with a bf16 storage dtype: bf16
+    operands (the weights cast), fp32 sums and biases; q, k, v rounded
+    after their projections, the normalised P before P v, o before the
+    output projection, the output at the end."""
+    dt = torch.bfloat16
+    b, n, c = x.shape
+    m = kv_in.shape[1]
+    ch = c // num_heads
+
+    def proj(t, w, bias):
+        return F.linear(t.float(), w.to(dt).float(), bias.float()).to(dt)
+
+    q = proj(x, wq, bq).float().reshape(b, n, num_heads, ch).transpose(1, 2)
+    kv = proj(kv_in, wkv, bkv).float().reshape(b, m, 2, num_heads, ch)
+    k = kv[:, :, 0].transpose(1, 2)
+    v = kv[:, :, 1].transpose(1, 2)
+    attn = torch.softmax(q @ k.transpose(-1, -2) * ch**-0.5, dim=-1)
+    o = (attn.to(dt).float() @ v).transpose(1, 2).reshape(b, n, c).to(dt)
+    return proj(o, wp, bp)
+
+
+def _check(args: dict, num_heads: int, dtype=torch.float32) -> None:
+    if dtype == torch.float32:
+        cm.check_kernel_args(_NAME, **args)
+    else:
+        cm.check_kernel_args(_NAME, dtype, **{
+            k: args[k] for k in ("x", "kv_in", "wq", "wkv", "wp")})
+        cm.check_kernel_args(_NAME, **{k: args[k] for k in ("bq", "bkv",
+                                                              "bp")})
     x, kv_in = args["x"], args["kv_in"]
     if x.dim() != 3 or kv_in.dim() != 3:
         raise ValueError(f"{_NAME}: x and kv_in must be [B, N, C] / [B, M, C]")
@@ -129,6 +167,28 @@ class _SRAttention(torch.autograd.Function):
         return (*grads, None, None)
 
 
+def _forward_bf16(x, kv_in, wq, bq, wkv, bkv, wp, bp, num_heads):
+    inputs = (x, kv_in, wq, bq, wkv, bkv, wp, bp)
+    cm.no_bf16_grad(_NAME, *inputs)
+    if cm.on_cpu(_NAME, *inputs):
+        return _reference_bf16(*inputs, num_heads)
+    _check(dict(x=x, kv_in=kv_in, wq=wq, bq=bq, wkv=wkv, bkv=bkv, wp=wp,
+                bp=bp), num_heads, torch.bfloat16)
+    b, n, c = x.shape
+    m = kv_in.shape[1]
+    q_buf = torch.empty_like(x)
+    kv_buf = torch.empty((b, m, 2 * c), device=x.device, dtype=x.dtype)
+    o_buf = torch.empty_like(x)
+    out = torch.empty_like(x)
+    rc = library().emip_sr_attention_bf16(
+        *(t.data_ptr() for t in inputs), q_buf.data_ptr(), kv_buf.data_ptr(),
+        o_buf.data_ptr(), out.data_ptr(), b, n, m, c, num_heads,
+        cm.stream_handle(x.device))
+    cm.raise_on_error(_NAME + " (bf16)", rc)
+    cm.LAUNCHES["sr_attention_bf16"] += 1
+    return out
+
+
 def fused_sr_attention(x: torch.Tensor, kv_in: torch.Tensor,
                        wq: torch.Tensor, bq: torch.Tensor,
                        wkv: torch.Tensor, bkv: torch.Tensor,
@@ -138,7 +198,11 @@ def fused_sr_attention(x: torch.Tensor, kv_in: torch.Tensor,
 
     x: [B, N, C] normalized tokens; kv_in: [B, M, C] reduced tokens;
     wq, wp: [C, C]; wkv: [2C, C]; biases [C] / [2C]. Differentiable in
-    every tensor argument.
+    every tensor argument. With bf16 ``x`` (the bf16 band: bf16 kv_in and
+    weights, fp32 biases) the bf16 forward, [B, N, C] bf16, which takes no
+    gradient.
     """
     inputs = (x, kv_in, wq, bq, wkv, bkv, wp, bp)
+    if x.dtype == torch.bfloat16:
+        return _forward_bf16(*inputs, num_heads)
     return _SRAttention.apply(*inputs, num_heads, cm.grad_wanted(*inputs))

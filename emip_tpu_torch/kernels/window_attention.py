@@ -21,6 +21,14 @@ autograd backward), CUDA tensors the forward and backward kernels, which
 compute only the grads that are asked for (every product on the tensor
 cores). When a gradient is wanted the forward kernel also writes each
 attention row's max and sum, which the backward kernel reads.
+
+In the bf16 band, B with bf16 ``x`` and ``t`` (fp32 parameters) is the
+mixed block of the JAX kernel with a bf16 storage dtype: the self layer
+in bf16 (its weights cast once, :func:`emip_tpu_torch.dtypes.cast`; the
+bf16 GEMM and attention), the cross layer and the FFN in fp32 on the
+upcast x1 and t, the output rounded to bf16 (``emip_window_block_bf16``).
+It keeps nothing for a backward; asking for a gradient raises. G and H have
+no bf16 instantiation yet.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from emip_tpu_torch.dtypes import cast
 from emip_tpu_torch.kernels import _common as cm
 from emip_tpu_torch.kernels._build import library
 from emip_tpu_torch.kernels.attention import forward_workspace
@@ -83,9 +92,35 @@ def fused_window_attention_ffn_layer_reference(x, t, params, mask=None
     return x + F.layer_norm(z, (c,), params["s2"], params["b2"], EPS)
 
 
+def _block_reference_bf16(x, t, self_params, cross_params, mask=None):
+    """The JAX block kernel's rounding points with a bf16 storage dtype:
+    the self layer's q, k, v, P and o rounded to bf16 (fp32 sums), its
+    LayerNorm in fp32 and rounded, x1 = x + msg in bf16; then the fp32
+    cross layer and FFN on the upcast x1 and t with the fp32 weights, the
+    output rounded once."""
+    dt = torch.bfloat16
+    c = x.shape[-1]
+    w = {k: self_params[k].to(dt).float() for k in ("wq", "wk", "wv", "wm")}
+    xf = x.float()
+    q, k, v = (F.linear(xf, w[n]).to(dt).float() for n in ("wq", "wk", "wv"))
+    scores = q @ k.transpose(-1, -2) / c**0.5
+    if mask is not None:
+        scores = scores + mask
+    o = (torch.softmax(scores, dim=-1).to(dt).float() @ v).to(dt).float()
+    msg = F.layer_norm(F.linear(o, w["wm"]), (c,), self_params["s1"].float(),
+                       self_params["b1"].float(), EPS)
+    x1 = x + msg.to(dt)
+    cross = {k: p.float() for k, p in cross_params.items()}
+    return fused_window_attention_ffn_layer_reference(
+        x1.float(), t.float(), cross, mask).to(dt)
+
+
 def fused_window_attention_block_reference(x, t, self_params, cross_params,
                                            mask=None) -> torch.Tensor:
-    """Plain PyTorch version of :func:`fused_window_attention_block`."""
+    """Plain PyTorch version of :func:`fused_window_attention_block` (with
+    bf16 ``x`` that of its bf16 forward)."""
+    if x.dtype == torch.bfloat16:
+        return _block_reference_bf16(x, t, self_params, cross_params, mask)
     x1 = fused_window_attention_layer_reference(x, x, self_params, mask)
     return fused_window_attention_ffn_layer_reference(x1, t, cross_params,
                                                       mask)
@@ -98,10 +133,12 @@ def _reference_flat(x, t, *rest):
         dict(zip(_CROSS_KEYS, params[6:])), mask)
 
 
-def _check_layer(name, x, t, p, mask, prefix="") -> None:
-    """x, t and one layer's parameters (with its FFN's if ``p`` has one)."""
-    cm.check_kernel_args(name, x=x, t=t,
-                         **{prefix + k: v for k, v in p.items()})
+def _check_layer(name, x, t, p, mask, prefix="",
+                 dtype=torch.float32) -> None:
+    """x, t (in ``dtype``) and one layer's fp32 parameters (with its FFN's
+    if ``p`` has one)."""
+    cm.check_kernel_args(name, dtype, x=x, t=t)
+    cm.check_kernel_args(name, **{prefix + k: v for k, v in p.items()})
     if x.dim() != 4:
         raise ValueError(f"{name}: x must be [B, K2, T, C]")
     _, k2, tok, c = x.shape
@@ -123,11 +160,11 @@ def _check_layer(name, x, t, p, mask, prefix="") -> None:
         cm.check_shape(name, "mask", mask, (k2, tok, tok))
 
 
-def _check(x, t, params, mask) -> None:
+def _check(x, t, params, mask, dtype=torch.float32) -> None:
     _check_layer(_NAME, x, t, dict(zip(_SELF_KEYS, params[:6])), mask,
-                 "self_")
+                 "self_", dtype)
     _check_layer(_NAME, x, t, dict(zip(_CROSS_KEYS, params[6:])), mask,
-                 "cross_")
+                 "cross_", dtype)
 
 
 def _buffers(x, widths):
@@ -366,6 +403,38 @@ class _WindowBlock(torch.autograd.Function):
         return (gx, gt, None, None, *pgrads)
 
 
+def _block_bf16(x, t, mask, params):
+    """B's bf16 forward (no autograd: there is no bf16 backward yet)."""
+    tensors = [x, t, *params] + ([] if mask is None else [mask])
+    cm.no_bf16_grad(_NAME, x, t, *params)
+    if cm.on_cpu(_NAME, *tensors):
+        return _block_reference_bf16(x, t, dict(zip(_SELF_KEYS, params[:6])),
+                                     dict(zip(_CROSS_KEYS, params[6:])),
+                                     mask)
+    _check(x, t, params, mask, torch.bfloat16)
+    b, k2, tok, c = x.shape
+    f = params[12].shape[0]
+    self_w = [cast(w, torch.bfloat16) for w in params[:4]]
+    rows = b * k2 * tok
+    qkv1, o1 = (torch.empty((rows, w), device=x.device, dtype=torch.bfloat16)
+                for w in (3 * c, c))
+    m, t32, qkv2, o2, cat, u, z = (
+        torch.empty((rows, w), device=x.device, dtype=torch.float32)
+        for w in (c, c, 3 * c, c, 2 * c, f, c))
+    out = torch.empty_like(x)
+    ws = _fwd_workspace(x)
+    rc = library().emip_window_block_bf16(
+        x.data_ptr(), t.data_ptr(), *(w.data_ptr() for w in self_w),
+        *(p.data_ptr() for p in params[4:]), cm.ptr(mask), k2,
+        qkv1.data_ptr(), o1.data_ptr(), m.data_ptr(), t32.data_ptr(),
+        qkv2.data_ptr(), o2.data_ptr(), cat.data_ptr(), u.data_ptr(),
+        z.data_ptr(), out.data_ptr(), cm.ptr(ws), cm.numel(ws), b * k2, tok,
+        c, f, EPS, cm.stream_handle(x.device))
+    cm.raise_on_error(_NAME + " (bf16)", rc)
+    cm.LAUNCHES["window_attention_block_bf16"] += 1
+    return out
+
+
 def fused_window_attention_block(x: torch.Tensor, t: torch.Tensor,
                                  self_params: dict, cross_params: dict,
                                  mask: torch.Tensor | None = None
@@ -374,10 +443,14 @@ def fused_window_attention_block(x: torch.Tensor, t: torch.Tensor,
 
     x, t: [B, K2, T, C] pre-split (and, if shifted, pre-rolled) windows;
     mask: [K2, T, T] additive shift mask or None, applied to both layers.
-    Differentiable in x, t and every parameter (not in the mask).
+    Differentiable in x, t and every parameter (not in the mask). With
+    bf16 ``x`` and ``t`` (fp32 parameters) the bf16 forward, bf16 out,
+    which takes no gradient.
     """
     params = [self_params[k] for k in _SELF_KEYS] + [
         cross_params[k] for k in _CROSS_KEYS]
+    if x.dtype == torch.bfloat16:
+        return _block_bf16(x, t, mask, params)
     return _WindowBlock.apply(x, t, mask, cm.grad_wanted(x, t, *params),
                               *params)
 

@@ -2,7 +2,11 @@
 
 Counterpart of :mod:`emip_tpu.models.common` (reference
 ``create_backbone.py``). BatchNorm uses its running statistics in eval
-mode, eps 1e-5, as in the JAX package.
+mode, eps 1e-5, as in the JAX package. With a bf16 compute dtype
+(:mod:`emip_tpu_torch.dtypes`) each conv runs in bf16 on its input cast to
+bf16, and each BatchNorm computes and returns fp32 (flax's
+``BatchNorm(dtype=float32)``), so the decoder's products between blocks
+are fp32 and its logits come out fp32.
 """
 
 from __future__ import annotations
@@ -11,6 +15,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from emip_tpu_torch.dtypes import BatchNorm2d, Conv2d
 from emip_tpu_torch.ops.image import resize_bilinear
 
 __all__ = ["ConvBR", "BasicConv2d", "DimensionalReduction",
@@ -25,9 +30,9 @@ class ConvBR(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
                  padding: int = 1):
         super().__init__()
-        self.conv = nn.Conv2d(in_ch, out_ch, kernel_size, padding=padding,
-                              bias=False)
-        self.bn = nn.BatchNorm2d(out_ch, eps=1e-5)
+        self.conv = Conv2d(in_ch, out_ch, kernel_size, padding=padding,
+                           bias=False)
+        self.bn = BatchNorm2d(out_ch, eps=1e-5)
 
     def forward(self, x):
         return F.relu(self.bn(self.conv(x)))
@@ -42,9 +47,9 @@ class BasicConv2d(nn.Module):
                  stride: int = 1, padding: int = 0, dilation: int = 1,
                  with_relu: bool = False):
         super().__init__()
-        self.conv = nn.Conv2d(in_ch, out_ch, kernel_size, stride=stride,
-                              padding=padding, dilation=dilation, bias=False)
-        self.bn = nn.BatchNorm2d(out_ch, eps=1e-5)
+        self.conv = Conv2d(in_ch, out_ch, kernel_size, stride=stride,
+                           padding=padding, dilation=dilation, bias=False)
+        self.bn = BatchNorm2d(out_ch, eps=1e-5)
         self.with_relu = with_relu
 
     def forward(self, x):
@@ -87,7 +92,7 @@ class NeighborConnectionDecoder(nn.Module):
         self.conv_concat2 = ConvBR(2 * c, 2 * c)
         self.conv_concat3 = ConvBR(3 * c, 3 * c)
         self.conv4 = ConvBR(3 * c, 3 * c)
-        self.conv5 = nn.Conv2d(3 * c, 1, 1)
+        self.conv5 = Conv2d(3 * c, 1, 1)
 
     def forward(self, zt5, zt4, zt3):
         zt4_1 = self.conv_upsample1(_up2(zt5)) * zt4
@@ -97,7 +102,7 @@ class NeighborConnectionDecoder(nn.Module):
             torch.cat([zt4_1, self.conv_upsample4(_up2(zt5))], dim=1))
         zt3_2 = self.conv_concat3(
             torch.cat([zt3_1, self.conv_upsample5(_up2(zt4_2))], dim=1))
-        logits = self.conv5(self.conv4(zt3_2))
+        logits = self.conv5(self.conv4(zt3_2)).float()
         h, w = logits.shape[2:]
         return resize_bilinear(logits, (8 * h, 8 * w), align_corners=False)
 

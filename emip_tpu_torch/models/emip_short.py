@@ -18,6 +18,11 @@ engine also returns its pre-propagation flow.
 
 :class:`SegNetwork` is the segmentation stream alone (backbone, three
 dimensional reductions, NCD), the model of static-image pretraining.
+
+``EMIPShort(config, dtype=torch.bfloat16)`` is the bf16 band of inference:
+the JAX package's ``EMIPShort(dtype=bfloat16)`` (the published
+configuration's ``compute_dtype``), with kernels A-D in their bf16
+forwards; it outputs fp32 mask logits and flows, as the JAX model does.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import dataclasses
 import torch
 import torch.nn as nn
 
+from emip_tpu_torch.dtypes import BatchNorm2d, Conv2d, set_compute_dtype
 from emip_tpu_torch.models.backbones import create_backbone
 from emip_tpu_torch.models.common import (
     DimensionalReduction,
@@ -74,8 +80,35 @@ class _SegBackbone(nn.Module):
         return self.feat_net.pvtv2_en(x, generator)
 
 
+def bf16_missing_kernels(cfg: EMIPShortConfig, pvt_config: PVTv2Config
+                         ) -> list[str]:
+    """The kernels without a bf16 instantiation that ``cfg`` would reach:
+    G and H for windows above ``fused_block_max_t`` tokens (512^2), I
+    under read-corr matching, J under the fused MixFFN switches."""
+    gm = cfg.gmflow
+    tok = (cfg.inp_size // 8 // gm.attn_splits_list[0]) ** 2
+    missing = []
+    if tok > gm.fused_block_max_t:
+        missing.append(f"G and H (windows of {tok} tokens > "
+                       f"fused_block_max_t {gm.fused_block_max_t})")
+    if not gm.global_match_qk_fused:
+        missing.append("I (read-corr matching, global_match_qk_fused "
+                       "false)")
+    if (pvt_config.fused_ffn == "always"
+            or pvt_config.ffn_dwconv == "bwd_fused"):
+        missing.append(f"J (fused_ffn={pvt_config.fused_ffn!r}, "
+                       f"ffn_dwconv={pvt_config.ffn_dwconv!r})")
+    return missing
+
+
 class EMIPShort(nn.Module):
-    def __init__(self, config: EMIPShortConfig = EMIPShortConfig()):
+    """The two-stream model. ``dtype``: its compute dtype, fp32 or
+    bfloat16 (:mod:`emip_tpu_torch.dtypes`); the parameters are fp32
+    either way. A bf16 model whose configuration would reach a kernel
+    without a bf16 instantiation raises when it is built, naming it."""
+
+    def __init__(self, config: EMIPShortConfig = EMIPShortConfig(),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         cfg = config
         self.config = cfg
@@ -91,9 +124,11 @@ class EMIPShort(nn.Module):
         self.injector1 = Injector(dim=fdim)
         # correlation embedding HW -> HW/2 -> feature width
         hw = (cfg.inp_size // 8) ** 2
+        # convs in the compute dtype, the BatchNorm in fp32 (as the JAX
+        # package's conv_corr_bn)
         self.conv_corr = nn.Sequential(
-            nn.Conv2d(hw, hw // 2, 3, padding=1), nn.BatchNorm2d(hw // 2),
-            nn.ReLU(inplace=True), nn.Conv2d(hw // 2, fdim, 3, padding=1))
+            Conv2d(hw, hw // 2, 3, padding=1), BatchNorm2d(hw // 2),
+            nn.ReLU(inplace=True), Conv2d(hw // 2, fdim, 3, padding=1))
         self.dr1 = DimensionalReduction(fdim, cfg.channel)
         self.dr2 = DimensionalReduction(ch[2], cfg.channel)
         self.dr3 = DimensionalReduction(ch[3], cfg.channel)
@@ -112,6 +147,16 @@ class EMIPShort(nn.Module):
                 nn.GELU(), nn.ConvTranspose2d(256, 128, 2, stride=2))
             self.upscaling3 = nn.Sequential(
                 nn.ConvTranspose2d(320, 128, 2, stride=2), LayerNorm2d(128))
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"EMIPShort computes in float32 or bfloat16, "
+                             f"not {dtype}")
+        if dtype == torch.bfloat16:
+            missing = bf16_missing_kernels(cfg, pvt.config)
+            if missing:
+                raise NotImplementedError(
+                    "EMIPShort in bfloat16 would reach kernels without a "
+                    "bfloat16 instantiation: " + "; ".join(missing))
+        set_compute_dtype(self, dtype)
 
     def encode_frame(self, image: torch.Tensor, generator=None) -> dict:
         """Everything that depends on one frame: backbone stages /8, /16,

@@ -7,7 +7,11 @@ called by the enclosing two-stream model. Returns
 raw correlation volume [B, H, W, HW]. With ``training`` the lists hold the
 bilinearly upsampled pre-propagation flow before the final one, as in the
 JAX package; the flow entering propagation is detached in both modes, so
-kernel C's propagation backward yields dq and dk only.
+kernel C's propagation backward yields dq and dk only. With a bf16 compute
+dtype (:mod:`emip_tpu_torch.dtypes`) the features are bf16 from the
+encoder to the upsampler's convs (the position embedding added in bf16),
+the flows fp32 (matching and propagation write fp32), and D reads the
+upsampler's bf16 mask logits, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import dataclasses
 import torch
 import torch.nn as nn
 
+from emip_tpu_torch.dtypes import Conv2d
 from emip_tpu_torch.kernels import convex_upsample
 from emip_tpu_torch.models.gmflow.encoder import CNNEncoder
 from emip_tpu_torch.models.gmflow.matching import global_correlation_softmax
@@ -59,10 +64,12 @@ def _add_position(feature0, feature1, attn_splits: int, channels: int):
         f1 = window_split(feature1, attn_splits)
         pos = sine_position_embedding(f0.shape[1], f0.shape[2], channels,
                                       device=f0.device)
+        pos = pos.to(f0.dtype)
         return (window_merge(f0 + pos, attn_splits),
                 window_merge(f1 + pos, attn_splits))
     pos = sine_position_embedding(feature0.shape[1], feature0.shape[2],
-                                  channels, device=feature0.device)
+                                  channels,
+                                  device=feature0.device).to(feature0.dtype)
     return feature0 + pos, feature1 + pos
 
 
@@ -83,16 +90,18 @@ class GMFlow(nn.Module):
             cfg.fused_block_max_t)
         self.feature_flow_attn = FeatureFlowAttention(c)
         self.upsampler = nn.Sequential(
-            nn.Conv2d(2 + c, 256, 3, padding=1), nn.ReLU(inplace=True),
-            nn.Conv2d(256, cfg.upsample_factor**2 * 9, 1))
+            Conv2d(2 + c, 256, 3, padding=1), nn.ReLU(inplace=True),
+            Conv2d(256, cfg.upsample_factor**2 * 9, 1))
 
     def encode(self, image):
         """CNN features of one frame (called by the host model)."""
         return self.backbone(image)
 
     def _upsample_mask(self, flow, feature):
-        """flow [B,H,W,2], feature [B,H,W,C] -> mask logits [B,H,W,9K^2]."""
-        concat = torch.cat([flow, feature], dim=-1).permute(0, 3, 1, 2)
+        """flow [B,H,W,2], feature [B,H,W,C] -> mask logits [B,H,W,9K^2]
+        (in the features' dtype)."""
+        concat = torch.cat([flow.to(feature.dtype), feature],
+                           dim=-1).permute(0, 3, 1, 2)
         return self.upsampler(concat).permute(0, 2, 3, 1).contiguous()
 
     def forward(self, feature0_list, feature1_list, training: bool = False):

@@ -12,6 +12,11 @@ the pixel grid takes one of two paths, as in the JAX package:
   (:func:`emip_tpu_torch.kernels.softmax_expectation`) reads the stored
   volume, and for the backward flow a contiguous transpose of it (one more
   read and write of the volume by ``torch``; the kernel reads rows only).
+
+The correlation volume is fp32 whatever the features' dtype: with bf16
+features (the bf16 band) it is their exact products summed in fp32, as the
+JAX package's ``einsum(..., preferred_element_type=float32)``, and kernel C
+takes the bf16 features with the fp32 pixel grid.
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ def global_correlation_softmax(feature0: torch.Tensor, feature1: torch.Tensor,
     b, h, w, c = feature0.shape
     f0 = feature0.reshape(b, h * w, c).contiguous()
     f1 = feature1.reshape(b, h * w, c).contiguous()
-    corr = torch.matmul(f0, f1.transpose(1, 2)) / c**0.5  # [B, HW, HW]
+    corr = torch.matmul(f0.float(), f1.float().transpose(1, 2)) / c**0.5
     grid = coords_grid(h, w, device=f0.device).reshape(h * w, 2)
     if qk_fused:
         gridb = grid.expand(b, h * w, 2).contiguous()

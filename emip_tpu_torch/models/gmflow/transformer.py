@@ -9,7 +9,9 @@ window has at most ``fused_block_max_t`` tokens, and above that as its two
 ``TransformerLayer``s, kernels G and H; the shifted-window roll and the
 window split stay outside the kernels. Flow propagation is kernel C.
 LayerNorms use eps 1e-6, the JAX package's flax default (the reference's
-torch modules use 1e-5).
+torch modules use 1e-5). With bf16 features (the bf16 band) B runs its bf16
+forward and the propagation's projections run in bf16 before C's bf16
+forward, whose flow comes out fp32, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from emip_tpu_torch.dtypes import Linear
 from emip_tpu_torch.kernels import (
     fused_flow_attention,
     fused_window_attention_block,
@@ -172,8 +175,8 @@ class FeatureFlowAttention(nn.Module):
 
     def __init__(self, in_channels: int = 128):
         super().__init__()
-        self.q_proj = nn.Linear(in_channels, in_channels)
-        self.k_proj = nn.Linear(in_channels, in_channels)
+        self.q_proj = Linear(in_channels, in_channels)
+        self.k_proj = Linear(in_channels, in_channels)
 
     def forward(self, feature0, flow):
         """feature0: [B, H, W, C]; flow: [B, H, W, 2] -> [B, H, W, 2]."""

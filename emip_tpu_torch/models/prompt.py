@@ -4,6 +4,10 @@ Counterpart of :mod:`emip_tpu.models.prompt` (reference
 ``motion/PromptInteract.py``: ``Injector`` wrapping ``TransformerBlock_MDTA``
 under the key ``transformer``). NCHW layout; the attention runs over
 channels, a [C/h, C/h] matrix per head, so it has no kernel of its own.
+With a bf16 compute dtype (:mod:`emip_tpu_torch.dtypes`) the convs and the
+GELU gate run in bf16, the channel LayerNorms and the L2 normalisation in
+fp32 (rounded after), and the attention's two products accumulate in fp32
+with its softmax, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -11,6 +15,8 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from emip_tpu_torch.dtypes import Conv2d, compute_dtype
 
 __all__ = ["ChannelLayerNorm", "MDTAttention", "GatedDConvFFN", "Injector"]
 
@@ -34,13 +40,13 @@ class ChannelLayerNorm(nn.Module):
         self.body = _WithBiasLayerNorm(dim)
 
     def forward(self, x):
-        y = F.layer_norm(x.permute(0, 2, 3, 1), (x.shape[1],),
+        y = F.layer_norm(x.permute(0, 2, 3, 1).float(), (x.shape[1],),
                          self.body.weight, self.body.bias, self.eps)
-        return y.permute(0, 3, 1, 2)
+        return y.permute(0, 3, 1, 2).to(x.dtype)
 
 
-def _dwconv(ch: int) -> nn.Conv2d:
-    return nn.Conv2d(ch, ch, 3, padding=1, groups=ch, bias=False)
+def _dwconv(ch: int) -> Conv2d:
+    return Conv2d(ch, ch, 3, padding=1, groups=ch, bias=False)
 
 
 class MDTAttention(nn.Module):
@@ -54,23 +60,25 @@ class MDTAttention(nn.Module):
         super().__init__()
         self.num_heads = num_heads
         self.temperature = nn.Parameter(torch.ones(num_heads, 1, 1))
-        self.q = nn.Conv2d(dim, dim, 1, bias=False)
+        self.q = Conv2d(dim, dim, 1, bias=False)
         self.q_dwconv = _dwconv(dim)
-        self.kv = nn.Conv2d(dim, 2 * dim, 1, bias=False)
+        self.kv = Conv2d(dim, 2 * dim, 1, bias=False)
         self.kv_dwconv = _dwconv(2 * dim)
-        self.project_out = nn.Conv2d(dim, dim, 1, bias=False)
+        self.project_out = Conv2d(dim, dim, 1, bias=False)
 
     def forward(self, x, ctx):
+        dt = compute_dtype(self)
         b, c, h, w = x.shape
         heads = self.num_heads
         q = self.q_dwconv(self.q(x))
         k, v = self.kv_dwconv(self.kv(ctx)).chunk(2, dim=1)
         q, k, v = (t.reshape(b, heads, c // heads, h * w) for t in (q, k, v))
-        q = F.normalize(q, dim=-1)
-        k = F.normalize(k, dim=-1)
-        attn = torch.softmax(q @ k.transpose(-1, -2) * self.temperature,
-                             dim=-1)
-        out = (attn @ v).reshape(b, c, h, w)
+        q = F.normalize(q.float(), dim=-1).to(dt)
+        k = F.normalize(k.float(), dim=-1).to(dt)
+        attn = torch.softmax(
+            q.float() @ k.float().transpose(-1, -2) * self.temperature,
+            dim=-1)
+        out = (attn.to(dt).float() @ v.float()).to(dt).reshape(b, c, h, w)
         return self.project_out(out)
 
 
@@ -80,9 +88,9 @@ class GatedDConvFFN(nn.Module):
     def __init__(self, dim: int, expansion: float = 2.66):
         super().__init__()
         hidden = int(dim * expansion)
-        self.project_in = nn.Conv2d(dim, 2 * hidden, 1, bias=False)
+        self.project_in = Conv2d(dim, 2 * hidden, 1, bias=False)
         self.dwconv = _dwconv(2 * hidden)
-        self.project_out = nn.Conv2d(hidden, dim, 1, bias=False)
+        self.project_out = Conv2d(hidden, dim, 1, bias=False)
 
     def forward(self, x):
         y1, y2 = self.dwconv(self.project_in(x)).chunk(2, dim=1)

@@ -18,6 +18,10 @@ backward (the JAX package's two switches, with its defaults).
 In train mode each block's two residual branches take stochastic depth at
 a rate ramping linearly to ``drop_path_rate`` over all blocks; its random
 bits come from the ``torch.Generator`` handed to :meth:`PVTv2.forward`.
+With a bf16 compute dtype (:mod:`emip_tpu_torch.dtypes`) the convs, the
+linears, the GELU and the residuals run in bf16 on weights cast to bf16;
+the LayerNorms keep fp32 statistics and return bf16, and kernel A runs its
+bf16 forward, as the JAX package's PVTv2 with ``dtype=bfloat16``.
 """
 
 from __future__ import annotations
@@ -28,6 +32,13 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from emip_tpu_torch.dtypes import (
+    Conv2d,
+    LayerNorm,
+    Linear,
+    cast,
+    compute_dtype,
+)
 from emip_tpu_torch.kernels import fused_dwconv_gelu, fused_sr_attention
 
 __all__ = ["PVTv2Config", "PVT_V2_VARIANTS", "PVTv2", "PVTBlock",
@@ -92,10 +103,11 @@ class SRAttention(nn.Module):
         self.kv = nn.Linear(dim, 2 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
         if sr_ratio > 1:
-            self.sr = nn.Conv2d(dim, dim, sr_ratio, stride=sr_ratio)
-            self.norm = nn.LayerNorm(dim, eps=_LN_EPS)
+            self.sr = Conv2d(dim, dim, sr_ratio, stride=sr_ratio)
+            self.norm = LayerNorm(dim, eps=_LN_EPS)
 
     def forward(self, x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+        dt = compute_dtype(self)
         b, n, c = x.shape
         if self.sr_ratio > 1:
             kv_in = self.sr(x.transpose(1, 2).reshape(b, c, h, w))
@@ -104,8 +116,9 @@ class SRAttention(nn.Module):
             kv_in = x
         return fused_sr_attention(
             x.contiguous(), kv_in.contiguous(),
-            self.q.weight, self.q.bias, self.kv.weight, self.kv.bias,
-            self.proj.weight, self.proj.bias, self.num_heads,
+            cast(self.q.weight, dt), self.q.bias, cast(self.kv.weight, dt),
+            self.kv.bias, cast(self.proj.weight, dt), self.proj.bias,
+            self.num_heads,
         )
 
 
@@ -114,7 +127,7 @@ class _DWConv(nn.Module):
 
     def __init__(self, dim: int):
         super().__init__()
-        self.dwconv = nn.Conv2d(dim, dim, 3, padding=1, groups=dim)
+        self.dwconv = Conv2d(dim, dim, 3, padding=1, groups=dim)
 
     def forward(self, x, h, w):
         b, n, c = x.shape
@@ -135,9 +148,9 @@ class MixFFN(nn.Module):
         super().__init__()
         self.use_fused = use_fused
         self.dwconv_impl = dwconv_impl
-        self.fc1 = nn.Linear(dim, hidden)
+        self.fc1 = Linear(dim, hidden)
         self.dwconv = _DWConv(hidden)
-        self.fc2 = nn.Linear(hidden, dim)
+        self.fc2 = Linear(hidden, dim)
 
     def forward(self, x, h, w):
         y = self.fc1(x)
@@ -173,9 +186,9 @@ class PVTBlock(nn.Module):
                  sr_ratio: int, qkv_bias: bool = True,
                  fused_ffn: str = "never", ffn_dwconv: str = "conv"):
         super().__init__()
-        self.norm1 = nn.LayerNorm(dim, eps=_LN_EPS)
+        self.norm1 = LayerNorm(dim, eps=_LN_EPS)
         self.attn = SRAttention(dim, num_heads, sr_ratio, qkv_bias)
-        self.norm2 = nn.LayerNorm(dim, eps=_LN_EPS)
+        self.norm2 = LayerNorm(dim, eps=_LN_EPS)
         self.mlp = MixFFN(dim, int(dim * mlp_ratio), fused_ffn, ffn_dwconv)
 
     def forward(self, x, h, w, drop_rate: float = 0.0,
@@ -194,9 +207,9 @@ class OverlapPatchEmbed(nn.Module):
     def __init__(self, patch_size: int, stride: int, in_chans: int,
                  embed_dim: int):
         super().__init__()
-        self.proj = nn.Conv2d(in_chans, embed_dim, patch_size, stride=stride,
+        self.proj = Conv2d(in_chans, embed_dim, patch_size, stride=stride,
                               padding=patch_size // 2)
-        self.norm = nn.LayerNorm(embed_dim, eps=_LN_EPS)
+        self.norm = LayerNorm(embed_dim, eps=_LN_EPS)
 
     def forward(self, x):
         x = self.proj(x)
@@ -222,7 +235,7 @@ class PVTv2(nn.Module):
                          cfg.fused_ffn, cfg.ffn_dwconv)
                 for _ in range(cfg.depths[i])))
             setattr(self, f"norm{i + 1}",
-                    nn.LayerNorm(cfg.embed_dims[i], eps=_LN_EPS))
+                    LayerNorm(cfg.embed_dims[i], eps=_LN_EPS))
             in_chans = cfg.embed_dims[i]
 
     def forward(self, x: torch.Tensor,

@@ -13,9 +13,11 @@ order: seeded random ones (``seed``), the checkpoints of the config's
 directory. Without ``--data`` the config's validation split is predicted
 as ``MoCA_test``; a dataset whose name holds ``CAD`` is read as CAD,
 others as ``val_dataset.dataset_type``. Predictions are written to
-``<save_path>/<dataset>/<video>/<frame>.png``. It runs on the GPU
-(``--device``, default ``cuda``; without a GPU it raises) and on the CPU,
-through the plain versions, only with ``--device cpu``.
+``<save_path>/<dataset>/<video>/<frame>.png``. The model computes in the
+config's ``compute_dtype`` (bfloat16 when the key is missing, as in the
+JAX package; kernels A-D in their bf16 forwards) or float32. It runs on
+the GPU (``--device``, default ``cuda``; without a GPU it raises) and on
+the CPU, through the plain versions, only with ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -43,17 +45,20 @@ def parse_args(argv=None):
 
 
 def load_short_model(cfg, ckpt, device):
-    """The eval-mode ``EMIPShort`` of ``cfg`` on ``device``: seeded
-    weights, then the config's ``load`` block, then ``<ckpt>/ckpt.pt``
-    when ``ckpt`` names a directory."""
+    """The eval-mode ``EMIPShort`` of ``cfg`` on ``device``, computing in
+    ``cfg.compute_dtype``: seeded weights, then the config's ``load``
+    block, then ``<ckpt>/ckpt.pt`` when ``ckpt`` names a directory (the
+    fp32 state dict either way)."""
     import torch
 
     from emip_tpu_torch.convert import SHORT_LOAD, load_configured_weights
+    from emip_tpu_torch.dtypes import dtype_named
     from emip_tpu_torch.models.emip_short import EMIPShort
     from emip_tpu_torch.models.init import seeded_init_
     from emip_tpu_torch.train.loops import CKPT_NAME
 
-    model = seeded_init_(EMIPShort(cfg.model), cfg.seed)
+    model = seeded_init_(
+        EMIPShort(cfg.model, dtype=dtype_named(cfg.compute_dtype)), cfg.seed)
     load_configured_weights(model, cfg.load, SHORT_LOAD)
     if ckpt:
         state = torch.load(os.path.join(ckpt, CKPT_NAME), map_location="cpu")
@@ -69,7 +74,7 @@ def main(argv=None):
 
     args = parse_args(argv)
     device = resolve_device(args.device)
-    cfg = load_config(args.config)
+    cfg = load_config(args.config, honours_dtype=True)
     model = load_short_model(cfg, args.ckpt, device)
 
     datasets = {}

@@ -9,7 +9,8 @@ Mirrors the repository's ``test_of.py`` for the JAX package (the
 reference's ``test_of.py``), plus ``--device``. The model and its weights
 are those of ``python -m emip_tpu_torch.test`` (seeded, the config's
 ``load`` block, then ``<ckpt>/ckpt.pt``), at ``val_dataset.inp_size``;
-without ``--data_root`` the config's validation split is read.
+without ``--data_root`` the config's validation split is read; the model
+computes in the config's ``compute_dtype`` (bfloat16 when it is missing).
 ``infer.predict_pairs`` runs every pair (its masks go to
 ``<save_path>/_masks``) and returns the flows; each is rendered by
 :func:`emip_tpu_torch.utils.flow_viz.flow_to_image` into
@@ -53,7 +54,7 @@ def main(argv=None) -> int:
 
     args = parse_args(argv)
     device = resolve_device(args.device)
-    cfg = load_config(args.config)
+    cfg = load_config(args.config, honours_dtype=True)
     model = load_short_model(cfg, args.ckpt, device)
     root = args.data_root or cfg.val_dataset.image_path
     flows = predict_pairs(model, root, os.path.join(args.save_path, "_masks"),

@@ -90,35 +90,41 @@ def test_test_cli_flags_mirror_root_test_py():
 
 @pytest.fixture
 def tf32_on():
-    """Both TF32 switches on for the test, restored afterwards."""
-    saved = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32)
+    """Both TF32 switches and cuBLAS's bf16 reduced-precision reduction
+    on for the test, restored afterwards."""
+    matmul = torch.backends.cuda.matmul
+    saved = (torch.backends.cudnn.allow_tf32, matmul.allow_tf32,
+             matmul.allow_bf16_reduced_precision_reduction)
     torch.backends.cudnn.allow_tf32 = True
-    torch.backends.cuda.matmul.allow_tf32 = True
+    matmul.allow_tf32 = True
+    matmul.allow_bf16_reduced_precision_reduction = True
     yield
-    (torch.backends.cudnn.allow_tf32,
-     torch.backends.cuda.matmul.allow_tf32) = saved
+    (torch.backends.cudnn.allow_tf32, matmul.allow_tf32,
+     matmul.allow_bf16_reduced_precision_reduction) = saved
 
 
 def _tf32():
     return (torch.backends.cudnn.allow_tf32,
-            torch.backends.cuda.matmul.allow_tf32)
+            torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction)
 
 
 def test_resolve_device_turns_tf32_off_for_the_card(tf32_on, monkeypatch):
     """``resolve_device("cuda")`` turns TF32 off for cuDNN's convolutions
-    and for matmuls; the CPU, and a GPU asked for without one, leave the
-    switches as they were."""
+    and for matmuls, and cuBLAS's reduced-precision reduction of bf16
+    products (torch's default lets it on: the bf16 band's library matmuls
+    then sum in fp32, as XLA's); the CPU, and a GPU asked for without one,
+    leave the switches as they were."""
     from emip_tpu_torch.device import resolve_device
 
     assert resolve_device("cpu") == torch.device("cpu")
-    assert _tf32() == (True, True)
+    assert _tf32() == (True, True, True)
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
-    assert _tf32() == (True, True)
+    assert _tf32() == (True, True, True)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert resolve_device("cuda:0") == torch.device("cuda:0")
-    assert _tf32() == (False, False)
+    assert _tf32() == (False, False, False)
     assert torch.backends.cudnn.conv.fp32_precision != "tf32"
 
 

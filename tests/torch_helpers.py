@@ -46,9 +46,10 @@ def jax_tiny_short(drop_path_rate: float = 0.1, size: int = SIZE):
 
 def torch_tiny_short(include_dead_modules: bool = True,
                      drop_path_rate: float = 0.1, size: int = SIZE,
-                     **gmflow):
-    """The port's EMIPShort at the same configuration; ``gmflow`` sets
-    further :class:`GMFlowConfig` fields (the kernel switches)."""
+                     dtype: torch.dtype = torch.float32, **gmflow):
+    """The port's EMIPShort at the same configuration, computing in
+    ``dtype``; ``gmflow`` sets further :class:`GMFlowConfig` fields (the
+    kernel switches)."""
     from emip_tpu_torch.models.emip_short import EMIPShort, EMIPShortConfig
     from emip_tpu_torch.models.gmflow import GMFlowConfig
     from emip_tpu_torch.models.pvt_v2 import PVT_V2_VARIANTS
@@ -60,7 +61,7 @@ def torch_tiny_short(include_dead_modules: bool = True,
         gmflow=GMFlowConfig(feature_channels=FDIM,
                             num_transformer_layers=NUM_LAYERS, **gmflow),
         include_dead_modules=include_dead_modules)
-    return EMIPShort(cfg).eval()
+    return EMIPShort(cfg, dtype=dtype).eval()
 
 
 MEMORY_SIZE = 3  # slots of the tiny long model's ring

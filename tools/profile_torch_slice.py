@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Per-layer time of the PyTorch port's short and long slices on one GPU.
 
-    python3 tools/profile_torch_slice.py [--long] [--train] [--batch 8]
-                                         [--size 352] [--timed 5] [--trace F]
-                                         [--kernels NAMES]
+    python3 tools/profile_torch_slice.py [--long] [--train] [--bf16]
+                                         [--batch 8] [--size 352] [--timed 5]
+                                         [--trace F] [--kernels NAMES]
 
 Runs the full pvt_v2_b5 EMIPShort at 352^2 (``--size 512``: at 512^2, where
 the flow transformer runs kernels G and H), fp32 (TF32 off), on seeded
@@ -11,7 +11,9 @@ random weights and seeded frames, as ``chip_smoke.py``'s slice phase (or,
 with ``--train``, its train phase) does. With ``--long`` it runs the full
 EMIPLong instead: one streaming ``step_cached`` per batch on a full
 5-slot memory with ``--batch`` clips side by side (``--train``: one
-per-frame long train step). It prints:
+per-frame long train step). ``--bf16`` runs short inference in the bf16
+band (``EMIPShort(cfg, dtype=bfloat16)``, cuBLAS's reduced-precision bf16
+reduction off). It prints:
 
 - the card's ``nvidia-smi`` name and power limit;
 - the median ms per batch of ``predict_arrays`` (``--train``: per train
@@ -138,7 +140,12 @@ def main() -> int:
     ap.add_argument("--long", action="store_true",
                     help="profile the long-term model (one streaming step "
                          "per batch of clips) instead of the short one")
+    ap.add_argument("--bf16", action="store_true",
+                    help="short inference in bf16 (not with --train or "
+                         "--long: they have no bf16 band yet)")
     args = ap.parse_args()
+    if args.bf16 and (args.train or args.long):
+        ap.error("--bf16 profiles short inference only")
     if not torch.cuda.is_available():
         print("profile_torch_slice: needs an NVIDIA GPU", file=sys.stderr)
         return 2
@@ -152,6 +159,7 @@ def main() -> int:
     print(cs.card_line(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     K.library()
     dev = torch.device("cuda:0")
     cfg = EMIPShortConfig(backbone_name="pvt_v2_b5", inp_size=args.size)
@@ -160,7 +168,8 @@ def main() -> int:
 
         model = EMIPLong(cfg, memory_size=5)
     else:
-        model = EMIPShort(cfg)
+        model = EMIPShort(cfg, dtype=torch.bfloat16 if args.bf16
+                          else torch.float32)
     seeded_init_(model, cs.SEED)
     model = model.to(dev).eval()
     table = long_module_table if args.long else module_table
@@ -252,8 +261,10 @@ def main() -> int:
     what = "train step" if args.train else "slice"
     if args.long:
         what = "long " + ("train step" if args.train else "streaming step")
-    print(f"{what} b5 {args.size}^2 bs={args.batch} fp32: median {median:.3f} "
-          f"ms/batch over {args.timed} batches {totals} (no hooks)")
+    dtype = "bf16" if args.bf16 else "fp32"
+    print(f"{what} b5 {args.size}^2 bs={args.batch} {dtype}: median "
+          f"{median:.3f} ms/batch over {args.timed} batches {totals} "
+          f"(no hooks)")
     if args.train:
         for i, part in enumerate(("forward + losses", "backward",
                                   "optimizer")):
