@@ -100,7 +100,24 @@ needs one card and no arguments, and it imports nothing of JAX. In order:
    step must match the structure (forward as above; backward A 61, B 6,
    C 3, D 1; E 2); GMFlow must stay bit-identical, every trainable leaf
    with a grad must move, the losses must be finite; median ms/step,
-   pairs/s and peak memory are printed;
+   pairs/s and peak memory are printed. Then the bf16 train step: the
+   bf16 backwards of A-D at the train step's shapes against the fp32 plain
+   version's VJP at the upcast inputs on the card (the bf16 gates of phase
+   7 grad by grad: rel, the error against fp64 with a floor of 1e-5 for a
+   bf16 grad and 2e-4 for an fp32 one, the same bits twice; the bound
+   counts the fp32 recompute and the backward at the 3xTF32 rate; C beside
+   SDPA's backward on the upcast inputs); two pairs, each from its own
+   seed, drop path off, card bf16 against CPU plain bf16 at b5's widths and
+   PVT depths (1, 1, 2, 1), with the fp32 model run on both sides: both
+   losses within twice the card's bf16-vs-fp32 gap (gap > 0), each
+   trainable leaf's seg-loss grad within twice the larger of the card's and
+   the CPU's gaps on that leaf, and all leaves' grads taken together (max
+   and mean) within twice the card's gap and twice the CPU's; then the
+   full b5 model in bf16 on the fp32
+   phase's weights: 1 + 2 steps counted from zero launches (A-D's bf16
+   forwards and backwards, E, no fp32 A-D), timed in turns with the fp32
+   model (fp32, bf16, bf16, fp32), device-busy time per step of each, peak
+   memory, GMFlow bit-identical, every leaf with a grad moved;
 9. kernel-switch phases, each beside the default configuration on the same
    weights and inputs, in turns: read-corr matching
    (``global_match_qk_fused=False``: I 2 per forward and C 1, I backward 2
@@ -109,8 +126,8 @@ needs one card and no arguments, and it imports nothing of JAX. In order:
    mask, flow and train losses must equal the default's within the slice
    and loss tolerances; frames/s and ms/step of both are printed;
 10. entry-point phase: ``python -m emip_tpu_torch.train`` (in process) on
-    a synthetic dataset the port writes, b5 at 352^2, batch 8, one epoch
-    of 2 steps, validation and a checkpoint. Before this and every later
+    a synthetic dataset the port writes, b5 at 352^2, batch 8, fp32, one
+    epoch of 2 steps, validation and a checkpoint. Before this and every later
     entry point's call both TF32 switches are turned on (cuDNN's is on by
     torch's default), and after it they must read off: each entry point
     turns them off through ``device.resolve_device``, not this script;
@@ -118,7 +135,9 @@ needs one card and no arguments, and it imports nothing of JAX. In order:
     352^2, channel 32) on seeded weights; one image's hybrid-E loss and
     every leaf's grad, card against CPU; then 1 + 3 ``static_train_step``s
     at batch 8: A forward and backward 52 each per step and no other
-    launch, finite losses, every leaf moved, ms/step and peak memory;
+    launch, finite losses, every leaf moved, ms/step and peak memory; then
+    SegNetwork in bf16 against its fp32 twin in turns: A's bf16 forward and
+    backward 52 each a step and nothing else, ms/step, peak memory;
 12. entry chain on phase 10's root and checkpoint: ``python -m
     emip_tpu_torch.test`` (a PNG per pair), ``... eval_offline`` (17
     metrics finite in [0, 1], 8 of 10 GT frames a video scored, S-measure,
@@ -127,9 +146,12 @@ needs one card and no arguments, and it imports nothing of JAX. In order:
     pair) and ``... train_static`` (one epoch of 2 steps at batch 8 on 16
     synthetic images, checkpoint and log); then ``... test`` once more
     with the YAML saying ``compute_dtype: bfloat16``: a PNG per pair,
-    launches of the bf16 forwards of A-D and none of their fp32 ones
-    (TF32 and cuBLAS's bf16 reduced-precision reduction are turned on
-    before every entry point's call, and must read off after it);
+    launches of the bf16 forwards of A-D and none of their fp32 ones; and
+    ``... train`` and ``... train_static`` with the YAMLs saying bfloat16:
+    2 steps each, bf16 kernels only, a checkpoint of fp32 tensors that
+    loads into an fp32 model (TF32 and cuBLAS's bf16 reduced-precision
+    reduction are turned on before every entry point's call, and must read
+    off after it);
 13. long inference phase: the full EMIPLong (b5, 352^2, 5 memory slots) on
     seeded weights streams seeded clips through ``step_cached``, one clip
     at a time and four side by side; launch counts against the structure
@@ -150,8 +172,9 @@ needs one card and no arguments, and it imports nothing of JAX. In order:
     the checks of phase 8), then the long inference phase at 512^2 (G 6,
     H 6, B 0 per step; card against CPU as in phase 13).
 
-It prints one JSON line with twenty-three rows, the nineteen kernels' and
-the bf16 forwards of A-D (with their worst ``fp64_ratio``; per kernel:
+It prints one JSON line with twenty-seven rows, the nineteen kernels' and
+the bf16 forwards and backwards of A-D (with their worst ``fp64_ratio``;
+the backwards' launches are the bf16 train steps'; per kernel:
 launches in the phase that is its main path, the largest max_abs_err of
 its cases, and ``ms`` / ``plain_ms`` / ``library_ms`` / ``bound_ms`` summed
 over its cases, one call each; ``bound_ms`` is the larger of the case's
@@ -166,7 +189,8 @@ and as its last line ``{"ok": true, "device":
 line. Details also go to ``chiprun_out/chip_smoke.json``. ``--kernels
 NAMES`` is a development aid: the kernel phases alone, for the kernels
 whose name contains one of the comma-separated NAMES (``gemm`` adds the
-GEMM lines of phase 3, ``attention_fwd`` its attention lines).
+GEMM lines of phase 3, ``attention_fwd`` its attention lines, ``bf16`` the
+bf16 kernel, GEMM and backward lines).
 """
 
 from __future__ import annotations
@@ -174,6 +198,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import functools
+import itertools
 import json
 import os
 import statistics
@@ -345,7 +370,8 @@ TENSOR_CORE_KERNELS = ("sr_attention", "sr_attention_bwd",
 # CUDA-event time then reads
 DEVICE_TIMED = ("convex_upsample", "convex_upsample_bwd", "splat_density",
                 "softmax_expectation", "softmax_expectation_bwd",
-                "dwconv_gelu", "dwconv_gelu_bwd", "convex_upsample_bf16")
+                "dwconv_gelu", "dwconv_gelu_bwd", "convex_upsample_bf16",
+                "convex_upsample_bwd_bf16")
 # kernels held to the same bits on a second call on the same inputs: the
 # tensor-core ones, J and I's backward, which add their per-block partials
 # in a fixed order, and E, whose sum is in integers
@@ -375,11 +401,42 @@ BF16_KERNEL_INFO = {
 BF16_KERNEL_REL = 1e-2
 BF16_FP64_RATIO = 1.5
 BF16_FP64_FLOOR = 1e-5
+# the bf16 train step: the bf16 backwards of A-D, held to the same gates
+# grad by grad (their plain version is the fp32 plain version's VJP at the
+# upcast inputs, each grad rounded to its input's dtype, as the JAX kernels
+# compute it); their bound counts the recompute's products and the
+# backward's at the 3xTF32 rate. A grad that stays fp32 (A's biases', B's
+# parameters', C's dv, D's gflow) is not rounded itself, so its floor
+# against fp64 is BF16_FP32_GRAD_FLOOR of its max|ref|: above what both
+# sides read on an H100 (B's parameter grads up to 1.4e-4, the kernel's and
+# the plain version's alike: x1's bf16 rounding flips where fp32 and fp64
+# round apart, passed through; A's bias grads, C's dv and D's gflow under
+# 4e-6) and below the ~1e-3 that a backward reusing the bf16 forward's
+# rounded buffers, or products not in 3xTF32, would show
+BF16_FP32_GRAD_FLOOR = 2e-4
+# the bf16 train step's card-vs-CPU comparison: b5's widths at these PVT
+# depths (the CPU's bf16 at full depth would not fit the time limit), one
+# pair from each seed
+BF16_COMPARE_DEPTHS = (1, 1, 2, 1)
+BF16_COMPARE_SEEDS = (SEED + 9, SEED + 10)
+BF16_BWD_INFO = {
+    "sr_attention_bwd_bf16": ("emip_tpu_torch/csrc/sr_attention.cu",
+                              "emip_tpu/ops/pallas/sr_attention.py:253"),
+    "window_attention_block_bwd_bf16": (
+        "emip_tpu_torch/csrc/window_attention.cu",
+        "emip_tpu/ops/pallas/window_attention.py:1279"),
+    "flow_attention_bwd_bf16": ("emip_tpu_torch/csrc/flow_attention.cu",
+                                "emip_tpu/ops/pallas/corr_softmax.py:287"),
+    "convex_upsample_bwd_bf16": ("emip_tpu_torch/csrc/convex_upsample.cu",
+                                 "emip_tpu/ops/pallas/convex_upsample.py:196"),
+}
 
 
 def bound_rate(name: str) -> str:
     if name == "window_attention_block_bf16":
         return "bf16+tf32x3"  # a bf16 self layer, then the fp32 cross + FFN
+    if name.endswith("_bwd_bf16"):  # fp32 recompute + backward, 3xTF32
+        return "fp32" if name.startswith("convex") else "tf32x3"
     if name.endswith("_bf16"):
         return "fp32" if name == "convex_upsample_bf16" else "bf16"
     return "tf32x3" if name in TENSOR_CORE_KERNELS else "fp32"
@@ -411,6 +468,19 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed_call(fn):
+    """(``fn()``, its CUDA-event milliseconds)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def device_ms(fn, reps: int, split: dict | None = None) -> float:
@@ -1602,14 +1672,9 @@ def slice_phase(model, batch: int, size: int, device, timed: int) -> dict:
     K.reset_launches()
     times, outputs = [], []
     for i, (a, b) in enumerate(frames):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        mask, flow = predict_arrays(model, a, b)
-        end.record()
-        torch.cuda.synchronize()
+        (mask, flow), ms = timed_call(lambda: predict_arrays(model, a, b))
         if i > 0:
-            times.append(start.elapsed_time(end))
+            times.append(ms)
         outputs.append((mask, flow))
     launches = dict(K.LAUNCHES)
 
@@ -1921,13 +1986,227 @@ def bf16_gemm_phase(batch: int, device, reps: int) -> dict:
     return out
 
 
-def expected_launches_bf16(model) -> dict:
-    """Launches per bf16 forward: the bf16 instantiations of A-D where the
-    fp32 model launches A-D, and nothing else."""
-    per32 = expected_launches(model)
+def bf16_backward_cases(batch: int, device):
+    """(kernel, label, kernel fn, fp32 plain fn, args, indices of the args
+    that take a gradient, summed) of the bf16 backwards of A-D at the bf16
+    train step's shapes: A at the four PVT stages (bf16 tokens and weights,
+    fp32 biases; every grad), B on [2B, 4, 484, 128] bf16 windows without
+    and with the shift mask (gx, gt and every parameter grad), C on bf16 q,
+    k with fp32 values (dq dk at [B] and [2B], dq dk dv at [2B], and a
+    ragged [2, 1000] dq dk dv kept out of the row's sum), D on bf16 logits
+    (gflow and gmask). ``fp32 plain fn`` is the function the JAX backward
+    differentiates: the fp32 plain version (B's with x1's rounding passed
+    straight through)."""
+    import torch
+
+    from emip_tpu_torch import kernels as K
+    from emip_tpu_torch.kernels.window_attention import _block_recompute_bf16
+    from emip_tpu_torch.ops.window import shifted_window_mask
+
+    r = seeded_randn(SEED + 41, device)
+    bf = torch.bfloat16
+    cases = []
+    for n, m, c, heads in SR_STAGES:
+        x, kv, wq, bq, wkv, bkv, wp, bp, _ = sr_args(r, batch, n, m, c, heads)
+        cases.append(("sr_attention_bwd_bf16",
+                      f"N={n} M={m} C={c} heads={heads}",
+                      K.fused_sr_attention, K.fused_sr_attention_reference,
+                      (x.to(bf), kv.to(bf), wq.to(bf), bq, wkv.to(bf), bkv,
+                       wp.to(bf), bp, heads), tuple(range(8)), True))
+    c, tok, k2 = 128, 484, 4
+    x, t = r(2 * batch, k2, tok, c).to(bf), r(2 * batch, k2, tok, c).to(bf)
+    sp, cp = window_params(r, c)
+    params = [sp[k] for k in WIN_SELF] + [cp[k] for k in WIN_CROSS]
+    mask = shifted_window_mask(44, 44, 2, device=device)
+
+    def block(fn):
+        def call(x, t, *p, mask=None):
+            return fn(x, t, dict(zip(WIN_SELF, p[:6])),
+                      dict(zip(WIN_CROSS, p[6:])), mask)
+        return call
+
+    for label, msk in (("unshifted", None), ("shifted mask", mask)):
+        cases.append(("window_attention_block_bwd_bf16",
+                      f"[{2 * batch},{k2},{tok},{c}] {label}, x t + weight "
+                      f"grads",
+                      functools.partial(block(K.fused_window_attention_block),
+                                        mask=msk),
+                      functools.partial(block(_block_recompute_bf16),
+                                        mask=msk),
+                      (x, t, *params), tuple(range(2 + len(params))), True))
+    L = 1936
+    for b, label, which in ((batch, "matching dq dk", (0, 1)),
+                            (2 * batch, "propagation dq dk", (0, 1)),
+                            (2 * batch, "propagation dq dk dv", (0, 1, 2))):
+        cases.append(("flow_attention_bwd_bf16", f"[{b},{L},128] {label}",
+                      K.fused_flow_attention,
+                      K.fused_flow_attention_reference,
+                      (r(b, L, 128).to(bf), r(b, L, 128).to(bf),
+                       r(b, L, 2, scale=10.0)), which, True))
+    rc = seeded_randn(SEED + 42, device)
+    cases.append(("flow_attention_bwd_bf16", "[2,1000,128] ragged dq dk dv",
+                  K.fused_flow_attention, K.fused_flow_attention_reference,
+                  (rc(2, 1000, 128).to(bf), rc(2, 1000, 128).to(bf),
+                   rc(2, 1000, 2, scale=10.0)), (0, 1, 2), False))
+    cases.append(("convex_upsample_bwd_bf16",
+                  f"flow [{2 * batch},44,44,2] x8 gflow gmask",
+                  K.convex_upsample, K.convex_upsample_reference,
+                  (r(2 * batch, 44, 44, 2, scale=3.0),
+                   r(2 * batch, 44, 44, 576).to(bf), 8), (0, 1), True))
+    return cases
+
+
+def _plain_bf16_grads(plain, args, which, cot, dtype=None):
+    """The grads of ``plain`` w.r.t. args[which] for cotangent ``cot`` at
+    the inputs upcast to fp32 (``dtype`` float64: to fp64, cotangent too),
+    each rounded to its input's dtype (not with ``dtype``: the fp64
+    reference is not rounded)."""
+    import torch
+
+    from emip_tpu_torch.kernels import _common as cm
+
+    tensors = [i for i, a in enumerate(args) if torch.is_tensor(a)]
+    inputs = [args[i] for i in tensors]
+    needs = [i in which for i in tensors]
+
+    def fn(*ts):
+        full = list(args)
+        for i, t in zip(tensors, ts):
+            full[i] = t
+        return plain(*full)
+
+    if dtype is None:
+        got = cm.plain_vjp_fp32(fn, inputs, needs, cot)
+    else:
+        got = cm.plain_vjp(fn, [a.to(dtype) for a in inputs], needs,
+                           cot.to(dtype))
+    return [g for g, n in zip(got, needs) if n]
+
+
+def bf16_bwd_work(name: str, args, which, out, grads) -> tuple:
+    """(3xTF32 operations, CUDA-core operations, bytes at their storage
+    sizes) of one bf16 backward call: the fp32 recompute of the forward and
+    the fp32 backward's products (C and D as their fp32 rows count them),
+    every input and the cotangent read once, the grads written once."""
+    base = name.removesuffix("_bwd_bf16")
+    size = float(nbytes(*args) + 2 * nbytes(out) + nbytes(*grads))
+    if base == "convex_upsample":
+        tc, cc, _ = forward_work(base, args, out)
+        return 0.0, 3.0 * (tc + cc), size
+    if base == "flow_attention":
+        b, l, c = args[0].shape
+        fwd = 2.0 * b * l * l * (c + args[2].shape[-1])
+    else:
+        fwd = float(forward_products(base, args))
+    bwd = backward_work(base + "_bwd", args, which, out)[0]
+    return fwd + bwd, 0.0, size
+
+
+def bf16_backward_phase(batch: int, device, reps: int) -> dict:
+    """The bf16 backwards of A-D against their plain versions on the card
+    (rel <= BF16_KERNEL_REL of max|plain| per grad), against an fp64
+    evaluation of the same VJP on the same bf16 inputs (each grad's error
+    relative to its max|ref| no more than BF16_FP64_RATIO times the plain
+    version's, errors below the floor counted as the floor:
+    BF16_FP64_FLOOR for a grad rounded to bf16, BF16_FP32_GRAD_FLOOR for
+    one that stays fp32), each grad in its input's dtype, the same bits on
+    a second call; CUDA-event times of the backward alone beside the plain
+    VJP (which recomputes the forward, as the kernel does) and, for C,
+    scaled_dot_product_attention's backward on the upcast inputs; the bound
+    of the recompute and the backward at the 3xTF32 rate."""
+    import torch
+
+    results = {}
+    for name, label, fn, plain, args, which, summed in bf16_backward_cases(
+            batch, device):
+        gen = torch.Generator(device=device).manual_seed(SEED + 43)
+
+        def cot(out):
+            return torch.randn(out.shape, generator=gen, device=device
+                               ).to(out.dtype)
+
+        out_k, got, rerun_k = _grads(fn, args, which, cot)
+        if out_k.grad_fn is None:
+            raise AssertionError(f"{name}: the CUDA output has no grad_fn")
+        gen.manual_seed(SEED + 43)
+        g = cot(out_k)  # the cotangent _grads drew
+        torch.cuda.synchronize()
+        want = _plain_bf16_grads(plain, args, which, g)
+        ref64 = _plain_bf16_grads(plain, args, which, g, torch.float64)
+        rel, err, e_ks, e_ps = 0.0, 0.0, [], []
+        worst = {torch.bfloat16: (0.0, None), torch.float32: (0.0, None)}
+        for i, gk, gp, g64 in zip(which, got, want, ref64):
+            if gk.dtype != args[i].dtype or gp.dtype != args[i].dtype:
+                raise AssertionError(f"{name} ({label}): grad {i} is "
+                                     f"{gk.dtype}, its input {args[i].dtype}")
+            e = (gk.float() - gp.float()).abs().max().item()
+            err = max(err, e)
+            rel = max(rel, e / max(gp.float().abs().max().item(), 1e-30))
+            scale = max(g64.abs().max().item(), 1e-30)
+            e_k = (gk.double() - g64).abs().max().item() / scale
+            e_p = (gp.double() - g64).abs().max().item() / scale
+            e_ks.append(e_k)
+            e_ps.append(e_p)
+            floor = (BF16_FP64_FLOOR if gk.dtype == torch.bfloat16
+                     else BF16_FP32_GRAD_FLOOR)
+            worst[gk.dtype] = max(worst[gk.dtype],
+                                  (max(e_k, floor) / max(e_p, floor), i))
+        del ref64
+        ratio = max(r for r, _ in worst.values())
+        again = rerun_k()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{name} ({label}): two calls on the same "
+                                 f"inputs differ")
+        del again
+        finite = all(bool(torch.isfinite(t).all()) for t in got)
+        ms, plain_ms = alternate_ms(
+            rerun_k, lambda: _plain_bf16_grads(plain, args, which, g), reps)
+        lib_ms = None
+        if name == "flow_attention_bwd_bf16":
+            lib_ms = library_ms("flow_attention_bwd",
+                                [a.float() for a in args], reps, which)
+        dev = device_times(name, rerun_k,
+                           lambda: _plain_bf16_grads(plain, args, which, g),
+                           reps)
+        ok = finite and rel <= BF16_KERNEL_REL and ratio <= BF16_FP64_RATIO
+        per = " ".join(f"{str(dt)[6:]} {r:.3f} (arg {i})"
+                       for dt, (r, i) in worst.items() if i is not None)
+        log(f"kernel {name:32s} {label:44s} max_abs_err={err:.3e} "
+            f"rel={rel:.2e} (tol {BF16_KERNEL_REL}) fp64 err kernel "
+            f"{max(e_ks):.2e} plain {max(e_ps):.2e}; fp64 ratio per grad at "
+            f"most {per} (limit {BF16_FP64_RATIO}, floors "
+            f"{BF16_FP64_FLOOR} bf16, {BF16_FP32_GRAD_FLOOR} fp32) "
+            f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"library_ms={fmt_ms(lib_ms)} " + fmt_dev(dev)
+            + ("ok" if ok else "MISMATCH"))
+        if not ok:
+            raise AssertionError(f"{name} ({label}): rel={rel}, fp64 "
+                                 f"ratio={ratio} ({per}), finite={finite}")
+        record(results, name, label, err, ms, plain_ms,
+               bf16_bwd_work(name, args, which, out_k, got), lib_ms,
+               summed=summed, rel_err=rel, fp64_err=max(e_ks),
+               plain_fp64_err=max(e_ps), fp64_ratio=ratio,
+               fp64_ratio_bf16_grads=worst[torch.bfloat16][0],
+               fp64_ratio_fp32_grads=worst[torch.float32][0],
+               fp64_err_per_grad=e_ks, plain_fp64_err_per_grad=e_ps, **dev)
+        del out_k, got, want, rerun_k
+    for entry in results.values():
+        entry["fp64_ratio"] = max(c["fp64_ratio"] for c in entry["cases"])
+    device_sums(results)
+    return results
+
+
+def expected_launches_bf16(model, train: bool = False) -> dict:
+    """Launches per bf16 forward (``train``: per bf16 train step): the bf16
+    instantiations of A-D, forward and backward, where the fp32 model
+    launches A-D, E where it launches E, and nothing else."""
+    per32 = expected_launches(model, train)
     n = {k: 0 for k in per32}
     for name in FWD_KERNELS:
         n[name + "_bf16"] = per32[name]
+        n[name + "_bwd_bf16"] = per32[name + "_bwd"]
+    n["splat_density"] = per32["splat_density"]
     return n
 
 
@@ -1983,16 +2262,8 @@ def bf16_slice_phase(model, batch: int, size: int, device, timed: int,
             raise AssertionError("bf16 outputs: shape, dtype or finiteness")
 
     def batch_times(m) -> list:
-        out = []
-        for a, b in frames[1:]:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            predict_arrays(m, a, b)
-            end.record()
-            torch.cuda.synchronize()
-            out.append(start.elapsed_time(end))
-        return out
+        return [timed_call(lambda: predict_arrays(m, a, b))[1]
+                for a, b in frames[1:]]
 
     t32 = batch_times(model)
     t16 = batch_times(model16) + batch_times(model16)
@@ -2137,14 +2408,9 @@ def train_phase(model, batch: int, size: int, device, timed: int,
     K.reset_launches()
     times, losses = [], []
     for i, b in enumerate(batches):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        metrics = short_train_step(model, opt, b, gen)
-        end.record()
-        torch.cuda.synchronize()
+        metrics, ms = timed_call(lambda: short_train_step(model, opt, b, gen))
         if i > 0:
-            times.append(start.elapsed_time(end))
+            times.append(ms)
         losses.append({k: float(v) for k, v in metrics.items()})
     launches = dict(K.LAUNCHES)
     want = {k: v * steps for k, v in expected_launches(model, True).items()}
@@ -2215,14 +2481,10 @@ def variant_phase(label: str, model, infer_cfg, train_cfg, batch: int,
         """(results, ms of each call after the first)."""
         outs, times = [], []
         for i in range(n):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            outs.append(fn(i))
-            end.record()
-            torch.cuda.synchronize()
+            out, ms = timed_call(lambda: fn(i))
+            outs.append(out)
             if i > 0:
-                times.append(start.elapsed_time(end))
+                times.append(ms)
         return outs, times
 
     rng = np.random.default_rng(SEED + 11)
@@ -2355,8 +2617,6 @@ def train_compare_phase(model, size: int, device,
     frozen) by the scale-floored relative max of
     tests/test_grad_parity.py. Drop path is off (the two devices'
     generators differ)."""
-    import torch
-
     from emip_tpu_torch.train.state import freeze_gmflow
 
     freeze_gmflow(model)
@@ -2445,7 +2705,7 @@ def entry_phase(batch: int, size: int) -> dict:
                              channel=32)),
         optimizer=dict(lr=1.0e-5, weight_decay=1.0e-7),
         clip=0.5, seed=SEED, epoch=2, epoch_val=1, epoch_save=1,
-        save_path=os.path.join(work, "run"))
+        compute_dtype="float32", save_path=os.path.join(work, "run"))
     os.makedirs(work, exist_ok=True)
     cfg_path = os.path.join(work, "train.yaml")
     with open(cfg_path, "w") as f:
@@ -2472,6 +2732,8 @@ def entry_phase(batch: int, size: int) -> dict:
 # ------------------------------------------- static pretrain + entry chain
 
 STATIC_TIMED = 3  # timed static train steps after one warm-up
+# timed bf16 train / static steps per turn (fp32, bf16, bf16, fp32)
+BF16_TIMED_STEPS = 2
 
 
 def static_expected(model) -> dict:
@@ -2560,14 +2822,9 @@ def static_phase(batch: int, size: int, device, timed: int) -> dict:
     K.reset_launches()
     times, losses = [], []
     for i, b in enumerate(batches):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        loss = static_train_step(model, opt, b, gen)
-        end.record()
-        torch.cuda.synchronize()
+        loss, ms = timed_call(lambda: static_train_step(model, opt, b, gen))
         if i > 0:
-            times.append(start.elapsed_time(end))
+            times.append(ms)
         losses.append(float(loss))
     launches = dict(K.LAUNCHES)
     want = {k: v * len(batches) for k, v in static_expected(model).items()}
@@ -2593,6 +2850,366 @@ def static_phase(batch: int, size: int, device, timed: int) -> dict:
                 leaves=len(rels), worst=worst, cpu_seconds=cpu_s,
                 launches=launches, expected=want, median_ms=median_ms,
                 step_ms=times, peak_bytes=peak, losses=losses)
+
+
+def bf16_train_compare_phase(model, size: int, device) -> dict:
+    """One pair from each of BF16_COMPARE_SEEDS, drop path off, GMFlow
+    frozen: the loss values and the seg-loss grads of the trainable leaves
+    of the card's bf16 model against the CPU's plain bf16 versions on the
+    same weights. Each loss within twice the card's own bf16-vs-fp32 gap
+    (above zero). Each leaf's max|card bf16 - CPU bf16| within twice the
+    larger of the card's and the CPU's own bf16-vs-fp32 gaps on that leaf
+    (above zero): the two bf16 runs round apart, and by the triangle
+    inequality their difference is at most the sum of their distances from
+    fp32 plus the fp32 card-vs-CPU difference, so a leaf of one element
+    cannot be held to one run's gap alone. The grads of all leaves taken
+    together, by their largest and their mean |difference|, within twice
+    the card's gap and within twice the CPU's, which no card kernel
+    touches (as tests/test_torch_bf16_train.py holds the port to the JAX
+    package). Every leaf above twice the card's gap alone is logged with
+    the CPU's gap and the fp32 card-vs-CPU difference. At b5's widths with
+    PVT depths BF16_COMPARE_DEPTHS: the CPU's bf16 at full depth takes
+    longer than this script's share of the time limit; the timed steps run
+    the full b5."""
+    import torch
+
+    from emip_tpu_torch.models.emip_short import EMIPShort
+    from emip_tpu_torch.models.init import seeded_init_
+    from emip_tpu_torch.models.pvt_v2 import PVT_V2_VARIANTS
+    from emip_tpu_torch.train.state import freeze_gmflow
+
+    pvt = dataclasses.replace(PVT_V2_VARIANTS["pvt_v2_b5"],
+                              depths=BF16_COMPARE_DEPTHS, drop_path_rate=0.0)
+    cfg = dataclasses.replace(model.config, backbone_name=pvt)
+    t0 = time.perf_counter()
+    fp32 = seeded_init_(EMIPShort(cfg), SEED)
+    card16 = EMIPShort(cfg, dtype=torch.bfloat16)
+    card16.load_state_dict(fp32.state_dict())
+    models = dict(card32=(fp32, device), card16=(card16, device),
+                  cpu16=(copy.deepcopy(card16), "cpu"),
+                  cpu32=(copy.deepcopy(fp32), "cpu"))
+    for m, dev in models.values():
+        freeze_gmflow(m)
+        m.to(dev)
+    out, bad = [], []
+    for seed in BF16_COMPARE_SEEDS:
+        batch = seeded_batch(np.random.default_rng(seed), 1, size, device)
+        runs = {name: _seg_grads(m, {k: v.to(dev) for k, v in batch.items()})
+                for name, (m, dev) in models.items()}
+        losses = {n: r[0] for n, r in runs.items()}
+        for k in ("loss_pred", "loss_flow"):
+            a, b, c, d = (losses[n][k]
+                          for n in ("card16", "cpu16", "card32", "cpu32"))
+            gap = abs(a - c)
+            log(f"bf16 train seed {seed} {k}: card bf16 {a:.7f} CPU bf16 "
+                f"{b:.7f} card fp32 {c:.7f} CPU fp32 {d:.7f}: |card - CPU| "
+                f"{abs(a - b):.3e}, card gap {gap:.3e} (limit 2 x), CPU gap "
+                f"{abs(b - d):.3e}")
+            if not (gap > 0 and abs(a - b) <= 2 * gap):
+                bad.append(f"seed {seed} {k}")
+        g16, gp16, g32, gp32 = (runs[n][1] for n in ("card16", "cpu16",
+                                                     "card32", "cpu32"))
+        if not set(g16) == set(gp16) == set(g32) == set(gp32):
+            raise AssertionError("bf16 card, CPU and fp32 grads cover "
+                                 "different leaves")
+
+        def amax(a, b):
+            return (a - b).abs().max().item()
+
+        leaves = {n: dict(err=amax(g16[n], gp16[n]), card=amax(g16[n],
+                                                               g32[n]),
+                          cpu=amax(gp16[n], gp32[n]), fp32=amax(g32[n],
+                                                                gp32[n]))
+                  for n in g16}
+        for v in leaves.values():
+            v["ratio"] = v["err"] / max(v["card"], v["cpu"], 1e-30)
+            v["card_ratio"] = v["err"] / max(v["card"], 1e-30)
+            v["cpu_ratio"] = v["err"] / max(v["cpu"], 1e-30)
+        pooled = {}
+        for key, (a, b) in dict(err=(g16, gp16), card=(g16, g32),
+                                cpu=(gp16, gp32)).items():
+            diff = torch.cat([(a[n] - b[n]).abs().flatten() for n in g16])
+            pooled[key + "_max"] = diff.max().item()
+            pooled[key + "_mean"] = diff.mean().item()
+        held = [n for n, v in leaves.items()
+                if not (max(v["card"], v["cpu"]) > 0 and v["ratio"] <= 2)]
+        bad += [f"seed {seed} {n}" for n in held]
+        for gap in ("card", "cpu"):
+            if not (pooled[gap + "_max"] > 0
+                    and pooled["err_max"] <= 2 * pooled[gap + "_max"]
+                    and pooled["err_mean"] <= 2 * pooled[gap + "_mean"]):
+                bad.append(f"seed {seed} all leaves against the {gap} gap")
+
+        def top(key, k=3):
+            return ", ".join(f"{n}={leaves[n][key]:.2f}" for n in sorted(
+                leaves, key=lambda n: -leaves[n][key])[:k])
+
+        log(f"bf16 train seed {seed} seg-loss grads over {len(leaves)} "
+            f"leaves (b5 widths, PVT depths {BF16_COMPARE_DEPTHS}): all "
+            f"together |card bf16 - CPU bf16| max {pooled['err_max']:.3e} "
+            f"mean {pooled['err_mean']:.3e}; card gap max "
+            f"{pooled['card_max']:.3e} mean {pooled['card_mean']:.3e}; CPU "
+            f"gap max {pooled['cpu_max']:.3e} mean {pooled['cpu_mean']:.3e} "
+            f"(limit 2 x each). Per leaf against the larger gap (limit 2): "
+            f"{top('ratio')}; against the card's alone: {top('card_ratio')};"
+            f" against the CPU's alone: {top('cpu_ratio')}")
+        for n, v in sorted(leaves.items(), key=lambda kv: -kv[1]["ratio"]):
+            if v["card_ratio"] > 2:
+                log(f"  leaf {n} above 2 x the card's gap: |card bf16 - CPU "
+                    f"bf16| {v['err']:.3e}, card gap {v['card']:.3e}, CPU gap "
+                    f"{v['cpu']:.3e}, |card fp32 - CPU fp32| "
+                    f"{v['fp32']:.3e}: {v['ratio']:.3f} x the larger gap")
+        worst = sorted(leaves.items(), key=lambda kv: -kv[1]["ratio"])[:5]
+        out.append(dict(seed=seed, losses=losses, grads=pooled,
+                        leaves=len(leaves), worst=worst,
+                        above_card_2x={n: v for n, v in leaves.items()
+                                       if v["card_ratio"] > 2}))
+    seconds = time.perf_counter() - t0
+    log(f"bf16 train card against CPU: {len(BF16_COMPARE_SEEDS)} pairs in "
+        f"{seconds:.1f} s {'MISMATCH' if bad else 'ok'}")
+    del models, fp32, card16
+    if bad:
+        raise AssertionError(f"bf16 card disagrees with the CPU: {bad[:8]}")
+    return dict(pairs=out, seconds=seconds, depths=BF16_COMPARE_DEPTHS)
+
+
+def bf16_step_turns(label: str, step16, step32, timed: int, device,
+                    want: dict) -> dict:
+    """One warm-up fp32 step, then ``timed`` steps of each in turns (fp32,
+    bf16, bf16, fp32; CUDA-event ms each, medians); the first bf16 turn and
+    one warm-up bf16 step before it counted from zero launches, which must
+    equal ``want``, with that run's peak memory."""
+    import torch
+
+    from emip_tpu_torch import kernels as K
+
+    def turn(step):
+        return [timed_call(step)[1] for _ in range(timed)]
+
+    step32()
+    t32 = turn(step32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    K.reset_launches()
+    step16()
+    t16 = turn(step16)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(device)
+    t16 += turn(step16)
+    t32 += turn(step32)
+    log(f"{label} launches {launches} (expected {want})")
+    if launches != want:
+        raise AssertionError(f"{label} launch counts {launches} != {want}")
+    return dict(launches=launches, expected=want,
+                median_ms=statistics.median(t16), step_ms=t16,
+                fp32_median_ms=statistics.median(t32), fp32_step_ms=t32,
+                peak_bytes=peak)
+
+
+def bf16_steps_moved(label: str, model, before: dict, losses: list) -> int:
+    """Finite losses, every parameter still fp32, and every leaf of
+    ``before`` that has a grad moved from its value there; the number of
+    such leaves."""
+    import torch
+
+    if not all(np.isfinite(v) for v in losses):
+        raise AssertionError(f"{label}: non-finite losses {losses}")
+    moved = [(n, not torch.equal(p.detach(), before[n]))
+             for n, p in model.named_parameters()
+             if n in before and p.grad is not None]
+    still = [n for n, ok in moved if not ok]
+    if still or not moved:
+        raise AssertionError(f"{label}: leaves with a grad that did not "
+                             f"move: {still[:8]}")
+    if any(p.dtype != torch.float32 for p in model.parameters()):
+        raise AssertionError(f"{label}: a parameter is not fp32")
+    return len(moved)
+
+
+def bf16_train_phase(model, batch: int, size: int, device,
+                     timed: int) -> dict:
+    """The full b5 EMIPShort in bf16 (``EMIPShort(cfg, dtype=bfloat16)`` on
+    the fp32 train phase's weights) takes train steps at ``batch``, in
+    turns with the fp32 model's (:func:`bf16_step_turns`; the bf16 forwards
+    and backwards of A-D and E's, no fp32 A-D kernel), each model with its
+    own clamp + AdamW and seeded drop path; then the device's busy time per
+    step of each (two profiled steps). GMFlow stays bit-identical, every
+    trainable leaf with a grad moves, the losses are finite."""
+    import torch
+
+    from emip_tpu_torch.models.emip_short import EMIPShort
+    from emip_tpu_torch.train.short import short_train_step
+    from emip_tpu_torch.train.state import build_optimizer
+
+    model16 = EMIPShort(model.config, dtype=torch.bfloat16)
+    model16.load_state_dict(model.state_dict())
+    model16 = model16.to(device)
+    opt16, opt32 = build_optimizer(model16), build_optimizer(model)
+    gmflow0 = {k: v.clone() for k, v in model16.GMFlow.state_dict().items()}
+    trainable0 = {n: p.detach().clone()
+                  for n, p in model16.named_parameters() if p.requires_grad}
+    gen16 = torch.Generator(device=device).manual_seed(SEED)
+    gen32 = torch.Generator(device=device).manual_seed(SEED)
+    rng = np.random.default_rng(SEED + 5)  # the fp32 train phase's batches
+    batches = [seeded_batch(rng, batch, size, device) for _ in range(2)]
+    next16, next32 = itertools.cycle(batches), itertools.cycle(batches)
+    losses = []
+
+    def step16():
+        m = short_train_step(model16, opt16, next(next16), gen16)
+        losses.append({k: float(v) for k, v in m.items()})
+
+    def step32():
+        short_train_step(model, opt32, next(next32), gen32)
+
+    want = {k: v * (1 + timed)
+            for k, v in expected_launches_bf16(model16, True).items()}
+    res = bf16_step_turns("bf16 train", step16, step32, timed, device, want)
+    busy16 = device_ms(step16, 2)
+    busy32 = device_ms(step32, 2)
+    with_grad = bf16_steps_moved("bf16 train", model16, trainable0,
+                                 [v for m in losses for v in m.values()])
+    gm = model16.GMFlow.state_dict()
+    if any(not torch.equal(gm[k], v) for k, v in gmflow0.items()):
+        raise AssertionError("bf16 train: a frozen GMFlow tensor changed")
+    ms16, ms32 = res["median_ms"], res["fp32_median_ms"]
+    log(f"train b5 {size}^2 bs={batch} bf16: losses "
+        + " ".join(f"{m['loss']:.6f}" for m in losses)
+        + f"; median {ms16:.3f} ms/step -> {batch / (ms16 / 1e3):.3f} "
+        f"pairs/s, device busy {busy16:.3f} ms/step (idle "
+        f"{1 - busy16 / ms16:.2f}); fp32 in the same turns {ms32:.3f} "
+        f"ms/step, busy {busy32:.3f} (idle {1 - busy32 / ms32:.2f}); bf16 "
+        f"peak memory {res['peak_bytes'] / 2**30:.3f} GiB; {with_grad} "
+        f"trainable leaves with grads all moved, GMFlow bit-identical")
+    del opt16, opt32, model16
+    return dict(res, device_busy_ms=busy16, fp32_device_busy_ms=busy32,
+                pairs_per_s=batch / (ms16 / 1e3), losses=losses,
+                leaves_with_grad=with_grad)
+
+
+def bf16_static_phase(batch: int, size: int, device, timed: int) -> dict:
+    """SegNetwork (pvt_v2_b5, channel 32) in bf16 and fp32 on the same
+    seeded weights: bf16 static train steps in turns with the fp32 model's
+    (:func:`bf16_step_turns`; A's bf16 forward and backward 52 each a step,
+    nothing else); finite losses, every leaf moved, fp32 parameters."""
+    import torch
+
+    from emip_tpu_torch.models.emip_short import SegNetwork
+    from emip_tpu_torch.models.init import seeded_init_
+    from emip_tpu_torch.train.state import ClampAdamW
+    from emip_tpu_torch.train.static import static_train_step
+
+    m32 = seeded_init_(SegNetwork("pvt_v2_b5", 32), SEED)
+    m16 = SegNetwork("pvt_v2_b5", 32, dtype=torch.bfloat16)
+    m16.load_state_dict(m32.state_dict())
+    m32, m16 = m32.to(device), m16.to(device)
+    opt16 = ClampAdamW(m16.parameters(), 1e-5, 1e-7, 0.5)
+    opt32 = ClampAdamW(m32.parameters(), 1e-5, 1e-7, 0.5)
+    before = {n: p.detach().clone() for n, p in m16.named_parameters()}
+    rng = np.random.default_rng(SEED + 8)
+    batches = []
+    for _ in range(2):
+        b = seeded_batch(rng, batch, size, device)
+        batches.append(dict(image=b["image1"], gt=b["gt"]))
+    gen16 = torch.Generator(device=device).manual_seed(SEED)
+    gen32 = torch.Generator(device=device).manual_seed(SEED)
+    next16, next32 = itertools.cycle(batches), itertools.cycle(batches)
+    losses = []
+
+    def step16():
+        losses.append(float(static_train_step(m16, opt16, next(next16),
+                                              gen16)))
+
+    def step32():
+        static_train_step(m32, opt32, next(next32), gen32)
+
+    per32 = static_expected(m16)
+    want = {k: 0 for k in per32}
+    want.update(sr_attention_bf16=per32["sr_attention"] * (1 + timed),
+                sr_attention_bwd_bf16=per32["sr_attention_bwd"] * (1 + timed))
+    res = bf16_step_turns("bf16 static train", step16, step32, timed, device,
+                          want)
+    moved = bf16_steps_moved("bf16 static steps", m16, before, losses)
+    if moved != len(before):
+        raise AssertionError(f"bf16 static steps: {len(before) - moved} "
+                             f"leaves have no grad")
+    ms16, ms32 = res["median_ms"], res["fp32_median_ms"]
+    per_step = {k: v // (1 + timed) for k, v in res["launches"].items() if v}
+    log(f"static train b5 {size}^2 bs={batch} bf16: losses "
+        + " ".join(f"{v:.6f}" for v in losses)
+        + f"; median {ms16:.3f} ms/step -> {batch / (ms16 / 1e3):.3f} "
+        f"images/s; fp32 in the same turns {ms32:.3f} ms/step; bf16 peak "
+        f"memory {res['peak_bytes'] / 2**30:.3f} GiB; launches per step "
+        f"{per_step}; {moved} leaves all moved")
+    del opt16, opt32, m16, m32
+    return dict(res, losses=losses)
+
+
+def bf16_train_entry_phase(entry: dict, chain: dict, size: int) -> dict:
+    """``python -m emip_tpu_torch.train`` and ``... train_static`` (in
+    process) with the YAMLs saying ``compute_dtype: bfloat16``, on the
+    train phase's synthetic root and the entry chain's static root, b5 at
+    ``size``: each with TF32 and the bf16 reduced-precision reduction on
+    before the call and checked off after it, launching the bf16 kernels of
+    its model and none of their fp32 ones, and writing a checkpoint of fp32
+    tensors that loads into an fp32 model."""
+    import torch
+    import yaml
+
+    from emip_tpu_torch import kernels as K
+    from emip_tpu_torch.config import load_config
+    from emip_tpu_torch.models.emip_short import EMIPShort
+    from emip_tpu_torch.train.__main__ import main as train_main
+    from emip_tpu_torch.train_static import main as static_main
+
+    work = entry["work"]
+    out = {}
+    for label, src, kernels in (
+            ("train", entry["config"], FWD_KERNELS),
+            ("train_static", chain["static_config"], ("sr_attention",))):
+        with open(src) as f:
+            raw = yaml.safe_load(f)
+        raw["compute_dtype"] = "bfloat16"
+        raw["save_path"] = os.path.join(work, f"run_{label}_bf16")
+        cfg = os.path.join(work, f"{label}_bf16.yaml")
+        with open(cfg, "w") as f:
+            yaml.safe_dump(raw, f)
+        K.reset_launches()
+        tf32_on()
+        t0 = time.perf_counter()
+        if label == "train":
+            summary = train_main(["--config", cfg, "--max_steps_per_epoch",
+                                  "2"])
+            ckpt = os.path.join(raw["save_path"], "ckpt", "ckpt.pt")
+        else:
+            summary = static_main(["--config", cfg, "--data_root",
+                                   chain["static_root"],
+                                   "--max_steps_per_epoch", "2"])
+            ckpt = os.path.join(raw["save_path"], "static", "ckpt",
+                                "ckpt.pt")
+        dt = time.perf_counter() - t0
+        tf32_checked_off(f"entry python -m emip_tpu_torch.{label} (bf16)")
+        launches = {k: v for k, v in K.LAUNCHES.items() if v}
+        state = torch.load(ckpt, map_location="cpu")["model"]
+        fp32_state = all(v.dtype in (torch.float32, torch.int64)
+                         for v in state.values())
+        _, unexpected = EMIPShort(load_config(cfg).model).load_state_dict(
+            state, strict=label == "train")
+        ok = (summary["steps"] == 2 and fp32_state and not unexpected
+              and all(K.LAUNCHES[k + "_bf16"] > 0 for k in kernels)
+              and all(K.LAUNCHES[k + "_bwd_bf16"] > 0 for k in kernels)
+              and not any(K.LAUNCHES[k] or K.LAUNCHES[k + "_bwd"]
+                          for k in FWD_KERNELS))
+        log(f"entry python -m emip_tpu_torch.{label} compute_dtype=bfloat16 "
+            f"b5 {size}^2: {summary['steps']} steps, checkpoint of fp32 "
+            f"tensors {'loads' if ok else 'FAILED'} into an fp32 model, "
+            f"launches {launches}, {dt:.1f} s {'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise AssertionError(f"bf16 {label} entry point: {summary}, "
+                                 f"launches {launches}")
+        out[label] = dict(summary=summary, launches=launches, seconds=dt)
+    return out
 
 
 def _count_files(path: str, ext: str) -> int:
@@ -2753,7 +3370,8 @@ def entry_chain_phase(entry: dict, batch: int, size: int) -> dict:
     if bad:
         raise AssertionError(f"entry chain failed: {bad}")
     return dict(scores=scores, self_scores=self_scores, frames=scored,
-                frame_scores_diff=diffs, seconds=secs, static=static, **out)
+                frame_scores_diff=diffs, seconds=secs, static=static,
+                static_root=static_root, static_config=static_cfg, **out)
 
 
 # ----------------------------------------------------------- long model
@@ -2817,14 +3435,10 @@ def long_infer_phase(model, size: int, device, timed: int) -> dict:
                                              model.init_memory(clips))
             masks = [mask0, mask]
             for t in range(2, steps + 1):
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                mask, enc, state = model.step_cached(enc, video[:, t], state)
-                end.record()
-                torch.cuda.synchronize()
+                (mask, enc, state), ms = timed_call(
+                    lambda: model.step_cached(enc, video[:, t], state))
                 if t - 1 >= model.memory_size:  # every slot written
-                    times.append(start.elapsed_time(end))
+                    times.append(ms)
                 masks.append(mask)
         launches = dict(K.LAUNCHES)
         want = long_expected(model, steps + 1, steps + 1, steps)
@@ -2992,16 +3606,11 @@ def long_train_phase(model, size: int, device, timed: int) -> dict:
         state = model.init_memory(clips)
         enc = model.encode_frame(video[:, 0])
         for t in range(1, steps + 1):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            metrics, enc, state = long_train_step(model, opt, enc,
-                                                  video[:, t], gts[:, t],
-                                                  state)
-            end.record()
-            torch.cuda.synchronize()
+            (metrics, enc, state), ms = timed_call(
+                lambda: long_train_step(model, opt, enc, video[:, t],
+                                        gts[:, t], state))
             if t > 1:
-                times.append(start.elapsed_time(end))
+                times.append(ms)
             losses.append(float(metrics["loss"]))
         launches = dict(K.LAUNCHES)
         want = long_expected(model, steps + 1, steps, steps, steps)
@@ -3238,6 +3847,7 @@ def main(argv=None) -> int:
         if wanted(opts.kernels, "bf16"):
             bf16_kernel_phase(BATCH, device, KERNEL_REPS)
             bf16_gemm_phase(BATCH, device, KERNEL_REPS)
+            bf16_backward_phase(BATCH, device, KERNEL_REPS)
             return 0
         if wanted(opts.kernels, "gemm"):
             gemm_phase(BATCH, device, KERNEL_REPS)
@@ -3271,6 +3881,13 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     compare_res = train_compare_phase(model, SIZE, device)
     train_res = train_phase(model, BATCH, SIZE, device, TIMED_STEPS)
+    # the bf16 train step: its backward kernels, the card against the CPU,
+    # then the timed steps on the fp32 phase's weights
+    bf16_bwd = bf16_backward_phase(BATCH, device, KERNEL_REPS)
+    bf16_compare = bf16_train_compare_phase(model, SIZE, device)
+    bf16_train = bf16_train_phase(model, BATCH, SIZE, device,
+                                  BF16_TIMED_STEPS)
+    torch.cuda.empty_cache()
     read_corr_cfg = dataclasses.replace(cfg, gmflow=dataclasses.replace(
         cfg.gmflow, global_match_qk_fused=False))
     read_corr = variant_phase(
@@ -3285,9 +3902,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     entry_res = entry_phase(BATCH, SIZE)
     static_res = static_phase(BATCH, SIZE, device, STATIC_TIMED)
+    bf16_static = bf16_static_phase(BATCH, SIZE, device, BF16_TIMED_STEPS)
     torch.cuda.empty_cache()
     chain_res = entry_chain_phase(entry_res, BATCH, SIZE)
     bf16_entry = bf16_entry_phase(entry_res, SIZE)
+    bf16_train_entry = bf16_train_entry_phase(entry_res, chain_res, SIZE)
     torch.cuda.empty_cache()
 
     from emip_tpu_torch.models.emip_long import EMIPLong
@@ -3333,11 +3952,15 @@ def main(argv=None) -> int:
             fused_ffn["train"]["variant"]["launches"])
     launches = {name: next((r[name] for r in runs if r[name]), 0)
                 for name in KERNEL_INFO}
-    # the bf16 forwards: the bf16 slice's run
+    # the bf16 forwards: the bf16 slice's run; the bf16 backwards: the bf16
+    # train steps' run
     launches.update({name: bf16_slice["launches"][name]
                      for name in BF16_KERNEL_INFO})
+    launches.update({name: bf16_train["launches"][name]
+                     for name in BF16_BWD_INFO})
     kernels.update(bf16_kernels)
-    info = dict(KERNEL_INFO, **BF16_KERNEL_INFO)
+    kernels.update(bf16_bwd)
+    info = dict(KERNEL_INFO, **BF16_KERNEL_INFO, **BF16_BWD_INFO)
     idle = [name for name, n in launches.items() if n == 0]
     if idle:
         raise AssertionError(f"kernels no main path launched: {idle}")
@@ -3371,7 +3994,9 @@ def main(argv=None) -> int:
                        flow_attention_stats_ms=stats_ms, tiny=tiny,
                        train_512=train512, long_infer_512=long_infer512,
                        bf16_gemm=bf16_gemm, bf16_slice=bf16_slice,
-                       bf16_entry=bf16_entry),
+                       bf16_entry=bf16_entry, bf16_compare=bf16_compare,
+                       bf16_train=bf16_train, bf16_static=bf16_static,
+                       bf16_train_entry=bf16_train_entry),
                   f, indent=1, default=str)
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {

@@ -119,7 +119,7 @@ def _model(d: dict) -> EMIPShortConfig:
 def _warn_ignored(raw: dict, opt: dict, honours_dtype: bool) -> None:
     """One warning line per key of the JAX package's that asks for other
     than what the entry point does: ``compute_dtype`` other than float32
-    where it runs fp32 (``honours_dtype`` false: the trainers and
+    where it runs fp32 (``honours_dtype`` false: ``train_long`` and
     ``test_long``; a missing key is the JAX package's default, bfloat16),
     and AdamW, one card, a frame per step everywhere."""
     par = raw.get("parallel") or {}
@@ -134,16 +134,17 @@ def _warn_ignored(raw: dict, opt: dict, honours_dtype: bool) -> None:
              or bool(par.get("fsdp")) or bool(par.get("sequence_parallel"))),
             ("long_frames_per_dispatch", frames, frames != 1)):
         if other:
-            log.warning("config key %s=%r is ignored: train, train_long, "
-                        "train_static and test_long run fp32 (test and "
+            log.warning("config key %s=%r is ignored: train_long and "
+                        "test_long run fp32 (train, train_static, test and "
                         "test_of honour compute_dtype), and the port runs "
                         "AdamW, one card, one frame per dispatch", key, value)
 
 
 def load_config(path: str, honours_dtype: bool = False) -> Config:
     """The YAML at ``path``. ``honours_dtype``: the caller builds its model
-    in ``compute_dtype`` (the short inference entry points); otherwise a
-    ``compute_dtype`` other than float32 is warned of as ignored."""
+    in ``compute_dtype`` (the short model's and the static model's entry
+    points); otherwise a ``compute_dtype`` other than float32 is warned of
+    as ignored."""
     import yaml
 
     with open(path) as f:

@@ -22,7 +22,10 @@
 //                    the two LayerNorms of kernel B's bf16 block that round
 //                    where the JAX kernel rounds (see window_attention.cu).
 //   bf16_to_f32      an elementwise upcast (B's cross layer reads t in
-//                    fp32, as the JAX kernel upcasts it).
+//                    fp32, as the JAX kernel upcasts it; the bf16
+//                    backwards of A-D upcast their inputs to recompute).
+//   f32_to_bf16      an elementwise rounding (the bf16 backwards round
+//                    their grads once, at the end).
 
 #pragma once
 
@@ -185,6 +188,20 @@ inline cudaError_t bf16_to_f32(const bf16* in, float* out, long long n,
                                cudaStream_t stream) {
   if (n == 0) return cudaSuccess;
   bf16_to_f32_kernel<<<ceil_div(n, 256), 256, 0, stream>>>(in, out, n);
+  return cudaGetLastError();
+}
+
+__global__ void f32_to_bf16_kernel(const float* __restrict__ in,
+                                   __nv_bfloat16* __restrict__ out,
+                                   long long n) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = __float2bfloat16_rn(in[i]);
+}
+
+inline cudaError_t f32_to_bf16(const float* in, bf16* out, long long n,
+                               cudaStream_t stream) {
+  if (n == 0) return cudaSuccess;
+  f32_to_bf16_kernel<<<ceil_div(n, 256), 256, 0, stream>>>(in, out, n);
   return cudaGetLastError();
 }
 

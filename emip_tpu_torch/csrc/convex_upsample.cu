@@ -1,5 +1,5 @@
-// Kernel D: RAFT convex x K flow upsampling, forward and backward; the
-// forward also with bf16 mask logits (the bf16 band of short inference).
+// Kernel D: RAFT convex x K flow upsampling, forward and backward, each
+// also with bf16 mask logits (the bf16 band: inference and the train step).
 //
 // Replaces emip_tpu/ops/pallas/convex_upsample.py:convex_upsample_pallas
 // (_kernel, _bwd_kernel). flow [B, h, w, 2], mask logits [B, h, w, 9*K*K]
@@ -24,7 +24,10 @@
 // place and reduces d nb_n over its sub-pixels (warp shuffles, then shared
 // memory); a second kernel gathers d flow from the 3x3 neighbours' d nb
 // (border clamps as _neighbors_3x3), so every sum has a fixed order and
-// no atomics are needed.
+// no atomics are needed. With bf16 logits (the bf16 train step) the same
+// kernel reads them as bf16, computes in fp32 and rounds d mask once to
+// bf16 at its store, as the JAX kernel upcasts its logits and rounds its
+// grad to their dtype; d flow stays fp32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -35,6 +38,16 @@ namespace {
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
 }
 
 // TM: the logits' storage type, fp32 or (the bf16 band) bf16; the logits
@@ -79,11 +92,13 @@ __global__ void convex_upsample_kernel(const float* __restrict__ flow,
   out[idx * 2 + 1] = oy / sum;
 }
 
-// One block per coarse pixel (b, hy, wx); thread s = ky*K + kx.
+// One block per coarse pixel (b, hy, wx); thread s = ky*K + kx. TM: the
+// logits' and their grad's storage type, as in the forward.
+template <typename TM>
 __global__ void convex_upsample_bwd_kernel(const float* __restrict__ flow,
-                                           const float* __restrict__ mask,
+                                           const TM* __restrict__ mask,
                                            const float* __restrict__ g,
-                                           float* __restrict__ gmask,
+                                           TM* __restrict__ gmask,
                                            float* __restrict__ gnb, int h,
                                            int w, int K) {
   __shared__ float red[18][32];  // [(n, xy)][warp]
@@ -111,11 +126,11 @@ __global__ void convex_upsample_bwd_kernel(const float* __restrict__ flow,
 #pragma unroll
   for (int n = 0; n < 9; ++n) p[n] = 0.f;
   if (active) {
-    const float* lg = mask + pix * 9 * KK + s;
+    const TM* lg = mask + pix * 9 * KK + s;
     float mx = -INFINITY;
 #pragma unroll
     for (int n = 0; n < 9; ++n) {
-      p[n] = lg[n * KK];
+      p[n] = to_f32(lg[n * KK]);
       mx = fmaxf(mx, p[n]);
     }
     float sum = 0.f;
@@ -136,10 +151,11 @@ __global__ void convex_upsample_bwd_kernel(const float* __restrict__ flow,
     const float* gp = g + ((b * h * K + Y) * w * K + X) * 2;
     gx = gp[0];
     gy = gp[1];
-    float* gm = gmask + pix * 9 * KK + s;
+    TM* gm = gmask + pix * 9 * KK + s;
 #pragma unroll
     for (int n = 0; n < 9; ++n)
-      gm[n * KK] = p[n] * ((nbx[n] - ox) * gx + (nby[n] - oy) * gy);
+      gm[n * KK] =
+          from_f32<TM>(p[n] * ((nbx[n] - ox) * gx + (nby[n] - oy) * gy));
   }
   const int lane = s % 32, warp = s / 32;
 #pragma unroll
@@ -187,6 +203,21 @@ __global__ void convex_upsample_gflow_kernel(const float* __restrict__ gnb,
   gflow[idx * 2 + 1] = gy * K;
 }
 
+template <typename TM>
+int convex_upsample_bwd(const float* flow, const TM* mask, const float* g,
+                        float* gflow, TM* gmask, float* gnb, int B, int h,
+                        int w, int K, cudaStream_t s) {
+  const int threads = ((K * K + 31) / 32) * 32;
+  const unsigned pixels = (unsigned)((long long)B * h * w);
+  convex_upsample_bwd_kernel<TM><<<pixels, threads, 0, s>>>(
+      flow, mask, g, gmask, gnb, h, w, K);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  convex_upsample_gflow_kernel<<<(pixels + 255) / 256, 256, 0, s>>>(
+      gnb, gflow, B, h, w, K);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int emip_convex_upsample(const float* flow, const float* mask,
@@ -221,14 +252,18 @@ extern "C" int emip_convex_upsample_bwd(const float* flow, const float* mask,
                                         const float* g, float* gflow,
                                         float* gmask, float* gnb, int B,
                                         int h, int w, int K, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int threads = ((K * K + 31) / 32) * 32;
-  const unsigned pixels = (unsigned)((long long)B * h * w);
-  convex_upsample_bwd_kernel<<<pixels, threads, 0, s>>>(flow, mask, g, gmask,
-                                                        gnb, h, w, K);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  convex_upsample_gflow_kernel<<<(pixels + 255) / 256, 256, 0, s>>>(
-      gnb, gflow, B, h, w, K);
-  return (int)cudaGetLastError();
+  return convex_upsample_bwd(flow, mask, g, gflow, gmask, gnb, B, h, w, K,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 train step: mask logits and gmask bf16, the rest as above.
+extern "C" int emip_convex_upsample_bwd_bf16(const float* flow,
+                                             const void* mask, const float* g,
+                                             float* gflow, void* gmask,
+                                             float* gnb, int B, int h, int w,
+                                             int K, void* stream) {
+  return convex_upsample_bwd(flow, static_cast<const __nv_bfloat16*>(mask),
+                             g, gflow, static_cast<__nv_bfloat16*>(gmask),
+                             gnb, B, h, w, K,
+                             static_cast<cudaStream_t>(stream));
 }

@@ -50,8 +50,19 @@
 // split in two and the partials summed in order; at B = 16 the 256 blocks
 // run unsplit. On the train path v is the pixel grid or the detached flow,
 // so dv is not asked for.
+//
+// The bf16 backward (the bf16 train step: q, k bf16, v fp32), as the JAX
+// kernel computes it: q and k upcast, the scores and P recomputed in fp32,
+// dq and dk rounded to bf16 once at the end. A first, simple
+// instantiation: q and k are converted into fp32 scratch, the fp32 forward
+// above recomputes the row statistics (the bf16 forward keeps none; its
+// scores, exact bf16 products summed in fp32, equal the fp32 recompute's up
+// to the order of the sums), the fp32 backward above runs on the scratch
+// with the bf16 forward's fp32 output in delta, as the JAX kernel reads
+// its forward's out, and dq, dk are rounded into their bf16 tensors.
 
 #include "attention_bf16.cuh"
+#include "bf16.cuh"
 #include "mma_tf32.cuh"
 
 // the tilings: warps, fragments of 16 resident rows per warp, streamed rows
@@ -97,8 +108,8 @@ extern "C" int emip_flow_attention(const float* q, const float* k,
 // The bf16 forward (the bf16 band of short inference): q, k [B, L, C] bf16,
 // v [B, L, 2] fp32, out [B, L, 2] fp32, as the JAX kernel takes them in a
 // bf16 model (q k^T from bf16 operands into fp32, P and P v in fp32). The
-// bf16 attention of attention_bf16.cu; no statistics: there is no bf16
-// backward yet.
+// bf16 attention of attention_bf16.cu; no statistics (the bf16 backward
+// recomputes them).
 extern "C" int emip_flow_attention_bf16(const void* q, const void* k,
                                         const float* v, float* out, int B,
                                         int L, int C, void* stream) {
@@ -138,5 +149,46 @@ extern "C" int emip_flow_attention_bwd(const float* q, const float* k,
   else
     return (int)cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The bf16 backward: q, k [B, L, C] bf16; v, out, g [B, L, 2] fp32 (out the
+// bf16 forward's); dq, dk bf16 and dv fp32, each null when not wanted. ws:
+// 2 B L C + 2 B L + B L DV floats of scratch for the upcast q and k, the
+// recomputed statistics and output, then 2 B L C for the fp32 dq and dk,
+// then what the fp32 backward takes.
+extern "C" int emip_flow_attention_bwd_bf16(const void* q, const void* k,
+                                            const float* v, const float* out,
+                                            const float* g, void* dq,
+                                            void* dk, float* dv, float* ws,
+                                            long long ws_floats, int B, int L,
+                                            int C, void* stream) {
+  using namespace emip;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long n = (long long)B * L * C;
+  Workspace all{ws, ws_floats};
+  float* q32 = all.take(n);
+  float* k32 = all.take(n);
+  float* stats = all.take(2LL * B * L);
+  float* out32 = all.take(2LL * B * L);
+  float* dq32 = dq ? all.take(n) : nullptr;
+  float* dk32 = dk ? all.take(n) : nullptr;
+  if (!q32 || !k32 || !stats || !out32 || (dq && !dq32) || (dk && !dk32))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  if ((err = bf16_to_f32(static_cast<const bf16*>(q), q32, n, s)) ||
+      (err = bf16_to_f32(static_cast<const bf16*>(k), k32, n, s)))
+    return (int)err;
+  if (int rc = emip_flow_attention(q32, k32, v, out32, stats, all.p, all.n,
+                                   B, L, C, 2, stream))
+    return rc;
+  if (int rc = emip_flow_attention_bwd(q32, k32, v, out, stats, g, dq32,
+                                       dk32, dv, all.p, all.n, B, L, C, 2,
+                                       stream))
+    return rc;
+  if (dq && (err = f32_to_bf16(dq32, static_cast<bf16*>(dq), n, s)))
+    return (int)err;
+  if (dk && (err = f32_to_bf16(dk32, static_cast<bf16*>(dk), n, s)))
+    return (int)err;
   return (int)cudaGetLastError();
 }

@@ -39,6 +39,15 @@
 // ways (128 blocks) and sums the partial dk, dv in an ordered pass. Grads
 // that are not asked for are not computed: dq only for gx, Wq or bq, dk and
 // dv only for g_kv_in, Wkv or bkv.
+//
+// The bf16 backward (the bf16 train step), as the JAX kernel computes it:
+// x, kv_in and the three weights upcast to fp32, q, [k | v], o and the row
+// statistics recomputed in fp32 (the bf16 forward's own buffers are rounded
+// and are not reused; it keeps only its inputs), the fp32 backward above,
+// and gx, g_kv_in and the three weight grads rounded to bf16 once at the
+// end (g_kv_in and the weight grads summed in fp32 over all rows first);
+// the bias grads stay fp32. A first, simple instantiation: the upcasts go
+// to fp32 scratch and the fp32 entry points above run on it.
 
 #include "attention_bf16.cuh"
 #include "attention_fwd.cuh"
@@ -177,6 +186,76 @@ extern "C" int emip_sr_attention_bwd(
   if (gx) EMIP_TRY(input_grad(gq, C, wq, C, C, gx, C, rq, false, s));
   if (gkv_in)
     EMIP_TRY(input_grad(gkv, 2 * C, wkv, 2 * C, C, gkv_in, C, rk, false, s));
+#undef EMIP_TRY
+  return (int)cudaGetLastError();
+}
+
+// The bf16 backward. x [B, N, C], kv_in [B, M, C], wq, wp [C, C], wkv [2C,
+// C] and g [B, N, C] bf16, the biases fp32. gx, gkv_in and the weight grads
+// are written in bf16, the bias grads in fp32; each only when its pointer
+// is set. ws: fp32 scratch for the upcast inputs, the recomputed forward
+// (q, [k | v], o, statistics, output), the fp32 grads before their
+// rounding and the fp32 backward's scratch, then the split-K / attention
+// workspace.
+extern "C" int emip_sr_attention_bwd_bf16(
+    const void* x, const void* kv_in, const void* wq, const float* bq,
+    const void* wkv, const float* bkv, const void* wp, const float* bp,
+    const void* g, void* gx, void* gkv_in, void* gwq, float* gbq, void* gwkv,
+    float* gbkv, void* gwp, float* gbp, float* ws, long long ws_floats,
+    int B, int N, int M, int C, int heads, void* stream) {
+  using namespace emip;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long nq = (long long)B * N * C, nk = (long long)B * M * C;
+  const long long cc = (long long)C * C;
+  Workspace all{ws, ws_floats};
+  float* x32 = all.take(nq);
+  float* kv32 = all.take(nk);
+  float* wq32 = all.take(cc);
+  float* wkv32 = all.take(2 * cc);
+  float* wp32 = all.take(cc);
+  float* g32 = all.take(nq);
+  float* q_buf = all.take(nq);
+  float* kv_buf = all.take(2 * nk);
+  float* o_buf = all.take(nq);
+  float* stats = all.take(2LL * B * heads * N);
+  float* out32 = all.take(nq);
+  float* gx32 = gx ? all.take(nq) : nullptr;
+  float* gkv_in32 = gkv_in ? all.take(nk) : nullptr;
+  float* gwq32 = gwq ? all.take(cc) : nullptr;
+  float* gwkv32 = gwkv ? all.take(2 * cc) : nullptr;
+  float* gwp32 = gwp ? all.take(cc) : nullptr;
+  float* go = all.take(nq);
+  float* gq = all.take(nq);
+  float* gkv = all.take(2 * nk);
+  if (!x32 || !kv32 || !wq32 || !wkv32 || !wp32 || !g32 || !q_buf ||
+      !kv_buf || !o_buf || !stats || !out32 || (gx && !gx32) ||
+      (gkv_in && !gkv_in32) || (gwq && !gwq32) || (gwkv && !gwkv32) ||
+      (gwp && !gwp32) || !go || !gq || !gkv)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+#define EMIP_TRY(call) \
+  if ((err = (call)) != cudaSuccess) return (int)err;
+  EMIP_TRY(bf16_to_f32(static_cast<const bf16*>(x), x32, nq, s));
+  EMIP_TRY(bf16_to_f32(static_cast<const bf16*>(kv_in), kv32, nk, s));
+  EMIP_TRY(bf16_to_f32(static_cast<const bf16*>(wq), wq32, cc, s));
+  EMIP_TRY(bf16_to_f32(static_cast<const bf16*>(wkv), wkv32, 2 * cc, s));
+  EMIP_TRY(bf16_to_f32(static_cast<const bf16*>(wp), wp32, cc, s));
+  EMIP_TRY(bf16_to_f32(static_cast<const bf16*>(g), g32, nq, s));
+  if (int rc = emip_sr_attention(x32, kv32, wq32, bq, wkv32, bkv, wp32, bp,
+                                 q_buf, kv_buf, o_buf, stats, out32, all.p,
+                                 all.n, B, N, M, C, heads, stream))
+    return rc;
+  if (int rc = emip_sr_attention_bwd(
+          x32, kv32, wq32, wkv32, wp32, q_buf, kv_buf, o_buf, stats, g32,
+          gx32, gkv_in32, gwq32, gbq, gwkv32, gbkv, gwp32, gbp, go, gq, gkv,
+          all.p, all.n, B, N, M, C, heads, stream))
+    return rc;
+  float* const from[5] = {gx32, gkv_in32, gwq32, gwkv32, gwp32};
+  void* const to[5] = {gx, gkv_in, gwq, gwkv, gwp};
+  const long long count[5] = {nq, nk, cc, 2 * cc, cc};
+  for (int i = 0; i < 5; ++i)
+    if (to[i])
+      EMIP_TRY(f32_to_bf16(from[i], static_cast<bf16*>(to[i]), count[i], s));
 #undef EMIP_TRY
   return (int)cudaGetLastError();
 }

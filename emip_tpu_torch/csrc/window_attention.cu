@@ -58,6 +58,17 @@
 // are asked for); dk and dv are computed only where gt or the k / v weight
 // grads are wanted. The inference forward passes one buffer where the
 // backward would need two.
+//
+// B's bf16 backward (the bf16 train step), as the JAX kernel
+// (_block_bwd_kernel) computes it with a bf16 storage dtype: x, t and the
+// gradient upcast; the self layer recomputed in fp32 on the fp32 weights
+// (message_fwd; the bf16 forward's self layer ran bf16 products, so its
+// buffers are not the JAX backward's and are not kept), x1 = bf16(x +
+// bf16(LN1s(m))) as the forward rounded it (layernorm_self_bf16 fed with
+// the fp32 m), the fp32 cross layer and FFN with their buffers kept, then
+// the fp32 block backward, which passes x1's roundings straight through;
+// gx and gt are rounded to bf16 once, the parameter grads stay fp32. A
+// first, simple instantiation on fp32 scratch.
 
 #include "attention_bf16.cuh"
 #include "attention_fwd.cuh"
@@ -406,8 +417,8 @@ extern "C" int emip_window_block(
 //     upcast into t32, then the 3xTF32 message_fwd and the FFN of the fp32
 //     entry points on fp32 weights; out = bf16(x1 + LN2c(z)), rounded once.
 // Buffers: qkv1 [R, 3C] and o1 [R, C] bf16; m, t32, o2, z [R, C], qkv2 [R,
-// 3C], cat [R, 2C] and u [R, F] fp32. No statistics are kept: there is no
-// bf16 backward yet.
+// 3C], cat [R, 2C] and u [R, F] fp32. No statistics are kept (the bf16
+// backward recomputes).
 extern "C" int emip_window_block_bf16(
     const void* x, const void* t,
     const void* wq1, const void* wk1, const void* wv1, const void* wm1,
@@ -508,6 +519,84 @@ extern "C" int emip_window_block_bwd(
                        o1, m1, stats1, gx1, C,
                        LayerGrads{gwq1, gwk1, gwv1, gwm1, gs1, gb1}, nullptr,
                        false, gx, true, true, gm, go, gqkv, eps, all, s));
+  return (int)cudaGetLastError();
+}
+
+// The bf16 backward. x, t and g [R, C] bf16, every parameter fp32 (the
+// self layer's too: the JAX backward recomputes with the weights upcast,
+// not rounded); gx and gt bf16 and the parameter grads fp32, each written
+// only when its pointer is set. ws: fp32 scratch for the upcast x, t and
+// g, the recomputed forward (qkv1, qkv2 [R, 3C], o1, o2, m1, m2, z [R,
+// C], cat [R, 2C], h, u [R, F], stats1, stats2 [2, windows, T]) and the
+// fp32 gx, gt, then what the fp32 block backward takes.
+extern "C" int emip_window_block_bwd_bf16(
+    const void* x, const void* t,
+    const float* wq1, const float* wk1, const float* wv1, const float* wm1,
+    const float* s1, const float* b1,
+    const float* wq2, const float* wk2, const float* wv2, const float* wm2,
+    const float* sa, const float* ba,
+    const float* w0, const float* w2, const float* sb,
+    const float* mask, int mask_nw, const void* g,
+    void* gx, void* gt,
+    float* gwq1, float* gwk1, float* gwv1, float* gwm1, float* gs1,
+    float* gb1,
+    float* gwq2, float* gwk2, float* gwv2, float* gwm2, float* gsa,
+    float* gba,
+    float* gw0, float* gw2, float* gsb, float* gbb,
+    float* ws, long long ws_floats,
+    int windows, int T, int C, int F, float eps, void* stream) {
+  using namespace emip;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Windows d{windows, T, C, mask, mask_nw};
+  const int R = d.rows(), C2 = 2 * C;
+  const long long rc = (long long)R * C, rf = (long long)R * F;
+  Workspace all{ws, ws_floats};
+  float* x32 = all.take(rc);
+  float* t32 = all.take(rc);
+  float* g32 = all.take(rc);
+  float* qkv1 = all.take(3 * rc);
+  float* qkv2 = all.take(3 * rc);
+  float* o1 = all.take(rc);
+  float* o2 = all.take(rc);
+  float* m1 = all.take(rc);
+  float* m2 = all.take(rc);
+  float* stats1 = all.take(2LL * R);
+  float* stats2 = all.take(2LL * R);
+  float* cat = all.take(2 * rc);
+  float* h = all.take(rf);
+  float* u = all.take(rf);
+  float* z = all.take(rc);
+  float* gx32 = gx ? all.take(rc) : nullptr;
+  float* gt32 = gt ? all.take(rc) : nullptr;
+  if (!x32 || !t32 || !g32 || !qkv1 || !qkv2 || !o1 || !o2 || !m1 || !m2 ||
+      !stats1 || !stats2 || !cat || !h || !u || !z || (gx && !gx32) ||
+      (gt && !gt32))
+    return (int)cudaErrorInvalidValue;
+  const bf16* xb = static_cast<const bf16*>(x);
+  cudaError_t err;
+  EMIP_TRY(bf16_to_f32(xb, x32, rc, s));
+  EMIP_TRY(bf16_to_f32(static_cast<const bf16*>(t), t32, rc, s));
+  EMIP_TRY(bf16_to_f32(static_cast<const bf16*>(g), g32, rc, s));
+  // self layer in fp32; x1 = bf16(x + bf16(LN1s(m1))) -> cat[:, :C]
+  EMIP_TRY(message_fwd(x32, C, x32, LayerWeights{wq1, wk1, wv1, wm1}, d,
+                       qkv1, o1, m1, stats1, all, s));
+  EMIP_TRY(layernorm_self_bf16(m1, xb, s1, b1, cat, C2, R, C, eps, s));
+  // cross layer: msg = LN1c(message(x1, t)) -> cat[:, C:]; the FFN's h, u
+  // and z (its output is not needed)
+  EMIP_TRY(message_fwd(cat, C2, t32, LayerWeights{wq2, wk2, wv2, wm2}, d,
+                       qkv2, o2, m2, stats2, all, s));
+  layernorm(m2, C, nullptr, 0, sa, ba, cat + C, C2, R, C, eps, s);
+  EMIP_TRY(linear(cat, C2, w0, nullptr, u, F, R, F, C2, true, s, h, F));
+  EMIP_TRY(linear(u, F, w2, nullptr, z, C, R, C, F, false, s));
+  if (int code = emip_window_block_bwd(
+          x32, t32, wq1, wk1, wv1, wm1, s1, wq2, wk2, wv2, wm2, sa, w0, w2,
+          sb, mask, mask_nw, qkv1, qkv2, o1, o2, m1, m2, stats1, stats2, cat,
+          h, u, z, g32, gx32, gt32, gwq1, gwk1, gwv1, gwm1, gs1, gb1, gwq2,
+          gwk2, gwv2, gwm2, gsa, gba, gw0, gw2, gsb, gbb, all.p, all.n,
+          windows, T, C, F, eps, stream))
+    return code;
+  if (gx) EMIP_TRY(f32_to_bf16(gx32, static_cast<bf16*>(gx), rc, s));
+  if (gt) EMIP_TRY(f32_to_bf16(gt32, static_cast<bf16*>(gt), rc, s));
   return (int)cudaGetLastError();
 }
 #undef EMIP_TRY

@@ -1,4 +1,5 @@
-"""The compute dtype of a model: fp32 or the bf16 band of short inference.
+"""The compute dtype of a model: fp32 or the bf16 band (inference and
+training of the short model and of the static segmentation network).
 
 The JAX package's models take a ``dtype`` (``compute_dtype`` of the YAML,
 bfloat16 by default) under flax's rule: parameters stay fp32, and each
@@ -13,7 +14,11 @@ are cast with :func:`cast`, which keeps one bf16 copy per weight for calls
 without autograd, so inference on the card does not launch one cast per
 weight per call. Rounding fp32 to bf16 is deterministic: the copy holds
 the numbers flax's cast at use would give, and the fp32 parameters stay
-what the state dict holds.
+what the state dict holds. Under autograd (training) :func:`cast` casts at
+each use, as flax does, so that the cast's backward hands each fp32
+parameter the fp32 sum of its bf16 grads: the parameters, the optimizer
+and the checkpoints stay fp32 (no autocast, no loss scaling, as in the JAX
+package).
 """
 
 from __future__ import annotations

@@ -5,9 +5,9 @@ PyTorch version on CPU tensors and its CUDA kernel on CUDA tensors, and
 counts its kernel launches in :data:`LAUNCHES`. Every kernel is a
 ``torch.autograd.Function``: the CUDA backward of A-D and F-J is a kernel
 too, E's is torch ops (a gather), as the JAX package's is XLA. A, B, C and
-D also take bf16 inputs (the bf16 band of short inference): a bf16 forward
-kernel, with no backward yet. The kernels are built from
-``emip_tpu_torch/csrc`` at first use (:func:`library`).
+D also take bf16 inputs (the bf16 band: short inference and the train
+step): a bf16 forward kernel and a bf16 backward kernel each. The kernels
+are built from ``emip_tpu_torch/csrc`` at first use (:func:`library`).
 """
 
 from emip_tpu_torch.kernels._build import KernelBuildError, library

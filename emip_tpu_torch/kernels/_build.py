@@ -79,6 +79,12 @@ _SIGNATURES = {
     "emip_gemm_bf16": [_P, _L, _P, _L, _P, _P, _L] + [_I] * 4 + [_P],
     "emip_attention_fwd_bf16": ([_P, _L, _I] * 3 + [_P, _I, _P, _L, _I]
                                 + [_I] * 7 + [_P]),
+    # the bf16 train step: A, B, C and D backward
+    "emip_sr_attention_bwd_bf16": [_P] * 18 + [_L] + [_I] * 5 + [_P],
+    "emip_window_block_bwd_bf16": ([_P] * 18 + [_I] + [_P] * 20 + [_L]
+                                   + [_I] * 4 + [_F, _P]),
+    "emip_flow_attention_bwd_bf16": [_P] * 9 + [_L] + [_I] * 3 + [_P],
+    "emip_convex_upsample_bwd_bf16": [_P] * 6 + [_I] * 4 + [_P],
 }
 _RESTYPES = {"emip_attention_fwd_workspace": _L,
              "emip_dwconv_gelu_bwd_workspace": _L,

@@ -38,6 +38,11 @@ LAUNCHES = {
     "flow_attention_bf16": 0,
     "convex_upsample_bf16": 0,
     "gemm_bf16": 0,
+    # the bf16 train step: the bf16 backwards of A-D
+    "sr_attention_bwd_bf16": 0,
+    "window_attention_block_bwd_bf16": 0,
+    "flow_attention_bwd_bf16": 0,
+    "convex_upsample_bwd_bf16": 0,
 }
 
 # floats of split-K / column-sum / attention-partial workspace a backward
@@ -72,7 +77,7 @@ def check_kernel_args(name: str, dtype: torch.dtype = torch.float32,
     """Every tensor the kernel reads or writes: ``dtype`` and contiguous.
 
     A bf16 tensor where the kernel has only its fp32 instantiation is named
-    as such: the bf16 band has A-D forward only, so far.
+    as such: the bf16 band has A-D only, so far.
     """
     for arg, t in tensors.items():
         if t.dtype != dtype:
@@ -83,16 +88,6 @@ def check_kernel_args(name: str, dtype: torch.dtype = torch.float32,
             raise TypeError(f"{name}: {arg} must be {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
-
-
-def no_bf16_grad(name: str, *tensors) -> None:
-    """A bf16 forward keeps nothing for a backward: there is no bf16
-    backward kernel yet. Raises when a gradient is asked for."""
-    if grad_wanted(*tensors):
-        raise NotImplementedError(
-            f"{name}: no bfloat16 backward (it belongs to the bf16 train "
-            f"step's slice); run the bf16 forward without autograd, or in "
-            f"float32")
 
 
 def check_shape(name: str, arg: str, t: torch.Tensor, shape) -> None:
@@ -156,3 +151,15 @@ def plain_vjp(fn, inputs, needs, grad_out, *args) -> list:
         g = next(got) if n else None
         grads.append(torch.zeros_like(x) if n and g is None else g)
     return grads
+
+
+def plain_vjp_fp32(fn, inputs, needs, grad_out, *args) -> list:
+    """The CPU backward of a bf16 kernel Function, as the JAX kernels'
+    backward computes it: the grads of the fp32 plain version ``fn`` at the
+    inputs upcast to fp32 (each JAX backward kernel upcasts its bf16
+    operands and recomputes its forward in fp32, so its grads are not those
+    of the bf16 forward's rounded intermediates), each rounded once to its
+    input's dtype."""
+    up = [x.float() if x.dtype == torch.bfloat16 else x for x in inputs]
+    grads = plain_vjp(fn, up, needs, grad_out.float(), *args)
+    return [g if g is None else g.to(x.dtype) for g, x in zip(grads, inputs)]

@@ -6,7 +6,9 @@ one ``torch.autograd.Function``: CPU tensors take the plain version (and
 its autograd backward), CUDA tensors the forward and backward kernels.
 In the bf16 band the mask logits are bf16 (flow fp32): the forward kernel
 reads them as bf16 and computes in fp32 (``emip_convex_upsample_bf16``),
-writing fp32; it takes no gradient.
+writing fp32, and the backward kernel (``emip_convex_upsample_bwd_bf16``)
+reads them as bf16 and writes their grad in bf16 (the flow's in fp32), as
+the JAX kernel's backward upcasts its logits and rounds their grad.
 """
 
 from __future__ import annotations
@@ -90,22 +92,52 @@ class _ConvexUpsample(torch.autograd.Function):
                 None, None)
 
 
-def _forward_bf16(flow, mask_logits, k):
-    cm.no_bf16_grad(_NAME, flow, mask_logits)
-    if cm.on_cpu(_NAME, flow, mask_logits):
-        return convex_upsample_reference(flow, mask_logits, k)
-    cm.check_kernel_args(_NAME, flow=flow)
-    cm.check_kernel_args(_NAME, torch.bfloat16, mask_logits=mask_logits)
-    _check_shapes(flow, mask_logits, k)
-    b, h, w, _ = flow.shape
-    out = torch.empty((b, h * k, w * k, 2), device=flow.device,
-                      dtype=torch.float32)
-    rc = library().emip_convex_upsample_bf16(
-        flow.data_ptr(), mask_logits.data_ptr(), out.data_ptr(), b, h, w, k,
-        cm.stream_handle(flow.device))
-    cm.raise_on_error(_NAME + " (bf16)", rc)
-    cm.LAUNCHES["convex_upsample_bf16"] += 1
-    return out
+class _ConvexUpsampleBf16(torch.autograd.Function):
+    """The bf16 band: bf16 mask logits, fp32 flow and output."""
+
+    @staticmethod
+    def forward(ctx, flow, mask_logits, k, keep):
+        ctx.k = k
+        ctx.cpu = cm.on_cpu(_NAME, flow, mask_logits)
+        if keep:
+            ctx.save_for_backward(flow, mask_logits)
+        if ctx.cpu:
+            return convex_upsample_reference(flow, mask_logits, k)
+        cm.check_kernel_args(_NAME, flow=flow)
+        cm.check_kernel_args(_NAME, torch.bfloat16, mask_logits=mask_logits)
+        _check_shapes(flow, mask_logits, k)
+        b, h, w, _ = flow.shape
+        out = torch.empty((b, h * k, w * k, 2), device=flow.device,
+                          dtype=torch.float32)
+        rc = library().emip_convex_upsample_bf16(
+            flow.data_ptr(), mask_logits.data_ptr(), out.data_ptr(), b, h, w,
+            k, cm.stream_handle(flow.device))
+        cm.raise_on_error(_NAME + " (bf16)", rc)
+        cm.LAUNCHES["convex_upsample_bf16"] += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        needs = ctx.needs_input_grad[:2]
+        flow, mask_logits = ctx.saved_tensors
+        if ctx.cpu:
+            return (*cm.plain_vjp_fp32(convex_upsample_reference,
+                                       (flow, mask_logits), needs, g, ctx.k),
+                    None, None)
+        g = g.contiguous()
+        b, h, w, _ = flow.shape
+        gflow = torch.empty_like(flow)
+        gmask = torch.empty_like(mask_logits)
+        gnb = torch.empty((b, h, w, 9, 2), device=flow.device,
+                          dtype=torch.float32)
+        rc = library().emip_convex_upsample_bwd_bf16(
+            flow.data_ptr(), mask_logits.data_ptr(), g.data_ptr(),
+            gflow.data_ptr(), gmask.data_ptr(), gnb.data_ptr(), b, h, w,
+            ctx.k, cm.stream_handle(flow.device))
+        cm.raise_on_error(_NAME + " backward (bf16)", rc)
+        cm.LAUNCHES["convex_upsample_bwd_bf16"] += 1
+        return (gflow if needs[0] else None, gmask if needs[1] else None,
+                None, None)
 
 
 def convex_upsample(flow: torch.Tensor, mask_logits: torch.Tensor,
@@ -115,9 +147,8 @@ def convex_upsample(flow: torch.Tensor, mask_logits: torch.Tensor,
     flow: [B, h, w, 2]; mask_logits: [B, h, w, 9*k*k] with channels ordered
     (neighbour, sub_row, sub_col). Returns [B, h*k, w*k, 2] (fp32).
     Differentiable in flow and mask_logits. bf16 mask logits take the bf16
-    forward, which takes no gradient.
+    kernels (the logits' grad bf16).
     """
-    if mask_logits.dtype == torch.bfloat16:
-        return _forward_bf16(flow, mask_logits, k)
-    return _ConvexUpsample.apply(flow, mask_logits, k,
-                                 cm.grad_wanted(flow, mask_logits))
+    fn = (_ConvexUpsampleBf16 if mask_logits.dtype == torch.bfloat16
+          else _ConvexUpsample)
+    return fn.apply(flow, mask_logits, k, cm.grad_wanted(flow, mask_logits))

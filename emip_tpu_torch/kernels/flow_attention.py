@@ -12,8 +12,11 @@ and sum of the scores, which the backward kernel reads. Channel widths 128
 In the bf16 band q and k are bf16 and v fp32, as the JAX kernel takes
 them in a bf16 model: ``emip_flow_attention_bf16`` (the bf16 attention of
 ``csrc/attention_bf16.cu``: q k^T from bf16 operands into fp32, P and the
-2-wide P v in fp32) writes fp32. It keeps nothing for a backward; asking
-for a gradient raises.
+2-wide P v in fp32) writes fp32. Its backward
+(``emip_flow_attention_bwd_bf16``) is the JAX kernel's: q and k upcast, the
+scores and P recomputed in fp32 (with the row statistics: the bf16 forward
+keeps only its inputs and output), the fp32 backward above, dq and dk
+rounded to bf16, dv fp32.
 """
 
 from __future__ import annotations
@@ -109,20 +112,50 @@ class _FlowAttention(torch.autograd.Function):
         return dq, dk, dv, None
 
 
-def _forward_bf16(q, k, v) -> torch.Tensor:
-    cm.no_bf16_grad(_NAME, q, k, v)
-    if cm.on_cpu(_NAME, q, k, v):
-        return fused_flow_attention_reference(q, k, v)
-    _check(q, k, v, torch.bfloat16)
-    b, l, c = q.shape
-    out = torch.empty((b, l, _VALUE_WIDTH), device=q.device,
-                      dtype=torch.float32)
-    rc = library().emip_flow_attention_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, l, c,
-        cm.stream_handle(q.device))
-    cm.raise_on_error(_NAME + " (bf16)", rc)
-    cm.LAUNCHES["flow_attention_bf16"] += 1
-    return out
+class _FlowAttentionBf16(torch.autograd.Function):
+    """The bf16 band: bf16 q and k, fp32 v and output."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, keep):
+        ctx.cpu = cm.on_cpu(_NAME, q, k, v)
+        if ctx.cpu:
+            out = fused_flow_attention_reference(q, k, v)
+        else:
+            _check(q, k, v, torch.bfloat16)
+            b, l, c = q.shape
+            out = torch.empty((b, l, _VALUE_WIDTH), device=q.device,
+                              dtype=torch.float32)
+            rc = library().emip_flow_attention_bf16(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
+                l, c, cm.stream_handle(q.device))
+            cm.raise_on_error(_NAME + " (bf16)", rc)
+            cm.LAUNCHES["flow_attention_bf16"] += 1
+        if keep:  # the backward reads the inputs and the output (delta)
+            ctx.save_for_backward(q, k, v, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        needs = ctx.needs_input_grad[:3]
+        q, k, v, out = ctx.saved_tensors
+        if ctx.cpu:
+            return (*cm.plain_vjp_fp32(fused_flow_attention_reference,
+                                       (q, k, v), needs, g), None)
+        g = g.contiguous()
+        b, l, c = q.shape
+        dq, dk, dv = (cm.empty_if(nd, t) for nd, t in zip(needs, (q, k, v)))
+        # the upcast q and k, the recomputed statistics and output, the
+        # fp32 dq and dk; then the fp32 backward's delta and partials
+        n = b * l * c
+        ws = cm.workspace(q.device, 4 * n + 4 * b * l
+                          + b * l + 2 * b * l * (c + _VALUE_WIDTH))
+        rc = library().emip_flow_attention_bwd_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            g.data_ptr(), cm.ptr(dq), cm.ptr(dk), cm.ptr(dv), ws.data_ptr(),
+            ws.numel(), b, l, c, cm.stream_handle(q.device))
+        cm.raise_on_error(_NAME + " backward (bf16)", rc)
+        cm.LAUNCHES["flow_attention_bwd_bf16"] += 1
+        return dq, dk, dv, None
 
 
 def fused_flow_attention(q: torch.Tensor, k: torch.Tensor,
@@ -130,9 +163,8 @@ def fused_flow_attention(q: torch.Tensor, k: torch.Tensor,
     """q, k: [B, L, C]; v: [B, L, 2]. Returns [B, L, 2] (fp32).
 
     Differentiable in q, k and v; the backward computes only the grads that
-    are asked for. bf16 q and k (fp32 v) take the bf16 forward, which takes
-    no gradient.
+    are asked for. bf16 q and k (fp32 v) take the bf16 kernels (dq and dk
+    bf16).
     """
-    if q.dtype == torch.bfloat16:
-        return _forward_bf16(q, k, v)
-    return _FlowAttention.apply(q, k, v, cm.grad_wanted(q, k, v))
+    fn = _FlowAttentionBf16 if q.dtype == torch.bfloat16 else _FlowAttention
+    return fn.apply(q, k, v, cm.grad_wanted(q, k, v))

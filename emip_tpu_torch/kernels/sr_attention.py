@@ -13,8 +13,12 @@ In the bf16 band (bf16 ``x``, ``kv_in`` and weights, fp32 biases) the
 forward is ``emip_sr_attention_bf16`` (the bf16 GEMM of
 ``csrc/gemm_bf16.cuh`` and the bf16 attention of
 ``csrc/attention_bf16.cu``), rounding where the JAX kernel rounds with a
-bf16 storage dtype; it keeps nothing for a backward, and asking for a
-gradient raises (the bf16 backward is a later slice's).
+bf16 storage dtype. Its backward (``emip_sr_attention_bwd_bf16``) is the
+JAX kernel's: the inputs and weights upcast, the forward recomputed in
+fp32 (the bf16 forward's rounded q, [k | v] and o are not the JAX
+backward's, so the bf16 forward keeps only its inputs), the fp32 backward
+above, and gx, g_kv_in and the three weight grads rounded to bf16 once; the
+bias grads fp32.
 """
 
 from __future__ import annotations
@@ -24,7 +28,10 @@ import torch.nn.functional as F
 
 from emip_tpu_torch.kernels import _common as cm
 from emip_tpu_torch.kernels._build import library
-from emip_tpu_torch.kernels.attention import forward_workspace
+from emip_tpu_torch.kernels.attention import (
+    _workspace_floats,
+    forward_workspace,
+)
 
 __all__ = ["fused_sr_attention", "fused_sr_attention_reference"]
 
@@ -167,26 +174,65 @@ class _SRAttention(torch.autograd.Function):
         return (*grads, None, None)
 
 
-def _forward_bf16(x, kv_in, wq, bq, wkv, bkv, wp, bp, num_heads):
-    inputs = (x, kv_in, wq, bq, wkv, bkv, wp, bp)
-    cm.no_bf16_grad(_NAME, *inputs)
-    if cm.on_cpu(_NAME, *inputs):
-        return _reference_bf16(*inputs, num_heads)
-    _check(dict(x=x, kv_in=kv_in, wq=wq, bq=bq, wkv=wkv, bkv=bkv, wp=wp,
-                bp=bp), num_heads, torch.bfloat16)
-    b, n, c = x.shape
-    m = kv_in.shape[1]
-    q_buf = torch.empty_like(x)
-    kv_buf = torch.empty((b, m, 2 * c), device=x.device, dtype=x.dtype)
-    o_buf = torch.empty_like(x)
-    out = torch.empty_like(x)
-    rc = library().emip_sr_attention_bf16(
-        *(t.data_ptr() for t in inputs), q_buf.data_ptr(), kv_buf.data_ptr(),
-        o_buf.data_ptr(), out.data_ptr(), b, n, m, c, num_heads,
-        cm.stream_handle(x.device))
-    cm.raise_on_error(_NAME + " (bf16)", rc)
-    cm.LAUNCHES["sr_attention_bf16"] += 1
-    return out
+class _SRAttentionBf16(torch.autograd.Function):
+    """The bf16 band: bf16 x, kv_in and weights, fp32 biases."""
+
+    @staticmethod
+    def forward(ctx, x, kv_in, wq, bq, wkv, bkv, wp, bp, num_heads, keep):
+        ctx.num_heads = num_heads
+        inputs = (x, kv_in, wq, bq, wkv, bkv, wp, bp)
+        ctx.cpu = cm.on_cpu(_NAME, *inputs)
+        if keep:  # the backward recomputes the rest from them
+            ctx.save_for_backward(*inputs)
+        if ctx.cpu:
+            return _reference_bf16(*inputs, num_heads)
+        _check(dict(x=x, kv_in=kv_in, wq=wq, bq=bq, wkv=wkv, bkv=bkv, wp=wp,
+                    bp=bp), num_heads, torch.bfloat16)
+        b, n, c = x.shape
+        m = kv_in.shape[1]
+        q_buf = torch.empty_like(x)
+        kv_buf = torch.empty((b, m, 2 * c), device=x.device, dtype=x.dtype)
+        o_buf = torch.empty_like(x)
+        out = torch.empty_like(x)
+        rc = library().emip_sr_attention_bf16(
+            *(t.data_ptr() for t in inputs), q_buf.data_ptr(),
+            kv_buf.data_ptr(), o_buf.data_ptr(), out.data_ptr(), b, n, m, c,
+            num_heads, cm.stream_handle(x.device))
+        cm.raise_on_error(_NAME + " (bf16)", rc)
+        cm.LAUNCHES["sr_attention_bf16"] += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        needs = ctx.needs_input_grad[:8]
+        inputs = ctx.saved_tensors
+        if ctx.cpu:
+            grads = cm.plain_vjp_fp32(fused_sr_attention_reference, inputs,
+                                      needs, g, ctx.num_heads)
+            return (*grads, None, None)
+        x, kv_in = inputs[0], inputs[1]
+        g = g.contiguous()
+        b, n, c = x.shape
+        m = kv_in.shape[1]
+        heads = ctx.num_heads
+        grads = [torch.empty_like(t) if nd else None
+                 for nd, t in zip(needs, inputs)]
+        # fp32 scratch (see emip_sr_attention_bwd_bf16): the upcast inputs,
+        # the recomputed forward, the grads before their rounding and the
+        # fp32 backward's; then the larger of the forward's key-split
+        # partials and the backward's delta and query-split partials
+        nq, nk, cc = b * n * c, b * m * c, c * c
+        scratch = 8 * nq + 6 * nk + 8 * cc + 2 * b * heads * n
+        rest = max(_workspace_floats(b, heads, n, m, c // heads, False),
+                   b * heads * n + 32 * nk)
+        ws = cm.workspace(x.device, scratch + rest)
+        rc = library().emip_sr_attention_bwd_bf16(
+            *(t.data_ptr() for t in inputs), g.data_ptr(),
+            *(cm.ptr(t) for t in grads), ws.data_ptr(), ws.numel(), b, n, m,
+            c, heads, cm.stream_handle(x.device))
+        cm.raise_on_error(_NAME + " backward (bf16)", rc)
+        cm.LAUNCHES["sr_attention_bwd_bf16"] += 1
+        return (*grads, None, None)
 
 
 def fused_sr_attention(x: torch.Tensor, kv_in: torch.Tensor,
@@ -199,10 +245,9 @@ def fused_sr_attention(x: torch.Tensor, kv_in: torch.Tensor,
     x: [B, N, C] normalized tokens; kv_in: [B, M, C] reduced tokens;
     wq, wp: [C, C]; wkv: [2C, C]; biases [C] / [2C]. Differentiable in
     every tensor argument. With bf16 ``x`` (the bf16 band: bf16 kv_in and
-    weights, fp32 biases) the bf16 forward, [B, N, C] bf16, which takes no
-    gradient.
+    weights, fp32 biases) the bf16 kernels: [B, N, C] bf16, the grads in
+    their inputs' dtypes.
     """
     inputs = (x, kv_in, wq, bq, wkv, bkv, wp, bp)
-    if x.dtype == torch.bfloat16:
-        return _forward_bf16(*inputs, num_heads)
-    return _SRAttention.apply(*inputs, num_heads, cm.grad_wanted(*inputs))
+    fn = _SRAttentionBf16 if x.dtype == torch.bfloat16 else _SRAttention
+    return fn.apply(*inputs, num_heads, cm.grad_wanted(*inputs))

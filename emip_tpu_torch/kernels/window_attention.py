@@ -27,8 +27,12 @@ mixed block of the JAX kernel with a bf16 storage dtype: the self layer
 in bf16 (its weights cast once, :func:`emip_tpu_torch.dtypes.cast`; the
 bf16 GEMM and attention), the cross layer and the FFN in fp32 on the
 upcast x1 and t, the output rounded to bf16 (``emip_window_block_bf16``).
-It keeps nothing for a backward; asking for a gradient raises. G and H have
-no bf16 instantiation yet.
+Its backward (``emip_window_block_bwd_bf16``) is the JAX kernel's: the self
+layer recomputed in fp32 on the upcast x and the fp32 weights, x1 rounded
+as the forward rounds it and its roundings passed straight through, the
+fp32 cross layer, FFN and block backward, gx and gt rounded to bf16 (the
+bf16 forward's buffers are not the recompute's, so it keeps only its
+inputs). G and H have no bf16 instantiation yet.
 """
 
 from __future__ import annotations
@@ -39,7 +43,10 @@ import torch.nn.functional as F
 from emip_tpu_torch.dtypes import cast
 from emip_tpu_torch.kernels import _common as cm
 from emip_tpu_torch.kernels._build import library
-from emip_tpu_torch.kernels.attention import forward_workspace
+from emip_tpu_torch.kernels.attention import (
+    _workspace_floats,
+    forward_workspace,
+)
 
 __all__ = ["fused_window_attention_block",
            "fused_window_attention_block_reference",
@@ -115,6 +122,20 @@ def _block_reference_bf16(x, t, self_params, cross_params, mask=None):
         x1.float(), t.float(), cross, mask).to(dt)
 
 
+def _block_recompute_bf16(x, t, self_params, cross_params, mask=None):
+    """The function the JAX block's bf16 backward differentiates, on fp32
+    x and t holding bf16 values: the self layer in fp32 on the fp32
+    weights, x1 = bf16(x + bf16(msg)) with its roundings passed straight
+    through, the fp32 cross layer and FFN."""
+    dt = torch.bfloat16
+    msg = _message(x, x, self_params, mask)
+    x1 = x + msg
+    rounded = (x + msg.to(dt).float()).to(dt).float()
+    x1 = x1 + (rounded - x1).detach()
+    return fused_window_attention_ffn_layer_reference(x1, t, cross_params,
+                                                      mask)
+
+
 def fused_window_attention_block_reference(x, t, self_params, cross_params,
                                            mask=None) -> torch.Tensor:
     """Plain PyTorch version of :func:`fused_window_attention_block` (with
@@ -131,6 +152,12 @@ def _reference_flat(x, t, *rest):
     return fused_window_attention_block_reference(
         x, t, dict(zip(_SELF_KEYS, params[:6])),
         dict(zip(_CROSS_KEYS, params[6:])), mask)
+
+
+def _recompute_flat(x, t, *rest):
+    *params, mask = rest
+    return _block_recompute_bf16(x, t, dict(zip(_SELF_KEYS, params[:6])),
+                                 dict(zip(_CROSS_KEYS, params[6:])), mask)
 
 
 def _check_layer(name, x, t, p, mask, prefix="",
@@ -403,36 +430,75 @@ class _WindowBlock(torch.autograd.Function):
         return (gx, gt, None, None, *pgrads)
 
 
-def _block_bf16(x, t, mask, params):
-    """B's bf16 forward (no autograd: there is no bf16 backward yet)."""
-    tensors = [x, t, *params] + ([] if mask is None else [mask])
-    cm.no_bf16_grad(_NAME, x, t, *params)
-    if cm.on_cpu(_NAME, *tensors):
-        return _block_reference_bf16(x, t, dict(zip(_SELF_KEYS, params[:6])),
-                                     dict(zip(_CROSS_KEYS, params[6:])),
-                                     mask)
-    _check(x, t, params, mask, torch.bfloat16)
-    b, k2, tok, c = x.shape
-    f = params[12].shape[0]
-    self_w = [cast(w, torch.bfloat16) for w in params[:4]]
-    rows = b * k2 * tok
-    qkv1, o1 = (torch.empty((rows, w), device=x.device, dtype=torch.bfloat16)
-                for w in (3 * c, c))
-    m, t32, qkv2, o2, cat, u, z = (
-        torch.empty((rows, w), device=x.device, dtype=torch.float32)
-        for w in (c, c, 3 * c, c, 2 * c, f, c))
-    out = torch.empty_like(x)
-    ws = _fwd_workspace(x)
-    rc = library().emip_window_block_bf16(
-        x.data_ptr(), t.data_ptr(), *(w.data_ptr() for w in self_w),
-        *(p.data_ptr() for p in params[4:]), cm.ptr(mask), k2,
-        qkv1.data_ptr(), o1.data_ptr(), m.data_ptr(), t32.data_ptr(),
-        qkv2.data_ptr(), o2.data_ptr(), cat.data_ptr(), u.data_ptr(),
-        z.data_ptr(), out.data_ptr(), cm.ptr(ws), cm.numel(ws), b * k2, tok,
-        c, f, EPS, cm.stream_handle(x.device))
-    cm.raise_on_error(_NAME + " (bf16)", rc)
-    cm.LAUNCHES["window_attention_block_bf16"] += 1
-    return out
+class _WindowBlockBf16(torch.autograd.Function):
+    """B in the bf16 band: bf16 x, t and output, fp32 parameters."""
+
+    @staticmethod
+    def forward(ctx, x, t, mask, keep, *params):
+        tensors = [x, t, *params] + ([] if mask is None else [mask])
+        ctx.cpu = cm.on_cpu(_NAME, *tensors)
+        if keep:  # the backward recomputes the rest from them
+            ctx.save_for_backward(x, t, mask, *params)
+        if ctx.cpu:
+            return _block_reference_bf16(
+                x, t, dict(zip(_SELF_KEYS, params[:6])),
+                dict(zip(_CROSS_KEYS, params[6:])), mask)
+        _check(x, t, params, mask, torch.bfloat16)
+        b, k2, tok, c = x.shape
+        f = params[12].shape[0]
+        self_w = [cast(w, torch.bfloat16) for w in params[:4]]
+        rows = b * k2 * tok
+        qkv1, o1 = (torch.empty((rows, w), device=x.device,
+                                dtype=torch.bfloat16) for w in (3 * c, c))
+        m, t32, qkv2, o2, cat, u, z = (
+            torch.empty((rows, w), device=x.device, dtype=torch.float32)
+            for w in (c, c, 3 * c, c, 2 * c, f, c))
+        out = torch.empty_like(x)
+        ws = _fwd_workspace(x)
+        rc = library().emip_window_block_bf16(
+            x.data_ptr(), t.data_ptr(), *(w.data_ptr() for w in self_w),
+            *(p.data_ptr() for p in params[4:]), cm.ptr(mask), k2,
+            qkv1.data_ptr(), o1.data_ptr(), m.data_ptr(), t32.data_ptr(),
+            qkv2.data_ptr(), o2.data_ptr(), cat.data_ptr(), u.data_ptr(),
+            z.data_ptr(), out.data_ptr(), cm.ptr(ws), cm.numel(ws), b * k2,
+            tok, c, f, EPS, cm.stream_handle(x.device))
+        cm.raise_on_error(_NAME + " (bf16)", rc)
+        cm.LAUNCHES["window_attention_block_bf16"] += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        needs_x, needs_t = ctx.needs_input_grad[:2]
+        needs_p = ctx.needs_input_grad[4:]
+        x, t, mask, *params = ctx.saved_tensors
+        if ctx.cpu:
+            grads = cm.plain_vjp_fp32(_recompute_flat, (x, t, *params),
+                                      (needs_x, needs_t, *needs_p), g, mask)
+            return (grads[0], grads[1], None, None, *grads[2:])
+        g = g.contiguous()
+        b, k2, tok, c = x.shape
+        f = params[12].shape[0]
+        rows = b * k2 * tok
+        pgrads = [torch.empty_like(p) if nd else None
+                  for nd, p in zip(needs_p, params)]
+        gx = cm.empty_if(needs_x, x)
+        gt = cm.empty_if(needs_t, t)
+        # fp32 scratch (see emip_window_block_bwd_bf16), then the larger of
+        # the recompute's key-split partials and the fp32 backward's
+        # activation grads and workspace
+        scratch = rows * (18 * c + 2 * f) + 4 * rows
+        rest = max(_workspace_floats(b * k2, 1, tok, tok, c, True),
+                   rows * (9 * c + f))
+        ws = cm.workspace(x.device, scratch + rest)
+        rc = library().emip_window_block_bwd_bf16(
+            x.data_ptr(), t.data_ptr(),
+            *(params[i].data_ptr() for i in range(15)), cm.ptr(mask), k2,
+            g.data_ptr(), cm.ptr(gx), cm.ptr(gt),
+            *(cm.ptr(p) for p in pgrads), ws.data_ptr(), ws.numel(), b * k2,
+            tok, c, f, EPS, cm.stream_handle(x.device))
+        cm.raise_on_error(_NAME + " backward (bf16)", rc)
+        cm.LAUNCHES["window_attention_block_bwd_bf16"] += 1
+        return (gx, gt, None, None, *pgrads)
 
 
 def fused_window_attention_block(x: torch.Tensor, t: torch.Tensor,
@@ -444,15 +510,13 @@ def fused_window_attention_block(x: torch.Tensor, t: torch.Tensor,
     x, t: [B, K2, T, C] pre-split (and, if shifted, pre-rolled) windows;
     mask: [K2, T, T] additive shift mask or None, applied to both layers.
     Differentiable in x, t and every parameter (not in the mask). With
-    bf16 ``x`` and ``t`` (fp32 parameters) the bf16 forward, bf16 out,
-    which takes no gradient.
+    bf16 ``x`` and ``t`` (fp32 parameters) the bf16 kernels: bf16 out, gx
+    and gt bf16, the parameter grads fp32.
     """
     params = [self_params[k] for k in _SELF_KEYS] + [
         cross_params[k] for k in _CROSS_KEYS]
-    if x.dtype == torch.bfloat16:
-        return _block_bf16(x, t, mask, params)
-    return _WindowBlock.apply(x, t, mask, cm.grad_wanted(x, t, *params),
-                              *params)
+    fn = _WindowBlockBf16 if x.dtype == torch.bfloat16 else _WindowBlock
+    return fn.apply(x, t, mask, cm.grad_wanted(x, t, *params), *params)
 
 
 def fused_window_attention_layer(x: torch.Tensor, t: torch.Tensor,

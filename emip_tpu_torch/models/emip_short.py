@@ -19,10 +19,12 @@ engine also returns its pre-propagation flow.
 :class:`SegNetwork` is the segmentation stream alone (backbone, three
 dimensional reductions, NCD), the model of static-image pretraining.
 
-``EMIPShort(config, dtype=torch.bfloat16)`` is the bf16 band of inference:
-the JAX package's ``EMIPShort(dtype=bfloat16)`` (the published
-configuration's ``compute_dtype``), with kernels A-D in their bf16
-forwards; it outputs fp32 mask logits and flows, as the JAX model does.
+``EMIPShort(config, dtype=torch.bfloat16)`` is the bf16 band, for
+inference and training: the JAX package's ``EMIPShort(dtype=bfloat16)``
+(the published configuration's ``compute_dtype``), with kernels A-D in
+their bf16 forwards and backwards; it outputs fp32 mask logits and flows,
+as the JAX model does. ``SegNetwork(..., dtype=torch.bfloat16)`` is the
+same band for static pretraining (kernel A).
 """
 
 from __future__ import annotations
@@ -80,25 +82,41 @@ class _SegBackbone(nn.Module):
         return self.feat_net.pvtv2_en(x, generator)
 
 
-def bf16_missing_kernels(cfg: EMIPShortConfig, pvt_config: PVTv2Config
-                         ) -> list[str]:
+def bf16_missing_kernels(cfg: EMIPShortConfig | None,
+                         pvt_config: PVTv2Config) -> list[str]:
     """The kernels without a bf16 instantiation that ``cfg`` would reach:
     G and H for windows above ``fused_block_max_t`` tokens (512^2), I
-    under read-corr matching, J under the fused MixFFN switches."""
-    gm = cfg.gmflow
-    tok = (cfg.inp_size // 8 // gm.attn_splits_list[0]) ** 2
+    under read-corr matching, J under the fused MixFFN switches. With
+    ``cfg`` None (:class:`SegNetwork`: no flow stream) only J is asked."""
     missing = []
-    if tok > gm.fused_block_max_t:
-        missing.append(f"G and H (windows of {tok} tokens > "
-                       f"fused_block_max_t {gm.fused_block_max_t})")
-    if not gm.global_match_qk_fused:
-        missing.append("I (read-corr matching, global_match_qk_fused "
-                       "false)")
+    if cfg is not None:
+        gm = cfg.gmflow
+        tok = (cfg.inp_size // 8 // gm.attn_splits_list[0]) ** 2
+        if tok > gm.fused_block_max_t:
+            missing.append(f"G and H (windows of {tok} tokens > "
+                           f"fused_block_max_t {gm.fused_block_max_t})")
+        if not gm.global_match_qk_fused:
+            missing.append("I (read-corr matching, global_match_qk_fused "
+                           "false)")
     if (pvt_config.fused_ffn == "always"
             or pvt_config.ffn_dwconv == "bwd_fused"):
         missing.append(f"J (fused_ffn={pvt_config.fused_ffn!r}, "
                        f"ffn_dwconv={pvt_config.ffn_dwconv!r})")
     return missing
+
+
+def _set_dtype(module: nn.Module, dtype: torch.dtype, missing) -> None:
+    """Give ``module`` its compute dtype; a bf16 model that would reach a
+    kernel without a bf16 instantiation (``missing``) raises, naming it."""
+    name = type(module).__name__
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name} computes in float32 or bfloat16, not "
+                         f"{dtype}")
+    if dtype == torch.bfloat16 and missing:
+        raise NotImplementedError(
+            f"{name} in bfloat16 would reach kernels without a bfloat16 "
+            f"instantiation: " + "; ".join(missing))
+    set_compute_dtype(module, dtype)
 
 
 class EMIPShort(nn.Module):
@@ -147,16 +165,7 @@ class EMIPShort(nn.Module):
                 nn.GELU(), nn.ConvTranspose2d(256, 128, 2, stride=2))
             self.upscaling3 = nn.Sequential(
                 nn.ConvTranspose2d(320, 128, 2, stride=2), LayerNorm2d(128))
-        if dtype not in (torch.float32, torch.bfloat16):
-            raise ValueError(f"EMIPShort computes in float32 or bfloat16, "
-                             f"not {dtype}")
-        if dtype == torch.bfloat16:
-            missing = bf16_missing_kernels(cfg, pvt.config)
-            if missing:
-                raise NotImplementedError(
-                    "EMIPShort in bfloat16 would reach kernels without a "
-                    "bfloat16 instantiation: " + "; ".join(missing))
-        set_compute_dtype(self, dtype)
+        _set_dtype(self, dtype, bf16_missing_kernels(cfg, pvt.config))
 
     def encode_frame(self, image: torch.Tensor, generator=None) -> dict:
         """Everything that depends on one frame: backbone stages /8, /16,
@@ -221,11 +230,18 @@ class SegNetwork(nn.Module):
     pretrained checkpoint loads into the two-stream model through the
     config's ``load.path``. In train mode drop path draws from the
     ``generator`` passed to :meth:`forward`.
+
+    ``dtype`` is the compute dtype, as :class:`EMIPShort`'s: bfloat16 is
+    the JAX ``SegNetwork(dtype=bfloat16)`` of the published configuration,
+    for inference and training (kernel A in bf16, fp32 parameters cast at
+    each use, fp32 BatchNorms and norm statistics, fp32 logits); the
+    ``state_dict`` is the fp32 one either way.
     """
 
     def __init__(self, backbone_name: str | PVTv2Config = "pvt_v2_b5",
                  channel: int = 32, fused_ffn: str | None = None,
-                 ffn_dwconv: str | None = None):
+                 ffn_dwconv: str | None = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         pvt, ch = create_backbone(backbone_name, fused_ffn=fused_ffn,
                                   ffn_dwconv=ffn_dwconv)
@@ -234,6 +250,7 @@ class SegNetwork(nn.Module):
         self.dr2 = DimensionalReduction(ch[-2], channel)
         self.dr3 = DimensionalReduction(ch[-1], channel)
         self.decoder = NeighborConnectionDecoder(channel)
+        _set_dtype(self, dtype, bf16_missing_kernels(None, pvt.config))
 
     def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
         stages = self.backbone(x, generator)

@@ -7,7 +7,8 @@
 Mirrors the repository's ``train.py`` for the JAX package (its
 ``--multi_host`` flag has no counterpart: the port trains on one card).
 The repository holds no checkpoint, so the model starts from seeded
-random weights (``seed`` in the config). The log goes to
+random weights (``seed`` in the config). The model computes in the
+config's ``compute_dtype`` (bfloat16 when the key is missing). The log goes to
 ``<save_path>/train_log.log`` and the scalars to ``scalars.jsonl``. Runs
 on the GPU (``--device``,
 default ``cuda``; without a GPU it raises), on the CPU only with
@@ -46,7 +47,7 @@ def main(argv=None):
     args = parse_args(argv)
     device = resolve_device(args.device)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
-    cfg = load_config(args.config)
+    cfg = load_config(args.config, honours_dtype=True)
     if args.save_path:
         cfg.save_path = args.save_path
     _, summary = train_short(cfg, resume=args.resume,

@@ -4,7 +4,11 @@ Counterpart of :mod:`emip_tpu.train.loops` (reference ``train.py``):
 per-epoch cosine LR (stepped before the epoch), per-step loss logging,
 validation computing wFm / Sm / MAE over the val split at native GT
 resolution, best-by-MAE checkpointing, ``torch.save`` checkpoints with
-optimizer state and resume, and a save on interrupt. Runs on the GPU
+optimizer state and resume, and a save on interrupt. The model computes in
+the config's ``compute_dtype`` (bfloat16 by default, as in the JAX
+package: :mod:`emip_tpu_torch.dtypes`); its parameters, the optimizer
+state and the checkpoints are fp32 either way, so a checkpoint of either
+dtype loads into a model of the other. Runs on the GPU
 unless the caller names another device; without a GPU the default raises.
 """
 
@@ -21,6 +25,7 @@ from emip_tpu_torch.config import Config, snapshot_config
 from emip_tpu_torch.convert import SHORT_LOAD, load_configured_weights
 from emip_tpu_torch.data import PairEvalLoader, PairTrainLoader
 from emip_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from emip_tpu_torch.dtypes import dtype_named
 from emip_tpu_torch.losses.seg import hybrid_e_loss
 from emip_tpu_torch.metrics import frame_scores
 from emip_tpu_torch.models.emip_short import EMIPShort
@@ -125,14 +130,16 @@ def train_short(cfg: Config, resume: bool = False,
                 ) -> tuple[EMIPShort, dict]:
     """Train for epochs ``start..cfg.epoch - 1`` (the reference's
     ``range(1, epoch)``) on ``device`` (default: the GPU; raises without
-    one); returns the model and a summary. The model starts from seeded
-    random weights, then takes the checkpoints the config's ``load`` block
-    names (``path``, ``flow_path``) where the files exist."""
+    one) in ``cfg.compute_dtype``; returns the model and a summary. The
+    model starts from seeded random weights, then takes the checkpoints the
+    config's ``load`` block names (``path``, ``flow_path``) where the files
+    exist."""
     device = resolve_device(device)
     setup_logging(cfg.save_path)
     snapshot_config(cfg, cfg.save_path)
     scalars = ScalarLogger(cfg.save_path)
-    model = seeded_init_(EMIPShort(cfg.model), cfg.seed)
+    model = seeded_init_(
+        EMIPShort(cfg.model, dtype=dtype_named(cfg.compute_dtype)), cfg.seed)
     load_configured_weights(model, cfg.load, SHORT_LOAD)
     model = model.to(device)
     opt = build_optimizer(model, cfg.lr, cfg.weight_decay, cfg.clip)

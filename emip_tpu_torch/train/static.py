@@ -8,8 +8,12 @@ short trainer, and a cosine LR set once per epoch over the reference's
 ``range(1, epoch)``. One ``ckpt.pt`` (model and optimizer) is written per
 epoch under ``<save_path>/ckpt``; the log goes to
 ``train_static_log.log`` and the scalars ``loss/static`` and
-``time/epoch_s`` to ``scalars.jsonl``. On the card the backbone runs
-kernel A forward and backward (and J where ``fused_ffn`` asks for it).
+``time/epoch_s`` to ``scalars.jsonl``. The model computes in the config's
+``compute_dtype`` (bfloat16 by default, as the JAX package's trainer
+builds ``SegNetwork(dtype=...)``); parameters, optimizer state and
+checkpoints stay fp32. On the card the backbone runs kernel A forward and
+backward, in that dtype (and J where ``fused_ffn`` asks for it: fp32
+only).
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch
 from emip_tpu_torch.config import Config
 from emip_tpu_torch.data import StaticImageLoader
 from emip_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from emip_tpu_torch.dtypes import dtype_named
 from emip_tpu_torch.losses.seg import hybrid_e_loss
 from emip_tpu_torch.models.emip_short import SegNetwork
 from emip_tpu_torch.models.init import seeded_init_
@@ -41,10 +46,11 @@ log = logging.getLogger("emip_tpu_torch")
 
 def build_seg_model(cfg: Config, device) -> SegNetwork:
     """The config's backbone and ``channel`` as a seeded SegNetwork on
-    ``device``."""
+    ``device``, computing in the config's ``compute_dtype``."""
     m = cfg.model
     model = SegNetwork(m.backbone_name, m.channel, fused_ffn=m.fused_ffn,
-                       ffn_dwconv=m.ffn_dwconv)
+                       ffn_dwconv=m.ffn_dwconv,
+                       dtype=dtype_named(cfg.compute_dtype))
     return seeded_init_(model, cfg.seed).to(device)
 
 

@@ -7,7 +7,8 @@
 Mirrors the repository's ``train_static.py`` for the JAX package, plus
 ``--device``: :func:`emip_tpu_torch.train.static.train_static` on a
 COD10K-style root (``Imgs/`` + ``GT/``) at ``model.inp_size``, batch
-``train_dataset.batch_size``. The default ``--save_path`` is
+``train_dataset.batch_size``, computing in ``compute_dtype`` (bfloat16
+when the key is missing). The default ``--save_path`` is
 ``<save_path of the config>/static``; checkpoints go to its ``ckpt/``.
 Runs on the GPU (``--device``, default ``cuda``; without a GPU it raises
 before it writes anything), on the CPU only with ``--device cpu``.
@@ -43,7 +44,7 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     device = resolve_device(args.device)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
-    cfg = load_config(args.config)
+    cfg = load_config(args.config, honours_dtype=True)
     save_path = args.save_path or os.path.join(cfg.save_path, "static")
     _, summary = train_static(cfg, args.data_root, save_path,
                               args.max_steps_per_epoch, device=device)

@@ -9,6 +9,8 @@ module in bf16 and the tiny two-stream model (tests/torch_helpers.py: b0
 widths, depths (1, 1, 1, 1), 64^2, exact GELU) run on the same numpy
 inputs and weights as the JAX package in bf16, its Pallas kernels in
 interpret mode. Inputs are rounded to bf16 the same way on both sides.
+The bf16 backwards and the bf16 train steps are in
+tests/test_torch_bf16_train.py.
 
 Tolerances, as max|err| / max|ref|: kernels 8e-3 (two bf16 ulps: both
 sides round at the same points, sums run in another order), modules 2e-2
@@ -16,8 +18,6 @@ sides round at the same points, sums run in another order), modules 2e-2
 own bf16 leaves against its fp32 (see :func:`test_short_model_bf16_band`),
 and shown to compute in bf16 rather than fp32.
 """
-
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -175,41 +175,6 @@ def test_convex_upsample_bf16_matches_pallas():
     got = K.convex_upsample(_t(flow), _tb(mask), 8)
     _same_dtype(got, want)
     assert _rel(got, want) <= KERNEL_REL
-
-
-@pytest.mark.parametrize("kernel", ["A", "B", "C", "D"])
-def test_bf16_kernels_refuse_a_gradient(kernel):
-    """The bf16 forwards keep nothing for a backward: asking for a
-    gradient raises, on the CPU as on the card (the bf16 backward is the
-    bf16 train step's slice)."""
-    rng = np.random.default_rng(5)
-
-    def r(*s):
-        return _tb(rng.standard_normal(s)).requires_grad_(True)
-
-    c = 64
-    if kernel == "A":
-        call = functools.partial(K.fused_sr_attention, r(1, 4, c), r(1, 4, c),
-                                 r(c, c), _t(np.zeros(c)), r(2 * c, c),
-                                 _t(np.zeros(2 * c)), r(c, c),
-                                 _t(np.zeros(c)), 1)
-    elif kernel == "B":
-        p = {k: _t(np.eye(c)) for k in ("wq", "wk", "wv", "wm")}
-        p.update(s1=_t(np.ones(c)), b1=_t(np.zeros(c)))
-        cp = dict(p, w0=_t(np.zeros((4 * c, 2 * c))),
-                  w2=_t(np.zeros((c, 4 * c))), s2=p["s1"], b2=p["b1"])
-        call = functools.partial(K.fused_window_attention_block,
-                                 r(1, 1, 4, c), r(1, 1, 4, c), p, cp)
-    elif kernel == "C":
-        call = functools.partial(K.fused_flow_attention, r(1, 4, c),
-                                 r(1, 4, c), _t(np.zeros((1, 4, 2))))
-    else:
-        call = functools.partial(K.convex_upsample, _t(np.zeros((1, 2, 2, 2))),
-                                 r(1, 2, 2, 9 * 4), 2)
-    with pytest.raises(NotImplementedError, match="no bfloat16 backward"):
-        call()
-    with torch.no_grad():
-        assert torch.isfinite(call()).all()
 
 
 # ----------------------------------------------------- models, fixtures
@@ -539,10 +504,11 @@ def test_compute_dtype_is_read_from_the_yaml(tmp_path, value, want):
 
 
 def test_only_fp32_entry_points_warn_of_bfloat16(caplog):
-    """The repository's YAML asks for bfloat16: the short inference entry
-    points honour it and warn of nothing; the fp32 entry points (the
-    trainers, test_long) name it in one warning line that says which run
-    fp32."""
+    """The repository's YAML asks for bfloat16: the entry points that
+    honour it (the short model's and the static model's: train,
+    train_static, test, test_of) warn of nothing; the fp32 ones (the long
+    model's: train_long, test_long) name it in one warning line that says
+    which run fp32."""
     import logging
     import os
 
@@ -556,15 +522,17 @@ def test_only_fp32_entry_points_warn_of_bfloat16(caplog):
             load_config(path, honours_dtype=honours)
         lines = [r.getMessage() for r in caplog.records]
         assert len(lines) == n, lines
-    assert "train, train_long, train_static and test_long run fp32" in lines[0]
+    assert "train_long and test_long run fp32" in lines[0]
+    assert "train, train_static, test and test_of honour" in lines[0]
 
 
 @pytest.mark.parametrize("entry", ["test", "test_of"])
 def test_inference_entry_points_build_bf16(tmp_path, monkeypatch, entry):
     """``test`` and ``test_of`` build their model in the YAML's
     compute_dtype (bfloat16 here, as when the key is missing) and write
-    their images on the CPU's plain versions; the trainers' model stays
-    fp32 for the same YAML."""
+    their images on the CPU's plain versions; the static trainer's model
+    is bf16 for the same YAML too, the short trainer's is tested in
+    tests/test_torch_bf16_train.py."""
     import importlib
 
     import emip_tpu_torch.test as test_mod
@@ -599,11 +567,10 @@ def test_inference_entry_points_build_bf16(tmp_path, monkeypatch, entry):
     assert len(images) == 2
 
     from emip_tpu_torch.config import load_config
-    from emip_tpu_torch.models.emip_short import EMIPShort
+    from emip_tpu_torch.train.static import build_seg_model
 
-    # the trainers build EMIPShort(cfg.model): fp32 whatever the YAML says
     assert load_config(cfg).compute_dtype == "bfloat16"
-    assert EMIPShort(load_config(cfg).model).compute_dtype == torch.float32
+    assert build_seg_model(load_config(cfg), "cpu").compute_dtype == BF16
 
 
 # --------------------------------------------------------------- card
@@ -613,7 +580,8 @@ def test_inference_entry_points_build_bf16(tmp_path, monkeypatch, entry):
 def test_cuda_bf16_kernels_match_plain_versions():
     """A, B, C and D in bf16 and the bf16 GEMM on the card against their
     plain bf16 versions on the same inputs (1e-2 of max|ref|), the same
-    bits on a second call, bf16 launch counts, and no gradient."""
+    bits on a second call, bf16 launch counts (the backwards are in
+    tests/test_torch_bf16_train.py)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
     from emip_tpu_torch.kernels.gemm import gemm, gemm_reference
@@ -677,6 +645,3 @@ def test_cuda_bf16_kernels_match_plain_versions():
             assert got.dtype == want.dtype, name
             err = (got.float() - want.float()).abs().max()
             assert err <= 1e-2 * want.float().abs().max(), (name, err)
-    leaf = r(2, 64, 64).requires_grad_(True)
-    with pytest.raises(NotImplementedError):
-        K.fused_flow_attention(leaf, leaf, r(2, 64, 2, dtype=torch.float32))

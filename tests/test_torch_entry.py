@@ -420,9 +420,11 @@ def test_empty_dataset_block_is_none_as_in_jax(tmp_path):
 def test_ignored_keys_warn_once_each(tmp_path, caplog, keys, warned):
     """Each key that steers only the JAX package and asks for other than
     what the port does is named in one warning line, a missing
-    ``compute_dtype`` too (the JAX package's default is bfloat16); the tiny
-    YAML (which states float32) and trivial values warn nothing. Nothing
-    else changes."""
+    ``compute_dtype`` too (the JAX package's default is bfloat16) where the
+    entry point runs fp32 (the long model's); the tiny YAML (which states
+    float32) and trivial values warn nothing. Where the entry point
+    honours ``compute_dtype`` (the short model's and the static model's)
+    it is never warned of. Nothing else changes."""
     from emip_tpu_torch.config import load_config
 
     opt = dict(lr=1e-4, weight_decay=1e-7, **keys.pop("optimizer", {}))
@@ -433,24 +435,29 @@ def test_ignored_keys_warn_once_each(tmp_path, caplog, keys, warned):
     raw = {k: v for k, v in raw.items() if v is not None}
     with open(path, "w") as f:
         yaml.safe_dump(raw, f)
-    with caplog.at_level(logging.WARNING, logger="emip_tpu_torch"):
-        cfg = load_config(str(path))
-    lines = [r.getMessage() for r in caplog.records
-             if r.levelno == logging.WARNING]
-    assert {m.split("=")[0].split()[-1] for m in lines} == warned
-    assert len(lines) == len(warned)
-    assert (cfg.lr, cfg.weight_decay) == (1e-4, 1e-7)
+    for honours in (False, True):
+        caplog.clear()
+        with caplog.at_level(logging.WARNING, logger="emip_tpu_torch"):
+            cfg = load_config(str(path), honours_dtype=honours)
+        lines = [r.getMessage() for r in caplog.records
+                 if r.levelno == logging.WARNING]
+        want = warned - {"compute_dtype"} if honours else warned
+        assert {m.split("=")[0].split()[-1] for m in lines} == want
+        assert len(lines) == len(want)
+        assert (cfg.lr, cfg.weight_decay) == (1e-4, 1e-7)
 
 
 def test_repository_yaml_warns_of_bfloat16_only(caplog):
-    """configs/emip.yaml asks for bfloat16 (the port runs fp32) and for
-    nothing else the port ignores."""
+    """configs/emip.yaml asks for bfloat16 and for nothing else the port
+    ignores: the long model's entry points (fp32) name it in one line,
+    which says that the short and static entry points honour it."""
     from emip_tpu_torch.config import load_config
 
     with caplog.at_level(logging.WARNING, logger="emip_tpu_torch"):
         cfg = load_config(os.path.join(REPO, "configs", "emip.yaml"))
     lines = [r.getMessage() for r in caplog.records]
     assert len(lines) == 1 and "compute_dtype='bfloat16'" in lines[0]
+    assert "train_long and test_long run fp32" in lines[0]
     assert cfg.load.type == "COD10K" and cfg.load.path is None
 
 

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Per-layer time of the PyTorch port's short and long slices on one GPU.
 
-    python3 tools/profile_torch_slice.py [--long] [--train] [--bf16]
-                                         [--batch 8] [--size 352] [--timed 5]
-                                         [--trace F] [--kernels NAMES]
+    python3 tools/profile_torch_slice.py [--long | --static] [--train]
+                                         [--bf16] [--batch 8] [--size 352]
+                                         [--timed 5] [--trace F]
+                                         [--kernels NAMES]
 
 Runs the full pvt_v2_b5 EMIPShort at 352^2 (``--size 512``: at 512^2, where
 the flow transformer runs kernels G and H), fp32 (TF32 off), on seeded
@@ -11,9 +12,13 @@ random weights and seeded frames, as ``chip_smoke.py``'s slice phase (or,
 with ``--train``, its train phase) does. With ``--long`` it runs the full
 EMIPLong instead: one streaming ``step_cached`` per batch on a full
 5-slot memory with ``--batch`` clips side by side (``--train``: one
-per-frame long train step). ``--bf16`` runs short inference in the bf16
-band (``EMIPShort(cfg, dtype=bfloat16)``, cuBLAS's reduced-precision bf16
-reduction off). It prints:
+per-frame long train step). With ``--static`` it runs static pretraining's
+SegNetwork (b5, channel 32; always a train step, ``static_train_step``'s
+work). ``--bf16`` runs the short model or SegNetwork in the bf16 band
+(``dtype=bfloat16``, cuBLAS's reduced-precision bf16 reduction off),
+inference or, with ``--train`` or ``--static``, the train step; the long
+model has no bf16 band. Run the fp32 and bf16 steps in turns in one call
+to compare them. It prints:
 
 - the card's ``nvidia-smi`` name and power limit;
 - the median ms per batch of ``predict_arrays`` (``--train``: per train
@@ -64,6 +69,18 @@ def module_table(model, backward: bool = False) -> dict:
         "dr1": model.dr1, "dr2": model.dr2, "dr3": model.dr3,
         "decoder": model.decoder,
     }
+    return {k: v if isinstance(v, list) else [v] for k, v in table.items()}
+
+
+def static_module_table(model, backward: bool = False) -> dict:
+    """SegNetwork's layers (the backbone's blocks in the backward, as in
+    :func:`module_table`)."""
+    pvt = model.backbone.feat_net.pvtv2_en
+    blocks = [blk for i in range(len(pvt.config.depths))
+              for blk in getattr(pvt, f"block{i + 1}")]
+    table = {"pvt backbone": blocks if backward else model.backbone,
+             "dr1": model.dr1, "dr2": model.dr2, "dr3": model.dr3,
+             "decoder": model.decoder}
     return {k: v if isinstance(v, list) else [v] for k, v in table.items()}
 
 
@@ -140,12 +157,18 @@ def main() -> int:
     ap.add_argument("--long", action="store_true",
                     help="profile the long-term model (one streaming step "
                          "per batch of clips) instead of the short one")
+    ap.add_argument("--static", action="store_true",
+                    help="profile static pretraining's SegNetwork train "
+                         "step instead of the short model")
     ap.add_argument("--bf16", action="store_true",
-                    help="short inference in bf16 (not with --train or "
-                         "--long: they have no bf16 band yet)")
+                    help="the short model or SegNetwork in bf16 (not with "
+                         "--long: the long model has no bf16 band yet)")
     args = ap.parse_args()
-    if args.bf16 and (args.train or args.long):
-        ap.error("--bf16 profiles short inference only")
+    if args.bf16 and args.long:
+        ap.error("--bf16 profiles the short model and SegNetwork only")
+    if args.static and args.long:
+        ap.error("--static and --long exclude each other")
+    args.train = args.train or args.static
     if not torch.cuda.is_available():
         print("profile_torch_slice: needs an NVIDIA GPU", file=sys.stderr)
         return 2
@@ -153,7 +176,11 @@ def main() -> int:
     import chip_smoke as cs
     from emip_tpu_torch import kernels as K
     from emip_tpu_torch.infer import predict_arrays
-    from emip_tpu_torch.models.emip_short import EMIPShort, EMIPShortConfig
+    from emip_tpu_torch.models.emip_short import (
+        EMIPShort,
+        EMIPShortConfig,
+        SegNetwork,
+    )
     from emip_tpu_torch.models.init import seeded_init_
 
     print(cs.card_line(), flush=True)
@@ -163,16 +190,19 @@ def main() -> int:
     K.library()
     dev = torch.device("cuda:0")
     cfg = EMIPShortConfig(backbone_name="pvt_v2_b5", inp_size=args.size)
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
     if args.long:
         from emip_tpu_torch.models.emip_long import EMIPLong
 
         model = EMIPLong(cfg, memory_size=5)
+    elif args.static:
+        model = SegNetwork("pvt_v2_b5", 32, dtype=dtype)
     else:
-        model = EMIPShort(cfg, dtype=torch.bfloat16 if args.bf16
-                          else torch.float32)
+        model = EMIPShort(cfg, dtype=dtype)
     seeded_init_(model, cs.SEED)
     model = model.to(dev).eval()
-    table = long_module_table if args.long else module_table
+    table = (long_module_table if args.long else
+             static_module_table if args.static else module_table)
     rng = np.random.default_rng(cs.SEED + 1)
     a, b = (torch.from_numpy(cs.seeded_frames(rng, args.batch, args.size))
             .to(dev) for _ in range(2))
@@ -215,18 +245,28 @@ def main() -> int:
                 with torch.inference_mode():
                     model.step_cached(enc, a, state)
     elif args.train:
+        from emip_tpu_torch.losses.seg import hybrid_e_loss
         from emip_tpu_torch.train.short import short_losses
-        from emip_tpu_torch.train.state import build_optimizer
+        from emip_tpu_torch.train.state import ClampAdamW, build_optimizer
 
-        opt = build_optimizer(model)
+        if args.static:  # static_train_step's optimizer
+            opt = ClampAdamW(model.parameters(), 1e-5, 1e-7, 0.5)
+        else:
+            opt = build_optimizer(model)
         gen = torch.Generator(device=dev).manual_seed(cs.SEED)
         batch = cs.seeded_batch(rng, args.batch, args.size, dev)
         model.train()
 
+        def losses():
+            if args.static:
+                return hybrid_e_loss(model(batch["image1"], gen),
+                                     batch["gt"])
+            return short_losses(model, batch, gen)["loss"]
+
         def run(split=None):
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
             ev[0].record()
-            loss = short_losses(model, batch, gen)["loss"]
+            loss = losses()
             ev[1].record()
             opt.zero_grad(set_to_none=True)
             loss.backward()
@@ -261,8 +301,10 @@ def main() -> int:
     what = "train step" if args.train else "slice"
     if args.long:
         what = "long " + ("train step" if args.train else "streaming step")
-    dtype = "bf16" if args.bf16 else "fp32"
-    print(f"{what} b5 {args.size}^2 bs={args.batch} {dtype}: median "
+    elif args.static:
+        what = "static train step"
+    band = "bf16" if args.bf16 else "fp32"
+    print(f"{what} b5 {args.size}^2 bs={args.batch} {band}: median "
           f"{median:.3f} ms/batch over {args.timed} batches {totals} "
           f"(no hooks)")
     if args.train:
