@@ -92,7 +92,16 @@ needs one card and no arguments, and it imports nothing of JAX. In order:
    6, C 3, D 1 a batch), peak memory beside the fp32 one, frames/s of
    bf16 and fp32 timed in turns (fp32, bf16, bf16, fp32), and one pair
    card bf16 against CPU plain bf16 within twice the card's
-   bf16-vs-fp32 gap on that pair (a gap above zero);
+   bf16-vs-fp32 gap on that pair (a gap above zero). The bf16 kernel lines
+   also hold F's bf16 forward (bf16 q against the fp32 ring: 1 and 4
+   clips, every slot written, and 512^2) and G's and H's (bf16 windows of
+   1024 tokens at 1 and 4 clips, with the shift mask, once without), with
+   F beside ``scaled_dot_product_attention`` on bf16 q, k, v and the bias
+   as its ``attn_mask``, each product bound at the rate its operands
+   allow (F's all at 2xTF32: one side bf16; H's projections of the bf16
+   x and t at 2xTF32, its other products at 3xTF32; G's at the bf16
+   rate), and, kept out of their rows' sums, A, C and D at their 512^2
+   shapes, F with every slot empty and G without the residual;
 8. train phase: first one pair, the seeded weights on the card and on the
    CPU: loss values and the seg-loss grads of every trainable leaf. Then
    the same model takes 1 + 5 train steps at batch 8 (drop path 0.1 from a
@@ -105,14 +114,18 @@ needs one card and no arguments, and it imports nothing of JAX. In order:
    version's VJP at the upcast inputs on the card (the bf16 gates of phase
    7 grad by grad: rel, the error against fp64 with a floor of 1e-5 for a
    bf16 grad and 2e-4 for an fp32 one, the same bits twice; the bound
-   counts the fp32 recompute and the backward at the 3xTF32 rate; C beside
+   counts the fp32 recompute and the backward, each product at the rate
+   its operands allow (see PEAK_BF16_FLOPS); C beside
    SDPA's backward on the upcast inputs); two pairs, each from its own
    seed, drop path off, card bf16 against CPU plain bf16 at b5's widths and
    PVT depths (1, 1, 2, 1), with the fp32 model run on both sides: both
    losses within twice the card's bf16-vs-fp32 gap (gap > 0), each
    trainable leaf's seg-loss grad within twice the larger of the card's and
    the CPU's gaps on that leaf, and all leaves' grads taken together (max
-   and mean) within twice the card's gap and twice the CPU's; then the
+   and mean) within twice the card's gap and twice the CPU's (the bf16
+   backward lines also hold F's bf16 backward at 1 and 4 clips, every
+   grad and dq alone, against the same backward of the plain version from
+   the kernel forward's output, and at 512^2 kept out of its sum); then the
    full b5 model in bf16 on the fp32
    phase's weights: 1 + 2 steps counted from zero launches (A-D's bf16
    forwards and backwards, E, no fp32 A-D), timed in turns with the fp32
@@ -163,18 +176,37 @@ needs one card and no arguments, and it imports nothing of JAX. In order:
     at 1: F forward and backward once per step and no backward launch of
     A-D; every ``short_term`` tensor and buffer bit-identical afterwards,
     every trainable leaf moved, finite losses; ms/frame and peak memory;
+    Then the bf16 long model (``EMIPLong(cfg, 5, dtype=bfloat16)``) on the
+    same weights, in turns with the fp32 model: streaming on a full ring at
+    1 and 4 clips (launches of the bf16 forwards of A-D and F's bf16
+    forward only), the long train step at 4 clips (adds F's bf16 backward;
+    short_term bit-identical, every trainable leaf moved): frames/s or
+    ms/frame, the device's busy time and idle share, peak memory; then the
+    card's bf16 long model against the CPU's plain bf16 versions at b5's
+    widths and PVT depths (1, 1, 2, 1), the fp32 model on both sides: a
+    3-frame clip's short mask, long masks and ring, and one train frame's
+    loss and head grads on two seeds, each within twice the larger of the
+    card's and the CPU's bf16-vs-fp32 gaps (all leaves together within
+    twice each gap);
 15. long entry points: ``python -m emip_tpu_torch.train_long`` and
     ``python -m emip_tpu_torch.test_long`` (in process) on a synthetic
-    root: 4 per-frame steps, validation, checkpoints, 12 PNGs;
+    root, fp32: 4 per-frame steps, validation, checkpoints, 12 PNGs; then
+    both with the YAML saying ``compute_dtype: bfloat16``: the same, fp32
+    checkpoints, launches of the bf16 kernels only (A-D forward, F forward
+    and backward);
 16. 512^2 phases, where a swin window holds 1024 tokens and the flow
     transformer runs kernels G and H in place of B: 1 + 2 short train steps
     at batch 2 (G and H forward and backward 6 each per step, none of B;
-    the checks of phase 8), then the long inference phase at 512^2 (G 6,
-    H 6, B 0 per step; card against CPU as in phase 13).
+    the checks of phase 8), short inference in bf16 at batch 4 in turns
+    with fp32 (G's and H's bf16 forwards 6 each a batch, no B), then the
+    long inference phase at 512^2 (G 6, H 6, B 0 per step; card against
+    CPU as in phase 13) and the bf16 long streaming of phase 14 at 512^2.
 
-It prints one JSON line with twenty-seven rows, the nineteen kernels' and
-the bf16 forwards and backwards of A-D (with their worst ``fp64_ratio``;
-the backwards' launches are the bf16 train steps'; per kernel:
+It prints one JSON line with thirty-one rows, the nineteen kernels' and
+the bf16 forwards of A-D, F, G and H and backwards of A-D and F (with
+their worst ``fp64_ratio``; A-D's bf16 forwards' launches are the bf16
+slice's, F's the bf16 long streaming step's, G's and H's the bf16 512^2
+streaming step's, the backwards' the bf16 train steps'; per kernel:
 launches in the phase that is its main path, the largest max_abs_err of
 its cases, and ``ms`` / ``plain_ms`` / ``library_ms`` / ``bound_ms`` summed
 over its cases, one call each; ``bound_ms`` is the larger of the case's
@@ -182,8 +214,11 @@ operations over the card's peak for them and its bytes over the memory
 rate, ``bound_by`` says which, and no case may take less. Products on the
 CUDA cores count at the fp32 peak; A, B, C, F, G and H, forward and
 backward, run all theirs on the tensor cores as 3xTF32, at a third of the
-TF32 peak (``bound_rate: "tf32x3"``), and their rows carry the CUDA cores'
-figure for all their operations as ``fp32_bound_ms``),
+TF32 peak (``bound_rate: "tf32x3"``); a bf16 row counts each product at
+the rate its operands allow (a bf16 operand is exact in TF32: two TF32
+products for one, the bf16 peak for two; ``bound_rate`` names them), and
+these rows carry the CUDA cores' figure for all their operations as
+``fp32_bound_ms``),
 and as its last line ``{"ok": true, "device":
 {...}}``. Any failure raises and the exit code is non-zero, with no result
 line. Details also go to ``chiprun_out/chip_smoke.json``. ``--kernels
@@ -352,6 +387,12 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_TF32_FLOPS = 495e12
 # dense bf16 on the tensor cores (the bf16 band's products)
 PEAK_BF16_FLOPS = 989e12
+# The bf16 rows count each product at the rate its operands allow. A
+# 3xTF32 product splits both fp32 operands into a TF32 high and low part
+# and takes three TF32 products; a bf16 value is exact in TF32 (its low
+# part is zero), so a product with one bf16 operand needs two
+# ("tf32x2", at half the TF32 peak), and one of two bf16 operands, summed
+# in fp32, is the bf16 tensor cores' own ("bf16").
 # the kernels that run all their products on the tensor cores as 3xTF32 (A,
 # B, C, F, G and H, forward and backward): their bound counts the
 # operations at a third of the TF32 peak; the CUDA cores' fp32 figure, the
@@ -396,8 +437,12 @@ ATTN_REL_TOL = 1e-5
 # as that floor, so that C and D, whose arithmetic after the bf16 inputs is
 # fp32 on both sides, compare their bf16 rounding and not fp32 noise. All
 # four are called twice and held bit-equal.
+# The bf16 long model and 512^2 add F's bf16 forward (bf16 q against the
+# fp32 ring) and G's and H's bf16 forwards to these rows.
+BF16_FWD_KERNELS = FWD_KERNELS + ("memory_attention", "window_attention_layer",
+                                  "window_attention_ffn_layer")
 BF16_KERNEL_INFO = {
-    name + "_bf16": KERNEL_INFO[name] for name in FWD_KERNELS}
+    name + "_bf16": KERNEL_INFO[name] for name in BF16_FWD_KERNELS}
 BF16_KERNEL_REL = 1e-2
 BF16_FP64_RATIO = 1.5
 BF16_FP64_FLOOR = 1e-5
@@ -405,8 +450,9 @@ BF16_FP64_FLOOR = 1e-5
 # grad by grad (their plain version is the fp32 plain version's VJP at the
 # upcast inputs, each grad rounded to its input's dtype, as the JAX kernels
 # compute it); their bound counts the recompute's products and the
-# backward's at the 3xTF32 rate. A grad that stays fp32 (A's biases', B's
-# parameters', C's dv, D's gflow) is not rounded itself, so its floor
+# backward's, each at the rate its operands allow. A grad that stays fp32
+# (A's biases', B's parameters', C's dv, D's gflow) is not rounded itself,
+# so its floor
 # against fp64 is BF16_FP32_GRAD_FLOOR of its max|ref|: above what both
 # sides read on an H100 (B's parameter grads up to 1.4e-4, the kernel's and
 # the plain version's alike: x1's bf16 rounding flips where fp32 and fp64
@@ -429,17 +475,32 @@ BF16_BWD_INFO = {
                                 "emip_tpu/ops/pallas/corr_softmax.py:287"),
     "convex_upsample_bwd_bf16": ("emip_tpu_torch/csrc/convex_upsample.cu",
                                  "emip_tpu/ops/pallas/convex_upsample.py:196"),
+    "memory_attention_bwd_bf16": ("emip_tpu_torch/csrc/memory_attention.cu",
+                                  "emip_tpu/ops/pallas/memory_attention.py:159"),
 }
 
 
 def bound_rate(name: str) -> str:
-    if name == "window_attention_block_bf16":
-        return "bf16+tf32x3"  # a bf16 self layer, then the fp32 cross + FFN
-    if name.endswith("_bwd_bf16"):  # fp32 recompute + backward, 3xTF32
-        return "fp32" if name.startswith("convex") else "tf32x3"
-    if name.endswith("_bf16"):
-        return "fp32" if name == "convex_upsample_bf16" else "bf16"
-    return "tf32x3" if name in TENSOR_CORE_KERNELS else "fp32"
+    """The rates at which a row's bound counts its products (see
+    PEAK_BF16_FLOPS), "+"-joined."""
+    return {
+        # bf16 q against the fp32 ring, P rounded to bf16
+        "memory_attention_bf16": "tf32x2",
+        # products with the bf16 q (q k^T, dS^T q) and the rest
+        "memory_attention_bwd_bf16": "tf32x2+tf32x3",
+        # bf16 x and t into H's fp32 layer
+        "window_attention_ffn_layer_bf16": "tf32x2+tf32x3",
+        # a bf16 self layer, then H's layer on its bf16 output
+        "window_attention_block_bf16": "bf16+tf32x2+tf32x3",
+        # the fp32 recompute and backward on bf16 inputs (C: bf16 q, k;
+        # A: bf16 weights too; B: bf16 x, t and x1)
+        "sr_attention_bwd_bf16": "bf16+tf32x2+tf32x3",
+        "window_attention_block_bwd_bf16": "tf32x2+tf32x3",
+        "flow_attention_bwd_bf16": "bf16+tf32x2+tf32x3",
+        "convex_upsample_bf16": "fp32",
+        "convex_upsample_bwd_bf16": "fp32",
+    }.get(name, "bf16" if name.endswith("_bf16") else
+          "tf32x3" if name in TENSOR_CORE_KERNELS else "fp32")
 
 
 def log(msg: str) -> None:
@@ -596,23 +657,24 @@ def record(results: dict, name: str, label: str, err: float, ms: float,
     time at the memory rate. No case may take less than its bound. Rows
     whose products are not all fp32 also carry ``bound_rate`` and the
     CUDA cores' figure for all their operations, ``fp32_bound_ms``. A
-    fourth element of ``work``, where given, is the bf16 tensor-core
-    operations, at the bf16 peak."""
+    fourth and fifth element of ``work``, where given, are the operations
+    of products on two bf16 operands, at the bf16 peak, and on one, at
+    half the TF32 peak (2xTF32)."""
     tc_ops, cc_ops, nbytes, *more = work
-    bf16_ops = more[0] if more else 0.0
+    bf16_ops, x2_ops = (list(more) + [0.0, 0.0])[:2]
     rate = bound_rate(name)
     entry = results.setdefault(name, dict(
         max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=None, bound_ms=0.0,
         ops_ms=0.0, bytes_ms=0.0, cases=[]))
-    ops_ms = (tc_ops / (PEAK_TF32_FLOPS / 3) + bf16_ops / PEAK_BF16_FLOPS
-              + cc_ops / PEAK_FP32_FLOPS) * 1e3
+    ops_ms = (tc_ops / (PEAK_TF32_FLOPS / 3) + x2_ops / (PEAK_TF32_FLOPS / 2)
+              + bf16_ops / PEAK_BF16_FLOPS + cc_ops / PEAK_FP32_FLOPS) * 1e3
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     bound = max(ops_ms, bytes_ms)
     if ms < bound:
         raise AssertionError(f"{name} ({label}): {ms} ms is below the bound "
                              f"{bound} ms")
-    fp32_ms = max((tc_ops + cc_ops + bf16_ops) / PEAK_FP32_FLOPS * 1e3,
-                  bytes_ms)
+    fp32_ms = max((tc_ops + cc_ops + bf16_ops + x2_ops) / PEAK_FP32_FLOPS
+                  * 1e3, bytes_ms)
     if rate != "fp32":
         entry.setdefault("fp32_bound_ms", 0.0)
         entry["bound_rate"] = rate
@@ -1752,7 +1814,8 @@ def bf16_kernel_cases(batch: int, device):
     A-D at the 352^2 shapes of bf16 inference: A at the four PVT stages
     (bf16 tokens and weights, fp32 biases), B on [2B, 4, 484, 128] bf16
     windows without and with the shift mask (fp32 parameters), C on bf16 q,
-    k [2B, 1936, 128] with fp32 values, D on bf16 logits."""
+    k [2B, 1936, 128] with fp32 values, D on bf16 logits; then F, G and H
+    at the bf16 long model's and 512^2's shapes."""
     import torch
 
     from emip_tpu_torch import kernels as K
@@ -1786,6 +1849,76 @@ def bf16_kernel_cases(batch: int, device):
                   K.convex_upsample, K.convex_upsample_reference,
                   (r(2 * batch, 44, 44, 2, scale=3.0),
                    r(2 * batch, 44, 44, 576).to(bf), 8)))
+    # the bf16 long model: F on bf16 q against the fp32 ring (1 and 4
+    # clips, every slot written; the 512^2 shape); G and H on bf16 windows
+    # of 1024 tokens (512^2, 1 and 4 clips with both flow directions on the
+    # batch axis, with the shift mask, once without)
+    for label, (q, k, v, bias) in memory_cases(
+            r, ((1, 1936, 5, 5), (4, 1936, 5, 5), (1, 4096, 5, 5))):
+        cases.append(("memory_attention_bf16", label,
+                      K.masked_memory_attention,
+                      K.masked_memory_attention_reference,
+                      (q.to(bf), k, v, bias)))
+    c, tok, k2 = 128, 1024, 4
+    mask = shifted_window_mask(64, 64, 2, device=device)
+    for b2, msk in ((2, None), (2, mask), (2 * BATCH_512, mask)):
+        x, t = r(b2, k2, tok, c).to(bf), r(b2, k2, tok, c).to(bf)
+        sp, cp = window_params(r, c)
+        shape = (f"[{b2},{k2},{tok},{c}] "
+                 + ("unshifted" if msk is None else "shifted mask"))
+        cases.append(("window_attention_layer_bf16", shape + " + x",
+                      K.fused_window_attention_layer,
+                      K.fused_window_attention_layer_reference,
+                      (x, t, sp, msk, True)))
+        cases.append(("window_attention_ffn_layer_bf16", shape,
+                      K.fused_window_attention_ffn_layer,
+                      K.fused_window_attention_ffn_layer_reference,
+                      (x, t, cp, msk)))
+    return cases
+
+
+def bf16_check_cases(device):
+    """bf16 cases held and timed like bf16_kernel_cases' but kept out of
+    their rows' sums, from a generator of their own: A, C and D at their
+    512^2 shapes (4 clips), F with every slot empty (the plain mean of the
+    values) at a ragged size, and G without the residual."""
+    import torch
+
+    from emip_tpu_torch import kernels as K
+    from emip_tpu_torch.ops.window import shifted_window_mask
+
+    r = seeded_randn(SEED + 35, device)
+    bf = torch.bfloat16
+    cases = []
+    for n, m, c, heads in SR_STAGES_512:
+        x, kv, wq, bq, wkv, bkv, wp, bp, _ = sr_args(r, BATCH_512, n, m, c,
+                                                     heads)
+        cases.append(("sr_attention_bf16",
+                      f"512^2 N={n} M={m} C={c} heads={heads}",
+                      K.fused_sr_attention, K.fused_sr_attention_reference,
+                      (x.to(bf), kv.to(bf), wq.to(bf), bq, wkv.to(bf), bkv,
+                       wp.to(bf), bp, heads)))
+    L, b = 4096, 2 * BATCH_512
+    cases.append(("flow_attention_bf16", f"512^2 [{b},{L},128] v=[...,2]",
+                  K.fused_flow_attention, K.fused_flow_attention_reference,
+                  (r(b, L, 128).to(bf), r(b, L, 128).to(bf),
+                   r(b, L, 2, scale=10.0))))
+    cases.append(("convex_upsample_bf16", f"512^2 flow [{b},64,64,2] x8",
+                  K.convex_upsample, K.convex_upsample_reference,
+                  (r(b, 64, 64, 2, scale=3.0), r(b, 64, 64, 576).to(bf), 8)))
+    for label, (q, k, v, bias) in memory_cases(r, ((2, 100, 3, 0),)):
+        cases.append(("memory_attention_bf16", label + " ragged",
+                      K.masked_memory_attention,
+                      K.masked_memory_attention_reference,
+                      (q.to(bf), k, v, bias)))
+    x, t = r(2, 4, 1024, 128).to(bf), r(2, 4, 1024, 128).to(bf)
+    sp, _ = window_params(r, 128)
+    cases.append(("window_attention_layer_bf16",
+                  "[2,4,1024,128] shifted mask message",
+                  K.fused_window_attention_layer,
+                  K.fused_window_attention_layer_reference,
+                  (x, t, sp, shifted_window_mask(64, 64, 2, device=device),
+                   False)))
     return cases
 
 
@@ -1801,32 +1934,73 @@ def bf16_fp64(name: str, args):
     def d(a):
         return a.double() if torch.is_tensor(a) else a
 
+    def rounded(p):  # the weights the bf16 self layer casts to bf16
+        return {k: (v.to(torch.bfloat16) if k in ("wq", "wk", "wv", "wm")
+                    else v).double() for k, v in p.items()}
+
     if name == "window_attention_block_bf16":
         x, t, sp, cp, mask = args
-        sp64 = {k: (v.to(torch.bfloat16) if k in ("wq", "wk", "wv", "wm")
-                    else v).double() for k, v in sp.items()}
         return K.fused_window_attention_block_reference(
-            d(x), d(t), sp64, {k: d(v) for k, v in cp.items()}, d(mask))
+            d(x), d(t), rounded(sp), {k: d(v) for k, v in cp.items()},
+            d(mask))
+    if name == "window_attention_layer_bf16":
+        x, t, sp, mask, add_residual = args
+        return K.fused_window_attention_layer_reference(
+            d(x), d(t), rounded(sp), d(mask), add_residual)
+    if name == "window_attention_ffn_layer_bf16":
+        x, t, cp, mask = args
+        return K.fused_window_attention_ffn_layer_reference(
+            d(x), d(t), {k: d(v) for k, v in cp.items()}, d(mask))
+    if name == "memory_attention_bf16":
+        # an empty slot's key scores -1e9 exactly, as in fp32, where the
+        # bias absorbs the score (a ring with no slot written reads the
+        # plain mean of the values); fp64 would keep the score beside it
+        q, k, v, bias = (d(a) for a in args)
+        scores = q @ k.transpose(-1, -2) / q.shape[-1] ** 0.5
+        scores = torch.where(bias[:, None, :] < 0, bias[:, None, :], scores)
+        return torch.softmax(scores, dim=-1) @ v
     fn = {"sr_attention_bf16": K.fused_sr_attention_reference,
           "flow_attention_bf16": K.fused_flow_attention_reference,
           "convex_upsample_bf16": K.convex_upsample_reference}[name]
     return fn(*(d(a) for a in args))
 
 
+def _cross_ffn_x2(rows: int, c: int, f: int) -> float:
+    """Operations of H's layer on bf16 x and t (B's cross layer and FFN on
+    its bf16 x1) whose products have one bf16 operand: x Wq, t Wk, t Wv
+    and x's half of the FFN's first product."""
+    return 3 * 2.0 * rows * c * c + 2.0 * rows * f * c
+
+
 def bf16_work(name: str, args, out) -> tuple:
     """(3xTF32 operations, CUDA-core operations, bytes at their storage
-    sizes, bf16 tensor-core operations) of one bf16 forward call."""
+    sizes, operations of products of two bf16 operands, of one) of one
+    bf16 forward call."""
     size = float(nbytes(*args) + nbytes(out))
     if name == "sr_attention_bf16":
-        return 0.0, 0.0, size, forward_products("sr_attention", args)
+        return 0.0, 0.0, size, forward_products("sr_attention", args), 0.0
     if name == "window_attention_block_bf16":
         rows, tok, c, f, _ = _window_dims("window_attention_block", args)
         layer = 4 * 2 * rows * c * c + 4 * rows * tok * c
-        return float(layer + 2 * rows * f * 3 * c), 0.0, size, float(layer)
+        x2 = _cross_ffn_x2(rows, c, f)
+        return (layer + 2.0 * rows * f * 3 * c - x2, 0.0, size,
+                float(layer), x2)
     if name == "flow_attention_bf16":
         b, l, c = args[0].shape
-        return 0.0, float(4 * b * l * l), size, float(2 * b * l * l * c)
-    return (0.0, float(out.numel() // 2 * (9 * 4 + 9 * 2 * 2)), size, 0.0)
+        return 0.0, float(4 * b * l * l), size, float(2 * b * l * l * c), 0.0
+    if name == "memory_attention_bf16":  # q k^T and P v, each on a bf16 side
+        return (0.0, 0.0, size, 0.0,
+                forward_work("memory_attention", args, out)[0])
+    if name == "window_attention_layer_bf16":
+        return (0.0, 0.0, size,
+                float(forward_products("window_attention_layer", args)), 0.0)
+    if name == "window_attention_ffn_layer_bf16":
+        rows, _, c, f, _ = _window_dims("window_attention_ffn_layer", args)
+        x2 = _cross_ffn_x2(rows, c, f)
+        return (forward_products("window_attention_ffn_layer", args) - x2,
+                0.0, size, 0.0, x2)
+    return (0.0, float(out.numel() // 2 * (9 * 4 + 9 * 2 * 2)), size, 0.0,
+            0.0)
 
 
 def bf16_library_ms(name: str, args, reps: int) -> tuple:
@@ -1851,13 +2025,20 @@ def bf16_library_ms(name: str, args, reps: int) -> tuple:
             k = kv.reshape(b, m, heads, c // heads).transpose(1, 2)
             return None, cuda_ms(
                 lambda: F.scaled_dot_product_attention(q, k, k), reps)
-        if name == "window_attention_block_bf16":
-            x, mask = args[0], args[4]
-            b, k2, tok, c = x.shape
-            q = x.reshape(b, k2, tok, c)
+        if name == "memory_attention_bf16":
+            q, k, v, bias = args
+            k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+            mask = bias[:, None, :].to(torch.bfloat16)
+            return cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask), reps), None
+        if name in ("window_attention_block_bf16",
+                    "window_attention_layer_bf16",
+                    "window_attention_ffn_layer_bf16"):
+            x = args[0]
+            mask = args[4] if name == "window_attention_block_bf16" else args[3]
             attn_mask = None if mask is None else mask.to(x.dtype)
             return None, cuda_ms(lambda: F.scaled_dot_product_attention(
-                q, q, q, attn_mask=attn_mask), reps)
+                x, x, x, attn_mask=attn_mask), reps)
     except RuntimeError as e:  # no backend takes these shapes
         log(f"library call for {name} refused: {str(e).splitlines()[0]}")
     return None, None
@@ -1867,13 +2048,15 @@ def bf16_kernel_phase(batch: int, device, reps: int) -> dict:
     """The bf16 forwards of A-D against their plain bf16 versions on the
     card and against fp64 (see BF16_FP64_RATIO), held bit-equal on a second
     call, timed beside the plain version and the library, with their bound
-    (bf16 products at the bf16 peak, B's fp32 cross layer and FFN at the
-    3xTF32 rate, bytes at their storage sizes)."""
+    (each product at the rate its operands allow: see PEAK_BF16_FLOPS;
+    bytes at their storage sizes)."""
     import torch
 
     results = {}
+    cases = [(True, *case) for case in bf16_kernel_cases(batch, device)]
+    cases += [(False, *case) for case in bf16_check_cases(device)]
     with torch.no_grad():
-        for name, label, fn, ref, args in bf16_kernel_cases(batch, device):
+        for summed, name, label, fn, ref, args in cases:
             got = fn(*args)
             torch.cuda.synchronize()
             want = ref(*args)
@@ -1908,14 +2091,16 @@ def bf16_kernel_phase(batch: int, device, reps: int) -> dict:
                 raise AssertionError(f"{name} ({label}): rel={rel}, fp64 "
                                      f"ratio={ratio}")
             record(results, name, label, err, ms, plain_ms,
-                   bf16_work(name, args, got), lib_ms, rel_err=rel,
-                   fp64_err=e_k, plain_fp64_err=e_p, fp64_ratio=ratio,
+                   bf16_work(name, args, got), lib_ms, summed=summed,
+                   rel_err=rel, fp64_err=e_k, plain_fp64_err=e_p,
+                   fp64_ratio=ratio,
                    **({} if sdpa_ms is None else dict(sdpa_ms=sdpa_ms)),
                    **dev)
             del got, want
     for entry in results.values():
         entry["fp64_ratio"] = max(c["fp64_ratio"] for c in entry["cases"])
-        sdpa = [c["sdpa_ms"] for c in entry["cases"] if "sdpa_ms" in c]
+        sdpa = [c["sdpa_ms"] for c in entry["cases"]
+                if "sdpa_ms" in c and c.get("summed", True)]
         if sdpa:
             entry["sdpa_ms"] = sum(sdpa)
     device_sums(results)
@@ -1987,16 +2172,19 @@ def bf16_gemm_phase(batch: int, device, reps: int) -> dict:
 
 
 def bf16_backward_cases(batch: int, device):
-    """(kernel, label, kernel fn, fp32 plain fn, args, indices of the args
+    """(kernel, label, kernel fn, plain grads, args, indices of the args
     that take a gradient, summed) of the bf16 backwards of A-D at the bf16
     train step's shapes: A at the four PVT stages (bf16 tokens and weights,
     fp32 biases; every grad), B on [2B, 4, 484, 128] bf16 windows without
     and with the shift mask (gx, gt and every parameter grad), C on bf16 q,
     k with fp32 values (dq dk at [B] and [2B], dq dk dv at [2B], and a
     ragged [2, 1000] dq dk dv kept out of the row's sum), D on bf16 logits
-    (gflow and gmask). ``fp32 plain fn`` is the function the JAX backward
-    differentiates: the fp32 plain version (B's with x1's rounding passed
-    straight through)."""
+    (gflow and gmask), F on bf16 q against the fp32 ring (dq dk dv, and dq
+    alone). ``plain grads`` is a callable (args, which, cot, dtype, out):
+    for A-D :func:`vjp_grads` of the function the JAX backward
+    differentiates, the fp32 plain version (B's with x1's rounding passed
+    straight through); for F its plain backward itself
+    (:func:`_memory_bwd_bf16`), which reads the forward's output."""
     import torch
 
     from emip_tpu_torch import kernels as K
@@ -2010,7 +2198,8 @@ def bf16_backward_cases(batch: int, device):
         x, kv, wq, bq, wkv, bkv, wp, bp, _ = sr_args(r, batch, n, m, c, heads)
         cases.append(("sr_attention_bwd_bf16",
                       f"N={n} M={m} C={c} heads={heads}",
-                      K.fused_sr_attention, K.fused_sr_attention_reference,
+                      K.fused_sr_attention,
+                      vjp_grads(K.fused_sr_attention_reference),
                       (x.to(bf), kv.to(bf), wq.to(bf), bq, wkv.to(bf), bkv,
                        wp.to(bf), bp, heads), tuple(range(8)), True))
     c, tok, k2 = 128, 484, 4
@@ -2031,8 +2220,8 @@ def bf16_backward_cases(batch: int, device):
                       f"grads",
                       functools.partial(block(K.fused_window_attention_block),
                                         mask=msk),
-                      functools.partial(block(_block_recompute_bf16),
-                                        mask=msk),
+                      vjp_grads(functools.partial(
+                          block(_block_recompute_bf16), mask=msk)),
                       (x, t, *params), tuple(range(2 + len(params))), True))
     L = 1936
     for b, label, which in ((batch, "matching dq dk", (0, 1)),
@@ -2040,66 +2229,132 @@ def bf16_backward_cases(batch: int, device):
                             (2 * batch, "propagation dq dk dv", (0, 1, 2))):
         cases.append(("flow_attention_bwd_bf16", f"[{b},{L},128] {label}",
                       K.fused_flow_attention,
-                      K.fused_flow_attention_reference,
+                      vjp_grads(K.fused_flow_attention_reference),
                       (r(b, L, 128).to(bf), r(b, L, 128).to(bf),
                        r(b, L, 2, scale=10.0)), which, True))
     rc = seeded_randn(SEED + 42, device)
     cases.append(("flow_attention_bwd_bf16", "[2,1000,128] ragged dq dk dv",
-                  K.fused_flow_attention, K.fused_flow_attention_reference,
+                  K.fused_flow_attention,
+                  vjp_grads(K.fused_flow_attention_reference),
                   (rc(2, 1000, 128).to(bf), rc(2, 1000, 128).to(bf),
                    rc(2, 1000, 2, scale=10.0)), (0, 1, 2), False))
     cases.append(("convex_upsample_bwd_bf16",
                   f"flow [{2 * batch},44,44,2] x8 gflow gmask",
-                  K.convex_upsample, K.convex_upsample_reference,
+                  K.convex_upsample, vjp_grads(K.convex_upsample_reference),
                   (r(2 * batch, 44, 44, 2, scale=3.0),
                    r(2 * batch, 44, 44, 576).to(bf), 8), (0, 1), True))
+    # F at the bf16 long train step's shapes (1 and 4 clips, every slot
+    # written: dq dk dv, and dq alone), the 512^2 shape kept out of the sum
+    rf = seeded_randn(SEED + 44, device)
+    for label, (q, k, v, bias) in memory_cases(
+            rf, ((1, 1936, 5, 5), (4, 1936, 5, 5), (1, 4096, 5, 5))):
+        for which, what in (((0, 1, 2), "dq dk dv"), ((0,), "dq")):
+            if what == "dq" and q.shape[0] == 1:
+                continue
+            cases.append(("memory_attention_bwd_bf16", f"{label} {what}",
+                          K.masked_memory_attention, _memory_bwd_bf16,
+                          (q.to(bf), k, v, bias), which,
+                          q.shape[1] == 1936))
     return cases
 
 
-def _plain_bf16_grads(plain, args, which, cot, dtype=None):
-    """The grads of ``plain`` w.r.t. args[which] for cotangent ``cot`` at
-    the inputs upcast to fp32 (``dtype`` float64: to fp64, cotangent too),
-    each rounded to its input's dtype (not with ``dtype``: the fp64
-    reference is not rounded)."""
+def _memory_bwd_bf16(args, which, cot, dtype, out):
+    """The grads of F's bf16 backward (args[which]) as the JAX kernel
+    computes them from the forward's output ``out`` (in delta): P
+    recomputed from the upcast q, dq rounded to bf16 (with ``dtype``
+    float64: every input, ``out`` and the cotangent in fp64, nothing
+    rounded)."""
+    from emip_tpu_torch.kernels.memory_attention import (
+        masked_memory_attention_bwd_reference,
+    )
+
+    q, k, v, bias = args
+    if dtype is not None:
+        q, k, v, bias, out, cot = (a.to(dtype)
+                                   for a in (q, k, v, bias, out, cot))
+    grads = masked_memory_attention_bwd_reference(
+        q, k, v, bias, out, cot, [i in which for i in range(3)])
+    return [grads[i] for i in which]
+
+
+def vjp_grads(plain):
+    """The plain grads of a backward case whose plain version is a forward
+    (A-D): a callable (args, which, cot, dtype, out) giving the VJP of
+    ``plain`` w.r.t. args[which] for cotangent ``cot`` at the inputs upcast
+    to fp32 (``dtype`` float64: to fp64, cotangent too), each grad rounded
+    to its input's dtype (not with ``dtype``: the fp64 reference is not
+    rounded); ``out`` is not read."""
     import torch
 
     from emip_tpu_torch.kernels import _common as cm
 
-    tensors = [i for i, a in enumerate(args) if torch.is_tensor(a)]
-    inputs = [args[i] for i in tensors]
-    needs = [i in which for i in tensors]
+    def grads(args, which, cot, dtype=None, out=None):
+        tensors = [i for i, a in enumerate(args) if torch.is_tensor(a)]
+        inputs = [args[i] for i in tensors]
+        needs = [i in which for i in tensors]
 
-    def fn(*ts):
-        full = list(args)
-        for i, t in zip(tensors, ts):
-            full[i] = t
-        return plain(*full)
+        def fn(*ts):
+            full = list(args)
+            for i, t in zip(tensors, ts):
+                full[i] = t
+            return plain(*full)
 
-    if dtype is None:
-        got = cm.plain_vjp_fp32(fn, inputs, needs, cot)
-    else:
-        got = cm.plain_vjp(fn, [a.to(dtype) for a in inputs], needs,
-                           cot.to(dtype))
-    return [g for g, n in zip(got, needs) if n]
+        if dtype is None:
+            got = cm.plain_vjp_fp32(fn, inputs, needs, cot)
+        else:
+            got = cm.plain_vjp(fn, [a.to(dtype) for a in inputs], needs,
+                               cot.to(dtype))
+        return [g for g, n in zip(got, needs) if n]
+
+    return grads
 
 
 def bf16_bwd_work(name: str, args, which, out, grads) -> tuple:
     """(3xTF32 operations, CUDA-core operations, bytes at their storage
-    sizes) of one bf16 backward call: the fp32 recompute of the forward and
-    the fp32 backward's products (C and D as their fp32 rows count them),
-    every input and the cotangent read once, the grads written once."""
+    sizes, operations of products of two bf16 operands, of one) of one
+    bf16 backward call: the fp32 recompute of the forward and the fp32
+    backward's products (C and D as their fp32 rows count them), every
+    input and the cotangent read once, the grads written once. The bf16
+    operands: A's x, kv_in, weights and cotangent; B's x, t and x1
+    (rounded in its forward); C's q and k; F's q."""
     base = name.removesuffix("_bwd_bf16")
     size = float(nbytes(*args) + 2 * nbytes(out) + nbytes(*grads))
+    w = set(which)
+    bwd = backward_work(base + "_bwd", args, which, out)[0]
+    if base == "memory_attention":  # the forward's statistics: no recompute
+        (b, m, c), n = args[0].shape, args[1].shape[1]
+        x2 = 2.0 * b * m * n * c * (1 + (1 in w))  # q k^T, dS^T q
+        return bwd - x2, 0.0, size, 0.0, x2
     if base == "convex_upsample":
         tc, cc, _ = forward_work(base, args, out)
-        return 0.0, 3.0 * (tc + cc), size
+        return 0.0, 3.0 * (tc + cc), size, 0.0, 0.0
     if base == "flow_attention":
         b, l, c = args[0].shape
-        fwd = 2.0 * b * l * l * (c + args[2].shape[-1])
-    else:
-        fwd = float(forward_products(base, args))
-    bwd = backward_work(base + "_bwd", args, which, out)[0]
-    return fwd + bwd, 0.0, size
+        big = 2.0 * b * l * l * c
+        fwd = big + 2.0 * b * l * l * args[2].shape[-1]
+        # q k^T in the recompute and the backward; dS k and dS^T q
+        bf2, x2 = 2 * big, big * ((0 in w) + (1 in w))
+        return fwd + bwd - bf2 - x2, 0.0, size, bf2, x2
+    fwd = float(forward_products(base, args))
+    if base == "sr_attention":
+        (b, n, c), m = args[0].shape, args[1].shape[1]
+        q_lin, kv_lin = 2.0 * b * n * c * c, 2.0 * b * m * 2 * c * c
+        # x Wq, kv Wkv and g Wp^T (where any grad but Wp's is asked)
+        bf2 = q_lin + kv_lin + q_lin * bool(w & {0, 1, 2, 3, 4, 5})
+        # o Wp, the weight grads x^T gq, kv^T gkv, o^T g, and gq Wq^T,
+        # gkv Wkv^T
+        x2 = q_lin * (1 + (6 in w) + (2 in w) + (0 in w)) + kv_lin * (
+            (4 in w) + (1 in w))
+        return fwd + bwd - bf2 - x2, 0.0, size, bf2, x2
+    # B: x Wq, x Wk, x Wv, x1 Wq, t Wk, t Wv and x1's half of W0 in the
+    # recompute, and the grads of those weights
+    rows, _, c, f, _ = _window_dims(base, args)
+    lin, ffn = 2.0 * rows * c * c, 2.0 * rows * c * f
+    off = 2 + len(WIN_SELF)
+    asked = sum(i in w for i in (2, 3, 4, off, off + 1, off + 2))
+    w0 = off + WIN_CROSS.index("w0")
+    x2 = 6 * lin + ffn + lin * asked + ffn * (w0 in w)
+    return fwd + bwd - x2, 0.0, size, 0.0, x2
 
 
 def bf16_backward_phase(batch: int, device, reps: int) -> dict:
@@ -2113,7 +2368,8 @@ def bf16_backward_phase(batch: int, device, reps: int) -> dict:
     a second call; CUDA-event times of the backward alone beside the plain
     VJP (which recomputes the forward, as the kernel does) and, for C,
     scaled_dot_product_attention's backward on the upcast inputs; the bound
-    of the recompute and the backward at the 3xTF32 rate."""
+    of the recompute and the backward, each product at the rate its
+    operands allow."""
     import torch
 
     results = {}
@@ -2131,8 +2387,12 @@ def bf16_backward_phase(batch: int, device, reps: int) -> dict:
         gen.manual_seed(SEED + 43)
         g = cot(out_k)  # the cotangent _grads drew
         torch.cuda.synchronize()
-        want = _plain_bf16_grads(plain, args, which, g)
-        ref64 = _plain_bf16_grads(plain, args, which, g, torch.float64)
+
+        def plain_grads(dtype=None):
+            return plain(args, which, g, dtype, out_k.detach())
+
+        want = plain_grads()
+        ref64 = plain_grads(torch.float64)
         rel, err, e_ks, e_ps = 0.0, 0.0, [], []
         worst = {torch.bfloat16: (0.0, None), torch.float32: (0.0, None)}
         for i, gk, gp, g64 in zip(which, got, want, ref64):
@@ -2160,15 +2420,12 @@ def bf16_backward_phase(batch: int, device, reps: int) -> dict:
                                  f"inputs differ")
         del again
         finite = all(bool(torch.isfinite(t).all()) for t in got)
-        ms, plain_ms = alternate_ms(
-            rerun_k, lambda: _plain_bf16_grads(plain, args, which, g), reps)
+        ms, plain_ms = alternate_ms(rerun_k, plain_grads, reps)
         lib_ms = None
-        if name == "flow_attention_bwd_bf16":
-            lib_ms = library_ms("flow_attention_bwd",
+        if name in ("flow_attention_bwd_bf16", "memory_attention_bwd_bf16"):
+            lib_ms = library_ms(name.removesuffix("_bf16"),
                                 [a.float() for a in args], reps, which)
-        dev = device_times(name, rerun_k,
-                           lambda: _plain_bf16_grads(plain, args, which, g),
-                           reps)
+        dev = device_times(name, rerun_k, plain_grads, reps)
         ok = finite and rel <= BF16_KERNEL_REL and ratio <= BF16_FP64_RATIO
         per = " ".join(f"{str(dt)[6:]} {r:.3f} (arg {i})"
                        for dt, (r, i) in worst.items() if i is not None)
@@ -2200,11 +2457,15 @@ def bf16_backward_phase(batch: int, device, reps: int) -> dict:
 def expected_launches_bf16(model, train: bool = False) -> dict:
     """Launches per bf16 forward (``train``: per bf16 train step): the bf16
     instantiations of A-D, forward and backward, where the fp32 model
-    launches A-D, E where it launches E, and nothing else."""
+    launches A-D, G's and H's bf16 forwards where it launches G and H
+    (inference only: the bf16 train step at 512^2 is refused), E where it
+    launches E, and nothing else."""
     per32 = expected_launches(model, train)
     n = {k: 0 for k in per32}
-    for name in FWD_KERNELS:
+    for name in FWD_KERNELS + ("window_attention_layer",
+                               "window_attention_ffn_layer"):
         n[name + "_bf16"] = per32[name]
+    for name in FWD_KERNELS:
         n[name + "_bwd_bf16"] = per32[name + "_bwd"]
     n["splat_density"] = per32["splat_density"]
     return n
@@ -2925,20 +3186,11 @@ def bf16_train_compare_phase(model, size: int, device) -> dict:
             v["ratio"] = v["err"] / max(v["card"], v["cpu"], 1e-30)
             v["card_ratio"] = v["err"] / max(v["card"], 1e-30)
             v["cpu_ratio"] = v["err"] / max(v["cpu"], 1e-30)
-        pooled = {}
-        for key, (a, b) in dict(err=(g16, gp16), card=(g16, g32),
-                                cpu=(gp16, gp32)).items():
-            diff = torch.cat([(a[n] - b[n]).abs().flatten() for n in g16])
-            pooled[key + "_max"] = diff.max().item()
-            pooled[key + "_mean"] = diff.mean().item()
         held = [n for n, v in leaves.items()
                 if not (max(v["card"], v["cpu"]) > 0 and v["ratio"] <= 2)]
         bad += [f"seed {seed} {n}" for n in held]
-        for gap in ("card", "cpu"):
-            if not (pooled[gap + "_max"] > 0
-                    and pooled["err_max"] <= 2 * pooled[gap + "_max"]
-                    and pooled["err_mean"] <= 2 * pooled[gap + "_mean"]):
-                bad.append(f"seed {seed} all leaves against the {gap} gap")
+        pooled, pbad = pooled_gaps(f"seed {seed}", g16, gp16, g32, gp32)
+        bad += pbad
 
         def top(key, k=3):
             return ", ".join(f"{n}={leaves[n][key]:.2f}" for n in sorted(
@@ -2973,12 +3225,37 @@ def bf16_train_compare_phase(model, size: int, device) -> dict:
     return dict(pairs=out, seconds=seconds, depths=BF16_COMPARE_DEPTHS)
 
 
+def pooled_gaps(label: str, card16: dict, cpu16: dict, card32: dict,
+                cpu32: dict) -> tuple[dict, list]:
+    """All leaves' grads taken together: the largest and the mean |card
+    bf16 - CPU bf16| against twice those of the card's and of the CPU's
+    own bf16-vs-fp32 gaps (each above zero)."""
+    import torch
+
+    pooled, bad = {}, []
+    for key, (a, b) in dict(err=(card16, cpu16), card=(card16, card32),
+                            cpu=(cpu16, cpu32)).items():
+        diff = torch.cat([(a[n].float().cpu() - b[n].float().cpu()).abs()
+                          .flatten() for n in card16])
+        pooled[key + "_max"] = diff.max().item()
+        pooled[key + "_mean"] = diff.mean().item()
+    for gap in ("card", "cpu"):
+        if not (pooled[gap + "_max"] > 0
+                and pooled["err_max"] <= 2 * pooled[gap + "_max"]
+                and pooled["err_mean"] <= 2 * pooled[gap + "_mean"]):
+            bad.append(f"{label} all leaves against the {gap} gap")
+    return pooled, bad
+
+
 def bf16_step_turns(label: str, step16, step32, timed: int, device,
                     want: dict) -> dict:
     """One warm-up fp32 step, then ``timed`` steps of each in turns (fp32,
     bf16, bf16, fp32; CUDA-event ms each, medians); the first bf16 turn and
     one warm-up bf16 step before it counted from zero launches, which must
-    equal ``want``, with that run's peak memory."""
+    equal ``want``, with that run's peak memory. ``speedup`` is the fp32
+    median over the bf16 one, ``speedup_halves`` the same from the first
+    two turns and from the last two: where the three do not lie on one
+    side of 1 the call does not tell which band is faster."""
     import torch
 
     from emip_tpu_torch import kernels as K
@@ -3001,9 +3278,13 @@ def bf16_step_turns(label: str, step16, step32, timed: int, device,
     log(f"{label} launches {launches} (expected {want})")
     if launches != want:
         raise AssertionError(f"{label} launch counts {launches} != {want}")
+    med = statistics.median
+    halves = (med(t32[:timed]) / med(t16[:timed]),
+              med(t32[timed:]) / med(t16[timed:]))
     return dict(launches=launches, expected=want,
-                median_ms=statistics.median(t16), step_ms=t16,
-                fp32_median_ms=statistics.median(t32), fp32_step_ms=t32,
+                median_ms=med(t16), step_ms=t16,
+                fp32_median_ms=med(t32), fp32_step_ms=t32,
+                speedup=med(t32) / med(t16), speedup_halves=halves,
                 peak_bytes=peak)
 
 
@@ -3670,7 +3951,7 @@ def long_entry_phase(size: int) -> dict:
                                     backbone_name="pvt_v2_b5", channel=32)),
                optimizer=dict(lr=1.0e-5, weight_decay=1.0e-7), clip=0.5,
                memory_size=5, seed=SEED, epoch=2, epoch_val=1, epoch_save=1,
-               save_path=os.path.join(work, "run"))
+               compute_dtype="float32", save_path=os.path.join(work, "run"))
     os.makedirs(work, exist_ok=True)
     cfg_path = os.path.join(work, "long.yaml")
     with open(cfg_path, "w") as f:
@@ -3701,7 +3982,413 @@ def long_entry_phase(size: int) -> dict:
         raise AssertionError(f"long entry points failed: {summary}, "
                              f"{frames} frames, {pngs} PNGs")
     return dict(summary=summary, train_seconds=t1 - t0,
-                predict_seconds=t2 - t1, frames=frames)
+                predict_seconds=t2 - t1, frames=frames, work=work,
+                config=cfg_path, root=root)
+
+
+# ------------------------------------------------- bf16 long model, 512^2
+
+# timed steps of each model in each turn: host-bound steps spread (352^2
+# at 1 clip: 32-57 ms over five), so eight a turn
+LONG_BF16_TIMED = 8
+
+
+def long_expected_bf16(model, frames_encoded: int, pairs: int, reads: int,
+                       backward_reads: int = 0) -> dict:
+    """Launches of the bf16 long model: the bf16 forwards of A-D (G and H
+    for B at 512^2) of its frozen short-term net, F's bf16 forward per read
+    and its bf16 backward per train step, and nothing else (no fp32 kernel,
+    no backward of the short-term net's kernels)."""
+    per = expected_launches_bf16(model.short_term)
+    n = {k: v // 2 * frames_encoded if k == "sr_attention_bf16"
+         else v * pairs for k, v in per.items()}
+    n.update(memory_attention_bf16=reads,
+             memory_attention_bwd_bf16=backward_reads)
+    return n
+
+
+def bf16_long_model(model, device):
+    """``EMIPLong(cfg, memory_size, dtype=bfloat16)`` on ``model``'s
+    weights, on ``device``, in eval mode."""
+    import torch
+
+    from emip_tpu_torch.models.emip_long import EMIPLong
+
+    model16 = EMIPLong(model.config, model.memory_size, dtype=torch.bfloat16)
+    model16.load_state_dict(model.state_dict())
+    return model16.to(device).eval()
+
+
+def _busy_line(res: dict, busy16: float, busy32: float) -> str:
+    ms16, ms32 = res["median_ms"], res["fp32_median_ms"]
+    t16, t32 = res["step_ms"], res["fp32_step_ms"]
+    lo, hi = res["speedup_halves"]
+    sides = {r > 1 for r in (lo, hi, res["speedup"])}
+    return (f"device busy {busy16:.3f} ms/step (idle {1 - busy16 / ms16:.3f})"
+            f"; fp32 in the same turns {ms32:.3f} ms/step, busy "
+            f"{busy32:.3f} (idle {1 - busy32 / ms32:.3f}); bf16 peak memory "
+            f"{res['peak_bytes'] / 2**30:.3f} GiB; fp32 / bf16 "
+            f"x{res['speedup']:.3f} (first turns x{lo:.3f}, last x{hi:.3f}"
+            f"{'' if len(sides) == 1 else ': unresolved'}; steps "
+            f"bf16 {min(t16):.3f}-{max(t16):.3f}, fp32 {min(t32):.3f}-"
+            f"{max(t32):.3f} ms)")
+
+
+def long_bf16_stream_phase(model, size: int, device, timed: int) -> dict:
+    """Streaming inference of the full EMIPLong in bf16 on the fp32 model's
+    weights, one clip and four side by side: each model's ring filled by
+    ``memory_size`` steps, then ``step_cached`` on the full ring with the
+    carried encoding in turns with the fp32 model (:func:`bf16_step_turns`:
+    launches counted over 1 + ``timed`` bf16 steps must be the bf16
+    forwards of A-D, or of A, C, D, G and H at 512^2, and F's bf16 forward
+    once a step, nothing else), ms/step -> frames/s, the device's busy time
+    and idle share of each, peak memory; fp32 masks of the right shape,
+    finite, and a fp32 ring."""
+    import torch
+
+    model16 = bf16_long_model(model, device)
+    rng = np.random.default_rng(SEED + 17)
+    out = {}
+    for clips in LONG_CLIPS:
+        video = seeded_clip(rng, clips, model.memory_size + 2, size, device)
+
+        def full(m):
+            with torch.inference_mode():
+                state = m.init_memory(clips)
+                enc = m.encode_frame(video[:, 0])
+                for t in range(1, model.memory_size + 1):
+                    _, enc, state = m.step_cached(enc, video[:, t], state)
+            return enc, state
+
+        (enc16, st16), (enc32, st32) = full(model16), full(model)
+        cur, masks = video[:, -1], []
+
+        def step16():
+            with torch.inference_mode():
+                masks[:] = [model16.step_cached(enc16, cur, st16)[0]]
+
+        def step32():
+            with torch.inference_mode():
+                model.step_cached(enc32, cur, st32)
+
+        label = f"bf16 long inference b5 {size}^2 clips={clips}"
+        want = {k: v * (1 + timed)
+                for k, v in long_expected_bf16(model16, 1, 1, 1).items()}
+        res = bf16_step_turns(label, step16, step32, timed, device, want)
+        busy16, busy32 = device_ms(step16, 2), device_ms(step32, 2)
+        mask = masks[0]
+        if (tuple(mask.shape) != (clips, 1, size, size)
+                or mask.dtype != torch.float32
+                or not bool(torch.isfinite(mask).all())
+                or st16.keys.dtype != torch.float32
+                or not bool(st16.valid.all())):
+            raise AssertionError(f"{label}: mask shape, dtype or "
+                                 f"finiteness, or the ring")
+        ms16 = res["median_ms"]
+        log(f"{label}: median {ms16:.3f} ms/step (ring full) -> "
+            f"{clips / (ms16 / 1e3):.3f} frames/s (fp32 "
+            f"{clips / (res['fp32_median_ms'] / 1e3):.3f}); "
+            + _busy_line(res, busy16, busy32))
+        out[f"clips{clips}"] = dict(
+            res, frames_per_s=clips / (ms16 / 1e3),
+            fp32_frames_per_s=clips / (res["fp32_median_ms"] / 1e3),
+            device_busy_ms=busy16, fp32_device_busy_ms=busy32)
+    del model16
+    return out
+
+
+def long_bf16_train_phase(model, size: int, device, timed: int) -> dict:
+    """The full EMIPLong in bf16 on the fp32 long train phase's weights
+    takes per-frame train steps at 4 clips, each model on a ring that holds
+    one frame and with the frame before encoded, in turns with the fp32
+    model (:func:`bf16_step_turns`; per step one frame encoded and one pair
+    in the bf16 forwards of A-D, F's bf16 forward and backward once,
+    nothing else), each with its own clamp + AdamW; ms/frame, the device's
+    busy time and idle share, peak memory. Every ``short_term`` tensor and
+    buffer of the bf16 model bit-identical afterwards, every trainable leaf
+    moved, finite losses, fp32 parameters."""
+    import torch
+
+    from emip_tpu_torch.train.long import long_train_step
+    from emip_tpu_torch.train.state import build_long_optimizer
+
+    clips = max(LONG_CLIPS)
+    model16 = bf16_long_model(model, device)
+    opt16, opt32 = build_long_optimizer(model16), build_long_optimizer(model)
+    short0 = {k: v.clone() for k, v in model16.short_term.state_dict().items()}
+    trainable0 = {n: p.detach().clone() for n, p in model16.named_parameters()
+                  if p.requires_grad}
+    rng = np.random.default_rng(SEED + 18)
+    video = seeded_clip(rng, clips, 3, size, device)
+    gt = torch.from_numpy((rng.uniform(size=(clips, 1, size, size)) > 0.5
+                           ).astype(np.float32)).to(device)
+
+    def primed(m):
+        with torch.no_grad():
+            m.eval()
+            _, _, state = m.step(video[:, 0], video[:, 1],
+                                 m.init_memory(clips))
+            return m.encode_frame(video[:, 1]), state
+
+    (enc16, st16), (enc32, st32) = primed(model16), primed(model)
+    losses = []
+
+    def step16():
+        metrics, _, _ = long_train_step(model16, opt16, enc16, video[:, 2],
+                                        gt, st16)
+        losses.append(float(metrics["loss"]))
+
+    def step32():
+        long_train_step(model, opt32, enc32, video[:, 2], gt, st32)
+
+    label = f"bf16 long train b5 {size}^2 clips={clips}"
+    want = {k: v * (1 + timed)
+            for k, v in long_expected_bf16(model16, 1, 1, 1, 1).items()}
+    res = bf16_step_turns(label, step16, step32, timed, device, want)
+    busy16, busy32 = device_ms(step16, 2), device_ms(step32, 2)
+    moved = bf16_steps_moved(label, model16, trainable0, losses)
+    short = model16.short_term.state_dict()
+    changed = [k for k, v in short0.items() if not torch.equal(short[k], v)]
+    if changed or len(trainable0) != moved:
+        raise AssertionError(f"{label}: short_term tensors changed "
+                             f"{changed[:8]}, {moved} of {len(trainable0)} "
+                             f"trainable leaves moved")
+    ms16 = res["median_ms"]
+    log(f"{label}: losses " + " ".join(f"{v:.6f}" for v in losses)
+        + f"; median {ms16:.3f} ms/step -> {ms16 / clips:.3f} ms/frame "
+        f"(fp32 {res['fp32_median_ms'] / clips:.3f}); "
+        + _busy_line(res, busy16, busy32)
+        + f"; {moved} trainable leaves all moved, {len(short0)} short_term "
+        f"tensors and buffers bit-identical")
+    del opt16, opt32, model16
+    return dict(res, ms_per_frame=ms16 / clips,
+                fp32_ms_per_frame=res["fp32_median_ms"] / clips,
+                device_busy_ms=busy16, fp32_device_busy_ms=busy32,
+                losses=losses, leaves=moved, short_term_tensors=len(short0))
+
+
+def _gap_check(label: str, got16: dict, cpu16: dict, got32: dict,
+               cpu32: dict) -> tuple[dict, list]:
+    """Per name: |card bf16 - CPU bf16| max against twice the larger of
+    the card's and the CPU's own bf16-vs-fp32 gaps on it (above zero): the
+    two bf16 runs round apart, so their difference can reach the sum of
+    their distances from fp32 (and the fp32 card-vs-CPU difference)."""
+    out, bad = {}, []
+    for n in got16:
+        err = (got16[n].float().cpu() - cpu16[n].float()).abs().max().item()
+        card = (got16[n].float() - got32[n].float()).abs().max().item()
+        cpu = (cpu16[n].float() - cpu32[n].float()).abs().max().item()
+        ratio = err / max(card, cpu, 1e-30)
+        ok = max(card, cpu) > 0 and ratio <= 2
+        out[n] = dict(err=err, card_gap=card, cpu_gap=cpu, ratio=ratio,
+                      ok=ok)
+        if not ok:
+            bad.append(f"{label} {n}")
+    return out, bad
+
+
+def long_bf16_compare_phase(size: int, device) -> dict:
+    """The card's bf16 long model against the CPU's plain bf16 versions at
+    b5's widths and PVT depths BF16_COMPARE_DEPTHS (drop path off), with
+    the fp32 model on both sides from the same seeded weights: a 3-frame
+    clip (frame 0's short mask, the two long masks, the ring's last two
+    slots of keys and values), then one train frame's loss and every
+    trainable leaf's grad (through F's bf16 backward) on each of
+    BF16_COMPARE_SEEDS. Each output, the loss and each leaf within twice
+    the larger of the card's and the CPU's bf16-vs-fp32 gaps on it (as the
+    bf16 short train step's gate); all leaves together (max and mean)
+    within twice each gap."""
+    import torch
+
+    from emip_tpu_torch.models.emip_long import EMIPLong
+    from emip_tpu_torch.models.emip_short import EMIPShortConfig
+    from emip_tpu_torch.models.init import seeded_init_
+    from emip_tpu_torch.models.pvt_v2 import PVT_V2_VARIANTS
+
+    t0 = time.perf_counter()
+    pvt = dataclasses.replace(PVT_V2_VARIANTS["pvt_v2_b5"],
+                              depths=BF16_COMPARE_DEPTHS, drop_path_rate=0.0)
+    cfg = EMIPShortConfig(backbone_name=pvt, inp_size=size)
+    fp32 = seeded_init_(EMIPLong(cfg, 5), SEED)
+    card16 = EMIPLong(cfg, 5, dtype=torch.bfloat16)
+    card16.load_state_dict(fp32.state_dict())
+    models = dict(card32=(fp32, device), card16=(card16, device),
+                  cpu16=(copy.deepcopy(card16), "cpu"),
+                  cpu32=(copy.deepcopy(fp32), "cpu"))
+    for m, dev in models.values():
+        m.to(dev).eval()
+    video = seeded_clip(np.random.default_rng(SEED + 19), 1, 3, size, device)
+    clip = {n: long_clip(m, video.to(dev)) for n, (m, dev) in models.items()}
+    out = dict(clip=None, seeds=[])
+    out["clip"], bad = _gap_check("clip", clip["card16"], clip["cpu16"],
+                                  clip["card32"], clip["cpu32"])
+    for n, v in out["clip"].items():
+        log(f"bf16 long {n}: card bf16 vs CPU plain bf16 max_abs_err="
+            f"{v['err']:.3e}; bf16-vs-fp32 gap card {v['card_gap']:.3e} CPU "
+            f"{v['cpu_gap']:.3e}: {v['ratio']:.3f} x the larger (limit 2) "
+            f"{'ok' if v['ok'] else 'MISMATCH'}")
+    for seed in BF16_COMPARE_SEEDS:
+        rng = np.random.default_rng(seed)
+        vid = seeded_clip(rng, 1, 3, size, device)
+        gt = torch.from_numpy((rng.uniform(size=(1, 1, size, size)) > 0.5
+                               ).astype(np.float32)).to(device)
+        batch = dict(f0=vid[:, 0], f1=vid[:, 1], f2=vid[:, 2], gt=gt)
+        runs = {n: _long_frame(m, {k: v.to(dev) for k, v in batch.items()})
+                for n, (m, dev) in models.items()}
+        loss = {n: torch.tensor([r[0]]) for n, r in runs.items()}
+        lcheck, lbad = _gap_check(f"seed {seed} loss", dict(loss=loss[
+            "card16"]), dict(loss=loss["cpu16"]), dict(loss=loss["card32"]),
+            dict(loss=loss["cpu32"]))
+        leaves, gbad = _gap_check(f"seed {seed}", runs["card16"][1],
+                                  runs["cpu16"][1], runs["card32"][1],
+                                  runs["cpu32"][1])
+        pooled, pbad = pooled_gaps(f"seed {seed}", *(
+            runs[n][1] for n in ("card16", "cpu16", "card32", "cpu32")))
+        bad += lbad + gbad + pbad
+        worst = sorted(leaves.items(), key=lambda kv: -kv[1]["ratio"])[:5]
+        log(f"bf16 long train seed {seed}: loss card bf16 "
+            f"{runs['card16'][0]:.7f} CPU bf16 {runs['cpu16'][0]:.7f} card "
+            f"fp32 {runs['card32'][0]:.7f} CPU fp32 {runs['cpu32'][0]:.7f} "
+            f"({lcheck['loss']['ratio']:.3f} x the larger gap); head grads "
+            f"over {len(leaves)} leaves: all together |card bf16 - CPU bf16|"
+            f" max {pooled['err_max']:.3e} mean {pooled['err_mean']:.3e}; "
+            f"card gap max {pooled['card_max']:.3e} mean "
+            f"{pooled['card_mean']:.3e}; CPU gap max {pooled['cpu_max']:.3e}"
+            f" mean {pooled['cpu_mean']:.3e} (limit 2 x each); per leaf "
+            f"against the larger gap (limit 2): "
+            + ", ".join(f"{n}={v['ratio']:.2f}" for n, v in worst))
+        out["seeds"].append(dict(seed=seed, loss=lcheck["loss"],
+                                 grads=pooled, leaves=len(leaves),
+                                 worst=worst))
+    seconds = time.perf_counter() - t0
+    log(f"bf16 long card against CPU: a clip and {len(BF16_COMPARE_SEEDS)} "
+        f"train frames in {seconds:.1f} s {'MISMATCH' if bad else 'ok'}")
+    del models, fp32, card16
+    if bad:
+        raise AssertionError(f"bf16 long card disagrees with the CPU: "
+                             f"{bad[:8]}")
+    out.update(seconds=seconds, depths=BF16_COMPARE_DEPTHS)
+    return out
+
+
+def bf16_short512_phase(model, batch: int, device, timed: int) -> dict:
+    """Short inference at 512^2 in bf16: ``EMIPShort(cfg, dtype=bfloat16)``
+    on the fp32 512^2 model's weights through ``predict_arrays`` on one
+    seeded batch, in turns with the fp32 model (:func:`bf16_step_turns`:
+    the bf16 forwards of A, C, D, G and H, none of B and nothing in fp32),
+    frames/s, the device's busy time, peak memory; fp32 mask and flow of
+    the right shape, finite."""
+    import torch
+
+    from emip_tpu_torch.infer import predict_arrays
+    from emip_tpu_torch.models.emip_short import EMIPShort
+
+    size = model.config.inp_size
+    model16 = EMIPShort(model.config, dtype=torch.bfloat16)
+    model16.load_state_dict(model.state_dict())
+    model16 = model16.to(device).eval()
+    model.eval()
+    rng = np.random.default_rng(SEED + 20)
+    a, b = (torch.from_numpy(seeded_frames(rng, batch, size)).to(device)
+            for _ in range(2))
+    outs = []
+
+    def step16():
+        outs[:] = predict_arrays(model16, a, b)
+
+    def step32():
+        predict_arrays(model, a, b)
+
+    label = f"bf16 slice b5 {size}^2 bs={batch}"
+    want = {k: v * (1 + timed)
+            for k, v in expected_launches_bf16(model16).items()}
+    if want["window_attention_block_bf16"] or not (
+            want["window_attention_layer_bf16"]
+            and want["window_attention_ffn_layer_bf16"]):
+        raise AssertionError(f"{label}: the structure asks for no G and H")
+    res = bf16_step_turns(label, step16, step32, timed, device, want)
+    busy16, busy32 = device_ms(step16, 2), device_ms(step32, 2)
+    mask, flow = outs
+    if (tuple(mask.shape) != (batch, 1, size, size)
+            or tuple(flow.shape) != (batch, 2, size, size)
+            or mask.dtype != torch.float32 or flow.dtype != torch.float32
+            or not (torch.isfinite(mask).all() and torch.isfinite(flow).all())):
+        raise AssertionError(f"{label}: shape, dtype or finiteness")
+    ms16 = res["median_ms"]
+    log(f"{label}: median {ms16:.3f} ms/batch -> {batch / (ms16 / 1e3):.3f} "
+        f"frames/s (fp32 {batch / (res['fp32_median_ms'] / 1e3):.3f}); "
+        + _busy_line(res, busy16, busy32))
+    del model16
+    return dict(res, frames_per_s=batch / (ms16 / 1e3),
+                fp32_frames_per_s=batch / (res["fp32_median_ms"] / 1e3),
+                device_busy_ms=busy16, fp32_device_busy_ms=busy32)
+
+
+def long_bf16_entry_phase(long_entry: dict, size: int) -> dict:
+    """``python -m emip_tpu_torch.train_long`` and ``... test_long`` (in
+    process) with the long entry phase's YAML saying ``compute_dtype:
+    bfloat16``, on its root: TF32 and the bf16 reduced-precision reduction
+    on before each call and checked off after it; 4 per-frame steps,
+    validation, a checkpoint of fp32 tensors (model and AdamW state), one
+    PNG per frame; the bf16 forwards of A-D and F's bf16 forward and
+    backward launched, none of their fp32 ones."""
+    import torch
+    import yaml
+
+    from emip_tpu_torch import kernels as K
+    from emip_tpu_torch.test_long import main as test_long_main
+    from emip_tpu_torch.train.loops import CKPT_NAME
+    from emip_tpu_torch.train_long import main as train_long_main
+
+    work, root = long_entry["work"], long_entry["root"]
+    with open(long_entry["config"]) as f:
+        raw = yaml.safe_load(f)
+    raw.update(compute_dtype="bfloat16", save_path=os.path.join(work,
+                                                                "run_bf16"))
+    cfg = os.path.join(work, "long_bf16.yaml")
+    with open(cfg, "w") as f:
+        yaml.safe_dump(raw, f)
+    K.reset_launches()
+    tf32_on()
+    t0 = time.perf_counter()
+    summary = train_long_main(["--config", cfg, "--max_frames_per_video",
+                               "3"])
+    t1 = time.perf_counter()
+    tf32_checked_off("entry python -m emip_tpu_torch.train_long (bf16)")
+    ckpt_dir = os.path.join(raw["save_path"], "ckpt_long")
+    ckpt = torch.load(os.path.join(ckpt_dir, CKPT_NAME), map_location="cpu")
+    fp32 = all(v.dtype == torch.float32 for v in ckpt["model"].values()
+               if v.is_floating_point()) and all(
+        v.dtype == torch.float32 for st in ckpt["optimizer"]["state"].values()
+        for v in st.values() if torch.is_tensor(v) and v.is_floating_point())
+    pred = os.path.join(work, "pred_bf16")
+    tf32_on()
+    frames = test_long_main(["--config", cfg, "--ckpt", ckpt_dir,
+                             "--save_path", pred, "--data",
+                             f"MoCA_test={root}"])
+    t2 = time.perf_counter()
+    tf32_checked_off("entry python -m emip_tpu_torch.test_long (bf16)")
+    launches = {k: v for k, v in K.LAUNCHES.items() if v}
+    pngs = _count_files(pred, ".png")
+    fp32_kernels = [k for k in FWD_KERNELS + ("memory_attention",
+                                              "memory_attention_bwd")
+                    if K.LAUNCHES[k]]
+    ok = (summary["steps"] == 4 and 0.0 <= summary["best_sm"] <= 1.0 and fp32
+          and frames == pngs == 12 and not fp32_kernels
+          and all(K.LAUNCHES[k + "_bf16"] for k in FWD_KERNELS)
+          and K.LAUNCHES["memory_attention_bf16"]
+          and K.LAUNCHES["memory_attention_bwd_bf16"])
+    log(f"entry python -m emip_tpu_torch.train_long compute_dtype=bfloat16 "
+        f"b5 {size}^2: {summary['steps']} steps, val Sm "
+        f"{summary['best_sm']:.5f}, fp32 checkpoint {fp32}, {t1 - t0:.1f} s;"
+        f" python -m emip_tpu_torch.test_long: {frames} frames, {pngs} PNGs, "
+        f"{t2 - t1:.1f} s; launches {launches} {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError(f"bf16 long entry points: {summary}, {frames} "
+                             f"frames, {pngs} PNGs, fp32 checkpoint {fp32}, "
+                             f"fp32 launches {fp32_kernels}")
+    return dict(summary=summary, train_seconds=t1 - t0,
+                predict_seconds=t2 - t1, frames=frames, launches=launches)
 
 
 # ------------------------------------------------- tiny configuration
@@ -3917,9 +4604,18 @@ def main(argv=None) -> int:
     long_infer = long_infer_phase(long_model, SIZE, device, LONG_TIMED)
     long_compare = long_train_compare_phase(long_model, SIZE, device)
     long_train = long_train_phase(long_model, SIZE, device, LONG_TIMED)
+    # the bf16 long model on the same weights, in turns with them
+    long16 = long_bf16_stream_phase(long_model, SIZE, device,
+                                    LONG_BF16_TIMED)
+    long16_train = long_bf16_train_phase(long_model, SIZE, device,
+                                         LONG_BF16_TIMED)
     del long_model
     torch.cuda.empty_cache()
+    long16_compare = long_bf16_compare_phase(SIZE, device)
+    torch.cuda.empty_cache()
     long_entry = long_entry_phase(SIZE)
+    long16_entry = long_bf16_entry_phase(long_entry, SIZE)
+    torch.cuda.empty_cache()
 
     # 512^2: windows of 1024 tokens, so kernels G and H in place of B
     cfg512 = dataclasses.replace(cfg, inp_size=SIZE_512)
@@ -3928,17 +4624,28 @@ def main(argv=None) -> int:
     model512 = model512.to(device)
     train512 = train_phase(model512, TRAIN_BATCH_512, SIZE_512, device,
                            TIMED_STEPS_512, TRAIN_KERNELS_512)
+    short512_16 = bf16_short512_phase(model512, BATCH_512, device,
+                                      LONG_BF16_TIMED)
     del model512
     torch.cuda.empty_cache()
     long512 = EMIPLong(cfg512, memory_size=5)
     seeded_init_(long512, SEED)
     long512 = long512.to(device).eval()
     long_infer512 = long_infer_phase(long512, SIZE_512, device, LONG_TIMED)
+    long16_512 = long_bf16_stream_phase(long512, SIZE_512, device,
+                                        LONG_BF16_TIMED)
     for clips in LONG_CLIPS:
-        got = long_infer512[f"clips{clips}"]["launches"]
-        if (got["window_attention_block"] or not got["window_attention_layer"]
-                or not got["window_attention_ffn_layer"]):
-            raise AssertionError(f"512^2 streaming did not run G and H: {got}")
+        for got, g, h, b in (
+                (long_infer512[f"clips{clips}"]["launches"],
+                 "window_attention_layer", "window_attention_ffn_layer",
+                 "window_attention_block"),
+                (long16_512[f"clips{clips}"]["launches"],
+                 "window_attention_layer_bf16",
+                 "window_attention_ffn_layer_bf16",
+                 "window_attention_block_bf16")):
+            if got[b] or not got[g] or not got[h]:
+                raise AssertionError(f"512^2 streaming did not run G and H: "
+                                     f"{got}")
     del long512
     torch.cuda.empty_cache()
 
@@ -3952,12 +4659,21 @@ def main(argv=None) -> int:
             fused_ffn["train"]["variant"]["launches"])
     launches = {name: next((r[name] for r in runs if r[name]), 0)
                 for name in KERNEL_INFO}
-    # the bf16 forwards: the bf16 slice's run; the bf16 backwards: the bf16
-    # train steps' run
-    launches.update({name: bf16_slice["launches"][name]
-                     for name in BF16_KERNEL_INFO})
+    # the bf16 forwards of A-D: the bf16 slice's run, of F: the bf16 long
+    # streaming run at 4 clips, of G and H: the bf16 long streaming run at
+    # 512^2 and 4 clips; the bf16 backwards of A-D: the bf16 train steps'
+    # run, of F: the bf16 long train steps'
+    launches.update({name + "_bf16": bf16_slice["launches"][name + "_bf16"]
+                     for name in FWD_KERNELS})
+    launches["memory_attention_bf16"] = long16["clips4"]["launches"][
+        "memory_attention_bf16"]
+    for name in ("window_attention_layer_bf16",
+                 "window_attention_ffn_layer_bf16"):
+        launches[name] = long16_512["clips4"]["launches"][name]
     launches.update({name: bf16_train["launches"][name]
                      for name in BF16_BWD_INFO})
+    launches["memory_attention_bwd_bf16"] = long16_train["launches"][
+        "memory_attention_bwd_bf16"]
     kernels.update(bf16_kernels)
     kernels.update(bf16_bwd)
     info = dict(KERNEL_INFO, **BF16_KERNEL_INFO, **BF16_BWD_INFO)
@@ -3996,7 +4712,12 @@ def main(argv=None) -> int:
                        bf16_gemm=bf16_gemm, bf16_slice=bf16_slice,
                        bf16_entry=bf16_entry, bf16_compare=bf16_compare,
                        bf16_train=bf16_train, bf16_static=bf16_static,
-                       bf16_train_entry=bf16_train_entry),
+                       bf16_train_entry=bf16_train_entry,
+                       bf16_long_infer=long16, bf16_long_train=long16_train,
+                       bf16_long_compare=long16_compare,
+                       bf16_long_entry=long16_entry,
+                       bf16_short_512=short512_16,
+                       bf16_long_infer_512=long16_512),
                   f, indent=1, default=str)
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {

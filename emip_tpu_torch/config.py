@@ -5,14 +5,12 @@ imports the flax models and so cannot be used here) into the port's own
 dataclasses, ``memory_size``, ``val_dataset_cad`` and the ``load`` block
 of checkpoints included. ``compute_dtype`` ("bfloat16", the JAX package's
 default when the key is missing, or "float32"; anything else raises) is
-honoured by the short inference entry points, ``test`` and ``test_of``,
-which build their model in it. The trainers (``train``, ``train_long``,
-``train_static``) and ``test_long`` run fp32 whatever it says. Keys that
-only steer the JAX package (``optimizer.name``, ``parallel``,
-``long_frames_per_dispatch``) change nothing here: the port trains on one
-card with AdamW, one frame per step. Each key that asks for something the
-entry point does not do, ``compute_dtype`` other than float32 for the
-fp32 entry points included, is named in one warning line.
+honoured by every entry point (``test``, ``test_of``, ``test_long``,
+``train``, ``train_long``, ``train_static``), each of which builds its
+model in it. Keys that only steer the JAX package (``optimizer.name``,
+``parallel``, ``long_frames_per_dispatch``) change nothing here: the port
+trains on one card with AdamW, one frame per step. Each of those that asks
+for something else is named in one warning line.
 """
 
 from __future__ import annotations
@@ -70,8 +68,7 @@ class Config:
     save_path: str = "./snapshots/emip_tpu_torch/"
     memory_size: int = 5  # slots of the long-term model's rolling memory
     val_dataset_cad: DatasetConfig | None = None
-    # the short inference entry points' model dtype ("bfloat16" or
-    # "float32"); the trainers and test_long run fp32
+    # every entry point's model dtype ("bfloat16" or "float32")
     compute_dtype: str = "bfloat16"
     raw: dict | None = None
 
@@ -116,35 +113,26 @@ def _model(d: dict) -> EMIPShortConfig:
     )
 
 
-def _warn_ignored(raw: dict, opt: dict, honours_dtype: bool) -> None:
+def _warn_ignored(raw: dict, opt: dict) -> None:
     """One warning line per key of the JAX package's that asks for other
-    than what the entry point does: ``compute_dtype`` other than float32
-    where it runs fp32 (``honours_dtype`` false: ``train_long`` and
-    ``test_long``; a missing key is the JAX package's default, bfloat16),
-    and AdamW, one card, a frame per step everywhere."""
+    than what the port does: AdamW, one card, a frame per step.
+    (``compute_dtype`` is honoured by every entry point.)"""
     par = raw.get("parallel") or {}
-    dtype = raw.get("compute_dtype", "bfloat16")
     name = str(opt.get("name", "adamw"))
     frames = int(raw.get("long_frames_per_dispatch", 1))
     for key, value, other in (
-            ("compute_dtype", dtype,
-             not honours_dtype and dtype != "float32"),
             ("optimizer.name", name, name.lower() != "adamw"),
             ("parallel", par, int(par.get("model_parallel", 1)) != 1
              or bool(par.get("fsdp")) or bool(par.get("sequence_parallel"))),
             ("long_frames_per_dispatch", frames, frames != 1)):
         if other:
-            log.warning("config key %s=%r is ignored: train_long and "
-                        "test_long run fp32 (train, train_static, test and "
-                        "test_of honour compute_dtype), and the port runs "
-                        "AdamW, one card, one frame per dispatch", key, value)
+            log.warning("config key %s=%r is ignored: the port runs AdamW, "
+                        "one card, one frame per dispatch", key, value)
 
 
-def load_config(path: str, honours_dtype: bool = False) -> Config:
-    """The YAML at ``path``. ``honours_dtype``: the caller builds its model
-    in ``compute_dtype`` (the short model's and the static model's entry
-    points); otherwise a ``compute_dtype`` other than float32 is warned of
-    as ignored."""
+def load_config(path: str) -> Config:
+    """The YAML at ``path``; ``compute_dtype`` (bfloat16 when missing, as
+    in the JAX package) must name float32 or bfloat16."""
     import yaml
 
     with open(path) as f:
@@ -152,7 +140,7 @@ def load_config(path: str, honours_dtype: bool = False) -> Config:
     opt = raw.get("optimizer", {}) or {}
     load = raw.get("load", {}) or {}
     dtype_named(str(raw.get("compute_dtype", "bfloat16")))  # raises if bad
-    _warn_ignored(raw, opt, honours_dtype)
+    _warn_ignored(raw, opt)
     cfg = Config(
         train_dataset=_dataset(raw.get("train_dataset")) or DatasetConfig(),
         val_dataset=_dataset(raw.get("val_dataset")) or DatasetConfig(),

@@ -20,7 +20,9 @@
 //                    operand of P v.
 //   layernorm_self_bf16, layernorm_out_bf16
 //                    the two LayerNorms of kernel B's bf16 block that round
-//                    where the JAX kernel rounds (see window_attention.cu).
+//                    where the JAX kernel rounds (see window_attention.cu);
+//                    the first also ends kernel G's bf16 forward, with or
+//                    without the residual, into a bf16 output.
 //   bf16_to_f32      an elementwise upcast (B's cross layer reads t in
 //                    fp32, as the JAX kernel upcasts it; the bf16
 //                    backwards of A-D upcast their inputs to recompute).
@@ -97,15 +99,23 @@ inline bool aligned16_ptr(const void* p) {
 
 // ------------------------------------------------------------ LayerNorms
 
-// out[r, c] = bf16(res[r, c] + bf16(LN(x[r]) gamma + beta)), stored as
-// fp32: B's self layer, x1 = x + msg.astype(bf16) in bf16, handed to the
-// fp32 cross layer. One warp per row.
+__device__ __forceinline__ void store_as(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_as(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
+// out[r, c] = bf16(res[r, c] + bf16(LN(x[r]) gamma + beta)), or
+// bf16(LN(x[r]) gamma + beta) where res is null, stored as OUT (fp32 or
+// bf16: the value is a bf16 value either way): B's self layer, x1 = x +
+// msg.astype(bf16) in bf16, handed to the fp32 cross layer; G's output,
+// with or without the residual. One warp per row.
+template <typename OUT>
 __global__ void __launch_bounds__(32 * kLnRowsPerBlock)
 layernorm_self_bf16_kernel(const float* __restrict__ x,
                            const __nv_bfloat16* __restrict__ res,
                            const float* __restrict__ gamma,
                            const float* __restrict__ beta,
-                           float* __restrict__ out, int ldo, int rows, int C,
+                           OUT* __restrict__ out, int ldo, int rows, int C,
                            float eps) {
   const int lane = threadIdx.x % 32;
   const int row = blockIdx.x * kLnRowsPerBlock + threadIdx.x / 32;
@@ -120,11 +130,11 @@ layernorm_self_bf16_kernel(const float* __restrict__ x,
     v += d * d;
   }
   const float inv = rsqrtf(warp_sum(v) / C + eps);
-  const bf16* rr = res + (long long)row * C;
-  float* orow = out + (long long)row * ldo;
+  const bf16* rr = res ? res + (long long)row * C : nullptr;
+  OUT* orow = out + (long long)row * ldo;
   for (int c = lane; c < C; c += 32) {
     const float msg = round_bf16((xr[c] - mu) * inv * gamma[c] + beta[c]);
-    orow[c] = round_bf16(__bfloat162float(rr[c]) + msg);
+    store_as(orow + c, rr ? round_bf16(__bfloat162float(rr[c]) + msg) : msg);
   }
 }
 
@@ -158,13 +168,15 @@ layernorm_out_bf16_kernel(const float* __restrict__ x,
                                   ((xr[c] - mu) * inv * gamma[c] + beta[c]));
 }
 
+template <typename OUT>
 inline cudaError_t layernorm_self_bf16(const float* x, const bf16* res,
                                        const float* gamma, const float* beta,
-                                       float* out, int ldo, int rows, int C,
+                                       OUT* out, int ldo, int rows, int C,
                                        float eps, cudaStream_t stream) {
   const int blocks = ceil_div(rows, kLnRowsPerBlock);
-  layernorm_self_bf16_kernel<<<blocks, 32 * kLnRowsPerBlock, 0, stream>>>(
-      x, res, gamma, beta, out, ldo, rows, C, eps);
+  layernorm_self_bf16_kernel<OUT>
+      <<<blocks, 32 * kLnRowsPerBlock, 0, stream>>>(x, res, gamma, beta, out,
+                                                    ldo, rows, C, eps);
   return cudaGetLastError();
 }
 

@@ -53,7 +53,27 @@
 // fp32 has no room for log l), so the scores and dO v^T are computed twice.
 // dq alone runs the first pass only. No atomics: every run gives the same
 // bits.
+//
+// The bf16 band (the long model in bf16): q bf16, the ring's k and v and
+// the bias fp32, out fp32, as the JAX kernel takes them in a bf16 model
+// (its ring stays fp32). The JAX forward accumulates q k^T in fp32,
+// rounds P = exp(S - m_rowmax) to bf16 for P v against the fp32 v (fp32
+// sums) and divides by the fp32 sum of the unrounded P. The forward here
+// is the kernel above instantiated for a bf16 q (QBF16 of
+// attention_fwd_tc): q widened exactly into its fp32 tile, and, both
+// being exact in TF32, q k^T and P v take two TF32 products each (those
+// that k's and v's splits need) instead of three. Its softmax is online,
+// so it rounds P = exp(S - m_running) rather than exp(S - m_rowmax) and
+// rescales the fp32 accumulators as the running max grows: the same
+// function within the bf16 band, the choice attention_bf16.cu makes for
+// kernels A and B. The row statistics it keeps for the backward are those
+// of the unrounded scores. The bf16 backward is the JAX kernel's: q
+// upcast, P recomputed in fp32 from the kept statistics, delta = rowsum(dO
+// o out) from the bf16 forward's output, then dq rounded to bf16 once; dk
+// and dv stay fp32. A first, simple instantiation: q is widened into fp32
+// scratch and the fp32 backward above runs on it.
 
+#include "bf16.cuh"
 #include "mma_tf32.cuh"
 
 // the tilings: warps, fragments of 16 resident rows per warp, streamed rows
@@ -124,5 +144,67 @@ extern "C" int emip_memory_attention_bwd(
   else
     return (int)cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The bf16 forward: q [B, M, C] bf16, k, v [B, N, C], bias [B, N] and out
+// [B, M, C] fp32; stats as the fp32 forward's (of the unrounded scores).
+extern "C" int emip_memory_attention_bf16(const void* q, const float* k,
+                                          const float* v, const float* bias,
+                                          float* out, float* stats, float* ws,
+                                          long long ws_floats, int B, int M,
+                                          int N, int C, void* stream) {
+  using namespace emip;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long qsb = (long long)M * C, ksb = (long long)N * C;
+  // bf16 bits behind a float pointer (QBF16 of attention_fwd_tc)
+  const AttnOperand qo{static_cast<const float*>(q), qsb, C};
+  const AttnOperand ko{k, ksb, C}, vo{v, ksb, C};
+  const AttnGrad oo{out, qsb, C};
+  float* row_sum = stats ? stats + (long long)B * M : nullptr;
+  const Workspace w{ws, ws_floats};
+  const float scale = 1.0f / sqrtf((float)C);
+  cudaError_t err;
+  if (C == 128)
+    err = attention_fwd_tc<128, 128, kMemFwdWarps, kMemFwdMt, kMemFwdStr,
+                           false, false, true>(
+        qo, ko, vo, bias, nullptr, 1, oo, stats, row_sum, B, 1, M, N, scale,
+        w, s);
+  else if (C == 64)
+    err = attention_fwd_tc<64, 64, kMemFwdWarps, kMemFwdMt, kMemFwdStr, false,
+                           false, true>(
+        qo, ko, vo, bias, nullptr, 1, oo, stats, row_sum, B, 1, M, N, scale,
+        w, s);
+  else
+    return (int)cudaErrorInvalidValue;
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The bf16 backward: q and dq bf16, every other tensor fp32; out and stats
+// the bf16 forward's. dq, dk, dv may each be null. ws: B M C floats for
+// the upcast q, B M C more for the fp32 dq when dq is wanted, then what
+// the fp32 backward takes.
+extern "C" int emip_memory_attention_bwd_bf16(
+    const void* q, const float* k, const float* v, const float* bias,
+    const float* out, const float* stats, const float* g, void* dq,
+    float* dk, float* dv, float* ws, long long ws_floats, int B, int M,
+    int N, int C, void* stream) {
+  using namespace emip;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long n = (long long)B * M * C;
+  Workspace all{ws, ws_floats};
+  float* q32 = all.take(n);
+  float* dq32 = dq ? all.take(n) : nullptr;
+  if (!q32 || (dq && !dq32)) return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  if ((err = bf16_to_f32(static_cast<const bf16*>(q), q32, n, s)))
+    return (int)err;
+  if (int rc = emip_memory_attention_bwd(q32, k, v, bias, out, stats, g, dq32,
+                                         dk, dv, all.p, all.n, B, M, N, C,
+                                         stream))
+    return rc;
+  if (dq && (err = f32_to_bf16(dq32, static_cast<bf16*>(dq), n, s)))
+    return (int)err;
   return (int)cudaGetLastError();
 }

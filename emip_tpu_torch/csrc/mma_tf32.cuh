@@ -154,17 +154,20 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
 // with all NT of B) into c[m][c0 .. c0 + NT), the two small terms first.
 // Term by term over all accumulators: an mma that follows another on the
 // same accumulator waits for it, so neighbours in the instruction stream
-// must not share one.
-template <int MT, int NT, int NC>
+// must not share one. A_EXACT: every A value is exact in TF32 (a bf16
+// value is), so a_lo is zero and its product is left out: two products.
+template <int MT, int NT, int NC, bool A_EXACT = false>
 __device__ __forceinline__ void mma_3xtf32(float (&c)[MT][NC][4], int c0,
                                            const uint32_t (&a_hi)[MT][4],
                                            const uint32_t (&a_lo)[MT][4],
                                            const uint32_t (&b_hi)[NT][2],
                                            const uint32_t (&b_lo)[NT][2]) {
+  if constexpr (!A_EXACT) {
 #pragma unroll
-  for (int m = 0; m < MT; ++m)
+    for (int m = 0; m < MT; ++m)
 #pragma unroll
-    for (int j = 0; j < NT; ++j) mma_tf32(c[m][c0 + j], a_lo[m], b_hi[j]);
+      for (int j = 0; j < NT; ++j) mma_tf32(c[m][c0 + j], a_lo[m], b_hi[j]);
+  }
 #pragma unroll
   for (int m = 0; m < MT; ++m)
 #pragma unroll
@@ -179,8 +182,9 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[MT][NC][4], int c0,
 // B_p[8j .. 8j + 7, K]^T for m < MT, j < NT. A_p points at the warp's first
 // row, B_p at the tile's first row; all have the leading dim LD. A fragment
 // of B is loaded and split once for the MT fragments of A. The P products
-// share the k loop so that their accumulators interleave.
-template <int P, int K, int MT, int NT, int LD, int PC>
+// share the k loop so that their accumulators interleave. A_EXACT: A holds
+// values exact in TF32 (see mma_3xtf32).
+template <int P, int K, int MT, int NT, int LD, int PC, bool A_EXACT = false>
 __device__ __forceinline__ void warp_gemm_nt(const float* const (&A)[2],
                                              const float* const (&B)[2],
                                              int g, int t,
@@ -208,15 +212,16 @@ __device__ __forceinline__ void warp_gemm_nt(const float* const (&A)[2],
     }
 #pragma unroll
     for (int p = 0; p < P; ++p)
-      mma_3xtf32<MT, NT>(c[p], 0, ah[p], al[p], bh[p], bl[p]);
+      mma_3xtf32<MT, NT, NT, A_EXACT>(c[p], 0, ah[p], al[p], bh[p], bl[p]);
   }
 }
 
 // acc[m][n] += P_m[16, 8 NT] . B[8 NT, 8n .. 8n + 7] for m < MT, n < N / 8,
 // P_m being the accumulator fragments p[m][j] of a warp_gemm_nt (see the
 // head of the file for the k slots). B points at the tile's first row
-// (leading dim LDB).
-template <int N, int MT, int NT, int LDB>
+// (leading dim LDB). A_EXACT: P holds values exact in TF32 (see
+// mma_3xtf32).
+template <int N, int MT, int NT, int LDB, bool A_EXACT = false>
 __device__ __forceinline__ void warp_gemm_ak(const float (&p)[MT][NT][4],
                                              const float* __restrict__ B,
                                              int g, int t,
@@ -242,7 +247,7 @@ __device__ __forceinline__ void warp_gemm_ak(const float (&p)[MT][NT][4],
         tf32_split(b0[8 * (n0 + n)], bh[n][0], bl[n][0]);
         tf32_split(b0[8 * (n0 + n) + LDB], bh[n][1], bl[n][1]);
       }
-      mma_3xtf32<MT, kGroup>(acc, n0, ah, al, bh, bl);
+      mma_3xtf32<MT, kGroup, N / 8, A_EXACT>(acc, n0, ah, al, bh, bl);
     }
   }
 }
@@ -291,6 +296,39 @@ __device__ __forceinline__ void load_tile_async(float* dst, const float* src,
     from += (long long)kStep * sn;
     to += kStep * (W + 4);
   }
+}
+
+// load_tile_async's tile from bf16 rows (raw bits; 16-byte loads of eight
+// values, each widened exactly to fp32 and stored), zeros past the end.
+// Synchronous: the stores are seen by the block after its next barrier.
+template <int W, int THREADS>
+__device__ __forceinline__ void load_tile_bf16(float* dst, const uint16_t* src,
+                                               int sn, int r0, int rows_total,
+                                               int rows, int tid) {
+  constexpr int kChunks = W / 8;
+  static_assert(THREADS % kChunks == 0, "whole rows per pass of the block");
+  constexpr int kStep = THREADS / kChunks;
+  const int c = (tid % kChunks) * 8;
+  for (int r = tid / kChunks; r < rows; r += kStep) {
+    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+    if (r0 + r < rows_total)
+      raw = *reinterpret_cast<const uint4*>(src + (long long)(r0 + r) * sn +
+                                            c);
+    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+    float* to = dst + r * (W + 4) + c;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      to[2 * i] = __uint_as_float(w[i] << 16);
+      to[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+}
+
+// x rounded to the nearest bf16 value (ties to even), kept in fp32; x
+// finite.
+__device__ __forceinline__ float round_to_bf16(float x) {
+  const uint32_t u = __float_as_uint(x);
+  return __uint_as_float((u + 0x7fffu + ((u >> 16) & 1u)) & 0xffff0000u);
 }
 
 // n rows of a dense [total, BYTES / 4] array (a per-row vector, or the
@@ -453,9 +491,13 @@ struct TcFwdArgs {
 // key tiles [s * tiles_per_split, ...). With one split a block writes out
 // and, with KEEP, the row statistics; otherwise its normalised partial
 // output and that partial's max and sum. Without HEADS, H is 1 and out is
-// a dense [B, Nq, DV] (its strides are not read).
+// a dense [B, Nq, DV] (its strides are not read). QBF16 (kernel F in the
+// bf16 band): q.p holds bf16 bits (q's strides in bf16 elements), widened
+// exactly into the fp32 tile; P = exp(S - m) is rounded to bf16 for P v,
+// the row sum taking the unrounded P; both exact in TF32, so q k^T and P v
+// run two TF32 products each instead of three.
 template <int D, int DV, int WARPS, int MT, int STR, bool MASKED, bool HEADS,
-          bool KEEP>
+          bool KEEP, bool QBF16 = false>
 __global__ void
 __launch_bounds__(32 * WARPS, (TcFwd<D, DV, WARPS, MT, STR>::kBlocksPerSm))
 attention_fwd_tc_kernel(TcFwdArgs a) {
@@ -471,7 +513,6 @@ attention_fwd_tc_kernel(TcFwdArgs a) {
   const int row0 = q0 + warp * L::kWarpRows;  // this warp's first query
   const int split = blockIdx.y, splits = gridDim.y, z = blockIdx.z;
   const int b = HEADS ? z / a.H : z, h = HEADS ? z % a.H : 0;
-  const float* qp = a.q.p + b * a.q.sb + (long long)h * D;
   const float* kp = a.k.p + b * a.k.sb + (long long)h * D;
   const float* vp = a.v.p + b * a.v.sb + (long long)h * DV;
   const float* bias = a.bias ? a.bias + (long long)b * a.Nk : nullptr;
@@ -480,7 +521,15 @@ attention_fwd_tc_kernel(TcFwdArgs a) {
           ? a.mask + (long long)(b % a.mask_nw) * a.Nq * a.Nk
           : nullptr;
 
-  load_tile_async<D, L::kThreads>(Qs, qp, a.q.sn, q0, a.Nq, L::kRes, tid);
+  if constexpr (QBF16)
+    load_tile_bf16<D, L::kThreads>(
+        Qs,
+        reinterpret_cast<const uint16_t*>(a.q.p) + b * a.q.sb +
+            (long long)h * D,
+        a.q.sn, q0, a.Nq, L::kRes, tid);
+  else
+    load_tile_async<D, L::kThreads>(Qs, a.q.p + b * a.q.sb + (long long)h * D,
+                                    a.q.sn, q0, a.Nq, L::kRes, tid);
 
   auto fill = [&](int tile, int s) {
     float* st = stages + s * L::kStage;
@@ -543,7 +592,7 @@ attention_fwd_tc_kernel(TcFwdArgs a) {
     const float* const res[2] = {Qs + warp * L::kWarpRows * L::kLd,
                                  Qs + warp * L::kWarpRows * L::kLd};
     const float* const str[2] = {Ks, Ks};
-    warp_gemm_nt<1, D, MT, L::kNT, L::kLd>(res, str, g, t, prod);
+    warp_gemm_nt<1, D, MT, L::kNT, L::kLd, 1, QBF16>(res, str, g, t, prod);
     float(&sc)[MT][L::kNT][4] = prod[0];
 
     // scaled, biased (masked) scores; keys past the end of the tile at -inf
@@ -615,7 +664,7 @@ attention_fwd_tc_kernel(TcFwdArgs a) {
           for (int hf = 0; hf < 2; ++hf) {
             const int e = 2 * hf + c;
             const float p = __expf(sc[m][j][e] - mnew[m][hf]);
-            sc[m][j][e] = p;
+            sc[m][j][e] = QBF16 ? round_to_bf16(p) : p;
             lrow[m][hf] += p;
             if constexpr (!L::kWide) {
               acc[m][0][2 * hf] = fmaf(p, v0, acc[m][0][2 * hf]);
@@ -624,7 +673,7 @@ attention_fwd_tc_kernel(TcFwdArgs a) {
           }
       }
     if constexpr (L::kWide)
-      warp_gemm_ak<DV, MT, L::kNT, L::kLdV>(sc, Vs, g, t, acc);
+      warp_gemm_ak<DV, MT, L::kNT, L::kLdV, QBF16>(sc, Vs, g, t, acc);
   }
 
   // the four lanes of a row hold parts of its sum (and, with DV = 2, of its
@@ -717,16 +766,17 @@ __global__ void attention_merge_kernel(const float* __restrict__ part_o,
 }
 
 template <int D, int DV, int WARPS, int MT, int STR, bool MASKED, bool HEADS,
-          bool KEEP>
+          bool KEEP, bool QBF16>
 cudaError_t attention_fwd_tc_launch(const TcFwdArgs& a, dim3 grid,
                                     cudaStream_t stream) {
   using L = TcFwd<D, DV, WARPS, MT, STR>;
   // set once per instantiation, not per launch (one card per process)
   static const cudaError_t attr = cudaFuncSetAttribute(
-      attention_fwd_tc_kernel<D, DV, WARPS, MT, STR, MASKED, HEADS, KEEP>,
+      attention_fwd_tc_kernel<D, DV, WARPS, MT, STR, MASKED, HEADS, KEEP,
+                              QBF16>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
   if (attr != cudaSuccess) return attr;
-  attention_fwd_tc_kernel<D, DV, WARPS, MT, STR, MASKED, HEADS, KEEP>
+  attention_fwd_tc_kernel<D, DV, WARPS, MT, STR, MASKED, HEADS, KEEP, QBF16>
       <<<grid, L::kThreads, L::kBytes, stream>>>(a);
   return cudaGetLastError();
 }
@@ -757,8 +807,9 @@ int attention_fwd_tc_splits(int BH, int Nq, int Nk, long long ws_floats,
 // row_max and row_sum [B * H, Nq] are written when row_max is not null (a
 // gradient will be taken). ws: room for the partials of a split pass (fewer
 // splits when it is short; attention_fwd_tc_splits says how much it takes).
+// QBF16: q.p points at bf16 q (see attention_fwd_tc_kernel).
 template <int D, int DV, int WARPS, int MT, int STR, bool MASKED = false,
-          bool HEADS = false>
+          bool HEADS = false, bool QBF16 = false>
 cudaError_t attention_fwd_tc(AttnOperand q, AttnOperand k, AttnOperand v,
                              const float* bias, const float* mask,
                              int mask_nw, AttnGrad out, float* row_max,
@@ -789,9 +840,9 @@ cudaError_t attention_fwd_tc(AttnOperand q, AttnOperand k, AttnOperand v,
   cudaError_t err =
       row_max
           ? attention_fwd_tc_launch<D, DV, WARPS, MT, STR, MASKED, HEADS,
-                                    true>(a, grid, stream)
+                                    true, QBF16>(a, grid, stream)
           : attention_fwd_tc_launch<D, DV, WARPS, MT, STR, MASKED, HEADS,
-                                    false>(a, grid, stream);
+                                    false, QBF16>(a, grid, stream);
   if (err != cudaSuccess || splits == 1) return err;
   attention_merge_kernel<DV><<<ceil_div(rows * DV, 256), 256, 0, stream>>>(
       a.part_o, a.part_stats, splits, H, Nq, rows, out, row_max, row_sum);

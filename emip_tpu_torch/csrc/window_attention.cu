@@ -59,6 +59,17 @@
 // grads are wanted. The inference forward passes one buffer where the
 // backward would need two.
 //
+// G's and H's bf16 forwards (the bf16 band at 512^2), bf16 x, t and out,
+// fp32 parameters, as the JAX kernels (_kernel / _kernel_rows, _ffn_kernel
+// / _ffn_kernel_rows) compute them with a bf16 storage dtype; they are the
+// two halves of B's bf16 forward below. G in bf16: q = bf16(x Wq), k, v =
+// bf16(t W) (the bf16 GEMM on the weights cast at use), the bf16 attention
+// (fp32 softmax, P rounded for P v), m = o Wm in fp32, out = bf16(x +
+// bf16(LN1(m))) or bf16(LN1(m)). H: x and t upcast, the fp32 3xTF32 layer
+// of the entry point above on the fp32 weights, the output rounded once.
+// No backward yet: the bf16 train step at 512^2 is refused when its model
+// is built.
+//
 // B's bf16 backward (the bf16 train step), as the JAX kernel
 // (_block_bwd_kernel) computes it with a bf16 storage dtype: x, t and the
 // gradient upcast; the self layer recomputed in fp32 on the fp32 weights
@@ -367,6 +378,73 @@ extern "C" int emip_window_ffn_layer_bwd(
                        m, stats, gmsg, C,
                        LayerGrads{gwq, gwk, gwv, gwm, gs1, gb1}, gx, true, gt,
                        false, false, gm, go, gqkv, eps, all, s));
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------- kernels G and H, bf16
+
+// G's bf16 forward: x, t, out [R, C] and the weights wq..wm bf16 (cast at
+// use), s1, b1 fp32. Buffers: qkv [R, 3C] and o [R, C] bf16, m [R, C]
+// fp32. No statistics are kept (there is no bf16 backward yet).
+extern "C" int emip_window_layer_bf16(
+    const void* x, const void* t, const void* wq, const void* wk,
+    const void* wv, const void* wm, const float* s1, const float* b1,
+    const float* mask, int mask_nw, void* qkv, void* o, float* m, void* out,
+    int windows, int T, int C, int add_residual, float eps, void* stream) {
+  using namespace emip;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int R = windows * T, C3 = 3 * C;
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* tb = static_cast<const bf16*>(t);
+  bf16* qkvb = static_cast<bf16*>(qkv);
+  cudaError_t err;
+  EMIP_TRY(linear_bf16(xb, C, static_cast<const bf16*>(wq), C, nullptr, qkvb,
+                       C3, R, C, C, true, s));
+  EMIP_TRY(linear_bf16(tb, C, static_cast<const bf16*>(wk), C, nullptr,
+                       qkvb + C, C3, R, C, C, true, s));
+  EMIP_TRY(linear_bf16(tb, C, static_cast<const bf16*>(wv), C, nullptr,
+                       qkvb + 2 * C, C3, R, C, C, true, s));
+  const long long wsb = (long long)T * C3;
+  EMIP_TRY((cudaError_t)emip_attention_fwd_bf16(
+      qkvb, wsb, C3, qkvb + C, wsb, C3, qkvb + 2 * C, wsb, C3, mask, mask_nw,
+      o, (long long)T * C, C, windows, 1, T, T, C, C, 1, stream));
+  EMIP_TRY(linear_bf16(static_cast<const bf16*>(o), C,
+                       static_cast<const bf16*>(wm), C, nullptr, m, C, R, C, C,
+                       false, s));
+  EMIP_TRY(layernorm_self_bf16(m, add_residual ? xb : nullptr, s1, b1,
+                               static_cast<bf16*>(out), C, R, C, eps, s));
+  return (int)cudaGetLastError();
+}
+
+// H's bf16 forward: x, t, out [R, C] bf16, every parameter fp32. Buffers,
+// fp32: x32, t32, o, m [R, C] (z may share m's), qkv [R, 3C], cat [R, 2C],
+// u [R, F]. No statistics are kept.
+extern "C" int emip_window_ffn_layer_bf16(
+    const void* x, const void* t, const float* wq, const float* wk,
+    const float* wv, const float* wm, const float* s1, const float* b1,
+    const float* w0, const float* w2, const float* s2, const float* b2,
+    const float* mask, int mask_nw, float* x32, float* t32, float* qkv,
+    float* o, float* m, float* cat, float* u, float* z, void* out, float* ws,
+    long long ws_floats, int windows, int T, int C, int F, float eps,
+    void* stream) {
+  using namespace emip;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Windows d{windows, T, C, mask, mask_nw};
+  const int R = d.rows(), C2 = 2 * C;
+  const long long rc = (long long)R * C;
+  cudaError_t err;
+  EMIP_TRY(bf16_to_f32(static_cast<const bf16*>(x), x32, rc, s));
+  EMIP_TRY(bf16_to_f32(static_cast<const bf16*>(t), t32, rc, s));
+  EMIP_TRY(cudaMemcpy2DAsync(cat, C2 * sizeof(float), x32, C * sizeof(float),
+                             C * sizeof(float), R, cudaMemcpyDeviceToDevice,
+                             s));
+  EMIP_TRY(message_fwd(x32, C, t32, LayerWeights{wq, wk, wv, wm}, d, qkv, o,
+                       m, nullptr, Workspace{ws, ws_floats}, s));
+  layernorm(m, C, nullptr, 0, s1, b1, cat + C, C2, R, C, eps, s);
+  EMIP_TRY(linear(cat, C2, w0, nullptr, u, F, R, F, C2, true, s));
+  EMIP_TRY(linear(u, F, w2, nullptr, z, C, R, C, F, false, s));
+  EMIP_TRY(layernorm_out_bf16(z, cat, C2, s2, b2, static_cast<bf16*>(out), R,
+                              C, eps, s));
   return (int)cudaGetLastError();
 }
 

@@ -1,5 +1,6 @@
 """The compute dtype of a model: fp32 or the bf16 band (inference and
-training of the short model and of the static segmentation network).
+training of the short model, the long model and the static segmentation
+network).
 
 The JAX package's models take a ``dtype`` (``compute_dtype`` of the YAML,
 bfloat16 by default) under flax's rule: parameters stay fp32, and each

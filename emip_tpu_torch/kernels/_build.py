@@ -85,6 +85,14 @@ _SIGNATURES = {
                                    + [_I] * 4 + [_F, _P]),
     "emip_flow_attention_bwd_bf16": [_P] * 9 + [_L] + [_I] * 3 + [_P],
     "emip_convex_upsample_bwd_bf16": [_P] * 6 + [_I] * 4 + [_P],
+    # the bf16 long model and 512^2: F forward and backward, G and H
+    # forward
+    "emip_memory_attention_bf16": [_P] * 7 + [_L] + [_I] * 4 + [_P],
+    "emip_memory_attention_bwd_bf16": [_P] * 11 + [_L] + [_I] * 4 + [_P],
+    "emip_window_layer_bf16": ([_P] * 9 + [_I] + [_P] * 4 + [_I] * 4
+                               + [_F, _P]),
+    "emip_window_ffn_layer_bf16": ([_P] * 13 + [_I] + [_P] * 10 + [_L]
+                                   + [_I] * 4 + [_F, _P]),
 }
 _RESTYPES = {"emip_attention_fwd_workspace": _L,
              "emip_dwconv_gelu_bwd_workspace": _L,

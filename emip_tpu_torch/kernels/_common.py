@@ -43,6 +43,12 @@ LAUNCHES = {
     "window_attention_block_bwd_bf16": 0,
     "flow_attention_bwd_bf16": 0,
     "convex_upsample_bwd_bf16": 0,
+    # the bf16 long model and 512^2: F forward and backward, G and H
+    # forward
+    "memory_attention_bf16": 0,
+    "memory_attention_bwd_bf16": 0,
+    "window_attention_layer_bf16": 0,
+    "window_attention_ffn_layer_bf16": 0,
 }
 
 # floats of split-K / column-sum / attention-partial workspace a backward
@@ -77,7 +83,7 @@ def check_kernel_args(name: str, dtype: torch.dtype = torch.float32,
     """Every tensor the kernel reads or writes: ``dtype`` and contiguous.
 
     A bf16 tensor where the kernel has only its fp32 instantiation is named
-    as such: the bf16 band has A-D only, so far.
+    as such: the bf16 band has A-D, F, and G and H forward, so far.
     """
     for arg, t in tensors.items():
         if t.dtype != dtype:

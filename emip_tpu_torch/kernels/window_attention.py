@@ -32,7 +32,14 @@ layer recomputed in fp32 on the upcast x and the fp32 weights, x1 rounded
 as the forward rounds it and its roundings passed straight through, the
 fp32 cross layer, FFN and block backward, gx and gt rounded to bf16 (the
 bf16 forward's buffers are not the recompute's, so it keeps only its
-inputs). G and H have no bf16 instantiation yet.
+inputs).
+
+G and H with bf16 ``x`` and ``t`` (fp32 parameters) are the two halves of
+B's bf16 forward, as the JAX kernels compute them with a bf16 storage
+dtype: G in bf16 (``emip_window_layer_bf16``: q, k, v, P and o rounded,
+LN1 in fp32, the residual added in bf16), H in fp32 on the upcast x and t
+with only its output rounded (``emip_window_ffn_layer_bf16``). They have no
+bf16 backward yet: differentiating either raises.
 """
 
 from __future__ import annotations
@@ -84,14 +91,20 @@ def _message(x, t, p, mask):
 def fused_window_attention_layer_reference(x, t, params, mask=None,
                                            add_residual: bool = True
                                            ) -> torch.Tensor:
-    """Plain PyTorch version of :func:`fused_window_attention_layer`."""
+    """Plain PyTorch version of :func:`fused_window_attention_layer` (with
+    bf16 ``x`` that of its bf16 forward)."""
+    if x.dtype == torch.bfloat16:
+        return _layer_reference_bf16(x, t, params, mask, add_residual)
     msg = _message(x, t, params, mask)
     return x + msg if add_residual else msg
 
 
 def fused_window_attention_ffn_layer_reference(x, t, params, mask=None
                                                ) -> torch.Tensor:
-    """Plain PyTorch version of :func:`fused_window_attention_ffn_layer`."""
+    """Plain PyTorch version of :func:`fused_window_attention_ffn_layer`
+    (with bf16 ``x`` that of its bf16 forward)."""
+    if x.dtype == torch.bfloat16:
+        return _ffn_layer_reference_bf16(x, t, params, mask)
     c = x.shape[-1]
     msg = _message(x, t, params, mask)
     u = F.gelu(F.linear(torch.cat([x, msg], dim=-1), params["w0"]))
@@ -99,27 +112,38 @@ def fused_window_attention_ffn_layer_reference(x, t, params, mask=None
     return x + F.layer_norm(z, (c,), params["s2"], params["b2"], EPS)
 
 
-def _block_reference_bf16(x, t, self_params, cross_params, mask=None):
-    """The JAX block kernel's rounding points with a bf16 storage dtype:
-    the self layer's q, k, v, P and o rounded to bf16 (fp32 sums), its
-    LayerNorm in fp32 and rounded, x1 = x + msg in bf16; then the fp32
-    cross layer and FFN on the upcast x1 and t with the fp32 weights, the
-    output rounded once."""
+def _layer_reference_bf16(x, t, params, mask=None, add_residual=True):
+    """G's bf16 forward at the JAX kernel's rounding points with a bf16
+    storage dtype: q from x, k and v from t, each rounded to bf16 (fp32
+    sums over the weights cast to bf16), P and o rounded, LN1 in fp32 and
+    rounded, then x + msg added in bf16."""
     dt = torch.bfloat16
     c = x.shape[-1]
-    w = {k: self_params[k].to(dt).float() for k in ("wq", "wk", "wv", "wm")}
-    xf = x.float()
-    q, k, v = (F.linear(xf, w[n]).to(dt).float() for n in ("wq", "wk", "wv"))
+    w = {k: params[k].to(dt).float() for k in ("wq", "wk", "wv", "wm")}
+    q = F.linear(x.float(), w["wq"]).to(dt).float()
+    k, v = (F.linear(t.float(), w[n]).to(dt).float() for n in ("wk", "wv"))
     scores = q @ k.transpose(-1, -2) / c**0.5
     if mask is not None:
         scores = scores + mask
     o = (torch.softmax(scores, dim=-1).to(dt).float() @ v).to(dt).float()
-    msg = F.layer_norm(F.linear(o, w["wm"]), (c,), self_params["s1"].float(),
-                       self_params["b1"].float(), EPS)
-    x1 = x + msg.to(dt)
-    cross = {k: p.float() for k, p in cross_params.items()}
+    msg = F.layer_norm(F.linear(o, w["wm"]), (c,), params["s1"].float(),
+                       params["b1"].float(), EPS).to(dt)
+    return x + msg if add_residual else msg
+
+
+def _ffn_layer_reference_bf16(x, t, params, mask=None):
+    """H's bf16 forward as the JAX kernel computes it with a bf16 storage
+    dtype: the fp32 layer on the upcast x and t with the fp32 weights, the
+    output rounded once."""
     return fused_window_attention_ffn_layer_reference(
-        x1.float(), t.float(), cross, mask).to(dt)
+        x.float(), t.float(), params, mask).to(torch.bfloat16)
+
+
+def _block_reference_bf16(x, t, self_params, cross_params, mask=None):
+    """The JAX block kernel's rounding points with a bf16 storage dtype:
+    G's bf16 self layer on (x, x), then H's bf16 layer on (x1, t)."""
+    x1 = _layer_reference_bf16(x, x, self_params, mask)
+    return _ffn_layer_reference_bf16(x1, t, cross_params, mask)
 
 
 def _block_recompute_bf16(x, t, self_params, cross_params, mask=None):
@@ -501,6 +525,75 @@ class _WindowBlockBf16(torch.autograd.Function):
         return (gx, gt, None, None, *pgrads)
 
 
+class _NoBf16Backward(torch.autograd.Function):
+    """G and H in the bf16 band, forward only: bf16 x, t and output, fp32
+    parameters; differentiating them raises on either device."""
+
+    @staticmethod
+    def forward(ctx, name, add_residual, x, t, mask, *params):
+        tensors = [x, t, *params] + ([] if mask is None else [mask])
+        cpu = cm.on_cpu(name, *tensors)
+        if name == _LAYER:
+            p = dict(zip(_SELF_KEYS, params))
+            if cpu:
+                return _layer_reference_bf16(x, t, p, mask, add_residual)
+            return _layer_bf16(x, t, p, mask, add_residual)
+        p = dict(zip(_CROSS_KEYS, params))
+        if cpu:
+            return _ffn_layer_reference_bf16(x, t, p, mask)
+        return _ffn_layer_bf16(x, t, p, mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        raise NotImplementedError(
+            "G and H backward in bfloat16 (fused_window_attention_layer and "
+            "fused_window_attention_ffn_layer with bf16 windows) have no "
+            "kernel yet: train in float32, or at windows of at most "
+            "fused_block_max_t tokens")
+
+
+def _layer_bf16(x, t, p, mask, add_residual):
+    """G's bf16 kernel (see ``emip_window_layer_bf16``)."""
+    _check_layer(_LAYER, x, t, p, mask, dtype=torch.bfloat16)
+    b, k2, tok, c = x.shape
+    rows = b * k2 * tok
+    w = [cast(p[k], torch.bfloat16) for k in ("wq", "wk", "wv", "wm")]
+    qkv, o = (torch.empty((rows, n), device=x.device, dtype=torch.bfloat16)
+              for n in (3 * c, c))
+    m = torch.empty((rows, c), device=x.device, dtype=torch.float32)
+    out = torch.empty_like(x)
+    rc = library().emip_window_layer_bf16(
+        x.data_ptr(), t.data_ptr(), *(a.data_ptr() for a in w),
+        p["s1"].data_ptr(), p["b1"].data_ptr(), cm.ptr(mask), k2,
+        qkv.data_ptr(), o.data_ptr(), m.data_ptr(), out.data_ptr(), b * k2,
+        tok, c, int(add_residual), EPS, cm.stream_handle(x.device))
+    cm.raise_on_error(_LAYER + " (bf16)", rc)
+    cm.LAUNCHES["window_attention_layer_bf16"] += 1
+    return out
+
+
+def _ffn_layer_bf16(x, t, p, mask):
+    """H's bf16 kernel (see ``emip_window_ffn_layer_bf16``)."""
+    _check_layer(_FFN_LAYER, x, t, p, mask, dtype=torch.bfloat16)
+    b, k2, tok, c = x.shape
+    f = p["w0"].shape[0]
+    rows = b * k2 * tok
+    x32, t32, qkv, o, m, cat, u = (
+        torch.empty((rows, n), device=x.device, dtype=torch.float32)
+        for n in (c, c, 3 * c, c, c, 2 * c, f))
+    out = torch.empty_like(x)
+    ws = _fwd_workspace(x)
+    rc = library().emip_window_ffn_layer_bf16(
+        x.data_ptr(), t.data_ptr(), *(p[k].data_ptr() for k in _CROSS_KEYS),
+        cm.ptr(mask), k2, x32.data_ptr(), t32.data_ptr(), qkv.data_ptr(),
+        o.data_ptr(), m.data_ptr(), cat.data_ptr(), u.data_ptr(),
+        m.data_ptr(), out.data_ptr(), cm.ptr(ws), cm.numel(ws), b * k2, tok,
+        c, f, EPS, cm.stream_handle(x.device))
+    cm.raise_on_error(_FFN_LAYER + " (bf16)", rc)
+    cm.LAUNCHES["window_attention_ffn_layer_bf16"] += 1
+    return out
+
+
 def fused_window_attention_block(x: torch.Tensor, t: torch.Tensor,
                                  self_params: dict, cross_params: dict,
                                  mask: torch.Tensor | None = None
@@ -528,9 +621,14 @@ def fused_window_attention_layer(x: torch.Tensor, t: torch.Tensor,
     x, t: [B, K2, T, C] pre-split (and, if shifted, pre-rolled) windows of
     any token count T; mask: [K2, T, T] additive shift mask or None.
     Returns ``LN1(attention Wm)``, plus ``x`` with ``add_residual``.
-    Differentiable in x, t and every parameter (not in the mask).
+    Differentiable in x, t and every parameter (not in the mask). bf16
+    ``x`` and ``t`` (fp32 parameters) take the bf16 forward, bf16 out; its
+    backward raises (no kernel yet).
     """
     flat = [params[k] for k in _SELF_KEYS]
+    if x.dtype == torch.bfloat16:
+        return _NoBf16Backward.apply(_LAYER, bool(add_residual), x, t, mask,
+                                     *flat)
     return _WindowLayer.apply(x, t, mask, cm.grad_wanted(x, t, *flat),
                               bool(add_residual), *flat)
 
@@ -544,7 +642,11 @@ def fused_window_attention_ffn_layer(x: torch.Tensor, t: torch.Tensor,
     Shapes as :func:`fused_window_attention_layer`; ``params`` also holds
     w0 [F, 2C], w2 [C, F], s2, b2. Returns
     ``x + LN2(gelu([x, msg] W0) W2)`` with ``msg`` the attention message.
+    bf16 ``x`` and ``t`` (fp32 parameters) take the bf16 forward, bf16 out;
+    its backward raises (no kernel yet).
     """
     flat = [params[k] for k in _CROSS_KEYS]
+    if x.dtype == torch.bfloat16:
+        return _NoBf16Backward.apply(_FFN_LAYER, None, x, t, mask, *flat)
     return _WindowFFNLayer.apply(x, t, mask, cm.grad_wanted(x, t, *flat),
                                  *flat)

@@ -17,6 +17,15 @@ As in the JAX package, the reference's unused ``corr_bw`` is not
 computed, and frame 0 (which the reference pairs with frame 1 and answers
 with the short-term mask) is the caller's business. Streaming is a plain
 Python loop (:meth:`EMIPLong.scan_video`).
+
+``EMIPLong(config, memory_size, dtype=torch.bfloat16)`` is the JAX
+``EMIPLong(dtype=bfloat16)`` of the published configuration: the
+short-term net, the LTM heads, ``long_dr``, ``injector1``, ``dr1`` and
+the decoder compute in bf16 under flax's rule (fp32 parameters cast at
+use, fp32 BatchNorms and norm statistics), the memory ring stays fp32,
+the read runs kernel F's bf16 instantiation (its backward in a train
+step) and, at 512^2, the short-term net's windows take G and H in bf16;
+the long masks come out fp32.
 """
 
 from __future__ import annotations
@@ -28,7 +37,12 @@ from emip_tpu_torch.models.common import (
     DimensionalReduction,
     NeighborConnectionDecoder,
 )
-from emip_tpu_torch.models.emip_short import EMIPShort, EMIPShortConfig
+from emip_tpu_torch.models.emip_short import (
+    EMIPShort,
+    EMIPShortConfig,
+    _set_dtype,
+    bf16_missing_kernels,
+)
 from emip_tpu_torch.models.ltm import LTM, MemoryState
 from emip_tpu_torch.models.prompt import Injector
 
@@ -36,8 +50,14 @@ __all__ = ["EMIPLong"]
 
 
 class EMIPLong(nn.Module):
+    """``dtype``: the compute dtype, fp32 or bfloat16 (the parameters are
+    fp32 either way). A bf16 model whose configuration would reach a
+    kernel without a bf16 forward raises when it is built, naming it (the
+    short-term net runs forward only, so G's and H's backwards are not
+    asked for)."""
+
     def __init__(self, config: EMIPShortConfig = EMIPShortConfig(),
-                 memory_size: int = 5):
+                 memory_size: int = 5, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.config = config
         self.memory_size = memory_size
@@ -50,6 +70,8 @@ class EMIPLong(nn.Module):
         self.injector1 = Injector(dim=fdim)
         self.decoder = NeighborConnectionDecoder(config.channel)
         self.dr1 = DimensionalReduction(fdim, config.channel)
+        pvt = self.short_term.backbone.feat_net.pvtv2_en
+        _set_dtype(self, dtype, bf16_missing_kernels(config, pvt.config))
 
     def train(self, mode: bool = True):
         """Set the mode of the long heads; the short-term net stays in

@@ -22,7 +22,9 @@ dimensional reductions, NCD), the model of static-image pretraining.
 ``EMIPShort(config, dtype=torch.bfloat16)`` is the bf16 band, for
 inference and training: the JAX package's ``EMIPShort(dtype=bfloat16)``
 (the published configuration's ``compute_dtype``), with kernels A-D in
-their bf16 forwards and backwards; it outputs fp32 mask logits and flows,
+their bf16 forwards and backwards, and at 512^2 G and H in their bf16
+forwards (inference only: a model built with ``backward=True``, as the
+trainer builds it, refuses them); it outputs fp32 mask logits and flows,
 as the JAX model does. ``SegNetwork(..., dtype=torch.bfloat16)`` is the
 same band for static pretraining (kernel A).
 """
@@ -83,17 +85,19 @@ class _SegBackbone(nn.Module):
 
 
 def bf16_missing_kernels(cfg: EMIPShortConfig | None,
-                         pvt_config: PVTv2Config) -> list[str]:
-    """The kernels without a bf16 instantiation that ``cfg`` would reach:
-    G and H for windows above ``fused_block_max_t`` tokens (512^2), I
-    under read-corr matching, J under the fused MixFFN switches. With
+                         pvt_config: PVTv2Config,
+                         backward: bool = False) -> list[str]:
+    """The kernels without a bf16 instantiation that ``cfg`` would reach
+    (``backward``: in a train step too): I under read-corr matching, J
+    under the fused MixFFN switches, and with ``backward`` G and H
+    backward for windows above ``fused_block_max_t`` tokens (512^2). With
     ``cfg`` None (:class:`SegNetwork`: no flow stream) only J is asked."""
     missing = []
     if cfg is not None:
         gm = cfg.gmflow
         tok = (cfg.inp_size // 8 // gm.attn_splits_list[0]) ** 2
-        if tok > gm.fused_block_max_t:
-            missing.append(f"G and H (windows of {tok} tokens > "
+        if backward and tok > gm.fused_block_max_t:
+            missing.append(f"G and H backward (windows of {tok} tokens > "
                            f"fused_block_max_t {gm.fused_block_max_t})")
         if not gm.global_match_qk_fused:
             missing.append("I (read-corr matching, global_match_qk_fused "
@@ -123,10 +127,12 @@ class EMIPShort(nn.Module):
     """The two-stream model. ``dtype``: its compute dtype, fp32 or
     bfloat16 (:mod:`emip_tpu_torch.dtypes`); the parameters are fp32
     either way. A bf16 model whose configuration would reach a kernel
-    without a bf16 instantiation raises when it is built, naming it."""
+    without a bf16 instantiation raises when it is built, naming it;
+    ``backward``: the model will be trained, so the kernels' backwards
+    count too."""
 
     def __init__(self, config: EMIPShortConfig = EMIPShortConfig(),
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, backward: bool = False):
         super().__init__()
         cfg = config
         self.config = cfg
@@ -165,7 +171,8 @@ class EMIPShort(nn.Module):
                 nn.GELU(), nn.ConvTranspose2d(256, 128, 2, stride=2))
             self.upscaling3 = nn.Sequential(
                 nn.ConvTranspose2d(320, 128, 2, stride=2), LayerNorm2d(128))
-        _set_dtype(self, dtype, bf16_missing_kernels(cfg, pvt.config))
+        _set_dtype(self, dtype,
+                   bf16_missing_kernels(cfg, pvt.config, backward))
 
     def encode_frame(self, image: torch.Tensor, generator=None) -> dict:
         """Everything that depends on one frame: backbone stages /8, /16,

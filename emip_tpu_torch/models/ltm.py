@@ -14,6 +14,13 @@ token-major, ``[B, T, H*W, C]``: flattened it is the ``[B, T*H*W, C]`` key
 and value matrix of the read (slot-major, then row-major pixel), so a
 frame's read needs no transpose of the ring.
 
+With a bf16 compute dtype (:mod:`emip_tpu_torch.dtypes`) the key / value
+heads and the fusion's convs run in bf16, its BatchNorm in fp32, as in the
+JAX package; the ring stays fp32 (the bf16 keys and values are widened,
+exactly, when pushed) and the read takes the bf16 query key against it
+(kernel F's bf16 instantiation), its fp32 result cast to the query
+value's dtype.
+
 Module and ``state_dict`` names follow the reference:
 ``KV_M_r4.{Key,Value}``, ``KV_Q_r4.{Key,Value}``,
 ``fusion.conv1_fusion.{0,1,3}``. The reference's ``fusion.conv1_m`` branch
@@ -28,6 +35,7 @@ from typing import NamedTuple
 import torch
 import torch.nn as nn
 
+from emip_tpu_torch.dtypes import BatchNorm2d, Conv2d
 from emip_tpu_torch.kernels.memory_attention import masked_memory_attention
 
 __all__ = ["MemoryState", "KeyValueHead", "FusePrompt", "memory_read", "LTM"]
@@ -59,9 +67,12 @@ class MemoryState(NamedTuple):
             valid=torch.zeros(batch, t_max, dtype=torch.bool, device=device))
 
     def push(self, key: torch.Tensor, value: torch.Tensor) -> "MemoryState":
-        """Append a frame's token-major (key, value) [B, H*W, C], evicting
-        the oldest slot. Out of place: the old state stays whole."""
+        """Append a frame's token-major (key, value) [B, H*W, C] in the
+        ring's dtype (a bf16 key is widened exactly, as the JAX ring's
+        ``.at[].set`` casts it), evicting the oldest slot. Out of place:
+        the old state stays whole."""
         newest = torch.ones_like(self.valid[:, :1])
+        key, value = key.to(self.keys.dtype), value.to(self.values.dtype)
         return MemoryState(
             torch.cat([self.keys[:, 1:], key[:, None]], dim=1),
             torch.cat([self.values[:, 1:], value[:, None]], dim=1),
@@ -73,8 +84,8 @@ class KeyValueHead(nn.Module):
 
     def __init__(self, in_dim: int, key_dim: int = 128, val_dim: int = 128):
         super().__init__()
-        self.Key = nn.Conv2d(in_dim, key_dim, 3, padding=1)
-        self.Value = nn.Conv2d(in_dim, val_dim, 3, padding=1)
+        self.Key = Conv2d(in_dim, key_dim, 3, padding=1)
+        self.Value = Conv2d(in_dim, val_dim, 3, padding=1)
 
     def forward(self, x):
         return self.Key(x), self.Value(x)
@@ -82,13 +93,14 @@ class KeyValueHead(nn.Module):
 
 class FusePrompt(nn.Module):
     """Fuse seg feature + correlation prompt: add, then a conv bottleneck
-    dim -> 512 -> 128 (reference LTM.py:26-41 ``fusion``)."""
+    dim -> 512 -> 128 (reference LTM.py:26-41 ``fusion``); the convs in
+    the compute dtype, the BatchNorm in fp32."""
 
     def __init__(self, dim: int = 128):
         super().__init__()
         self.conv1_fusion = nn.Sequential(
-            nn.Conv2d(dim, 512, 3, padding=1), nn.BatchNorm2d(512),
-            nn.ReLU(inplace=True), nn.Conv2d(512, 128, 3, padding=1))
+            Conv2d(dim, 512, 3, padding=1), BatchNorm2d(512),
+            nn.ReLU(inplace=True), Conv2d(512, 128, 3, padding=1))
 
     def forward(self, feat, prompt):
         return self.conv1_fusion(feat + prompt)
@@ -102,11 +114,13 @@ def memory_read(state: MemoryState, q_key: torch.Tensor,
 
     CUDA tensors take kernel F, CPU tensors its plain version
     (:func:`masked_memory_attention`): the [B, H*W, T*H*W] scores never
-    reach device memory."""
+    reach device memory. The bias stays fp32 and the read fp32 whatever
+    the query's dtype; the result takes the query value's (JAX
+    ``ltm.py:memory_read``)."""
     b, t, hw, ck = state.keys.shape
     cv = state.values.shape[-1]
     h, w = q_key.shape[2:]
-    bias = torch.where(state.valid, 0.0, MASKED).to(q_key.dtype)
+    bias = torch.where(state.valid, 0.0, MASKED).to(torch.float32)
     bias = bias[:, :, None].expand(b, t, hw).reshape(b, t * hw)
     mem = masked_memory_attention(
         tokens(q_key), state.keys.reshape(b, t * hw, ck),

@@ -74,7 +74,7 @@ def main(argv=None):
 
     args = parse_args(argv)
     device = resolve_device(args.device)
-    cfg = load_config(args.config, honours_dtype=True)
+    cfg = load_config(args.config)
     model = load_short_model(cfg, args.ckpt, device)
 
     datasets = {}

@@ -12,7 +12,9 @@ across steps. ``--ckpt`` is a checkpoint directory written by
 ``python -m emip_tpu_torch.train_long``; without it the model runs on the
 config's ``load.long_path`` snapshot where that file exists, else on
 seeded random weights (``seed``). Without
-``--data`` the config's validation split is predicted. Runs on the GPU
+``--data`` the config's validation split is predicted. The model computes
+in the config's ``compute_dtype`` (bfloat16 when the key is missing): the
+memory ring and the masks stay fp32. Runs on the GPU
 (``--device``, default ``cuda``; without a GPU it raises), on the CPU only
 with ``--device cpu``.
 """

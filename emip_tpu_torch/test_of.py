@@ -54,7 +54,7 @@ def main(argv=None) -> int:
 
     args = parse_args(argv)
     device = resolve_device(args.device)
-    cfg = load_config(args.config, honours_dtype=True)
+    cfg = load_config(args.config)
     model = load_short_model(cfg, args.ckpt, device)
     root = args.data_root or cfg.val_dataset.image_path
     flows = predict_pairs(model, root, os.path.join(args.save_path, "_masks"),

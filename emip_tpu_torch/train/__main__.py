@@ -47,7 +47,7 @@ def main(argv=None):
     args = parse_args(argv)
     device = resolve_device(args.device)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
-    cfg = load_config(args.config, honours_dtype=True)
+    cfg = load_config(args.config)
     if args.save_path:
         cfg.save_path = args.save_path
     _, summary = train_short(cfg, resume=args.resume,

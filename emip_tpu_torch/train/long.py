@@ -15,6 +15,12 @@ carried, so each frame is encoded once. The JAX package's
 ``make_long_train_scan_step`` (K frames per dispatch under ``lax.scan``)
 has no counterpart: PyTorch runs eagerly, and the config's
 ``long_frames_per_dispatch`` is ignored.
+
+The model computes in the config's ``compute_dtype`` (bfloat16 when the
+key is missing, as in the JAX package): ``EMIPLong(..., dtype=)``, with
+fp32 parameters, AdamW state, checkpoints, memory ring and mask logits, so
+the loss is the fp32 hybrid-E loss of the fp32 logits, as the JAX step
+computes it.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from emip_tpu_torch.config import Config, DatasetConfig, snapshot_config
 from emip_tpu_torch.convert import LONG_LOAD, load_configured_weights
 from emip_tpu_torch.data import ClipLoader, frames_subdir
 from emip_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from emip_tpu_torch.dtypes import dtype_named
 from emip_tpu_torch.losses.seg import hybrid_e_loss
 from emip_tpu_torch.models.emip_long import EMIPLong
 from emip_tpu_torch.models.init import seeded_init_
@@ -54,7 +61,7 @@ log = logging.getLogger("emip_tpu_torch")
 def build_long_model(cfg: Config, short_state_dict: dict | None = None,
                      device: torch.device | str = DEFAULT_DEVICE):
     """(EMIPLong on ``device``, its optimizer) with the short-term net
-    frozen.
+    frozen, computing in ``cfg.compute_dtype``.
 
     The model starts from seeded random weights (``cfg.seed``), then
     takes the config's ``load.long_path`` snapshot where the file exists;
@@ -64,7 +71,9 @@ def build_long_model(cfg: Config, short_state_dict: dict | None = None,
     has, as in the JAX package.
     """
     device = resolve_device(device)
-    model = seeded_init_(EMIPLong(cfg.model, cfg.memory_size), cfg.seed)
+    model = seeded_init_(
+        EMIPLong(cfg.model, cfg.memory_size,
+                 dtype=dtype_named(cfg.compute_dtype)), cfg.seed)
     load_configured_weights(model, cfg.load, LONG_LOAD)
     if short_state_dict is not None:
         own = model.short_term.state_dict()
@@ -99,7 +108,8 @@ def validate_long(model: EMIPLong, cfg: Config, device,
                   dataset: DatasetConfig | None = None) -> dict:
     """Per-frame long-model validation: Sm / wFm / MAE over the frames
     from frame 1 of every clip, at the native GT resolution
-    (:func:`score_logits`, as the short validation).
+    (:func:`score_logits`, as the short validation), in the model's
+    compute dtype (the logits it returns are fp32).
     ``dataset`` overrides the val split (the CAD pass)."""
     ds = dataset if dataset is not None else cfg.val_dataset
     loader = ClipLoader(ds.image_path, ds.gt_path, size=ds.inp_size,

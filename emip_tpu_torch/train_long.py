@@ -10,7 +10,9 @@ short-term net is loaded under the frozen ``short_term`` subtree
 ``python -m emip_tpu_torch.train``; without it the seeded random weights
 stay, since the repository holds no checkpoint) and the LTM and long
 decoder heads train frame by frame over whole videos with a rolling,
-detached memory. The log goes to ``<save_path>/train_long_log.log``.
+detached memory, computing in the config's ``compute_dtype`` (bfloat16
+when the key is missing; parameters, optimizer state and checkpoints stay
+fp32). The log goes to ``<save_path>/train_long_log.log``.
 Runs on the GPU (``--device``, default ``cuda``; without
 a GPU it raises), on the CPU only with ``--device cpu``.
 """

@@ -44,7 +44,7 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     device = resolve_device(args.device)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
-    cfg = load_config(args.config, honours_dtype=True)
+    cfg = load_config(args.config)
     save_path = args.save_path or os.path.join(cfg.save_path, "static")
     _, summary = train_static(cfg, args.data_root, save_path,
                               args.max_steps_per_epoch, device=device)

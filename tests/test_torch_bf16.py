@@ -451,21 +451,30 @@ def test_short_model_bf16_band(slice_outputs, output):
 
 
 def test_bf16_model_refuses_kernels_without_bf16(monkeypatch):
-    """A bf16 EMIPShort whose configuration reaches G / H (windows above
-    ``fused_block_max_t``), I (read-corr matching) or J (the fused MixFFN
-    switches) raises when it is built, naming the kernel; fp32 builds."""
+    """A bf16 EMIPShort whose configuration reaches I (read-corr matching)
+    or J (the fused MixFFN switches) raises when it is built, naming the
+    kernel; one that reaches G / H (windows above ``fused_block_max_t``)
+    builds for inference (their bf16 forwards) and raises when built for
+    training (``backward=True``), naming G's and H's backwards; fp32
+    builds."""
+    import dataclasses
+
+    from emip_tpu_torch.models.emip_short import EMIPShort
+
     cases = {
-        "G and H": dict(fused_block_max_t=8),
+        "G and H backward": dict(fused_block_max_t=8),
         r"I \(read-corr": dict(global_match_qk_fused=False),
     }
     for name, gm in cases.items():
-        th.torch_tiny_short(**gm)  # fp32: fine
+        cfg = th.torch_tiny_short(**gm).config  # fp32: fine
+        EMIPShort(cfg, backward=True)
         with pytest.raises(NotImplementedError, match=name):
-            th.torch_tiny_short(dtype=BF16, **gm)
-    import dataclasses
+            EMIPShort(cfg, dtype=BF16, backward=True)
+    th.torch_tiny_short(dtype=BF16, fused_block_max_t=8)
+    with pytest.raises(NotImplementedError, match=r"I \(read-corr"):
+        th.torch_tiny_short(dtype=BF16, global_match_qk_fused=False)
 
     base = th.torch_tiny_short().config
-    from emip_tpu_torch.models.emip_short import EMIPShort
 
     for switch in (dict(fused_ffn="always"), dict(ffn_dwconv="bwd_fused")):
         cfg = dataclasses.replace(base, **switch)
@@ -500,15 +509,12 @@ def test_compute_dtype_is_read_from_the_yaml(tmp_path, value, want):
             load_config(str(path))
         return
     assert load_config(str(path)).compute_dtype == want
-    assert load_config(str(path), honours_dtype=True).compute_dtype == want
 
 
 def test_only_fp32_entry_points_warn_of_bfloat16(caplog):
-    """The repository's YAML asks for bfloat16: the entry points that
-    honour it (the short model's and the static model's: train,
-    train_static, test, test_of) warn of nothing; the fp32 ones (the long
-    model's: train_long, test_long) name it in one warning line that says
-    which run fp32."""
+    """The repository's YAML asks for bfloat16, and every entry point
+    honours it (train, train_static, test, test_of, and since the bf16
+    long model train_long and test_long): loading it warns of nothing."""
     import logging
     import os
 
@@ -516,14 +522,9 @@ def test_only_fp32_entry_points_warn_of_bfloat16(caplog):
 
     path = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "configs", "emip.yaml")
-    for honours, n in ((True, 0), (False, 1)):
-        caplog.clear()
-        with caplog.at_level(logging.WARNING, logger="emip_tpu_torch"):
-            load_config(path, honours_dtype=honours)
-        lines = [r.getMessage() for r in caplog.records]
-        assert len(lines) == n, lines
-    assert "train_long and test_long run fp32" in lines[0]
-    assert "train, train_static, test and test_of honour" in lines[0]
+    with caplog.at_level(logging.WARNING, logger="emip_tpu_torch"):
+        assert load_config(path).compute_dtype == "bfloat16"
+    assert [r.getMessage() for r in caplog.records] == []
 
 
 @pytest.mark.parametrize("entry", ["test", "test_of"])

@@ -406,25 +406,22 @@ def test_empty_dataset_block_is_none_as_in_jax(tmp_path):
 
 @pytest.mark.parametrize("keys,warned", [
     ({}, set()),
-    (dict(compute_dtype=None), {"compute_dtype"}),
+    (dict(compute_dtype=None), set()),
     (dict(compute_dtype="float32", optimizer=dict(name="AdamW"),
           parallel=dict(model_parallel=1, fsdp=False),
           long_frames_per_dispatch=1), set()),
-    (dict(compute_dtype="bfloat16"), {"compute_dtype"}),
+    (dict(compute_dtype="bfloat16"), set()),
     (dict(compute_dtype="bfloat16", optimizer=dict(name="sgd"),
           parallel=dict(model_parallel=2, sequence_parallel=True),
           long_frames_per_dispatch=4),
-     {"compute_dtype", "optimizer.name", "parallel",
-      "long_frames_per_dispatch"})],
+     {"optimizer.name", "parallel", "long_frames_per_dispatch"})],
     ids=["tiny", "unset", "trivial", "bf16", "all"])
 def test_ignored_keys_warn_once_each(tmp_path, caplog, keys, warned):
     """Each key that steers only the JAX package and asks for other than
-    what the port does is named in one warning line, a missing
-    ``compute_dtype`` too (the JAX package's default is bfloat16) where the
-    entry point runs fp32 (the long model's); the tiny YAML (which states
-    float32) and trivial values warn nothing. Where the entry point
-    honours ``compute_dtype`` (the short model's and the static model's)
-    it is never warned of. Nothing else changes."""
+    what the port does is named in one warning line; the tiny YAML and
+    trivial values warn nothing. ``compute_dtype``, missing (the JAX
+    package's default, bfloat16) or set, is never warned of: every entry
+    point honours it. Nothing else changes."""
     from emip_tpu_torch.config import load_config
 
     opt = dict(lr=1e-4, weight_decay=1e-7, **keys.pop("optimizer", {}))
@@ -435,29 +432,24 @@ def test_ignored_keys_warn_once_each(tmp_path, caplog, keys, warned):
     raw = {k: v for k, v in raw.items() if v is not None}
     with open(path, "w") as f:
         yaml.safe_dump(raw, f)
-    for honours in (False, True):
-        caplog.clear()
-        with caplog.at_level(logging.WARNING, logger="emip_tpu_torch"):
-            cfg = load_config(str(path), honours_dtype=honours)
-        lines = [r.getMessage() for r in caplog.records
-                 if r.levelno == logging.WARNING]
-        want = warned - {"compute_dtype"} if honours else warned
-        assert {m.split("=")[0].split()[-1] for m in lines} == want
-        assert len(lines) == len(want)
-        assert (cfg.lr, cfg.weight_decay) == (1e-4, 1e-7)
+    with caplog.at_level(logging.WARNING, logger="emip_tpu_torch"):
+        cfg = load_config(str(path))
+    lines = [r.getMessage() for r in caplog.records
+             if r.levelno == logging.WARNING]
+    assert {m.split("=")[0].split()[-1] for m in lines} == warned
+    assert len(lines) == len(warned)
+    assert (cfg.lr, cfg.weight_decay) == (1e-4, 1e-7)
 
 
 def test_repository_yaml_warns_of_bfloat16_only(caplog):
-    """configs/emip.yaml asks for bfloat16 and for nothing else the port
-    ignores: the long model's entry points (fp32) name it in one line,
-    which says that the short and static entry points honour it."""
+    """configs/emip.yaml asks for bfloat16, which every entry point
+    honours, and for nothing the port ignores: it warns of nothing."""
     from emip_tpu_torch.config import load_config
 
     with caplog.at_level(logging.WARNING, logger="emip_tpu_torch"):
         cfg = load_config(os.path.join(REPO, "configs", "emip.yaml"))
-    lines = [r.getMessage() for r in caplog.records]
-    assert len(lines) == 1 and "compute_dtype='bfloat16'" in lines[0]
-    assert "train_long and test_long run fp32" in lines[0]
+    assert [r.getMessage() for r in caplog.records] == []
+    assert cfg.compute_dtype == "bfloat16"
     assert cfg.load.type == "COD10K" and cfg.load.path is None
 
 

@@ -67,21 +67,27 @@ def torch_tiny_short(include_dead_modules: bool = True,
 MEMORY_SIZE = 3  # slots of the tiny long model's ring
 
 
-def jax_tiny_long(drop_path_rate: float = 0.0, size: int = SIZE):
+def jax_tiny_long(drop_path_rate: float = 0.0, size: int = SIZE,
+                  dtype=None):
     """JAX EMIPLong around :func:`jax_tiny_short`'s configuration, with a
-    3-slot memory."""
+    3-slot memory, computing in ``dtype`` (None: fp32)."""
+    import jax.numpy as jnp
+
     from emip_tpu.models.emip_long import EMIPLong
 
     _, cfg = jax_tiny_short(drop_path_rate, size)
-    return EMIPLong(config=cfg, memory_size=MEMORY_SIZE)
+    return EMIPLong(config=cfg, memory_size=MEMORY_SIZE,
+                    dtype=jnp.float32 if dtype is None else dtype)
 
 
-def torch_tiny_long(drop_path_rate: float = 0.0, size: int = SIZE, **gmflow):
-    """The port's EMIPLong at the same configuration."""
+def torch_tiny_long(drop_path_rate: float = 0.0, size: int = SIZE,
+                    dtype: torch.dtype = torch.float32, **gmflow):
+    """The port's EMIPLong at the same configuration, computing in
+    ``dtype``."""
     from emip_tpu_torch.models.emip_long import EMIPLong
 
     cfg = torch_tiny_short(True, drop_path_rate, size, **gmflow).config
-    return EMIPLong(cfg, memory_size=MEMORY_SIZE).eval()
+    return EMIPLong(cfg, memory_size=MEMORY_SIZE, dtype=dtype).eval()
 
 
 def random_variables(module, *args, seed: int = 0, **kwargs) -> dict:

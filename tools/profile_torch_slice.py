@@ -14,11 +14,12 @@ EMIPLong instead: one streaming ``step_cached`` per batch on a full
 5-slot memory with ``--batch`` clips side by side (``--train``: one
 per-frame long train step). With ``--static`` it runs static pretraining's
 SegNetwork (b5, channel 32; always a train step, ``static_train_step``'s
-work). ``--bf16`` runs the short model or SegNetwork in the bf16 band
-(``dtype=bfloat16``, cuBLAS's reduced-precision bf16 reduction off),
-inference or, with ``--train`` or ``--static``, the train step; the long
-model has no bf16 band. Run the fp32 and bf16 steps in turns in one call
-to compare them. It prints:
+work). ``--bf16`` runs the model in the bf16 band (``dtype=bfloat16``,
+cuBLAS's reduced-precision bf16 reduction off): the short model,
+SegNetwork or, with ``--long``, EMIPLong, inference or, with ``--train``
+or ``--static``, the train step (the short train step at 512^2 has no
+bf16 band: G's and H's bf16 backwards are not written). Run the fp32 and
+bf16 steps in turns in one call to compare them. It prints:
 
 - the card's ``nvidia-smi`` name and power limit;
 - the median ms per batch of ``predict_arrays`` (``--train``: per train
@@ -161,11 +162,8 @@ def main() -> int:
                     help="profile static pretraining's SegNetwork train "
                          "step instead of the short model")
     ap.add_argument("--bf16", action="store_true",
-                    help="the short model or SegNetwork in bf16 (not with "
-                         "--long: the long model has no bf16 band yet)")
+                    help="the model (short, long or SegNetwork) in bf16")
     args = ap.parse_args()
-    if args.bf16 and args.long:
-        ap.error("--bf16 profiles the short model and SegNetwork only")
     if args.static and args.long:
         ap.error("--static and --long exclude each other")
     args.train = args.train or args.static
@@ -194,11 +192,11 @@ def main() -> int:
     if args.long:
         from emip_tpu_torch.models.emip_long import EMIPLong
 
-        model = EMIPLong(cfg, memory_size=5)
+        model = EMIPLong(cfg, memory_size=5, dtype=dtype)
     elif args.static:
         model = SegNetwork("pvt_v2_b5", 32, dtype=dtype)
     else:
-        model = EMIPShort(cfg, dtype=dtype)
+        model = EMIPShort(cfg, dtype=dtype, backward=args.train)
     seeded_init_(model, cs.SEED)
     model = model.to(dev).eval()
     table = (long_module_table if args.long else
