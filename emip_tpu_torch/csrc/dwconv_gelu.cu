@@ -49,8 +49,22 @@
 //   a last pass adds the partials in order. No atomics: a second call gives
 //   the same bits. Each of gu and the two parameter grads is skipped when
 //   its pointer is null.
+//
+// The bf16 band (emip_dwconv_gelu_bf16, emip_dwconv_gelu_bwd_bf16) runs the
+// same two kernels on bf16 storage, as the JAX kernels compute with a bf16
+// u: u, the taps (which the model casts to bf16), g, out and gu are bf16,
+// the bias fp32; every value is widened to fp32 where it is loaded, the
+// stencil, the GELU and its gradient run in fp32, and each output is
+// rounded once where it is stored. A warp's four channels a lane are one
+// 8-byte load (256 contiguous bytes a row), the same tiling as the fp32
+// float4 walk. The tap grad is summed in fp32 and rounded to bf16 by the
+// last pass (the JAX backward returns it in the taps' dtype), the bias grad
+// stays fp32.
 
+#include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "primitives.cuh"
 
@@ -81,27 +95,52 @@ __device__ __forceinline__ Pack<V> zeros() {
   return r;
 }
 
-template <int V>
-__device__ __forceinline__ Pack<V> load(const float* p, bool ok) {
+// V consecutive elements of storage type T (fp32 or bf16) at p, widened to
+// fp32; zeros when !ok. V = 4: one 16-byte (fp32) or 8-byte (bf16) load.
+template <typename T, int V>
+__device__ __forceinline__ Pack<V> load(const T* p, bool ok) {
   Pack<V> r = zeros<V>();
   if (ok) {
-    if constexpr (V == 4) {
-      const float4 t = __ldg(reinterpret_cast<const float4*>(p));
-      r.v[0] = t.x, r.v[1] = t.y, r.v[2] = t.z, r.v[3] = t.w;
+    if constexpr (std::is_same_v<T, float>) {
+      if constexpr (V == 4) {
+        const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+        r.v[0] = t.x, r.v[1] = t.y, r.v[2] = t.z, r.v[3] = t.w;
+      } else {
+        r.v[0] = __ldg(p);
+      }
+    } else if constexpr (V == 4) {
+      const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
+      const float2 lo = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&t.x));
+      const float2 hi = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&t.y));
+      r.v[0] = lo.x, r.v[1] = lo.y, r.v[2] = hi.x, r.v[3] = hi.y;
     } else {
-      r.v[0] = __ldg(p);
+      r.v[0] = __bfloat162float(__ldg(p));
     }
   }
   return r;
 }
 
-template <int V>
-__device__ __forceinline__ void store(float* p, const Pack<V>& a) {
-  if constexpr (V == 4)
-    *reinterpret_cast<float4*>(p) =
-        make_float4(a.v[0], a.v[1], a.v[2], a.v[3]);
-  else
-    *p = a.v[0];
+// a stored as T at p (rounded to nearest even where T is bf16)
+template <typename T, int V>
+__device__ __forceinline__ void store(T* p, const Pack<V>& a) {
+  if constexpr (std::is_same_v<T, float>) {
+    if constexpr (V == 4)
+      *reinterpret_cast<float4*>(p) =
+          make_float4(a.v[0], a.v[1], a.v[2], a.v[3]);
+    else
+      *p = a.v[0];
+  } else if constexpr (V == 4) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(a.v[0], a.v[1]);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(a.v[2], a.v[3]);
+    uint2 t;
+    t.x = *reinterpret_cast<const uint32_t*>(&lo);
+    t.y = *reinterpret_cast<const uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(p) = t;
+  } else {
+    *p = __float2bfloat16_rn(a.v[0]);
+  }
 }
 
 // acc += a * b
@@ -162,15 +201,21 @@ inline int bwd_blocks_per_group(const Tiling& t) {
   return ceil_div(t.tiles(), ceil_div(t.tiles(), want));
 }
 
-inline bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+// whether p may be read as vectors of four T
+template <typename T>
+inline bool aligned4(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % (4 * sizeof(T)) == 0;
 }
 
-template <int V>
+// an image's elements must have 32-bit offsets
+inline bool fits(int H, int W, int F) {
+  return (long long)H * W * F < (1LL << 31);
+}
+
+template <typename T, int V>
 __global__ void __launch_bounds__(kLanes* kFwdCols)
-dwconv_gelu_fwd_kernel(const float* __restrict__ u,
-                       const float* __restrict__ wdw,
-                       const float* __restrict__ bdw, float* __restrict__ out,
+dwconv_gelu_fwd_kernel(const T* __restrict__ u, const T* __restrict__ wdw,
+                       const float* __restrict__ bdw, T* __restrict__ out,
                        Tiling t) {
   const int lane = threadIdx.x % kLanes;
   const int group = blockIdx.x / t.col_tiles;
@@ -180,21 +225,21 @@ dwconv_gelu_fwd_kernel(const float* __restrict__ u,
   if (c >= t.F || x >= t.W) return;
   const int y0 = blockIdx.y * t.rows, y1 = min(t.H, y0 + t.rows);
   const long long image = (long long)blockIdx.z * t.H * t.W * t.F;
-  const float* src = u + image + c;
-  float* dst = out + image + c;
+  const T* src = u + image + c;
+  T* dst = out + image + c;
   Pack<V> w[9];
 #pragma unroll
-  for (int k = 0; k < 9; ++k) w[k] = load<V>(wdw + k * t.F + c, true);
-  const Pack<V> bias = load<V>(bdw + c, true);
+  for (int k = 0; k < 9; ++k) w[k] = load<T, V>(wdw + k * t.F + c, true);
+  const Pack<V> bias = load<float, V>(bdw + c, true);
   const bool left = x > 0, right = x + 1 < t.W;
   // input row r's three columns, loaded one row ahead (zeros off the image)
   Pack<V> nl, nm, nr;
   auto fetch = [&](int r) {
     const bool ok = r >= 0 && r < t.H;
-    const float* p = src + (r * t.W + x) * t.F;
-    nl = load<V>(p - t.F, ok && left);
-    nm = load<V>(p, ok);
-    nr = load<V>(p + t.F, ok && right);
+    const T* p = src + (r * t.W + x) * t.F;
+    nl = load<T, V>(p - t.F, ok && left);
+    nm = load<T, V>(p, ok);
+    nr = load<T, V>(p + t.F, ok && right);
   };
   // running sums of output rows r - 1, r and r + 1
   Pack<V> a0 = zeros<V>(), a1 = zeros<V>(), a2 = zeros<V>();
@@ -222,13 +267,12 @@ dwconv_gelu_fwd_kernel(const float* __restrict__ u,
 // blocks; warp i is column (tile's first) + i - 1 (warps 0 and cols + 1 are
 // the halo). part[p][k][F]: tap k's sum (k < 9) and the bias sum (k = 9)
 // over the block's tiles.
-template <int V>
+template <typename T, int V>
 __global__ void __launch_bounds__(kBwdThreads, 1)
-dwconv_gelu_bwd_kernel(const float* __restrict__ u,
-                       const float* __restrict__ wdw,
-                       const float* __restrict__ bdw,
-                       const float* __restrict__ g, float* __restrict__ gu,
-                       float* __restrict__ part, Tiling t, int blocks) {
+dwconv_gelu_bwd_kernel(const T* __restrict__ u, const T* __restrict__ wdw,
+                       const float* __restrict__ bdw, const T* __restrict__ g,
+                       T* __restrict__ gu, float* __restrict__ part, Tiling t,
+                       int blocks) {
   // gd of the current row, one Pack per (warp, lane), double-buffered
   __shared__ Pack<V> row_gd[2][kBwdCols + 2][kLanes];
   const int lane = threadIdx.x % kLanes, wi = threadIdx.x / kLanes;
@@ -238,8 +282,8 @@ dwconv_gelu_bwd_kernel(const float* __restrict__ u,
   const bool inner = wi >= 1 && wi <= t.cols;
   Pack<V> w[9];
 #pragma unroll
-  for (int k = 0; k < 9; ++k) w[k] = load<V>(wdw + k * t.F + c, chan);
-  const Pack<V> bias = load<V>(bdw + c, chan);
+  for (int k = 0; k < 9; ++k) w[k] = load<T, V>(wdw + k * t.F + c, chan);
+  const Pack<V> bias = load<float, V>(bdw + c, chan);
   Pack<V> acc[10];
 #pragma unroll
   for (int k = 0; k < 10; ++k) acc[k] = zeros<V>();
@@ -255,19 +299,19 @@ dwconv_gelu_bwd_kernel(const float* __restrict__ u,
     const bool mine = inner && xin;  // an output pixel column of this tile
     const bool left = xin && x > 0, right = xin && x + 1 < t.W;
     const long long image = (long long)b * t.H * t.W * t.F;
-    const float* su = u + image + c;
-    const float* sg = g + image + c;
+    const T* su = u + image + c;
+    const T* sg = g + image + c;
     // win[3 * i + j] = u(r - 1 + i, x - 1 + j) at step r
     Pack<V> win[9], nl, nm, nr, gn;
     auto fetch = [&](int r) {
       const bool ok = r >= 0 && r < t.H;
-      const float* q = su + (r * t.W + x) * t.F;
-      nl = load<V>(q - t.F, ok && left);
-      nm = load<V>(q, ok && xin);
-      nr = load<V>(q + t.F, ok && right);
+      const T* q = su + (r * t.W + x) * t.F;
+      nl = load<T, V>(q - t.F, ok && left);
+      nm = load<T, V>(q, ok && xin);
+      nr = load<T, V>(q + t.F, ok && right);
     };
     auto fetch_g = [&](int r) {
-      gn = load<V>(sg + (r * t.W + x) * t.F, r >= 0 && r < t.H && xin);
+      gn = load<T, V>(sg + (r * t.W + x) * t.F, r >= 0 && r < t.H && xin);
     };
     fetch(y0 - 2);
     win[3] = nl, win[4] = nm, win[5] = nr;
@@ -335,17 +379,19 @@ dwconv_gelu_bwd_kernel(const float* __restrict__ u,
 #pragma unroll
         for (int j = 0; j < V; ++j) sum.v[j] += v.v[j];
       }
-      store(part + ((long long)p * 10 + k) * t.F + c, sum);
+      store<float, V>(part + ((long long)p * 10 + k) * t.F + c, sum);
     }
   }
 }
 
 // gwdw[k, f] (k < 9) and gbdw[f] (k = 9) = sum over the blocks' partials:
 // thread row i adds partials i, i + 8, ... in order, then row 0 adds the 8
-// runs in order.
+// runs in order. gwdw is stored as TW (the taps' type: a bf16 tap grad is
+// rounded here), gbdw in fp32.
+template <typename TW>
 __global__ void __launch_bounds__(256)
 dwconv_param_final_kernel(const float* __restrict__ part, int blocks, int F,
-                          float* gwdw, float* gbdw) {
+                          TW* gwdw, float* gbdw) {
   __shared__ float red[8][kLanes];
   const int idx = blockIdx.x * kLanes + threadIdx.x;
   float t = 0.f;
@@ -359,22 +405,17 @@ dwconv_param_final_kernel(const float* __restrict__ part, int blocks, int F,
 #pragma unroll
   for (int i = 0; i < 8; ++i) t += red[i][threadIdx.x];
   if (idx < 9 * F) {
-    if (gwdw) gwdw[idx] = t;
+    if (gwdw) store<TW, 1>(gwdw + idx, Pack<1>{{t}});
   } else if (gbdw) {
     gbdw[idx - 9 * F] = t;
   }
 }
 
-// an image's elements must have 32-bit offsets
-inline bool fits(int H, int W, int F) {
-  return (long long)H * W * F < (1LL << 31);
-}
-
-template <int V>
-void fwd_launch(const float* u, const float* wdw, const float* bdw,
-                float* out, int B, int H, int W, int F, cudaStream_t s) {
+template <typename T, int V>
+void fwd_launch(const T* u, const T* wdw, const float* bdw, T* out, int B,
+                int H, int W, int F, cudaStream_t s) {
   const Tiling t = fwd_tiling(B, H, W, F, V);
-  dwconv_gelu_fwd_kernel<V>
+  dwconv_gelu_fwd_kernel<T, V>
       <<<dim3(t.groups * t.col_tiles, t.strips, B), kLanes * t.cols, 0, s>>>(
           u, wdw, bdw, out, t);
 }
@@ -385,11 +426,11 @@ long long bwd_partial_floats(int B, int H, int W, int F) {
   return (long long)bwd_blocks_per_group(t) * 10 * F;
 }
 
-template <int V>
-cudaError_t bwd_launch(const float* u, const float* wdw, const float* bdw,
-                       const float* g, float* gu, float* gwdw, float* gbdw,
-                       float* ws, long long ws_floats, int B, int H, int W,
-                       int F, cudaStream_t s) {
+template <typename T, int V>
+cudaError_t bwd_launch(const T* u, const T* wdw, const float* bdw, const T* g,
+                       T* gu, T* gwdw, float* gbdw, float* ws,
+                       long long ws_floats, int B, int H, int W, int F,
+                       cudaStream_t s) {
   const Tiling t = tiling(B, H, W, F, V, kBwdCols);
   const int blocks = bwd_blocks_per_group(t);
   float* part = nullptr;
@@ -398,32 +439,67 @@ cudaError_t bwd_launch(const float* u, const float* wdw, const float* bdw,
       return cudaErrorInvalidValue;
     part = ws;
   }
-  dwconv_gelu_bwd_kernel<V><<<t.groups * blocks, kLanes * (t.cols + 2), 0,
-                              s>>>(u, wdw, bdw, g, gu, part, t, blocks);
+  dwconv_gelu_bwd_kernel<T, V><<<t.groups * blocks, kLanes * (t.cols + 2),
+                                 0, s>>>(u, wdw, bdw, g, gu, part, t,
+                                         blocks);
   if (part)
-    dwconv_param_final_kernel<<<ceil_div(10LL * F, kLanes), dim3(kLanes, 8),
-                                0, s>>>(part, blocks, F, gwdw, gbdw);
+    dwconv_param_final_kernel<T><<<ceil_div(10LL * F, kLanes),
+                                   dim3(kLanes, 8), 0, s>>>(part, blocks, F,
+                                                            gwdw, gbdw);
   return cudaGetLastError();
+}
+
+// the forward on storage type T: float4 / 8-byte walks where F and every
+// pointer allow them, else the scalar instantiation
+template <typename T>
+int fwd(const T* u, const T* wdw, const float* bdw, T* out, int B, int H,
+        int W, int F, void* stream) {
+  if (!fits(H, W, F)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (F % 4 == 0 && aligned4<T>(u) && aligned4<T>(wdw) &&
+      aligned4<float>(bdw) && aligned4<T>(out))
+    fwd_launch<T, 4>(u, wdw, bdw, out, B, H, W, F, s);
+  else
+    fwd_launch<T, 1>(u, wdw, bdw, out, B, H, W, F, s);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int bwd(const T* u, const T* wdw, const float* bdw, const T* g, T* gu,
+        T* gwdw, float* gbdw, float* ws, long long ws_floats, int B, int H,
+        int W, int F, void* stream) {
+  if (!fits(H, W, F)) return (int)cudaErrorInvalidValue;
+  if (!gu && !gwdw && !gbdw) return (int)cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec = F % 4 == 0 && aligned4<T>(u) && aligned4<T>(wdw) &&
+                   aligned4<float>(bdw) && aligned4<T>(g) && aligned4<T>(gu);
+  return (int)(vec ? bwd_launch<T, 4>(u, wdw, bdw, g, gu, gwdw, gbdw, ws,
+                                      ws_floats, B, H, W, F, s)
+                   : bwd_launch<T, 1>(u, wdw, bdw, g, gu, gwdw, gbdw, ws,
+                                      ws_floats, B, H, W, F, s));
 }
 
 }  // namespace
 }  // namespace emip
 
+// (the bf16 entry points spell __nv_bfloat16: nvcc's host stubs do not
+// resolve an alias declared in an unnamed namespace)
 extern "C" int emip_dwconv_gelu(const float* u, const float* wdw,
                                 const float* bdw, float* out, int B, int H,
                                 int W, int F, void* stream) {
-  using namespace emip;
-  if (!fits(H, W, F)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (F % 4 == 0 && aligned16(u) && aligned16(wdw) && aligned16(bdw) &&
-      aligned16(out))
-    fwd_launch<4>(u, wdw, bdw, out, B, H, W, F, s);
-  else
-    fwd_launch<1>(u, wdw, bdw, out, B, H, W, F, s);
-  return (int)cudaGetLastError();
+  return emip::fwd(u, wdw, bdw, out, B, H, W, F, stream);
 }
 
-// Floats of the tap-grad partials emip_dwconv_gelu_bwd takes when a
+// The bf16 forward: u, wdw and out bf16, bdw fp32.
+extern "C" int emip_dwconv_gelu_bf16(const void* u, const void* wdw,
+                                     const float* bdw, void* out, int B,
+                                     int H, int W, int F, void* stream) {
+  return emip::fwd(static_cast<const __nv_bfloat16*>(u),
+                   static_cast<const __nv_bfloat16*>(wdw), bdw,
+                   static_cast<__nv_bfloat16*>(out), B, H, W, F, stream);
+}
+
+// Floats of the tap-grad partials emip_dwconv_gelu_bwd(_bf16) takes when a
 // parameter grad is asked for, at the larger of its two vector widths.
 extern "C" long long emip_dwconv_gelu_bwd_workspace(int B, int H, int W,
                                                     int F) {
@@ -440,14 +516,21 @@ extern "C" int emip_dwconv_gelu_bwd(const float* u, const float* wdw,
                                     float* gu, float* gwdw, float* gbdw,
                                     float* ws, long long ws_floats, int B,
                                     int H, int W, int F, void* stream) {
-  using namespace emip;
-  if (!fits(H, W, F)) return (int)cudaErrorInvalidValue;
-  if (!gu && !gwdw && !gbdw) return (int)cudaSuccess;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec = F % 4 == 0 && aligned16(u) && aligned16(wdw) &&
-                   aligned16(bdw) && aligned16(g) && aligned16(gu);
-  return (int)(vec ? bwd_launch<4>(u, wdw, bdw, g, gu, gwdw, gbdw, ws,
-                                   ws_floats, B, H, W, F, s)
-                   : bwd_launch<1>(u, wdw, bdw, g, gu, gwdw, gbdw, ws,
-                                   ws_floats, B, H, W, F, s));
+  return emip::bwd(u, wdw, bdw, g, gu, gwdw, gbdw, ws, ws_floats, B, H, W, F,
+                   stream);
+}
+
+// The bf16 backward: u, wdw, g, gu and gwdw bf16, bdw and gbdw fp32.
+extern "C" int emip_dwconv_gelu_bwd_bf16(const void* u, const void* wdw,
+                                         const float* bdw, const void* g,
+                                         void* gu, void* gwdw, float* gbdw,
+                                         float* ws, long long ws_floats,
+                                         int B, int H, int W, int F,
+                                         void* stream) {
+  return emip::bwd(static_cast<const __nv_bfloat16*>(u),
+                   static_cast<const __nv_bfloat16*>(wdw), bdw,
+                   static_cast<const __nv_bfloat16*>(g),
+                   static_cast<__nv_bfloat16*>(gu),
+                   static_cast<__nv_bfloat16*>(gwdw), gbdw, ws, ws_floats, B,
+                   H, W, F, stream);
 }

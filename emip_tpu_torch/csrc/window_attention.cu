@@ -67,8 +67,10 @@
 // (fp32 softmax, P rounded for P v), m = o Wm in fp32, out = bf16(x +
 // bf16(LN1(m))) or bf16(LN1(m)). H: x and t upcast, the fp32 3xTF32 layer
 // of the entry point above on the fp32 weights, the output rounded once.
-// No backward yet: the bf16 train step at 512^2 is refused when its model
-// is built.
+// Their bf16 backwards (the bf16 train step at 512^2) follow B's below:
+// the inputs and the gradient upcast, the layer recomputed in fp32 (the
+// forward's bf16 buffers are not the JAX backward's), the fp32 backward of
+// the entry point, gx and gt rounded once.
 //
 // B's bf16 backward (the bf16 train step), as the JAX kernel
 // (_block_bwd_kernel) computes it with a bf16 storage dtype: x, t and the
@@ -385,7 +387,7 @@ extern "C" int emip_window_ffn_layer_bwd(
 
 // G's bf16 forward: x, t, out [R, C] and the weights wq..wm bf16 (cast at
 // use), s1, b1 fp32. Buffers: qkv [R, 3C] and o [R, C] bf16, m [R, C]
-// fp32. No statistics are kept (there is no bf16 backward yet).
+// fp32. No statistics are kept (the bf16 backward recomputes).
 extern "C" int emip_window_layer_bf16(
     const void* x, const void* t, const void* wq, const void* wk,
     const void* wv, const void* wm, const float* s1, const float* b1,
@@ -418,7 +420,7 @@ extern "C" int emip_window_layer_bf16(
 
 // H's bf16 forward: x, t, out [R, C] bf16, every parameter fp32. Buffers,
 // fp32: x32, t32, o, m [R, C] (z may share m's), qkv [R, 3C], cat [R, 2C],
-// u [R, F]. No statistics are kept.
+// u [R, F]. No statistics are kept (the bf16 backward recomputes).
 extern "C" int emip_window_ffn_layer_bf16(
     const void* x, const void* t, const float* wq, const float* wk,
     const float* wv, const float* wm, const float* s1, const float* b1,
@@ -445,6 +447,113 @@ extern "C" int emip_window_ffn_layer_bf16(
   EMIP_TRY(linear(u, F, w2, nullptr, z, C, R, C, F, false, s));
   EMIP_TRY(layernorm_out_bf16(z, cat, C2, s2, b2, static_cast<bf16*>(out), R,
                               C, eps, s));
+  return (int)cudaGetLastError();
+}
+
+// G's bf16 backward, as the JAX kernel (_bwd_kernel) computes it with a
+// bf16 storage dtype: x, t and g upcast, the layer recomputed in fp32 on
+// the fp32 weights (message_fwd with its row statistics; the bf16 forward
+// ran bf16 products, so its buffers are not this recompute's), G's fp32
+// backward, gx and gt rounded to bf16 once. x, t, g [R, C] bf16, every
+// parameter fp32; the parameter grads fp32, each written only when its
+// pointer is set. ws: fp32 scratch for the upcast x, t, g, the recompute
+// (qkv [R, 3C], o, m [R, C], stats [2, windows, T]) and the fp32 gx, gt,
+// then what the recompute's attention and G's fp32 backward take.
+extern "C" int emip_window_layer_bwd_bf16(
+    const void* x, const void* t, const float* wq, const float* wk,
+    const float* wv, const float* wm, const float* s1, const float* mask,
+    int mask_nw, const void* g, void* gx, void* gt, float* gwq, float* gwk,
+    float* gwv, float* gwm, float* gs1, float* gb1, float* ws,
+    long long ws_floats, int windows, int T, int C, int add_residual,
+    float eps, void* stream) {
+  using namespace emip;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Windows d{windows, T, C, mask, mask_nw};
+  const int R = d.rows();
+  const long long rc = (long long)R * C;
+  Workspace all{ws, ws_floats};
+  float* x32 = all.take(rc);
+  float* t32 = all.take(rc);
+  float* g32 = all.take(rc);
+  float* qkv = all.take(3 * rc);
+  float* o = all.take(rc);
+  float* m = all.take(rc);
+  float* stats = all.take(2LL * R);
+  float* gx32 = gx ? all.take(rc) : nullptr;
+  float* gt32 = gt ? all.take(rc) : nullptr;
+  if (!x32 || !t32 || !g32 || !qkv || !o || !m || !stats || (gx && !gx32) ||
+      (gt && !gt32))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  EMIP_TRY(bf16_to_f32(static_cast<const bf16*>(x), x32, rc, s));
+  EMIP_TRY(bf16_to_f32(static_cast<const bf16*>(t), t32, rc, s));
+  EMIP_TRY(bf16_to_f32(static_cast<const bf16*>(g), g32, rc, s));
+  EMIP_TRY(message_fwd(x32, C, t32, LayerWeights{wq, wk, wv, wm}, d, qkv, o,
+                       m, stats, all, s));
+  if (int code = emip_window_layer_bwd(
+          x32, t32, wq, wk, wv, wm, s1, mask, mask_nw, qkv, o, m, stats, g32,
+          gx32, gt32, gwq, gwk, gwv, gwm, gs1, gb1, all.p, all.n, windows, T,
+          C, add_residual, eps, stream))
+    return code;
+  if (gx) EMIP_TRY(f32_to_bf16(gx32, static_cast<bf16*>(gx), rc, s));
+  if (gt) EMIP_TRY(f32_to_bf16(gt32, static_cast<bf16*>(gt), rc, s));
+  return (int)cudaGetLastError();
+}
+
+// H's bf16 backward, as the JAX kernel (_ffn_bwd_kernel) computes it with a
+// bf16 storage dtype: x, t and g upcast, the layer and its FFN recomputed
+// in fp32 on the fp32 weights (H's fp32 forward), H's fp32 backward, gx
+// and gt rounded once. ws: fp32 scratch for the upcast x, t, g, the
+// recompute (qkv [R, 3C], o, m, z, out [R, C], stats [2, windows, T], cat
+// [R, 2C], h, u [R, F]) and the fp32 gx, gt, then what the recompute's
+// attention and H's fp32 backward take.
+extern "C" int emip_window_ffn_layer_bwd_bf16(
+    const void* x, const void* t, const float* wq, const float* wk,
+    const float* wv, const float* wm, const float* s1, const float* b1,
+    const float* w0, const float* w2, const float* s2, const float* b2,
+    const float* mask, int mask_nw, const void* g, void* gx, void* gt,
+    float* gwq, float* gwk, float* gwv, float* gwm, float* gs1, float* gb1,
+    float* gw0, float* gw2, float* gs2, float* gb2, float* ws,
+    long long ws_floats, int windows, int T, int C, int F, float eps,
+    void* stream) {
+  using namespace emip;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int R = windows * T;
+  const long long rc = (long long)R * C, rf = (long long)R * F;
+  Workspace all{ws, ws_floats};
+  float* x32 = all.take(rc);
+  float* t32 = all.take(rc);
+  float* g32 = all.take(rc);
+  float* qkv = all.take(3 * rc);
+  float* o = all.take(rc);
+  float* m = all.take(rc);
+  float* stats = all.take(2LL * R);
+  float* cat = all.take(2 * rc);
+  float* h = all.take(rf);
+  float* u = all.take(rf);
+  float* z = all.take(rc);
+  float* out = all.take(rc);  // the recompute's output, not read
+  float* gx32 = gx ? all.take(rc) : nullptr;
+  float* gt32 = gt ? all.take(rc) : nullptr;
+  if (!x32 || !t32 || !g32 || !qkv || !o || !m || !stats || !cat || !h ||
+      !u || !z || !out || (gx && !gx32) || (gt && !gt32))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  EMIP_TRY(bf16_to_f32(static_cast<const bf16*>(x), x32, rc, s));
+  EMIP_TRY(bf16_to_f32(static_cast<const bf16*>(t), t32, rc, s));
+  EMIP_TRY(bf16_to_f32(static_cast<const bf16*>(g), g32, rc, s));
+  if (int code = emip_window_ffn_layer(
+          x32, t32, wq, wk, wv, wm, s1, b1, w0, w2, s2, b2, mask, mask_nw,
+          qkv, o, m, stats, cat, h, u, z, out, all.p, all.n, windows, T, C, F,
+          eps, stream))
+    return code;
+  if (int code = emip_window_ffn_layer_bwd(
+          x32, t32, wq, wk, wv, wm, s1, w0, w2, s2, mask, mask_nw, qkv, o, m,
+          stats, cat, h, u, z, g32, gx32, gt32, gwq, gwk, gwv, gwm, gs1, gb1,
+          gw0, gw2, gs2, gb2, all.p, all.n, windows, T, C, F, eps, stream))
+    return code;
+  if (gx) EMIP_TRY(f32_to_bf16(gx32, static_cast<bf16*>(gx), rc, s));
+  if (gt) EMIP_TRY(f32_to_bf16(gt32, static_cast<bf16*>(gt), rc, s));
   return (int)cudaGetLastError();
 }
 

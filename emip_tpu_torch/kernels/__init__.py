@@ -4,9 +4,10 @@ Each public function takes the JAX package's layout, runs its plain
 PyTorch version on CPU tensors and its CUDA kernel on CUDA tensors, and
 counts its kernel launches in :data:`LAUNCHES`. Every kernel is a
 ``torch.autograd.Function``: the CUDA backward of A-D and F-J is a kernel
-too, E's is torch ops (a gather), as the JAX package's is XLA. A, B, C and
-D also take bf16 inputs (the bf16 band: short inference and the train
-step): a bf16 forward kernel and a bf16 backward kernel each. The kernels
+too, E's is torch ops (a gather), as the JAX package's is XLA. A, B, C,
+D, F, G, H and J also take bf16 inputs (the bf16 band: every model,
+inference and training): a bf16 forward kernel and a bf16 backward kernel
+each; E and I read fp32 in both bands, as the JAX package's do. The kernels
 are built from ``emip_tpu_torch/csrc`` at first use (:func:`library`).
 """
 

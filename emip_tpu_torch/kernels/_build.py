@@ -93,6 +93,14 @@ _SIGNATURES = {
                                + [_F, _P]),
     "emip_window_ffn_layer_bf16": ([_P] * 13 + [_I] + [_P] * 10 + [_L]
                                    + [_I] * 4 + [_F, _P]),
+    # the rest of the bf16 band: G and H backward (the train step at
+    # 512^2), J forward and backward
+    "emip_window_layer_bwd_bf16": ([_P] * 8 + [_I] + [_P] * 10 + [_L]
+                                   + [_I] * 4 + [_F, _P]),
+    "emip_window_ffn_layer_bwd_bf16": ([_P] * 13 + [_I] + [_P] * 14 + [_L]
+                                       + [_I] * 4 + [_F, _P]),
+    "emip_dwconv_gelu_bf16": [_P] * 4 + [_I] * 4 + [_P],
+    "emip_dwconv_gelu_bwd_bf16": [_P] * 8 + [_L] + [_I] * 4 + [_P],
 }
 _RESTYPES = {"emip_attention_fwd_workspace": _L,
              "emip_dwconv_gelu_bwd_workspace": _L,

@@ -49,6 +49,12 @@ LAUNCHES = {
     "memory_attention_bwd_bf16": 0,
     "window_attention_layer_bf16": 0,
     "window_attention_ffn_layer_bf16": 0,
+    # the rest of the bf16 band: G and H backward (the train step at
+    # 512^2), J forward and backward (the fused MixFFN switches)
+    "window_attention_layer_bwd_bf16": 0,
+    "window_attention_ffn_layer_bwd_bf16": 0,
+    "dwconv_gelu_bf16": 0,
+    "dwconv_gelu_bwd_bf16": 0,
 }
 
 # floats of split-K / column-sum / attention-partial workspace a backward
@@ -82,8 +88,8 @@ def check_kernel_args(name: str, dtype: torch.dtype = torch.float32,
                       **tensors: torch.Tensor) -> None:
     """Every tensor the kernel reads or writes: ``dtype`` and contiguous.
 
-    A bf16 tensor where the kernel has only its fp32 instantiation is named
-    as such: the bf16 band has A-D, F, and G and H forward, so far.
+    A bf16 tensor where the kernel has only its fp32 instantiation (E, I)
+    is named as such.
     """
     for arg, t in tensors.items():
         if t.dtype != dtype:

@@ -11,6 +11,16 @@ autograd backward), CUDA tensors the forward and backward kernels. With
 and GELU and only the backward is the kernel, as ``dwconv_gelu_bwd_fused``
 keeps XLA's forward.
 
+In the bf16 band (bf16 ``u`` and taps, fp32 bias, as the JAX MixFFN hands
+them to the kernel) the kernels are the JAX ones with a bf16 storage
+dtype: the stencil and the GELU in fp32 on the widened values, the output
+rounded to bf16; the backward recomputes in fp32, and returns gu and the
+tap grad rounded to bf16 (the tap grad is summed in fp32 and returned in
+the taps' dtype) and the bias grad fp32 (``emip_dwconv_gelu_bf16``,
+``emip_dwconv_gelu_bwd_bf16``). With ``library_forward`` the bf16 forward
+is JAX's ``_xla_fwd`` in bf16: the library's bf16 convolution, the bias
+cast to bf16 and added, the GELU in bf16.
+
 The CUDA kernels cannot run without a card, so their algorithm is also
 written out here in plain tensor code that the CPU tests hold against the
 plain version, its autograd backward and the Pallas kernels:
@@ -39,10 +49,28 @@ _NAME = "fused_dwconv_gelu"
 
 
 def fused_dwconv_gelu_reference(u, wdw, bdw, h: int, w: int) -> torch.Tensor:
-    """Plain PyTorch version of :func:`fused_dwconv_gelu`."""
+    """Plain PyTorch version of :func:`fused_dwconv_gelu` (with bf16 ``u``
+    that of its bf16 kernel: fp32 on the widened u and taps, the output
+    rounded once)."""
+    if u.dtype == torch.bfloat16:
+        return fused_dwconv_gelu_reference(u.float(), wdw.float(), bdw, h,
+                                           w).to(u.dtype)
     b, hw, f = u.shape
     x = u.transpose(1, 2).reshape(b, f, h, w)
     y = F.conv2d(x, wdw.permute(2, 0, 1)[:, None], bdw, padding=1, groups=f)
+    return F.gelu(y).flatten(2).transpose(1, 2)
+
+
+def _library_forward(u, wdw, bdw, h: int, w: int) -> torch.Tensor:
+    """The forward of ``library_forward``: the library's convolution and
+    GELU in u's dtype (in bf16 JAX's ``_xla_fwd``: the bf16 convolution,
+    then the bias cast to bf16 and added, then the GELU)."""
+    if u.dtype != torch.bfloat16:
+        return fused_dwconv_gelu_reference(u, wdw, bdw, h, w)
+    b, hw, f = u.shape
+    x = u.transpose(1, 2).reshape(b, f, h, w)
+    y = F.conv2d(x, wdw.permute(2, 0, 1)[:, None], None, padding=1, groups=f)
+    y = y + bdw.to(u.dtype)[:, None, None]
     return F.gelu(y).flatten(2).transpose(1, 2)
 
 
@@ -137,7 +165,9 @@ def _partial_floats(b: int, h: int, w: int, f: int) -> int:
 
 
 def _check(u, wdw, bdw, h, w) -> None:
-    cm.check_kernel_args(_NAME, u=u, wdw=wdw, bdw=bdw)
+    """u and wdw in u's dtype (fp32 or bf16), bdw fp32."""
+    cm.check_kernel_args(_NAME, u.dtype, u=u, wdw=wdw)
+    cm.check_kernel_args(_NAME, bdw=bdw)
     if u.dim() != 3:
         raise ValueError(f"{_NAME}: u must be [B, H*W, F]")
     b, hw, f = u.shape
@@ -157,18 +187,21 @@ class _DWConvGelu(torch.autograd.Function):
         ctx.hw = (h, w)
         if keep:
             ctx.save_for_backward(u, wdw, bdw)
+        if library_forward:
+            if not ctx.cpu:
+                _check(u, wdw, bdw, h, w)
+            return _library_forward(u, wdw, bdw, h, w).contiguous()
         if ctx.cpu:
             return fused_dwconv_gelu_reference(u, wdw, bdw, h, w)
         _check(u, wdw, bdw, h, w)
-        if library_forward:
-            return fused_dwconv_gelu_reference(u, wdw, bdw, h,
-                                               w).contiguous()
+        bf16 = u.dtype == torch.bfloat16
         out = torch.empty_like(u)
-        rc = library().emip_dwconv_gelu(
-            u.data_ptr(), wdw.data_ptr(), bdw.data_ptr(), out.data_ptr(),
-            u.shape[0], h, w, u.shape[2], cm.stream_handle(u.device))
-        cm.raise_on_error(_NAME, rc)
-        cm.LAUNCHES["dwconv_gelu"] += 1
+        fn = (library().emip_dwconv_gelu_bf16 if bf16
+              else library().emip_dwconv_gelu)
+        rc = fn(u.data_ptr(), wdw.data_ptr(), bdw.data_ptr(), out.data_ptr(),
+                u.shape[0], h, w, u.shape[2], cm.stream_handle(u.device))
+        cm.raise_on_error(_NAME + (" (bf16)" if bf16 else ""), rc)
+        cm.LAUNCHES["dwconv_gelu_bf16" if bf16 else "dwconv_gelu"] += 1
         return out
 
     @staticmethod
@@ -176,10 +209,13 @@ class _DWConvGelu(torch.autograd.Function):
         needs = ctx.needs_input_grad[:3]
         u, wdw, bdw = ctx.saved_tensors
         h, w = ctx.hw
+        bf16 = u.dtype == torch.bfloat16
         if ctx.cpu:
-            grads = cm.plain_vjp(
-                lambda *a: fused_dwconv_gelu_reference(*a, h, w),
-                (u, wdw, bdw), needs, g)
+            # bf16: the fp32 VJP at the widened inputs, each grad rounded to
+            # its input's dtype, as the JAX backward kernel computes it
+            vjp = cm.plain_vjp_fp32 if bf16 else cm.plain_vjp
+            grads = vjp(lambda *a: fused_dwconv_gelu_reference(*a, h, w),
+                        (u, wdw, bdw), needs, g)
             return (*grads, None, None, None, None)
         g = g.contiguous()
         b, _, f = u.shape
@@ -189,12 +225,14 @@ class _DWConvGelu(torch.autograd.Function):
         if gwdw is not None or gbdw is not None:
             ws = torch.empty(_partial_floats(b, h, w, f), device=u.device,
                              dtype=torch.float32)
-        rc = library().emip_dwconv_gelu_bwd(
-            u.data_ptr(), wdw.data_ptr(), bdw.data_ptr(), g.data_ptr(),
-            cm.ptr(gu), cm.ptr(gwdw), cm.ptr(gbdw), cm.ptr(ws),
-            cm.numel(ws), b, h, w, f, cm.stream_handle(u.device))
-        cm.raise_on_error(_NAME + " backward", rc)
-        cm.LAUNCHES["dwconv_gelu_bwd"] += 1
+        fn = (library().emip_dwconv_gelu_bwd_bf16 if bf16
+              else library().emip_dwconv_gelu_bwd)
+        rc = fn(u.data_ptr(), wdw.data_ptr(), bdw.data_ptr(), g.data_ptr(),
+                cm.ptr(gu), cm.ptr(gwdw), cm.ptr(gbdw), cm.ptr(ws),
+                cm.numel(ws), b, h, w, f, cm.stream_handle(u.device))
+        cm.raise_on_error(_NAME + " backward" + (" (bf16)" if bf16 else ""),
+                          rc)
+        cm.LAUNCHES["dwconv_gelu_bwd" + ("_bf16" if bf16 else "")] += 1
         return gu, gwdw, gbdw, None, None, None, None
 
 
@@ -206,8 +244,10 @@ def fused_dwconv_gelu(u: torch.Tensor, wdw: torch.Tensor, bdw: torch.Tensor,
 
     Differentiable in u, wdw and bdw; the backward recomputes the
     pre-activation and computes only the grads that are asked for. With
-    ``library_forward`` a CUDA forward runs the library's convolution and
-    GELU instead of the kernel; the backward is the kernel either way.
+    ``library_forward`` the forward runs the library's convolution and GELU
+    instead of the kernel; the backward is the kernel either way. bf16
+    ``u`` and ``wdw`` with an fp32 ``bdw`` take the bf16 kernels: bf16 out,
+    gu and gwdw bf16, gbdw fp32.
     """
     return _DWConvGelu.apply(u, wdw, bdw, h, w, cm.grad_wanted(u, wdw, bdw),
                              bool(library_forward))

@@ -38,8 +38,11 @@ G and H with bf16 ``x`` and ``t`` (fp32 parameters) are the two halves of
 B's bf16 forward, as the JAX kernels compute them with a bf16 storage
 dtype: G in bf16 (``emip_window_layer_bf16``: q, k, v, P and o rounded,
 LN1 in fp32, the residual added in bf16), H in fp32 on the upcast x and t
-with only its output rounded (``emip_window_ffn_layer_bf16``). They have no
-bf16 backward yet: differentiating either raises.
+with only its output rounded (``emip_window_ffn_layer_bf16``). Their bf16
+backwards (``emip_window_layer_bwd_bf16``, ``emip_window_ffn_layer_bwd_bf16``)
+are the JAX kernels' as B's is: the layer recomputed in fp32 on the upcast
+x and t and the fp32 weights, its fp32 backward, gx and gt rounded to
+bf16, the parameter grads fp32.
 """
 
 from __future__ import annotations
@@ -525,31 +528,106 @@ class _WindowBlockBf16(torch.autograd.Function):
         return (gx, gt, None, None, *pgrads)
 
 
-class _NoBf16Backward(torch.autograd.Function):
-    """G and H in the bf16 band, forward only: bf16 x, t and output, fp32
-    parameters; differentiating them raises on either device."""
+class _WindowLayerBf16(torch.autograd.Function):
+    """G in the bf16 band: bf16 x, t and output, fp32 parameters (wq, wk,
+    wv, wm, s1, b1)."""
 
     @staticmethod
-    def forward(ctx, name, add_residual, x, t, mask, *params):
+    def forward(ctx, x, t, mask, keep, add_residual, *params):
         tensors = [x, t, *params] + ([] if mask is None else [mask])
-        cpu = cm.on_cpu(name, *tensors)
-        if name == _LAYER:
-            p = dict(zip(_SELF_KEYS, params))
-            if cpu:
-                return _layer_reference_bf16(x, t, p, mask, add_residual)
-            return _layer_bf16(x, t, p, mask, add_residual)
+        ctx.cpu = cm.on_cpu(_LAYER, *tensors)
+        ctx.add_residual = add_residual
+        if keep:  # the backward recomputes the rest from them
+            ctx.save_for_backward(x, t, mask, *params)
+        p = dict(zip(_SELF_KEYS, params))
+        if ctx.cpu:
+            return _layer_reference_bf16(x, t, p, mask, add_residual)
+        return _layer_bf16(x, t, p, mask, add_residual)
+
+    @staticmethod
+    def backward(ctx, g):
+        needs_x, needs_t = ctx.needs_input_grad[:2]
+        needs_p = ctx.needs_input_grad[5:]
+        x, t, mask, *params = ctx.saved_tensors
+        if ctx.cpu:
+            def plain(x, t, *p):
+                return fused_window_attention_layer_reference(
+                    x, t, dict(zip(_SELF_KEYS, p)), mask, ctx.add_residual)
+
+            grads = cm.plain_vjp_fp32(plain, (x, t, *params),
+                                      (needs_x, needs_t, *needs_p), g)
+            return (grads[0], grads[1], None, None, None, *grads[2:])
+        g = g.contiguous()
+        b, k2, tok, c = x.shape
+        rows = b * k2 * tok
+        pgrads = [torch.empty_like(p) if nd else None
+                  for nd, p in zip(needs_p, params)]
+        gx, gt = cm.empty_if(needs_x, x), cm.empty_if(needs_t, t)
+        # fp32 scratch (see emip_window_layer_bwd_bf16), then the larger of
+        # the recompute's key-split partials and G's fp32 backward's
+        scratch = rows * 10 * c + 2 * rows
+        rest = max(_workspace_floats(b * k2, 1, tok, tok, c, True),
+                   rows * 6 * c)
+        ws = cm.workspace(x.device, scratch + rest)
+        rc = library().emip_window_layer_bwd_bf16(
+            x.data_ptr(), t.data_ptr(), *(w.data_ptr() for w in params[:5]),
+            cm.ptr(mask), k2, g.data_ptr(), cm.ptr(gx), cm.ptr(gt),
+            *(cm.ptr(p) for p in pgrads), ws.data_ptr(), ws.numel(), b * k2,
+            tok, c, int(ctx.add_residual), EPS, cm.stream_handle(x.device))
+        cm.raise_on_error(_LAYER + " backward (bf16)", rc)
+        cm.LAUNCHES["window_attention_layer_bwd_bf16"] += 1
+        return (gx, gt, None, None, None, *pgrads)
+
+
+class _WindowFFNLayerBf16(torch.autograd.Function):
+    """H in the bf16 band: bf16 x, t and output, fp32 parameters (wq, wk,
+    wv, wm, s1, b1, w0, w2, s2, b2)."""
+
+    @staticmethod
+    def forward(ctx, x, t, mask, keep, *params):
+        tensors = [x, t, *params] + ([] if mask is None else [mask])
+        ctx.cpu = cm.on_cpu(_FFN_LAYER, *tensors)
+        if keep:  # the backward recomputes the rest from them
+            ctx.save_for_backward(x, t, mask, *params)
         p = dict(zip(_CROSS_KEYS, params))
-        if cpu:
+        if ctx.cpu:
             return _ffn_layer_reference_bf16(x, t, p, mask)
         return _ffn_layer_bf16(x, t, p, mask)
 
     @staticmethod
     def backward(ctx, g):
-        raise NotImplementedError(
-            "G and H backward in bfloat16 (fused_window_attention_layer and "
-            "fused_window_attention_ffn_layer with bf16 windows) have no "
-            "kernel yet: train in float32, or at windows of at most "
-            "fused_block_max_t tokens")
+        needs_x, needs_t = ctx.needs_input_grad[:2]
+        needs_p = ctx.needs_input_grad[4:]
+        x, t, mask, *params = ctx.saved_tensors
+        if ctx.cpu:
+            def plain(x, t, *p):
+                return fused_window_attention_ffn_layer_reference(
+                    x, t, dict(zip(_CROSS_KEYS, p)), mask)
+
+            grads = cm.plain_vjp_fp32(plain, (x, t, *params),
+                                      (needs_x, needs_t, *needs_p), g)
+            return (grads[0], grads[1], None, None, *grads[2:])
+        g = g.contiguous()
+        b, k2, tok, c = x.shape
+        f = params[6].shape[0]
+        rows = b * k2 * tok
+        pgrads = [torch.empty_like(p) if nd else None
+                  for nd, p in zip(needs_p, params)]
+        gx, gt = cm.empty_if(needs_x, x), cm.empty_if(needs_t, t)
+        # fp32 scratch (see emip_window_ffn_layer_bwd_bf16), then the larger
+        # of the recompute's key-split partials and H's fp32 backward's
+        scratch = rows * (14 * c + 2 * f) + 2 * rows
+        rest = max(_workspace_floats(b * k2, 1, tok, tok, c, True),
+                   rows * (8 * c + f))
+        ws = cm.workspace(x.device, scratch + rest)
+        rc = library().emip_window_ffn_layer_bwd_bf16(
+            x.data_ptr(), t.data_ptr(), *(w.data_ptr() for w in params),
+            cm.ptr(mask), k2, g.data_ptr(), cm.ptr(gx), cm.ptr(gt),
+            *(cm.ptr(p) for p in pgrads), ws.data_ptr(), ws.numel(), b * k2,
+            tok, c, f, EPS, cm.stream_handle(x.device))
+        cm.raise_on_error(_FFN_LAYER + " backward (bf16)", rc)
+        cm.LAUNCHES["window_attention_ffn_layer_bwd_bf16"] += 1
+        return (gx, gt, None, None, *pgrads)
 
 
 def _layer_bf16(x, t, p, mask, add_residual):
@@ -621,16 +699,14 @@ def fused_window_attention_layer(x: torch.Tensor, t: torch.Tensor,
     x, t: [B, K2, T, C] pre-split (and, if shifted, pre-rolled) windows of
     any token count T; mask: [K2, T, T] additive shift mask or None.
     Returns ``LN1(attention Wm)``, plus ``x`` with ``add_residual``.
-    Differentiable in x, t and every parameter (not in the mask). bf16
-    ``x`` and ``t`` (fp32 parameters) take the bf16 forward, bf16 out; its
-    backward raises (no kernel yet).
+    Differentiable in x, t and every parameter (not in the mask). With
+    bf16 ``x`` and ``t`` (fp32 parameters) the bf16 kernels: bf16 out, gx
+    and gt bf16, the parameter grads fp32.
     """
     flat = [params[k] for k in _SELF_KEYS]
-    if x.dtype == torch.bfloat16:
-        return _NoBf16Backward.apply(_LAYER, bool(add_residual), x, t, mask,
-                                     *flat)
-    return _WindowLayer.apply(x, t, mask, cm.grad_wanted(x, t, *flat),
-                              bool(add_residual), *flat)
+    fn = _WindowLayerBf16 if x.dtype == torch.bfloat16 else _WindowLayer
+    return fn.apply(x, t, mask, cm.grad_wanted(x, t, *flat),
+                    bool(add_residual), *flat)
 
 
 def fused_window_attention_ffn_layer(x: torch.Tensor, t: torch.Tensor,
@@ -642,11 +718,10 @@ def fused_window_attention_ffn_layer(x: torch.Tensor, t: torch.Tensor,
     Shapes as :func:`fused_window_attention_layer`; ``params`` also holds
     w0 [F, 2C], w2 [C, F], s2, b2. Returns
     ``x + LN2(gelu([x, msg] W0) W2)`` with ``msg`` the attention message.
-    bf16 ``x`` and ``t`` (fp32 parameters) take the bf16 forward, bf16 out;
-    its backward raises (no kernel yet).
+    bf16 ``x`` and ``t`` (fp32 parameters) take the bf16 kernels, as
+    :func:`fused_window_attention_layer`.
     """
     flat = [params[k] for k in _CROSS_KEYS]
-    if x.dtype == torch.bfloat16:
-        return _NoBf16Backward.apply(_FFN_LAYER, None, x, t, mask, *flat)
-    return _WindowFFNLayer.apply(x, t, mask, cm.grad_wanted(x, t, *flat),
-                                 *flat)
+    fn = (_WindowFFNLayerBf16 if x.dtype == torch.bfloat16
+          else _WindowFFNLayer)
+    return fn.apply(x, t, mask, cm.grad_wanted(x, t, *flat), *flat)

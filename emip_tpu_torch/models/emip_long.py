@@ -41,7 +41,6 @@ from emip_tpu_torch.models.emip_short import (
     EMIPShort,
     EMIPShortConfig,
     _set_dtype,
-    bf16_missing_kernels,
 )
 from emip_tpu_torch.models.ltm import LTM, MemoryState
 from emip_tpu_torch.models.prompt import Injector
@@ -51,10 +50,7 @@ __all__ = ["EMIPLong"]
 
 class EMIPLong(nn.Module):
     """``dtype``: the compute dtype, fp32 or bfloat16 (the parameters are
-    fp32 either way). A bf16 model whose configuration would reach a
-    kernel without a bf16 forward raises when it is built, naming it (the
-    short-term net runs forward only, so G's and H's backwards are not
-    asked for)."""
+    fp32 either way), in every configuration of the short-term net."""
 
     def __init__(self, config: EMIPShortConfig = EMIPShortConfig(),
                  memory_size: int = 5, dtype: torch.dtype = torch.float32):
@@ -70,8 +66,7 @@ class EMIPLong(nn.Module):
         self.injector1 = Injector(dim=fdim)
         self.decoder = NeighborConnectionDecoder(config.channel)
         self.dr1 = DimensionalReduction(fdim, config.channel)
-        pvt = self.short_term.backbone.feat_net.pvtv2_en
-        _set_dtype(self, dtype, bf16_missing_kernels(config, pvt.config))
+        _set_dtype(self, dtype)
 
     def train(self, mode: bool = True):
         """Set the mode of the long heads; the short-term net stays in

@@ -20,13 +20,14 @@ engine also returns its pre-propagation flow.
 dimensional reductions, NCD), the model of static-image pretraining.
 
 ``EMIPShort(config, dtype=torch.bfloat16)`` is the bf16 band, for
-inference and training: the JAX package's ``EMIPShort(dtype=bfloat16)``
-(the published configuration's ``compute_dtype``), with kernels A-D in
-their bf16 forwards and backwards, and at 512^2 G and H in their bf16
-forwards (inference only: a model built with ``backward=True``, as the
-trainer builds it, refuses them); it outputs fp32 mask logits and flows,
-as the JAX model does. ``SegNetwork(..., dtype=torch.bfloat16)`` is the
-same band for static pretraining (kernel A).
+inference and training, in every configuration: the JAX package's
+``EMIPShort(dtype=bfloat16)`` (the published configuration's
+``compute_dtype``), with kernels A-D in their bf16 forwards and backwards,
+at 512^2 G and H in theirs, J in its under the fused MixFFN switches, and
+kernel I on the fp32 correlation volume under read-corr matching (as in
+the JAX package); it outputs fp32 mask logits and flows, as the JAX model
+does. ``SegNetwork(..., dtype=torch.bfloat16)`` is the same band for
+static pretraining (kernel A, and J under its switches).
 """
 
 from __future__ import annotations
@@ -84,55 +85,21 @@ class _SegBackbone(nn.Module):
         return self.feat_net.pvtv2_en(x, generator)
 
 
-def bf16_missing_kernels(cfg: EMIPShortConfig | None,
-                         pvt_config: PVTv2Config,
-                         backward: bool = False) -> list[str]:
-    """The kernels without a bf16 instantiation that ``cfg`` would reach
-    (``backward``: in a train step too): I under read-corr matching, J
-    under the fused MixFFN switches, and with ``backward`` G and H
-    backward for windows above ``fused_block_max_t`` tokens (512^2). With
-    ``cfg`` None (:class:`SegNetwork`: no flow stream) only J is asked."""
-    missing = []
-    if cfg is not None:
-        gm = cfg.gmflow
-        tok = (cfg.inp_size // 8 // gm.attn_splits_list[0]) ** 2
-        if backward and tok > gm.fused_block_max_t:
-            missing.append(f"G and H backward (windows of {tok} tokens > "
-                           f"fused_block_max_t {gm.fused_block_max_t})")
-        if not gm.global_match_qk_fused:
-            missing.append("I (read-corr matching, global_match_qk_fused "
-                           "false)")
-    if (pvt_config.fused_ffn == "always"
-            or pvt_config.ffn_dwconv == "bwd_fused"):
-        missing.append(f"J (fused_ffn={pvt_config.fused_ffn!r}, "
-                       f"ffn_dwconv={pvt_config.ffn_dwconv!r})")
-    return missing
-
-
-def _set_dtype(module: nn.Module, dtype: torch.dtype, missing) -> None:
-    """Give ``module`` its compute dtype; a bf16 model that would reach a
-    kernel without a bf16 instantiation (``missing``) raises, naming it."""
-    name = type(module).__name__
+def _set_dtype(module: nn.Module, dtype: torch.dtype) -> None:
+    """Give ``module`` its compute dtype: fp32 or bf16, else it raises."""
     if dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"{name} computes in float32 or bfloat16, not "
-                         f"{dtype}")
-    if dtype == torch.bfloat16 and missing:
-        raise NotImplementedError(
-            f"{name} in bfloat16 would reach kernels without a bfloat16 "
-            f"instantiation: " + "; ".join(missing))
+        raise ValueError(f"{type(module).__name__} computes in float32 or "
+                         f"bfloat16, not {dtype}")
     set_compute_dtype(module, dtype)
 
 
 class EMIPShort(nn.Module):
     """The two-stream model. ``dtype``: its compute dtype, fp32 or
     bfloat16 (:mod:`emip_tpu_torch.dtypes`); the parameters are fp32
-    either way. A bf16 model whose configuration would reach a kernel
-    without a bf16 instantiation raises when it is built, naming it;
-    ``backward``: the model will be trained, so the kernels' backwards
-    count too."""
+    either way."""
 
     def __init__(self, config: EMIPShortConfig = EMIPShortConfig(),
-                 dtype: torch.dtype = torch.float32, backward: bool = False):
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         cfg = config
         self.config = cfg
@@ -171,8 +138,7 @@ class EMIPShort(nn.Module):
                 nn.GELU(), nn.ConvTranspose2d(256, 128, 2, stride=2))
             self.upscaling3 = nn.Sequential(
                 nn.ConvTranspose2d(320, 128, 2, stride=2), LayerNorm2d(128))
-        _set_dtype(self, dtype,
-                   bf16_missing_kernels(cfg, pvt.config, backward))
+        _set_dtype(self, dtype)
 
     def encode_frame(self, image: torch.Tensor, generator=None) -> dict:
         """Everything that depends on one frame: backbone stages /8, /16,
@@ -257,7 +223,7 @@ class SegNetwork(nn.Module):
         self.dr2 = DimensionalReduction(ch[-2], channel)
         self.dr3 = DimensionalReduction(ch[-1], channel)
         self.decoder = NeighborConnectionDecoder(channel)
-        _set_dtype(self, dtype, bf16_missing_kernels(None, pvt.config))
+        _set_dtype(self, dtype)
 
     def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
         stages = self.backbone(x, generator)

@@ -16,7 +16,10 @@ the pixel grid takes one of two paths, as in the JAX package:
 The correlation volume is fp32 whatever the features' dtype: with bf16
 features (the bf16 band) it is their exact products summed in fp32, as the
 JAX package's ``einsum(..., preferred_element_type=float32)``, and kernel C
-takes the bf16 features with the fp32 pixel grid.
+takes the bf16 features with the fp32 pixel grid; under read-corr matching
+kernel I reads that fp32 volume in both bands, as the JAX kernel does. The
+volume's gradient reaches the bf16 features through ``.float()``, rounded
+to bf16 once, where the JAX einsum's transpose rounds it.
 """
 
 from __future__ import annotations

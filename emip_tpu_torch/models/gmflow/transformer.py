@@ -10,10 +10,10 @@ window has at most ``fused_block_max_t`` tokens, and above that as its two
 window split stay outside the kernels. Flow propagation is kernel C.
 LayerNorms use eps 1e-6, the JAX package's flax default (the reference's
 torch modules use 1e-5). With bf16 features (the bf16 band) B, or G then H
-above ``fused_block_max_t``, run their bf16 forwards (the roll, the window
-split and the merge move bf16 tokens) and the propagation's projections
-run in bf16 before C's bf16 forward, whose flow comes out fp32, as in the
-JAX package.
+above ``fused_block_max_t``, run their bf16 kernels, forward and backward
+(the roll, the window split and the merge move bf16 tokens), and the
+propagation's projections run in bf16 before C's bf16 forward, whose flow
+comes out fp32, as in the JAX package.
 """
 
 from __future__ import annotations

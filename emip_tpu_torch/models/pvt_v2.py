@@ -20,8 +20,9 @@ a rate ramping linearly to ``drop_path_rate`` over all blocks; its random
 bits come from the ``torch.Generator`` handed to :meth:`PVTv2.forward`.
 With a bf16 compute dtype (:mod:`emip_tpu_torch.dtypes`) the convs, the
 linears, the GELU and the residuals run in bf16 on weights cast to bf16;
-the LayerNorms keep fp32 statistics and return bf16, and kernel A runs its
-bf16 forward, as the JAX package's PVTv2 with ``dtype=bfloat16``.
+the LayerNorms keep fp32 statistics and return bf16, and kernels A and J
+run their bf16 instantiations, as the JAX package's PVTv2 with
+``dtype=bfloat16``.
 """
 
 from __future__ import annotations
@@ -156,8 +157,11 @@ class MixFFN(nn.Module):
         y = self.fc1(x)
         if self.use_fused == "always" or self.dwconv_impl == "bwd_fused":
             conv = self.dwconv.dwconv
-            # [F, 1, 3, 3] -> the kernel's [3, 3, F]
-            taps = conv.weight[:, 0].permute(1, 2, 0).contiguous()
+            # [F, 1, 3, 3] -> the kernel's [3, 3, F], in the compute dtype
+            # (the JAX MixFFN casts the taps, so a bf16 tap grad is rounded
+            # before the cast's backward widens it); the bias stays fp32
+            taps = cast(conv.weight, compute_dtype(self))
+            taps = taps[:, 0].permute(1, 2, 0).contiguous()
             y = fused_dwconv_gelu(
                 y.contiguous(), taps, conv.bias, h, w,
                 library_forward=self.use_fused != "always")

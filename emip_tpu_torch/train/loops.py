@@ -139,8 +139,8 @@ def train_short(cfg: Config, resume: bool = False,
     snapshot_config(cfg, cfg.save_path)
     scalars = ScalarLogger(cfg.save_path)
     model = seeded_init_(
-        EMIPShort(cfg.model, dtype=dtype_named(cfg.compute_dtype),
-                  backward=True), cfg.seed)
+        EMIPShort(cfg.model, dtype=dtype_named(cfg.compute_dtype)),
+        cfg.seed)
     load_configured_weights(model, cfg.load, SHORT_LOAD)
     model = model.to(device)
     opt = build_optimizer(model, cfg.lr, cfg.weight_decay, cfg.clip)

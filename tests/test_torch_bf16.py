@@ -451,36 +451,41 @@ def test_short_model_bf16_band(slice_outputs, output):
 
 
 def test_bf16_model_refuses_kernels_without_bf16(monkeypatch):
-    """A bf16 EMIPShort whose configuration reaches I (read-corr matching)
-    or J (the fused MixFFN switches) raises when it is built, naming the
-    kernel; one that reaches G / H (windows above ``fused_block_max_t``)
-    builds for inference (their bf16 forwards) and raises when built for
-    training (``backward=True``), naming G's and H's backwards; fp32
-    builds."""
+    """Every configuration builds in bf16 (the name is from when some were
+    refused; none is now): EMIPShort at windows above
+    ``fused_block_max_t`` (G and H), with read-corr matching (I) and with
+    either MixFFN switch (J); EMIPLong with the same switches; SegNetwork
+    with either J switch. Each holds the compute dtype it was given; only a
+    dtype other than fp32 or bf16 raises."""
     import dataclasses
 
-    from emip_tpu_torch.models.emip_short import EMIPShort
-
-    cases = {
-        "G and H backward": dict(fused_block_max_t=8),
-        r"I \(read-corr": dict(global_match_qk_fused=False),
-    }
-    for name, gm in cases.items():
-        cfg = th.torch_tiny_short(**gm).config  # fp32: fine
-        EMIPShort(cfg, backward=True)
-        with pytest.raises(NotImplementedError, match=name):
-            EMIPShort(cfg, dtype=BF16, backward=True)
-    th.torch_tiny_short(dtype=BF16, fused_block_max_t=8)
-    with pytest.raises(NotImplementedError, match=r"I \(read-corr"):
-        th.torch_tiny_short(dtype=BF16, global_match_qk_fused=False)
+    from emip_tpu_torch.dtypes import compute_dtype
+    from emip_tpu_torch.models.emip_long import EMIPLong
+    from emip_tpu_torch.models.emip_short import EMIPShort, SegNetwork
+    from emip_tpu_torch.models.pvt_v2 import PVT_V2_VARIANTS
 
     base = th.torch_tiny_short().config
-
-    for switch in (dict(fused_ffn="always"), dict(ffn_dwconv="bwd_fused")):
+    switches = [dict(gmflow=dataclasses.replace(base.gmflow,
+                                                fused_block_max_t=8)),
+                dict(gmflow=dataclasses.replace(base.gmflow,
+                                                global_match_qk_fused=False)),
+                dict(fused_ffn="always"), dict(ffn_dwconv="bwd_fused")]
+    for switch in switches:
         cfg = dataclasses.replace(base, **switch)
-        EMIPShort(cfg)
-        with pytest.raises(NotImplementedError, match="J "):
-            EMIPShort(cfg, dtype=BF16)
+        for dtype in (torch.float32, BF16):
+            model = EMIPShort(cfg, dtype=dtype)
+            assert compute_dtype(model.GMFlow) == dtype
+            assert compute_dtype(model.backbone) == dtype
+            long = EMIPLong(cfg, memory_size=2, dtype=dtype)
+            assert compute_dtype(long.LTM) == dtype
+    b0 = dataclasses.replace(PVT_V2_VARIANTS["pvt_v2_b0"], depths=th.DEPTHS)
+    for switch in (dict(fused_ffn="always"), dict(ffn_dwconv="bwd_fused")):
+        seg = SegNetwork(b0, channel=th.CHANNEL, dtype=BF16, **switch)
+        assert compute_dtype(seg.decoder) == BF16
+        mlp = seg.backbone.feat_net.pvtv2_en.block1[0].mlp
+        assert (mlp.use_fused, mlp.dwconv_impl) == (
+            switch.get("fused_ffn", "never"),
+            switch.get("ffn_dwconv", "conv"))
     with pytest.raises(ValueError):
         EMIPShort(base, dtype=torch.float16)
 

@@ -14,7 +14,8 @@ inputs and weights, with the JAX Pallas kernels in interpret mode:
 - ``memory_read`` on the fp32 ring with a bf16 query, and the ring holding
   the pushed bf16 keys and values exactly;
 - G's and H's plain bf16 versions against their Pallas kernels in bf16
-  (8e-3), and their backward refused on the CPU too;
+  (8e-3), and their bf16 backward (the fp32 VJP at the upcast inputs, gx
+  and gt rounded; held against ``jax.vjp`` in tests/test_torch_bf16_512.py);
 - the tiny long model (tests/torch_helpers.py: b0 widths, depths (1, 1, 1,
   1), 64^2, a 3-slot ring) in bf16: ``step``, ``step_cached`` over three
   chained frames and ``scan_video`` within twice JAX's own bf16-vs-fp32 gap
@@ -26,8 +27,10 @@ inputs and weights, with the JAX Pallas kernels in interpret mode:
   (PARITY.md: max |delta loss| of port bf16 against JAX bf16 at most twice
   that of JAX bf16 against JAX fp32);
 - ``train_long`` and ``test_long`` on a tiny YAML that says bfloat16 build
-  a bf16 model and write fp32 checkpoints, and the short trainer refuses
-  bf16 above ``fused_block_max_t``, naming G's and H's backwards.
+  a bf16 model and write fp32 checkpoints, and the short trainer trains in
+  bf16 above ``fused_block_max_t`` (G's and H's bf16 backwards); a bf16
+  EMIPLong with read-corr matching (kernel I on the fp32 volume) within
+  JAX's band of JAX's.
 """
 
 import copy
@@ -286,9 +289,12 @@ def test_window_ffn_layer_bf16_matches_pallas(shifted):
 
 @pytest.mark.parametrize("layer", ["G", "H"])
 def test_window_layers_bf16_backward_is_refused(layer):
-    """G and H have no bf16 backward: differentiating their bf16 forward
-    raises, naming it, on the CPU as on the card; without a gradient the
-    forward runs and keeps no graph."""
+    """G and H have their bf16 backward (the name is from when it was
+    refused): without a gradient the bf16 forward keeps no graph; with one,
+    differentiating it returns gx and gt in bf16 and the parameter grads in
+    fp32, the fp32 VJP of the layer at the upcast inputs rounded once."""
+    from emip_tpu_torch.kernels import _common as cm
+
     rng = np.random.default_rng(80)
     x, t, mask = _windows(rng, True)
     p = _port_params(_layer_params(rng, 64, 128 if layer == "H" else None))
@@ -296,11 +302,24 @@ def test_window_layers_bf16_backward_is_refused(layer):
           else K.fused_window_attention_ffn_layer)
     with torch.no_grad():
         assert fn(_tb(x), _tb(t), p, _t(mask)).grad_fn is None
-    leaf = _tb(x).requires_grad_(True)
-    out = fn(leaf, _tb(t), p, _t(mask))
-    with pytest.raises(NotImplementedError,
-                       match="G and H backward in bfloat16"):
-        out.float().sum().backward()
+    leaves = [_tb(x).requires_grad_(True), _tb(t).requires_grad_(True)]
+    params = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+    out = fn(*leaves, params, _t(mask))
+    assert out.grad_fn is not None and out.dtype == BF16
+    cot = _tb(rng.standard_normal(out.shape))
+    names = list(params)
+    grads = torch.autograd.grad(out, leaves + list(params.values()), cot)
+    assert [g.dtype for g in grads] == [BF16, BF16] + [torch.float32] * len(
+        names)
+
+    def plain(x, t, *ps):
+        return fn(x, t, dict(zip(names, ps)), _t(mask))
+
+    want = cm.plain_vjp_fp32(plain, [a.detach() for a in leaves]
+                             + [v.detach() for v in params.values()],
+                             [True] * (2 + len(names)), cot)
+    for g, w in zip(grads, want):
+        assert torch.equal(g, w)
 
 
 # ----------------------------------------------------- the long model
@@ -588,21 +607,47 @@ def test_short_model_bf16_layers_within_jax_band(layered_outputs, output):
                 o["port32"][output]))
 
 
-def test_bf16_builds_refuse_only_missing_kernels():
-    """At windows above ``fused_block_max_t`` a bf16 EMIPShort builds for
-    inference and refuses ``backward=True`` (the trainer's), naming G's and
-    H's backwards; a bf16 EMIPLong builds (its short-term net runs forward
-    only) and still refuses read-corr matching (I) by name."""
+def test_bf16_builds_refuse_only_missing_kernels(long_models):
+    """Every bf16 build runs (the name is from when some were refused; none
+    is now): at windows above ``fused_block_max_t`` a bf16 EMIPShort
+    builds, and a bf16 EMIPLong with read-corr matching builds and runs
+    kernel I on the fp32 correlation volume, as the JAX package's: its
+    long mask and the previous frame's short mask after one step from an
+    empty ring lie within twice JAX's bf16-vs-fp32 gap of JAX's bf16
+    read-corr model (the JAX side under EMIP_GLOBAL_MATCH_QK=0, read when
+    it traces)."""
+    from emip_tpu_torch.dtypes import compute_dtype
     from emip_tpu_torch.models.emip_short import EMIPShort
 
     cfg = th.torch_tiny_short(fused_block_max_t=8).config
-    EMIPShort(cfg, dtype=BF16)
-    EMIPShort(cfg, backward=True)
-    with pytest.raises(NotImplementedError, match="G and H backward"):
-        EMIPShort(cfg, dtype=BF16, backward=True)
-    th.torch_tiny_long(dtype=BF16, fused_block_max_t=8)
-    with pytest.raises(NotImplementedError, match=r"EMIPLong .*I \(read"):
-        th.torch_tiny_long(dtype=BF16, global_match_qk_fused=False)
+    assert compute_dtype(EMIPShort(cfg, dtype=BF16)) == BF16
+    m = long_models
+    f = _frames(2, seed=21)
+    want = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("EMIP_GLOBAL_MATCH_QK", "0")
+        for name in ("jax32", "jax16"):
+            jm = m[name]
+            mask, short, _ = jax.jit(
+                lambda v, a, b, s, jm=jm: jm.apply(v, a, b, s, False))(
+                    m["variables"], f[0], f[1], jm.init_memory(2))
+            want[name] = dict(mask=mask, short=short)
+    sd = m["port32"].state_dict()
+    got = {}
+    for name, dtype in (("port32", torch.float32), ("port16", BF16)):
+        model = th.torch_tiny_long(dtype=dtype, global_match_qk_fused=False)
+        model.load_state_dict(sd, strict=True)
+        before = dict(K.LAUNCHES)
+        with torch.no_grad():
+            mask, short, _ = model.step(th.nchw(f[0]), th.nchw(f[1]),
+                                        model.init_memory(2))
+        assert K.LAUNCHES == before  # the CPU runs the plain versions
+        got[name] = dict(mask=mask.permute(0, 2, 3, 1),
+                         short=short.permute(0, 2, 3, 1))
+    assert got["port16"]["mask"].dtype == torch.float32
+    for output in ("mask", "short"):
+        print(output, _band(got["port16"][output], want["jax16"][output],
+                            want["jax32"][output], got["port32"][output]))
 
 
 # ------------------------------------------------------- entry points
@@ -658,23 +703,31 @@ def test_long_entry_points_honour_bfloat16(tmp_path, monkeypatch,
     assert frames == 6 and len(list(out.rglob("*.png"))) == 6
 
 
-def test_short_trainer_refuses_bf16_above_block_switch(tmp_path):
-    """The short trainer builds its bf16 model with ``backward=True``: at
-    windows above ``fused_block_max_t`` it raises before it trains, naming
-    G's and H's backwards."""
+def test_short_trainer_refuses_bf16_above_block_switch(tmp_path,
+                                                       synthetic_root):
+    """The short trainer trains a bf16 model at windows above
+    ``fused_block_max_t`` (the name is from when it refused them): on the
+    CPU through G's and H's bf16 backwards, one step, a finite validation
+    MAE, an fp32 checkpoint."""
+    import yaml
+
     from emip_tpu_torch.config import load_config
     from emip_tpu_torch.train.loops import train_short
 
-    cfg = th.tiny_yaml(tmp_path / "c.yaml", "/d", str(tmp_path / "run"),
+    save = str(tmp_path / "run")
+    cfg = th.tiny_yaml(tmp_path / "c.yaml", synthetic_root, save,
                        compute_dtype="bfloat16")
-    import yaml
-
     raw = yaml.safe_load(open(cfg))
     raw["model"]["args"]["GMFlow"]["fused_block_max_t"] = 8
     with open(cfg, "w") as f:
         yaml.safe_dump(raw, f)
-    with pytest.raises(NotImplementedError, match="G and H backward"):
-        train_short(load_config(cfg), device="cpu")
+    model, summary = train_short(load_config(cfg), max_steps_per_epoch=1,
+                                 device="cpu")
+    assert model.GMFlow.transformer.layers[0].fused_block_max_t == 8
+    assert summary["steps"] == 1 and np.isfinite(summary["best_mae"])
+    state = torch.load(os.path.join(save, "ckpt", "ckpt.pt"))["model"]
+    assert all(v.dtype in (torch.float32, torch.int64)
+               for v in state.values())
 
 
 # --------------------------------------------------------------- card

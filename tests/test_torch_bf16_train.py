@@ -633,10 +633,11 @@ def test_trainers_honour_bfloat16(tmp_path, monkeypatch, entry):
 
 @pytest.mark.cuda
 def test_cuda_bf16_backward_kernels_match_plain_versions():
-    """The bf16 backwards of A, B, C and D on the card against the fp32
-    plain version's VJP at the upcast inputs, each grad rounded to its
-    input's dtype (1e-2 of max|ref| per grad), the grads' dtypes, the same
-    bits on a second call, one bf16 backward launch each and no fp32 one."""
+    """The bf16 backwards of A, B, C and D, and of G and H (512^2 windows)
+    and J, on the card against the fp32 plain version's VJP at the upcast
+    inputs, each grad rounded to its input's dtype (1e-2 of max|ref| per
+    grad), the grads' dtypes, the same bits on a second call, one bf16
+    backward launch each and no fp32 one."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
     from emip_tpu_torch.kernels import _common as cm
@@ -662,6 +663,11 @@ def test_cuda_bf16_backward_kernels_match_plain_versions():
         return lambda x, t, *p: fn(x, t, dict(zip(keys, p[:6])),
                                    dict(zip(ckeys, p[6:])), mask)
 
+    mask512 = shifted_window_mask(64, 64, 2, device="cuda")
+
+    def layer(fn, names):
+        return lambda x, t, *p: fn(x, t, dict(zip(names, p)), mask512)
+
     cases = [
         ("sr_attention_bwd_bf16", K.fused_sr_attention,
          K.fused_sr_attention_reference,
@@ -681,6 +687,18 @@ def test_cuda_bf16_backward_kernels_match_plain_versions():
         ("convex_upsample_bwd_bf16", K.convex_upsample,
          K.convex_upsample_reference,
          [r(2, 44, 44, 2, scale=3, dtype=f32), r(2, 44, 44, 576)], (8,)),
+        ("window_attention_layer_bwd_bf16",
+         layer(K.fused_window_attention_layer, keys),
+         layer(K.fused_window_attention_layer_reference, keys),
+         [r(2, 4, 1024, c), r(2, 4, 1024, c)] + [sp[k] for k in keys], ()),
+        ("window_attention_ffn_layer_bwd_bf16",
+         layer(K.fused_window_attention_ffn_layer, ckeys),
+         layer(K.fused_window_attention_ffn_layer_reference, ckeys),
+         [r(2, 4, 1024, c), r(2, 4, 1024, c)] + [cp[k] for k in ckeys], ()),
+        ("dwconv_gelu_bwd_bf16", K.fused_dwconv_gelu,
+         K.fused_dwconv_gelu_reference,
+         [r(2, 44 * 44, 256), r(3, 3, 256, scale=0.3),
+          r(256, scale=0.1, dtype=f32)], (44, 44)),
     ]
     for name, fn, plain, args, extra in cases:
         leaves = [a.detach().requires_grad_(True) for a in args]

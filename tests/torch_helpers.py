@@ -21,19 +21,24 @@ FDIM = 64  # = pvt_v2_b0's /8 width
 CHANNEL = 8
 
 
-def jax_tiny_short(drop_path_rate: float = 0.1, size: int = SIZE):
+def jax_tiny_short(drop_path_rate: float = 0.1, size: int = SIZE, *,
+                   pvt: dict | None = None):
     """(JAX EMIPShort, its config) at b0 widths, reduced depth and size,
-    exact GELU (a plain PVTv2Config) and the fused Pallas attention."""
+    exact GELU (a plain PVTv2Config) and the fused Pallas attention;
+    ``pvt`` sets further PVTv2Config fields (the MixFFN switches)."""
     from emip_tpu.models.backbones import register_backbone
     from emip_tpu.models.emip_short import EMIPShort, EMIPShortConfig
     from emip_tpu.models.gmflow import GMFlowConfig
     from emip_tpu.models.pvt_v2 import PVTv2, PVTv2Config
 
+    pvt = pvt or {}
     b0 = PVTv2Config((32, 64, 160, 256), (1, 2, 5, 8), (8, 8, 4, 4), DEPTHS,
                      (8, 4, 2, 1), drop_path_rate=drop_path_rate,
-                     remat=False, fused_attn="always")
-    # one registry name per rate: the registry is global to the process
-    name = f"pvt_v2_b0_port_parity_dp{drop_path_rate}"
+                     remat=False, fused_attn="always", **pvt)
+    # one registry name per rate and switch: the registry is global to the
+    # process
+    name = f"pvt_v2_b0_port_parity_dp{drop_path_rate}" + "".join(
+        f"_{k}{v}" for k, v in sorted(pvt.items()))
     register_backbone(name, lambda dtype: PVTv2(config=b0, dtype=dtype),
                       b0.embed_dims)
     cfg = EMIPShortConfig(
@@ -46,16 +51,17 @@ def jax_tiny_short(drop_path_rate: float = 0.1, size: int = SIZE):
 
 def torch_tiny_short(include_dead_modules: bool = True,
                      drop_path_rate: float = 0.1, size: int = SIZE,
-                     dtype: torch.dtype = torch.float32, **gmflow):
+                     dtype: torch.dtype = torch.float32, *,
+                     pvt: dict | None = None, **gmflow):
     """The port's EMIPShort at the same configuration, computing in
-    ``dtype``; ``gmflow`` sets further :class:`GMFlowConfig` fields (the
-    kernel switches)."""
+    ``dtype``; ``gmflow`` sets further :class:`GMFlowConfig` fields and
+    ``pvt`` further :class:`PVTv2Config` fields (the kernel switches)."""
     from emip_tpu_torch.models.emip_short import EMIPShort, EMIPShortConfig
     from emip_tpu_torch.models.gmflow import GMFlowConfig
     from emip_tpu_torch.models.pvt_v2 import PVT_V2_VARIANTS
 
     b0 = dataclasses.replace(PVT_V2_VARIANTS["pvt_v2_b0"], depths=DEPTHS,
-                             drop_path_rate=drop_path_rate)
+                             drop_path_rate=drop_path_rate, **(pvt or {}))
     cfg = EMIPShortConfig(
         backbone_name=b0, channel=CHANNEL, inp_size=size,
         gmflow=GMFlowConfig(feature_channels=FDIM,

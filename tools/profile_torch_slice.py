@@ -17,8 +17,8 @@ SegNetwork (b5, channel 32; always a train step, ``static_train_step``'s
 work). ``--bf16`` runs the model in the bf16 band (``dtype=bfloat16``,
 cuBLAS's reduced-precision bf16 reduction off): the short model,
 SegNetwork or, with ``--long``, EMIPLong, inference or, with ``--train``
-or ``--static``, the train step (the short train step at 512^2 has no
-bf16 band: G's and H's bf16 backwards are not written). Run the fp32 and
+or ``--static``, the train step (at 512^2 through G's and H's bf16
+backwards). Run the fp32 and
 bf16 steps in turns in one call to compare them. It prints:
 
 - the card's ``nvidia-smi`` name and power limit;
@@ -196,7 +196,7 @@ def main() -> int:
     elif args.static:
         model = SegNetwork("pvt_v2_b5", 32, dtype=dtype)
     else:
-        model = EMIPShort(cfg, dtype=dtype, backward=args.train)
+        model = EMIPShort(cfg, dtype=dtype)
     seeded_init_(model, cs.SEED)
     model = model.to(dev).eval()
     table = (long_module_table if args.long else
