@@ -259,8 +259,12 @@ products for one, the bf16 peak for two; ``bound_rate`` names them), and
 these rows carry the CUDA cores' figure for all their operations as
 ``fp32_bound_ms``),
 and as its last line ``{"ok": true, "device":
-{...}}``. Any failure raises and the exit code is non-zero, with no result
-line. Details also go to ``chiprun_out/chip_smoke.json``. ``--kernels
+{...}}``. Before the JSON line it prints a ``digests {...}`` line: for every
+case of the fp32 backward rows of A, B, C, F, G and H and of the bf16 ones
+of A and C (``DIGEST_KERNELS``) the sha256 of its grads' bytes and its
+device launches per call, so that two trees can be shown to give the same
+bits at the same seeds. Any failure raises and the exit code is non-zero,
+with no result line. Details also go to ``chiprun_out/chip_smoke.json``. ``--kernels
 NAMES`` is a development aid: the kernel phases alone, for the kernels
 whose name contains one of the comma-separated NAMES (``gemm`` adds the
 GEMM lines of phase 3, ``attention_fwd`` its attention lines, ``bf16`` the
@@ -272,6 +276,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import functools
+import hashlib
 import itertools
 import json
 import os
@@ -448,11 +453,14 @@ TENSOR_CORE_KERNELS = ("sr_attention", "sr_attention_bwd",
 # (``device_ms``): the CUDA-core kernels D, E, I and J, whose calls take the
 # device about as long as, or less than, the host's launch path, which the
 # CUDA-event time then reads
+# (device_ms), and the bf16 backwards of A and C, whose launches per call
+# the redesign of their bf16 form cut
 DEVICE_TIMED = ("convex_upsample", "convex_upsample_bwd", "splat_density",
                 "softmax_expectation", "softmax_expectation_bwd",
                 "dwconv_gelu", "dwconv_gelu_bwd", "convex_upsample_bf16",
                 "convex_upsample_bwd_bf16", "dwconv_gelu_bf16",
-                "dwconv_gelu_bwd_bf16")
+                "dwconv_gelu_bwd_bf16", "sr_attention_bwd_bf16",
+                "flow_attention_bwd_bf16")
 # kernels held to the same bits on a second call on the same inputs: the
 # tensor-core ones, J and I's backward, which add their per-block partials
 # in a fixed order, and E, whose sum is in integers
@@ -460,7 +468,18 @@ BIT_EQUAL_KERNELS = TENSOR_CORE_KERNELS + (
     "dwconv_gelu", "dwconv_gelu_bwd", "softmax_expectation_bwd",
     "splat_density", "window_attention_layer_bwd_bf16",
     "window_attention_ffn_layer_bwd_bf16", "dwconv_gelu_bf16",
-    "dwconv_gelu_bwd_bf16")
+    "dwconv_gelu_bwd_bf16", "sr_attention_bwd_bf16",
+    "flow_attention_bwd_bf16")
+# the backward rows whose grads' digests (sha256 of their bytes, per case)
+# are printed on a line of their own: the bf16 and fp32 backwards of the
+# kernels on the tensor cores' attention backward and GEMM, so that two
+# trees can be shown to give the same bits at the same seeds
+DIGEST_KERNELS = ("sr_attention_bwd", "window_attention_block_bwd",
+                  "window_attention_layer_bwd",
+                  "window_attention_ffn_layer_bwd", "flow_attention_bwd",
+                  "memory_attention_bwd", "sr_attention_bwd_bf16",
+                  "flow_attention_bwd_bf16")
+DIGESTS = {}
 # the 3xTF32 GEMM alone against the fp64 product: max|err| / max|ref| (fp32
 # rounding of sums over up to 61,952 rows)
 GEMM_REL_TOL = 1e-5
@@ -655,6 +674,53 @@ def device_ms(fn, reps: int, split: dict | None = None) -> float:
         busy += max(0.0, end - max(start, reach))
         reach = max(reach, end)
     return busy / 1e3 / reps
+
+
+def digest(tensors) -> str:
+    """sha256 of the tensors' bytes, in order (any dtype)."""
+    import torch
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+def launches_per_call(fn) -> float:
+    """Device kernels (and copies, memsets) one call of ``fn`` launches,
+    from ``torch.profiler`` over two calls after a warm-up. A session now
+    and then loses some of its device events (an unchanged fp32 case read 0
+    launches in one run and 10 in another), so three are taken and the
+    largest count kept."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    counts = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                fn()
+            torch.cuda.synchronize()
+        counts.append(sum(
+            1 for ev in prof.events()
+            if ev.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(ev, "is_user_annotation", False)) / 2)
+    return max(counts)
+
+
+def record_digest(name: str, label: str, grads, fn) -> dict:
+    """The digest and launches per call of a backward case of a
+    ``DIGEST_KERNELS`` row (logged, and kept for the digests line)."""
+    if name not in DIGEST_KERNELS:
+        return {}
+    out = dict(digest=digest(grads), launches_per_call=launches_per_call(fn))
+    DIGESTS[f"{name} {label}"] = out
+    log(f"digest {name} {label}: sha256={out['digest']} launches/call="
+        f"{out['launches_per_call']:g}")
+    return out
 
 
 def _kernel_name(name: str) -> str:
@@ -1196,12 +1262,22 @@ def library_ms(name: str, args, reps: int, which=None) -> float | None:
     """Time of the one PyTorch call that computes the same function, where
     there is one: ``scaled_dot_product_attention`` for the flow-valued
     attention (if it takes a 2-wide value) and, with the bias as its
-    ``attn_mask``, for the memory read. With ``which``, the time of its
-    backward alone. A yardstick only: the port never calls it."""
+    ``attn_mask``, for the memory read; for J cuDNN's fp32 depthwise
+    convolution and ``F.gelu`` (:func:`dwconv_library`, TF32 off), as its
+    bf16 rows read theirs. With ``which``, the time of its backward alone.
+    A yardstick only: the port never calls it."""
     import torch
     import torch.nn.functional as F
 
     base = name.removesuffix("_bwd")
+    if base == "dwconv_gelu":
+        if which is None:
+            return cuda_ms(lambda: dwconv_library(args), reps)
+        gen = torch.Generator(device=args[0].device).manual_seed(SEED + 3)
+        _, _, rerun = _grads(lambda *a: dwconv_library(a), args, which,
+                             lambda out: torch.randn(
+                                 out.shape, generator=gen, device=out.device))
+        return cuda_ms(rerun, reps)
     if base not in ("flow_attention", "memory_attention"):
         return None
     mask = args[3][:, None, :] if base == "memory_attention" else None
@@ -1428,6 +1504,7 @@ def backward_phase(batch: int, device, reps: int, only: str = "") -> dict:
                 raise AssertionError(f"{name} ({label}): two calls on the "
                                      f"same inputs differ")
             del again
+        dig = record_digest(name, label, got, rerun_k)
         ms, plain_ms = alternate_ms(rerun_k, rerun_p, reps)
         lib_ms = library_ms(name, args, reps, which)
         dev = device_times(name, rerun_k, rerun_p, reps)
@@ -1442,7 +1519,7 @@ def backward_phase(batch: int, device, reps: int, only: str = "") -> dict:
         record(results, name, label, err, ms, plain_ms,
                backward_work(name, args, which, out_k), lib_ms,
                summed=i not in checks, max_rel=rel, at_352=i in at_352,
-               **dev)
+               **dev, **dig)
         del out_k, out_p, got, want, rerun_k, rerun_p
     for name in TENSOR_CORE_KERNELS:
         # the 352^2 cases apart from the 512^2 and ragged ones
@@ -2096,9 +2173,9 @@ def bf16_work(name: str, args, out) -> tuple:
 
 
 def dwconv_library(args):
-    """J's function as the library computes it in bf16: cuDNN's depthwise
-    convolution on the channels-last tokens (a view, no copy) with the bias
-    in bf16, then ``F.gelu``; a yardstick only."""
+    """J's function as the library computes it in u's dtype (bf16 or fp32):
+    cuDNN's depthwise convolution on the channels-last tokens (a view, no
+    copy) with the bias in that dtype, then ``F.gelu``; a yardstick only."""
     import torch.nn.functional as F
 
     u, taps, bias, h, w = args
@@ -2548,7 +2625,8 @@ def bf16_bwd_work(name: str, args, which, out, grads) -> tuple:
     return fwd + bwd - x2, 0.0, size, 0.0, x2
 
 
-def bf16_backward_phase(batch: int, device, reps: int) -> dict:
+def bf16_backward_phase(batch: int, device, reps: int,
+                        only: str = "") -> dict:
     """The bf16 backwards of A-D against their plain versions on the card
     (rel <= BF16_KERNEL_REL of max|plain| per grad), against an fp64
     evaluation of the same VJP on the same bf16 inputs (each grad's error
@@ -2560,12 +2638,15 @@ def bf16_backward_phase(batch: int, device, reps: int) -> dict:
     VJP (which recomputes the forward, as the kernel does) and, for C,
     scaled_dot_product_attention's backward on the upcast inputs; the bound
     of the recompute and the backward, each product at the rate its
-    operands allow."""
+    operands allow. ``only``: the rows whose name contains one of its
+    comma-separated names (every row when empty)."""
     import torch
 
     results = {}
     for name, label, fn, plain, args, which, summed in bf16_backward_cases(
             batch, device):
+        if not wanted(only, name):
+            continue
         gen = torch.Generator(device=device).manual_seed(SEED + 43)
 
         def cot(out):
@@ -2611,6 +2692,7 @@ def bf16_backward_phase(batch: int, device, reps: int) -> dict:
                                  f"inputs differ")
         del again
         finite = all(bool(torch.isfinite(t).all()) for t in got)
+        dig = record_digest(name, label, got, rerun_k)
         ms, plain_ms = alternate_ms(rerun_k, plain_grads, reps)
         lib_ms, sdpa_ms = bf16_bwd_library_ms(name, fn, args, which, reps)
         dev = device_times(name, rerun_k, plain_grads, reps)
@@ -2635,7 +2717,8 @@ def bf16_backward_phase(batch: int, device, reps: int) -> dict:
                fp64_ratio_bf16_grads=worst[torch.bfloat16][0],
                fp64_ratio_fp32_grads=worst[torch.float32][0],
                fp64_err_per_grad=e_ks, plain_fp64_err_per_grad=e_ps,
-               **({} if sdpa_ms is None else dict(sdpa_ms=sdpa_ms)), **dev)
+               **({} if sdpa_ms is None else dict(sdpa_ms=sdpa_ms)), **dev,
+               **dig)
         del out_k, got, want, rerun_k
     for entry in results.values():
         entry["fp64_ratio"] = max(c["fp64_ratio"] for c in entry["cases"])
@@ -4958,6 +5041,7 @@ def main(argv=None) -> int:
             bf16_kernel_phase(BATCH, device, KERNEL_REPS)
             bf16_gemm_phase(BATCH, device, KERNEL_REPS)
             bf16_backward_phase(BATCH, device, KERNEL_REPS)
+            log("digests " + json.dumps(DIGESTS))
             return 0
         if wanted(opts.kernels, "gemm"):
             gemm_phase(BATCH, device, KERNEL_REPS)
@@ -4965,8 +5049,11 @@ def main(argv=None) -> int:
             attention_phase(BATCH, device, KERNEL_REPS)
         kernel_phase(BATCH, device, KERNEL_REPS, opts.kernels)
         backward_phase(BATCH, device, KERNEL_REPS, opts.kernels)
+        if any(wanted(opts.kernels, name) for name in BF16_BWD_INFO):
+            bf16_backward_phase(BATCH, device, KERNEL_REPS, opts.kernels)
         if wanted(opts.kernels, "flow_attention"):
             stats_cost(BATCH, device, KERNEL_REPS)
+        log("digests " + json.dumps(DIGESTS))
         return 0
     gemm_res = gemm_phase(BATCH, device, KERNEL_REPS)
     attention_res = attention_phase(BATCH, device, KERNEL_REPS)
@@ -5190,8 +5277,9 @@ def main(argv=None) -> int:
                        bf16_compare_gh=bf16_compare_gh,
                        bf16_train_512=train512_16,
                        bf16_read_corr=read_corr16, bf16_fused_ffn=fused_ffn16,
-                       bf16_train_512_entry=train512_entry),
+                       bf16_train_512_entry=train512_entry, digests=DIGESTS),
                   f, indent=1, default=str)
+    log("digests " + json.dumps(DIGESTS))
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

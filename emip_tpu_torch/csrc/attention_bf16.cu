@@ -99,7 +99,7 @@ attention_bf16_kernel(AttnBf16Args a) {
   for (int e = tid; e < kAbRows * kChunks; e += kAbThreads) {
     const int r = e / kChunks, c = (e % kChunks) * 8;
     const bool ok = q0 + r < a.Nq;
-    cp_async_raw<16>(Qs + r * L::kLd + c,
+    cp_async<16>(Qs + r * L::kLd + c,
                      ok ? qp + (long long)(q0 + r) * a.q_sn + c : qp, ok);
   }
 
@@ -109,7 +109,7 @@ attention_bf16_kernel(AttnBf16Args a) {
     for (int e = tid; e < kAbKt * kChunks; e += kAbThreads) {
       const int r = e / kChunks, c = (e % kChunks) * 8;
       const bool ok = k0 + r < a.Nk;
-      cp_async_raw<16>(ks + r * L::kLd + c,
+      cp_async<16>(ks + r * L::kLd + c,
                        ok ? kp + (long long)(k0 + r) * a.k_sn + c : kp, ok);
     }
     if constexpr (L::kWide) {
@@ -120,7 +120,7 @@ attention_bf16_kernel(AttnBf16Args a) {
       for (int e = tid; e < kAbKt * kVChunks; e += kAbThreads) {
         const int r = e / kVChunks, c = (e % kVChunks) * 8;
         const bool ok = k0 + r < a.Nk;
-        cp_async_raw<16>(vs + r * L::kLdV + c,
+        cp_async<16>(vs + r * L::kLdV + c,
                          ok ? vp + (long long)(k0 + r) * a.v_sn + c : vp, ok);
       }
     } else {
@@ -128,7 +128,7 @@ attention_bf16_kernel(AttnBf16Args a) {
       float* vs = reinterpret_cast<float*>(Vs + s * L::kVBytes);
       for (int r = tid; r < kAbKt; r += kAbThreads) {
         const bool ok = k0 + r < a.Nk;
-        cp_async_raw<8>(vs + 2 * r,
+        cp_async<8>(vs + 2 * r,
                         ok ? vp + (long long)(k0 + r) * a.v_sn : vp, ok);
       }
     }

@@ -25,9 +25,10 @@
 //                    without the residual, into a bf16 output.
 //   bf16_to_f32      an elementwise upcast (B's cross layer reads t in
 //                    fp32, as the JAX kernel upcasts it; the bf16
-//                    backwards of A-D upcast their inputs to recompute).
-//   f32_to_bf16      an elementwise rounding (the bf16 backwards round
-//                    their grads once, at the end).
+//                    backwards of B, F, G and H upcast their inputs to
+//                    recompute).
+//   f32_to_bf16      an elementwise rounding (those backwards round their
+//                    grads once, at the end).
 
 #pragma once
 
@@ -76,21 +77,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// 16 bytes (or BYTES) from device to shared memory; zeros when !valid (src
-// must still be an address of the tensor).
-template <int BYTES>
-__device__ __forceinline__ void cp_async_raw(void* dst, const void* src,
-                                             bool valid) {
-  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-  const int n = valid ? BYTES : 0;
-  if constexpr (BYTES == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
-                 "l"(src), "r"(n));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;" ::"r"(d),
-                 "l"(src), "n"(BYTES), "r"(n));
 }
 
 inline bool aligned16_ptr(const void* p) {

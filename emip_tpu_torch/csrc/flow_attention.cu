@@ -52,17 +52,37 @@
 // so dv is not asked for.
 //
 // The bf16 backward (the bf16 train step: q, k bf16, v fp32), as the JAX
-// kernel computes it: q and k upcast, the scores and P recomputed in fp32,
-// dq and dk rounded to bf16 once at the end. A first, simple
-// instantiation: q and k are converted into fp32 scratch, the fp32 forward
-// above recomputes the row statistics (the bf16 forward keeps none; its
-// scores, exact bf16 products summed in fp32, equal the fp32 recompute's up
-// to the order of the sums), the fp32 backward above runs on the scratch
-// with the bf16 forward's fp32 output in delta, as the JAX kernel reads
-// its forward's out, and dq, dk are rounded into their bf16 tensors.
+// kernel computes it: the scores and P recomputed in fp32 from q and k,
+// dq and dk rounded to bf16 once at the end. q and k are read as bf16 where
+// they lie: copied by cp.async into bf16 tiles (rows D + 8 values apart,
+// half the bytes of the fp32 tiles) and widened exactly, a shift, as the
+// fragments are built. A bf16 value is exact in TF32, so the products of
+// its zero low half are left out (mma_3xtf32's A_EXACT / B_EXACT): q k^T
+// is one TF32 product, dS k and dS^T q two; the 2-wide products stay on the
+// CUDA cores. Two launches and their merge: a statistics pass
+// (attention_fwd_tc with STATS_BF16: the fp32 forward's tiling, splits and
+// merge, no P v) gives the row max and sum (the bf16 forward keeps none,
+// and its scores, mma.m16n8k16 bf16 products, sum in another order), then
+// attention_bwd_tc with QK_BF16 at the fp32 backward's tiling and splits,
+// delta from the bf16 forward's fp32 output as the JAX kernel reads its
+// forward's out; dq and dk are rounded where they are finished (the unsplit
+// pass, or the ordered sum of the split partials), dv stays fp32. Every
+// term left out added +0, so the grads are the bits of the fp32 backward on
+// the upcast q and k, rounded: no scratch copy of the inputs, no fp32 dq and
+// dk, no conversion launches.
+//
+// Budget of the bf16 backward's passes at width 128 (64): a block of 4 warps
+// owns 128 rows, 34 KiB (18 KiB) of bf16 tile; each streamed stage is a bf16
+// tile of 32 rows and its vectors, 9.3 KiB (5.3 KiB). The registers (two
+// 16-row fragments a warp, <= 255 a thread) allow two blocks an SM, as in
+// fp32, and the fp32 tiling's block count is kept so that the splits, and
+// so the sums, are the fp32 backward's. The halved tiles buy a third stage
+// instead (62 KiB a block, against 103 KiB for fp32 with two), so that two
+// tiles are in flight while one is multiplied; a wider resident tile would
+// change the splits and the bits. The statistics pass keeps the forward's
+// tiling: 256 query rows of 8 warps, one block an SM (registers), 86 KiB.
 
 #include "attention_bf16.cuh"
-#include "bf16.cuh"
 #include "mma_tf32.cuh"
 
 // the tilings: warps, fragments of 16 resident rows per warp, streamed rows
@@ -154,9 +174,9 @@ extern "C" int emip_flow_attention_bwd(const float* q, const float* k,
 
 // The bf16 backward: q, k [B, L, C] bf16; v, out, g [B, L, 2] fp32 (out the
 // bf16 forward's); dq, dk bf16 and dv fp32, each null when not wanted. ws:
-// 2 B L C + 2 B L + B L DV floats of scratch for the upcast q and k, the
-// recomputed statistics and output, then 2 B L C for the fp32 dq and dk,
-// then what the fp32 backward takes.
+// 2 B L floats for the row statistics, then the backward's delta (B L) and
+// the partials of its split passes, which the statistics pass's partials
+// use first.
 extern "C" int emip_flow_attention_bwd_bf16(const void* q, const void* k,
                                             const float* v, const float* out,
                                             const float* g, void* dq,
@@ -165,30 +185,44 @@ extern "C" int emip_flow_attention_bwd_bf16(const void* q, const void* k,
                                             int C, void* stream) {
   using namespace emip;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long n = (long long)B * L * C;
+  const long long qsb = (long long)L * C, vsb = (long long)L * 2;
+  const AttnOperand qo{static_cast<const float*>(q), qsb, C},
+      ko{static_cast<const float*>(k), qsb, C}, vo{v, vsb, 2},
+      oo{out, vsb, 2}, go{g, vsb, 2};
+  const AttnGrad dqg{static_cast<float*>(dq), qsb, C},
+      dkg{static_cast<float*>(dk), qsb, C}, dvg{dv, vsb, 2},
+      none{nullptr, vsb, 2};
   Workspace all{ws, ws_floats};
-  float* q32 = all.take(n);
-  float* k32 = all.take(n);
   float* stats = all.take(2LL * B * L);
-  float* out32 = all.take(2LL * B * L);
-  float* dq32 = dq ? all.take(n) : nullptr;
-  float* dk32 = dk ? all.take(n) : nullptr;
-  if (!q32 || !k32 || !stats || !out32 || (dq && !dq32) || (dk && !dk32))
-    return (int)cudaErrorInvalidValue;
+  if (!stats) return (int)cudaErrorInvalidValue;
+  float* row_sum = stats + (long long)B * L;
+  const float scale = 1.0f / sqrtf((float)C);
   cudaError_t err;
-  if ((err = bf16_to_f32(static_cast<const bf16*>(q), q32, n, s)) ||
-      (err = bf16_to_f32(static_cast<const bf16*>(k), k32, n, s)))
-    return (int)err;
-  if (int rc = emip_flow_attention(q32, k32, v, out32, stats, all.p, all.n,
-                                   B, L, C, 2, stream))
-    return rc;
-  if (int rc = emip_flow_attention_bwd(q32, k32, v, out, stats, g, dq32,
-                                       dk32, dv, all.p, all.n, B, L, C, 2,
-                                       stream))
-    return rc;
-  if (dq && (err = f32_to_bf16(dq32, static_cast<bf16*>(dq), n, s)))
-    return (int)err;
-  if (dk && (err = f32_to_bf16(dk32, static_cast<bf16*>(dk), n, s)))
-    return (int)err;
+  if (C == 128) {
+    err = attention_fwd_tc<128, 2, kFlowFwdWarps, kFlowFwdMt, kFlowFwdStr,
+                           false, false, false, true>(
+        qo, ko, vo, nullptr, nullptr, 1, none, stats, row_sum, B, 1, L, L,
+        scale, all, s);
+    if (err == cudaSuccess)
+      err = attention_bwd_tc<128, 2, kFlowBwdWarps, kFlowBwdMt, kFlowBwdStr,
+                             false, true>(qo, ko, vo, oo, go, nullptr,
+                                          nullptr, 1, stats, row_sum, dqg,
+                                          dkg, dvg, B, 1, L, L, scale, all,
+                                          s);
+  } else if (C == 64) {
+    err = attention_fwd_tc<64, 2, kFlowFwdWarps, kFlowFwdMt, kFlowFwdStr,
+                           false, false, false, true>(
+        qo, ko, vo, nullptr, nullptr, 1, none, stats, row_sum, B, 1, L, L,
+        scale, all, s);
+    if (err == cudaSuccess)
+      err = attention_bwd_tc<64, 2, kFlowBwdWarps, kFlowBwdMt, kFlowBwdStr,
+                             false, true>(qo, ko, vo, oo, go, nullptr,
+                                          nullptr, 1, stats, row_sum, dqg,
+                                          dkg, dvg, B, 1, L, L, scale, all,
+                                          s);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

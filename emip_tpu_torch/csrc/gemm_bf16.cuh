@@ -71,7 +71,7 @@ gemm_bf16_kernel(GemmBf16Args g) {
       for (int e = tid; e < kBgBM * (kBgBK / 8); e += kBgThreads) {
         const int r = e / (kBgBK / 8), c = (e % (kBgBK / 8)) * 8;
         const bool ok = row0 + r < g.M && k0 + c < g.K;
-        cp_async_raw<16>(as + r * kBgLd + c,
+        cp_async<16>(as + r * kBgLd + c,
                          ok ? g.A + (long long)(row0 + r) * g.lda + k0 + c
                             : g.A,
                          ok);
@@ -80,7 +80,7 @@ gemm_bf16_kernel(GemmBf16Args g) {
       for (int e = tid; e < kBgBN * (kBgBK / 8); e += kBgThreads) {
         const int r = e / (kBgBK / 8), c = (e % (kBgBK / 8)) * 8;
         const bool ok = col0 + r < g.N && k0 + c < g.K;
-        cp_async_raw<16>(bs + r * kBgLd + c,
+        cp_async<16>(bs + r * kBgLd + c,
                          ok ? g.W + (long long)(col0 + r) * g.ldw + k0 + c
                             : g.W,
                          ok);

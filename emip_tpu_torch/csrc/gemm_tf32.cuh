@@ -35,6 +35,16 @@
 // zero-filled by the copies; where an operand's rows are not 16-byte
 // aligned (a leading dimension or contiguous extent that is no multiple of
 // 4 floats), its copies are 4 bytes wide.
+//
+// An operand may be bf16 (kernel A's bf16 backward: x, kv_in, the weights
+// and the output's gradient): its tiles are copied as bf16, half the
+// bytes, and widened as the fragments are built; a bf16 value is exact in
+// TF32, so the products of its zero low half are left out (mma_3xtf32):
+// one TF32 product of two bf16 operands, two of a bf16 and an fp32 one. The
+// sums are those of the three-term products on the widened operands, so
+// the result has the fp32 GEMM's bits on them. Such a product may write
+// its output rounded to bf16 (c_bf16), once, where it is finished: in the
+// epilogue, or in the ordered sum of its split-K partials.
 
 #pragma once
 
@@ -66,6 +76,7 @@ struct GemmArgs {
   int kchunk;              // K range of one blockIdx.z
   long long split_stride;  // distance between split-K partial outputs
   bool accumulate;         // C += result instead of C = result
+  bool c_bf16;             // C holds bf16 (the bf16-operand forms only)
 };
 
 constexpr int kGemmBM = 128;
@@ -76,34 +87,41 @@ constexpr int kGemmStages = 3;
 constexpr int kGemmMT = 2;         // 16-row fragments per warp (32 rows)
 
 // Shared-memory plan: AK / BK say whether A / B is stored K-major (k
-// contiguous within a row of the tile).
-template <bool AK, bool BK>
+// contiguous within a row of the tile); A16 / B16 whether it is bf16. The
+// leading dims count elements: a bf16 row takes twice the padding in
+// elements (the same in bytes), so that a fragment's reads, two values to
+// a bank word, fall on 16 different words. Tiles are counted in floats.
+template <bool AK, bool BK, bool A16 = false, bool B16 = false>
 struct GemmPlan {
   static constexpr int kNT = kGemmBN / 16;  // 8-column fragments per warp
-  static constexpr int kLdA = AK ? kGemmBK + 4 : kGemmBM + 8;
-  static constexpr int kATile = AK ? kGemmBM * kLdA : kGemmBK * kLdA;
-  static constexpr int kLdB = BK ? kGemmBK + 4 : kGemmBN + 8;
-  static constexpr int kBTile = BK ? kGemmBN * kLdB : kGemmBK * kLdB;
+  static constexpr int kPadA = A16 ? 2 : 1, kPadB = B16 ? 2 : 1;
+  static constexpr int kLdA = AK ? kGemmBK + 4 * kPadA : kGemmBM + 8 * kPadA;
+  static constexpr int kATile = (AK ? kGemmBM * kLdA : kGemmBK * kLdA) / kPadA;
+  static constexpr int kLdB = BK ? kGemmBK + 4 * kPadB : kGemmBN + 8 * kPadB;
+  static constexpr int kBTile = (BK ? kGemmBN * kLdB : kGemmBK * kLdB) / kPadB;
   static constexpr int kStage = kATile + kBTile;
   static constexpr size_t kBytes = sizeof(float) * kGemmStages * kStage;
 };
 
 // dst[o][i] = src[(o0 + o) * s_outer + i0 + i] for o < OUTER, i < INNER
-// (dst rows ld floats apart), zeros where o0 + o >= o_end or i0 + i >=
-// i_end. vec: 16-byte copies (src rows 16-byte aligned, i_end and i0
-// multiples of 4); else 4-byte ones.
-template <int OUTER, int INNER>
-__device__ __forceinline__ void gemm_load_tile(float* dst, int ld,
-                                               const float* src,
+// (dst rows ld elements apart), zeros where o0 + o >= o_end or i0 + i >=
+// i_end; T is float, or uint16_t for bf16 bits. vec: 16-byte copies (src
+// rows 16-byte aligned, i_end and i0 multiples of 16 bytes' elements);
+// else one element a copy, 4-byte cp.async for fp32, and for bf16 plain
+// loads and stores (seen by the block after the barrier that precedes the
+// tile's use).
+template <int OUTER, int INNER, typename T>
+__device__ __forceinline__ void gemm_load_tile(T* dst, int ld, const T* src,
                                                long long s_outer, int o0,
                                                int o_end, int i0, int i_end,
                                                bool vec, int tid) {
   if (vec) {
-    constexpr int kChunks = INNER / 4;
+    constexpr int kVec = 16 / (int)sizeof(T);
+    constexpr int kChunks = INNER / kVec;
     constexpr int kStep = kGemmThreads / kChunks;
     static_assert(kGemmThreads % kChunks == 0 && OUTER % kStep == 0,
                   "whole rows per pass of the block");
-    const int i = (tid % kChunks) * 4;
+    const int i = (tid % kChunks) * kVec;
     const bool i_ok = i0 + i < i_end;
 #pragma unroll
     for (int o = tid / kChunks; o < OUTER; o += kStep) {
@@ -116,18 +134,24 @@ __device__ __forceinline__ void gemm_load_tile(float* dst, int ld,
     for (int e = tid; e < OUTER * INNER; e += kGemmThreads) {
       const int o = e / INNER, i = e % INNER;
       const bool ok = o0 + o < o_end && i0 + i < i_end;
-      cp_async<4>(dst + o * ld + i,
-                  ok ? src + (long long)(o0 + o) * s_outer + i0 + i : src,
-                  ok);
+      const T* from = ok ? src + (long long)(o0 + o) * s_outer + i0 + i : src;
+      if constexpr (sizeof(T) == 4)
+        cp_async<4>(dst + o * ld + i, from, ok);
+      else
+        dst[o * ld + i] = ok ? *from : T(0);
     }
   }
 }
 
-template <bool AK, bool BK, int kEpi>
+// TA, TB: the operands' element types (float, or uint16_t for bf16 bits).
+template <bool AK, bool BK, int kEpi, typename TA = float, typename TB = float>
 __global__ void __launch_bounds__(kGemmThreads, 2)
 gemm_tc_kernel(GemmArgs g, bool vec_a, bool vec_b) {
-  using P = GemmPlan<AK, BK>;
+  using P = GemmPlan<AK, BK, kBf16<TA>, kBf16<TB>>;
+  constexpr bool kMixed = kBf16<TA> || kBf16<TB>;
   constexpr int kNT = P::kNT;
+  const TA* gA = reinterpret_cast<const TA*>(g.A);
+  const TB* gB = reinterpret_cast<const TB*>(g.B);
   extern __shared__ __align__(16) float gemm_smem[];
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int gr = lane / 4, t = lane % 4;
@@ -142,20 +166,21 @@ gemm_tc_kernel(GemmArgs g, bool vec_a, bool vec_b) {
   // groups in flight is the same on every iteration
   auto fill = [&](int tile) {
     if (tile < tiles) {
-      float* as = gemm_smem + (tile % kGemmStages) * P::kStage;
-      float* bs = as + P::kATile;
+      float* st = gemm_smem + (tile % kGemmStages) * P::kStage;
+      TA* as = reinterpret_cast<TA*>(st);
+      TB* bs = reinterpret_cast<TB*>(st + P::kATile);
       const int k0 = kbeg + tile * kGemmBK;
       if constexpr (AK)
-        gemm_load_tile<kGemmBM, kGemmBK>(as, P::kLdA, g.A, g.sam, row0, g.M,
+        gemm_load_tile<kGemmBM, kGemmBK>(as, P::kLdA, gA, g.sam, row0, g.M,
                                          k0, kend, vec_a, tid);
       else
-        gemm_load_tile<kGemmBK, kGemmBM>(as, P::kLdA, g.A, g.sak, k0, kend,
+        gemm_load_tile<kGemmBK, kGemmBM>(as, P::kLdA, gA, g.sak, k0, kend,
                                          row0, g.M, vec_a, tid);
       if constexpr (BK)
-        gemm_load_tile<kGemmBN, kGemmBK>(bs, P::kLdB, g.B, g.sbn, col0, g.N,
+        gemm_load_tile<kGemmBN, kGemmBK>(bs, P::kLdB, gB, g.sbn, col0, g.N,
                                          k0, kend, vec_b, tid);
       else
-        gemm_load_tile<kGemmBK, kGemmBN>(bs, P::kLdB, g.B, g.sbk, k0, kend,
+        gemm_load_tile<kGemmBK, kGemmBN>(bs, P::kLdB, gB, g.sbk, k0, kend,
                                          col0, g.N, vec_b, tid);
     }
     cp_async_commit();
@@ -177,8 +202,9 @@ gemm_tc_kernel(GemmArgs g, bool vec_a, bool vec_b) {
     cp_async_wait<kGemmStages - 2>();
     __syncthreads();
     fill(tile + kGemmStages - 1);
-    const float* As = gemm_smem + (tile % kGemmStages) * P::kStage;
-    const float* Bs = As + P::kATile;
+    const float* st = gemm_smem + (tile % kGemmStages) * P::kStage;
+    const TA* As = reinterpret_cast<const TA*>(st);
+    const TB* Bs = reinterpret_cast<const TB*>(st + P::kATile);
     auto a_at = [&](int r, int k) {
       return AK ? As[r * P::kLdA + k] : As[k * P::kLdA + r];
     };
@@ -199,19 +225,20 @@ gemm_tc_kernel(GemmArgs g, bool vec_a, bool vec_b) {
 #pragma unroll
       for (int m = 0; m < kGemmMT; ++m) {
         const int r = wr + 16 * m + gr;
-        tf32_split(a_at(r, k8 + t), ah[m][0], al[m][0]);
-        tf32_split(a_at(r + 8, k8 + t), ah[m][1], al[m][1]);
-        tf32_split(a_at(r, k8 + t + 4), ah[m][2], al[m][2]);
-        tf32_split(a_at(r + 8, k8 + t + 4), ah[m][3], al[m][3]);
+        split_as(a_at(r, k8 + t), ah[m][0], al[m][0]);
+        split_as(a_at(r + 8, k8 + t), ah[m][1], al[m][1]);
+        split_as(a_at(r, k8 + t + 4), ah[m][2], al[m][2]);
+        split_as(a_at(r + 8, k8 + t + 4), ah[m][3], al[m][3]);
       }
       uint32_t bh[kNT][2], bl[kNT][2];
 #pragma unroll
       for (int n = 0; n < kNT; ++n) {
         const int c = wc + 8 * n + gr;
-        tf32_split(b_at(k8 + t, c), bh[n][0], bl[n][0]);
-        tf32_split(b_at(k8 + t + 4, c), bh[n][1], bl[n][1]);
+        split_as(b_at(k8 + t, c), bh[n][0], bl[n][0]);
+        split_as(b_at(k8 + t + 4, c), bh[n][1], bl[n][1]);
       }
-      mma_3xtf32<kGemmMT, kNT>(part, 0, ah, al, bh, bl);
+      mma_3xtf32<kGemmMT, kNT, kNT, kBf16<TA>, kBf16<TB>>(part, 0, ah, al, bh,
+                                                          bl);
     }
 #pragma unroll
     for (int m = 0; m < kGemmMT; ++m)
@@ -245,13 +272,23 @@ gemm_tc_kernel(GemmArgs g, bool vec_a, bool vec_b) {
           } else if (kEpi == kEpiGeluGrad) {
             v *= gelu_grad(g.aux[(long long)r * g.ldaux + col]);
           }
+          if constexpr (kMixed) {
+            if (g.c_bf16) {  // unsplit: blockIdx.z is 0
+              reinterpret_cast<__nv_bfloat16*>(g.C)[(long long)r * g.ldc +
+                                                    col] =
+                  __float2bfloat16_rn(v);
+              continue;
+            }
+          }
           float* dst = C + (long long)r * g.ldc + col;
           *dst = g.accumulate ? *dst + v : v;
         }
     }
 }
 
-// C[r, c] (+)= sum over z of part[z][r, c], z in order.
+// C[r, c] (+)= sum over z of part[z][r, c], z in order; with OUT
+// __nv_bfloat16 C holds bf16 and the sum is rounded into it (no +=).
+template <typename OUT = float>
 __global__ void splitk_reduce_kernel(const float* __restrict__ part,
                                      int splits, int M, int N, float* C,
                                      long long ldc, bool accumulate) {
@@ -260,30 +297,36 @@ __global__ void splitk_reduce_kernel(const float* __restrict__ part,
   if (idx >= mn) return;
   float s = 0.f;
   for (int z = 0; z < splits; ++z) s += part[z * mn + idx];
-  float* dst = C + (idx / N) * ldc + idx % N;
-  *dst = accumulate ? *dst + s : s;
+  const long long at = (idx / N) * ldc + idx % N;
+  if constexpr (std::is_same_v<OUT, float>) {
+    float* dst = C + at;
+    *dst = accumulate ? *dst + s : s;
+  } else {
+    reinterpret_cast<OUT*>(C)[at] = __float2bfloat16_rn(s);
+  }
 }
 
 inline bool aligned16(const float* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-template <bool AK, bool BK, int kEpi>
+template <bool AK, bool BK, int kEpi, typename TA = float, typename TB = float>
 cudaError_t gemm_launch(const GemmArgs& g, int splits, cudaStream_t stream) {
-  using P = GemmPlan<AK, BK>;
+  using P = GemmPlan<AK, BK, kBf16<TA>, kBf16<TB>>;
   // 16-byte copies where the contiguous extent and the other stride are
-  // whole multiples of 4 floats
-  const bool vec_a = aligned16(g.A) && (AK ? g.K % 4 == 0 && g.sam % 4 == 0
-                                           : g.M % 4 == 0 && g.sak % 4 == 0);
-  const bool vec_b = aligned16(g.B) && (BK ? g.K % 4 == 0 && g.sbn % 4 == 0
-                                           : g.N % 4 == 0 && g.sbk % 4 == 0);
+  // whole multiples of 16 bytes (4 floats, 8 bf16 values)
+  constexpr int va = kBf16<TA> ? 8 : 4, vb = kBf16<TB> ? 8 : 4;
+  const bool vec_a = aligned16(g.A) && (AK ? g.K % va == 0 && g.sam % va == 0
+                                           : g.M % va == 0 && g.sak % va == 0);
+  const bool vec_b = aligned16(g.B) && (BK ? g.K % vb == 0 && g.sbn % vb == 0
+                                           : g.N % vb == 0 && g.sbk % vb == 0);
   // set once per instantiation, not per launch (one card per process)
   static const cudaError_t attr = cudaFuncSetAttribute(
-      gemm_tc_kernel<AK, BK, kEpi>,
+      gemm_tc_kernel<AK, BK, kEpi, TA, TB>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P::kBytes);
   if (attr != cudaSuccess) return attr;
   const dim3 grid(ceil_div(g.N, kGemmBN), ceil_div(g.M, kGemmBM), splits);
-  gemm_tc_kernel<AK, BK, kEpi>
+  gemm_tc_kernel<AK, BK, kEpi, TA, TB>
       <<<grid, kGemmThreads, P::kBytes, stream>>>(g, vec_a, vec_b);
   return cudaGetLastError();
 }
@@ -321,7 +364,34 @@ inline GemmArgs gemm_args(const float* A, long long sam, long long sak,
   g.M = M; g.N = N; g.K = K;
   g.kchunk = K; g.split_stride = 0;
   g.accumulate = false;
+  g.c_bf16 = false;
   return g;
+}
+
+// One product without an epilogue where an operand is bf16 (TA, TB: float,
+// or uint16_t for bf16 bits): the forms kernel A's bf16 backward runs. Two
+// bf16 operands with A K-major (x W^T, dy W); a bf16 A in dW = dy^T x; a
+// bf16 B in dW = dy^T x and dx = dy W. No +=.
+template <typename TA, typename TB>
+cudaError_t gemm_exact(const GemmArgs& g, cudaStream_t stream,
+                       int splits = 1) {
+  static_assert(kBf16<TA> || kBf16<TB>, "the fp32 product is gemm()");
+  const bool ak = g.sak == 1, bk = g.sbk == 1;
+  if ((!ak && g.sam != 1) || (!bk && g.sbn != 1) || g.accumulate)
+    return cudaErrorInvalidValue;
+  if constexpr (kBf16<TA> && kBf16<TB>) {
+    if (!ak) return cudaErrorInvalidValue;
+    return bk ? gemm_launch<true, true, kEpiNone, TA, TB>(g, splits, stream)
+              : gemm_launch<true, false, kEpiNone, TA, TB>(g, splits, stream);
+  } else if constexpr (kBf16<TA>) {
+    return !ak && !bk
+               ? gemm_launch<false, false, kEpiNone, TA, TB>(g, splits, stream)
+               : cudaErrorInvalidValue;
+  } else {
+    if (bk) return cudaErrorInvalidValue;
+    return ak ? gemm_launch<true, false, kEpiNone, TA, TB>(g, splits, stream)
+              : gemm_launch<false, false, kEpiNone, TA, TB>(g, splits, stream);
+  }
 }
 
 // y = x . W^T (+ b) for a torch nn.Linear weight W [N, K] (row-major);
@@ -341,8 +411,17 @@ inline cudaError_t linear(const float* x, int ldx, const float* W,
 // output tiles leave the card idle, K is split across blocks (as many
 // splits as fit in one wave of two blocks an SM), each split writes its own
 // partial [M, N] into the workspace, and an ordered pass sums them into C.
-// A split keeps at least 4 K tiles.
-inline cudaError_t gemm_splitk(GemmArgs g, Workspace ws, cudaStream_t stream) {
+// A split keeps at least 4 K tiles. TA, TB as in gemm_exact: with a bf16
+// operand, C may be bf16 (c_bf16), rounded by the ordered pass.
+template <typename TA = float, typename TB = float>
+cudaError_t gemm_splitk(GemmArgs g, Workspace ws, cudaStream_t stream) {
+  constexpr bool kMixed = kBf16<TA> || kBf16<TB>;
+  auto run = [&](const GemmArgs& a, int splits) {
+    if constexpr (kMixed)
+      return gemm_exact<TA, TB>(a, stream, splits);
+    else
+      return gemm(a, kEpiNone, stream, splits);
+  };
   const long long mn = (long long)g.M * g.N;
   const int tiles = ceil_div(g.N, kGemmBN) * ceil_div(g.M, kGemmBM);
   int splits = 1;
@@ -352,7 +431,7 @@ inline cudaError_t gemm_splitk(GemmArgs g, Workspace ws, cudaStream_t stream) {
     splits = (int)min((long long)splits, ws.n / (mn > 0 ? mn : 1));
     splits = max(splits, 1);
   }
-  if (splits == 1) return gemm(g, kEpiNone, stream);
+  if (splits == 1) return run(g, 1);
   const int chunk = ceil_div(ceil_div(g.K, splits), kGemmBK) * kGemmBK;
   splits = ceil_div(g.K, chunk);
   GemmArgs p = g;
@@ -361,10 +440,19 @@ inline cudaError_t gemm_splitk(GemmArgs g, Workspace ws, cudaStream_t stream) {
   p.kchunk = chunk;
   p.split_stride = mn;
   p.accumulate = false;
+  p.c_bf16 = false;
   p.bias = nullptr;
-  cudaError_t err = gemm(p, kEpiNone, stream, splits);
+  cudaError_t err = run(p, splits);
   if (err != cudaSuccess) return err;
-  splitk_reduce_kernel<<<ceil_div(mn, 256), 256, 0, stream>>>(
+  if constexpr (kMixed) {
+    if (g.c_bf16) {
+      splitk_reduce_kernel<__nv_bfloat16>
+          <<<ceil_div(mn, 256), 256, 0, stream>>>(p.C, splits, g.M, g.N, g.C,
+                                                  g.ldc, false);
+      return cudaGetLastError();
+    }
+  }
+  splitk_reduce_kernel<float><<<ceil_div(mn, 256), 256, 0, stream>>>(
       p.C, splits, g.M, g.N, g.C, g.ldc, g.accumulate);
   return cudaGetLastError();
 }
@@ -386,6 +474,50 @@ inline cudaError_t input_grad(const float* dy, int ldy, const float* W,
   GemmArgs g = gemm_args(dy, ldy, 1, W, K, 1, dx, lddx, rows, K, N);
   g.accumulate = accumulate;
   return gemm(g, kEpiNone, stream);
+}
+
+// ------------------------------------------ products of bf16 operands
+
+// A pointer's element as the GEMM reads it: bf16 as its bits.
+template <typename T>
+using GemmElem =
+    std::conditional_t<std::is_same_v<T, __nv_bfloat16>, uint16_t, float>;
+
+// linear, weight_grad and input_grad where an operand is bf16 (T*:
+// float or __nv_bfloat16), each product counting its TF32 terms by the
+// operands' exactness; a bf16 OUT is rounded once, where it is finished.
+template <typename TX, typename TW>
+cudaError_t linear_exact(const TX* x, int ldx, const TW* W,
+                         const float* bias, float* y, int ldy, int M, int N,
+                         int K, cudaStream_t stream) {
+  GemmArgs g = gemm_args(reinterpret_cast<const float*>(x), ldx, 1,
+                         reinterpret_cast<const float*>(W), 1, K, y, ldy, M,
+                         N, K);
+  g.bias = bias;
+  return gemm_exact<GemmElem<TX>, GemmElem<TW>>(g, stream);
+}
+
+template <typename TY, typename TX, typename OUT>
+cudaError_t weight_grad_exact(const TY* dy, int ldy, const TX* x, int ldx,
+                              OUT* dw, int N, int K, int rows, Workspace ws,
+                              cudaStream_t stream) {
+  if (!dw) return cudaSuccess;
+  GemmArgs g = gemm_args(reinterpret_cast<const float*>(dy), 1, ldy,
+                         reinterpret_cast<const float*>(x), ldx, 1,
+                         reinterpret_cast<float*>(dw), K, N, K, rows);
+  g.c_bf16 = std::is_same_v<OUT, __nv_bfloat16>;
+  return gemm_splitk<GemmElem<TY>, GemmElem<TX>>(g, ws, stream);
+}
+
+template <typename TY, typename TW, typename OUT>
+cudaError_t input_grad_exact(const TY* dy, int ldy, const TW* W, int N,
+                             int K, OUT* dx, int lddx, int rows,
+                             cudaStream_t stream) {
+  GemmArgs g = gemm_args(reinterpret_cast<const float*>(dy), ldy, 1,
+                         reinterpret_cast<const float*>(W), K, 1,
+                         reinterpret_cast<float*>(dx), lddx, rows, K, N);
+  g.c_bf16 = std::is_same_v<OUT, __nv_bfloat16>;
+  return gemm_exact<GemmElem<TY>, GemmElem<TW>>(g, stream);
 }
 
 }  // namespace

@@ -18,7 +18,10 @@
 //                    fp32 rounding; a single TF32 product leaves 2^-11.
 //   mma_3xtf32       the three mma.sync.m16n8k8 (tf32 in, fp32 out) of
 //                    fragment pairs, the two small terms first, ordered so
-//                    that no mma waits for its neighbour's accumulator.
+//                    that no mma waits for its neighbour's accumulator. An
+//                    operand exact in TF32 (a bf16 value) has no low half:
+//                    its term is left out, two products, one for two such
+//                    operands, with the same sums.
 //   warp_gemm_nt     C[16 MT, 8 NT] += A[16 MT, K] . B[8 NT, K]^T, both
 //                    operands row-major in shared memory. Rows are padded to
 //                    K + 4 floats: the eight rows and four k of a fragment
@@ -34,7 +37,9 @@
 //   load_tile_async  rows x W floats from device memory into a padded
 //                    shared tile with 16-byte cp.async, neighbouring
 //                    threads on neighbouring addresses; rows past the end
-//                    are zero-filled by the copy itself.
+//                    are zero-filled by the copy itself. Of bf16 rows, a
+//                    bf16 tile (rows W + 8 values apart), widened by a
+//                    shift as the products build their fragments.
 //   attention_fwd_tc out = softmax(q k^T scale + bias + mask) v, and where a
 //                    gradient will be taken each row's max and sum, kept
 //                    apart (with every key masked the max is -1e9, where
@@ -98,11 +103,16 @@
 // (kernels B, G, H). 128 is pvt_v2_b5's GMFlow feature width, 64 b0's; 64
 // and 32 are the two backbones' PVT head widths. C's and F's instantiations
 // take no mask, and their forwards no heads, at compile time: either would
-// cost their tilings registers.
+// cost their tilings registers. Kernel C's bf16 backward instantiates both
+// with bf16 q and k (the forward as a statistics pass, STATS_BF16; the
+// backward with QK_BF16), kernel F's bf16 forward with a bf16 q (QBF16).
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "primitives.cuh"
 
@@ -138,6 +148,23 @@ __device__ __forceinline__ void tf32_split(float x, uint32_t& hi,
   lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
+// Operands in shared memory are fp32 (float) or bf16 (uint16_t: the bits,
+// widened exactly to fp32 by a shift as a fragment is built). A bf16 value
+// is exact in TF32: it is its own hi, its lo is zero, and the products of
+// its lo are left out (see mma_3xtf32).
+template <typename T>
+constexpr bool kBf16 = std::is_same_v<T, uint16_t>;
+
+template <typename T>
+__device__ __forceinline__ void split_as(T x, uint32_t& hi, uint32_t& lo) {
+  if constexpr (kBf16<T>) {
+    hi = (uint32_t)x << 16;
+    lo = 0u;
+  } else {
+    tf32_split(x, hi, lo);
+  }
+}
+
 // c[16, 8] += a[16, 8] . b[8, 8]. Lane (g = lane / 4, t = lane % 4) holds
 // a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4); b0 (k t, n g),
 // b1 (k t + 4, n g); c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t),
@@ -154,9 +181,11 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
 // with all NT of B) into c[m][c0 .. c0 + NT), the two small terms first.
 // Term by term over all accumulators: an mma that follows another on the
 // same accumulator waits for it, so neighbours in the instruction stream
-// must not share one. A_EXACT: every A value is exact in TF32 (a bf16
-// value is), so a_lo is zero and its product is left out: two products.
-template <int MT, int NT, int NC, bool A_EXACT = false>
+// must not share one. A_EXACT (B_EXACT): every A (B) value is exact in
+// TF32 (a bf16 value is), so a_lo (b_lo) is zero and its product is left
+// out: two products, one where both are exact. A product left out adds +0
+// to every accumulator, so the sums are those of all three.
+template <int MT, int NT, int NC, bool A_EXACT = false, bool B_EXACT = false>
 __device__ __forceinline__ void mma_3xtf32(float (&c)[MT][NC][4], int c0,
                                            const uint32_t (&a_hi)[MT][4],
                                            const uint32_t (&a_lo)[MT][4],
@@ -168,10 +197,12 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[MT][NC][4], int c0,
 #pragma unroll
       for (int j = 0; j < NT; ++j) mma_tf32(c[m][c0 + j], a_lo[m], b_hi[j]);
   }
+  if constexpr (!B_EXACT) {
 #pragma unroll
-  for (int m = 0; m < MT; ++m)
+    for (int m = 0; m < MT; ++m)
 #pragma unroll
-    for (int j = 0; j < NT; ++j) mma_tf32(c[m][c0 + j], a_hi[m], b_lo[j]);
+      for (int j = 0; j < NT; ++j) mma_tf32(c[m][c0 + j], a_hi[m], b_lo[j]);
+  }
 #pragma unroll
   for (int m = 0; m < MT; ++m)
 #pragma unroll
@@ -180,13 +211,15 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[MT][NC][4], int c0,
 
 // For each of P <= 2 products: c[p][m][j] += A_p[16m .. 16m + 15, K] .
 // B_p[8j .. 8j + 7, K]^T for m < MT, j < NT. A_p points at the warp's first
-// row, B_p at the tile's first row; all have the leading dim LD. A fragment
-// of B is loaded and split once for the MT fragments of A. The P products
-// share the k loop so that their accumulators interleave. A_EXACT: A holds
-// values exact in TF32 (see mma_3xtf32).
-template <int P, int K, int MT, int NT, int LD, int PC, bool A_EXACT = false>
-__device__ __forceinline__ void warp_gemm_nt(const float* const (&A)[2],
-                                             const float* const (&B)[2],
+// row, B_p at the tile's first row; all have the leading dim LD (in
+// elements). A fragment of B is loaded and split once for the MT fragments
+// of A. The P products share the k loop so that their accumulators
+// interleave. A_EXACT: A holds values exact in TF32 (see mma_3xtf32); TA,
+// TB: the operands' element types (a bf16 operand is exact).
+template <int P, int K, int MT, int NT, int LD, int PC, bool A_EXACT = false,
+          typename TA = float, typename TB = float>
+__device__ __forceinline__ void warp_gemm_nt(const TA* const (&A)[2],
+                                             const TB* const (&B)[2],
                                              int g, int t,
                                              float (&c)[PC][MT][NT][4]) {
   static_assert(P <= 2 && P <= PC, "one accumulator tile per product");
@@ -197,33 +230,35 @@ __device__ __forceinline__ void warp_gemm_nt(const float* const (&A)[2],
     for (int p = 0; p < P; ++p) {
 #pragma unroll
       for (int m = 0; m < MT; ++m) {
-        const float* a = A[p] + (16 * m + g) * LD + t + k0;
-        tf32_split(a[0], ah[p][m][0], al[p][m][0]);
-        tf32_split(a[8 * LD], ah[p][m][1], al[p][m][1]);
-        tf32_split(a[4], ah[p][m][2], al[p][m][2]);
-        tf32_split(a[8 * LD + 4], ah[p][m][3], al[p][m][3]);
+        const TA* a = A[p] + (16 * m + g) * LD + t + k0;
+        split_as(a[0], ah[p][m][0], al[p][m][0]);
+        split_as(a[8 * LD], ah[p][m][1], al[p][m][1]);
+        split_as(a[4], ah[p][m][2], al[p][m][2]);
+        split_as(a[8 * LD + 4], ah[p][m][3], al[p][m][3]);
       }
-      const float* b = B[p] + g * LD + t + k0;
+      const TB* b = B[p] + g * LD + t + k0;
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
-        tf32_split(b[j * 8 * LD], bh[p][j][0], bl[p][j][0]);
-        tf32_split(b[j * 8 * LD + 4], bh[p][j][1], bl[p][j][1]);
+        split_as(b[j * 8 * LD], bh[p][j][0], bl[p][j][0]);
+        split_as(b[j * 8 * LD + 4], bh[p][j][1], bl[p][j][1]);
       }
     }
 #pragma unroll
     for (int p = 0; p < P; ++p)
-      mma_3xtf32<MT, NT, NT, A_EXACT>(c[p], 0, ah[p], al[p], bh[p], bl[p]);
+      mma_3xtf32<MT, NT, NT, A_EXACT || kBf16<TA>, kBf16<TB>>(
+          c[p], 0, ah[p], al[p], bh[p], bl[p]);
   }
 }
 
 // acc[m][n] += P_m[16, 8 NT] . B[8 NT, 8n .. 8n + 7] for m < MT, n < N / 8,
 // P_m being the accumulator fragments p[m][j] of a warp_gemm_nt (see the
 // head of the file for the k slots). B points at the tile's first row
-// (leading dim LDB). A_EXACT: P holds values exact in TF32 (see
-// mma_3xtf32).
-template <int N, int MT, int NT, int LDB, bool A_EXACT = false>
+// (leading dim LDB, in elements; TB its element type, a bf16 B exact).
+// A_EXACT: P holds values exact in TF32 (see mma_3xtf32).
+template <int N, int MT, int NT, int LDB, bool A_EXACT = false,
+          typename TB = float>
 __device__ __forceinline__ void warp_gemm_ak(const float (&p)[MT][NT][4],
-                                             const float* __restrict__ B,
+                                             const TB* __restrict__ B,
                                              int g, int t,
                                              float (&acc)[MT][N / 8][4]) {
   constexpr int kGroup = 8 / MT;  // fragments of B in flight
@@ -238,16 +273,17 @@ __device__ __forceinline__ void warp_gemm_ak(const float (&p)[MT][NT][4],
       tf32_split(p[m][j][1], ah[m][2], al[m][2]);
       tf32_split(p[m][j][3], ah[m][3], al[m][3]);
     }
-    const float* b0 = B + (8 * j + 2 * t) * LDB + g;
+    const TB* b0 = B + (8 * j + 2 * t) * LDB + g;
 #pragma unroll
     for (int n0 = 0; n0 < N / 8; n0 += kGroup) {
       uint32_t bh[kGroup][2], bl[kGroup][2];
 #pragma unroll
       for (int n = 0; n < kGroup; ++n) {
-        tf32_split(b0[8 * (n0 + n)], bh[n][0], bl[n][0]);
-        tf32_split(b0[8 * (n0 + n) + LDB], bh[n][1], bl[n][1]);
+        split_as(b0[8 * (n0 + n)], bh[n][0], bl[n][0]);
+        split_as(b0[8 * (n0 + n) + LDB], bh[n][1], bl[n][1]);
       }
-      mma_3xtf32<MT, kGroup, N / 8, A_EXACT>(acc, n0, ah, al, bh, bl);
+      mma_3xtf32<MT, kGroup, N / 8, A_EXACT, kBf16<TB>>(acc, n0, ah, al, bh,
+                                                        bl);
     }
   }
 }
@@ -257,7 +293,7 @@ __device__ __forceinline__ void warp_gemm_ak(const float (&p)[MT][NT][4],
 // BYTES (4, 8 or 16) from device to shared memory without passing through
 // registers; zeros when !valid (src must still be an address of the tensor).
 template <int BYTES>
-__device__ __forceinline__ void cp_async(float* dst, const float* src,
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
                                          bool valid) {
   const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
   const int n = valid ? BYTES : 0;
@@ -277,24 +313,28 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // dst[r][0 .. W) = src[(r0 + r) * sn + 0 .. W) for r < rows, zeros where
-// r0 + r >= rows_total; dst rows are W + 4 floats apart. A thread keeps its
-// 16-byte column and walks down the rows.
-template <int W, int THREADS>
-__device__ __forceinline__ void load_tile_async(float* dst, const float* src,
-                                                int sn, int r0, int rows_total,
+// r0 + r >= rows_total; T is float, or uint16_t for bf16 bits. A copy
+// moves 16 bytes (kVec = 4 floats or 8 bf16 values) and dst rows are W +
+// kVec apart: the eight rows and four k of a fragment then fall on 32
+// different banks (16 different words of two bf16 values). A thread keeps
+// its 16-byte column and walks down the rows.
+template <int W, int THREADS, typename T>
+__device__ __forceinline__ void load_tile_async(T* dst, const T* src, int sn,
+                                                int r0, int rows_total,
                                                 int rows, int tid) {
-  constexpr int kChunks = W / 4;
+  constexpr int kVec = 16 / (int)sizeof(T);
+  constexpr int kChunks = W / kVec;
   static_assert(THREADS % kChunks == 0, "whole rows per pass of the block");
   constexpr int kStep = THREADS / kChunks;
-  const int c = (tid % kChunks) * 4;
+  const int c = (tid % kChunks) * kVec;
   int r = tid / kChunks;
-  const float* from = src + (long long)(r0 + r) * sn + c;
-  float* to = dst + r * (W + 4) + c;
+  const T* from = src + (long long)(r0 + r) * sn + c;
+  T* to = dst + r * (W + kVec) + c;
   for (; r < rows; r += kStep) {
     const bool ok = r0 + r < rows_total;
     cp_async<16>(to, ok ? from : src, ok);
     from += (long long)kStep * sn;
-    to += kStep * (W + 4);
+    to += kStep * (W + kVec);
   }
 }
 
@@ -347,31 +387,34 @@ __device__ __forceinline__ void load_vector_async(float* dst, const float* src,
 
 // -------------------------------------------------- shared-memory plan
 
-constexpr int kTcStages = 2;
-
 // Shared-memory plan of one pass: the resident side's tiles (with RES_V its
-// value-width rows too), then the ring of stages, each the streamed side's
-// tiles and VECS per-row vectors. A warp owns MT fragments of 16 resident
-// rows.
-template <int D, int DV, int WARPS, int MT, int STR, bool RES_V, int VECS>
+// value-width rows too), then a ring of STAGES stages, each the streamed
+// side's tiles and VECS per-row vectors. A warp owns MT fragments of 16
+// resident rows. QK_BF16: the q and k tiles hold bf16 values, rows D + 8
+// values apart (kLd counts elements), half the bytes of fp32 rows.
+template <int D, int DV, int WARPS, int MT, int STR, bool RES_V, int VECS,
+          bool QK_BF16 = false, int STAGES = 2>
 struct TcPlan {
   static_assert(D % 8 == 0 && STR % 8 == 0, "fragment sizes");
   static_assert(DV == 2 || DV == D, "value width: 2, or the key width");
+  static_assert(STAGES >= 2, "a stage in flight while another is read");
   static constexpr bool kWide = DV != 2;  // products with v on tensor cores
   static constexpr int kProducts = kWide ? 2 : 1;  // per backward score tile
+  static constexpr int kStages = STAGES;
   static constexpr int kWarpRows = 16 * MT;
   static constexpr int kRes = kWarpRows * WARPS;
   static constexpr int kThreads = 32 * WARPS;
   static constexpr int kNT = STR / 8;
-  static constexpr int kLd = D + 4;
+  static constexpr int kLd = QK_BF16 ? D + 8 : D + 4;
+  static constexpr int kRowFloats = QK_BF16 ? kLd / 2 : kLd;
   static constexpr int kLdV = DV + 4;
-  static constexpr int kResTile = kRes * kLd;
+  static constexpr int kResTile = kRes * kRowFloats;
   static constexpr int kResTileV = RES_V && kWide ? kRes * kLdV : 0;
-  static constexpr int kStrTile = STR * kLd;
+  static constexpr int kStrTile = STR * kRowFloats;
   static constexpr int kStrTileV = kWide ? STR * kLdV : STR * DV;
   static constexpr int kStage = kStrTile + kStrTileV + VECS * STR;
   static constexpr size_t kBytes =
-      sizeof(float) * (kResTile + kResTileV + kTcStages * kStage);
+      sizeof(float) * (kResTile + kResTileV + STAGES * kStage);
   // blocks that share an SM: what its 227 KiB of shared memory hold (1 KiB
   // is reserved per block), and no more than leaves a thread 168 registers
   // (255 with two fragments of rows)
@@ -383,12 +426,16 @@ struct TcPlan {
 };
 
 // the forward: resident queries; a stage holds k, v and the bias
-template <int D, int DV, int WARPS, int MT, int STR>
-using TcFwd = TcPlan<D, DV, WARPS, MT, STR, false, 1>;
+template <int D, int DV, int WARPS, int MT, int STR, bool QK_BF16 = false>
+using TcFwd = TcPlan<D, DV, WARPS, MT, STR, false, 1, QK_BF16>;
 // the backward's passes: resident q and dO (or k and v); a stage holds the
-// other side's two tiles and up to four per-row vectors
-template <int D, int DV, int WARPS, int MT, int STR>
-using TcBwd = TcPlan<D, DV, WARPS, MT, STR, true, 4>;
+// other side's two tiles and up to four per-row vectors. With bf16 q and k
+// the halved tiles buy a third stage (kernel C: 62 KiB a block at width
+// 128, against 103 KiB for fp32 and two stages), so that two tiles are in
+// flight while a third is multiplied.
+template <int D, int DV, int WARPS, int MT, int STR, bool QK_BF16 = false>
+using TcBwd = TcPlan<D, DV, WARPS, MT, STR, true, 4, QK_BF16,
+                     QK_BF16 ? 3 : 2>;
 
 // ------------------------------------------------------- score masks
 
@@ -495,17 +542,24 @@ struct TcFwdArgs {
 // bf16 band): q.p holds bf16 bits (q's strides in bf16 elements), widened
 // exactly into the fp32 tile; P = exp(S - m) is rounded to bf16 for P v,
 // the row sum taking the unrounded P; both exact in TF32, so q k^T and P v
-// run two TF32 products each instead of three.
+// run two TF32 products each instead of three. STATS_BF16 (the statistics
+// pass of kernel C's bf16 backward; KEEP): q.p and k.p hold bf16 bits, read
+// into bf16 tiles and widened as the fragments are built, so q k^T is one
+// TF32 product; only the row max and sum are kept (no P v, no output, v is
+// not read).
 template <int D, int DV, int WARPS, int MT, int STR, bool MASKED, bool HEADS,
-          bool KEEP, bool QBF16 = false>
-__global__ void
-__launch_bounds__(32 * WARPS, (TcFwd<D, DV, WARPS, MT, STR>::kBlocksPerSm))
+          bool KEEP, bool QBF16 = false, bool STATS_BF16 = false>
+__global__ void __launch_bounds__(
+    32 * WARPS, (TcFwd<D, DV, WARPS, MT, STR, STATS_BF16>::kBlocksPerSm))
 attention_fwd_tc_kernel(TcFwdArgs a) {
-  using L = TcFwd<D, DV, WARPS, MT, STR>;
+  using L = TcFwd<D, DV, WARPS, MT, STR, STATS_BF16>;
+  using TQK = std::conditional_t<STATS_BF16, uint16_t, float>;
+  static_assert(!(QBF16 && STATS_BF16) && (!STATS_BF16 || KEEP),
+                "one bf16 form; the statistics pass keeps its statistics");
   extern __shared__ __align__(16) float tc_smem[];
-  float* Qs = tc_smem;            // [kRes][D + 4]
-  float* stages = Qs + L::kResTile;
-  // a stage: K [STR][D + 4]; V [STR][DV + 4] or [STR][2]; bias [STR]
+  TQK* Qs = reinterpret_cast<TQK*>(tc_smem);  // [kRes][kLd]
+  float* stages = tc_smem + L::kResTile;
+  // a stage: K [STR][kLd]; V [STR][DV + 4] or [STR][2]; bias [STR]
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
@@ -513,7 +567,8 @@ attention_fwd_tc_kernel(TcFwdArgs a) {
   const int row0 = q0 + warp * L::kWarpRows;  // this warp's first query
   const int split = blockIdx.y, splits = gridDim.y, z = blockIdx.z;
   const int b = HEADS ? z / a.H : z, h = HEADS ? z % a.H : 0;
-  const float* kp = a.k.p + b * a.k.sb + (long long)h * D;
+  const TQK* kp =
+      reinterpret_cast<const TQK*>(a.k.p) + b * a.k.sb + (long long)h * D;
   const float* vp = a.v.p + b * a.v.sb + (long long)h * DV;
   const float* bias = a.bias ? a.bias + (long long)b * a.Nk : nullptr;
   const float* mask =
@@ -521,12 +576,13 @@ attention_fwd_tc_kernel(TcFwdArgs a) {
           ? a.mask + (long long)(b % a.mask_nw) * a.Nq * a.Nk
           : nullptr;
 
-  if constexpr (QBF16)
-    load_tile_bf16<D, L::kThreads>(
-        Qs,
-        reinterpret_cast<const uint16_t*>(a.q.p) + b * a.q.sb +
-            (long long)h * D,
-        a.q.sn, q0, a.Nq, L::kRes, tid);
+  const uint16_t* q_bits =
+      reinterpret_cast<const uint16_t*>(a.q.p) + b * a.q.sb + (long long)h * D;
+  if constexpr (STATS_BF16)
+    load_tile_async<D, L::kThreads>(Qs, q_bits, a.q.sn, q0, a.Nq, L::kRes,
+                                    tid);
+  else if constexpr (QBF16)
+    load_tile_bf16<D, L::kThreads>(Qs, q_bits, a.q.sn, q0, a.Nq, L::kRes, tid);
   else
     load_tile_async<D, L::kThreads>(Qs, a.q.p + b * a.q.sb + (long long)h * D,
                                     a.q.sn, q0, a.Nq, L::kRes, tid);
@@ -534,8 +590,10 @@ attention_fwd_tc_kernel(TcFwdArgs a) {
   auto fill = [&](int tile, int s) {
     float* st = stages + s * L::kStage;
     const int k0 = tile * STR;
-    load_tile_async<D, L::kThreads>(st, kp, a.k.sn, k0, a.Nk, STR, tid);
-    if constexpr (L::kWide)
+    load_tile_async<D, L::kThreads>(reinterpret_cast<TQK*>(st), kp, a.k.sn,
+                                    k0, a.Nk, STR, tid);
+    if constexpr (STATS_BF16) {
+    } else if constexpr (L::kWide)
       load_tile_async<DV, L::kThreads>(st + L::kStrTile, vp, a.v.sn, k0, a.Nk,
                                        STR, tid);
     else
@@ -571,14 +629,14 @@ attention_fwd_tc_kernel(TcFwdArgs a) {
   const int t_end = min(tiles, t_beg + a.tiles_per_split);
   if (t_beg < t_end) fill(t_beg, 0);
   for (int tile = t_beg; tile < t_end; ++tile) {
-    const int s = (tile - t_beg) % kTcStages;
+    const int s = (tile - t_beg) % L::kStages;
     // this tile has landed, and every warp is done with the one before,
     // whose stage the next tile's copy may now overwrite
     cp_async_wait<0>();
     __syncthreads();
-    if (tile + 1 < t_end) fill(tile + 1, (s + 1) % kTcStages);
-    const float* Ks = stages + s * L::kStage;
-    const float* Vs = Ks + L::kStrTile;
+    if (tile + 1 < t_end) fill(tile + 1, (s + 1) % L::kStages);
+    const TQK* Ks = reinterpret_cast<const TQK*>(stages + s * L::kStage);
+    const float* Vs = stages + s * L::kStage + L::kStrTile;
     const float* bias_s = Vs + L::kStrTileV;
     const int k0 = tile * STR;
 
@@ -589,10 +647,11 @@ attention_fwd_tc_kernel(TcFwdArgs a) {
       for (int j = 0; j < L::kNT; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) prod[0][m][j][e] = 0.f;
-    const float* const res[2] = {Qs + warp * L::kWarpRows * L::kLd,
-                                 Qs + warp * L::kWarpRows * L::kLd};
-    const float* const str[2] = {Ks, Ks};
-    warp_gemm_nt<1, D, MT, L::kNT, L::kLd, 1, QBF16>(res, str, g, t, prod);
+    const TQK* const res[2] = {Qs + warp * L::kWarpRows * L::kLd,
+                               Qs + warp * L::kWarpRows * L::kLd};
+    const TQK* const str[2] = {Ks, Ks};
+    warp_gemm_nt<1, D, MT, L::kNT, L::kLd, 1, QBF16, TQK, TQK>(res, str, g, t,
+                                                              prod);
     float(&sc)[MT][L::kNT][4] = prod[0];
 
     // scaled, biased (masked) scores; keys past the end of the tile at -inf
@@ -654,7 +713,7 @@ attention_fwd_tc_kernel(TcFwdArgs a) {
       for (int c = 0; c < 2; ++c) {
         const int col = 8 * j + 2 * t + c;
         float v0 = 0.f, v1 = 0.f;
-        if constexpr (!L::kWide) {
+        if constexpr (!L::kWide && !STATS_BF16) {
           v0 = Vs[2 * col];
           v1 = Vs[2 * col + 1];
         }
@@ -666,13 +725,13 @@ attention_fwd_tc_kernel(TcFwdArgs a) {
             const float p = __expf(sc[m][j][e] - mnew[m][hf]);
             sc[m][j][e] = QBF16 ? round_to_bf16(p) : p;
             lrow[m][hf] += p;
-            if constexpr (!L::kWide) {
+            if constexpr (!L::kWide && !STATS_BF16) {
               acc[m][0][2 * hf] = fmaf(p, v0, acc[m][0][2 * hf]);
               acc[m][0][2 * hf + 1] = fmaf(p, v1, acc[m][0][2 * hf + 1]);
             }
           }
       }
-    if constexpr (L::kWide)
+    if constexpr (L::kWide && !STATS_BF16)
       warp_gemm_ak<DV, MT, L::kNT, L::kLdV, QBF16>(sc, Vs, g, t, acc);
   }
 
@@ -680,14 +739,14 @@ attention_fwd_tc_kernel(TcFwdArgs a) {
   // two outputs)
   const bool whole = splits == 1;
   const long long rows = (long long)gridDim.z * a.Nq;
-  float* o_dst;
+  float* o_dst = nullptr;
   long long o_sn = DV;
   if (!whole) {
     o_dst = a.part_o + ((long long)split * gridDim.z + z) * a.Nq * DV;
   } else if constexpr (HEADS) {
     o_dst = a.out.p + b * a.out.sb + (long long)h * DV;
     o_sn = a.out.sn;
-  } else {
+  } else if constexpr (!STATS_BF16) {
     o_dst = a.out.p + (long long)b * a.Nq * DV;
   }
   float* m_dst = whole ? (KEEP ? a.row_max + (long long)z * a.Nq : nullptr)
@@ -713,7 +772,8 @@ attention_fwd_tc_kernel(TcFwdArgs a) {
       const int n = row0 + 16 * m + g + 8 * hf;
       if (n >= a.Nq) continue;
       const float inv = 1.0f / l;
-      if constexpr (L::kWide) {
+      if (STATS_BF16 && whole) {
+      } else if constexpr (L::kWide) {
 #pragma unroll
         for (int c = 0; c < DV / 8; ++c)
           *reinterpret_cast<float2*>(o_dst + n * o_sn + 8 * c + 2 * t) =
@@ -766,17 +826,18 @@ __global__ void attention_merge_kernel(const float* __restrict__ part_o,
 }
 
 template <int D, int DV, int WARPS, int MT, int STR, bool MASKED, bool HEADS,
-          bool KEEP, bool QBF16>
+          bool KEEP, bool QBF16, bool STATS_BF16>
 cudaError_t attention_fwd_tc_launch(const TcFwdArgs& a, dim3 grid,
                                     cudaStream_t stream) {
-  using L = TcFwd<D, DV, WARPS, MT, STR>;
+  using L = TcFwd<D, DV, WARPS, MT, STR, STATS_BF16>;
   // set once per instantiation, not per launch (one card per process)
   static const cudaError_t attr = cudaFuncSetAttribute(
       attention_fwd_tc_kernel<D, DV, WARPS, MT, STR, MASKED, HEADS, KEEP,
-                              QBF16>,
+                              QBF16, STATS_BF16>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
   if (attr != cudaSuccess) return attr;
-  attention_fwd_tc_kernel<D, DV, WARPS, MT, STR, MASKED, HEADS, KEEP, QBF16>
+  attention_fwd_tc_kernel<D, DV, WARPS, MT, STR, MASKED, HEADS, KEEP, QBF16,
+                          STATS_BF16>
       <<<grid, L::kThreads, L::kBytes, stream>>>(a);
   return cudaGetLastError();
 }
@@ -807,16 +868,24 @@ int attention_fwd_tc_splits(int BH, int Nq, int Nk, long long ws_floats,
 // row_max and row_sum [B * H, Nq] are written when row_max is not null (a
 // gradient will be taken). ws: room for the partials of a split pass (fewer
 // splits when it is short; attention_fwd_tc_splits says how much it takes).
-// QBF16: q.p points at bf16 q (see attention_fwd_tc_kernel).
+// QBF16: q.p points at bf16 q; STATS_BF16: q.p and k.p at bf16 q and k,
+// and only row_max and row_sum are written (out.p null, v not read; see
+// attention_fwd_tc_kernel). Its tiles take the bytes of bf16 and its blocks
+// the places of the fp32 instantiation, so both take the same splits and
+// sum in the same order; with splits, its partial outputs (zeros: no P v)
+// and the merge's output go to ws, and the merge is the fp32 one (another
+// merge of the statistics alone compiles its sum otherwise: other bits).
 template <int D, int DV, int WARPS, int MT, int STR, bool MASKED = false,
-          bool HEADS = false, bool QBF16 = false>
+          bool HEADS = false, bool QBF16 = false, bool STATS_BF16 = false>
 cudaError_t attention_fwd_tc(AttnOperand q, AttnOperand k, AttnOperand v,
                              const float* bias, const float* mask,
                              int mask_nw, AttnGrad out, float* row_max,
                              float* row_sum, int B, int H, int Nq, int Nk,
                              float scale, Workspace ws, cudaStream_t stream) {
-  using L = TcFwd<D, DV, WARPS, MT, STR>;
-  if ((mask && !MASKED) ||
+  using L = TcFwd<D, DV, WARPS, MT, STR, STATS_BF16>;
+  static_assert(L::kBlocksPerSm == TcFwd<D, DV, WARPS, MT, STR>::kBlocksPerSm,
+                "the fp32 instantiation's places");
+  if ((mask && !MASKED) || (STATS_BF16 && (!row_max || out.p)) ||
       (!HEADS && (H != 1 || out.sn != DV || out.sb != (long long)Nq * DV)))
     return cudaErrorInvalidValue;
   TcFwdArgs a;
@@ -832,20 +901,30 @@ cudaError_t attention_fwd_tc(AttnOperand q, AttnOperand k, AttnOperand v,
   long long part_floats;
   const int splits = attention_fwd_tc_splits<D, DV, WARPS, MT, STR>(
       BH, Nq, Nk, ws.n, &a.tiles_per_split, &part_floats);
+  AttnGrad merged = out;  // a statistics pass merges into scratch
   if (splits > 1) {
     a.part_o = ws.p;
     a.part_stats = ws.p + splits * rows * DV;
+    if constexpr (STATS_BF16) {
+      if (ws.n < part_floats + rows * DV) return cudaErrorInvalidValue;
+      merged = AttnGrad{ws.p + part_floats, (long long)Nq * DV, DV};
+    }
   }
   const dim3 grid(ceil_div(Nq, L::kRes), splits, BH);
-  cudaError_t err =
-      row_max
-          ? attention_fwd_tc_launch<D, DV, WARPS, MT, STR, MASKED, HEADS,
-                                    true, QBF16>(a, grid, stream)
-          : attention_fwd_tc_launch<D, DV, WARPS, MT, STR, MASKED, HEADS,
-                                    false, QBF16>(a, grid, stream);
+  cudaError_t err;
+  if constexpr (STATS_BF16)
+    err = attention_fwd_tc_launch<D, DV, WARPS, MT, STR, MASKED, HEADS, true,
+                                  false, true>(a, grid, stream);
+  else
+    err = row_max ? attention_fwd_tc_launch<D, DV, WARPS, MT, STR, MASKED,
+                                            HEADS, true, QBF16, false>(
+                        a, grid, stream)
+                  : attention_fwd_tc_launch<D, DV, WARPS, MT, STR, MASKED,
+                                            HEADS, false, QBF16, false>(
+                        a, grid, stream);
   if (err != cudaSuccess || splits == 1) return err;
   attention_merge_kernel<DV><<<ceil_div(rows * DV, 256), 256, 0, stream>>>(
-      a.part_o, a.part_stats, splits, H, Nq, rows, out, row_max, row_sum);
+      a.part_o, a.part_stats, splits, H, Nq, rows, merged, row_max, row_sum);
   return cudaGetLastError();
 }
 
@@ -892,7 +971,9 @@ __global__ void rowdot_kernel(AttnOperand x, AttnOperand y, int BH, int H,
 }
 
 // dst(b, n, h * width + col) = sum over the splits of part[split][b * H +
-// h][n][col], the splits in order.
+// h][n][col], the splits in order; OUT float, or __nv_bfloat16 (the sum
+// rounded to the nearest bf16, the one rounding of a bf16 grad).
+template <typename OUT = float>
 __global__ void split_reduce_kernel(const float* __restrict__ part,
                                     int splits, int BH, int H, int rows,
                                     int width, AttnGrad dst) {
@@ -905,14 +986,20 @@ __global__ void split_reduce_kernel(const float* __restrict__ part,
   const long long zn = idx / width;
   const int n = (int)(zn % rows), z = (int)(zn / rows);
   const int b = z / H, h = z % H;
-  dst.p[b * dst.sb + (long long)n * dst.sn + (long long)h * width + col] = s;
+  const long long at =
+      b * dst.sb + (long long)n * dst.sn + (long long)h * width + col;
+  if constexpr (std::is_same_v<OUT, float>)
+    dst.p[at] = s;
+  else
+    reinterpret_cast<OUT*>(dst.p)[at] = __float2bfloat16_rn(s);
 }
 
 // acc[m][c][2h], acc[m][c][2h + 1] hold columns 8c + 2t, 8c + 2t + 1 of row
-// row0 + 16m + g + 8h: written times scale where the row lies below rows.
-template <int W, int MT>
+// row0 + 16m + g + 8h: written times scale where the row lies below rows,
+// as fp32 (OUT float) or rounded to bf16 (OUT __nv_bfloat16).
+template <int W, int MT, typename OUT = float>
 __device__ __forceinline__ void store_fragments(
-    const float (&acc)[MT][W / 8][4], float* dst, long long sn, int row0,
+    const float (&acc)[MT][W / 8][4], OUT* dst, long long sn, int row0,
     int rows, int g, int t, float scale) {
 #pragma unroll
   for (int m = 0; m < MT; ++m)
@@ -921,25 +1008,75 @@ __device__ __forceinline__ void store_fragments(
       const int n = row0 + 16 * m + g + 8 * h;
       if (n >= rows) continue;
 #pragma unroll
-      for (int c = 0; c < W / 8; ++c)
-        *reinterpret_cast<float2*>(dst + n * sn + 8 * c + 2 * t) = make_float2(
-            acc[m][c][2 * h] * scale, acc[m][c][2 * h + 1] * scale);
+      for (int c = 0; c < W / 8; ++c) {
+        const float x0 = acc[m][c][2 * h] * scale;
+        const float x1 = acc[m][c][2 * h + 1] * scale;
+        OUT* at = dst + n * sn + 8 * c + 2 * t;
+        if constexpr (std::is_same_v<OUT, float>)
+          *reinterpret_cast<float2*>(at) = make_float2(x0, x1);
+        else
+          *reinterpret_cast<__nv_bfloat162*>(at) = __floats2bfloat162_rn(x0, x1);
+      }
     }
+}
+
+// A pass's grad at base + off: its whole grad (one split) in fp32, or with
+// QK_BF16 rounded to bf16 (base then holds bf16, off and sn count bf16
+// elements); a split's partial always in fp32.
+template <int W, int MT, bool QK_BF16>
+__device__ __forceinline__ void store_grad(const float (&acc)[MT][W / 8][4],
+                                           float* base, long long off,
+                                           long long sn, int row0, int rows,
+                                           int g, int t, float scale,
+                                           bool partial) {
+  if constexpr (QK_BF16) {
+    if (!partial) {
+      store_fragments<W, MT>(acc, reinterpret_cast<__nv_bfloat16*>(base) + off,
+                             sn, row0, rows, g, t, scale);
+      return;
+    }
+  }
+  store_fragments<W, MT>(acc, base + off, sn, row0, rows, g, t, scale);
+}
+
+// The ring of a pass's streamed tiles: fill(tile, stage) issues the copies
+// of a tile (none past t_end) and commits them as one group, so that every
+// iteration finds STAGES - 1 groups in flight. A stage is refilled after
+// the barrier of the iteration that follows its last use.
+template <int STAGES, typename Fill>
+__device__ __forceinline__ void ring_prologue(Fill& fill, int t_beg) {
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) fill(t_beg + i, i);
+}
+template <int STAGES, typename Fill>
+__device__ __forceinline__ int ring_next(Fill& fill, int tile, int t_beg) {
+  // this tile has landed, and every warp is done with the one before,
+  // whose stage the copy of tile + STAGES - 1 may now overwrite while this
+  // one is multiplied
+  cp_async_wait<STAGES - 2>();
+  __syncthreads();
+  const int s = (tile - t_beg) % STAGES;
+  fill(tile + STAGES - 1, (s + STAGES - 1) % STAGES);
+  return s;
 }
 
 // Query-tiled pass, grid (query tiles, key splits, B): dq = scale * sum over
 // this split's keys of dS k, written to dq with one split and to
-// part_a[split] otherwise.
-template <int D, int DV, int WARPS, int MT, int STR, bool MASKED>
-__global__ void
-__launch_bounds__(32 * WARPS, (TcBwd<D, DV, WARPS, MT, STR>::kBlocksPerSm))
+// part_a[split] otherwise. QK_BF16: q and k are bf16 (q.p, k.p hold the
+// bits), read into bf16 tiles and widened as the fragments are built, so S
+// = q k^T is one TF32 product and dS k two; dq is written in bf16.
+template <int D, int DV, int WARPS, int MT, int STR, bool MASKED,
+          bool QK_BF16 = false>
+__global__ void __launch_bounds__(
+    32 * WARPS, (TcBwd<D, DV, WARPS, MT, STR, QK_BF16>::kBlocksPerSm))
 attention_bwd_tc_dq_kernel(TcBwdArgs a) {
-  using L = TcBwd<D, DV, WARPS, MT, STR>;
+  using L = TcBwd<D, DV, WARPS, MT, STR, QK_BF16>;
+  using TQK = std::conditional_t<QK_BF16, uint16_t, float>;
   extern __shared__ __align__(16) float tc_smem[];
-  float* Qs = tc_smem;              // [kRes][D + 4]
-  float* Gs = Qs + L::kResTile;     // [kRes][DV + 4] (wide only)
+  TQK* Qs = reinterpret_cast<TQK*>(tc_smem);  // [kRes][kLd]
+  float* Gs = tc_smem + L::kResTile;          // [kRes][DV + 4] (wide only)
   float* stages = Gs + L::kResTileV;
-  // a stage: K [STR][D + 4]; V [STR][DV + 4] or [STR][2]; bias [STR]
+  // a stage: K [STR][kLd]; V [STR][DV + 4] or [STR][2]; bias [STR]
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
@@ -947,8 +1084,10 @@ attention_bwd_tc_dq_kernel(TcBwdArgs a) {
   const int row0 = q0 + warp * L::kWarpRows;  // this warp's first query
   const int split = blockIdx.y, splits = gridDim.y, z = blockIdx.z;
   const int b = z / a.H, h = z % a.H;
-  const float* qp = a.q.p + b * a.q.sb + (long long)h * D;
-  const float* kp = a.k.p + b * a.k.sb + (long long)h * D;
+  const TQK* qp =
+      reinterpret_cast<const TQK*>(a.q.p) + b * a.q.sb + (long long)h * D;
+  const TQK* kp =
+      reinterpret_cast<const TQK*>(a.k.p) + b * a.k.sb + (long long)h * D;
   const float* vp = a.v.p + b * a.v.sb + (long long)h * DV;
   const float* gp = a.go.p + b * a.go.sb + (long long)h * DV;
   const float* bias = a.bias ? a.bias + (long long)b * a.Nk : nullptr;
@@ -960,19 +1099,25 @@ attention_bwd_tc_dq_kernel(TcBwdArgs a) {
   if constexpr (L::kWide)
     load_tile_async<DV, L::kThreads>(Gs, gp, a.go.sn, q0, a.Nq, L::kRes, tid);
 
+  const int tiles = (a.Nk + STR - 1) / STR;
+  const int t_beg = split * a.tiles_per_split;
+  const int t_end = min(tiles, t_beg + a.tiles_per_split);
   auto fill = [&](int tile, int s) {
-    float* st = stages + s * L::kStage;
-    const int k0 = tile * STR;
-    load_tile_async<D, L::kThreads>(st, kp, a.k.sn, k0, a.Nk, STR, tid);
-    if constexpr (L::kWide)
-      load_tile_async<DV, L::kThreads>(st + L::kStrTile, vp, a.v.sn, k0, a.Nk,
-                                       STR, tid);
-    else
-      load_vector_async<8, L::kThreads>(st + L::kStrTile, vp, k0, a.Nk, STR,
-                                        tid);
-    if (bias)
-      load_vector_async<4, L::kThreads>(st + L::kStrTile + L::kStrTileV, bias,
-                                        k0, a.Nk, STR, tid);
+    if (tile < t_end) {
+      float* st = stages + s * L::kStage;
+      const int k0 = tile * STR;
+      load_tile_async<D, L::kThreads>(reinterpret_cast<TQK*>(st), kp, a.k.sn,
+                                      k0, a.Nk, STR, tid);
+      if constexpr (L::kWide)
+        load_tile_async<DV, L::kThreads>(st + L::kStrTile, vp, a.v.sn, k0,
+                                         a.Nk, STR, tid);
+      else
+        load_vector_async<8, L::kThreads>(st + L::kStrTile, vp, k0, a.Nk, STR,
+                                          tid);
+      if (bias)
+        load_vector_async<4, L::kThreads>(st + L::kStrTile + L::kStrTileV,
+                                          bias, k0, a.Nk, STR, tid);
+    }
     cp_async_commit();
   };
 
@@ -1003,20 +1148,11 @@ attention_bwd_tc_dq_kernel(TcBwdArgs a) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
 
-  const int tiles = (a.Nk + STR - 1) / STR;
-  const int t_beg = split * a.tiles_per_split;
-  const int t_end = min(tiles, t_beg + a.tiles_per_split);
-  if (t_beg < t_end) fill(t_beg, 0);
+  ring_prologue<L::kStages>(fill, t_beg);
   for (int tile = t_beg; tile < t_end; ++tile) {
-    const int s = (tile - t_beg) % kTcStages;
-    // this tile has landed, and every warp is done with the one before,
-    // whose stage the next tile's copy may now overwrite while this one is
-    // multiplied
-    cp_async_wait<0>();
-    __syncthreads();
-    if (tile + 1 < t_end) fill(tile + 1, (s + 1) % kTcStages);
-    const float* Ks = stages + s * L::kStage;
-    const float* Vs = Ks + L::kStrTile;
+    const int s = ring_next<L::kStages>(fill, tile, t_beg);
+    const TQK* Ks = reinterpret_cast<const TQK*>(stages + s * L::kStage);
+    const float* Vs = stages + s * L::kStage + L::kStrTile;
     const float* bias_s = Vs + L::kStrTileV;
     const int k0 = tile * STR;
     // from L2, this tile's mask values, read before the products so that
@@ -1027,7 +1163,8 @@ attention_bwd_tc_dq_kernel(TcBwdArgs a) {
         mask_from_l2<MT, L::kNT, false>(mask, a.Nq, a.Nk, row0 + g, k0, t,
                                         mv);
 
-    // scores, and with wide values dO v^T beside them
+    // scores, and with wide values dO v^T beside them (fp32 q and k only:
+    // the bf16 instantiation has DV = 2)
     float prod[L::kProducts][MT][L::kNT][4];
 #pragma unroll
     for (int p = 0; p < L::kProducts; ++p)
@@ -1037,10 +1174,18 @@ attention_bwd_tc_dq_kernel(TcBwdArgs a) {
         for (int j = 0; j < L::kNT; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) prod[p][m][j][e] = 0.f;
-    const float* const res[2] = {Qs + warp * L::kWarpRows * L::kLd,
-                                 Gs + warp * L::kWarpRows * L::kLd};
-    const float* const str[2] = {Ks, Vs};
-    warp_gemm_nt<L::kProducts, D, MT, L::kNT, L::kLd>(res, str, g, t, prod);
+    if constexpr (QK_BF16) {
+      const TQK* const res[2] = {Qs + warp * L::kWarpRows * L::kLd,
+                                 Qs + warp * L::kWarpRows * L::kLd};
+      const TQK* const str[2] = {Ks, Ks};
+      warp_gemm_nt<1, D, MT, L::kNT, L::kLd, L::kProducts, false, TQK, TQK>(
+          res, str, g, t, prod);
+    } else {
+      const float* const res[2] = {Qs + warp * L::kWarpRows * L::kLd,
+                                   Gs + warp * L::kWarpRows * L::kLd};
+      const float* const str[2] = {Ks, Vs};
+      warp_gemm_nt<L::kProducts, D, MT, L::kNT, L::kLd>(res, str, g, t, prod);
+    }
     float(&sc)[MT][L::kNT][4] = prod[0];
     float(&dp)[MT][L::kNT][4] = prod[L::kProducts - 1];
 #pragma unroll
@@ -1071,33 +1216,35 @@ attention_bwd_tc_dq_kernel(TcBwdArgs a) {
             sc[m][j][e] = p * (d - rdel[m][hf]);
           }
       }
-    warp_gemm_ak<D, MT, L::kNT, L::kLd>(sc, Ks, g, t, acc);
+    warp_gemm_ak<D, MT, L::kNT, L::kLd, false, TQK>(sc, Ks, g, t, acc);
   }
 
   if (splits == 1)
-    store_fragments<D, MT>(acc,
-                           a.dq.p + b * a.dq.sb + (long long)h * D, a.dq.sn,
-                           row0, a.Nq, g, t, a.scale);
+    store_grad<D, MT, QK_BF16>(acc, a.dq.p, b * a.dq.sb + (long long)h * D,
+                               a.dq.sn, row0, a.Nq, g, t, a.scale, false);
   else
-    store_fragments<D, MT>(
-        acc, a.part_a + ((long long)split * a.B * a.H + z) * a.Nq * D, D,
-        row0, a.Nq, g, t, a.scale);
+    store_grad<D, MT, QK_BF16>(
+        acc, a.part_a, ((long long)split * a.B * a.H + z) * a.Nq * D, D, row0,
+        a.Nq, g, t, a.scale, true);
 }
 
 // Key-tiled pass, grid (key tiles, query splits, B): over this split's
 // queries dv = sum P^T dO and dk = scale * sum dS^T q, written to dk / dv
 // with one split and to part_a / part_b[split] otherwise. dk or dv may be
-// null (not computed).
-template <int D, int DV, int WARPS, int MT, int STR, bool MASKED>
-__global__ void
-__launch_bounds__(32 * WARPS, (TcBwd<D, DV, WARPS, MT, STR>::kBlocksPerSm))
+// null (not computed). QK_BF16 as in the query-tiled pass: S^T = k q^T one
+// TF32 product, dS^T q two; dk written in bf16, dv in fp32.
+template <int D, int DV, int WARPS, int MT, int STR, bool MASKED,
+          bool QK_BF16 = false>
+__global__ void __launch_bounds__(
+    32 * WARPS, (TcBwd<D, DV, WARPS, MT, STR, QK_BF16>::kBlocksPerSm))
 attention_bwd_tc_dkv_kernel(TcBwdArgs a) {
-  using L = TcBwd<D, DV, WARPS, MT, STR>;
+  using L = TcBwd<D, DV, WARPS, MT, STR, QK_BF16>;
+  using TQK = std::conditional_t<QK_BF16, uint16_t, float>;
   extern __shared__ __align__(16) float tc_smem[];
-  float* Ks = tc_smem;              // [kRes][D + 4]
-  float* Vs = Ks + L::kResTile;     // [kRes][DV + 4] (wide only)
+  TQK* Ks = reinterpret_cast<TQK*>(tc_smem);  // [kRes][kLd]
+  float* Vs = tc_smem + L::kResTile;          // [kRes][DV + 4] (wide only)
   float* stages = Vs + L::kResTileV;
-  // a stage: Q [STR][D + 4]; dO [STR][DV + 4] or [STR][2]; row max, row
+  // a stage: Q [STR][kLd]; dO [STR][DV + 4] or [STR][2]; row max, row
   // sum, delta [STR] each
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -1106,8 +1253,10 @@ attention_bwd_tc_dkv_kernel(TcBwdArgs a) {
   const int row0 = k0 + warp * L::kWarpRows;  // this warp's first key
   const int split = blockIdx.y, splits = gridDim.y, z = blockIdx.z;
   const int b = z / a.H, h = z % a.H;
-  const float* qp = a.q.p + b * a.q.sb + (long long)h * D;
-  const float* kp = a.k.p + b * a.k.sb + (long long)h * D;
+  const TQK* qp =
+      reinterpret_cast<const TQK*>(a.q.p) + b * a.q.sb + (long long)h * D;
+  const TQK* kp =
+      reinterpret_cast<const TQK*>(a.k.p) + b * a.k.sb + (long long)h * D;
   const float* vp = a.v.p + b * a.v.sb + (long long)h * DV;
   const float* gp = a.go.p + b * a.go.sb + (long long)h * DV;
   const float* row_max = a.row_max + (long long)z * a.Nq;
@@ -1123,21 +1272,28 @@ attention_bwd_tc_dkv_kernel(TcBwdArgs a) {
   if constexpr (L::kWide)
     load_tile_async<DV, L::kThreads>(Vs, vp, a.v.sn, k0, a.Nk, L::kRes, tid);
 
+  const int tiles = (a.Nq + STR - 1) / STR;
+  const int t_beg = split * a.tiles_per_split;
+  const int t_end = min(tiles, t_beg + a.tiles_per_split);
   auto fill = [&](int tile, int s) {
-    float* st = stages + s * L::kStage;
-    const int n0 = tile * STR;
-    load_tile_async<D, L::kThreads>(st, qp, a.q.sn, n0, a.Nq, STR, tid);
-    if constexpr (L::kWide)
-      load_tile_async<DV, L::kThreads>(st + L::kStrTile, gp, a.go.sn, n0, a.Nq,
-                                       STR, tid);
-    else
-      load_vector_async<8, L::kThreads>(st + L::kStrTile, gp, n0, a.Nq, STR,
+    if (tile < t_end) {
+      float* st = stages + s * L::kStage;
+      const int n0 = tile * STR;
+      load_tile_async<D, L::kThreads>(reinterpret_cast<TQK*>(st), qp, a.q.sn,
+                                      n0, a.Nq, STR, tid);
+      if constexpr (L::kWide)
+        load_tile_async<DV, L::kThreads>(st + L::kStrTile, gp, a.go.sn, n0,
+                                         a.Nq, STR, tid);
+      else
+        load_vector_async<8, L::kThreads>(st + L::kStrTile, gp, n0, a.Nq, STR,
+                                          tid);
+      float* vec = st + L::kStrTile + L::kStrTileV;
+      load_vector_async<4, L::kThreads>(vec, row_max, n0, a.Nq, STR, tid);
+      load_vector_async<4, L::kThreads>(vec + STR, row_sum, n0, a.Nq, STR,
                                         tid);
-    float* vec = st + L::kStrTile + L::kStrTileV;
-    load_vector_async<4, L::kThreads>(vec, row_max, n0, a.Nq, STR, tid);
-    load_vector_async<4, L::kThreads>(vec + STR, row_sum, n0, a.Nq, STR, tid);
-    load_vector_async<4, L::kThreads>(vec + 2 * STR, delta, n0, a.Nq, STR,
-                                      tid);
+      load_vector_async<4, L::kThreads>(vec + 2 * STR, delta, n0, a.Nq, STR,
+                                        tid);
+    }
     cp_async_commit();
   };
 
@@ -1171,18 +1327,11 @@ attention_bwd_tc_dkv_kernel(TcBwdArgs a) {
       for (int e = 0; e < 4; ++e) acc_v[m][n][e] = 0.f;
   }
 
-  const int tiles = (a.Nq + STR - 1) / STR;
-  const int t_beg = split * a.tiles_per_split;
-  const int t_end = min(tiles, t_beg + a.tiles_per_split);
-  if (t_beg < t_end) fill(t_beg, 0);
+  ring_prologue<L::kStages>(fill, t_beg);
   for (int tile = t_beg; tile < t_end; ++tile) {
-    const int s = (tile - t_beg) % kTcStages;
-    // as in the query-tiled pass: one barrier per tile
-    cp_async_wait<0>();
-    __syncthreads();
-    if (tile + 1 < t_end) fill(tile + 1, (s + 1) % kTcStages);
-    const float* Qs = stages + s * L::kStage;
-    const float* Gs = Qs + L::kStrTile;
+    const int s = ring_next<L::kStages>(fill, tile, t_beg);
+    const TQK* Qs = reinterpret_cast<const TQK*>(stages + s * L::kStage);
+    const float* Gs = stages + s * L::kStage + L::kStrTile;
     const float* max_s = Gs + L::kStrTileV;
     const float* sum_s = max_s + STR;
     const float* del_s = sum_s + STR;
@@ -1204,10 +1353,18 @@ attention_bwd_tc_dkv_kernel(TcBwdArgs a) {
         for (int j = 0; j < L::kNT; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) prod[p][m][j][e] = 0.f;
-    const float* const res[2] = {Ks + warp * L::kWarpRows * L::kLd,
-                                 Vs + warp * L::kWarpRows * L::kLd};
-    const float* const str[2] = {Qs, Gs};
-    warp_gemm_nt<L::kProducts, D, MT, L::kNT, L::kLd>(res, str, g, t, prod);
+    if constexpr (QK_BF16) {
+      const TQK* const res[2] = {Ks + warp * L::kWarpRows * L::kLd,
+                                 Ks + warp * L::kWarpRows * L::kLd};
+      const TQK* const str[2] = {Qs, Qs};
+      warp_gemm_nt<1, D, MT, L::kNT, L::kLd, 2, false, TQK, TQK>(res, str, g,
+                                                                t, prod);
+    } else {
+      const float* const res[2] = {Ks + warp * L::kWarpRows * L::kLd,
+                                   Vs + warp * L::kWarpRows * L::kLd};
+      const float* const str[2] = {Qs, Gs};
+      warp_gemm_nt<L::kProducts, D, MT, L::kNT, L::kLd>(res, str, g, t, prod);
+    }
     float(&pt)[MT][L::kNT][4] = prod[0];  // S^T, then P^T
     float(&ds)[MT][L::kNT][4] = prod[1];  // dP^T, then dS^T
 #pragma unroll
@@ -1246,26 +1403,30 @@ attention_bwd_tc_dkv_kernel(TcBwdArgs a) {
     if constexpr (L::kWide) {
       if (want_v) warp_gemm_ak<DV, MT, L::kNT, L::kLdV>(pt, Gs, g, t, acc_v);
     }
-    if (want_k) warp_gemm_ak<D, MT, L::kNT, L::kLd>(ds, Qs, g, t, acc_k);
+    if (want_k)
+      warp_gemm_ak<D, MT, L::kNT, L::kLd, false, TQK>(ds, Qs, g, t, acc_k);
   }
 
-  float* dst_k;
+  float* base_k;
   float* dst_v;
-  long long sn_k, sn_v;
+  long long off_k, sn_k, sn_v;
   if (splits == 1) {
-    dst_k = want_k ? a.dk.p + b * a.dk.sb + (long long)h * D : nullptr;
+    base_k = a.dk.p;
+    off_k = b * a.dk.sb + (long long)h * D;
     dst_v = want_v ? a.dv.p + b * a.dv.sb + (long long)h * DV : nullptr;
     sn_k = a.dk.sn;
     sn_v = a.dv.sn;
   } else {
     const long long slot = (long long)split * a.B * a.H + z;
-    dst_k = want_k ? a.part_a + slot * a.Nk * D : nullptr;
+    base_k = a.part_a;
+    off_k = slot * a.Nk * D;
     dst_v = want_v ? a.part_b + slot * a.Nk * DV : nullptr;
     sn_k = D;
     sn_v = DV;
   }
   if (want_k)
-    store_fragments<D, MT>(acc_k, dst_k, sn_k, row0, a.Nk, g, t, a.scale);
+    store_grad<D, MT, QK_BF16>(acc_k, base_k, off_k, sn_k, row0, a.Nk, g, t,
+                               a.scale, splits > 1);
   if constexpr (L::kWide) {
     if (want_v)
       store_fragments<DV, MT>(acc_v, dst_v, sn_v, row0, a.Nk, g, t, 1.0f);
@@ -1293,8 +1454,14 @@ attention_bwd_tc_dkv_kernel(TcBwdArgs a) {
 // [B * H, Nq] its row statistics. q, go, dq: [B, Nq, H * .]; k, v, dk, dv:
 // [B, Nk, H * .]; bias [B, Nk] or null; mask [mask_nw, Nq, Nk] or null,
 // read only by the MASKED instantiations (the others take no mask: its
-// registers would make C's tiling spill).
-template <int D, int DV, int WARPS, int MT, int STR, bool MASKED = false>
+// registers would make C's tiling spill). QK_BF16 (kernel C's bf16
+// backward, DV = 2): q.p, k.p, dq.p and dk.p point at bf16, their strides
+// in bf16 elements; dq and dk are rounded once, where they are finished
+// (the unsplit pass, or the ordered sum of the split partials). Its tiles
+// take the bytes of bf16 and its blocks the places of the fp32
+// instantiation, so both split alike and sum in the same order.
+template <int D, int DV, int WARPS, int MT, int STR, bool MASKED = false,
+          bool QK_BF16 = false>
 cudaError_t attention_bwd_tc(AttnOperand q, AttnOperand k, AttnOperand v,
                              AttnOperand o, AttnOperand go, const float* bias,
                              const float* mask, int mask_nw,
@@ -1302,7 +1469,11 @@ cudaError_t attention_bwd_tc(AttnOperand q, AttnOperand k, AttnOperand v,
                              AttnGrad dq, AttnGrad dk, AttnGrad dv, int B,
                              int H, int Nq, int Nk, float scale, Workspace ws,
                              cudaStream_t stream) {
-  using L = TcBwd<D, DV, WARPS, MT, STR>;
+  using L = TcBwd<D, DV, WARPS, MT, STR, QK_BF16>;
+  static_assert(!QK_BF16 || DV == 2, "bf16 q and k with 2-wide values");
+  static_assert(L::kBlocksPerSm == TcBwd<D, DV, WARPS, MT, STR>::kBlocksPerSm,
+                "the fp32 instantiation's places");
+  using TG = std::conditional_t<QK_BF16, __nv_bfloat16, float>;
   if (mask && !MASKED) return cudaErrorInvalidValue;
   const int BH = B * H;
   const long long rows = (long long)BH * Nq;
@@ -1332,13 +1503,13 @@ cudaError_t attention_bwd_tc(AttnOperand q, AttnOperand k, AttnOperand v,
     if (splits > 1) a.part_a = ws.p;  // free again after the sum below
     // set once per instantiation, not per launch (one card per process)
     static const cudaError_t attr = cudaFuncSetAttribute(
-        attention_bwd_tc_dq_kernel<D, DV, WARPS, MT, STR, MASKED>,
+        attention_bwd_tc_dq_kernel<D, DV, WARPS, MT, STR, MASKED, QK_BF16>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
     if (attr != cudaSuccess) return attr;
-    attention_bwd_tc_dq_kernel<D, DV, WARPS, MT, STR, MASKED>
+    attention_bwd_tc_dq_kernel<D, DV, WARPS, MT, STR, MASKED, QK_BF16>
         <<<dim3(res_tiles, splits, BH), L::kThreads, L::kBytes, stream>>>(a);
     if (splits > 1)
-      split_reduce_kernel<<<ceil_div(rows * D, 256), 256, 0, stream>>>(
+      split_reduce_kernel<TG><<<ceil_div(rows * D, 256), 256, 0, stream>>>(
           a.part_a, splits, BH, H, Nq, D, dq);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
@@ -1354,16 +1525,17 @@ cudaError_t attention_bwd_tc(AttnOperand q, AttnOperand k, AttnOperand v,
       a.part_b = ws.p + splits * keys * D;
     }
     static const cudaError_t attr = cudaFuncSetAttribute(
-        attention_bwd_tc_dkv_kernel<D, DV, WARPS, MT, STR, MASKED>,
+        attention_bwd_tc_dkv_kernel<D, DV, WARPS, MT, STR, MASKED, QK_BF16>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
     if (attr != cudaSuccess) return attr;
-    attention_bwd_tc_dkv_kernel<D, DV, WARPS, MT, STR, MASKED>
+    attention_bwd_tc_dkv_kernel<D, DV, WARPS, MT, STR, MASKED, QK_BF16>
         <<<dim3(res_tiles, splits, BH), L::kThreads, L::kBytes, stream>>>(a);
     if (splits > 1 && dk.p)
-      split_reduce_kernel<<<ceil_div(keys * D, 256), 256, 0, stream>>>(
+      split_reduce_kernel<TG><<<ceil_div(keys * D, 256), 256, 0, stream>>>(
           a.part_a, splits, BH, H, Nk, D, dk);
     if (splits > 1 && dv.p)
-      split_reduce_kernel<<<ceil_div(keys * DV, 256), 256, 0, stream>>>(
+      split_reduce_kernel<float>
+          <<<ceil_div(keys * DV, 256), 256, 0, stream>>>(
           a.part_b, splits, BH, H, Nk, DV, dv);
     err = cudaGetLastError();
   }

@@ -8,7 +8,7 @@
 //   layernorm       out = (res +) LN(x) * gamma + beta, one warp per row;
 //   layernorm_bwd   dx (+)= LN'(x)^T dy, and dy * xhat for the gamma grad;
 //   colsum          out[c] (+)= sum_r in[r, c] (bias / LayerNorm grads),
-//                   two ordered passes;
+//                   two ordered passes; in fp32, or bf16 (its bits);
 //   gelu_exact, gelu_grad
 //                   exact GELU and its derivative (the GEMM epilogues of
 //                   gemm_tf32.cuh, kernel J).
@@ -22,6 +22,7 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace emip {
 // Internal linkage: every .cu entry file includes this header and is its
@@ -61,16 +62,23 @@ __device__ __forceinline__ float gelu_grad(float u) {
 
 // ------------------------------------------------------------- colsum
 
-__global__ void colsum_partial_kernel(const float* __restrict__ in,
-                                      long long ld, int rows, int C,
-                                      int rows_per_chunk, float* part) {
+// an element as fp32: an fp32 one, or bf16 bits widened exactly
+__device__ __forceinline__ float as_f32(float x) { return x; }
+__device__ __forceinline__ float as_f32(uint16_t x) {
+  return __uint_as_float((uint32_t)x << 16);
+}
+
+template <typename T>
+__global__ void colsum_partial_kernel(const T* __restrict__ in, long long ld,
+                                      int rows, int C, int rows_per_chunk,
+                                      float* part) {
   __shared__ float red[8][33];
   const int c = blockIdx.x * 32 + threadIdx.x;
   const int r0 = blockIdx.y * rows_per_chunk;
   const int r1 = min(rows, r0 + rows_per_chunk);
   float s = 0.f;
   if (c < C)
-    for (int r = r0 + threadIdx.y; r < r1; r += 8) s += in[r * ld + c];
+    for (int r = r0 + threadIdx.y; r < r1; r += 8) s += as_f32(in[r * ld + c]);
   red[threadIdx.y][threadIdx.x] = s;
   __syncthreads();
   if (threadIdx.y == 0 && c < C) {
@@ -91,8 +99,10 @@ __global__ void colsum_final_kernel(const float* __restrict__ part,
 }
 
 // out[c] = sum over rows of in[r * ld + c]; nothing to do if out is null.
-inline cudaError_t colsum(const float* in, long long ld, int rows, int C,
-                          float* out, Workspace ws, cudaStream_t stream) {
+// T: float, or uint16_t (bf16 bits).
+template <typename T>
+cudaError_t colsum(const T* in, long long ld, int rows, int C, float* out,
+                   Workspace ws, cudaStream_t stream) {
   if (!out) return cudaSuccess;
   int chunks = min(256, max(1, ceil_div(rows, 64)));
   chunks = (int)min((long long)chunks, ws.n / C);
@@ -100,8 +110,8 @@ inline cudaError_t colsum(const float* in, long long ld, int rows, int C,
   const int per = ceil_div(rows, chunks);
   chunks = ceil_div(rows, per);
   float* part = ws.take((long long)chunks * C);
-  colsum_partial_kernel<<<dim3(ceil_div(C, 32), chunks), dim3(32, 8), 0,
-                          stream>>>(in, ld, rows, C, per, part);
+  colsum_partial_kernel<T><<<dim3(ceil_div(C, 32), chunks), dim3(32, 8), 0,
+                             stream>>>(in, ld, rows, C, per, part);
   colsum_final_kernel<<<ceil_div(C, 128), 128, 0, stream>>>(part, chunks, C,
                                                             out);
   return cudaGetLastError();

@@ -41,13 +41,21 @@
 // dv only for g_kv_in, Wkv or bkv.
 //
 // The bf16 backward (the bf16 train step), as the JAX kernel computes it:
-// x, kv_in and the three weights upcast to fp32, q, [k | v], o and the row
-// statistics recomputed in fp32 (the bf16 forward's own buffers are rounded
-// and are not reused; it keeps only its inputs), the fp32 backward above,
-// and gx, g_kv_in and the three weight grads rounded to bf16 once at the
-// end (g_kv_in and the weight grads summed in fp32 over all rows first);
-// the bias grads stay fp32. A first, simple instantiation: the upcasts go
-// to fp32 scratch and the fp32 entry points above run on it.
+// q, [k | v], o and the row statistics recomputed in fp32 from the bf16 x,
+// kv_in and weights (the bf16 forward's own buffers are rounded and are
+// not reused; it keeps only its inputs), the fp32 backward above, and gx,
+// g_kv_in and the three weight grads rounded to bf16 once (g_kv_in and the
+// weight grads summed in fp32 over all rows first); the bias grads stay
+// fp32. The GEMMs read bf16 operands as they lie (gemm_tf32.cuh: bf16
+// tiles, widened as the fragments are built) and leave out the TF32 terms
+// of their zero low halves: x Wq^T, kv_in Wkv^T and g Wp one TF32 product,
+// g^T o, gq^T x, gkv^T kv_in, gq Wq and gkv Wkv two; the attention keeps its
+// fp32 math on the recomputed q, k, v (three). The recompute stops at o and
+// the statistics (no output projection), gbp sums g in bf16, and a bf16
+// grad is rounded by the GEMM's epilogue or the ordered sum of its split-K
+// partials: no scratch copy of the inputs, no conversion launches. Every
+// term left out added +0, so the grads are the bits of the fp32 backward on
+// the upcast inputs, rounded.
 
 #include "attention_bf16.cuh"
 #include "attention_fwd.cuh"
@@ -193,10 +201,9 @@ extern "C" int emip_sr_attention_bwd(
 // The bf16 backward. x [B, N, C], kv_in [B, M, C], wq, wp [C, C], wkv [2C,
 // C] and g [B, N, C] bf16, the biases fp32. gx, gkv_in and the weight grads
 // are written in bf16, the bias grads in fp32; each only when its pointer
-// is set. ws: fp32 scratch for the upcast inputs, the recomputed forward
-// (q, [k | v], o, statistics, output), the fp32 grads before their
-// rounding and the fp32 backward's scratch, then the split-K / attention
-// workspace.
+// is set. ws: fp32 scratch for the recomputed q, [k | v], o and row
+// statistics and for go, gq and gkv, then the attention's and the split-K
+// and column sums' workspace.
 extern "C" int emip_sr_attention_bwd_bf16(
     const void* x, const void* kv_in, const void* wq, const float* bq,
     const void* wkv, const float* bkv, const void* wp, const float* bp,
@@ -206,56 +213,80 @@ extern "C" int emip_sr_attention_bwd_bf16(
   using namespace emip;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long nq = (long long)B * N * C, nk = (long long)B * M * C;
-  const long long cc = (long long)C * C;
+  const int ch = C / heads;
+  const int rq = B * N, rk = B * M;
+  const bf16 *xb = static_cast<const bf16*>(x),
+             *kvb = static_cast<const bf16*>(kv_in),
+             *wqb = static_cast<const bf16*>(wq),
+             *wkvb = static_cast<const bf16*>(wkv),
+             *wpb = static_cast<const bf16*>(wp),
+             *gb = static_cast<const bf16*>(g);
+  bf16 *gxb = static_cast<bf16*>(gx), *gkvb = static_cast<bf16*>(gkv_in);
+  const bool want_q = gx || gwq || gbq, want_kv = gkv_in || gwkv || gbkv;
   Workspace all{ws, ws_floats};
-  float* x32 = all.take(nq);
-  float* kv32 = all.take(nk);
-  float* wq32 = all.take(cc);
-  float* wkv32 = all.take(2 * cc);
-  float* wp32 = all.take(cc);
-  float* g32 = all.take(nq);
   float* q_buf = all.take(nq);
   float* kv_buf = all.take(2 * nk);
   float* o_buf = all.take(nq);
   float* stats = all.take(2LL * B * heads * N);
-  float* out32 = all.take(nq);
-  float* gx32 = gx ? all.take(nq) : nullptr;
-  float* gkv_in32 = gkv_in ? all.take(nk) : nullptr;
-  float* gwq32 = gwq ? all.take(cc) : nullptr;
-  float* gwkv32 = gwkv ? all.take(2 * cc) : nullptr;
-  float* gwp32 = gwp ? all.take(cc) : nullptr;
   float* go = all.take(nq);
   float* gq = all.take(nq);
   float* gkv = all.take(2 * nk);
-  if (!x32 || !kv32 || !wq32 || !wkv32 || !wp32 || !g32 || !q_buf ||
-      !kv_buf || !o_buf || !stats || !out32 || (gx && !gx32) ||
-      (gkv_in && !gkv_in32) || (gwq && !gwq32) || (gwkv && !gwkv32) ||
-      (gwp && !gwp32) || !go || !gq || !gkv)
+  if (!q_buf || !kv_buf || !o_buf || !stats || !go || !gq || !gkv)
     return (int)cudaErrorInvalidValue;
+  const Workspace w = all;
   cudaError_t err;
 #define EMIP_TRY(call) \
   if ((err = (call)) != cudaSuccess) return (int)err;
-  EMIP_TRY(bf16_to_f32(static_cast<const bf16*>(x), x32, nq, s));
-  EMIP_TRY(bf16_to_f32(static_cast<const bf16*>(kv_in), kv32, nk, s));
-  EMIP_TRY(bf16_to_f32(static_cast<const bf16*>(wq), wq32, cc, s));
-  EMIP_TRY(bf16_to_f32(static_cast<const bf16*>(wkv), wkv32, 2 * cc, s));
-  EMIP_TRY(bf16_to_f32(static_cast<const bf16*>(wp), wp32, cc, s));
-  EMIP_TRY(bf16_to_f32(static_cast<const bf16*>(g), g32, nq, s));
-  if (int rc = emip_sr_attention(x32, kv32, wq32, bq, wkv32, bkv, wp32, bp,
-                                 q_buf, kv_buf, o_buf, stats, out32, all.p,
-                                 all.n, B, N, M, C, heads, stream))
+
+  // the forward up to o and the row statistics: q = x Wq^T + bq and [k | v]
+  // = kv_in Wkv^T + bkv on bf16 operands, the attention in fp32
+  EMIP_TRY(linear_exact(xb, C, wqb, bq, q_buf, C, rq, C, C, s));
+  EMIP_TRY(linear_exact(kvb, C, wkvb, bkv, kv_buf, 2 * C, rk, 2 * C, C, s));
+  const long long qsb = (long long)N * C, ksb = (long long)M * 2 * C;
+  if (int rc = emip_attention_fwd(q_buf, qsb, C, kv_buf, ksb, 2 * C,
+                                  kv_buf + C, ksb, 2 * C, nullptr, 1, o_buf,
+                                  qsb, C, stats, w.p, w.n, B, heads, N, M, ch,
+                                  0, stream))
     return rc;
-  if (int rc = emip_sr_attention_bwd(
-          x32, kv32, wq32, wkv32, wp32, q_buf, kv_buf, o_buf, stats, g32,
-          gx32, gkv_in32, gwq32, gbq, gwkv32, gbkv, gwp32, gbp, go, gq, gkv,
-          all.p, all.n, B, N, M, C, heads, stream))
-    return rc;
-  float* const from[5] = {gx32, gkv_in32, gwq32, gwkv32, gwp32};
-  void* const to[5] = {gx, gkv_in, gwq, gwkv, gwp};
-  const long long count[5] = {nq, nk, cc, 2 * cc, cc};
-  for (int i = 0; i < 5; ++i)
-    if (to[i])
-      EMIP_TRY(f32_to_bf16(from[i], static_cast<bf16*>(to[i]), count[i], s));
+
+  // out = o Wp^T + bp
+  EMIP_TRY(weight_grad_exact(gb, C, o_buf, C, static_cast<bf16*>(gwp), C, C,
+                             rq, w, s));
+  EMIP_TRY(colsum(reinterpret_cast<const uint16_t*>(gb), C, rq, C, gbp, w,
+                  s));
+  if (!want_q && !want_kv) return (int)cudaGetLastError();
+  EMIP_TRY(input_grad_exact(gb, C, wpb, C, C, go, C, rq, s));
+
+  // o = attention(q, k, v), one batch row per (image, head), in fp32
+  const AttnOperand qo{q_buf, qsb, C}, ko{kv_buf, ksb, 2 * C},
+      vo{kv_buf + C, ksb, 2 * C}, oo{o_buf, qsb, C}, goo{go, qsb, C};
+  const AttnGrad dq{want_q ? gq : nullptr, qsb, C},
+      dk{want_kv ? gkv : nullptr, ksb, 2 * C},
+      dv{want_kv ? gkv + C : nullptr, ksb, 2 * C};
+  const float* row_sum = stats + (long long)B * heads * N;
+  const float scale = 1.0f / sqrtf((float)ch);
+  if (ch == 64)
+    err = attention_bwd_tc<64, 64, kSrBwdWarps, kSrBwdMt, kSrBwdStr>(
+        qo, ko, vo, oo, goo, nullptr, nullptr, 1, stats, row_sum, dq, dk, dv,
+        B, heads, N, M, scale, w, s);
+  else if (ch == 32)
+    err = attention_bwd_tc<32, 32, kSrBwdWarps, kSrBwdMt, kSrBwdStr>(
+        qo, ko, vo, oo, goo, nullptr, nullptr, 1, stats, row_sum, dq, dk, dv,
+        B, heads, N, M, scale, w, s);
+  else
+    err = cudaErrorInvalidValue;
+  if (err != cudaSuccess) return (int)err;
+
+  // q = x Wq^T + bq; [k | v] = kv_in Wkv^T + bkv
+  EMIP_TRY(weight_grad_exact(gq, C, xb, C, static_cast<bf16*>(gwq), C, C, rq,
+                             w, s));
+  EMIP_TRY(colsum(gq, C, rq, C, gbq, w, s));
+  EMIP_TRY(weight_grad_exact(gkv, 2 * C, kvb, C, static_cast<bf16*>(gwkv),
+                             2 * C, C, rk, w, s));
+  EMIP_TRY(colsum(gkv, 2 * C, rk, 2 * C, gbkv, w, s));
+  if (gx) EMIP_TRY(input_grad_exact(gq, C, wqb, C, C, gxb, C, rq, s));
+  if (gkv_in)
+    EMIP_TRY(input_grad_exact(gkv, 2 * C, wkvb, 2 * C, C, gkvb, C, rk, s));
 #undef EMIP_TRY
   return (int)cudaGetLastError();
 }

@@ -13,10 +13,12 @@ In the bf16 band q and k are bf16 and v fp32, as the JAX kernel takes
 them in a bf16 model: ``emip_flow_attention_bf16`` (the bf16 attention of
 ``csrc/attention_bf16.cu``: q k^T from bf16 operands into fp32, P and the
 2-wide P v in fp32) writes fp32. Its backward
-(``emip_flow_attention_bwd_bf16``) is the JAX kernel's: q and k upcast, the
-scores and P recomputed in fp32 (with the row statistics: the bf16 forward
-keeps only its inputs and output), the fp32 backward above, dq and dk
-rounded to bf16, dv fp32.
+(``emip_flow_attention_bwd_bf16``) is the JAX kernel's: the scores and P
+recomputed in fp32 from q and k as they are (with the row statistics: the
+bf16 forward keeps only its inputs and output), dq and dk rounded to bf16
+where they are finished, dv fp32. It reads q and k in bf16 and computes
+the fp32 backward's bits on them: a product with a bf16 operand leaves out
+the TF32 terms that are zero (``tf32.flow_attention_bwd_bf16_walk``).
 """
 
 from __future__ import annotations
@@ -58,6 +60,15 @@ def _check(q, k, v, dtype=torch.float32) -> None:
     cm.check_shape(_NAME, "v", v, (b, l, _VALUE_WIDTH))
 
 
+def _partials(b: int, l: int, c: int, needs) -> int:
+    """Workspace floats for the backward's passes to split their streamed
+    side two ways (partial dq, or partial dk and dv) where they have too
+    few blocks."""
+    if needs[1] or needs[2]:
+        return 2 * b * l * (c + _VALUE_WIDTH)
+    return 2 * b * l * c
+
+
 class _FlowAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, keep):
@@ -97,11 +108,7 @@ class _FlowAttention(torch.autograd.Function):
         dq, dk, dv = (cm.empty_if(nd, t) for nd, t in zip(needs, (q, k, v)))
         # delta, and room for a pass to split its streamed side two ways
         # (partial dq, or partial dk and dv) where it has too few blocks
-        if needs[1] or needs[2]:
-            partials = 2 * b * l * (c + _VALUE_WIDTH)
-        else:
-            partials = 2 * b * l * c
-        ws = cm.workspace(q.device, b * l + partials)
+        ws = cm.workspace(q.device, b * l + _partials(b, l, c, needs))
         rc = library().emip_flow_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             stats.data_ptr(), g.data_ptr(), cm.ptr(dq), cm.ptr(dk),
@@ -144,11 +151,9 @@ class _FlowAttentionBf16(torch.autograd.Function):
         g = g.contiguous()
         b, l, c = q.shape
         dq, dk, dv = (cm.empty_if(nd, t) for nd, t in zip(needs, (q, k, v)))
-        # the upcast q and k, the recomputed statistics and output, the
-        # fp32 dq and dk; then the fp32 backward's delta and partials
-        n = b * l * c
-        ws = cm.workspace(q.device, 4 * n + 4 * b * l
-                          + b * l + 2 * b * l * (c + _VALUE_WIDTH))
+        # the row statistics, delta and the partials of the split passes
+        # (two ways, as the fp32 backward's: the same splits, the same sums)
+        ws = cm.workspace(q.device, 3 * b * l + _partials(b, l, c, needs))
         rc = library().emip_flow_attention_bwd_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             g.data_ptr(), cm.ptr(dq), cm.ptr(dk), cm.ptr(dv), ws.data_ptr(),

@@ -14,11 +14,13 @@ forward is ``emip_sr_attention_bf16`` (the bf16 GEMM of
 ``csrc/gemm_bf16.cuh`` and the bf16 attention of
 ``csrc/attention_bf16.cu``), rounding where the JAX kernel rounds with a
 bf16 storage dtype. Its backward (``emip_sr_attention_bwd_bf16``) is the
-JAX kernel's: the inputs and weights upcast, the forward recomputed in
-fp32 (the bf16 forward's rounded q, [k | v] and o are not the JAX
+JAX kernel's: the forward recomputed in fp32 from the bf16 inputs and
+weights (the bf16 forward's rounded q, [k | v] and o are not the JAX
 backward's, so the bf16 forward keeps only its inputs), the fp32 backward
 above, and gx, g_kv_in and the three weight grads rounded to bf16 once; the
-bias grads fp32.
+bias grads fp32. Its GEMMs read the bf16 operands as they are and leave
+out the TF32 terms that are zero, which gives the bits of the fp32
+backward on the upcast inputs (``tf32.sr_attention_bwd_bf16_walk``).
 """
 
 from __future__ import annotations
@@ -217,12 +219,12 @@ class _SRAttentionBf16(torch.autograd.Function):
         heads = ctx.num_heads
         grads = [torch.empty_like(t) if nd else None
                  for nd, t in zip(needs, inputs)]
-        # fp32 scratch (see emip_sr_attention_bwd_bf16): the upcast inputs,
-        # the recomputed forward, the grads before their rounding and the
-        # fp32 backward's; then the larger of the forward's key-split
-        # partials and the backward's delta and query-split partials
-        nq, nk, cc = b * n * c, b * m * c, c * c
-        scratch = 8 * nq + 6 * nk + 8 * cc + 2 * b * heads * n
+        # fp32 scratch (see emip_sr_attention_bwd_bf16): the recomputed q,
+        # [k | v], o and row statistics, go, gq and gkv; then the larger of
+        # the forward's key-split partials and the backward's delta and
+        # query-split partials (the split-K and column sums' partials fit)
+        nq, nk = b * n * c, b * m * c
+        scratch = 4 * nq + 4 * nk + 2 * b * heads * n
         rest = max(_workspace_floats(b, heads, n, m, c // heads, False),
                    b * heads * n + 32 * nk)
         ws = cm.workspace(x.device, scratch + rest)

@@ -11,7 +11,9 @@ and the JAX package's Pallas kernels:
   :func:`tf32_truncate` cuts it as the tensor core does to an operand's
   low bits; :func:`matmul_tf32` is one tensor-core product of rounded
   operands and :func:`matmul_3xtf32` the three-term product the kernels
-  use.
+  use; :func:`matmul_3xtf32_exact` leaves out the terms of an operand
+  that is exact in TF32 (a bf16 one), as the kernels do with bf16
+  operands, and equals :func:`matmul_3xtf32` on such operands.
 * :func:`gemm_tiled` walks the GEMM: K in tiles of 32, the split-K
   partials summed in order, then the epilogue (bias, exact GELU or its
   derivative).
@@ -26,17 +28,24 @@ and the JAX package's Pallas kernels:
   on transposed score tiles; ragged last tiles; the streamed side split in
   chunks whose partials are summed in order), per head and with an
   additive score mask where the kernels of A, B, G and H have them.
+* :func:`flow_attention_bwd_bf16_walk` and :func:`sr_attention_bwd_bf16_walk`
+  walk the bf16 backwards of kernels C and A: bf16 operands read as they
+  are, each product counting its TF32 terms by its operands' exactness,
+  and the bf16 grads rounded once where the kernels' epilogues round them.
 
 Nothing here runs on a model's path.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 __all__ = ["tf32_round", "tf32_truncate", "matmul_tf32", "matmul_3xtf32",
-           "gemm_tiled", "attention_fwd_tiled", "attention_row_stats",
-           "attention_bwd_tiled"]
+           "matmul_3xtf32_exact", "gemm_tiled", "attention_fwd_tiled",
+           "attention_row_stats", "attention_bwd_tiled",
+           "flow_attention_bwd_bf16_walk", "sr_attention_bwd_bf16_walk"]
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -67,6 +76,26 @@ def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     a_hi, b_hi = tf32_round(a), tf32_round(b)
     a_lo, b_lo = tf32_truncate(a - a_hi), tf32_truncate(b - b_hi)
     return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+
+
+def matmul_3xtf32_exact(a: torch.Tensor, b: torch.Tensor,
+                        a_exact: bool = False,
+                        b_exact: bool = False) -> torch.Tensor:
+    """:func:`matmul_3xtf32` with the terms of an exact operand left out,
+    as ``mma_3xtf32`` does with ``A_EXACT`` / ``B_EXACT``: an operand whose
+    values are exact in TF32 (a bf16 value is) is its own hi and its lo is
+    zero, so a.lo b.hi (``a_exact``) or a.hi b.lo (``b_exact``) adds
+    nothing; with both exact one TF32 product is left. On such operands
+    it equals :func:`matmul_3xtf32`."""
+    a_hi = a if a_exact else tf32_round(a)
+    b_hi = b if b_exact else tf32_round(b)
+    small = []
+    if not a_exact:
+        small.append(tf32_truncate(a - a_hi) @ b_hi)
+    if not b_exact:
+        small.append(a_hi @ tf32_truncate(b - b_hi))
+    big = a_hi @ b_hi
+    return big if not small else sum(small[1:], small[0]) + big
 
 
 def _split_heads(x, heads: int):
@@ -213,7 +242,7 @@ def attention_fwd_tiled(q, k, v, bias=None, stream_rows=32, splits=1,
 def attention_bwd_tiled(q, k, v, bias, out, row_max, row_sum, g,
                         which=(0, 1, 2), res_rows=64, stream_rows=64,
                         splits=1, matmul=torch.matmul, heads: int = 1,
-                        mask=None):
+                        mask=None, matmul_qk=None, matmul_dsk=None):
     """(dq, dk, dv) of ``softmax(q k^T / sqrt(W) + bias + mask) v`` per
     head for the cotangent ``g``, computed as ``attention_bwd_tc`` does; a
     grad whose index is not in ``which`` is None.
@@ -226,8 +255,12 @@ def attention_bwd_tiled(q, k, v, bias, out, row_max, row_sum, g,
     ``stream_rows``; with ``splits`` > 1 the streamed tiles are cut in
     chunks whose partial sums are added in order. ``matmul`` is the product
     used for every tile (:func:`matmul_3xtf32` to follow the kernels'
-    arithmetic).
+    arithmetic); ``matmul_qk`` (the scores q k^T) and ``matmul_dsk`` (dS k
+    and dS^T q, the B operand k or q), where given, take the place of
+    ``matmul`` in those products.
     """
+    mm_qk = matmul_qk or matmul
+    mm_dsk = matmul_dsk or matmul
     b, nq, _ = q.shape
     nk = k.shape[1]
     bias, mask = _score_terms(b, heads, nq, nk, bias, mask, q)
@@ -251,11 +284,11 @@ def attention_bwd_tiled(q, k, v, bias, out, row_max, row_sum, g,
                     keys = slice(tile * stream_rows,
                                  min(nk, (tile + 1) * stream_rows))
                     kt, vt = k[:, keys], v[:, keys]
-                    s = (matmul(qt, t(kt)) * scale + bias[:, None, keys]
+                    s = (mm_qk(qt, t(kt)) * scale + bias[:, None, keys]
                          + mask[:, rows, keys])
                     p = torch.exp(s - mx) * inv
                     ds = p * (matmul(gt, t(vt)) - dl)
-                    acc = acc + matmul(ds, kt)
+                    acc = acc + mm_dsk(ds, kt)
                 dq[:, rows] += acc * scale
         dq = _merge_heads(dq, heads)
     if 1 in which or 2 in which:
@@ -271,15 +304,108 @@ def attention_bwd_tiled(q, k, v, bias, out, row_max, row_sum, g,
                                  min(nq, (tile + 1) * stream_rows))
                     qt, gt = q[:, rows], g[:, rows]
                     # transposed tiles: rows are keys, columns queries
-                    st = (matmul(kt, t(qt)) * scale + bias[:, keys, None]
+                    st = (mm_qk(kt, t(qt)) * scale + bias[:, keys, None]
                           + t(mask[:, rows, keys]))
                     pt = (torch.exp(st - row_max[:, None, rows])
                           / row_sum[:, None, rows])
                     dst = pt * (matmul(vt, t(gt)) - delta[:, None, rows])
                     acc_v = acc_v + matmul(pt, gt)
-                    acc_k = acc_k + matmul(dst, qt)
+                    acc_k = acc_k + mm_dsk(dst, qt)
                 dk[:, keys] += acc_k * scale
                 dv[:, keys] += acc_v
         dk = _merge_heads(dk, heads) if 1 in which else None
         dv = _merge_heads(dv, heads) if 2 in which else None
     return dq, dk, dv
+
+
+def _exact(a_exact: bool, b_exact: bool):
+    """The three-term product with exact operands' terms left out."""
+    return functools.partial(matmul_3xtf32_exact, a_exact=a_exact,
+                             b_exact=b_exact)
+
+
+def flow_attention_bwd_bf16_walk(q, k, v, out, g, which=(0, 1),
+                                 res_rows=64, stream_rows=64, splits=1,
+                                 stat_rows=32, stat_splits=1, stats=None):
+    """(dq, dk, dv) of kernel C's bf16 backward (``emip_flow_attention_bwd_
+    bf16``): q, k [B, L, C] bf16, read as they are; v, out (the bf16
+    forward's) and the cotangent g [B, L, 2] fp32. A grad not in ``which``
+    is None.
+
+    The row statistics come from a pass of the fp32 forward's tiling on the
+    bf16 q and k (keys streamed in tiles of ``stat_rows``, split in
+    ``stat_splits`` chunks merged in order) whose scores are one TF32
+    product (both operands exact), or from ``stats`` (row max, row sum)
+    where given. The backward is :func:`attention_bwd_tiled` with the
+    scores one TF32 product and dS k, dS^T q two (k and q exact), the rest
+    three; dq and dk rounded to bf16 once, dv fp32. Every product equals
+    its three-term form on these operands, so the grads are those of the
+    fp32 backward on the upcast q and k, rounded.
+    """
+    q32, k32 = q.float(), k.float()
+    if stats is None:
+        _, row_max, row_sum = attention_fwd_tiled(
+            q32, k32, v, stream_rows=stat_rows, splits=stat_splits,
+            matmul=_exact(True, True), keep_stats=True)
+    else:
+        row_max, row_sum = stats
+    dq, dk, dv = attention_bwd_tiled(
+        q32, k32, v, None, out, row_max, row_sum, g, which=which,
+        res_rows=res_rows, stream_rows=stream_rows, splits=splits,
+        matmul=matmul_3xtf32, matmul_qk=_exact(True, True),
+        matmul_dsk=_exact(False, True))
+    bf16 = torch.bfloat16
+    return (None if dq is None else dq.to(bf16),
+            None if dk is None else dk.to(bf16), dv)
+
+
+def sr_attention_bwd_bf16_walk(x, kv_in, wq, bq, wkv, bkv, wp, bp,
+                               heads: int, g, res_rows=64, stream_rows=32,
+                               key_splits=1, wgrad_splits=1):
+    """The 8 grads (torch layout) of kernel A's bf16 backward
+    (``emip_sr_attention_bwd_bf16``): x [B, N, C], kv_in [B, M, C], the
+    weights and the cotangent g [B, N, C] bf16, the biases fp32.
+
+    The forward recomputed up to o and the row statistics: q and [k | v]
+    GEMMs (:func:`gemm_tiled`, K in tiles of 32) of two bf16 operands, one
+    TF32 product; the attention forward (keys in tiles of ``stream_rows``,
+    split in ``key_splits``) in three-term products on the fp32 q, k, v;
+    no output projection. The backward: gWp = g^T o and go = g Wp (g bf16:
+    two products, and one with the bf16 Wp); the attention backward
+    (``res_rows`` resident rows, streamed tiles of ``stream_rows``) in
+    three-term products; gWq = gq^T x, gWkv = gkv^T kv_in, gx = gq Wq and
+    g_kv_in = gkv Wkv with the bf16 operand exact, two products. The weight
+    grads split K in ``wgrad_splits`` chunks summed in order; gx, g_kv_in
+    and the weight grads rounded to bf16 once, the bias grads fp32 column
+    sums. Every product equals its three-term form on these operands, so
+    the grads are those of the fp32 backward on the upcast inputs, rounded.
+    """
+    b, n, c = x.shape
+    m = kv_in.shape[1]
+    bf16 = torch.bfloat16
+    x2, kv2, g2 = (t.float().reshape(-1, c) for t in (x, kv_in, g))
+    wq, wkv, wp = wq.float(), wkv.float(), wp.float()
+    gemm = gemm_tiled
+    both, a_ex, b_ex = _exact(True, True), _exact(True, False), _exact(
+        False, True)
+    q = gemm(x2, wq.T, bq, matmul=both).reshape(b, n, c)
+    kv = gemm(kv2, wkv.T, bkv, matmul=both).reshape(b, m, 2 * c)
+    k, v = kv[..., :c], kv[..., c:]
+    o, row_max, row_sum = attention_fwd_tiled(
+        q, k, v, stream_rows=stream_rows, splits=key_splits,
+        matmul=matmul_3xtf32, keep_stats=True, heads=heads)
+    o2 = o.reshape(-1, c)
+    gwp = gemm(g2.T, o2, splits=wgrad_splits, matmul=a_ex)
+    gbp = g2.sum(0)
+    go = gemm(g2, wp, matmul=both).reshape(b, n, c)
+    dq, dk, dv = attention_bwd_tiled(
+        q, k, v, None, o, row_max, row_sum, go, res_rows=res_rows,
+        stream_rows=stream_rows, matmul=matmul_3xtf32, heads=heads)
+    gq2 = dq.reshape(-1, c)
+    gkv2 = torch.cat([dk, dv], -1).reshape(-1, 2 * c)
+    gwq = gemm(gq2.T, x2, splits=wgrad_splits, matmul=b_ex)
+    gwkv = gemm(gkv2.T, kv2, splits=wgrad_splits, matmul=b_ex)
+    gx = gemm(gq2, wq, matmul=b_ex).reshape(b, n, c)
+    gkv_in = gemm(gkv2, wkv, matmul=b_ex).reshape(b, m, c)
+    return (gx.to(bf16), gkv_in.to(bf16), gwq.to(bf16), gq2.sum(0),
+            gwkv.to(bf16), gkv2.sum(0), gwp.to(bf16), gbp)
