@@ -261,7 +261,7 @@ these rows carry the CUDA cores' figure for all their operations as
 and as its last line ``{"ok": true, "device":
 {...}}``. Before the JSON line it prints a ``digests {...}`` line: for every
 case of the fp32 backward rows of A, B, C, F, G and H and of the bf16 ones
-of A and C (``DIGEST_KERNELS``) the sha256 of its grads' bytes and its
+of A, B, C and F (``DIGEST_KERNELS``) the sha256 of its grads' bytes and its
 device launches per call, so that two trees can be shown to give the same
 bits at the same seeds. Any failure raises and the exit code is non-zero,
 with no result line. Details also go to ``chiprun_out/chip_smoke.json``. ``--kernels
@@ -453,14 +453,15 @@ TENSOR_CORE_KERNELS = ("sr_attention", "sr_attention_bwd",
 # (``device_ms``): the CUDA-core kernels D, E, I and J, whose calls take the
 # device about as long as, or less than, the host's launch path, which the
 # CUDA-event time then reads
-# (device_ms), and the bf16 backwards of A and C, whose launches per call
-# the redesign of their bf16 form cut
+# (device_ms), and the bf16 backwards of A, B, C and F, whose launches per
+# call the redesign of their bf16 form cut
 DEVICE_TIMED = ("convex_upsample", "convex_upsample_bwd", "splat_density",
                 "softmax_expectation", "softmax_expectation_bwd",
                 "dwconv_gelu", "dwconv_gelu_bwd", "convex_upsample_bf16",
                 "convex_upsample_bwd_bf16", "dwconv_gelu_bf16",
                 "dwconv_gelu_bwd_bf16", "sr_attention_bwd_bf16",
-                "flow_attention_bwd_bf16")
+                "flow_attention_bwd_bf16", "window_attention_block_bwd_bf16",
+                "memory_attention_bwd_bf16")
 # kernels held to the same bits on a second call on the same inputs: the
 # tensor-core ones, J and I's backward, which add their per-block partials
 # in a fixed order, and E, whose sum is in integers
@@ -469,7 +470,8 @@ BIT_EQUAL_KERNELS = TENSOR_CORE_KERNELS + (
     "splat_density", "window_attention_layer_bwd_bf16",
     "window_attention_ffn_layer_bwd_bf16", "dwconv_gelu_bf16",
     "dwconv_gelu_bwd_bf16", "sr_attention_bwd_bf16",
-    "flow_attention_bwd_bf16")
+    "flow_attention_bwd_bf16", "window_attention_block_bwd_bf16",
+    "memory_attention_bwd_bf16")
 # the backward rows whose grads' digests (sha256 of their bytes, per case)
 # are printed on a line of their own: the bf16 and fp32 backwards of the
 # kernels on the tensor cores' attention backward and GEMM, so that two
@@ -478,7 +480,8 @@ DIGEST_KERNELS = ("sr_attention_bwd", "window_attention_block_bwd",
                   "window_attention_layer_bwd",
                   "window_attention_ffn_layer_bwd", "flow_attention_bwd",
                   "memory_attention_bwd", "sr_attention_bwd_bf16",
-                  "flow_attention_bwd_bf16")
+                  "flow_attention_bwd_bf16", "window_attention_block_bwd_bf16",
+                  "memory_attention_bwd_bf16")
 DIGESTS = {}
 # the 3xTF32 GEMM alone against the fp64 product: max|err| / max|ref| (fp32
 # rounding of sums over up to 61,952 rows)
@@ -2361,7 +2364,8 @@ def bf16_backward_cases(batch: int, device):
     that take a gradient, summed) of the bf16 backwards of A-D at the bf16
     train step's shapes: A at the four PVT stages (bf16 tokens and weights,
     fp32 biases; every grad), B on [2B, 4, 484, 128] bf16 windows without
-    and with the shift mask (gx, gt and every parameter grad), C on bf16 q,
+    and with the shift mask (gx, gt and every parameter grad; and gx gt
+    alone, the train step's case, kept out of the row's sum), C on bf16 q,
     k with fp32 values (dq dk at [B] and [2B], dq dk dv at [2B], and a
     ragged [2, 1000] dq dk dv kept out of the row's sum), D on bf16 logits
     (gflow and gmask), F on bf16 q against the fp32 ring (dq dk dv, and dq
@@ -2408,15 +2412,20 @@ def bf16_backward_cases(batch: int, device):
             return fn(x, t, dict(zip(keys, p)), mask)
         return call
 
+    # with every parameter grad (the row's sum), and gx gt alone: the bf16
+    # train step's case (GMFlow frozen), kept out of the sum
     for label, msk in (("unshifted", None), ("shifted mask", mask)):
-        cases.append(("window_attention_block_bwd_bf16",
-                      f"[{2 * batch},{k2},{tok},{c}] {label}, x t + weight "
-                      f"grads",
-                      functools.partial(block(K.fused_window_attention_block),
-                                        mask=msk),
-                      vjp_grads(functools.partial(
-                          block(_block_recompute_bf16), mask=msk)),
-                      (x, t, *params), tuple(range(2 + len(params))), True))
+        for wgrads in (True, False):
+            cases.append((
+                "window_attention_block_bwd_bf16",
+                f"[{2 * batch},{k2},{tok},{c}] {label}, x t"
+                + (" + weight grads" if wgrads else " alone"),
+                functools.partial(block(K.fused_window_attention_block),
+                                  mask=msk),
+                vjp_grads(functools.partial(block(_block_recompute_bf16),
+                                            mask=msk)),
+                (x, t, *params),
+                tuple(range(2 + len(params))) if wgrads else (0, 1), wgrads))
     L = 1936
     for b, label, which in ((batch, "matching dq dk", (0, 1)),
                             (2 * batch, "propagation dq dk", (0, 1)),

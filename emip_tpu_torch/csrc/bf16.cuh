@@ -25,7 +25,7 @@
 //                    without the residual, into a bf16 output.
 //   bf16_to_f32      an elementwise upcast (B's cross layer reads t in
 //                    fp32, as the JAX kernel upcasts it; the bf16
-//                    backwards of B, F, G and H upcast their inputs to
+//                    backwards of G and H upcast their inputs to
 //                    recompute).
 //   f32_to_bf16      an elementwise rounding (those backwards round their
 //                    grads once, at the end).

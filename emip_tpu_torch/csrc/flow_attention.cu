@@ -63,9 +63,9 @@
 // (attention_fwd_tc with STATS_BF16: the fp32 forward's tiling, splits and
 // merge, no P v) gives the row max and sum (the bf16 forward keeps none,
 // and its scores, mma.m16n8k16 bf16 products, sum in another order), then
-// attention_bwd_tc with QK_BF16 at the fp32 backward's tiling and splits,
-// delta from the bf16 forward's fp32 output as the JAX kernel reads its
-// forward's out; dq and dk are rounded where they are finished (the unsplit
+// attention_bwd_tc with Q16 and K16 at the fp32 backward's tiling and
+// splits, delta from the bf16 forward's fp32 output as the JAX kernel reads
+// its forward's out; dq and dk are rounded where they are finished (the unsplit
 // pass, or the ordered sum of the split partials), dv stays fp32. Every
 // term left out added +0, so the grads are the bits of the fp32 backward on
 // the upcast q and k, rounded: no scratch copy of the inputs, no fp32 dq and

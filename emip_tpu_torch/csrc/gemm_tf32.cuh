@@ -36,15 +36,18 @@
 // aligned (a leading dimension or contiguous extent that is no multiple of
 // 4 floats), its copies are 4 bytes wide.
 //
-// An operand may be bf16 (kernel A's bf16 backward: x, kv_in, the weights
-// and the output's gradient): its tiles are copied as bf16, half the
-// bytes, and widened as the fragments are built; a bf16 value is exact in
-// TF32, so the products of its zero low half are left out (mma_3xtf32):
-// one TF32 product of two bf16 operands, two of a bf16 and an fp32 one. The
-// sums are those of the three-term products on the widened operands, so
-// the result has the fp32 GEMM's bits on them. Such a product may write
-// its output rounded to bf16 (c_bf16), once, where it is finished: in the
-// epilogue, or in the ordered sum of its split-K partials.
+// An operand may be bf16 (the bf16 backwards of kernels A and B: x, t,
+// kv_in, A's weights and output gradient): its tiles are copied as bf16,
+// half the bytes, and widened as the fragments are built; a bf16 value is
+// exact in TF32, so the products of its zero low half are left out
+// (mma_3xtf32): one TF32 product of two bf16 operands, two of a bf16 and
+// an fp32 one. An fp32 operand that holds bf16 values (B's x1) is read as
+// fp32 and counted as exact the same way (ExactF32). The sums are those of
+// the three-term products on the widened operands, so the result has the
+// fp32 GEMM's bits on them. Any product may add an fp32 or bf16 addend in
+// its epilogue (add: B's residuals) and write its output rounded to bf16
+// (c_bf16), once, where it is finished: in the epilogue, or in the ordered
+// sum of its split-K partials.
 
 #pragma once
 
@@ -55,13 +58,16 @@
 namespace emip {
 namespace {
 
-enum { kEpiNone = 0, kEpiGelu = 1, kEpiGeluGrad = 2 };
+// kEpiAdd: the addend and a bf16 output of a product of fp32 operands (an
+// instantiation of its own, so that the others keep their registers)
+enum { kEpiNone = 0, kEpiGelu = 1, kEpiGeluGrad = 2, kEpiAdd = 3 };
 
 // A(m, k) at A[m * sam + k * sak]; B(k, n) at B[k * sbk + n * sbn], one of
 // each operand's strides being 1; C(m, n) at C[m * ldc + n] (+ blockIdx.z *
 // split_stride for split-K partials). aux(m, n) at aux[m * ldaux + n]: the
 // pre-activation written by the GELU epilogue or read by the
-// GELU-derivative epilogue.
+// GELU-derivative epilogue. add(m, n) at add[m * ldadd + n], fp32 or bf16
+// (add_bf16): added to the result last (kEpiAdd, unsplit).
 struct GemmArgs {
   const float* A;
   long long sam, sak;
@@ -76,7 +82,10 @@ struct GemmArgs {
   int kchunk;              // K range of one blockIdx.z
   long long split_stride;  // distance between split-K partial outputs
   bool accumulate;         // C += result instead of C = result
-  bool c_bf16;             // C holds bf16 (the bf16-operand forms only)
+  bool c_bf16;             // C holds bf16 (kEpiAdd or an exact operand)
+  const void* add;         // null: no addend
+  long long ldadd;
+  bool add_bf16;
 };
 
 constexpr int kGemmBM = 128;
@@ -143,12 +152,13 @@ __device__ __forceinline__ void gemm_load_tile(T* dst, int ld, const T* src,
   }
 }
 
-// TA, TB: the operands' element types (float, or uint16_t for bf16 bits).
+// TA, TB: the operands' element types (float, uint16_t for bf16 bits, or
+// ExactF32).
 template <bool AK, bool BK, int kEpi, typename TA = float, typename TB = float>
 __global__ void __launch_bounds__(kGemmThreads, 2)
 gemm_tc_kernel(GemmArgs g, bool vec_a, bool vec_b) {
   using P = GemmPlan<AK, BK, kBf16<TA>, kBf16<TB>>;
-  constexpr bool kMixed = kBf16<TA> || kBf16<TB>;
+  constexpr bool kMixed = kExact<TA> || kExact<TB>;
   constexpr int kNT = P::kNT;
   const TA* gA = reinterpret_cast<const TA*>(g.A);
   const TB* gB = reinterpret_cast<const TB*>(g.B);
@@ -237,8 +247,8 @@ gemm_tc_kernel(GemmArgs g, bool vec_a, bool vec_b) {
         split_as(b_at(k8 + t, c), bh[n][0], bl[n][0]);
         split_as(b_at(k8 + t + 4, c), bh[n][1], bl[n][1]);
       }
-      mma_3xtf32<kGemmMT, kNT, kNT, kBf16<TA>, kBf16<TB>>(part, 0, ah, al, bh,
-                                                          bl);
+      mma_3xtf32<kGemmMT, kNT, kNT, kExact<TA>, kExact<TB>>(part, 0, ah, al,
+                                                            bh, bl);
     }
 #pragma unroll
     for (int m = 0; m < kGemmMT; ++m)
@@ -272,7 +282,16 @@ gemm_tc_kernel(GemmArgs g, bool vec_a, bool vec_b) {
           } else if (kEpi == kEpiGeluGrad) {
             v *= gelu_grad(g.aux[(long long)r * g.ldaux + col]);
           }
-          if constexpr (kMixed) {
+          if constexpr (kEpi == kEpiAdd) {
+            if (g.add) {
+              const long long at = (long long)r * g.ldadd + col;
+              v = (g.add_bf16
+                       ? as_f32(static_cast<const uint16_t*>(g.add)[at])
+                       : static_cast<const float*>(g.add)[at]) +
+                  v;
+            }
+          }
+          if constexpr (kMixed || kEpi == kEpiAdd) {
             if (g.c_bf16) {  // unsplit: blockIdx.z is 0
               reinterpret_cast<__nv_bfloat16*>(g.C)[(long long)r * g.ldc +
                                                     col] =
@@ -333,11 +352,16 @@ cudaError_t gemm_launch(const GemmArgs& g, int splits, cudaStream_t stream) {
 
 // One product; splits > 1 runs the split-K partials of gemm_splitk. The
 // GELU epilogue is instantiated for the forward's x W^T, the
-// GELU-derivative one for the backward's dy W.
+// GELU-derivative one for the backward's dy W, an addend or a bf16 output
+// (kEpiAdd, unsplit) for an input grad dy W.
 inline cudaError_t gemm(GemmArgs g, int epi, cudaStream_t stream,
                         int splits = 1) {
   const bool ak = g.sak == 1, bk = g.sbk == 1;
   if ((!ak && g.sam != 1) || (!bk && g.sbn != 1)) return cudaErrorInvalidValue;
+  if (g.add || g.c_bf16)
+    return epi == kEpiNone && ak && !bk && splits == 1 && !g.accumulate
+               ? gemm_launch<true, false, kEpiAdd>(g, splits, stream)
+               : cudaErrorInvalidValue;
   if (epi == kEpiGelu)
     return ak && bk ? gemm_launch<true, true, kEpiGelu>(g, splits, stream)
                     : cudaErrorInvalidValue;
@@ -365,25 +389,31 @@ inline GemmArgs gemm_args(const float* A, long long sam, long long sak,
   g.kchunk = K; g.split_stride = 0;
   g.accumulate = false;
   g.c_bf16 = false;
+  g.add = nullptr;
+  g.ldadd = 0;
+  g.add_bf16 = false;
   return g;
 }
 
-// One product without an epilogue where an operand is bf16 (TA, TB: float,
-// or uint16_t for bf16 bits): the forms kernel A's bf16 backward runs. Two
-// bf16 operands with A K-major (x W^T, dy W); a bf16 A in dW = dy^T x; a
-// bf16 B in dW = dy^T x and dx = dy W. No +=.
+// One product without an epilogue where an operand is exact (TA, TB:
+// float, uint16_t for bf16 bits, or ExactF32): the forms the bf16
+// backwards of kernels A and B run. Two bf16 operands with A K-major (x
+// W^T, dy W); an exact A in y = x W^T (an fp32 W) and in dW = dy^T x; an
+// exact B in dW = dy^T x and dx = dy W. No +=.
 template <typename TA, typename TB>
 cudaError_t gemm_exact(const GemmArgs& g, cudaStream_t stream,
                        int splits = 1) {
-  static_assert(kBf16<TA> || kBf16<TB>, "the fp32 product is gemm()");
+  static_assert(kExact<TA> || kExact<TB>, "the fp32 product is gemm()");
   const bool ak = g.sak == 1, bk = g.sbk == 1;
-  if ((!ak && g.sam != 1) || (!bk && g.sbn != 1) || g.accumulate)
+  if ((!ak && g.sam != 1) || (!bk && g.sbn != 1) || g.accumulate || g.add)
     return cudaErrorInvalidValue;
-  if constexpr (kBf16<TA> && kBf16<TB>) {
+  if constexpr (kExact<TA> && kExact<TB>) {
     if (!ak) return cudaErrorInvalidValue;
     return bk ? gemm_launch<true, true, kEpiNone, TA, TB>(g, splits, stream)
               : gemm_launch<true, false, kEpiNone, TA, TB>(g, splits, stream);
-  } else if constexpr (kBf16<TA>) {
+  } else if constexpr (kExact<TA>) {
+    if (ak && bk)
+      return gemm_launch<true, true, kEpiNone, TA, TB>(g, splits, stream);
     return !ak && !bk
                ? gemm_launch<false, false, kEpiNone, TA, TB>(g, splits, stream)
                : cudaErrorInvalidValue;
@@ -411,11 +441,12 @@ inline cudaError_t linear(const float* x, int ldx, const float* W,
 // output tiles leave the card idle, K is split across blocks (as many
 // splits as fit in one wave of two blocks an SM), each split writes its own
 // partial [M, N] into the workspace, and an ordered pass sums them into C.
-// A split keeps at least 4 K tiles. TA, TB as in gemm_exact: with a bf16
-// operand, C may be bf16 (c_bf16), rounded by the ordered pass.
+// A split keeps at least 4 K tiles. TA, TB as in gemm_exact; C may be bf16
+// (c_bf16), rounded by the ordered pass; no addend.
 template <typename TA = float, typename TB = float>
 cudaError_t gemm_splitk(GemmArgs g, Workspace ws, cudaStream_t stream) {
-  constexpr bool kMixed = kBf16<TA> || kBf16<TB>;
+  constexpr bool kMixed = kExact<TA> || kExact<TB>;
+  if (g.add) return cudaErrorInvalidValue;
   auto run = [&](const GemmArgs& a, int splits) {
     if constexpr (kMixed)
       return gemm_exact<TA, TB>(a, stream, splits);
@@ -444,13 +475,11 @@ cudaError_t gemm_splitk(GemmArgs g, Workspace ws, cudaStream_t stream) {
   p.bias = nullptr;
   cudaError_t err = run(p, splits);
   if (err != cudaSuccess) return err;
-  if constexpr (kMixed) {
-    if (g.c_bf16) {
-      splitk_reduce_kernel<__nv_bfloat16>
-          <<<ceil_div(mn, 256), 256, 0, stream>>>(p.C, splits, g.M, g.N, g.C,
-                                                  g.ldc, false);
-      return cudaGetLastError();
-    }
+  if (g.c_bf16) {
+    splitk_reduce_kernel<__nv_bfloat16>
+        <<<ceil_div(mn, 256), 256, 0, stream>>>(p.C, splits, g.M, g.N, g.C,
+                                                g.ldc, false);
+    return cudaGetLastError();
   }
   splitk_reduce_kernel<float><<<ceil_div(mn, 256), 256, 0, stream>>>(
       p.C, splits, g.M, g.N, g.C, g.ldc, g.accumulate);
@@ -481,11 +510,12 @@ inline cudaError_t input_grad(const float* dy, int ldy, const float* W,
 // A pointer's element as the GEMM reads it: bf16 as its bits.
 template <typename T>
 using GemmElem =
-    std::conditional_t<std::is_same_v<T, __nv_bfloat16>, uint16_t, float>;
+    std::conditional_t<std::is_same_v<T, __nv_bfloat16>, uint16_t, T>;
 
-// linear, weight_grad and input_grad where an operand is bf16 (T*:
-// float or __nv_bfloat16), each product counting its TF32 terms by the
-// operands' exactness; a bf16 OUT is rounded once, where it is finished.
+// linear, weight_grad and input_grad where an operand may be exact (T*:
+// float, __nv_bfloat16 or ExactF32), each product counting its TF32 terms
+// by the operands' exactness (with none exact, the fp32 products above);
+// a bf16 OUT is rounded once, where it is finished.
 template <typename TX, typename TW>
 cudaError_t linear_exact(const TX* x, int ldx, const TW* W,
                          const float* bias, float* y, int ldy, int M, int N,
@@ -494,7 +524,10 @@ cudaError_t linear_exact(const TX* x, int ldx, const TW* W,
                          reinterpret_cast<const float*>(W), 1, K, y, ldy, M,
                          N, K);
   g.bias = bias;
-  return gemm_exact<GemmElem<TX>, GemmElem<TW>>(g, stream);
+  if constexpr (kExact<GemmElem<TX>> || kExact<GemmElem<TW>>)
+    return gemm_exact<GemmElem<TX>, GemmElem<TW>>(g, stream);
+  else
+    return gemm(g, kEpiNone, stream);
 }
 
 template <typename TY, typename TX, typename OUT>

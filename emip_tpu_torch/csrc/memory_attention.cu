@@ -67,13 +67,22 @@
 // rescales the fp32 accumulators as the running max grows: the same
 // function within the bf16 band, the choice attention_bf16.cu makes for
 // kernels A and B. The row statistics it keeps for the backward are those
-// of the unrounded scores. The bf16 backward is the JAX kernel's: q
-// upcast, P recomputed in fp32 from the kept statistics, delta = rowsum(dO
-// o out) from the bf16 forward's output, then dq rounded to bf16 once; dk
-// and dv stay fp32. A first, simple instantiation: q is widened into fp32
-// scratch and the fp32 backward above runs on it.
+// of the unrounded scores. The bf16 backward is the JAX kernel's: P
+// recomputed in fp32 from the kept statistics, delta = rowsum(dO o out)
+// from the bf16 forward's output, dq rounded to bf16 once; dk and dv stay
+// fp32. It is the backward above instantiated for a bf16 q (Q16 of
+// attention_bwd_tc), with the fp32 one's tiling, splits and sums: q's rows
+// are copied as bf16 where they lie (the query-tiled pass keeps them
+// resident, the key-tiled pass streams them through its cp.async stages,
+// three now that the q tiles take half the bytes) and widened as the
+// fragments are built. q is exact in TF32, so the products it enters, q
+// k^T in both passes and dS^T q, take two TF32 products instead of three;
+// the term left out adds +0, so the grads have the bits of the fp32
+// backward on the upcast q. dO v^T, dS k and P^T dO keep three (P is
+// recomputed in fp32). dq is rounded in the epilogue that finishes it: the
+// unsplit pass's, or the ordered sum of the split partials. No upcast
+// scratch and no conversion launches.
 
-#include "bf16.cuh"
 #include "mma_tf32.cuh"
 
 // the tilings: warps, fragments of 16 resident rows per warp, streamed rows
@@ -182,9 +191,8 @@ extern "C" int emip_memory_attention_bf16(const void* q, const float* k,
 }
 
 // The bf16 backward: q and dq bf16, every other tensor fp32; out and stats
-// the bf16 forward's. dq, dk, dv may each be null. ws: B M C floats for
-// the upcast q, B M C more for the fp32 dq when dq is wanted, then what
-// the fp32 backward takes.
+// the bf16 forward's. dq, dk, dv may each be null. ws: as the fp32
+// backward's (delta and the partials of a split pass).
 extern "C" int emip_memory_attention_bwd_bf16(
     const void* q, const float* k, const float* v, const float* bias,
     const float* out, const float* stats, const float* g, void* dq,
@@ -192,19 +200,29 @@ extern "C" int emip_memory_attention_bwd_bf16(
     int N, int C, void* stream) {
   using namespace emip;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long n = (long long)B * M * C;
-  Workspace all{ws, ws_floats};
-  float* q32 = all.take(n);
-  float* dq32 = dq ? all.take(n) : nullptr;
-  if (!q32 || (dq && !dq32)) return (int)cudaErrorInvalidValue;
+  const long long qsb = (long long)M * C, ksb = (long long)N * C;
+  // bf16 bits behind float pointers (Q16 of attention_bwd_tc)
+  const AttnOperand qo{static_cast<const float*>(q), qsb, C};
+  const AttnOperand ko{k, ksb, C}, vo{v, ksb, C};
+  const AttnOperand oo{out, qsb, C}, go{g, qsb, C};
+  const AttnGrad dqg{static_cast<float*>(dq), qsb, C}, dkg{dk, ksb, C},
+      dvg{dv, ksb, C};
+  const float* row_sum = stats + (long long)B * M;
+  const Workspace w{ws, ws_floats};
+  const float scale = 1.0f / sqrtf((float)C);
   cudaError_t err;
-  if ((err = bf16_to_f32(static_cast<const bf16*>(q), q32, n, s)))
-    return (int)err;
-  if (int rc = emip_memory_attention_bwd(q32, k, v, bias, out, stats, g, dq32,
-                                         dk, dv, all.p, all.n, B, M, N, C,
-                                         stream))
-    return rc;
-  if (dq && (err = f32_to_bf16(dq32, static_cast<bf16*>(dq), n, s)))
-    return (int)err;
+  if (C == 128)
+    err = attention_bwd_tc<128, 128, kMemBwdWarps, kMemBwdMt, kMemBwdStr,
+                           false, true, false>(
+        qo, ko, vo, oo, go, bias, nullptr, 1, stats, row_sum, dqg, dkg, dvg,
+        B, 1, M, N, scale, w, s);
+  else if (C == 64)
+    err = attention_bwd_tc<64, 64, kMemBwdWarps, kMemBwdMt, kMemBwdStr, false,
+                           true, false>(
+        qo, ko, vo, oo, go, bias, nullptr, 1, stats, row_sum, dqg, dkg, dvg,
+        B, 1, M, N, scale, w, s);
+  else
+    return (int)cudaErrorInvalidValue;
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

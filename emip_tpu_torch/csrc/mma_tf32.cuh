@@ -105,7 +105,8 @@
 // take no mask, and their forwards no heads, at compile time: either would
 // cost their tilings registers. Kernel C's bf16 backward instantiates both
 // with bf16 q and k (the forward as a statistics pass, STATS_BF16; the
-// backward with QK_BF16), kernel F's bf16 forward with a bf16 q (QBF16).
+// backward with Q16 and K16), kernel F's bf16 forward with a bf16 q
+// (QBF16) and its bf16 backward with Q16 alone.
 
 #pragma once
 
@@ -155,10 +156,21 @@ __device__ __forceinline__ void tf32_split(float x, uint32_t& hi,
 template <typename T>
 constexpr bool kBf16 = std::is_same_v<T, uint16_t>;
 
+// fp32 storage of values exact in TF32 (bf16 values kept in fp32, as kernel
+// B's x1 is): read as fp32, its low halves left out as a bf16 operand's.
+struct ExactF32 {
+  float x;
+};
+template <typename T>
+constexpr bool kExact = kBf16<T> || std::is_same_v<T, ExactF32>;
+
 template <typename T>
 __device__ __forceinline__ void split_as(T x, uint32_t& hi, uint32_t& lo) {
   if constexpr (kBf16<T>) {
     hi = (uint32_t)x << 16;
+    lo = 0u;
+  } else if constexpr (std::is_same_v<T, ExactF32>) {
+    hi = __float_as_uint(x.x);
     lo = 0u;
   } else {
     tf32_split(x, hi, lo);
@@ -209,44 +221,66 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[MT][NC][4], int c0,
     for (int j = 0; j < NT; ++j) mma_tf32(c[m][c0 + j], a_hi[m], b_hi[j]);
 }
 
-// For each of P <= 2 products: c[p][m][j] += A_p[16m .. 16m + 15, K] .
-// B_p[8j .. 8j + 7, K]^T for m < MT, j < NT. A_p points at the warp's first
-// row, B_p at the tile's first row; all have the leading dim LD (in
-// elements). A fragment of B is loaded and split once for the MT fragments
-// of A. The P products share the k loop so that their accumulators
-// interleave. A_EXACT: A holds values exact in TF32 (see mma_3xtf32); TA,
-// TB: the operands' element types (a bf16 operand is exact).
-template <int P, int K, int MT, int NT, int LD, int PC, bool A_EXACT = false,
-          typename TA = float, typename TB = float>
-__device__ __forceinline__ void warp_gemm_nt(const TA* const (&A)[2],
-                                             const TB* const (&B)[2],
+// The fragments of rows 16 m + g, 16 m + g + 8 (m < MT) and k columns k0 +
+// t, k0 + t + 4 of a row-major A tile (leading dim LD, in elements; T its
+// element type), split as mma_3xtf32 reads them; and of rows 8 j + g (j <
+// NT) of a row-major B tile, whose rows are the product's columns.
+template <int MT, int LD, typename T>
+__device__ __forceinline__ void frags_a(const T* A, int g, int t, int k0,
+                                        uint32_t (&hi)[MT][4],
+                                        uint32_t (&lo)[MT][4]) {
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    const T* a = A + (16 * m + g) * LD + t + k0;
+    split_as(a[0], hi[m][0], lo[m][0]);
+    split_as(a[8 * LD], hi[m][1], lo[m][1]);
+    split_as(a[4], hi[m][2], lo[m][2]);
+    split_as(a[8 * LD + 4], hi[m][3], lo[m][3]);
+  }
+}
+template <int NT, int LD, typename T>
+__device__ __forceinline__ void frags_b(const T* B, int g, int t, int k0,
+                                        uint32_t (&hi)[NT][2],
+                                        uint32_t (&lo)[NT][2]) {
+  const T* b = B + g * LD + t + k0;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    split_as(b[j * 8 * LD], hi[j][0], lo[j][0]);
+    split_as(b[j * 8 * LD + 4], hi[j][1], lo[j][1]);
+  }
+}
+
+// c[0][m][j] += A0[16m .. 16m + 15, K] . B0[8j .. 8j + 7, K]^T for m < MT,
+// j < NT, and with P = 2 the same of A1 and B1 into c[1]. A0, A1 point at
+// the warp's first row, B0, B1 at the tile's first row; each operand has
+// its own leading dim (LDA0 ..., in elements) and element type (float, or
+// uint16_t for bf16 bits: an exact operand). A fragment of B is loaded and
+// split once for the MT fragments of A. The two products share the k loop
+// so that their accumulators interleave. A_EXACT: both A hold values
+// exact in TF32 (see mma_3xtf32).
+template <int P, int K, int MT, int NT, int LDA0, int LDB0, int LDA1,
+          int LDB1, int PC, bool A_EXACT = false, typename TA0,
+          typename TB0, typename TA1 = float, typename TB1 = float>
+__device__ __forceinline__ void warp_gemm_nt(const TA0* A0, const TB0* B0,
+                                             const TA1* A1, const TB1* B1,
                                              int g, int t,
                                              float (&c)[PC][MT][NT][4]) {
-  static_assert(P <= 2 && P <= PC, "one accumulator tile per product");
+  static_assert((P == 1 || P == 2) && P <= PC,
+                "one accumulator tile per product");
 #pragma unroll kTcKUnroll
   for (int k0 = 0; k0 < K; k0 += 8) {
     uint32_t ah[P][MT][4], al[P][MT][4], bh[P][NT][2], bl[P][NT][2];
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        const TA* a = A[p] + (16 * m + g) * LD + t + k0;
-        split_as(a[0], ah[p][m][0], al[p][m][0]);
-        split_as(a[8 * LD], ah[p][m][1], al[p][m][1]);
-        split_as(a[4], ah[p][m][2], al[p][m][2]);
-        split_as(a[8 * LD + 4], ah[p][m][3], al[p][m][3]);
-      }
-      const TB* b = B[p] + g * LD + t + k0;
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        split_as(b[j * 8 * LD], bh[p][j][0], bl[p][j][0]);
-        split_as(b[j * 8 * LD + 4], bh[p][j][1], bl[p][j][1]);
-      }
+    frags_a<MT, LDA0>(A0, g, t, k0, ah[0], al[0]);
+    frags_b<NT, LDB0>(B0, g, t, k0, bh[0], bl[0]);
+    if constexpr (P == 2) {
+      frags_a<MT, LDA1>(A1, g, t, k0, ah[P - 1], al[P - 1]);
+      frags_b<NT, LDB1>(B1, g, t, k0, bh[P - 1], bl[P - 1]);
     }
-#pragma unroll
-    for (int p = 0; p < P; ++p)
-      mma_3xtf32<MT, NT, NT, A_EXACT || kBf16<TA>, kBf16<TB>>(
-          c[p], 0, ah[p], al[p], bh[p], bl[p]);
+    mma_3xtf32<MT, NT, NT, A_EXACT || kExact<TA0>, kExact<TB0>>(
+        c[0], 0, ah[0], al[0], bh[0], bl[0]);
+    if constexpr (P == 2)
+      mma_3xtf32<MT, NT, NT, A_EXACT || kExact<TA1>, kExact<TB1>>(
+          c[P - 1], 0, ah[P - 1], al[P - 1], bh[P - 1], bl[P - 1]);
   }
 }
 
@@ -282,8 +316,8 @@ __device__ __forceinline__ void warp_gemm_ak(const float (&p)[MT][NT][4],
         split_as(b0[8 * (n0 + n)], bh[n][0], bl[n][0]);
         split_as(b0[8 * (n0 + n) + LDB], bh[n][1], bl[n][1]);
       }
-      mma_3xtf32<MT, kGroup, N / 8, A_EXACT, kBf16<TB>>(acc, n0, ah, al, bh,
-                                                        bl);
+      mma_3xtf32<MT, kGroup, N / 8, A_EXACT, kExact<TB>>(acc, n0, ah, al, bh,
+                                                         bl);
     }
   }
 }
@@ -390,10 +424,11 @@ __device__ __forceinline__ void load_vector_async(float* dst, const float* src,
 // Shared-memory plan of one pass: the resident side's tiles (with RES_V its
 // value-width rows too), then a ring of STAGES stages, each the streamed
 // side's tiles and VECS per-row vectors. A warp owns MT fragments of 16
-// resident rows. QK_BF16: the q and k tiles hold bf16 values, rows D + 8
-// values apart (kLd counts elements), half the bytes of fp32 rows.
+// resident rows. RES16 (STR16): the resident (streamed) q or k tile holds
+// bf16 values, rows D + 8 values apart (the leading dims count elements),
+// half the bytes of fp32 rows D + 4 apart.
 template <int D, int DV, int WARPS, int MT, int STR, bool RES_V, int VECS,
-          bool QK_BF16 = false, int STAGES = 2>
+          bool RES16 = false, bool STR16 = RES16, int STAGES = 2>
 struct TcPlan {
   static_assert(D % 8 == 0 && STR % 8 == 0, "fragment sizes");
   static_assert(DV == 2 || DV == D, "value width: 2, or the key width");
@@ -405,12 +440,13 @@ struct TcPlan {
   static constexpr int kRes = kWarpRows * WARPS;
   static constexpr int kThreads = 32 * WARPS;
   static constexpr int kNT = STR / 8;
-  static constexpr int kLd = QK_BF16 ? D + 8 : D + 4;
-  static constexpr int kRowFloats = QK_BF16 ? kLd / 2 : kLd;
+  static constexpr int kLdRes = RES16 ? D + 8 : D + 4;
+  static constexpr int kLdStr = STR16 ? D + 8 : D + 4;
+  static constexpr int kLd = kLdRes;  // the forward's: both sides alike
   static constexpr int kLdV = DV + 4;
-  static constexpr int kResTile = kRes * kRowFloats;
+  static constexpr int kResTile = kRes * (RES16 ? kLdRes / 2 : kLdRes);
   static constexpr int kResTileV = RES_V && kWide ? kRes * kLdV : 0;
-  static constexpr int kStrTile = STR * kRowFloats;
+  static constexpr int kStrTile = STR * (STR16 ? kLdStr / 2 : kLdStr);
   static constexpr int kStrTileV = kWide ? STR * kLdV : STR * DV;
   static constexpr int kStage = kStrTile + kStrTileV + VECS * STR;
   static constexpr size_t kBytes =
@@ -428,14 +464,17 @@ struct TcPlan {
 // the forward: resident queries; a stage holds k, v and the bias
 template <int D, int DV, int WARPS, int MT, int STR, bool QK_BF16 = false>
 using TcFwd = TcPlan<D, DV, WARPS, MT, STR, false, 1, QK_BF16>;
-// the backward's passes: resident q and dO (or k and v); a stage holds the
-// other side's two tiles and up to four per-row vectors. With bf16 q and k
-// the halved tiles buy a third stage (kernel C: 62 KiB a block at width
-// 128, against 103 KiB for fp32 and two stages), so that two tiles are in
-// flight while a third is multiplied.
-template <int D, int DV, int WARPS, int MT, int STR, bool QK_BF16 = false>
-using TcBwd = TcPlan<D, DV, WARPS, MT, STR, true, 4, QK_BF16,
-                     QK_BF16 ? 3 : 2>;
+// the backward's passes: the resident q or k rows (RES16: bf16) with their
+// dO or v rows; a stage holds the other side's q or k rows (STR16: bf16),
+// its v or dO rows and up to four per-row vectors. A bf16 q or k buys a
+// third stage (kernel C, bf16 q and k: 62 KiB a block at width 128, against
+// 103 KiB for fp32 and two stages; kernel F, bf16 q: 200 and 208 KiB, where
+// three fp32 stages would not fit), so that two tiles are in flight while
+// a third is multiplied.
+template <int D, int DV, int WARPS, int MT, int STR, bool RES16 = false,
+          bool STR16 = RES16>
+using TcBwd = TcPlan<D, DV, WARPS, MT, STR, true, 4, RES16, STR16,
+                     RES16 || STR16 ? 3 : 2>;
 
 // ------------------------------------------------------- score masks
 
@@ -647,11 +686,9 @@ attention_fwd_tc_kernel(TcFwdArgs a) {
       for (int j = 0; j < L::kNT; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) prod[0][m][j][e] = 0.f;
-    const TQK* const res[2] = {Qs + warp * L::kWarpRows * L::kLd,
-                               Qs + warp * L::kWarpRows * L::kLd};
-    const TQK* const str[2] = {Ks, Ks};
-    warp_gemm_nt<1, D, MT, L::kNT, L::kLd, 1, QBF16, TQK, TQK>(res, str, g, t,
-                                                              prod);
+    warp_gemm_nt<1, D, MT, L::kNT, L::kLd, L::kLd, 0, 0, 1, QBF16>(
+        Qs + warp * L::kWarpRows * L::kLd, Ks, (const float*)nullptr,
+        (const float*)nullptr, g, t, prod);
     float(&sc)[MT][L::kNT][4] = prod[0];
 
     // scaled, biased (masked) scores; keys past the end of the tile at -inf
@@ -1021,15 +1058,15 @@ __device__ __forceinline__ void store_fragments(
 }
 
 // A pass's grad at base + off: its whole grad (one split) in fp32, or with
-// QK_BF16 rounded to bf16 (base then holds bf16, off and sn count bf16
+// BF16 rounded to bf16 (base then holds bf16, off and sn count bf16
 // elements); a split's partial always in fp32.
-template <int W, int MT, bool QK_BF16>
+template <int W, int MT, bool BF16>
 __device__ __forceinline__ void store_grad(const float (&acc)[MT][W / 8][4],
                                            float* base, long long off,
                                            long long sn, int row0, int rows,
                                            int g, int t, float scale,
                                            bool partial) {
-  if constexpr (QK_BF16) {
+  if constexpr (BF16) {
     if (!partial) {
       store_fragments<W, MT>(acc, reinterpret_cast<__nv_bfloat16*>(base) + off,
                              sn, row0, rows, g, t, scale);
@@ -1062,21 +1099,23 @@ __device__ __forceinline__ int ring_next(Fill& fill, int tile, int t_beg) {
 
 // Query-tiled pass, grid (query tiles, key splits, B): dq = scale * sum over
 // this split's keys of dS k, written to dq with one split and to
-// part_a[split] otherwise. QK_BF16: q and k are bf16 (q.p, k.p hold the
-// bits), read into bf16 tiles and widened as the fragments are built, so S
-// = q k^T is one TF32 product and dS k two; dq is written in bf16.
+// part_a[split] otherwise. Q16 (K16): q (k) is bf16 (q.p, k.p hold the
+// bits), read into a bf16 tile and widened as the fragments are built, so
+// that S = q k^T takes one TF32 product less (two with both bf16) and, with
+// K16, dS k one less; with Q16 dq is written in bf16.
 template <int D, int DV, int WARPS, int MT, int STR, bool MASKED,
-          bool QK_BF16 = false>
+          bool Q16 = false, bool K16 = Q16>
 __global__ void __launch_bounds__(
-    32 * WARPS, (TcBwd<D, DV, WARPS, MT, STR, QK_BF16>::kBlocksPerSm))
+    32 * WARPS, (TcBwd<D, DV, WARPS, MT, STR, Q16, K16>::kBlocksPerSm))
 attention_bwd_tc_dq_kernel(TcBwdArgs a) {
-  using L = TcBwd<D, DV, WARPS, MT, STR, QK_BF16>;
-  using TQK = std::conditional_t<QK_BF16, uint16_t, float>;
+  using L = TcBwd<D, DV, WARPS, MT, STR, Q16, K16>;
+  using TQ = std::conditional_t<Q16, uint16_t, float>;
+  using TK = std::conditional_t<K16, uint16_t, float>;
   extern __shared__ __align__(16) float tc_smem[];
-  TQK* Qs = reinterpret_cast<TQK*>(tc_smem);  // [kRes][kLd]
-  float* Gs = tc_smem + L::kResTile;          // [kRes][DV + 4] (wide only)
+  TQ* Qs = reinterpret_cast<TQ*>(tc_smem);  // [kRes][kLdRes]
+  float* Gs = tc_smem + L::kResTile;        // [kRes][DV + 4] (wide only)
   float* stages = Gs + L::kResTileV;
-  // a stage: K [STR][kLd]; V [STR][DV + 4] or [STR][2]; bias [STR]
+  // a stage: K [STR][kLdStr]; V [STR][DV + 4] or [STR][2]; bias [STR]
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
@@ -1084,10 +1123,10 @@ attention_bwd_tc_dq_kernel(TcBwdArgs a) {
   const int row0 = q0 + warp * L::kWarpRows;  // this warp's first query
   const int split = blockIdx.y, splits = gridDim.y, z = blockIdx.z;
   const int b = z / a.H, h = z % a.H;
-  const TQK* qp =
-      reinterpret_cast<const TQK*>(a.q.p) + b * a.q.sb + (long long)h * D;
-  const TQK* kp =
-      reinterpret_cast<const TQK*>(a.k.p) + b * a.k.sb + (long long)h * D;
+  const TQ* qp =
+      reinterpret_cast<const TQ*>(a.q.p) + b * a.q.sb + (long long)h * D;
+  const TK* kp =
+      reinterpret_cast<const TK*>(a.k.p) + b * a.k.sb + (long long)h * D;
   const float* vp = a.v.p + b * a.v.sb + (long long)h * DV;
   const float* gp = a.go.p + b * a.go.sb + (long long)h * DV;
   const float* bias = a.bias ? a.bias + (long long)b * a.Nk : nullptr;
@@ -1106,7 +1145,7 @@ attention_bwd_tc_dq_kernel(TcBwdArgs a) {
     if (tile < t_end) {
       float* st = stages + s * L::kStage;
       const int k0 = tile * STR;
-      load_tile_async<D, L::kThreads>(reinterpret_cast<TQK*>(st), kp, a.k.sn,
+      load_tile_async<D, L::kThreads>(reinterpret_cast<TK*>(st), kp, a.k.sn,
                                       k0, a.Nk, STR, tid);
       if constexpr (L::kWide)
         load_tile_async<DV, L::kThreads>(st + L::kStrTile, vp, a.v.sn, k0,
@@ -1151,7 +1190,7 @@ attention_bwd_tc_dq_kernel(TcBwdArgs a) {
   ring_prologue<L::kStages>(fill, t_beg);
   for (int tile = t_beg; tile < t_end; ++tile) {
     const int s = ring_next<L::kStages>(fill, tile, t_beg);
-    const TQK* Ks = reinterpret_cast<const TQK*>(stages + s * L::kStage);
+    const TK* Ks = reinterpret_cast<const TK*>(stages + s * L::kStage);
     const float* Vs = stages + s * L::kStage + L::kStrTile;
     const float* bias_s = Vs + L::kStrTileV;
     const int k0 = tile * STR;
@@ -1163,8 +1202,7 @@ attention_bwd_tc_dq_kernel(TcBwdArgs a) {
         mask_from_l2<MT, L::kNT, false>(mask, a.Nq, a.Nk, row0 + g, k0, t,
                                         mv);
 
-    // scores, and with wide values dO v^T beside them (fp32 q and k only:
-    // the bf16 instantiation has DV = 2)
+    // scores, and with wide values dO v^T beside them
     float prod[L::kProducts][MT][L::kNT][4];
 #pragma unroll
     for (int p = 0; p < L::kProducts; ++p)
@@ -1174,18 +1212,10 @@ attention_bwd_tc_dq_kernel(TcBwdArgs a) {
         for (int j = 0; j < L::kNT; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) prod[p][m][j][e] = 0.f;
-    if constexpr (QK_BF16) {
-      const TQK* const res[2] = {Qs + warp * L::kWarpRows * L::kLd,
-                                 Qs + warp * L::kWarpRows * L::kLd};
-      const TQK* const str[2] = {Ks, Ks};
-      warp_gemm_nt<1, D, MT, L::kNT, L::kLd, L::kProducts, false, TQK, TQK>(
-          res, str, g, t, prod);
-    } else {
-      const float* const res[2] = {Qs + warp * L::kWarpRows * L::kLd,
-                                   Gs + warp * L::kWarpRows * L::kLd};
-      const float* const str[2] = {Ks, Vs};
-      warp_gemm_nt<L::kProducts, D, MT, L::kNT, L::kLd>(res, str, g, t, prod);
-    }
+    warp_gemm_nt<L::kProducts, D, MT, L::kNT, L::kLdRes, L::kLdStr, L::kLdV,
+                 L::kLdV, L::kProducts>(Qs + warp * L::kWarpRows * L::kLdRes,
+                                        Ks, Gs + warp * L::kWarpRows * L::kLdV,
+                                        Vs, g, t, prod);
     float(&sc)[MT][L::kNT][4] = prod[0];
     float(&dp)[MT][L::kNT][4] = prod[L::kProducts - 1];
 #pragma unroll
@@ -1216,14 +1246,14 @@ attention_bwd_tc_dq_kernel(TcBwdArgs a) {
             sc[m][j][e] = p * (d - rdel[m][hf]);
           }
       }
-    warp_gemm_ak<D, MT, L::kNT, L::kLd, false, TQK>(sc, Ks, g, t, acc);
+    warp_gemm_ak<D, MT, L::kNT, L::kLdStr, false, TK>(sc, Ks, g, t, acc);
   }
 
   if (splits == 1)
-    store_grad<D, MT, QK_BF16>(acc, a.dq.p, b * a.dq.sb + (long long)h * D,
-                               a.dq.sn, row0, a.Nq, g, t, a.scale, false);
+    store_grad<D, MT, Q16>(acc, a.dq.p, b * a.dq.sb + (long long)h * D,
+                           a.dq.sn, row0, a.Nq, g, t, a.scale, false);
   else
-    store_grad<D, MT, QK_BF16>(
+    store_grad<D, MT, Q16>(
         acc, a.part_a, ((long long)split * a.B * a.H + z) * a.Nq * D, D, row0,
         a.Nq, g, t, a.scale, true);
 }
@@ -1231,20 +1261,22 @@ attention_bwd_tc_dq_kernel(TcBwdArgs a) {
 // Key-tiled pass, grid (key tiles, query splits, B): over this split's
 // queries dv = sum P^T dO and dk = scale * sum dS^T q, written to dk / dv
 // with one split and to part_a / part_b[split] otherwise. dk or dv may be
-// null (not computed). QK_BF16 as in the query-tiled pass: S^T = k q^T one
-// TF32 product, dS^T q two; dk written in bf16, dv in fp32.
+// null (not computed). Q16 and K16 as in the query-tiled pass: S^T = k q^T
+// one TF32 product less for each bf16 side, dS^T q one less with Q16; with
+// K16 dk is written in bf16; dv in fp32.
 template <int D, int DV, int WARPS, int MT, int STR, bool MASKED,
-          bool QK_BF16 = false>
+          bool Q16 = false, bool K16 = Q16>
 __global__ void __launch_bounds__(
-    32 * WARPS, (TcBwd<D, DV, WARPS, MT, STR, QK_BF16>::kBlocksPerSm))
+    32 * WARPS, (TcBwd<D, DV, WARPS, MT, STR, K16, Q16>::kBlocksPerSm))
 attention_bwd_tc_dkv_kernel(TcBwdArgs a) {
-  using L = TcBwd<D, DV, WARPS, MT, STR, QK_BF16>;
-  using TQK = std::conditional_t<QK_BF16, uint16_t, float>;
+  using L = TcBwd<D, DV, WARPS, MT, STR, K16, Q16>;
+  using TQ = std::conditional_t<Q16, uint16_t, float>;
+  using TK = std::conditional_t<K16, uint16_t, float>;
   extern __shared__ __align__(16) float tc_smem[];
-  TQK* Ks = reinterpret_cast<TQK*>(tc_smem);  // [kRes][kLd]
-  float* Vs = tc_smem + L::kResTile;          // [kRes][DV + 4] (wide only)
+  TK* Ks = reinterpret_cast<TK*>(tc_smem);  // [kRes][kLdRes]
+  float* Vs = tc_smem + L::kResTile;        // [kRes][DV + 4] (wide only)
   float* stages = Vs + L::kResTileV;
-  // a stage: Q [STR][kLd]; dO [STR][DV + 4] or [STR][2]; row max, row
+  // a stage: Q [STR][kLdStr]; dO [STR][DV + 4] or [STR][2]; row max, row
   // sum, delta [STR] each
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -1253,10 +1285,10 @@ attention_bwd_tc_dkv_kernel(TcBwdArgs a) {
   const int row0 = k0 + warp * L::kWarpRows;  // this warp's first key
   const int split = blockIdx.y, splits = gridDim.y, z = blockIdx.z;
   const int b = z / a.H, h = z % a.H;
-  const TQK* qp =
-      reinterpret_cast<const TQK*>(a.q.p) + b * a.q.sb + (long long)h * D;
-  const TQK* kp =
-      reinterpret_cast<const TQK*>(a.k.p) + b * a.k.sb + (long long)h * D;
+  const TQ* qp =
+      reinterpret_cast<const TQ*>(a.q.p) + b * a.q.sb + (long long)h * D;
+  const TK* kp =
+      reinterpret_cast<const TK*>(a.k.p) + b * a.k.sb + (long long)h * D;
   const float* vp = a.v.p + b * a.v.sb + (long long)h * DV;
   const float* gp = a.go.p + b * a.go.sb + (long long)h * DV;
   const float* row_max = a.row_max + (long long)z * a.Nq;
@@ -1279,7 +1311,7 @@ attention_bwd_tc_dkv_kernel(TcBwdArgs a) {
     if (tile < t_end) {
       float* st = stages + s * L::kStage;
       const int n0 = tile * STR;
-      load_tile_async<D, L::kThreads>(reinterpret_cast<TQK*>(st), qp, a.q.sn,
+      load_tile_async<D, L::kThreads>(reinterpret_cast<TQ*>(st), qp, a.q.sn,
                                       n0, a.Nq, STR, tid);
       if constexpr (L::kWide)
         load_tile_async<DV, L::kThreads>(st + L::kStrTile, gp, a.go.sn, n0,
@@ -1330,7 +1362,7 @@ attention_bwd_tc_dkv_kernel(TcBwdArgs a) {
   ring_prologue<L::kStages>(fill, t_beg);
   for (int tile = t_beg; tile < t_end; ++tile) {
     const int s = ring_next<L::kStages>(fill, tile, t_beg);
-    const TQK* Qs = reinterpret_cast<const TQK*>(stages + s * L::kStage);
+    const TQ* Qs = reinterpret_cast<const TQ*>(stages + s * L::kStage);
     const float* Gs = stages + s * L::kStage + L::kStrTile;
     const float* max_s = Gs + L::kStrTileV;
     const float* sum_s = max_s + STR;
@@ -1353,18 +1385,10 @@ attention_bwd_tc_dkv_kernel(TcBwdArgs a) {
         for (int j = 0; j < L::kNT; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) prod[p][m][j][e] = 0.f;
-    if constexpr (QK_BF16) {
-      const TQK* const res[2] = {Ks + warp * L::kWarpRows * L::kLd,
-                                 Ks + warp * L::kWarpRows * L::kLd};
-      const TQK* const str[2] = {Qs, Qs};
-      warp_gemm_nt<1, D, MT, L::kNT, L::kLd, 2, false, TQK, TQK>(res, str, g,
-                                                                t, prod);
-    } else {
-      const float* const res[2] = {Ks + warp * L::kWarpRows * L::kLd,
-                                   Vs + warp * L::kWarpRows * L::kLd};
-      const float* const str[2] = {Qs, Gs};
-      warp_gemm_nt<L::kProducts, D, MT, L::kNT, L::kLd>(res, str, g, t, prod);
-    }
+    warp_gemm_nt<L::kProducts, D, MT, L::kNT, L::kLdRes, L::kLdStr, L::kLdV,
+                 L::kLdV, 2>(Ks + warp * L::kWarpRows * L::kLdRes, Qs,
+                             Vs + warp * L::kWarpRows * L::kLdV, Gs, g, t,
+                             prod);
     float(&pt)[MT][L::kNT][4] = prod[0];  // S^T, then P^T
     float(&ds)[MT][L::kNT][4] = prod[1];  // dP^T, then dS^T
 #pragma unroll
@@ -1404,7 +1428,7 @@ attention_bwd_tc_dkv_kernel(TcBwdArgs a) {
       if (want_v) warp_gemm_ak<DV, MT, L::kNT, L::kLdV>(pt, Gs, g, t, acc_v);
     }
     if (want_k)
-      warp_gemm_ak<D, MT, L::kNT, L::kLd, false, TQK>(ds, Qs, g, t, acc_k);
+      warp_gemm_ak<D, MT, L::kNT, L::kLdStr, false, TQ>(ds, Qs, g, t, acc_k);
   }
 
   float* base_k;
@@ -1425,8 +1449,8 @@ attention_bwd_tc_dkv_kernel(TcBwdArgs a) {
     sn_v = DV;
   }
   if (want_k)
-    store_grad<D, MT, QK_BF16>(acc_k, base_k, off_k, sn_k, row0, a.Nk, g, t,
-                               a.scale, splits > 1);
+    store_grad<D, MT, K16>(acc_k, base_k, off_k, sn_k, row0, a.Nk, g, t,
+                           a.scale, splits > 1);
   if constexpr (L::kWide) {
     if (want_v)
       store_fragments<DV, MT>(acc_v, dst_v, sn_v, row0, a.Nk, g, t, 1.0f);
@@ -1454,14 +1478,15 @@ attention_bwd_tc_dkv_kernel(TcBwdArgs a) {
 // [B * H, Nq] its row statistics. q, go, dq: [B, Nq, H * .]; k, v, dk, dv:
 // [B, Nk, H * .]; bias [B, Nk] or null; mask [mask_nw, Nq, Nk] or null,
 // read only by the MASKED instantiations (the others take no mask: its
-// registers would make C's tiling spill). QK_BF16 (kernel C's bf16
-// backward, DV = 2): q.p, k.p, dq.p and dk.p point at bf16, their strides
-// in bf16 elements; dq and dk are rounded once, where they are finished
-// (the unsplit pass, or the ordered sum of the split partials). Its tiles
-// take the bytes of bf16 and its blocks the places of the fp32
-// instantiation, so both split alike and sum in the same order.
+// registers would make C's tiling spill). Q16 (K16): q.p and dq.p (k.p and
+// dk.p) point at bf16, their strides in bf16 elements; such a grad is
+// rounded once, where it is finished (the unsplit pass, or the ordered sum
+// of the split partials). Kernel C's bf16 backward takes both (DV = 2),
+// kernel F's Q16 alone. Their tiles take the bytes of bf16 and their blocks
+// the places of the fp32 instantiation, so both split alike and sum in the
+// same order.
 template <int D, int DV, int WARPS, int MT, int STR, bool MASKED = false,
-          bool QK_BF16 = false>
+          bool Q16 = false, bool K16 = Q16>
 cudaError_t attention_bwd_tc(AttnOperand q, AttnOperand k, AttnOperand v,
                              AttnOperand o, AttnOperand go, const float* bias,
                              const float* mask, int mask_nw,
@@ -1469,11 +1494,13 @@ cudaError_t attention_bwd_tc(AttnOperand q, AttnOperand k, AttnOperand v,
                              AttnGrad dq, AttnGrad dk, AttnGrad dv, int B,
                              int H, int Nq, int Nk, float scale, Workspace ws,
                              cudaStream_t stream) {
-  using L = TcBwd<D, DV, WARPS, MT, STR, QK_BF16>;
-  static_assert(!QK_BF16 || DV == 2, "bf16 q and k with 2-wide values");
-  static_assert(L::kBlocksPerSm == TcBwd<D, DV, WARPS, MT, STR>::kBlocksPerSm,
+  using Lq = TcBwd<D, DV, WARPS, MT, STR, Q16, K16>;  // query-tiled pass
+  using Lk = TcBwd<D, DV, WARPS, MT, STR, K16, Q16>;  // key-tiled pass
+  constexpr int kPlaces = TcBwd<D, DV, WARPS, MT, STR>::kBlocksPerSm;
+  static_assert(Lq::kBlocksPerSm == kPlaces && Lk::kBlocksPerSm == kPlaces,
                 "the fp32 instantiation's places");
-  using TG = std::conditional_t<QK_BF16, __nv_bfloat16, float>;
+  using TGq = std::conditional_t<Q16, __nv_bfloat16, float>;
+  using TGk = std::conditional_t<K16, __nv_bfloat16, float>;
   if (mask && !MASKED) return cudaErrorInvalidValue;
   const int BH = B * H;
   const long long rows = (long long)BH * Nq;
@@ -1493,29 +1520,30 @@ cudaError_t attention_bwd_tc(AttnOperand q, AttnOperand k, AttnOperand v,
   a.part_a = a.part_b = nullptr;
   a.B = B; a.H = H; a.Nq = Nq; a.Nk = Nk;
   a.scale = scale;
-  const int slots = kSmCount * L::kBlocksPerSm;
+  const int slots = kSmCount * kPlaces;
 
   if (dq.p) {
-    const int res_tiles = ceil_div(Nq, L::kRes);
+    const int res_tiles = ceil_div(Nq, Lq::kRes);
     const int splits =
         tc_splits((long long)res_tiles * BH, slots, ceil_div(Nk, STR),
                   rows * D, ws.n, &a.tiles_per_split);
     if (splits > 1) a.part_a = ws.p;  // free again after the sum below
     // set once per instantiation, not per launch (one card per process)
     static const cudaError_t attr = cudaFuncSetAttribute(
-        attention_bwd_tc_dq_kernel<D, DV, WARPS, MT, STR, MASKED, QK_BF16>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
+        attention_bwd_tc_dq_kernel<D, DV, WARPS, MT, STR, MASKED, Q16, K16>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Lq::kBytes);
     if (attr != cudaSuccess) return attr;
-    attention_bwd_tc_dq_kernel<D, DV, WARPS, MT, STR, MASKED, QK_BF16>
-        <<<dim3(res_tiles, splits, BH), L::kThreads, L::kBytes, stream>>>(a);
+    attention_bwd_tc_dq_kernel<D, DV, WARPS, MT, STR, MASKED, Q16, K16>
+        <<<dim3(res_tiles, splits, BH), Lq::kThreads, Lq::kBytes, stream>>>(
+            a);
     if (splits > 1)
-      split_reduce_kernel<TG><<<ceil_div(rows * D, 256), 256, 0, stream>>>(
+      split_reduce_kernel<TGq><<<ceil_div(rows * D, 256), 256, 0, stream>>>(
           a.part_a, splits, BH, H, Nq, D, dq);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   if (dk.p || dv.p) {
-    const int res_tiles = ceil_div(Nk, L::kRes);
+    const int res_tiles = ceil_div(Nk, Lk::kRes);
     const long long keys = (long long)BH * Nk;
     const int splits =
         tc_splits((long long)res_tiles * BH, slots, ceil_div(Nq, STR),
@@ -1525,13 +1553,14 @@ cudaError_t attention_bwd_tc(AttnOperand q, AttnOperand k, AttnOperand v,
       a.part_b = ws.p + splits * keys * D;
     }
     static const cudaError_t attr = cudaFuncSetAttribute(
-        attention_bwd_tc_dkv_kernel<D, DV, WARPS, MT, STR, MASKED, QK_BF16>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
+        attention_bwd_tc_dkv_kernel<D, DV, WARPS, MT, STR, MASKED, Q16, K16>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Lk::kBytes);
     if (attr != cudaSuccess) return attr;
-    attention_bwd_tc_dkv_kernel<D, DV, WARPS, MT, STR, MASKED, QK_BF16>
-        <<<dim3(res_tiles, splits, BH), L::kThreads, L::kBytes, stream>>>(a);
+    attention_bwd_tc_dkv_kernel<D, DV, WARPS, MT, STR, MASKED, Q16, K16>
+        <<<dim3(res_tiles, splits, BH), Lk::kThreads, Lk::kBytes, stream>>>(
+            a);
     if (splits > 1 && dk.p)
-      split_reduce_kernel<TG><<<ceil_div(keys * D, 256), 256, 0, stream>>>(
+      split_reduce_kernel<TGk><<<ceil_div(keys * D, 256), 256, 0, stream>>>(
           a.part_a, splits, BH, H, Nk, D, dk);
     if (splits > 1 && dv.p)
       split_reduce_kernel<float>

@@ -7,6 +7,7 @@
 //
 //   layernorm       out = (res +) LN(x) * gamma + beta, one warp per row;
 //   layernorm_bwd   dx (+)= LN'(x)^T dy, and dy * xhat for the gamma grad;
+//                   dy in fp32, or bf16 (its bits);
 //   colsum          out[c] (+)= sum_r in[r, c] (bias / LayerNorm grads),
 //                   two ordered passes; in fp32, or bf16 (its bits);
 //   gelu_exact, gelu_grad
@@ -166,10 +167,12 @@ inline void layernorm(const float* x, int ldx, const float* res, int ldr,
 
 // y = LN(x) * gamma + beta. With xhat = (x - mu) * inv and g = dy * gamma:
 //   dx = inv * (g - mean(g) - xhat * mean(g * xhat))
-// and, if prod is given, prod = dy * xhat (its column sum is dgamma).
+// and, if prod is given, prod = dy * xhat (its column sum is dgamma). T:
+// dy's element, float or uint16_t (bf16 bits, widened exactly).
+template <typename T>
 __global__ void __launch_bounds__(32 * kLnRowsPerBlock)
 layernorm_bwd_kernel(const float* __restrict__ x, int ldx,
-                     const float* __restrict__ dy, int lddy,
+                     const T* __restrict__ dy, int lddy,
                      const float* __restrict__ gamma, float* dx, int lddx,
                      bool accumulate, float* __restrict__ prod, int rows,
                      int C, float eps) {
@@ -177,7 +180,7 @@ layernorm_bwd_kernel(const float* __restrict__ x, int ldx,
   const int row = blockIdx.x * kLnRowsPerBlock + threadIdx.x / 32;
   if (row >= rows) return;
   const float* xr = x + (long long)row * ldx;
-  const float* gr = dy + (long long)row * lddy;
+  const T* gr = dy + (long long)row * lddy;
   float s = 0.f;
   for (int c = lane; c < C; c += 32) s += xr[c];
   const float mu = warp_sum(s) / C;
@@ -189,7 +192,7 @@ layernorm_bwd_kernel(const float* __restrict__ x, int ldx,
   const float inv = rsqrtf(warp_sum(v) / C + eps);
   float sg = 0.f, sgx = 0.f;
   for (int c = lane; c < C; c += 32) {
-    const float g = gr[c] * gamma[c];
+    const float g = as_f32(gr[c]) * gamma[c];
     sg += g;
     sgx += g * (xr[c] - mu) * inv;
   }
@@ -199,26 +202,28 @@ layernorm_bwd_kernel(const float* __restrict__ x, int ldx,
   float* pr = prod ? prod + (long long)row * C : nullptr;
   for (int c = lane; c < C; c += 32) {
     const float xh = (xr[c] - mu) * inv;
-    const float d = inv * (gr[c] * gamma[c] - mg - xh * mgx);
+    const float d = inv * (as_f32(gr[c]) * gamma[c] - mg - xh * mgx);
     dr[c] = accumulate ? dr[c] + d : d;
-    if (pr) pr[c] = gr[c] * xh;
+    if (pr) pr[c] = as_f32(gr[c]) * xh;
   }
 }
 
 // LayerNorm backward: dx, plus dgamma / dbeta when their pointers are set
-// (prod is a [rows, C] scratch taken from the workspace for dgamma).
-inline cudaError_t layernorm_bwd(const float* x, int ldx, const float* dy,
-                                 int lddy, const float* gamma, float* dx,
-                                 int lddx, bool accumulate, float* dgamma,
-                                 float* dbeta, int rows, int C, float eps,
-                                 Workspace ws, cudaStream_t stream) {
+// (prod is a [rows, C] scratch taken from the workspace for dgamma). T:
+// dy's element, float or uint16_t (bf16 bits).
+template <typename T>
+cudaError_t layernorm_bwd(const float* x, int ldx, const T* dy, int lddy,
+                          const float* gamma, float* dx, int lddx,
+                          bool accumulate, float* dgamma, float* dbeta,
+                          int rows, int C, float eps, Workspace ws,
+                          cudaStream_t stream) {
   float* prod = nullptr;
   if (dgamma) {
     prod = ws.take((long long)rows * C);
     if (!prod) return cudaErrorInvalidValue;
   }
   const int blocks = (rows + kLnRowsPerBlock - 1) / kLnRowsPerBlock;
-  layernorm_bwd_kernel<<<blocks, 32 * kLnRowsPerBlock, 0, stream>>>(
+  layernorm_bwd_kernel<T><<<blocks, 32 * kLnRowsPerBlock, 0, stream>>>(
       x, ldx, dy, lddy, gamma, dx, lddx, accumulate, prod, rows, C, eps);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;

@@ -73,15 +73,28 @@
 // the entry point, gx and gt rounded once.
 //
 // B's bf16 backward (the bf16 train step), as the JAX kernel
-// (_block_bwd_kernel) computes it with a bf16 storage dtype: x, t and the
-// gradient upcast; the self layer recomputed in fp32 on the fp32 weights
-// (message_fwd; the bf16 forward's self layer ran bf16 products, so its
-// buffers are not the JAX backward's and are not kept), x1 = bf16(x +
-// bf16(LN1s(m))) as the forward rounded it (layernorm_self_bf16 fed with
-// the fp32 m), the fp32 cross layer and FFN with their buffers kept, then
-// the fp32 block backward, which passes x1's roundings straight through;
-// gx and gt are rounded to bf16 once, the parameter grads stay fp32. A
-// first, simple instantiation on fp32 scratch.
+// (_block_bwd_kernel) computes it with a bf16 storage dtype: the self
+// layer recomputed in fp32 on the fp32 weights (message_fwd; the bf16
+// forward's self layer ran bf16 products, so its buffers are not the JAX
+// backward's and are not kept), x1 = bf16(x + bf16(LN1s(m))) as the
+// forward rounded it (layernorm_self_bf16 fed with the fp32 m), the fp32
+// cross layer and FFN with their buffers kept, then the block backward,
+// which passes x1's roundings straight through; gx and gt are rounded to
+// bf16, the parameter grads stay fp32. It reads x, t and the gradient as
+// bf16 where they lie: the GEMM copies their bf16 tiles and widens them as
+// the fragments are built, LN2's backward and the residual into gx1 read
+// the gradient's bf16 bits. A bf16 value is exact in TF32, and so is x1,
+// kept in fp32 in cat (read as ExactF32), so the products they enter take
+// two TF32 terms instead of three: x Wq1, x Wk1, x Wv1, x1 Wq2, t Wk2,
+// t Wv2, and the grads of those six weights; the terms left out add +0, so
+// every grad has the bits of the fp32 backward on the upcast inputs. [x1,
+// msg] W0^T and its weight grad keep three (one product over both halves
+// of K: two would sum in another order). Each rounding is in the epilogue
+// of the product that finishes its grad: gt = bf16([gk | gv] [Wk2; Wv2]),
+// gx = bf16(gx1 + [gq | gk | gv] [Wq1; Wk1; Wv1]), the addend read there
+// (so the fp32 backward, too, adds its residuals in the epilogue: gx1 = g
+// + (gh W0)[:, :C] with no copy of g first). No upcast scratch and no
+// conversion launches.
 
 #include "attention_bf16.cuh"
 #include "attention_fwd.cuh"
@@ -119,17 +132,19 @@ struct LayerGrads {  // each null: not wanted
 // m = softmax(xq Wq (t Wk)^T / sqrt(C) + mask) t Wv Wm, the message before
 // its LayerNorm. xq [R, C] with leading dimension ldxq; qkv [R, 3C]; stats
 // [2, windows, T] (the attention's row max and sum) or null; ws holds the
-// attention's key-split partials.
-cudaError_t message_fwd(const float* xq, int ldxq, const float* t,
-                        LayerWeights w, Windows d, float* qkv, float* o,
-                        float* m, float* stats, Workspace ws,
-                        cudaStream_t s) {
+// attention's key-split partials. xq and t: fp32, or exact (bf16, or
+// ExactF32: bf16 values in fp32), whose projections take two TF32 terms
+// (linear_exact).
+template <typename TX, typename TT>
+cudaError_t message_fwd(const TX* xq, int ldxq, const TT* t, LayerWeights w,
+                        Windows d, float* qkv, float* o, float* m,
+                        float* stats, Workspace ws, cudaStream_t s) {
   const int R = d.rows(), C = d.C, C3 = 3 * C;
   const long long wsb = (long long)d.T * C3;  // window stride inside qkv
   cudaError_t err;
-  EMIP_TRY(linear(xq, ldxq, w.wq, nullptr, qkv, C3, R, C, C, false, s));
-  EMIP_TRY(linear(t, C, w.wk, nullptr, qkv + C, C3, R, C, C, false, s));
-  EMIP_TRY(linear(t, C, w.wv, nullptr, qkv + 2 * C, C3, R, C, C, false, s));
+  EMIP_TRY(linear_exact(xq, ldxq, w.wq, nullptr, qkv, C3, R, C, C, s));
+  EMIP_TRY(linear_exact(t, C, w.wk, nullptr, qkv + C, C3, R, C, C, s));
+  EMIP_TRY(linear_exact(t, C, w.wv, nullptr, qkv + 2 * C, C3, R, C, C, s));
   EMIP_TRY((cudaError_t)emip_attention_fwd(
       qkv, wsb, C3, qkv + C, wsb, C3, qkv + 2 * C, wsb, C3, d.mask, d.mask_nw,
       o, (long long)d.T * C, C, stats, ws.p, ws.n, d.windows, 1, d.T, d.T, C,
@@ -137,25 +152,34 @@ cudaError_t message_fwd(const float* xq, int ldxq, const float* t,
   return linear(o, C, w.wm, nullptr, m, C, R, C, C, false, s);
 }
 
+// An input grad that one product finishes: fp32 at p, or with bf16 rounded
+// to bf16 there in its epilogue; add (fp32, or null) is added first.
+struct GradOut {
+  void* p;  // null: not wanted
+  bool bf16;
+  const float* add;
+};
+
 // Backward of msg = LN1(m) with m from message_fwd (stats its attention's
 // row statistics). gmsg [R, C] (leading dimension ldg) is the gradient of
 // msg. Writes the weight grads that are set, gxq (+)= gq Wq if gxq is set,
-// and gt (+)= gk Wk + gv Wv if gt is set. In B's self layer (self_layer:
-// xq is t, and q, k and v all come from it) gxq is null and gt (+)= gq Wq
-// + gk Wk + gv Wv. gm, go [R, C] and gqkv [R, 3C] are scratch; the
-// stacked weights come from ws.
-cudaError_t message_bwd(const float* xq, int ldxq, const float* t,
-                        LayerWeights w, const float* s1, Windows d,
-                        const float* qkv, const float* o, const float* m,
-                        const float* stats, const float* gmsg, int ldg,
-                        LayerGrads g, float* gxq, bool accumulate_xq,
-                        float* gt, bool accumulate_t, bool self_layer,
+// and gt = (gt.add +) gk Wk + gv Wv if gt is set. In B's self layer
+// (self_layer: xq is t, and q, k and v all come from it) gxq is null and
+// gt = (gt.add +) gq Wq + gk Wk + gv Wv. gm, go [R, C] and gqkv [R, 3C]
+// are scratch; the stacked weights come from ws. xq and t as in
+// message_fwd: an exact one makes its weight grads two-term products.
+template <typename TX, typename TT>
+cudaError_t message_bwd(const TX* xq, int ldxq, const TT* t, LayerWeights w,
+                        const float* s1, Windows d, const float* qkv,
+                        const float* o, const float* m, const float* stats,
+                        const float* gmsg, int ldg, LayerGrads g, float* gxq,
+                        bool accumulate_xq, GradOut gt, bool self_layer,
                         float* gm, float* go, float* gqkv, float eps,
                         Workspace ws, cudaStream_t s) {
   const int R = d.rows(), C = d.C, C3 = 3 * C, C2 = 2 * C;
   const long long sb3 = (long long)d.T * C3, sb1 = (long long)d.T * C;
-  const bool want_q = gxq || g.gwq || (self_layer && gt),
-             want_kv = gt || g.gwk || g.gwv;
+  const bool want_q = gxq || g.gwq || (self_layer && gt.p),
+             want_kv = gt.p || g.gwk || g.gwv;
   cudaError_t err;
   EMIP_TRY(layernorm_bwd(m, C, gmsg, ldg, s1, gm, C, false, g.gs1, g.gb1, R,
                          C, eps, ws, s));
@@ -182,9 +206,9 @@ cudaError_t message_bwd(const float* xq, int ldxq, const float* t,
   else
     err = cudaErrorInvalidValue;
   if (err != cudaSuccess) return err;
-  EMIP_TRY(weight_grad(gqkv, C3, xq, ldxq, g.gwq, C, C, R, ws, s));
-  EMIP_TRY(weight_grad(gqkv + C, C3, t, C, g.gwk, C, C, R, ws, s));
-  EMIP_TRY(weight_grad(gqkv + C2, C3, t, C, g.gwv, C, C, R, ws, s));
+  EMIP_TRY(weight_grad_exact(gqkv, C3, xq, ldxq, g.gwq, C, C, R, ws, s));
+  EMIP_TRY(weight_grad_exact(gqkv + C, C3, t, C, g.gwk, C, C, R, ws, s));
+  EMIP_TRY(weight_grad_exact(gqkv + C2, C3, t, C, g.gwv, C, C, R, ws, s));
   // q, k and v are one [R, 3C] block of gqkv: the input grads that share an
   // input run as one product over the weights stacked in the workspace
   // ([Wk; Wv], in the self layer [Wq; Wk; Wv])
@@ -199,13 +223,18 @@ cudaError_t message_bwd(const float* xq, int ldxq, const float* t,
   };
   if (gxq)
     EMIP_TRY(input_grad(gqkv, C3, w.wq, C, C, gxq, C, R, accumulate_xq, s));
-  if (gt) {
+  if (gt.p) {
     const float* const wqkv[3] = {w.wq, w.wk, w.wv};
     const int first = self_layer ? 0 : 1;
     const float* st = stacked(wqkv + first, 3 - first);
     if (!st) return cudaErrorInvalidValue;
-    EMIP_TRY(input_grad(gqkv + first * C, C3, st, (3 - first) * C, C, gt, C,
-                        R, accumulate_t, s));
+    GemmArgs a = gemm_args(gqkv + first * C, C3, 1, st, C, 1,
+                           static_cast<float*>(gt.p), C, R, C,
+                           (3 - first) * C);
+    a.c_bf16 = gt.bf16;
+    a.add = gt.add;
+    a.ldadd = C;
+    EMIP_TRY(gemm(a, kEpiNone, s));
   }
   return cudaSuccess;
 }
@@ -223,20 +252,22 @@ cudaError_t ffn_fwd(const float* cat, const float* w0, const float* w2,
   return cudaGetLastError();
 }
 
-// Backward of ffn_fwd for the gradient g [R, C] of out: gmsg [R, C], the
-// weight grads that are set and, if gx is set, gx = g + (gh W0)[:, :C]
-// (the residual and the x half of the concat). gz [R, C] and gh [R, F] are
+// Backward of ffn_fwd for the gradient g [R, C] of out (fp32, or bf16 read
+// as it lies): gmsg [R, C], the weight grads that are set and, if gx is
+// set, gx = g + (gh W0)[:, :C] (the residual, added in the product's
+// epilogue, and the x half of the concat). gz [R, C] and gh [R, F] are
 // scratch.
+template <typename TG>
 cudaError_t ffn_bwd(const float* cat, const float* h, const float* u,
-                    const float* z, const float* g, const float* w0,
+                    const float* z, const TG* g, const float* w0,
                     const float* w2, const float* s2, float* gw0, float* gw2,
                     float* gs2, float* gb2, float* gz, float* gh, float* gx,
                     float* gmsg, int R, int C, int F, float eps, Workspace ws,
                     cudaStream_t s) {
   const int C2 = 2 * C;
   cudaError_t err;
-  EMIP_TRY(layernorm_bwd(z, C, g, C, s2, gz, C, false, gs2, gb2, R, C, eps,
-                         ws, s));
+  EMIP_TRY(layernorm_bwd(z, C, reinterpret_cast<const GemmElem<TG>*>(g), C,
+                         s2, gz, C, false, gs2, gb2, R, C, eps, ws, s));
   EMIP_TRY(weight_grad(gz, C, u, F, gw2, C, F, R, ws, s));
   {
     GemmArgs a = gemm_args(gz, C, 1, w2, F, 1, gh, F, R, F, C);
@@ -246,14 +277,58 @@ cudaError_t ffn_bwd(const float* cat, const float* h, const float* u,
   }
   EMIP_TRY(weight_grad(gh, F, cat, C2, gw0, F, C2, R, ws, s));
   if (gx) {
-    EMIP_TRY(cudaMemcpyAsync(gx, g, (long long)R * C * sizeof(float),
-                             cudaMemcpyDeviceToDevice, s));
     GemmArgs a = gemm_args(gh, F, 1, w0, C2, 1, gx, C, R, C, F);
-    a.accumulate = true;
+    a.add = g;
+    a.ldadd = C;
+    a.add_bf16 = std::is_same_v<TG, __nv_bfloat16>;
     EMIP_TRY(gemm(a, kEpiNone, s));
   }
   GemmArgs a = gemm_args(gh, F, 1, w0 + C, C2, 1, gmsg, C, R, C, F);
   return gemm(a, kEpiNone, s);
+}
+
+// B's backward from its forward's buffers (kept, or recomputed): out = x1 +
+// LN2c(gelu([x1, msg] W0^T) W2^T), msg = LN1c(message(x1, t)), x1 = x +
+// LN1s(message(x, x)). x, t and the gradient g are TX, TT, TG (fp32, or
+// bf16 read as it lies); x1 = cat[:, :C] is read as TX1 (float, or
+// ExactF32 where it holds bf16 values); gx and gt are written as their
+// GradOut says. all holds the [R, 8C + F] activation-grad scratch and the
+// split-K / column-sum / attention workspace behind it.
+template <typename TX, typename TT, typename TX1, typename TG>
+cudaError_t block_bwd(const TX* x, const TT* t, LayerWeights w1,
+                      const float* s1, LayerWeights w2, const float* sa,
+                      const float* w0, const float* wf2, const float* sb,
+                      Windows d, const float* qkv1, const float* qkv2,
+                      const float* o1, const float* o2, const float* m1,
+                      const float* m2, const float* stats1,
+                      const float* stats2, const float* cat, const float* h,
+                      const float* u, const float* z, const TG* g, GradOut gx,
+                      GradOut gt, LayerGrads g1, LayerGrads g2, float* gw0,
+                      float* gw2, float* gsb, float* gbb, int F, float eps,
+                      Workspace all, cudaStream_t s) {
+  const int R = d.rows(), C = d.C, C2 = 2 * C;
+  const long long rc = (long long)R * C;
+  float* gz = all.take(rc);
+  float* gh = all.take((long long)R * F);
+  float* gx1 = all.take(rc);
+  float* gmsg = all.take(rc);
+  float* gm = all.take(rc);
+  float* go = all.take(rc);
+  float* gqkv = all.take(3 * rc);
+  if (!gz || !gh || !gx1 || !gmsg || !gm || !go || !gqkv)
+    return cudaErrorInvalidValue;
+  cudaError_t err;
+  // out = x1 + LN2c(gelu([x1, msg] W0^T) W2^T)
+  EMIP_TRY(ffn_bwd(cat, h, u, z, g, w0, wf2, sb, gw0, gw2, gsb, gbb, gz, gh,
+                   gx1, gmsg, R, C, F, eps, all, s));
+  // msg = LN1c(message(x1, t)): q from x1, k and v from t
+  EMIP_TRY(message_bwd(reinterpret_cast<const TX1*>(cat), C2, t, w2, sa, d,
+                       qkv2, o2, m2, stats2, gmsg, C, g2, gx1, true, gt,
+                       false, gm, go, gqkv, eps, all, s));
+  // x1 = x + LN1s(message(x, x)): q, k and v from x; gx = gx1 + their grads
+  gx.add = gx1;
+  return message_bwd(x, C, x, w1, s1, d, qkv1, o1, m1, stats1, gx1, C, g1,
+                     nullptr, false, gx, true, gm, go, gqkv, eps, all, s);
 }
 
 #undef EMIP_TRY
@@ -313,8 +388,8 @@ extern "C" int emip_window_layer_bwd(
   EMIP_TRY(message_bwd(x, C, t, LayerWeights{wq, wk, wv, wm}, s1, d, qkv, o,
                        m, stats, g, C,
                        LayerGrads{gwq, gwk, gwv, gwm, gs1, gb1}, gx,
-                       add_residual != 0, gt, false, false, gm, go, gqkv,
-                       eps, all, s));
+                       add_residual != 0, GradOut{gt, false, nullptr}, false,
+                       gm, go, gqkv, eps, all, s));
   return (int)cudaGetLastError();
 }
 
@@ -378,8 +453,9 @@ extern "C" int emip_window_ffn_layer_bwd(
                    gx, gmsg, R, C, F, eps, all, s));
   EMIP_TRY(message_bwd(x, C, t, LayerWeights{wq, wk, wv, wm}, s1, d, qkv, o,
                        m, stats, gmsg, C,
-                       LayerGrads{gwq, gwk, gwv, gwm, gs1, gb1}, gx, true, gt,
-                       false, false, gm, go, gqkv, eps, all, s));
+                       LayerGrads{gwq, gwk, gwv, gwm, gs1, gb1}, gx, true,
+                       GradOut{gt, false, nullptr}, false, gm, go, gqkv, eps,
+                       all, s));
   return (int)cudaGetLastError();
 }
 
@@ -676,46 +752,26 @@ extern "C" int emip_window_block_bwd(
     int windows, int T, int C, int F, float eps, void* stream) {
   using namespace emip;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Windows d{windows, T, C, mask, mask_nw};
-  const int R = d.rows(), C2 = 2 * C;
-  const long long rc = (long long)R * C;
-  Workspace all{ws, ws_floats};
-  float* gz = all.take(rc);
-  float* gh = all.take((long long)R * F);
-  float* gx1 = all.take(rc);
-  float* gmsg = all.take(rc);
-  float* gm = all.take(rc);
-  float* go = all.take(rc);
-  float* gqkv = all.take(3 * rc);
-  if (!gz || !gh || !gx1 || !gmsg || !gm || !go || !gqkv)
-    return (int)cudaErrorInvalidValue;
   cudaError_t err;
-  // out = x1 + LN2c(gelu([x1, msg] W0^T) W2^T)
-  EMIP_TRY(ffn_bwd(cat, h, u, z, g, w0, w2, sb, gw0, gw2, gsb, gbb, gz, gh,
-                   gx1, gmsg, R, C, F, eps, all, s));
-  // msg = LN1c(message(x1, t)): q from x1, k and v from t
-  EMIP_TRY(message_bwd(cat, C2, t, LayerWeights{wq2, wk2, wv2, wm2}, sa, d,
-                       qkv2, o2, m2, stats2, gmsg, C,
-                       LayerGrads{gwq2, gwk2, gwv2, gwm2, gsa, gba}, gx1,
-                       true, gt, false, false, gm, go, gqkv, eps, all, s));
-  // x1 = x + LN1s(message(x, x)): q, k and v from x
-  if (gx)
-    EMIP_TRY(cudaMemcpyAsync(gx, gx1, rc * sizeof(float),
-                             cudaMemcpyDeviceToDevice, s));
-  EMIP_TRY(message_bwd(x, C, x, LayerWeights{wq1, wk1, wv1, wm1}, s1, d, qkv1,
-                       o1, m1, stats1, gx1, C,
-                       LayerGrads{gwq1, gwk1, gwv1, gwm1, gs1, gb1}, nullptr,
-                       false, gx, true, true, gm, go, gqkv, eps, all, s));
+  EMIP_TRY((block_bwd<float, float, float, float>(
+      x, t, LayerWeights{wq1, wk1, wv1, wm1}, s1,
+      LayerWeights{wq2, wk2, wv2, wm2}, sa, w0, w2, sb,
+      Windows{windows, T, C, mask, mask_nw}, qkv1, qkv2, o1, o2, m1, m2,
+      stats1, stats2, cat, h, u, z, g, GradOut{gx, false, nullptr},
+      GradOut{gt, false, nullptr},
+      LayerGrads{gwq1, gwk1, gwv1, gwm1, gs1, gb1},
+      LayerGrads{gwq2, gwk2, gwv2, gwm2, gsa, gba}, gw0, gw2, gsb, gbb, F,
+      eps, Workspace{ws, ws_floats}, s)));
   return (int)cudaGetLastError();
 }
 
 // The bf16 backward. x, t and g [R, C] bf16, every parameter fp32 (the
 // self layer's too: the JAX backward recomputes with the weights upcast,
 // not rounded); gx and gt bf16 and the parameter grads fp32, each written
-// only when its pointer is set. ws: fp32 scratch for the upcast x, t and
-// g, the recomputed forward (qkv1, qkv2 [R, 3C], o1, o2, m1, m2, z [R,
-// C], cat [R, 2C], h, u [R, F], stats1, stats2 [2, windows, T]) and the
-// fp32 gx, gt, then what the fp32 block backward takes.
+// only when its pointer is set. ws: fp32 scratch for the recomputed
+// forward (qkv1, qkv2 [R, 3C], o1, o2, m1, m2, z [R, C], cat [R, 2C], h, u
+// [R, F], stats1, stats2 [2, windows, T]), then what the block backward
+// takes (the fp32 backward's workspace).
 extern "C" int emip_window_block_bwd_bf16(
     const void* x, const void* t,
     const float* wq1, const float* wk1, const float* wv1, const float* wm1,
@@ -738,9 +794,6 @@ extern "C" int emip_window_block_bwd_bf16(
   const int R = d.rows(), C2 = 2 * C;
   const long long rc = (long long)R * C, rf = (long long)R * F;
   Workspace all{ws, ws_floats};
-  float* x32 = all.take(rc);
-  float* t32 = all.take(rc);
-  float* g32 = all.take(rc);
   float* qkv1 = all.take(3 * rc);
   float* qkv2 = all.take(3 * rc);
   float* o1 = all.take(rc);
@@ -753,37 +806,34 @@ extern "C" int emip_window_block_bwd_bf16(
   float* h = all.take(rf);
   float* u = all.take(rf);
   float* z = all.take(rc);
-  float* gx32 = gx ? all.take(rc) : nullptr;
-  float* gt32 = gt ? all.take(rc) : nullptr;
-  if (!x32 || !t32 || !g32 || !qkv1 || !qkv2 || !o1 || !o2 || !m1 || !m2 ||
-      !stats1 || !stats2 || !cat || !h || !u || !z || (gx && !gx32) ||
-      (gt && !gt32))
+  if (!qkv1 || !qkv2 || !o1 || !o2 || !m1 || !m2 || !stats1 || !stats2 ||
+      !cat || !h || !u || !z)
     return (int)cudaErrorInvalidValue;
   const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* tb = static_cast<const bf16*>(t);
+  // x1 = cat[:, :C] holds bf16 values: an exact operand
+  const ExactF32* x1 = reinterpret_cast<const ExactF32*>(cat);
   cudaError_t err;
-  EMIP_TRY(bf16_to_f32(xb, x32, rc, s));
-  EMIP_TRY(bf16_to_f32(static_cast<const bf16*>(t), t32, rc, s));
-  EMIP_TRY(bf16_to_f32(static_cast<const bf16*>(g), g32, rc, s));
-  // self layer in fp32; x1 = bf16(x + bf16(LN1s(m1))) -> cat[:, :C]
-  EMIP_TRY(message_fwd(x32, C, x32, LayerWeights{wq1, wk1, wv1, wm1}, d,
-                       qkv1, o1, m1, stats1, all, s));
+  // self layer in fp32 on x read as bf16; x1 = bf16(x + bf16(LN1s(m1)))
+  // -> cat[:, :C]
+  EMIP_TRY(message_fwd(xb, C, xb, LayerWeights{wq1, wk1, wv1, wm1}, d, qkv1,
+                       o1, m1, stats1, all, s));
   EMIP_TRY(layernorm_self_bf16(m1, xb, s1, b1, cat, C2, R, C, eps, s));
   // cross layer: msg = LN1c(message(x1, t)) -> cat[:, C:]; the FFN's h, u
   // and z (its output is not needed)
-  EMIP_TRY(message_fwd(cat, C2, t32, LayerWeights{wq2, wk2, wv2, wm2}, d,
-                       qkv2, o2, m2, stats2, all, s));
+  EMIP_TRY(message_fwd(x1, C2, tb, LayerWeights{wq2, wk2, wv2, wm2}, d, qkv2,
+                       o2, m2, stats2, all, s));
   layernorm(m2, C, nullptr, 0, sa, ba, cat + C, C2, R, C, eps, s);
   EMIP_TRY(linear(cat, C2, w0, nullptr, u, F, R, F, C2, true, s, h, F));
   EMIP_TRY(linear(u, F, w2, nullptr, z, C, R, C, F, false, s));
-  if (int code = emip_window_block_bwd(
-          x32, t32, wq1, wk1, wv1, wm1, s1, wq2, wk2, wv2, wm2, sa, w0, w2,
-          sb, mask, mask_nw, qkv1, qkv2, o1, o2, m1, m2, stats1, stats2, cat,
-          h, u, z, g32, gx32, gt32, gwq1, gwk1, gwv1, gwm1, gs1, gb1, gwq2,
-          gwk2, gwv2, gwm2, gsa, gba, gw0, gw2, gsb, gbb, all.p, all.n,
-          windows, T, C, F, eps, stream))
-    return code;
-  if (gx) EMIP_TRY(f32_to_bf16(gx32, static_cast<bf16*>(gx), rc, s));
-  if (gt) EMIP_TRY(f32_to_bf16(gt32, static_cast<bf16*>(gt), rc, s));
+  EMIP_TRY((block_bwd<bf16, bf16, ExactF32, bf16>(
+      xb, tb, LayerWeights{wq1, wk1, wv1, wm1}, s1,
+      LayerWeights{wq2, wk2, wv2, wm2}, sa, w0, w2, sb, d, qkv1, qkv2, o1, o2,
+      m1, m2, stats1, stats2, cat, h, u, z, static_cast<const bf16*>(g),
+      GradOut{gx, true, nullptr}, GradOut{gt, true, nullptr},
+      LayerGrads{gwq1, gwk1, gwv1, gwm1, gs1, gb1},
+      LayerGrads{gwq2, gwk2, gwv2, gwm2, gsa, gba}, gw0, gw2, gsb, gbb, F,
+      eps, all, s)));
   return (int)cudaGetLastError();
 }
 #undef EMIP_TRY

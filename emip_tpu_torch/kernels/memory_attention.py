@@ -15,9 +15,13 @@ fp32 (the ring stays fp32), as the JAX kernel takes them in a bf16 model:
 ``emip_memory_attention_bf16`` accumulates q k^T in fp32, rounds P =
 exp(S - m) to bf16 for P v against the fp32 v and divides by the fp32 sum
 of the unrounded P, writing fp32. Its backward
-(``emip_memory_attention_bwd_bf16``) is the JAX kernel's: q upcast, P
-recomputed in fp32, delta from the bf16 forward's output, dq rounded to
-bf16, dk and dv fp32. No other mix of dtypes is taken.
+(``emip_memory_attention_bwd_bf16``) is the JAX kernel's: P recomputed in
+fp32, delta from the bf16 forward's output, dq rounded to bf16, dk and dv
+fp32; it reads q as bf16 where it lies, its products with q take the TF32
+terms that q's exactness leaves (``kernels/tf32.py``,
+:func:`~emip_tpu_torch.kernels.tf32.memory_attention_bwd_bf16_walk`), and
+it needs no scratch beyond the fp32 backward's. No other mix of dtypes is
+taken.
 """
 
 from __future__ import annotations
@@ -135,11 +139,10 @@ class _MemoryAttention(torch.autograd.Function):
         n = k.shape[1]
         dq, dk, dv = (cm.empty_if(nd, t) for nd, t in zip(needs, (q, k, v)))
         # delta, and room for the key-tiled pass to split its queries three
-        # ways (partial dk and dv) where that evens out its last wave; in
-        # the bf16 band first the upcast q and the fp32 dq
+        # ways (partial dk and dv) where that evens out its last wave; the
+        # same in both bands, so that both split alike
         ws = cm.workspace(q.device, b * m
-                          + (6 * b * n * c if needs[1] or needs[2] else 0)
-                          + (2 * b * m * c if ctx.band else 0))
+                          + (6 * b * n * c if needs[1] or needs[2] else 0))
         rc = getattr(library(), "emip_memory_attention_bwd" + ctx.band)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             out.data_ptr(), stats.data_ptr(), g.data_ptr(), cm.ptr(dq),

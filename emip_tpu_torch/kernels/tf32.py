@@ -28,10 +28,12 @@ and the JAX package's Pallas kernels:
   on transposed score tiles; ragged last tiles; the streamed side split in
   chunks whose partials are summed in order), per head and with an
   additive score mask where the kernels of A, B, G and H have them.
-* :func:`flow_attention_bwd_bf16_walk` and :func:`sr_attention_bwd_bf16_walk`
-  walk the bf16 backwards of kernels C and A: bf16 operands read as they
-  are, each product counting its TF32 terms by its operands' exactness,
-  and the bf16 grads rounded once where the kernels' epilogues round them.
+* :func:`flow_attention_bwd_bf16_walk`, :func:`sr_attention_bwd_bf16_walk`,
+  :func:`memory_attention_bwd_bf16_walk` and
+  :func:`window_block_bwd_bf16_walk` walk the bf16 backwards of kernels C,
+  A, F and B: bf16 operands read as they are, each product counting its
+  TF32 terms by its operands' exactness, and the bf16 grads rounded once
+  where the kernels' epilogues round them.
 
 Nothing here runs on a model's path.
 """
@@ -41,11 +43,13 @@ from __future__ import annotations
 import functools
 
 import torch
+import torch.nn.functional as F
 
 __all__ = ["tf32_round", "tf32_truncate", "matmul_tf32", "matmul_3xtf32",
            "matmul_3xtf32_exact", "gemm_tiled", "attention_fwd_tiled",
            "attention_row_stats", "attention_bwd_tiled",
-           "flow_attention_bwd_bf16_walk", "sr_attention_bwd_bf16_walk"]
+           "flow_attention_bwd_bf16_walk", "sr_attention_bwd_bf16_walk",
+           "memory_attention_bwd_bf16_walk", "window_block_bwd_bf16_walk"]
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -242,7 +246,8 @@ def attention_fwd_tiled(q, k, v, bias=None, stream_rows=32, splits=1,
 def attention_bwd_tiled(q, k, v, bias, out, row_max, row_sum, g,
                         which=(0, 1, 2), res_rows=64, stream_rows=64,
                         splits=1, matmul=torch.matmul, heads: int = 1,
-                        mask=None, matmul_qk=None, matmul_dsk=None):
+                        mask=None, matmul_qk=None, matmul_dsk=None,
+                        matmul_kq=None, matmul_dsq=None):
     """(dq, dk, dv) of ``softmax(q k^T / sqrt(W) + bias + mask) v`` per
     head for the cotangent ``g``, computed as ``attention_bwd_tc`` does; a
     grad whose index is not in ``which`` is None.
@@ -257,10 +262,14 @@ def attention_bwd_tiled(q, k, v, bias, out, row_max, row_sum, g,
     used for every tile (:func:`matmul_3xtf32` to follow the kernels'
     arithmetic); ``matmul_qk`` (the scores q k^T) and ``matmul_dsk`` (dS k
     and dS^T q, the B operand k or q), where given, take the place of
-    ``matmul`` in those products.
+    ``matmul`` in those products; ``matmul_kq`` (the key-tiled pass's
+    scores k q^T) and ``matmul_dsq`` (its dS^T q), where given, take the
+    place of those two in the key-tiled pass.
     """
     mm_qk = matmul_qk or matmul
     mm_dsk = matmul_dsk or matmul
+    mm_kq = matmul_kq or mm_qk
+    mm_dsq = matmul_dsq or mm_dsk
     b, nq, _ = q.shape
     nk = k.shape[1]
     bias, mask = _score_terms(b, heads, nq, nk, bias, mask, q)
@@ -304,13 +313,13 @@ def attention_bwd_tiled(q, k, v, bias, out, row_max, row_sum, g,
                                  min(nq, (tile + 1) * stream_rows))
                     qt, gt = q[:, rows], g[:, rows]
                     # transposed tiles: rows are keys, columns queries
-                    st = (mm_qk(kt, t(qt)) * scale + bias[:, keys, None]
+                    st = (mm_kq(kt, t(qt)) * scale + bias[:, keys, None]
                           + t(mask[:, rows, keys]))
                     pt = (torch.exp(st - row_max[:, None, rows])
                           / row_sum[:, None, rows])
                     dst = pt * (matmul(vt, t(gt)) - delta[:, None, rows])
                     acc_v = acc_v + matmul(pt, gt)
-                    acc_k = acc_k + mm_dsk(dst, qt)
+                    acc_k = acc_k + mm_dsq(dst, qt)
                 dk[:, keys] += acc_k * scale
                 dv[:, keys] += acc_v
         dk = _merge_heads(dk, heads) if 1 in which else None
@@ -409,3 +418,141 @@ def sr_attention_bwd_bf16_walk(x, kv_in, wq, bq, wkv, bkv, wp, bp,
     gkv_in = gemm(gkv2, wkv, matmul=b_ex).reshape(b, m, c)
     return (gx.to(bf16), gkv_in.to(bf16), gwq.to(bf16), gq2.sum(0),
             gwkv.to(bf16), gkv2.sum(0), gwp.to(bf16), gbp)
+
+
+def memory_attention_bwd_bf16_walk(q, k, v, bias, out, g, which=(0, 1, 2),
+                                   res_rows=64, stream_rows=64, splits=1,
+                                   stats=None):
+    """(dq, dk, dv) of kernel F's bf16 backward (``emip_memory_attention_
+    bwd_bf16``): q [B, M, C] bf16, read as it is; k, v [B, N, C], the key
+    bias [B, N], out (the bf16 forward's) and the cotangent g [B, M, C]
+    fp32. A grad not in ``which`` is None.
+
+    The row statistics are ``stats`` (row max, row sum; the bf16 forward
+    keeps those of the unrounded scores), or :func:`attention_row_stats`
+    on the upcast q. The backward is :func:`attention_bwd_tiled` with the
+    scores q k^T (both passes) and dS^T q two TF32 products (q exact),
+    dO v^T, dS k and P^T dO three; dq rounded to bf16 once, dk and dv
+    fp32. Every product equals its three-term form on these operands, so
+    the grads are those of the fp32 backward on the upcast q, rounded.
+    """
+    q32 = q.float()
+    row_max, row_sum = (attention_row_stats(q32, k, bias) if stats is None
+                        else stats)
+    dq, dk, dv = attention_bwd_tiled(
+        q32, k, v, bias, out, row_max, row_sum, g, which=which,
+        res_rows=res_rows, stream_rows=stream_rows, splits=splits,
+        matmul=matmul_3xtf32, matmul_qk=_exact(True, False),
+        matmul_kq=_exact(False, True), matmul_dsq=_exact(False, True))
+    return (None if dq is None else dq.to(torch.bfloat16), dk, dv)
+
+
+def _ln_bwd(x, dy, gamma, eps):
+    """``layernorm_bwd`` of primitives.cuh: dx, dgamma, dbeta."""
+    mu = x.mean(-1, keepdim=True)
+    inv = torch.rsqrt(((x - mu) ** 2).mean(-1, keepdim=True) + eps)
+    xh = (x - mu) * inv
+    gg = dy * gamma
+    dx = inv * (gg - gg.mean(-1, keepdim=True)
+                - xh * (gg * xh).mean(-1, keepdim=True))
+    return dx, (dy * xh).sum(0), dy.sum(0)
+
+
+def window_block_bwd_bf16_walk(x, t, self_params, cross_params, g,
+                               mask=None, weights=True, eps=1e-6,
+                               stream_rows=16, key_splits=2, res_rows=16,
+                               wgrad_splits=3):
+    """(gx, gt, self grads, cross grads) of kernel B's bf16 backward
+    (``emip_window_block_bwd_bf16``): x, t and the cotangent g [B, K2, T, C]
+    bf16, read as they are; the parameters fp32 in torch's layout (wq ..
+    wm [C, C], s1, b1 [C]; the cross layer also w0 [F, 2C], w2 [C, F], s2,
+    b2), mask [K2, T, T] or None. gx and gt bf16, the grads (dicts by the
+    parameters' names, empty without ``weights``) fp32.
+
+    The forward recomputed as the kernel recomputes it: the self layer on
+    x (the projections x Wq, x Wk, x Wv two TF32 products, x exact),
+    x1 = bf16(x + bf16(LN1s(m1))), the cross layer (x1 Wq, t Wk, t Wv two
+    products: x1 holds bf16 values), the FFN; GEMMs through
+    :func:`gemm_tiled` (K in tiles of 32), each attention through
+    :func:`attention_fwd_tiled` (keys in tiles of ``stream_rows``, split
+    in ``key_splits``) keeping its row statistics. The backward: LN2's
+    backward on g, gx1 = g + (gh W0)[:, :C], each layer's attention
+    backward (:func:`attention_bwd_tiled`, ``res_rows`` resident rows,
+    streamed tiles of ``stream_rows``), the weight grads of the products
+    of x, t and x1 two TF32 products (split-K in ``wgrad_splits`` chunks
+    summed in order), every other product three ([x1, msg] W0^T and its
+    grad one product over both halves); gt = bf16([gk | gv] [Wk; Wv]) and
+    gx = bf16(gx1 + [gq | gk | gv] [Wq; Wk; Wv]), each rounded once.
+    Every product equals its three-term form on these operands, so the
+    grads are those of the fp32 backward on the upcast inputs, rounded.
+    """
+    b, k2, tok, c = x.shape
+    windows = b * k2
+    bf16 = torch.bfloat16
+    x2, t2, g2 = (a.float().reshape(-1, c) for a in (x, t, g))
+    mm = matmul_3xtf32
+    a_ex, b_ex = _exact(True, False), _exact(False, True)
+    gemm = gemm_tiled
+    wgrad = functools.partial(gemm_tiled, splits=wgrad_splits)
+
+    def win(a):
+        return a.reshape(windows, tok, -1)
+
+    def ln(a, s, bias):
+        return F.layer_norm(a, (c,), s, bias, eps)
+
+    def message_fwd(xq, tt, p):  # xq and tt hold bf16 values
+        q, k, v = (gemm(a, p[w].T, matmul=a_ex)
+                   for a, w in ((xq, "wq"), (tt, "wk"), (tt, "wv")))
+        o, row_max, row_sum = attention_fwd_tiled(
+            win(q), win(k), win(v), stream_rows=stream_rows,
+            splits=key_splits, matmul=mm, keep_stats=True, mask=mask)
+        o = o.reshape(-1, c)
+        return dict(q=q, k=k, v=v, o=o, m=gemm(o, p["wm"].T, matmul=mm),
+                    stats=(row_max, row_sum))
+
+    def message_bwd(xq, tt, p, fw, gmsg, self_layer):
+        gm, gs1, gb1 = _ln_bwd(fw["m"], gmsg, p["s1"], eps)
+        go = gemm(gm, p["wm"], matmul=mm)
+        dq, dk, dv = attention_bwd_tiled(
+            win(fw["q"]), win(fw["k"]), win(fw["v"]), None, win(fw["o"]),
+            *fw["stats"], win(go), res_rows=res_rows,
+            stream_rows=stream_rows, matmul=mm, mask=mask)
+        dq, dk, dv = (d.reshape(-1, c) for d in (dq, dk, dv))
+        grads = {} if not weights else dict(
+            wq=wgrad(dq.T, xq, matmul=b_ex), wk=wgrad(dk.T, tt, matmul=b_ex),
+            wv=wgrad(dv.T, tt, matmul=b_ex), wm=wgrad(gm.T, fw["o"],
+                                                      matmul=mm),
+            s1=gs1, b1=gb1)
+        # the input grads that share an input: one product over the
+        # stacked weights
+        if self_layer:
+            return None, gemm(torch.cat([dq, dk, dv], -1),
+                              torch.cat([p["wq"], p["wk"], p["wv"]]),
+                              matmul=mm), grads
+        return (gemm(dq, p["wq"], matmul=mm),
+                gemm(torch.cat([dk, dv], -1),
+                     torch.cat([p["wk"], p["wv"]]), matmul=mm), grads)
+
+    sp, cp = self_params, cross_params
+    f1 = message_fwd(x2, x2, sp)
+    msg1 = ln(f1["m"], sp["s1"], sp["b1"]).to(bf16).float()
+    x1 = (x2 + msg1).to(bf16).float()
+    f2 = message_fwd(x1, t2, cp)
+    cat = torch.cat([x1, ln(f2["m"], cp["s1"], cp["b1"])], -1)
+    u, h = gemm(cat, cp["w0"].T, matmul=mm, epilogue="gelu")
+    z = gemm(u, cp["w2"].T, matmul=mm)
+
+    # out = x1 + LN2c(z): g read as it is
+    gz, gs2, gb2 = _ln_bwd(z, g2, cp["s2"], eps)
+    gh = gemm(gz, cp["w2"], matmul=mm, epilogue="gelu_grad", aux=h)
+    gx1 = g2 + gemm(gh, cp["w0"][:, :c], matmul=mm)
+    gmsg = gemm(gh, cp["w0"][:, c:], matmul=mm)
+    gq, gt, gcp = message_bwd(x1, t2, cp, f2, gmsg, False)
+    gx1 = gx1 + gq
+    _, gqkv, gsp = message_bwd(x2, x2, sp, f1, gx1, True)
+    if weights:
+        gcp.update(w2=wgrad(gz.T, u, matmul=mm),
+                   w0=wgrad(gh.T, cat, matmul=mm), s2=gs2, b2=gb2)
+    return ((gx1 + gqkv).reshape(x.shape).to(bf16),
+            gt.reshape(t.shape).to(bf16), gsp, gcp)

@@ -28,11 +28,13 @@ in bf16 (its weights cast once, :func:`emip_tpu_torch.dtypes.cast`; the
 bf16 GEMM and attention), the cross layer and the FFN in fp32 on the
 upcast x1 and t, the output rounded to bf16 (``emip_window_block_bf16``).
 Its backward (``emip_window_block_bwd_bf16``) is the JAX kernel's: the self
-layer recomputed in fp32 on the upcast x and the fp32 weights, x1 rounded
-as the forward rounds it and its roundings passed straight through, the
-fp32 cross layer, FFN and block backward, gx and gt rounded to bf16 (the
-bf16 forward's buffers are not the recompute's, so it keeps only its
-inputs).
+layer recomputed in fp32 on x and the fp32 weights, x1 rounded as the
+forward rounds it and its roundings passed straight through, the fp32
+cross layer, FFN and block backward, gx and gt rounded to bf16 (the bf16
+forward's buffers are not the recompute's, so it keeps only its inputs).
+It reads x, t and the gradient as bf16 where they lie, and the products
+with x, t or x1 take the TF32 terms their exactness leaves
+(:func:`~emip_tpu_torch.kernels.tf32.window_block_bwd_bf16_walk`).
 
 G and H with bf16 ``x`` and ``t`` (fp32 parameters) are the two halves of
 B's bf16 forward, as the JAX kernels compute them with a bf16 storage
@@ -510,10 +512,11 @@ class _WindowBlockBf16(torch.autograd.Function):
                   for nd, p in zip(needs_p, params)]
         gx = cm.empty_if(needs_x, x)
         gt = cm.empty_if(needs_t, t)
-        # fp32 scratch (see emip_window_block_bwd_bf16), then the larger of
-        # the recompute's key-split partials and the fp32 backward's
-        # activation grads and workspace
-        scratch = rows * (18 * c + 2 * f) + 4 * rows
+        # fp32 scratch for the recompute (see emip_window_block_bwd_bf16),
+        # then the larger of its key-split partials and the block
+        # backward's activation grads and workspace (the fp32 backward's,
+        # so that both split alike)
+        scratch = rows * (13 * c + 2 * f) + 4 * rows
         rest = max(_workspace_floats(b * k2, 1, tok, tok, c, True),
                    rows * (9 * c + f))
         ws = cm.workspace(x.device, scratch + rest)

@@ -66,12 +66,16 @@ def _dtype_name(x) -> str:
 @pytest.mark.parametrize("a_exact,b_exact", [(True, False), (False, True),
                                              (True, True)],
                          ids=["a", "b", "both"])
-@pytest.mark.parametrize("m,k,n", [(64, 128, 64), (48, 200, 40)])
+@pytest.mark.parametrize("m,k,n", [(64, 128, 64), (48, 200, 40),
+                                   (96, 128, 128), (128, 288, 64)])
 def test_exact_products_equal_three_term_products(a_exact, b_exact, m, k, n):
     """On operands whose flagged side holds bf16 values, the product that
     leaves out that side's low-half terms equals matmul_3xtf32 bit for
     bit; on an fp32 operand flagged exact it does not (its low half is
-    not zero)."""
+    not zero). The last two shapes are those of the GEMM forms kernel B's
+    bf16 backward adds: an exact A against an fp32 weight in a linear at
+    K = C (x W^T with a bf16 x, x1 W^T with x1's bf16 values in fp32
+    storage), and a weight grad over rows with an exact B (dy^T x1)."""
     rng = np.random.default_rng(m + k + n + 2 * a_exact + b_exact)
     a = _t(rng.standard_normal((m, k)) * 3)
     b = _t(rng.standard_normal((k, n)))

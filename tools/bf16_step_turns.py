@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""The bf16 train and static steps of two checkouts of the port, in turns,
-on one GPU.
+"""The bf16 train, static and long train steps of two checkouts of the
+port, in turns, on one GPU.
 
     python3 tools/bf16_step_turns.py --trees REF NEW [--steps 8]
                                      [--out chiprun_out/bf16_step_turns.json]
@@ -17,10 +17,16 @@ seeded frames:
   phase;
 - ``static``: the static pretrain step (``static_train_step`` on
   ``SegNetwork("pvt_v2_b5", 32, dtype=bfloat16)``), as its bf16 static
-  phase.
+  phase;
+- ``long``: the long train step at 4 clips (``long_train_step`` on
+  ``EMIPLong(cfg, 5, dtype=bfloat16)``: one frame encoded, the pair and
+  the long head, kernel F's bf16 forward and backward once, clamp +
+  AdamW over the long heads), as its bf16 long train phase, with the
+  5-slot ring full (five frames pushed first).
 
-Per cell: two warm-up steps, ``--steps`` steps timed by CUDA events, one
-step counted from zero kernel launches (the port's counters), then two
+Per cell: two warm-up steps, ``--steps`` steps timed by CUDA events (and
+the device memory's peak over them), one step counted from zero kernel
+launches (the port's counters), then two
 steps under ``torch.profiler``: the device's busy ms per step (the union
 of its kernels' and copies' intervals), its idle share (one minus busy over
 the median step) and the device launches per step. The turns run REF,
@@ -51,7 +57,9 @@ BATCH = 8
 SEED = 0
 WARMUP = 2
 PROFILED = 2
-CELLS = ("train", "static")
+CELLS = ("train", "static", "long")
+LONG_CLIPS = 4
+MEMORY = 5  # the ring's slots
 
 
 def _frames(rng, n: int, device):
@@ -85,6 +93,7 @@ def _measure(step, steps: int) -> dict:
     for _ in range(WARMUP):
         step()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     times = []
     for _ in range(steps):
         start = torch.cuda.Event(enable_timing=True)
@@ -94,6 +103,7 @@ def _measure(step, steps: int) -> dict:
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated() / 2**30
     K.reset_launches()
     step()
     torch.cuda.synchronize()
@@ -115,7 +125,7 @@ def _measure(step, steps: int) -> dict:
     return dict(step_ms=times, median_ms=median, device_busy_ms=busy_ms,
                 idle=1.0 - busy_ms / median,
                 device_launches_per_step=len(events) / PROFILED,
-                kernel_launches_per_step=launches)
+                kernel_launches_per_step=launches, peak_gib=peak)
 
 
 def worker(tree: str, steps: int) -> dict:
@@ -124,14 +134,20 @@ def worker(tree: str, steps: int) -> dict:
     import torch
 
     from emip_tpu_torch import kernels as K
+    from emip_tpu_torch.models.emip_long import EMIPLong
     from emip_tpu_torch.models.emip_short import (
         EMIPShort,
         EMIPShortConfig,
         SegNetwork,
     )
     from emip_tpu_torch.models.init import seeded_init_
+    from emip_tpu_torch.train.long import long_train_step
     from emip_tpu_torch.train.short import short_train_step
-    from emip_tpu_torch.train.state import ClampAdamW, build_optimizer
+    from emip_tpu_torch.train.state import (
+        ClampAdamW,
+        build_long_optimizer,
+        build_optimizer,
+    )
     from emip_tpu_torch.train.static import static_train_step
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -172,6 +188,31 @@ def worker(tree: str, steps: int) -> dict:
     imgs = itertools.cycle(imgs)
     out["static"] = _measure(
         lambda: static_train_step(model, opt, next(imgs), gen), steps)
+    del model, opt, imgs
+    torch.cuda.empty_cache()
+
+    m32 = seeded_init_(EMIPLong(cfg, memory_size=MEMORY), SEED)
+    model = EMIPLong(cfg, memory_size=MEMORY, dtype=torch.bfloat16)
+    model.load_state_dict(m32.state_dict())
+    del m32
+    model = model.to(device)
+    opt = build_long_optimizer(model)
+    rng = np.random.default_rng(SEED + 18)
+    video = _frames(rng, LONG_CLIPS * (MEMORY + 2), device).reshape(
+        LONG_CLIPS, MEMORY + 2, 3, SIZE, SIZE)
+    gt = torch.from_numpy((rng.uniform(size=(LONG_CLIPS, 1, SIZE, SIZE))
+                           > 0.5).astype(np.float32)).to(device)
+    with torch.no_grad():  # fill the ring: frames 1..5 pushed
+        model.eval()
+        enc = model.encode_frame(video[:, 0])
+        state = model.init_memory(LONG_CLIPS)
+        for i in range(1, MEMORY + 1):
+            _, enc, state = model.step_cached(enc, video[:, i], state)
+    if not bool(state.valid.all()):
+        raise SystemExit("the long cell's ring is not full")
+    out["long"] = _measure(
+        lambda: long_train_step(model, opt, enc, video[:, MEMORY + 1], gt,
+                                state), steps)
     return out
 
 
@@ -225,7 +266,8 @@ def main(argv=None) -> int:
                   + " ".join(f"{t:.1f}" for t in r["step_ms"])
                   + f"); busy {r['device_busy_ms']:.3f} ms, idle "
                   f"{r['idle']:.3f}, {r['device_launches_per_step']:g} "
-                  f"device launches a step; kernels "
+                  f"device launches a step, peak {r['peak_gib']:.3f} GiB; "
+                  f"kernels "
                   f"{r['kernel_launches_per_step']}", flush=True)
     med = statistics.median
     summary = {}
@@ -243,17 +285,20 @@ def main(argv=None) -> int:
                 for lab in ("REF", "NEW")}
         dev = {lab: [tr[cell]["device_launches_per_step"] for tr in turns
                      if tr["tree"] == lab] for lab in ("REF", "NEW")}
+        peak = {lab: [tr[cell]["peak_gib"] for tr in turns
+                      if tr["tree"] == lab] for lab in ("REF", "NEW")}
         summary[cell] = dict(ratio=ratio, halves=halves,
                              verdict=_verdict((ratio, *halves)),
                              median_ms={k: med(v) for k, v in steps.items()},
                              busy_ms=busy, idle=idle,
-                             device_launches_per_step=dev)
+                             device_launches_per_step=dev, peak_gib=peak)
         print(f"{cell}: REF / NEW x{ratio:.3f} (halves x{halves[0]:.3f}, "
               f"x{halves[1]:.3f}): {summary[cell]['verdict']}; medians "
               f"{med(steps['REF']):.3f} / {med(steps['NEW']):.3f} ms; busy "
               f"{busy['REF']} / {busy['NEW']} ms; idle {idle['REF']} / "
               f"{idle['NEW']}; device launches a step {dev['REF']} / "
-              f"{dev['NEW']}", flush=True)
+              f"{dev['NEW']}; peak {peak['REF']} / {peak['NEW']} GiB",
+              flush=True)
     os.makedirs(os.path.dirname(os.path.abspath(opts.out)), exist_ok=True)
     with open(opts.out, "w") as f:
         json.dump(dict(card=card, trees=dict(REF=ref, NEW=new),
