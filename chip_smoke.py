@@ -260,15 +260,17 @@ these rows carry the CUDA cores' figure for all their operations as
 ``fp32_bound_ms``),
 and as its last line ``{"ok": true, "device":
 {...}}``. Before the JSON line it prints a ``digests {...}`` line: for every
-case of the fp32 backward rows of A, B, C, F, G and H and of the bf16 ones
-of A, B, C and F (``DIGEST_KERNELS``) the sha256 of its grads' bytes and its
-device launches per call, so that two trees can be shown to give the same
-bits at the same seeds. Any failure raises and the exit code is non-zero,
+case of the fp32 backward rows of A, B, C, F, G and H, of the bf16 ones of
+A, B, C and F and of the bf16 forwards of A, B and C (``DIGEST_KERNELS``)
+the sha256 of its grads' or output's bytes and its device launches per
+call, so that two trees can be shown to give the same bits at the same
+seeds. Any failure raises and the exit code is non-zero,
 with no result line. Details also go to ``chiprun_out/chip_smoke.json``. ``--kernels
 NAMES`` is a development aid: the kernel phases alone, for the kernels
 whose name contains one of the comma-separated NAMES (``gemm`` adds the
 GEMM lines of phase 3, ``attention_fwd`` its attention lines, ``bf16`` the
-bf16 kernel, GEMM and backward lines).
+bf16 kernel, GEMM and backward lines; a bf16 forward row's name, such as
+``sr_attention_bf16``, that row's kernel lines).
 """
 
 from __future__ import annotations
@@ -367,6 +369,8 @@ SR_STAGES = ((7744, 121, 64, 1), (1936, 121, 128, 2), (484, 121, 320, 5),
 # the same at 512^2 (M = 256 reduced keys)
 SR_STAGES_512 = ((16384, 256, 64, 1), (4096, 256, 128, 2),
                  (1024, 256, 320, 5), (256, 256, 512, 8))
+# pvt_v2_b0's stage 3 at 352^2 (head width 32): A's bf16 check at that width
+SR_B0_CHECK = (484, 121, 160, 5)
 BATCH_512 = 4        # clips streamed side by side at 512^2
 # kernel J at the four MixFFN stages of pvt_v2_b5 at 352^2: side, hidden
 FFN_STAGES = ((88, 256), (44, 512), (22, 1280), (11, 2048))
@@ -453,15 +457,15 @@ TENSOR_CORE_KERNELS = ("sr_attention", "sr_attention_bwd",
 # (``device_ms``): the CUDA-core kernels D, E, I and J, whose calls take the
 # device about as long as, or less than, the host's launch path, which the
 # CUDA-event time then reads
-# (device_ms), and the bf16 backwards of A, B, C and F, whose launches per
-# call the redesign of their bf16 form cut
+# (device_ms), and the bf16 backwards of A, B, C and F and A's bf16
+# forward, whose launches per call the redesign of their bf16 form cut
 DEVICE_TIMED = ("convex_upsample", "convex_upsample_bwd", "splat_density",
                 "softmax_expectation", "softmax_expectation_bwd",
                 "dwconv_gelu", "dwconv_gelu_bwd", "convex_upsample_bf16",
                 "convex_upsample_bwd_bf16", "dwconv_gelu_bf16",
                 "dwconv_gelu_bwd_bf16", "sr_attention_bwd_bf16",
                 "flow_attention_bwd_bf16", "window_attention_block_bwd_bf16",
-                "memory_attention_bwd_bf16")
+                "memory_attention_bwd_bf16", "sr_attention_bf16")
 # kernels held to the same bits on a second call on the same inputs: the
 # tensor-core ones, J and I's backward, which add their per-block partials
 # in a fixed order, and E, whose sum is in integers
@@ -472,16 +476,18 @@ BIT_EQUAL_KERNELS = TENSOR_CORE_KERNELS + (
     "dwconv_gelu_bwd_bf16", "sr_attention_bwd_bf16",
     "flow_attention_bwd_bf16", "window_attention_block_bwd_bf16",
     "memory_attention_bwd_bf16")
-# the backward rows whose grads' digests (sha256 of their bytes, per case)
-# are printed on a line of their own: the bf16 and fp32 backwards of the
-# kernels on the tensor cores' attention backward and GEMM, so that two
+# the rows whose digests (sha256 of their grads' or output's bytes, per
+# case) are printed on a line of their own: the bf16 and fp32 backwards of
+# the kernels on the tensor cores' attention backward and GEMM, and the
+# bf16 forwards of A, B and C, which run one bf16 key loop, so that two
 # trees can be shown to give the same bits at the same seeds
 DIGEST_KERNELS = ("sr_attention_bwd", "window_attention_block_bwd",
                   "window_attention_layer_bwd",
                   "window_attention_ffn_layer_bwd", "flow_attention_bwd",
                   "memory_attention_bwd", "sr_attention_bwd_bf16",
                   "flow_attention_bwd_bf16", "window_attention_block_bwd_bf16",
-                  "memory_attention_bwd_bf16")
+                  "memory_attention_bwd_bf16", "sr_attention_bf16",
+                  "window_attention_block_bf16", "flow_attention_bf16")
 DIGESTS = {}
 # the 3xTF32 GEMM alone against the fp64 product: max|err| / max|ref| (fp32
 # rounding of sums over up to 61,952 rows)
@@ -715,8 +721,9 @@ def launches_per_call(fn) -> float:
 
 
 def record_digest(name: str, label: str, grads, fn) -> dict:
-    """The digest and launches per call of a backward case of a
-    ``DIGEST_KERNELS`` row (logged, and kept for the digests line)."""
+    """The digest and launches per call of a case of a ``DIGEST_KERNELS``
+    row (``grads``: its grads, or its output; logged, and kept for the
+    digests line)."""
     if name not in DIGEST_KERNELS:
         return {}
     out = dict(digest=digest(grads), launches_per_call=launches_per_call(fn))
@@ -2046,7 +2053,8 @@ def bf16_check_cases(device):
     """bf16 cases held and timed like bf16_kernel_cases' but kept out of
     their rows' sums, from a generator of their own: A, C and D at their
     512^2 shapes (4 clips), F with every slot empty (the plain mean of the
-    values) at a ragged size, and G without the residual."""
+    values) at a ragged size, G without the residual, J's checks, and A at
+    pvt_v2_b0's head width (its stage 3 at 352^2, batch 8)."""
     import torch
 
     from emip_tpu_torch import kernels as K
@@ -2088,6 +2096,14 @@ def bf16_check_cases(device):
         cases.append(("dwconv_gelu_bf16", f"[{b},{h}x{w},{f}] check",
                       K.fused_dwconv_gelu, K.fused_dwconv_gelu_reference,
                       ffn_args_bf16(r, b, h, w, f)))
+    # A at b0's head width (32), drawn last so that the cases above keep
+    # their inputs
+    n, m, c, heads = SR_B0_CHECK
+    x, kv, wq, bq, wkv, bkv, wp, bp, _ = sr_args(r, BATCH, n, m, c, heads)
+    cases.append(("sr_attention_bf16", f"b0 N={n} M={m} C={c} heads={heads}",
+                  K.fused_sr_attention, K.fused_sr_attention_reference,
+                  (x.to(bf), kv.to(bf), wq.to(bf), bq, wkv.to(bf), bkv,
+                   wp.to(bf), bp, heads)))
     return cases
 
 
@@ -2232,12 +2248,14 @@ def bf16_library_ms(name: str, args, reps: int) -> tuple:
     return None, None
 
 
-def bf16_kernel_phase(batch: int, device, reps: int) -> dict:
+def bf16_kernel_phase(batch: int, device, reps: int, only: str = "") -> dict:
     """The bf16 forwards of A-D against their plain bf16 versions on the
     card and against fp64 (see BF16_FP64_RATIO), held bit-equal on a second
     call, timed beside the plain version and the library, with their bound
     (each product at the rate its operands allow: see PEAK_BF16_FLOPS;
-    bytes at their storage sizes)."""
+    bytes at their storage sizes); the digests of the ``DIGEST_KERNELS``
+    rows. ``only``: the rows whose name contains one of its comma-separated
+    names (every row when empty)."""
     import torch
 
     results = {}
@@ -2245,6 +2263,8 @@ def bf16_kernel_phase(batch: int, device, reps: int) -> dict:
     cases += [(False, *case) for case in bf16_check_cases(device)]
     with torch.no_grad():
         for summed, name, label, fn, ref, args in cases:
+            if not wanted(only, name):
+                continue
             got = fn(*args)
             torch.cuda.synchronize()
             want = ref(*args)
@@ -2261,6 +2281,7 @@ def bf16_kernel_phase(batch: int, device, reps: int) -> dict:
             if not torch.equal(fn(*args), got):
                 raise AssertionError(f"{name} ({label}): two calls on the "
                                      f"same inputs differ")
+            dig = record_digest(name, label, (got,), lambda: fn(*args))
             ms, plain_ms = alternate_ms(lambda: fn(*args),
                                         lambda: ref(*args), reps)
             lib_ms, sdpa_ms = bf16_library_ms(name, args, reps)
@@ -2274,6 +2295,8 @@ def bf16_kernel_phase(batch: int, device, reps: int) -> dict:
                 f"{BF16_FP64_RATIO}, floor {BF16_FP64_FLOOR}) ms={ms:.4f} "
                 f"plain_ms={plain_ms:.4f} library_ms={fmt_ms(lib_ms)} "
                 f"sdpa_ms={fmt_ms(sdpa_ms)} " + fmt_dev(dev)
+                + (f"launches/call={dig['launches_per_call']:g} " if dig
+                   else "")
                 + ("ok" if ok else "MISMATCH"))
             if not ok:
                 raise AssertionError(f"{name} ({label}): rel={rel}, fp64 "
@@ -2283,7 +2306,7 @@ def bf16_kernel_phase(batch: int, device, reps: int) -> dict:
                    rel_err=rel, fp64_err=e_k, plain_fp64_err=e_p,
                    fp64_ratio=ratio,
                    **({} if sdpa_ms is None else dict(sdpa_ms=sdpa_ms)),
-                   **dev)
+                   **dev, **dig)
             del got, want
     for entry in results.values():
         entry["fp64_ratio"] = max(c["fp64_ratio"] for c in entry["cases"])
@@ -5052,6 +5075,8 @@ def main(argv=None) -> int:
             bf16_backward_phase(BATCH, device, KERNEL_REPS)
             log("digests " + json.dumps(DIGESTS))
             return 0
+        if any(wanted(opts.kernels, name) for name in BF16_KERNEL_INFO):
+            bf16_kernel_phase(BATCH, device, KERNEL_REPS, opts.kernels)
         if wanted(opts.kernels, "gemm"):
             gemm_phase(BATCH, device, KERNEL_REPS)
         if wanted(opts.kernels, "attention_fwd"):

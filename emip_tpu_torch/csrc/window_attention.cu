@@ -485,7 +485,7 @@ extern "C" int emip_window_layer_bf16(
   const long long wsb = (long long)T * C3;
   EMIP_TRY((cudaError_t)emip_attention_fwd_bf16(
       qkvb, wsb, C3, qkvb + C, wsb, C3, qkvb + 2 * C, wsb, C3, mask, mask_nw,
-      o, (long long)T * C, C, windows, 1, T, T, C, C, 1, stream));
+      o, (long long)T * C, C, windows, T, T, C, C, 1, stream));
   EMIP_TRY(linear_bf16(static_cast<const bf16*>(o), C,
                        static_cast<const bf16*>(wm), C, nullptr, m, C, R, C, C,
                        false, s));
@@ -709,7 +709,7 @@ extern "C" int emip_window_block_bf16(
   const long long wsb = (long long)T * C3;
   EMIP_TRY((cudaError_t)emip_attention_fwd_bf16(
       qkv, wsb, C3, qkv + C, wsb, C3, qkv + C2, wsb, C3, mask, mask_nw, o1,
-      (long long)T * C, C, windows, 1, T, T, C, C, 1, stream));
+      (long long)T * C, C, windows, T, T, C, C, 1, stream));
   EMIP_TRY(linear_bf16(static_cast<const bf16*>(o1), C,
                        static_cast<const bf16*>(wm1), C, nullptr, m, C, R, C,
                        C, false, s));

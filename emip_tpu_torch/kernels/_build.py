@@ -71,14 +71,14 @@ _SIGNATURES = {
     "emip_dwconv_gelu_bwd_workspace": [_I] * 4,
     # the bf16 band of short inference: A, B, C and D forward, the GEMM
     # and the attention alone
-    "emip_sr_attention_bf16": [_P] * 12 + [_I] * 5 + [_P],
+    "emip_sr_attention_bf16": [_P] * 10 + [_I] * 5 + [_P],
     "emip_window_block_bf16": ([_P] * 19 + [_I] + [_P] * 11 + [_L]
                                + [_I] * 4 + [_F, _P]),
     "emip_flow_attention_bf16": [_P] * 4 + [_I] * 3 + [_P],
     "emip_convex_upsample_bf16": [_P] * 3 + [_I] * 4 + [_P],
     "emip_gemm_bf16": [_P, _L, _P, _L, _P, _P, _L] + [_I] * 4 + [_P],
     "emip_attention_fwd_bf16": ([_P, _L, _I] * 3 + [_P, _I, _P, _L, _I]
-                                + [_I] * 7 + [_P]),
+                                + [_I] * 6 + [_P]),
     # the bf16 train step: A, B, C and D backward
     "emip_sr_attention_bwd_bf16": [_P] * 18 + [_L] + [_I] * 5 + [_P],
     "emip_window_block_bwd_bf16": ([_P] * 18 + [_I] + [_P] * 20 + [_L]

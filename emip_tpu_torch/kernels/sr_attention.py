@@ -10,10 +10,15 @@ also writes each attention row's max and sum, which the backward kernel
 reads.
 
 In the bf16 band (bf16 ``x``, ``kv_in`` and weights, fp32 biases) the
-forward is ``emip_sr_attention_bf16`` (the bf16 GEMM of
-``csrc/gemm_bf16.cuh`` and the bf16 attention of
-``csrc/attention_bf16.cu``), rounding where the JAX kernel rounds with a
-bf16 storage dtype. Its backward (``emip_sr_attention_bwd_bf16``) is the
+forward is ``emip_sr_attention_bf16``, rounding where the JAX kernel rounds
+with a bf16 storage dtype, in two launches: the kv projection (the bf16
+GEMM of ``csrc/gemm_bf16.cuh``), then one fused kernel in which a cluster
+of ``num_heads`` blocks per (image, 64-row query tile) projects each head's
+q, runs its attention (the key loop of ``csrc/attention_bf16.cuh``) and,
+with the heads' o exchanged through distributed shared memory, the output
+projection; q and o never reach device memory. Every sum runs in the
+order of the bf16 GEMM and the bf16 attention kernel
+(``tf32.sr_attention_fwd_bf16_walk`` states it). Its backward (``emip_sr_attention_bwd_bf16``) is the
 JAX kernel's: the forward recomputed in fp32 from the bf16 inputs and
 weights (the bf16 forward's rounded q, [k | v] and o are not the JAX
 backward's, so the bf16 forward keeps only its inputs), the fp32 backward
@@ -192,14 +197,12 @@ class _SRAttentionBf16(torch.autograd.Function):
                     bp=bp), num_heads, torch.bfloat16)
         b, n, c = x.shape
         m = kv_in.shape[1]
-        q_buf = torch.empty_like(x)
         kv_buf = torch.empty((b, m, 2 * c), device=x.device, dtype=x.dtype)
-        o_buf = torch.empty_like(x)
         out = torch.empty_like(x)
         rc = library().emip_sr_attention_bf16(
-            *(t.data_ptr() for t in inputs), q_buf.data_ptr(),
-            kv_buf.data_ptr(), o_buf.data_ptr(), out.data_ptr(), b, n, m, c,
-            num_heads, cm.stream_handle(x.device))
+            *(t.data_ptr() for t in inputs), kv_buf.data_ptr(),
+            out.data_ptr(), b, n, m, c, num_heads,
+            cm.stream_handle(x.device))
         cm.raise_on_error(_NAME + " (bf16)", rc)
         cm.LAUNCHES["sr_attention_bf16"] += 1
         return out

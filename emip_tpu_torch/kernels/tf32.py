@@ -34,6 +34,10 @@ and the JAX package's Pallas kernels:
   A, F and B: bf16 operands read as they are, each product counting its
   TF32 terms by its operands' exactness, and the bf16 grads rounded once
   where the kernels' epilogues round them.
+* :func:`sr_attention_fwd_bf16_walk` walks kernel A's fused bf16 forward
+  (``emip_sr_attention_bf16``; bf16 products on the tensor cores, fp32
+  sums): per head q from K tiles of 32, the online softmax over key tiles
+  of 32 with P rounded to bf16, o rounded, the output columns by head.
 
 Nothing here runs on a model's path.
 """
@@ -49,7 +53,8 @@ __all__ = ["tf32_round", "tf32_truncate", "matmul_tf32", "matmul_3xtf32",
            "matmul_3xtf32_exact", "gemm_tiled", "attention_fwd_tiled",
            "attention_row_stats", "attention_bwd_tiled",
            "flow_attention_bwd_bf16_walk", "sr_attention_bwd_bf16_walk",
-           "memory_attention_bwd_bf16_walk", "window_block_bwd_bf16_walk"]
+           "memory_attention_bwd_bf16_walk", "window_block_bwd_bf16_walk",
+           "sr_attention_fwd_bf16_walk"]
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -556,3 +561,60 @@ def window_block_bwd_bf16_walk(x, t, self_params, cross_params, g,
                    w0=wgrad(gh.T, cat, matmul=mm), s2=gs2, b2=gb2)
     return ((gx1 + gqkv).reshape(x.shape).to(bf16),
             gt.reshape(t.shape).to(bf16), gsp, gcp)
+
+
+def sr_attention_fwd_bf16_walk(x, kv_in, wq, bq, wkv, bkv, wp, bp,
+                               heads: int, tile_k: int = 32,
+                               stream_rows: int = 32):
+    """Kernel A's bf16 forward (``emip_sr_attention_bf16``) in the order
+    its fused kernel sums: x [B, N, C], kv_in [B, M, C] and the weights
+    (torch layout) bf16, the biases fp32; returns out [B, N, C] bf16.
+
+    Every product takes bf16 operands into fp32 sums (the tensor cores'
+    order inside a tile is not stated). [k | v] = bf16(kv_in Wkv^T + bkv),
+    K in tiles of ``tile_k`` (the first launch). Then per head h, as block
+    h of a cluster computes it: q_h = bf16(x Wq[h]^T + bq[h]), K in tiles of
+    ``tile_k`` ascending, the bias added to the fp32 sum before the one
+    rounding; the keys in tiles of ``stream_rows`` (the last ragged) with a
+    running max m and sum l of the fp32 scores s = q_h k_h^T / sqrt(ch): per
+    tile m' = max(m, rowmax s), P = e^(s - m') (unnormalised), l = l e^(m -
+    m') + rowsum P, O = O e^(m - m') + bf16(P) v_h; o_h = bf16(O (1 / l)).
+    The heads' o make o [B, N, C] (exchanged across the cluster), and block h
+    writes out[..., h] = bf16(o Wp[h]^T + bp[h]), K = C in tiles of
+    ``tile_k`` ascending. The plain version rounds the normalised P
+    instead, so the two agree to bf16 rounding, not bit for bit.
+    """
+    b, n, c = x.shape
+    m = kv_in.shape[1]
+    ch = c // heads
+    bf16 = torch.bfloat16
+    x2 = x.float().reshape(-1, c)
+    wq, wkv, wp = wq.float(), wkv.float(), wp.float()
+    kv = gemm_tiled(kv_in.float().reshape(-1, c), wkv.T, bkv,
+                    tile_k=tile_k).to(bf16).float().reshape(b, m, 2 * c)
+    scale = 1.0 / ch**0.5
+    o = []
+    for h in range(heads):
+        cols = slice(h * ch, (h + 1) * ch)
+        q = gemm_tiled(x2, wq[cols].T, bq[cols], tile_k=tile_k)
+        q = q.to(bf16).float().reshape(b, n, ch)
+        k, v = kv[..., cols], kv[..., c:][..., cols]
+        run_max = q.new_full((b, n), float("-inf"))
+        run_sum = q.new_zeros(b, n)
+        acc = q.new_zeros(b, n, ch)
+        for t0 in range(0, m, stream_rows):
+            keys = slice(t0, min(m, t0 + stream_rows))
+            s = (q @ k[:, keys].transpose(-1, -2)) * scale
+            new_max = torch.maximum(run_max, s.max(-1).values)
+            alpha = torch.exp(run_max - new_max)
+            p = torch.exp(s - new_max[..., None])
+            run_sum = run_sum * alpha + p.sum(-1)
+            acc = (acc * alpha[..., None]
+                   + p.to(bf16).float() @ v[:, keys])
+            run_max = new_max
+        o.append((acc * (1.0 / run_sum)[..., None]).to(bf16))
+    o2 = torch.cat(o, -1).float().reshape(-1, c)
+    out = torch.cat([gemm_tiled(o2, wp[h * ch:(h + 1) * ch].T,
+                                bp[h * ch:(h + 1) * ch], tile_k=tile_k)
+                     for h in range(heads)], -1)
+    return out.to(bf16).reshape(b, n, c)

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""The bf16 train, static and long train steps of two checkouts of the
-port, in turns, on one GPU.
+"""The bf16 short inference batch and the bf16 train, static and long train
+steps of two checkouts of the port, in turns, on one GPU.
 
     python3 tools/bf16_step_turns.py --trees REF NEW [--steps 8]
                                      [--out chiprun_out/bf16_step_turns.json]
@@ -11,6 +11,9 @@ bf16 band (``dtype=bfloat16`` on fp32 seeded weights, TF32 and cuBLAS's
 reduced-precision bf16 reduction off) at pvt_v2_b5 352^2, batch 8, on
 seeded frames:
 
+- ``infer``: short inference of 8 frame pairs (``predict_arrays`` on
+  ``EMIPShort(cfg, dtype=bfloat16)`` in eval mode), as ``chip_smoke.py``'s
+  bf16 slice phase; a "step" is one batch;
 - ``train``: the short train step (``short_train_step`` on
   ``EMIPShort(cfg, dtype=bfloat16)``: drop path 0.1, the hybrid-E and
   flow losses, clamp 0.5 + AdamW), as ``chip_smoke.py``'s bf16 train
@@ -57,7 +60,7 @@ BATCH = 8
 SEED = 0
 WARMUP = 2
 PROFILED = 2
-CELLS = ("train", "static", "long")
+CELLS = ("infer", "train", "static", "long")
 LONG_CLIPS = 4
 MEMORY = 5  # the ring's slots
 
@@ -129,11 +132,12 @@ def _measure(step, steps: int) -> dict:
 
 
 def worker(tree: str, steps: int) -> dict:
-    """Both cells on ``tree``'s package; returns their measurements."""
+    """Every cell on ``tree``'s package; returns their measurements."""
     sys.path.insert(0, os.path.abspath(tree))
     import torch
 
     from emip_tpu_torch import kernels as K
+    from emip_tpu_torch.infer import predict_arrays
     from emip_tpu_torch.models.emip_long import EMIPLong
     from emip_tpu_torch.models.emip_short import (
         EMIPShort,
@@ -160,6 +164,18 @@ def worker(tree: str, steps: int) -> dict:
     cfg = EMIPShortConfig(backbone_name="pvt_v2_b5", inp_size=SIZE)
     m32 = EMIPShort(cfg)
     seeded_init_(m32, SEED)
+    model = EMIPShort(cfg, dtype=torch.bfloat16)
+    model.load_state_dict(m32.state_dict())
+    model = model.to(device).eval()
+    rng = np.random.default_rng(SEED + 1)
+    pairs = itertools.cycle([(_frames(rng, BATCH, device),
+                              _frames(rng, BATCH, device))
+                             for _ in range(2)])
+    out["infer"] = _measure(lambda: predict_arrays(model, *next(pairs)),
+                            steps)
+    del model, pairs
+    torch.cuda.empty_cache()
+
     model = EMIPShort(cfg, dtype=torch.bfloat16)
     model.load_state_dict(m32.state_dict())
     del m32
