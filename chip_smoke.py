@@ -14,8 +14,15 @@ needs one card and no arguments, and it imports nothing of JAX. In order:
    then the 3xTF32 GEMM of kernels A, B, G and H alone at every shape the
    352^2 train step gives it in B and A, and at two ragged shapes, against
    the fp64 product and beside ``torch.matmul`` (one log line each; a
-   second call must give the same bits); and the tensor-core forward
-   attention of A, B, G and H alone (``kernels/attention.py``) at the
+   second call must give the same bits); the wgmma product of B's and H's
+   bf16 forwards alone (``gemm_wgmma``, ``csrc/gemm_wgmma.cuh``) at the
+   forms those kernels run (q, k, v from two bf16 sources, W0's two halves
+   with GELU, W2 with its LayerNorm) at B's rows at 352^2 and H's at 512^2
+   with one clip, and a ragged check, each against fp64 (``GEMM_REL_TOL``),
+   the same bits twice, timed in turns beside the 3xTF32 GEMM and
+   ``torch.matmul`` with its TFLOP/s (``gemm_wgmma`` lines); and the
+   tensor-core forward attention of A, B, G and H alone
+   (``kernels/attention.py``) at the
    shapes those kernels give it (A's four PVT stages at 352^2 and at 512^2,
    B's 64 windows of 484 tokens without and with the shift mask, G's and
    H's windows of 1024 tokens at 1 and 4 clips, and pvt_v2_b0's widths, A
@@ -261,14 +268,15 @@ these rows carry the CUDA cores' figure for all their operations as
 and as its last line ``{"ok": true, "device":
 {...}}``. Before the JSON line it prints a ``digests {...}`` line: for every
 case of the fp32 backward rows of A, B, C, F, G and H, of the bf16 ones of
-A, B, C and F and of the bf16 forwards of A, B and C (``DIGEST_KERNELS``)
+A, B, C and F and of the bf16 forwards of A, B, C and H (``DIGEST_KERNELS``)
 the sha256 of its grads' or output's bytes and its device launches per
 call, so that two trees can be shown to give the same bits at the same
 seeds. Any failure raises and the exit code is non-zero,
 with no result line. Details also go to ``chiprun_out/chip_smoke.json``. ``--kernels
 NAMES`` is a development aid: the kernel phases alone, for the kernels
 whose name contains one of the comma-separated NAMES (``gemm`` adds the
-GEMM lines of phase 3, ``attention_fwd`` its attention lines, ``bf16`` the
+GEMM lines of phase 3, ``gemm_wgmma`` its wgmma lines alone,
+``attention_fwd`` its attention lines, ``bf16`` the
 bf16 kernel, GEMM and backward lines; a bf16 forward row's name, such as
 ``sr_attention_bf16``, that row's kernel lines).
 """
@@ -459,13 +467,16 @@ TENSOR_CORE_KERNELS = ("sr_attention", "sr_attention_bwd",
 # CUDA-event time then reads
 # (device_ms), and the bf16 backwards of A, B, C and F and A's bf16
 # forward, whose launches per call the redesign of their bf16 form cut
+# and the bf16 forwards of B and H, whose redesign cut theirs too
 DEVICE_TIMED = ("convex_upsample", "convex_upsample_bwd", "splat_density",
                 "softmax_expectation", "softmax_expectation_bwd",
                 "dwconv_gelu", "dwconv_gelu_bwd", "convex_upsample_bf16",
                 "convex_upsample_bwd_bf16", "dwconv_gelu_bf16",
                 "dwconv_gelu_bwd_bf16", "sr_attention_bwd_bf16",
                 "flow_attention_bwd_bf16", "window_attention_block_bwd_bf16",
-                "memory_attention_bwd_bf16", "sr_attention_bf16")
+                "memory_attention_bwd_bf16", "sr_attention_bf16",
+                "window_attention_block_bf16",
+                "window_attention_ffn_layer_bf16")
 # kernels held to the same bits on a second call on the same inputs: the
 # tensor-core ones, J and I's backward, which add their per-block partials
 # in a fixed order, and E, whose sum is in integers
@@ -475,19 +486,22 @@ BIT_EQUAL_KERNELS = TENSOR_CORE_KERNELS + (
     "window_attention_ffn_layer_bwd_bf16", "dwconv_gelu_bf16",
     "dwconv_gelu_bwd_bf16", "sr_attention_bwd_bf16",
     "flow_attention_bwd_bf16", "window_attention_block_bwd_bf16",
-    "memory_attention_bwd_bf16")
+    "memory_attention_bwd_bf16", "window_attention_block_bf16",
+    "window_attention_ffn_layer_bf16")
 # the rows whose digests (sha256 of their grads' or output's bytes, per
 # case) are printed on a line of their own: the bf16 and fp32 backwards of
 # the kernels on the tensor cores' attention backward and GEMM, and the
-# bf16 forwards of A, B and C, which run one bf16 key loop, so that two
-# trees can be shown to give the same bits at the same seeds
+# bf16 forwards of A, B, C and H, so that two trees can be shown to give
+# the same bits at the same seeds (or, for B and H, whose forward products
+# moved to the wgmma product, that they moved)
 DIGEST_KERNELS = ("sr_attention_bwd", "window_attention_block_bwd",
                   "window_attention_layer_bwd",
                   "window_attention_ffn_layer_bwd", "flow_attention_bwd",
                   "memory_attention_bwd", "sr_attention_bwd_bf16",
                   "flow_attention_bwd_bf16", "window_attention_block_bwd_bf16",
                   "memory_attention_bwd_bf16", "sr_attention_bf16",
-                  "window_attention_block_bf16", "flow_attention_bf16")
+                  "window_attention_block_bf16", "flow_attention_bf16",
+                  "window_attention_ffn_layer_bf16")
 DIGESTS = {}
 # the 3xTF32 GEMM alone against the fp64 product: max|err| / max|ref| (fp32
 # rounding of sums over up to 61,952 rows)
@@ -656,9 +670,12 @@ def device_ms(fn, reps: int, split: dict | None = None) -> float:
     fn()
     torch.cuda.synchronize()
     # a profiling session now and then comes back without its device
-    # events (once in 35 sessions of a run on torch 2.11): such a session is
-    # taken again, at most twice, and the third empty one fails
-    for _ in range(3):
+    # events (once in 35 sessions of a run on torch 2.11; in the whole
+    # script, after some hundred sessions, three in a row for a call of one
+    # small launch, while larger sessions lost part of theirs): such a
+    # session is taken again with twice the calls, at most four times, and
+    # the fifth empty one fails
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -669,7 +686,9 @@ def device_ms(fn, reps: int, split: dict | None = None) -> float:
                   and not getattr(ev, "is_user_annotation", False)]
         if events:
             break
-        log("device_ms: torch.profiler recorded no device event; again")
+        log(f"device_ms: torch.profiler recorded no device event over "
+            f"{reps} calls; again over {2 * reps}")
+        reps *= 2
     else:
         raise AssertionError("torch.profiler recorded no device time")
     if split is not None:
@@ -1578,17 +1597,110 @@ def gemm_shapes(batch: int) -> list:
     return shapes
 
 
-def gemm_phase(batch: int, device, reps: int) -> dict:
+def wgmma_shapes(batch: int) -> list:
+    """(label, rows, C, F, form) of the wgmma product's lines: the forms B's
+    and H's bf16 forwards run, at B's rows at 352^2 and H's at 512^2 with
+    one clip ([2, 4, 1024, 128]: 64 row tiles of 128, so the 64-row
+    blocks), and a ragged check."""
+    rb, rh, c, f = 2 * batch * 4 * 484, 2 * 4 * 1024, 128, 1024
+    return [("B q k v", rb, c, f, "qkv"), ("B x|msg W0^T", rb, c, f, "w0"),
+            ("B u W2^T LN", rb, c, f, "w2"), ("H q k v", rh, c, f, "qkv"),
+            ("H x|msg W0^T", rh, c, f, "w0"), ("H u W2^T LN", rh, c, f, "w2"),
+            ("check ragged", 1000, 100, 70, "ragged")]
+
+
+def wgmma_line(r, label: str, m: int, c: int, f: int, form: str,
+               reps: int) -> dict:
+    """One line of the wgmma product (``gemm_wgmma``): its error against
+    the fp64 evaluation, bit equality on a second call, and its time in
+    turns with the 3xTF32 GEMM of ``gemm_tf32.cuh`` and ``torch.matmul``
+    (fp32, TF32 off), each on the same product with the fp32 (upcast)
+    operands, no epilogue (q, k, v: one source over the stacked weight);
+    the bound counts a bf16 source's products at two TF32 terms, an fp32
+    one's at three."""
+    import torch
+
+    from emip_tpu_torch.kernels.gemm import (
+        gemm,
+        gemm_wgmma,
+        gemm_wgmma_reference,
+    )
+
+    bf = torch.bfloat16
+    if form == "qkv":  # q from x, k and v from t, two terms each
+        kw = dict(a=r(m, c).to(bf), a2=r(m, c).to(bf), n_switch=c,
+                  w=r(3 * c, c) / c ** 0.5)
+        a32, k, n, x2_k = kw["a"].float(), c, 3 * c, c
+    elif form == "w0":  # bf16 x, then fp32 msg, along K; GELU
+        kw = dict(a=r(m, c).to(bf), a2=r(m, c), w=r(f, 2 * c) / 16,
+                  epilogue="gelu")
+        a32 = torch.cat([kw["a"].float(), kw["a2"]], -1)
+        k, n, x2_k = 2 * c, f, c
+    elif form == "w2":  # fp32 u, LayerNorm epilogue
+        kw = dict(a=r(m, f), w=r(c, f) / 32, epilogue="layernorm",
+                  gamma=1 + 0.1 * r(c), beta=0.1 * r(c))
+        a32, k, n, x2_k = kw["a"], f, c, 0
+    else:  # ragged M, N and K tiles, fp32
+        kw = dict(a=r(m, c), w=r(f, c) / 10)
+        a32, k, n, x2_k = kw["a"], c, f, 0
+    got = gemm_wgmma(**kw)
+    want = gemm_wgmma_reference(
+        **{key: v.double() if torch.is_tensor(v) else v
+           for key, v in kw.items()})
+    err = ((got.double() - want).abs().max() / want.abs().max()).item()
+    del want
+    if not torch.equal(gemm_wgmma(**kw), got):
+        raise AssertionError(f"gemm_wgmma ({label}): two calls differ")
+    b = kw["w"].T
+    turns = [cuda_ms(lambda: gemm(a32, b), reps),
+             cuda_ms(lambda: a32 @ b, reps), cuda_ms(lambda: gemm_wgmma(**kw),
+                                                      reps)]
+    turns += [cuda_ms(lambda: gemm_wgmma(**kw), reps),
+              cuda_ms(lambda: a32 @ b, reps), cuda_ms(lambda: gemm(a32, b),
+                                                      reps)]
+    ms, mm_ms = (turns[2] + turns[3]) / 2, (turns[1] + turns[4]) / 2
+    tf32_ms = (turns[0] + turns[5]) / 2
+    ops = 2.0 * m * n * k
+    x2_ops = 2.0 * m * n * x2_k  # products of a bf16 source
+    size = nbytes(*kw.values(), got)
+    bound = max(x2_ops / (PEAK_TF32_FLOPS / 2)
+                + (ops - x2_ops) / (PEAK_TF32_FLOPS / 3),
+                size / PEAK_BYTES_PER_S) * 1e3
+    ok = err <= GEMM_REL_TOL and ms >= bound
+    log(f"gemm_wgmma {label:16s} {form:6s} [{m},{k}]x[{k},{n}] "
+        f"rel_err={err:.2e} (tol {GEMM_REL_TOL}) ms={ms:.4f} "
+        f"({ops / ms / 1e9:.1f} TFLOP/s) gemm_tf32_ms={tf32_ms:.4f} "
+        f"({ops / tf32_ms / 1e9:.1f}) matmul_ms={mm_ms:.4f} "
+        f"({ops / mm_ms / 1e9:.1f}) bound_ms={bound:.4f} "
+        f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"gemm_wgmma ({label}): rel_err={err}, ms={ms} "
+                             f"against bound {bound}")
+    return dict(m=m, k=k, n=n, form=form, rel_err=err, ms=ms,
+                gemm_tf32_ms=tf32_ms, matmul_ms=mm_ms, bound_ms=bound,
+                tflops=ops / ms / 1e9, gemm_tf32_tflops=ops / tf32_ms / 1e9,
+                matmul_tflops=ops / mm_ms / 1e9)
+
+
+def gemm_phase(batch: int, device, reps: int,
+               wgmma_only: bool = False) -> dict:
     """The 3xTF32 GEMM alone at each shape kernels B and A give it: the
     error of it and of ``torch.matmul`` (fp32, TF32 off) against the fp64
-    product, their times in turns, and the bound at the 3xTF32 rate. One
-    log line per shape; not part of the result line."""
+    product, their times in turns, and the bound at the 3xTF32 rate; then
+    the wgmma product of B's and H's bf16 forwards at their forms
+    (``wgmma_line``). One log line per shape; not part of the result
+    line. ``wgmma_only``: the wgmma lines alone."""
     import torch
 
     from emip_tpu_torch.kernels.gemm import gemm
 
-    r = seeded_randn(SEED + 21, device)
     out = {}
+    r = seeded_randn(SEED + 22, device)
+    for label, m, c, f, form in wgmma_shapes(batch):
+        out["wgmma " + label] = wgmma_line(r, label, m, c, f, form, reps)
+    if wgmma_only:
+        return out
+    r = seeded_randn(SEED + 21, device)
     for label, m, k, n, form in gemm_shapes(batch):
         if form == "x W^T":
             a, b = r(m, k), r(n, k).T
@@ -2053,8 +2165,9 @@ def bf16_check_cases(device):
     """bf16 cases held and timed like bf16_kernel_cases' but kept out of
     their rows' sums, from a generator of their own: A, C and D at their
     512^2 shapes (4 clips), F with every slot empty (the plain mean of the
-    values) at a ragged size, G without the residual, J's checks, and A at
-    pvt_v2_b0's head width (its stage 3 at 352^2, batch 8)."""
+    values) at a ragged size, G without the residual, J's checks, A at
+    pvt_v2_b0's head width (its stage 3 at 352^2, batch 8), and B and H at
+    b0's GMFlow width (352^2 and 512^2 windows, masked)."""
     import torch
 
     from emip_tpu_torch import kernels as K
@@ -2104,6 +2217,24 @@ def bf16_check_cases(device):
                   K.fused_sr_attention, K.fused_sr_attention_reference,
                   (x.to(bf), kv.to(bf), wq.to(bf), bq, wkv.to(bf), bkv,
                    wp.to(bf), bp, heads)))
+    # B and H at b0's GMFlow width (C 64, F 512: the wgmma product's 64-column
+    # tiles), drawn after A's so that the cases above keep their inputs
+    c, f = 64, 512
+    x, t = r(BATCH, 4, 484, c).to(bf), r(BATCH, 4, 484, c).to(bf)
+    sp, cp = window_params(r, c, f)
+    cases.append(("window_attention_block_bf16",
+                  f"b0 [{BATCH},4,484,{c}] shifted mask",
+                  K.fused_window_attention_block,
+                  K.fused_window_attention_block_reference,
+                  (x, t, sp, cp,
+                   shifted_window_mask(44, 44, 2, device=device))))
+    x, t = r(2, 4, 1024, c).to(bf), r(2, 4, 1024, c).to(bf)
+    _, cp = window_params(r, c, f)
+    cases.append(("window_attention_ffn_layer_bf16",
+                  f"b0 [2,4,1024,{c}] shifted mask",
+                  K.fused_window_attention_ffn_layer,
+                  K.fused_window_attention_ffn_layer_reference,
+                  (x, t, cp, shifted_window_mask(64, 64, 2, device=device))))
     return cases
 
 
@@ -5045,6 +5176,10 @@ def main(argv=None) -> int:
                          "the comma-separated NAMES; prints no result line")
     opts = ap.parse_args(argv)
 
+    # keep CUPTI set up between the script's several hundred profiler
+    # sessions (torch's own setting where it profiles CUDA graphs, whose
+    # re-initialisation after a teardown it does not trust)
+    os.environ.setdefault("TEARDOWN_CUPTI", "0")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -5079,6 +5214,8 @@ def main(argv=None) -> int:
             bf16_kernel_phase(BATCH, device, KERNEL_REPS, opts.kernels)
         if wanted(opts.kernels, "gemm"):
             gemm_phase(BATCH, device, KERNEL_REPS)
+        elif wanted(opts.kernels, "gemm_wgmma"):
+            gemm_phase(BATCH, device, KERNEL_REPS, wgmma_only=True)
         if wanted(opts.kernels, "attention_fwd"):
             attention_phase(BATCH, device, KERNEL_REPS)
         kernel_phase(BATCH, device, KERNEL_REPS, opts.kernels)

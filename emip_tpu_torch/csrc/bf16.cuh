@@ -18,15 +18,14 @@
 //                    register, the lower index in the lower half: P of an
 //                    attention, from its accumulator fragments, as the A
 //                    operand of P v.
-//   layernorm_self_bf16, layernorm_out_bf16
-//                    the two LayerNorms of kernel B's bf16 block that round
+//   layernorm_self_bf16
+//                    the LayerNorm of kernel B's bf16 self layer, rounded
 //                    where the JAX kernel rounds (see window_attention.cu);
-//                    the first also ends kernel G's bf16 forward, with or
-//                    without the residual, into a bf16 output.
-//   bf16_to_f32      an elementwise upcast (B's cross layer reads t in
-//                    fp32, as the JAX kernel upcasts it; the bf16
-//                    backwards of G and H upcast their inputs to
-//                    recompute).
+//                    it also ends kernel G's bf16 forward, with or without
+//                    the residual, into a bf16 output (B's output LayerNorm
+//                    is the epilogue of its W2 product, gemm_wgmma.cuh).
+//   bf16_to_f32      an elementwise upcast (the bf16 backwards of G and H
+//                    upcast their inputs to recompute).
 //   f32_to_bf16      an elementwise rounding (those backwards round their
 //                    grads once, at the end).
 
@@ -124,36 +123,6 @@ layernorm_self_bf16_kernel(const float* __restrict__ x,
   }
 }
 
-// out[r, c] = bf16(res[r, c] + LN(x[r]) gamma + beta), res fp32 (leading
-// dimension ldr): B's output, rounded once at the end as the JAX kernel
-// rounds it.
-__global__ void __launch_bounds__(32 * kLnRowsPerBlock)
-layernorm_out_bf16_kernel(const float* __restrict__ x,
-                          const float* __restrict__ res, int ldr,
-                          const float* __restrict__ gamma,
-                          const float* __restrict__ beta,
-                          __nv_bfloat16* __restrict__ out, int rows, int C,
-                          float eps) {
-  const int lane = threadIdx.x % 32;
-  const int row = blockIdx.x * kLnRowsPerBlock + threadIdx.x / 32;
-  if (row >= rows) return;
-  const float* xr = x + (long long)row * C;
-  float s = 0.f;
-  for (int c = lane; c < C; c += 32) s += xr[c];
-  const float mu = warp_sum(s) / C;
-  float v = 0.f;
-  for (int c = lane; c < C; c += 32) {
-    const float d = xr[c] - mu;
-    v += d * d;
-  }
-  const float inv = rsqrtf(warp_sum(v) / C + eps);
-  const float* rr = res + (long long)row * ldr;
-  bf16* orow = out + (long long)row * C;
-  for (int c = lane; c < C; c += 32)
-    orow[c] = __float2bfloat16_rn(rr[c] +
-                                  ((xr[c] - mu) * inv * gamma[c] + beta[c]));
-}
-
 template <typename OUT>
 inline cudaError_t layernorm_self_bf16(const float* x, const bf16* res,
                                        const float* gamma, const float* beta,
@@ -163,16 +132,6 @@ inline cudaError_t layernorm_self_bf16(const float* x, const bf16* res,
   layernorm_self_bf16_kernel<OUT>
       <<<blocks, 32 * kLnRowsPerBlock, 0, stream>>>(x, res, gamma, beta, out,
                                                     ldo, rows, C, eps);
-  return cudaGetLastError();
-}
-
-inline cudaError_t layernorm_out_bf16(const float* x, const float* res,
-                                      int ldr, const float* gamma,
-                                      const float* beta, bf16* out, int rows,
-                                      int C, float eps, cudaStream_t stream) {
-  const int blocks = ceil_div(rows, kLnRowsPerBlock);
-  layernorm_out_bf16_kernel<<<blocks, 32 * kLnRowsPerBlock, 0, stream>>>(
-      x, res, ldr, gamma, beta, out, rows, C, eps);
   return cudaGetLastError();
 }
 

@@ -1,10 +1,12 @@
-// The 3xTF32 GEMM of gemm_tf32.cuh as an entry point of its own, so that it
+// The 3xTF32 GEMM of gemm_tf32.cuh, the bf16 GEMM of gemm_bf16.cuh and the
+// wgmma product of gemm_wgmma.cuh as entry points of their own, so that they
 // can be held against torch.matmul and timed alone at the shapes kernels A,
-// B, G and H give it (kernels/gemm.py). No model path calls it: there the
-// GEMM runs inside those kernels' entry points.
+// B, G and H give them (kernels/gemm.py). No model path calls them: there
+// the products run inside those kernels' entry points.
 
 #include "gemm_bf16.cuh"
 #include "gemm_tf32.cuh"
+#include "gemm_wgmma.cuh"
 
 // C [M, N] (row stride ldc) = A . B (+ bias [N]), A(m, k) at A[m * sam + k
 // * sak], B(k, n) at B[k * sbk + n * sbn]; one stride of each operand must
@@ -42,6 +44,49 @@ extern "C" int emip_gemm_bf16(const void* A, long long lda, const void* W,
   cudaError_t err = linear_bf16(
       static_cast<const bf16*>(A), lda, static_cast<const bf16*>(W), ldw,
       bias, C, ldc, M, N, K, out_bf16 != 0, static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The wgmma product of gemm_wgmma.cuh alone (B's and H's bf16 forwards):
+// w [N, K] fp32 is split into wsplit [2N, K] (one launch), then out [M, N]
+// (row stride ldo) = epi(a0 w^T) for epi 0 (none) or 2 (LayerNorm with
+// gamma, beta: N = 64 or 128), fp32 a0; with a1 along K (k1 > 0), out =
+// gelu(a0 w[:, :k0]^T + a1 w[:, k0:]^T) for bf16 a0 and fp32 a1 (epi 1);
+// along N (n_switch < N), out = [a0 | a1 | ..] w^T, columns at or past
+// n_switch from a1, both bf16 (epi 0). a0, a1 row-major with leading
+// dimensions lda0, lda1 (elements).
+extern "C" int emip_gemm_wgmma(const void* a0, long long lda0, int k0,
+                               const void* a1, long long lda1, int k1,
+                               int n_switch, int a_bf16, const float* w,
+                               float* wsplit, int M, int N, int epi,
+                               const float* gamma, const float* beta,
+                               float* out, long long ldo, float eps,
+                               void* stream) {
+  using namespace emip;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long nk = (long long)N * (k0 + k1);
+  WgSplitArgs sa;
+  sa.seg[0] = WgSplitSeg{w, wsplit, wsplit + nk, nk};
+  cudaError_t err = wg_split_weights(sa, 1, s);
+  if (err != cudaSuccess) return (int)err;
+  const WgSource s0{a0, lda0, k0}, s1{a1, lda1, k1};
+  const WgEpilogue e{gamma, beta, nullptr, 0, eps};
+  if (a_bf16 == 0 && !a1 && epi == kWgEpiNone)
+    err = wg_linear<float, float, kWgEpiNone>(s0, s1, N, wsplit, M, N, 128,
+                                              out, ldo, e, s);
+  else if (a_bf16 == 0 && !a1 && epi == kWgEpiLn)
+    err = wg_linear<float, float, kWgEpiLn>(s0, s1, N, wsplit, M, N, N, out,
+                                            ldo, e, s);
+  else if (a_bf16 == 1 && a1 && n_switch >= N && epi == kWgEpiGelu)
+    err = wg_linear<uint16_t, float, kWgEpiGelu>(s0, s1, N, wsplit, M, N,
+                                                 128, out, ldo, e, s);
+  else if (a_bf16 == 3 && a1 && n_switch < N && epi == kWgEpiNone)
+    err = wg_linear<uint16_t, uint16_t, kWgEpiNone>(
+        s0, s1, n_switch, wsplit, M, N, n_switch % 128 ? 64 : 128, out, ldo,
+        e, s);
+  else
+    err = cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,10 @@
 // The GEMM of kernels A, B, G and H on the tensor cores, as 3xTF32
-// (fp32-grade: the products of mma_tf32.cuh).
+// (fp32-grade: the products of mma_tf32.cuh), on mma.sync. Its callers: the
+// fp32 forwards of B, G and H, A's GEMMs, and every backward (the bf16
+// backwards' fp32 recompute included). B's and H's bf16 forwards run their
+// x W^T products on wgmma instead (gemm_wgmma.cuh); the products here that
+// read an operand M- or N-major (input and weight grads) need a transposed
+// staging before TF32 wgmma can take them.
 //
 //   gemm            C[M,N] (+)= A[M,K] . B[K,N] (+ bias[N]), with both
 //                   operands addressed through two strides, so a torch

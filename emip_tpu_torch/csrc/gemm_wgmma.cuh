@@ -1,0 +1,605 @@
+// The forward product of kernels B and H in the bf16 band on Hopper's
+// warpgroup tensor cores: y = epilogue(sum_s A_s W_s^T) as 3xTF32, the
+// products of _block_kernel (after its self layer) and _ffn_kernel of
+// emip_tpu/ops/pallas/window_attention.py: the cross layer's q, k, v
+// projections and its merge Wm, and the FFN's [x, msg] W0 and u W2.
+//
+//   wg_linear       A_s [M, K_s] row-major (leading dimension of its own;
+//                   fp32, or bf16 read as it lies), W an nn.Linear weight
+//                   [N, K] split once per call into its TF32 halves
+//                   (wg_split_weights: [2N, K], hi rows then lo rows).
+//                   Two sources either follow each other along K (W0:
+//                   x or x1 over W0's first C columns, then msg over the
+//                   last C, summed in the order of the K tiles, no concat
+//                   buffer) or share K and split the columns (q from x, k
+//                   and v from t: one launch over the stacked [Wq; Wk; Wv]).
+//                   Epilogues: none; exact GELU (W0); a row LayerNorm where
+//                   one block's column tile holds the whole row (N = C: Wm
+//                   into msg); the same LayerNorm plus a bf16 residual and
+//                   one rounding to bf16 (W2: out = bf16(x + LN2(z))).
+//
+// What bounds it: operations, 2 M N K per product, taken as three TF32
+// products (a.lo b.hi + a.hi b.lo + a.hi b.hi, the small terms first, as
+// mma_3xtf32 of mma_tf32.cuh), two where A is exact in TF32 (a bf16 value
+// is: its low half is zero, so a.lo b.hi adds +0 and is left out, as
+// A_EXACT leaves it out there). Only wgmma reaches the card's full
+// tensor-core rate, and TF32 wgmma takes both operands K-major; the
+// forward's x W^T is K-major on both sides (A rows along K, W rows along
+// K), so it is here. The input and weight grads read one operand M- or
+// N-major and stay on mma.sync in gemm_tf32.cuh until a transposed staging
+// exists.
+//
+// Design. A block is one producer warp and WG consumer warpgroups (WG = 2:
+// 128 rows; 1: 64 rows, where 128-row tiles would leave SMs idle) over a
+// BN-column tile (BN = 128, or 64 where C = 64). The producer keeps a ring
+// of four stages filled by TMA (cp.async.bulk.tensor, one mbarrier per
+// stage for the bytes and one for the consumers' release): each stage
+// holds a K tile of 32 of A (fp32 rows of 128 bytes, 128-byte swizzle;
+// bf16 rows of 64 bytes, 64-byte swizzle, half the bytes) and of W_hi and
+// W_lo (128-byte swizzle, the layout the wgmma descriptors read). A
+// consumer warpgroup reads its 64 rows of A from shared memory into the
+// wgmma register fragments (the swizzles put the eight rows of a fragment
+// on different banks), splits fp32 values into their TF32 halves with
+// tf32_split, widens bf16 by a shift, and issues wgmma.m64nBNk8.tf32 with
+// A from registers and W from shared memory. The tensor core truncates as
+// it accumulates, so each K tile's products go to an accumulator of their
+// own (scale-d 0 on the tile's first product), which an fp32 add folds into
+// the running sum, as gemm_tf32.cuh does: the error of a sum over K = 1024
+// stays at fp32 grade. A thread holds 2 x BN / 2 accumulators: the
+// LayerNorm of a row is a sum over a thread's values and two shuffles in
+// its quad. Each k-step's products are a wgmma group of their own, so that
+// the next k-step's fragments are read while they run and only two
+// fragment sets are live: with two consumer warpgroups and the producer
+// warp (nine warps, three on some sub-partition) a thread has 168
+// registers, which the fp32 LayerNorm instantiations overrun by 4 bytes of
+// spill (raising the consumers to 232 by setmaxnreg removed the spill and
+// left the time as it was, so the simpler form stays). Ragged M, N and K
+// tiles are zero-filled by TMA and the stores are masked. Rows must start
+// 16-byte aligned (leading dimensions of 4 floats or 8 bf16): the wrapper
+// refuses others, there is no other path. No atomics: a second call gives
+// the same bits.
+
+#pragma once
+
+#include <cuda.h>
+#include <stdint.h>
+
+#include "bf16.cuh"
+
+namespace emip {
+namespace {
+
+constexpr int kWgBK = 32;  // K tile: 32 fp32, 128 bytes
+constexpr int kWgStages = 4;
+
+enum { kWgEpiNone = 0, kWgEpiGelu = 1, kWgEpiLn = 2, kWgEpiLnOut = 3 };
+
+// One launch's operands and epilogue: TMA maps of the two A sources and of
+// the split weight [2N, k0 + k1] (lo rows from w_lo = N); columns at or past
+// n_switch read a[1] over k0 (k1 = 0), else k1 > 0 puts a[1] after a[0]
+// along K. out [M, N] (leading dimension ldo): fp32, or bf16 for
+// kWgEpiLnOut; gamma, beta [N] for the LayerNorms; res [M, N] bf16 (ldres)
+// for kWgEpiLnOut.
+struct WgArgs {
+  CUtensorMap a[2];
+  CUtensorMap w;
+  int M, N, k0, k1, n_switch, w_lo;
+  void* out;
+  long long ldo;
+  const float* gamma;
+  const float* beta;
+  float eps;
+  const __nv_bfloat16* res;
+  long long ldres;
+};
+
+template <int BN, int WG>
+struct WgPlan {
+  static constexpr int kBM = 64 * WG;
+  static constexpr int kABytes = kBM * kWgBK * 4;  // fp32; bf16 uses half
+  static constexpr int kWBytes = BN * kWgBK * 4;   // one of W_hi, W_lo
+  static constexpr int kStage = kABytes + 2 * kWBytes;
+  static constexpr int kThreads = 128 * WG + 32;  // and one producer warp
+  // the tiles, the barriers, and room to align the ring to 1024 bytes
+  static constexpr size_t kBytes =
+      (size_t)kWgStages * kStage + 2 * kWgStages * 8 + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+      "selp.b32 %0, 1, 0, P1;\n"
+      "}"
+      : "=r"(done)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// until the phase of parity `parity` has completed; a wait of 2^35 clocks
+// (over 15 s) traps: a lost arrival faults the launch instead of hanging it
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - t0 > (1LL << 35)) __trap();
+}
+
+// a box of the map at (inner c0, outer c1) into dst, its bytes reported to
+// bar; out-of-range elements arrive as zeros
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+// until at most N committed groups of this warpgroup are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving reads or writes of the accumulators across
+// the asynchronous products
+template <int N>
+__device__ __forceinline__ void wg_fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The descriptor of a K-major tile of 8-row groups 1024 bytes apart, rows
+// of 128 bytes in the 128-byte swizzle (the TMA layout of W_hi, W_lo); a
+// k-step of 8 TF32 values starts 32 bytes further (+2 in 16-byte units).
+__device__ __forceinline__ uint64_t wg_desc(const void* tile) {
+  return (uint64_t)((smem_u32(tile) & 0x3FFFF) >> 4) | (1ull << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+#define EMIP_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define EMIP_D16(i) EMIP_D4(i), EMIP_D4(i + 4), EMIP_D4(i + 8), EMIP_D4(i + 12)
+
+// d[64, BN] (+)= a[64, 8] . B[BN, 8]^T, tf32 in, fp32 accumulators; a from
+// registers in mma.m16n8k8's A layout per warp (rows 16 w + g, + 8; k t,
+// t + 4), B by descriptor; scale_d 0 overwrites d. Accumulator j of
+// thread (warp w, g, t): row 16 w + g + 8 ((j / 2) % 2), column 8 (j / 4)
+// + 2 t + j % 2.
+template <int BN>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[BN / 2],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<128>(float (&d)[64],
+                                                const uint32_t (&a)[4],
+                                                uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}"
+      : EMIP_D16(0), EMIP_D16(16), EMIP_D16(32), EMIP_D16(48)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<64>(float (&d)[32],
+                                               const uint32_t (&a)[4],
+                                               uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}"
+      : EMIP_D16(0), EMIP_D16(16)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+#undef EMIP_D16
+#undef EMIP_D4
+
+// Element (r, k) of a staged A tile: fp32 rows of 32 in the 128-byte
+// swizzle (16-byte chunk k / 4 moved to (k / 4) ^ (r % 8)), bf16 rows of 32
+// in the 64-byte swizzle (chunk k / 8 to (k / 8) ^ ((r / 2) % 4)).
+template <typename T>
+__device__ __forceinline__ int wg_a_index(int r, int k) {
+  if constexpr (kBf16<T>)
+    return r * kWgBK + ((((k >> 3) ^ (r >> 1)) & 3) << 3) + (k & 7);
+  else
+    return r * kWgBK + ((((k >> 2) ^ r) & 7) << 2) + (k & 3);
+}
+
+// One K tile of a consumer warpgroup: part = the tile's products (scale-d 0
+// on its first), three TF32 terms a fragment pair, two for an exact A. Each
+// k-step's products are a group of their own: the fragments of k-step s + 1
+// are read and split while group s runs, and a fragment set is reused once
+// its group is done (wait_group 1), so two sets are live.
+template <typename TA, int BN>
+__device__ __forceinline__ void wg_tile(float (&part)[BN / 2],
+                                        const unsigned char* a_stage,
+                                        const unsigned char* w_hi,
+                                        const unsigned char* w_lo, int warp,
+                                        int g, int t) {
+  constexpr bool kExactA = kBf16<TA>;
+  const TA* A = reinterpret_cast<const TA*>(a_stage);
+  const int r0 = 16 * warp + g;
+  const uint64_t dh = wg_desc(w_hi), dl = wg_desc(w_lo);
+  wg_fence_regs(part);
+#pragma unroll
+  for (int ks = 0; ks < kWgBK / 8; ++ks) {
+    const int k = 8 * ks + t;
+    uint32_t hi[4], lo[4];
+    split_as(A[wg_a_index<TA>(r0, k)], hi[0], lo[0]);
+    split_as(A[wg_a_index<TA>(r0 + 8, k)], hi[1], lo[1]);
+    split_as(A[wg_a_index<TA>(r0, k + 4)], hi[2], lo[2]);
+    split_as(A[wg_a_index<TA>(r0 + 8, k + 4)], hi[3], lo[3]);
+    wgmma_fence();
+    if constexpr (!kExactA) wgmma_tf32<BN>(part, lo, dh + 2 * ks, ks);
+    wgmma_tf32<BN>(part, hi, dl + 2 * ks, kExactA ? ks : 1);
+    wgmma_tf32<BN>(part, hi, dh + 2 * ks, 1);
+    wgmma_commit();
+    if (ks > 0) wgmma_wait<1>();
+  }
+  wgmma_wait<0>();
+  wg_fence_regs(part);
+}
+
+template <typename TA0, typename TA1, int BN, int WG, int EPI>
+__global__ void __launch_bounds__(WgPlan<BN, WG>::kThreads, 1)
+wg_gemm_kernel(const __grid_constant__ WgArgs g) {
+  using P = WgPlan<BN, WG>;
+  static_assert(std::is_same_v<TA0, float> || kBf16<TA0>, "fp32 or bf16");
+  static_assert(std::is_same_v<TA1, float> || kBf16<TA1>, "fp32 or bf16");
+  extern __shared__ unsigned char wg_smem_raw[];
+  const uint32_t raw = smem_u32(wg_smem_raw);
+  unsigned char* ring = wg_smem_raw + (((raw + 1023) & ~1023u) - raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kWgStages * P::kStage);
+  uint64_t* empty = full + kWgStages;
+
+  const int row0 = blockIdx.y * P::kBM, col0 = blockIdx.x * BN;
+  // along N a column tile reads one source over k0; along K source 0's
+  // tiles come first, then source 1's
+  const bool along_k = g.k1 > 0;
+  const int src_n = (!along_k && col0 >= g.n_switch) ? 1 : 0;
+  const int tiles0 = (g.k0 + kWgBK - 1) / kWgBK;
+  const int tiles1 = along_k ? (g.k1 + kWgBK - 1) / kWgBK : 0;
+  const int tiles = tiles0 + tiles1;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * WG);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128 * WG) {  // the producer warp
+    if (threadIdx.x != 128 * WG) return;
+    for (int kt = 0; kt < tiles; ++kt) {
+      const int s = kt % kWgStages;
+      if (kt >= kWgStages)
+        mbar_wait(&empty[s], ((kt / kWgStages) + 1) & 1);
+      const bool second = kt >= tiles0;
+      const int src = along_k ? (second ? 1 : 0) : src_n;
+      const bool a16 = src ? kBf16<TA1> : kBf16<TA0>;
+      const int ka = (second ? kt - tiles0 : kt) * kWgBK;  // in the source
+      const int kw = kt * kWgBK;  // in W (tiles0 whole tiles: k0 % 32 == 0)
+      unsigned char* st = ring + s * P::kStage;
+      mbar_expect_tx(&full[s], (a16 ? P::kABytes / 2 : P::kABytes) +
+                                   2 * P::kWBytes);
+      tma_load_2d(st, &g.a[src], &full[s], ka, row0);
+      tma_load_2d(st + P::kABytes, &g.w, &full[s], kw, col0);
+      tma_load_2d(st + P::kABytes + P::kWBytes, &g.w, &full[s], kw,
+                  g.w_lo + col0);
+    }
+    return;
+  }
+
+  const int wg = threadIdx.x / 128, tw = threadIdx.x % 128;
+  const int warp = tw / 32, lane = tw % 32, gq = lane / 4, tq = lane % 4;
+  float acc[BN / 2], part[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+
+  auto consume = [&](auto tag, int kt) {
+    using TA = decltype(tag);
+    const int s = kt % kWgStages;
+    mbar_wait(&full[s], (kt / kWgStages) & 1);
+    const unsigned char* st = ring + s * P::kStage;
+    wg_tile<TA, BN>(part, st + wg * 64 * kWgBK * sizeof(TA),
+                    st + P::kABytes, st + P::kABytes + P::kWBytes, warp, gq,
+                    tq);
+    if (lane == 0) mbar_arrive(&empty[s]);
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] += part[i];
+  };
+  if (src_n == 0) {
+    for (int kt = 0; kt < tiles0; ++kt) consume(TA0{}, kt);
+  } else {
+    for (int kt = 0; kt < tiles0; ++kt) consume(TA1{}, kt);
+  }
+  for (int kt = tiles0; kt < tiles; ++kt) consume(TA1{}, kt);
+
+  // rows r0 (h = 0) and r0 + 8 (h = 1); columns col0 + 8 j + 2 tq, + 1
+  const int r0 = row0 + 64 * wg + 16 * warp + gq;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 8 * h;
+    float mu = 0.f, inv = 0.f;
+    if constexpr (EPI == kWgEpiLn || EPI == kWgEpiLnOut) {
+      float s = 0.f;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+        s += acc[4 * j + 2 * h] + acc[4 * j + 2 * h + 1];
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      s += __shfl_xor_sync(0xffffffffu, s, 2);
+      mu = s / BN;
+      float v = 0.f;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float dlt = acc[4 * j + 2 * h + c] - mu;
+          v += dlt * dlt;
+        }
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      inv = rsqrtf(v / BN + g.eps);
+    }
+    if (r >= g.M) continue;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = col0 + 8 * j + 2 * tq;
+      if (col >= g.N) continue;
+      float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+      if constexpr (EPI == kWgEpiGelu) {
+        v0 = gelu_exact(v0);
+        v1 = gelu_exact(v1);
+      } else if constexpr (EPI == kWgEpiLn || EPI == kWgEpiLnOut) {
+        v0 = (v0 - mu) * inv * g.gamma[col] + g.beta[col];
+        v1 = (v1 - mu) * inv * g.gamma[col + 1] + g.beta[col + 1];
+      }
+      if constexpr (EPI == kWgEpiLnOut) {
+        const __nv_bfloat162 x2 = *reinterpret_cast<const __nv_bfloat162*>(
+            g.res + (long long)r * g.ldres + col);
+        *reinterpret_cast<__nv_bfloat162*>(
+            static_cast<__nv_bfloat16*>(g.out) + (long long)r * g.ldo + col) =
+            __floats2bfloat162_rn(__low2float(x2) + v0,
+                                  __high2float(x2) + v1);
+      } else {
+        *reinterpret_cast<float2*>(static_cast<float*>(g.out) +
+                                   (long long)r * g.ldo + col) =
+            make_float2(v0, v1);
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------ host side
+
+// cuTensorMapEncodeTiled, looked up through the runtime's entry-point query
+// (the library links no libcuda)
+using WgEncodeFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+inline WgEncodeFn wg_encoder() {
+  static const WgEncodeFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<WgEncodeFn>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A row-major [rows, cols] operand (leading dimension ld, in elements) in
+// boxes of [box_rows, 32 elements]: fp32 in the 128-byte swizzle, bf16 in
+// the 64-byte one.
+inline cudaError_t wg_map(CUtensorMap* map, const void* p, bool bf16,
+                          long long rows, long long cols, long long ld,
+                          int box_rows) {
+  const WgEncodeFn encode = wg_encoder();
+  const int elem = bf16 ? 2 : 4;
+  if (!encode) return cudaErrorNotSupported;
+  if (reinterpret_cast<uintptr_t>(p) % 16 || (ld * elem) % 16 || rows < 1 ||
+      cols < 1 || ld < cols)
+    return cudaErrorInvalidValue;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)(ld * elem)};
+  const cuuint32_t box[2] = {(cuuint32_t)kWgBK, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = encode(
+      map,
+      bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+           : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+      2, const_cast<void*>(p), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      bf16 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// An A source: p [M, k] row-major with leading dimension ld (elements).
+struct WgSource {
+  const void* p;
+  long long ld;
+  int k;
+};
+
+// What the epilogue reads (null where it reads nothing).
+struct WgEpilogue {
+  const float* gamma;
+  const float* beta;
+  const __nv_bfloat16* res;
+  long long ldres;
+  float eps;
+};
+
+// Splits up to six fp32 weights into their TF32 halves: seg i's n values
+// of src go to hi[0..n) (tf32 rounded) and lo[0..n) (the fp32 rest, which
+// the tensor core truncates), as tf32_split splits a fragment.
+struct WgSplitSeg {
+  const float* src;
+  float* hi;
+  float* lo;
+  long long n;
+};
+struct WgSplitArgs {
+  WgSplitSeg seg[6];
+};
+
+__global__ void wg_split_kernel(WgSplitArgs a) {
+  const WgSplitSeg s = a.seg[blockIdx.y];
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < s.n; i += (long long)gridDim.x * blockDim.x) {
+    uint32_t hi, lo;
+    tf32_split(s.src[i], hi, lo);
+    s.hi[i] = __uint_as_float(hi);
+    s.lo[i] = __uint_as_float(lo);
+  }
+}
+
+inline cudaError_t wg_split_weights(const WgSplitArgs& a, int count,
+                                    cudaStream_t stream) {
+  long long most = 0;
+  for (int i = 0; i < count; ++i) most = a.seg[i].n > most ? a.seg[i].n : most;
+  if (count < 1 || count > 6 || most == 0) return cudaErrorInvalidValue;
+  const int blocks = (int)(most < 256LL * 256 ? (most + 255) / 256 : 256);
+  wg_split_kernel<<<dim3(blocks, count), 256, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename TA0, typename TA1, int BN, int WG, int EPI>
+cudaError_t wg_launch(const WgArgs& g, cudaStream_t stream) {
+  using P = WgPlan<BN, WG>;
+  // set once per instantiation, not per launch (one card per process)
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      wg_gemm_kernel<TA0, TA1, BN, WG, EPI>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P::kBytes);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid(ceil_div(g.N, BN), ceil_div(g.M, P::kBM));
+  wg_gemm_kernel<TA0, TA1, BN, WG, EPI>
+      <<<grid, P::kThreads, P::kBytes, stream>>>(g);
+  return cudaGetLastError();
+}
+
+// out = epilogue(a0 W^T) over N columns, or with a1: along N (n_switch <
+// N) columns at or past n_switch from a1 over the same k0 (a1.k unread),
+// else along K out = epilogue(a0 W[:, :k0]^T + a1 W[:, k0:]^T). TA0,
+// TA1: float, or uint16_t for bf16 bits. wsplit: W [N, K] split by
+// wg_split_weights into [2N, K] (K = k0 + a1.k). bn: 128, or 64 (the
+// LayerNorm epilogues need bn = N, the split along N n_switch % bn = 0).
+template <typename TA0, typename TA1, int EPI>
+cudaError_t wg_linear(WgSource a0, WgSource a1, int n_switch,
+                      const float* wsplit, int M, int N, int bn, void* out,
+                      long long ldo, WgEpilogue e, cudaStream_t stream) {
+  const bool along_k = a1.p && n_switch >= N;
+  const int kw = a0.k + (along_k ? a1.k : 0);
+  if (M == 0 || N == 0) return cudaSuccess;
+  if ((bn != 64 && bn != 128) || a0.k < 1 ||
+      (along_k && (a0.k % kWgBK || a1.k < 1)) ||
+      (a1.p && !along_k && n_switch % bn) || (!a1.p && n_switch < N) ||
+      ldo % 2 || N % 2 || kw % 4 ||
+      reinterpret_cast<uintptr_t>(out) % 8 ||
+      ((EPI == kWgEpiLn || EPI == kWgEpiLnOut) && N != bn) ||
+      (EPI == kWgEpiLnOut && (!e.res || e.ldres % 2)) ||
+      ((EPI == kWgEpiLn || EPI == kWgEpiLnOut) && (!e.gamma || !e.beta)))
+    return cudaErrorInvalidValue;
+  // two warpgroups (128 rows) where that fills the card, else one
+  const bool two = (long long)ceil_div(M, 128) * ceil_div(N, bn) >= kSmCount;
+  const int bm = two ? 128 : 64;
+  WgArgs g;
+  cudaError_t err;
+  if ((err = wg_map(&g.a[0], a0.p, kBf16<TA0>, M, a0.k, a0.ld, bm)) !=
+      cudaSuccess)
+    return err;
+  if (a1.p) {
+    if ((err = wg_map(&g.a[1], a1.p, kBf16<TA1>, M, along_k ? a1.k : a0.k,
+                      a1.ld, bm)) != cudaSuccess)
+      return err;
+  } else {
+    g.a[1] = g.a[0];
+  }
+  if ((err = wg_map(&g.w, wsplit, false, 2LL * N, kw, kw, bn)) != cudaSuccess)
+    return err;
+  g.M = M;
+  g.N = N;
+  g.k0 = a0.k;
+  g.k1 = along_k ? a1.k : 0;
+  g.n_switch = a1.p && !along_k ? n_switch : N;
+  g.w_lo = N;
+  g.out = out;
+  g.ldo = ldo;
+  g.gamma = e.gamma;
+  g.beta = e.beta;
+  g.eps = e.eps;
+  g.res = e.res;
+  g.ldres = e.ldres;
+  if (bn == 128)
+    return two ? wg_launch<TA0, TA1, 128, 2, EPI>(g, stream)
+               : wg_launch<TA0, TA1, 128, 1, EPI>(g, stream);
+  return two ? wg_launch<TA0, TA1, 64, 2, EPI>(g, stream)
+             : wg_launch<TA0, TA1, 64, 1, EPI>(g, stream);
+}
+
+}  // namespace
+}  // namespace emip

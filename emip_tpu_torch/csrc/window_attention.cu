@@ -18,7 +18,8 @@
 //
 // What bounds them on the card: arithmetic. The projections and the FFN
 // (256 -> 1024 -> 128) are ~85% of B's FLOPs and run as the shared 3xTF32
-// GEMM on the tensor cores (gemm_tf32.cuh) over all B*K*K*T rows at once;
+// GEMM on the tensor cores (gemm_tf32.cuh; in the bf16 forwards of B and H
+// the wgmma product of gemm_wgmma.cuh) over all B*K*K*T rows at once;
 // the attention forward is attention_fwd_tc of mma_tf32.cuh (3xTF32 on the
 // tensor cores; its tilings and where the shift mask is read in
 // attention.cu): a block owns 256 query rows of one window and streams
@@ -63,10 +64,19 @@
 // fp32 parameters, as the JAX kernels (_kernel / _kernel_rows, _ffn_kernel
 // / _ffn_kernel_rows) compute them with a bf16 storage dtype; they are the
 // two halves of B's bf16 forward below. G in bf16: q = bf16(x Wq), k, v =
-// bf16(t W) (the bf16 GEMM on the weights cast at use), the bf16 attention
-// (fp32 softmax, P rounded for P v), m = o Wm in fp32, out = bf16(x +
-// bf16(LN1(m))) or bf16(LN1(m)). H: x and t upcast, the fp32 3xTF32 layer
-// of the entry point above on the fp32 weights, the output rounded once.
+// bf16(t W) (the bf16 GEMM on the weights cast at use; k and v one launch
+// over both weights), the bf16 attention (fp32 softmax, P rounded for P v),
+// m = o Wm in fp32, out = bf16(x + bf16(LN1(m))) or bf16(LN1(m)). H: the
+// fp32 layer on the fp32 weights with x and t read as bf16 where they lie
+// (cross_ffn_bf16), the output rounded once.
+// cross_ffn_bf16 runs H's products on the wgmma product of gemm_wgmma.cuh
+// (3xTF32, two terms where A is bf16): the weights split into their TF32
+// halves once per call, q, k, v one launch (x and t bf16, two terms), the
+// 3xTF32 attention_fwd_tc, msg = LN1(o Wm^T) in Wm's epilogue, u =
+// gelu(x W0[:, :C]^T + msg W0[:, C:]^T) with W0 in JAX's two halves (x's
+// K tiles first, two terms, then msg's, three; no concat buffer), out =
+// bf16(x + LN2(u W2^T)) in W2's epilogue: 6 launches (7 where the
+// attention splits its keys), no upcast scratch.
 // Their bf16 backwards (the bf16 train step at 512^2) follow B's below:
 // the inputs and the gradient upcast, the layer recomputed in fp32 (the
 // forward's bf16 buffers are not the JAX backward's), the fp32 backward of
@@ -100,6 +110,7 @@
 #include "attention_fwd.cuh"
 #include "gemm_bf16.cuh"
 #include "gemm_tf32.cuh"
+#include "gemm_wgmma.cuh"
 
 // the tiling of the attention backward: warps, fragments of 16 resident
 // rows per warp, streamed rows per stage
@@ -331,6 +342,53 @@ cudaError_t block_bwd(const TX* x, const TT* t, LayerWeights w1,
                      nullptr, false, gx, true, gm, go, gqkv, eps, all, s);
 }
 
+// H's layer in the bf16 band (B's cross layer and FFN on its bf16 x1): out
+// = bf16(x + LN2(gelu([x, msg] W0^T) W2^T)), msg = LN1(message(x, t)),
+// every product on the wgmma product of gemm_wgmma.cuh. x, t, out [R, C]
+// bf16; the weights fp32, split into their TF32 halves in wsplit [8 C^2 + 6
+// C F]; fp32 buffers qkv [R, 3C], o, msg [R, C], u [R, F]; ws holds the
+// attention's key-split partials.
+cudaError_t cross_ffn_bf16(const bf16* x, const bf16* t, LayerWeights w,
+                           const float* s1, const float* b1, const float* w0,
+                           const float* w2, const float* s2, const float* b2,
+                           Windows d, int F, float* wsplit, float* qkv,
+                           float* o, float* msg, float* u, bf16* out,
+                           float eps, Workspace ws, cudaStream_t s) {
+  const int R = d.rows(), C = d.C, C3 = 3 * C;
+  const long long cc = (long long)C * C, cf = (long long)C * F;
+  float* sqkv = wsplit;      // [Wq; Wk; Wv]: hi [3C, C], then lo
+  float* sm = sqkv + 6 * cc;  // Wm [2C, C]
+  float* s0 = sm + 2 * cc;    // W0 [2F, 2C]
+  float* sw2 = s0 + 4 * cf;   // W2 [2C, F]
+  WgSplitArgs sa;
+  sa.seg[0] = WgSplitSeg{w.wq, sqkv, sqkv + 3 * cc, cc};
+  sa.seg[1] = WgSplitSeg{w.wk, sqkv + cc, sqkv + 4 * cc, cc};
+  sa.seg[2] = WgSplitSeg{w.wv, sqkv + 2 * cc, sqkv + 5 * cc, cc};
+  sa.seg[3] = WgSplitSeg{w.wm, sm, sm + cc, cc};
+  sa.seg[4] = WgSplitSeg{w0, s0, s0 + 2 * cf, 2 * cf};
+  sa.seg[5] = WgSplitSeg{w2, sw2, sw2 + cf, cf};
+  cudaError_t err;
+  EMIP_TRY(wg_split_weights(sa, 6, s));
+  const WgSource xs{x, C, C}, ts{t, C, C}, no{nullptr, 0, 0};
+  const WgEpilogue plain{nullptr, nullptr, nullptr, 0, eps};
+  // q from x, k and v from t: one launch over [Wq; Wk; Wv]
+  EMIP_TRY((wg_linear<uint16_t, uint16_t, kWgEpiNone>(
+      xs, ts, C, sqkv, R, C3, C, qkv, C3, plain, s)));
+  const long long wsb = (long long)d.T * C3;
+  EMIP_TRY((cudaError_t)emip_attention_fwd(
+      qkv, wsb, C3, qkv + C, wsb, C3, qkv + 2 * C, wsb, C3, d.mask, d.mask_nw,
+      o, (long long)d.T * C, C, nullptr, ws.p, ws.n, d.windows, 1, d.T, d.T,
+      C, 1, s));
+  EMIP_TRY((wg_linear<float, float, kWgEpiLn>(
+      WgSource{o, C, C}, no, C, sm, R, C, C, msg, C,
+      WgEpilogue{s1, b1, nullptr, 0, eps}, s)));
+  EMIP_TRY((wg_linear<uint16_t, float, kWgEpiGelu>(
+      xs, WgSource{msg, C, C}, F, s0, R, F, 128, u, F, plain, s)));
+  return wg_linear<float, float, kWgEpiLnOut>(
+      WgSource{u, F, F}, no, C, sw2, R, C, C, out, C,
+      WgEpilogue{s2, b2, x, C, eps}, s);
+}
+
 #undef EMIP_TRY
 
 }  // namespace
@@ -476,12 +534,12 @@ extern "C" int emip_window_layer_bf16(
   const bf16* tb = static_cast<const bf16*>(t);
   bf16* qkvb = static_cast<bf16*>(qkv);
   cudaError_t err;
+  const bf16* const wkv[2] = {static_cast<const bf16*>(wk),
+                              static_cast<const bf16*>(wv)};
   EMIP_TRY(linear_bf16(xb, C, static_cast<const bf16*>(wq), C, nullptr, qkvb,
                        C3, R, C, C, true, s));
-  EMIP_TRY(linear_bf16(tb, C, static_cast<const bf16*>(wk), C, nullptr,
-                       qkvb + C, C3, R, C, C, true, s));
-  EMIP_TRY(linear_bf16(tb, C, static_cast<const bf16*>(wv), C, nullptr,
-                       qkvb + 2 * C, C3, R, C, C, true, s));
+  EMIP_TRY(linear_bf16_stacked(tb, C, wkv, 2, C, qkvb + C, C3, R, C, C, true,
+                               s));
   const long long wsb = (long long)T * C3;
   EMIP_TRY((cudaError_t)emip_attention_fwd_bf16(
       qkvb, wsb, C3, qkvb + C, wsb, C3, qkvb + 2 * C, wsb, C3, mask, mask_nw,
@@ -494,35 +552,25 @@ extern "C" int emip_window_layer_bf16(
   return (int)cudaGetLastError();
 }
 
-// H's bf16 forward: x, t, out [R, C] bf16, every parameter fp32. Buffers,
-// fp32: x32, t32, o, m [R, C] (z may share m's), qkv [R, 3C], cat [R, 2C],
-// u [R, F]. No statistics are kept (the bf16 backward recomputes).
+// H's bf16 forward: x, t, out [R, C] bf16, every parameter fp32; the
+// weights' TF32 halves in wsplit [8 C^2 + 6 C F] and fp32 buffers qkv [R,
+// 3C], o, msg [R, C], u [R, F] (cross_ffn_bf16). No statistics are kept (the
+// bf16 backward recomputes).
 extern "C" int emip_window_ffn_layer_bf16(
     const void* x, const void* t, const float* wq, const float* wk,
     const float* wv, const float* wm, const float* s1, const float* b1,
     const float* w0, const float* w2, const float* s2, const float* b2,
-    const float* mask, int mask_nw, float* x32, float* t32, float* qkv,
-    float* o, float* m, float* cat, float* u, float* z, void* out, float* ws,
-    long long ws_floats, int windows, int T, int C, int F, float eps,
-    void* stream) {
+    const float* mask, int mask_nw, float* wsplit, float* qkv, float* o,
+    float* msg, float* u, void* out, float* ws, long long ws_floats,
+    int windows, int T, int C, int F, float eps, void* stream) {
   using namespace emip;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Windows d{windows, T, C, mask, mask_nw};
-  const int R = d.rows(), C2 = 2 * C;
-  const long long rc = (long long)R * C;
   cudaError_t err;
-  EMIP_TRY(bf16_to_f32(static_cast<const bf16*>(x), x32, rc, s));
-  EMIP_TRY(bf16_to_f32(static_cast<const bf16*>(t), t32, rc, s));
-  EMIP_TRY(cudaMemcpy2DAsync(cat, C2 * sizeof(float), x32, C * sizeof(float),
-                             C * sizeof(float), R, cudaMemcpyDeviceToDevice,
-                             s));
-  EMIP_TRY(message_fwd(x32, C, t32, LayerWeights{wq, wk, wv, wm}, d, qkv, o,
-                       m, nullptr, Workspace{ws, ws_floats}, s));
-  layernorm(m, C, nullptr, 0, s1, b1, cat + C, C2, R, C, eps, s);
-  EMIP_TRY(linear(cat, C2, w0, nullptr, u, F, R, F, C2, true, s));
-  EMIP_TRY(linear(u, F, w2, nullptr, z, C, R, C, F, false, s));
-  EMIP_TRY(layernorm_out_bf16(z, cat, C2, s2, b2, static_cast<bf16*>(out), R,
-                              C, eps, s));
+  EMIP_TRY(cross_ffn_bf16(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(t),
+      LayerWeights{wq, wk, wv, wm}, s1, b1, w0, w2, s2, b2,
+      Windows{windows, T, C, mask, mask_nw}, F, wsplit, qkv, o, msg, u,
+      static_cast<bf16*>(out), eps, Workspace{ws, ws_floats}, s));
   return (int)cudaGetLastError();
 }
 
@@ -673,15 +721,16 @@ extern "C" int emip_window_block(
 // (_block_kernel) computes it with a bf16 storage dtype: a mixed block.
 // x, t [R, C] and out are bf16; the self layer's weights wq1..wm1 are
 // bf16 (the JAX kernel casts them at use), every other parameter fp32.
-//   self layer, in bf16: q, k, v = bf16(x W) (the bf16 GEMM, fp32 sums),
-//     o = the bf16 attention (fp32 softmax, P rounded for P v), m = o Wm1
-//     in fp32, x1 = bf16(x + bf16(LN1s(m))), kept in fp32 in cat[:, :C];
-//   cross layer + FFN, in fp32 (the JAX kernel upcasts x1 and t): t is
-//     upcast into t32, then the 3xTF32 message_fwd and the FFN of the fp32
-//     entry points on fp32 weights; out = bf16(x1 + LN2c(z)), rounded once.
-// Buffers: qkv1 [R, 3C] and o1 [R, C] bf16; m, t32, o2, z [R, C], qkv2 [R,
-// 3C], cat [R, 2C] and u [R, F] fp32. No statistics are kept (the bf16
-// backward recomputes).
+//   self layer, in bf16: q, k, v = bf16(x W) (the bf16 GEMM, fp32 sums; one
+//     launch over the three weights), o = the bf16 attention (fp32 softmax,
+//     P rounded for P v), m = o Wm1 in fp32, x1 = bf16(x + bf16(LN1s(m)))
+//     into a bf16 buffer;
+//   cross layer + FFN, in fp32 on x1 and t (the JAX kernel upcasts them):
+//     H's bf16 layer, cross_ffn_bf16, which reads x1 and t as bf16 where
+//     they lie; out = bf16(x1 + LN2c(z)), rounded once.
+// Buffers: qkv1 [R, 3C], o1, x1 [R, C] bf16; m [R, C] fp32 and
+// cross_ffn_bf16's wsplit, qkv2, o2, msg, u. No statistics are kept (the
+// bf16 backward recomputes).
 extern "C" int emip_window_block_bf16(
     const void* x, const void* t,
     const void* wq1, const void* wk1, const void* wv1, const void* wm1,
@@ -690,22 +739,19 @@ extern "C" int emip_window_block_bf16(
     const float* sa, const float* ba,
     const float* w0, const float* w2, const float* sb, const float* bb,
     const float* mask, int mask_nw, void* qkv1, void* o1, float* m,
-    float* t32, float* qkv2, float* o2, float* cat, float* u, float* z,
+    void* x1, float* wsplit, float* qkv2, float* o2, float* msg, float* u,
     void* out, float* ws, long long ws_floats, int windows, int T, int C,
     int F, float eps, void* stream) {
   using namespace emip;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Windows d{windows, T, C, mask, mask_nw};
-  const int R = d.rows(), C2 = 2 * C, C3 = 3 * C;
+  const int R = windows * T, C2 = 2 * C, C3 = 3 * C;
   const bf16* xb = static_cast<const bf16*>(x);
   bf16* qkv = static_cast<bf16*>(qkv1);
   const bf16* const w1[3] = {static_cast<const bf16*>(wq1),
                              static_cast<const bf16*>(wk1),
                              static_cast<const bf16*>(wv1)};
   cudaError_t err;
-  for (int i = 0; i < 3; ++i)
-    EMIP_TRY(linear_bf16(xb, C, w1[i], C, nullptr, qkv + i * C, C3, R, C, C,
-                         true, s));
+  EMIP_TRY(linear_bf16_stacked(xb, C, w1, 3, C, qkv, C3, R, C, C, true, s));
   const long long wsb = (long long)T * C3;
   EMIP_TRY((cudaError_t)emip_attention_fwd_bf16(
       qkv, wsb, C3, qkv + C, wsb, C3, qkv + C2, wsb, C3, mask, mask_nw, o1,
@@ -713,16 +759,13 @@ extern "C" int emip_window_block_bf16(
   EMIP_TRY(linear_bf16(static_cast<const bf16*>(o1), C,
                        static_cast<const bf16*>(wm1), C, nullptr, m, C, R, C,
                        C, false, s));
-  EMIP_TRY(layernorm_self_bf16(m, xb, s1, b1, cat, C2, R, C, eps, s));
-  EMIP_TRY(bf16_to_f32(static_cast<const bf16*>(t), t32, (long long)R * C,
-                       s));
-  EMIP_TRY(message_fwd(cat, C2, t32, LayerWeights{wq2, wk2, wv2, wm2}, d,
-                       qkv2, o2, m, nullptr, Workspace{ws, ws_floats}, s));
-  layernorm(m, C, nullptr, 0, sa, ba, cat + C, C2, R, C, eps, s);
-  EMIP_TRY(linear(cat, C2, w0, nullptr, u, F, R, F, C2, true, s));
-  EMIP_TRY(linear(u, F, w2, nullptr, z, C, R, C, F, false, s));
-  EMIP_TRY(layernorm_out_bf16(z, cat, C2, sb, bb, static_cast<bf16*>(out), R,
-                              C, eps, s));
+  bf16* x1b = static_cast<bf16*>(x1);
+  EMIP_TRY(layernorm_self_bf16(m, xb, s1, b1, x1b, C, R, C, eps, s));
+  EMIP_TRY(cross_ffn_bf16(
+      x1b, static_cast<const bf16*>(t), LayerWeights{wq2, wk2, wv2, wm2}, sa,
+      ba, w0, w2, sb, bb, Windows{windows, T, C, mask, mask_nw}, F, wsplit,
+      qkv2, o2, msg, u, static_cast<bf16*>(out), eps,
+      Workspace{ws, ws_floats}, s));
   return (int)cudaGetLastError();
 }
 

@@ -77,6 +77,9 @@ _SIGNATURES = {
     "emip_flow_attention_bf16": [_P] * 4 + [_I] * 3 + [_P],
     "emip_convex_upsample_bf16": [_P] * 3 + [_I] * 4 + [_P],
     "emip_gemm_bf16": [_P, _L, _P, _L, _P, _P, _L] + [_I] * 4 + [_P],
+    # the wgmma product of B's and H's bf16 forwards alone
+    "emip_gemm_wgmma": ([_P, _L, _I, _P, _L] + [_I] * 3 + [_P, _P]
+                        + [_I] * 3 + [_P] * 3 + [_L, _F, _P]),
     "emip_attention_fwd_bf16": ([_P, _L, _I] * 3 + [_P, _I, _P, _L, _I]
                                 + [_I] * 6 + [_P]),
     # the bf16 train step: A, B, C and D backward
@@ -91,7 +94,7 @@ _SIGNATURES = {
     "emip_memory_attention_bwd_bf16": [_P] * 11 + [_L] + [_I] * 4 + [_P],
     "emip_window_layer_bf16": ([_P] * 9 + [_I] + [_P] * 4 + [_I] * 4
                                + [_F, _P]),
-    "emip_window_ffn_layer_bf16": ([_P] * 13 + [_I] + [_P] * 10 + [_L]
+    "emip_window_ffn_layer_bf16": ([_P] * 13 + [_I] + [_P] * 7 + [_L]
                                    + [_I] * 4 + [_F, _P]),
     # the rest of the bf16 band: G and H backward (the train step at
     # 512^2), J forward and backward

@@ -31,6 +31,8 @@ LAUNCHES = {
     # (kernels/gemm.py, kernels/attention.py: checks)
     "gemm": 0,
     "attention": 0,
+    # the wgmma product of B's and H's bf16 forwards alone (kernels/gemm.py)
+    "gemm_wgmma": 0,
     # the bf16 band of short inference: the bf16 forwards of A-D and the
     # bf16 GEMM alone
     "sr_attention_bf16": 0,

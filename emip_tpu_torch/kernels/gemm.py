@@ -7,17 +7,21 @@ tests can hold it against ``torch.matmul`` and time it at the shapes those
 kernels give it: fp32 operands take the 3xTF32 GEMM
 (``csrc/gemm_tf32.cuh``), bf16 ones the bf16 GEMM of the bf16 band
 (``csrc/gemm_bf16.cuh``, A's projections and B's self layer), both through
-``csrc/gemm.cu``. CPU tensors take the plain version.
+``csrc/gemm.cu``. :func:`gemm_wgmma` is the forward product of B's and
+H's bf16 forwards (``csrc/gemm_wgmma.cuh``: 3xTF32 on wgmma, two terms for
+a bf16 operand) with its two-source forms and epilogues. CPU tensors take
+the plain versions.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from emip_tpu_torch.kernels import _common as cm
 from emip_tpu_torch.kernels._build import library
 
-__all__ = ["gemm", "gemm_reference"]
+__all__ = ["gemm", "gemm_reference", "gemm_wgmma", "gemm_wgmma_reference"]
 
 _NAME = "gemm"
 
@@ -109,4 +113,77 @@ def gemm(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor | None = None,
         ws.data_ptr(), ws.numel(), cm.stream_handle(a.device))
     cm.raise_on_error(_NAME, rc)
     cm.LAUNCHES["gemm"] += 1
+    return out
+
+
+_WG = "gemm_wgmma"
+_WG_EPILOGUES = {None: 0, "gelu": 1, "layernorm": 2}
+
+
+def gemm_wgmma_reference(a, w, a2=None, n_switch=None, epilogue=None,
+                         gamma=None, beta=None, eps=1e-6) -> torch.Tensor:
+    """Plain PyTorch version of :func:`gemm_wgmma`, in ``w``'s dtype."""
+    a = a.to(w.dtype)
+    if a2 is None:
+        y = a @ w.T
+    elif n_switch is None:
+        k0 = a.shape[1]
+        y = a @ w[:, :k0].T + a2.to(w.dtype) @ w[:, k0:].T
+    else:
+        y = torch.cat([a @ w[:n_switch].T, a2.to(w.dtype) @ w[n_switch:].T],
+                      -1)
+    if epilogue == "gelu":
+        return F.gelu(y)
+    if epilogue == "layernorm":
+        return F.layer_norm(y, (y.shape[-1],), gamma, beta, eps)
+    return y
+
+
+def gemm_wgmma(a: torch.Tensor, w: torch.Tensor,
+               a2: torch.Tensor | None = None, n_switch: int | None = None,
+               epilogue: str | None = None, gamma: torch.Tensor | None = None,
+               beta: torch.Tensor | None = None,
+               eps: float = 1e-6) -> torch.Tensor:
+    """``epilogue(a w^T)`` [M, N] fp32 on the wgmma product of kernels B's
+    and H's bf16 forwards, for an fp32 ``nn.Linear`` weight ``w`` [N, K].
+
+    The forms those kernels run: fp32 ``a`` [M, K] with no epilogue or with
+    ``"layernorm"`` over the row (``gamma``, ``beta`` [N], N 64 or 128: Wm's
+    and W2's); bf16 ``a`` [M, k0] and fp32 ``a2`` [M, K - k0] summed along
+    K with ``"gelu"`` (W0's two halves); bf16 ``a`` and ``a2`` [M, K] with
+    columns at or past ``n_switch`` from ``a2`` (q from x, k and v from t).
+    Rows row-major, 16-byte aligned. Not differentiable: a check of the
+    kernels' product, not a layer.
+    """
+    tensors = [a, w] + [x for x in (a2, gamma, beta) if x is not None]
+    if cm.on_cpu(_WG, *tensors):
+        return gemm_wgmma_reference(a, w, a2, n_switch, epilogue, gamma,
+                                    beta, eps)
+    if epilogue not in _WG_EPILOGUES:
+        raise ValueError(f"{_WG}: epilogue {epilogue!r} not in "
+                         f"{tuple(_WG_EPILOGUES)}")
+    cm.check_kernel_args(_WG, w=w, **({} if gamma is None else
+                                       dict(gamma=gamma, beta=beta)))
+    for name, t in (("a", a), ("a2", a2)):
+        if t is not None and (t.dim() != 2 or t.stride(1) != 1):
+            raise ValueError(f"{_WG}: {name} must be row-major [M, K]")
+    m, n = a.shape[0], w.shape[0]
+    k0 = a.shape[1]
+    k1 = 0 if a2 is None or n_switch is not None else a2.shape[1]
+    bits = int(a.dtype == torch.bfloat16) + 2 * int(
+        a2 is not None and a2.dtype == torch.bfloat16)
+    if w.shape[1] != k0 + k1 or (a2 is not None and a2.shape[0] != m):
+        raise ValueError(f"{_WG}: w {tuple(w.shape)} does not take a "
+                         f"{tuple(a.shape)}"
+                         + ("" if a2 is None else f" and {tuple(a2.shape)}"))
+    out = torch.empty((m, n), device=a.device, dtype=torch.float32)
+    wsplit = torch.empty(2 * w.numel(), device=a.device, dtype=torch.float32)
+    rc = library().emip_gemm_wgmma(
+        a.data_ptr(), a.stride(0), k0, cm.ptr(a2),
+        0 if a2 is None else a2.stride(0), k1,
+        n if n_switch is None else n_switch, bits, w.data_ptr(),
+        wsplit.data_ptr(), m, n, _WG_EPILOGUES[epilogue], cm.ptr(gamma),
+        cm.ptr(beta), out.data_ptr(), n, eps, cm.stream_handle(a.device))
+    cm.raise_on_error(_WG, rc)
+    cm.LAUNCHES[_WG] += 1
     return out

@@ -38,6 +38,16 @@ and the JAX package's Pallas kernels:
   (``emip_sr_attention_bf16``; bf16 products on the tensor cores, fp32
   sums): per head q from K tiles of 32, the online softmax over key tiles
   of 32 with P rounded to bf16, o rounded, the output columns by head.
+* :func:`wgmma_linear_walk` walks the wgmma product of B's and H's bf16
+  forwards (``csrc/gemm_wgmma.cuh``): sources in order along K, K tiles of
+  32 each summed on its own and folded into the running sum, two TF32
+  terms where the source is bf16, three where fp32, then the epilogue
+  (GELU, a row LayerNorm, or LayerNorm + residual rounded to bf16 once);
+  :func:`window_ffn_bf16_walk` walks H's bf16 forward on it
+  (``cross_ffn_bf16``: q, k, v, the 3xTF32 attention, msg in Wm's
+  LayerNorm epilogue, W0 in two halves, out in W2's epilogue) and
+  :func:`window_block_fwd_bf16_walk` B's: the unchanged bf16 self layer,
+  then that walk on its x1.
 
 Nothing here runs on a model's path.
 """
@@ -54,7 +64,8 @@ __all__ = ["tf32_round", "tf32_truncate", "matmul_tf32", "matmul_3xtf32",
            "attention_row_stats", "attention_bwd_tiled",
            "flow_attention_bwd_bf16_walk", "sr_attention_bwd_bf16_walk",
            "memory_attention_bwd_bf16_walk", "window_block_bwd_bf16_walk",
-           "sr_attention_fwd_bf16_walk"]
+           "sr_attention_fwd_bf16_walk", "wgmma_linear_walk",
+           "window_ffn_bf16_walk", "window_block_fwd_bf16_walk"]
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -618,3 +629,90 @@ def sr_attention_fwd_bf16_walk(x, kv_in, wq, bq, wkv, bkv, wp, bp,
                                 bp[h * ch:(h + 1) * ch], tile_k=tile_k)
                      for h in range(heads)], -1)
     return out.to(bf16).reshape(b, n, c)
+
+
+def wgmma_linear_walk(sources, w, epilogue: str | None = None, gamma=None,
+                      beta=None, res=None, eps: float = 1e-6,
+                      tile_k: int = 32):
+    """``epilogue(sum_s a_s w_s^T)`` as ``wg_linear`` sums it.
+
+    ``sources`` [M, K_s] follow each other along K over the columns of
+    ``w`` [N, sum K_s] (fp32, torch layout; W0's two halves are its first
+    and last C columns). Each source's K runs in tiles of ``tile_k``, the
+    tiles of all sources in order; a tile's product (:func:`matmul_3xtf32_exact`:
+    two TF32 terms for a bf16 source, exact in TF32, three for an fp32 one)
+    is summed on its own and added to the fp32 running sum. Epilogues:
+    ``"gelu"`` (exact), ``"layernorm"`` (the row's mean and variance over
+    its N columns, then ``gamma``, ``beta``) and ``"layernorm_out"``
+    (``bf16(res + layernorm)``, ``res`` [M, N] bf16, rounded once). fp32
+    out, bf16 for ``"layernorm_out"``. The order of the sums inside one
+    tile is the tensor core's and is not stated.
+    """
+    acc, k0 = None, 0
+    for a in sources:
+        exact = a.dtype == torch.bfloat16
+        a = a.float()
+        for t0 in range(0, a.shape[1], tile_k):
+            t1 = min(a.shape[1], t0 + tile_k)
+            part = matmul_3xtf32_exact(a[:, t0:t1], w[:, k0 + t0:k0 + t1].T,
+                                       a_exact=exact)
+            acc = part if acc is None else acc + part
+        k0 += a.shape[1]
+    if epilogue == "gelu":
+        return F.gelu(acc)
+    if epilogue in ("layernorm", "layernorm_out"):
+        mu = acc.mean(-1, keepdim=True)
+        inv = torch.rsqrt(((acc - mu) ** 2).mean(-1, keepdim=True) + eps)
+        y = (acc - mu) * inv * gamma + beta
+        return y if epilogue == "layernorm" else (
+            res.float() + y).to(torch.bfloat16)
+    return acc
+
+
+def window_ffn_bf16_walk(x, t, params, mask=None, eps: float = 1e-6,
+                         stream_rows: int = 32, key_splits: int = 1):
+    """H's bf16 forward (``emip_window_ffn_layer_bf16``, ``cross_ffn_bf16``)
+    in the order the card sums it: x, t [B, K2, T, C] bf16 read as they
+    are, the parameters fp32 in torch's layout (wq .. wm [C, C], s1, b1,
+    w0 [F, 2C], w2 [C, F], s2, b2), mask [K2, T, T] or None; bf16 out.
+
+    q = x Wq^T, k = t Wk^T, v = t Wv^T (two TF32 terms: x and t are
+    bf16); the 3xTF32 attention (:func:`attention_fwd_tiled`, keys in tiles
+    of ``stream_rows`` split in ``key_splits``); msg = LN1(o Wm^T) in the
+    product's epilogue; u = gelu(x W0[:, :C]^T + msg W0[:, C:]^T), x's K
+    tiles first (two terms), then msg's (three); out = bf16(x + LN2(u
+    W2^T)), the one rounding, in W2's epilogue. Every product through
+    :func:`wgmma_linear_walk`.
+    """
+    b, k2, tok, c = x.shape
+    p = params
+    x2, t2 = x.reshape(-1, c), t.reshape(-1, c)
+
+    def win(a):
+        return a.reshape(b * k2, tok, -1)
+
+    q, k, v = (wgmma_linear_walk([a], p[n]) for a, n in
+               ((x2, "wq"), (t2, "wk"), (t2, "wv")))
+    o = attention_fwd_tiled(win(q), win(k), win(v), stream_rows=stream_rows,
+                            splits=key_splits, matmul=matmul_3xtf32,
+                            mask=mask)
+    msg = wgmma_linear_walk([o.reshape(-1, c)], p["wm"], "layernorm",
+                            p["s1"], p["b1"], eps=eps)
+    u = wgmma_linear_walk([x2, msg], p["w0"], "gelu")
+    out = wgmma_linear_walk([u], p["w2"], "layernorm_out", p["s2"], p["b2"],
+                            res=x2, eps=eps)
+    return out.reshape(x.shape)
+
+
+def window_block_fwd_bf16_walk(x, t, self_params, cross_params, mask=None,
+                               eps: float = 1e-6, stream_rows: int = 32,
+                               key_splits: int = 1):
+    """B's bf16 forward (``emip_window_block_bf16``): its bf16 self layer,
+    unchanged (the bf16 GEMM and attention; as its plain version rounds,
+    x1 = bf16(x + bf16(LN1s(m)))), then :func:`window_ffn_bf16_walk` on
+    (x1, t) with the cross layer's parameters; bf16 out."""
+    from emip_tpu_torch.kernels.window_attention import _layer_reference_bf16
+
+    x1 = _layer_reference_bf16(x, x, self_params, mask)
+    return window_ffn_bf16_walk(x1, t, cross_params, mask, eps, stream_rows,
+                                key_splits)

@@ -25,8 +25,13 @@ attention row's max and sum, which the backward kernel reads.
 In the bf16 band, B with bf16 ``x`` and ``t`` (fp32 parameters) is the
 mixed block of the JAX kernel with a bf16 storage dtype: the self layer
 in bf16 (its weights cast once, :func:`emip_tpu_torch.dtypes.cast`; the
-bf16 GEMM and attention), the cross layer and the FFN in fp32 on the
-upcast x1 and t, the output rounded to bf16 (``emip_window_block_bf16``).
+bf16 GEMM and attention), the cross layer and the FFN in fp32 on x1 and t,
+the output rounded to bf16 (``emip_window_block_bf16``). The cross layer
+and FFN are H's bf16 forward: every product on the wgmma product of
+``csrc/gemm_wgmma.cuh`` (3xTF32, two terms where A is bf16), x1 and t read
+as bf16 where they lie, W0 in JAX's two halves, msg and the output in
+their products' LayerNorm epilogues
+(:func:`~emip_tpu_torch.kernels.tf32.window_block_fwd_bf16_walk`).
 Its backward (``emip_window_block_bwd_bf16``) is the JAX kernel's: the self
 layer recomputed in fp32 on x and the fp32 weights, x1 rounded as the
 forward rounds it and its roundings passed straight through, the fp32
@@ -39,8 +44,10 @@ with x, t or x1 take the TF32 terms their exactness leaves
 G and H with bf16 ``x`` and ``t`` (fp32 parameters) are the two halves of
 B's bf16 forward, as the JAX kernels compute them with a bf16 storage
 dtype: G in bf16 (``emip_window_layer_bf16``: q, k, v, P and o rounded,
-LN1 in fp32, the residual added in bf16), H in fp32 on the upcast x and t
-with only its output rounded (``emip_window_ffn_layer_bf16``). Their bf16
+LN1 in fp32, the residual added in bf16), H in fp32 on x and t with only
+its output rounded (``emip_window_ffn_layer_bf16``, on the wgmma product
+as B's cross layer; :func:`~emip_tpu_torch.kernels.tf32.window_ffn_bf16_walk`).
+Their bf16
 backwards (``emip_window_layer_bwd_bf16``, ``emip_window_ffn_layer_bwd_bf16``)
 are the JAX kernels' as B's is: the layer recomputed in fp32 on the upcast
 x and t and the fp32 weights, its fp32 backward, gx and gt rounded to
@@ -243,6 +250,14 @@ def _fwd_workspace(x):
     where it takes one split)."""
     b, k2, tok, c = x.shape
     return forward_workspace(x.device, b * k2, 1, tok, tok, c, True)
+
+
+def _split_workspace(x, c, f):
+    """fp32 room for the cross layer's and the FFN's weights split into
+    their TF32 halves (``cross_ffn_bf16``): [Wq; Wk; Wv], Wm, W0 and W2, each
+    [2 out, in]."""
+    return torch.empty(8 * c * c + 6 * c * f, device=x.device,
+                       dtype=torch.float32)
 
 
 def _param_grads(needs, shapes, like):
@@ -477,20 +492,22 @@ class _WindowBlockBf16(torch.autograd.Function):
         f = params[12].shape[0]
         self_w = [cast(w, torch.bfloat16) for w in params[:4]]
         rows = b * k2 * tok
-        qkv1, o1 = (torch.empty((rows, w), device=x.device,
-                                dtype=torch.bfloat16) for w in (3 * c, c))
-        m, t32, qkv2, o2, cat, u, z = (
+        qkv1, o1, x1 = (torch.empty((rows, w), device=x.device,
+                                    dtype=torch.bfloat16)
+                        for w in (3 * c, c, c))
+        m, qkv2, o2, msg, u = (
             torch.empty((rows, w), device=x.device, dtype=torch.float32)
-            for w in (c, c, 3 * c, c, 2 * c, f, c))
+            for w in (c, 3 * c, c, c, f))
+        wsplit = _split_workspace(x, c, f)
         out = torch.empty_like(x)
         ws = _fwd_workspace(x)
         rc = library().emip_window_block_bf16(
             x.data_ptr(), t.data_ptr(), *(w.data_ptr() for w in self_w),
             *(p.data_ptr() for p in params[4:]), cm.ptr(mask), k2,
-            qkv1.data_ptr(), o1.data_ptr(), m.data_ptr(), t32.data_ptr(),
-            qkv2.data_ptr(), o2.data_ptr(), cat.data_ptr(), u.data_ptr(),
-            z.data_ptr(), out.data_ptr(), cm.ptr(ws), cm.numel(ws), b * k2,
-            tok, c, f, EPS, cm.stream_handle(x.device))
+            qkv1.data_ptr(), o1.data_ptr(), m.data_ptr(), x1.data_ptr(),
+            wsplit.data_ptr(), qkv2.data_ptr(), o2.data_ptr(),
+            msg.data_ptr(), u.data_ptr(), out.data_ptr(), cm.ptr(ws),
+            cm.numel(ws), b * k2, tok, c, f, EPS, cm.stream_handle(x.device))
         cm.raise_on_error(_NAME + " (bf16)", rc)
         cm.LAUNCHES["window_attention_block_bf16"] += 1
         return out
@@ -659,17 +676,17 @@ def _ffn_layer_bf16(x, t, p, mask):
     b, k2, tok, c = x.shape
     f = p["w0"].shape[0]
     rows = b * k2 * tok
-    x32, t32, qkv, o, m, cat, u = (
+    qkv, o, msg, u = (
         torch.empty((rows, n), device=x.device, dtype=torch.float32)
-        for n in (c, c, 3 * c, c, c, 2 * c, f))
+        for n in (3 * c, c, c, f))
+    wsplit = _split_workspace(x, c, f)
     out = torch.empty_like(x)
     ws = _fwd_workspace(x)
     rc = library().emip_window_ffn_layer_bf16(
         x.data_ptr(), t.data_ptr(), *(p[k].data_ptr() for k in _CROSS_KEYS),
-        cm.ptr(mask), k2, x32.data_ptr(), t32.data_ptr(), qkv.data_ptr(),
-        o.data_ptr(), m.data_ptr(), cat.data_ptr(), u.data_ptr(),
-        m.data_ptr(), out.data_ptr(), cm.ptr(ws), cm.numel(ws), b * k2, tok,
-        c, f, EPS, cm.stream_handle(x.device))
+        cm.ptr(mask), k2, wsplit.data_ptr(), qkv.data_ptr(), o.data_ptr(),
+        msg.data_ptr(), u.data_ptr(), out.data_ptr(), cm.ptr(ws),
+        cm.numel(ws), b * k2, tok, c, f, EPS, cm.stream_handle(x.device))
     cm.raise_on_error(_FFN_LAYER + " (bf16)", rc)
     cm.LAUNCHES["window_attention_ffn_layer_bf16"] += 1
     return out

@@ -634,3 +634,37 @@ def test_cuda_kernels_match_plain_versions():
         for a, b in zip(got, want):
             assert (a - b).abs().max().item() <= 1e-4 * max(
                 b.abs().max().item(), 1.0), n
+
+
+@pytest.mark.cuda
+def test_cuda_wgmma_product_matches_fp64():
+    """The wgmma product of B's and H's bf16 forwards
+    (``csrc/gemm_wgmma.cuh``) alone, at the forms those kernels run it: q,
+    k, v from two bf16 sources split along N, W0's two halves (bf16 x, fp32
+    msg) with GELU, W2 with its LayerNorm on fp32 u, and ragged M, N and K
+    tiles; within 1e-5 of max|ref| of the fp64 evaluation, the same bits on
+    a second call, one count per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from emip_tpu_torch.kernels.gemm import gemm_wgmma, gemm_wgmma_reference
+
+    g = torch.Generator().manual_seed(4)
+    r = lambda *s: torch.randn(*s, generator=g).cuda()  # noqa: E731
+    bf = torch.bfloat16
+    cases = [
+        dict(a=r(3872, 128).to(bf), a2=r(3872, 128).to(bf), n_switch=128,
+             w=r(384, 128) / 11),
+        dict(a=r(3872, 128).to(bf), a2=r(3872, 128), w=r(1024, 256) / 16,
+             epilogue="gelu"),
+        dict(a=r(3872, 1024), w=r(128, 1024) / 32, epilogue="layernorm",
+             gamma=1 + 0.1 * r(128), beta=0.1 * r(128)),
+        dict(a=r(1000, 100), w=r(70, 100) / 10),
+    ]
+    for kw in cases:
+        before = K.LAUNCHES["gemm_wgmma"]
+        got = gemm_wgmma(**kw)
+        assert torch.equal(gemm_wgmma(**kw), got)
+        assert K.LAUNCHES["gemm_wgmma"] == before + 2
+        d = {k: v.double() if torch.is_tensor(v) else v for k, v in kw.items()}
+        want = gemm_wgmma_reference(**d)
+        assert (got.double() - want).abs().max() <= 1e-5 * want.abs().max()

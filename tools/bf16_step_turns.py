@@ -3,6 +3,7 @@
 steps of two checkouts of the port, in turns, on one GPU.
 
     python3 tools/bf16_step_turns.py --trees REF NEW [--steps 8]
+                                     [--cells infer,train,static,long,long512]
                                      [--out chiprun_out/bf16_step_turns.json]
 
 REF and NEW are checkout roots (each holds ``emip_tpu_torch/``). Each turn
@@ -25,7 +26,14 @@ seeded frames:
   ``EMIPLong(cfg, 5, dtype=bfloat16)``: one frame encoded, the pair and
   the long head, kernel F's bf16 forward and backward once, clamp +
   AdamW over the long heads), as its bf16 long train phase, with the
-  5-slot ring full (five frames pushed first).
+  5-slot ring full (five frames pushed first);
+- ``long512``: bf16 streaming at 512^2, 4 clips, the ring full
+  (``step_cached`` on ``EMIPLong(cfg, 5, dtype=bfloat16)`` in inference
+  mode, the carried encoding): windows of 1024 tokens, so kernels G and H
+  (H's bf16 forward 6 times a step) in place of B, as ``chip_smoke.py``'s
+  bf16 long inference at 512^2.
+
+``--cells`` runs the named cells only (all five by default).
 
 Per cell: two warm-up steps, ``--steps`` steps timed by CUDA events (and
 the device memory's peak over them), one step counted from zero kernel
@@ -60,17 +68,18 @@ BATCH = 8
 SEED = 0
 WARMUP = 2
 PROFILED = 2
-CELLS = ("infer", "train", "static", "long")
+SIZE_512 = 512
+CELLS = ("infer", "train", "static", "long", "long512")
 LONG_CLIPS = 4
 MEMORY = 5  # the ring's slots
 
 
-def _frames(rng, n: int, device):
+def _frames(rng, n: int, device, size: int = SIZE):
     import torch
 
     from emip_tpu_torch.ops.image import IMAGENET_MEAN, IMAGENET_STD
 
-    img = rng.uniform(0.0, 1.0, (n, 3, SIZE, SIZE)).astype(np.float32)
+    img = rng.uniform(0.0, 1.0, (n, 3, size, size)).astype(np.float32)
     mean = np.asarray(IMAGENET_MEAN, np.float32)[:, None, None]
     std = np.asarray(IMAGENET_STD, np.float32)[:, None, None]
     return torch.from_numpy((img - mean) / std).to(device)
@@ -131,28 +140,19 @@ def _measure(step, steps: int) -> dict:
                 kernel_launches_per_step=launches, peak_gib=peak)
 
 
-def worker(tree: str, steps: int) -> dict:
-    """Every cell on ``tree``'s package; returns their measurements."""
+def worker(tree: str, steps: int, cells=CELLS) -> dict:
+    """The ``cells`` on ``tree``'s package; returns their measurements."""
     sys.path.insert(0, os.path.abspath(tree))
+    import dataclasses
+
     import torch
 
     from emip_tpu_torch import kernels as K
     from emip_tpu_torch.infer import predict_arrays
-    from emip_tpu_torch.models.emip_long import EMIPLong
-    from emip_tpu_torch.models.emip_short import (
-        EMIPShort,
-        EMIPShortConfig,
-        SegNetwork,
-    )
+    from emip_tpu_torch.models.emip_short import EMIPShort, EMIPShortConfig
     from emip_tpu_torch.models.init import seeded_init_
-    from emip_tpu_torch.train.long import long_train_step
     from emip_tpu_torch.train.short import short_train_step
-    from emip_tpu_torch.train.state import (
-        ClampAdamW,
-        build_long_optimizer,
-        build_optimizer,
-    )
-    from emip_tpu_torch.train.static import static_train_step
+    from emip_tpu_torch.train.state import build_optimizer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -164,30 +164,50 @@ def worker(tree: str, steps: int) -> dict:
     cfg = EMIPShortConfig(backbone_name="pvt_v2_b5", inp_size=SIZE)
     m32 = EMIPShort(cfg)
     seeded_init_(m32, SEED)
-    model = EMIPShort(cfg, dtype=torch.bfloat16)
-    model.load_state_dict(m32.state_dict())
-    model = model.to(device).eval()
-    rng = np.random.default_rng(SEED + 1)
-    pairs = itertools.cycle([(_frames(rng, BATCH, device),
-                              _frames(rng, BATCH, device))
-                             for _ in range(2)])
-    out["infer"] = _measure(lambda: predict_arrays(model, *next(pairs)),
-                            steps)
-    del model, pairs
-    torch.cuda.empty_cache()
+    if "infer" in cells:
+        model = EMIPShort(cfg, dtype=torch.bfloat16)
+        model.load_state_dict(m32.state_dict())
+        model = model.to(device).eval()
+        rng = np.random.default_rng(SEED + 1)
+        pairs = itertools.cycle([(_frames(rng, BATCH, device),
+                                  _frames(rng, BATCH, device))
+                                 for _ in range(2)])
+        out["infer"] = _measure(
+            lambda: predict_arrays(model, *next(pairs)), steps)
+        del model, pairs
+        torch.cuda.empty_cache()
 
-    model = EMIPShort(cfg, dtype=torch.bfloat16)
-    model.load_state_dict(m32.state_dict())
+    if "train" in cells:
+        model = EMIPShort(cfg, dtype=torch.bfloat16)
+        model.load_state_dict(m32.state_dict())
+        model = model.to(device)
+        opt = build_optimizer(model)
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        rng = np.random.default_rng(SEED + 5)
+        batches = itertools.cycle([_batch(rng, device) for _ in range(2)])
+        out["train"] = _measure(
+            lambda: short_train_step(model, opt, next(batches), gen), steps)
+        del model, opt, batches
+        torch.cuda.empty_cache()
     del m32
-    model = model.to(device)
-    opt = build_optimizer(model)
-    gen = torch.Generator(device=device).manual_seed(SEED)
-    rng = np.random.default_rng(SEED + 5)
-    batches = itertools.cycle([_batch(rng, device) for _ in range(2)])
-    out["train"] = _measure(
-        lambda: short_train_step(model, opt, next(batches), gen), steps)
-    del model, opt, batches
-    torch.cuda.empty_cache()
+
+    if "static" in cells:
+        out["static"] = _static(steps, device)
+    if "long" in cells:
+        out["long"] = _long(cfg, steps, device)
+    if "long512" in cells:
+        out["long512"] = _long512(
+            dataclasses.replace(cfg, inp_size=SIZE_512), steps, device)
+    return out
+
+
+def _static(steps: int, device) -> dict:
+    import torch
+
+    from emip_tpu_torch.models.emip_short import SegNetwork
+    from emip_tpu_torch.models.init import seeded_init_
+    from emip_tpu_torch.train.state import ClampAdamW
+    from emip_tpu_torch.train.static import static_train_step
 
     m32 = seeded_init_(SegNetwork("pvt_v2_b5", 32), SEED)
     model = SegNetwork("pvt_v2_b5", 32, dtype=torch.bfloat16)
@@ -202,10 +222,20 @@ def worker(tree: str, steps: int) -> dict:
         b = _batch(rng, device)
         imgs.append(dict(image=b["image1"], gt=b["gt"]))
     imgs = itertools.cycle(imgs)
-    out["static"] = _measure(
+    out = _measure(
         lambda: static_train_step(model, opt, next(imgs), gen), steps)
     del model, opt, imgs
     torch.cuda.empty_cache()
+    return out
+
+
+def _long(cfg, steps: int, device) -> dict:
+    import torch
+
+    from emip_tpu_torch.models.emip_long import EMIPLong
+    from emip_tpu_torch.models.init import seeded_init_
+    from emip_tpu_torch.train.long import long_train_step
+    from emip_tpu_torch.train.state import build_long_optimizer
 
     m32 = seeded_init_(EMIPLong(cfg, memory_size=MEMORY), SEED)
     model = EMIPLong(cfg, memory_size=MEMORY, dtype=torch.bfloat16)
@@ -226,9 +256,47 @@ def worker(tree: str, steps: int) -> dict:
             _, enc, state = model.step_cached(enc, video[:, i], state)
     if not bool(state.valid.all()):
         raise SystemExit("the long cell's ring is not full")
-    out["long"] = _measure(
+    out = _measure(
         lambda: long_train_step(model, opt, enc, video[:, MEMORY + 1], gt,
                                 state), steps)
+    del model, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def _long512(cfg, steps: int, device) -> dict:
+    """bf16 streaming at 512^2: ``step_cached`` of 4 clips on a full ring
+    (the carried encoding and ring are not advanced, so every step reads
+    the same state)."""
+    import torch
+
+    from emip_tpu_torch.models.emip_long import EMIPLong
+    from emip_tpu_torch.models.init import seeded_init_
+
+    m32 = seeded_init_(EMIPLong(cfg, memory_size=MEMORY), SEED)
+    model = EMIPLong(cfg, memory_size=MEMORY, dtype=torch.bfloat16)
+    model.load_state_dict(m32.state_dict())
+    del m32
+    model = model.to(device).eval()
+    rng = np.random.default_rng(SEED + 19)
+    video = _frames(rng, LONG_CLIPS * (MEMORY + 2), device,
+                    SIZE_512).reshape(LONG_CLIPS, MEMORY + 2, 3, SIZE_512,
+                                      SIZE_512)
+    with torch.inference_mode():
+        enc = model.encode_frame(video[:, 0])
+        state = model.init_memory(LONG_CLIPS)
+        for i in range(1, MEMORY + 1):
+            _, enc, state = model.step_cached(enc, video[:, i], state)
+    if not bool(state.valid.all()):
+        raise SystemExit("the long512 cell's ring is not full")
+
+    def step():
+        with torch.inference_mode():
+            model.step_cached(enc, video[:, MEMORY + 1], state)
+
+    out = _measure(step, steps)
+    del model
+    torch.cuda.empty_cache()
     return out
 
 
@@ -244,12 +312,15 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trees", nargs=2, metavar=("REF", "NEW"))
     ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--cells", default=",".join(CELLS),
+                    help="comma-separated cells to run (default: all)")
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out",
                                                   "bf16_step_turns.json"))
     ap.add_argument("--worker", metavar="TREE", help=argparse.SUPPRESS)
     opts = ap.parse_args(argv)
+    cells = tuple(c for c in CELLS if c in opts.cells.split(","))
     if opts.worker:
-        print("RESULT " + json.dumps(worker(opts.worker, opts.steps)),
+        print("RESULT " + json.dumps(worker(opts.worker, opts.steps, cells)),
               flush=True)
         return 0
     if not opts.trees:
@@ -266,7 +337,7 @@ def main(argv=None) -> int:
                         ("REF", ref)):
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--worker", tree,
-             "--steps", str(opts.steps)],
+             "--steps", str(opts.steps), "--cells", ",".join(cells)],
             capture_output=True, text=True, timeout=1200)
         line = [ln for ln in proc.stdout.splitlines()
                 if ln.startswith("RESULT ")]
@@ -275,7 +346,7 @@ def main(argv=None) -> int:
             raise SystemExit(f"turn {len(turns) + 1} ({tree}) failed")
         res = json.loads(line[0][len("RESULT "):])
         turns.append(dict(tree=label, **res))
-        for cell in CELLS:
+        for cell in cells:
             r = res[cell]
             print(f"turn {len(turns)} {label} {cell}: median "
                   f"{r['median_ms']:.3f} ms (steps "
@@ -287,7 +358,7 @@ def main(argv=None) -> int:
                   f"{r['kernel_launches_per_step']}", flush=True)
     med = statistics.median
     summary = {}
-    for cell in CELLS:
+    for cell in cells:
         steps = {lab: [t for tr in turns if tr["tree"] == lab
                        for t in tr[cell]["step_ms"]] for lab in ("REF", "NEW")}
         halves = (med(turns[0][cell]["step_ms"]) /
