@@ -20,7 +20,9 @@ needs one card and no arguments, and it imports nothing of JAX. In order:
    with GELU, W2 with its LayerNorm) at B's rows at 352^2 and H's at 512^2
    with one clip, and a ragged check, each against fp64 (``GEMM_REL_TOL``),
    the same bits twice, timed in turns beside the 3xTF32 GEMM and
-   ``torch.matmul`` with its TFLOP/s (``gemm_wgmma`` lines); and the
+   ``torch.matmul`` with its TFLOP/s (``gemm_wgmma`` lines), and the input
+   grads dy W of G's and H's bf16 backwards, each product kernel's device
+   time in turns against the 3xTF32 GEMM's with the same epilogue; and the
    tensor-core forward attention of A, B, G and H alone
    (``kernels/attention.py``) at the
    shapes those kernels give it (A's four PVT stages at 352^2 and at 512^2,
@@ -268,7 +270,8 @@ these rows carry the CUDA cores' figure for all their operations as
 and as its last line ``{"ok": true, "device":
 {...}}``. Before the JSON line it prints a ``digests {...}`` line: for every
 case of the fp32 backward rows of A, B, C, F, G and H, of the bf16 ones of
-A, B, C and F and of the bf16 forwards of A, B, C and H (``DIGEST_KERNELS``)
+A, B, C, F, G and H and of the bf16 forwards of A, B, C and H
+(``DIGEST_KERNELS``)
 the sha256 of its grads' or output's bytes and its device launches per
 call, so that two trees can be shown to give the same bits at the same
 seeds. Any failure raises and the exit code is non-zero,
@@ -467,7 +470,8 @@ TENSOR_CORE_KERNELS = ("sr_attention", "sr_attention_bwd",
 # CUDA-event time then reads
 # (device_ms), and the bf16 backwards of A, B, C and F and A's bf16
 # forward, whose launches per call the redesign of their bf16 form cut
-# and the bf16 forwards of B and H, whose redesign cut theirs too
+# and the bf16 forwards of B and H and the bf16 backwards of G and H, whose
+# redesign cut theirs too
 DEVICE_TIMED = ("convex_upsample", "convex_upsample_bwd", "splat_density",
                 "softmax_expectation", "softmax_expectation_bwd",
                 "dwconv_gelu", "dwconv_gelu_bwd", "convex_upsample_bf16",
@@ -476,7 +480,9 @@ DEVICE_TIMED = ("convex_upsample", "convex_upsample_bwd", "splat_density",
                 "flow_attention_bwd_bf16", "window_attention_block_bwd_bf16",
                 "memory_attention_bwd_bf16", "sr_attention_bf16",
                 "window_attention_block_bf16",
-                "window_attention_ffn_layer_bf16")
+                "window_attention_ffn_layer_bf16",
+                "window_attention_layer_bwd_bf16",
+                "window_attention_ffn_layer_bwd_bf16")
 # kernels held to the same bits on a second call on the same inputs: the
 # tensor-core ones, J and I's backward, which add their per-block partials
 # in a fixed order, and E, whose sum is in integers
@@ -492,8 +498,9 @@ BIT_EQUAL_KERNELS = TENSOR_CORE_KERNELS + (
 # case) are printed on a line of their own: the bf16 and fp32 backwards of
 # the kernels on the tensor cores' attention backward and GEMM, and the
 # bf16 forwards of A, B, C and H, so that two trees can be shown to give
-# the same bits at the same seeds (or, for B and H, whose forward products
-# moved to the wgmma product, that they moved)
+# the same bits at the same seeds (or, for B's and H's forwards and G's
+# and H's bf16 backwards, whose products moved to the wgmma product, that
+# they moved)
 DIGEST_KERNELS = ("sr_attention_bwd", "window_attention_block_bwd",
                   "window_attention_layer_bwd",
                   "window_attention_ffn_layer_bwd", "flow_attention_bwd",
@@ -501,7 +508,9 @@ DIGEST_KERNELS = ("sr_attention_bwd", "window_attention_block_bwd",
                   "flow_attention_bwd_bf16", "window_attention_block_bwd_bf16",
                   "memory_attention_bwd_bf16", "sr_attention_bf16",
                   "window_attention_block_bf16", "flow_attention_bf16",
-                  "window_attention_ffn_layer_bf16")
+                  "window_attention_ffn_layer_bf16",
+                  "window_attention_layer_bwd_bf16",
+                  "window_attention_ffn_layer_bwd_bf16")
 DIGESTS = {}
 # the 3xTF32 GEMM alone against the fp64 product: max|err| / max|ref| (fp32
 # rounding of sums over up to 61,952 rows)
@@ -1598,15 +1607,29 @@ def gemm_shapes(batch: int) -> list:
 
 
 def wgmma_shapes(batch: int) -> list:
-    """(label, rows, C, F, form) of the wgmma product's lines: the forms B's
+    """(label, rows, C, F, form) of the wgmma product's lines (a ``dyW``
+    form's: label, rows, K, N, form): the forms B's
     and H's bf16 forwards run, at B's rows at 352^2 and H's at 512^2 with
     one clip ([2, 4, 1024, 128]: 64 row tiles of 128, so the 64-row
-    blocks), and a ragged check."""
+    blocks), and a ragged check; then the input grads dy W of G's and H's
+    bf16 backwards at the 512^2 train step's rows ([4, 4, 1024, 128];
+    ``dyW`` forms, :func:`wgmma_dyw_line`: gm Wm, [gk | gv] [Wk; Wv] with gt
+    rounded and gh W0, which the backwards run on the wgmma product; gq Wq
+    with g's bf16 addend and gx rounded and gz W2 times gelu'(h), which
+    they run on ``gemm_tf32.cuh``, where the card ran them faster) and a
+    ragged check."""
     rb, rh, c, f = 2 * batch * 4 * 484, 2 * 4 * 1024, 128, 1024
+    rg = 2 * rh
     return [("B q k v", rb, c, f, "qkv"), ("B x|msg W0^T", rb, c, f, "w0"),
             ("B u W2^T LN", rb, c, f, "w2"), ("H q k v", rh, c, f, "qkv"),
             ("H x|msg W0^T", rh, c, f, "w0"), ("H u W2^T LN", rh, c, f, "w2"),
-            ("check ragged", 1000, 100, 70, "ragged")]
+            ("check ragged", 1000, 100, 70, "ragged"),
+            ("G/H gm Wm", rg, c, c, "dyW"), ("G g + gq Wq", rg, c, c,
+                                             "dyW+g"),
+            ("G/H gkv Wkv", rg, 2 * c, c, "dyW16"),
+            ("H gz W2 gelu'", rg, c, f, "dyWgg"),
+            ("H gh W0", rg, f, 2 * c, "dyW"),
+            ("check ragged dyW", 1000, 100, 70, "dyW")]
 
 
 def wgmma_line(r, label: str, m: int, c: int, f: int, form: str,
@@ -1682,6 +1705,87 @@ def wgmma_line(r, label: str, m: int, c: int, f: int, form: str,
                 matmul_tflops=ops / mm_ms / 1e9)
 
 
+def wgmma_dyw_line(r, label: str, m: int, k: int, n: int, form: str,
+                   reps: int) -> dict:
+    """A ``gemm_wgmma`` line of an input grad dy W [m, k] x [k, n] of G's
+    and H's bf16 backwards (``gemm_dy_w``): on the wgmma product (the
+    weight split transposed) against the fp64 evaluation, fp32 within
+    ``GEMM_REL_TOL`` of max|ref| (``dyWgg``: times gelu'(h)), a bf16 output
+    (``dyW+g``: plus a bf16 addend, ``dyW16``) within one bf16 rounding
+    more, 2^-8 of max|ref|; the same bits twice. Its product kernel's
+    device time (``torch.profiler``, the split launch apart) in turns with
+    ``gemm_tf32.cuh``'s on the same product and epilogue (which decides
+    where the product runs in the backwards), and ``torch.matmul``'s dy W
+    (fp32, no epilogue) beside them; CUDA-event ms as :func:`wgmma_line`."""
+    import torch
+
+    from emip_tpu_torch.kernels.gemm import gemm_dy_w, gemm_dy_w_reference
+
+    bf = torch.bfloat16
+    kw = dict(dy=r(m, k), w=r(k, n) / k ** 0.5)
+    if form == "dyWgg":
+        kw.update(epilogue="gelu_grad", aux=r(m, n))
+    elif form == "dyW+g":
+        kw.update(add=r(m, n).to(bf), out_dtype=bf)
+    elif form == "dyW16":
+        kw.update(out_dtype=bf)
+    got = gemm_dy_w(**kw)
+    want = gemm_dy_w_reference(
+        **{key: v.double() if torch.is_tensor(v) else v
+           for key, v in kw.items() if key != "out_dtype"})
+    err = ((got.double() - want).abs().max() / want.abs().max()).item()
+    tol = GEMM_REL_TOL + (0.0 if got.dtype == torch.float32 else 2.0 ** -8)
+    tf32_err = ((gemm_dy_w(**kw, wgmma=False).double() - want).abs().max()
+                / want.abs().max()).item()
+    del want
+    if not torch.equal(gemm_dy_w(**kw), got):
+        raise AssertionError(f"gemm_wgmma ({label}): two calls differ")
+
+    def wg():
+        return gemm_dy_w(**kw)
+
+    def tf():
+        return gemm_dy_w(**kw, wgmma=False)
+
+    def product_ms(fn, prefix):
+        split = {}
+        device_ms(fn, reps, split)
+        return sum(v for key, v in split.items() if key.startswith(prefix))
+
+    a32, b = kw["dy"], kw["w"]
+    dev = [product_ms(tf, "gemm_tc_kernel"), product_ms(wg, "wg_gemm_kernel"),
+           product_ms(wg, "wg_gemm_kernel"), product_ms(tf, "gemm_tc_kernel")]
+    mm_dev = device_ms(lambda: a32 @ b, reps)
+    turns = [cuda_ms(tf, reps), cuda_ms(wg, reps), cuda_ms(wg, reps),
+             cuda_ms(tf, reps)]
+    ms, tf32_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+    mm_ms = cuda_ms(lambda: a32 @ b, reps)
+    dev_ms, tf32_dev = (dev[1] + dev[2]) / 2, (dev[0] + dev[3]) / 2
+    ops = 2.0 * m * n * k
+    size = nbytes(*(v for v in kw.values() if torch.is_tensor(v)), got)
+    bound = max(ops / (PEAK_TF32_FLOPS / 3), size / PEAK_BYTES_PER_S) * 1e3
+    ok = err <= tol and tf32_err <= tol and dev_ms >= bound
+    log(f"gemm_wgmma {label:16s} {form:6s} [{m},{k}]x[{k},{n}] "
+        f"rel_err={err:.2e} (gemm_tf32 {tf32_err:.2e}, tol {tol:.1e}) "
+        f"device ms in turns gemm_tf32 / wgmma / wgmma / gemm_tf32 "
+        + " / ".join(f"{d:.4f}" for d in dev)
+        + f" ({ops / dev_ms / 1e9:.1f} against {ops / tf32_dev / 1e9:.1f} "
+        f"TFLOP/s; {'wgmma' if dev_ms < tf32_dev else 'gemm_tf32'} faster) "
+        f"matmul_device_ms={mm_dev:.4f} ({ops / mm_dev / 1e9:.1f}) "
+        f"ms={ms:.4f} gemm_tf32_ms={tf32_ms:.4f} matmul_ms={mm_ms:.4f} "
+        f"bound_ms={bound:.4f} {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"gemm_wgmma ({label}): rel_err={err}, "
+                             f"{tf32_err}, device ms {dev_ms} against bound "
+                             f"{bound}")
+    return dict(m=m, k=k, n=n, form=form, rel_err=err,
+                gemm_tf32_rel_err=tf32_err, device_ms=dev,
+                matmul_device_ms=mm_dev, ms=ms, gemm_tf32_ms=tf32_ms,
+                matmul_ms=mm_ms, bound_ms=bound, tflops=ops / dev_ms / 1e9,
+                gemm_tf32_tflops=ops / tf32_dev / 1e9,
+                matmul_tflops=ops / mm_dev / 1e9)
+
+
 def gemm_phase(batch: int, device, reps: int,
                wgmma_only: bool = False) -> dict:
     """The 3xTF32 GEMM alone at each shape kernels B and A give it: the
@@ -1697,7 +1801,8 @@ def gemm_phase(batch: int, device, reps: int,
     out = {}
     r = seeded_randn(SEED + 22, device)
     for label, m, c, f, form in wgmma_shapes(batch):
-        out["wgmma " + label] = wgmma_line(r, label, m, c, f, form, reps)
+        line = wgmma_dyw_line if form.startswith("dyW") else wgmma_line
+        out["wgmma " + label] = line(r, label, m, c, f, form, reps)
     if wgmma_only:
         return out
     r = seeded_randn(SEED + 21, device)

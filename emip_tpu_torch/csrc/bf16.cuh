@@ -24,10 +24,6 @@
 //                    it also ends kernel G's bf16 forward, with or without
 //                    the residual, into a bf16 output (B's output LayerNorm
 //                    is the epilogue of its W2 product, gemm_wgmma.cuh).
-//   bf16_to_f32      an elementwise upcast (the bf16 backwards of G and H
-//                    upcast their inputs to recompute).
-//   f32_to_bf16      an elementwise rounding (those backwards round their
-//                    grads once, at the end).
 
 #pragma once
 
@@ -132,33 +128,6 @@ inline cudaError_t layernorm_self_bf16(const float* x, const bf16* res,
   layernorm_self_bf16_kernel<OUT>
       <<<blocks, 32 * kLnRowsPerBlock, 0, stream>>>(x, res, gamma, beta, out,
                                                     ldo, rows, C, eps);
-  return cudaGetLastError();
-}
-
-__global__ void bf16_to_f32_kernel(const __nv_bfloat16* __restrict__ in,
-                                   float* __restrict__ out, long long n) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) out[i] = __bfloat162float(in[i]);
-}
-
-inline cudaError_t bf16_to_f32(const bf16* in, float* out, long long n,
-                               cudaStream_t stream) {
-  if (n == 0) return cudaSuccess;
-  bf16_to_f32_kernel<<<ceil_div(n, 256), 256, 0, stream>>>(in, out, n);
-  return cudaGetLastError();
-}
-
-__global__ void f32_to_bf16_kernel(const float* __restrict__ in,
-                                   __nv_bfloat16* __restrict__ out,
-                                   long long n) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) out[i] = __float2bfloat16_rn(in[i]);
-}
-
-inline cudaError_t f32_to_bf16(const float* in, bf16* out, long long n,
-                               cudaStream_t stream) {
-  if (n == 0) return cudaSuccess;
-  f32_to_bf16_kernel<<<ceil_div(n, 256), 256, 0, stream>>>(in, out, n);
   return cudaGetLastError();
 }
 

@@ -67,7 +67,7 @@ extern "C" int emip_gemm_wgmma(const void* a0, long long lda0, int k0,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long nk = (long long)N * (k0 + k1);
   WgSplitArgs sa;
-  sa.seg[0] = WgSplitSeg{w, wsplit, wsplit + nk, nk};
+  sa.seg[0] = WgSplitSeg{w, wsplit, wsplit + nk, N, k0 + k1, k0 + k1, false};
   cudaError_t err = wg_split_weights(sa, 1, s);
   if (err != cudaSuccess) return (int)err;
   const WgSource s0{a0, lda0, k0}, s1{a1, lda1, k1};
@@ -87,6 +87,62 @@ extern "C" int emip_gemm_wgmma(const void* a0, long long lda0, int k0,
         e, s);
   else
     err = cudaErrorInvalidValue;
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// An input grad alone (G's and H's bf16 backwards): out [M, N] (row stride
+// ldo) = epi(dy w) for dy [M, K] fp32 (row stride ldy) and an nn.Linear
+// weight w [K, N] fp32; epi 6: times gelu'(aux [M, N], row stride ldo);
+// epi 7: (add +) and out fp32 or rounded to bf16 (out_bf16), add [M, N]
+// fp32 or bf16 (add_bf16, row stride ldo) or null. On the wgmma product
+// (wgmma != 0) w is split transposed into wsplit [2N, K] (one launch) and
+// the product is the K-major dy (w^T)^T; otherwise the 3xTF32 GEMM of
+// gemm_tf32.cuh reads w in place, with the same epilogue (kEpiGeluGrad,
+// kEpiAdd), so that the two can be compared at one shape.
+extern "C" int emip_gemm_dyw(const float* dy, long long ldy, int K,
+                             const float* w, float* wsplit, int M, int N,
+                             int epi, float* aux, const void* add,
+                             int add_bf16, int out_bf16, void* out,
+                             long long ldo, int wgmma, void* stream) {
+  using namespace emip;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if ((epi != kWgEpiGeluGrad && epi != kWgEpiAdd) ||
+      (epi == kWgEpiGeluGrad && (out_bf16 || add)))
+    return (int)cudaErrorInvalidValue;
+  if (!wgmma) {
+    GemmArgs g = gemm_args(dy, ldy, 1, w, N, 1, static_cast<float*>(out), ldo,
+                           M, N, K);
+    g.aux = aux;
+    g.ldaux = ldo;
+    g.add = add;
+    g.ldadd = ldo;
+    g.add_bf16 = add_bf16 != 0;
+    g.c_bf16 = out_bf16 != 0;
+    err = gemm(g, epi == kWgEpiGeluGrad ? kEpiGeluGrad : kEpiNone, s);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
+  }
+  const long long nk = (long long)N * K;
+  WgSplitArgs sa;
+  sa.seg[0] = WgSplitSeg{w, wsplit, wsplit + nk, K, N, K, true};
+  if ((err = wg_split_weights(sa, 1, s)) != cudaSuccess) return (int)err;
+  const WgSource a{dy, ldy, K}, no{nullptr, 0, 0};
+  WgEpilogue e{};
+  e.aux = aux;
+  e.ldaux = ldo;
+  e.add = add;
+  e.ldadd = ldo;
+  e.add_cols = N;
+  e.add_bf16 = add_bf16 != 0;
+  e.out_bf16 = out_bf16 != 0;
+  const int bn = N % 128 ? 64 : 128;
+  err = epi == kWgEpiGeluGrad
+            ? wg_linear<float, float, kWgEpiGeluGrad>(a, no, N, wsplit, M, N,
+                                                      bn, out, ldo, e, s)
+            : wg_linear<float, float, kWgEpiAdd>(a, no, N, wsplit, M, N, bn,
+                                                 out, ldo, e, s);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -1,10 +1,10 @@
 // The GEMM of kernels A, B, G and H on the tensor cores, as 3xTF32
 // (fp32-grade: the products of mma_tf32.cuh), on mma.sync. Its callers: the
 // fp32 forwards of B, G and H, A's GEMMs, and every backward (the bf16
-// backwards' fp32 recompute included). B's and H's bf16 forwards run their
-// x W^T products on wgmma instead (gemm_wgmma.cuh); the products here that
-// read an operand M- or N-major (input and weight grads) need a transposed
-// staging before TF32 wgmma can take them.
+// backwards' fp32 recompute included). B's and H's bf16 forwards and G's
+// and H's bf16 backwards run their x W^T and dy W products on wgmma instead
+// (gemm_wgmma.cuh, dy W on the transposed weight); the weight grads dY^T X,
+// which read both operands M- or N-major, stay here.
 //
 //   gemm            C[M,N] (+)= A[M,K] . B[K,N] (+ bias[N]), with both
 //                   operands addressed through two strides, so a torch
@@ -492,12 +492,15 @@ cudaError_t gemm_splitk(GemmArgs g, Workspace ws, cudaStream_t stream) {
 }
 
 // dW = dY^T X for y = x W^T: dY [rows, N] (leading dim ldy), X [rows, K]
-// (leading dim ldx), dW [N, K] row-major (a torch nn.Linear weight grad).
+// (leading dim ldx), dW [N, K] row-major (a torch nn.Linear weight grad;
+// leading dim lddw, K where 0: a block of columns of a wider weight).
 inline cudaError_t weight_grad(const float* dy, int ldy, const float* x,
                                int ldx, float* dw, int N, int K, int rows,
-                               Workspace ws, cudaStream_t stream) {
+                               Workspace ws, cudaStream_t stream,
+                               int lddw = 0) {
   if (!dw) return cudaSuccess;
-  GemmArgs g = gemm_args(dy, 1, ldy, x, ldx, 1, dw, K, N, K, rows);
+  GemmArgs g =
+      gemm_args(dy, 1, ldy, x, ldx, 1, dw, lddw ? lddw : K, N, K, rows);
   return gemm_splitk(g, ws, stream);
 }
 
@@ -538,11 +541,12 @@ cudaError_t linear_exact(const TX* x, int ldx, const TW* W,
 template <typename TY, typename TX, typename OUT>
 cudaError_t weight_grad_exact(const TY* dy, int ldy, const TX* x, int ldx,
                               OUT* dw, int N, int K, int rows, Workspace ws,
-                              cudaStream_t stream) {
+                              cudaStream_t stream, int lddw = 0) {
   if (!dw) return cudaSuccess;
   GemmArgs g = gemm_args(reinterpret_cast<const float*>(dy), 1, ldy,
                          reinterpret_cast<const float*>(x), ldx, 1,
-                         reinterpret_cast<float*>(dw), K, N, K, rows);
+                         reinterpret_cast<float*>(dw), lddw ? lddw : K, N, K,
+                         rows);
   g.c_bf16 = std::is_same_v<OUT, __nv_bfloat16>;
   return gemm_splitk<GemmElem<TY>, GemmElem<TX>>(g, ws, stream);
 }

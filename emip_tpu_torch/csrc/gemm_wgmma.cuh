@@ -1,8 +1,9 @@
-// The forward product of kernels B and H in the bf16 band on Hopper's
-// warpgroup tensor cores: y = epilogue(sum_s A_s W_s^T) as 3xTF32, the
-// products of _block_kernel (after its self layer) and _ffn_kernel of
-// emip_tpu/ops/pallas/window_attention.py: the cross layer's q, k, v
-// projections and its merge Wm, and the FFN's [x, msg] W0 and u W2.
+// The product of kernels B's and H's bf16 forwards and of G's and H's bf16
+// backwards on Hopper's warpgroup tensor cores: y = epilogue(sum_s A_s
+// W_s^T) as 3xTF32, the products of _block_kernel (after its self layer),
+// _ffn_kernel, _bwd_kernel and _ffn_bwd_kernel of
+// emip_tpu/ops/pallas/window_attention.py: the q, k, v projections and the
+// merge Wm, the FFN's [x, msg] W0 and u W2, and the input grads dy W.
 //
 //   wg_linear       A_s [M, K_s] row-major (leading dimension of its own;
 //                   fp32, or bf16 read as it lies), W an nn.Linear weight
@@ -13,10 +14,18 @@
 //                   last C, summed in the order of the K tiles, no concat
 //                   buffer) or share K and split the columns (q from x, k
 //                   and v from t: one launch over the stacked [Wq; Wk; Wv]).
-//                   Epilogues: none; exact GELU (W0); a row LayerNorm where
-//                   one block's column tile holds the whole row (N = C: Wm
-//                   into msg); the same LayerNorm plus a bf16 residual and
-//                   one rounding to bf16 (W2: out = bf16(x + LN2(z))).
+//                   Epilogues: none; exact GELU (W0), also keeping the
+//                   pre-activation h (the backwards' recompute); a row
+//                   LayerNorm where one block's column tile holds the whole
+//                   row (N = C: Wm into msg), also keeping the pre-LN m; the
+//                   same LayerNorm plus a bf16 residual and one rounding to
+//                   bf16 (W2: out = bf16(x + LN2(z))); the GELU derivative
+//                   at h (gh = (gz W2) gelu'(h)); an fp32 or bf16 addend
+//                   over the first columns and an output in fp32 or
+//                   rounded to bf16 once (gx = bf16(g + gq Wq)).
+//                   An input grad dy W (W [N, K]) is the K-major dy (W^T)^T:
+//                   wg_split_weights writes W^T's halves (a transposing
+//                   segment), once per call.
 //
 // What bounds it: operations, 2 M N K per product, taken as three TF32
 // products (a.lo b.hi + a.hi b.lo + a.hi b.hi, the small terms first, as
@@ -25,9 +34,10 @@
 // A_EXACT leaves it out there). Only wgmma reaches the card's full
 // tensor-core rate, and TF32 wgmma takes both operands K-major; the
 // forward's x W^T is K-major on both sides (A rows along K, W rows along
-// K), so it is here. The input and weight grads read one operand M- or
-// N-major and stay on mma.sync in gemm_tf32.cuh until a transposed staging
-// exists.
+// K), so it is here; so is an input grad dy W on the transposed weight,
+// split once per call (a weight is at most 1024 x 256). The weight grads
+// dY^T X read both operands M- or N-major and stay on mma.sync in
+// gemm_tf32.cuh.
 //
 // Design. A block is one producer warp and WG consumer warpgroups (WG = 2:
 // 128 rows; 1: 64 rows, where 128-row tiles would leave SMs idle) over a
@@ -72,14 +82,27 @@ namespace {
 constexpr int kWgBK = 32;  // K tile: 32 fp32, 128 bytes
 constexpr int kWgStages = 4;
 
-enum { kWgEpiNone = 0, kWgEpiGelu = 1, kWgEpiLn = 2, kWgEpiLnOut = 3 };
+// each epilogue is an instantiation of its own, so that the others keep
+// their registers
+enum {
+  kWgEpiNone = 0,
+  kWgEpiGelu = 1,
+  kWgEpiLn = 2,
+  kWgEpiLnOut = 3,
+  kWgEpiGeluKeep = 4,  // GELU, the pre-activation into aux
+  kWgEpiLnKeep = 5,    // LayerNorm, the pre-LN row into aux
+  kWgEpiGeluGrad = 6,  // times gelu'(aux)
+  kWgEpiAdd = 7,       // (add +), fp32 or bf16 out
+};
 
 // One launch's operands and epilogue: TMA maps of the two A sources and of
 // the split weight [2N, k0 + k1] (lo rows from w_lo = N); columns at or past
 // n_switch read a[1] over k0 (k1 = 0), else k1 > 0 puts a[1] after a[0]
 // along K. out [M, N] (leading dimension ldo): fp32, or bf16 for
-// kWgEpiLnOut; gamma, beta [N] for the LayerNorms; res [M, N] bf16 (ldres)
-// for kWgEpiLnOut.
+// kWgEpiLnOut and out_bf16; gamma, beta [N] for the LayerNorms; res [M, N]
+// bf16 (ldres) for kWgEpiLnOut; aux [M, N] fp32 (ldaux) kept or read by the
+// Keep and GeluGrad epilogues; add [M, add_cols] fp32 or bf16 (ldadd) or
+// null for kWgEpiAdd.
 struct WgArgs {
   CUtensorMap a[2];
   CUtensorMap w;
@@ -91,6 +114,12 @@ struct WgArgs {
   float eps;
   const __nv_bfloat16* res;
   long long ldres;
+  float* aux;
+  long long ldaux;
+  const void* add;
+  long long ldadd;
+  int add_cols;
+  bool add_bf16, out_bf16;
 };
 
 template <int BN, int WG>
@@ -368,12 +397,14 @@ wg_gemm_kernel(const __grid_constant__ WgArgs g) {
   for (int kt = tiles0; kt < tiles; ++kt) consume(TA1{}, kt);
 
   // rows r0 (h = 0) and r0 + 8 (h = 1); columns col0 + 8 j + 2 tq, + 1
+  constexpr bool kLn =
+      EPI == kWgEpiLn || EPI == kWgEpiLnOut || EPI == kWgEpiLnKeep;
   const int r0 = row0 + 64 * wg + 16 * warp + gq;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = r0 + 8 * h;
     float mu = 0.f, inv = 0.f;
-    if constexpr (EPI == kWgEpiLn || EPI == kWgEpiLnOut) {
+    if constexpr (kLn) {
       float s = 0.f;
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j)
@@ -399,12 +430,42 @@ wg_gemm_kernel(const __grid_constant__ WgArgs g) {
       const int col = col0 + 8 * j + 2 * tq;
       if (col >= g.N) continue;
       float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
-      if constexpr (EPI == kWgEpiGelu) {
+      const long long at = (long long)r * g.ldaux + col;
+      if constexpr (EPI == kWgEpiGeluKeep || EPI == kWgEpiLnKeep)
+        *reinterpret_cast<float2*>(g.aux + at) = make_float2(v0, v1);
+      if constexpr (EPI == kWgEpiGelu || EPI == kWgEpiGeluKeep) {
         v0 = gelu_exact(v0);
         v1 = gelu_exact(v1);
-      } else if constexpr (EPI == kWgEpiLn || EPI == kWgEpiLnOut) {
+      } else if constexpr (kLn) {
         v0 = (v0 - mu) * inv * g.gamma[col] + g.beta[col];
         v1 = (v1 - mu) * inv * g.gamma[col + 1] + g.beta[col + 1];
+      } else if constexpr (EPI == kWgEpiGeluGrad) {
+        const float2 pre = *reinterpret_cast<const float2*>(g.aux + at);
+        v0 *= gelu_grad(pre.x);
+        v1 *= gelu_grad(pre.y);
+      } else if constexpr (EPI == kWgEpiAdd) {
+        if (g.add && col < g.add_cols) {
+          const long long ad = (long long)r * g.ldadd + col;
+          if (g.add_bf16) {
+            const __nv_bfloat162 a2 = *reinterpret_cast<const __nv_bfloat162*>(
+                static_cast<const __nv_bfloat16*>(g.add) + ad);
+            v0 = __low2float(a2) + v0;
+            v1 = __high2float(a2) + v1;
+          } else {
+            const float2 a2 = *reinterpret_cast<const float2*>(
+                static_cast<const float*>(g.add) + ad);
+            v0 = a2.x + v0;
+            v1 = a2.y + v1;
+          }
+        }
+      }
+      if constexpr (EPI == kWgEpiAdd) {
+        if (g.out_bf16) {
+          *reinterpret_cast<__nv_bfloat162*>(
+              static_cast<__nv_bfloat16*>(g.out) + (long long)r * g.ldo +
+              col) = __floats2bfloat162_rn(v0, v1);
+          continue;
+        }
       }
       if constexpr (EPI == kWgEpiLnOut) {
         const __nv_bfloat162 x2 = *reinterpret_cast<const __nv_bfloat162*>(
@@ -485,44 +546,63 @@ struct WgSource {
   int k;
 };
 
-// What the epilogue reads (null where it reads nothing).
+// What the epilogue reads or keeps besides out (null where it reads
+// nothing); see WgArgs.
 struct WgEpilogue {
   const float* gamma;
   const float* beta;
   const __nv_bfloat16* res;
   long long ldres;
   float eps;
+  float* aux;
+  long long ldaux;
+  const void* add;
+  long long ldadd;
+  int add_cols;
+  bool add_bf16, out_bf16;
 };
 
-// Splits up to six fp32 weights into their TF32 halves: seg i's n values
-// of src go to hi[0..n) (tf32 rounded) and lo[0..n) (the fp32 rest, which
-// the tensor core truncates), as tf32_split splits a fragment.
+// Splits up to ten fp32 weights into their TF32 halves: element (r, c)
+// of seg i's src [rows, cols] (row-major) goes to hi (tf32 rounded) and lo
+// (the fp32 rest, which the tensor core truncates), as tf32_split splits a
+// fragment, at r * ld + c, or transposed at c * ld + r (the W^T of an
+// input grad; a stacked weight's blocks side by side through ld).
+constexpr int kWgSplitSegs = 10;
 struct WgSplitSeg {
   const float* src;
   float* hi;
   float* lo;
-  long long n;
+  int rows, cols;
+  long long ld;
+  bool transpose;
 };
 struct WgSplitArgs {
-  WgSplitSeg seg[6];
+  WgSplitSeg seg[kWgSplitSegs];
 };
 
 __global__ void wg_split_kernel(WgSplitArgs a) {
   const WgSplitSeg s = a.seg[blockIdx.y];
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < s.n; i += (long long)gridDim.x * blockDim.x) {
+  const long long n = (long long)s.rows * s.cols;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    const long long r = i / s.cols, c = i % s.cols;
+    const long long at = s.transpose ? c * s.ld + r : r * s.ld + c;
     uint32_t hi, lo;
     tf32_split(s.src[i], hi, lo);
-    s.hi[i] = __uint_as_float(hi);
-    s.lo[i] = __uint_as_float(lo);
+    s.hi[at] = __uint_as_float(hi);
+    s.lo[at] = __uint_as_float(lo);
   }
 }
 
 inline cudaError_t wg_split_weights(const WgSplitArgs& a, int count,
                                     cudaStream_t stream) {
   long long most = 0;
-  for (int i = 0; i < count; ++i) most = a.seg[i].n > most ? a.seg[i].n : most;
-  if (count < 1 || count > 6 || most == 0) return cudaErrorInvalidValue;
+  for (int i = 0; i < count; ++i) {
+    const long long n = (long long)a.seg[i].rows * a.seg[i].cols;
+    most = n > most ? n : most;
+  }
+  if (count < 1 || count > kWgSplitSegs || most == 0)
+    return cudaErrorInvalidValue;
   const int blocks = (int)(most < 256LL * 256 ? (most + 255) / 256 : 256);
   wg_split_kernel<<<dim3(blocks, count), 256, 0, stream>>>(a);
   return cudaGetLastError();
@@ -548,21 +628,30 @@ cudaError_t wg_launch(const WgArgs& g, cudaStream_t stream) {
 // TA1: float, or uint16_t for bf16 bits. wsplit: W [N, K] split by
 // wg_split_weights into [2N, K] (K = k0 + a1.k). bn: 128, or 64 (the
 // LayerNorm epilogues need bn = N, the split along N n_switch % bn = 0).
+// A single source passes n_switch >= N.
 template <typename TA0, typename TA1, int EPI>
 cudaError_t wg_linear(WgSource a0, WgSource a1, int n_switch,
                       const float* wsplit, int M, int N, int bn, void* out,
                       long long ldo, WgEpilogue e, cudaStream_t stream) {
   const bool along_k = a1.p && n_switch >= N;
   const int kw = a0.k + (along_k ? a1.k : 0);
+  constexpr bool kAux = EPI == kWgEpiGeluKeep || EPI == kWgEpiLnKeep ||
+                        EPI == kWgEpiGeluGrad;
+  constexpr bool kLn =
+      EPI == kWgEpiLn || EPI == kWgEpiLnOut || EPI == kWgEpiLnKeep;
   if (M == 0 || N == 0) return cudaSuccess;
   if ((bn != 64 && bn != 128) || a0.k < 1 ||
       (along_k && (a0.k % kWgBK || a1.k < 1)) ||
       (a1.p && !along_k && n_switch % bn) || (!a1.p && n_switch < N) ||
       ldo % 2 || N % 2 || kw % 4 ||
       reinterpret_cast<uintptr_t>(out) % 8 ||
-      ((EPI == kWgEpiLn || EPI == kWgEpiLnOut) && N != bn) ||
-      (EPI == kWgEpiLnOut && (!e.res || e.ldres % 2)) ||
-      ((EPI == kWgEpiLn || EPI == kWgEpiLnOut) && (!e.gamma || !e.beta)))
+      (kLn && N != bn) || (EPI == kWgEpiLnOut && (!e.res || e.ldres % 2)) ||
+      (kLn && (!e.gamma || !e.beta)) ||
+      (kAux && (!e.aux || e.ldaux % 2 ||
+                reinterpret_cast<uintptr_t>(e.aux) % 8)) ||
+      (EPI == kWgEpiAdd && e.add &&
+       (e.ldadd % 2 || e.add_cols % 2 ||
+        reinterpret_cast<uintptr_t>(e.add) % (e.add_bf16 ? 4 : 8))))
     return cudaErrorInvalidValue;
   // two warpgroups (128 rows) where that fills the card, else one
   const bool two = (long long)ceil_div(M, 128) * ceil_div(N, bn) >= kSmCount;
@@ -594,6 +683,13 @@ cudaError_t wg_linear(WgSource a0, WgSource a1, int n_switch,
   g.eps = e.eps;
   g.res = e.res;
   g.ldres = e.ldres;
+  g.aux = e.aux;
+  g.ldaux = e.ldaux;
+  g.add = e.add;
+  g.ldadd = e.ldadd;
+  g.add_cols = e.add_cols;
+  g.add_bf16 = e.add_bf16;
+  g.out_bf16 = EPI == kWgEpiAdd && e.out_bf16;
   if (bn == 128)
     return two ? wg_launch<TA0, TA1, 128, 2, EPI>(g, stream)
                : wg_launch<TA0, TA1, 128, 1, EPI>(g, stream);

@@ -19,7 +19,8 @@
 // What bounds them on the card: arithmetic. The projections and the FFN
 // (256 -> 1024 -> 128) are ~85% of B's FLOPs and run as the shared 3xTF32
 // GEMM on the tensor cores (gemm_tf32.cuh; in the bf16 forwards of B and H
-// the wgmma product of gemm_wgmma.cuh) over all B*K*K*T rows at once;
+// and, but for the weight grads, in the bf16 backwards of G and H the
+// wgmma product of gemm_wgmma.cuh) over all B*K*K*T rows at once;
 // the attention forward is attention_fwd_tc of mma_tf32.cuh (3xTF32 on the
 // tensor cores; its tilings and where the shift mask is read in
 // attention.cu): a block owns 256 query rows of one window and streams
@@ -77,10 +78,14 @@
 // K tiles first, two terms, then msg's, three; no concat buffer), out =
 // bf16(x + LN2(u W2^T)) in W2's epilogue: 6 launches (7 where the
 // attention splits its keys), no upcast scratch.
-// Their bf16 backwards (the bf16 train step at 512^2) follow B's below:
-// the inputs and the gradient upcast, the layer recomputed in fp32 (the
-// forward's bf16 buffers are not the JAX backward's), the fp32 backward of
-// the entry point, gx and gt rounded once.
+// Their bf16 backwards (the bf16 train step at 512^2) recompute the layer
+// in fp32 (the forward's bf16 buffers are not the JAX backward's) and run
+// its backward, gx and gt rounded once, as B's below; they read x, t and
+// the gradient as bf16 where they lie and run the recompute's x W^T and
+// the input grads dy W on the wgmma product (dy W on the transposed
+// weights, split once a call), the attention on attention_fwd_tc (with its
+// statistics) and attention_bwd_tc, the weight grads on gemm_tf32.cuh: no
+// upcast scratch, no conversion launch, no concat buffer.
 //
 // B's bf16 backward (the bf16 train step), as the JAX kernel
 // (_block_bwd_kernel) computes it with a bf16 storage dtype: the self
@@ -163,33 +168,79 @@ cudaError_t message_fwd(const TX* xq, int ldxq, const TT* t, LayerWeights w,
   return linear(o, C, w.wm, nullptr, m, C, R, C, C, false, s);
 }
 
+// The attention backward of a layer on its forward's buffers (qkv [R, 3C],
+// o [R, C], stats its row max, then row sum) for go, the gradient of o:
+// dq (want_q) and dk, dv (want_kv) into gqkv [R, 3C]. attention_bwd_tc of
+// mma_tf32.cuh (3xTF32) with the window mask.
+cudaError_t layer_attention_bwd(const float* qkv, const float* o,
+                                const float* go, const float* stats,
+                                bool want_q, bool want_kv, float* gqkv,
+                                Windows d, Workspace ws, cudaStream_t s) {
+  const int C = d.C, C3 = 3 * C, C2 = 2 * C;
+  const long long sb3 = (long long)d.T * C3, sb1 = (long long)d.T * C;
+  const AttnOperand q{qkv, sb3, C3}, k{qkv + C, sb3, C3},
+      v{qkv + C2, sb3, C3}, oo{o, sb1, C}, goo{go, sb1, C};
+  const AttnGrad dq{want_q ? gqkv : nullptr, sb3, C3},
+      dk{want_kv ? gqkv + C : nullptr, sb3, C3},
+      dv{want_kv ? gqkv + C2 : nullptr, sb3, C3};
+  const float* row_sum = stats + (long long)d.rows();
+  const float scale = 1.0f / sqrtf((float)C);
+  if (C == 128)
+    return attention_bwd_tc<128, 128, kWinBwdWarps, kWinBwdMt, kWinBwdStr,
+                            true>(
+        q, k, v, oo, goo, nullptr, d.mask, d.mask_nw, stats, row_sum, dq, dk,
+        dv, d.windows, 1, d.T, d.T, scale, ws, s);
+  if (C == 64)
+    return attention_bwd_tc<64, 64, kWinBwdWarps, kWinBwdMt, kWinBwdStr,
+                            true>(
+        q, k, v, oo, goo, nullptr, d.mask, d.mask_nw, stats, row_sum, dq, dk,
+        dv, d.windows, 1, d.T, d.T, scale, ws, s);
+  return cudaErrorInvalidValue;
+}
+
 // An input grad that one product finishes: fp32 at p, or with bf16 rounded
-// to bf16 there in its epilogue; add (fp32, or null) is added first.
+// to bf16 there in its epilogue; add (fp32, bf16 with add_bf16, or null;
+// leading dimension ldadd, or the grad's width where 0) is added first.
 struct GradOut {
   void* p;  // null: not wanted
   bool bf16;
-  const float* add;
+  const void* add;
+  bool add_bf16 = false;
+  long long ldadd = 0;
 };
+
+// out = (out.add +) dy W for W [N, K] read in place, on gemm_tf32.cuh: dy
+// [R, N] (leading dimension ldy), out [R, K].
+cudaError_t input_grad_out(const float* dy, int ldy, const float* W, int N,
+                           int K, GradOut out, int R, cudaStream_t s) {
+  GemmArgs a = gemm_args(dy, ldy, 1, W, K, 1, static_cast<float*>(out.p), K,
+                         R, K, N);
+  a.c_bf16 = out.bf16;
+  a.add = out.add;
+  a.ldadd = out.ldadd ? out.ldadd : K;
+  a.add_bf16 = out.add_bf16;
+  return gemm(a, kEpiNone, s);
+}
 
 // Backward of msg = LN1(m) with m from message_fwd (stats its attention's
 // row statistics). gmsg [R, C] (leading dimension ldg) is the gradient of
-// msg. Writes the weight grads that are set, gxq (+)= gq Wq if gxq is set,
-// and gt = (gt.add +) gk Wk + gv Wv if gt is set. In B's self layer
-// (self_layer: xq is t, and q, k and v all come from it) gxq is null and
-// gt = (gt.add +) gq Wq + gk Wk + gv Wv. gm, go [R, C] and gqkv [R, 3C]
-// are scratch; the stacked weights come from ws. xq and t as in
-// message_fwd: an exact one makes its weight grads two-term products.
+// msg. Writes the weight grads that are set, gxq = (gxq.add +) gq Wq (or
+// gxq += gq Wq with accumulate_xq) if gxq is set, and gt = (gt.add +) gk
+// Wk + gv Wv if gt is set. In B's self layer (self_layer: xq is t, and q,
+// k and v all come from it) gxq is unset and gt = (gt.add +) gq Wq + gk Wk
+// + gv Wv. gm, go [R, C] and gqkv [R, 3C] are scratch; the stacked weights
+// come from ws. xq and t as in message_fwd: an exact one makes its weight
+// grads two-term products.
 template <typename TX, typename TT>
 cudaError_t message_bwd(const TX* xq, int ldxq, const TT* t, LayerWeights w,
                         const float* s1, Windows d, const float* qkv,
                         const float* o, const float* m, const float* stats,
-                        const float* gmsg, int ldg, LayerGrads g, float* gxq,
+                        const float* gmsg, int ldg, LayerGrads g, GradOut gxq,
                         bool accumulate_xq, GradOut gt, bool self_layer,
                         float* gm, float* go, float* gqkv, float eps,
                         Workspace ws, cudaStream_t s) {
   const int R = d.rows(), C = d.C, C3 = 3 * C, C2 = 2 * C;
-  const long long sb3 = (long long)d.T * C3, sb1 = (long long)d.T * C;
-  const bool want_q = gxq || g.gwq || (self_layer && gt.p),
+  const bool want_q = gxq.p || g.gwq || (self_layer && gt.p),
              want_kv = gt.p || g.gwk || g.gwv;
   cudaError_t err;
   EMIP_TRY(layernorm_bwd(m, C, gmsg, ldg, s1, gm, C, false, g.gs1, g.gb1, R,
@@ -197,26 +248,8 @@ cudaError_t message_bwd(const TX* xq, int ldxq, const TT* t, LayerWeights w,
   EMIP_TRY(weight_grad(gm, C, o, C, g.gwm, C, C, R, ws, s));
   if (!want_q && !want_kv) return cudaSuccess;
   EMIP_TRY(input_grad(gm, C, w.wm, C, C, go, C, R, false, s));
-  const AttnOperand q{qkv, sb3, C3}, k{qkv + C, sb3, C3},
-      v{qkv + C2, sb3, C3}, oo{o, sb1, C}, goo{go, sb1, C};
-  const AttnGrad dq{want_q ? gqkv : nullptr, sb3, C3},
-      dk{want_kv ? gqkv + C : nullptr, sb3, C3},
-      dv{want_kv ? gqkv + C2 : nullptr, sb3, C3};
-  const float* row_sum = stats + (long long)R;
-  const float scale = 1.0f / sqrtf((float)C);
-  if (C == 128)
-    err = attention_bwd_tc<128, 128, kWinBwdWarps, kWinBwdMt, kWinBwdStr,
-                           true>(
-        q, k, v, oo, goo, nullptr, d.mask, d.mask_nw, stats, row_sum, dq, dk,
-        dv, d.windows, 1, d.T, d.T, scale, ws, s);
-  else if (C == 64)
-    err = attention_bwd_tc<64, 64, kWinBwdWarps, kWinBwdMt, kWinBwdStr,
-                           true>(
-        q, k, v, oo, goo, nullptr, d.mask, d.mask_nw, stats, row_sum, dq, dk,
-        dv, d.windows, 1, d.T, d.T, scale, ws, s);
-  else
-    err = cudaErrorInvalidValue;
-  if (err != cudaSuccess) return err;
+  EMIP_TRY(layer_attention_bwd(qkv, o, go, stats, want_q, want_kv, gqkv, d,
+                               ws, s));
   EMIP_TRY(weight_grad_exact(gqkv, C3, xq, ldxq, g.gwq, C, C, R, ws, s));
   EMIP_TRY(weight_grad_exact(gqkv + C, C3, t, C, g.gwk, C, C, R, ws, s));
   EMIP_TRY(weight_grad_exact(gqkv + C2, C3, t, C, g.gwv, C, C, R, ws, s));
@@ -232,8 +265,12 @@ cudaError_t message_bwd(const TX* xq, int ldxq, const TT* t, LayerWeights w,
         return nullptr;
     return st;
   };
-  if (gxq)
-    EMIP_TRY(input_grad(gqkv, C3, w.wq, C, C, gxq, C, R, accumulate_xq, s));
+  if (gxq.p && accumulate_xq) {
+    EMIP_TRY(input_grad(gqkv, C3, w.wq, C, C, static_cast<float*>(gxq.p), C,
+                        R, true, s));
+  } else if (gxq.p) {
+    EMIP_TRY(input_grad_out(gqkv, C3, w.wq, C, C, gxq, R, s));
+  }
   if (gt.p) {
     const float* const wqkv[3] = {w.wq, w.wk, w.wv};
     const int first = self_layer ? 0 : 1;
@@ -334,12 +371,14 @@ cudaError_t block_bwd(const TX* x, const TT* t, LayerWeights w1,
                    gx1, gmsg, R, C, F, eps, all, s));
   // msg = LN1c(message(x1, t)): q from x1, k and v from t
   EMIP_TRY(message_bwd(reinterpret_cast<const TX1*>(cat), C2, t, w2, sa, d,
-                       qkv2, o2, m2, stats2, gmsg, C, g2, gx1, true, gt,
-                       false, gm, go, gqkv, eps, all, s));
+                       qkv2, o2, m2, stats2, gmsg, C, g2,
+                       GradOut{gx1, false, nullptr}, true, gt, false, gm, go,
+                       gqkv, eps, all, s));
   // x1 = x + LN1s(message(x, x)): q, k and v from x; gx = gx1 + their grads
   gx.add = gx1;
   return message_bwd(x, C, x, w1, s1, d, qkv1, o1, m1, stats1, gx1, C, g1,
-                     nullptr, false, gx, true, gm, go, gqkv, eps, all, s);
+                     GradOut{nullptr, false, nullptr}, false, gx, true, gm,
+                     go, gqkv, eps, all, s);
 }
 
 // H's layer in the bf16 band (B's cross layer and FFN on its bf16 x1): out
@@ -361,12 +400,12 @@ cudaError_t cross_ffn_bf16(const bf16* x, const bf16* t, LayerWeights w,
   float* s0 = sm + 2 * cc;    // W0 [2F, 2C]
   float* sw2 = s0 + 4 * cf;   // W2 [2C, F]
   WgSplitArgs sa;
-  sa.seg[0] = WgSplitSeg{w.wq, sqkv, sqkv + 3 * cc, cc};
-  sa.seg[1] = WgSplitSeg{w.wk, sqkv + cc, sqkv + 4 * cc, cc};
-  sa.seg[2] = WgSplitSeg{w.wv, sqkv + 2 * cc, sqkv + 5 * cc, cc};
-  sa.seg[3] = WgSplitSeg{w.wm, sm, sm + cc, cc};
-  sa.seg[4] = WgSplitSeg{w0, s0, s0 + 2 * cf, 2 * cf};
-  sa.seg[5] = WgSplitSeg{w2, sw2, sw2 + cf, cf};
+  sa.seg[0] = WgSplitSeg{w.wq, sqkv, sqkv + 3 * cc, C, C, C, false};
+  sa.seg[1] = WgSplitSeg{w.wk, sqkv + cc, sqkv + 4 * cc, C, C, C, false};
+  sa.seg[2] = WgSplitSeg{w.wv, sqkv + 2 * cc, sqkv + 5 * cc, C, C, C, false};
+  sa.seg[3] = WgSplitSeg{w.wm, sm, sm + cc, C, C, C, false};
+  sa.seg[4] = WgSplitSeg{w0, s0, s0 + 2 * cf, F, 2 * C, 2 * C, false};
+  sa.seg[5] = WgSplitSeg{w2, sw2, sw2 + cf, C, F, F, false};
   cudaError_t err;
   EMIP_TRY(wg_split_weights(sa, 6, s));
   const WgSource xs{x, C, C}, ts{t, C, C}, no{nullptr, 0, 0};
@@ -387,6 +426,142 @@ cudaError_t cross_ffn_bf16(const bf16* x, const bf16* t, LayerWeights w,
   return wg_linear<float, float, kWgEpiLnOut>(
       WgSource{u, F, F}, no, C, sw2, R, C, C, out, C,
       WgEpilogue{s2, b2, x, C, eps}, s);
+}
+
+// G's and H's weights split into their TF32 halves once per call for the
+// wgmma product, each [2N, K] (hi rows, then lo rows): as they are for the
+// recompute's x W^T, transposed for the input grads' dy W = dy (W^T)^T
+// that run on it (go, gt and H's gh W0; gx and H's gh stay on mma.sync,
+// where the card ran them faster: gemm_wgmma lines of chip_smoke.py).
+struct SplitLayer {
+  float* qkv;  // [Wq; Wk; Wv]: N 3C, K C
+  float* m;    // Wm
+  float* mt;   // Wm^T
+  float* kvt;  // [Wk; Wv]^T = [Wk^T | Wv^T]: N C, K 2C
+  float* w0;   // W0: N F, K 2C (H only)
+  float* w2;   // W2: N C, K F
+  float* w0t;  // W0^T: N 2C, K F
+};
+
+inline long long split_layer_floats(int C, int F) {
+  return 14LL * C * C + 10LL * C * F;
+}
+
+// one launch: G's four weights (F = 0), or H's six
+cudaError_t split_layer(LayerWeights w, const float* w0, const float* w2,
+                        int C, int F, float* p, SplitLayer* sl,
+                        cudaStream_t s) {
+  const long long cc = (long long)C * C, cf = (long long)C * F;
+  sl->qkv = p;
+  sl->m = sl->qkv + 6 * cc;
+  sl->mt = sl->m + 2 * cc;
+  sl->kvt = sl->mt + 2 * cc;
+  sl->w0 = sl->kvt + 4 * cc;
+  sl->w2 = sl->w0 + 4 * cf;
+  sl->w0t = sl->w2 + 2 * cf;
+  WgSplitArgs a;
+  int n = 0;
+  // src [rows, cols] into hi at ld (lo n_lo floats after it)
+  auto seg = [&](const float* src, float* hi, long long n_lo, int rows,
+                 int cols, long long ld, bool transpose) {
+    a.seg[n++] = WgSplitSeg{src, hi, hi + n_lo, rows, cols, ld, transpose};
+  };
+  seg(w.wq, sl->qkv, 3 * cc, C, C, C, false);
+  seg(w.wk, sl->qkv + cc, 3 * cc, C, C, C, false);
+  seg(w.wv, sl->qkv + 2 * cc, 3 * cc, C, C, C, false);
+  seg(w.wm, sl->m, cc, C, C, C, false);
+  seg(w.wm, sl->mt, cc, C, C, C, true);
+  seg(w.wk, sl->kvt, 2 * cc, C, C, 2 * C, true);
+  seg(w.wv, sl->kvt + C, 2 * cc, C, C, 2 * C, true);
+  if (F) {
+    seg(w0, sl->w0, 2 * cf, F, 2 * C, 2 * C, false);
+    seg(w2, sl->w2, cf, C, F, F, false);
+    seg(w0, sl->w0t, 2 * cf, F, 2 * C, F, true);
+  }
+  return wg_split_weights(a, n, s);
+}
+
+// G's and H's bf16 recompute on the wgmma product: q from x and k, v from
+// t in one launch (x and t bf16: two TF32 terms), the 3xTF32 attention
+// keeping its row statistics, m = o Wm^T (the pre-LN message that LN1's
+// backward reads) and, where msg is set, msg = LN1(m) in the same
+// epilogue. qkv [R, 3C], o, m, msg [R, C] fp32; ws: the attention's
+// key-split partials.
+cudaError_t message_fwd_wg(const bf16* x, const bf16* t, const SplitLayer& sw,
+                           const float* s1, const float* b1, Windows d,
+                           float* qkv, float* o, float* m, float* msg,
+                           float* stats, float eps, Workspace ws,
+                           cudaStream_t s) {
+  const int R = d.rows(), C = d.C, C3 = 3 * C;
+  const long long wsb = (long long)d.T * C3;
+  const WgSource os{o, C, C}, no{nullptr, 0, 0};
+  cudaError_t err;
+  EMIP_TRY((wg_linear<uint16_t, uint16_t, kWgEpiNone>(
+      WgSource{x, C, C}, WgSource{t, C, C}, C, sw.qkv, R, C3, C, qkv, C3,
+      WgEpilogue{}, s)));
+  EMIP_TRY((cudaError_t)emip_attention_fwd(
+      qkv, wsb, C3, qkv + C, wsb, C3, qkv + 2 * C, wsb, C3, d.mask, d.mask_nw,
+      o, (long long)d.T * C, C, stats, ws.p, ws.n, d.windows, 1, d.T, d.T, C,
+      1, s));
+  if (!msg)
+    return wg_linear<float, float, kWgEpiNone>(os, no, C, sw.m, R, C, C, m, C,
+                                               WgEpilogue{}, s);
+  WgEpilogue e{s1, b1, nullptr, 0, eps};
+  e.aux = m;
+  e.ldaux = C;
+  return wg_linear<float, float, kWgEpiLnKeep>(os, no, C, sw.m, R, C, C, msg,
+                                               C, e, s);
+}
+
+// An input grad's product on the wgmma product: out = (add +) dy (W^T)^T
+// over K, fp32 or rounded to bf16 as its GradOut says.
+cudaError_t input_grad_wg(const float* dy, long long ldy, int K,
+                          const float* wt, int N, GradOut out, int R,
+                          cudaStream_t s) {
+  WgEpilogue e{};
+  e.add = out.add;
+  e.ldadd = out.ldadd;
+  e.add_cols = N;
+  e.add_bf16 = out.add_bf16;
+  e.out_bf16 = out.bf16;
+  return wg_linear<float, float, kWgEpiAdd>(
+      WgSource{dy, ldy, K}, WgSource{nullptr, 0, 0}, N, wt, R, N,
+      N % 128 ? 64 : 128, out.p, N, e, s);
+}
+
+// Backward of msg = LN1(m) (message_fwd_wg's buffers) for the gradient
+// gmsg [R, C] (leading dimension ldg; fp32, or bf16 read as it lies): go =
+// gm Wm on the wgmma product, the attention backward, the weight grads
+// that are set (mma.sync, x and t exact: two terms), gx = (gx.add +) gq Wq
+// (mma.sync) and gt = [gk | gv] [Wk; Wv] (wgmma) where set, each with its
+// addend and rounding in the epilogue. gm, go [R, C] and gqkv [R, 3C] are
+// scratch.
+template <typename TG>
+cudaError_t message_bwd_wg(const bf16* x, const bf16* t, LayerWeights w,
+                           const SplitLayer& sw, const float* s1, Windows d,
+                           const float* qkv, const float* o, const float* m,
+                           const float* stats, const TG* gmsg, int ldg,
+                           LayerGrads g, GradOut gx, GradOut gt, float* gm,
+                           float* go, float* gqkv, float eps, Workspace ws,
+                           cudaStream_t s) {
+  const int R = d.rows(), C = d.C, C3 = 3 * C, C2 = 2 * C;
+  const bool want_q = gx.p || g.gwq, want_kv = gt.p || g.gwk || g.gwv;
+  cudaError_t err;
+  EMIP_TRY(layernorm_bwd(m, C, reinterpret_cast<const GemmElem<TG>*>(gmsg),
+                         ldg, s1, gm, C, false, g.gs1, g.gb1, R, C, eps, ws,
+                         s));
+  EMIP_TRY(weight_grad(gm, C, o, C, g.gwm, C, C, R, ws, s));
+  if (!want_q && !want_kv) return cudaSuccess;
+  EMIP_TRY(input_grad_wg(gm, C, C, sw.mt, C, GradOut{go, false, nullptr}, R,
+                         s));
+  EMIP_TRY(layer_attention_bwd(qkv, o, go, stats, want_q, want_kv, gqkv, d,
+                               ws, s));
+  EMIP_TRY(weight_grad_exact(gqkv, C3, x, C, g.gwq, C, C, R, ws, s));
+  EMIP_TRY(weight_grad_exact(gqkv + C, C3, t, C, g.gwk, C, C, R, ws, s));
+  EMIP_TRY(weight_grad_exact(gqkv + C2, C3, t, C, g.gwv, C, C, R, ws, s));
+  if (gx.p) EMIP_TRY(input_grad_out(gqkv, C3, w.wq, C, C, gx, R, s));
+  if (gt.p) EMIP_TRY(input_grad_wg(gqkv + C, C3, C2, sw.kvt, C, gt, R, s));
+  return cudaSuccess;
 }
 
 #undef EMIP_TRY
@@ -420,8 +595,9 @@ extern "C" int emip_window_layer(
 }
 
 // g is the [R, C] gradient of out. gx, gt and each weight grad are written
-// only when their pointer is set. ws holds the [R, 5C] activation-grad
-// scratch and the transient workspace behind it.
+// only when their pointer is set; with add_residual gx = g + gq Wq, the
+// residual added in the product's epilogue. ws holds the [R, 5C]
+// activation-grad scratch and the transient workspace behind it.
 extern "C" int emip_window_layer_bwd(
     const float* x, const float* t, const float* wq, const float* wk,
     const float* wv, const float* wm, const float* s1, const float* mask,
@@ -440,14 +616,12 @@ extern "C" int emip_window_layer_bwd(
   float* gqkv = all.take(3 * rc);
   if (!gm || !go || !gqkv) return (int)cudaErrorInvalidValue;
   cudaError_t err;
-  if (gx && add_residual)
-    EMIP_TRY(cudaMemcpyAsync(gx, g, rc * sizeof(float),
-                             cudaMemcpyDeviceToDevice, s));
   EMIP_TRY(message_bwd(x, C, t, LayerWeights{wq, wk, wv, wm}, s1, d, qkv, o,
                        m, stats, g, C,
-                       LayerGrads{gwq, gwk, gwv, gwm, gs1, gb1}, gx,
-                       add_residual != 0, GradOut{gt, false, nullptr}, false,
-                       gm, go, gqkv, eps, all, s));
+                       LayerGrads{gwq, gwk, gwv, gwm, gs1, gb1},
+                       GradOut{gx, false, add_residual ? g : nullptr}, false,
+                       GradOut{gt, false, nullptr}, false, gm, go, gqkv, eps,
+                       all, s));
   return (int)cudaGetLastError();
 }
 
@@ -511,7 +685,8 @@ extern "C" int emip_window_ffn_layer_bwd(
                    gx, gmsg, R, C, F, eps, all, s));
   EMIP_TRY(message_bwd(x, C, t, LayerWeights{wq, wk, wv, wm}, s1, d, qkv, o,
                        m, stats, gmsg, C,
-                       LayerGrads{gwq, gwk, gwv, gwm, gs1, gb1}, gx, true,
+                       LayerGrads{gwq, gwk, gwv, gwm, gs1, gb1},
+                       GradOut{gx, false, nullptr}, true,
                        GradOut{gt, false, nullptr}, false, gm, go, gqkv, eps,
                        all, s));
   return (int)cudaGetLastError();
@@ -575,14 +750,21 @@ extern "C" int emip_window_ffn_layer_bf16(
 }
 
 // G's bf16 backward, as the JAX kernel (_bwd_kernel) computes it with a
-// bf16 storage dtype: x, t and g upcast, the layer recomputed in fp32 on
-// the fp32 weights (message_fwd with its row statistics; the bf16 forward
-// ran bf16 products, so its buffers are not this recompute's), G's fp32
-// backward, gx and gt rounded to bf16 once. x, t, g [R, C] bf16, every
-// parameter fp32; the parameter grads fp32, each written only when its
-// pointer is set. ws: fp32 scratch for the upcast x, t, g, the recompute
-// (qkv [R, 3C], o, m [R, C], stats [2, windows, T]) and the fp32 gx, gt,
-// then what the recompute's attention and G's fp32 backward take.
+// bf16 storage dtype: the layer recomputed in fp32 on the fp32 weights
+// (the bf16 forward ran bf16 products, so its buffers are not this
+// recompute's), G's backward, gx and gt rounded to bf16 once, the
+// parameter grads fp32. x, t and g [R, C] bf16, read as they lie (LN1's
+// backward reads g's bits); every parameter fp32. On the wgmma product
+// (gemm_wgmma.cuh; the weights and their transposes split once, one
+// launch): the recompute (message_fwd_wg), go = gm Wm and gt = bf16([gk |
+// gv] [Wk; Wv]); the 3xTF32 attention forward (with its statistics) and
+// backward of mma_tf32.cuh; on mma.sync (gemm_tf32.cuh) gx = bf16((g +) gq
+// Wq), the addend and the rounding in the epilogue, and the weight grads,
+// each written only when its pointer is set. ws: the split weights
+// (split_layer_floats(C, 0)), fp32 scratch for the recompute (qkv [R, 3C],
+// o, m [R, C]) and the activation grads (gm, go [R, C], gqkv [R, 3C]),
+// stats [2, windows, T] (rounded up to 4 floats), then what the attention
+// and the weight grads take.
 extern "C" int emip_window_layer_bwd_bf16(
     const void* x, const void* t, const float* wq, const float* wk,
     const float* wv, const float* wm, const float* s1, const float* mask,
@@ -596,41 +778,47 @@ extern "C" int emip_window_layer_bwd_bf16(
   const int R = d.rows();
   const long long rc = (long long)R * C;
   Workspace all{ws, ws_floats};
-  float* x32 = all.take(rc);
-  float* t32 = all.take(rc);
-  float* g32 = all.take(rc);
+  float* wsplit = all.take(split_layer_floats(C, 0));
   float* qkv = all.take(3 * rc);
   float* o = all.take(rc);
   float* m = all.take(rc);
-  float* stats = all.take(2LL * R);
-  float* gx32 = gx ? all.take(rc) : nullptr;
-  float* gt32 = gt ? all.take(rc) : nullptr;
-  if (!x32 || !t32 || !g32 || !qkv || !o || !m || !stats || (gx && !gx32) ||
-      (gt && !gt32))
+  float* gm = all.take(rc);
+  float* go = all.take(rc);
+  float* gqkv = all.take(3 * rc);
+  float* stats = all.take((2LL * R + 3) / 4 * 4);
+  if (!wsplit || !qkv || !o || !m || !gm || !go || !gqkv || !stats)
     return (int)cudaErrorInvalidValue;
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* tb = static_cast<const bf16*>(t);
+  const LayerWeights w{wq, wk, wv, wm};
+  SplitLayer sw;
   cudaError_t err;
-  EMIP_TRY(bf16_to_f32(static_cast<const bf16*>(x), x32, rc, s));
-  EMIP_TRY(bf16_to_f32(static_cast<const bf16*>(t), t32, rc, s));
-  EMIP_TRY(bf16_to_f32(static_cast<const bf16*>(g), g32, rc, s));
-  EMIP_TRY(message_fwd(x32, C, t32, LayerWeights{wq, wk, wv, wm}, d, qkv, o,
-                       m, stats, all, s));
-  if (int code = emip_window_layer_bwd(
-          x32, t32, wq, wk, wv, wm, s1, mask, mask_nw, qkv, o, m, stats, g32,
-          gx32, gt32, gwq, gwk, gwv, gwm, gs1, gb1, all.p, all.n, windows, T,
-          C, add_residual, eps, stream))
-    return code;
-  if (gx) EMIP_TRY(f32_to_bf16(gx32, static_cast<bf16*>(gx), rc, s));
-  if (gt) EMIP_TRY(f32_to_bf16(gt32, static_cast<bf16*>(gt), rc, s));
+  EMIP_TRY(split_layer(w, nullptr, nullptr, C, 0, wsplit, &sw, s));
+  EMIP_TRY(message_fwd_wg(xb, tb, sw, nullptr, nullptr, d, qkv, o, m,
+                          nullptr, stats, eps, all, s));
+  EMIP_TRY(message_bwd_wg(
+      xb, tb, w, sw, s1, d, qkv, o, m, stats, static_cast<const bf16*>(g), C,
+      LayerGrads{gwq, gwk, gwv, gwm, gs1, gb1},
+      GradOut{gx, true, add_residual ? g : nullptr, true, C},
+      GradOut{gt, true, nullptr}, gm, go, gqkv, eps, all, s));
   return (int)cudaGetLastError();
 }
 
 // H's bf16 backward, as the JAX kernel (_ffn_bwd_kernel) computes it with a
-// bf16 storage dtype: x, t and g upcast, the layer and its FFN recomputed
-// in fp32 on the fp32 weights (H's fp32 forward), H's fp32 backward, gx
-// and gt rounded once. ws: fp32 scratch for the upcast x, t, g, the
-// recompute (qkv [R, 3C], o, m, z, out [R, C], stats [2, windows, T], cat
-// [R, 2C], h, u [R, F]) and the fp32 gx, gt, then what the recompute's
-// attention and H's fp32 backward take.
+// bf16 storage dtype: the layer and its FFN recomputed in fp32 on the fp32
+// weights, H's backward, gx and gt rounded once. As G's, on the wgmma
+// product: the recompute (message_fwd_wg keeping m and msg; u =
+// gelu(x W0[:, :C]^T + msg W0[:, C:]^T) in JAX's two halves, x's K tiles
+// first with two terms, no concat, the pre-activation h kept; z = u W2^T),
+// then LN2's backward reading g's bits, gh = (gz W2) gelu'(h) (mma.sync),
+// [gx1 | gmsg] = [g + (gh W0)[:, :C] | (gh W0)[:, C:]] in one launch (g
+// added from bf16), msg's backward with gx = bf16(gx1 + gq Wq). W0's
+// weight grad is its two halves, gh^T x (x exact) and gh^T msg. ws: the
+// split weights
+// (split_layer_floats(C, F)), fp32 scratch for the recompute (qkv [R, 3C],
+// o, m, msg, z [R, C], h, u [R, F]) and the activation grads (gz, gm, go
+// [R, C], gh [R, F], gcat [R, 2C], gqkv [R, 3C]), stats as G's, then what
+// the attention and the weight grads take.
 extern "C" int emip_window_ffn_layer_bwd_bf16(
     const void* x, const void* t, const float* wq, const float* wk,
     const float* wv, const float* wm, const float* s1, const float* b1,
@@ -642,42 +830,72 @@ extern "C" int emip_window_ffn_layer_bwd_bf16(
     void* stream) {
   using namespace emip;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int R = windows * T;
+  const Windows d{windows, T, C, mask, mask_nw};
+  const int R = d.rows(), C2 = 2 * C;
   const long long rc = (long long)R * C, rf = (long long)R * F;
   Workspace all{ws, ws_floats};
-  float* x32 = all.take(rc);
-  float* t32 = all.take(rc);
-  float* g32 = all.take(rc);
+  float* wsplit = all.take(split_layer_floats(C, F));
   float* qkv = all.take(3 * rc);
   float* o = all.take(rc);
   float* m = all.take(rc);
-  float* stats = all.take(2LL * R);
-  float* cat = all.take(2 * rc);
+  float* msg = all.take(rc);
+  float* z = all.take(rc);
   float* h = all.take(rf);
   float* u = all.take(rf);
-  float* z = all.take(rc);
-  float* out = all.take(rc);  // the recompute's output, not read
-  float* gx32 = gx ? all.take(rc) : nullptr;
-  float* gt32 = gt ? all.take(rc) : nullptr;
-  if (!x32 || !t32 || !g32 || !qkv || !o || !m || !stats || !cat || !h ||
-      !u || !z || !out || (gx && !gx32) || (gt && !gt32))
+  float* gz = all.take(rc);
+  float* gh = all.take(rf);
+  float* gcat = all.take(2 * rc);
+  float* gm = all.take(rc);
+  float* go = all.take(rc);
+  float* gqkv = all.take(3 * rc);
+  float* stats = all.take((2LL * R + 3) / 4 * 4);
+  if (!wsplit || !qkv || !o || !m || !msg || !z || !h || !u || !gz || !gh ||
+      !gcat || !gm || !go || !gqkv || !stats)
     return (int)cudaErrorInvalidValue;
+  (void)b2;  // the recompute stops at z: its output is not read
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* gb = static_cast<const bf16*>(g);
+  const WgSource xs{xb, C, C}, no{nullptr, 0, 0};
+  const LayerWeights w{wq, wk, wv, wm};
+  SplitLayer sw;
   cudaError_t err;
-  EMIP_TRY(bf16_to_f32(static_cast<const bf16*>(x), x32, rc, s));
-  EMIP_TRY(bf16_to_f32(static_cast<const bf16*>(t), t32, rc, s));
-  EMIP_TRY(bf16_to_f32(static_cast<const bf16*>(g), g32, rc, s));
-  if (int code = emip_window_ffn_layer(
-          x32, t32, wq, wk, wv, wm, s1, b1, w0, w2, s2, b2, mask, mask_nw,
-          qkv, o, m, stats, cat, h, u, z, out, all.p, all.n, windows, T, C, F,
-          eps, stream))
-    return code;
-  if (int code = emip_window_ffn_layer_bwd(
-          x32, t32, wq, wk, wv, wm, s1, w0, w2, s2, mask, mask_nw, qkv, o, m,
-          stats, cat, h, u, z, g32, gx32, gt32, gwq, gwk, gwv, gwm, gs1, gb1,
-          gw0, gw2, gs2, gb2, all.p, all.n, windows, T, C, F, eps, stream))
-    return code;
-  if (gx) EMIP_TRY(f32_to_bf16(gx32, static_cast<bf16*>(gx), rc, s));
-  if (gt) EMIP_TRY(f32_to_bf16(gt32, static_cast<bf16*>(gt), rc, s));
+  EMIP_TRY(split_layer(w, w0, w2, C, F, wsplit, &sw, s));
+  EMIP_TRY(message_fwd_wg(xb, static_cast<const bf16*>(t), sw, s1, b1, d,
+                          qkv, o, m, msg, stats, eps, all, s));
+  WgEpilogue keep_h{};
+  keep_h.aux = h;
+  keep_h.ldaux = F;
+  EMIP_TRY((wg_linear<uint16_t, float, kWgEpiGeluKeep>(
+      xs, WgSource{msg, C, C}, F, sw.w0, R, F, 128, u, F, keep_h, s)));
+  EMIP_TRY((wg_linear<float, float, kWgEpiNone>(
+      WgSource{u, F, F}, no, C, sw.w2, R, C, C, z, C, WgEpilogue{}, s)));
+  // out = x + LN2(z): g read as it lies
+  EMIP_TRY(layernorm_bwd(z, C, reinterpret_cast<const uint16_t*>(gb), C, s2,
+                         gz, C, false, gs2, gb2, R, C, eps, all, s));
+  EMIP_TRY(weight_grad(gz, C, u, F, gw2, C, F, R, all, s));
+  {
+    GemmArgs a = gemm_args(gz, C, 1, w2, F, 1, gh, F, R, F, C);
+    a.aux = h;
+    a.ldaux = F;
+    EMIP_TRY(gemm(a, kEpiGeluGrad, s));  // gh = (gz W2) * gelu'(h)
+  }
+  EMIP_TRY(weight_grad_exact(gh, F, xb, C, gw0, F, C, R, all, s, C2));
+  EMIP_TRY(weight_grad(gh, F, msg, C, gw0 ? gw0 + C : nullptr, F, C, R, all,
+                       s, C2));
+  WgEpilogue res{};
+  res.add = gb;
+  res.ldadd = C;
+  res.add_cols = C;
+  res.add_bf16 = true;
+  EMIP_TRY((wg_linear<float, float, kWgEpiAdd>(WgSource{gh, F, F}, no, C2,
+                                               sw.w0t, R, C2, 128, gcat, C2,
+                                               res, s)));
+  EMIP_TRY(message_bwd_wg(xb, static_cast<const bf16*>(t), w, sw, s1, d, qkv,
+                          o, m, stats, gcat + C, C2,
+                          LayerGrads{gwq, gwk, gwv, gwm, gs1, gb1},
+                          GradOut{gx, true, gcat, false, C2},
+                          GradOut{gt, true, nullptr}, gm, go, gqkv, eps, all,
+                          s));
   return (int)cudaGetLastError();
 }
 

@@ -80,6 +80,10 @@ _SIGNATURES = {
     # the wgmma product of B's and H's bf16 forwards alone
     "emip_gemm_wgmma": ([_P, _L, _I, _P, _L] + [_I] * 3 + [_P, _P]
                         + [_I] * 3 + [_P] * 3 + [_L, _F, _P]),
+    # and the input grads dy W of G's and H's bf16 backwards, on it or on
+    # the 3xTF32 GEMM
+    "emip_gemm_dyw": ([_P, _L, _I, _P, _P] + [_I] * 3 + [_P, _P]
+                      + [_I] * 2 + [_P, _L, _I, _P]),
     "emip_attention_fwd_bf16": ([_P, _L, _I] * 3 + [_P, _I, _P, _L, _I]
                                 + [_I] * 6 + [_P]),
     # the bf16 train step: A, B, C and D backward

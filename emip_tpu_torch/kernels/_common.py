@@ -31,8 +31,10 @@ LAUNCHES = {
     # (kernels/gemm.py, kernels/attention.py: checks)
     "gemm": 0,
     "attention": 0,
-    # the wgmma product of B's and H's bf16 forwards alone (kernels/gemm.py)
+    # the wgmma product of B's and H's bf16 forwards alone, and the input
+    # grads of G's and H's bf16 backwards alone (kernels/gemm.py)
     "gemm_wgmma": 0,
+    "gemm_dy_w": 0,
     # the bf16 band of short inference: the bf16 forwards of A-D and the
     # bf16 GEMM alone
     "sr_attention_bf16": 0,

@@ -9,8 +9,10 @@ kernels give it: fp32 operands take the 3xTF32 GEMM
 (``csrc/gemm_bf16.cuh``, A's projections and B's self layer), both through
 ``csrc/gemm.cu``. :func:`gemm_wgmma` is the forward product of B's and
 H's bf16 forwards (``csrc/gemm_wgmma.cuh``: 3xTF32 on wgmma, two terms for
-a bf16 operand) with its two-source forms and epilogues. CPU tensors take
-the plain versions.
+a bf16 operand) with its two-source forms and epilogues, and
+:func:`gemm_dy_w` the input grads of G's and H's bf16 backwards (dy W on
+the transposed weight, or on the 3xTF32 GEMM with the same epilogue).
+CPU tensors take the plain versions.
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ import torch.nn.functional as F
 from emip_tpu_torch.kernels import _common as cm
 from emip_tpu_torch.kernels._build import library
 
-__all__ = ["gemm", "gemm_reference", "gemm_wgmma", "gemm_wgmma_reference"]
+__all__ = ["gemm", "gemm_reference", "gemm_wgmma", "gemm_wgmma_reference",
+           "gemm_dy_w", "gemm_dy_w_reference"]
 
 _NAME = "gemm"
 
@@ -186,4 +189,75 @@ def gemm_wgmma(a: torch.Tensor, w: torch.Tensor,
         cm.ptr(beta), out.data_ptr(), n, eps, cm.stream_handle(a.device))
     cm.raise_on_error(_WG, rc)
     cm.LAUNCHES[_WG] += 1
+    return out
+
+
+
+_DYW = "gemm_dy_w"
+
+
+def gemm_dy_w_reference(dy, w, epilogue=None, aux=None, add=None,
+                        out_dtype=None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`gemm_dy_w`, in ``w``'s dtype
+    (``out_dtype`` where given)."""
+    y = dy.to(w.dtype) @ w
+    if epilogue == "gelu_grad":
+        a = aux.to(w.dtype)
+        y = y * (0.5 * (1.0 + torch.erf(a * 0.7071067811865476))
+                 + a * torch.exp(-0.5 * a * a) * 0.3989422804014327)
+    if add is not None:
+        y = add.to(w.dtype) + y
+    return y if out_dtype is None else y.to(out_dtype)
+
+
+def gemm_dy_w(dy: torch.Tensor, w: torch.Tensor, epilogue: str | None = None,
+              aux: torch.Tensor | None = None,
+              add: torch.Tensor | None = None,
+              out_dtype: torch.dtype = torch.float32,
+              wgmma: bool = True) -> torch.Tensor:
+    """The input grad ``dy w`` [M, N] of G's and H's bf16 backwards for an
+    fp32 ``nn.Linear`` weight ``w`` [K, N]: on the wgmma product
+    (``wgmma``: ``w`` split transposed once, the K-major ``dy (w^T)^T``),
+    or on the 3xTF32 GEMM of ``gemm_tf32.cuh`` with the same epilogue, so
+    that the two can be compared at one shape.
+
+    fp32 ``dy`` [M, K] row-major; ``epilogue`` None or ``"gelu_grad"``
+    (times the GELU derivative at ``aux`` [M, N] fp32: H's gh); ``add``
+    [M, N] (fp32 or bf16) added last and the result fp32 or rounded once to
+    bf16 (``out_dtype``: G's gx, gt). Not differentiable: a check of the
+    kernels' products, not a layer.
+    """
+    tensors = [dy, w] + [x for x in (aux, add) if x is not None]
+    if cm.on_cpu(_DYW, *tensors):
+        return gemm_dy_w_reference(dy, w, epilogue, aux, add, out_dtype)
+    if epilogue not in (None, "gelu_grad") or (
+            epilogue == "gelu_grad") == (aux is None):
+        raise ValueError(f"{_DYW}: epilogue None, or 'gelu_grad' with aux")
+    if epilogue and (add is not None or out_dtype != torch.float32):
+        raise ValueError(f"{_DYW}: 'gelu_grad' takes no add, fp32 out")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{_DYW}: writes fp32 or bf16")
+    cm.check_kernel_args(_DYW, dy=dy, w=w)
+    (m, k), n = dy.shape, w.shape[1]
+    if dy.dim() != 2 or dy.stride(1) != 1 or w.shape[0] != k:
+        raise ValueError(f"{_DYW}: dy {tuple(dy.shape)} does not take w "
+                         f"{tuple(w.shape)}")
+    for name, x in (("aux", aux), ("add", add)):
+        if x is not None:
+            cm.check_shape(_DYW, name, x, (m, n))
+            if not x.is_contiguous():
+                raise ValueError(f"{_DYW}: {name} must be contiguous")
+    if aux is not None and aux.dtype != torch.float32:
+        raise TypeError(f"{_DYW}: aux must be float32")
+    out = torch.empty((m, n), device=dy.device, dtype=out_dtype)
+    wsplit = (torch.empty(2 * w.numel(), device=dy.device,
+                          dtype=torch.float32) if wgmma else None)
+    rc = library().emip_gemm_dyw(
+        dy.data_ptr(), dy.stride(0), k, w.data_ptr(), cm.ptr(wsplit), m, n,
+        6 if epilogue else 7, cm.ptr(aux), cm.ptr(add),
+        int(add is not None and add.dtype == torch.bfloat16),
+        int(out_dtype == torch.bfloat16), out.data_ptr(), n, int(wgmma),
+        cm.stream_handle(dy.device))
+    cm.raise_on_error(_DYW, rc)
+    cm.LAUNCHES[_DYW] += 1
     return out

@@ -48,6 +48,14 @@ and the JAX package's Pallas kernels:
   LayerNorm epilogue, W0 in two halves, out in W2's epilogue) and
   :func:`window_block_fwd_bf16_walk` B's: the unchanged bf16 self layer,
   then that walk on its x1.
+* :func:`window_layer_bwd_bf16_walk` and
+  :func:`window_ffn_layer_bwd_bf16_walk` walk G's and H's bf16 backwards
+  (``emip_window_layer_bwd_bf16``, ``emip_window_ffn_layer_bwd_bf16``):
+  the recompute and the input grads go, gt and gh W0 on the wgmma product
+  (:func:`wgmma_linear_walk`, dy W on the transposed weight), gx and H's
+  gh on the GEMM (:func:`gemm_tiled`), the 3xTF32 attention keeping its
+  row statistics and its backward, the weight grads on the GEMM, gx and gt
+  rounded once in their products' epilogues.
 
 Nothing here runs on a model's path.
 """
@@ -65,7 +73,8 @@ __all__ = ["tf32_round", "tf32_truncate", "matmul_tf32", "matmul_3xtf32",
            "flow_attention_bwd_bf16_walk", "sr_attention_bwd_bf16_walk",
            "memory_attention_bwd_bf16_walk", "window_block_bwd_bf16_walk",
            "sr_attention_fwd_bf16_walk", "wgmma_linear_walk",
-           "window_ffn_bf16_walk", "window_block_fwd_bf16_walk"]
+           "window_ffn_bf16_walk", "window_block_fwd_bf16_walk",
+           "window_layer_bwd_bf16_walk", "window_ffn_layer_bwd_bf16_walk"]
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -188,10 +197,14 @@ def gemm_tiled(a, b, bias=None, tile_k: int = 32, splits: int = 1,
     if epilogue == "gelu":
         return torch.nn.functional.gelu(out), out
     if epilogue == "gelu_grad":
-        phi = torch.exp(-0.5 * aux * aux) * 0.3989422804014327
-        return out * (0.5 * (1.0 + torch.erf(aux * 0.7071067811865476))
-                      + aux * phi)
+        return out * _gelu_grad(aux)
     return out
+
+
+def _gelu_grad(h):
+    """``gelu_grad`` of primitives.cuh: d/dh of the exact GELU."""
+    phi = torch.exp(-0.5 * h * h) * 0.3989422804014327
+    return 0.5 * (1.0 + torch.erf(h * 0.7071067811865476)) + h * phi
 
 
 def _chunks(n_tiles: int, splits: int):
@@ -633,7 +646,7 @@ def sr_attention_fwd_bf16_walk(x, kv_in, wq, bq, wkv, bkv, wp, bp,
 
 def wgmma_linear_walk(sources, w, epilogue: str | None = None, gamma=None,
                       beta=None, res=None, eps: float = 1e-6,
-                      tile_k: int = 32):
+                      tile_k: int = 32, aux=None):
     """``epilogue(sum_s a_s w_s^T)`` as ``wg_linear`` sums it.
 
     ``sources`` [M, K_s] follow each other along K over the columns of
@@ -643,10 +656,13 @@ def wgmma_linear_walk(sources, w, epilogue: str | None = None, gamma=None,
     two TF32 terms for a bf16 source, exact in TF32, three for an fp32 one)
     is summed on its own and added to the fp32 running sum. Epilogues:
     ``"gelu"`` (exact), ``"layernorm"`` (the row's mean and variance over
-    its N columns, then ``gamma``, ``beta``) and ``"layernorm_out"``
-    (``bf16(res + layernorm)``, ``res`` [M, N] bf16, rounded once). fp32
-    out, bf16 for ``"layernorm_out"``. The order of the sums inside one
-    tile is the tensor core's and is not stated.
+    its N columns, then ``gamma``, ``beta``), ``"layernorm_out"``
+    (``bf16(res + layernorm)``, ``res`` [M, N] bf16, rounded once) and
+    ``"gelu_grad"`` (times the GELU derivative at ``aux`` [M, N]). fp32
+    out, bf16 for ``"layernorm_out"``. An input grad dy W (W [N, K]) is
+    this product on ``w = W.T``, the transposed weight the kernel splits.
+    The order of the sums inside one tile is the tensor core's and is not
+    stated.
     """
     acc, k0 = None, 0
     for a in sources:
@@ -660,13 +676,21 @@ def wgmma_linear_walk(sources, w, epilogue: str | None = None, gamma=None,
         k0 += a.shape[1]
     if epilogue == "gelu":
         return F.gelu(acc)
+    if epilogue == "gelu_grad":
+        return acc * _gelu_grad(aux)
     if epilogue in ("layernorm", "layernorm_out"):
-        mu = acc.mean(-1, keepdim=True)
-        inv = torch.rsqrt(((acc - mu) ** 2).mean(-1, keepdim=True) + eps)
-        y = (acc - mu) * inv * gamma + beta
+        y = _ln_rows(acc, gamma, beta, eps)
         return y if epilogue == "layernorm" else (
             res.float() + y).to(torch.bfloat16)
     return acc
+
+
+def _ln_rows(acc, gamma, beta, eps):
+    """The LayerNorm epilogue: each row's mean and variance over its
+    columns."""
+    mu = acc.mean(-1, keepdim=True)
+    inv = torch.rsqrt(((acc - mu) ** 2).mean(-1, keepdim=True) + eps)
+    return (acc - mu) * inv * gamma + beta
 
 
 def window_ffn_bf16_walk(x, t, params, mask=None, eps: float = 1e-6,
@@ -716,3 +740,145 @@ def window_block_fwd_bf16_walk(x, t, self_params, cross_params, mask=None,
     x1 = _layer_reference_bf16(x, x, self_params, mask)
     return window_ffn_bf16_walk(x1, t, cross_params, mask, eps, stream_rows,
                                 key_splits)
+
+
+def _message_wg(x2, t2, p, windows, mask, with_msg, eps, stream_rows,
+                key_splits):
+    """``message_fwd_wg``: q, k, v on the wgmma product (x2, t2 bf16), the
+    3xTF32 attention keeping its row statistics, m = o Wm^T and, with
+    ``with_msg``, msg = LN1(m) from the same sums."""
+    c = x2.shape[1]
+
+    def win(a):
+        return a.reshape(windows, -1, a.shape[-1])
+
+    q, k, v = (wgmma_linear_walk([a], p[n]) for a, n in
+               ((x2, "wq"), (t2, "wk"), (t2, "wv")))
+    o, row_max, row_sum = attention_fwd_tiled(
+        win(q), win(k), win(v), stream_rows=stream_rows, splits=key_splits,
+        matmul=matmul_3xtf32, keep_stats=True, mask=mask)
+    o = o.reshape(-1, c)
+    m = wgmma_linear_walk([o], p["wm"])
+    return dict(q=q, k=k, v=v, o=o, m=m, stats=(row_max, row_sum),
+                msg=_ln_rows(m, p["s1"], p["b1"], eps) if with_msg else None)
+
+
+def _message_bwd_wg(x2, t2, p, fw, gmsg, windows, mask, weights, eps,
+                    stream_rows, res_rows, wgrad_splits):
+    """``message_bwd_wg`` up to gq and gt: (gq, gt fp32, the layer's grads).
+    LN1's backward, go = gm Wm on the wgmma product (the transposed
+    weight), the attention backward, the weight grads on the GEMM (those of
+    x's and t's products two TF32 terms, split-K in ``wgrad_splits``), gt =
+    [gk | gv] [Wk; Wv] on the wgmma product; gx's product (:func:`_gx`) is
+    the caller's (it adds its addend)."""
+    c = x2.shape[1]
+
+    def win(a):
+        return a.reshape(windows, -1, a.shape[-1])
+
+    gm, gs1, gb1 = _ln_bwd(fw["m"], gmsg, p["s1"], eps)
+    go = wgmma_linear_walk([gm], p["wm"].T)
+    dq, dk, dv = attention_bwd_tiled(
+        win(fw["q"]), win(fw["k"]), win(fw["v"]), None, win(fw["o"]),
+        *fw["stats"], win(go), res_rows=res_rows, stream_rows=stream_rows,
+        matmul=matmul_3xtf32, mask=mask)
+    dq, dk, dv = (d.reshape(-1, c) for d in (dq, dk, dv))
+    b_ex = _exact(False, True)
+    wgrad = functools.partial(gemm_tiled, splits=wgrad_splits)
+    grads = {} if not weights else dict(
+        wq=wgrad(dq.T, x2, matmul=b_ex), wk=wgrad(dk.T, t2, matmul=b_ex),
+        wv=wgrad(dv.T, t2, matmul=b_ex),
+        wm=wgrad(gm.T, fw["o"], matmul=matmul_3xtf32), s1=gs1, b1=gb1)
+    gt = wgmma_linear_walk([torch.cat([dk, dv], -1)],
+                           torch.cat([p["wk"], p["wv"]]).T)
+    return dq, gt, grads
+
+
+def _gx(gq, wq, add):
+    """gx = add + gq Wq on the GEMM (K tiles of 32, three TF32 terms), the
+    addend in the epilogue, before the one rounding."""
+    return add + gemm_tiled(gq, wq, matmul=matmul_3xtf32)
+
+
+def window_layer_bwd_bf16_walk(x, t, params, g, mask=None,
+                               add_residual: bool = True,
+                               weights: bool = True, eps: float = 1e-6,
+                               stream_rows: int = 32, key_splits: int = 1,
+                               res_rows: int = 16, wgrad_splits: int = 3):
+    """(gx, gt, grads) of G's bf16 backward (``emip_window_layer_bwd_bf16``)
+    in the order the card sums it: x, t and the cotangent g [B, K2, T, C]
+    bf16, read as they are; the parameters fp32 in torch's layout (wq ..
+    wm [C, C], s1, b1); mask [K2, T, T] or None. gx and gt bf16, the grads
+    (a dict by the parameters' names, empty without ``weights``) fp32.
+
+    The recompute on the wgmma product (:func:`wgmma_linear_walk`: q from
+    x, k and v from t two TF32 terms, m = o Wm^T three), the attention
+    (:func:`attention_fwd_tiled`, keys in tiles of ``stream_rows`` split in
+    ``key_splits``) keeping its row statistics; LN1's backward on g; go =
+    gm Wm on the wgmma product over the transposed weight; the attention
+    backward (:func:`attention_bwd_tiled`, ``res_rows`` resident rows);
+    the weight grads on the GEMM (:func:`gemm_tiled`, x's and t's two
+    terms); gx = bf16((g +) gq Wq) on the GEMM and gt = bf16([gk | gv] [Wk;
+    Wv]) on the wgmma product, the addend and the one rounding in the
+    epilogue.
+    """
+    b, k2, tok, c = x.shape
+    bf16 = torch.bfloat16
+    x2, t2, g2 = (a.reshape(-1, c) for a in (x, t, g))
+    fw = _message_wg(x2, t2, params, b * k2, mask, False, eps, stream_rows,
+                     key_splits)
+    gq, gt, grads = _message_bwd_wg(x2.float(), t2.float(), params, fw,
+                                    g2.float(), b * k2, mask, weights, eps,
+                                    stream_rows, res_rows, wgrad_splits)
+    gx = _gx(gq, params["wq"], g2.float() if add_residual else 0.0)
+    return (gx.reshape(x.shape).to(bf16), gt.reshape(t.shape).to(bf16),
+            grads)
+
+
+def window_ffn_layer_bwd_bf16_walk(x, t, params, g, mask=None,
+                                   weights: bool = True, eps: float = 1e-6,
+                                   stream_rows: int = 32,
+                                   key_splits: int = 1, res_rows: int = 16,
+                                   wgrad_splits: int = 3):
+    """(gx, gt, grads) of H's bf16 backward
+    (``emip_window_ffn_layer_bwd_bf16``) in the order the card sums it, as
+    :func:`window_layer_bwd_bf16_walk` with the FFN's parameters (w0 [F,
+    2C], w2 [C, F], s2, b2) too.
+
+    The recompute keeps m and msg = LN1(m) from Wm's sums; h = x W0[:, :C]^T
+    + msg W0[:, C:]^T (x's K tiles first, two terms, then msg's, three),
+    u = gelu(h), z = u W2^T. The backward: LN2's backward on g; gh = (gz
+    W2) gelu'(h) on the GEMM; [g + (gh W0)[:, :C] | (gh W0)[:, C:]] on the
+    wgmma product over the transposed weight (g added from bf16 in the
+    epilogue); msg's backward as G's; gx = bf16(gx1 + gq Wq). W0's weight
+    grad is its two halves, gh^T x (x exact) and gh^T msg.
+    """
+    b, k2, tok, c = x.shape
+    bf16 = torch.bfloat16
+    p = params
+    x2, t2, g2 = (a.reshape(-1, c) for a in (x, t, g))
+    g32 = g2.float()
+    fw = _message_wg(x2, t2, p, b * k2, mask, True, eps, stream_rows,
+                     key_splits)
+    msg = fw["msg"]
+    h = wgmma_linear_walk([x2, msg], p["w0"])
+    u = F.gelu(h)
+    z = wgmma_linear_walk([u], p["w2"])
+    gz, gs2, gb2 = _ln_bwd(z, g32, p["s2"], eps)
+    gh = gemm_tiled(gz, p["w2"], matmul=matmul_3xtf32, epilogue="gelu_grad",
+                    aux=h)
+    gcat = wgmma_linear_walk([gh], p["w0"].T)
+    gx1 = g32 + gcat[:, :c]
+    gq, gt, grads = _message_bwd_wg(x2.float(), t2.float(), p, fw,
+                                    gcat[:, c:], b * k2, mask, weights, eps,
+                                    stream_rows, res_rows, wgrad_splits)
+    gx = _gx(gq, p["wq"], gx1)
+    if weights:
+        wgrad = functools.partial(gemm_tiled, splits=wgrad_splits)
+        grads.update(
+            w2=wgrad(gz.T, u, matmul=matmul_3xtf32),
+            w0=torch.cat([wgrad(gh.T, x2.float(), matmul=_exact(False, True)),
+                          wgrad(gh.T, msg, matmul=matmul_3xtf32)], -1),
+            s2=gs2, b2=gb2)
+    return (gx.reshape(x.shape).to(bf16), gt.reshape(t.shape).to(bf16),
+            grads)

@@ -49,9 +49,15 @@ its output rounded (``emip_window_ffn_layer_bf16``, on the wgmma product
 as B's cross layer; :func:`~emip_tpu_torch.kernels.tf32.window_ffn_bf16_walk`).
 Their bf16
 backwards (``emip_window_layer_bwd_bf16``, ``emip_window_ffn_layer_bwd_bf16``)
-are the JAX kernels' as B's is: the layer recomputed in fp32 on the upcast
-x and t and the fp32 weights, its fp32 backward, gx and gt rounded to
-bf16, the parameter grads fp32.
+are the JAX kernels' as B's is: the layer recomputed in fp32 on x and t and
+the fp32 weights, its fp32 backward, gx and gt rounded to bf16, the
+parameter grads fp32. They read x, t and the gradient as bf16 where they
+lie and run the recompute's products and the input grads on the wgmma
+product (the input grads on the transposed weights, split once a call),
+the attention on the 3xTF32 tensor-core kernels and the weight grads on
+the 3xTF32 GEMM
+(:func:`~emip_tpu_torch.kernels.tf32.window_layer_bwd_bf16_walk`,
+:func:`~emip_tpu_torch.kernels.tf32.window_ffn_layer_bwd_bf16_walk`).
 """
 
 from __future__ import annotations
@@ -258,6 +264,19 @@ def _split_workspace(x, c, f):
     [2 out, in]."""
     return torch.empty(8 * c * c + 6 * c * f, device=x.device,
                        dtype=torch.float32)
+
+
+def _bwd_split_floats(c, f):
+    """fp32 room for G's (f = 0) or H's weights split into their TF32
+    halves by their bf16 backwards, as they are and transposed
+    (``split_layer``)."""
+    return 14 * c * c + 10 * c * f
+
+
+def _stats_floats(rows):
+    """A backward's [2, windows, T] attention statistics, rounded up to 16
+    bytes."""
+    return -(-2 * rows // 4) * 4
 
 
 def _param_grads(needs, shapes, like):
@@ -583,11 +602,13 @@ class _WindowLayerBf16(torch.autograd.Function):
         pgrads = [torch.empty_like(p) if nd else None
                   for nd, p in zip(needs_p, params)]
         gx, gt = cm.empty_if(needs_x, x), cm.empty_if(needs_t, t)
-        # fp32 scratch (see emip_window_layer_bwd_bf16), then the larger of
-        # the recompute's key-split partials and G's fp32 backward's
-        scratch = rows * 10 * c + 2 * rows
+        # the split weights and fp32 scratch (see
+        # emip_window_layer_bwd_bf16), then the larger of the recompute's
+        # key-split partials and what the backward's LayerNorm and weight
+        # grads take
+        scratch = _bwd_split_floats(c, 0) + rows * 10 * c + _stats_floats(rows)
         rest = max(_workspace_floats(b * k2, 1, tok, tok, c, True),
-                   rows * 6 * c)
+                   rows * 2 * c)
         ws = cm.workspace(x.device, scratch + rest)
         rc = library().emip_window_layer_bwd_bf16(
             x.data_ptr(), t.data_ptr(), *(w.data_ptr() for w in params[:5]),
@@ -634,11 +655,14 @@ class _WindowFFNLayerBf16(torch.autograd.Function):
         pgrads = [torch.empty_like(p) if nd else None
                   for nd, p in zip(needs_p, params)]
         gx, gt = cm.empty_if(needs_x, x), cm.empty_if(needs_t, t)
-        # fp32 scratch (see emip_window_ffn_layer_bwd_bf16), then the larger
-        # of the recompute's key-split partials and H's fp32 backward's
-        scratch = rows * (14 * c + 2 * f) + 2 * rows
+        # the split weights and fp32 scratch (see
+        # emip_window_ffn_layer_bwd_bf16), then the larger of the
+        # recompute's key-split partials and what the backward's LayerNorms
+        # and weight grads take
+        scratch = (_bwd_split_floats(c, f) + rows * (15 * c + 3 * f)
+                   + _stats_floats(rows))
         rest = max(_workspace_floats(b * k2, 1, tok, tok, c, True),
-                   rows * (8 * c + f))
+                   rows * 2 * c)
         ws = cm.workspace(x.device, scratch + rest)
         rc = library().emip_window_ffn_layer_bwd_bf16(
             x.data_ptr(), t.data_ptr(), *(w.data_ptr() for w in params),

@@ -21,6 +21,7 @@ GPU is present.
 """
 
 import functools
+import itertools
 
 import jax
 import jax.numpy as jnp
@@ -668,3 +669,112 @@ def test_cuda_wgmma_product_matches_fp64():
         d = {k: v.double() if torch.is_tensor(v) else v for k, v in kw.items()}
         want = gemm_wgmma_reference(**d)
         assert (got.double() - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_cuda_wgmma_input_grad_matches_fp64():
+    """The input grads of G's and H's bf16 backwards alone (``gemm_dy_w``:
+    dy W on the wgmma product over the transposed weight, split once, and
+    on the 3xTF32 GEMM with the same epilogue): dy W0 at K = 1024, dy W2
+    times gelu'(h), [gk | gv] [Wk; Wv] rounded to bf16, g + gq Wq with g's
+    bf16 addend, rounded, and ragged M, N and K tiles; fp32 within 1e-5 of
+    max|ref| of the fp64 evaluation, a bf16 output within one bf16
+    rounding more; the same bits on a second call, one count per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from emip_tpu_torch.kernels.gemm import gemm_dy_w, gemm_dy_w_reference
+
+    g = torch.Generator().manual_seed(5)
+    r = lambda *s: torch.randn(*s, generator=g).cuda()  # noqa: E731
+    bf = torch.bfloat16
+    cases = [
+        dict(dy=r(4096, 1024), w=r(1024, 256) / 32),
+        dict(dy=r(4096, 128), w=r(128, 1024) / 11, epilogue="gelu_grad",
+             aux=r(4096, 1024)),
+        dict(dy=r(4096, 256), w=r(256, 128) / 16, out_dtype=bf),
+        dict(dy=r(4096, 128), w=r(128, 128) / 11, add=r(4096, 128).to(bf),
+             out_dtype=bf),
+        dict(dy=r(1000, 100), w=r(100, 70) / 10),
+    ]
+    for kw, wgmma in itertools.product(cases, (True, False)):
+        before = K.LAUNCHES["gemm_dy_w"]
+        got = gemm_dy_w(**kw, wgmma=wgmma)
+        assert torch.equal(gemm_dy_w(**kw, wgmma=wgmma), got)
+        assert K.LAUNCHES["gemm_dy_w"] == before + 2
+        want = gemm_dy_w_reference(
+            **{k: v.double() if torch.is_tensor(v) else v
+               for k, v in kw.items() if k != "out_dtype"})
+        tol = 1e-5 + (2.0 ** -8 if got.dtype == bf else 0.0)
+        assert ((got.double() - want).abs().max()
+                <= tol * want.abs().max()), (kw["dy"].shape, wgmma)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_window_layer_backwards_match_walks():
+    """G's (with and without the residual) and H's bf16 backwards on the
+    card at 64 and 1024 tokens, masked and not: gx, gt bf16 and every
+    parameter grad fp32 within 1e-2 of max|ref| of the plain bf16
+    version's VJP and within 8e-3 of the walk of the same kernel
+    (``tf32.window_layer_bwd_bf16_walk`` / ``window_ffn_layer_bwd_bf16_walk``,
+    on the card's inputs moved to the CPU); the same bits on a second call;
+    one backward count per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from emip_tpu_torch.kernels import tf32
+    from emip_tpu_torch.ops.window import shifted_window_mask
+
+    g = torch.Generator().manual_seed(6)
+    r = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+    keys = ("wq", "wk", "wv", "wm", "s1", "b1", "w0", "w2", "s2", "b2")
+    for layer, b, tok, c, f, side, residual in (
+            ("G", 2, 64, 128, 0, 16, True), ("G", 1, 1024, 128, 0, 64, False),
+            ("H", 2, 64, 64, 256, 0, True), ("H", 1, 1024, 128, 1024, 64,
+                                             True)):
+        x, t, cot = (r(b, 4, tok, c).to(torch.bfloat16) for _ in range(3))
+        p = dict(wq=r(c, c) / c ** 0.5, wk=r(c, c) / c ** 0.5,
+                 wv=r(c, c) / c ** 0.5, wm=r(c, c) / c ** 0.5,
+                 s1=1 + 0.1 * r(c), b1=0.1 * r(c))
+        if f:
+            p.update(w0=r(f, 2 * c) / (2 * c) ** 0.5, w2=r(c, f) / f ** 0.5,
+                     s2=1 + 0.1 * r(c), b2=0.1 * r(c))
+        names = keys[:len(p)]
+        mask = shifted_window_mask(side, side, 2) if side else None
+        if layer == "H":
+            name, walk = ("window_attention_ffn_layer_bwd_bf16",
+                          tf32.window_ffn_layer_bwd_bf16_walk)
+            fn = K.fused_window_attention_ffn_layer
+            args = ()
+        else:
+            name, walk = ("window_attention_layer_bwd_bf16",
+                          tf32.window_layer_bwd_bf16_walk)
+            fn = K.fused_window_attention_layer
+            args = (residual,)
+        dev = [x.cuda().requires_grad_(True), t.cuda().requires_grad_(True)]
+        pd = {k: p[k].cuda().requires_grad_(True) for k in names}
+        md = None if mask is None else mask.cuda()
+        out = fn(dev[0], dev[1], pd, md, *args)
+        wrt = dev + [pd[k] for k in names]
+        before = K.LAUNCHES[name]
+        got = torch.autograd.grad(out, wrt, cot.cuda(), retain_graph=True)
+        again = torch.autograd.grad(out, wrt, cot.cuda())
+        torch.cuda.synchronize()
+        assert K.LAUNCHES[name] == before + 2, name
+        for a, w in zip(got, again):
+            assert torch.equal(a, w), name
+        leaves = [x.requires_grad_(True), t.requires_grad_(True)] + [
+            p[k].requires_grad_(True) for k in names]
+        plain = fn(leaves[0], leaves[1], dict(zip(names, leaves[2:])), mask,
+                   *args)
+        want = torch.autograd.grad(plain, leaves, cot)
+        gx, gt, grads = walk(x.detach(), t.detach(),
+                             {k: v.detach() for k, v in p.items()}, cot,
+                             mask, *args, stream_rows=64, res_rows=64)
+        walked = [gx, gt] + [grads[k] for k in names]
+        for i, (a, w, k) in enumerate(zip(got, want, walked)):
+            a = a.cpu()
+            assert a.dtype == w.dtype == k.dtype, (name, i)
+            scale = w.float().abs().max()
+            assert (a.float() - w.float()).abs().max() <= 1e-2 * scale, (
+                name, i)
+            assert (a.float() - k.float()).abs().max() <= 8e-3 * scale, (
+                name, i)

@@ -3,7 +3,7 @@
 steps of two checkouts of the port, in turns, on one GPU.
 
     python3 tools/bf16_step_turns.py --trees REF NEW [--steps 8]
-                                     [--cells infer,train,static,long,long512]
+        [--cells infer,train,static,long,long512,train512]
                                      [--out chiprun_out/bf16_step_turns.json]
 
 REF and NEW are checkout roots (each holds ``emip_tpu_torch/``). Each turn
@@ -31,9 +31,13 @@ seeded frames:
   (``step_cached`` on ``EMIPLong(cfg, 5, dtype=bfloat16)`` in inference
   mode, the carried encoding): windows of 1024 tokens, so kernels G and H
   (H's bf16 forward 6 times a step) in place of B, as ``chip_smoke.py``'s
-  bf16 long inference at 512^2.
+  bf16 long inference at 512^2;
+- ``train512``: the short train step at 512^2, batch 2 (as ``train``; its
+  windows of 1024 tokens take kernels G and H in place of B, so G's and
+  H's bf16 backwards run 6 times a step each), as ``chip_smoke.py``'s bf16
+  train step at 512^2.
 
-``--cells`` runs the named cells only (all five by default).
+``--cells`` runs the named cells only (all six by default).
 
 Per cell: two warm-up steps, ``--steps`` steps timed by CUDA events (and
 the device memory's peak over them), one step counted from zero kernel
@@ -69,7 +73,8 @@ SEED = 0
 WARMUP = 2
 PROFILED = 2
 SIZE_512 = 512
-CELLS = ("infer", "train", "static", "long", "long512")
+CELLS = ("infer", "train", "static", "long", "long512", "train512")
+BATCH_512 = 2  # the 512^2 train step's pairs
 LONG_CLIPS = 4
 MEMORY = 5  # the ring's slots
 
@@ -85,12 +90,12 @@ def _frames(rng, n: int, device, size: int = SIZE):
     return torch.from_numpy((img - mean) / std).to(device)
 
 
-def _batch(rng, device) -> dict:
+def _batch(rng, device, batch: int = BATCH, size: int = SIZE) -> dict:
     import torch
 
-    gt = (rng.uniform(size=(BATCH, 1, SIZE, SIZE)) > 0.5).astype(np.float32)
-    return dict(image1=_frames(rng, BATCH, device),
-                image2=_frames(rng, BATCH, device),
+    gt = (rng.uniform(size=(batch, 1, size, size)) > 0.5).astype(np.float32)
+    return dict(image1=_frames(rng, batch, device, size),
+                image2=_frames(rng, batch, device, size),
                 gt=torch.from_numpy(gt).to(device))
 
 
@@ -198,6 +203,35 @@ def worker(tree: str, steps: int, cells=CELLS) -> dict:
     if "long512" in cells:
         out["long512"] = _long512(
             dataclasses.replace(cfg, inp_size=SIZE_512), steps, device)
+    if "train512" in cells:
+        out["train512"] = _train512(
+            dataclasses.replace(cfg, inp_size=SIZE_512), steps, device)
+    return out
+
+
+def _train512(cfg, steps: int, device) -> dict:
+    """The bf16 short train step at 512^2, batch 2."""
+    import torch
+
+    from emip_tpu_torch.models.emip_short import EMIPShort
+    from emip_tpu_torch.models.init import seeded_init_
+    from emip_tpu_torch.train.short import short_train_step
+    from emip_tpu_torch.train.state import build_optimizer
+
+    m32 = seeded_init_(EMIPShort(cfg), SEED)
+    model = EMIPShort(cfg, dtype=torch.bfloat16)
+    model.load_state_dict(m32.state_dict())
+    del m32
+    model = model.to(device)
+    opt = build_optimizer(model)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    rng = np.random.default_rng(SEED + 20)
+    batches = itertools.cycle([_batch(rng, device, BATCH_512, SIZE_512)
+                               for _ in range(2)])
+    out = _measure(
+        lambda: short_train_step(model, opt, next(batches), gen), steps)
+    del model, opt, batches
+    torch.cuda.empty_cache()
     return out
 
 
