@@ -31,7 +31,14 @@ needs one card and no arguments, and it imports nothing of JAX. In order:
    at 32 and B at 64), against the fp64 product and beside
    ``scaled_dot_product_attention`` (the mask as its ``attn_mask``), one
    ``attention`` log line each and a line with their sums (a second call
-   must give the same bits);
+   must give the same bits); and the bf16 attention of C, G and B's self
+   layer alone (``csrc/attention_bf16.cu``: C's [16,1936,128] and
+   [8,4096,128] with 2-wide fp32 v, G's [32,1024,128] with and without the
+   shift mask, B's [64,484,128] with it), against its plain bf16 version
+   and fp64 (the bf16 gates of phase 7), the same bits twice, its event
+   and device ms beside ``scaled_dot_product_attention`` in bf16, its
+   bound at the bf16 rate, its exponentials and their MUFU floor, and
+   TFLOP/s (``attention_bf16`` lines);
 4. kernel phase: each forward kernel A-D and F-J against its plain PyTorch
    version on the same seeded CUDA tensors, at the production shapes of
    the 352^2 path (A at all four PVT stages, B with and without the shift
@@ -270,7 +277,7 @@ these rows carry the CUDA cores' figure for all their operations as
 and as its last line ``{"ok": true, "device":
 {...}}``. Before the JSON line it prints a ``digests {...}`` line: for every
 case of the fp32 backward rows of A, B, C, F, G and H, of the bf16 ones of
-A, B, C, F, G and H and of the bf16 forwards of A, B, C and H
+A, B, C, F, G and H and of the bf16 forwards of A, B, C, G and H
 (``DIGEST_KERNELS``)
 the sha256 of its grads' or output's bytes and its device launches per
 call, so that two trees can be shown to give the same bits at the same
@@ -279,7 +286,8 @@ with no result line. Details also go to ``chiprun_out/chip_smoke.json``. ``--ker
 NAMES`` is a development aid: the kernel phases alone, for the kernels
 whose name contains one of the comma-separated NAMES (``gemm`` adds the
 GEMM lines of phase 3, ``gemm_wgmma`` its wgmma lines alone,
-``attention_fwd`` its attention lines, ``bf16`` the
+``attention_fwd`` its attention lines, ``attention_fwd_bf16`` the
+``attention_bf16`` lines alone, ``bf16`` the
 bf16 kernel, GEMM and backward lines; a bf16 forward row's name, such as
 ``sr_attention_bf16``, that row's kernel lines).
 """
@@ -471,7 +479,8 @@ TENSOR_CORE_KERNELS = ("sr_attention", "sr_attention_bwd",
 # (device_ms), and the bf16 backwards of A, B, C and F and A's bf16
 # forward, whose launches per call the redesign of their bf16 form cut
 # and the bf16 forwards of B and H and the bf16 backwards of G and H, whose
-# redesign cut theirs too
+# redesign cut theirs too, and the bf16 forwards of C and G on the wgmma
+# attention (G's layer in three launches)
 DEVICE_TIMED = ("convex_upsample", "convex_upsample_bwd", "splat_density",
                 "softmax_expectation", "softmax_expectation_bwd",
                 "dwconv_gelu", "dwconv_gelu_bwd", "convex_upsample_bf16",
@@ -482,7 +491,8 @@ DEVICE_TIMED = ("convex_upsample", "convex_upsample_bwd", "splat_density",
                 "window_attention_block_bf16",
                 "window_attention_ffn_layer_bf16",
                 "window_attention_layer_bwd_bf16",
-                "window_attention_ffn_layer_bwd_bf16")
+                "window_attention_ffn_layer_bwd_bf16", "flow_attention_bf16",
+                "window_attention_layer_bf16")
 # kernels held to the same bits on a second call on the same inputs: the
 # tensor-core ones, J and I's backward, which add their per-block partials
 # in a fixed order, and E, whose sum is in integers
@@ -493,14 +503,15 @@ BIT_EQUAL_KERNELS = TENSOR_CORE_KERNELS + (
     "dwconv_gelu_bwd_bf16", "sr_attention_bwd_bf16",
     "flow_attention_bwd_bf16", "window_attention_block_bwd_bf16",
     "memory_attention_bwd_bf16", "window_attention_block_bf16",
-    "window_attention_ffn_layer_bf16")
+    "window_attention_ffn_layer_bf16", "flow_attention_bf16",
+    "window_attention_layer_bf16")
 # the rows whose digests (sha256 of their grads' or output's bytes, per
 # case) are printed on a line of their own: the bf16 and fp32 backwards of
 # the kernels on the tensor cores' attention backward and GEMM, and the
-# bf16 forwards of A, B, C and H, so that two trees can be shown to give
-# the same bits at the same seeds (or, for B's and H's forwards and G's
-# and H's bf16 backwards, whose products moved to the wgmma product, that
-# they moved)
+# bf16 forwards of A, B, C, G and H, so that two trees can be shown to
+# give the same bits at the same seeds (or, for B's and H's forwards and
+# G's and H's bf16 backwards, whose products moved to the wgmma product,
+# and C's and G's forwards, whose attention did, that they moved)
 DIGEST_KERNELS = ("sr_attention_bwd", "window_attention_block_bwd",
                   "window_attention_layer_bwd",
                   "window_attention_ffn_layer_bwd", "flow_attention_bwd",
@@ -510,7 +521,8 @@ DIGEST_KERNELS = ("sr_attention_bwd", "window_attention_block_bwd",
                   "window_attention_block_bf16", "flow_attention_bf16",
                   "window_attention_ffn_layer_bf16",
                   "window_attention_layer_bwd_bf16",
-                  "window_attention_ffn_layer_bwd_bf16")
+                  "window_attention_ffn_layer_bwd_bf16",
+                  "window_attention_layer_bf16")
 DIGESTS = {}
 # the 3xTF32 GEMM alone against the fp64 product: max|err| / max|ref| (fp32
 # rounding of sums over up to 61,952 rows)
@@ -1948,6 +1960,128 @@ def attention_phase(batch: int, device, reps: int) -> dict:
     return out
 
 
+# the MUFU's exponentials: 16 a clock on each of the 132 SMs at the
+# H100 SXM's top clock of 1.98 GHz (a floor beside the bound, not in it)
+MUFU_EXP_PER_S = 16 * 132 * 1.98e9
+
+
+def attention_bf16_shapes(batch: int) -> list:
+    """(label, B, N, D, windows, masked) of the bf16 attention of C, G and
+    B's self layer: C's at 352^2 and 512^2 (2-wide fp32 v), G's windows of
+    1024 tokens at 512^2 and 4 clips and B's of 484 tokens at 352^2, each
+    with and without the shift mask."""
+    return [(f"C [{2 * batch},1936,128] v=[...,2]", 2 * batch, 1936, 128,
+             False, False),
+            (f"C 512^2 [{2 * BATCH_512},4096,128] v=[...,2]", 2 * BATCH_512,
+             4096, 128, False, False),
+            (f"G [{8 * BATCH_512},1024,128] mask", 8 * BATCH_512, 1024, 128,
+             True, True),
+            (f"G [{8 * BATCH_512},1024,128]", 8 * BATCH_512, 1024, 128, True,
+             False),
+            (f"B [{8 * batch},484,128] mask", 8 * batch, 484, 128, True,
+             True),
+            (f"B [{8 * batch},484,128]", 8 * batch, 484, 128, True, False)]
+
+
+def attention_bf16_phase(batch: int, device, reps: int) -> dict:
+    """The bf16 attention of C, G and B's self layer alone
+    (``kernels/attention.py:attention_bf16``, ``csrc/attention_bf16.cu``)
+    at each shape of :func:`attention_bf16_shapes`: against its plain bf16
+    version (BF16_KERNEL_REL) and, beside it, against the fp64 function on
+    the same bf16 inputs (BF16_FP64_RATIO, BF16_FP64_FLOOR); the same bits
+    twice; its event ms in turns with ``scaled_dot_product_attention`` in
+    bf16 (the windows' mask as its ``attn_mask``; C's v cast to bf16), the
+    device ms of both, the bound (the products at the bf16 rate, C's P v at
+    the fp32 rate, the bytes once), the exponentials and their MUFU floor,
+    TFLOP/s by device time, and with a mask the share of its [128, 64]
+    tiles (a block's query rows by a key tile) that are all zero, which the
+    kernel neither loads nor adds (``mask_zero_tiles``). One log line per
+    shape; not part of the result line."""
+    import torch
+    import torch.nn.functional as F
+
+    from emip_tpu_torch.kernels.attention import (
+        attention_bf16,
+        attention_bf16_reference,
+        mask_zero_tiles,
+    )
+    from emip_tpu_torch.ops.window import shifted_window_mask
+
+    bf = torch.bfloat16
+    r = seeded_randn(SEED + 37, device)
+    out = {}
+    for label, b, n, d, windows, masked in attention_bf16_shapes(batch):
+        q, k = r(b, n, d).to(bf), r(b, n, d).to(bf)
+        v = r(b, n, d).to(bf) if windows else r(b, n, 2, scale=10.0)
+        mask = None
+        if masked:
+            side = 2 * int(round(n ** 0.5))
+            mask = shifted_window_mask(side, side, 2, device=device)
+        with torch.no_grad():
+            got = attention_bf16(q, k, v, mask)
+            if not torch.equal(attention_bf16(q, k, v, mask), got):
+                raise AssertionError(f"attention_bf16 ({label}): two calls "
+                                     f"differ")
+            want = attention_bf16_reference(q, k, v, mask)
+            s = q.double() @ k.double().transpose(-1, -2) / d ** 0.5
+            if mask is not None:
+                s += mask[torch.arange(b, device=device)
+                          % mask.shape[0]].double()
+            ref64 = torch.softmax(s, -1) @ v.double()
+            del s
+        rel = ((got.float() - want.float()).abs().max().item()
+               / want.float().abs().max().item())
+        scale = ref64.abs().max().item()
+        e_k = (got.double() - ref64).abs().max().item() / scale
+        e_p = (want.double() - ref64).abs().max().item() / scale
+        ratio = max(e_k, BF16_FP64_FLOOR) / max(e_p, BF16_FP64_FLOOR)
+        del ref64, want
+        nw = 1 if mask is None else mask.shape[0]
+        hq, hk = q.view(b // nw, nw, n, d), k.view(b // nw, nw, n, d)
+        hv = (v if windows else v.to(bf)).view(b // nw, nw, n, -1)
+        bias = None if mask is None else mask.to(bf)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(hq, hk, hv, attn_mask=bias)
+
+        ms, sdpa_ms = alternate_ms(lambda: attention_bf16(q, k, v, mask),
+                                   sdpa, reps)
+        dev = device_ms(lambda: attention_bf16(q, k, v, mask), reps)
+        sdpa_dev = device_ms(sdpa, reps)
+        zero_tiles = (None if mask is None else
+                      mask_zero_tiles(mask).float().mean().item())
+        products = (4.0 if windows else 2.0) * b * n * n * d
+        fp32_ops = 0.0 if windows else 4.0 * b * n * n  # C's P v
+        exps = float(b * n * n)
+        size = float(nbytes(q, k, v, got, mask))
+        bound = max(products / PEAK_BF16_FLOPS + fp32_ops / PEAK_FP32_FLOPS,
+                    size / PEAK_BYTES_PER_S) * 1e3
+        mufu = exps / MUFU_EXP_PER_S * 1e3
+        ok = (bool(torch.isfinite(got).all()) and rel <= BF16_KERNEL_REL
+              and ratio <= BF16_FP64_RATIO and dev >= bound)
+        log(f"attention_bf16 {label:34s} rel={rel:.2e} (tol "
+            f"{BF16_KERNEL_REL}) fp64 err kernel {e_k:.2e} plain {e_p:.2e} "
+            f"ratio {ratio:.3f} (limit {BF16_FP64_RATIO}) ms={ms:.4f} "
+            f"device_ms={dev:.4f} sdpa_ms={sdpa_ms:.4f} "
+            f"sdpa_device_ms={sdpa_dev:.4f}"
+            f"{'' if windows else ' (v cast to bf16)'} bound_ms={bound:.4f} "
+            f"exps={exps:.3g} mufu_ms={mufu:.4f} "
+            f"{products / dev / 1e9:.1f} TFLOP/s"
+            f"{'' if zero_tiles is None else f' zero_tiles={zero_tiles:.4f}'}"
+            f" {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            raise AssertionError(f"attention_bf16 ({label}): rel={rel}, "
+                                 f"fp64 ratio={ratio}, device_ms={dev} "
+                                 f"against bound {bound}")
+        out[label] = dict(rel_err=rel, fp64_err=e_k, plain_fp64_err=e_p,
+                          fp64_ratio=ratio, ms=ms, device_ms=dev,
+                          sdpa_ms=sdpa_ms, sdpa_device_ms=sdpa_dev,
+                          bound_ms=bound, exps=exps, mufu_ms=mufu,
+                          zero_tiles=zero_tiles)
+        del q, k, v, got
+    return out
+
+
 def splat_coords(batch: int, size: int, kind: str, rng):
     """[batch, size, size, 2] (x, y) targets of kernel E: the pixel grid
     plus seeded noise of 4 px ("noise", as the occlusion mask builds its
@@ -2556,7 +2690,7 @@ def bf16_kernel_phase(batch: int, device, reps: int, only: str = "") -> dict:
 
 def bf16_gemm_phase(batch: int, device, reps: int) -> dict:
     """The bf16 GEMM alone at each ``x W^T`` shape bf16 inference gives it
-    (A's projections, B's self-layer q, k, v and merge) and a ragged check:
+    (A's projections) and a ragged check:
     against the plain bf16 version, against fp64 (BF16_FP64_RATIO), bit
     equality, its time beside the plain version and ``torch.matmul`` in
     bf16 (reduced-precision reduction off), and its bound at the bf16
@@ -2568,8 +2702,8 @@ def bf16_gemm_phase(batch: int, device, reps: int) -> dict:
 
     r = seeded_randn(SEED + 33, device)
     bf = torch.bfloat16
-    shapes = [s for s in gemm_shapes(batch) if s[4] == "x W^T" and (
-        s[0].startswith("A ") or s[0] == "B q k v m")]
+    shapes = [s for s in gemm_shapes(batch)
+              if s[4] == "x W^T" and s[0].startswith("A ")]
     shapes.append(("check ragged", 1000, 88, 70, "x W^T"))
     out = {}
     with torch.no_grad():
@@ -5323,6 +5457,8 @@ def main(argv=None) -> int:
             gemm_phase(BATCH, device, KERNEL_REPS, wgmma_only=True)
         if wanted(opts.kernels, "attention_fwd"):
             attention_phase(BATCH, device, KERNEL_REPS)
+        if "attention_fwd_bf16" in opts.kernels.split(","):
+            attention_bf16_phase(BATCH, device, KERNEL_REPS)
         kernel_phase(BATCH, device, KERNEL_REPS, opts.kernels)
         backward_phase(BATCH, device, KERNEL_REPS, opts.kernels)
         if any(wanted(opts.kernels, name) for name in BF16_BWD_INFO):
@@ -5333,6 +5469,7 @@ def main(argv=None) -> int:
         return 0
     gemm_res = gemm_phase(BATCH, device, KERNEL_REPS)
     attention_res = attention_phase(BATCH, device, KERNEL_REPS)
+    attention16_res = attention_bf16_phase(BATCH, device, KERNEL_REPS)
     kernels = kernel_phase(BATCH, device, KERNEL_REPS)
     kernels.update(backward_phase(BATCH, device, KERNEL_REPS))
     transpose_ms = transpose_cost(BATCH, device, KERNEL_REPS)
@@ -5530,6 +5667,7 @@ def main(argv=None) -> int:
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, gemm=gemm_res, attention=attention_res,
+                       attention_bf16=attention16_res,
                        kernels=kernels,
                        slice=slice_res,
                        train=train_res, train_compare=compare_res,

@@ -1,9 +1,9 @@
-// The bf16 forward attention of kernels A, B and C (the bf16 band of short
-// inference). Its key loop, AbKeys, is defined here once: the attention
-// kernel of attention_bf16.cu (B's self layer and C, through the entry
-// point declared here, which window_attention.cu and flow_attention.cu call
-// inside their bf16 entry points) and A's fused forward of sr_attention.cu
-// run it.
+// The bf16 forward attention of kernels A, B, C and G (the bf16 band). The
+// entry point declared here is the wgmma attention of attention_bf16.cu,
+// which window_attention.cu (B's self layer, G) and flow_attention.cu (C)
+// call inside their bf16 entry points. The key loop defined here, AbKeys
+// (mma.sync, key tiles of 32 behind two cp.async stages), is A's: its
+// fused forward of sr_attention.cu runs it.
 
 #pragma once
 
@@ -13,19 +13,25 @@
 // every score and the softmax in fp32. q: [B, Nq, D]; k: [B, Nk, D]; each
 // addressed by its batch and row strides in elements (the last stride 1),
 // so that B's qkv buffer is read in place. DV == D: v [B, Nk, D] bf16, P
-// rounded to bf16 for P v on the tensor cores, out bf16 (B's windows: D
-// 128 or 64, Nq == Nk, windows != 0, mask [mask_nw, Nq, Nk] fp32 or null
-// with batch row b reading mask[b % mask_nw]). DV == 2: v [B, Nk, 2] fp32,
-// P v in fp32 on the CUDA cores, out [B, Nq, 2] fp32 (C: D 128 or 64, no
-// mask). Returns a cudaError_t.
+// rounded to bf16 for P v on the tensor cores, out bf16 (the windows of B
+// and G: D 128 or 64, Nq == Nk, windows != 0, mask [mask_nw, Nq, Nk] fp32
+// or null with batch row b reading mask[b % mask_nw], Nk a multiple of 4
+// with the mask; zero_tiles, uint8 [mask_nw, ceil(Nq / 128), ceil(Nk /
+// 64)] or null, marks the mask's tiles that are all zero, which are then
+// neither loaded nor added: the same bits). DV == 2: v [B, Nk, 2] fp32, P v in fp32 on the CUDA
+// cores, out [B, Nq, 2] fp32 (C: D 128 or 64, no mask). Row strides of q,
+// k and a wide v are multiples of 8 elements, their pointers 16-byte
+// aligned. Returns a cudaError_t (cudaErrorInvalidValue for a launch it
+// cannot take).
 extern "C" int emip_attention_fwd_bf16(const void* q, long long q_sb,
                                        int q_sn, const void* k,
                                        long long k_sb, int k_sn,
                                        const void* v, long long v_sb,
                                        int v_sn, const float* mask,
-                                       int mask_nw, void* out, long long o_sb,
-                                       int o_sn, int B, int Nq, int Nk, int D,
-                                       int DV, int windows, void* stream);
+                                       int mask_nw, const void* zero_tiles,
+                                       void* out, long long o_sb, int o_sn,
+                                       int B, int Nq, int Nk, int D, int DV,
+                                       int windows, void* stream);
 
 namespace emip {
 namespace {

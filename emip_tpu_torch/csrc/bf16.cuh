@@ -20,10 +20,9 @@
 //                    operand of P v.
 //   layernorm_self_bf16
 //                    the LayerNorm of kernel B's bf16 self layer, rounded
-//                    where the JAX kernel rounds (see window_attention.cu);
-//                    it also ends kernel G's bf16 forward, with or without
-//                    the residual, into a bf16 output (B's output LayerNorm
-//                    is the epilogue of its W2 product, gemm_wgmma.cuh).
+//                    where the JAX kernel rounds (see window_attention.cu)
+//                    (G's is the epilogue of its Wm product and B's output
+//                    LayerNorm that of its W2 product, gemm_wgmma.cuh).
 
 #pragma once
 

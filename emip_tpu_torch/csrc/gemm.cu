@@ -32,7 +32,7 @@ extern "C" int emip_gemm(const float* A, long long sam, long long sak,
   return (int)cudaGetLastError();
 }
 
-// The bf16 GEMM of gemm_bf16.cuh alone (kernels A and B in the bf16 band):
+// The bf16 GEMM of gemm_bf16.cuh alone (kernel A in the bf16 band):
 // C [M, N] (row stride ldc) = A [M, K] (row stride lda) . W^T (+ bias [N],
 // fp32) for W [N, K] (row stride ldw), A and W bf16, C bf16 (out_bf16) or
 // fp32.

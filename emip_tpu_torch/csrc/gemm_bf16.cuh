@@ -1,4 +1,4 @@
-// The bf16 GEMM of kernels A and B in the bf16 band (beside the 3xTF32 one
+// The bf16 GEMM of kernel A in the bf16 band (beside the 3xTF32 one
 // of gemm_tf32.cuh):
 //
 //   linear_bf16     y[M, N] = x[M, K] W[N, K]^T (+ bias[N]) for a torch
@@ -7,16 +7,9 @@
 //                   mma.sync.m16n8k16 bf16 with fp32 accumulators; the
 //                   epilogue adds the fp32 bias to the fp32 sum and then
 //                   rounds to bf16 once, or writes the fp32 sum where the
-//                   caller rounds later (B's merge output, which a fp32
-//                   LayerNorm reads), as the JAX kernels'
+//                   caller rounds later, as the JAX kernels'
 //                   dot(..., preferred_element_type=float32) + bias,
 //                   .astype(dtype).
-//   linear_bf16_stacked
-//                   the same product over up to three weights [n, K] stacked
-//                   along N without a copy (output column j reads row j % n
-//                   of weight j / n): kernel B's self-layer q, k, v and G's
-//                   k, v in one launch. Each output column is the same dot
-//                   product in the same K order as alone.
 //
 // What bounds it: the products, 2 M N K operations, at the bf16 tensor-core
 // rate. A block of 8 warps owns a 128 x 128 output tile (a warp 32 x 64: two
@@ -47,10 +40,8 @@ constexpr size_t kBgBytes = sizeof(bf16) * kBgStages * kBgStage;
 struct GemmBf16Args {
   const bf16* A;  // [M, K], row stride lda
   long long lda;
-  // W [N, K], row stride ldw: column j reads row j % w_rows of W[j / w_rows]
-  const bf16* W[3];
+  const bf16* W;  // [N, K], row stride ldw
   long long ldw;
-  int w_rows;
   const float* bias;  // [N] or null
   void* C;            // [M, N], row stride ldc: bf16 or fp32
   long long ldc;
@@ -87,13 +78,10 @@ gemm_bf16_kernel(GemmBf16Args g) {
 #pragma unroll
       for (int e = tid; e < kBgBN * (kBgBK / 8); e += kBgThreads) {
         const int r = e / (kBgBK / 8), c = (e % (kBgBK / 8)) * 8;
-        const int n = col0 + r, wi = n / g.w_rows;
+        const int n = col0 + r;
         const bool ok = n < g.N && k0 + c < g.K;
-        const bf16* w = wi == 0 ? g.W[0] : wi == 1 ? g.W[1] : g.W[2];
         cp_async<16>(bs + r * kBgLd + c,
-                     ok ? w + (long long)(n - wi * g.w_rows) * g.ldw + k0 + c
-                        : g.W[0],
-                     ok);
+                     ok ? g.W + (long long)n * g.ldw + k0 + c : g.W, ok);
       }
     }
     cp_async_commit();
@@ -194,35 +182,10 @@ inline cudaError_t linear_bf16(const bf16* x, long long ldx, const bf16* W,
   if (M == 0 || N == 0) return cudaSuccess;
   GemmBf16Args g;
   g.A = x; g.lda = ldx;
-  g.W[0] = g.W[1] = g.W[2] = W; g.ldw = ldw; g.w_rows = N;
+  g.W = W; g.ldw = ldw;
   g.bias = bias;
   g.C = y; g.ldc = ldy;
   g.M = M; g.N = N; g.K = K;
-  return out_bf16 ? gemm_bf16_launch<true>(g, stream)
-                  : gemm_bf16_launch<false>(g, stream);
-}
-
-// y [M, count * n] = x . [W[0]; ..; W[count - 1]]^T for count (1-3) weights
-// [n, K] of row stride ldw, read where they lie; no bias; as linear_bf16
-// otherwise.
-inline cudaError_t linear_bf16_stacked(const bf16* x, long long ldx,
-                                       const bf16* const* W, int count,
-                                       long long ldw, void* y, long long ldy,
-                                       int M, int n, int K, bool out_bf16,
-                                       cudaStream_t stream) {
-  if (count < 1 || count > 3 || K % 8 || ldx % 8 || ldw % 8 || n % 2 ||
-      ldy % 2 || !aligned16_ptr(x))
-    return cudaErrorInvalidValue;
-  for (int i = 0; i < count; ++i)
-    if (!aligned16_ptr(W[i])) return cudaErrorInvalidValue;
-  if (M == 0 || n == 0) return cudaSuccess;
-  GemmBf16Args g;
-  g.A = x; g.lda = ldx;
-  for (int i = 0; i < 3; ++i) g.W[i] = W[i < count ? i : 0];
-  g.ldw = ldw; g.w_rows = n;
-  g.bias = nullptr;
-  g.C = y; g.ldc = ldy;
-  g.M = M; g.N = count * n; g.K = K;
   return out_bf16 ? gemm_bf16_launch<true>(g, stream)
                   : gemm_bf16_launch<false>(g, stream);
 }

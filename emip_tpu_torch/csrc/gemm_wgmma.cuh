@@ -68,6 +68,13 @@
 // 16-byte aligned (leading dimensions of 4 floats or 8 bf16): the wrapper
 // refuses others, there is no other path. No atomics: a second call gives
 // the same bits.
+//
+// Below it, the bf16 form (wg_linear_bf16, G's bf16 forward: two bf16
+// operands, one wgmma.m64nNk16.bf16 product summed in fp32) and the pieces
+// the bf16 attention of attention_bf16.cu shares with it: the bf16 wgmma
+// from shared memory or with A from registers and an MN-major B. Every
+// form loads its boxes through one TMA map builder (wg_map) and one load
+// (tma_load_3d).
 
 #pragma once
 
@@ -181,15 +188,16 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
     if (clock64() - t0 > (1LL << 35)) __trap();
 }
 
-// a box of the map at (inner c0, outer c1) into dst, its bytes reported to
-// bar; out-of-range elements arrive as zeros
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1) {
+// a box of a 3D map at (inner c0, row c1, batch c2) into dst, its bytes
+// reported to bar; elements past the map's bounds arrive as zeros
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
   asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1)
+      "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -363,10 +371,10 @@ wg_gemm_kernel(const __grid_constant__ WgArgs g) {
       unsigned char* st = ring + s * P::kStage;
       mbar_expect_tx(&full[s], (a16 ? P::kABytes / 2 : P::kABytes) +
                                    2 * P::kWBytes);
-      tma_load_2d(st, &g.a[src], &full[s], ka, row0);
-      tma_load_2d(st + P::kABytes, &g.w, &full[s], kw, col0);
-      tma_load_2d(st + P::kABytes + P::kWBytes, &g.w, &full[s], kw,
-                  g.w_lo + col0);
+      tma_load_3d(st, &g.a[src], &full[s], ka, row0, 0);
+      tma_load_3d(st + P::kABytes, &g.w, &full[s], kw, col0, 0);
+      tma_load_3d(st + P::kABytes + P::kWBytes, &g.w, &full[s], kw,
+                  g.w_lo + col0, 0);
     }
     return;
   }
@@ -512,29 +520,39 @@ inline WgEncodeFn wg_encoder() {
   return fn;
 }
 
-// A row-major [rows, cols] operand (leading dimension ld, in elements) in
-// boxes of [box_rows, 32 elements]: fp32 in the 128-byte swizzle, bf16 in
-// the 64-byte one.
+// A [batches, rows, inner] operand (row and batch strides in elements, the
+// inner one 1) in boxes of [box_rows, box_inner], swizzled by the box's
+// row bytes (box_inner elements: 64 or 128 bytes); a box reaching past
+// rows or inner of its batch gets zeros there. Strides must be multiples
+// of 16 bytes. wg_linear reads rows of 32 (fp32 in the 128-byte swizzle,
+// bf16 in the 64-byte one), wg_linear_bf16 and the attention rows of 64
+// bf16 or 32 fp32 (128 bytes); a 2D operand is one batch.
 inline cudaError_t wg_map(CUtensorMap* map, const void* p, bool bf16,
-                          long long rows, long long cols, long long ld,
-                          int box_rows) {
+                          long long inner, long long rows, long long batches,
+                          long long row_stride, long long batch_stride,
+                          int box_inner, int box_rows) {
   const WgEncodeFn encode = wg_encoder();
-  const int elem = bf16 ? 2 : 4;
+  const int elem = bf16 ? 2 : 4, row_bytes = box_inner * elem;
   if (!encode) return cudaErrorNotSupported;
-  if (reinterpret_cast<uintptr_t>(p) % 16 || (ld * elem) % 16 || rows < 1 ||
-      cols < 1 || ld < cols)
+  if (reinterpret_cast<uintptr_t>(p) % 16 || (row_stride * elem) % 16 ||
+      (batch_stride * elem) % 16 || inner < 1 || rows < 1 || batches < 1 ||
+      row_stride < inner || batch_stride < 1 ||
+      (row_bytes != 64 && row_bytes != 128))
     return cudaErrorInvalidValue;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)(ld * elem)};
-  const cuuint32_t box[2] = {(cuuint32_t)kWgBK, (cuuint32_t)box_rows};
-  const cuuint32_t unit[2] = {1, 1};
+  const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)rows,
+                              (cuuint64_t)batches};
+  const cuuint64_t strides[2] = {(cuuint64_t)(row_stride * elem),
+                                 (cuuint64_t)(batch_stride * elem)};
+  const cuuint32_t box[3] = {(cuuint32_t)box_inner, (cuuint32_t)box_rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult r = encode(
       map,
       bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
            : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
-      2, const_cast<void*>(p), dims, strides, box, unit,
+      3, const_cast<void*>(p), dims, strides, box, unit,
       CU_TENSOR_MAP_INTERLEAVE_NONE,
-      bf16 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
+      row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                      : CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
@@ -658,17 +676,18 @@ cudaError_t wg_linear(WgSource a0, WgSource a1, int n_switch,
   const int bm = two ? 128 : 64;
   WgArgs g;
   cudaError_t err;
-  if ((err = wg_map(&g.a[0], a0.p, kBf16<TA0>, M, a0.k, a0.ld, bm)) !=
-      cudaSuccess)
+  if ((err = wg_map(&g.a[0], a0.p, kBf16<TA0>, a0.k, M, 1, a0.ld, a0.ld,
+                    kWgBK, bm)) != cudaSuccess)
     return err;
   if (a1.p) {
-    if ((err = wg_map(&g.a[1], a1.p, kBf16<TA1>, M, along_k ? a1.k : a0.k,
-                      a1.ld, bm)) != cudaSuccess)
+    if ((err = wg_map(&g.a[1], a1.p, kBf16<TA1>, along_k ? a1.k : a0.k, M,
+                      1, a1.ld, a1.ld, kWgBK, bm)) != cudaSuccess)
       return err;
   } else {
     g.a[1] = g.a[0];
   }
-  if ((err = wg_map(&g.w, wsplit, false, 2LL * N, kw, kw, bn)) != cudaSuccess)
+  if ((err = wg_map(&g.w, wsplit, false, kw, 2LL * N, 1, kw, kw, kWgBK,
+                    bn)) != cudaSuccess)
     return err;
   g.M = M;
   g.N = N;
@@ -695,6 +714,358 @@ cudaError_t wg_linear(WgSource a0, WgSource a1, int n_switch,
                : wg_launch<TA0, TA1, 128, 1, EPI>(g, stream);
   return two ? wg_launch<TA0, TA1, 64, 2, EPI>(g, stream)
              : wg_launch<TA0, TA1, 64, 1, EPI>(g, stream);
+}
+
+// ------------------------------------------------------- the bf16 form
+//
+// Products of two bf16 operands on wgmma.m64nNk16.f32.bf16.bf16, the sums
+// in fp32: G's bf16 forward (q, k, v and o Wm^T, wg_linear_bf16 below) and
+// the bf16 attention of attention_bf16.cu. Operands come by TMA in boxes
+// of 64 bf16 a row (128 bytes, the 128-byte swizzle), K-major as they lie,
+// or MN-major for the B operand of P V (the values [keys, D], read
+// transposed: 16-bit wgmma takes imm-trans-b).
+
+// The descriptor of an MN-major tile of 16-bit values: K rows of 128 bytes
+// (64 values along N) in the 128-byte swizzle, 8-row groups 1024 bytes
+// apart. With N = 64 (one swizzle atom along N) the only stride read is
+// that of the 8-row groups, so both offset fields hold it.
+__device__ __forceinline__ uint64_t wg_desc_mn(const void* tile) {
+  return (uint64_t)((smem_u32(tile) & 0x3FFFF) >> 4) |
+         ((uint64_t)(1024 >> 4) << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         (1ull << 62);
+}
+
+#define EMIP_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define EMIP_D16(i) EMIP_D4(i), EMIP_D4(i + 4), EMIP_D4(i + 8), EMIP_D4(i + 12)
+
+// d[64, N] (+)= A[64, 16] . B[N, 16]^T, bf16 in, fp32 accumulators, A and
+// B by descriptor, both K-major; scale_d 0 overwrites d. Accumulator j of
+// thread (warp w, g, t) as wgmma_tf32's.
+template <int N>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t da,
+                                           uint64_t db, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<64>(float (&d)[32], uint64_t da,
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, %32, %33, p, 1, 1, 0, 0;\n"
+      "}"
+      : EMIP_D16(0), EMIP_D16(16)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<128>(float (&d)[64], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n"
+      "}"
+      : EMIP_D16(0), EMIP_D16(16), EMIP_D16(32), EMIP_D16(48)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[64, 64] += a[64, 16] . B[16, 64], A from registers in mma.m16n8k16's
+// bf16 A layout per warp (rows 16 w + g, + 8; k 2 t, 2 t + 1, + 8), B by
+// an MN-major descriptor (imm-trans-b 1).
+__device__ __forceinline__ void wgmma_bf16_rt(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}"
+      : EMIP_D16(0), EMIP_D16(16)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef EMIP_D16
+#undef EMIP_D4
+
+// keeps the compiler from reusing A-operand registers that an asynchronous
+// product may still read
+template <int N>
+__device__ __forceinline__ void wg_fence_regs(uint32_t (&a)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
+// ---------------------------------------------- wg_linear_bf16 (kernel G)
+//
+// out = bf16(epilogue(A W^T)) with A [M, K] and W [N, K] bf16 (the
+// weights cast at use), the products summed in fp32 on the tensor core
+// across K. A block is one producer warp and one consumer warpgroup (64
+// rows) over a BN-column tile; the producer keeps a ring of stages filled
+// by TMA, each a K tile of 64 of A and of W (128-byte rows in the 128-byte
+// swizzle, the layout the descriptors read). Column tiles at or past
+// n_switch read A's second source; column tile col0 reads weight col0 /
+// w_rows from its row col0 % w_rows, so q, k and v come from x and t over
+// Wq, Wk, Wv in one launch with no stacked copy. K is the model's width
+// (128, or 64 at b0), so the ring has two stages: four blocks an SM, one
+// block's epilogue overlapping another's loads; the epilogue's bf16 tile
+// leaves through shared memory in coalesced 16-byte stores (N and the
+// leading dimension multiples of 8). Epilogues: the bf16
+// rounding (q, k, v); G's merge, msg = bf16(LN1(o Wm^T)) over the row that
+// one column tile holds (N = BN), then out = bf16(x + msg) with the
+// residual, else msg.
+
+enum { kWbEpiBf16 = 0, kWbEpiLnMsg = 1 };
+constexpr int kWbBK = 64;  // K tile: 64 bf16, 128 bytes
+constexpr int kWbStages = 2;
+constexpr int kWbBM = 64;
+constexpr int kWbThreads = 128 + 32;
+
+template <int BN>
+struct WbPlan {
+  static constexpr int kABytes = kWbBM * 128;
+  static constexpr int kWBytes = BN * 128;
+  static constexpr int kStage = kABytes + kWBytes;
+  static constexpr size_t kBytes =
+      (size_t)kWbStages * kStage + 2 * kWbStages * 8 + 1024;
+};
+
+struct WbArgs {
+  CUtensorMap a[2];
+  CUtensorMap w[3];
+  int M, N, K, n_switch, w_rows;
+  __nv_bfloat16* out;
+  long long ldo;
+  const float* gamma;
+  const float* beta;
+  float eps;
+  const __nv_bfloat16* res;
+  long long ldres;
+};
+
+// Grid (column tiles, row tiles of 64); four blocks an SM.
+template <int BN, int EPI>
+__global__ void __launch_bounds__(kWbThreads, 4)
+wg_bf16_kernel(const __grid_constant__ WbArgs g) {
+  using P = WbPlan<BN>;
+  extern __shared__ unsigned char wb_smem_raw[];
+  const uint32_t raw = smem_u32(wb_smem_raw);
+  unsigned char* ring = wb_smem_raw + (((raw + 1023) & ~1023u) - raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kWbStages * P::kStage);
+  uint64_t* empty = full + kWbStages;
+
+  const int row0 = blockIdx.y * kWbBM, col0 = blockIdx.x * BN;
+  const int src = col0 >= g.n_switch ? 1 : 0;
+  const int wi = col0 / g.w_rows, wrow = col0 % g.w_rows;
+  const int tiles = (g.K + kWbBK - 1) / kWbBK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWbStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {  // the producer warp
+    if (threadIdx.x != 128) return;
+    for (int kt = 0; kt < tiles; ++kt) {
+      const int s = kt % kWbStages;
+      if (kt >= kWbStages)
+        mbar_wait(&empty[s], ((kt / kWbStages) + 1) & 1);
+      unsigned char* st = ring + s * P::kStage;
+      mbar_expect_tx(&full[s], P::kStage);
+      tma_load_3d(st, &g.a[src], &full[s], kt * kWbBK, row0, 0);
+      tma_load_3d(st + P::kABytes, &g.w[wi], &full[s], kt * kWbBK, wrow, 0);
+    }
+    return;
+  }
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gq = lane / 4, tq = lane % 4;
+  float acc[BN / 2];
+  for (int kt = 0; kt < tiles; ++kt) {
+    const int s = kt % kWbStages;
+    mbar_wait(&full[s], (kt / kWbStages) & 1);
+    const unsigned char* st = ring + s * P::kStage;
+    const uint64_t da = wg_desc(st);
+    const uint64_t dw = wg_desc(st + P::kABytes);
+    wg_fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kWbBK / 16; ++kk)
+      wgmma_bf16<BN>(acc, da + 2 * kk, dw + 2 * kk, kt > 0 || kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    wg_fence_regs(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+  // The tile's bf16 values (msg) go through shared memory (the ring is
+  // free: every K tile is consumed), rows of BN + 8 bf16 so that a warp's
+  // stores fall on 32 banks, and leave in coalesced 16-byte stores, the
+  // residual added there from 16-byte loads. Rows r (h = 0) and r + 8 (h =
+  // 1) of the tile; columns 8 j + 2 tq, + 1.
+  constexpr int kLd = BN + 8;
+  __nv_bfloat16* stage = reinterpret_cast<__nv_bfloat16*>(ring);
+  const int r = 16 * warp + gq;
+  float mu[2] = {0.f, 0.f}, inv[2] = {0.f, 0.f};
+  if constexpr (EPI == kWbEpiLnMsg) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+        sum += acc[4 * j + 2 * h] + acc[4 * j + 2 * h + 1];
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      mu[h] = sum / BN;
+      float v = 0.f;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float dlt = acc[4 * j + 2 * h + c] - mu[h];
+          v += dlt * dlt;
+        }
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      inv[h] = rsqrtf(v / BN + g.eps);
+    }
+  }
+  // column pair by column pair, both rows: one pair of gamma, beta live
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int cl = 8 * j + 2 * tq, col = col0 + cl;
+    float2 gm = make_float2(1.f, 1.f), bt = make_float2(0.f, 0.f);
+    if constexpr (EPI == kWbEpiLnMsg) {
+      if (col < g.N) {
+        gm = *reinterpret_cast<const float2*>(g.gamma + col);
+        bt = *reinterpret_cast<const float2*>(g.beta + col);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+      if constexpr (EPI == kWbEpiLnMsg) {
+        v0 = (v0 - mu[h]) * inv[h] * gm.x + bt.x;
+        v1 = (v1 - mu[h]) * inv[h] * gm.y + bt.y;
+      }
+      *reinterpret_cast<__nv_bfloat162*>(stage + (r + 8 * h) * kLd + cl) =
+          __floats2bfloat162_rn(v0, v1);
+    }
+  }
+  asm volatile("bar.sync 1, 128;" ::: "memory");  // the consumer warpgroup
+  constexpr int kChunks = BN / 8;  // 16-byte chunks of a row
+  for (int i = threadIdx.x; i < kWbBM * kChunks; i += 128) {
+    const int rr = i / kChunks, c8 = (i % kChunks) * 8;
+    const int gr = row0 + rr, col = col0 + c8;
+    if (gr >= g.M || col >= g.N) continue;
+    uint4 v = *reinterpret_cast<const uint4*>(stage + rr * kLd + c8);
+    if (EPI == kWbEpiLnMsg && g.res) {  // out = bf16(x + msg), msg bf16
+      const uint4 x = *reinterpret_cast<const uint4*>(
+          g.res + (long long)gr * g.ldres + col);
+      __nv_bfloat162* m2 = reinterpret_cast<__nv_bfloat162*>(&v);
+      const __nv_bfloat162* x2 = reinterpret_cast<const __nv_bfloat162*>(&x);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        m2[e] = __floats2bfloat162_rn(
+            __low2float(x2[e]) + __low2float(m2[e]),
+            __high2float(x2[e]) + __high2float(m2[e]));
+    }
+    *reinterpret_cast<uint4*>(g.out + (long long)gr * g.ldo + col) = v;
+  }
+}
+
+template <int BN, int EPI>
+cudaError_t wb_launch(const WbArgs& g, cudaStream_t stream) {
+  using P = WbPlan<BN>;
+  // set once per instantiation, not per launch (one card per process)
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      wg_bf16_kernel<BN, EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)P::kBytes);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid(ceil_div(g.N, BN), ceil_div(g.M, kWbBM));
+  wg_bf16_kernel<BN, EPI><<<grid, kWbThreads, P::kBytes, stream>>>(g);
+  return cudaGetLastError();
+}
+
+// out [M, N] (leading dimension ldo) = bf16(epilogue(A W^T)): A a0 [M, K]
+// (leading dimension lda0), and from column n_switch on a1 (lda1; a1 null
+// with n_switch >= N); w[i] [w_rows, K] bf16 for columns i w_rows .. (i +
+// 1) w_rows (at most three). bn: 128 or 64, dividing w_rows and n_switch;
+// kWbEpiLnMsg needs N = bn and gamma, beta, and takes res [M, N] bf16
+// (ldres) or null.
+template <int EPI>
+cudaError_t wg_linear_bf16(const __nv_bfloat16* a0, long long lda0,
+                           const __nv_bfloat16* a1, long long lda1,
+                           int n_switch, const __nv_bfloat16* const* w,
+                           int w_count, int w_rows, int M, int N, int K,
+                           int bn, __nv_bfloat16* out, long long ldo,
+                           const float* gamma, const float* beta, float eps,
+                           const __nv_bfloat16* res, long long ldres,
+                           cudaStream_t stream) {
+  if (M == 0 || N == 0) return cudaSuccess;
+  if ((bn != 64 && bn != 128) || K < 1 || w_count < 1 || w_count > 3 ||
+      w_rows % bn || (n_switch < N && (!a1 || n_switch % bn)) ||
+      N > w_count * w_rows || N % 8 || ldo % 8 ||
+      reinterpret_cast<uintptr_t>(out) % 16 ||
+      (EPI == kWbEpiLnMsg &&
+       (N != bn || !gamma || !beta ||
+        reinterpret_cast<uintptr_t>(gamma) % 8 ||
+        reinterpret_cast<uintptr_t>(beta) % 8 ||
+        (res && (ldres % 8 || reinterpret_cast<uintptr_t>(res) % 16)))))
+    return cudaErrorInvalidValue;
+  WbArgs g;
+  cudaError_t err;
+  if ((err = wg_map(&g.a[0], a0, true, K, M, 1, lda0, lda0, kWbBK,
+                    kWbBM)) != cudaSuccess)
+    return err;
+  if (n_switch < N) {
+    if ((err = wg_map(&g.a[1], a1, true, K, M, 1, lda1, lda1, kWbBK,
+                      kWbBM)) != cudaSuccess)
+      return err;
+  } else {
+    g.a[1] = g.a[0];
+  }
+  for (int i = 0; i < 3; ++i) {
+    if (i < w_count) {
+      if ((err = wg_map(&g.w[i], w[i], true, K, w_rows, 1, K, K, kWbBK,
+                        bn)) != cudaSuccess)
+        return err;
+    } else {
+      g.w[i] = g.w[0];
+    }
+  }
+  g.M = M;
+  g.N = N;
+  g.K = K;
+  g.n_switch = n_switch < N ? n_switch : N;
+  g.w_rows = w_rows;
+  g.out = out;
+  g.ldo = ldo;
+  g.gamma = gamma;
+  g.beta = beta;
+  g.eps = eps;
+  g.res = res;
+  g.ldres = ldres;
+  return bn == 128 ? wb_launch<128, EPI>(g, stream)
+                   : wb_launch<64, EPI>(g, stream);
 }
 
 }  // namespace

@@ -60,10 +60,10 @@
 // three cp.async stages, each tile two mma.sync.m16n8k16 steps into fp32
 // accumulators: the GEMM's order, so its bits; the bias is added and q_h
 // packed to bf16 straight into the A fragments of q k^T, never leaving the
-// registers; (b) runs the key loop of attention_bf16.cuh (the one of B's
-// and C's bf16 attention) over the image's M keys of [k | v] and rounds o_h
-// into its shared memory; (c) once the whole cluster is past its key loop
-// (a cluster barrier; Wp's first tiles are on their way), writes its o
+// registers; (b) runs the key loop AbKeys of attention_bf16.cuh over the
+// image's M keys of [k | v] and rounds o_h into its shared memory; (c) once
+// the whole cluster is past its key loop (a cluster barrier; Wp's first
+// tiles are on their way), writes its o
 // tile into every block's [64, C] o through distributed shared memory
 // (stores, which the block does not wait on, where loads would wait a
 // round trip per head), and after a second barrier writes out[:, h] =

@@ -65,9 +65,10 @@
 // fp32 parameters, as the JAX kernels (_kernel / _kernel_rows, _ffn_kernel
 // / _ffn_kernel_rows) compute them with a bf16 storage dtype; they are the
 // two halves of B's bf16 forward below. G in bf16: q = bf16(x Wq), k, v =
-// bf16(t W) (the bf16 GEMM on the weights cast at use; k and v one launch
-// over both weights), the bf16 attention (fp32 softmax, P rounded for P v),
-// m = o Wm in fp32, out = bf16(x + bf16(LN1(m))) or bf16(LN1(m)). H: the
+// bf16(t W) (one launch of the bf16 wgmma product of gemm_wgmma.cuh over
+// the weights cast at use), the bf16 attention (fp32 softmax, P rounded
+// for P v), m = o Wm in fp32 and out = bf16(x + bf16(LN1(m))) or
+// bf16(LN1(m)) in that product's epilogue: three launches. H: the
 // fp32 layer on the fp32 weights with x and t read as bf16 where they lie
 // (cross_ffn_bf16), the output rounded once.
 // cross_ffn_bf16 runs H's products on the wgmma product of gemm_wgmma.cuh
@@ -113,7 +114,6 @@
 
 #include "attention_bf16.cuh"
 #include "attention_fwd.cuh"
-#include "gemm_bf16.cuh"
 #include "gemm_tf32.cuh"
 #include "gemm_wgmma.cuh"
 
@@ -694,36 +694,42 @@ extern "C" int emip_window_ffn_layer_bwd(
 
 // ------------------------------------------------- kernels G and H, bf16
 
-// G's bf16 forward: x, t, out [R, C] and the weights wq..wm bf16 (cast at
-// use), s1, b1 fp32. Buffers: qkv [R, 3C] and o [R, C] bf16, m [R, C]
-// fp32. No statistics are kept (the bf16 backward recomputes).
+// G's bf16 forward in three launches: x, t, out [R, C] and the weights
+// wq..wm bf16 (cast at use), s1, b1 fp32; mask and zero_tiles as
+// emip_attention_fwd_bf16 takes them. Buffers: qkv [R, 3C] and o [R,
+// C] bf16. [q | k | v] = bf16([x Wq^T | t Wk^T | t Wv^T]) in one launch of
+// the bf16 wgmma product (column tiles of C over the three weights, the
+// first reading x); the attention; out = bf16((x +) bf16(LN1(o Wm^T))) in
+// the epilogue of the second product, whose column tile holds the row, so
+// the fp32 m never reaches memory. No statistics are kept (the bf16
+// backward recomputes).
 extern "C" int emip_window_layer_bf16(
     const void* x, const void* t, const void* wq, const void* wk,
     const void* wv, const void* wm, const float* s1, const float* b1,
-    const float* mask, int mask_nw, void* qkv, void* o, float* m, void* out,
-    int windows, int T, int C, int add_residual, float eps, void* stream) {
+    const float* mask, int mask_nw, const void* zero_tiles, void* qkv,
+    void* o, void* out, int windows, int T, int C, int add_residual,
+    float eps, void* stream) {
   using namespace emip;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int R = windows * T, C3 = 3 * C;
   const bf16* xb = static_cast<const bf16*>(x);
-  const bf16* tb = static_cast<const bf16*>(t);
   bf16* qkvb = static_cast<bf16*>(qkv);
   cudaError_t err;
-  const bf16* const wkv[2] = {static_cast<const bf16*>(wk),
-                              static_cast<const bf16*>(wv)};
-  EMIP_TRY(linear_bf16(xb, C, static_cast<const bf16*>(wq), C, nullptr, qkvb,
-                       C3, R, C, C, true, s));
-  EMIP_TRY(linear_bf16_stacked(tb, C, wkv, 2, C, qkvb + C, C3, R, C, C, true,
-                               s));
+  const bf16* const wqkv[3] = {static_cast<const bf16*>(wq),
+                               static_cast<const bf16*>(wk),
+                               static_cast<const bf16*>(wv)};
+  EMIP_TRY(wg_linear_bf16<kWbEpiBf16>(xb, C, static_cast<const bf16*>(t), C,
+                                      C, wqkv, 3, C, R, C3, C, C, qkvb, C3,
+                                      nullptr, nullptr, 0.f, nullptr, 0, s));
   const long long wsb = (long long)T * C3;
   EMIP_TRY((cudaError_t)emip_attention_fwd_bf16(
       qkvb, wsb, C3, qkvb + C, wsb, C3, qkvb + 2 * C, wsb, C3, mask, mask_nw,
-      o, (long long)T * C, C, windows, T, T, C, C, 1, stream));
-  EMIP_TRY(linear_bf16(static_cast<const bf16*>(o), C,
-                       static_cast<const bf16*>(wm), C, nullptr, m, C, R, C, C,
-                       false, s));
-  EMIP_TRY(layernorm_self_bf16(m, add_residual ? xb : nullptr, s1, b1,
-                               static_cast<bf16*>(out), C, R, C, eps, s));
+      zero_tiles, o, (long long)T * C, C, windows, T, T, C, C, 1, stream));
+  const bf16* const wmb[1] = {static_cast<const bf16*>(wm)};
+  EMIP_TRY(wg_linear_bf16<kWbEpiLnMsg>(
+      static_cast<const bf16*>(o), C, nullptr, 0, C, wmb, 1, C, R, C, C, C,
+      static_cast<bf16*>(out), C, s1, b1, eps, add_residual ? xb : nullptr, C,
+      s));
   return (int)cudaGetLastError();
 }
 
@@ -939,16 +945,14 @@ extern "C" int emip_window_block(
 // (_block_kernel) computes it with a bf16 storage dtype: a mixed block.
 // x, t [R, C] and out are bf16; the self layer's weights wq1..wm1 are
 // bf16 (the JAX kernel casts them at use), every other parameter fp32.
-//   self layer, in bf16: q, k, v = bf16(x W) (the bf16 GEMM, fp32 sums; one
-//     launch over the three weights), o = the bf16 attention (fp32 softmax,
-//     P rounded for P v), m = o Wm1 in fp32, x1 = bf16(x + bf16(LN1s(m)))
-//     into a bf16 buffer;
+//   self layer, in bf16: G's bf16 layer (emip_window_layer_bf16) with t =
+//     x and the residual, x1 = bf16(x + bf16(LN1s(o Wm1))) into a bf16
+//     buffer;
 //   cross layer + FFN, in fp32 on x1 and t (the JAX kernel upcasts them):
 //     H's bf16 layer, cross_ffn_bf16, which reads x1 and t as bf16 where
 //     they lie; out = bf16(x1 + LN2c(z)), rounded once.
-// Buffers: qkv1 [R, 3C], o1, x1 [R, C] bf16; m [R, C] fp32 and
-// cross_ffn_bf16's wsplit, qkv2, o2, msg, u. No statistics are kept (the
-// bf16 backward recomputes).
+// Buffers: qkv1 [R, 3C], o1, x1 [R, C] bf16 and cross_ffn_bf16's wsplit,
+// qkv2, o2, msg, u. No statistics are kept (the bf16 backward recomputes).
 extern "C" int emip_window_block_bf16(
     const void* x, const void* t,
     const void* wq1, const void* wk1, const void* wv1, const void* wm1,
@@ -956,34 +960,21 @@ extern "C" int emip_window_block_bf16(
     const float* wq2, const float* wk2, const float* wv2, const float* wm2,
     const float* sa, const float* ba,
     const float* w0, const float* w2, const float* sb, const float* bb,
-    const float* mask, int mask_nw, void* qkv1, void* o1, float* m,
-    void* x1, float* wsplit, float* qkv2, float* o2, float* msg, float* u,
-    void* out, float* ws, long long ws_floats, int windows, int T, int C,
-    int F, float eps, void* stream) {
+    const float* mask, int mask_nw, const void* zero_tiles, void* qkv1,
+    void* o1, void* x1, float* wsplit, float* qkv2, float* o2, float* msg,
+    float* u, void* out, float* ws, long long ws_floats, int windows, int T,
+    int C, int F, float eps, void* stream) {
   using namespace emip;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int R = windows * T, C2 = 2 * C, C3 = 3 * C;
-  const bf16* xb = static_cast<const bf16*>(x);
-  bf16* qkv = static_cast<bf16*>(qkv1);
-  const bf16* const w1[3] = {static_cast<const bf16*>(wq1),
-                             static_cast<const bf16*>(wk1),
-                             static_cast<const bf16*>(wv1)};
   cudaError_t err;
-  EMIP_TRY(linear_bf16_stacked(xb, C, w1, 3, C, qkv, C3, R, C, C, true, s));
-  const long long wsb = (long long)T * C3;
-  EMIP_TRY((cudaError_t)emip_attention_fwd_bf16(
-      qkv, wsb, C3, qkv + C, wsb, C3, qkv + C2, wsb, C3, mask, mask_nw, o1,
-      (long long)T * C, C, windows, T, T, C, C, 1, stream));
-  EMIP_TRY(linear_bf16(static_cast<const bf16*>(o1), C,
-                       static_cast<const bf16*>(wm1), C, nullptr, m, C, R, C,
-                       C, false, s));
-  bf16* x1b = static_cast<bf16*>(x1);
-  EMIP_TRY(layernorm_self_bf16(m, xb, s1, b1, x1b, C, R, C, eps, s));
+  EMIP_TRY((cudaError_t)emip_window_layer_bf16(
+      x, x, wq1, wk1, wv1, wm1, s1, b1, mask, mask_nw, zero_tiles, qkv1, o1,
+      x1, windows, T, C, 1, eps, stream));
   EMIP_TRY(cross_ffn_bf16(
-      x1b, static_cast<const bf16*>(t), LayerWeights{wq2, wk2, wv2, wm2}, sa,
-      ba, w0, w2, sb, bb, Windows{windows, T, C, mask, mask_nw}, F, wsplit,
-      qkv2, o2, msg, u, static_cast<bf16*>(out), eps,
-      Workspace{ws, ws_floats}, s));
+      static_cast<const bf16*>(x1), static_cast<const bf16*>(t),
+      LayerWeights{wq2, wk2, wv2, wm2}, sa, ba, w0, w2, sb, bb,
+      Windows{windows, T, C, mask, mask_nw}, F, wsplit, qkv2, o2, msg, u,
+      static_cast<bf16*>(out), eps, Workspace{ws, ws_floats}, s));
   return (int)cudaGetLastError();
 }
 

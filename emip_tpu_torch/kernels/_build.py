@@ -84,7 +84,7 @@ _SIGNATURES = {
     # the 3xTF32 GEMM
     "emip_gemm_dyw": ([_P, _L, _I, _P, _P] + [_I] * 3 + [_P, _P]
                       + [_I] * 2 + [_P, _L, _I, _P]),
-    "emip_attention_fwd_bf16": ([_P, _L, _I] * 3 + [_P, _I, _P, _L, _I]
+    "emip_attention_fwd_bf16": ([_P, _L, _I] * 3 + [_P, _I, _P, _P, _L, _I]
                                 + [_I] * 6 + [_P]),
     # the bf16 train step: A, B, C and D backward
     "emip_sr_attention_bwd_bf16": [_P] * 18 + [_L] + [_I] * 5 + [_P],

@@ -35,6 +35,8 @@ LAUNCHES = {
     # grads of G's and H's bf16 backwards alone (kernels/gemm.py)
     "gemm_wgmma": 0,
     "gemm_dy_w": 0,
+    # the bf16 attention of B, C and G alone (kernels/attention.py)
+    "attention_bf16": 0,
     # the bf16 band of short inference: the bf16 forwards of A-D and the
     # bf16 GEMM alone
     "sr_attention_bf16": 0,

@@ -1,12 +1,14 @@
-"""The tensor-core forward attention of kernels A, B, G and H, called alone.
+"""The forward attentions of kernels A, B, C, G and H, called alone.
 
 On the model's paths the attention runs inside the entry points of
-``csrc/sr_attention.cu`` (A) and ``csrc/window_attention.cu`` (B, G, H);
-:func:`attention` exposes the same device code (``attention_fwd_tc`` of
-``csrc/mma_tf32.cuh`` at the tilings of ``csrc/attention.cu``) so that ``chip_smoke.py`` and the ``cuda`` tests can
-hold it against the fp64 product and time it beside
-``scaled_dot_product_attention`` at the shapes those kernels give it. CPU
-tensors take the plain version.
+``csrc/sr_attention.cu`` (A), ``csrc/window_attention.cu`` (B, G, H) and
+``csrc/flow_attention.cu`` (C); :func:`attention` exposes the fp32 device
+code (``attention_fwd_tc`` of ``csrc/mma_tf32.cuh`` at the tilings of
+``csrc/attention.cu``) and :func:`attention_bf16` the bf16 one of C, G and
+B's self layer (``csrc/attention_bf16.cu``), so that ``chip_smoke.py`` and
+the ``cuda`` tests can hold them against the fp64 product and time them
+beside ``scaled_dot_product_attention`` at the shapes those kernels give
+them. CPU tensors take the plain versions.
 """
 
 from __future__ import annotations
@@ -18,7 +20,9 @@ import torch
 from emip_tpu_torch.kernels import _common as cm
 from emip_tpu_torch.kernels._build import library
 
-__all__ = ["attention", "attention_reference", "forward_workspace"]
+__all__ = ["attention", "attention_reference", "attention_bf16",
+           "attention_bf16_reference", "forward_workspace",
+           "mask_zero_tiles"]
 
 _NAME = "attention"
 _WIDTHS = {False: (32, 64), True: (64, 128)}  # A's heads; the windows'
@@ -131,3 +135,104 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     cm.raise_on_error(_NAME, rc)
     cm.LAUNCHES["attention"] += 1
     return (out, stats) if keep_stats else out
+
+
+def attention_bf16_reference(q, k, v, mask=None):
+    """Plain PyTorch version of :func:`attention_bf16`: the scores of the
+    bf16 q and k in fp32 and their softmax in fp32; with bf16 v (B, G) the
+    normalised P rounded to bf16, P v summed in fp32 and rounded to bf16,
+    with fp32 v (C) P v in fp32."""
+    s = q.float() @ k.float().transpose(-1, -2) / q.shape[-1] ** 0.5
+    if mask is not None:
+        windows = torch.arange(q.shape[0], device=mask.device) % mask.shape[0]
+        s = s + mask[windows].float()
+    p = torch.softmax(s, -1)
+    if v.dtype == torch.bfloat16:
+        return (p.to(torch.bfloat16).float() @ v.float()).to(torch.bfloat16)
+    return p @ v.float()
+
+
+def mask_zero_tiles(mask: torch.Tensor | None) -> torch.Tensor | None:
+    """uint8 [nw, ceil(Nq / 128), ceil(Nk / 64)] for a mask [nw, Nq, Nk]
+    (None for None): 1
+    where the mask's tile of 128 query rows (a block of the bf16 attention)
+    by 64 keys (a key tile) is all zero. The kernel neither loads nor adds
+    such a tile; adding +0 changes no score, so the bits are the same.
+    Made on the mask's device once and kept beside the mask until it
+    changes (in place, or by moving), as :func:`emip_tpu_torch.dtypes.cast`
+    keeps a weight's cast: the model's shift masks are made once per shape
+    (:func:`emip_tpu_torch.ops.window.shifted_window_mask`)."""
+    if mask is None:
+        return None
+    key = (mask.device, mask.data_ptr(),
+           None if mask.is_inference() else mask._version)
+    kept = getattr(mask, "_emip_zero_tiles", None)
+    if kept is not None and kept[0] == key:
+        return kept[1]
+    nw, nq, nk = mask.shape
+    with torch.no_grad():
+        tiles = torch.nn.functional.pad(
+            mask, (0, -nk % 64, 0, -nq % 128)).view(
+                nw, -(-nq // 128), 128, -(-nk // 64), 64)
+        out = (tiles == 0).all(4).all(2).to(torch.uint8)
+    mask._emip_zero_tiles = (key, out)
+    return out
+
+
+def attention_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   mask: torch.Tensor | None = None) -> torch.Tensor:
+    """``softmax(q k^T / sqrt(D) (+ mask)) v`` per batch row, the bf16
+    attention of C, G and B's self layer.
+
+    q, k: [B, N, D] bf16 (D 128 or 64), unit stride along the last axis
+    (views into one qkv buffer are read in place). v [B, Nk, D] bf16 with
+    Nq == Nk (the windows of B and G; ``mask`` [nw, Nq, Nk] fp32 or None,
+    batch row b reading mask[b % nw]) -> bf16 [B, Nq, D]; or v [B, Nk, 2]
+    fp32 (C; no mask) -> fp32 [B, Nq, 2]. Not differentiable: a check of
+    the kernels' attention, not a layer.
+
+    Limits on the card (the kernel reads q, k, bf16 v and the mask as TMA
+    boxes, whose strides are whole 16 bytes): the row and batch strides of
+    q, k and v a multiple of 8 elements; with a mask, Nk a multiple of 4
+    (the model's windows have 484 and 1024 tokens). C's v is read a key at
+    a time, so its Nk has no bound. A launch outside these raises.
+    """
+    tensors = [q, k, v] + ([] if mask is None else [mask])
+    if cm.on_cpu(_NAME, *tensors):
+        return attention_bf16_reference(q, k, v, mask)
+    name = _NAME + " (bf16)"
+    for n, t in (("q", q), ("k", k), ("v", v)):
+        if t.dim() != 3 or t.stride(-1) != 1:
+            raise ValueError(f"{name}: {n} must be [B, N, D] with unit "
+                             f"stride along the last axis")
+    if q.dtype != torch.bfloat16 or k.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: q and k must be bfloat16")
+    b, nq, d = q.shape
+    nk = k.shape[1]
+    wide = v.dtype == torch.bfloat16
+    if d not in _WIDTHS[True]:
+        raise ValueError(f"{name}: width {d} not in {_WIDTHS[True]}")
+    cm.check_shape(name, "k", k, (b, nk, d))
+    cm.check_shape(name, "v", v, (b, nk, d if wide else 2))
+    if not wide and (v.dtype != torch.float32 or mask is not None):
+        raise ValueError(f"{name}: a 2-wide v is fp32 and takes no mask")
+    if wide and nq != nk:
+        raise ValueError(f"{name}: windows take Nq == Nk")
+    if mask is not None:
+        cm.check_kernel_args(name, mask=mask)
+        if mask.dim() != 3 or tuple(mask.shape[1:]) != (nq, nk):
+            raise ValueError(f"{name}: mask must be [nw, {nq}, {nk}]")
+        if nk % 4:
+            raise ValueError(f"{name}: a mask takes Nk a multiple of 4")
+    out = torch.empty((b, nq, d if wide else 2), device=q.device,
+                      dtype=v.dtype)
+    rc = library().emip_attention_fwd_bf16(
+        q.data_ptr(), q.stride(0), q.stride(1), k.data_ptr(), k.stride(0),
+        k.stride(1), v.data_ptr(), v.stride(0), v.stride(1), cm.ptr(mask),
+        1 if mask is None else mask.shape[0],
+        cm.ptr(mask_zero_tiles(mask)), out.data_ptr(), out.stride(0),
+        out.stride(1), b, nq, nk, d, v.shape[-1], int(wide),
+        cm.stream_handle(q.device))
+    cm.raise_on_error(name, rc)
+    cm.LAUNCHES["attention_bf16"] += 1
+    return out

@@ -11,8 +11,10 @@ and sum of the scores, which the backward kernel reads. Channel widths 128
 
 In the bf16 band q and k are bf16 and v fp32, as the JAX kernel takes
 them in a bf16 model: ``emip_flow_attention_bf16`` (the bf16 attention of
-``csrc/attention_bf16.cu``: q k^T from bf16 operands into fp32, P and the
-2-wide P v in fp32) writes fp32. Its backward
+``csrc/attention_bf16.cu``, on ``wgmma`` fed by TMA: q k^T from bf16
+operands into fp32, P and the 2-wide P v in fp32;
+:func:`~emip_tpu_torch.kernels.tf32.attention_bf16_walk`) writes fp32,
+at any L (v's 2-wide tile goes into each key tile's stage). Its backward
 (``emip_flow_attention_bwd_bf16``) is the JAX kernel's: the scores and P
 recomputed in fp32 from q and k as they are (with the row statistics: the
 bf16 forward keeps only its inputs and output), dq and dk rounded to bf16

@@ -48,6 +48,13 @@ and the JAX package's Pallas kernels:
   LayerNorm epilogue, W0 in two halves, out in W2's epilogue) and
   :func:`window_block_fwd_bf16_walk` B's: the unchanged bf16 self layer,
   then that walk on its x1.
+* :func:`attention_bf16_walk` walks the bf16 attention of C, G and B's
+  self layer (``csrc/attention_bf16.cu``): key tiles of 64, the running
+  max and sum, P rounded to bf16 unnormalised for P v where v is bf16, P v
+  in fp32 where v is C's 2-wide fp32; :func:`window_layer_fwd_bf16_walk`
+  walks G's bf16 forward on it (``emip_window_layer_bf16``): q, k, v as one
+  bf16 product rounded to bf16, the attention walk, then o Wm^T with LN1,
+  the rounding of msg, the residual and the last rounding in its epilogue.
 * :func:`window_layer_bwd_bf16_walk` and
   :func:`window_ffn_layer_bwd_bf16_walk` walk G's and H's bf16 backwards
   (``emip_window_layer_bwd_bf16``, ``emip_window_ffn_layer_bwd_bf16``):
@@ -74,7 +81,8 @@ __all__ = ["tf32_round", "tf32_truncate", "matmul_tf32", "matmul_3xtf32",
            "memory_attention_bwd_bf16_walk", "window_block_bwd_bf16_walk",
            "sr_attention_fwd_bf16_walk", "wgmma_linear_walk",
            "window_ffn_bf16_walk", "window_block_fwd_bf16_walk",
-           "window_layer_bwd_bf16_walk", "window_ffn_layer_bwd_bf16_walk"]
+           "window_layer_bwd_bf16_walk", "window_ffn_layer_bwd_bf16_walk",
+           "attention_bf16_walk", "window_layer_fwd_bf16_walk"]
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -732,12 +740,10 @@ def window_block_fwd_bf16_walk(x, t, self_params, cross_params, mask=None,
                                eps: float = 1e-6, stream_rows: int = 32,
                                key_splits: int = 1):
     """B's bf16 forward (``emip_window_block_bf16``): its bf16 self layer,
-    unchanged (the bf16 GEMM and attention; as its plain version rounds,
+    G's (:func:`window_layer_fwd_bf16_walk` with t = x and the residual,
     x1 = bf16(x + bf16(LN1s(m)))), then :func:`window_ffn_bf16_walk` on
     (x1, t) with the cross layer's parameters; bf16 out."""
-    from emip_tpu_torch.kernels.window_attention import _layer_reference_bf16
-
-    x1 = _layer_reference_bf16(x, x, self_params, mask)
+    x1 = window_layer_fwd_bf16_walk(x, x, self_params, mask, True, eps)
     return window_ffn_bf16_walk(x1, t, cross_params, mask, eps, stream_rows,
                                 key_splits)
 
@@ -882,3 +888,73 @@ def window_ffn_layer_bwd_bf16_walk(x, t, params, g, mask=None,
             s2=gs2, b2=gb2)
     return (gx.reshape(x.shape).to(bf16), gt.reshape(t.shape).to(bf16),
             grads)
+
+
+def attention_bf16_walk(q, k, v, mask=None, key_tile: int = 64):
+    """The bf16 attention of C, G and B's self layer
+    (``emip_attention_fwd_bf16``) in the order the card sums it: q, k [B,
+    N, D] bf16; v [B, Nk, D] bf16 (the windows; ``mask`` [nw, Nq, Nk] or
+    None, batch row b reading mask[b % nw]) or [B, Nk, 2] fp32 (C).
+
+    Every product takes bf16 operands into fp32 sums (the tensor cores'
+    order inside a tile is not stated). The keys run in tiles of
+    ``key_tile`` (the last ragged) with a running max m and sum l of the
+    fp32 scores s = q k^T / sqrt(D) (+ mask): per tile m' = max(m, rowmax
+    s), P = e^(s - m') unnormalised, l = l e^(m - m') + rowsum P, O = O
+    e^(m - m') + P v, with P rounded to bf16 where v is bf16 and in fp32
+    for C's 2-wide v; out = O (1 / l), rounded to bf16 with bf16 v. (The
+    card takes e^x as 2^(x log2 e), the scale folded into the scores.) The
+    plain versions round the normalised P instead, so the two agree to
+    bf16 rounding, not bit for bit.
+    """
+    wide = v.dtype == torch.bfloat16
+    b, nq, d = q.shape
+    nk = k.shape[1]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    bias = (None if mask is None else
+            mask[torch.arange(b) % mask.shape[0]].float())
+    run_max = qf.new_full((b, nq), float("-inf"))
+    run_sum = qf.new_zeros(b, nq)
+    acc = qf.new_zeros(b, nq, vf.shape[-1])
+    for t0 in range(0, nk, key_tile):
+        keys = slice(t0, min(nk, t0 + key_tile))
+        s = (qf @ kf[:, keys].transpose(-1, -2)) / d**0.5
+        if bias is not None:
+            s = s + bias[..., keys]
+        new_max = torch.maximum(run_max, s.max(-1).values)
+        alpha = torch.exp(run_max - new_max)
+        p = torch.exp(s - new_max[..., None])
+        run_sum = run_sum * alpha + p.sum(-1)
+        pv = (p.to(torch.bfloat16).float() if wide else p) @ vf[:, keys]
+        acc = acc * alpha[..., None] + pv
+        run_max = new_max
+    out = acc * (1.0 / run_sum)[..., None]
+    return out.to(torch.bfloat16) if wide else out
+
+
+def window_layer_fwd_bf16_walk(x, t, params, mask=None,
+                               add_residual: bool = True, eps: float = 1e-6,
+                               key_tile: int = 64):
+    """G's bf16 forward (``emip_window_layer_bf16``) in the order the card
+    sums it: x, t [B, K2, T, C] bf16, the parameters fp32 in torch's layout
+    (wq .. wm [C, C], s1, b1 [C]), the weights cast to bf16 at use; mask
+    [K2, T, T] or None. Returns out [B, K2, T, C] bf16.
+
+    [q | k | v] = bf16([x Wq^T | t Wk^T | t Wv^T]): one product of bf16
+    operands into fp32 sums, rounded once. o = :func:`attention_bf16_walk`
+    per window. m = o Wm^T in fp32, msg = bf16(LN1(m)) (the row's mean and
+    variance over its C columns), out = bf16(x + msg) with the residual,
+    else msg: the epilogue of that product.
+    """
+    bf16 = torch.bfloat16
+    b, k2, tok, c = x.shape
+    w = {n: params[n].to(bf16).float() for n in ("wq", "wk", "wv", "wm")}
+    x2, t2 = x.float().reshape(-1, c), t.float().reshape(-1, c)
+    qkv = torch.cat([x2 @ w["wq"].T, t2 @ w["wk"].T, t2 @ w["wv"].T],
+                    -1).to(bf16).reshape(b * k2, tok, 3 * c)
+    o = attention_bf16_walk(qkv[..., :c], qkv[..., c:2 * c],
+                            qkv[..., 2 * c:], mask, key_tile)
+    msg = _ln_rows(o.float().reshape(-1, c) @ w["wm"].T,
+                   params["s1"].float(), params["b1"].float(), eps).to(bf16)
+    out = (x2 + msg.float()).to(bf16) if add_residual else msg
+    return out.reshape(x.shape)

@@ -24,8 +24,9 @@ attention row's max and sum, which the backward kernel reads.
 
 In the bf16 band, B with bf16 ``x`` and ``t`` (fp32 parameters) is the
 mixed block of the JAX kernel with a bf16 storage dtype: the self layer
-in bf16 (its weights cast once, :func:`emip_tpu_torch.dtypes.cast`; the
-bf16 GEMM and attention), the cross layer and the FFN in fp32 on x1 and t,
+in bf16 (its weights cast once, :func:`emip_tpu_torch.dtypes.cast`; G's
+bf16 layer, ``emip_window_layer_bf16``, with t = x and the residual), the
+cross layer and the FFN in fp32 on x1 and t,
 the output rounded to bf16 (``emip_window_block_bf16``). The cross layer
 and FFN are H's bf16 forward: every product on the wgmma product of
 ``csrc/gemm_wgmma.cuh`` (3xTF32, two terms where A is bf16), x1 and t read
@@ -44,7 +45,13 @@ with x, t or x1 take the TF32 terms their exactness leaves
 G and H with bf16 ``x`` and ``t`` (fp32 parameters) are the two halves of
 B's bf16 forward, as the JAX kernels compute them with a bf16 storage
 dtype: G in bf16 (``emip_window_layer_bf16``: q, k, v, P and o rounded,
-LN1 in fp32, the residual added in bf16), H in fp32 on x and t with only
+LN1 in fp32, the residual added in bf16; three launches: q, k, v on the
+bf16 wgmma product, the bf16 attention, Wm with LN1 and the residual in
+that product's epilogue,
+:func:`~emip_tpu_torch.kernels.tf32.window_layer_fwd_bf16_walk`; with the
+shift mask T must be a multiple of 4, as the attention reads the mask's
+rows by TMA: the model's windows have 484 and 1024 tokens, and another T
+raises), H in fp32 on x and t with only
 its output rounded (``emip_window_ffn_layer_bf16``, on the wgmma product
 as B's cross layer; :func:`~emip_tpu_torch.kernels.tf32.window_ffn_bf16_walk`).
 Their bf16
@@ -71,6 +78,7 @@ from emip_tpu_torch.kernels._build import library
 from emip_tpu_torch.kernels.attention import (
     _workspace_floats,
     forward_workspace,
+    mask_zero_tiles,
 )
 
 __all__ = ["fused_window_attention_block",
@@ -514,16 +522,17 @@ class _WindowBlockBf16(torch.autograd.Function):
         qkv1, o1, x1 = (torch.empty((rows, w), device=x.device,
                                     dtype=torch.bfloat16)
                         for w in (3 * c, c, c))
-        m, qkv2, o2, msg, u = (
+        qkv2, o2, msg, u = (
             torch.empty((rows, w), device=x.device, dtype=torch.float32)
-            for w in (c, 3 * c, c, c, f))
+            for w in (3 * c, c, c, f))
         wsplit = _split_workspace(x, c, f)
         out = torch.empty_like(x)
         ws = _fwd_workspace(x)
         rc = library().emip_window_block_bf16(
             x.data_ptr(), t.data_ptr(), *(w.data_ptr() for w in self_w),
             *(p.data_ptr() for p in params[4:]), cm.ptr(mask), k2,
-            qkv1.data_ptr(), o1.data_ptr(), m.data_ptr(), x1.data_ptr(),
+            cm.ptr(mask_zero_tiles(mask)), qkv1.data_ptr(), o1.data_ptr(),
+            x1.data_ptr(),
             wsplit.data_ptr(), qkv2.data_ptr(), o2.data_ptr(),
             msg.data_ptr(), u.data_ptr(), out.data_ptr(), cm.ptr(ws),
             cm.numel(ws), b * k2, tok, c, f, EPS, cm.stream_handle(x.device))
@@ -682,13 +691,13 @@ def _layer_bf16(x, t, p, mask, add_residual):
     w = [cast(p[k], torch.bfloat16) for k in ("wq", "wk", "wv", "wm")]
     qkv, o = (torch.empty((rows, n), device=x.device, dtype=torch.bfloat16)
               for n in (3 * c, c))
-    m = torch.empty((rows, c), device=x.device, dtype=torch.float32)
     out = torch.empty_like(x)
     rc = library().emip_window_layer_bf16(
         x.data_ptr(), t.data_ptr(), *(a.data_ptr() for a in w),
         p["s1"].data_ptr(), p["b1"].data_ptr(), cm.ptr(mask), k2,
-        qkv.data_ptr(), o.data_ptr(), m.data_ptr(), out.data_ptr(), b * k2,
-        tok, c, int(add_residual), EPS, cm.stream_handle(x.device))
+        cm.ptr(mask_zero_tiles(mask)), qkv.data_ptr(), o.data_ptr(),
+        out.data_ptr(), b * k2, tok, c, int(add_residual), EPS,
+        cm.stream_handle(x.device))
     cm.raise_on_error(_LAYER + " (bf16)", rc)
     cm.LAUNCHES["window_attention_layer_bf16"] += 1
     return out

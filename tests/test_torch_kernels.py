@@ -778,3 +778,98 @@ def test_cuda_bf16_window_layer_backwards_match_walks():
                 name, i)
             assert (a.float() - k.float()).abs().max() <= 8e-3 * scale, (
                 name, i)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_attention_matches_walk_and_plain_version():
+    """The bf16 attention of C, G and B's self layer alone
+    (``kernels/attention.py:attention_bf16``, ``csrc/attention_bf16.cu``)
+    and G's bf16 forward on the card: within 1e-2 of max|ref| of the plain
+    bf16 version, and of the walk of the same kernel
+    (``tf32.attention_bf16_walk``, ``tf32.window_layer_fwd_bf16_walk``, on
+    the card's inputs moved to the CPU) within 8e-3 of max|ref| where the
+    output is bf16 (two bf16 ulps: the sums run in another order) and 2e-5
+    for C's fp32 output (the exponentials and sums in another order); the
+    same bits on a second call, one count per call. C at a ragged 1000
+    tokens (width 128), at 1936 (width 64) and at 16400 (width 128, past
+    the 12,400 keys a whole v row in shared memory would allow); windows of
+    484 and 144 tokens with the shift mask and of 1024 without it; G with
+    and without the mask and the residual. With a mask, the same bits when
+    no tile is skipped (``mask_zero_tiles`` cleared). Windows of 49 tokens
+    with a mask raise (the mask's rows are read by TMA: Nk a multiple of
+    4)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from emip_tpu_torch.kernels import tf32
+    from emip_tpu_torch.kernels.attention import (
+        attention_bf16,
+        attention_bf16_reference,
+        mask_zero_tiles,
+    )
+    from emip_tpu_torch.ops.window import shifted_window_mask
+
+    g = torch.Generator().manual_seed(7)
+    bf = torch.bfloat16
+
+    def r(*s, scale=1.0):
+        return torch.randn(*s, generator=g) * scale
+
+    def close(got, want, walk, tol_walk):
+        scale = want.float().abs().max()
+        assert (got.float() - want.float()).abs().max() <= 1e-2 * scale
+        assert (got.float() - walk.float()).abs().max() <= tol_walk * scale
+
+    for b, n, d, windows, side in ((2, 1000, 128, False, 0),
+                                   (2, 1936, 64, False, 0),
+                                   (1, 16400, 128, False, 0),
+                                   (8, 484, 128, True, 44),
+                                   (4, 1024, 64, True, 0),
+                                   (4, 144, 128, True, 24)):
+        q, k = r(b, n, d).to(bf), r(b, n, d).to(bf)
+        v = r(b, n, d).to(bf) if windows else r(b, n, 2, scale=10.0)
+        mask = shifted_window_mask(side, side, 2) if side else None
+        dev = [a.cuda() for a in (q, k, v)]
+        dmask = None if mask is None else mask.cuda()
+        before = K.LAUNCHES["attention_bf16"]
+        got = attention_bf16(*dev, dmask)
+        assert torch.equal(attention_bf16(*dev, dmask), got)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["attention_bf16"] == before + 2
+        assert got.dtype == v.dtype
+        close(got.cpu(), attention_bf16_reference(q, k, v, mask),
+              tf32.attention_bf16_walk(q, k, v, mask),
+              8e-3 if v.dtype == bf else 2e-5)
+        if dmask is not None:  # the all-zero tiles skipped: the same bits
+            table = mask_zero_tiles(dmask)
+            assert table.any()
+            table.zero_()
+            assert torch.equal(attention_bf16(*dev, dmask), got)
+            del dmask._emip_zero_tiles
+
+    q = r(4, 49, 128).to(bf).cuda()
+    with pytest.raises(ValueError, match="multiple of 4"):
+        attention_bf16(q, q, q, shifted_window_mask(14, 14, 2).cuda())
+
+    for b, tok, c, side, residual in ((1, 484, 128, 44, True),
+                                      (2, 144, 64, 0, False),
+                                      (1, 1024, 128, 64, False)):
+        x, t = r(b, 4, tok, c).to(bf), r(b, 4, tok, c).to(bf)
+        p = dict(wq=r(c, c) / c ** 0.5, wk=r(c, c) / c ** 0.5,
+                 wv=r(c, c) / c ** 0.5, wm=r(c, c) / c ** 0.5,
+                 s1=1 + 0.1 * r(c), b1=0.1 * r(c))
+        mask = shifted_window_mask(side, side, 2) if side else None
+        pd = {k: v.cuda() for k, v in p.items()}
+        dmask = None if mask is None else mask.cuda()
+        before = K.LAUNCHES["window_attention_layer_bf16"]
+        with torch.no_grad():
+            got = K.fused_window_attention_layer(x.cuda(), t.cuda(), pd,
+                                                 dmask, residual)
+            assert torch.equal(K.fused_window_attention_layer(
+                x.cuda(), t.cuda(), pd, dmask, residual), got)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["window_attention_layer_bf16"] == before + 2
+        close(got.cpu(),
+              K.fused_window_attention_layer_reference(x, t, p, mask,
+                                                       residual),
+              tf32.window_layer_fwd_bf16_walk(x, t, p, mask, residual),
+              8e-3)
