@@ -114,9 +114,12 @@ needs one card and no arguments, and it imports nothing of JAX. In order:
    1024 tokens at 1 and 4 clips, with the shift mask, once without), with
    F beside ``scaled_dot_product_attention`` on bf16 q, k, v and the bias
    as its ``attn_mask``, each product bound at the rate its operands
-   allow (F's all at 2xTF32: one side bf16; H's projections of the bf16
-   x and t at 2xTF32, its other products at 3xTF32; G's at the bf16
-   rate), J's bf16 forward (bf16 u and taps, fp32 bias) at the four
+   allow (F's as three bf16 products each: a bf16 side against the fp32
+   ring in three exact bf16 parts, as its kernel takes them; H's
+   projections of the bf16 x and t at 2xTF32, its other products at
+   3xTF32; G's at the bf16 rate), F's with its device time and launches
+   per call and its digests, J's bf16 forward (bf16 u and taps, fp32
+   bias) at the four
    MixFFN stages beside the library's bf16 depthwise convolution and
    ``F.gelu`` (bound by its bytes at two a bf16 element), and, kept out of
    their rows' sums, A, C and D at their 512^2 shapes, F with every slot
@@ -150,8 +153,10 @@ needs one card and no arguments, and it imports nothing of JAX. In order:
    masked with gx gt alone and with every parameter grad and [2, 4, 1024,
    128] unmasked, beside SDPA's bf16 backward on their attention alone,
    [16, 4, 484, 128] kept out; J's at the four stages (gu, taps, bias)
-   beside the backward of the library's bf16 convolution and GELU, its two
-   checks kept out; and, kept out of their rows, A's, C's and D's bf16
+   beside the backward of the library's bf16 convolution and GELU and its
+   fp32 backward's device time at the same shape from phase 5
+   (``fp32_device_ms``), its two checks kept out; and, kept out of their
+   rows, A's, C's and D's bf16
    backwards at the 512^2 train step's shapes); the same card-vs-CPU
    comparison with the block switch at 400 tokens, so that G and H
    (forward and backward, in bf16) run in place of B as at 512^2, over six
@@ -271,14 +276,15 @@ CUDA cores count at the fp32 peak; A, B, C, F, G and H, forward and
 backward, run all theirs on the tensor cores as 3xTF32, at a third of the
 TF32 peak (``bound_rate: "tf32x3"``); a bf16 row counts each product at
 the rate its operands allow (a bf16 operand is exact in TF32: two TF32
-products for one, the bf16 peak for two; ``bound_rate`` names them), and
-these rows carry the CUDA cores' figure for all their operations as
-``fp32_bound_ms``),
+products for one, the bf16 peak for two; F's forward three bf16 products
+against its ring's three exact bf16 parts, a third of the bf16 peak;
+``bound_rate`` names them), and these rows carry the CUDA cores' figure
+for all their operations as ``fp32_bound_ms``),
 and as its last line ``{"ok": true, "device":
 {...}}``. Before the JSON line it prints a ``digests {...}`` line: for every
 case of the fp32 backward rows of A, B, C, F, G and H, of the bf16 ones of
-A, B, C, F, G and H and of the bf16 forwards of A, B, C, G and H
-(``DIGEST_KERNELS``)
+A, B, C, F, G and H, of J's fp32 and bf16 backwards and of the bf16
+forwards of A, B, C, F, G and H (``DIGEST_KERNELS``)
 the sha256 of its grads' or output's bytes and its device launches per
 call, so that two trees can be shown to give the same bits at the same
 seeds. Any failure raises and the exit code is non-zero,
@@ -459,7 +465,10 @@ PEAK_BF16_FLOPS = 989e12
 # and takes three TF32 products; a bf16 value is exact in TF32 (its low
 # part is zero), so a product with one bf16 operand needs two
 # ("tf32x2", at half the TF32 peak), and one of two bf16 operands, summed
-# in fp32, is the bf16 tensor cores' own ("bf16").
+# in fp32, is the bf16 tensor cores' own ("bf16"). F's bf16 forward splits
+# its fp32 side (the ring) exactly into three bf16 parts and takes three
+# bf16 products for each of its products ("bf16x3", at a third of the bf16
+# peak).
 # the kernels that run all their products on the tensor cores as 3xTF32 (A,
 # B, C, F, G and H, forward and backward): their bound counts the
 # operations at a third of the TF32 peak; the CUDA cores' fp32 figure, the
@@ -479,8 +488,9 @@ TENSOR_CORE_KERNELS = ("sr_attention", "sr_attention_bwd",
 # (device_ms), and the bf16 backwards of A, B, C and F and A's bf16
 # forward, whose launches per call the redesign of their bf16 form cut
 # and the bf16 forwards of B and H and the bf16 backwards of G and H, whose
-# redesign cut theirs too, and the bf16 forwards of C and G on the wgmma
-# attention (G's layer in three launches)
+# redesign cut theirs too, and the bf16 forwards of C, G and F on the wgmma
+# attention (G's layer in three launches; F's a launch for the ring's bf16
+# parts beside it)
 DEVICE_TIMED = ("convex_upsample", "convex_upsample_bwd", "splat_density",
                 "softmax_expectation", "softmax_expectation_bwd",
                 "dwconv_gelu", "dwconv_gelu_bwd", "convex_upsample_bf16",
@@ -492,7 +502,7 @@ DEVICE_TIMED = ("convex_upsample", "convex_upsample_bwd", "splat_density",
                 "window_attention_ffn_layer_bf16",
                 "window_attention_layer_bwd_bf16",
                 "window_attention_ffn_layer_bwd_bf16", "flow_attention_bf16",
-                "window_attention_layer_bf16")
+                "window_attention_layer_bf16", "memory_attention_bf16")
 # kernels held to the same bits on a second call on the same inputs: the
 # tensor-core ones, J and I's backward, which add their per-block partials
 # in a fixed order, and E, whose sum is in integers
@@ -508,10 +518,12 @@ BIT_EQUAL_KERNELS = TENSOR_CORE_KERNELS + (
 # the rows whose digests (sha256 of their grads' or output's bytes, per
 # case) are printed on a line of their own: the bf16 and fp32 backwards of
 # the kernels on the tensor cores' attention backward and GEMM, and the
-# bf16 forwards of A, B, C, G and H, so that two trees can be shown to
+# bf16 forwards of A, B, C, F, G and H, so that two trees can be shown to
 # give the same bits at the same seeds (or, for B's and H's forwards and
 # G's and H's bf16 backwards, whose products moved to the wgmma product,
-# and C's and G's forwards, whose attention did, that they moved)
+# and C's, G's and F's forwards, whose attention did, that they moved);
+# and J's backwards, whose bf16 walk keeps its loads and window as loaded
+# (the same sums in the same order)
 DIGEST_KERNELS = ("sr_attention_bwd", "window_attention_block_bwd",
                   "window_attention_layer_bwd",
                   "window_attention_ffn_layer_bwd", "flow_attention_bwd",
@@ -522,8 +534,12 @@ DIGEST_KERNELS = ("sr_attention_bwd", "window_attention_block_bwd",
                   "window_attention_ffn_layer_bf16",
                   "window_attention_layer_bwd_bf16",
                   "window_attention_ffn_layer_bwd_bf16",
-                  "window_attention_layer_bf16")
+                  "window_attention_layer_bf16", "memory_attention_bf16",
+                  "dwconv_gelu_bwd", "dwconv_gelu_bwd_bf16")
 DIGESTS = {}
+# J's fp32 backward's device ms per call by its u's shape, read beside its
+# bf16 backward's at the same shape (bf16_backward_phase)
+J_FP32_DEVICE_MS = {}
 # the 3xTF32 GEMM alone against the fp64 product: max|err| / max|ref| (fp32
 # rounding of sums over up to 61,952 rows)
 GEMM_REL_TOL = 1e-5
@@ -613,8 +629,8 @@ def bound_rate(name: str) -> str:
     """The rates at which a row's bound counts its products (see
     PEAK_BF16_FLOPS), "+"-joined."""
     return {
-        # bf16 q against the fp32 ring, P rounded to bf16
-        "memory_attention_bf16": "tf32x2",
+        # bf16 q and P against the fp32 ring in three exact bf16 parts
+        "memory_attention_bf16": "bf16x3",
         # products with the bf16 q (q k^T, dS^T q) and the rest
         "memory_attention_bwd_bf16": "tf32x2+tf32x3",
         # bf16 x and t into H's fp32 layer
@@ -812,12 +828,14 @@ def device_sums(results: dict) -> None:
         if not entry:
             continue
         main = [c for c in entry["cases"] if c.get("summed", True)]
-        for k in ("device_ms", "plain_device_ms"):
+        keys = ["device_ms", "plain_device_ms"]
+        if main and all("fp32_device_ms" in c for c in main):
+            keys.append("fp32_device_ms")  # J's bf16 backward
+        for k in keys:
             entry[k] = sum(c[k] for c in main)
         log(f"kernel {name}: its {len(main)} summed cases: "
             + " ".join(f"{k}={entry[k]:.4f}" for k in (
-                "ms", "plain_ms", "device_ms", "plain_device_ms",
-                "bound_ms")))
+                "ms", "plain_ms", *keys, "bound_ms")))
 
 
 def alternate_ms(kernel, plain, reps: int) -> tuple[float, float]:
@@ -844,24 +862,26 @@ def record(results: dict, name: str, label: str, err: float, ms: float,
     time at the memory rate. No case may take less than its bound. Rows
     whose products are not all fp32 also carry ``bound_rate`` and the
     CUDA cores' figure for all their operations, ``fp32_bound_ms``. A
-    fourth and fifth element of ``work``, where given, are the operations
-    of products on two bf16 operands, at the bf16 peak, and on one, at
-    half the TF32 peak (2xTF32)."""
+    fourth, fifth and sixth element of ``work``, where given, are the
+    operations of products on two bf16 operands, at the bf16 peak, on
+    one, at half the TF32 peak (2xTF32), and on a bf16 operand against an
+    fp32 one taken in three bf16 parts, at a third of the bf16 peak."""
     tc_ops, cc_ops, nbytes, *more = work
-    bf16_ops, x2_ops = (list(more) + [0.0, 0.0])[:2]
+    bf16_ops, x2_ops, x3b_ops = (list(more) + [0.0, 0.0, 0.0])[:3]
     rate = bound_rate(name)
     entry = results.setdefault(name, dict(
         max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=None, bound_ms=0.0,
         ops_ms=0.0, bytes_ms=0.0, cases=[]))
     ops_ms = (tc_ops / (PEAK_TF32_FLOPS / 3) + x2_ops / (PEAK_TF32_FLOPS / 2)
-              + bf16_ops / PEAK_BF16_FLOPS + cc_ops / PEAK_FP32_FLOPS) * 1e3
+              + bf16_ops / PEAK_BF16_FLOPS + x3b_ops / (PEAK_BF16_FLOPS / 3)
+              + cc_ops / PEAK_FP32_FLOPS) * 1e3
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     bound = max(ops_ms, bytes_ms)
     if ms < bound:
         raise AssertionError(f"{name} ({label}): {ms} ms is below the bound "
                              f"{bound} ms")
-    fp32_ms = max((tc_ops + cc_ops + bf16_ops + x2_ops) / PEAK_FP32_FLOPS
-                  * 1e3, bytes_ms)
+    fp32_ms = max((tc_ops + cc_ops + bf16_ops + x2_ops + x3b_ops)
+                  / PEAK_FP32_FLOPS * 1e3, bytes_ms)
     if rate != "fp32":
         entry.setdefault("fp32_bound_ms", 0.0)
         entry["bound_rate"] = rate
@@ -1558,6 +1578,8 @@ def backward_phase(batch: int, device, reps: int, only: str = "") -> dict:
         ms, plain_ms = alternate_ms(rerun_k, rerun_p, reps)
         lib_ms = library_ms(name, args, reps, which)
         dev = device_times(name, rerun_k, rerun_p, reps)
+        if name == "dwconv_gelu_bwd":
+            J_FP32_DEVICE_MS[tuple(args[0].shape)] = dev["device_ms"]
         log(f"kernel {name:28s} {label:44s} max_abs_err={err:.3e} "
             f"max_rel={rel:.3e} (tol {BWD_REL_TOL}) ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} library_ms={fmt_ms(lib_ms)} "
@@ -2530,8 +2552,8 @@ def _cross_ffn_x2(rows: int, c: int, f: int) -> float:
 
 def bf16_work(name: str, args, out) -> tuple:
     """(3xTF32 operations, CUDA-core operations, bytes at their storage
-    sizes, operations of products of two bf16 operands, of one) of one
-    bf16 forward call."""
+    sizes, operations of products of two bf16 operands, of one, of one
+    against three bf16 parts of an fp32 one) of one bf16 forward call."""
     size = float(nbytes(*args) + nbytes(out))
     if name == "sr_attention_bf16":
         return 0.0, 0.0, size, forward_products("sr_attention", args), 0.0
@@ -2544,8 +2566,9 @@ def bf16_work(name: str, args, out) -> tuple:
     if name == "flow_attention_bf16":
         b, l, c = args[0].shape
         return 0.0, float(4 * b * l * l), size, float(2 * b * l * l * c), 0.0
-    if name == "memory_attention_bf16":  # q k^T and P v, each on a bf16 side
-        return (0.0, 0.0, size, 0.0,
+    if name == "memory_attention_bf16":
+        # q k^T and P v, each a bf16 side against the ring's three parts
+        return (0.0, 0.0, size, 0.0, 0.0,
                 forward_work("memory_attention", args, out)[0])
     if name == "window_attention_layer_bf16":
         return (0.0, 0.0, size,
@@ -3098,6 +3121,10 @@ def bf16_backward_phase(batch: int, device, reps: int,
         ms, plain_ms = alternate_ms(rerun_k, plain_grads, reps)
         lib_ms, sdpa_ms = bf16_bwd_library_ms(name, fn, args, which, reps)
         dev = device_times(name, rerun_k, plain_grads, reps)
+        fp32_dev = (J_FP32_DEVICE_MS.get(tuple(args[0].shape))
+                    if name == "dwconv_gelu_bwd_bf16" else None)
+        if fp32_dev is not None:  # the fp32 row's, same shape, same call
+            dev["fp32_device_ms"] = fp32_dev
         ok = finite and rel <= BF16_KERNEL_REL and ratio <= BF16_FP64_RATIO
         per = " ".join(f"{str(dt)[6:]} {r:.3f} (arg {i})"
                        for dt, (r, i) in worst.items() if i is not None)

@@ -68,7 +68,6 @@ constexpr int kFaWg = 2;                       // consumer warpgroups
 constexpr int kFaRows = 64 * kFaWg;            // query rows of a block
 constexpr int kFaThreads = 128 * kFaWg + 128;  // and a producer warpgroup
 constexpr int kFaSmem = 232448;                // a block's shared memory
-constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D, int DV, bool MASKED>
 struct FaPlan {
@@ -115,12 +114,6 @@ struct FaArgs {
   // ([mask_nw, query blocks, key tiles]), or null
   const unsigned char* zero_tiles;
 };
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // Grid (query tiles of 128, B). Batch row b's row n of q and k lies at
 // p[b sb + n sn], of v and out at the same with their strides; the mask of

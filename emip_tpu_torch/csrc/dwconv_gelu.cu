@@ -60,6 +60,22 @@
 // float4 walk. The tap grad is summed in fp32 and rounded to bf16 by the
 // last pass (the JAX backward returns it in the taps' dtype), the bias grad
 // stays fp32.
+//
+// What held the bf16 backward back, and what its walk does about it: the
+// walk runs a chain of row loads, each consumed one step after it is
+// issued, at 168 registers a thread (12 warps, one block an SM: three
+// warps a sub-partition). With its values widened where they were loaded,
+// the bf16 walk spilled (ptxas: 8 bytes stored, 104 loaded a thread) and
+// ran slower than fp32 on half the bytes. Now the next row's loads stay as
+// loaded (Raw) until the step that uses them, and the window keeps bf16
+// values as loaded, two a register, widened (exactly, by a shift or a
+// mask) where each tap reads them: 162 registers, no spill, the same sums
+// in the same order, so the same bits (the raw loads alone still spilled
+// and ran level with fp32; the packed window took it under). Eight
+// channels a lane (one 16-byte load, fp32's bytes a load) needs about
+// twice the registers: at 168 it spilled 1.6 KB a thread, and in blocks of
+// 8 warps (255 registers, 104 bytes of spill loads) it still ran slower
+// than four channels, so the bf16 walk keeps fp32's tiling.
 
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -140,6 +156,57 @@ __device__ __forceinline__ void store(T* p, const Pack<V>& a) {
     *reinterpret_cast<uint2*>(p) = t;
   } else {
     *p = __float2bfloat16_rn(a.v[0]);
+  }
+}
+
+// V consecutive elements of storage type T as loaded, not yet widened
+// (bf16: two a word, the lower index in the lower half): the backward walk
+// keeps its next row's loads so while it computes the current row, so that
+// no widening waits on them early, and its bf16 window so, in half the
+// registers
+template <typename T, int V>
+struct Raw {
+  Pack<V> p;  // fp32: the values themselves
+};
+template <int V>
+struct Raw<__nv_bfloat16, V> {
+  uint32_t w[(V + 1) / 2];
+};
+
+// V consecutive elements of T at p, as they lie; zeros when !ok (one 16-byte
+// (fp32) or 8-byte (bf16) load for V = 4)
+template <typename T, int V>
+__device__ __forceinline__ Raw<T, V> load_raw(const T* p, bool ok) {
+  if constexpr (std::is_same_v<T, float>) {
+    return Raw<T, V>{load<T, V>(p, ok)};
+  } else {
+    Raw<T, V> r;
+#pragma unroll
+    for (int j = 0; j < (V + 1) / 2; ++j) r.w[j] = 0u;
+    if (ok) {
+      if constexpr (V == 4) {
+        const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
+        r.w[0] = t.x, r.w[1] = t.y;
+      } else {
+        r.w[0] = __ldg(reinterpret_cast<const unsigned short*>(p));
+      }
+    }
+    return r;
+  }
+}
+
+// the values of a raw load in fp32 (bf16 widened exactly)
+template <typename T, int V>
+__device__ __forceinline__ Pack<V> widen(const Raw<T, V>& r) {
+  if constexpr (std::is_same_v<T, float>) {
+    return r.p;
+  } else {
+    Pack<V> a;
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      a.v[j] = __uint_as_float(j % 2 ? r.w[j / 2] & 0xffff0000u
+                                     : r.w[j / 2] << 16);
+    return a;
   }
 }
 
@@ -301,17 +368,20 @@ dwconv_gelu_bwd_kernel(const T* __restrict__ u, const T* __restrict__ wdw,
     const long long image = (long long)b * t.H * t.W * t.F;
     const T* su = u + image + c;
     const T* sg = g + image + c;
-    // win[3 * i + j] = u(r - 1 + i, x - 1 + j) at step r
-    Pack<V> win[9], nl, nm, nr, gn;
+    // win[3 * i + j] = u(r - 1 + i, x - 1 + j) at step r, and the next
+    // row's loads (u's three columns, g), kept as loaded and widened where
+    // they are used
+    Raw<T, V> win[9], nl, nm, nr, gn;
     auto fetch = [&](int r) {
       const bool ok = r >= 0 && r < t.H;
       const T* q = su + (r * t.W + x) * t.F;
-      nl = load<T, V>(q - t.F, ok && left);
-      nm = load<T, V>(q, ok && xin);
-      nr = load<T, V>(q + t.F, ok && right);
+      nl = load_raw<T, V>(q - t.F, ok && left);
+      nm = load_raw<T, V>(q, ok && xin);
+      nr = load_raw<T, V>(q + t.F, ok && right);
     };
     auto fetch_g = [&](int r) {
-      gn = load<T, V>(sg + (r * t.W + x) * t.F, r >= 0 && r < t.H && xin);
+      gn = load_raw<T, V>(sg + (r * t.W + x) * t.F,
+                          r >= 0 && r < t.H && xin);
     };
     fetch(y0 - 2);
     win[3] = nl, win[4] = nm, win[5] = nr;
@@ -327,7 +397,7 @@ dwconv_gelu_bwd_kernel(const T* __restrict__ u, const T* __restrict__ wdw,
 #pragma unroll
       for (int k = 0; k < 6; ++k) win[k] = win[k + 3];
       win[6] = nl, win[7] = nm, win[8] = nr;
-      const Pack<V> gv = gn;
+      const Pack<V> gv = widen(gn);
       if (r < y1) {
         fetch(r + 2);
         fetch_g(r + 1);
@@ -336,13 +406,13 @@ dwconv_gelu_bwd_kernel(const T* __restrict__ u, const T* __restrict__ wdw,
       if (xin && r >= 0 && r < t.H) {
         Pack<V> pre = bias;
 #pragma unroll
-        for (int k = 0; k < 9; ++k) fma_to(pre, w[k], win[k]);
+        for (int k = 0; k < 9; ++k) fma_to(pre, w[k], widen(win[k]));
 #pragma unroll
         for (int j = 0; j < V; ++j) gd.v[j] = gv.v[j] * gelu_grad(pre.v[j]);
       }
       if (want_params && mine && r >= y0 && r < y1) {
 #pragma unroll
-        for (int k = 0; k < 9; ++k) fma_to(acc[k], win[k], gd);
+        for (int k = 0; k < 9; ++k) fma_to(acc[k], widen(win[k]), gd);
 #pragma unroll
         for (int j = 0; j < V; ++j) acc[9].v[j] += gd.v[j];
       }

@@ -201,7 +201,7 @@ extern "C" int emip_flow_attention_bwd_bf16(const void* q, const void* k,
   cudaError_t err;
   if (C == 128) {
     err = attention_fwd_tc<128, 2, kFlowFwdWarps, kFlowFwdMt, kFlowFwdStr,
-                           false, false, false, true>(
+                           false, false, true>(
         qo, ko, vo, nullptr, nullptr, 1, none, stats, row_sum, B, 1, L, L,
         scale, all, s);
     if (err == cudaSuccess)
@@ -212,7 +212,7 @@ extern "C" int emip_flow_attention_bwd_bf16(const void* q, const void* k,
                                           s);
   } else if (C == 64) {
     err = attention_fwd_tc<64, 2, kFlowFwdWarps, kFlowFwdMt, kFlowFwdStr,
-                           false, false, false, true>(
+                           false, false, true>(
         qo, ko, vo, nullptr, nullptr, 1, none, stats, row_sum, B, 1, L, L,
         scale, all, s);
     if (err == cudaSuccess)

@@ -798,8 +798,36 @@ __device__ __forceinline__ void wgmma_bf16_rt(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d[64, 32] (+)= a[64, 16] . B[32, 16]^T, A from registers in mma.m16n8k16's
+// bf16 A layout per warp, B by a K-major descriptor; scale_d 0 overwrites d
+// (F's q k^T with q held in registers).
+__device__ __forceinline__ void wgmma_bf16_ra32(float (&d)[16],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n"
+      "}"
+      : EMIP_D16(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 #undef EMIP_D16
 #undef EMIP_D4
+
+// the softmax of the bf16 attention (attention_bf16.cu) and of F's bf16
+// forward (memory_attention.cu) takes e^x as 2^(x log2 e) on the MUFU
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
 // keeps the compiler from reusing A-operand registers that an asynchronous
 // product may still read

@@ -105,8 +105,7 @@
 // take no mask, and their forwards no heads, at compile time: either would
 // cost their tilings registers. Kernel C's bf16 backward instantiates both
 // with bf16 q and k (the forward as a statistics pass, STATS_BF16; the
-// backward with Q16 and K16), kernel F's bf16 forward with a bf16 q
-// (QBF16) and its bf16 backward with Q16 alone.
+// backward with Q16 and K16), kernel F's bf16 backward with Q16 alone.
 
 #pragma once
 
@@ -372,39 +371,6 @@ __device__ __forceinline__ void load_tile_async(T* dst, const T* src, int sn,
   }
 }
 
-// load_tile_async's tile from bf16 rows (raw bits; 16-byte loads of eight
-// values, each widened exactly to fp32 and stored), zeros past the end.
-// Synchronous: the stores are seen by the block after its next barrier.
-template <int W, int THREADS>
-__device__ __forceinline__ void load_tile_bf16(float* dst, const uint16_t* src,
-                                               int sn, int r0, int rows_total,
-                                               int rows, int tid) {
-  constexpr int kChunks = W / 8;
-  static_assert(THREADS % kChunks == 0, "whole rows per pass of the block");
-  constexpr int kStep = THREADS / kChunks;
-  const int c = (tid % kChunks) * 8;
-  for (int r = tid / kChunks; r < rows; r += kStep) {
-    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < rows_total)
-      raw = *reinterpret_cast<const uint4*>(src + (long long)(r0 + r) * sn +
-                                            c);
-    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
-    float* to = dst + r * (W + 4) + c;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      to[2 * i] = __uint_as_float(w[i] << 16);
-      to[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
-  }
-}
-
-// x rounded to the nearest bf16 value (ties to even), kept in fp32; x
-// finite.
-__device__ __forceinline__ float round_to_bf16(float x) {
-  const uint32_t u = __float_as_uint(x);
-  return __uint_as_float((u + 0x7fffu + ((u >> 16) & 1u)) & 0xffff0000u);
-}
-
 // n rows of a dense [total, BYTES / 4] array (a per-row vector, or the
 // 2-wide values), zeros past total.
 template <int BYTES, int THREADS>
@@ -577,24 +543,20 @@ struct TcFwdArgs {
 // key tiles [s * tiles_per_split, ...). With one split a block writes out
 // and, with KEEP, the row statistics; otherwise its normalised partial
 // output and that partial's max and sum. Without HEADS, H is 1 and out is
-// a dense [B, Nq, DV] (its strides are not read). QBF16 (kernel F in the
-// bf16 band): q.p holds bf16 bits (q's strides in bf16 elements), widened
-// exactly into the fp32 tile; P = exp(S - m) is rounded to bf16 for P v,
-// the row sum taking the unrounded P; both exact in TF32, so q k^T and P v
-// run two TF32 products each instead of three. STATS_BF16 (the statistics
+// a dense [B, Nq, DV] (its strides are not read). STATS_BF16 (the statistics
 // pass of kernel C's bf16 backward; KEEP): q.p and k.p hold bf16 bits, read
 // into bf16 tiles and widened as the fragments are built, so q k^T is one
 // TF32 product; only the row max and sum are kept (no P v, no output, v is
 // not read).
 template <int D, int DV, int WARPS, int MT, int STR, bool MASKED, bool HEADS,
-          bool KEEP, bool QBF16 = false, bool STATS_BF16 = false>
+          bool KEEP, bool STATS_BF16 = false>
 __global__ void __launch_bounds__(
     32 * WARPS, (TcFwd<D, DV, WARPS, MT, STR, STATS_BF16>::kBlocksPerSm))
 attention_fwd_tc_kernel(TcFwdArgs a) {
   using L = TcFwd<D, DV, WARPS, MT, STR, STATS_BF16>;
   using TQK = std::conditional_t<STATS_BF16, uint16_t, float>;
-  static_assert(!(QBF16 && STATS_BF16) && (!STATS_BF16 || KEEP),
-                "one bf16 form; the statistics pass keeps its statistics");
+  static_assert(!STATS_BF16 || KEEP,
+                "the statistics pass keeps its statistics");
   extern __shared__ __align__(16) float tc_smem[];
   TQK* Qs = reinterpret_cast<TQK*>(tc_smem);  // [kRes][kLd]
   float* stages = tc_smem + L::kResTile;
@@ -620,8 +582,6 @@ attention_fwd_tc_kernel(TcFwdArgs a) {
   if constexpr (STATS_BF16)
     load_tile_async<D, L::kThreads>(Qs, q_bits, a.q.sn, q0, a.Nq, L::kRes,
                                     tid);
-  else if constexpr (QBF16)
-    load_tile_bf16<D, L::kThreads>(Qs, q_bits, a.q.sn, q0, a.Nq, L::kRes, tid);
   else
     load_tile_async<D, L::kThreads>(Qs, a.q.p + b * a.q.sb + (long long)h * D,
                                     a.q.sn, q0, a.Nq, L::kRes, tid);
@@ -686,7 +646,7 @@ attention_fwd_tc_kernel(TcFwdArgs a) {
       for (int j = 0; j < L::kNT; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) prod[0][m][j][e] = 0.f;
-    warp_gemm_nt<1, D, MT, L::kNT, L::kLd, L::kLd, 0, 0, 1, QBF16>(
+    warp_gemm_nt<1, D, MT, L::kNT, L::kLd, L::kLd, 0, 0, 1>(
         Qs + warp * L::kWarpRows * L::kLd, Ks, (const float*)nullptr,
         (const float*)nullptr, g, t, prod);
     float(&sc)[MT][L::kNT][4] = prod[0];
@@ -760,7 +720,7 @@ attention_fwd_tc_kernel(TcFwdArgs a) {
           for (int hf = 0; hf < 2; ++hf) {
             const int e = 2 * hf + c;
             const float p = __expf(sc[m][j][e] - mnew[m][hf]);
-            sc[m][j][e] = QBF16 ? round_to_bf16(p) : p;
+            sc[m][j][e] = p;
             lrow[m][hf] += p;
             if constexpr (!L::kWide && !STATS_BF16) {
               acc[m][0][2 * hf] = fmaf(p, v0, acc[m][0][2 * hf]);
@@ -769,7 +729,7 @@ attention_fwd_tc_kernel(TcFwdArgs a) {
           }
       }
     if constexpr (L::kWide && !STATS_BF16)
-      warp_gemm_ak<DV, MT, L::kNT, L::kLdV, QBF16>(sc, Vs, g, t, acc);
+      warp_gemm_ak<DV, MT, L::kNT, L::kLdV>(sc, Vs, g, t, acc);
   }
 
   // the four lanes of a row hold parts of its sum (and, with DV = 2, of its
@@ -863,17 +823,17 @@ __global__ void attention_merge_kernel(const float* __restrict__ part_o,
 }
 
 template <int D, int DV, int WARPS, int MT, int STR, bool MASKED, bool HEADS,
-          bool KEEP, bool QBF16, bool STATS_BF16>
+          bool KEEP, bool STATS_BF16>
 cudaError_t attention_fwd_tc_launch(const TcFwdArgs& a, dim3 grid,
                                     cudaStream_t stream) {
   using L = TcFwd<D, DV, WARPS, MT, STR, STATS_BF16>;
   // set once per instantiation, not per launch (one card per process)
   static const cudaError_t attr = cudaFuncSetAttribute(
       attention_fwd_tc_kernel<D, DV, WARPS, MT, STR, MASKED, HEADS, KEEP,
-                              QBF16, STATS_BF16>,
+                              STATS_BF16>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
   if (attr != cudaSuccess) return attr;
-  attention_fwd_tc_kernel<D, DV, WARPS, MT, STR, MASKED, HEADS, KEEP, QBF16,
+  attention_fwd_tc_kernel<D, DV, WARPS, MT, STR, MASKED, HEADS, KEEP,
                           STATS_BF16>
       <<<grid, L::kThreads, L::kBytes, stream>>>(a);
   return cudaGetLastError();
@@ -905,7 +865,7 @@ int attention_fwd_tc_splits(int BH, int Nq, int Nk, long long ws_floats,
 // row_max and row_sum [B * H, Nq] are written when row_max is not null (a
 // gradient will be taken). ws: room for the partials of a split pass (fewer
 // splits when it is short; attention_fwd_tc_splits says how much it takes).
-// QBF16: q.p points at bf16 q; STATS_BF16: q.p and k.p at bf16 q and k,
+// STATS_BF16: q.p and k.p point at bf16 q and k,
 // and only row_max and row_sum are written (out.p null, v not read; see
 // attention_fwd_tc_kernel). Its tiles take the bytes of bf16 and its blocks
 // the places of the fp32 instantiation, so both take the same splits and
@@ -913,7 +873,7 @@ int attention_fwd_tc_splits(int BH, int Nq, int Nk, long long ws_floats,
 // and the merge's output go to ws, and the merge is the fp32 one (another
 // merge of the statistics alone compiles its sum otherwise: other bits).
 template <int D, int DV, int WARPS, int MT, int STR, bool MASKED = false,
-          bool HEADS = false, bool QBF16 = false, bool STATS_BF16 = false>
+          bool HEADS = false, bool STATS_BF16 = false>
 cudaError_t attention_fwd_tc(AttnOperand q, AttnOperand k, AttnOperand v,
                              const float* bias, const float* mask,
                              int mask_nw, AttnGrad out, float* row_max,
@@ -951,13 +911,13 @@ cudaError_t attention_fwd_tc(AttnOperand q, AttnOperand k, AttnOperand v,
   cudaError_t err;
   if constexpr (STATS_BF16)
     err = attention_fwd_tc_launch<D, DV, WARPS, MT, STR, MASKED, HEADS, true,
-                                  false, true>(a, grid, stream);
+                                  true>(a, grid, stream);
   else
     err = row_max ? attention_fwd_tc_launch<D, DV, WARPS, MT, STR, MASKED,
-                                            HEADS, true, QBF16, false>(
+                                            HEADS, true, false>(
                         a, grid, stream)
                   : attention_fwd_tc_launch<D, DV, WARPS, MT, STR, MASKED,
-                                            HEADS, false, QBF16, false>(
+                                            HEADS, false, false>(
                         a, grid, stream);
   if (err != cudaSuccess || splits == 1) return err;
   attention_merge_kernel<DV><<<ceil_div(rows * DV, 256), 256, 0, stream>>>(

@@ -95,6 +95,7 @@ _SIGNATURES = {
     # the bf16 long model and 512^2: F forward and backward, G and H
     # forward
     "emip_memory_attention_bf16": [_P] * 7 + [_L] + [_I] * 4 + [_P],
+    "emip_memory_attention_bf16_workspace": [_I] * 4,
     "emip_memory_attention_bwd_bf16": [_P] * 11 + [_L] + [_I] * 4 + [_P],
     "emip_window_layer_bf16": ([_P] * 9 + [_I] + [_P] * 4 + [_I] * 4
                                + [_F, _P]),
@@ -110,6 +111,7 @@ _SIGNATURES = {
     "emip_dwconv_gelu_bwd_bf16": [_P] * 8 + [_L] + [_I] * 4 + [_P],
 }
 _RESTYPES = {"emip_attention_fwd_workspace": _L,
+             "emip_memory_attention_bf16_workspace": _L,
              "emip_dwconv_gelu_bwd_workspace": _L,
              "emip_splat_density_workspace": _L,
              "emip_softmax_expectation_bwd_workspace": _L}

@@ -27,8 +27,9 @@ plain version, its autograd backward and the Pallas kernels:
 :func:`fused_dwconv_gelu_strips` walks the forward (strips of rows, each
 input row added into three running output rows) and
 :func:`dwconv_gelu_bwd_tiled` the backward (tiles walked per block in the
-kernel's order, gd recomputed on each tile and its one-pixel halo, the
-per-block tap and bias partials added in order). Neither runs on a model's
+kernel's order, :func:`dwconv_bwd_plan`, gd recomputed on each tile and its
+one-pixel halo, each column's tap and bias sums kept over the block's
+tiles, the per-block partials added in order). Neither runs on a model's
 path.
 """
 
@@ -43,7 +44,8 @@ from emip_tpu_torch.kernels import _common as cm
 from emip_tpu_torch.kernels._build import library
 
 __all__ = ["fused_dwconv_gelu", "fused_dwconv_gelu_reference",
-           "fused_dwconv_gelu_strips", "dwconv_gelu_bwd_tiled"]
+           "fused_dwconv_gelu_strips", "dwconv_gelu_bwd_tiled",
+           "dwconv_bwd_plan"]
 
 _NAME = "fused_dwconv_gelu"
 
@@ -111,21 +113,51 @@ def fused_dwconv_gelu_strips(u, wdw, bdw, h: int, w: int,
     return out.reshape(b, h * w, f)
 
 
-def dwconv_gelu_bwd_tiled(u, wdw, bdw, g, h: int, w: int, rows: int,
-                          cols: int, blocks: int):
+def dwconv_bwd_plan(b: int, h: int, w: int, f: int,
+                    lane_channels: int = 4) -> dict:
+    """How the backward kernel cuts its work at this shape (``tiling`` and
+    ``bwd_blocks_per_group`` of ``csrc/dwconv_gelu.cu``): ``lane_channels``
+    channels a lane (4, or 1 where F is no multiple of 4 or a pointer is
+    not aligned for 4), so a warp's group of 32 lanes covers 32 x that many
+    channels; tiles of up to 10 columns by strips of up to 16 rows, evened
+    out over the image; about one persistent block an SM (the H100's 132)
+    over all groups, each group's tiles evened out over its blocks. The
+    plan sets the order in which the tap and bias partials are summed."""
+    groups = -(-(f // lane_channels) // 32)
+    col_tiles = -(-w // 10)
+    cols = -(-w // col_tiles)
+    strips = -(-h // 16)
+    rows = -(-h // strips)
+    tiles = b * strips * col_tiles
+    want = max(1, 132 // groups)
+    blocks = -(-tiles // -(-tiles // want))
+    return dict(rows=rows, cols=cols, blocks=blocks, groups=groups)
+
+
+def dwconv_gelu_bwd_tiled(u, wdw, bdw, g, h: int, w: int,
+                          rows: int | None = None, cols: int | None = None,
+                          blocks: int | None = None):
     """The backward kernel's walk -> (gu, gwdw, gbdw).
 
     The images are cut into tiles of ``rows`` x ``cols`` pixels, numbered
     image-major, then strip, then column tile; block p of ``blocks`` walks
-    tiles p, p + blocks, ... in order. On each tile it recomputes the
-    pre-activation and gd = g * gelu'(pre) on the tile and its one-pixel
-    halo (u read with a two-pixel halo, zero off the image), writes gu on
-    the tile by the transposed taps, and adds sum u(p + d) * gd(p) (taps)
-    and sum gd(p) (bias) over the tile's pixels into its own partial; a
-    last pass adds partials i, i + 8, ... in order for each i < 8, then
-    those 8 sums in order.
+    tiles p, p + blocks, ... in order (by default as the kernel plans them,
+    four channels a lane where F is a multiple of 4, else one:
+    :func:`dwconv_bwd_plan`; every channel group takes the same plan, so
+    every channel's sums run in the same order). On each tile it recomputes the pre-activation and gd = g *
+    gelu'(pre) on the tile and its one-pixel halo (u read with a two-pixel
+    halo, zero off the image) and writes gu on the tile by the transposed
+    taps. Column i of the tile (warp i + 1 of the block) adds u(p + d) *
+    gd(p) (taps) and gd(p) (bias) over its pixels, row by row, into a sum it
+    keeps over all of the block's tiles; the block's partial is those sums
+    added in column order; a last pass adds partials i, i + 8, ... in order
+    for each i < 8, then those 8 sums in order.
     """
     b, _, f = u.shape
+    if rows is None or cols is None or blocks is None:
+        plan = dwconv_bwd_plan(b, h, w, f, 4 if f % 4 == 0 else 1)
+        rows, cols, blocks = (plan[k] if v is None else v for k, v in (
+            ("rows", rows), ("cols", cols), ("blocks", blocks)))
     up = F.pad(u.reshape(b, h, w, f), (0, 0, 2, 2, 2, 2))
     gp = F.pad(g.reshape(b, h, w, f), (0, 0, 1, 1, 1, 1))
     gu = torch.empty(b, h, w, f, dtype=u.dtype)
@@ -135,6 +167,7 @@ def dwconv_gelu_bwd_tiled(u, wdw, bdw, g, h: int, w: int, rows: int,
     taps = [(dy, dx) for dy in range(3) for dx in range(3)]
     part = u.new_zeros(blocks, 10, f)
     for p in range(blocks):
+        col_sums = u.new_zeros(cols, 10, f)  # column i's, over the tiles
         for i, s, c in tiles[p::blocks]:
             y0, x0 = s * rows, c * cols
             nr, nc = min(h, y0 + rows) - y0, min(w, x0 + cols) - x0
@@ -146,11 +179,14 @@ def dwconv_gelu_bwd_tiled(u, wdw, bdw, g, h: int, w: int, rows: int,
             gu[i, y0:y0 + nr, x0:x0 + nc] = sum(
                 gd[2 - dy:2 - dy + nr, 2 - dx:2 - dx + nc] * wdw[dy, dx]
                 for dy, dx in taps)
-            own = gd[1:-1, 1:-1]
-            for k, (dy, dx) in enumerate(taps):
-                part[p, k] += (ut[1 + dy:1 + dy + nr, 1 + dx:1 + dx + nc]
-                               * own).sum((0, 1))
-            part[p, 9] += own.sum((0, 1))
+            own = gd[1:-1, 1:-1]  # [nr, nc, f]
+            for r in range(nr):
+                for k, (dy, dx) in enumerate(taps):
+                    col_sums[:nc, k] += ut[1 + dy + r, 1 + dx:1 + dx + nc] \
+                        * own[r]
+                col_sums[:nc, 9] += own[r]
+        for i in range(cols):
+            part[p] += col_sums[i]
     # the last pass: partials i, i + 8, ... in order, then the 8 runs
     runs = [sum(part[i::8], torch.zeros_like(part[0])) for i in range(8)]
     total = sum(runs[1:], runs[0])

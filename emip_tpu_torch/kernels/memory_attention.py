@@ -14,7 +14,10 @@ In the bf16 band (the long model in bf16) q is bf16 and k, v and the bias
 fp32 (the ring stays fp32), as the JAX kernel takes them in a bf16 model:
 ``emip_memory_attention_bf16`` accumulates q k^T in fp32, rounds P =
 exp(S - m) to bf16 for P v against the fp32 v and divides by the fp32 sum
-of the unrounded P, writing fp32. Its backward
+of the unrounded P, writing fp32; it runs both products on bf16 tensor
+cores against the ring split exactly into three bf16 parts
+(:func:`~emip_tpu_torch.kernels.tf32.memory_attention_fwd_bf16_walk`
+states its order). Its backward
 (``emip_memory_attention_bwd_bf16``) is the JAX kernel's: P recomputed in
 fp32, delta from the bf16 forward's output, dq rounded to bf16, dk and dv
 fp32; it reads q as bf16 where it lies, its products with q take the TF32
@@ -25,6 +28,8 @@ taken.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -72,6 +77,14 @@ def masked_memory_attention_bwd_reference(q, k, v, bias, out, g,
             p.transpose(-1, -2) @ g if needs[2] else None]
 
 
+@functools.lru_cache(maxsize=None)
+def _bf16_workspace(b: int, m: int, n: int, c: int) -> int:
+    """Floats of scratch the bf16 forward takes at this shape: the ring's
+    three bf16 parts of k and of v, and the partials of its key splits, as
+    the kernel plans them."""
+    return library().emip_memory_attention_bf16_workspace(b, m, n, c)
+
+
 def _check(q, k, v, bias) -> None:
     cm.check_kernel_args(_NAME, q.dtype, q=q)
     if q.dtype not in (torch.float32, torch.bfloat16):
@@ -113,10 +126,14 @@ class _MemoryAttention(torch.autograd.Function):
             # backward
             stats = (torch.empty((2, b, m), device=q.device,
                                  dtype=torch.float32) if keep else None)
-            # room for the partials of two key splits beyond the shared
-            # scratch, so that 4 clips at 512^2 (64 blocks of 256 query
-            # rows) can split their keys and fill the card
-            ws = cm.workspace(q.device, 2 * b * m * (c + 2))
+            if ctx.band:  # the ring's bf16 parts and the key splits'
+                ws = torch.empty(_bf16_workspace(b, m, n, c),
+                                 device=q.device, dtype=torch.float32)
+            else:
+                # room for the partials of two key splits beyond the
+                # shared scratch, so that 4 clips at 512^2 (64 blocks of
+                # 256 query rows) can split their keys and fill the card
+                ws = cm.workspace(q.device, 2 * b * m * (c + 2))
             rc = getattr(library(), "emip_memory_attention" + ctx.band)(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
                 out.data_ptr(), cm.ptr(stats), ws.data_ptr(), ws.numel(), b,

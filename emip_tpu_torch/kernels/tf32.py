@@ -55,6 +55,13 @@ and the JAX package's Pallas kernels:
   walks G's bf16 forward on it (``emip_window_layer_bf16``): q, k, v as one
   bf16 product rounded to bf16, the attention walk, then o Wm^T with LN1,
   the rounding of msg, the residual and the last rounding in its epilogue.
+* :func:`memory_attention_fwd_bf16_walk` walks F's bf16 forward
+  (``emip_memory_attention_bf16``): :func:`bf16_parts` splits each fp32
+  value of the ring exactly into three bf16 parts, :func:`matmul_bf16x3`
+  sums a bf16 operand's products with them (lo, mid, hi) in fp32, and
+  :func:`attention_fwd_tiled` walks the keys in tiles of 32 with P rounded
+  to bf16 for P v, the keys split as :func:`key_splits` plans them and the
+  partials merged in order, keeping the row max and sum.
 * :func:`window_layer_bwd_bf16_walk` and
   :func:`window_ffn_layer_bwd_bf16_walk` walk G's and H's bf16 backwards
   (``emip_window_layer_bwd_bf16``, ``emip_window_ffn_layer_bwd_bf16``):
@@ -82,7 +89,9 @@ __all__ = ["tf32_round", "tf32_truncate", "matmul_tf32", "matmul_3xtf32",
            "sr_attention_fwd_bf16_walk", "wgmma_linear_walk",
            "window_ffn_bf16_walk", "window_block_fwd_bf16_walk",
            "window_layer_bwd_bf16_walk", "window_ffn_layer_bwd_bf16_walk",
-           "attention_bf16_walk", "window_layer_fwd_bf16_walk"]
+           "attention_bf16_walk", "window_layer_fwd_bf16_walk",
+           "bf16_parts", "matmul_bf16x3", "key_splits",
+           "memory_attention_fwd_bf16_walk"]
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -958,3 +967,79 @@ def window_layer_fwd_bf16_walk(x, t, params, mask=None,
                    params["s1"].float(), params["b1"].float(), eps).to(bf16)
     out = (x2 + msg.float()).to(bf16) if add_residual else msg
     return out.reshape(x.shape)
+
+
+def bf16_parts(x: torch.Tensor) -> tuple:
+    """fp32 ``x`` as three bf16 parts (hi, mid, lo), returned as fp32 tensors
+    of bf16 values: hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi -
+    mid), each rounded to nearest even, as F's bf16 forward splits its ring.
+    The differences are exact in fp32 and lo is exact in bf16, so hi + mid +
+    lo is x bit for bit (24 = 3 x 8 bits of significand) wherever lo stays
+    a normal bf16 value, |x| >= 2^-110; that is checked here. Below, lo is
+    subnormal and drops bits under 2^-133."""
+    bf16 = torch.bfloat16
+    hi = x.to(bf16).float()
+    mid = (x - hi).to(bf16).float()
+    lo_exact = x - hi - mid
+    lo = lo_exact.to(bf16).float()
+    big = x.abs() >= 2.0 ** -110
+    if not (torch.equal(lo[big], lo_exact[big])
+            and torch.equal((hi + mid + lo)[big], x[big])):
+        raise ValueError("bf16_parts: the parts do not sum to x")
+    return hi, mid, lo
+
+
+def matmul_bf16x3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as F's bf16 forward takes it on the bf16 tensor cores: ``a``
+    rounded to bf16 (q is bf16 already; P is rounded here), ``b`` fp32 (the
+    ring) in its three exact bf16 parts, the products summed in fp32, the
+    small parts first (lo, mid, hi). Every partial product is exact; the
+    tensor core's order inside a product is not stated."""
+    a16 = a.to(torch.bfloat16).float()
+    hi, mid, lo = bf16_parts(b)
+    return (a16 @ lo + a16 @ mid) + a16 @ hi
+
+
+def key_splits(blocks: int, tiles: int) -> int:
+    """How many ways a forward splits its streamed key tiles
+    (``tc_splits`` of ``csrc/mma_tf32.cuh``): ``blocks`` blocks, one an SM
+    of the H100's 132, s splits of ceil(tiles / s) tiles take ceil(blocks
+    * s / 132) waves of that many tiles; the fewest splits within 5% of the
+    least time, at most 16 and ``tiles``."""
+    slots = 132
+    per = tiles
+    best = -(-blocks // slots) * tiles
+    for s in range(2, min(16, tiles) + 1):
+        p = -(-tiles // s)
+        time = -(-(blocks * -(-tiles // p)) // slots) * p
+        if time < 0.95 * best:
+            per, best = p, time
+    return -(-tiles // per)
+
+
+def memory_attention_fwd_bf16_walk(q, k, v, bias, key_tile: int = 32,
+                                   splits: int | None = None,
+                                   keep_stats: bool = False):
+    """F's bf16 forward (``emip_memory_attention_bf16``) in the order the
+    card sums it: q [B, M, C] bf16; k, v [B, N, C] and the key bias [B, N]
+    fp32; returns out [B, M, C] fp32 (and the row max and sum [B, M] with
+    ``keep_stats``).
+
+    The ring's k and v go in their three bf16 parts (:func:`bf16_parts`)
+    into both products (:func:`matmul_bf16x3`); the keys stream in tiles of
+    ``key_tile`` (the last ragged, its missing keys at -inf) with the bias
+    added before a running max m and sum l of the unrounded P = e^(s - m),
+    P rounded to bf16 for P v, as :func:`attention_fwd_tiled` walks them;
+    the key tiles split ``splits`` ways (by default as the kernel plans
+    them for its blocks of 128 query rows, one an SM: :func:`key_splits`),
+    each split's output normalised by its own sum and the splits merged in
+    order with weights l_s e^(m_s - max m). The plain version rounds e^(s -
+    row max) instead, so the two agree to bf16 rounding, not bit for bit.
+    """
+    b, m, _ = q.shape
+    tiles = -(-k.shape[1] // key_tile)
+    if splits is None:
+        splits = key_splits(b * -(-m // 128), tiles)
+    return attention_fwd_tiled(q.float(), k, v, bias, stream_rows=key_tile,
+                               splits=splits, matmul=matmul_bf16x3,
+                               keep_stats=keep_stats)

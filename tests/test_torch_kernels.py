@@ -873,3 +873,64 @@ def test_cuda_bf16_attention_matches_walk_and_plain_version():
                                                        residual),
               tf32.window_layer_fwd_bf16_walk(x, t, p, mask, residual),
               8e-3)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_memory_attention_matches_walk_and_plain_version():
+    """F's bf16 forward on the card (``emip_memory_attention_bf16``: the
+    ring in three exact bf16 parts, bf16 wgmma): within 1e-2 of max|ref| of
+    the plain bf16 version and 2e-3 of its walk
+    (``tf32.memory_attention_fwd_bf16_walk`` with the kernel's key splits,
+    on the card's inputs moved to the CPU; the exponentials and sums in
+    another order move single bf16 roundings of P), the same bits on a
+    second call, one count a call; widths 128 and 64, 1 clip at 352^2 (eight
+    key splits), a ragged ring with every slot written, some and none (the
+    plain mean of the values). The statistics it keeps feed F's bf16
+    backward: dq, dk and dv within 1e-2 of max|ref| of the plain backward
+    from the kernel forward's output."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from emip_tpu_torch.kernels import tf32
+    from emip_tpu_torch.kernels.memory_attention import (
+        masked_memory_attention_bwd_reference,
+    )
+
+    g = torch.Generator().manual_seed(17)
+    bf = torch.bfloat16
+
+    def close(got, want, tol):
+        scale = want.float().abs().max()
+        assert (got.float() - want.float()).abs().max() <= tol * scale
+
+    for b, m, slots, c, valid in ((1, 1936, 5, 128, (5,)),
+                                  (2, 100, 3, 128, (3, 0)),
+                                  (2, 50, 5, 64, (2, 5))):
+        n = slots * m
+        q = (2 * torch.randn(b, m, c, generator=g)).to(bf)
+        k, v = (torch.randn(b, n, c, generator=g) for _ in range(2))
+        ok = torch.zeros(b, slots, dtype=torch.bool)
+        for i, nv in enumerate(valid):
+            ok[i, slots - nv:] = True
+        bias = torch.where(ok.repeat_interleave(m, 1), 0.0, -1e9)
+        dev = [a.cuda() for a in (q, k, v, bias)]
+        before = K.LAUNCHES["memory_attention_bf16"]
+        with torch.no_grad():
+            got = K.masked_memory_attention(*dev)
+            assert torch.equal(K.masked_memory_attention(*dev), got)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["memory_attention_bf16"] == before + 2
+        assert got.dtype == torch.float32
+        close(got.cpu(), K.masked_memory_attention_reference(q, k, v, bias),
+              1e-2)
+        close(got.cpu(), tf32.memory_attention_fwd_bf16_walk(q, k, v, bias),
+              2e-3)
+        leaves = [dev[0].requires_grad_(True), dev[1].requires_grad_(True),
+                  dev[2].requires_grad_(True)]
+        out = K.masked_memory_attention(*leaves, dev[3])
+        cot = torch.randn(out.shape, generator=g)
+        grads = torch.autograd.grad(out, leaves, cot.cuda())
+        want = masked_memory_attention_bwd_reference(
+            q, k, v, bias, out.detach().cpu(), cot)
+        for name, a, e in zip("qkv", grads, want):
+            assert a.dtype == e.dtype, name
+            close(a.cpu(), e, 1e-2)
