@@ -326,6 +326,19 @@ TIMED_BATCHES = 5
 TIMED_STEPS = 5
 KERNEL_REPS = 10
 SEED = 0
+# multi-scale GMFlow at full width: the published refinement model (Xu et
+# al., CVPR 2022, haofeixu/gmflow's "with refinement" evaluation: num_scales
+# 2, upsample_factor 4, attn_splits_list 2 8, corr_radius_list -1 4,
+# prop_radius_list -1 1) on 128 channels, 6 blocks, FFN x4
+GMFLOW_SCALES = dict(num_scales=2, upsample_factor=4, feature_channels=128,
+                     num_transformer_layers=6, ffn_dim_expansion=4,
+                     attn_splits_list=(2, 8), corr_radius_list=(-1, 4),
+                     prop_radius_list=(-1, 1))
+GMFLOW_SCALES_TIMED = 5
+GMFLOW_SCALES_TOL = dict(rtol=1e-3, atol=2e-2)
+# the relative nudge of the CPU's inputs that measures how far fp32
+# rounding alone moves each output (see gmflow_scales_phase)
+GMFLOW_SCALES_NUDGE = 1e-6
 
 # per-kernel tolerances (kernel vs. plain PyTorch, both fp32 on the card):
 # sums run in another order, through softmax, LayerNorm and FFN chains
@@ -523,7 +536,8 @@ BIT_EQUAL_KERNELS = TENSOR_CORE_KERNELS + (
 # G's and H's bf16 backwards, whose products moved to the wgmma product,
 # and C's, G's and F's forwards, whose attention did, that they moved);
 # and J's backwards, whose bf16 walk keeps its loads and window as loaded
-# (the same sums in the same order)
+# (the same sums in the same order), and J's bf16 forward, whose staged
+# walk keeps the sums and their order
 DIGEST_KERNELS = ("sr_attention_bwd", "window_attention_block_bwd",
                   "window_attention_layer_bwd",
                   "window_attention_ffn_layer_bwd", "flow_attention_bwd",
@@ -535,7 +549,8 @@ DIGEST_KERNELS = ("sr_attention_bwd", "window_attention_block_bwd",
                   "window_attention_layer_bwd_bf16",
                   "window_attention_ffn_layer_bwd_bf16",
                   "window_attention_layer_bf16", "memory_attention_bf16",
-                  "dwconv_gelu_bwd", "dwconv_gelu_bwd_bf16")
+                  "dwconv_gelu_bwd", "dwconv_gelu_bwd_bf16",
+                  "dwconv_gelu_bf16")
 DIGESTS = {}
 # J's fp32 backward's device ms per call by its u's shape, read beside its
 # bf16 backward's at the same shape (bf16_backward_phase)
@@ -1258,6 +1273,39 @@ def check_cases(device):
     cases += [("dwconv_gelu", f"u [{b},{h * w},{f}] {h}x{w}",
                K.fused_dwconv_gelu, K.fused_dwconv_gelu_reference,
                ffn_args(r, b, h, w, f)) for b, h, w, f in FFN_CHECKS]
+    return cases + scales_cases(device, bf16=False)
+
+
+def scales_cases(device, bf16: bool):
+    """The shapes multi-scale GMFlow (GMFLOW_SCALES) gives B and D at
+    352^2, batch 8, from a generator of their own and kept out of the
+    rows' sums: B on the fine scale's windows, 88^2 split 8 ways into 64
+    windows of 121 tokens, both directions and both frames on the batch
+    axis ([32, 64, 121, 128]), without and with the shift mask (in bf16
+    the mask's rows read padded to 124); D at x4 (flow [16, 88, 88, 2],
+    logits [16, 88, 88, 144]). ``bf16``: bf16 windows and logits."""
+    import torch
+
+    from emip_tpu_torch import kernels as K
+    from emip_tpu_torch.ops.window import shifted_window_mask
+
+    r = seeded_randn(SEED + (47 if bf16 else 45), device)
+    dt = torch.bfloat16 if bf16 else torch.float32
+    tag = "_bf16" if bf16 else ""
+    b2, k2, tok, c = 4 * BATCH, 64, 121, 128
+    x, t = r(b2, k2, tok, c).to(dt), r(b2, k2, tok, c).to(dt)
+    sp, cp = window_params(r, c)
+    mask = shifted_window_mask(88, 88, 8, device=device)
+    cases = [("window_attention_block" + tag,
+              f"multi-scale [{b2},{k2},{tok},{c}] {label}",
+              K.fused_window_attention_block,
+              K.fused_window_attention_block_reference, (x, t, sp, cp, msk))
+             for label, msk in (("unshifted", None), ("shifted mask", mask))]
+    cases.append(("convex_upsample" + tag,
+                  f"multi-scale flow [{2 * BATCH},88,88,2] x4",
+                  K.convex_upsample, K.convex_upsample_reference,
+                  (r(2 * BATCH, 88, 88, 2, scale=3.0),
+                   r(2 * BATCH, 88, 88, 144).to(dt), 4)))
     return cases
 
 
@@ -2326,6 +2374,152 @@ def slice_phase(model, batch: int, size: int, device, timed: int) -> dict:
 # ----------------------------------------------------------- bf16 band
 
 
+def gmflow_scales_phase(device, timed: int) -> dict:
+    """The port's GMFlow alone at GMFLOW_SCALES on seeded features at
+    352^2's two scales ([8, 128, 44, 44] and [8, 128, 88, 88] a frame),
+    fp32 then bf16 (bf16 features, the same fp32 weights): launches a call
+    (B 12, C 3, D 1, or their bf16 names, nothing else), ms a call (CUDA
+    events), device busy a call (torch.profiler), peak memory; the shapes
+    and finiteness of every output; then one pair against the CPU's plain
+    versions on the same weights. fp32: each flow of the training lists
+    and the correlation volume by GMFLOW_SCALES_TOL and max|err|/max|ref|
+    <= SLICE_REL_MAX, or, where fp32 rounding alone moves an output further,
+    within twice what it moves on the CPU: the CPU runs again on inputs
+    nudged by GMFLOW_SCALES_NUDGE (relative, seeded), and on seeded noise
+    features the fine scale's flows move by about 1e-3 of max|ref| so (the
+    coarse flow warps feature1, whose values change a whole unit from one
+    pixel to the next, so a flow error of 1e-3 pixel becomes a feature error
+    of 1e-3). bf16: within twice the larger of the card's and the CPU's
+    bf16-vs-fp32 gaps on each output (:func:`_gap_check`)."""
+    import torch
+
+    from emip_tpu_torch import kernels as K
+    from emip_tpu_torch.dtypes import set_compute_dtype
+    from emip_tpu_torch.models.gmflow import GMFlow, GMFlowConfig
+    from emip_tpu_torch.models.init import seeded_init_
+
+    model = GMFlow(GMFlowConfig(**GMFLOW_SCALES))
+    seeded_init_(model, SEED)
+    model = model.to(device).eval()
+    model16 = copy.deepcopy(model)
+    set_compute_dtype(model16, torch.bfloat16)
+    r = seeded_randn(SEED + 61, device)
+    c, side = GMFLOW_SCALES["feature_channels"], SIZE // 8
+    feats = [[r(BATCH, c, side * 2**s, side * 2**s) for s in range(2)]
+             for _ in range(2)]
+    layers = GMFLOW_SCALES["num_transformer_layers"]
+
+    def outputs(got) -> dict:
+        fws, bws, corr = got
+        out = {f"flow_fw{i}": f for i, f in enumerate(fws)}
+        out.update({f"flow_bw{i}": f for i, f in enumerate(bws)})
+        out["corr"] = corr
+        return out
+
+    res, card, cpu = {}, {}, {}
+    for band, net, dt in (("fp32", model, torch.float32),
+                          ("bf16", model16, torch.bfloat16)):
+        f0, f1 = ([f.to(dt) for f in fs] for fs in feats)
+        tag = "_bf16" if dt == torch.bfloat16 else ""
+
+        def call(train=False, net=net, f0=f0, f1=f1):
+            with torch.no_grad():
+                return net(f0, f1, training=train)
+
+        call()
+        torch.cuda.synchronize()
+        K.reset_launches()
+        got = outputs(call(True))
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in K.LAUNCHES.items() if v}
+        want = {"window_attention_block" + tag: 2 * layers,
+                "flow_attention" + tag: 3, "convex_upsample" + tag: 1}
+        log(f"gmflow scales {band} launches a call {launches} (expected "
+            f"{want})")
+        if launches != want:
+            raise AssertionError(f"gmflow scales {band}: launches "
+                                 f"{launches} != {want}")
+        # the training lists: each scale's flow before and (but the last)
+        # after propagation, upsampled to the frame, then the final one
+        shapes = {f"flow_{d}{i}": (BATCH, 2, SIZE, SIZE)
+                  for d in ("fw", "bw") for i in range(4)}
+        shapes["corr"] = (BATCH, side, side, side * side)
+        for name, shape in shapes.items():
+            if tuple(got[name].shape) != shape:
+                raise AssertionError(f"gmflow scales {band} {name}: shape "
+                                     f"{tuple(got[name].shape)} != {shape}")
+        if not all(bool(torch.isfinite(t).all()) for t in got.values()):
+            raise AssertionError(f"gmflow scales {band}: non-finite outputs")
+        ms = cuda_ms(call, timed)
+        busy = device_ms(call, timed)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        resident = torch.cuda.memory_allocated(device)
+        call()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(device)
+        log(f"gmflow scales {band} bs={BATCH} {side}^2+{2 * side}^2 "
+            f"features: "
+            f"{ms:.3f} ms a call (CUDA events, {timed} calls), device busy "
+            f"{busy:.3f} ms a call ({busy / ms:.3f} of it), peak memory "
+            f"{peak / 2**30:.3f} GiB ({(peak - resident) / 2**30:.3f} GiB "
+            f"above what was allocated before the call)")
+        res[band] = dict(launches=launches, ms=ms, device_busy_ms=busy,
+                         peak_gib=peak / 2**30,
+                         call_gib=(peak - resident) / 2**30)
+        card[band] = {k: v[:1] for k, v in got.items()}
+        # the same weights and the first pair on the CPU, plain versions
+        cpu_net = copy.deepcopy(net).cpu()
+        with torch.no_grad():
+            cpu[band] = outputs(cpu_net([f[:1].cpu() for f in f0],
+                                        [f[:1].cpu() for f in f1],
+                                        training=True))
+        del cpu_net, got
+    # fp32: the CPU once more on nudged inputs
+    gen = torch.Generator().manual_seed(SEED + 62)
+    nudged = [[(f[:1].cpu() * (1 + GMFLOW_SCALES_NUDGE * torch.randn(
+        f[:1].shape, generator=gen))) for f in fs] for fs in feats]
+    with torch.no_grad():
+        moved = outputs(copy.deepcopy(model).cpu()(*nudged, training=True))
+    cmp, bad = {}, []
+    for name, ref in cpu["fp32"].items():
+        g = card["fp32"][name].cpu()
+        err, ref_max = (g - ref).abs().max().item(), ref.abs().max().item()
+        nudge = (moved[name] - ref).abs().max().item()
+        ok_tol = (torch.allclose(g, ref, **GMFLOW_SCALES_TOL)
+                  and err <= SLICE_REL_MAX * ref_max)
+        ok = bool(torch.isfinite(g).all()) and (ok_tol or err <= 2 * nudge)
+        cmp[name] = dict(max_abs_err=err, ref_max_abs=ref_max,
+                         rel_to_max=err / ref_max, nudge_abs=nudge,
+                         within_tol=ok_tol, ok=ok)
+        log(f"gmflow scales fp32 {name} card vs CPU plain: max_abs_err="
+            f"{err:.3e} (|ref| max {ref_max:.3e}, max|err|/max|ref| "
+            f"{err / ref_max:.3e}); tol {GMFLOW_SCALES_TOL} and "
+            f"{SLICE_REL_MAX} of max|ref|: {'met' if ok_tol else 'missed'}; "
+            f"the CPU's own move under a {GMFLOW_SCALES_NUDGE:g} nudge "
+            f"{nudge:.3e} (limit twice it) " + ("ok" if ok else "MISMATCH"))
+        if not ok:
+            bad.append(name)
+    if bad:
+        raise AssertionError(f"gmflow scales fp32: card disagrees with the "
+                             f"CPU reference: {bad}")
+    res["fp32_vs_cpu"] = cmp
+    cmp, bad = _gap_check("gmflow scales bf16", card["bf16"], cpu["bf16"],
+                          card["fp32"], cpu["fp32"])
+    for name, v in cmp.items():
+        log(f"gmflow scales bf16 {name} card vs CPU plain: |err| max "
+            f"{v['err']:.3e}, bf16-vs-fp32 gap card {v['card_gap']:.3e} CPU "
+            f"{v['cpu_gap']:.3e}, ratio {v['ratio']:.3f} (limit 2) "
+            + ("ok" if v["ok"] else "MISMATCH"))
+    if bad:
+        raise AssertionError(f"gmflow scales bf16: card disagrees with the "
+                             f"CPU beyond the band: {bad}")
+    res["bf16_vs_cpu"] = cmp
+    del model, model16
+    torch.cuda.empty_cache()
+    return res
+
+
 def nbytes(*tensors) -> int:
     """Bytes of the tensors among the arguments at their storage sizes
     (dicts are searched)."""
@@ -2496,7 +2690,7 @@ def bf16_check_cases(device):
                   K.fused_window_attention_ffn_layer,
                   K.fused_window_attention_ffn_layer_reference,
                   (x, t, cp, shifted_window_mask(64, 64, 2, device=device))))
-    return cases
+    return cases + scales_cases(device, bf16=True)
 
 
 def bf16_fp64(name: str, args):
@@ -5492,6 +5686,8 @@ def main(argv=None) -> int:
             bf16_backward_phase(BATCH, device, KERNEL_REPS, opts.kernels)
         if wanted(opts.kernels, "flow_attention"):
             stats_cost(BATCH, device, KERNEL_REPS)
+        if "gmflow_scales" in opts.kernels.split(","):
+            gmflow_scales_phase(device, GMFLOW_SCALES_TIMED)
         log("digests " + json.dumps(DIGESTS))
         return 0
     gemm_res = gemm_phase(BATCH, device, KERNEL_REPS)
@@ -5516,6 +5712,8 @@ def main(argv=None) -> int:
                                            TIMED_BATCHES, slice_res)
     del model16
     torch.cuda.empty_cache()
+    # multi-scale GMFlow (GMFLOW_SCALES): B on 121-token windows, D at x4
+    scales_res = gmflow_scales_phase(device, GMFLOW_SCALES_TIMED)
     compare_res = train_compare_phase(model, SIZE, device)
     train_res = train_phase(model, BATCH, SIZE, device, TIMED_STEPS)
     # the bf16 train step: its backward kernels, the card against the CPU,
@@ -5676,6 +5874,13 @@ def main(argv=None) -> int:
     idle = [name for name, n in launches.items() if n == 0]
     if idle:
         raise AssertionError(f"kernels no main path launched: {idle}")
+    # the shapes of multi-scale GMFlow (scales_cases), listed in their rows
+    scales = {name: [{k: c[k] for k in ("case", "max_abs_err", "ms",
+                                        "plain_ms", "bound_ms", "device_ms")
+                      if k in c}
+                     for c in kernels[name]["cases"]
+                     if c["case"].startswith("multi-scale")]
+              for name in info}
     line = {"kernels": [
         dict(name=name, route="cuda", source=info[name][0],
              replaces=info[name][1], launches=launches[name],
@@ -5689,7 +5894,8 @@ def main(argv=None) -> int:
                 if "bound_rate" in kernels[name] else {}),
              **{k: kernels[name][k] for k in ("fp64_ratio", "sdpa_ms",
                                               "device_ms")
-                if k in kernels[name]})
+                if k in kernels[name]},
+             **({"multiscale": scales[name]} if scales[name] else {}))
         for name in info]}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
@@ -5718,7 +5924,8 @@ def main(argv=None) -> int:
                        bf16_compare_gh=bf16_compare_gh,
                        bf16_train_512=train512_16,
                        bf16_read_corr=read_corr16, bf16_fused_ffn=fused_ffn16,
-                       bf16_train_512_entry=train512_entry, digests=DIGESTS),
+                       bf16_train_512_entry=train512_entry,
+                       gmflow_scales=scales_res, digests=DIGESTS),
                   f, indent=1, default=str)
     log("digests " + json.dumps(DIGESTS))
     log(json.dumps(line))

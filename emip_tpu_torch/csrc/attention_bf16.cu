@@ -454,14 +454,15 @@ extern "C" int emip_attention_fwd_bf16(const void* q, long long q_sb,
                                        long long k_sb, int k_sn,
                                        const void* v, long long v_sb,
                                        int v_sn, const float* mask,
-                                       int mask_nw, const void* zero_tiles,
+                                       int mask_sn, int mask_nw,
+                                       const void* zero_tiles,
                                        void* out, long long o_sb, int o_sn,
                                        int B, int Nq, int Nk, int D, int DV,
                                        int windows, void* stream) {
   using namespace emip;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Nq <= 0 || Nk <= 0 || B <= 0 || B > 65535 || (D != 128 && D != 64) ||
-      (mask && (!windows || Nk % 4)))
+      (mask && (!windows || mask_sn < Nk || mask_sn % 4)))
     return (int)cudaErrorInvalidValue;
   FaArgs a;
   cudaError_t err;
@@ -497,8 +498,9 @@ extern "C" int emip_attention_fwd_bf16(const void* q, long long q_sb,
         cudaSuccess)
       return (int)err;
     if (mask &&
-        (err = wg_map(&a.mask, mask, false, Nk, Nq, a.mask_nw, Nk,
-                           (long long)Nq * Nk, 32, kFaRows)) != cudaSuccess)
+        (err = wg_map(&a.mask, mask, false, Nk, Nq, a.mask_nw, mask_sn,
+                           (long long)Nq * mask_sn, 32, kFaRows)) !=
+            cudaSuccess)
       return (int)err;
     if (D == 128)
       err = mask ? attention_wgmma_launch<128, 128, true>(a, B, s)

@@ -28,7 +28,8 @@ extern "C" int emip_attention_fwd_bf16(const void* q, long long q_sb,
                                        long long k_sb, int k_sn,
                                        const void* v, long long v_sb,
                                        int v_sn, const float* mask,
-                                       int mask_nw, const void* zero_tiles,
+                                       int mask_sn, int mask_nw,
+                                       const void* zero_tiles,
                                        void* out, long long o_sb, int o_sn,
                                        int B, int Nq, int Nk, int D, int DV,
                                        int windows, void* stream);

@@ -55,11 +55,31 @@
 // u: u, the taps (which the model casts to bf16), g, out and gu are bf16,
 // the bias fp32; every value is widened to fp32 where it is loaded, the
 // stencil, the GELU and its gradient run in fp32, and each output is
-// rounded once where it is stored. A warp's four channels a lane are one
-// 8-byte load (256 contiguous bytes a row), the same tiling as the fp32
+// rounded once where it is stored. The backward's four channels a lane are
+// one 8-byte load (256 contiguous bytes a row), the same tiling as the fp32
 // float4 walk. The tap grad is summed in fp32 and rounded to bf16 by the
 // last pass (the JAX backward returns it in the taps' dtype), the bias grad
 // stays fp32.
+//
+// The bf16 forward (dwconv_gelu_fwd_staged_kernel, where F is a multiple of
+// 8 and the pointers 16-byte aligned; else the column walk above at four or
+// one channels a lane). What held the column walk back on bf16: each
+// thread loaded its left, middle and right pixel of every row, two of them
+// a neighbour warp's, in 8-byte loads (six load instructions for 256 useful
+// bytes), with one row in flight in a chain where each load waits on the
+// last; on the small maps its strips were a few rows long and it was
+// latency-bound (2.9x its bound over the four stages, 0.75-0.99x the fp32
+// row's time on half the bytes). The staged walk: eight channels a lane (one
+// 16-byte copy), a block one channel group of 256 by up to 8 columns (a
+// warp each); the rows go through a ring of four in shared memory, each the
+// block's columns and a one-column halo copied by cp.async (zeros off the
+// image), three rows in flight while one is summed, so each element leaves
+// L2 once a strip (the halo columns twice) and the three columns a warp
+// reads come from shared memory. Two blocks are resident an SM (128
+// registers at most a thread, the taps 72 of them in fp32); the strips are
+// cut so that the grid takes the fewest row steps in waves of those, so
+// the small maps fill the card without a last, nearly empty wave. The sums
+// are the column walk's in its order, so the bits are its bits.
 //
 // What held the bf16 backward back, and what its walk does about it: the
 // walk runs a chain of row loads, each consumed one step after it is
@@ -82,6 +102,7 @@
 
 #include <type_traits>
 
+#include "mma_tf32.cuh"
 #include "primitives.cuh"
 
 namespace emip {
@@ -330,6 +351,130 @@ dwconv_gelu_fwd_kernel(const T* __restrict__ u, const T* __restrict__ wdw,
   }
 }
 
+// the eight fp32 values of eight bf16 as loaded (the lower index in the
+// lower half of each word), widened exactly
+__device__ __forceinline__ Pack<8> widen8(const uint4& r) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+  Pack<8> a;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    a.v[j] = __uint_as_float(j % 2 ? w[j / 2] & 0xffff0000u : w[j / 2] << 16);
+  return a;
+}
+
+// The bf16 forward, staged: a block is one channel group of 256 channels
+// (eight a lane, one 16-byte copy) by up to kStagedCols columns (one warp
+// each) by a strip of rows. Input rows go through a ring of kStagedRing
+// rows in shared memory, each the block's columns plus a one-column halo,
+// copied by cp.async (zeros off the image), so each element of u is copied
+// once a strip and the three columns a warp reads come from shared memory;
+// kStagedRing - 1 rows are in flight while a row is summed. The sums are the
+// walk's, in its order (each output's running sum takes input rows top to
+// bottom, each row's columns left, middle, right, then the bias, then
+// gelu_exact), so the output has the bits of dwconv_gelu_fwd_kernel.
+constexpr int kStagedCols = 8;
+constexpr int kStagedRing = 4;
+constexpr int kStagedChannels = kLanes * 8;
+
+__global__ void __launch_bounds__(kLanes* kStagedCols, 2)
+dwconv_gelu_fwd_staged_kernel(const __nv_bfloat16* __restrict__ u,
+                              const __nv_bfloat16* __restrict__ wdw,
+                              const float* __restrict__ bdw,
+                              __nv_bfloat16* __restrict__ out, Tiling t) {
+  __shared__ uint4 ring[kStagedRing][kStagedCols + 2][kLanes];
+  __shared__ Pack<8> bias_s[kLanes];
+  const int lane = threadIdx.x % kLanes, wi = threadIdx.x / kLanes;
+  const int group = blockIdx.x / t.col_tiles;
+  const int x0 = (blockIdx.x - group * t.col_tiles) * t.cols;
+  const int x = x0 + wi;
+  const int c = group * kStagedChannels + lane * 8;  // first channel
+  const bool chan = c < t.F;
+  const int y0 = blockIdx.y * t.rows, y1 = min(t.H, y0 + t.rows);
+  const int n_in = y1 - y0 + 2;  // input rows y0 - 1 .. y1
+  const long long image = (long long)blockIdx.z * t.H * t.W * t.F;
+  const __nv_bfloat16* src = u + image + c;
+  for (int i = threadIdx.x; i < kStagedChannels; i += blockDim.x)
+    bias_s[i / 8].v[i % 8] = group * kStagedChannels + i < t.F
+                                 ? bdw[group * kStagedChannels + i]
+                                 : 0.f;
+  Pack<8> w[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k)
+    w[k] = chan ? widen8(__ldg(reinterpret_cast<const uint4*>(wdw + k * t.F +
+                                                              c)))
+                : zeros<8>();
+  // ring column j holds image column x0 - 1 + j: each warp copies its own,
+  // warp 0 the left halo and warp min(1, cols - 1) the right one (zeros off
+  // the image); each copy's source walks down its column a row an issue
+  const long long row_step = (long long)t.W * t.F;
+  const int right = min(1, t.cols - 1);
+  const bool own_ok = chan && x < t.W;
+  const bool left_ok = chan && x0 > 0;
+  const bool right_ok = chan && x0 + t.cols < t.W;
+  const __nv_bfloat16* p_own = src + ((long long)(y0 - 1) * t.W + x) * t.F;
+  const __nv_bfloat16* p_left = p_own - (long long)(wi + 1) * t.F;
+  const __nv_bfloat16* p_right = p_own + (long long)(t.cols - wi) * t.F;
+  int r = y0 - 1, slot = 0;  // the row the next issue copies, its slot
+  auto issue = [&]() {
+    if (r <= y1) {
+      const bool in = r >= 0 && r < t.H;
+      cp_async<16>(&ring[slot][wi + 1][lane], in && own_ok ? p_own : u,
+                   in && own_ok);
+      if (wi == 0)
+        cp_async<16>(&ring[slot][0][lane], in && left_ok ? p_left : u,
+                     in && left_ok);
+      if (wi == right)
+        cp_async<16>(&ring[slot][t.cols + 1][lane],
+                     in && right_ok ? p_right : u, in && right_ok);
+    }
+    cp_async_commit();
+    ++r;
+    slot = slot + 1 == kStagedRing ? 0 : slot + 1;
+    p_own += row_step;
+    p_left += row_step;
+    p_right += row_step;
+  };
+#pragma unroll
+  for (int i = 0; i < kStagedRing - 1; ++i) issue();
+  // running sums of output rows r - 1, r and r + 1 at input row r
+  Pack<8> a0 = zeros<8>(), a1 = zeros<8>(), a2 = zeros<8>();
+  __nv_bfloat16* dst = out + image + c + ((long long)y0 * t.W + x) * t.F;
+  for (int i = 0, read = 0; i < n_in; ++i) {
+    // row i has landed (this thread's copies; the barrier: everyone's),
+    // and every warp is done with row i - 1, whose slot takes row i + 3
+    cp_async_wait<kStagedRing - 2>();
+    __syncthreads();
+    issue();
+    const uint4* row = ring[read][wi];
+    read = read + 1 == kStagedRing ? 0 : read + 1;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {  // left, middle, right
+      const Pack<8> v = widen8(row[j * kLanes + lane]);
+      fma_to(a2, w[j], v);
+      fma_to(a1, w[3 + j], v);
+      fma_to(a0, w[6 + j], v);
+    }
+    if (i >= 2) {  // output row y0 + i - 2 is whole
+      if (own_ok) {
+        const Pack<8> bias = bias_s[lane];
+        uint32_t o[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const __nv_bfloat162 p = __floats2bfloat162_rn(
+              gelu_exact(a0.v[2 * j] + bias.v[2 * j]),
+              gelu_exact(a0.v[2 * j + 1] + bias.v[2 * j + 1]));
+          o[j] = *reinterpret_cast<const uint32_t*>(&p);
+        }
+        *reinterpret_cast<uint4*>(dst) = make_uint4(o[0], o[1], o[2], o[3]);
+      }
+      dst += row_step;
+    }
+    a0 = a1;
+    a1 = a2;
+    a2 = zeros<8>();
+  }
+}
+
 // One block: the tiles p, p + blocks, ... of channel group blockIdx.x /
 // blocks; warp i is column (tile's first) + i - 1 (warps 0 and cols + 1 are
 // the halo). part[p][k][F]: tap k's sum (k < 9) and the bias sum (k = 9)
@@ -490,6 +635,27 @@ void fwd_launch(const T* u, const T* wdw, const float* bdw, T* out, int B,
           u, wdw, bdw, out, t);
 }
 
+// the staged bf16 forward's cut: the strips whose grid takes the fewest
+// row steps, a block's steps being its rows and two halo rows and the grid
+// running in waves of two blocks an SM (the fewest strips among equals)
+inline Tiling staged_tiling(int B, int H, int W, int F) {
+  Tiling t = tiling(B, H, W, F, 8, kStagedCols);
+  const long long per_strip = (long long)B * t.groups * t.col_tiles;
+  long long best = -1;
+  for (int s = 1; s <= H; ++s) {
+    const int rows = ceil_div(H, s);
+    if (ceil_div(H, rows) != s) continue;  // the same cut as fewer strips
+    const long long steps =
+        (per_strip * s + 2 * kSmCount - 1) / (2 * kSmCount) * (rows + 2);
+    if (best < 0 || steps < best) {
+      best = steps;
+      t.rows = rows;
+      t.strips = s;
+    }
+  }
+  return t;
+}
+
 template <int V>
 long long bwd_partial_floats(int B, int H, int W, int F) {
   const Tiling t = tiling(B, H, W, F, V, kBwdCols);
@@ -526,6 +692,17 @@ int fwd(const T* u, const T* wdw, const float* bdw, T* out, int B, int H,
         int W, int F, void* stream) {
   if (!fits(H, W, F)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    // eight bf16 a lane: 16-byte copies
+    if (F % 8 == 0 && aligned4<float>(u) && aligned4<float>(wdw) &&
+        aligned4<float>(out)) {
+      const Tiling t = staged_tiling(B, H, W, F);
+      dwconv_gelu_fwd_staged_kernel<<<
+          dim3(t.groups * t.col_tiles, t.strips, B), kLanes * t.cols, 0, s>>>(
+          u, wdw, bdw, out, t);
+      return (int)cudaGetLastError();
+    }
+  }
   if (F % 4 == 0 && aligned4<T>(u) && aligned4<T>(wdw) &&
       aligned4<float>(bdw) && aligned4<T>(out))
     fwd_launch<T, 4>(u, wdw, bdw, out, B, H, W, F, s);

@@ -134,8 +134,8 @@ extern "C" int emip_flow_attention_bf16(const void* q, const void* k,
                                         const float* v, float* out, int B,
                                         int L, int C, void* stream) {
   const long long qsb = (long long)L * C, vsb = (long long)L * 2;
-  return emip_attention_fwd_bf16(q, qsb, C, k, qsb, C, v, vsb, 2, nullptr, 1,
-                                 nullptr, out, vsb, 2, B, L, L, C, 2, 0,
+  return emip_attention_fwd_bf16(q, qsb, C, k, qsb, C, v, vsb, 2, nullptr, 0,
+                                 1, nullptr, out, vsb, 2, B, L, L, C, 2, 0,
                                  stream);
 }
 

@@ -706,9 +706,9 @@ extern "C" int emip_window_ffn_layer_bwd(
 extern "C" int emip_window_layer_bf16(
     const void* x, const void* t, const void* wq, const void* wk,
     const void* wv, const void* wm, const float* s1, const float* b1,
-    const float* mask, int mask_nw, const void* zero_tiles, void* qkv,
-    void* o, void* out, int windows, int T, int C, int add_residual,
-    float eps, void* stream) {
+    const float* mask, int mask_sn, int mask_nw, const void* zero_tiles,
+    void* qkv, void* o, void* out, int windows, int T, int C,
+    int add_residual, float eps, void* stream) {
   using namespace emip;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int R = windows * T, C3 = 3 * C;
@@ -723,8 +723,9 @@ extern "C" int emip_window_layer_bf16(
                                       nullptr, nullptr, 0.f, nullptr, 0, s));
   const long long wsb = (long long)T * C3;
   EMIP_TRY((cudaError_t)emip_attention_fwd_bf16(
-      qkvb, wsb, C3, qkvb + C, wsb, C3, qkvb + 2 * C, wsb, C3, mask, mask_nw,
-      zero_tiles, o, (long long)T * C, C, windows, T, T, C, C, 1, stream));
+      qkvb, wsb, C3, qkvb + C, wsb, C3, qkvb + 2 * C, wsb, C3, mask, mask_sn,
+      mask_nw, zero_tiles, o, (long long)T * C, C, windows, T, T, C, C, 1,
+      stream));
   const bf16* const wmb[1] = {static_cast<const bf16*>(wm)};
   EMIP_TRY(wg_linear_bf16<kWbEpiLnMsg>(
       static_cast<const bf16*>(o), C, nullptr, 0, C, wmb, 1, C, R, C, C, C,
@@ -960,16 +961,17 @@ extern "C" int emip_window_block_bf16(
     const float* wq2, const float* wk2, const float* wv2, const float* wm2,
     const float* sa, const float* ba,
     const float* w0, const float* w2, const float* sb, const float* bb,
-    const float* mask, int mask_nw, const void* zero_tiles, void* qkv1,
-    void* o1, void* x1, float* wsplit, float* qkv2, float* o2, float* msg,
-    float* u, void* out, float* ws, long long ws_floats, int windows, int T,
-    int C, int F, float eps, void* stream) {
+    const float* mask, int mask_nw, const float* mask_rows, int mask_sn,
+    const void* zero_tiles, void* qkv1, void* o1, void* x1, float* wsplit,
+    float* qkv2, float* o2, float* msg, float* u, void* out, float* ws,
+    long long ws_floats, int windows, int T, int C, int F, float eps,
+    void* stream) {
   using namespace emip;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   EMIP_TRY((cudaError_t)emip_window_layer_bf16(
-      x, x, wq1, wk1, wv1, wm1, s1, b1, mask, mask_nw, zero_tiles, qkv1, o1,
-      x1, windows, T, C, 1, eps, stream));
+      x, x, wq1, wk1, wv1, wm1, s1, b1, mask_rows, mask_sn, mask_nw,
+      zero_tiles, qkv1, o1, x1, windows, T, C, 1, eps, stream));
   EMIP_TRY(cross_ffn_bf16(
       static_cast<const bf16*>(x1), static_cast<const bf16*>(t),
       LayerWeights{wq2, wk2, wv2, wm2}, sa, ba, w0, w2, sb, bb,

@@ -72,7 +72,7 @@ _SIGNATURES = {
     # the bf16 band of short inference: A, B, C and D forward, the GEMM
     # and the attention alone
     "emip_sr_attention_bf16": [_P] * 10 + [_I] * 5 + [_P],
-    "emip_window_block_bf16": ([_P] * 19 + [_I] + [_P] * 11 + [_L]
+    "emip_window_block_bf16": ([_P] * 19 + [_I, _P, _I] + [_P] * 11 + [_L]
                                + [_I] * 4 + [_F, _P]),
     "emip_flow_attention_bf16": [_P] * 4 + [_I] * 3 + [_P],
     "emip_convex_upsample_bf16": [_P] * 3 + [_I] * 4 + [_P],
@@ -84,7 +84,8 @@ _SIGNATURES = {
     # the 3xTF32 GEMM
     "emip_gemm_dyw": ([_P, _L, _I, _P, _P] + [_I] * 3 + [_P, _P]
                       + [_I] * 2 + [_P, _L, _I, _P]),
-    "emip_attention_fwd_bf16": ([_P, _L, _I] * 3 + [_P, _I, _P, _P, _L, _I]
+    "emip_attention_fwd_bf16": ([_P, _L, _I] * 3
+                                + [_P, _I, _I, _P, _P, _L, _I]
                                 + [_I] * 6 + [_P]),
     # the bf16 train step: A, B, C and D backward
     "emip_sr_attention_bwd_bf16": [_P] * 18 + [_L] + [_I] * 5 + [_P],
@@ -97,7 +98,7 @@ _SIGNATURES = {
     "emip_memory_attention_bf16": [_P] * 7 + [_L] + [_I] * 4 + [_P],
     "emip_memory_attention_bf16_workspace": [_I] * 4,
     "emip_memory_attention_bwd_bf16": [_P] * 11 + [_L] + [_I] * 4 + [_P],
-    "emip_window_layer_bf16": ([_P] * 9 + [_I] + [_P] * 4 + [_I] * 4
+    "emip_window_layer_bf16": ([_P] * 9 + [_I, _I] + [_P] * 4 + [_I] * 4
                                + [_F, _P]),
     "emip_window_ffn_layer_bf16": ([_P] * 13 + [_I] + [_P] * 7 + [_L]
                                    + [_I] * 4 + [_F, _P]),

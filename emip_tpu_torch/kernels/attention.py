@@ -22,7 +22,7 @@ from emip_tpu_torch.kernels._build import library
 
 __all__ = ["attention", "attention_reference", "attention_bf16",
            "attention_bf16_reference", "forward_workspace",
-           "mask_zero_tiles"]
+           "mask_zero_tiles", "mask_rows16"]
 
 _NAME = "attention"
 _WIDTHS = {False: (32, 64), True: (64, 128)}  # A's heads; the windows'
@@ -179,6 +179,30 @@ def mask_zero_tiles(mask: torch.Tensor | None) -> torch.Tensor | None:
     return out
 
 
+def mask_rows16(mask: torch.Tensor | None) -> tuple:
+    """(mask, row stride in elements) as the bf16 attention reads it: its
+    rows are TMA boxes, whose strides are whole 16 bytes. The mask itself
+    where Nk is a multiple of 4; else a copy [nw, Nq, Nk rounded up to 4]
+    with zeros past Nk (which the kernel reads as keys past Nk, set to
+    -inf), made once and kept beside the mask as :func:`mask_zero_tiles`
+    keeps its table: B's windows of 121 tokens (the fine scale of
+    multi-scale GMFlow) take it. (None, 0) for None."""
+    if mask is None:
+        return None, 0
+    nk = mask.shape[-1]
+    if nk % 4 == 0:
+        return mask, nk
+    key = (mask.device, mask.data_ptr(),
+           None if mask.is_inference() else mask._version)
+    kept = getattr(mask, "_emip_rows16", None)
+    if kept is None or kept[0] != key:
+        with torch.no_grad():
+            rows = torch.nn.functional.pad(mask, (0, -nk % 4)).contiguous()
+        kept = (key, rows)
+        mask._emip_rows16 = kept
+    return kept[1], kept[1].shape[-1]
+
+
 def attention_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    mask: torch.Tensor | None = None) -> torch.Tensor:
     """``softmax(q k^T / sqrt(D) (+ mask)) v`` per batch row, the bf16
@@ -193,9 +217,10 @@ def attention_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Limits on the card (the kernel reads q, k, bf16 v and the mask as TMA
     boxes, whose strides are whole 16 bytes): the row and batch strides of
-    q, k and v a multiple of 8 elements; with a mask, Nk a multiple of 4
-    (the model's windows have 484 and 1024 tokens). C's v is read a key at
-    a time, so its Nk has no bound. A launch outside these raises.
+    q, k and v a multiple of 8 elements. A mask whose Nk is no multiple of
+    4 is read from a copy with its rows padded (:func:`mask_rows16`). C's
+    v is read a key at a time, so its Nk has no bound. A launch outside
+    these raises.
     """
     tensors = [q, k, v] + ([] if mask is None else [mask])
     if cm.on_cpu(_NAME, *tensors):
@@ -222,14 +247,13 @@ def attention_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         cm.check_kernel_args(name, mask=mask)
         if mask.dim() != 3 or tuple(mask.shape[1:]) != (nq, nk):
             raise ValueError(f"{name}: mask must be [nw, {nq}, {nk}]")
-        if nk % 4:
-            raise ValueError(f"{name}: a mask takes Nk a multiple of 4")
     out = torch.empty((b, nq, d if wide else 2), device=q.device,
                       dtype=v.dtype)
+    mask16, mask_sn = mask_rows16(mask)
     rc = library().emip_attention_fwd_bf16(
         q.data_ptr(), q.stride(0), q.stride(1), k.data_ptr(), k.stride(0),
-        k.stride(1), v.data_ptr(), v.stride(0), v.stride(1), cm.ptr(mask),
-        1 if mask is None else mask.shape[0],
+        k.stride(1), v.data_ptr(), v.stride(0), v.stride(1), cm.ptr(mask16),
+        mask_sn, 1 if mask is None else mask.shape[0],
         cm.ptr(mask_zero_tiles(mask)), out.data_ptr(), out.stride(0),
         out.stride(1), b, nq, nk, d, v.shape[-1], int(wide),
         cm.stream_handle(q.device))

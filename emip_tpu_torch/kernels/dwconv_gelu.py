@@ -25,7 +25,9 @@ The CUDA kernels cannot run without a card, so their algorithm is also
 written out here in plain tensor code that the CPU tests hold against the
 plain version, its autograd backward and the Pallas kernels:
 :func:`fused_dwconv_gelu_strips` walks the forward (strips of rows, each
-input row added into three running output rows) and
+input row added into three running output rows; the bf16 forward cuts its
+strips as :func:`dwconv_fwd_bf16_plan` says and stages the rows in shared
+memory) and
 :func:`dwconv_gelu_bwd_tiled` the backward (tiles walked per block in the
 kernel's order, :func:`dwconv_bwd_plan`, gd recomputed on each tile and its
 one-pixel halo, each column's tap and bias sums kept over the block's
@@ -45,7 +47,7 @@ from emip_tpu_torch.kernels._build import library
 
 __all__ = ["fused_dwconv_gelu", "fused_dwconv_gelu_reference",
            "fused_dwconv_gelu_strips", "dwconv_gelu_bwd_tiled",
-           "dwconv_bwd_plan"]
+           "dwconv_bwd_plan", "dwconv_fwd_bf16_plan"]
 
 _NAME = "fused_dwconv_gelu"
 
@@ -111,6 +113,34 @@ def fused_dwconv_gelu_strips(u, wdw, bdw, h: int, w: int,
                 out[:, r - 1] = F.gelu(sums[0] + bdw)
             sums = [sums[1], sums[2], zero]
     return out.reshape(b, h * w, f)
+
+
+def dwconv_fwd_bf16_plan(b: int, h: int, w: int, f: int) -> dict:
+    """How the staged bf16 forward kernel cuts its work at this shape
+    (``staged_tiling`` of ``csrc/dwconv_gelu.cu``, taken where F is a
+    multiple of 8 and the pointers are 16-byte aligned): blocks of one
+    channel group of 256 channels (eight a lane) by up to 8 columns (one
+    warp each), the columns evened out over the image; the strips whose
+    grid takes the fewest row steps, a block's steps being its rows and its
+    two halo rows, the grid running in waves of two blocks on each of the
+    H100's 132 SMs (the fewest strips among equals). Each strip walks input
+    rows y0 - 1 .. y1 through a ring of rows in shared memory, as
+    :func:`fused_dwconv_gelu_strips` walks them."""
+    groups = -(-(f // 8) // 32)
+    col_tiles = -(-w // 8)
+    cols = -(-w // col_tiles)
+    per_strip = b * groups * col_tiles
+    best = None
+    for s in range(1, h + 1):
+        rows = -(-h // s)
+        if -(-h // rows) != s:  # the same cut as fewer strips
+            continue
+        steps = -(-per_strip * s // (2 * 132)) * (rows + 2)
+        if best is None or steps < best[0]:
+            best = (steps, rows, s)
+    _, rows, strips = best
+    return dict(rows=rows, strips=strips, cols=cols, col_tiles=col_tiles,
+                groups=groups, blocks=per_strip * strips)
 
 
 def dwconv_bwd_plan(b: int, h: int, w: int, f: int,

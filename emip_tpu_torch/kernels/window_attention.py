@@ -48,10 +48,12 @@ dtype: G in bf16 (``emip_window_layer_bf16``: q, k, v, P and o rounded,
 LN1 in fp32, the residual added in bf16; three launches: q, k, v on the
 bf16 wgmma product, the bf16 attention, Wm with LN1 and the residual in
 that product's epilogue,
-:func:`~emip_tpu_torch.kernels.tf32.window_layer_fwd_bf16_walk`; with the
-shift mask T must be a multiple of 4, as the attention reads the mask's
-rows by TMA: the model's windows have 484 and 1024 tokens, and another T
-raises), H in fp32 on x and t with only
+:func:`~emip_tpu_torch.kernels.tf32.window_layer_fwd_bf16_walk`; the
+attention reads the shift mask's rows by TMA, whose strides are whole 16
+bytes, so at a T that is no multiple of 4, as the 121 tokens of
+multi-scale GMFlow's fine windows, it reads a copy of the mask with its
+rows padded, :func:`~emip_tpu_torch.kernels.attention.mask_rows16`), H in
+fp32 on x and t with only
 its output rounded (``emip_window_ffn_layer_bf16``, on the wgmma product
 as B's cross layer; :func:`~emip_tpu_torch.kernels.tf32.window_ffn_bf16_walk`).
 Their bf16
@@ -78,6 +80,7 @@ from emip_tpu_torch.kernels._build import library
 from emip_tpu_torch.kernels.attention import (
     _workspace_floats,
     forward_workspace,
+    mask_rows16,
     mask_zero_tiles,
 )
 
@@ -528,11 +531,12 @@ class _WindowBlockBf16(torch.autograd.Function):
         wsplit = _split_workspace(x, c, f)
         out = torch.empty_like(x)
         ws = _fwd_workspace(x)
+        mask16, mask_sn = mask_rows16(mask)
         rc = library().emip_window_block_bf16(
             x.data_ptr(), t.data_ptr(), *(w.data_ptr() for w in self_w),
             *(p.data_ptr() for p in params[4:]), cm.ptr(mask), k2,
-            cm.ptr(mask_zero_tiles(mask)), qkv1.data_ptr(), o1.data_ptr(),
-            x1.data_ptr(),
+            cm.ptr(mask16), mask_sn, cm.ptr(mask_zero_tiles(mask)),
+            qkv1.data_ptr(), o1.data_ptr(), x1.data_ptr(),
             wsplit.data_ptr(), qkv2.data_ptr(), o2.data_ptr(),
             msg.data_ptr(), u.data_ptr(), out.data_ptr(), cm.ptr(ws),
             cm.numel(ws), b * k2, tok, c, f, EPS, cm.stream_handle(x.device))
@@ -692,9 +696,10 @@ def _layer_bf16(x, t, p, mask, add_residual):
     qkv, o = (torch.empty((rows, n), device=x.device, dtype=torch.bfloat16)
               for n in (3 * c, c))
     out = torch.empty_like(x)
+    mask16, mask_sn = mask_rows16(mask)
     rc = library().emip_window_layer_bf16(
         x.data_ptr(), t.data_ptr(), *(a.data_ptr() for a in w),
-        p["s1"].data_ptr(), p["b1"].data_ptr(), cm.ptr(mask), k2,
+        p["s1"].data_ptr(), p["b1"].data_ptr(), cm.ptr(mask16), mask_sn, k2,
         cm.ptr(mask_zero_tiles(mask)), qkv.data_ptr(), o.data_ptr(),
         out.data_ptr(), b * k2, tok, c, int(add_residual), EPS,
         cm.stream_handle(x.device))

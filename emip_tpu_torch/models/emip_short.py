@@ -107,6 +107,12 @@ class EMIPShort(nn.Module):
                                   ffn_dwconv=cfg.ffn_dwconv)
         self.backbone = _SegBackbone(pvt)
         fdim = cfg.gmflow.feature_channels
+        if cfg.gmflow.num_scales != 1:
+            # the flow encoder returns one scale (/8) of features in both
+            # packages, so GMFlow runs one scale inside the two-stream model
+            raise ValueError(f"EMIPShort runs GMFlow at num_scales=1: its "
+                             f"flow encoder gives one scale of features, "
+                             f"not {cfg.gmflow.num_scales}")
         if ch[1] != fdim:
             raise ValueError(f"GMFlow feature_channels ({fdim}) must equal "
                              f"the backbone's /8 width ({ch[1]})")

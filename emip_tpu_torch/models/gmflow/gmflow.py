@@ -1,17 +1,24 @@
-"""GMFlow assembly at num_scales = 1 (counterpart of emip_tpu GMFlow).
+"""GMFlow assembly (counterpart of emip_tpu GMFlow), one scale or several.
 
-Takes already extracted (and prompt-injected) NCHW feature lists, as the
-reference's modified GMFlow does; the CNN encoder is owned here but
-called by the enclosing two-stream model. Returns
-(flow_fw_list, flow_bw_list, corr) with NCHW flows [B, 2, H, W] and the
-raw correlation volume [B, H, W, HW]. With ``training`` the lists hold the
-bilinearly upsampled pre-propagation flow before the final one, as in the
-JAX package; the flow entering propagation is detached in both modes, so
-kernel C's propagation backward yields dq and dk only. With a bf16 compute
-dtype (:mod:`emip_tpu_torch.dtypes`) the features are bf16 from the
-encoder to the upsampler's convs (the position embedding added in bf16),
-the flows fp32 (matching and propagation write fp32), and D reads the
-upsampler's bf16 mask logits, as in the JAX package.
+Takes already extracted (and prompt-injected) NCHW feature lists, one a
+scale from coarse to fine, as the reference's modified GMFlow does; the
+CNN encoder is owned here but called by the enclosing two-stream model.
+Returns (flow_fw_list, flow_bw_list, corr) with NCHW flows [B, 2, H, W]
+and the raw correlation volume [B, H, W, HW] of the last scale that
+matched globally. With ``training`` the lists hold, at each scale, the
+bilinearly upsampled flow before propagation and (but at the last scale)
+after it, then the final one, as in the JAX package; the flow entering
+propagation is detached in both modes, so kernel C's propagation backward
+yields dq and dk only. At a scale after the first both directions ride the
+batch axis, the previous flow is upsampled x2 and detached, and feature1 is
+warped by it before the transformer; matching and propagation are global
+(kernel C) where the scale's radius is -1, else over a local window
+(plain tensor code), and the flow found is added to the previous one. With
+a bf16 compute dtype (:mod:`emip_tpu_torch.dtypes`) the features are bf16
+from the encoder to the upsampler's convs (the position embedding added in
+bf16, the warp sampled in fp32 and rounded), the flows fp32 (matching and
+propagation write fp32), and D reads the upsampler's bf16 mask logits, as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -24,11 +31,15 @@ import torch.nn as nn
 from emip_tpu_torch.dtypes import Conv2d
 from emip_tpu_torch.kernels import convex_upsample
 from emip_tpu_torch.models.gmflow.encoder import CNNEncoder
-from emip_tpu_torch.models.gmflow.matching import global_correlation_softmax
+from emip_tpu_torch.models.gmflow.matching import (
+    global_correlation_softmax,
+    local_correlation_softmax,
+)
 from emip_tpu_torch.models.gmflow.transformer import (
     FeatureFlowAttention,
     FeatureTransformer,
 )
+from emip_tpu_torch.ops.geometry import flow_warp
 from emip_tpu_torch.ops.position import sine_position_embedding
 from emip_tpu_torch.ops.upsample import upsample_flow_bilinear
 from emip_tpu_torch.ops.window import window_merge, window_split
@@ -77,11 +88,12 @@ class GMFlow(nn.Module):
     def __init__(self, config: GMFlowConfig = GMFlowConfig()):
         super().__init__()
         cfg = config
-        if (cfg.num_scales != 1 or cfg.corr_radius_list != (-1,)
-                or cfg.prop_radius_list != (-1,)):
-            raise NotImplementedError(
-                "the port runs GMFlow at num_scales=1 with global matching "
-                "and global propagation only")
+        if not (len(cfg.attn_splits_list) == len(cfg.corr_radius_list)
+                == len(cfg.prop_radius_list) == cfg.num_scales):
+            raise ValueError(
+                f"GMFlow: attn_splits_list, corr_radius_list and "
+                f"prop_radius_list need one entry for each of the "
+                f"{cfg.num_scales} scales")
         self.config = cfg
         c = cfg.feature_channels
         self.backbone = CNNEncoder(output_dim=c)
@@ -106,29 +118,47 @@ class GMFlow(nn.Module):
 
     def forward(self, feature0_list, feature1_list, training: bool = False):
         cfg = self.config
-        splits = cfg.attn_splits_list[0]
-        # channel-last inside the flow engine, as in the JAX code
-        feature0 = feature0_list[0].permute(0, 2, 3, 1)
-        feature1 = feature1_list[0].permute(0, 2, 3, 1)
-        feature0, feature1 = _add_position(feature0, feature1, splits,
-                                           cfg.feature_channels)
-        feature0, feature1 = self.transformer(feature0, feature1, splits)
-        flow, corr = global_correlation_softmax(
-            feature0, feature1, cfg.pred_bidir_flow,
-            cfg.global_match_qk_fused)
-        preds = []
-        if training:  # intermediate supervision before propagation
-            preds.append(upsample_flow_bilinear(flow, cfg.upsample_factor))
-        if cfg.pred_bidir_flow:
-            feature0 = torch.cat([feature0, feature1], dim=0)
-        flow = self.feature_flow_attn(feature0, flow.detach())
+        bidir = cfg.pred_bidir_flow
+        flow, corr, preds = None, None, []
+        for scale in range(cfg.num_scales):
+            # channel-last inside the flow engine, as in the JAX code
+            feature0 = feature0_list[scale].permute(0, 2, 3, 1)
+            feature1 = feature1_list[scale].permute(0, 2, 3, 1)
+            if bidir and scale > 0:
+                feature0, feature1 = (torch.cat([feature0, feature1], 0),
+                                      torch.cat([feature1, feature0], 0))
+            factor = cfg.upsample_factor * 2**(cfg.num_scales - 1 - scale)
+            if flow is not None:
+                flow = upsample_flow_bilinear(flow, 2).detach()
+                feature1 = flow_warp(feature1, flow)
+            splits = cfg.attn_splits_list[scale]
+            corr_radius = cfg.corr_radius_list[scale]
+            prop_radius = cfg.prop_radius_list[scale]
+            feature0, feature1 = _add_position(feature0, feature1, splits,
+                                               cfg.feature_channels)
+            feature0, feature1 = self.transformer(feature0, feature1, splits)
+            if corr_radius == -1:
+                flow_pred, corr = global_correlation_softmax(
+                    feature0, feature1, bidir, cfg.global_match_qk_fused)
+            else:
+                flow_pred, _ = local_correlation_softmax(feature0, feature1,
+                                                         corr_radius)
+            flow = flow_pred if flow is None else flow + flow_pred
+            if training:  # intermediate supervision before propagation
+                preds.append(upsample_flow_bilinear(flow, factor))
+            if bidir and scale == 0:
+                feature0 = torch.cat([feature0, feature1], dim=0)
+            flow = self.feature_flow_attn(feature0, flow.detach(),
+                                          prop_radius > 0, prop_radius)
+            if training and scale < cfg.num_scales - 1:
+                preds.append(upsample_flow_bilinear(flow, factor))
         mask = self._upsample_mask(flow, feature0)
         preds.append(convex_upsample(flow.contiguous(), mask,
                                      cfg.upsample_factor))
         fws, bws = [], []
         for up in preds:
             up = up.permute(0, 3, 1, 2)
-            fw, bw = up.chunk(2, dim=0) if cfg.pred_bidir_flow else (up, None)
+            fw, bw = up.chunk(2, dim=0) if bidir else (up, None)
             fws.append(fw)
             bws.append(bw)
         return fws, bws, corr

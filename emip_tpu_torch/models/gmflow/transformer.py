@@ -9,8 +9,10 @@ window has at most ``fused_block_max_t`` tokens, and above that as its two
 ``TransformerLayer``s, kernels G and H; the shifted-window roll and the
 window split stay outside the kernels. Flow propagation is kernel C.
 LayerNorms use eps 1e-6, the JAX package's flax default (the reference's
-torch modules use 1e-5). With bf16 features (the bf16 band) B, or G then H
-above ``fused_block_max_t``, run their bf16 kernels, forward and backward
+torch modules use 1e-5). Propagation over a local window (the finer scales
+of multi-scale GMFlow) has no TPU kernel and is plain tensor code. With
+bf16 features (the bf16 band) B, or G then H above ``fused_block_max_t``,
+run their bf16 kernels, forward and backward
 (the roll, the window split and the merge move bf16 tokens), and the
 propagation's projections run in bf16 before C's bf16 forward, whose flow
 comes out fp32, as in the JAX package.
@@ -180,14 +182,41 @@ class FeatureFlowAttention(nn.Module):
         self.q_proj = Linear(in_channels, in_channels)
         self.k_proj = Linear(in_channels, in_channels)
 
-    def forward(self, feature0, flow):
-        """feature0: [B, H, W, C]; flow: [B, H, W, 2] -> [B, H, W, 2]."""
+    def forward(self, feature0, flow, local_window_attn: bool = False,
+                local_window_radius: int = 1):
+        """feature0: [B, H, W, C]; flow: [B, H, W, 2] -> [B, H, W, 2]:
+        over all pixels (kernel C), or with ``local_window_attn`` over the
+        (2r+1)^2 window around each pixel (plain tensor code)."""
         b, h, w, c = feature0.shape
         q = self.q_proj(feature0)
         k = self.k_proj(q)
+        if local_window_attn:
+            return _local_propagation(q, k, flow, local_window_radius)
         out = fused_flow_attention(
             q.reshape(b, h * w, c).contiguous(),
             k.reshape(b, h * w, c).contiguous(),
             flow.reshape(b, h * w, -1).contiguous(),
         )
         return out.reshape(b, h, w, flow.shape[-1])
+
+
+def _local_propagation(q, k, flow, radius: int):
+    """Propagation over the (2r+1)^2 window around each pixel, as the JAX
+    ``FeatureFlowAttention._local``: k and the flow zero-padded by r (the
+    padded positions take part in the softmax with score 0 and flow 0),
+    the scores q . k / sqrt(C) and the weighted sum in fp32, the output in
+    the flow's dtype; windows run row by row (dy, then dx)."""
+    b, h, w, c = q.shape
+    n = 2 * radius + 1
+    pad = (0, 0, radius, radius, radius, radius)
+    kp = torch.nn.functional.pad(k.float(), pad)
+    fp = torch.nn.functional.pad(flow.float(), pad)
+    qf = q.float()
+    scores = torch.stack([(qf * kp[:, dy:dy + h, dx:dx + w]).sum(-1)
+                          for dy in range(n) for dx in range(n)],
+                         dim=-1) / c**0.5  # [B, H, W, n^2]
+    probs = torch.softmax(scores, dim=-1)
+    out = sum(probs[..., i:i + 1] * fp[:, dy:dy + h, dx:dx + w]
+              for i, (dy, dx) in enumerate(
+                  (dy, dx) for dy in range(n) for dx in range(n)))
+    return out.to(flow.dtype)

@@ -30,15 +30,19 @@ def bilinear_sample(img: torch.Tensor, coords: torch.Tensor,
     """Sample NHWC ``img`` at pixel ``coords`` [N, H', W', 2] (x, y).
 
     Bilinear with align_corners=True: x in [0, W-1] and y in [0, H-1] are
-    inside; ``padding_mode`` is 'zeros' or 'border'.
+    inside; ``padding_mode`` is 'zeros' or 'border'. The coordinates, the
+    weights and the sum are fp32 whatever the image's dtype, and the result
+    is rounded to it, as in the JAX package (a bf16 grid keeps 8 bits of
+    the normalised coordinate: near a tenth of a pixel across 88 columns).
     """
     _, h, w, _ = img.shape
-    grid = torch.stack([coords[..., 0] * (2.0 / (w - 1)) - 1.0,
-                        coords[..., 1] * (2.0 / (h - 1)) - 1.0], dim=-1)
-    out = F.grid_sample(img.permute(0, 3, 1, 2), grid.to(img.dtype),
+    grid = torch.stack([coords[..., 0].float() * (2.0 / (w - 1)) - 1.0,
+                        coords[..., 1].float() * (2.0 / (h - 1)) - 1.0],
+                       dim=-1)
+    out = F.grid_sample(img.permute(0, 3, 1, 2).float(), grid,
                         mode="bilinear", padding_mode=padding_mode,
                         align_corners=True)
-    return out.permute(0, 2, 3, 1)
+    return out.permute(0, 2, 3, 1).to(img.dtype)
 
 
 def flow_warp(feature: torch.Tensor, flow: torch.Tensor,

@@ -111,11 +111,13 @@ def test_flow_attention_bf16_walk(b, l, c):
 
 @pytest.mark.parametrize("c", [64, 128])
 @pytest.mark.parametrize("side,shifted", [(8, True), (24, False),
-                                          (24, True)])
+                                          (24, True), (22, True)])
 def test_window_attention_bf16_walk(c, side, shifted):
     """The windows' form: bf16 q, k, v, bf16 out, windows of (side / 2)^2
-    tokens (16, and 144: two key tiles and a ragged 16), with and without
-    the shift mask; against the plain version and fp64."""
+    tokens (16, 144: two key tiles and a ragged 16, and 121, B's windows
+    at multi-scale GMFlow's fine scale: a ragged 57 and a mask whose rows
+    the kernel reads padded), with and without the shift mask; against the
+    plain version and fp64."""
     from emip_tpu_torch.ops.window import shifted_window_mask
 
     tok = (side // 2) ** 2
@@ -157,7 +159,7 @@ def _layer_case(c, side, shifted):
 @pytest.mark.parametrize("c,side,shifted,add_residual", [
     (64, 8, False, True), (64, 8, True, False), (64, 24, True, True),
     (64, 24, False, False), (128, 8, True, True), (128, 24, False, True),
-    (128, 24, True, True), (128, 24, True, False)])
+    (128, 24, True, True), (128, 24, True, False), (128, 22, True, True)])
 def test_window_layer_fwd_bf16_walk(c, side, shifted, add_residual):
     """G's bf16 forward: the walk against the plain bf16 version, fp64 (the
     layer in fp64 on the bf16 x, t and the weights rounded as the kernel
@@ -198,11 +200,11 @@ def test_window_layer_fwd_bf16_walk(c, side, shifted, add_residual):
     assert _rel(walk, want) <= LAYER_JAX_REL
 
 
-@pytest.mark.parametrize("side", [64, 44, 24, 14])
+@pytest.mark.parametrize("side", [64, 44, 24, 22, 14])
 def test_mask_zero_tiles(side):
     """The table of all-zero mask tiles the bf16 attention skips
     (``attention.mask_zero_tiles``) against a loop over the shift mask's
-    [128 query rows, 64 keys] tiles, ragged at T = 484, 144 and 49; the
+    [128 query rows, 64 keys] tiles, ragged at T = 484, 144, 121 and 49; the
     shares of the model's windows (T 1024 and 484); kept beside the mask
     and made again after the mask changes in place."""
     from emip_tpu_torch.ops.window import shifted_window_mask
@@ -222,3 +224,29 @@ def test_mask_zero_tiles(side):
     again = att.mask_zero_tiles(mask)
     assert again is not got and not again[0, 0, 0] and got[0, 0, 0]
     assert att.mask_zero_tiles(None) is None
+
+
+@pytest.mark.parametrize("side,splits", [(88, 8), (44, 2)])
+def test_mask_rows16(side, splits):
+    """The shift mask as the bf16 attention reads its rows (TMA boxes,
+    strides of whole 16 bytes): at T = 121 (88^2 split 8 ways, multi-scale
+    GMFlow's fine windows) a copy with rows of 124, zeros past the 121
+    keys, kept beside the mask and made again after it changes in place;
+    at T = 484 the mask itself."""
+    from emip_tpu_torch.ops.window import shifted_window_mask
+
+    mask = shifted_window_mask(side, side, splits).clone()
+    nw, t, _ = mask.shape
+    rows, stride = att.mask_rows16(mask)
+    if t % 4 == 0:
+        assert rows is mask and stride == t
+        return
+    assert (t, stride) == (121, 124) and rows.shape == (nw, t, 124)
+    assert rows.is_contiguous() and (4 * stride) % 16 == 0
+    assert torch.equal(rows[..., :t], mask)
+    assert not rows[..., t:].any()
+    assert att.mask_rows16(mask)[0] is rows
+    mask[1, 2, 3] = -7.0
+    again, _ = att.mask_rows16(mask)
+    assert again is not rows and again[1, 2, 3] == -7.0
+    assert att.mask_rows16(None) == (None, 0)

@@ -82,3 +82,39 @@ def test_dwconv_gelu_backward_tiled_walk(b, h, w, f, rows, cols, blocks):
         _, vjp = jax.vjp(lambda x, k, c: jfn(x, k, c, h, w), u, wdw, bdw)
         for name, a, e in zip(("gu", "gwdw", "gbdw"), got, vjp(cot)):
             _assert_rel(a, e, f"{jfn.__name__} {name}")
+
+
+# b5's four MixFFN maps at 352^2 and batch 8 -> (rows, strips, blocks) of
+# the staged bf16 forward (``staged_tiling`` of ``csrc/dwconv_gelu.cu``)
+BF16_STAGES = [((8, 88, 88, 256), (30, 3, 264)),
+               ((8, 44, 44, 512), (9, 5, 480)),
+               ((8, 22, 22, 1280), (11, 2, 240)),
+               ((8, 11, 11, 2048), (6, 2, 256))]
+
+
+@pytest.mark.parametrize("shape,want", BF16_STAGES)
+def test_dwconv_gelu_bf16_forward_staged_walk(shape, want):
+    """The bf16 forward's strips at b5's maps, walked on bf16 inputs (the
+    map at 16 channels and one image) against the plain bf16 version and
+    the Pallas kernel in bf16: 1e-2 of max|ref|, the bf16 band's gate (an
+    output may round to the other side of a bf16 step)."""
+    from emip_tpu.ops.pallas.mixffn import fused_dwconv_gelu
+
+    plan = dw.dwconv_fwd_bf16_plan(*shape)
+    assert (plan["rows"], plan["strips"], plan["blocks"]) == want
+    _, h, w, _ = shape
+    u, wdw, bdw, _ = _inputs(1, h, w, 16)
+    tu, tw = (torch.from_numpy(a).to(torch.bfloat16) for a in (u, wdw))
+    tb = torch.from_numpy(bdw)
+    got = dw.fused_dwconv_gelu_strips(tu.float(), tw.float(), tb, h, w,
+                                      plan["rows"]).to(torch.bfloat16)
+    ref = K.fused_dwconv_gelu_reference(tu, tw, tb, h, w)
+    err = (got.float() - ref.float()).abs().max() / ref.float().abs().max()
+    assert err <= 1e-2, err
+    bf16 = jax.numpy.bfloat16
+    pallas = fused_dwconv_gelu(jax.numpy.asarray(tu.float().numpy(), bf16),
+                               jax.numpy.asarray(tw.float().numpy(), bf16),
+                               bdw, h, w)
+    pallas = torch.from_numpy(np.asarray(pallas, np.float32))
+    err = (got.float() - pallas).abs().max() / pallas.abs().max()
+    assert err <= 1e-2, err

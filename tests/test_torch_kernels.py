@@ -793,11 +793,10 @@ def test_cuda_bf16_attention_matches_walk_and_plain_version():
     same bits on a second call, one count per call. C at a ragged 1000
     tokens (width 128), at 1936 (width 64) and at 16400 (width 128, past
     the 12,400 keys a whole v row in shared memory would allow); windows of
-    484 and 144 tokens with the shift mask and of 1024 without it; G with
-    and without the mask and the residual. With a mask, the same bits when
-    no tile is skipped (``mask_zero_tiles`` cleared). Windows of 49 tokens
-    with a mask raise (the mask's rows are read by TMA: Nk a multiple of
-    4)."""
+    484, 144, 121 and 49 tokens with the shift mask (the last two read its
+    rows from a copy padded to whole 16 bytes, ``mask_rows16``) and of 1024
+    without it; G with and without the mask and the residual. With a mask,
+    the same bits when no tile is skipped (``mask_zero_tiles`` cleared)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
     from emip_tpu_torch.kernels import tf32
@@ -824,7 +823,9 @@ def test_cuda_bf16_attention_matches_walk_and_plain_version():
                                    (1, 16400, 128, False, 0),
                                    (8, 484, 128, True, 44),
                                    (4, 1024, 64, True, 0),
-                                   (4, 144, 128, True, 24)):
+                                   (4, 144, 128, True, 24),
+                                   (8, 121, 128, True, 22),
+                                   (4, 49, 128, True, 14)):
         q, k = r(b, n, d).to(bf), r(b, n, d).to(bf)
         v = r(b, n, d).to(bf) if windows else r(b, n, 2, scale=10.0)
         mask = shifted_window_mask(side, side, 2) if side else None
@@ -845,10 +846,6 @@ def test_cuda_bf16_attention_matches_walk_and_plain_version():
             table.zero_()
             assert torch.equal(attention_bf16(*dev, dmask), got)
             del dmask._emip_zero_tiles
-
-    q = r(4, 49, 128).to(bf).cuda()
-    with pytest.raises(ValueError, match="multiple of 4"):
-        attention_bf16(q, q, q, shifted_window_mask(14, 14, 2).cuda())
 
     for b, tok, c, side, residual in ((1, 484, 128, 44, True),
                                       (2, 144, 64, 0, False),
@@ -934,3 +931,70 @@ def test_cuda_bf16_memory_attention_matches_walk_and_plain_version():
         for name, a, e in zip("qkv", grads, want):
             assert a.dtype == e.dtype, name
             close(a.cpu(), e, 1e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_multiscale_shapes_match_plain_versions():
+    """The shapes multi-scale GMFlow gives B and D, and J's staged bf16
+    forward, on the card against their plain versions: B on 121-token
+    windows (88^2 split 8 ways, two images), with and without the shift
+    mask, fp32 (rtol 1e-3, atol 2e-3: 3xTF32 products) and bf16 (1e-2 of
+    max|ref|); D at x4 on fp32 and bf16 logits (rtol 1e-4, atol 1e-3); J's
+    bf16 forward at b5's four MixFFN maps (batch 2) and a ragged 7 x 13 map,
+    within 1e-2 of max|ref| of the plain bf16 version; each the same bits
+    on a second call and one count a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from emip_tpu_torch.ops.window import shifted_window_mask
+
+    g = torch.Generator().manual_seed(23)
+    bf = torch.bfloat16
+
+    def r(*s, scale=1.0):
+        return (torch.randn(*s, generator=g) * scale).cuda()
+
+    def twice(name, fn):
+        before = K.LAUNCHES[name]
+        with torch.no_grad():
+            got = fn()
+            assert torch.equal(fn(), got)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES[name] == before + 2
+        return got
+
+    def rel(got, want):
+        return ((got.float() - want.float()).abs().max()
+                / want.float().abs().max()).item()
+
+    c, f = 128, 512
+    sp = dict(wq=r(c, c) / c**0.5, wk=r(c, c) / c**0.5, wv=r(c, c) / c**0.5,
+              wm=r(c, c) / c**0.5, s1=1 + 0.1 * r(c), b1=0.1 * r(c))
+    cp = dict(sp, wq=r(c, c) / c**0.5, w0=r(f, 2 * c) / (2 * c)**0.5,
+              w2=r(c, f) / f**0.5, s2=1 + 0.1 * r(c), b2=0.1 * r(c))
+    x, t = r(2, 64, 121, c), r(2, 64, 121, c)
+    for mask in (None, shifted_window_mask(88, 88, 8, device="cuda")):
+        for dt in (torch.float32, bf):
+            args = (x.to(dt), t.to(dt), sp, cp, mask)
+            name = "window_attention_block" + ("_bf16" if dt == bf else "")
+            got = twice(name, lambda: K.fused_window_attention_block(*args))
+            with torch.no_grad():
+                want = K.fused_window_attention_block_reference(*args)
+            if dt == bf:
+                assert rel(got, want) <= 1e-2
+            else:
+                torch.testing.assert_close(got, want, rtol=1e-3, atol=2e-3)
+    flow, logits = r(4, 88, 88, 2, scale=3.0), r(4, 88, 88, 144)
+    for lg in (logits, logits.to(bf)):
+        name = "convex_upsample" + ("_bf16" if lg.dtype == bf else "")
+        got = twice(name, lambda: K.convex_upsample(flow, lg, 4))
+        torch.testing.assert_close(got, K.convex_upsample_reference(
+            flow, lg, 4), rtol=1e-4, atol=1e-3)
+    for b, h, w, f in ((2, 88, 88, 256), (2, 44, 44, 512),
+                       (2, 22, 22, 1280), (2, 11, 11, 2048),
+                       (2, 7, 13, 256)):
+        args = (r(b, h * w, f).to(bf), (0.3 * r(3, 3, f)).to(bf),
+                0.1 * r(f), h, w)
+        got = twice("dwconv_gelu_bf16",
+                    lambda: K.fused_dwconv_gelu(*args))
+        assert got.dtype == bf
+        assert rel(got, K.fused_dwconv_gelu_reference(*args)) <= 1e-2
