@@ -42,7 +42,9 @@ needs one card and no arguments, and it imports nothing of JAX. In order:
 4. kernel phase: each forward kernel A-D and F-J against its plain PyTorch
    version on the same seeded CUDA tensors, at the production shapes of
    the 352^2 path (A at all four PVT stages, B with and without the shift
-   mask, at batch 8; F at 1 and 4 clips with 1, 3 and 5 written slots,
+   mask, at batch 8; A also at the linear PVTv2's four stages with M = 49
+   pooled keys, forward and backward, fp32 and bf16, with device times,
+   kept out of its rows' sums; F at 1 and 4 clips with 1, 3 and 5 written slots,
    with every slot empty at a small size, and at the 512^2 shape; J at the
    four MixFFN stages; I at [8, 1936, 1936]) and of the 512^2 path (A with
    256 reduced keys, C at L = 4096, D at 64 x 64, I at [4, 4096, 4096], G
@@ -199,7 +201,18 @@ needs one card and no arguments, and it imports nothing of JAX. In order:
     at batch 8: A forward and backward 52 each per step and no other
     launch, finite losses, every leaf moved, ms/step and peak memory; then
     SegNetwork in bf16 against its fp32 twin in turns: A's bf16 forward and
-    backward 52 each a step and nothing else, ms/step, peak memory;
+    backward 52 each a step and nothing else, ms/step, peak memory; then
+    the backbones phase: SegNetwork on each alternate encoder
+    (pvt_v2_b2_li, pvt_small, res2net50_26w_4s, efficientnet_b1 and _b4)
+    at full width and depth, 352^2, batch 8, fp32 and bf16 (ms, frames/s,
+    peak memory; A's forward once a block for the linear PVTv2, nothing
+    for the others), two images card against CPU (fp32 1e-3 of max|ref|,
+    bf16 within twice the larger bf16-vs-fp32 gap), one fp32 train step on
+    one image card against CPU (loss, every leaf's grad by 8e-2 or twice
+    what three 1e-6 nudges of the CPU's image move it, BatchNorm statistics
+    1e-4); DGNet (EfficientNet-B4) at batch 8 card against CPU; and the
+    two-stream model on pvt_v2_b2_li (A 32, B 6, C 3, D 1 a batch) and
+    pvt_small (A none) through the slice phases of item 7, fp32 and bf16;
 12. entry chain on phase 10's root and checkpoint: ``python -m
     emip_tpu_torch.test`` (a PNG per pair), ``... eval_offline`` (17
     metrics finite in [0, 1], 8 of 10 GT frames a video scored, S-measure,
@@ -213,7 +226,9 @@ needs one card and no arguments, and it imports nothing of JAX. In order:
     2 steps each, bf16 kernels only, a checkpoint of fp32 tensors that
     loads into an fp32 model (TF32 and cuBLAS's bf16 reduced-precision
     reduction are turned on before every entry point's call, and must read
-    off after it);
+    off after it); and ``... train_static`` from a YAML naming
+    res2net50_26w_4s with ``compute_dtype: bfloat16`` (one step, no kernel
+    of the port, an fp32 checkpoint);
 13. long inference phase: the full EMIPLong (b5, 352^2, 5 memory slots) on
     seeded weights streams seeded clips through ``step_cached``, one clip
     at a time and four side by side; launch counts against the structure
@@ -293,7 +308,8 @@ NAMES`` is a development aid: the kernel phases alone, for the kernels
 whose name contains one of the comma-separated NAMES (``gemm`` adds the
 GEMM lines of phase 3, ``gemm_wgmma`` its wgmma lines alone,
 ``attention_fwd`` its attention lines, ``attention_fwd_bf16`` the
-``attention_bf16`` lines alone, ``bf16`` the
+``attention_bf16`` lines alone, ``backbones`` the backbones phase and its
+entry point, ``bf16`` the
 bf16 kernel, GEMM and backward lines; a bf16 forward row's name, such as
 ``sr_attention_bf16``, that row's kernel lines).
 """
@@ -409,6 +425,11 @@ SR_STAGES_512 = ((16384, 256, 64, 1), (4096, 256, 128, 2),
                  (1024, 256, 320, 5), (256, 256, 512, 8))
 # pvt_v2_b0's stage 3 at 352^2 (head width 32): A's bf16 check at that width
 SR_B0_CHECK = (484, 121, 160, 5)
+# the linear PVTv2 (pvt_v2_b2_li) at 352^2: every stage's keys pooled to
+# 7 x 7, so M = 49 (checks kept out of A's rows' sums, with device times)
+SR_STAGES_LINEAR = ((7744, 49, 64, 1), (1936, 49, 128, 2), (484, 49, 320, 5),
+                    (121, 49, 512, 8))
+LINEAR = "linear"  # the label that starts those cases
 BATCH_512 = 4        # clips streamed side by side at 512^2
 # kernel J at the four MixFFN stages of pvt_v2_b5 at 352^2: side, hidden
 FFN_STAGES = ((88, 256), (44, 512), (22, 1280), (11, 2048))
@@ -813,11 +834,13 @@ def _kernel_name(name: str) -> str:
     return head.split("::")[-1].split()[-1] + sep + tmpl
 
 
-def device_times(name: str, kernel, plain, reps: int) -> dict:
+def device_times(name: str, kernel, plain, reps: int,
+                 label: str = "") -> dict:
     """device_ms and plain_device_ms of a case of a ``DEVICE_TIMED``
-    kernel, and ``device_split_ms``: the kernel side's device time by the
-    name of each kernel it launches; else nothing."""
-    if name not in DEVICE_TIMED:
+    kernel or of kernel A's linear-PVTv2 checks (``label``), and
+    ``device_split_ms``: the kernel side's device time by the name of each
+    kernel it launches; else nothing."""
+    if name not in DEVICE_TIMED and not label.startswith(LINEAR):
         return {}
     split = {}
     return dict(device_ms=device_ms(kernel, reps, split),
@@ -1273,7 +1296,31 @@ def check_cases(device):
     cases += [("dwconv_gelu", f"u [{b},{h * w},{f}] {h}x{w}",
                K.fused_dwconv_gelu, K.fused_dwconv_gelu_reference,
                ffn_args(r, b, h, w, f)) for b, h, w, f in FFN_CHECKS]
-    return cases + scales_cases(device, bf16=False)
+    return (cases + scales_cases(device, bf16=False)
+            + linear_sr_cases(device, SEED + 17, bf16=False))
+
+
+def linear_sr_cases(device, seed: int, bf16: bool) -> list:
+    """Kernel A at the linear PVTv2's four stages at 352^2, batch 8
+    (``SR_STAGES_LINEAR``: 49 keys), from a generator of its own: (kernel,
+    label, kernel fn, plain fn, args); ``bf16``: bf16 tokens and weights,
+    fp32 biases."""
+    import torch
+
+    from emip_tpu_torch import kernels as K
+
+    r = seeded_randn(seed, device)
+    cases = []
+    for n, m, c, heads in SR_STAGES_LINEAR:
+        args = sr_args(r, BATCH, n, m, c, heads)
+        if bf16:
+            args = tuple(a.to(torch.bfloat16) if i in (0, 1, 2, 4, 6) else a
+                         for i, a in enumerate(args))
+        cases.append(("sr_attention" + ("_bf16" if bf16 else ""),
+                      f"{LINEAR} N={n} M={m} C={c} heads={heads}",
+                      K.fused_sr_attention, K.fused_sr_attention_reference,
+                      args))
+    return cases
 
 
 def scales_cases(device, bf16: bool):
@@ -1360,7 +1407,8 @@ def kernel_phase(batch: int, device, reps: int, only: str = "") -> dict:
         ms, plain_ms = alternate_ms(lambda: fn(*args), lambda: ref(*args),
                                     reps)
         lib_ms = library_ms(name, args, reps)
-        dev = device_times(name, lambda: fn(*args), lambda: ref(*args), reps)
+        dev = device_times(name, lambda: fn(*args), lambda: ref(*args), reps,
+                           label)
         log(f"kernel {name:24s} {label:32s} max_abs_err={err:.3e} "
             f"tol={tol} ms={ms:.4f} plain_ms={plain_ms:.4f} "
             f"library_ms={fmt_ms(lib_ms)} "
@@ -1562,6 +1610,11 @@ def backward_cases(batch: int, device):
                       f"corr [{b},{n},{n}] dcorr dvalues",
                       K.softmax_expectation, K.softmax_expectation_reference,
                       (r(b, n, n, scale=3.0), r(n, 2, scale=20.0)), (0, 1)))
+    for _, label, fn, ref, args in linear_sr_cases(device, SEED + 18,
+                                                   bf16=False):
+        checks.add(len(cases))
+        cases.append(("sr_attention_bwd", label, fn, ref, args,
+                      tuple(range(8))))
     return cases, at_352, checks
 
 
@@ -1625,7 +1678,7 @@ def backward_phase(batch: int, device, reps: int, only: str = "") -> dict:
         dig = record_digest(name, label, got, rerun_k)
         ms, plain_ms = alternate_ms(rerun_k, rerun_p, reps)
         lib_ms = library_ms(name, args, reps, which)
-        dev = device_times(name, rerun_k, rerun_p, reps)
+        dev = device_times(name, rerun_k, rerun_p, reps, label)
         if name == "dwconv_gelu_bwd":
             J_FP32_DEVICE_MS[tuple(args[0].shape)] = dev["device_ms"]
         log(f"kernel {name:28s} {label:44s} max_abs_err={err:.3e} "
@@ -2242,21 +2295,45 @@ def splat_cases(results: dict, device, reps: int) -> None:
 # --------------------------------------------------------------- slice
 
 
+def seg_encoder(model):
+    """(the segmentation encoder of ``model``, its PVTv2 configuration or
+    None for the encoders without kernel A)."""
+    feat = model.backbone.feat_net
+    encoder = getattr(feat, feat.key)
+    return encoder, encoder.config if feat.key == "pvtv2_en" else None
+
+
+def pvt_kernels(pvt, blocks_fwd: int, blocks_bwd: int) -> dict:
+    """Launches of A and J for a PVTv2 (configuration ``pvt``, None for
+    another encoder) whose blocks run ``blocks_fwd`` times forward and
+    ``blocks_bwd`` times backward: J's forward under ``fused_ffn`` outside
+    the linear variant (the JAX package's gate), its backward under either
+    switch."""
+    if pvt is None:
+        return {}
+    fwd_j = pvt.fused_ffn == "always" and not pvt.linear
+    bwd_j = fwd_j or pvt.ffn_dwconv == "bwd_fused"
+    return dict(sr_attention=blocks_fwd, sr_attention_bwd=blocks_bwd,
+                dwconv_gelu=blocks_fwd if fwd_j else 0,
+                dwconv_gelu_bwd=blocks_bwd if bwd_j else 0)
+
+
 def expected_launches(model, train: bool = False) -> dict:
     """Kernel launches per forward (``train``: per train step) implied by
     the model's structure and its configuration's kernel switches."""
     from emip_tpu_torch import kernels as K
 
-    pvt = model.backbone.feat_net.pvtv2_en
-    depths = pvt.config.depths
+    _, pvt = seg_encoder(model)
+    depths = pvt.depths if pvt is not None else (0, 0, 0, 0)
     gm = model.GMFlow.config
     layers = len(model.GMFlow.transformer.layers)
     tok = (model.config.inp_size // 8 // gm.attn_splits_list[0]) ** 2
     whole_block = tok <= gm.fused_block_max_t
     directions = 2 if gm.pred_bidir_flow else 1
     n = {k: 0 for k in K.LAUNCHES}
-    n.update(sr_attention=2 * sum(depths),  # every PVT block, both frames
-             window_attention_block=layers if whole_block else 0,
+    # every PVT block, both frames
+    n.update(pvt_kernels(pvt, 2 * sum(depths), 0))
+    n.update(window_attention_block=layers if whole_block else 0,
              window_attention_layer=0 if whole_block else layers,
              window_attention_ffn_layer=0 if whole_block else layers,
              # matching per direction (kernel C, or I on the stored
@@ -2265,19 +2342,14 @@ def expected_launches(model, train: bool = False) -> dict:
                                  else 0),
              softmax_expectation=(0 if gm.global_match_qk_fused
                                   else directions),
-             convex_upsample=1,
-             dwconv_gelu=(2 * sum(depths) if pvt.config.fused_ffn == "always"
-                          else 0))
+             convex_upsample=1)
     if train:
         # backward: every block of frame 1; of frame 2 only the stages up
         # to /8, whose output feeds the camouflage feeder (its /16 and /32
         # features do not reach the loss)
-        blocks_bwd = sum(depths) + depths[0] + depths[1]
-        ffn_kernel_bwd = (pvt.config.fused_ffn == "always"
-                          or pvt.config.ffn_dwconv == "bwd_fused")
-        n.update(sr_attention_bwd=blocks_bwd,
-                 convex_upsample_bwd=1,
-                 dwconv_gelu_bwd=blocks_bwd if ffn_kernel_bwd else 0,
+        n.update(pvt_kernels(pvt, 2 * sum(depths),
+                             sum(depths) + depths[0] + depths[1]))
+        n.update(convex_upsample_bwd=1,
                  splat_density=2,  # occlusion masks of both directions
                  **{k + "_bwd": n[k] for k in (
                      "window_attention_block", "window_attention_layer",
@@ -2295,7 +2367,8 @@ def seeded_frames(rng, n: int, size: int) -> np.ndarray:
     return (img - mean) / std
 
 
-def slice_phase(model, batch: int, size: int, device, timed: int) -> dict:
+def slice_phase(model, batch: int, size: int, device, timed: int,
+                label: str = "b5") -> dict:
     import torch
 
     from emip_tpu_torch import kernels as K
@@ -2321,8 +2394,9 @@ def slice_phase(model, batch: int, size: int, device, timed: int) -> dict:
 
     per_fwd = expected_launches(model)
     want = {k: v * n_batches for k, v in per_fwd.items()}
-    log(f"slice launches {launches} (expected {want})")
-    if launches != want or min(launches[k] for k in FWD_KERNELS) == 0:
+    log(f"slice {label} launches {launches} (expected {want})")
+    # A runs in every PVTv2; B, C and D in every two-stream model
+    if launches != want or min(launches[k] for k in FWD_KERNELS[1:]) == 0:
         raise AssertionError(f"kernel launch counts {launches} != {want}")
     for mask, flow in outputs:
         if tuple(mask.shape) != (batch, 1, size, size):
@@ -2334,7 +2408,8 @@ def slice_phase(model, batch: int, size: int, device, timed: int) -> dict:
     median_ms = statistics.median(times)
     fps = batch / (median_ms / 1e3)
     peak = torch.cuda.max_memory_allocated(device)
-    log(f"slice b5 {size}^2 bs={batch} fp32: median {median_ms:.3f} ms/batch "
+    log(f"slice {label} {size}^2 bs={batch} fp32: median {median_ms:.3f} "
+        f"ms/batch "
         f"over {len(times)} batches -> {fps:.3f} frames/s; peak memory "
         f"{peak / 2**30:.3f} GiB ({(peak - resident) / 2**30:.3f} GiB above "
         f"what was allocated before the run)")
@@ -2358,7 +2433,7 @@ def slice_phase(model, batch: int, size: int, device, timed: int) -> dict:
         cmp[name] = dict(max_abs_err=err, ref_max_abs=ref_max,
                          worst_tol_ratio=worst, rel_to_max=rel, tol=tol,
                          rel_max=SLICE_REL_MAX, ok=ok)
-        log(f"slice {name} card vs CPU plain: max_abs_err={err:.3e} "
+        log(f"slice {label} {name} card vs CPU plain: max_abs_err={err:.3e} "
             f"(|ref| max {ref_max:.3e}) tol={tol} worst err/tol={worst:.3f}; "
             f"max|err|/max|ref|={rel:.3e} (limit {SLICE_REL_MAX}) "
             f"{'ok' if ok else 'MISMATCH'}")
@@ -2690,7 +2765,8 @@ def bf16_check_cases(device):
                   K.fused_window_attention_ffn_layer,
                   K.fused_window_attention_ffn_layer_reference,
                   (x, t, cp, shifted_window_mask(64, 64, 2, device=device))))
-    return cases + scales_cases(device, bf16=True)
+    return (cases + scales_cases(device, bf16=True)
+            + linear_sr_cases(device, SEED + 37, bf16=True))
 
 
 def bf16_fp64(name: str, args):
@@ -2873,7 +2949,7 @@ def bf16_kernel_phase(batch: int, device, reps: int, only: str = "") -> dict:
                                         lambda: ref(*args), reps)
             lib_ms, sdpa_ms = bf16_library_ms(name, args, reps)
             dev = device_times(name, lambda: fn(*args), lambda: ref(*args),
-                               reps)
+                               reps, label)
             ok = (bool(torch.isfinite(got).all()) and rel <= BF16_KERNEL_REL
                   and ratio <= BF16_FP64_RATIO)
             log(f"kernel {name:28s} {label:28s} max_abs_err={err:.3e} "
@@ -3132,6 +3208,10 @@ def bf16_backward_cases(batch: int, device):
                           K.masked_memory_attention, _memory_bwd_bf16,
                           (q.to(bf), k, v, bias), which,
                           q.shape[1] == 1936))
+    cases += [("sr_attention_bwd_bf16", label, fn, vjp_grads(ref), args,
+               tuple(range(8)), False)
+              for _, label, fn, ref, args in linear_sr_cases(
+                  device, SEED + 48, bf16=True)]
     return cases
 
 
@@ -3314,7 +3394,7 @@ def bf16_backward_phase(batch: int, device, reps: int,
         dig = record_digest(name, label, got, rerun_k)
         ms, plain_ms = alternate_ms(rerun_k, plain_grads, reps)
         lib_ms, sdpa_ms = bf16_bwd_library_ms(name, fn, args, which, reps)
-        dev = device_times(name, rerun_k, plain_grads, reps)
+        dev = device_times(name, rerun_k, plain_grads, reps, label)
         fp32_dev = (J_FP32_DEVICE_MS.get(tuple(args[0].shape))
                     if name == "dwconv_gelu_bwd_bf16" else None)
         if fp32_dev is not None:  # the fp32 row's, same shape, same call
@@ -3411,7 +3491,7 @@ def expected_launches_bf16(model, train: bool = False) -> dict:
 
 
 def bf16_slice_phase(model, batch: int, size: int, device, timed: int,
-                     fp32: dict) -> tuple:
+                     fp32: dict, label: str = "b5") -> tuple:
     """The same b5 model and seeded frames as the fp32 slice phase, in
     bf16 (``EMIPShort(cfg, dtype=bfloat16)`` on the same weights) through
     ``predict_arrays``: launch counts over 1 + ``timed`` batches (the four
@@ -3450,7 +3530,7 @@ def bf16_slice_phase(model, batch: int, size: int, device, timed: int,
     work = peak - resident
     want = {k: v * n_batches
             for k, v in expected_launches_bf16(model16).items()}
-    log(f"bf16 slice launches {launches} (expected {want})")
+    log(f"bf16 slice {label} launches {launches} (expected {want})")
     if launches != want:
         raise AssertionError(f"bf16 launch counts {launches} != {want}")
     for mask, flow in outputs:
@@ -3470,7 +3550,8 @@ def bf16_slice_phase(model, batch: int, size: int, device, timed: int,
     t32 += batch_times(model)
     ms16, ms32 = statistics.median(t16), statistics.median(t32)
     fps, fps32 = batch / (ms16 / 1e3), batch / (ms32 / 1e3)
-    log(f"slice b5 {size}^2 bs={batch} bf16: median {ms16:.3f} ms/batch -> "
+    log(f"slice {label} {size}^2 bs={batch} bf16: median {ms16:.3f} "
+        f"ms/batch -> "
         f"{fps:.3f} frames/s; fp32 in the same turns {ms32:.3f} ms/batch -> "
         f"{fps32:.3f} frames/s (x{fps / fps32:.3f}); peak memory "
         f"{peak / 2**30:.3f} GiB, {work / 2**30:.3f} GiB above what was "
@@ -3495,7 +3576,8 @@ def bf16_slice_phase(model, batch: int, size: int, device, timed: int,
         cmp[name] = dict(card_vs_cpu_bf16=err, bf16_vs_fp32_gap=gap,
                          limit=2 * gap, ok=ok,
                          ref_max_abs=cpu16[i].abs().max().item())
-        log(f"bf16 slice {name}: card bf16 vs CPU plain bf16 max_abs_err="
+        log(f"bf16 slice {label} {name}: card bf16 vs CPU plain bf16 "
+            f"max_abs_err="
             f"{err:.3e}; card bf16 vs card fp32 gap {gap:.3e} (limit 2 x gap "
             f"= {2 * gap:.3e}, |ref| max {cmp[name]['ref_max_abs']:.3e}) "
             f"{'ok' if ok else 'MISMATCH'}")
@@ -4021,16 +4103,14 @@ def static_expected(model) -> dict:
     """Kernel launches per static train step implied by SegNetwork's
     structure: A forward and backward once per PVT block of the one frame
     (every stage reaches the loss, through dr1-dr3 or the stages after
-    it), J where the backbone's configuration asks for it, nothing else."""
+    it), J where the backbone's configuration asks for it, nothing else
+    (and nothing at all for an encoder without kernel A)."""
     from emip_tpu_torch import kernels as K
 
-    cfg = model.backbone.feat_net.pvtv2_en.config
-    blocks = sum(cfg.depths)
+    _, pvt = seg_encoder(model)
+    blocks = sum(pvt.depths) if pvt is not None else 0
     n = {k: 0 for k in K.LAUNCHES}
-    n.update(sr_attention=blocks, sr_attention_bwd=blocks,
-             dwconv_gelu=blocks if cfg.fused_ffn == "always" else 0,
-             dwconv_gelu_bwd=(blocks if cfg.fused_ffn == "always"
-                              or cfg.ffn_dwconv == "bwd_fused" else 0))
+    n.update(pvt_kernels(pvt, blocks, blocks))
     return n
 
 
@@ -4493,6 +4573,316 @@ def bf16_static_phase(batch: int, size: int, device, timed: int) -> dict:
         f"{per_step}; {moved} leaves all moved")
     del opt16, opt32, m16, m32
     return dict(res, losses=losses)
+
+
+# the alternate encoders at full published width and depth: SegNetwork at
+# 352^2 on seeded weights, then the two-stream model on the two with
+# GMFlow's 128-wide /8 stage, DGNet on EfficientNet-B4 and the static
+# trainer's entry point on Res2Net in bf16
+BACKBONES = ("pvt_v2_b2_li", "pvt_small", "res2net50_26w_4s",
+             "efficientnet_b1", "efficientnet_b4")
+TWO_STREAM_BACKBONES = ("pvt_v2_b2_li", "pvt_small")
+BACKBONE_TIMED = 3      # timed inference batches a band, after a warm-up
+BACKBONE_TIMED_SLICE = 2  # the same for the two-stream model
+BACKBONE_CPU_BATCH = 2  # images of the card-vs-CPU inference comparison
+# card vs CPU: fp32 logits and DGNet's outputs by max|err| / max|ref|;
+# the BatchNorm statistics after a train step by max|err| over each
+# buffer's scale (_stats_rel)
+BACKBONE_REL_MAX = 1e-3
+BN_STATS_REL = 1e-4
+# the relative nudge of the CPU's image that measures how far fp32
+# rounding alone moves each grad of the train step (backbone_seg_phase)
+BACKBONE_NUDGE = 1e-6
+STATS = ("running_mean", "running_var")
+
+
+def _bn_stats(model) -> dict:
+    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()
+            if k.endswith(STATS)}
+
+
+def _rel_max(got, ref) -> float:
+    return ((got - ref).abs().max().item()
+            / max(ref.abs().max().item(), 1e-30))
+
+
+def _stats_rel(got: dict, ref: dict, key: str) -> float:
+    """max|err| of a BatchNorm buffer over its scale: a variance's own
+    max|ref|; a mean's the larger of its max|ref| and the square root of
+    its layer's largest variance (a centred feature's mean is near zero
+    and has no scale of its own: in EfficientNet a running mean of ~1e-7
+    takes an error of 2x itself)."""
+    err = (got[key] - ref[key]).abs().max().item()
+    scale = ref[key].abs().max().item()
+    if key.endswith("running_mean"):
+        var = ref[key[:-len("running_mean")] + "running_var"]
+        scale = max(scale, var.max().item() ** 0.5)
+    return err / max(scale, 1e-30)
+
+
+def backbone_seg_phase(name: str, device, timed: int) -> dict:
+    """``SegNetwork(name, 32)`` at 352^2 on seeded weights, fp32 and bf16 on
+    the same weights: 1 + ``timed`` batches of 8 a band (launches: A's
+    forward, fp32 or bf16, once per block for a PVTv2, nothing else), ms,
+    frames/s and peak memory; the first two images card against CPU (fp32
+    by BACKBONE_REL_MAX, bf16 within twice the larger of the card's and
+    the CPU's bf16-vs-fp32 gaps); then one fp32 train step on one image,
+    drop path off, card against CPU: the loss (TRAIN_LOSS_RTOL), every
+    leaf's grad (SEG_GRAD_RTOL, scale-floored, or where larger twice the
+    most that three nudges of the CPU's image by BACKBONE_NUDGE move that
+    grad: at seeded weights the full-depth Res2Net's train-mode grads move
+    by up to 26% under one, 4% taken all together) and the BatchNorm
+    statistics after it (BN_STATS_REL)."""
+    import torch
+
+    from emip_tpu_torch import kernels as K
+    from emip_tpu_torch.models.emip_short import SegNetwork
+    from emip_tpu_torch.models.init import seeded_init_
+
+    m32 = seeded_init_(SegNetwork(name, 32), SEED)
+    m16 = SegNetwork(name, 32, dtype=torch.bfloat16)
+    m16.load_state_dict(m32.state_dict())
+    m32, m16 = m32.to(device).eval(), m16.to(device).eval()
+    _, pvt = seg_encoder(m32)
+    blocks = sum(pvt.depths) if pvt is not None else 0
+    rng = np.random.default_rng(SEED + 50)
+    images = [torch.from_numpy(seeded_frames(rng, BATCH, SIZE)).to(device)
+              for _ in range(1 + timed)]
+    res, first = {}, {}
+    for band, model, a_name in (("fp32", m32, "sr_attention"),
+                                ("bf16", m16, "sr_attention_bf16")):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        K.reset_launches()
+        times = []
+        with torch.no_grad():
+            for i, x in enumerate(images):
+                out, ms = timed_call(lambda: model(x))
+                if (tuple(out.shape) != (BATCH, 1, SIZE, SIZE)
+                        or out.dtype != torch.float32
+                        or not torch.isfinite(out).all()):
+                    raise AssertionError(f"{name} {band}: logits shape, "
+                                         f"dtype or finiteness")
+                if i == 0:
+                    first[band] = out[:BACKBONE_CPU_BATCH].cpu()
+                else:
+                    times.append(ms)
+        launches = {k: v for k, v in K.LAUNCHES.items() if v}
+        want = {a_name: blocks * len(images)} if blocks else {}
+        if launches != want:
+            raise AssertionError(f"{name} {band} launches {launches} != "
+                                 f"{want}")
+        median_ms = statistics.median(times)
+        peak = torch.cuda.max_memory_allocated(device)
+        res[band] = dict(median_ms=median_ms, batch_ms=times,
+                         frames_per_s=BATCH / (median_ms / 1e3),
+                         peak_bytes=peak, launches=launches)
+        log(f"backbone {name} SegNetwork {SIZE}^2 bs={BATCH} {band}: median "
+            f"{median_ms:.3f} ms/batch over {len(times)} batches -> "
+            f"{res[band]['frames_per_s']:.3f} frames/s; peak memory "
+            f"{peak / 2**30:.3f} GiB; launches {launches}")
+
+    t0 = time.perf_counter()
+    x = images[0][:BACKBONE_CPU_BATCH].cpu()
+    with torch.no_grad():
+        cpu = {band: copy.deepcopy(m).cpu()(x)
+               for band, m in (("fp32", m32), ("bf16", m16))}
+    rel32 = _rel_max(first["fp32"], cpu["fp32"])
+    gap_card = (first["bf16"] - first["fp32"]).abs().max().item()
+    gap_cpu = (cpu["bf16"] - cpu["fp32"]).abs().max().item()
+    err16 = (first["bf16"] - cpu["bf16"]).abs().max().item()
+    ok = (rel32 <= BACKBONE_REL_MAX and gap_card > 0 and gap_cpu > 0
+          and err16 <= 2 * max(gap_card, gap_cpu))
+    res["compare"] = dict(fp32_rel_to_max=rel32, bf16_card_vs_cpu=err16,
+                          bf16_gap_card=gap_card, bf16_gap_cpu=gap_cpu,
+                          cpu_seconds=time.perf_counter() - t0, ok=ok)
+    log(f"backbone {name} card vs CPU ({BACKBONE_CPU_BATCH} images): fp32 "
+        f"max|err|/max|ref| {rel32:.3e} (limit {BACKBONE_REL_MAX}); bf16 "
+        f"max|err| {err16:.3e}, bf16-vs-fp32 gaps card {gap_card:.3e} CPU "
+        f"{gap_cpu:.3e} (limit 2 x the larger) "
+        f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"{name}: card disagrees with the CPU: "
+                             f"{res['compare']}")
+    del m16
+
+    encoder, _ = seg_encoder(m32)
+    if hasattr(encoder.config, "drop_path_rate"):
+        encoder.config = dataclasses.replace(encoder.config,
+                                             drop_path_rate=0.0)
+    b = seeded_batch(rng, 1, SIZE, device)
+    one = dict(image=b["image1"], gt=b["gt"])
+    t0 = time.perf_counter()
+    cpu_model = copy.deepcopy(m32).cpu()
+    cpu_one = {k: v.cpu() for k, v in one.items()}
+    # the CPU's grads from the image scaled by 1 + nudge, 1 - nudge and
+    # 1 + nudge x (a seeded normal per pixel)
+    noise = torch.from_numpy(rng.standard_normal(
+        tuple(cpu_one["image"].shape)).astype(np.float32))
+    moves = []
+    for factor in (1 + BACKBONE_NUDGE, 1 - BACKBONE_NUDGE,
+                   1 + BACKBONE_NUDGE * noise):
+        moves.append(_static_grads(copy.deepcopy(cpu_model), dict(
+            cpu_one, image=cpu_one["image"] * factor))[1])
+    loss_c, grads_c = _static_grads(m32, one)
+    loss_p, grads_p = _static_grads(cpu_model, cpu_one)
+    stats_c, stats_p = _bn_stats(m32), _bn_stats(cpu_model)
+    rel = abs(loss_c - loss_p) / max(abs(loss_p), 1e-30)
+    rels, worst = grad_relmax(grads_c, grads_p)
+    moves = [grad_relmax(g, grads_p)[0] for g in moves]
+    moved = {n: max(m[n] for m in moves) for n in rels}
+    limit = {n: max(SEG_GRAD_RTOL, 2 * moved[n]) for n in rels}
+    stats = max(((_stats_rel(stats_c, stats_p, k), k) for k in stats_p),
+                default=(0.0, ""))
+    bad = [n for n, r in rels.items() if not r <= limit[n]]
+    banded = sorted(((rels[n], moved[n], n) for n in rels
+                     if rels[n] > SEG_GRAD_RTOL), reverse=True)
+    ok = rel <= TRAIN_LOSS_RTOL and not bad and stats[0] <= BN_STATS_REL
+    res["train_compare"] = dict(loss_card=loss_c, loss_cpu=loss_p,
+                                loss_rel=rel, leaves=len(rels), worst=worst,
+                                nudge_worst=max(moved.values()),
+                                above_tol_in_nudge_band=banded,
+                                bn_buffers=len(stats_p), bn_worst=stats,
+                                cpu_seconds=time.perf_counter() - t0, ok=ok)
+    log(f"backbone {name} train step card vs CPU (1 image): loss "
+        f"{loss_c:.7f} vs {loss_p:.7f} rel {rel:.3e} (tol "
+        f"{TRAIN_LOSS_RTOL}); grads over {len(rels)} leaves: worst relmax "
+        f"{worst[0][1]:.3e} (tol {SEG_GRAD_RTOL}, or 2 x the most three "
+        f"{BACKBONE_NUDGE} nudges move it, worst move "
+        f"{max(moved.values()):.3e}) top "
+        + ", ".join(f"{n}={r:.2e}" for n, r in worst)
+        + f"; {len(banded)} leaves above {SEG_GRAD_RTOL} within their "
+        f"nudge band"
+        + "".join(f", {n} {r:.2e} (moved {m:.2e})"
+                  for r, m, n in banded[:3])
+        + f"; {len(stats_p)} BatchNorm buffers after the step: worst "
+        f"{stats[0]:.3e} {stats[1]} (tol {BN_STATS_REL}) "
+        f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"{name} train step: card disagrees with the "
+                             f"CPU: loss rel {rel:.3e}, leaves {bad[:8]}, "
+                             f"statistics {stats}")
+    return res
+
+
+def dgnet_phase(device) -> dict:
+    """DGNet (EfficientNet-B4, channel 32) at 352^2, batch 8, on seeded
+    weights: one timed forward after a warm-up (no kernel of the port),
+    and both outputs card against CPU by BACKBONE_REL_MAX."""
+    import torch
+
+    from emip_tpu_torch import kernels as K
+    from emip_tpu_torch.models.dgnet import DGNet
+    from emip_tpu_torch.models.init import seeded_init_
+
+    model = seeded_init_(DGNet(), SEED).to(device).eval()
+    rng = np.random.default_rng(SEED + 51)
+    x = torch.from_numpy(seeded_frames(rng, BATCH, SIZE)).to(device)
+    K.reset_launches()
+    with torch.no_grad():
+        model(x)
+        got, ms = timed_call(lambda: model(x))
+        t0 = time.perf_counter()
+        ref = copy.deepcopy(model).cpu()(x.cpu())
+    cpu_s = time.perf_counter() - t0
+    launches = {k: v for k, v in K.LAUNCHES.items() if v}
+    rels = [_rel_max(g.cpu(), r) for g, r in zip(got, ref)]
+    ok = (not launches and all(r <= BACKBONE_REL_MAX for r in rels)
+          and all(tuple(g.shape) == (BATCH, 1, SIZE, SIZE) for g in got))
+    log(f"dgnet efficientnet_b4 {SIZE}^2 bs={BATCH} fp32: {ms:.3f} ms a "
+        f"forward; card vs CPU max|err|/max|ref| context {rels[0]:.3e}, "
+        f"texture {rels[1]:.3e} (limit {BACKBONE_REL_MAX}); launches "
+        f"{launches}; CPU side {cpu_s:.1f} s {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"DGNet: card vs CPU {rels}, launches "
+                             f"{launches}")
+    return dict(ms=ms, rel_to_max=rels, cpu_seconds=cpu_s)
+
+
+def backbones_phase(device) -> dict:
+    """The alternate encoders (BACKBONES) in SegNetwork, DGNet, and the
+    two-stream model on TWO_STREAM_BACKBONES through the slice phases
+    (fp32 and bf16 inference at 352^2, batch 8: A 32, B 6, C 3, D 1 a
+    batch for the linear PVTv2, A none for PVT-v1; one pair card against
+    CPU in each band)."""
+    import torch
+
+    from emip_tpu_torch.models.emip_short import EMIPShort, EMIPShortConfig
+    from emip_tpu_torch.models.init import seeded_init_
+
+    t0 = time.perf_counter()
+    out = {name: backbone_seg_phase(name, device, BACKBONE_TIMED)
+           for name in BACKBONES}
+    torch.cuda.empty_cache()
+    out["dgnet"] = dgnet_phase(device)
+    for name in TWO_STREAM_BACKBONES:
+        model = seeded_init_(EMIPShort(EMIPShortConfig(
+            backbone_name=name, inp_size=SIZE)), SEED).to(device).eval()
+        fp32 = slice_phase(model, BATCH, SIZE, device, BACKBONE_TIMED_SLICE,
+                           name)
+        bf16, model16 = bf16_slice_phase(model, BATCH, SIZE, device,
+                                         BACKBONE_TIMED_SLICE, fp32, name)
+        out[f"two_stream_{name}"] = dict(fp32=fp32, bf16=bf16)
+        del model, model16
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"backbones phase took {out['seconds']:.1f} s")
+    return out
+
+
+def backbone_entry_phase(size: int) -> dict:
+    """``python -m emip_tpu_torch.train_static`` (in process) from a YAML
+    naming ``res2net50_26w_4s`` with ``compute_dtype: bfloat16``: one step
+    at batch 8 on synthetic images, TF32 and the bf16 reduction on before
+    the call and off after it, no kernel of the port launched (Res2Net has
+    none), a checkpoint of fp32 tensors that loads into an fp32 model."""
+    import torch
+    import yaml
+
+    from emip_tpu_torch import kernels as K
+    from emip_tpu_torch.data import make_synthetic_static_root
+    from emip_tpu_torch.models.emip_short import SegNetwork
+    from emip_tpu_torch.train_static import main as static_main
+
+    work = os.path.join(ROOT, "build", "chip_smoke_backbone")
+    root = make_synthetic_static_root(os.path.join(work, "data"),
+                                      num_images=BATCH, seed=SEED)
+    cfg = os.path.join(work, "static.yaml")
+    with open(cfg, "w") as f:
+        yaml.safe_dump(dict(
+            train_dataset=dict(image_path=root, inp_size=size,
+                               batch_size=BATCH),
+            model=dict(args=dict(inp_size=size,
+                                 backbone_name="res2net50_26w_4s",
+                                 channel=32)),
+            optimizer=dict(lr=1.0e-5, weight_decay=1.0e-7), clip=0.5,
+            compute_dtype="bfloat16", seed=SEED, epoch=2,
+            save_path=os.path.join(work, "run")), f)
+    K.reset_launches()
+    tf32_on()
+    t0 = time.perf_counter()
+    summary = static_main(["--config", cfg, "--data_root", root,
+                           "--max_steps_per_epoch", "1"])
+    dt = time.perf_counter() - t0
+    tf32_checked_off("entry python -m emip_tpu_torch.train_static "
+                     "res2net50_26w_4s (bf16)")
+    launches = {k: v for k, v in K.LAUNCHES.items() if v}
+    state = torch.load(os.path.join(work, "run", "static", "ckpt",
+                                    "ckpt.pt"), map_location="cpu")["model"]
+    fp32_state = all(v.dtype in (torch.float32, torch.int64)
+                     for v in state.values())
+    SegNetwork("res2net50_26w_4s", 32).load_state_dict(state)
+    ok = (summary["steps"] == 1 and np.isfinite(summary["last_loss"])
+          and fp32_state and not launches)
+    log(f"entry python -m emip_tpu_torch.train_static res2net50_26w_4s "
+        f"compute_dtype=bfloat16 {size}^2 bs={BATCH}: {summary['steps']} "
+        f"step, loss {summary['last_loss']:.6f}, checkpoint of fp32 tensors "
+        f"loads into an fp32 model, launches {launches}, {dt:.1f} s "
+        f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError(f"res2net bf16 train_static entry: {summary}, "
+                             f"launches {launches}")
+    return dict(summary=summary, seconds=dt)
 
 
 def bf16_train_entry_phase(entry: dict, chain: dict, size: int) -> dict:
@@ -5688,6 +6078,9 @@ def main(argv=None) -> int:
             stats_cost(BATCH, device, KERNEL_REPS)
         if "gmflow_scales" in opts.kernels.split(","):
             gmflow_scales_phase(device, GMFLOW_SCALES_TIMED)
+        if "backbones" in opts.kernels.split(","):
+            backbones_phase(device)
+            backbone_entry_phase(SIZE)
         log("digests " + json.dumps(DIGESTS))
         return 0
     gemm_res = gemm_phase(BATCH, device, KERNEL_REPS)
@@ -5760,9 +6153,13 @@ def main(argv=None) -> int:
     static_res = static_phase(BATCH, SIZE, device, STATIC_TIMED)
     bf16_static = bf16_static_phase(BATCH, SIZE, device, BF16_TIMED_STEPS)
     torch.cuda.empty_cache()
+    # the alternate encoders, DGNet and the two-stream model on them
+    backbones_res = backbones_phase(device)
+    torch.cuda.empty_cache()
     chain_res = entry_chain_phase(entry_res, BATCH, SIZE)
     bf16_entry = bf16_entry_phase(entry_res, SIZE)
     bf16_train_entry = bf16_train_entry_phase(entry_res, chain_res, SIZE)
+    backbone_entry = backbone_entry_phase(SIZE)
     torch.cuda.empty_cache()
 
     from emip_tpu_torch.models.emip_long import EMIPLong
@@ -5925,7 +6322,8 @@ def main(argv=None) -> int:
                        bf16_train_512=train512_16,
                        bf16_read_corr=read_corr16, bf16_fused_ffn=fused_ffn16,
                        bf16_train_512_entry=train512_entry,
-                       gmflow_scales=scales_res, digests=DIGESTS),
+                       gmflow_scales=scales_res, backbones=backbones_res,
+                       backbone_entry=backbone_entry, digests=DIGESTS),
                   f, indent=1, default=str)
     log("digests " + json.dumps(DIGESTS))
     log(json.dumps(line))

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 __all__ = ["state_dict_from_flax", "state_dict_from_flax_long",
-           "state_dict_from_flax_seg",
+           "state_dict_from_flax_seg", "state_dict_from_flax_dgnet",
            "normalize_reference_keys", "load_torch_weights",
            "load_configured_weights", "SHORT_LOAD", "LONG_LOAD"]
 
@@ -187,8 +187,20 @@ def _index(tree, j):
     return np.asarray(tree)[j]
 
 
-def _pvt_into(o: _Out, base: str, depths):
-    dst = "backbone.feat_net.pvtv2_en"
+def _stacked_depths(o: _Out, base: str, probe: str) -> tuple[int, ...]:
+    """Blocks per stage of a scanned PVT: the leading axis of each stage's
+    ``probe`` leaf."""
+    node = o.p(base)
+    return tuple(int(np.shape(o._node(node[f"stage{i}"], probe))[0])
+                 for i in range(1, 5) if f"stage{i}" in node)
+
+
+def _pvt_into(o: _Out, base: str, depths=None,
+              dst: str = "backbone.feat_net.pvtv2_en"):
+    """PVTv2 (plain or linear: every linear stage has ``sr`` and
+    ``norm``); ``depths`` None reads them from the stacked params."""
+    if depths is None:
+        depths = _stacked_depths(o, base, "norm1/scale")
     for i in range(1, len(depths) + 1):
         o.conv(f"{dst}.patch_embed{i}.proj", f"{base}/patch_embed{i}/proj")
         o.ln(f"{dst}.patch_embed{i}.norm", f"{base}/patch_embed{i}/norm")
@@ -212,6 +224,98 @@ def _pvt_into(o: _Out, base: str, depths):
             o.sd[f"{d}.mlp.dwconv.dwconv.bias"] = np.asarray(
                 blk["mlp"]["dwconv"]["bias"])
             o.dense(f"{d}.mlp.fc2", None, blk["mlp"]["fc2"])
+
+
+def _pvt_v1_into(o: _Out, base: str, dst: str):
+    """PVT-v1: patch embeddings, position tables ([N, C] -> [1, N, C]) and
+    the depth-stacked blocks of ``lib/pvt.py``."""
+    node = o.p(base)
+    for i, depth in enumerate(_stacked_depths(o, base, "norm1/scale"), 1):
+        o.conv(f"{dst}.patch_embed{i}.proj", f"{base}/patch_embed{i}_proj")
+        o.ln(f"{dst}.patch_embed{i}.norm", f"{base}/patch_embed{i}_norm")
+        o.sd[f"{dst}.pos_embed{i}"] = np.asarray(node[f"pos_embed{i}"])[None]
+        stage = node[f"stage{i}"]
+        for j in range(depth):
+            blk = _index(stage, j)
+            d = f"{dst}.block{i}.{j}"
+            o.ln(f"{d}.norm1", None, blk["norm1"])
+            o.ln(f"{d}.norm2", None, blk["norm2"])
+            for name in ("q", "kv", "proj"):
+                o.dense(f"{d}.attn.{name}", None, blk[name])
+            if "sr" in blk:
+                o.sd[f"{d}.attn.sr.weight"] = _conv(blk["sr"]["kernel"])
+                o.sd[f"{d}.attn.sr.bias"] = np.asarray(blk["sr"]["bias"])
+                o.ln(f"{d}.attn.norm", None, blk["norm"])
+            o.dense(f"{d}.mlp.fc1", None, blk["fc1"])
+            o.dense(f"{d}.mlp.fc2", None, blk["fc2"])
+
+
+def _res2net_into(o: _Out, base: str, dst: str):
+    """Res2Net-50 v1b: the deep stem as ``conv1.{0,1,3,4,6}`` and ``bn1``,
+    the blocks' convs, splits and v1b shortcut (``downsample.1/.2``)."""
+    for i, (conv, bn) in enumerate((("0", "1"), ("3", "4"), ("6", None))):
+        o.conv(f"{dst}.conv1.{conv}", f"{base}/stem{i}")
+        o.bn(f"{dst}.conv1.{bn}" if bn else f"{dst}.bn1",
+             f"{base}/stem_bn{i}")
+    blocks = sorted((tuple(int(v) for v in k[len("layer"):].split("_")), k)
+                    for k in o.p(base) if k.startswith("layer"))
+    for (stage, j), name in blocks:
+        src, d = f"{base}/{name}", f"{dst}.layer{stage}.{j}"
+        o.conv(f"{d}.conv1", f"{src}/conv1")
+        o.bn(f"{d}.bn1", f"{src}/bn1")
+        i = 0
+        while o.has(f"{src}/convs{i}"):
+            o.conv(f"{d}.convs.{i}", f"{src}/convs{i}")
+            o.bn(f"{d}.bns.{i}", f"{src}/bns{i}")
+            i += 1
+        o.conv(f"{d}.conv3", f"{src}/conv3")
+        o.bn(f"{d}.bn3", f"{src}/bn3")
+        if o.has(f"{src}/down_conv"):
+            o.conv(f"{d}.downsample.1", f"{src}/down_conv")
+            o.bn(f"{d}.downsample.2", f"{src}/down_bn")
+
+
+def _efficientnet_into(o: _Out, base: str, dst: str):
+    """EfficientNet: ``_conv_stem``, ``_bn0`` and the MBConv blocks
+    numbered across stages (flax ``block{stage}_{repeat}`` in order)."""
+    o.conv(f"{dst}._conv_stem", f"{base}/stem")
+    o.bn(f"{dst}._bn0", f"{base}/stem_bn")
+    blocks = sorted((tuple(int(v) for v in k[len("block"):].split("_")), k)
+                    for k in o.p(base) if k.startswith("block"))
+    for n, (_, name) in enumerate(blocks):
+        src, d = f"{base}/{name}", f"{dst}._blocks.{n}"
+        if o.has(f"{src}/expand_conv"):
+            o.conv(f"{d}._expand_conv", f"{src}/expand_conv")
+            o.bn(f"{d}._bn0", f"{src}/bn0")
+        o.conv(f"{d}._depthwise_conv", f"{src}/dwconv")
+        o.bn(f"{d}._bn1", f"{src}/bn1")
+        o.conv(f"{d}._se_reduce", f"{src}/se_reduce")
+        o.conv(f"{d}._se_expand", f"{src}/se_expand")
+        o.conv(f"{d}._project_conv", f"{src}/project_conv")
+        o.bn(f"{d}._bn2", f"{src}/bn2")
+
+
+def _encoder_into(o: _Out, base: str, prefix: str = "backbone.feat_net",
+                  depths=None):
+    """Any backbone of the registry, told apart by its flax names, under
+    ``prefix.<the encoder's feat_net_key>``."""
+    from emip_tpu_torch.models.efficientnet import EfficientNetBackbone
+    from emip_tpu_torch.models.pvt_v1 import PVTv1
+    from emip_tpu_torch.models.pvt_v2 import PVTv2
+    from emip_tpu_torch.models.res2net import Res2Net50V1b
+
+    node = o.p(base)
+    if "patch_embed1" in node:
+        _pvt_into(o, base, depths, f"{prefix}.{PVTv2.feat_net_key}")
+    elif "patch_embed1_proj" in node:
+        _pvt_v1_into(o, base, f"{prefix}.{PVTv1.feat_net_key}")
+    elif "stem0" in node:
+        _res2net_into(o, base, f"{prefix}.{Res2Net50V1b.feat_net_key}")
+    elif "stem" in node:
+        _efficientnet_into(o, base,
+                           f"{prefix}.{EfficientNetBackbone.feat_net_key}")
+    else:
+        raise KeyError(f"{base}: not a backbone of the registry")
 
 
 def _gmflow_into(o: _Out, base: str, num_layers: int):
@@ -279,15 +383,16 @@ def _decoder_into(o: _Out, dst: str, src: str):
     o.conv(f"{dst}.conv5", f"{src}/conv5")
 
 
-def state_dict_from_flax(variables: dict, depths=(3, 6, 40, 3),
+def state_dict_from_flax(variables: dict, depths=None,
                          num_layers: int = 6) -> dict[str, torch.Tensor]:
     """JAX ``EMIPShort`` variables -> :class:`EMIPShort` ``state_dict``.
 
-    ``depths`` are the PVT stage depths and ``num_layers`` the flow
-    transformer's block count. Dead modules are converted when present.
+    ``depths`` are the PVTv2 stage depths (None: read from the stacked
+    params) and ``num_layers`` the flow transformer's block count. Dead
+    modules are converted when present.
     """
     o = _Out(variables["params"], variables.get("batch_stats", {}))
-    _pvt_into(o, "backbone", depths)
+    _encoder_into(o, "backbone", depths=depths)
     _gmflow_into(o, "gmflow", num_layers)
     _injector_into(o, "injector")
     _injector_into(o, "injector1")
@@ -313,21 +418,45 @@ def state_dict_from_flax(variables: dict, depths=(3, 6, 40, 3),
     return _as_tensors(o.sd)
 
 
-def state_dict_from_flax_seg(variables: dict, depths=(3, 6, 40, 3)
+def state_dict_from_flax_seg(variables: dict, depths=None
                              ) -> dict[str, torch.Tensor]:
-    """JAX ``SegNetwork`` variables -> :class:`SegNetwork` ``state_dict``.
+    """JAX ``SegNetwork`` variables -> :class:`SegNetwork` ``state_dict``,
+    for any backbone of the registry (``depths``: as
+    :func:`state_dict_from_flax`'s).
 
-    The flax module names its backbone itself (``PVTv2_0``): the one
-    top-level entry that is not ``dr1``-``dr3`` or ``decoder``.
+    The flax module names its backbone itself (``PVTv2_0``,
+    ``Res2Net50V1b_0``, ...): the one top-level entry that is not
+    ``dr1``-``dr3`` or ``decoder``.
     """
     params = variables["params"]
     o = _Out(params, variables.get("batch_stats", {}))
     heads = ("dr1", "dr2", "dr3", "decoder")
     (backbone,) = [k for k in params if k not in heads]
-    _pvt_into(o, backbone, depths)
+    _encoder_into(o, backbone, depths=depths)
     for dr in heads[:3]:
         o.dimred(dr, dr)
     _decoder_into(o, "decoder", "decoder")
+    return _as_tensors(o.sd)
+
+
+def state_dict_from_flax_dgnet(variables: dict) -> dict[str, torch.Tensor]:
+    """JAX ``DGNet`` variables -> :class:`DGNet` ``state_dict``: the
+    context encoder (the flax module's unnamed ``EfficientNetBackbone_0``)
+    under ``context_encoder``, ``dr3``-``dr5``, the texture encoder, the
+    transition's grouped convs and the NCD."""
+    params = variables["params"]
+    o = _Out(params, variables.get("batch_stats", {}))
+    heads = ("dr3", "dr4", "dr5", "texture", "git", "ncd")
+    (encoder,) = [k for k in params if k not in heads]
+    _efficientnet_into(o, encoder, "context_encoder")
+    for dr in heads[:3]:
+        o.dimred(dr, dr)
+    for name in ("conv1", "conv2", "conv3", "conv_out"):
+        o.convbr(f"texture_encoder.{name}", f"texture/{name}")
+    for i in (3, 4, 5):
+        for j in (1, 2, 3):
+            o.conv(f"git.sgs{i}.g_conv{j}", f"git/sgs{i}/g_conv{j}")
+    _decoder_into(o, "ncd", "ncd")
     return _as_tensors(o.sd)
 
 

@@ -106,7 +106,28 @@ class LayerNorm(nn.LayerNorm):
 
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` that computes and returns fp32 whatever its input
-    (flax's ``BatchNorm(dtype=float32)`` in the JAX package's bf16 model)."""
+    (flax's ``BatchNorm(dtype=float32)`` in the JAX package's bf16 model).
+
+    In train mode it normalises with the batch statistics, as torch's does,
+    and updates ``running_var`` with the biased batch variance, as flax's
+    does (torch's own update takes the unbiased one, larger by n / (n - 1)
+    for n elements a channel). ``momentum`` is torch's: flax's 0.9 is 0.1.
+    """
 
     def forward(self, x):
-        return super().forward(x.float())
+        x = x.float()
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        self._check_input_dim(x)
+        self.num_batches_tracked.add_(1)
+        # torch's update goes to a copy (which autograd keeps, so it must
+        # not change after the call); it adds momentum * var * n / (n - 1),
+        # which exceeds flax's momentum * var by (its addition) / n
+        torch_var = self.running_var.clone()
+        out = F.batch_norm(x, self.running_mean, torch_var, self.weight,
+                           self.bias, True, self.momentum, self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            self.running_var.copy_(torch_var - (
+                torch_var - (1.0 - self.momentum) * self.running_var) / n)
+        return out

@@ -28,10 +28,10 @@ class ConvBR(nn.Module):
     """Conv (no bias) + BatchNorm + ReLU."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
-                 padding: int = 1):
+                 padding: int = 1, stride: int = 1):
         super().__init__()
-        self.conv = Conv2d(in_ch, out_ch, kernel_size, padding=padding,
-                           bias=False)
+        self.conv = Conv2d(in_ch, out_ch, kernel_size, stride=stride,
+                           padding=padding, bias=False)
         self.bn = BatchNorm2d(out_ch, eps=1e-5)
 
     def forward(self, x):
@@ -78,12 +78,15 @@ def _up2(x):
 class NeighborConnectionDecoder(nn.Module):
     """Fuse (zt5 @ /32, zt4 @ /16, zt3 @ /8) into 1-channel logits at /1.
 
-    The final x8 upsample is bilinear with align_corners=False.
+    The final x8 upsample is bilinear with align_corners=False, in fp32.
+    ``final_upsample=False`` returns the /8 logits in the compute dtype (the
+    DGNet variant, which upsamples them itself).
     """
 
-    def __init__(self, channel: int = 32):
+    def __init__(self, channel: int = 32, final_upsample: bool = True):
         super().__init__()
         c = channel
+        self.final_upsample = final_upsample
         self.conv_upsample1 = ConvBR(c, c)
         self.conv_upsample2 = ConvBR(c, c)
         self.conv_upsample3 = ConvBR(c, c)
@@ -102,7 +105,10 @@ class NeighborConnectionDecoder(nn.Module):
             torch.cat([zt4_1, self.conv_upsample4(_up2(zt5))], dim=1))
         zt3_2 = self.conv_concat3(
             torch.cat([zt3_1, self.conv_upsample5(_up2(zt4_2))], dim=1))
-        logits = self.conv5(self.conv4(zt3_2)).float()
+        logits = self.conv5(self.conv4(zt3_2))
+        if not self.final_upsample:
+            return logits
+        logits = logits.float()
         h, w = logits.shape[2:]
         return resize_bilinear(logits, (8 * h, 8 * w), align_corners=False)
 

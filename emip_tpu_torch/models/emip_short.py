@@ -1,8 +1,9 @@
 """EMIP short-term model: the two-stream co-updater, NCHW.
 
 Counterpart of :mod:`emip_tpu.models.emip_short` (reference
-``model/EMIP_short/model.py`` ``CoUpdater``): PVTv2 segmentation features
-and GMFlow CNN features for both frames; the camouflage feeder
+``model/EMIP_short/model.py`` ``CoUpdater``): segmentation features (PVTv2
+b5 by default, or any backbone whose /8 stage is GMFlow's width: the linear
+PVTv2 and PVT-v1) and GMFlow CNN features for both frames; the camouflage feeder
 (``injector``) injects segmentation features into the motion stream; the
 flow engine matches the injected features and returns bidirectional flow
 plus the raw correlation volume; ``conv_corr`` embeds the volume and the
@@ -38,7 +39,7 @@ import torch
 import torch.nn as nn
 
 from emip_tpu_torch.dtypes import BatchNorm2d, Conv2d, set_compute_dtype
-from emip_tpu_torch.models.backbones import create_backbone
+from emip_tpu_torch.models.backbones import BackboneConfig, create_backbone
 from emip_tpu_torch.models.common import (
     DimensionalReduction,
     LayerNorm2d,
@@ -46,7 +47,6 @@ from emip_tpu_torch.models.common import (
 )
 from emip_tpu_torch.models.gmflow import GMFlow, GMFlowConfig
 from emip_tpu_torch.models.prompt import Injector
-from emip_tpu_torch.models.pvt_v2 import PVTv2Config
 
 __all__ = ["EMIPShortConfig", "EMIPShort", "SegNetwork"]
 
@@ -54,9 +54,9 @@ __all__ = ["EMIPShortConfig", "EMIPShort", "SegNetwork"]
 @dataclasses.dataclass(frozen=True)
 class EMIPShortConfig:
     """Mirror of the JAX ``EMIPShortConfig``; ``backbone_name`` may also be
-    a :class:`PVTv2Config` (reduced depths)."""
+    a backbone's configuration (reduced depths)."""
 
-    backbone_name: str | PVTv2Config = "pvt_v2_b5"
+    backbone_name: str | BackboneConfig = "pvt_v2_b5"
     channel: int = 32
     inp_size: int = 352
     gmflow: GMFlowConfig = GMFlowConfig()
@@ -69,20 +69,27 @@ class EMIPShortConfig:
 
 
 class _FeatNet(nn.Module):
-    def __init__(self, pvt: nn.Module):
+    """The reference's ``FeatureExtraction``: the encoder under the
+    attribute its family has there (``feat_net_key``: ``pvtv2_en``, ...)."""
+
+    def __init__(self, encoder: nn.Module):
         super().__init__()
-        self.pvtv2_en = pvt
+        self.key = encoder.feat_net_key
+        setattr(self, self.key, encoder)
+
+    def forward(self, x, generator=None):
+        return getattr(self, self.key)(x, generator)
 
 
 class _SegBackbone(nn.Module):
-    """``backbone.feat_net.pvtv2_en`` in the reference's key space."""
+    """``backbone.feat_net.<encoder>`` in the reference's key space."""
 
-    def __init__(self, pvt: nn.Module):
+    def __init__(self, encoder: nn.Module):
         super().__init__()
-        self.feat_net = _FeatNet(pvt)
+        self.feat_net = _FeatNet(encoder)
 
     def forward(self, x, generator=None):
-        return self.feat_net.pvtv2_en(x, generator)
+        return self.feat_net(x, generator)
 
 
 def _set_dtype(module: nn.Module, dtype: torch.dtype) -> None:
@@ -103,9 +110,10 @@ class EMIPShort(nn.Module):
         super().__init__()
         cfg = config
         self.config = cfg
-        pvt, ch = create_backbone(cfg.backbone_name, fused_ffn=cfg.fused_ffn,
-                                  ffn_dwconv=cfg.ffn_dwconv)
-        self.backbone = _SegBackbone(pvt)
+        encoder, ch = create_backbone(cfg.backbone_name,
+                                      fused_ffn=cfg.fused_ffn,
+                                      ffn_dwconv=cfg.ffn_dwconv)
+        self.backbone = _SegBackbone(encoder)
         fdim = cfg.gmflow.feature_channels
         if cfg.gmflow.num_scales != 1:
             # the flow encoder returns one scale (/8) of features in both
@@ -114,8 +122,13 @@ class EMIPShort(nn.Module):
                              f"flow encoder gives one scale of features, "
                              f"not {cfg.gmflow.num_scales}")
         if ch[1] != fdim:
+            # the injectors add a fdim-wide attention output to the /8 map,
+            # in the JAX package too: Res2Net (512) and EfficientNet (24 /
+            # 32) cannot feed a 128-wide GMFlow
             raise ValueError(f"GMFlow feature_channels ({fdim}) must equal "
-                             f"the backbone's /8 width ({ch[1]})")
+                             f"the backbone's /8 width ({ch[1]}): the "
+                             f"injectors add GMFlow-wide features to that "
+                             f"map")
         self.GMFlow = GMFlow(cfg.gmflow)
         self.injector = Injector(dim=fdim)
         self.injector1 = Injector(dim=fdim)
@@ -135,8 +148,8 @@ class EMIPShort(nn.Module):
             self.dr2_new = nn.Conv2d(128, 32, 3, stride=2, padding=1)
             self.dr3_new = nn.Sequential(
                 nn.Conv2d(128, 64, 3, stride=2, padding=1),
-                nn.BatchNorm2d(64), nn.ReLU(inplace=True),
-                nn.Conv2d(64, 32, 3, stride=2, padding=1), nn.BatchNorm2d(32))
+                BatchNorm2d(64), nn.ReLU(inplace=True),
+                nn.Conv2d(64, 32, 3, stride=2, padding=1), BatchNorm2d(32))
             self.downscaling1 = nn.Sequential(
                 nn.Conv2d(64, 128, 2, stride=2), LayerNorm2d(128))
             self.upscaling4 = nn.Sequential(
@@ -193,7 +206,7 @@ class EMIPShort(nn.Module):
 
 
 class SegNetwork(nn.Module):
-    """Static-image segmentation network: PVTv2 backbone, one
+    """Static-image segmentation network: any registered backbone, one
     ``DimensionalReduction`` per stage at /8, /16, /32 (``dr1``, ``dr2``,
     ``dr3``) and the NCD (``decoder``), giving logits [B, 1, H, W] at the
     input size.
@@ -217,14 +230,14 @@ class SegNetwork(nn.Module):
     ``state_dict`` is the fp32 one either way.
     """
 
-    def __init__(self, backbone_name: str | PVTv2Config = "pvt_v2_b5",
+    def __init__(self, backbone_name: str | BackboneConfig = "pvt_v2_b5",
                  channel: int = 32, fused_ffn: str | None = None,
                  ffn_dwconv: str | None = None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        pvt, ch = create_backbone(backbone_name, fused_ffn=fused_ffn,
-                                  ffn_dwconv=ffn_dwconv)
-        self.backbone = _SegBackbone(pvt)
+        encoder, ch = create_backbone(backbone_name, fused_ffn=fused_ffn,
+                                      ffn_dwconv=ffn_dwconv)
+        self.backbone = _SegBackbone(encoder)
         self.dr1 = DimensionalReduction(ch[-3], channel)
         self.dr2 = DimensionalReduction(ch[-2], channel)
         self.dr3 = DimensionalReduction(ch[-1], channel)

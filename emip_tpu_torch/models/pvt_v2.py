@@ -4,6 +4,10 @@ Four stages of overlapping patch embedding + spatial-reduction attention
 blocks; b5 = dims (64, 128, 320, 512), heads (1, 2, 5, 8), depths
 (3, 6, 40, 3), sr (8, 4, 2, 1). Module names and ``state_dict`` keys follow
 the reference's ``lib/pvt_v2.py`` (``block1.0.attn.q.weight``, ...).
+``linear=True`` (``pvt_v2_b2_li``) is the reference's linear variant: at
+every stage the keys are the tokens area-pooled to 7 x 7, then a 1x1 conv
+(``sr``), LayerNorm (``norm``) and exact GELU, so kernel A runs on 49 keys;
+its MixFFN takes a ReLU after ``fc1``.
 
 What the JAX package does for the TPU is not carried over: no ``nn.scan``
 over stacked block params (a plain loop over blocks), no remat, and exact
@@ -14,7 +18,8 @@ The MixFFN's depthwise conv + bias + GELU is the library's by default;
 ``PVTv2Config.fused_ffn = "always"`` runs it as kernel J
 (:func:`emip_tpu_torch.kernels.fused_dwconv_gelu`) forward and backward,
 ``ffn_dwconv = "bwd_fused"`` keeps the library's forward and takes J's
-backward (the JAX package's two switches, with its defaults).
+backward (the JAX package's two switches, with its defaults; as there,
+``fused_ffn`` leaves a linear block's forward on the library's conv).
 In train mode each block's two residual branches take stochastic depth at
 a rate ramping linearly to ``drop_path_rate`` over all blocks; its random
 bits come from the ``torch.Generator`` handed to :meth:`PVTv2.forward`.
@@ -41,6 +46,7 @@ from emip_tpu_torch.dtypes import (
     compute_dtype,
 )
 from emip_tpu_torch.kernels import fused_dwconv_gelu, fused_sr_attention
+from emip_tpu_torch.ops.image import resize_area
 
 __all__ = ["PVTv2Config", "PVT_V2_VARIANTS", "PVTv2", "PVTBlock",
            "SRAttention", "MixFFN", "OverlapPatchEmbed", "drop_path"]
@@ -62,6 +68,8 @@ class PVTv2Config:
     # "conv": the library's conv and GELU, forward and backward;
     # "bwd_fused": the library's forward, kernel J's backward
     ffn_dwconv: str = "conv"
+    # the linear variant: 7x7 pooled keys at every stage, ReLU in the MixFFN
+    linear: bool = False
 
     def __post_init__(self):
         if self.fused_ffn not in ("never", "always"):
@@ -79,6 +87,9 @@ PVT_V2_VARIANTS = {
                              (2, 2, 2, 2), (8, 4, 2, 1)),
     "pvt_v2_b2": PVTv2Config((64, 128, 320, 512), (1, 2, 5, 8), (8, 8, 4, 4),
                              (3, 4, 6, 3), (8, 4, 2, 1)),
+    "pvt_v2_b2_li": PVTv2Config((64, 128, 320, 512), (1, 2, 5, 8),
+                                (8, 8, 4, 4), (3, 4, 6, 3), (8, 4, 2, 1),
+                                linear=True),
     "pvt_v2_b3": PVTv2Config((64, 128, 320, 512), (1, 2, 5, 8), (8, 8, 4, 4),
                              (3, 4, 18, 3), (8, 4, 2, 1)),
     "pvt_v2_b4": PVTv2Config((64, 128, 320, 512), (1, 2, 5, 8), (8, 8, 4, 4),
@@ -92,25 +103,36 @@ class SRAttention(nn.Module):
     """Spatial-reduction multi-head attention on tokens [B, N, C].
 
     The sr conv + LayerNorm that reduce the keys stay in PyTorch; the
-    q / kv / proj projections and the attention are kernel A.
+    q / kv / proj projections and the attention are kernel A. ``linear``:
+    the keys come from the tokens area-pooled to 7 x 7 (in fp32, as the
+    JAX package's resize), a 1x1 ``sr`` conv, ``norm`` and exact GELU.
     """
 
     def __init__(self, dim: int, num_heads: int, sr_ratio: int,
-                 qkv_bias: bool = True):
+                 qkv_bias: bool = True, linear: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.sr_ratio = sr_ratio
+        self.linear = linear
         self.q = nn.Linear(dim, dim, bias=qkv_bias)
         self.kv = nn.Linear(dim, 2 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
-        if sr_ratio > 1:
+        if linear:
+            self.sr = Conv2d(dim, dim, 1)
+            self.norm = LayerNorm(dim, eps=_LN_EPS)
+        elif sr_ratio > 1:
             self.sr = Conv2d(dim, dim, sr_ratio, stride=sr_ratio)
             self.norm = LayerNorm(dim, eps=_LN_EPS)
 
     def forward(self, x: torch.Tensor, h: int, w: int) -> torch.Tensor:
         dt = compute_dtype(self)
         b, n, c = x.shape
-        if self.sr_ratio > 1:
+        if self.linear:
+            maps = x.transpose(1, 2).reshape(b, c, h, w)
+            pooled = resize_area(maps.float(), (7, 7)).to(x.dtype)
+            kv_in = self.norm(self.sr(pooled).flatten(2).transpose(1, 2))
+            kv_in = F.gelu(kv_in)
+        elif self.sr_ratio > 1:
             kv_in = self.sr(x.transpose(1, 2).reshape(b, c, h, w))
             kv_in = self.norm(kv_in.flatten(2).transpose(1, 2))
         else:
@@ -137,25 +159,31 @@ class _DWConv(nn.Module):
 
 
 class MixFFN(nn.Module):
-    """Linear -> 3x3 depthwise conv -> exact GELU -> Linear.
+    """Linear (-> ReLU with ``linear``) -> 3x3 depthwise conv -> exact
+    GELU -> Linear.
 
-    ``use_fused="always"`` runs conv + bias + GELU as kernel J;
-    ``dwconv_impl="bwd_fused"`` runs the library's forward and J's
-    backward. The parameters and their keys are the same either way.
+    ``use_fused="always"`` runs conv + bias + GELU as kernel J, except in a
+    linear block (the JAX package's gate); ``dwconv_impl="bwd_fused"`` runs
+    the library's forward and J's backward. The parameters and their keys
+    are the same either way.
     """
 
     def __init__(self, dim: int, hidden: int, use_fused: str = "never",
-                 dwconv_impl: str = "conv"):
+                 dwconv_impl: str = "conv", linear: bool = False):
         super().__init__()
         self.use_fused = use_fused
         self.dwconv_impl = dwconv_impl
+        self.linear = linear
         self.fc1 = Linear(dim, hidden)
         self.dwconv = _DWConv(hidden)
         self.fc2 = Linear(hidden, dim)
 
     def forward(self, x, h, w):
         y = self.fc1(x)
-        if self.use_fused == "always" or self.dwconv_impl == "bwd_fused":
+        if self.linear:
+            y = F.relu(y)
+        fused = self.use_fused == "always" and not self.linear
+        if fused or self.dwconv_impl == "bwd_fused":
             conv = self.dwconv.dwconv
             # [F, 1, 3, 3] -> the kernel's [3, 3, F], in the compute dtype
             # (the JAX MixFFN casts the taps, so a bf16 tap grad is rounded
@@ -164,7 +192,7 @@ class MixFFN(nn.Module):
             taps = taps[:, 0].permute(1, 2, 0).contiguous()
             y = fused_dwconv_gelu(
                 y.contiguous(), taps, conv.bias, h, w,
-                library_forward=self.use_fused != "always")
+                library_forward=not fused)
         else:
             y = F.gelu(self.dwconv(y, h, w))
         return self.fc2(y)
@@ -188,12 +216,14 @@ class PVTBlock(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: int,
                  sr_ratio: int, qkv_bias: bool = True,
-                 fused_ffn: str = "never", ffn_dwconv: str = "conv"):
+                 fused_ffn: str = "never", ffn_dwconv: str = "conv",
+                 linear: bool = False):
         super().__init__()
         self.norm1 = LayerNorm(dim, eps=_LN_EPS)
-        self.attn = SRAttention(dim, num_heads, sr_ratio, qkv_bias)
+        self.attn = SRAttention(dim, num_heads, sr_ratio, qkv_bias, linear)
         self.norm2 = LayerNorm(dim, eps=_LN_EPS)
-        self.mlp = MixFFN(dim, int(dim * mlp_ratio), fused_ffn, ffn_dwconv)
+        self.mlp = MixFFN(dim, int(dim * mlp_ratio), fused_ffn, ffn_dwconv,
+                          linear)
 
     def forward(self, x, h, w, drop_rate: float = 0.0,
                 generator: torch.Generator | None = None):
@@ -224,6 +254,8 @@ class OverlapPatchEmbed(nn.Module):
 class PVTv2(nn.Module):
     """4-stage pyramid encoder; returns NCHW features at /4, /8, /16, /32."""
 
+    feat_net_key = "pvtv2_en"
+
     def __init__(self, config: PVTv2Config = PVTv2Config()):
         super().__init__()
         cfg = config
@@ -236,11 +268,15 @@ class PVTv2(nn.Module):
             setattr(self, f"block{i + 1}", nn.ModuleList(
                 PVTBlock(cfg.embed_dims[i], cfg.num_heads[i],
                          cfg.mlp_ratios[i], cfg.sr_ratios[i], cfg.qkv_bias,
-                         cfg.fused_ffn, cfg.ffn_dwconv)
+                         cfg.fused_ffn, cfg.ffn_dwconv, cfg.linear)
                 for _ in range(cfg.depths[i])))
             setattr(self, f"norm{i + 1}",
                     LayerNorm(cfg.embed_dims[i], eps=_LN_EPS))
             in_chans = cfg.embed_dims[i]
+
+    @property
+    def stage_channels(self) -> tuple[int, ...]:
+        return tuple(self.config.embed_dims)
 
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None

@@ -202,7 +202,10 @@ def _parent_sr(x, kv_in, wq, bq, wkv, bkv, wp, bp, heads, g):
 
 
 @pytest.mark.parametrize("n,m,c,heads", [(36, 9, 32, 1), (64, 25, 64, 2),
-                                         (36, 9, 40, 5)])
+                                         (36, 9, 40, 5),
+                                         # the linear PVTv2's 49 keys; its
+                                         # stage 3 at 352^2, one image
+                                         (64, 49, 64, 2), (484, 49, 320, 5)])
 def test_sr_attention_bwd_bf16_walk(n, m, c, heads):
     """A's bf16 backward walk: the same bits as the fp32 backward on the
     upcast inputs, rounded (heads of width 32 and 8, one, two and five

@@ -44,7 +44,10 @@ def _rel(got, want) -> float:
 @pytest.mark.parametrize("n,m,c,heads", [
     (100, 121, 64, 1), (70, 121, 32, 1), (64, 121, 128, 2), (36, 25, 64, 2),
     (36, 121, 160, 5), (49, 250, 320, 5), (121, 121, 256, 8),
-    (20, 256, 512, 8)])
+    (20, 256, 512, 8),
+    # the linear PVTv2's 49 keys (one key tile and a ragged one); its stage
+    # 4 at 352^2
+    (100, 49, 64, 1), (121, 49, 512, 8)])
 def test_sr_attention_fwd_bf16_walk(n, m, c, heads):
     """The walk against the plain bf16 version and the Pallas kernel in
     bf16, each within the bf16 band; bf16 out of [B, N, C]."""

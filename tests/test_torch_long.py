@@ -425,9 +425,17 @@ def jax_long_train(long_pair):
     loss, grads = loss_and_grads(state.params)
     step = make_long_train_step(jm, tx, donate=False)
     new_state, new_mem, metrics = step(state, mem, f[1], f[2], gt)
+    # the same compiled step on two frames more (the three-step A/B)
+    extra = _frames(2, seed=19)
+    clip = [f[2]] + extra
+    ab_state, ab_mem, ab_losses = new_state, new_mem, [float(metrics["loss"])]
+    for prev, cur in zip(clip[:-1], clip[1:]):
+        ab_state, ab_mem, m = step(ab_state, ab_mem, prev, cur, gt)
+        ab_losses.append(float(m["loss"]))
     return dict(state=state, new_state=new_state, new_mem=new_mem,
                 metrics=metrics, loss=float(loss), grads=grads,
-                frames=f, gt=gt)
+                frames=f, gt=gt, ab_frames=extra, ab_losses=ab_losses,
+                ab_state=ab_state)
 
 
 def _as_port_keys(long_pair, trainable, frozen, batch_stats):
@@ -508,19 +516,15 @@ def test_one_long_train_step_matches_jax(long_pair, jax_long_train):
         total += d.numel()
         agree += int((d <= 1e-3 * STEP_LR).sum())
     assert agree >= STEP_AGREE_SHARE * total, agree / total
-    # BatchNorm statistics of the long heads: the running mean as flax;
-    # torch updates the running variance with the unbiased batch variance
-    # (n / (n - 1)), flax with the biased one
+    # BatchNorm statistics of the long heads: the running mean and
+    # variance as flax's (the biased batch variance)
     heads = [n for n in bn_inputs if not n.startswith("short_term.")]
     assert len(heads) == 13  # fusion 1, long_dr 2, dr1 2, decoder 8
     for name in heads:
-        shape = bn_inputs[name]
-        n = shape[0] * shape[2] * shape[3]
         rm, rv = f"{name}.running_mean", f"{name}.running_var"
         np.testing.assert_allclose(got[rm].numpy(), want[rm].numpy(),
                                    rtol=1e-4, atol=1e-6, err_msg=rm)
-        bessel = want[rv] + (want[rv] - 0.9 * before[rv]) / (n - 1)
-        np.testing.assert_allclose(got[rv].numpy(), bessel.numpy(),
+        np.testing.assert_allclose(got[rv].numpy(), want[rv].numpy(),
                                    rtol=1e-4, err_msg=rv)
     # the memory that is carried on: the new frame pushed, detached
     keys, values, valid = _ring(new_mem)
@@ -535,6 +539,47 @@ def test_one_long_train_step_matches_jax(long_pair, jax_long_train):
 
 
 # ------------------------------------------------------------ host code
+
+
+# the fp32 A/B of PARITY.md on the long model: three per-frame clamp +
+# AdamW steps at STEP_LR from identical weights along one clip (the first
+# is the one-step test's): the losses to AB_LOSS_RTOL, and the long heads'
+# BatchNorm statistics after the three steps to AB_STATS_REL of each
+# buffer's max|ref|
+AB_LOSS_RTOL = 1e-4
+AB_STATS_REL = 1e-4
+
+
+def test_three_long_train_steps_match_jax(long_pair, jax_long_train):
+    from emip_tpu_torch.train.long import long_train_step
+    from emip_tpu_torch.train.state import build_long_optimizer
+
+    _, _, port = long_pair
+    j = jax_long_train
+    f = [th.nchw(x) for x in j["frames"] + j["ab_frames"]]
+    gt = th.nchw(j["gt"])
+    model = copy.deepcopy(port)
+    opt = build_long_optimizer(model, STEP_LR, 1e-7, 0.5)
+    with torch.no_grad():
+        _, _, mem = model.step(f[0], f[1], model.init_memory(2))
+        enc = model.encode_frame(f[1])
+    losses = []
+    for cur in f[2:]:
+        metrics, enc, mem = long_train_step(model, opt, enc, cur, gt, mem)
+        losses.append(float(metrics["loss"]))
+    want = j["ab_losses"]
+    assert len(losses) == len(want) == 3 and np.isfinite(losses).all()
+    delta = np.abs(np.asarray(losses) - np.asarray(want))
+    assert delta.max() <= AB_LOSS_RTOL * np.abs(want).max(), (losses, want)
+    new = j["ab_state"]
+    ref = _as_port_keys(long_pair, new.params, new.frozen, new.batch_stats)
+    got = model.state_dict()
+    stats = [k for k in ref if k.endswith(("running_mean", "running_var"))
+             and not k.startswith("short_term.")]
+    assert stats
+    worst = max((float((got[k] - ref[k]).abs().max() / ref[k].abs().max()),
+                 k) for k in stats)
+    assert worst[0] <= AB_STATS_REL, worst
 
 
 @pytest.fixture(scope="module")

@@ -205,12 +205,16 @@ def test_cli_parses_test_py_flags():
 
 
 def test_backbone_factory():
+    """b5 and Res2Net-50 v1b build with their stage channels; an unknown
+    name raises."""
     from emip_tpu_torch.models.backbones import create_backbone
+    from emip_tpu_torch.models.res2net import Res2Net50V1b
 
     _, ch = create_backbone("pvt_v2_b5")
     assert ch == (64, 128, 320, 512)
-    with pytest.raises(NotImplementedError):
-        create_backbone("res2net50_26w_4s")
+    module, ch = create_backbone("res2net50_26w_4s")
+    assert isinstance(module, Res2Net50V1b)
+    assert ch == (256, 512, 1024, 2048)
     with pytest.raises(ValueError):
         create_backbone("no_such_backbone")
 

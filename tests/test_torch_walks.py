@@ -190,7 +190,10 @@ def _sr_walk(x, kv_in, wq, bq, wkv, bkv, wp, bp, heads, g, mm):
 
 @pytest.mark.parametrize("product", ["fp32", "3xtf32"])
 @pytest.mark.parametrize("n,m,c,heads", [(36, 9, 32, 1), (64, 25, 64, 2),
-                                         (36, 9, 64, 1), (64, 25, 128, 2)])
+                                         (36, 9, 64, 1), (64, 25, 128, 2),
+                                         # the linear PVTv2's 49 keys; its
+                                         # stage 4 at 352^2
+                                         (64, 49, 64, 2), (121, 49, 512, 8)])
 def test_sr_attention_fwd_walk(n, m, c, heads, product):
     """Kernel A's forward walk (head widths 32 and 64, one and two heads,
     read at their columns of the q and [k | v] buffers; M ragged against
@@ -219,7 +222,10 @@ def test_sr_attention_fwd_walk(n, m, c, heads, product):
 
 @pytest.mark.parametrize("product", ["fp32", "3xtf32"])
 @pytest.mark.parametrize("n,m,c,heads", [(36, 9, 32, 1), (64, 25, 64, 2),
-                                         (36, 9, 40, 5)])
+                                         (36, 9, 40, 5),
+                                         # the linear PVTv2's 49 keys; its
+                                         # stage 3 at 352^2, one image
+                                         (64, 49, 64, 2), (484, 49, 320, 5)])
 def test_sr_attention_bwd_walk(n, m, c, heads, product):
     """Kernel A's backward walk (heads 1, 2, 5 read at their columns of the
     q and [k | v] buffers; M ragged) against torch.autograd.grad of the

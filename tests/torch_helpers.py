@@ -70,6 +70,113 @@ def torch_tiny_short(include_dead_modules: bool = True,
     return EMIPShort(cfg, dtype=dtype).eval()
 
 
+# the alternate encoders at test depths: PVTs (1, 1, 1, 1) blocks a stage,
+# Res2Net one Bottle2neck a stage, EfficientNet-B1 as it is
+ALTERNATES = ("pvt_v2_b2_li", "pvt_small", "res2net50_26w_4s",
+              "efficientnet_b1")
+
+
+def jax_alternate(name: str) -> str:
+    """Registers the JAX package's ``name`` at test depth (drop path off,
+    exact GELU and the fused Pallas attention for the linear PVTv2) under
+    a name of its own, and returns that name."""
+    from emip_tpu.models import efficientnet, pvt_v1, pvt_v2, res2net
+    from emip_tpu.models.backbones import register_backbone
+
+    reg = f"{name}_port_parity"
+    if name == "pvt_v2_b2_li":
+        cfg = pvt_v2.PVTv2Config((64, 128, 320, 512), (1, 2, 5, 8),
+                                 (8, 8, 4, 4), DEPTHS, (8, 4, 2, 1),
+                                 drop_path_rate=0.0, linear=True,
+                                 remat=False, fused_attn="always")
+        register_backbone(reg, lambda dtype: pvt_v2.PVTv2(config=cfg,
+                                                          dtype=dtype),
+                          cfg.embed_dims)
+    elif name == "pvt_small":
+        cfg = pvt_v1.PVTv1Config(depths=DEPTHS, drop_path_rate=0.0)
+        register_backbone(reg, lambda dtype: pvt_v1.PVTv1(config=cfg,
+                                                          dtype=dtype),
+                          cfg.embed_dims)
+    elif name == "res2net50_26w_4s":
+        register_backbone(reg, lambda dtype: res2net.Res2Net50V1b(
+            layers=DEPTHS, dtype=dtype), (256, 512, 1024, 2048))
+    else:
+        register_backbone(reg, lambda dtype: efficientnet.EfficientNetBackbone(
+            variant=name, dtype=dtype),
+            efficientnet.EfficientNetBackbone.stage_channels(name))
+    return reg
+
+
+def torch_alternate(name: str):
+    """The port's configuration of :func:`jax_alternate`'s backbone."""
+    from emip_tpu_torch.models import pvt_v1, pvt_v2, res2net
+
+    if name == "pvt_v2_b2_li":
+        return dataclasses.replace(pvt_v2.PVT_V2_VARIANTS[name], depths=DEPTHS,
+                                   drop_path_rate=0.0)
+    if name == "pvt_small":
+        return pvt_v1.PVTv1Config(depths=DEPTHS, drop_path_rate=0.0)
+    if name == "res2net50_26w_4s":
+        return res2net.Res2NetConfig(layers=DEPTHS)
+    return name
+
+
+def alternate_seg_pair(name: str, size: int = SIZE):
+    """(flax SegNetwork, its seeded variables, the port's SegNetwork with
+    the same weights) on the alternate encoder ``name`` at test depth."""
+    from emip_tpu.models.emip_short import SegNetwork as JaxSeg
+
+    from emip_tpu_torch.convert import state_dict_from_flax_seg
+    from emip_tpu_torch.models.emip_short import SegNetwork
+
+    jm = JaxSeg(backbone_name=jax_alternate(name), channel=CHANNEL)
+    img = np.zeros((1, size, size, 3), np.float32)
+    variables = random_variables(jm, img, seed=23, train=False)
+    port = SegNetwork(torch_alternate(name), CHANNEL)
+    port.load_state_dict(state_dict_from_flax_seg(variables), strict=True)
+    return jm, variables, port
+
+
+def seg_images(n: int = 2, size: int = SIZE, seed: int = 6):
+    """Seeded images [n, size, size, 3] and binary GT [n, size, size, 1]."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((n, size, size, 3)).astype(np.float32),
+            (rng.uniform(size=(n, size, size, 1)) > 0.6).astype(np.float32))
+
+
+def with_batch_stats(variables, updated) -> dict:
+    """``variables``' params with the ``batch_stats`` a mutable apply
+    returned, as numpy."""
+    import jax
+
+    return {"params": variables["params"],
+            "batch_stats": jax.tree_util.tree_map(np.asarray, updated)}
+
+
+def stats_relmax(port: torch.nn.Module, want: dict) -> tuple[float, str]:
+    """Worst max|port - flax| / max|flax| over the BatchNorm buffers of a
+    converted state dict ``want``, and its key."""
+    own = port.state_dict()
+    return max(((float((own[k] - v).abs().max() / v.abs().max()), k)
+                for k, v in want.items()
+                if k.endswith(("running_mean", "running_var"))),
+               default=(0.0, ""))
+
+
+def assert_bf16_band(port16, port32, jax16, jax32, label: str = "") -> None:
+    """The slice's bf16 rule: with gap(X) = max|X in bf16 - X in fp32| on
+    the same side, the port's bf16 output lies within twice the larger of
+    the port's and JAX's gaps of JAX's bf16 output, and both gaps are above
+    zero (both sides compute in bf16)."""
+    port16, port32 = np.asarray(port16), np.asarray(port32)
+    jax16, jax32 = np.asarray(jax16), np.asarray(jax32)
+    gap_port = np.abs(port16 - port32).max()
+    gap_jax = np.abs(jax16 - jax32).max()
+    err = np.abs(port16 - jax16).max()
+    assert gap_port > 0 and gap_jax > 0, (label, gap_port, gap_jax)
+    assert err <= 2 * max(gap_port, gap_jax), (label, err, gap_port, gap_jax)
+
+
 MEMORY_SIZE = 3  # slots of the tiny long model's ring
 
 
@@ -123,6 +230,8 @@ def random_variables(module, *args, seed: int = 0, **kwargs) -> dict:
             v = rng.uniform(0.7, 1.3, shape)
         elif name == "bias":
             v = rng.normal(0.0, 0.05, shape)
+        elif name.startswith("pos_embed"):  # PVT-v1's position tables
+            v = rng.normal(0.0, 0.5, shape)
         else:
             raise KeyError(f"no init rule for variable {name}")
         return v.astype(np.float32)
