@@ -273,7 +273,36 @@ needs one card and no arguments, and it imports nothing of JAX. In order:
     batch 4 in turns
     with fp32 (G's and H's bf16 forwards 6 each a batch, no B), then the
     long inference phase at 512^2 (G 6, H 6, B 0 per step; card against
-    CPU as in phase 13) and the bf16 long streaming of phase 14 at 512^2.
+    CPU as in phase 13) and the bf16 long streaming of phase 14 at 512^2;
+17. ddp phase (run after phase 10, on its YAML and root): data
+    parallelism on the one card. Two spawned ranks join through
+    ``init_distributed`` on torchrun's variables over gloo (NCCL refuses
+    two ranks on one device; the backend is an argument, not a fallback),
+    b5 at 352^2, global batch 8 (4 rows a rank), drop path 0.1, one fp32
+    and one bf16 short train step each in ``DistributedDataParallel``
+    (launches per step against the structure, the ranks' grads, BatchNorm
+    buffers and parameters equal by digest), one step of ``train_short``
+    on phase 10's YAML at 4 rows a rank with its validation (the ranks'
+    parameters and buffers equal by digest, checkpoints and scalars
+    written by the first rank alone), then, the group left, the
+    one-process steps on the same 8 rows and weights: fp32 held by the
+    train step's gates (the loss by TRAIN_LOSS_RTOL, every trainable
+    leaf's grad before the clamp by the scale-floored SEG_GRAD_RTOL or
+    twice its nudge band, the BatchNorm buffers by BN_STATS_REL, the
+    parameters after AdamW to DDP_PARAM_ATOL where AdamW's step
+    saturates), bf16 within twice the one-process bf16-vs-fp32 gap (the
+    loss; all grads and all buffers by max and by mean); each rank's
+    seconds, step ms and peak memory; then one ``torchrun --standalone
+    --nproc_per_node 1 -m emip_tpu_torch.train --multi_host`` step on
+    phase 10's YAML (no validation) over NCCL (rc 0, the group joined
+    over NCCL, one step, a checkpoint);
+18. sam heads phase: ``PromptInteract``, ``Interact`` and
+    ``PromptGenBlock`` (``emip_tpu_torch/models/sam_prompt.py``) at their
+    published width on seeded weights, image and flow [8, 128, 44, 44]
+    (``inp_size`` 352), the prompt block on [8, 192, 44, 44]: card against
+    CPU in fp32 (1e-3 of max|CPU|, TF32 off) and in bf16 (within twice the
+    larger of the two sides' bf16-vs-fp32 gaps), the card's ms; no kernel
+    of the port launched.
 
 It prints one JSON line with thirty-five rows, the nineteen kernels' and
 the bf16 forwards of A-D, F, G, H and J and backwards of A-D, F, G, H and
@@ -309,7 +338,8 @@ whose name contains one of the comma-separated NAMES (``gemm`` adds the
 GEMM lines of phase 3, ``gemm_wgmma`` its wgmma lines alone,
 ``attention_fwd`` its attention lines, ``attention_fwd_bf16`` the
 ``attention_bf16`` lines alone, ``backbones`` the backbones phase and its
-entry point, ``bf16`` the
+entry point, ``ddp`` phase 10 and the ddp phase, ``sam`` the sam heads
+phase, ``bf16`` the
 bf16 kernel, GEMM and backward lines; a bf16 forward row's name, such as
 ``sr_attention_bf16``, that row's kernel lines).
 """
@@ -5382,10 +5412,11 @@ def long_train_phase(model, size: int, device, timed: int) -> dict:
     import torch
 
     from emip_tpu_torch import kernels as K
-    from emip_tpu_torch.train.long import long_train_step
+    from emip_tpu_torch.train.long import CachedStep, long_train_step
     from emip_tpu_torch.train.state import build_long_optimizer
 
     opt = build_long_optimizer(model)  # lr 1e-5, wd 1e-7, clamp 0.5
+    step = CachedStep(model)
     short0 = {k: v.clone() for k, v in model.short_term.state_dict().items()}
     trainable0 = {n: p.detach().clone() for n, p in model.named_parameters()
                   if p.requires_grad}
@@ -5407,7 +5438,7 @@ def long_train_phase(model, size: int, device, timed: int) -> dict:
         enc = model.encode_frame(video[:, 0])
         for t in range(1, steps + 1):
             (metrics, enc, state), ms = timed_call(
-                lambda: long_train_step(model, opt, enc, video[:, t],
+                lambda: long_train_step(step, opt, enc, video[:, t],
                                         gts[:, t], state))
             if t > 1:
                 times.append(ms)
@@ -5628,7 +5659,7 @@ def long_bf16_train_phase(model, size: int, device, timed: int) -> dict:
     moved, finite losses, fp32 parameters."""
     import torch
 
-    from emip_tpu_torch.train.long import long_train_step
+    from emip_tpu_torch.train.long import CachedStep, long_train_step
     from emip_tpu_torch.train.state import build_long_optimizer
 
     clips = max(LONG_CLIPS)
@@ -5653,12 +5684,13 @@ def long_bf16_train_phase(model, size: int, device, timed: int) -> dict:
     losses = []
 
     def step16():
-        metrics, _, _ = long_train_step(model16, opt16, enc16, video[:, 2],
-                                        gt, st16)
+        metrics, _, _ = long_train_step(CachedStep(model16), opt16, enc16,
+                                        video[:, 2], gt, st16)
         losses.append(float(metrics["loss"]))
 
     def step32():
-        long_train_step(model, opt32, enc32, video[:, 2], gt, st32)
+        long_train_step(CachedStep(model), opt32, enc32, video[:, 2], gt,
+                        st32)
 
     label = f"bf16 long train b5 {size}^2 clips={clips}"
     want = {k: v * (1 + timed)
@@ -6014,6 +6046,494 @@ def tiny_phase(device) -> dict:
 # ---------------------------------------------------------------- main
 
 
+# ------------------------------------------------------- data parallelism
+
+DDP_WORLD = 2        # ranks of the ddp phase, both on the one card
+DDP_BATCH = 8        # the global batch: 4 rows a rank
+DDP_LR = 1e-5
+DDP_ADAM_SATURATED = 1e-6  # |grad| above which AdamW's first step is +-lr
+DDP_PARAM_ATOL = 1e-6
+DDP_NUDGES = 3       # at most, one-process steps on frames nudged by
+DDP_NUDGE = 1e-6     # (taken until no leaf is past twice their band)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _ddp_step(base: dict, dtype, rows: slice, device,
+              nudge_seed: int | None = None) -> dict:
+    """One short train step of the seeded b5 model (``base``, its state
+    dict) in ``dtype`` on ``rows`` of the seeded global batch (its frames
+    nudged by DDP_NUDGE times a normal draw from ``nudge_seed``), through
+    ``short_train_step`` (in ``DistributedDataParallel`` when a group of
+    more than one rank is active): the loss, the grads as AdamW reads them
+    before its clamp, the BatchNorm buffers, the trainable parameters after
+    AdamW, the launches against the structure, the step's ms and the peak
+    memory."""
+    import torch
+
+    from emip_tpu_torch import kernels as K
+    from emip_tpu_torch.models.emip_short import EMIPShort, EMIPShortConfig
+    from emip_tpu_torch.parallel import data_parallel
+    from emip_tpu_torch.train.short import short_train_step
+    from emip_tpu_torch.train.state import build_optimizer
+
+    cfg = EMIPShortConfig(backbone_name="pvt_v2_b5", inp_size=SIZE)
+    with torch.device(device):
+        model = EMIPShort(cfg, dtype=dtype)
+    model.load_state_dict(base)
+    opt = build_optimizer(model, DDP_LR)
+    names = {id(p): n for n, p in model.named_parameters()}
+    grads = {}
+    opt.register_step_pre_hook(lambda o, a, kw: grads.update(
+        {names[id(p)]: p.grad.clone() for g in o.param_groups
+         for p in g["params"] if p.grad is not None}))
+    step_model = data_parallel(model)
+    batch = seeded_batch(np.random.default_rng(SEED + 30), DDP_BATCH, SIZE,
+                         device)
+    if nudge_seed is not None:
+        gen = torch.Generator(device=device).manual_seed(nudge_seed)
+        for k in ("image1", "image2"):
+            batch[k] = batch[k] + DDP_NUDGE * torch.randn(
+                batch[k].shape, generator=gen, device=device)
+    batch = {k: v[rows] for k, v in batch.items()}
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    K.reset_launches()
+    metrics, ms = timed_call(lambda: short_train_step(step_model, opt, batch,
+                                                      gen))
+    launches = dict(K.LAUNCHES)
+    want = (expected_launches(model, True) if dtype == torch.float32
+            else expected_launches_bf16(model, True))
+    if launches != want:
+        raise AssertionError(f"ddp step {dtype} launches {launches} != "
+                             f"{want}")
+    out = dict(loss=float(metrics["loss"]), grads=grads,
+               buffers={k: v.clone() for k, v in model.state_dict().items()
+                        if k.endswith(("running_mean", "running_var"))},
+               params={n: p.detach().clone()
+                       for n, p in model.named_parameters()
+                       if p.requires_grad},
+               launches=launches, ms=ms,
+               peak=torch.cuda.max_memory_allocated(device))
+    del step_model, model, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ddp_banded(got: dict, ref: dict, band: dict):
+    """Each leaf's grad error relative to its scale (``grad_relmax``) and,
+    for the leaves past SEG_GRAD_RTOL, their error over twice
+    ``band[leaf]``."""
+    rels, worst = grad_relmax(got["grads"], ref["grads"])
+    scale = {n: r * max(ref["grads"][n].abs().max().item(), 1e-30)
+             for n, r in rels.items()}  # the leaf's error, max|ddp - ref|
+    banded = {n: e / max(2 * band[n], 1e-30) for n, e in scale.items()
+              if rels[n] > SEG_GRAD_RTOL}
+    return rels, worst, banded
+
+
+def _ddp_compare(got: dict, ref: dict, band: dict, label: str) -> dict:
+    """fp32: the loss by TRAIN_LOSS_RTOL; each leaf's grad by the
+    scale-floored SEG_GRAD_RTOL or, where larger, twice ``band[leaf]``:
+    how far one-process steps on frames nudged by DDP_NUDGE move that
+    grad (at seeded weights a few b5 leaves, an injector's attention
+    temperature first, turn rounding into percents; the rule of the
+    backbones phase); each BatchNorm buffer by BN_STATS_REL; the
+    parameters after AdamW to DDP_PARAM_ATOL where |grad| is at least
+    DDP_ADAM_SATURATED and twice the leaf's grad error, and within the
+    bound of one step (2 lr) elsewhere."""
+    loss_rel = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+    rels, worst, banded = _ddp_banded(got, ref, band)
+    over = {n: r for n, r in banded.items() if r > 1.0}
+    buf = max(((v - got["buffers"][k]).abs().max().item()
+               / max(v.abs().max().item(), 1e-30), k)
+              for k, v in ref["buffers"].items())
+    sat_err, flipped, total = 0.0, 0, 0
+    for n, v in ref["params"].items():
+        diff = (got["params"][n] - v).abs()
+        g = ref["grads"].get(n)
+        if g is None:
+            if diff.max().item() != 0.0:
+                raise AssertionError(f"{label}: {n} took no grad but moved")
+            continue
+        gerr = (got["grads"][n] - g).abs().max().item()
+        sat = (g.abs() >= max(DDP_ADAM_SATURATED, 2 * gerr))
+        if sat.any():
+            sat_err = max(sat_err, diff[sat].max().item())
+        flipped += int((diff > DDP_PARAM_ATOL).sum())
+        total += diff.numel()
+        if diff.max().item() > 2 * DDP_LR + DDP_PARAM_ATOL:
+            raise AssertionError(f"{label}: {n} moved by more than a step")
+    log(f"{label}: loss rel {loss_rel:.3e} (tol {TRAIN_LOSS_RTOL}); grads "
+        f"over {len(rels)} leaves worst relmax {worst[0][1]:.3e} at "
+        f"{worst[0][0]} (tol {SEG_GRAD_RTOL}); {len(banded)} leaves past it "
+        f"held by twice their nudge band: "
+        + ", ".join(f"{n}={r:.2f}" for n, r in banded.items())
+        + f"; BatchNorm buffers worst rel {buf[0]:.3e} at {buf[1]} (tol "
+        f"{BN_STATS_REL}); params after AdamW: saturated elements within "
+        f"{sat_err:.3e} (tol {DDP_PARAM_ATOL}), {flipped} of {total} "
+        f"elements apart by more")
+    if not (loss_rel <= TRAIN_LOSS_RTOL and not over
+            and buf[0] <= BN_STATS_REL and sat_err <= DDP_PARAM_ATOL):
+        raise AssertionError(f"{label}: the 2-rank step disagrees with the "
+                             f"one-process step: {over}")
+    return dict(loss_rel=loss_rel, worst_grads=worst, banded=banded,
+                worst_buffer=buf, params_saturated_err=sat_err,
+                params_apart=flipped, params_total=total)
+
+
+def _ddp_band(got16: dict, ref16: dict, ref32: dict, label: str) -> dict:
+    """The bf16 step within twice its one-process bf16-vs-fp32 gap (> 0):
+    the loss, and all leaves' grads and all BatchNorm buffers taken
+    together, by max and by mean."""
+    import torch
+
+    out = {}
+    gap = abs(ref16["loss"] - ref32["loss"])
+    err = abs(got16["loss"] - ref16["loss"])
+    out["loss"] = (err, gap)
+    ok = 0 < gap and err <= 2 * gap
+    for key in ("grads", "buffers"):
+        names = sorted(ref16[key])
+
+        def cat(d):
+            return torch.cat([d[k].flatten().double() for k in names])
+
+        e = (cat(got16[key]) - cat(ref16[key])).abs()
+        g = (cat(ref16[key]) - cat(ref32[key])).abs()
+        out[key] = dict(max=(e.max().item(), g.max().item()),
+                        mean=(e.mean().item(), g.mean().item()))
+        ok = ok and g.max().item() > 0 and e.max().item() <= 2 * g.max(
+        ).item() and e.mean().item() <= 2 * g.mean().item()
+    log(f"{label}: (error, one-process bf16-vs-fp32 gap) loss "
+        f"{out['loss']}, grads {out['grads']}, BatchNorm buffers "
+        f"{out['buffers']}: {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError(f"{label}: outside twice its bf16 gap")
+    return out
+
+
+def _ddp_rank(rank: int, port: int, out_path: str,
+              trainer_yaml: str) -> None:
+    """One rank of the ``ddp`` phase, a spawned process on the card. It
+    joins a gloo group of DDP_WORLD ranks through the port's own entry
+    (``init_distributed`` on torchrun's variables, every rank on
+    ``cuda:0``), takes the fp32 and the bf16 short train steps on its rows
+    (every rank's state checked equal by digest), then one epoch of one
+    step of ``train_short`` on ``trainer_yaml`` (``{rank}`` in it: each
+    rank's own ``save_path``), its parameters and buffers checked equal
+    by digest. Then, the group left, rank 0 takes both steps on all the
+    rows in one process and holds the 2-rank steps to them. Each rank
+    writes its readings to ``out_path`` (``{rank}`` in it)."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from emip_tpu_torch.config import load_config
+    from emip_tpu_torch.models.emip_short import EMIPShort, EMIPShortConfig
+    from emip_tpu_torch.models.init import seeded_init_
+    from emip_tpu_torch.parallel import (
+        init_distributed,
+        shutdown_distributed,
+        world,
+    )
+    from emip_tpu_torch.train.loops import train_short
+
+    t0 = time.perf_counter()
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      WORLD_SIZE=str(DDP_WORLD), RANK=str(rank),
+                      LOCAL_RANK="0")
+    device = init_distributed("cuda", backend="gloo")
+    if device != torch.device("cuda", 0) or world() != (rank, DDP_WORLD):
+        raise AssertionError(f"ddp rank {rank}: joined as {world()} on "
+                             f"{device}")
+    base = seeded_init_(EMIPShort(EMIPShortConfig(
+        backbone_name="pvt_v2_b5", inp_size=SIZE)), SEED).state_dict()
+    per = DDP_BATCH // DDP_WORLD
+    rows = slice(rank * per, (rank + 1) * per)
+    res, rec = {}, dict(rank=rank)
+
+    def same_on_every_rank(mine, what: str) -> None:
+        every = [None] * DDP_WORLD
+        torch.distributed.all_gather_object(every, mine)
+        if any(d != every[0] for d in every):
+            raise AssertionError(f"ddp: the ranks' {what} differ")
+
+    try:
+        for name, dtype in (("fp32", torch.float32),
+                            ("bf16", torch.bfloat16)):
+            res[name] = r = _ddp_step(base, dtype, rows, device)
+            # one flat copy a collection (a grad's strides may differ
+            # from its parameter's)
+            same_on_every_rank(
+                [digest([torch.cat([r[k][n].reshape(-1)
+                                    for n in sorted(r[k])])])
+                 for k in ("grads", "buffers", "params")],
+                f"{name} grads, buffers or params")
+            loss = torch.tensor([r["loss"]], dtype=torch.float64)
+            torch.distributed.all_reduce(loss)
+            r["loss"] = loss.item() / DDP_WORLD
+            rec[name] = dict(loss=r["loss"], step_ms=r["ms"],
+                             peak_bytes=r["peak"], launches=r["launches"])
+        t1 = time.perf_counter()
+        model, summary = train_short(
+            load_config(trainer_yaml.format(rank=rank)),
+            max_steps_per_epoch=1, device=device)
+        same_on_every_rank(digest([v.reshape(-1) for v in
+                                   model.state_dict().values()]),
+                           "parameters and buffers after train_short")
+        same_on_every_rank(summary["steps"], "train_short steps")
+        rec["train_short"] = dict(summary, seconds=time.perf_counter() - t1)
+        del model
+        torch.cuda.empty_cache()
+    finally:
+        shutdown_distributed()
+    if rank == 0:  # no group now: the one-process steps on all the rows
+        ref = {name: _ddp_step(base, dtype, slice(0, DDP_BATCH), device)
+               for name, dtype in (("fp32", torch.float32),
+                                   ("bf16", torch.bfloat16))}
+        rec["one_process"] = {k: dict(loss=v["loss"], step_ms=v["ms"],
+                                      peak_bytes=v["peak"])
+                              for k, v in ref.items()}
+        # the nudge band grows with each nudge: stop once no leaf is past
+        # twice it, which DDP_NUDGES nudges would hold too
+        band = {n: 0.0 for n in ref["fp32"]["grads"]}
+        nudges = 0
+        while nudges < DDP_NUDGES and any(
+                r > 1.0 for r in _ddp_banded(res["fp32"], ref["fp32"],
+                                             band)[2].values()):
+            nudged = _ddp_step(base, torch.float32, slice(0, DDP_BATCH),
+                               device, nudge_seed=SEED + 50 + nudges)["grads"]
+            for n, g in ref["fp32"]["grads"].items():
+                band[n] = max(band[n], (nudged[n] - g).abs().max().item())
+            del nudged
+            nudges += 1
+        rec["nudges"] = nudges
+        rec["fp32_check"] = _ddp_compare(res["fp32"], ref["fp32"], band,
+                                         "ddp fp32 2 ranks vs 1 process")
+        rec["bf16_check"] = _ddp_band(res["bf16"], ref["bf16"], ref["fp32"],
+                                      "ddp bf16 2 ranks vs 1 process")
+    rec["seconds"] = time.perf_counter() - t0
+    with open(out_path.format(rank=rank), "w") as f:
+        json.dump(rec, f, default=str)
+
+
+def ddp_phase(entry: dict, card: str) -> dict:
+    """Data parallelism on the one card: DDP_WORLD spawned ranks over gloo
+    (NCCL refuses two ranks on one device), b5 at 352^2, global batch 8
+    with drop path 0.1, one fp32 and one bf16 short train step each held
+    to the one-process step on the same rows and weights, and one step of
+    ``train_short`` on the entry phase's YAML and root at 4 rows a rank,
+    with its validation (``_ddp_rank``): the ranks end equal, and the first
+    rank alone writes the scalars and checkpoints. Beside them one
+    ``torchrun --standalone --nproc_per_node 1 -m emip_tpu_torch.train
+    --multi_host`` step on the entry phase's YAML (without its validation)
+    and root, over NCCL. Both run at once: the card has room for the three
+    processes, and the steps are checked, not timed."""
+    import shutil
+
+    import torch
+    import torch.multiprocessing as mp
+    import yaml
+
+    t0 = time.perf_counter()
+    out_dir = os.path.join(ROOT, "chiprun_out", "ddp")
+    os.makedirs(out_dir, exist_ok=True)
+    out_path = os.path.join(out_dir, "rank{rank}.json")
+    torch.cuda.empty_cache()
+
+    save = os.path.join(entry["work"], "ddp_run")
+    with open(entry["config"]) as f:
+        raw = yaml.safe_load(f)
+    config = os.path.join(entry["work"], "ddp.yaml")
+    with open(config, "w") as f:
+        yaml.safe_dump(dict(raw, epoch_val=0), f)
+    # train_short on the ranks: each its own save_path, so that what the
+    # other rank wrote shows; the global batch that of the entry phase
+    rank_saves = [os.path.join(entry["work"], "ddp_ranks", f"rank{r}")
+                  for r in range(DDP_WORLD)]
+    shutil.rmtree(os.path.dirname(rank_saves[0]), ignore_errors=True)
+    trainer_yaml = os.path.join(entry["work"], "ddp_rank{rank}.yaml")
+    per = raw["train_dataset"]["batch_size"] // DDP_WORLD
+    for r, path in enumerate(rank_saves):
+        with open(trainer_yaml.format(rank=r), "w") as f:
+            yaml.safe_dump(dict(raw, save_path=path, train_dataset=dict(
+                raw["train_dataset"], batch_size=per)), f)
+    launcher = shutil.which("torchrun")
+    cmd = ([launcher] if launcher else
+           [sys.executable, "-m", "torch.distributed.run"]) + [
+        "--standalone", "--nproc_per_node", "1", "-m", "emip_tpu_torch.train",
+        "--multi_host", "--config", config, "--save_path", save,
+        "--max_steps_per_epoch", "1"]
+    # its output to files: a pipe left unread while the ranks run could
+    # fill and stall it
+    logs = [os.path.join(out_dir, f"torchrun.{n}") for n in ("out", "err")]
+    with open(logs[0], "w") as out, open(logs[1], "w") as err:
+        torchrun = subprocess.Popen(cmd, cwd=ROOT, stdout=out, stderr=err)
+
+    ctx = mp.get_context("spawn")
+    port = _free_port()
+    procs = [ctx.Process(target=_ddp_rank,
+                         args=(r, port, out_path, trainer_yaml))
+             for r in range(DDP_WORLD)]
+    try:
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(600)
+        torchrun.wait(timeout=600)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        if torchrun.poll() is None:
+            torchrun.kill()
+            torchrun.wait()
+    seconds = time.perf_counter() - t0
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * DDP_WORLD:
+        raise AssertionError(f"ddp ranks exited with {codes}")
+    ranks = []
+    for r in range(DDP_WORLD):
+        with open(out_path.format(rank=r)) as f:
+            ranks.append(json.load(f))
+    for rec in ranks:
+        log(f"ddp rank {rec['rank']}: {rec['seconds']:.1f} s; first (cold) "
+            f"step fp32 {rec['fp32']['step_ms']:.1f} ms, bf16 "
+            f"{rec['bf16']['step_ms']:.1f} ms; peak memory fp32 "
+            f"{rec['fp32']['peak_bytes'] / 2**30:.3f} GiB, bf16 "
+            f"{rec['bf16']['peak_bytes'] / 2**30:.3f} GiB ({card})")
+    one = ranks[0]["one_process"]
+    log(f"ddp one process, 8 rows: first (cold) step fp32 "
+        f"{one['fp32']['step_ms']:.1f} ms, bf16 "
+        f"{one['bf16']['step_ms']:.1f} ms; peak memory fp32 "
+        f"{one['fp32']['peak_bytes'] / 2**30:.3f} GiB, bf16 "
+        f"{one['bf16']['peak_bytes'] / 2**30:.3f} GiB ({card})")
+    log(f"ddp fp32 nudge band from {ranks[0]['nudges']} of at most "
+        f"{DDP_NUDGES} nudged one-process steps")
+
+    # train_short on the ranks: equal by digest inside _ddp_rank; the
+    # first rank alone wrote, each scalar record once
+    first, other = rank_saves[0], rank_saves[1:]
+    with open(os.path.join(first, "scalars.jsonl")) as f:
+        tags = [json.loads(line)["tag"] for line in f]
+    wrote = [p for p in other if os.path.exists(p) and os.listdir(p)]
+    summary = ranks[0]["train_short"]
+    ok = (all(rec["train_short"]["steps"] == 1 for rec in ranks)
+          and os.path.isfile(os.path.join(first, "ckpt", "ckpt.pt"))
+          and os.path.isfile(os.path.join(first, "ckpt_best", "ckpt.pt"))
+          and tags.count("learning_rate") == 1 and "val/MAE" in tags
+          and np.isfinite(summary["best_mae"]) and not wrote)
+    log(f"ddp train_short on {DDP_WORLD} ranks, {per} rows a rank: steps "
+        f"{[rec['train_short']['steps'] for rec in ranks]}, val MAE "
+        f"{summary['best_mae']:.5f}, ranks equal, checkpoints and "
+        f"{len(tags)} scalar records by the first rank only "
+        f"{'ok' if ok else 'FAILED'}, {summary['seconds']:.1f} s ({card})")
+    if not ok:
+        raise AssertionError(f"ddp train_short: {tags}, other ranks "
+                             f"wrote {wrote}")
+
+    with open(logs[0]) as out, open(logs[1]) as err:
+        stdout, stderr = out.read(), err.read()
+    joined = "over nccl on cuda:0" in stderr + stdout
+    done = [line for line in stdout.splitlines()
+            if line.startswith(">>> training done")]
+    ok = (torchrun.returncode == 0 and joined and done
+          and "'steps': 1" in done[0]
+          and os.path.isfile(os.path.join(save, "ckpt", "ckpt.pt")))
+    log(f"ddp torchrun --standalone --nproc_per_node 1 -m "
+        f"emip_tpu_torch.train --multi_host: rc {torchrun.returncode}, "
+        f"joined over NCCL {joined}, {done[0] if done else 'no summary'} "
+        f"{'ok' if ok else 'FAILED'} ({card})")
+    if not ok:
+        raise AssertionError(f"torchrun entry step failed: {stderr[-3000:]}")
+    log(f"ddp phase: {seconds:.1f} s ({card})")
+    return dict(ranks=ranks, seconds=seconds)
+
+
+# ------------------------------------------------------ the SAM prompt heads
+
+SAM_BATCH = 8
+SAM_REL = 1e-3
+SAM_REPS = 5
+
+
+def sam_phase(device, card: str) -> dict:
+    """The SAM prompt heads at their published width on seeded weights:
+    ``PromptInteract`` and ``Interact`` on image and flow embeddings [8,
+    128, 44, 44] (``inp_size`` 352) and ``PromptGenBlock`` on [8, 192, 44,
+    44] (its 96^2 bank shrunk to 44^2); card against CPU in fp32 (SAM_REL
+    of max|CPU|, TF32 off) and in bf16 (within twice the larger of the
+    card's and the CPU's bf16-vs-fp32 gaps, both above zero); CUDA-event
+    ms of each on the card. No kernel of the port runs."""
+    import torch
+
+    from emip_tpu_torch import kernels as K
+    from emip_tpu_torch.models.init import seeded_init_
+    from emip_tpu_torch.models.sam_prompt import (
+        Interact,
+        PromptGenBlock,
+        PromptInteract,
+    )
+
+    rng = np.random.default_rng(SEED + 40)
+    f = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32))
+    img, flow = f(SAM_BATCH, 128, 44, 44), f(SAM_BATCH, 128, 44, 44)
+    cases = (("PromptInteract", PromptInteract, (img, flow)),
+             ("Interact", Interact, (img, flow)),
+             ("PromptGenBlock", PromptGenBlock,
+              (f(SAM_BATCH, 192, 44, 44),)))
+    out = {}
+    K.reset_launches()
+    for name, cls, args in cases:
+        torch.manual_seed(SEED)  # the positional matrix's draw
+        state = seeded_init_(cls(), SEED).state_dict()
+        if "prompt_param" in state:  # the bank in [0, 1), as built
+            state["prompt_param"] = torch.rand(
+                state["prompt_param"].shape,
+                generator=torch.Generator().manual_seed(SEED))
+        got, ms = {}, {}
+        for dt in (torch.float32, torch.bfloat16):
+            for dev in (device, torch.device("cpu")):
+                with torch.device(dev):
+                    m = cls(dtype=dt)
+                m.load_state_dict(state)
+                a = [x.to(dev) for x in args]
+                with torch.no_grad():
+                    got[dt, dev.type] = m(*a).float().cpu()
+                    if dev.type == "cuda":
+                        ms[str(dt)] = cuda_ms(lambda: m(*a), SAM_REPS)
+        c32, p32 = got[torch.float32, "cuda"], got[torch.float32, "cpu"]
+        c16, p16 = got[torch.bfloat16, "cuda"], got[torch.bfloat16, "cpu"]
+        rel = ((c32 - p32).abs().max() / p32.abs().max()).item()
+        gaps = ((c16 - c32).abs().max().item(),
+                (p16 - p32).abs().max().item())
+        err16 = (c16 - p16).abs().max().item()
+        ok = (rel <= SAM_REL and min(gaps) > 0
+              and err16 <= 2 * max(gaps) and torch.isfinite(c16).all())
+        log(f"sam {name} {tuple(c32.shape)}: fp32 card vs CPU rel {rel:.3e} "
+            f"(tol {SAM_REL}); bf16 card vs CPU {err16:.3e} against gaps "
+            f"card {gaps[0]:.3e} / CPU {gaps[1]:.3e}; card ms fp32 "
+            f"{ms['torch.float32']:.3f}, bf16 {ms['torch.bfloat16']:.3f} "
+            f"({card}) {'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise AssertionError(f"sam {name}: card disagrees with the CPU")
+        out[name] = dict(fp32_rel=rel, bf16_err=err16, bf16_gaps=gaps,
+                         ms=ms, shape=list(c32.shape))
+    if any(K.LAUNCHES.values()):
+        raise AssertionError(f"the SAM heads launched a kernel of the "
+                             f"port: {dict(K.LAUNCHES)}")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -6081,6 +6601,10 @@ def main(argv=None) -> int:
         if "backbones" in opts.kernels.split(","):
             backbones_phase(device)
             backbone_entry_phase(SIZE)
+        if "ddp" in opts.kernels.split(","):
+            ddp_phase(entry_phase(BATCH, SIZE), card)
+        if "sam" in opts.kernels.split(","):
+            sam_phase(device, card)
         log("digests " + json.dumps(DIGESTS))
         return 0
     gemm_res = gemm_phase(BATCH, device, KERNEL_REPS)
@@ -6150,6 +6674,11 @@ def main(argv=None) -> int:
     del model
     torch.cuda.empty_cache()
     entry_res = entry_phase(BATCH, SIZE)
+    # data parallelism: two ranks on the card against one process, then
+    # the torchrun entry step; the SAM prompt heads
+    ddp_res = ddp_phase(entry_res, card)
+    sam_res = sam_phase(device, card)
+    torch.cuda.empty_cache()
     static_res = static_phase(BATCH, SIZE, device, STATIC_TIMED)
     bf16_static = bf16_static_phase(BATCH, SIZE, device, BF16_TIMED_STEPS)
     torch.cuda.empty_cache()
@@ -6323,7 +6852,8 @@ def main(argv=None) -> int:
                        bf16_read_corr=read_corr16, bf16_fused_ffn=fused_ffn16,
                        bf16_train_512_entry=train512_entry,
                        gmflow_scales=scales_res, backbones=backbones_res,
-                       backbone_entry=backbone_entry, digests=DIGESTS),
+                       backbone_entry=backbone_entry, ddp=ddp_res,
+                       sam_heads=sam_res, digests=DIGESTS),
                   f, indent=1, default=str)
     log("digests " + json.dumps(DIGESTS))
     log(json.dumps(line))

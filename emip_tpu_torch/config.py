@@ -8,9 +8,11 @@ default when the key is missing, or "float32"; anything else raises) is
 honoured by every entry point (``test``, ``test_of``, ``test_long``,
 ``train``, ``train_long``, ``train_static``), each of which builds its
 model in it. Keys that only steer the JAX package (``optimizer.name``,
-``parallel``, ``long_frames_per_dispatch``) change nothing here: the port
-trains on one card with AdamW, one frame per step. Each of those that asks
-for something else is named in one warning line.
+``parallel``'s ``model_parallel``, ``fsdp`` and ``sequence_parallel``,
+``long_frames_per_dispatch``) change nothing here: the port trains with
+AdamW, one frame per step, on one card or data-parallel over processes
+(:mod:`emip_tpu_torch.parallel`). Each of those that asks for something
+else is named in one warning line.
 """
 
 from __future__ import annotations
@@ -115,19 +117,24 @@ def _model(d: dict) -> EMIPShortConfig:
 
 def _warn_ignored(raw: dict, opt: dict) -> None:
     """One warning line per key of the JAX package's that asks for other
-    than what the port does: AdamW, one card, a frame per step.
+    than what the port does: AdamW; of the parallel regimes data
+    parallelism alone (``model_parallel``, ``fsdp`` and
+    ``sequence_parallel`` have no counterpart yet); a frame per step.
     (``compute_dtype`` is honoured by every entry point.)"""
     par = raw.get("parallel") or {}
     name = str(opt.get("name", "adamw"))
     frames = int(raw.get("long_frames_per_dispatch", 1))
-    for key, value, other in (
-            ("optimizer.name", name, name.lower() != "adamw"),
+    for key, value, other, port in (
+            ("optimizer.name", name, name.lower() != "adamw",
+             "the port runs AdamW"),
             ("parallel", par, int(par.get("model_parallel", 1)) != 1
-             or bool(par.get("fsdp")) or bool(par.get("sequence_parallel"))),
-            ("long_frames_per_dispatch", frames, frames != 1)):
+             or bool(par.get("fsdp")) or bool(par.get("sequence_parallel")),
+             "model_parallel, fsdp and sequence_parallel have no "
+             "counterpart in the port, which runs data parallelism alone"),
+            ("long_frames_per_dispatch", frames, frames != 1,
+             "the port runs one frame per dispatch")):
         if other:
-            log.warning("config key %s=%r is ignored: the port runs AdamW, "
-                        "one card, one frame per dispatch", key, value)
+            log.warning("config key %s=%r is ignored: %s", key, value, port)
 
 
 def load_config(path: str) -> Config:

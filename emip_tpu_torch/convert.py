@@ -27,6 +27,8 @@ import torch
 
 __all__ = ["state_dict_from_flax", "state_dict_from_flax_long",
            "state_dict_from_flax_seg", "state_dict_from_flax_dgnet",
+           "state_dict_from_flax_sam", "state_dict_from_flax_prompt_gen",
+           "state_dict_from_flax_flow_head",
            "normalize_reference_keys", "load_torch_weights",
            "load_configured_weights", "SHORT_LOAD", "LONG_LOAD"]
 
@@ -490,3 +492,74 @@ def state_dict_from_flax_long(variables: dict, depths=(3, 6, 40, 3),
     _decoder_into(o, "decoder", "decoder")
     sd.update(_as_tensors(o.sd))
     return sd
+
+
+def _sam_attention_into(o: _Out, dst: str, src: str):
+    for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+        o.dense(f"{dst}.{proj}", f"{src}/{proj}")
+
+
+def state_dict_from_flax_sam(params: dict, depth: int = 2
+                             ) -> dict[str, torch.Tensor]:
+    """JAX ``PromptInteract`` (``depth`` 2) or ``Interact`` (``depth`` 1)
+    params -> the port's ``state_dict``: the inverse of
+    ``convert_sam_prompt_state``, the modules the forward never runs
+    included (flow head, motion tokens; on ``Interact`` the flow and mask
+    tokens, the upscaler, the hypernetwork MLPs and the mask
+    downscaler)."""
+    o = _Out(params, {})
+    for name in ("mask_tokens", "flow_tokens"):
+        if name in params:
+            o.sd[f"{name}.weight"] = np.asarray(params[name])
+    o.sd["motion_tokens"] = np.asarray(params["motion_tokens"])
+    o.sd["pe_layer.positional_encoding_gaussian_matrix"] = np.asarray(
+        o.p("pe_layer/positional_encoding_gaussian_matrix"))
+    o.conv("PatchEmbed.proj", "PatchEmbed/proj")
+    for i in range(depth):
+        dst, src = f"transformer.layers.{i}", f"transformer/layer{i}"
+        for attn in ("self_attn", "cross_attn_token_to_image",
+                     "cross_attn_image_to_token"):
+            _sam_attention_into(o, f"{dst}.{attn}", f"{src}/{attn}")
+        for n in ("norm1", "norm2", "norm3", "norm4"):
+            o.ln(f"{dst}.{n}", f"{src}/{n}")
+        o.dense(f"{dst}.mlp.lin1", f"{src}/mlp/lin1")
+        o.dense(f"{dst}.mlp.lin2", f"{src}/mlp/lin2")
+    _sam_attention_into(o, "transformer.final_attn_token_to_image",
+                        "transformer/final_attn_token_to_image")
+    o.ln("transformer.norm_final_attn", "transformer/norm_final_attn")
+    o.conv("output_upscaling.0", "output_upscaling/deconv0", transpose=True)
+    o.ln("output_upscaling.1", "output_upscaling/ln")
+    o.conv("output_upscaling.3", "output_upscaling/deconv1", transpose=True)
+    for name, node in params.items():
+        if name.startswith("output_hypernetworks_mlps_"):
+            i = name.rsplit("_", 1)[1]
+            for layer in node:
+                o.dense(f"output_hypernetworks_mlps.{i}.layers."
+                        f"{layer.split('_')[1]}", f"{name}/{layer}")
+    for layer in params["flow_head"]:
+        o.dense(f"flow_head.layers.{layer.split('_')[1]}",
+                f"flow_head/{layer}")
+    for dst, src in (("0", "conv0"), ("3", "conv1"), ("6", "conv2")):
+        o.conv(f"mask_downscaling.{dst}", f"mask_downscaling/{src}")
+    o.ln("mask_downscaling.1", "mask_downscaling/ln0")
+    o.ln("mask_downscaling.4", "mask_downscaling/ln1")
+    return _as_tensors(o.sd)
+
+
+def state_dict_from_flax_prompt_gen(params: dict) -> dict[str, torch.Tensor]:
+    """JAX ``PromptGenBlock`` params -> the port's: the prompt bank [L, S,
+    S, C] as the reference's [1, L, C, S, S]."""
+    o = _Out(params, {})
+    o.sd["prompt_param"] = np.asarray(params["prompt_param"]).transpose(
+        0, 3, 1, 2)[None]
+    o.dense("linear_layer", "linear_layer")
+    o.conv("conv3x3", "conv3x3")
+    return _as_tensors(o.sd)
+
+
+def state_dict_from_flax_flow_head(params: dict) -> dict[str, torch.Tensor]:
+    """JAX ``FlowHead`` params -> the port's."""
+    o = _Out(params, {})
+    o.conv("conv1", "conv1")
+    o.conv("conv2", "conv2")
+    return _as_tensors(o.sd)

@@ -35,7 +35,7 @@ import numpy as np
 from emip_tpu_torch.ops.image import IMAGENET_MEAN, IMAGENET_STD
 
 __all__ = ["PairItem", "ClipItem", "frames_subdir", "scan_pairs",
-           "scan_clips", "load_frame", "PairTrainLoader", "PairEvalLoader",
+           "scan_clips", "load_frame", "shard_order", "PairTrainLoader", "PairEvalLoader",
            "ClipLoader", "StaticImageLoader", "read_flo", "write_flo",
            "PairFlowLoader", "make_synthetic_video_root",
            "make_synthetic_static_root"]
@@ -219,12 +219,64 @@ def _joint_random_crop(rng: random.Random, images, border: int = 30):
     return [im.crop(region) for im in images]
 
 
-def _epoch_batches(n_items: int, batch_size: int, seed: int, epoch: int,
-                   drop_remainder: bool = True) -> list[list[int]]:
-    """The epoch's shuffled item order cut into batches (a short last one
-    dropped unless ``drop_remainder`` is off), as the JAX loaders do."""
+def shard_order(order: list, index: int, count: int) -> list:
+    """Per-process slice of an epoch order — DistributedSampler semantics.
+
+    The reference shards its datasets across DDP ranks with
+    ``torch.utils.data.DistributedSampler``: pad the (already shuffled)
+    index list by wrapping to the front until it divides ``count``, then
+    give rank ``index`` the strided slice ``padded[index::count]``. All
+    ranks shuffle with the same seed, so the shards are disjoint (up to the
+    wrap padding), cover every item and have one length. Counterpart of
+    :func:`emip_tpu.data.pipeline.shard_order`.
+    """
+    if not 0 <= index < count:
+        raise ValueError(f"shard index {index} not in [0, {count})")
+    if not order:
+        return []
+    per = -(-len(order) // count)  # ceil
+    pad = per * count - len(order)
+    padded = list(order)
+    while pad > 0:  # wrap (possibly multiple times for tiny datasets)
+        padded += order[:pad]
+        pad = per * count - len(padded)
+    return padded[index::count]
+
+
+def _sharded_len(n_items: int, shard) -> int:
+    """Items of one epoch of a loader with ``shard`` (or None)."""
+    if shard is None:
+        return n_items
+    return len(shard_order(list(range(n_items)), *shard))
+
+
+def _epoch_order(n_items: int, seed: int, epoch: int, shard,
+                 shuffle: bool = True) -> list[int]:
+    """The epoch's item order, shuffled by (seed, epoch) (unless
+    ``shuffle`` is off), then this process's shard of it."""
     order = list(range(n_items))
-    random.Random(f"{seed}:{epoch}").shuffle(order)
+    if shuffle:
+        random.Random(f"{seed}:{epoch}").shuffle(order)
+    return order if shard is None else shard_order(order, *shard)
+
+
+def _check_shard(shard, drop_remainder: bool = True):
+    """A sharded batched loader must drop the remainder: a short last
+    batch could then differ in rows across processes (the JAX loaders'
+    rule)."""
+    if shard is not None and not drop_remainder:
+        raise ValueError("shard requires drop_remainder=True (equal "
+                         "per-process batches)")
+    return shard
+
+
+def _epoch_batches(n_items: int, batch_size: int, seed: int, epoch: int,
+                   drop_remainder: bool = True,
+                   shard=None) -> list[list[int]]:
+    """The epoch's shuffled item order, this process's ``shard`` of it,
+    cut into batches (a short last one dropped unless ``drop_remainder``
+    is off), as the JAX loaders do."""
+    order = _epoch_order(n_items, seed, epoch, shard)
     batches = [order[i:i + batch_size]
                for i in range(0, len(order), batch_size)]
     return [b for b in batches
@@ -244,22 +296,27 @@ class PairTrainLoader:
     augmentation are seeded by (seed, epoch, batch, item), as in the JAX
     loader. ``flip_augment`` adds the joint horizontal and vertical flips
     of the reference's flip-augmented dataset after the rotation.
+    ``shard`` = (index, count) gives this process its slice of each
+    shuffled epoch (:func:`shard_order`); the batch index of the item RNGs
+    counts within the shard, as in the JAX loader.
     """
 
     def __init__(self, images_root: str, gts_root: str, batch_size: int,
                  size: int = 352, dataset_type: str = "MoCA",
                  seed: int = 123, augment: bool = True,
-                 flip_augment: bool = False):
+                 flip_augment: bool = False,
+                 shard: tuple[int, int] | None = None):
         self.items = scan_pairs(images_root, dataset_type, gts_root)
         self.batch_size = batch_size
         self.size = size
         self.seed = seed
         self.augment = augment
         self.flip_augment = flip_augment
+        self.shard = _check_shard(shard)
         self.epoch = 0
 
     def __len__(self):
-        return len(self.items) // self.batch_size
+        return _sharded_len(len(self.items), self.shard) // self.batch_size
 
     def _load_one(self, item: PairItem, rng: random.Random):
         img1, img2 = _open(item.image1, "RGB"), _open(item.image2, "RGB")
@@ -279,7 +336,7 @@ class PairTrainLoader:
     def __iter__(self):
         self.epoch += 1
         batches = _epoch_batches(len(self.items), self.batch_size, self.seed,
-                                 self.epoch)
+                                 self.epoch, shard=self.shard)
         out: queue.Queue = queue.Queue(maxsize=_PREFETCH)
         done = object()
         stop = threading.Event()
@@ -346,22 +403,24 @@ class ClipLoader:
     ``frame_names``, ``orig_hw`` (frame 0's native size) and, with GT, ``masks`` [T, S, S, 1] at the model's
     resolution and ``gts``, the native-resolution GTs (0..255). No
     augmentation; ``shuffle`` orders the videos by (seed, epoch), as the
-    JAX loader does."""
+    JAX loader does, and ``shard`` = (index, count) then gives this process
+    its slice of that order (:func:`shard_order`)."""
 
     def __init__(self, images_root: str, gts_root: str | None = None,
                  size: int = 352, dataset_type: str = "MoCA",
                  with_gt: bool = True, shuffle: bool = False,
-                 seed: int = 123):
+                 seed: int = 123, shard: tuple[int, int] | None = None):
         self.clips = scan_clips(images_root, gts_root, dataset_type,
                                 require_gt=with_gt)
         self.size = size
         self.with_gt = with_gt
         self.shuffle = shuffle
         self.seed = seed
+        self.shard = shard
         self.epoch = 0
 
     def __len__(self):
-        return len(self.clips)
+        return _sharded_len(len(self.clips), self.shard)
 
     def load_clip(self, clip: ClipItem) -> dict:
         with ThreadPoolExecutor(_WORKERS) as pool:
@@ -379,10 +438,8 @@ class ClipLoader:
 
     def __iter__(self):
         self.epoch += 1
-        order = list(range(len(self.clips)))
-        if self.shuffle:
-            random.Random(f"{self.seed}:{self.epoch}").shuffle(order)
-        for i in order:
+        for i in _epoch_order(len(self.clips), self.seed, self.epoch,
+                              self.shard, self.shuffle):
             yield self.load_clip(self.clips[i])
 
 
@@ -396,17 +453,16 @@ class StaticImageLoader:
     rotation, joint horizontal flip, colour jitter, GT salt-and-pepper)
     are seeded by (seed, epoch, batch, item), so the batches are those of
     :class:`emip_tpu.data.pipeline.StaticImageLoader` bit for bit. With
-    ``drop_remainder`` off, the last short batch is kept. ``shard`` (the
-    JAX loader's per-process slice) waits for the port's multi-card
-    training: only ``None`` is accepted.
+    ``drop_remainder`` off, the last short batch is kept. ``shard`` =
+    (index, count) gives this process its slice of each shuffled epoch
+    (:func:`shard_order`; it requires ``drop_remainder``).
     """
 
     def __init__(self, root: str, batch_size: int, size: int = 352,
                  seed: int = 123, augment: bool = True,
-                 drop_remainder: bool = True, shard=None):
-        if shard is not None:
-            raise NotImplementedError("the port trains on one card: "
-                                      "shard must be None")
+                 drop_remainder: bool = True,
+                 shard: tuple[int, int] | None = None):
+        self.shard = _check_shard(shard, drop_remainder)
         img_dir = next((os.path.join(root, c) for c in
                         ("Imgs", "Image", "Images")
                         if os.path.isdir(os.path.join(root, c))), None)
@@ -426,7 +482,8 @@ class StaticImageLoader:
         self.epoch = 0
 
     def __len__(self):
-        n, rest = divmod(len(self.items), self.batch_size)
+        n, rest = divmod(_sharded_len(len(self.items), self.shard),
+                         self.batch_size)
         return n + int(bool(rest) and not self.drop_remainder)
 
     def _load_one(self, idx: int, rng: random.Random):
@@ -442,7 +499,7 @@ class StaticImageLoader:
     def __iter__(self):
         self.epoch += 1
         batches = _epoch_batches(len(self.items), self.batch_size, self.seed,
-                                 self.epoch, self.drop_remainder)
+                                 self.epoch, self.drop_remainder, self.shard)
         with ThreadPoolExecutor(_WORKERS) as pool:
             for bi, idxs in enumerate(batches):
                 rngs = _item_rngs(self.seed, self.epoch, bi, len(idxs))

@@ -28,8 +28,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from emip_tpu_torch.parallel import all_reduce_mean, world
+
 __all__ = ["COMPUTE_DTYPES", "dtype_named", "cast", "set_compute_dtype",
-           "compute_dtype", "Linear", "Conv2d", "LayerNorm", "BatchNorm2d"]
+           "compute_dtype", "Linear", "Conv2d", "ConvTranspose2d", "LayerNorm",
+           "BatchNorm2d"]
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -93,6 +96,20 @@ class Conv2d(nn.Conv2d):
                                   cast(self.bias, dt))
 
 
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` in its module's compute dtype (flax's
+    ``ConvTranspose``): input, weight and bias cast to it."""
+
+    def forward(self, x):
+        dt = compute_dtype(self)
+        if dt == torch.float32:
+            return super().forward(x)
+        return F.conv_transpose2d(x.to(dt), cast(self.weight, dt),
+                                  cast(self.bias, dt), self.stride,
+                                  self.padding, self.output_padding,
+                                  self.groups, self.dilation)
+
+
 class LayerNorm(nn.LayerNorm):
     """``nn.LayerNorm`` with fp32 statistics and parameters, returned in the
     input's dtype (flax's ``LayerNorm`` with a bf16 ``dtype``)."""
@@ -112,12 +129,24 @@ class BatchNorm2d(nn.BatchNorm2d):
     and updates ``running_var`` with the biased batch variance, as flax's
     does (torch's own update takes the unbiased one, larger by n / (n - 1)
     for n elements a channel). ``momentum`` is torch's: flax's 0.9 is 0.1.
+
+    With a process group of more than one rank (data parallelism), the
+    statistics in train mode are those of the whole batch, as JAX computes
+    them over the global batch inside ``jit``: the per-channel fp32 sums
+    of x and x^2 and the element counts, reduced over the ranks with
+    gradient (:func:`emip_tpu_torch.parallel.all_reduce_mean`), give the
+    mean and the variance as flax computes it, max(E[x^2] - E[x]^2, 0),
+    whatever rows each rank holds. The reduction is a collective: every
+    rank must run each train-mode forward. With one process the path
+    above runs and keeps its bits.
     """
 
     def forward(self, x):
         x = x.float()
         if not (self.training and self.track_running_stats):
             return super().forward(x)
+        if world()[1] > 1:
+            return self._synced_forward(x)
         self._check_input_dim(x)
         self.num_batches_tracked.add_(1)
         # torch's update goes to a copy (which autograd keeps, so it must
@@ -131,3 +160,21 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_var.copy_(torch_var - (
                 torch_var - (1.0 - self.momentum) * self.running_var) / n)
         return out
+
+    def _synced_forward(self, x):
+        self._check_input_dim(x)
+        dims = (0, 2, 3)
+        count = x.new_full((x.shape[1],), x.numel() // x.shape[1])
+        sums = all_reduce_mean(torch.stack([x.sum(dims), (x * x).sum(dims),
+                                            count]))
+        mean, mean_sq = sums[0] / sums[2], sums[1] / sums[2]
+        var = torch.clamp_min(mean_sq - mean ** 2, 0.0)
+        with torch.no_grad():
+            self.num_batches_tracked.add_(1)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+        scale = torch.rsqrt(var + self.eps)
+        if self.weight is not None:
+            scale = scale * self.weight
+        y = (x - mean[:, None, None]) * scale[:, None, None]
+        return y if self.bias is None else y + self.bias[:, None, None]

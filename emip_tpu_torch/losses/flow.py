@@ -7,7 +7,8 @@ backward-flow splat density (kernel E), and a 0.15 L1 + 0.85 SSIM
 photometric distance is averaged over both directions. As in the
 reference, the smoothness term is not part of the loss, occlusion masks
 come from level 0 only (nearest-resized for the other levels), and the
-photometric terms are normalised by the mean occlusion mask.
+photometric terms are normalised by the mean occlusion mask (over the
+whole batch: under data parallelism, over every rank's masks).
 
 Flows are a list of (flow_fw, flow_bw) NHWC pairs [B, H, W, 2]; images
 are NHWC [B, H, W, 3], as in the JAX package.
@@ -22,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from emip_tpu_torch.ops.image import resize_area, resize_nearest
+from emip_tpu_torch.parallel import all_reduce_mean
 from emip_tpu_torch.ops.warp import flow_warp_loss, occlusion_mask_backward
 
 __all__ = ["UnsupFlowLossConfig", "unsup_flow_loss",
@@ -73,7 +75,9 @@ def _photometric(cfg: UnsupFlowLossConfig, im_target, im_recons, occ_mask):
     if cfg.w_ssim > 0:
         terms.append(torch.mean(cfg.w_ssim * ssim_distance(
             im_recons * occ_mask, im_target * occ_mask, cfg.ssim_window)))
-    return sum(terms) / torch.mean(occ_mask)
+    # JAX's mean runs over the global batch: with data parallelism the
+    # normaliser is the mean over every rank's masks, with gradient
+    return sum(terms) / all_reduce_mean(torch.mean(occ_mask))
 
 
 def unsup_flow_loss(flows: Sequence[tuple[torch.Tensor, torch.Tensor]],

@@ -47,6 +47,7 @@ from emip_tpu_torch.dtypes import (
 )
 from emip_tpu_torch.kernels import fused_dwconv_gelu, fused_sr_attention
 from emip_tpu_torch.ops.image import resize_area
+from emip_tpu_torch.parallel import world
 
 __all__ = ["PVTv2Config", "PVT_V2_VARIANTS", "PVTv2", "PVTBlock",
            "SRAttention", "MixFFN", "OverlapPatchEmbed", "drop_path"]
@@ -201,13 +202,21 @@ class MixFFN(nn.Module):
 def drop_path(x: torch.Tensor, rate: float,
               generator: torch.Generator | None = None) -> torch.Tensor:
     """Per-sample stochastic depth, scaled by 1/keep (timm convention, as
-    the JAX package's ``_drop_path``)."""
+    the JAX package's ``_drop_path``).
+
+    JAX draws the keep mask over the global batch. Under data parallelism
+    every rank draws the ``world x B`` rows from its generator (seeded
+    alike on every rank) and keeps its own ``B``, so the masks are those
+    of the one-process step on the concatenated batch; with one process
+    the draw is the ``B`` rows alone."""
     if rate == 0.0:
         return x
     keep = 1.0 - rate
     device = generator.device if generator is not None else x.device
-    u = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1), generator=generator,
-                   device=device)
+    rank, size = world()
+    b = x.shape[0]
+    u = torch.rand((size * b,) + (1,) * (x.dim() - 1), generator=generator,
+                   device=device)[rank * b:(rank + 1) * b]
     return x * (torch.floor(keep + u).to(x.device, x.dtype) / keep)
 
 

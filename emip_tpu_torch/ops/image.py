@@ -15,7 +15,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["resize_bilinear", "resize_area", "resize_nearest",
+__all__ = ["resize_bilinear", "resize_bilinear_antialias", "resize_area", "resize_nearest",
            "normalize_imagenet", "linear_weights_np", "resize_bilinear_np",
            "IMAGENET_MEAN", "IMAGENET_STD"]
 
@@ -30,6 +30,19 @@ def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int],
         return x
     return F.interpolate(x, size=tuple(out_hw), mode="bilinear",
                          align_corners=align_corners)
+
+
+def resize_bilinear_antialias(x: torch.Tensor, out_hw: tuple[int, int]
+                              ) -> torch.Tensor:
+    """Bilinear resize of an NCHW tensor that low-pass filters where it
+    shrinks: ``jax.image.resize(..., "bilinear")``, whose ``antialias`` is
+    on by default (a triangle kernel widened by the shrink factor, its
+    weights normalised). ``F.interpolate`` filters so only with
+    ``antialias=True``."""
+    if tuple(x.shape[-2:]) == tuple(out_hw):
+        return x
+    return F.interpolate(x, size=tuple(out_hw), mode="bilinear",
+                         align_corners=False, antialias=True)
 
 
 def resize_area(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:

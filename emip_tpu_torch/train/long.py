@@ -16,6 +16,13 @@ carried, so each frame is encoded once. The JAX package's
 has no counterpart: PyTorch runs eagerly, and the config's
 ``long_frames_per_dispatch`` is ignored.
 
+Under data parallelism (:mod:`emip_tpu_torch.parallel`) each rank streams
+its shard of the clips, ``clips_per_step`` at a time, and steps the long
+heads through ``DistributedDataParallel``; every rank runs the same number
+of groups (the shards are padded to one length) and of frame steps (a
+group is cut to the shortest clip over all ranks, as JAX's global array
+cuts it), so the all-reduces pair up.
+
 The model computes in the config's ``compute_dtype`` (bfloat16 when the
 key is missing, as in the JAX package): ``EMIPLong(..., dtype=)``, with
 fp32 parameters, AdamW state, checkpoints, memory ring and mask logits, so
@@ -40,6 +47,14 @@ from emip_tpu_torch.dtypes import dtype_named
 from emip_tpu_torch.losses.seg import hybrid_e_loss
 from emip_tpu_torch.models.emip_long import EMIPLong
 from emip_tpu_torch.models.init import seeded_init_
+from emip_tpu_torch.parallel import (
+    all_reduce_mean,
+    all_reduce_min,
+    barrier,
+    data_parallel,
+    default_shard,
+    is_primary,
+)
 from emip_tpu_torch.train.loops import (
     _to_device,
     save_checkpoint,
@@ -85,16 +100,29 @@ def build_long_model(cfg: Config, short_state_dict: dict | None = None,
     return model, opt
 
 
-def long_train_step(model: EMIPLong, opt, enc_prev: dict,
+class CachedStep(torch.nn.Module):
+    """:meth:`EMIPLong.step_cached` as a module's ``forward``, the call
+    ``DistributedDataParallel`` wraps."""
+
+    def __init__(self, model: EMIPLong):
+        super().__init__()
+        self.model = model
+
+    def forward(self, enc_prev: dict, image_cur, state):
+        return self.model.step_cached(enc_prev, image_cur, state)
+
+
+def long_train_step(step: torch.nn.Module, opt, enc_prev: dict,
                     image_cur: torch.Tensor, gt: torch.Tensor, state):
     """One frame: forward in train mode (the short-term net stays in eval
     mode and takes no gradient), hybrid-E loss on the long mask, backward
     over the long heads (through kernel F's backward on the card),
-    clamp + AdamW. Returns (detached metrics, enc_cur, the memory with the
-    frame pushed detached)."""
-    model.train()
-    mask_long, enc_cur, new_state = model.step_cached(enc_prev, image_cur,
-                                                      state)
+    clamp + AdamW. ``step`` is the model's :class:`CachedStep`, as
+    :func:`emip_tpu_torch.parallel.data_parallel` returns it (in
+    ``DistributedDataParallel`` under data parallelism). Returns (detached
+    metrics, enc_cur, the memory with the frame pushed detached)."""
+    step.train()
+    mask_long, enc_cur, new_state = step(enc_prev, image_cur, state)
     loss = hybrid_e_loss(mask_long, gt)
     opt.zero_grad(set_to_none=True)
     loss.backward()
@@ -172,16 +200,22 @@ def train_long(cfg: Config, short_state_dict: dict | None = None,
     (default: the GPU; raises without one): cosine LR per epoch, one
     optimizer step per frame, a checkpoint per ``epoch_save`` under
     ``ckpt_long`` and the best-by-S-measure one under ``ckpt_long_best``.
-    Returns the model and a summary."""
+    Returns the model and a summary. In a process group of more than one
+    rank each rank streams its shard of the clips through
+    ``DistributedDataParallel``; the first rank alone writes and
+    validates."""
     device = resolve_device(device)
-    setup_logging(cfg.save_path, "train_long_log.log")
-    snapshot_config(cfg, cfg.save_path)
-    scalars = ScalarLogger(cfg.save_path)
+    primary = is_primary()
+    if primary:
+        setup_logging(cfg.save_path, "train_long_log.log")
+        snapshot_config(cfg, cfg.save_path)
+    scalars = ScalarLogger(cfg.save_path, enabled=primary)
     model, opt = build_long_model(cfg, short_state_dict, device)
+    step_model = data_parallel(CachedStep(model))
     td = cfg.train_dataset
     loader = ClipLoader(td.image_path, td.gt_path, size=td.inp_size,
                         dataset_type=td.dataset_type, shuffle=True,
-                        seed=cfg.seed)
+                        seed=cfg.seed, shard=default_shard())
     lr_fn = cosine_epoch_lr(cfg.lr, cfg.lr_min, cfg.epoch_max)
     ckpt_dir = os.path.join(cfg.save_path, "ckpt_long")
     best_dir = os.path.join(cfg.save_path, "ckpt_long_best")
@@ -193,19 +227,22 @@ def train_long(cfg: Config, short_state_dict: dict | None = None,
         for frames, masks in _clip_groups(loader, clips_per_step,
                                           max_videos_per_epoch,
                                           max_frames_per_video):
+            # every rank steps as many frames as the shortest clip of all
+            t_min = all_reduce_min(frames.shape[1])
             mem = model.init_memory(clips_per_step)
             enc = model.encode_frame(_to_device(frames[:, 0], device))
-            for t in range(1, frames.shape[1]):
+            for t in range(1, t_min):
                 metrics, enc, mem = long_train_step(
-                    model, opt, enc, _to_device(frames[:, t], device),
+                    step_model, opt, enc, _to_device(frames[:, t], device),
                     _to_device(masks[:, t], device), mem)
                 steps += 1
-            scalars.scalar("loss/long", float(metrics["loss"]), steps)
+            scalars.scalar("loss/long", float(all_reduce_mean(
+                metrics["loss"])), steps)
         scalars.scalar("time/epoch_s", time.perf_counter() - t0, epoch)
 
-        if cfg.epoch_save and epoch % cfg.epoch_save == 0:
+        if cfg.epoch_save and epoch % cfg.epoch_save == 0 and primary:
             save_checkpoint(ckpt_dir, model, opt, epoch)
-        if cfg.epoch_val and epoch % cfg.epoch_val == 0:
+        if cfg.epoch_val and epoch % cfg.epoch_val == 0 and primary:
             val = validate_long(model, cfg, device)
             scalars.scalars({f"val_long/{k}": v for k, v in val.items()},
                             epoch)
@@ -219,5 +256,6 @@ def train_long(cfg: Config, short_state_dict: dict | None = None,
             if val.get("Sm", float("-inf")) > best_sm:
                 best_sm, best_epoch = val["Sm"], epoch
                 save_checkpoint(best_dir, model, opt, epoch)
+        barrier()
     scalars.close()
     return model, dict(best_sm=best_sm, best_epoch=best_epoch, steps=steps)

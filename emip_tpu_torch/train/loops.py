@@ -10,6 +10,10 @@ package: :mod:`emip_tpu_torch.dtypes`); its parameters, the optimizer
 state and the checkpoints are fp32 either way, so a checkpoint of either
 dtype loads into a model of the other. Runs on the GPU
 unless the caller names another device; without a GPU the default raises.
+Under data parallelism (:mod:`emip_tpu_torch.parallel`) each rank trains
+on its shard of every epoch through ``DistributedDataParallel``; the first
+rank alone writes the log, the scalars and the checkpoints and validates,
+while the others wait for it.
 """
 
 from __future__ import annotations
@@ -31,6 +35,13 @@ from emip_tpu_torch.metrics import frame_scores
 from emip_tpu_torch.models.emip_short import EMIPShort
 from emip_tpu_torch.models.init import seeded_init_
 from emip_tpu_torch.ops.image import linear_weights_np
+from emip_tpu_torch.parallel import (
+    all_reduce_mean,
+    barrier,
+    data_parallel,
+    default_shard,
+    is_primary,
+)
 from emip_tpu_torch.train.short import short_eval_step, short_train_step
 from emip_tpu_torch.train.state import (
     build_optimizer,
@@ -133,11 +144,20 @@ def train_short(cfg: Config, resume: bool = False,
     one) in ``cfg.compute_dtype``; returns the model and a summary. The
     model starts from seeded random weights, then takes the checkpoints the
     config's ``load`` block names (``path``, ``flow_path``) where the files
-    exist."""
+    exist.
+
+    In a process group of more than one rank each rank takes its shard of
+    every epoch at ``batch_size`` (the global batch is ``world x
+    batch_size``) and steps the model wrapped in
+    ``DistributedDataParallel``; the logged losses are the means over the
+    ranks; the first rank alone writes and validates, and every rank
+    resumes from the same checkpoint."""
     device = resolve_device(device)
-    setup_logging(cfg.save_path)
-    snapshot_config(cfg, cfg.save_path)
-    scalars = ScalarLogger(cfg.save_path)
+    primary = is_primary()
+    if primary:
+        setup_logging(cfg.save_path)
+        snapshot_config(cfg, cfg.save_path)
+    scalars = ScalarLogger(cfg.save_path, enabled=primary)
     model = seeded_init_(
         EMIPShort(cfg.model, dtype=dtype_named(cfg.compute_dtype)),
         cfg.seed)
@@ -150,11 +170,13 @@ def train_short(cfg: Config, resume: bool = False,
     if resume and os.path.exists(os.path.join(ckpt_dir, CKPT_NAME)):
         start_epoch = load_checkpoint(ckpt_dir, model, opt) + 1
         log.info("resumed from epoch %d", start_epoch - 1)
+    step_model = data_parallel(model)
 
     td = cfg.train_dataset
     loader = PairTrainLoader(td.image_path, td.gt_path, td.batch_size,
                              size=td.inp_size, dataset_type=td.dataset_type,
-                             seed=cfg.seed, augment=td.augment)
+                             seed=cfg.seed, augment=td.augment,
+                             shard=default_shard())
     lr_fn = cosine_epoch_lr(cfg.lr, cfg.lr_min, cfg.epoch_max)
     gen_device = device if device.type == "cuda" else "cpu"
     generator = torch.Generator(device=gen_device).manual_seed(cfg.seed)
@@ -172,30 +194,33 @@ def train_short(cfg: Config, resume: bool = False,
                 batch = dict(image1=_to_device(batch["image1"], device),
                              image2=_to_device(batch["image2"], device),
                              gt=_to_device(batch["gt"], device))
-                metrics = short_train_step(model, opt, batch, generator)
+                metrics = short_train_step(step_model, opt, batch, generator)
                 steps += 1
                 epoch_steps += 1
                 epoch_loss = (metrics["loss"] if epoch_loss is None
                               else epoch_loss + metrics["loss"])
                 if i % 20 == 0 or i == 1:
-                    last = {k: float(v) for k, v in metrics.items()}
+                    last = {k: float(all_reduce_mean(v))
+                            for k, v in metrics.items()}
                     log.info("[Train] epoch %d step %d loss %.4f pred %.4f "
                              "flow %.4f", epoch, i, last["loss"],
                              last["loss_pred"], last["loss_flow"])
                     scalars.scalars({f"loss/{k}": v for k, v in last.items()},
                                     steps)
         except KeyboardInterrupt:
-            save_checkpoint(ckpt_dir, model, opt, epoch)
+            if primary:
+                save_checkpoint(ckpt_dir, model, opt, epoch)
             raise
         dt = time.perf_counter() - t0
         scalars.scalar("time/epoch_s", dt, epoch)
         if epoch_steps:
             scalars.scalar("time/steps_per_s", epoch_steps / dt, epoch)
             scalars.scalar("loss/epoch_mean",
-                           float(epoch_loss) / epoch_steps, epoch)
-        if cfg.epoch_save and epoch % cfg.epoch_save == 0:
+                           float(all_reduce_mean(epoch_loss)) / epoch_steps,
+                           epoch)
+        if cfg.epoch_save and epoch % cfg.epoch_save == 0 and primary:
             save_checkpoint(ckpt_dir, model, opt, epoch)
-        if cfg.epoch_val and epoch % cfg.epoch_val == 0:
+        if cfg.epoch_val and epoch % cfg.epoch_val == 0 and primary:
             val = validate_short(model, cfg, device)
             scalars.scalars({f"val/{k}": v for k, v in val.items()}, epoch)
             log.info("[Val] epoch %d %s", epoch, val)
@@ -204,6 +229,7 @@ def train_short(cfg: Config, resume: bool = False,
                 save_checkpoint(best_dir, model, opt, epoch)
                 log.info("[Val] new best (MAE %.5f) at epoch %d", best_mae,
                          epoch)
+        barrier()
     scalars.close()
     return model, dict(best_mae=best_mae, best_epoch=best_epoch, steps=steps,
                        last=last)

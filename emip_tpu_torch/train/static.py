@@ -13,7 +13,9 @@ epoch under ``<save_path>/ckpt``; the log goes to
 builds ``SegNetwork(dtype=...)``); parameters, optimizer state and
 checkpoints stay fp32. On the card the backbone runs kernel A forward and
 backward, in that dtype (and J where ``fused_ffn`` asks for it: fp32
-only).
+only). Under data parallelism (:mod:`emip_tpu_torch.parallel`) each rank
+takes its shard of every epoch through ``DistributedDataParallel``, with
+the BatchNorm statistics of the whole batch; the first rank alone writes.
 """
 
 from __future__ import annotations
@@ -31,6 +33,13 @@ from emip_tpu_torch.dtypes import dtype_named
 from emip_tpu_torch.losses.seg import hybrid_e_loss
 from emip_tpu_torch.models.emip_short import SegNetwork
 from emip_tpu_torch.models.init import seeded_init_
+from emip_tpu_torch.parallel import (
+    all_reduce_mean,
+    barrier,
+    data_parallel,
+    default_shard,
+    is_primary,
+)
 from emip_tpu_torch.train.loops import _to_device, save_checkpoint
 from emip_tpu_torch.train.state import (
     ClampAdamW,
@@ -71,18 +80,24 @@ def train_static(cfg: Config, data_root: str, save_path: str,
                  device: torch.device | str = DEFAULT_DEVICE
                  ) -> tuple[SegNetwork, dict]:
     """Pretrain for epochs ``1..cfg.epoch - 1`` on ``device`` (default:
-    the GPU; raises without one); returns the model and a summary."""
+    the GPU; raises without one); returns the model and a summary. In a
+    process group of more than one rank each rank steps its shard through
+    ``DistributedDataParallel`` and the first rank alone writes."""
     device = resolve_device(device)
-    setup_logging(save_path, "train_static_log.log")
+    primary = is_primary()
+    if primary:
+        setup_logging(save_path, "train_static_log.log")
     model = build_seg_model(cfg, device)
     opt = ClampAdamW(model.parameters(), cfg.lr, cfg.weight_decay, cfg.clip)
+    step_model = data_parallel(model)
     loader = StaticImageLoader(data_root, cfg.train_dataset.batch_size,
-                               size=cfg.model.inp_size, seed=cfg.seed)
+                               size=cfg.model.inp_size, seed=cfg.seed,
+                               shard=default_shard())
     lr_fn = cosine_epoch_lr(cfg.lr, cfg.lr_min, cfg.epoch_max)
     gen_device = device if device.type == "cuda" else "cpu"
     generator = torch.Generator(device=gen_device).manual_seed(cfg.seed)
     steps, loss = 0, None
-    with ScalarLogger(save_path) as scalars:
+    with ScalarLogger(save_path, enabled=primary) as scalars:
         for epoch in range(1, cfg.epoch):
             set_learning_rate(opt, lr_fn(epoch))
             t0 = time.perf_counter()
@@ -90,14 +105,17 @@ def train_static(cfg: Config, data_root: str, save_path: str,
                 if max_steps_per_epoch and i > max_steps_per_epoch:
                     break
                 batch = {k: _to_device(v, device) for k, v in batch.items()}
-                loss = static_train_step(model, opt, batch, generator)
+                loss = static_train_step(step_model, opt, batch, generator)
                 steps += 1
                 if i % 20 == 0 or i == 1:
+                    shown = float(all_reduce_mean(loss))  # over the ranks
                     log.info("[Static] epoch %d step %d loss %.4f", epoch, i,
-                             float(loss))
-                    scalars.scalar("loss/static", float(loss),
-                                   epoch * 100000 + i)
+                             shown)
+                    scalars.scalar("loss/static", shown, epoch * 100000 + i)
             scalars.scalar("time/epoch_s", time.perf_counter() - t0, epoch)
-            save_checkpoint(os.path.join(save_path, "ckpt"), model, opt, epoch)
+            if primary:
+                save_checkpoint(os.path.join(save_path, "ckpt"), model, opt,
+                                epoch)
+            barrier()
     return model, dict(steps=steps,
                        last_loss=None if loss is None else float(loss))

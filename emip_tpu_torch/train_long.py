@@ -14,7 +14,10 @@ detached memory, computing in the config's ``compute_dtype`` (bfloat16
 when the key is missing; parameters, optimizer state and checkpoints stay
 fp32). The log goes to ``<save_path>/train_long_log.log``.
 Runs on the GPU (``--device``, default ``cuda``; without
-a GPU it raises), on the CPU only with ``--device cpu``.
+a GPU it raises), on the CPU only with ``--device cpu``. Under ``torchrun
+--nproc_per_node N`` (or SLURM) it joins the launch's process group and
+trains data-parallel, each rank on its shard of the clips
+(:mod:`emip_tpu_torch.parallel`).
 """
 
 from __future__ import annotations
@@ -48,24 +51,27 @@ def main(argv=None):
     import torch
 
     from emip_tpu_torch.config import load_config
-    from emip_tpu_torch.device import resolve_device
+    from emip_tpu_torch.parallel import init_distributed, shutdown_distributed
     from emip_tpu_torch.train.long import train_long
     from emip_tpu_torch.train.loops import CKPT_NAME
 
     args = parse_args(argv)
-    device = resolve_device(args.device)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
-    cfg = load_config(args.config)
-    if args.save_path:
-        cfg.save_path = args.save_path
-    short = None
-    if args.short_ckpt:
-        state = torch.load(os.path.join(args.short_ckpt, CKPT_NAME),
-                           map_location="cpu")
-        short = state["model"]
-        print(f">>> loaded short-term checkpoint epoch {state['epoch']}")
-    _, summary = train_long(cfg, short, args.max_videos_per_epoch,
-                            args.max_frames_per_video, device=device)
+    device = init_distributed(args.device)  # the launch's group, if any
+    try:
+        cfg = load_config(args.config)
+        if args.save_path:
+            cfg.save_path = args.save_path
+        short = None
+        if args.short_ckpt:
+            state = torch.load(os.path.join(args.short_ckpt, CKPT_NAME),
+                               map_location="cpu")
+            short = state["model"]
+            print(f">>> loaded short-term checkpoint epoch {state['epoch']}")
+        _, summary = train_long(cfg, short, args.max_videos_per_epoch,
+                                args.max_frames_per_video, device=device)
+    finally:
+        shutdown_distributed()
     print(f">>> long training done: {summary}")
     return summary
 

@@ -11,7 +11,9 @@ COD10K-style root (``Imgs/`` + ``GT/``) at ``model.inp_size``, batch
 when the key is missing). The default ``--save_path`` is
 ``<save_path of the config>/static``; checkpoints go to its ``ckpt/``.
 Runs on the GPU (``--device``, default ``cuda``; without a GPU it raises
-before it writes anything), on the CPU only with ``--device cpu``.
+before it writes anything), on the CPU only with ``--device cpu``. Under
+``torchrun --nproc_per_node N`` (or SLURM) it joins the launch's process
+group and trains data-parallel (:mod:`emip_tpu_torch.parallel`).
 """
 
 from __future__ import annotations
@@ -38,16 +40,19 @@ def parse_args(argv=None):
 
 def main(argv=None) -> dict:
     from emip_tpu_torch.config import load_config
-    from emip_tpu_torch.device import resolve_device
+    from emip_tpu_torch.parallel import init_distributed, shutdown_distributed
     from emip_tpu_torch.train.static import train_static
 
     args = parse_args(argv)
-    device = resolve_device(args.device)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
-    cfg = load_config(args.config)
-    save_path = args.save_path or os.path.join(cfg.save_path, "static")
-    _, summary = train_static(cfg, args.data_root, save_path,
-                              args.max_steps_per_epoch, device=device)
+    device = init_distributed(args.device)  # the launch's group, if any
+    try:
+        cfg = load_config(args.config)
+        save_path = args.save_path or os.path.join(cfg.save_path, "static")
+        _, summary = train_static(cfg, args.data_root, save_path,
+                                  args.max_steps_per_epoch, device=device)
+    finally:
+        shutdown_distributed()
     print(f">>> static pretrain done: {summary}")
     return summary
 

@@ -5,9 +5,9 @@ attaches a file handler (``train_log.log``, ``train_long_log.log``,
 ``train_static_log.log``) to the port's logger, and :class:`ScalarLogger`
 appends one JSON record per scalar to ``scalars.jsonl`` under the JAX
 package's tag names (``loss/loss``, ``val/MAE``, ``loss/long``,
-``val_long/Sm``, ``loss/static``, ``time/epoch_s``, ...). The port trains
-in one process, so there is no per-rank file; TensorBoard events are not
-written.
+``val_long/Sm``, ``loss/static``, ``time/epoch_s``, ...). Under data
+parallelism the first rank alone writes them (``enabled``), as the JAX
+package's process 0 does; TensorBoard events are not written.
 """
 
 from __future__ import annotations
@@ -48,13 +48,18 @@ def setup_logging(save_path: str, filename: str = "train_log.log"
 
 class ScalarLogger:
     """Scalars as JSON lines ``{"tag", "value", "step", "time"}`` in
-    ``<save_path>/scalars.jsonl`` (the JAX package's record)."""
+    ``<save_path>/scalars.jsonl`` (the JAX package's record); with
+    ``enabled`` off (a rank other than the first) it writes nothing."""
 
-    def __init__(self, save_path: str):
-        os.makedirs(save_path, exist_ok=True)
-        self._jsonl = open(os.path.join(save_path, "scalars.jsonl"), "a")
+    def __init__(self, save_path: str, enabled: bool = True):
+        self._jsonl = None
+        if enabled:
+            os.makedirs(save_path, exist_ok=True)
+            self._jsonl = open(os.path.join(save_path, "scalars.jsonl"), "a")
 
     def scalar(self, tag: str, value, step: int) -> None:
+        if self._jsonl is None:
+            return
         self._jsonl.write(json.dumps(dict(
             tag=tag, value=float(value), step=int(step),
             time=time.time())) + "\n")
@@ -65,7 +70,8 @@ class ScalarLogger:
             self.scalar(tag, value, step)
 
     def close(self) -> None:
-        self._jsonl.close()
+        if self._jsonl is not None:
+            self._jsonl.close()
 
     def __enter__(self):
         return self

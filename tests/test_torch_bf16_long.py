@@ -457,7 +457,7 @@ def long_train_runs(long_models):
         build_optimizer,
         merge_params,
     )
-    from emip_tpu_torch.train.long import long_train_step
+    from emip_tpu_torch.train.long import CachedStep, long_train_step
     from emip_tpu_torch.train.state import build_long_optimizer
 
     m = long_models
@@ -507,7 +507,7 @@ def long_train_runs(long_models):
         mem = model.init_memory(2)
         enc = model.encode_frame(th.nchw(f[0]))
         for t in range(1, STEPS + 1):
-            metrics, enc, mem = long_train_step(model, opt, enc,
+            metrics, enc, mem = long_train_step(CachedStep(model), opt, enc,
                                                 th.nchw(f[t]),
                                                 th.nchw(gts[t]), mem)
             losses.append(float(metrics["loss"]))

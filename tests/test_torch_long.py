@@ -450,7 +450,7 @@ def _as_port_keys(long_pair, trainable, frozen, batch_stats):
 
 
 def test_one_long_train_step_matches_jax(long_pair, jax_long_train):
-    from emip_tpu_torch.train.long import long_train_step
+    from emip_tpu_torch.train.long import CachedStep, long_train_step
     from emip_tpu_torch.train.state import build_long_optimizer
 
     _, variables, port = long_pair
@@ -494,7 +494,8 @@ def test_one_long_train_step_matches_jax(long_pair, jax_long_train):
         for n, m in model.named_modules()
         if isinstance(m, torch.nn.BatchNorm2d)]
     before = {k: v.clone() for k, v in model.state_dict().items()}
-    metrics, enc2, new_mem = long_train_step(model, opt, enc, f[2], gt, mem)
+    metrics, enc2, new_mem = long_train_step(CachedStep(model), opt, enc,
+                                             f[2], gt, mem)
     for hk in hooks:
         hk.remove()
     np.testing.assert_allclose(float(metrics["loss"]),
@@ -551,7 +552,7 @@ AB_STATS_REL = 1e-4
 
 
 def test_three_long_train_steps_match_jax(long_pair, jax_long_train):
-    from emip_tpu_torch.train.long import long_train_step
+    from emip_tpu_torch.train.long import CachedStep, long_train_step
     from emip_tpu_torch.train.state import build_long_optimizer
 
     _, _, port = long_pair
@@ -565,7 +566,8 @@ def test_three_long_train_steps_match_jax(long_pair, jax_long_train):
         enc = model.encode_frame(f[1])
     losses = []
     for cur in f[2:]:
-        metrics, enc, mem = long_train_step(model, opt, enc, cur, gt, mem)
+        metrics, enc, mem = long_train_step(CachedStep(model), opt, enc,
+                                            cur, gt, mem)
         losses.append(float(metrics["loss"]))
     want = j["ab_losses"]
     assert len(losses) == len(want) == 3 and np.isfinite(losses).all()

@@ -88,10 +88,21 @@ def test_static_loader_batches_match_jax(static_root, augment, drop):
 
 
 def test_static_loader_takes_no_shard(static_root):
+    """Without ``drop_remainder`` the loader takes no shard: it raises (the
+    JAX loader's rule: equal batches on every process); with it, the two
+    shards split
+    the 6 images 3 and 3, as the JAX loader's do (the batches themselves
+    are held bit for bit in tests/test_torch_ddp.py)."""
+    from emip_tpu.data.pipeline import StaticImageLoader as JaxLoader
+
     from emip_tpu_torch.data import StaticImageLoader
 
-    with pytest.raises(NotImplementedError):
-        StaticImageLoader(static_root, 2, shard=(0, 2))
+    with pytest.raises(ValueError, match="drop_remainder"):
+        StaticImageLoader(static_root, 2, shard=(0, 2), drop_remainder=False)
+    for rank in (0, 1):
+        port = StaticImageLoader(static_root, 2, shard=(rank, 2))
+        assert len(port) == len(JaxLoader(static_root, 2,
+                                          shard=(rank, 2))) == 1
 
 
 # ----------------------------------------------------------- the model

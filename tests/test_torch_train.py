@@ -729,20 +729,22 @@ def test_train_cli_flags_mirror_root_train_py():
     with open(os.path.join(REPO, "train.py")) as f:
         root_flags = set(re.findall(r'add_argument\(\s*"(--\w+)"', f.read()))
     port = parse_args([])
-    # --multi_host initialises jax.distributed; the port trains on one card.
-    # --device is the one flag the port adds: it defaults to the card
-    assert {f"--{k}" for k in vars(port)} == (
-        root_flags - {"--multi_host"} | {"--device"})
-    assert port.device == "cuda"
+    # --multi_host joins a torchrun / SLURM process group (data
+    # parallelism, emip_tpu_torch/parallel.py), as the root script's joins
+    # jax.distributed; --device is the one flag the port adds: it defaults
+    # to the card
+    assert {f"--{k}" for k in vars(port)} == root_flags | {"--device"}
+    assert port.device == "cuda" and port.multi_host is False
     args = parse_args(["--config", "c.yaml", "--resume", "--save_path", "s",
-                       "--max_steps_per_epoch", "2"])
+                       "--max_steps_per_epoch", "2", "--multi_host"])
     assert (args.config, args.resume, args.save_path,
-            args.max_steps_per_epoch) == ("c.yaml", True, "s", 2)
+            args.max_steps_per_epoch, args.multi_host) == (
+                "c.yaml", True, "s", 2, True)
     proc = subprocess.run([sys.executable, "-m", "emip_tpu_torch.train",
                            "--help"], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
-    assert all(flag in proc.stdout for flag in root_flags - {"--multi_host"})
+    assert all(flag in proc.stdout for flag in root_flags)
 
 
 def test_train_loader_batches_are_seeded_and_augmented(tmp_path):

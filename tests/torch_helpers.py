@@ -273,3 +273,228 @@ def tiny_yaml(path, root, save, **extra) -> str:
     with open(path, "w") as f:
         yaml.safe_dump(cfg, f)
     return str(path)
+
+
+# ------------------------------------------------ data parallelism
+# tests/test_torch_ddp.py: the same cases run in one process on the whole
+# batch and in each rank of a gloo group on its rows (ddp_worker)
+
+DDP_DEPTHS = (1, 1, 2, 1)
+DDP_BATCH = 4  # global batch: 2 rows a rank on 2 ranks
+DDP_SEED = 11
+DDP_LR = 1e-3
+# case -> (model, compute dtype, drop path rate, steps)
+DDP_CASES = {"short_fp32": ("short", torch.float32, 0.0, 1),
+             "short_fp32_dp": ("short", torch.float32, 0.1, 1),
+             "short_bf16": ("short", torch.bfloat16, 0.0, 1),
+             "static": ("static", torch.float32, 0.1, 1),
+             "long": ("long", torch.float32, 0.0, 1)}
+
+
+def ddp_model(kind: str, dtype, drop_path_rate: float):
+    """The case's seeded model: the two-stream model at b0 widths, PVT
+    depths (1, 1, 2, 1), 64^2, with the dead modules (they take no grad);
+    SegNetwork on that backbone; or the long model around it."""
+    from emip_tpu_torch.models.emip_long import EMIPLong
+    from emip_tpu_torch.models.emip_short import (
+        EMIPShort,
+        EMIPShortConfig,
+        SegNetwork,
+    )
+    from emip_tpu_torch.models.gmflow import GMFlowConfig
+    from emip_tpu_torch.models.init import seeded_init_
+    from emip_tpu_torch.models.pvt_v2 import PVT_V2_VARIANTS
+
+    b0 = dataclasses.replace(PVT_V2_VARIANTS["pvt_v2_b0"], depths=DDP_DEPTHS,
+                             drop_path_rate=drop_path_rate)
+    cfg = EMIPShortConfig(
+        backbone_name=b0, channel=CHANNEL, inp_size=SIZE,
+        gmflow=GMFlowConfig(feature_channels=FDIM,
+                            num_transformer_layers=NUM_LAYERS))
+    model = {"short": lambda: EMIPShort(cfg, dtype=dtype),
+             "static": lambda: SegNetwork(b0, CHANNEL, dtype=dtype),
+             "long": lambda: EMIPLong(cfg, MEMORY_SIZE, dtype=dtype)}[kind]()
+    return seeded_init_(model, DDP_SEED)
+
+
+def ddp_batch(rows: slice) -> dict:
+    """``rows`` of the seeded global batch, NCHW: two frames (ImageNet
+    scale), a binary GT and, for the long model, a 2-frame clip a row."""
+    rng = np.random.default_rng(DDP_SEED)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    n, s = DDP_BATCH, SIZE
+    full = dict(image1=f(n, 3, s, s), image2=f(n, 3, s, s),
+                gt=(rng.uniform(size=(n, 1, s, s)) > 0.6).astype(np.float32),
+                clip=f(n, 2, 3, s, s),
+                masks=(rng.uniform(size=(n, 2, 1, s, s)) > 0.6
+                       ).astype(np.float32))
+    return {k: torch.from_numpy(v[rows].copy()) for k, v in full.items()}
+
+
+def _bn_buffers(model) -> dict:
+    return {k: v.clone() for k, v in model.state_dict().items()
+            if k.endswith(("running_mean", "running_var"))}
+
+
+def ddp_case(case: str, rows: slice) -> dict:
+    """Run ``case`` of :data:`DDP_CASES` on ``rows`` of the global batch
+    through the trainers' own step functions (wrapped in
+    ``DistributedDataParallel`` when a group of more than one rank is
+    active); returns each step's loss, the last step's grads as AdamW
+    reads them before its clamp, the BatchNorm buffers and the trainable
+    parameters after the steps."""
+    from emip_tpu_torch.parallel import data_parallel
+    from emip_tpu_torch.train.long import CachedStep, long_train_step
+    from emip_tpu_torch.train.short import short_train_step
+    from emip_tpu_torch.train.state import (
+        ClampAdamW,
+        build_long_optimizer,
+        build_optimizer,
+    )
+    from emip_tpu_torch.train.static import static_train_step
+
+    kind, dtype, rate, steps = DDP_CASES[case]
+    model = ddp_model(kind, dtype, rate)
+    if kind == "short":
+        opt = build_optimizer(model, DDP_LR)
+    elif kind == "long":
+        opt = build_long_optimizer(model, DDP_LR)
+    else:
+        opt = ClampAdamW(model.parameters(), DDP_LR, 1e-7, 0.5)
+    names = {id(p): k for k, p in model.named_parameters()}
+    grads = {}
+    opt.register_step_pre_hook(lambda o, a, kw: grads.update(
+        {names[id(p)]: p.grad.clone() for g in o.param_groups
+         for p in g["params"] if p.grad is not None}))
+    step_model = data_parallel(CachedStep(model) if kind == "long"
+                               else model)
+    gen = torch.Generator().manual_seed(DDP_SEED)
+    batch = ddp_batch(rows)
+    losses = []
+    for _ in range(steps):
+        if kind == "short":
+            loss = short_train_step(step_model, opt, batch, gen)["loss"]
+        elif kind == "static":
+            loss = static_train_step(step_model, opt, dict(
+                image=batch["image1"], gt=batch["gt"]), gen)
+        else:
+            clip, masks = batch["clip"], batch["masks"]
+            enc = model.encode_frame(clip[:, 0])
+            loss = long_train_step(step_model, opt, enc, clip[:, 1],
+                                   masks[:, 1],
+                                   model.init_memory(len(clip)))[0]["loss"]
+        losses.append(float(loss))
+    return dict(loss=losses, grads=grads, buffers=_bn_buffers(model),
+                params={k: p.detach().clone()
+                        for k, p in model.named_parameters()
+                        if p.requires_grad})
+
+
+def ddp_bn_case(rows: slice) -> dict:
+    """The port's BatchNorm2d in train mode on ``rows`` of a seeded
+    [8, 6, 5, 7] input (channel means away from 0), the loss sum(y *
+    cot): output, input grad, this rank's weight and bias grads and the
+    updated buffers."""
+    from emip_tpu_torch.dtypes import BatchNorm2d
+
+    rng = np.random.default_rng(5)
+    x = (rng.standard_normal((8, 6, 5, 7)) * 2 + 1.5).astype(np.float32)
+    cot = rng.standard_normal(x.shape).astype(np.float32)
+    bn = BatchNorm2d(6)
+    with torch.no_grad():
+        bn.weight.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, 6)))
+        bn.bias.copy_(torch.from_numpy(rng.normal(0, 0.1, 6)))
+    xt = torch.from_numpy(x[rows].copy()).requires_grad_(True)
+    y = bn.train()(xt)
+    (y * torch.from_numpy(cot[rows].copy())).sum().backward()
+    return dict(y=y.detach(), dx=xt.grad, dw=bn.weight.grad,
+                db=bn.bias.grad, mean=bn.running_mean.clone(),
+                var=bn.running_var.clone())
+
+
+def ddp_photometric_inputs() -> dict:
+    """Seeded NHWC target and reconstruction [4, 12, 10, 3] and an
+    occlusion mask [4, 12, 10, 1] in [0, 1]."""
+    rng = np.random.default_rng(8)
+    f = lambda *s: rng.uniform(size=s).astype(np.float32)  # noqa: E731
+    return dict(target=f(4, 12, 10, 3), recons=f(4, 12, 10, 3),
+                occ=f(4, 12, 10, 1))
+
+
+def ddp_photometric_case(rows: slice) -> dict:
+    """The port's photometric term on ``rows``, and its grads to the
+    reconstruction and the mask."""
+    from emip_tpu_torch.losses.flow import UnsupFlowLossConfig, _photometric
+
+    ins = {k: torch.from_numpy(v[rows].copy()).requires_grad_(k != "target")
+           for k, v in ddp_photometric_inputs().items()}
+    loss = _photometric(UnsupFlowLossConfig(), ins["target"], ins["recons"],
+                        ins["occ"])
+    loss.backward()
+    return dict(loss=loss.detach(), d_recons=ins["recons"].grad,
+                d_occ=ins["occ"].grad)
+
+
+def ddp_worker(rank: int, world_size: int, init_file: str, out_dir: str,
+               cases, trainers: dict | None = None) -> None:
+    """One rank of a gloo group (``file://`` rendezvous, 60 s timeout):
+    each of ``cases`` (:data:`DDP_CASES` names, ``"bn"``, ``"bn_uneven"``
+    (3 and 5 rows), ``"photometric"``) on this rank's rows, saved as
+    ``<out_dir>/<case>_<rank>.pt``; then, with ``trainers``, the
+    trainers themselves (``train_short`` and ``train_long`` on a YAML each,
+    ``train_static`` on a root), their summaries saved as
+    ``<out_dir>/trainers_<rank>.pt``."""
+    import datetime
+    import os
+
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=world_size,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        for case in cases:
+            n = {"bn": 8, "bn_uneven": 8,
+                 "photometric": 4}.get(case, DDP_BATCH)
+            per = n // world_size
+            rows = slice(rank * per, (rank + 1) * per)
+            if case == "bn_uneven":  # 3 rows on the first rank, 5 on the other
+                rows = slice(0, 3) if rank == 0 else slice(3, 8)
+            fn = {"bn": ddp_bn_case, "bn_uneven": ddp_bn_case,
+                  "photometric": ddp_photometric_case}.get(case)
+            out = fn(rows) if fn else ddp_case(case, rows)
+            torch.save(out, os.path.join(out_dir, f"{case}_{rank}.pt"))
+        if trainers:
+            torch.save(run_trainers(**trainers),
+                       os.path.join(out_dir, f"trainers_{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_trainers(short_yaml: str, long_yaml: str, static_yaml: str,
+                 static_root: str) -> dict:
+    """``train_short`` (1 step), ``train_long`` (every clip, at most 4
+    frames) and ``train_static`` (1 step) on the CPU from their YAMLs;
+    their summaries and a digest of each model's parameters."""
+    from emip_tpu_torch.config import load_config
+    from emip_tpu_torch.train.long import train_long
+    from emip_tpu_torch.train.loops import train_short
+    from emip_tpu_torch.train.static import train_static
+
+    def params(model):
+        return torch.cat([p.detach().flatten().double()
+                          for p in model.parameters()])
+
+    out = {}
+    model, out["short"] = train_short(load_config(short_yaml),
+                                      max_steps_per_epoch=1, device="cpu")
+    out["short_params"] = params(model)
+    model, out["long"] = train_long(load_config(long_yaml),
+                                    max_frames_per_video=4, device="cpu")
+    out["long_params"] = params(model)
+    cfg = load_config(static_yaml)
+    model, out["static"] = train_static(cfg, static_root, cfg.save_path,
+                                        max_steps_per_epoch=1, device="cpu")
+    out["static_params"] = params(model)
+    return out

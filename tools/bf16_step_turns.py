@@ -268,7 +268,7 @@ def _long(cfg, steps: int, device) -> dict:
 
     from emip_tpu_torch.models.emip_long import EMIPLong
     from emip_tpu_torch.models.init import seeded_init_
-    from emip_tpu_torch.train.long import long_train_step
+    from emip_tpu_torch.train.long import CachedStep, long_train_step
     from emip_tpu_torch.train.state import build_long_optimizer
 
     m32 = seeded_init_(EMIPLong(cfg, memory_size=MEMORY), SEED)
@@ -291,8 +291,8 @@ def _long(cfg, steps: int, device) -> dict:
     if not bool(state.valid.all()):
         raise SystemExit("the long cell's ring is not full")
     out = _measure(
-        lambda: long_train_step(model, opt, enc, video[:, MEMORY + 1], gt,
-                                state), steps)
+        lambda: long_train_step(CachedStep(model), opt, enc,
+                                video[:, MEMORY + 1], gt, state), steps)
     del model, opt
     torch.cuda.empty_cache()
     return out
