@@ -295,7 +295,28 @@ needs one card and no arguments, and it imports nothing of JAX. In order:
     seconds, step ms and peak memory; then one ``torchrun --standalone
     --nproc_per_node 1 -m emip_tpu_torch.train --multi_host`` step on
     phase 10's YAML (no validation) over NCCL (rc 0, the group joined
-    over NCCL, one step, a checkpoint);
+    over NCCL, one step, a checkpoint). The same two ranks go on in the
+    same group: FSDP (``fully_sharded``), the fp32 and bf16 steps again
+    with the model sharded, held to the same one-process steps by the same
+    gates (the nudge band grown until neither run's leaves are past it),
+    each rank's peak memory beside DDP's, one step of ``train_short`` with
+    ``parallel.fsdp`` (validation on every rank, the first writing; its
+    checkpoint loads into a one-process model and optimizer and equals the
+    DDP run's: parameters within one AdamW step, AdamW moments under the
+    same integer keys to the grads' SEG_GRAD_RTOL); sharded inference
+    (the bodies of ``python -m emip_tpu_torch.test`` and ``... test_of``
+    on phase 10's
+    YAML, checkpoint and root, each rank its share: the ranks' PNGs
+    disjoint and together one process's byte for byte, the first rank
+    alone writing the flow images, every rank's flows one process's bit
+    for bit); the GPipe pipeline over b5's stage 3 (40 blocks, C 320, 5
+    heads, 22 x 22 tokens, sr 2: kernel A on 121 keys), batch 8 in 4
+    microbatches, 20 blocks a rank, fp32 and bf16, values and grads held
+    on each rank to the plain block loop on the same microbatches (1e-5
+    of the values' scale and 1e-4 of each grad's, JAX's bounds, in both
+    dtypes; the bit-equal tensors counted) and to the loop on the whole
+    batch (fp32 to the same bounds, bf16 within twice that loop's
+    bf16-vs-fp32 gap), kernel A forward and backward 80 times a rank;
 18. sam heads phase: ``PromptInteract``, ``Interact`` and
     ``PromptGenBlock`` (``emip_tpu_torch/models/sam_prompt.py``) at their
     published width on seeded weights, image and flow [8, 128, 44, 44]
@@ -6065,35 +6086,51 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def _whole(t):
+    """A sharded tensor gathered whole (a collective), else ``t``."""
+    from emip_tpu_torch.parallel import gather_whole
+
+    return gather_whole(t)
+
+
 def _ddp_step(base: dict, dtype, rows: slice, device,
-              nudge_seed: int | None = None) -> dict:
+              nudge_seed: int | None = None, fsdp: bool = False) -> dict:
     """One short train step of the seeded b5 model (``base``, its state
     dict) in ``dtype`` on ``rows`` of the seeded global batch (its frames
     nudged by DDP_NUDGE times a normal draw from ``nudge_seed``), through
     ``short_train_step`` (in ``DistributedDataParallel`` when a group of
-    more than one rank is active): the loss, the grads as AdamW reads them
-    before its clamp, the BatchNorm buffers, the trainable parameters after
-    AdamW, the launches against the structure, the step's ms and the peak
-    memory."""
+    more than one rank is active, or, with ``fsdp``, sharded by
+    ``fully_sharded`` before the optimizer is built): the loss, the grads
+    as AdamW reads them before its clamp, the BatchNorm buffers, the
+    trainable parameters after AdamW (sharded ones gathered whole), the
+    launches against the structure, the step's ms, the peak memory and
+    the memory held just before the step; with ``fsdp`` also the bytes of
+    the root's own parameters and of the largest unit."""
     import torch
 
     from emip_tpu_torch import kernels as K
     from emip_tpu_torch.models.emip_short import EMIPShort, EMIPShortConfig
-    from emip_tpu_torch.parallel import data_parallel
+    from emip_tpu_torch.parallel import (
+        data_parallel,
+        fsdp_units,
+        fully_sharded,
+    )
     from emip_tpu_torch.train.short import short_train_step
-    from emip_tpu_torch.train.state import build_optimizer
+    from emip_tpu_torch.train.state import build_optimizer, freeze_gmflow
 
     cfg = EMIPShortConfig(backbone_name="pvt_v2_b5", inp_size=SIZE)
     with torch.device(device):
         model = EMIPShort(cfg, dtype=dtype)
     model.load_state_dict(base)
+    if fsdp:
+        model = fully_sharded(freeze_gmflow(model))
     opt = build_optimizer(model, DDP_LR)
     names = {id(p): n for n, p in model.named_parameters()}
     grads = {}
     opt.register_step_pre_hook(lambda o, a, kw: grads.update(
-        {names[id(p)]: p.grad.clone() for g in o.param_groups
+        {names[id(p)]: _whole(p.grad).clone() for g in o.param_groups
          for p in g["params"] if p.grad is not None}))
-    step_model = data_parallel(model)
+    step_model = model if fsdp else data_parallel(model)
     batch = seeded_batch(np.random.default_rng(SEED + 30), DDP_BATCH, SIZE,
                          device)
     if nudge_seed is not None:
@@ -6105,6 +6142,7 @@ def _ddp_step(base: dict, dtype, rows: slice, device,
     gen = torch.Generator(device=device).manual_seed(SEED)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
+    held = torch.cuda.memory_allocated(device)  # the state before the step
     K.reset_launches()
     metrics, ms = timed_call(lambda: short_train_step(step_model, opt, batch,
                                                       gen))
@@ -6117,11 +6155,17 @@ def _ddp_step(base: dict, dtype, rows: slice, device,
     out = dict(loss=float(metrics["loss"]), grads=grads,
                buffers={k: v.clone() for k, v in model.state_dict().items()
                         if k.endswith(("running_mean", "running_var"))},
-               params={n: p.detach().clone()
+               params={n: _whole(p).detach().clone()
                        for n, p in model.named_parameters()
                        if p.requires_grad},
                launches=launches, ms=ms,
-               peak=torch.cuda.max_memory_allocated(device))
+               peak=torch.cuda.max_memory_allocated(device), held=held)
+    if fsdp:  # what FSDP all-gathers: the root's own parameters, each unit
+        units = [sum(p.numel() * p.element_size() for p in u.parameters())
+                 for u in fsdp_units(model)]
+        out.update(root_bytes=sum(p.numel() * p.element_size()
+                                  for p in model.parameters())
+                   - sum(units), unit_max_bytes=max(units))
     del step_model, model, opt
     torch.cuda.empty_cache()
     return out
@@ -6220,8 +6264,8 @@ def _ddp_band(got16: dict, ref16: dict, ref32: dict, label: str) -> dict:
     return out
 
 
-def _ddp_rank(rank: int, port: int, out_path: str,
-              trainer_yaml: str) -> None:
+def _ddp_rank(rank: int, port: int, out_path: str, trainer_yaml: str,
+              fsdp_yaml: str, infer: dict) -> None:
     """One rank of the ``ddp`` phase, a spawned process on the card. It
     joins a gloo group of DDP_WORLD ranks through the port's own entry
     (``init_distributed`` on torchrun's variables, every rank on
@@ -6229,9 +6273,17 @@ def _ddp_rank(rank: int, port: int, out_path: str,
     (every rank's state checked equal by digest), then one epoch of one
     step of ``train_short`` on ``trainer_yaml`` (``{rank}`` in it: each
     rank's own ``save_path``), its parameters and buffers checked equal
-    by digest. Then, the group left, rank 0 takes both steps on all the
-    rows in one process and holds the 2-rank steps to them. Each rank
-    writes its readings to ``out_path`` (``{rank}`` in it)."""
+    by digest. The same ranks then take the fp32 and bf16 steps again
+    with the model sharded (FSDP), one step of ``train_short`` on
+    ``fsdp_yaml`` (``parallel.fsdp``), sharded inference
+    (``_sharded_infer_rank``) and the pipeline over b5's stage 3
+    (``_pipeline_rank``). Then, the group left, rank 0 takes both steps on
+    all the rows in one process and holds the 2-rank steps, DDP and FSDP,
+    to them, holds the FSDP run's checkpoint to the DDP run's, and the
+    ranks' predictions to one process's. Each rank writes its readings to
+    ``out_path`` (``{rank}`` in it)."""
+    import faulthandler
+
     import torch
 
     sys.path.insert(0, ROOT)
@@ -6245,6 +6297,7 @@ def _ddp_rank(rank: int, port: int, out_path: str,
     )
     from emip_tpu_torch.train.loops import train_short
 
+    faulthandler.enable()  # a crash in a collective names its frames
     t0 = time.perf_counter()
     os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
                       WORLD_SIZE=str(DDP_WORLD), RANK=str(rank),
@@ -6265,9 +6318,17 @@ def _ddp_rank(rank: int, port: int, out_path: str,
         if any(d != every[0] for d in every):
             raise AssertionError(f"ddp: the ranks' {what} differ")
 
+    def kept() -> int:
+        """Bytes of the earlier steps' readings held on the card for the
+        checks (a step's ``held`` counts them)."""
+        return sum(t.numel() * t.element_size() for r in res.values()
+                   for k in ("grads", "buffers", "params")
+                   for t in r[k].values() if t.is_cuda)
+
     try:
         for name, dtype in (("fp32", torch.float32),
                             ("bf16", torch.bfloat16)):
+            before = kept()
             res[name] = r = _ddp_step(base, dtype, rows, device)
             # one flat copy a collection (a grad's strides may differ
             # from its parameter's)
@@ -6280,7 +6341,8 @@ def _ddp_rank(rank: int, port: int, out_path: str,
             torch.distributed.all_reduce(loss)
             r["loss"] = loss.item() / DDP_WORLD
             rec[name] = dict(loss=r["loss"], step_ms=r["ms"],
-                             peak_bytes=r["peak"], launches=r["launches"])
+                             peak_bytes=r["peak"], held_bytes=r["held"],
+                             kept_bytes=before, launches=r["launches"])
         t1 = time.perf_counter()
         model, summary = train_short(
             load_config(trainer_yaml.format(rank=rank)),
@@ -6291,6 +6353,47 @@ def _ddp_rank(rank: int, port: int, out_path: str,
         same_on_every_rank(summary["steps"], "train_short steps")
         rec["train_short"] = dict(summary, seconds=time.perf_counter() - t1)
         del model
+        torch.cuda.empty_cache()
+        # FSDP on the same ranks, rows and weights
+        for name, dtype in (("fp32", torch.float32),
+                            ("bf16", torch.bfloat16)):
+            before = kept()
+            res["fsdp_" + name] = r = _ddp_step(base, dtype, rows, device,
+                                                fsdp=True)
+            same_on_every_rank(
+                [digest([torch.cat([r[k][n].reshape(-1)
+                                    for n in sorted(r[k])])])
+                 for k in ("grads", "buffers", "params")],
+                f"fsdp {name} grads, buffers or params")
+            loss = torch.tensor([r["loss"]], dtype=torch.float64)
+            torch.distributed.all_reduce(loss)
+            r["loss"] = loss.item() / DDP_WORLD
+            rec["fsdp_" + name] = dict(loss=r["loss"], step_ms=r["ms"],
+                                       peak_bytes=r["peak"],
+                                       held_bytes=r["held"],
+                                       kept_bytes=before,
+                                       root_bytes=r["root_bytes"],
+                                       unit_max_bytes=r["unit_max_bytes"],
+                                       launches=r["launches"])
+        t1 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats(device)
+        model, summary = train_short(
+            load_config(fsdp_yaml.format(rank=rank)),
+            max_steps_per_epoch=1, device=device)
+        same_on_every_rank(digest([_whole(v).reshape(-1) for v in
+                                   model.state_dict().values()]),
+                           "parameters and buffers after FSDP train_short")
+        rec["fsdp_train_short"] = dict(
+            summary, seconds=time.perf_counter() - t1,
+            peak_bytes=torch.cuda.max_memory_allocated(device))
+        del model
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        rec["sharded_infer"], flows = _sharded_infer_rank(
+            rank, device, infer, same_on_every_rank)
+        rec["sharded_infer"]["seconds"] = time.perf_counter() - t1
+        torch.cuda.empty_cache()
+        rec["pipeline"] = _pipeline_rank(rank, device)
         torch.cuda.empty_cache()
     finally:
         shutdown_distributed()
@@ -6306,8 +6409,8 @@ def _ddp_rank(rank: int, port: int, out_path: str,
         band = {n: 0.0 for n in ref["fp32"]["grads"]}
         nudges = 0
         while nudges < DDP_NUDGES and any(
-                r > 1.0 for r in _ddp_banded(res["fp32"], ref["fp32"],
-                                             band)[2].values()):
+                r > 1.0 for got in (res["fp32"], res["fsdp_fp32"])
+                for r in _ddp_banded(got, ref["fp32"], band)[2].values()):
             nudged = _ddp_step(base, torch.float32, slice(0, DDP_BATCH),
                                device, nudge_seed=SEED + 50 + nudges)["grads"]
             for n, g in ref["fp32"]["grads"].items():
@@ -6319,9 +6422,380 @@ def _ddp_rank(rank: int, port: int, out_path: str,
                                          "ddp fp32 2 ranks vs 1 process")
         rec["bf16_check"] = _ddp_band(res["bf16"], ref["bf16"], ref["fp32"],
                                       "ddp bf16 2 ranks vs 1 process")
+        rec["fsdp_fp32_check"] = _ddp_compare(
+            res["fsdp_fp32"], ref["fp32"], band,
+            "fsdp fp32 2 ranks vs 1 process")
+        rec["fsdp_bf16_check"] = _ddp_band(
+            res["fsdp_bf16"], ref["bf16"], ref["fp32"],
+            "fsdp bf16 2 ranks vs 1 process")
+        del res, ref
+        torch.cuda.empty_cache()
+        rec["fsdp_ckpt_check"] = _fsdp_ckpt_check(trainer_yaml, fsdp_yaml,
+                                                  rec)
+        rec["sharded_infer_check"] = _sharded_infer_check(device, infer,
+                                                          rec, flows)
     rec["seconds"] = time.perf_counter() - t0
     with open(out_path.format(rank=rank), "w") as f:
         json.dump(rec, f, default=str)
+
+
+def _own_peak(step: dict) -> int:
+    """A step's peak memory above the earlier steps' kept readings: its
+    model, optimizer and transient alone."""
+    return step["peak_bytes"] - step["kept_bytes"]
+
+
+def _fsdp_ckpt_check(trainer_yaml: str, fsdp_yaml: str, rec: dict) -> dict:
+    """The first rank's checkpoint of the FSDP ``train_short`` step loads
+    into a one-process model (strict) and its optimizer, and equals the DDP
+    run's within the gates a step without its grads allows: the logged
+    loss by TRAIN_LOSS_RTOL, every parameter within one AdamW step (2 lr)
+    and within DDP_PARAM_ATOL for all but 1e-3 of the elements, the
+    BatchNorm buffers by BN_STATS_REL, and the AdamW moments, each under
+    the integer key of the same parameter in both, as the grads are held
+    (``grad_relmax`` within SEG_GRAD_RTOL; the first step's ``exp_avg``
+    and ``sqrt(exp_avg_sq)`` are the clamped grad scaled)."""
+    import torch
+    import yaml
+
+    from emip_tpu_torch.models.emip_short import EMIPShort, EMIPShortConfig
+    from emip_tpu_torch.train.state import build_optimizer
+
+    def ckpt(path):
+        with open(path.format(rank=0)) as f:
+            save = yaml.safe_load(f)["save_path"]
+        return torch.load(os.path.join(save, "ckpt", "ckpt.pt"),
+                          map_location="cpu")
+
+    ddp, fsdp = ckpt(trainer_yaml), ckpt(fsdp_yaml)
+    model = EMIPShort(EMIPShortConfig(backbone_name="pvt_v2_b5",
+                                      inp_size=SIZE))
+    model.load_state_dict(fsdp["model"])  # strict: one process loads it
+    build_optimizer(model, DDP_LR).load_state_dict(fsdp["optimizer"])
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+    if fsdp["optimizer"]["state"].keys() != ddp["optimizer"]["state"].keys():
+        raise AssertionError("fsdp train_short checkpoint: the optimizer "
+                             "holds other parameters than the ddp run's")
+    moments = {}
+    for key, view in (("exp_avg", lambda t: t),
+                      ("exp_avg_sq", torch.sqrt)):
+        got, want = ({names[i]: view(st[key].double())
+                      for i, st in ck["optimizer"]["state"].items()}
+                     for ck in (fsdp, ddp))
+        moments[key] = grad_relmax(got, want)[1][0]
+    loss = (rec["fsdp_train_short"]["last"]["loss"],
+            rec["train_short"]["last"]["loss"])
+    loss_rel = abs(loss[0] - loss[1]) / abs(loss[1])
+    params = {n for n, _ in model.named_parameters()}
+    worst, apart, total, buf = 0.0, 0, 0, (0.0, "")
+    for k, v in ddp["model"].items():
+        diff = (fsdp["model"][k].double() - v.double()).abs()
+        if k in params:
+            worst = max(worst, diff.max().item())
+            apart += int((diff > DDP_PARAM_ATOL).sum())
+            total += diff.numel()
+        elif k.endswith(STATS):
+            buf = max(buf, (diff.max().item()
+                            / max(v.abs().max().item(), 1e-30), k))
+    ok = (loss_rel <= TRAIN_LOSS_RTOL and worst <= 2 * DDP_LR + DDP_PARAM_ATOL
+          and apart <= 1e-3 * total and buf[0] <= BN_STATS_REL
+          and all(r <= SEG_GRAD_RTOL for _, r in moments.values())
+          and ddp["epoch"] == fsdp["epoch"] == 1)
+    log(f"fsdp train_short checkpoint: loads into one process; against the "
+        f"ddp run's: loss rel {loss_rel:.3e} (tol {TRAIN_LOSS_RTOL}), "
+        f"parameters worst {worst:.3e} (one step {2 * DDP_LR:.1e}), {apart} "
+        f"of {total} elements apart by more than {DDP_PARAM_ATOL}, "
+        f"BatchNorm buffers worst rel {buf[0]:.3e} at {buf[1]} (tol "
+        f"{BN_STATS_REL}), AdamW moments over "
+        f"{len(fsdp['optimizer']['state'])} keys worst relmax (leaf, rel) "
+        f"{moments} (tol {SEG_GRAD_RTOL}) "
+        f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError("fsdp train_short checkpoint disagrees with "
+                             "the ddp run's")
+    return dict(loss_rel=loss_rel, worst=worst, apart=apart, total=total,
+                worst_buffer=buf, moments=moments)
+
+
+def _infer_args(infer: dict, rank) -> tuple:
+    """The parsed arguments of ``python -m emip_tpu_torch.test`` and
+    ``... test_of`` on the entry phase's YAML, checkpoint and root, each
+    run's own ``--save_path`` (``rank`` None: one process)."""
+    from emip_tpu_torch.test import parse_args as test_args
+    from emip_tpu_torch.test_of import parse_args as of_args
+
+    tag = "one" if rank is None else f"rank{rank}"
+    common = ["--config", infer["config"], "--ckpt", infer["ckpt"]]
+    return (test_args(common + [
+                "--save_path", os.path.join(infer["out"], "test", tag),
+                "--data", f"MoCA_test={infer['root']}"]),
+            of_args(common + [
+                "--save_path", os.path.join(infer["out"], "of", tag),
+                "--data_root", infer["root"]]))
+
+
+def _sharded_infer_rank(rank: int, device, infer: dict,
+                        same_on_every_rank) -> dict:
+    """Sharded inference on one rank of the group: the bodies of
+    ``python -m emip_tpu_torch.test`` and ``... test_of`` (their
+    ``--multi_host`` runs less the group's forming, which here is gloo's)
+    on the entry phase's YAML, checkpoint and root; every rank's flows
+    equal by digest."""
+    from emip_tpu_torch import kernels as K
+    from emip_tpu_torch.test import _predict
+    from emip_tpu_torch.test_of import _render
+
+    test_args, of_args = _infer_args(infer, rank)
+    K.reset_launches()
+    _predict(test_args, device)
+    flows = _render(of_args, device)
+    same_on_every_rank(digest(_flow_tensors(flows)), "flows")
+    return dict(flows=len(flows), launches={k: v for k, v in
+                                            K.LAUNCHES.items() if v}), flows
+
+
+def _flow_tensors(flows) -> list:
+    import torch
+
+    return [torch.from_numpy(np.ascontiguousarray(f)) for _, _, f in flows]
+
+
+def _files(root: str, ext: str) -> dict:
+    """{relative path: bytes} of the ``ext`` files under ``root``."""
+    out = {}
+    for d, _, fs in os.walk(root):
+        for f in fs:
+            if f.endswith(ext):
+                with open(os.path.join(d, f), "rb") as fh:
+                    out[os.path.relpath(os.path.join(d, f), root)] = fh.read()
+    return out
+
+
+def _sharded_infer_check(device, infer: dict, rec: dict, got) -> dict:
+    """The same ``test`` and ``test_of`` bodies in one process (no group)
+    on the first rank: the ranks' PNGs (masks of both) are disjoint and
+    together the one-process files byte for byte, the first rank alone
+    wrote the flow images, those of one process, and its flows (``got``)
+    are the one-process flows bit for bit. A file that differs is
+    named."""
+    from emip_tpu_torch.test import _predict
+    from emip_tpu_torch.test_of import _render
+
+    test_args, of_args = _infer_args(infer, None)
+    _predict(test_args, device)
+    flows = _render(of_args, device)
+    ranks = range(DDP_WORLD)
+    out, differ = {}, []
+    for run, sub, ext in (("test", "", ".png"), ("of", "_masks", ".png"),
+                          ("of", "", ".jpg")):
+        one = _files(os.path.join(infer["out"], run, "one", sub), ext)
+        shares = [_files(os.path.join(infer["out"], run, f"rank{r}", sub),
+                         ext) for r in ranks]
+        if ext == ".jpg":  # the flow images: the first rank alone
+            union, overlap = shares[0], sum(len(s) for s in shares[1:])
+        else:
+            union = {k: v for s in shares for k, v in s.items()}
+            overlap = sum(len(s) for s in shares) - len(union)
+        differ += [f"{run}/{sub}/{k}" for k in set(one) | set(union)
+                   if one.get(k) != union.get(k)]
+        out[f"{run}{sub}{ext}"] = dict(one=len(one),
+                                       shares=[len(s) for s in shares],
+                                       overlap=overlap)
+    same_flows = (len(got) == len(flows) and all(
+        g[:2] == w[:2] and np.array_equal(g[2], w[2])
+        for g, w in zip(got, flows)))
+    counts = ", ".join(f"{k}: {v['one']} = {' + '.join(map(str, v['shares']))}"
+                       for k, v in out.items())
+    ok = (not differ and same_flows and len(flows) > 0
+          and all(v["overlap"] == 0 and v["one"] > 0 for v in out.values()))
+    log(f"sharded infer {DDP_WORLD} ranks (gloo) vs 1 process on the entry "
+        f"phase's root and checkpoint: files one process = ranks' "
+        f"({counts}), byte for byte {not differ}, flows bit for bit "
+        f"{same_flows} ({len(flows)}), launches a rank "
+        f"{rec['sharded_infer']['launches']} {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError(f"sharded inference differs from one process: "
+                             f"{sorted(differ)[:20]} {out}")
+    return dict(files=out, flows=len(flows))
+
+
+# the pipeline phase: b5's stage 3 at 352^2 over the ddp phase's ranks
+PIPE_DEPTH, PIPE_DIM, PIPE_HEADS, PIPE_SR, PIPE_MLP = 40, 320, 5, 2, 4
+PIPE_SIDE = SIZE // 16   # 22 x 22 tokens; sr 2 gives kernel A 121 keys
+PIPE_MICRO = 4
+PIPE_VALUE_REL = 1e-5    # JAX's bound for its PVT stack's values
+PIPE_GRAD_REL = 1e-4     # and for grads, of each tensor's scale
+
+
+def _pipeline_stack(device) -> list:
+    """b5's stage-3 blocks on seeded weights, eval mode."""
+    from emip_tpu_torch.models.init import seeded_init_
+    from emip_tpu_torch.models.pvt_v2 import PVTBlock
+
+    return [seeded_init_(PVTBlock(PIPE_DIM, PIPE_HEADS, PIPE_MLP, PIPE_SR),
+                         SEED + 60 + i).to(device).eval()
+            for i in range(PIPE_DEPTH)]
+
+
+def _stack_copy(blocks, dtype) -> list:
+    """A copy of ``blocks`` computing in ``dtype``."""
+    import copy
+
+    from emip_tpu_torch.dtypes import set_compute_dtype
+
+    out = [copy.deepcopy(b) for b in blocks]
+    for b in out:
+        set_compute_dtype(b, dtype)
+    return out
+
+
+def _pipeline_run(blocks, x, cot, mode: str) -> dict:
+    """<y, cot> of the stack on ``x`` and its grads, run three ways
+    (``mode``): ``pipe`` pipelined over the group in PIPE_MICRO
+    microbatches; ``micro`` the plain block loop on the same
+    microbatches, each one's backward run in the pipeline's order (last
+    microbatch first); ``loop`` the plain loop on the whole batch. Returns
+    y, the input's grad, each held block's parameter grads, kernel A's
+    launches and the CUDA-event ms."""
+    import torch
+
+    from emip_tpu_torch import kernels as K
+    from emip_tpu_torch.pipeline import pipeline_blocks
+
+    x = x.clone().requires_grad_(True)
+
+    def loop(t):
+        for blk in blocks:
+            t = blk(t, PIPE_SIDE, PIPE_SIDE)
+        return t
+
+    def run():
+        if mode == "pipe":
+            y = pipeline_blocks(blocks, x, PIPE_SIDE, PIPE_SIDE, PIPE_MICRO)
+        elif mode == "loop":
+            y = loop(x)
+        else:
+            parts = [p.detach().requires_grad_(True)
+                     for p in x.chunk(PIPE_MICRO)]
+            outs = [loop(p) for p in parts]
+            # d<y, cot>/dy as the pipeline's backward receives it
+            gy = cot.to(outs[0].dtype).chunk(PIPE_MICRO)
+            for m in reversed(range(PIPE_MICRO)):
+                torch.autograd.backward(outs[m], gy[m])
+            x.grad = torch.cat([p.grad for p in parts])
+            return torch.cat(outs)
+        (y.float() * cot).sum().backward()
+        return y
+
+    torch.cuda.synchronize()
+    K.reset_launches()
+    y, ms = timed_call(run)
+    return dict(y=y.detach(), gx=x.grad, ms=ms,
+                launches={k: v for k, v in K.LAUNCHES.items() if v},
+                grads=[None if all(p.grad is None for p in b.parameters())
+                       else [p.grad.clone() for p in b.parameters()]
+                       for b in blocks])
+
+
+def _pipeline_rank(rank: int, device) -> dict:
+    """The pipeline over the group's ranks (each holding PIPE_DEPTH /
+    DDP_WORLD consecutive blocks) at batch 8, fp32 and bf16, held on this
+    rank in one process to the plain block loop on the same microbatches
+    (values to PIPE_VALUE_REL of their scale, the input's and every held
+    parameter's grad to PIPE_GRAD_REL of its scale, in both dtypes; the
+    tensors equal bit for bit counted) and to the plain loop on the whole
+    batch: fp32 to the same tolerances, bf16 within twice that loop's
+    bf16-vs-fp32 gap (by max and by mean over the values, and over all
+    grads). Kernel A forward and backward PIPE_MICRO times a held block,
+    and no other kernel."""
+    import torch
+
+    from emip_tpu_torch.pipeline import stage_blocks
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 70)
+    n = PIPE_SIDE * PIPE_SIDE
+    x = torch.randn(BATCH, n, PIPE_DIM, generator=gen, device=device)
+    cot = torch.randn(BATCH, n, PIPE_DIM, generator=gen, device=device)
+    out, runs, seeded = {}, {}, _pipeline_stack(device)
+    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        blocks = _stack_copy(seeded, dtype)
+        xin = x.to(dtype)
+        runs[name] = {mode: _pipeline_run(
+            blocks if mode == "pipe" else _stack_copy(seeded, dtype), xin,
+            cot, mode) for mode in ("pipe", "micro", "loop")}
+        held = len(stage_blocks(blocks))
+        suffix = "" if dtype == torch.float32 else "_bf16"
+        want = {f"sr_attention{suffix}": held * PIPE_MICRO,
+                f"sr_attention_bwd{suffix}": held * PIPE_MICRO}
+        got = runs[name]["pipe"]["launches"]
+        if got != want:
+            raise AssertionError(f"pipeline {name} rank {rank}: launches "
+                                 f"{got} != {want}")
+        out[name] = dict(held=held, launches=got,
+                         ms=runs[name]["pipe"]["ms"],
+                         plain_ms=runs[name]["loop"]["ms"])
+
+    def pairs(pipe, plain):
+        """(got, want) of the values, the input's grad and the held
+        blocks' grads."""
+        yield pipe["y"], plain["y"]
+        yield pipe["gx"], plain["gx"]
+        for g, w in zip(pipe["grads"], plain["grads"]):
+            if g is not None:
+                yield from zip(g, w)
+
+    def rels(pipe, plain):
+        """(values rel, worst grad rel, tensors equal bit for bit, of
+        how many)."""
+        got = list(pairs(pipe, plain))
+        rel = [((g.float() - w.float()).abs().max()
+                / w.float().abs().max().clamp_min(1e-30)).item()
+               for g, w in got]
+        return (rel[0], max(rel[1:]),
+                sum(bool(torch.equal(g, w)) for g, w in got), len(got))
+
+    checks, ok = {}, True
+    for name in ("fp32", "bf16"):
+        r = runs[name]
+        checks[name + "_micro"] = rels(r["pipe"], r["micro"])
+        if name == "fp32":
+            checks["fp32_loop"] = rels(r["pipe"], r["loop"])
+    for key, (vrel, grel, _, _) in checks.items():
+        ok = ok and vrel <= PIPE_VALUE_REL and grel <= PIPE_GRAD_REL
+
+    def cat(ts):
+        return torch.cat([t.double().flatten() for t in ts])
+
+    band = {}
+    p16, l16 = runs["bf16"]["pipe"], runs["bf16"]["loop"]
+    p32, l32 = runs["fp32"]["pipe"], runs["fp32"]["loop"]
+    for part, idx in (("values", slice(0, 1)), ("grads", slice(1, None))):
+        got = cat([g for g, _ in pairs(p16, l16)][idx])
+        want = cat([w for _, w in pairs(p16, l16)][idx])
+        ref = cat([w for _, w in pairs(p32, l32)][idx])
+        err, gap = (got - want).abs(), (want - ref).abs()
+        band[part] = dict(max=(err.max().item(), gap.max().item()),
+                          mean=(err.mean().item(), gap.mean().item()))
+    ok = ok and all(v["max"][1] > 0 and v["max"][0] <= 2 * v["max"][1]
+                    and v["mean"][0] <= 2 * v["mean"][1]
+                    for v in band.values())
+    log(f"pipeline rank {rank}: b5 stage 3 ({PIPE_DEPTH} blocks, C "
+        f"{PIPE_DIM}, {PIPE_SIDE}x{PIPE_SIDE} tokens, sr {PIPE_SR}), batch "
+        f"{BATCH}, {PIPE_MICRO} microbatches, {out['fp32']['held']} blocks "
+        f"held; (values rel, grads worst rel, tensors bit-equal, of) "
+        f"against the plain loop on the same microbatches: fp32 "
+        f"{checks['fp32_micro']}, bf16 {checks['bf16_micro']}; fp32 "
+        f"against the loop on the whole batch {checks['fp32_loop']} (tol "
+        f"{PIPE_VALUE_REL}, {PIPE_GRAD_REL}); bf16 against the whole-batch "
+        f"loop (error, that loop's bf16-vs-fp32 gap; within twice it) "
+        f"{band}; launches fp32 {out['fp32']['launches']} bf16 "
+        f"{out['bf16']['launches']}; ms fp32 {out['fp32']['ms']:.1f} (loop "
+        f"{out['fp32']['plain_ms']:.1f}), bf16 {out['bf16']['ms']:.1f} "
+        f"(loop {out['bf16']['plain_ms']:.1f}) {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError(f"pipeline rank {rank} disagrees with the "
+                             f"plain loop")
+    return dict(out, checks=checks, bf16=band)
 
 
 def ddp_phase(entry: dict, card: str) -> dict:
@@ -6335,7 +6809,11 @@ def ddp_phase(entry: dict, card: str) -> dict:
     ``torchrun --standalone --nproc_per_node 1 -m emip_tpu_torch.train
     --multi_host`` step on the entry phase's YAML (without its validation)
     and root, over NCCL. Both run at once: the card has room for the three
-    processes, and the steps are checked, not timed."""
+    processes, and the steps are checked, not timed. The same ranks then
+    run FSDP (the steps again, sharded, and ``train_short`` with
+    ``parallel.fsdp``), sharded inference on the entry phase's YAML,
+    checkpoint and root, and the pipeline over b5's stage 3
+    (``_ddp_rank``)."""
     import shutil
 
     import torch
@@ -6360,11 +6838,25 @@ def ddp_phase(entry: dict, card: str) -> dict:
                   for r in range(DDP_WORLD)]
     shutil.rmtree(os.path.dirname(rank_saves[0]), ignore_errors=True)
     trainer_yaml = os.path.join(entry["work"], "ddp_rank{rank}.yaml")
+    fsdp_yaml = os.path.join(entry["work"], "fsdp_rank{rank}.yaml")
+    fsdp_saves = [os.path.join(entry["work"], "fsdp_ranks", f"rank{r}")
+                  for r in range(DDP_WORLD)]
+    shutil.rmtree(os.path.dirname(fsdp_saves[0]), ignore_errors=True)
     per = raw["train_dataset"]["batch_size"] // DDP_WORLD
     for r, path in enumerate(rank_saves):
         with open(trainer_yaml.format(rank=r), "w") as f:
             yaml.safe_dump(dict(raw, save_path=path, train_dataset=dict(
                 raw["train_dataset"], batch_size=per)), f)
+        with open(fsdp_yaml.format(rank=r), "w") as f:
+            yaml.safe_dump(dict(raw, save_path=fsdp_saves[r],
+                                parallel=dict(fsdp=True),
+                                train_dataset=dict(raw["train_dataset"],
+                                                   batch_size=per)), f)
+    # sharded inference: the entry phase's YAML, checkpoint and root
+    infer = dict(config=entry["config"], ckpt=entry["ckpt"],
+                 root=entry["root"],
+                 out=os.path.join(entry["work"], "sharded_infer"))
+    shutil.rmtree(infer["out"], ignore_errors=True)
     launcher = shutil.which("torchrun")
     cmd = ([launcher] if launcher else
            [sys.executable, "-m", "torch.distributed.run"]) + [
@@ -6380,13 +6872,14 @@ def ddp_phase(entry: dict, card: str) -> dict:
     ctx = mp.get_context("spawn")
     port = _free_port()
     procs = [ctx.Process(target=_ddp_rank,
-                         args=(r, port, out_path, trainer_yaml))
+                         args=(r, port, out_path, trainer_yaml, fsdp_yaml,
+                               infer))
              for r in range(DDP_WORLD)]
     try:
         for p in procs:
             p.start()
         for p in procs:
-            p.join(600)
+            p.join(900)
         torchrun.wait(timeout=600)
     finally:
         for p in procs:
@@ -6439,6 +6932,61 @@ def ddp_phase(entry: dict, card: str) -> dict:
     if not ok:
         raise AssertionError(f"ddp train_short: {tags}, other ranks "
                              f"wrote {wrote}")
+
+    # FSDP on the same ranks: the steps held inside _ddp_rank; here the
+    # memory beside DDP's and what train_short wrote
+    for rec in ranks:
+        log(f"fsdp rank {rec['rank']}: first (cold) step fp32 "
+            f"{rec['fsdp_fp32']['step_ms']:.1f} ms, bf16 "
+            f"{rec['fsdp_bf16']['step_ms']:.1f} ms; peak memory fp32 "
+            f"{rec['fsdp_fp32']['peak_bytes'] / 2**30:.3f} GiB (ddp "
+            f"{rec['fp32']['peak_bytes'] / 2**30:.3f}), bf16 "
+            f"{rec['fsdp_bf16']['peak_bytes'] / 2**30:.3f} GiB (ddp "
+            f"{rec['bf16']['peak_bytes'] / 2**30:.3f}); held before the "
+            f"step fp32 {rec['fsdp_fp32']['held_bytes'] / 2**30:.3f} GiB, "
+            f"bf16 {rec['fsdp_bf16']['held_bytes'] / 2**30:.3f} (ddp "
+            f"{rec['fp32']['held_bytes'] / 2**30:.3f}, "
+            f"{rec['bf16']['held_bytes'] / 2**30:.3f}), of it the earlier "
+            f"steps' readings kept for the checks "
+            f"{rec['fsdp_fp32']['kept_bytes'] / 2**30:.3f}, "
+            f"{rec['fsdp_bf16']['kept_bytes'] / 2**30:.3f} (ddp "
+            f"{rec['fp32']['kept_bytes'] / 2**30:.3f}, "
+            f"{rec['bf16']['kept_bytes'] / 2**30:.3f}); peak less those "
+            f"readings fp32 "
+            f"{_own_peak(rec['fsdp_fp32']) / 2**30:.3f} GiB (ddp "
+            f"{_own_peak(rec['fp32']) / 2**30:.3f}), bf16 "
+            f"{_own_peak(rec['fsdp_bf16']) / 2**30:.3f} (ddp "
+            f"{_own_peak(rec['bf16']) / 2**30:.3f}); all-gathered "
+            f"whole: the root's own parameters "
+            f"{rec['fsdp_fp32']['root_bytes'] / 2**30:.3f} GiB, the largest "
+            f"unit {rec['fsdp_fp32']['unit_max_bytes'] / 2**30:.3f} GiB; "
+            f"train_short step "
+            f"and validation {rec['fsdp_train_short']['seconds']:.1f} s, "
+            f"peak {rec['fsdp_train_short']['peak_bytes'] / 2**30:.3f} GiB "
+            f"({card})")
+    with open(os.path.join(fsdp_saves[0], "scalars.jsonl")) as f:
+        tags = [json.loads(line)["tag"] for line in f]
+    wrote = [p for p in fsdp_saves[1:] if os.path.exists(p) and os.listdir(p)]
+    summary = ranks[0]["fsdp_train_short"]
+    ok = (all(rec["fsdp_train_short"]["steps"] == 1 for rec in ranks)
+          and os.path.isfile(os.path.join(fsdp_saves[0], "ckpt_best",
+                                          "ckpt.pt"))
+          and tags.count("learning_rate") == 1 and "val/MAE" in tags
+          and np.isfinite(summary["best_mae"]) and not wrote)
+    log(f"fsdp train_short (parallel.fsdp) on {DDP_WORLD} ranks, {per} rows "
+        f"a rank: steps {[rec['fsdp_train_short']['steps'] for rec in ranks]}"
+        f", val MAE {summary['best_mae']:.5f} (ddp "
+        f"{ranks[0]['train_short']['best_mae']:.5f}), validation on every "
+        f"rank, ranks equal, checkpoints and {len(tags)} scalar records by "
+        f"the first rank only {'ok' if ok else 'FAILED'} ({card})")
+    if not ok:
+        raise AssertionError(f"fsdp train_short: {tags}, other ranks "
+                             f"wrote {wrote}")
+    for rec in ranks:
+        log(f"sharded infer rank {rec['rank']}: "
+            f"{rec['sharded_infer']['flows']} flows received, "
+            f"{rec['sharded_infer']['seconds']:.1f} s, launches "
+            f"{rec['sharded_infer']['launches']} ({card})")
 
     with open(logs[0]) as out, open(logs[1]) as err:
         stdout, stderr = out.read(), err.read()

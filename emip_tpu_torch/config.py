@@ -7,12 +7,15 @@ of checkpoints included. ``compute_dtype`` ("bfloat16", the JAX package's
 default when the key is missing, or "float32"; anything else raises) is
 honoured by every entry point (``test``, ``test_of``, ``test_long``,
 ``train``, ``train_long``, ``train_static``), each of which builds its
-model in it. Keys that only steer the JAX package (``optimizer.name``,
-``parallel``'s ``model_parallel``, ``fsdp`` and ``sequence_parallel``,
-``long_frames_per_dispatch``) change nothing here: the port trains with
-AdamW, one frame per step, on one card or data-parallel over processes
-(:mod:`emip_tpu_torch.parallel`). Each of those that asks for something
-else is named in one warning line.
+model in it. ``parallel.fsdp`` shards the short trainer's model and AdamW
+state over the ranks (:func:`emip_tpu_torch.parallel.fully_sharded`); as
+in the JAX package the long and static trainers ignore it, each with a
+warning line of its own. Keys that only steer the JAX package
+(``optimizer.name``, ``parallel``'s ``model_parallel`` and
+``sequence_parallel``, ``long_frames_per_dispatch``) change nothing here:
+the port trains with AdamW, one frame per step, on one card or
+data-parallel over processes (:mod:`emip_tpu_torch.parallel`). Each of
+those that asks for something else is named in one warning line.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from emip_tpu_torch.models.emip_short import EMIPShortConfig
 from emip_tpu_torch.models.gmflow import GMFlowConfig
 
 __all__ = ["DatasetConfig", "LoadConfig", "Config", "load_config",
-           "snapshot_config"]
+           "warn_fsdp_ignored", "snapshot_config"]
 
 log = logging.getLogger("emip_tpu_torch")
 
@@ -72,6 +75,8 @@ class Config:
     val_dataset_cad: DatasetConfig | None = None
     # every entry point's model dtype ("bfloat16" or "float32")
     compute_dtype: str = "bfloat16"
+    # parallel.fsdp: the short trainer shards parameters and AdamW state
+    fsdp: bool = False
     raw: dict | None = None
 
 
@@ -118,9 +123,10 @@ def _model(d: dict) -> EMIPShortConfig:
 def _warn_ignored(raw: dict, opt: dict) -> None:
     """One warning line per key of the JAX package's that asks for other
     than what the port does: AdamW; of the parallel regimes data
-    parallelism alone (``model_parallel``, ``fsdp`` and
+    parallelism and FSDP alone (``model_parallel`` and
     ``sequence_parallel`` have no counterpart yet); a frame per step.
-    (``compute_dtype`` is honoured by every entry point.)"""
+    (``compute_dtype`` is honoured by every entry point; ``fsdp`` by the
+    short trainer, the others warn of it themselves.)"""
     par = raw.get("parallel") or {}
     name = str(opt.get("name", "adamw"))
     frames = int(raw.get("long_frames_per_dispatch", 1))
@@ -128,9 +134,9 @@ def _warn_ignored(raw: dict, opt: dict) -> None:
             ("optimizer.name", name, name.lower() != "adamw",
              "the port runs AdamW"),
             ("parallel", par, int(par.get("model_parallel", 1)) != 1
-             or bool(par.get("fsdp")) or bool(par.get("sequence_parallel")),
-             "model_parallel, fsdp and sequence_parallel have no "
-             "counterpart in the port, which runs data parallelism alone"),
+             or bool(par.get("sequence_parallel")),
+             "model_parallel and sequence_parallel have no counterpart in "
+             "the port, which runs data parallelism and FSDP alone"),
             ("long_frames_per_dispatch", frames, frames != 1,
              "the port runs one frame per dispatch")):
         if other:
@@ -169,11 +175,21 @@ def load_config(path: str) -> Config:
         seed=int(raw.get("seed", 123)),
         save_path=str(raw.get("save_path", "./snapshots/emip_tpu_torch/")),
         compute_dtype=str(raw.get("compute_dtype", "bfloat16")),
+        fsdp=bool((raw.get("parallel") or {}).get("fsdp", False)),
         raw=raw,
     )
     if cfg.model.inp_size % 32 != 0:
         raise ValueError("inp_size must be divisible by 32")
     return cfg
+
+
+def warn_fsdp_ignored(cfg: Config, trainer: str) -> None:
+    """The long and static trainers' warning line when ``parallel.fsdp``
+    is set: only the short trainer shards, as in the JAX package."""
+    if cfg.fsdp:
+        log.warning("config key parallel.fsdp=True is ignored by %s: only "
+                    "the short trainer shards (as in the JAX package); it "
+                    "runs data-parallel", trainer)
 
 
 def snapshot_config(cfg: Config, save_path: str) -> None:

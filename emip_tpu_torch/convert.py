@@ -28,7 +28,7 @@ import torch
 __all__ = ["state_dict_from_flax", "state_dict_from_flax_long",
            "state_dict_from_flax_seg", "state_dict_from_flax_dgnet",
            "state_dict_from_flax_sam", "state_dict_from_flax_prompt_gen",
-           "state_dict_from_flax_flow_head",
+           "state_dict_from_flax_flow_head", "state_dict_from_flax_pvt_blocks",
            "normalize_reference_keys", "load_torch_weights",
            "load_configured_weights", "SHORT_LOAD", "LONG_LOAD"]
 
@@ -209,23 +209,40 @@ def _pvt_into(o: _Out, base: str, depths=None,
         o.ln(f"{dst}.norm{i}", f"{base}/norm{i}")
         stage = o.p(f"{base}/stage{i}")
         for j in range(depths[i - 1]):
-            blk = _index(stage, j)
-            d = f"{dst}.block{i}.{j}"
-            o.ln(f"{d}.norm1", None, blk["norm1"])
-            o.ln(f"{d}.norm2", None, blk["norm2"])
-            for name in ("q", "kv", "proj"):
-                o.dense(f"{d}.attn.{name}", None, blk["attn"][name])
-            if "sr" in blk["attn"]:
-                o.sd[f"{d}.attn.sr.weight"] = _conv(blk["attn"]["sr"]["kernel"])
-                o.sd[f"{d}.attn.sr.bias"] = np.asarray(
-                    blk["attn"]["sr"]["bias"])
-                o.ln(f"{d}.attn.norm", None, blk["attn"]["norm"])
-            o.dense(f"{d}.mlp.fc1", None, blk["mlp"]["fc1"])
-            o.sd[f"{d}.mlp.dwconv.dwconv.weight"] = _conv(
-                blk["mlp"]["dwconv"]["kernel"])
-            o.sd[f"{d}.mlp.dwconv.dwconv.bias"] = np.asarray(
-                blk["mlp"]["dwconv"]["bias"])
-            o.dense(f"{d}.mlp.fc2", None, blk["mlp"]["fc2"])
+            _pvt_block_into(o, f"{dst}.block{i}.{j}", _index(stage, j))
+
+
+def _pvt_block_into(o: _Out, d: str, blk: dict):
+    """One PVTv2 block's flax params ``blk`` under the torch prefix
+    ``d``."""
+    o.ln(f"{d}.norm1", None, blk["norm1"])
+    o.ln(f"{d}.norm2", None, blk["norm2"])
+    for name in ("q", "kv", "proj"):
+        o.dense(f"{d}.attn.{name}", None, blk["attn"][name])
+    if "sr" in blk["attn"]:
+        o.sd[f"{d}.attn.sr.weight"] = _conv(blk["attn"]["sr"]["kernel"])
+        o.sd[f"{d}.attn.sr.bias"] = np.asarray(blk["attn"]["sr"]["bias"])
+        o.ln(f"{d}.attn.norm", None, blk["attn"]["norm"])
+    o.dense(f"{d}.mlp.fc1", None, blk["mlp"]["fc1"])
+    o.sd[f"{d}.mlp.dwconv.dwconv.weight"] = _conv(
+        blk["mlp"]["dwconv"]["kernel"])
+    o.sd[f"{d}.mlp.dwconv.dwconv.bias"] = np.asarray(
+        blk["mlp"]["dwconv"]["bias"])
+    o.dense(f"{d}.mlp.fc2", None, blk["mlp"]["fc2"])
+
+
+def state_dict_from_flax_pvt_blocks(stacked: dict
+                                    ) -> list[dict[str, torch.Tensor]]:
+    """A PVTv2 stage's stacked block params (the JAX package's ``nn.scan``
+    layout: each leaf with a leading depth axis) -> one ``PVTBlock`` state
+    dict a block, in order."""
+    depth = int(np.shape(stacked["norm1"]["scale"])[0])
+    out = []
+    for j in range(depth):
+        o = _Out(stacked, {})
+        _pvt_block_into(o, "blk", _index(stacked, j))
+        out.append({k[len("blk."):]: v for k, v in _as_tensors(o.sd).items()})
+    return out
 
 
 def _pvt_v1_into(o: _Out, base: str, dst: str):

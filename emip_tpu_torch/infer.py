@@ -1,7 +1,9 @@
 """Batch inference: arrays or image folders in, PNG masks out.
 
 Counterpart of :mod:`emip_tpu.infer`. Short model: frame pairs are
-batched through one device forward (:func:`predict_arrays`). Long model:
+batched through one device forward (:func:`predict_arrays`); in a process
+group each rank predicts its share of the pairs (:func:`predict_pairs`).
+Long model:
 whole videos stream frame by frame with the memory carried
 (:func:`predict_clips_long`). Decoding and the variable-shape
 post-processing (bilinear resize to native size, sigmoid, min-max, PNG)
@@ -17,9 +19,15 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from emip_tpu_torch.data import ClipLoader, load_frame, scan_pairs
+from emip_tpu_torch.data import (
+    ClipLoader,
+    load_frame,
+    scan_pairs,
+    shard_order,
+)
 from emip_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from emip_tpu_torch.ops.image import linear_weights_np
+from emip_tpu_torch.parallel import world
 
 __all__ = ["predict_arrays", "predict_pairs", "predict_clips_long",
            "postprocess_to_png"]
@@ -63,13 +71,34 @@ def predict_pairs(model, images_root: str, save_path: str, size: int = 352,
     ``model`` must lie on ``device`` (default: the GPU; raises without
     one). The last batch is padded to ``batch_size`` by repeating its last
     pair. With ``return_flow``, returns [(video, frame_name, flow
-    [H, W, 2])].
+    [H, W, 2])] of every pair in order.
+
+    In a process group of more than one rank (the counterpart of the JAX
+    package's sharding of the batch over the mesh's ``data`` axis) each
+    rank predicts its share of the pairs, by
+    :func:`emip_tpu_torch.data.shard_order` (the ``DistributedSampler``
+    rule), in batches of ``batch_size`` padded as above, so that every
+    forward has the one-process shapes. Each rank writes the PNGs of its
+    share; a pair that the share's wrap padding repeats is predicted but
+    written by its own rank alone, so the ranks' files together are the
+    one-process set, each written once. With ``return_flow`` the flows are
+    gathered: every rank returns the whole list (a collective).
     """
     device = resolve_device(device)
     items = scan_pairs(images_root, dataset_type)
+    rank, ranks = world()
+    # (index, pair) of this rank's share; an index past the items is the
+    # wrap padding's repeat, predicted but not written
+    share = list(enumerate(items))
+    if ranks > 1:
+        share = [(i if k * ranks + rank < len(items) else -1, items[i])
+                 for k, i in enumerate(shard_order(list(range(len(items))),
+                                                   rank, ranks))]
     results = []
     with ThreadPoolExecutor(8) as pool:
-        for chunk in _batched(items, batch_size):
+        for batch in _batched(share, batch_size):
+            keep = [i >= 0 for i, _ in batch]
+            chunk = [it for _, it in batch]
             n = len(chunk)
             frames = list(pool.map(
                 lambda it: (load_frame(it.image1, size),
@@ -87,14 +116,21 @@ def predict_pairs(model, images_root: str, save_path: str, size: int = 352,
             jobs = [pool.submit(postprocess_to_png, logits, f[0][1],
                                 os.path.join(save_path, it.video,
                                              it.frame_name + ".png"))
-                    for it, logits, f in zip(chunk, masks, frames)]
+                    for it, logits, f, k in zip(chunk, masks, frames, keep)
+                    if k]
             if return_flow:
                 fl = flows[:n].permute(0, 2, 3, 1).float().cpu().numpy()
-                results.extend((it.video, it.frame_name, f)
-                               for it, f in zip(chunk, fl))
+                results.extend((i, (it.video, it.frame_name, f))
+                               for (i, it), f in zip(batch, fl) if i >= 0)
             for j in jobs:
                 j.result()
-    return results
+    if return_flow and ranks > 1:
+        import torch.distributed as dist
+
+        every = [None] * ranks
+        dist.all_gather_object(every, results)
+        results = sorted(sum(every, []), key=lambda r: r[0])
+    return [r for _, r in results]
 
 
 @torch.inference_mode()

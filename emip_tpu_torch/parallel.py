@@ -17,6 +17,15 @@ drop-path draw (:func:`emip_tpu_torch.models.pvt_v2.drop_path`), so that a
 step on W ranks is the one-process step on the concatenated batch. With
 one process nothing of this runs and every result keeps its bits.
 
+FSDP (``parallel.fsdp`` of the YAML, the short trainer only, as in the
+JAX package's ``sharding.py``): :func:`fully_sharded` shards every
+parameter, and with it its grad and AdamW moments, over the ranks
+(``fully_shard``, ZeRO-3); each unit is all-gathered for its forward and
+backward, and the grads are reduce-scattered. The arithmetic of each
+kernel is unchanged: every rank still computes on whole weights and on
+its rows. Checkpoints hold the full state (:func:`full_state`), as one
+process writes it.
+
 Launch with ``torchrun --nproc_per_node N -m emip_tpu_torch.train
 --multi_host ...``; each rank takes ``cuda:LOCAL_RANK``.
 """
@@ -31,8 +40,11 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["distributed_env", "Rendezvous", "rendezvous", "init_distributed",
-           "shutdown_distributed", "world", "is_primary", "default_shard",
-           "barrier", "all_reduce_mean", "all_reduce_min", "data_parallel"]
+           "add_multi_host_flag", "shutdown_distributed", "world",
+           "is_primary", "default_shard", "barrier", "all_reduce_mean",
+           "all_reduce_min", "broadcast_object", "data_parallel",
+           "fsdp_units", "fully_sharded", "is_sharded", "gather_whole",
+           "full_state", "load_sharded_optimizer"]
 
 log = logging.getLogger("emip_tpu_torch")
 
@@ -122,6 +134,15 @@ def init_distributed(device: torch.device | str = "cuda",
     return device
 
 
+def add_multi_host_flag(parser) -> None:
+    """The ``--multi_host`` flag of the entry points that join a
+    torchrun / SLURM launch's process group (:func:`init_distributed`)."""
+    parser.add_argument("--multi_host", action="store_true",
+                        help="join the process group of a torchrun / SLURM "
+                             "launch (one process per card); raises "
+                             "without a rendezvous")
+
+
 def shutdown_distributed() -> None:
     """Leave the process group, where one was joined."""
     if dist.is_initialized():
@@ -179,6 +200,16 @@ def all_reduce_min(value: int) -> int:
     return int(t.item())
 
 
+def broadcast_object(obj, src: int = 0):
+    """The first rank's (``src``'s) picklable ``obj`` on every rank;
+    ``obj`` itself with one process."""
+    if world()[1] == 1:
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=src)
+    return box[0]
+
+
 def data_parallel(model: torch.nn.Module) -> torch.nn.Module:
     """``model`` in ``DistributedDataParallel`` when the world has more
     than one rank, else ``model`` itself.
@@ -197,3 +228,130 @@ def data_parallel(model: torch.nn.Module) -> torch.nn.Module:
 
     return DistributedDataParallel(model, broadcast_buffers=False,
                                    static_graph=True)
+
+
+def fsdp_units(model: torch.nn.Module) -> list[torch.nn.Module]:
+    """The modules :func:`fully_sharded` shards as units of their own,
+    before the root: each PVT block, each GMFlow transformer block (the
+    frozen GMFlow is sharded as the JAX package shards it), the decoder
+    and the injectors."""
+    from emip_tpu_torch.models.common import NeighborConnectionDecoder
+    from emip_tpu_torch.models.gmflow.transformer import TransformerBlock
+    from emip_tpu_torch.models.prompt import Injector
+    from emip_tpu_torch.models.pvt_v2 import PVTBlock
+
+    kinds = (PVTBlock, TransformerBlock, NeighborConnectionDecoder, Injector)
+    return [m for m in model.modules() if isinstance(m, kinds)]
+
+
+def fully_sharded(model: torch.nn.Module) -> torch.nn.Module:
+    """``model`` sharded over the ranks of the process group with
+    ``fully_shard`` (FSDP2): unit by unit (:func:`fsdp_units`), then the
+    root, which takes the remaining parameters. ``model`` itself with one
+    rank.
+
+    Parameters stay fp32 (no ``MixedPrecisionPolicy``): the bf16 band
+    casts at use (:func:`emip_tpu_torch.dtypes.cast`) as in one process.
+    Frozen parameters must be frozen before the call; the optimizer is
+    built after it, on the sharded parameters. A parameter that takes no
+    grad in a step (the dead modules) keeps ``grad`` None, as in one
+    process. The returned module is ``model``, changed in place; every
+    rank must run each of its forwards (each unit is all-gathered)."""
+    size = world()[1]
+    if size == 1:
+        return model
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.fsdp import fully_shard
+
+    device = next(model.parameters()).device
+    mesh = init_device_mesh(device.type, (size,))
+    for unit in fsdp_units(model):
+        fully_shard(unit, mesh=mesh)
+    fully_shard(model, mesh=mesh)
+    return model
+
+
+def is_sharded(model: torch.nn.Module) -> bool:
+    """True for a model that :func:`fully_sharded` sharded."""
+    from torch.distributed.fsdp import FSDPModule
+
+    return isinstance(model, FSDPModule)
+
+
+def gather_whole(t):
+    """A tensor that :func:`fully_sharded` holds in shards (a DTensor on
+    dim 0) gathered whole on every rank, else ``t`` itself. A collective:
+    every rank makes the call. It pads each shard to one length and runs
+    ``all_gather_into_tensor``, which gloo carries on CUDA tensors
+    (``DTensor.full_tensor``'s functional collective crashes there)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not isinstance(t, DTensor):
+        return t
+    if tuple(t.placements) != (Shard(0),):
+        raise ValueError(f"gather_whole: placements {t.placements}, not the "
+                         f"dim-0 shards fully_sharded makes")
+    group, count = t.device_mesh.get_group(), t.device_mesh.size()
+    local = t.to_local().detach()
+    rows = -(-t.shape[0] // count)
+    padded = local.new_zeros((rows,) + tuple(t.shape[1:]))
+    padded[:local.shape[0]] = local
+    out = local.new_empty((rows * count,) + tuple(t.shape[1:]))
+    dist.all_gather_into_tensor(out, padded, group=group)
+    return out[:t.shape[0]]
+
+
+def _whole_on_cpu(value):
+    value = gather_whole(value)
+    return value.cpu() if isinstance(value, torch.Tensor) else value
+
+
+def full_state(model: torch.nn.Module, opt: torch.optim.Optimizer
+               ) -> tuple[dict, dict]:
+    """(model state dict, optimizer state dict) of a sharded ``model`` and
+    its optimizer as one process holds them: each sharded tensor
+    all-gathered whole (a collective: every rank makes the call, in the
+    same order) and moved to the CPU. The optimizer's dict keeps its
+    integer keys, which follow the parameters' order in ``opt`` as in
+    one process, so a checkpoint of either loads into the other."""
+    sd = {k: _whole_on_cpu(v) for k, v in model.state_dict().items()}
+    osd = opt.state_dict()
+    osd["state"] = {i: {k: _whole_on_cpu(v) for k, v in st.items()}
+                    for i, st in osd["state"].items()}
+    return sd, osd
+
+
+def _shard_like(p, whole: torch.Tensor):
+    """This rank's dim-0 chunk of ``whole`` (a tensor of ``p``'s shape,
+    present on every rank) as a DTensor placed like the sharded ``p``; no
+    communication."""
+    from torch.distributed.tensor import DTensor
+
+    chunks = torch.chunk(whole.to(p.device), p.device_mesh.size(), dim=0)
+    rank = p.device_mesh.get_local_rank()
+    local = (chunks[rank] if rank < len(chunks)
+             else whole.new_empty((0,) + tuple(whole.shape[1:])))
+    if local.shape != p.to_local().shape:
+        raise RuntimeError(f"shard of {tuple(whole.shape)}: "
+                           f"{tuple(local.shape)} where the parameter holds "
+                           f"{tuple(p.to_local().shape)}")
+    return DTensor.from_local(local.contiguous(), p.device_mesh, p.placements,
+                              run_check=False, shape=p.shape,
+                              stride=p.stride())
+
+
+def load_sharded_optimizer(opt: torch.optim.Optimizer, osd: dict) -> None:
+    """Load a one-process optimizer state dict (``osd``, whole tensors on
+    every rank) into ``opt`` over sharded parameters: each moment is cut
+    to its parameter's shard."""
+    from torch.distributed.tensor import DTensor
+
+    params = [p for g in opt.param_groups for p in g["params"]]
+    state = {}
+    for i, st in osd["state"].items():
+        p = params[int(i)]
+        state[i] = {k: (_shard_like(p, v) if isinstance(p, DTensor)
+                        and isinstance(v, torch.Tensor)
+                        and v.shape == p.shape else v)
+                    for k, v in st.items()}
+    opt.load_state_dict(dict(osd, state=state))

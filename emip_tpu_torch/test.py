@@ -4,6 +4,8 @@
         [--ckpt DIR] [--save_path ./predictions] \
         [--data NAME=PATH ...] [--batch_size 8] [--device cuda]
 
+    torchrun --nproc_per_node N -m emip_tpu_torch.test --multi_host ...
+
 Mirrors the repository's ``test.py`` for the JAX package. The model is
 ``model`` of the config, at ``val_dataset.inp_size``. Its weights are, in
 order: seeded random ones (``seed``), the checkpoints of the config's
@@ -17,7 +19,11 @@ others as ``val_dataset.dataset_type``. Predictions are written to
 config's ``compute_dtype`` (bfloat16 when the key is missing, as in the
 JAX package; kernels A-D in their bf16 forwards) or float32. It runs on
 the GPU (``--device``, default ``cuda``; without a GPU it raises) and on
-the CPU, through the plain versions, only with ``--device cpu``.
+the CPU, through the plain versions, only with ``--device cpu``. With
+``--multi_host`` it joins the process group of a torchrun (or SLURM)
+launch, one process per card, and each rank predicts and writes its share
+of the pairs (:func:`emip_tpu_torch.infer.predict_pairs`); without a
+rendezvous it raises.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ __all__ = ["parse_args", "load_short_model", "main"]
 
 def parse_args(argv=None):
     from emip_tpu_torch.device import add_device_flag
+    from emip_tpu_torch.parallel import add_multi_host_flag
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--config", default="configs/emip.yaml")
@@ -40,6 +47,7 @@ def parse_args(argv=None):
     p.add_argument("--data", nargs="*", default=None, metavar="NAME=PATH",
                    help="datasets to predict, e.g. MoCA_test=/data/MoCA")
     p.add_argument("--batch_size", type=int, default=8)
+    add_multi_host_flag(p)
     add_device_flag(p)
     return p.parse_args(argv)
 
@@ -68,12 +76,20 @@ def load_short_model(cfg, ckpt, device):
 
 
 def main(argv=None):
-    from emip_tpu_torch.config import load_config
-    from emip_tpu_torch.device import resolve_device
-    from emip_tpu_torch.infer import predict_pairs
+    from emip_tpu_torch.parallel import init_distributed, shutdown_distributed
 
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    device = init_distributed(args.device, multi_host=args.multi_host)
+    try:
+        _predict(args, device)
+    finally:
+        shutdown_distributed()
+
+
+def _predict(args, device) -> None:
+    from emip_tpu_torch.config import load_config
+    from emip_tpu_torch.infer import predict_pairs
+
     cfg = load_config(args.config)
     model = load_short_model(cfg, args.ckpt, device)
 

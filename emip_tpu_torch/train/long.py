@@ -39,7 +39,12 @@ import time
 import numpy as np
 import torch
 
-from emip_tpu_torch.config import Config, DatasetConfig, snapshot_config
+from emip_tpu_torch.config import (
+    Config,
+    DatasetConfig,
+    snapshot_config,
+    warn_fsdp_ignored,
+)
 from emip_tpu_torch.convert import LONG_LOAD, load_configured_weights
 from emip_tpu_torch.data import ClipLoader, frames_subdir
 from emip_tpu_torch.device import DEFAULT_DEVICE, resolve_device
@@ -209,6 +214,7 @@ def train_long(cfg: Config, short_state_dict: dict | None = None,
     if primary:
         setup_logging(cfg.save_path, "train_long_log.log")
         snapshot_config(cfg, cfg.save_path)
+        warn_fsdp_ignored(cfg, "train_long")
     scalars = ScalarLogger(cfg.save_path, enabled=primary)
     model, opt = build_long_model(cfg, short_state_dict, device)
     step_model = data_parallel(CachedStep(model))

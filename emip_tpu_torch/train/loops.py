@@ -13,7 +13,11 @@ unless the caller names another device; without a GPU the default raises.
 Under data parallelism (:mod:`emip_tpu_torch.parallel`) each rank trains
 on its shard of every epoch through ``DistributedDataParallel``; the first
 rank alone writes the log, the scalars and the checkpoints and validates,
-while the others wait for it.
+while the others wait for it. With ``parallel.fsdp`` the model and its
+AdamW state are sharded over the ranks instead (``fully_shard``): every
+forward is then a collective, so every rank validates, and the full state
+is gathered on every rank before the first rank writes it, in the file
+one process writes.
 """
 
 from __future__ import annotations
@@ -38,20 +42,26 @@ from emip_tpu_torch.ops.image import linear_weights_np
 from emip_tpu_torch.parallel import (
     all_reduce_mean,
     barrier,
+    broadcast_object,
     data_parallel,
     default_shard,
+    full_state,
+    fully_sharded,
     is_primary,
+    is_sharded,
+    load_sharded_optimizer,
+    world,
 )
 from emip_tpu_torch.train.short import short_eval_step, short_train_step
 from emip_tpu_torch.train.state import (
     build_optimizer,
     cosine_epoch_lr,
+    freeze_gmflow,
     set_learning_rate,
 )
 from emip_tpu_torch.utils.logging import ScalarLogger, setup_logging
 
-__all__ = ["save_checkpoint", "load_checkpoint", "score_logits",
-           "validate_short", "train_short"]
+__all__ = ["save_checkpoint", "score_logits", "validate_short", "train_short"]
 
 log = logging.getLogger("emip_tpu_torch")
 
@@ -61,21 +71,21 @@ VAL_BATCH = 8  # validation pairs per forward
 
 def save_checkpoint(directory: str, model, opt, epoch: int) -> None:
     """Model + optimizer state; written to a temporary name, then renamed,
-    so an interrupted save leaves the previous checkpoint whole."""
+    so an interrupted save leaves the previous checkpoint whole. A sharded
+    model's full state is gathered first (a collective: every rank makes
+    the call) and the first rank alone writes it, as one process would;
+    otherwise the caller writes from one rank."""
+    if is_sharded(model):
+        model_sd, opt_sd = full_state(model, opt)
+        if not is_primary():
+            return
+    else:
+        model_sd, opt_sd = model.state_dict(), opt.state_dict()
     os.makedirs(directory, exist_ok=True)
     path = os.path.join(directory, CKPT_NAME)
-    torch.save(dict(model=model.state_dict(), optimizer=opt.state_dict(),
-                    epoch=epoch), path + ".tmp")
+    torch.save(dict(model=model_sd, optimizer=opt_sd, epoch=epoch),
+               path + ".tmp")
     os.replace(path + ".tmp", path)
-
-
-def load_checkpoint(directory: str, model, opt) -> int:
-    """Restore model and optimizer state; returns the saved epoch."""
-    state = torch.load(os.path.join(directory, CKPT_NAME),
-                       map_location=next(model.parameters()).device)
-    model.load_state_dict(state["model"])
-    opt.load_state_dict(state["optimizer"])
-    return int(state["epoch"])
 
 
 def _to_device(x: np.ndarray, device) -> torch.Tensor:
@@ -150,8 +160,13 @@ def train_short(cfg: Config, resume: bool = False,
     every epoch at ``batch_size`` (the global batch is ``world x
     batch_size``) and steps the model wrapped in
     ``DistributedDataParallel``; the logged losses are the means over the
-    ranks; the first rank alone writes and validates, and every rank
-    resumes from the same checkpoint."""
+    ranks; the first rank alone writes and validates. A resumed state is
+    read by the first rank and broadcast, and every rank loads it. With
+    ``cfg.fsdp`` the model is sharded
+    (:func:`emip_tpu_torch.parallel.fully_sharded`) after the checkpoint
+    is loaded and before the optimizer is built; every rank validates
+    (the first logs) and gathers the checkpoints, which the first rank
+    writes."""
     device = resolve_device(device)
     primary = is_primary()
     if primary:
@@ -163,14 +178,31 @@ def train_short(cfg: Config, resume: bool = False,
         cfg.seed)
     load_configured_weights(model, cfg.load, SHORT_LOAD)
     model = model.to(device)
-    opt = build_optimizer(model, cfg.lr, cfg.weight_decay, cfg.clip)
     ckpt_dir = os.path.join(cfg.save_path, "ckpt")
     best_dir = os.path.join(cfg.save_path, "ckpt_best")
     start_epoch = 1
     if resume and os.path.exists(os.path.join(ckpt_dir, CKPT_NAME)):
-        start_epoch = load_checkpoint(ckpt_dir, model, opt) + 1
+        # the first rank reads; every rank loads before any sharding
+        state = broadcast_object(torch.load(
+            os.path.join(ckpt_dir, CKPT_NAME), map_location="cpu")
+            if primary else None)
+        model.load_state_dict(state["model"])
+        start_epoch = int(state["epoch"]) + 1
+    else:
+        state = None
+    if cfg.fsdp:
+        model = fully_sharded(freeze_gmflow(model))
+    opt = build_optimizer(model, cfg.lr, cfg.weight_decay, cfg.clip)
+    if state is not None:
+        load_sharded_optimizer(opt, state["optimizer"])
         log.info("resumed from epoch %d", start_epoch - 1)
-    step_model = data_parallel(model)
+    del state
+    # a sharded model's forwards are collectives: every rank validates
+    sharded = is_sharded(model)
+    step_model = model if sharded else data_parallel(model)
+    if sharded:
+        log.info("FSDP: parameters and AdamW state sharded over %d ranks",
+                 world()[1])
 
     td = cfg.train_dataset
     loader = PairTrainLoader(td.image_path, td.gt_path, td.batch_size,
@@ -208,8 +240,11 @@ def train_short(cfg: Config, resume: bool = False,
                     scalars.scalars({f"loss/{k}": v for k, v in last.items()},
                                     steps)
         except KeyboardInterrupt:
-            if primary:
+            if primary and not sharded:
                 save_checkpoint(ckpt_dir, model, opt, epoch)
+            elif sharded:  # gathering the state is a collective
+                log.warning("interrupted: no checkpoint of the sharded "
+                            "state is written")
             raise
         dt = time.perf_counter() - t0
         scalars.scalar("time/epoch_s", dt, epoch)
@@ -218,10 +253,14 @@ def train_short(cfg: Config, resume: bool = False,
             scalars.scalar("loss/epoch_mean",
                            float(all_reduce_mean(epoch_loss)) / epoch_steps,
                            epoch)
-        if cfg.epoch_save and epoch % cfg.epoch_save == 0 and primary:
+        if cfg.epoch_save and epoch % cfg.epoch_save == 0 and (
+                primary or sharded):
             save_checkpoint(ckpt_dir, model, opt, epoch)
-        if cfg.epoch_val and epoch % cfg.epoch_val == 0 and primary:
+        if cfg.epoch_val and epoch % cfg.epoch_val == 0 and (
+                primary or sharded):
             val = validate_short(model, cfg, device)
+            if sharded:  # the first rank's scores decide for every rank
+                val = broadcast_object(val)
             scalars.scalars({f"val/{k}": v for k, v in val.items()}, epoch)
             log.info("[Val] epoch %d %s", epoch, val)
             if val["MAE"] < best_mae:

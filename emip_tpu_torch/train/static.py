@@ -26,7 +26,7 @@ import time
 
 import torch
 
-from emip_tpu_torch.config import Config
+from emip_tpu_torch.config import Config, warn_fsdp_ignored
 from emip_tpu_torch.data import StaticImageLoader
 from emip_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from emip_tpu_torch.dtypes import dtype_named
@@ -87,6 +87,7 @@ def train_static(cfg: Config, data_root: str, save_path: str,
     primary = is_primary()
     if primary:
         setup_logging(save_path, "train_static_log.log")
+        warn_fsdp_ignored(cfg, "train_static")
     model = build_seg_model(cfg, device)
     opt = ClampAdamW(model.parameters(), cfg.lr, cfg.weight_decay, cfg.clip)
     step_model = data_parallel(model)

@@ -74,15 +74,19 @@ def test_test_entry_point_predicts_from_a_trained_checkpoint(
 
 
 def test_test_cli_flags_mirror_root_test_py():
-    """The root script's flags plus --device (default: the card)."""
+    """The root script's flags plus --device (default: the card) and
+    --multi_host (sharded inference over a torchrun launch; off by
+    default)."""
     from emip_tpu_torch.test import parse_args
 
     with open(os.path.join(REPO, "test.py")) as f:
         root_flags = set(re.findall(r'add_argument\(\s*"(--\w+)"', f.read()))
     args = parse_args([])
-    assert {f"--{k}" for k in vars(args)} == root_flags | {"--device"}
-    assert (args.config, args.ckpt, args.data, args.device) == (
-        "configs/emip.yaml", None, None, "cuda")
+    assert {f"--{k}" for k in vars(args)} == root_flags | {"--device",
+                                                           "--multi_host"}
+    assert (args.config, args.ckpt, args.data, args.device,
+            args.multi_host) == ("configs/emip.yaml", None, None, "cuda",
+                                 False)
 
 
 # ------------------------------------------ F6: TF32 off on the card
@@ -414,14 +418,21 @@ def test_empty_dataset_block_is_none_as_in_jax(tmp_path):
     (dict(compute_dtype="bfloat16", optimizer=dict(name="sgd"),
           parallel=dict(model_parallel=2, sequence_parallel=True),
           long_frames_per_dispatch=4),
-     {"optimizer.name", "parallel", "long_frames_per_dispatch"})],
-    ids=["tiny", "unset", "trivial", "bf16", "all"])
+     {"optimizer.name", "parallel", "long_frames_per_dispatch"}),
+    (dict(parallel=dict(fsdp=True)), set()),
+    (dict(parallel=dict(fsdp=True, sequence_parallel=True)), {"parallel"}),
+    (dict(parallel=dict(model_parallel=4)), {"parallel"})],
+    ids=["tiny", "unset", "trivial", "bf16", "all", "fsdp", "fsdp_sp",
+         "model_parallel"])
 def test_ignored_keys_warn_once_each(tmp_path, caplog, keys, warned):
     """Each key that steers only the JAX package and asks for other than
     what the port does is named in one warning line; the tiny YAML and
     trivial values warn nothing. ``compute_dtype``, missing (the JAX
     package's default, bfloat16) or set, is never warned of: every entry
-    point honours it. Nothing else changes."""
+    point honours it. ``parallel.fsdp`` is not warned of at load either
+    (the short trainer shards; the long and static trainers warn
+    themselves), while ``model_parallel`` and ``sequence_parallel`` are.
+    Nothing else changes."""
     from emip_tpu_torch.config import load_config
 
     opt = dict(lr=1e-4, weight_decay=1e-7, **keys.pop("optimizer", {}))
@@ -439,6 +450,31 @@ def test_ignored_keys_warn_once_each(tmp_path, caplog, keys, warned):
     assert {m.split("=")[0].split()[-1] for m in lines} == warned
     assert len(lines) == len(warned)
     assert (cfg.lr, cfg.weight_decay) == (1e-4, 1e-7)
+    assert cfg.fsdp == bool((keys.get("parallel") or {}).get("fsdp"))
+
+
+def test_static_trainer_warns_that_it_ignores_fsdp(tmp_path, caplog):
+    """``train_static`` on a YAML with ``parallel.fsdp``: one warning line
+    that it ignores the key (only the short trainer shards, as in the JAX
+    package), and it trains."""
+    from emip_tpu_torch.config import load_config
+    from emip_tpu_torch.data import make_synthetic_static_root
+    from emip_tpu_torch.train.static import train_static
+
+    static = make_synthetic_static_root(str(tmp_path / "s"), num_images=2,
+                                        size=(40, 48))
+    cfg = load_config(th.tiny_yaml(tmp_path / "c.yaml", static,
+                                   str(tmp_path / "run"),
+                                   parallel=dict(fsdp=True)))
+    with caplog.at_level(logging.WARNING, logger="emip_tpu_torch"):
+        _, summary = train_static(cfg, static, str(tmp_path / "run"),
+                                  max_steps_per_epoch=1, device="cpu")
+    lines = [r.getMessage() for r in caplog.records
+             if r.levelno == logging.WARNING]
+    assert lines == ["config key parallel.fsdp=True is ignored by "
+                     "train_static: only the short trainer shards (as in "
+                     "the JAX package); it runs data-parallel"]
+    assert summary["steps"] == 1
 
 
 def test_repository_yaml_warns_of_bfloat16_only(caplog):

@@ -210,18 +210,21 @@ def _root_flags(script):
 @pytest.mark.parametrize("module,script,extra,required", [
     ("eval_offline", "eval_offline.py", set(),
      ["--gt_root", "g", "--pred_root", "p", "--data", "MoCA_test"]),
-    ("test_of", "test_of.py", {"--device"}, []),
+    ("test_of", "test_of.py", {"--device", "--multi_host"}, []),
     ("train_static", "train_static.py", {"--device"}, ["--data_root", "r"]),
 ])
 def test_cli_flags_mirror_root_scripts(module, script, extra, required):
     """The root script's flags, plus --device (default: the card) where a
-    model runs; the evaluator runs none and takes no --device."""
+    model runs, and --multi_host where inference shards over a torchrun
+    launch (off by default); the evaluator runs none and takes no
+    --device."""
     import importlib
 
     mod = importlib.import_module(f"emip_tpu_torch.{module}")
     args = mod.parse_args(required)
     assert {f"--{k}" for k in vars(args)} == _root_flags(script) | extra
     assert getattr(args, "device", "cuda") == "cuda"
+    assert not getattr(args, "multi_host", False)
 
 
 # ------------------------------------------------ flow visualisation

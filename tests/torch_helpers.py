@@ -22,23 +22,25 @@ CHANNEL = 8
 
 
 def jax_tiny_short(drop_path_rate: float = 0.1, size: int = SIZE, *,
-                   pvt: dict | None = None):
-    """(JAX EMIPShort, its config) at b0 widths, reduced depth and size,
-    exact GELU (a plain PVTv2Config) and the fused Pallas attention;
-    ``pvt`` sets further PVTv2Config fields (the MixFFN switches)."""
+                   pvt: dict | None = None, depths=DEPTHS):
+    """(JAX EMIPShort, its config) at b0 widths, reduced depth (``depths``
+    blocks a stage) and size, exact GELU (a plain PVTv2Config) and the
+    fused Pallas attention; ``pvt`` sets further PVTv2Config fields (the
+    MixFFN switches)."""
     from emip_tpu.models.backbones import register_backbone
     from emip_tpu.models.emip_short import EMIPShort, EMIPShortConfig
     from emip_tpu.models.gmflow import GMFlowConfig
     from emip_tpu.models.pvt_v2 import PVTv2, PVTv2Config
 
     pvt = pvt or {}
-    b0 = PVTv2Config((32, 64, 160, 256), (1, 2, 5, 8), (8, 8, 4, 4), DEPTHS,
+    b0 = PVTv2Config((32, 64, 160, 256), (1, 2, 5, 8), (8, 8, 4, 4), depths,
                      (8, 4, 2, 1), drop_path_rate=drop_path_rate,
                      remat=False, fused_attn="always", **pvt)
-    # one registry name per rate and switch: the registry is global to the
-    # process
+    # one registry name per rate, depth and switch: the registry is global
+    # to the process
     name = f"pvt_v2_b0_port_parity_dp{drop_path_rate}" + "".join(
-        f"_{k}{v}" for k, v in sorted(pvt.items()))
+        f"_{k}{v}" for k, v in sorted(pvt.items())) + (
+        "" if tuple(depths) == DEPTHS else f"_depths{tuple(depths)}")
     register_backbone(name, lambda dtype: PVTv2(config=b0, dtype=dtype),
                       b0.embed_dims)
     cfg = EMIPShortConfig(
@@ -341,8 +343,8 @@ def ddp_case(case: str, rows: slice) -> dict:
     through the trainers' own step functions (wrapped in
     ``DistributedDataParallel`` when a group of more than one rank is
     active); returns each step's loss, the last step's grads as AdamW
-    reads them before its clamp, the BatchNorm buffers and the trainable
-    parameters after the steps."""
+    reads them before its clamp, the BatchNorm buffers, the trainable
+    parameters and their AdamW moments after the steps."""
     from emip_tpu_torch.parallel import data_parallel
     from emip_tpu_torch.train.long import CachedStep, long_train_step
     from emip_tpu_torch.train.short import short_train_step
@@ -387,7 +389,10 @@ def ddp_case(case: str, rows: slice) -> dict:
     return dict(loss=losses, grads=grads, buffers=_bn_buffers(model),
                 params={k: p.detach().clone()
                         for k, p in model.named_parameters()
-                        if p.requires_grad})
+                        if p.requires_grad},
+                moments={names[id(p)]: {k: st[k].clone()
+                                        for k in ("exp_avg", "exp_avg_sq")}
+                         for p, st in opt.state.items()})
 
 
 def ddp_bn_case(rows: slice) -> dict:
